@@ -1,0 +1,30 @@
+"""JAX parameter tree -> the port's state_dict.
+
+The port's parameter names mirror the flax tree and keep its layouts (Dense
+kernels (in, out), FourierFeatures ``basis`` (in, out // 2)), so conversion
+is a rename: nested keys joined with dots, arrays copied as they are.
+"""
+
+import numpy as np
+import torch
+
+
+def flatten(tree, prefix=""):
+    """{"a": {"b": x}} -> {"a.b": x}."""
+    flat = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            flat.update(flatten(value, name + "."))
+        else:
+            flat[name] = value
+    return flat
+
+
+def state_dict_from_jax(params):
+    """``params``: the flax ``params`` collection as a nested dict of numpy
+    (or array-like) values. Returns a state_dict of float32 tensors for
+    ``model.load_state_dict`` (strict loading checks that every name
+    matches)."""
+    return {name: torch.from_numpy(np.array(value, dtype=np.float32))
+            for name, value in flatten(params).items()}

@@ -1,0 +1,237 @@
+// Shared device code for the port's hand-written Hopper kernels.
+//
+// Every kernel is compiled for sm_90a into its own shared library with a
+// plain C interface (ops/kernels/_build.py) and called through ctypes. Each
+// C entry point launches on the stream it is given, allocates nothing, and
+// returns the CUDA error code of the launch (0 on success).
+//
+// Blocks are four warps. A warp owns a strip of 16 rows; matrix products
+// use nvcuda::wmma 16x16x16 bf16 fragments with float32 accumulation. A
+// fragment's pointer must be 32-byte aligned and its leading dimension a
+// multiple of 8 elements (bf16) or 4 (float): every shared-memory row
+// stride below is padded by 8 bf16 or 4 floats and every tile offset is a
+// multiple of 16 rows or columns, which keeps both true.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cmath>
+
+namespace kdt {
+
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+
+// A (16 x 16) row-major; B (16 x 16) row-major, i.e. a (K, N) operand;
+// Bt (16 x 16) column-major, i.e. the transpose of a row-major (N, K) tile.
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+constexpr int WARPS = 4;           // warps per block
+constexpr int THREADS = WARPS * 32;
+constexpr int STRIP = 16;          // rows of a warp's strip
+constexpr int BM = WARPS * STRIP;  // rows of a block's tile
+constexpr int PANEL = 64;          // columns of an output panel (= head dim)
+constexpr int LDT = PANEL + 8;     // bf16 row stride of a 64-column tile
+constexpr int LDF = PANEL + 4;     // float row stride of a 64-column strip
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ bf16 to_bf(float v) { return __float2bfloat16(v); }
+// rounds a float to the nearest bf16 and back
+__device__ __forceinline__ float bf_round(float v) { return to_f(to_bf(v)); }
+
+// exact (erf) GELU, as torch.nn.functional.gelu(approximate="none")
+__device__ __forceinline__ float gelu_erf(float g) {
+  return 0.5f * g * (1.0f + erff(g * 0.70710678118654752440f));
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+template <int NF>
+__device__ __forceinline__ void zero(FragC (&acc)[NF]) {
+#pragma unroll
+  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
+}
+
+// acc[j] += A (16 x k_len, row-major, stride lda) x columns [16j, 16j + 16)
+// of B (k_len x 16 NF, row-major, stride ldb). A and B may lie in shared or
+// global memory.
+template <int NF>
+__device__ __forceinline__ void mma_strip(const bf16* a, int lda, const bf16* b, long ldb,
+                                          int k_len, FragC (&acc)[NF]) {
+  for (int k0 = 0; k0 < k_len; k0 += 16) {
+    FragA fa;
+    wmma::load_matrix_sync(fa, a + k0, lda);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      FragB fb;
+      wmma::load_matrix_sync(fb, b + k0 * ldb + 16 * j, static_cast<unsigned>(ldb));
+      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    }
+  }
+}
+
+// Stores a warp's 16 x 64 accumulator strip into its float scratch strip
+// (row stride ld).
+__device__ __forceinline__ void store_strip(float* scratch, int ld, FragC (&acc)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wmma::store_matrix_sync(scratch + 16 * j, acc[j], ld, wmma::mem_row_major);
+  __syncwarp();
+}
+
+// Writes rows [0, min(valid, 16)) of a warp's 16 x 64 float strip (stride
+// ld) as bf16 rows of dst (stride ldd), adding the bf16 rows of res (same
+// stride) first when res is given. Two columns per lane.
+__device__ __forceinline__ void write_strip(const float* scratch, int ld, bf16* dst, long ldd,
+                                            const bf16* res, int valid) {
+  const int c = 2 * (threadIdx.x & 31);
+  for (int r = 0; r < STRIP && r < valid; ++r) {
+    float v0 = scratch[r * ld + c], v1 = scratch[r * ld + c + 1];
+    if (res) {
+      const __nv_bfloat162 s = *reinterpret_cast<const __nv_bfloat162*>(res + r * ldd + c);
+      v0 += __low2float(s);
+      v1 += __high2float(s);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dst + r * ldd + c) = __floats2bfloat162_rn(v0, v1);
+  }
+  __syncwarp();
+}
+
+// Copies a (rows x 64) bf16 tile of a row-major matrix (row stride lds)
+// into shared memory (row stride LDT) in 16-byte vectors, the whole block
+// taking part. Rows at or past `valid` are filled with zeros.
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long lds, int rows,
+                                          int valid) {
+  for (int i = threadIdx.x; i < rows * 8; i += blockDim.x) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * lds + c);
+    *reinterpret_cast<uint4*>(dst + r * LDT + c) = v;
+  }
+}
+
+// AdaRMSNorm statistics of a block's BM-row tile of x (rows, d): per row
+// 1 / sqrt(mean(x^2) + eps) and the image the row belongs to (row / tokens).
+// Each warp takes its own 16 rows.
+__device__ __forceinline__ void norm_stats(const bf16* x, long row0, int valid, int d, int tokens,
+                                           float eps, float* inv, int* img) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  for (int r = warp * STRIP; r < (warp + 1) * STRIP; ++r) {
+    float ss = 0.f;
+    if (r < valid) {
+      const bf16* xr = x + (row0 + r) * d;
+      for (int c = 2 * lane; c < d; c += 64) {
+        const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
+        ss += t.x * t.x + t.y * t.y;
+      }
+    }
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      inv[r] = rsqrtf(ss / d + eps);
+      img[r] = r < valid ? static_cast<int>((row0 + r) / tokens) : 0;
+    }
+  }
+}
+
+// Loads columns [k0, k0 + 64) of a BM-row tile of AdaRMSNorm(x, nscale)
+// into shared memory (stride LDT): xn = bf16(x * bf16(nscale[img] * inv)),
+// the rounding point of the JAX package (the combined factor is cast to
+// the activation dtype before the multiply). nscale is (images, d) bf16.
+__device__ __forceinline__ void load_norm_tile(bf16* dst, const bf16* x, long row0, int valid,
+                                               int d, int k0, const bf16* nscale,
+                                               const float* inv, const int* img) {
+  for (int i = threadIdx.x; i < BM * 8; i += blockDim.x) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) {
+      const uint4 xv = *reinterpret_cast<const uint4*>(x + (row0 + r) * d + k0 + c);
+      const uint4 sv =
+          *reinterpret_cast<const uint4*>(nscale + static_cast<long>(img[r]) * d + k0 + c);
+      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+      const bf16* se = reinterpret_cast<const bf16*>(&sv);
+      bf16* ve = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ve[e] = to_bf(to_f(xe[e]) * bf_round(to_f(se[e]) * inv[r]));
+    }
+    *reinterpret_cast<uint4*>(dst + r * LDT + c) = v;
+  }
+}
+
+// Row-wise softmax of a warp's 16-row strip of logits, in place: row m of
+// the float logits s (stride lds, n columns, n % 16 == 0, n <= lds) becomes
+// row m of bf16 probabilities with stride 2 lds, ready as an A operand of
+// mma_strip. valid(m, j) masks logit j of row m out (every row keeps at
+// least one). The row's max is subtracted before the exponential.
+template <class Valid>
+__device__ __forceinline__ void softmax_strip(float* s, int lds, int n, float scale,
+                                              const Valid& valid) {
+  const int lane = threadIdx.x & 31;
+  for (int m = 0; m < STRIP; ++m) {
+    const float* row = s + m * lds;
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32)
+      if (valid(m, j)) mx = fmaxf(mx, row[j] * scale);
+    mx = warp_max(mx);
+    float l = 0.f;
+    for (int j = lane; j < n; j += 32)
+      if (valid(m, j)) l += __expf(row[j] * scale - mx);
+    const float inv_l = 1.f / warp_sum(l);
+    bf16* prow = reinterpret_cast<bf16*>(s) + 2 * m * lds;
+    // bf16 columns [j0, j0 + 64) overlay float columns [j0/2, j0/2 + 32),
+    // which were read by this chunk or an earlier one: read, sync, write.
+    for (int j0 = 0; j0 < n; j0 += 64) {
+      const int j1 = j0 + lane, j2 = j0 + lane + 32;
+      float p1 = 0.f, p2 = 0.f;
+      if (j1 < n && valid(m, j1)) p1 = __expf(row[j1] * scale - mx) * inv_l;
+      if (j2 < n && valid(m, j2)) p2 = __expf(row[j2] * scale - mx) * inv_l;
+      __syncwarp();
+      if (j1 < n) prow[j1] = to_bf(p1);
+      if (j2 < n) prow[j2] = to_bf(p2);
+      __syncwarp();
+    }
+  }
+}
+
+struct AllValid {
+  __device__ bool operator()(int, int) const { return true; }
+};
+
+// Allows `smem` bytes of dynamic shared memory for `kernel`.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Status of the launch just made; an attribute error from before it wins.
+inline int launch_status(cudaError_t before) {
+  const cudaError_t after = cudaGetLastError();
+  return static_cast<int>(before != cudaSuccess ? before : after);
+}
+
+}  // namespace kdt
+
+// Each library exports the name of an error code for the Python wrapper.
+#define KDT_DEFINE_ERROR_STRING                             \
+  extern "C" const char* kdt_error_string(int e) {          \
+    return cudaGetErrorString(static_cast<cudaError_t>(e)); \
+  }

@@ -1,0 +1,339 @@
+"""Hourglass Diffusion Transformer (HDiT), eval forward (counterpart of
+k_diffusion_tpu/models/image_transformer_v2.py).
+
+Layouts follow the JAX package: NHWC activations; Dense kernels stored
+(in, out) as ``<module>.kernel``; parameter names mirror the flax tree
+(``down_0_layer_0.self_attn.qkv_proj.kernel``), so a JAX checkpoint converts
+by renaming (``convert.py``). Parameters are float32 and ``dtype`` is the
+compute dtype, cast at every matmul as the flax layers do.
+
+The attention prologue, both attention kinds, the feed-forward block and the
+mapping network run through the wrappers in ``ops.kernels``: hand-written
+kernels for CUDA tensors, their plain versions for CPU tensors. The patch,
+merge, split and output projections are plain matmuls, as XLA ran them.
+"""
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..layers import FourierFeatures
+from ..ops import norms, rope
+from ..ops.kernels.fused_ffn import fused_geglu_ffn
+from ..ops.kernels.fused_mapping import fused_mapping
+from ..ops.kernels.fused_qkv import fused_qkv_prologue
+from ..ops.kernels.global_packed import packed_global_attention
+from ..ops.kernels.na2d import na2d_packed
+
+
+@dataclass(frozen=True)
+class GlobalAttentionSpec:
+    d_head: int
+
+
+@dataclass(frozen=True)
+class NeighborhoodAttentionSpec:
+    d_head: int
+    kernel_size: int
+
+
+@dataclass(frozen=True)
+class LevelSpec:
+    depth: int
+    width: int
+    d_ff: int
+    self_attn: object
+
+
+@dataclass(frozen=True)
+class MappingSpec:
+    depth: int
+    width: int
+    d_ff: int
+
+
+def _init_tensor(shape, init, generator, device):
+    """flax's initializers: "lecun" is lecun_normal (a normal truncated at
+    two standard deviations, rescaled to variance 1/fan_in), with fan_in the
+    first dim of an (in, out) kernel."""
+    if init == "zeros":
+        return torch.zeros(shape, device=device)
+    std = (1.0 / shape[0]) ** 0.5 / 0.87962566103423978
+    t = torch.empty(shape, device=device)
+    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
+class _Kernel(nn.Module):
+    """Owns one Dense kernel at ``<name>.kernel``."""
+
+    def __init__(self, shape, init, generator=None, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(_init_tensor(shape, init, generator, device))
+
+
+class _Scale(nn.Module):
+    """Owns one norm scale at ``<name>.scale``."""
+
+    def __init__(self, dim, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+
+
+class _AdaNorm(nn.Module):
+    """Owns an AdaRMSNorm projection at ``<name>.mapping_linear.kernel``
+    (zero-init, so scale = proj(cond) + 1 starts at 1)."""
+
+    def __init__(self, cond_features, d_model, device=None):
+        super().__init__()
+        self.mapping_linear = _Kernel((cond_features, d_model), "zeros",
+                                      device=device)
+
+    def forward(self, cond, dtype):
+        return cond.to(dtype) @ self.mapping_linear.kernel.to(dtype) + 1
+
+
+class RMSNorm(_Scale):
+    def __init__(self, dim, eps=1e-6, device=None):
+        super().__init__(dim, device)
+        self.eps = eps
+
+    def forward(self, x):
+        return norms.rms_norm(x, self.scale, self.eps)
+
+
+class SelfAttentionBlock(nn.Module):
+    """AdaRMSNorm -> qkv -> cosine-sim + RoPE (kernel K1) -> neighborhood
+    (K2) or global (K3) attention -> out projection -> residual."""
+
+    def __init__(self, d_model, attn_spec, cond_features, dtype, generator,
+                 device):
+        super().__init__()
+        self.d_model, self.attn_spec, self.dtype = d_model, attn_spec, dtype
+        self.n_heads = d_model // attn_spec.d_head
+        self.qkv_proj = _Kernel((d_model, 3 * d_model), "lecun", generator,
+                                device)
+        self.out_proj = _Kernel((d_model, d_model), "zeros", device=device)
+        self.scale = nn.Parameter(torch.full((self.n_heads,), 10.0,
+                                             device=device))
+        self.norm = _AdaNorm(cond_features, d_model, device)
+
+    def forward(self, x, pos, cond):
+        b, h, w, c = x.shape
+        norm_scale = self.norm(cond, self.dtype)
+        q, k, v = fused_qkv_prologue(x, pos, norm_scale, self.qkv_proj.kernel,
+                                     self.scale, self.n_heads)
+        if isinstance(self.attn_spec, GlobalAttentionSpec):
+            out = packed_global_attention(
+                q.reshape(b, h * w, c), k.reshape(b, h * w, c),
+                v.reshape(b, h * w, c), self.n_heads, scale=1.0)
+            out = out.reshape(b, h, w, c)
+        else:
+            out = na2d_packed(q, k, v, self.n_heads,
+                              self.attn_spec.kernel_size, scale=1.0)
+        return out.to(self.dtype) @ self.out_proj.kernel.to(self.dtype) + x
+
+
+class FeedForwardBlock(nn.Module):
+    """x + down(GEGLU(up(AdaRMSNorm(x, cond)))) as kernel K4."""
+
+    def __init__(self, d_model, d_ff, cond_features, generator, device):
+        super().__init__()
+        self.up_proj = _Kernel((d_model, 2 * d_ff), "lecun", generator, device)
+        self.down_proj = _Kernel((d_ff, d_model), "zeros", device=device)
+        self.norm = _AdaNorm(cond_features, d_model, device)
+
+    def forward(self, x, cond):
+        b, h, w, d = x.shape
+        scale = self.norm(cond, cond.dtype)
+        out = fused_geglu_ffn(x.reshape(b, h * w, d), scale,
+                              self.up_proj.kernel, self.down_proj.kernel)
+        return out.reshape(b, h, w, d)
+
+
+class TransformerLayer(nn.Module):
+    def __init__(self, spec, cond_features, dtype, generator, device):
+        super().__init__()
+        self.self_attn = SelfAttentionBlock(spec.width, spec.self_attn,
+                                            cond_features, dtype, generator,
+                                            device)
+        self.ff = FeedForwardBlock(spec.width, spec.d_ff, cond_features,
+                                   generator, device)
+
+    def forward(self, x, pos, cond):
+        return self.ff(self.self_attn(x, pos, cond), cond)
+
+
+class _MappingBlock(nn.Module):
+    def __init__(self, d_model, d_ff, generator, device):
+        super().__init__()
+        self.norm = _Scale(d_model, device)
+        self.up_proj = _Kernel((d_model, 2 * d_ff), "lecun", generator, device)
+        self.down_proj = _Kernel((d_ff, d_model), "zeros", device=device)
+
+
+class MappingNetwork(nn.Module):
+    """RMSNorm -> n x (RMSNorm -> GEGLU FF -> residual) -> RMSNorm as
+    kernel K5."""
+
+    def __init__(self, n_layers, d_model, d_ff, dtype, generator, device):
+        super().__init__()
+        self.dtype = dtype
+        self.in_norm = _Scale(d_model, device)
+        for i in range(n_layers):
+            self.add_module(f"block_{i}",
+                            _MappingBlock(d_model, d_ff, generator, device))
+        self.n_layers = n_layers
+        self.out_norm = _Scale(d_model, device)
+
+    def forward(self, x):
+        blocks = [getattr(self, f"block_{i}") for i in range(self.n_layers)]
+        return fused_mapping(
+            x, self.in_norm.scale, self.out_norm.scale,
+            [(blk.norm.scale, blk.up_proj.kernel, blk.down_proj.kernel)
+             for blk in blocks], dtype=self.dtype)
+
+
+def _patch(x, ph, pw):
+    """(b, h, w, c) -> (b, h/ph, w/pw, ph*pw*c), features in (ph, pw, c)
+    order, the row order of the JAX patch kernels."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ph, ph, w // pw, pw, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // ph, w // pw, ph * pw * c)
+
+
+def _unpatch(x, ph, pw):
+    """Inverse of _patch."""
+    b, h, w, f = x.shape
+    c = f // (ph * pw)
+    x = x.reshape(b, h, w, ph, pw, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * ph, w * pw, c)
+
+
+class TokenMerge(nn.Module):
+    """ph x pw pixel-shuffle downsample as one linear."""
+
+    def __init__(self, in_features, out_features, patch_size, dtype, generator,
+                 device):
+        super().__init__()
+        self.patch_size, self.dtype = patch_size, dtype
+        ph, pw = patch_size
+        self.proj = _Kernel((ph * pw * in_features, out_features), "lecun",
+                            generator, device)
+
+    def forward(self, x):
+        x = _patch(x, *self.patch_size)
+        return x.to(self.dtype) @ self.proj.kernel.to(self.dtype)
+
+
+class TokenSplitWithoutSkip(nn.Module):
+    """Linear + pixel-unshuffle upsample (the output head)."""
+
+    def __init__(self, in_features, out_features, patch_size, dtype, generator,
+                 device, zero_init=False):
+        super().__init__()
+        self.patch_size, self.dtype = patch_size, dtype
+        ph, pw = patch_size
+        self.proj = _Kernel((in_features, ph * pw * out_features),
+                            "zeros" if zero_init else "lecun", generator,
+                            device)
+
+    def forward(self, x):
+        x = x.to(self.dtype) @ self.proj.kernel.to(self.dtype)
+        return _unpatch(x, *self.patch_size)
+
+
+class TokenSplit(TokenSplitWithoutSkip):
+    """Upsample + learned lerp skip merge, fac init 0.5."""
+
+    def __init__(self, in_features, out_features, dtype, generator, device):
+        super().__init__(in_features, out_features, (2, 2), dtype, generator,
+                         device)
+        self.fac = nn.Parameter(torch.full((1,), 0.5, device=device))
+
+    def forward(self, x, skip):
+        x = super().forward(x)
+        return skip + (x - skip) * self.fac.to(x.dtype)
+
+
+class ImageTransformerDenoiserModelV2(nn.Module):
+    """Multi-level hourglass transformer denoiser, eval only.
+
+    ``model(x, sigma, aug_cond=None)`` with x (b, h, w, c) NHWC and sigma
+    (b,); returns float32 (b, h, w, c). Parameters are drawn from
+    ``generator``; the FourierFeatures bases too (the JAX package draws them
+    from a fixed threefry key, which ``convert.py`` carries across)."""
+
+    def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
+                 dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.levels, self.dtype = levels, dtype
+        mw = mapping.width
+        self.patch_in = TokenMerge(in_channels, levels[0].width, patch_size,
+                                   dtype, generator, device)
+        self.time_emb = FourierFeatures(1, mw, generator=generator,
+                                        device=device)
+        self.time_in_proj = _Kernel((mw, mw), "lecun", generator, device)
+        self.aug_emb = FourierFeatures(9, mw, generator=generator,
+                                       device=device)
+        self.aug_in_proj = _Kernel((mw, mw), "lecun", generator, device)
+        self.mapping = MappingNetwork(mapping.depth, mw, mapping.d_ff, dtype,
+                                      generator, device)
+        for prefix, spec in self._stacks():
+            for j in range(spec.depth):
+                self.add_module(f"{prefix}_layer_{j}", TransformerLayer(
+                    spec, mw, dtype, generator, device))
+        for i in range(len(levels) - 1):
+            self.add_module(f"merge_{i}", TokenMerge(
+                levels[i].width, levels[i + 1].width, (2, 2), dtype, generator,
+                device))
+            self.add_module(f"split_{i}", TokenSplit(
+                levels[i + 1].width, levels[i].width, dtype, generator,
+                device))
+        self.out_norm = RMSNorm(levels[0].width, device=device)
+        self.patch_out = TokenSplitWithoutSkip(
+            levels[0].width, out_channels, patch_size, dtype, generator,
+            device, zero_init=True)
+
+    def _stacks(self):
+        """(prefix, level spec) in execution order: down levels, mid, up."""
+        down = [(f"down_{i}", s) for i, s in enumerate(self.levels[:-1])]
+        up = [(f"up_{i}", s) for i, s in reversed(list(enumerate(
+            self.levels[:-1])))]
+        return down + [("mid", self.levels[-1])] + up
+
+    def _run_stack(self, prefix, depth, x, pos, cond):
+        for j in range(depth):
+            x = getattr(self, f"{prefix}_layer_{j}")(x, pos, cond)
+        return x
+
+    def forward(self, x, sigma, aug_cond=None):
+        dtype = self.dtype
+        x = self.patch_in(x.to(dtype))
+        pos = rope.make_axial_pos(x.shape[-3], x.shape[-2], device=x.device)
+
+        c_noise = torch.log(sigma.float()) / 4
+        time_emb = (self.time_emb(c_noise[..., None]).to(dtype)
+                    @ self.time_in_proj.kernel.to(dtype))
+        if aug_cond is None:
+            aug_cond = torch.zeros((sigma.shape[0], 9), dtype=dtype,
+                                   device=x.device)
+        aug_emb = (self.aug_emb(aug_cond.to(dtype)).to(dtype)
+                   @ self.aug_in_proj.kernel.to(dtype))
+        cond = self.mapping(time_emb + aug_emb)
+
+        skips, poses = [], []
+        for i, spec in enumerate(self.levels[:-1]):
+            x = self._run_stack(f"down_{i}", spec.depth, x, pos, cond)
+            skips.append(x)
+            poses.append(pos)
+            x = getattr(self, f"merge_{i}")(x)
+            pos = rope.downscale_pos(pos)
+        x = self._run_stack("mid", self.levels[-1].depth, x, pos, cond)
+        for i, spec in reversed(list(enumerate(self.levels[:-1]))):
+            x = getattr(self, f"split_{i}")(x, skips[i])
+            x = self._run_stack(f"up_{i}", spec.depth, x, poses[i], cond)
+
+        x = self.patch_out(self.out_norm(x))
+        return x.float()

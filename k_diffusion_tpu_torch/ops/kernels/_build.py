@@ -1,0 +1,136 @@
+"""Builds the hand-written CUDA kernels and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for sm_90a into its own
+shared library with a plain C interface, at first use, into
+``k_diffusion_tpu_torch/build/``. The library's file name carries a hash of
+its sources and flags, so an edit rebuilds it. Nothing is prebuilt and
+nothing is downloaded; a build takes seconds per file.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("fused_qkv", "na2d", "global_packed", "geglu")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return str(path)
+
+
+def library_path(name):
+    """Where the library for ``csrc/<name>.cu`` is built; the name carries
+    a hash of the source, the shared header and the flags."""
+    digest = hashlib.sha256()
+    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libkdt_{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES):
+    """Compiles every library in ``names`` that is not built yet, in
+    parallel. Returns the seconds taken. Raises with the compiler's output
+    if a build fails. The compiler's report (registers, spills) is kept
+    beside each library as ``.log``."""
+    start = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [(n, library_path(n)) for n in names if not library_path(n).exists()]
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode:
+            failed.append(f"--- {name}.cu ---\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - start
+
+
+def load(name, **signatures):
+    """The loaded library for ``csrc/<name>.cu``, built at first use.
+    ``signatures`` maps each C entry point to its argument types; every
+    entry point returns an int status."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.kdt_error_string.argtypes = [ctypes.c_int]
+            lib.kdt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        lib = _libs[name]
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            if fn.argtypes is None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        return lib
+
+
+def check_launch(lib, status, what):
+    """Raises if a C entry point returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(
+            f"{what}: CUDA error {status} "
+            f"({lib.kdt_error_string(status).decode()})")
+
+
+def stream_ptr(device):
+    """The current CUDA stream of ``device`` as a pointer for ctypes."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def require(t, what, device, dtype, shape):
+    """Checks that a kernel operand lies on ``device`` with the given dtype
+    and shape, contiguous and 16-byte aligned (the kernels load 16-byte
+    vectors); raises ValueError naming the operand otherwise."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} has dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+
+
+def require_cuda(x, what):
+    """Raises unless ``x`` is a CUDA tensor: a wrapper takes its plain
+    version only for CPU tensors."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")

@@ -1,0 +1,191 @@
+"""The port's HDiT and DPM++(2M) path (k_diffusion_tpu_torch) against the JAX
+package on the CPU, at a reduced flagship size, with the JAX weights
+converted by k_diffusion_tpu_torch.convert. On CPU tensors every kernel
+wrapper runs its plain version."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import k_diffusion_tpu as K
+import k_diffusion_tpu_torch as KT
+from k_diffusion_tpu_torch import convert
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+CONFIG = REPO / "configs" / "config_oxford_flowers.json"
+# the flagship with 1 layer per level and half the widths, d_head kept at
+# 64: a 64x64 image runs NA k=7 on 16x16 and 8x8 tokens, global on 4x4
+OVERRIDES = {"depths": [1, 1, 1], "widths": [64, 128, 256],
+             "d_ffs": [192, 384, 768], "input_size": [64, 64],
+             "dropout_rate": [0.0, 0.0, 0.0]}
+# float32 on both sides, the bound of the reference parity tests
+TOL = 2e-4
+ZERO_INIT = ("out_proj", "down_proj", "mapping_linear", "patch_out")
+
+
+def reduced(load_config):
+    config = load_config(CONFIG)
+    config["model"].update(OVERRIDES)
+    return config
+
+
+def randomized(params, seed):
+    """Seeded noise into every Dense kernel, the zero-initialised ones
+    (out_proj, down_proj, mapping_linear, patch_out) included: left at zero,
+    they make the model ignore every block and return c_skip * x, so a
+    broken block would pass. Scales are perturbed; the FourierFeatures
+    bases stay as JAX drew them."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, p):
+        p = np.asarray(p)
+        name = path[-1].key
+        if name == "basis":
+            return p
+        noise = rng.standard_normal(p.shape).astype(np.float32)
+        if name == "kernel":
+            return noise / np.sqrt(p.shape[0])
+        return p * (1 + 0.1 * noise)
+
+    return jax.tree_util.tree_map_with_path(fill, params)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """(JAX config, JAX model, its randomized params, the port's model with
+    those params converted)."""
+    config = reduced(K.config.load_config)
+    model = K.config.make_model(config)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 64, 64, 3)),
+                                 jnp.ones((1,)))["params"]
+    params = randomized(params, 0)
+    port = KT.config.make_model(reduced(KT.config.load_config),
+                                generator=torch.Generator().manual_seed(0))
+    port.load_state_dict(convert.state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    return config, model, params, port
+
+
+def close(got, want, tol=TOL):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def test_converter_is_a_rename(models):
+    """Every flax param maps to a port tensor of the same name and shape
+    (the FourierFeatures bases included), and nothing is left over."""
+    _, _, params, port = models
+    flat = convert.flatten(jax.tree_util.tree_map(np.asarray, params))
+    state = port.state_dict()
+    assert set(flat) == set(state)
+    for name, value in flat.items():
+        assert tuple(state[name].shape) == value.shape, name
+    np.testing.assert_array_equal(state["time_emb.basis"].numpy(),
+                                  flat["time_emb.basis"])
+    assert "down_0_layer_0.self_attn.qkv_proj.kernel" in state
+
+
+def test_parity_params_fill_every_zero_init_tensor(models):
+    _, _, params, _ = models
+    flat = convert.flatten(jax.tree_util.tree_map(np.asarray, params))
+    zero_init = [n for n in flat if any(z in n for z in ZERO_INIT)]
+    # 5 layers x (out_proj, down_proj, 2 mapping_linear), 2 mapping
+    # down_proj, patch_out
+    assert len(zero_init) == 5 * 4 + 2 + 1
+    for name in zero_init:
+        assert np.count_nonzero(flat[name]) == flat[name].size, name
+
+
+def test_fresh_model_ignores_its_blocks():
+    """The zero-init trap: a freshly initialised HDiT's output head is zero,
+    so its denoiser returns exactly c_skip * x whatever the blocks do."""
+    config = reduced(KT.config.load_config)
+    model = KT.config.make_model(config,
+                                 generator=torch.Generator().manual_seed(1))
+    x = torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        assert torch.count_nonzero(model(x, torch.ones(1))) == 0
+
+
+@pytest.mark.parametrize("with_aug", [False, True])
+def test_denoiser_forward_matches_jax(models, with_aug):
+    config, model, params, port = models
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    sigma = np.float32([0.4, 2.5])
+    aug = (rng.standard_normal((2, 9)) * 0.3).astype(np.float32)
+    kw_j = {"aug_cond": jnp.asarray(aug)} if with_aug else {}
+    kw_t = {"aug_cond": torch.from_numpy(aug)} if with_aug else {}
+    wrap = K.config.make_denoiser_wrapper(config)(
+        lambda x, s, **kw: model.apply({"params": params}, x, s, **kw))
+    want = wrap(jnp.asarray(x), jnp.asarray(sigma), **kw_j)
+    denoiser = KT.config.make_denoiser_wrapper(config)(port)
+    with torch.no_grad():
+        got = denoiser(torch.from_numpy(x), torch.from_numpy(sigma), **kw_t)
+        inner = port(torch.from_numpy(x), torch.from_numpy(sigma))
+    close(got, want)
+    # the blocks matter: the model output is far from the c_skip * x skip
+    assert inner.std() > 0.1
+
+
+def test_sample_dpmpp_2m_trajectory_matches_jax(models):
+    """10 steps through the reduced flagship: every step's denoised output
+    and the final sample agree with JAX."""
+    config, model, params, port = models
+    sigmas = np.asarray(K.sampling.get_sigmas_karras(10, 1e-2, 160.0, rho=7.0))
+    x = (np.random.default_rng(4).standard_normal((1, 64, 64, 3))
+         * sigmas[0]).astype(np.float32)
+    steps_j, steps_t = [], []
+    wrap = K.config.make_denoiser_wrapper(config)(
+        lambda x, s, **kw: model.apply({"params": params}, x, s, **kw))
+    want = K.sampling.sample_dpmpp_2m(
+        wrap, jnp.asarray(x), jnp.asarray(sigmas),
+        callback=lambda info: steps_j.append(
+            (int(info["i"]), np.asarray(info["denoised"]))))
+    jax.effects_barrier()  # debug callbacks run asynchronously, unordered
+    steps_j = [d for _, d in sorted(steps_j, key=lambda s: s[0])]
+    denoiser = KT.config.make_denoiser_wrapper(config)(port)
+    got = KT.sampling.sample_dpmpp_2m(
+        denoiser, torch.from_numpy(x),
+        KT.sampling.get_sigmas_karras(10, 1e-2, 160.0, rho=7.0),
+        callback=lambda info: steps_t.append(info["denoised"]))
+    assert len(steps_t) == len(steps_j) == 10
+    for d_t, d_j in zip(steps_t, steps_j):
+        close(d_t, d_j)
+    close(got, want)
+
+
+def test_import_without_jax():
+    """The port imports and runs with jax, flax and optax unimportable, as
+    on a machine that has none of them."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "flax", "optax"):
+            sys.modules[name] = None
+        import torch
+        import k_diffusion_tpu_torch as KT
+        config = KT.config.load_config({str(CONFIG)!r})
+        config["model"].update({OVERRIDES!r})
+        model = KT.config.make_model(config)
+        with torch.no_grad():
+            out = model(torch.zeros(1, 64, 64, 3), torch.ones(1))
+        assert out.shape == (1, 64, 64, 3)
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "optax")
+                    and sys.modules[m] is not None]
+        """)
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=300)
