@@ -1,10 +1,11 @@
-"""JSON config loading and the model and denoiser factories (counterpart of
-k_diffusion_tpu/config.py). The JAX package's module imports jax when it is
-imported, so the port carries its own copy of the config logic.
+"""JSON config loading and the model, denoiser, sigma density, LR and EMA
+schedule factories (counterpart of k_diffusion_tpu/config.py). The JAX
+package's module imports jax when it is imported, so the port carries its
+own copy of the config logic.
 
 The port covers the ``image_transformer_v2`` family: the other model types,
-class and mapping conditioning, and the shifted-window and no-attention
-levels raise ``NotImplementedError`` until they are ported.
+class and mapping conditioning, the shifted-window and no-attention levels
+and the variance head raise ``NotImplementedError`` until they are ported.
 """
 
 import json
@@ -14,7 +15,7 @@ from pathlib import Path
 
 import torch
 
-from . import denoiser
+from . import denoiser, utils
 
 
 def deep_merge(base, head):
@@ -106,9 +107,11 @@ def load_config(path_or_dict):
 
 
 def make_model(config, dtype=torch.float32, device=None, generator=None):
-    """Builds the eval-mode HDiT from a loaded config. Parameters are
-    float32 on ``device``, drawn from ``generator``; ``dtype`` is the compute
-    dtype. Dropout rates are accepted and ignored: the port is eval-only."""
+    """Builds the HDiT from a loaded config. Parameters are float32 on
+    ``device``, drawn from ``generator``; ``dtype`` is the compute dtype.
+    The levels' and the mapping network's dropout rates apply under
+    ``model.train()``, PyTorch's default mode: call ``model.eval()`` to
+    sample."""
     from .models import image_transformer_v2 as itv2
 
     num_classes = config["dataset"]["num_classes"]
@@ -122,9 +125,9 @@ def make_model(config, dtype=torch.float32, device=None, generator=None):
         if len(config[key]) != n:
             raise ValueError(f"{key} has {len(config[key])} entries, widths {n}")
     levels = []
-    for depth, width, d_ff, self_attn in zip(
+    for depth, width, d_ff, self_attn, dropout in zip(
             config["depths"], config["widths"], config["d_ffs"],
-            config["self_attns"]):
+            config["self_attns"], config["dropout_rate"]):
         if self_attn["type"] == "global":
             spec = itv2.GlobalAttentionSpec(self_attn.get("d_head", 64))
         elif self_attn["type"] == "neighborhood":
@@ -134,9 +137,10 @@ def make_model(config, dtype=torch.float32, device=None, generator=None):
             raise NotImplementedError(
                 f"self attention type {self_attn['type']!r} comes with a "
                 "later port")
-        levels.append(itv2.LevelSpec(depth, width, d_ff, spec))
+        levels.append(itv2.LevelSpec(depth, width, d_ff, spec, dropout))
     mapping = itv2.MappingSpec(config["mapping_depth"],
-                               config["mapping_width"], config["mapping_d_ff"])
+                               config["mapping_width"], config["mapping_d_ff"],
+                               config["mapping_dropout_rate"])
     patch = config["patch_size"]
     patch = tuple(patch) if isinstance(patch, (list, tuple)) else (patch, patch)
     return itv2.ImageTransformerDenoiserModelV2(
@@ -147,13 +151,95 @@ def make_model(config, dtype=torch.float32, device=None, generator=None):
 
 
 def make_denoiser_wrapper(config):
-    """The Karras preconditioner factory; variance and simple-loss wrappers
-    come with the training port."""
+    """Karras or simple loss wrapper factory. The variance head
+    (``has_variance``) comes with a later model port."""
     config = config["model"]
-    if config.get("loss_config", "karras") != "karras" or config.get(
-            "has_variance", False):
+    sigma_data = config.get("sigma_data", 1.0)
+    if config.get("has_variance", False):
         raise NotImplementedError(
-            "only the Karras denoiser without variance is ported")
-    return partial(denoiser.Denoiser, sigma_data=config.get("sigma_data", 1.0),
-                   weighting=config.get("loss_weighting", "karras"),
-                   scales=config.get("loss_scales", 1))
+            "DenoiserWithVariance and a model with a variance head are not "
+            "ported yet")
+    loss_config = config.get("loss_config", "karras")
+    if loss_config == "karras":
+        return partial(denoiser.Denoiser, sigma_data=sigma_data,
+                       weighting=config.get("loss_weighting", "karras"),
+                       scales=config.get("loss_scales", 1))
+    if loss_config == "simple":
+        return partial(denoiser.SimpleLossDenoiser, sigma_data=sigma_data)
+    raise ValueError("Unknown loss config type")
+
+
+def make_sample_density(config):
+    """Training-time sigma density factory from the ``model`` config
+    section, as the JAX package's. Returns
+    ``fn(shape, stratified=None, generator=None, device=None) -> sigmas``."""
+    sd_config = config["sigma_sample_density"]
+    sigma_data = config["sigma_data"]
+    kind = sd_config["type"]
+    if kind == "lognormal":
+        loc = sd_config["mean"] if "mean" in sd_config else sd_config["loc"]
+        scale = sd_config["std"] if "std" in sd_config else sd_config["scale"]
+        return partial(utils.rand_log_normal, loc=loc, scale=scale)
+    if kind == "loglogistic":
+        return partial(utils.rand_log_logistic,
+                       loc=sd_config.get("loc", math.log(sigma_data)),
+                       scale=sd_config.get("scale", 0.5),
+                       min_value=sd_config.get("min_value", 0.0),
+                       max_value=sd_config.get("max_value", float("inf")))
+    if kind == "loguniform":
+        return partial(utils.rand_log_uniform,
+                       min_value=sd_config.get("min_value", config["sigma_min"]),
+                       max_value=sd_config.get("max_value", config["sigma_max"]))
+    if kind in {"v-diffusion", "cosine"}:
+        return partial(utils.rand_v_diffusion, sigma_data=sigma_data,
+                       min_value=sd_config.get("min_value", 1e-3),
+                       max_value=sd_config.get("max_value", 1e3))
+    if kind == "split-lognormal":
+        loc = sd_config["mean"] if "mean" in sd_config else sd_config["loc"]
+        scale_1 = sd_config["std_1"] if "std_1" in sd_config else sd_config["scale_1"]
+        scale_2 = sd_config["std_2"] if "std_2" in sd_config else sd_config["scale_2"]
+
+        def density(shape, stratified=None, generator=None, device=None):
+            # never stratified, as in the JAX package and the reference
+            return utils.rand_split_log_normal(shape, loc, scale_1, scale_2,
+                                               generator, device)
+
+        return density
+    if kind == "cosine-interpolated":
+        return partial(
+            utils.rand_cosine_interpolated,
+            image_d=sd_config.get("image_d", max(config["input_size"])),
+            noise_d_low=sd_config.get("noise_d_low", 32),
+            noise_d_high=sd_config.get("noise_d_high", max(config["input_size"])),
+            sigma_data=sigma_data,
+            min_value=sd_config.get("min_value", min(config["sigma_min"], 1e-3)),
+            max_value=sd_config.get("max_value", max(config["sigma_max"], 1e3)))
+    raise ValueError("Unknown sample density type")
+
+
+def make_lr_schedule(config):
+    """LR schedule factory from the lr_sched config section."""
+    sched_config = config["lr_sched"]
+    base_lr = config["optimizer"]["lr"]
+    if sched_config["type"] == "constant":
+        return utils.constant_lr_with_warmup(base_lr, warmup=sched_config["warmup"])
+    if sched_config["type"] == "inverse":
+        return utils.inverse_lr(
+            base_lr, inv_gamma=sched_config["inv_gamma"],
+            power=sched_config["power"], warmup=sched_config["warmup"],
+            min_lr=sched_config.get("min_lr", 0.0))
+    if sched_config["type"] == "exponential":
+        return utils.exponential_lr(
+            base_lr, num_steps=sched_config["num_steps"],
+            decay=sched_config.get("decay", 0.5), warmup=sched_config["warmup"],
+            min_lr=sched_config.get("min_lr", 0.0))
+    raise ValueError("Unknown lr_sched type")
+
+
+def make_ema_sched(config):
+    """EMA decay schedule factory."""
+    sched_config = config["ema_sched"]
+    if sched_config["type"] == "inverse":
+        return utils.EMAWarmup(power=sched_config["power"],
+                               max_value=sched_config["max_value"])
+    raise ValueError("Unknown ema_sched type")

@@ -1,4 +1,5 @@
-"""JAX parameter tree -> the port's state_dict.
+"""JAX parameter trees -> the port's state_dicts: a model's params, and a
+JAX ``TrainState``'s params and EMA params into the port's train state.
 
 The port's parameter names mirror the flax tree and keep its layouts (Dense
 kernels (in, out), FourierFeatures ``basis`` (in, out // 2)), so conversion
@@ -28,3 +29,12 @@ def state_dict_from_jax(params):
     matches)."""
     return {name: torch.from_numpy(np.array(value, dtype=np.float32))
             for name, value in flatten(params).items()}
+
+
+def load_train_state(train_state, params, ema_params):
+    """Loads a JAX ``TrainState``'s ``params`` and ``ema_params`` (nested
+    dicts of numpy values) into the port's ``TrainState``: the model and
+    its EMA copy. The optimizer state is not carried."""
+    train_state.model.load_state_dict(state_dict_from_jax(params))
+    train_state.ema_model.load_state_dict(state_dict_from_jax(ema_params))
+    return train_state

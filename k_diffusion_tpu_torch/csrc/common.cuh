@@ -180,10 +180,11 @@ __device__ __forceinline__ void load_norm_tile(bf16* dst, const bf16* x, long ro
 // the float logits s (stride lds, n columns, n % 16 == 0, n <= lds) becomes
 // row m of bf16 probabilities with stride 2 lds, ready as an A operand of
 // mma_strip. valid(m, j) masks logit j of row m out (every row keeps at
-// least one). The row's max is subtracted before the exponential.
+// least one). The row's max is subtracted before the exponential. When lse
+// is given, lane 0 writes row m's logsumexp, max + log(sum), to lse[m].
 template <class Valid>
 __device__ __forceinline__ void softmax_strip(float* s, int lds, int n, float scale,
-                                              const Valid& valid) {
+                                              const Valid& valid, float* lse = nullptr) {
   const int lane = threadIdx.x & 31;
   for (int m = 0; m < STRIP; ++m) {
     const float* row = s + m * lds;
@@ -194,7 +195,9 @@ __device__ __forceinline__ void softmax_strip(float* s, int lds, int n, float sc
     float l = 0.f;
     for (int j = lane; j < n; j += 32)
       if (valid(m, j)) l += __expf(row[j] * scale - mx);
-    const float inv_l = 1.f / warp_sum(l);
+    l = warp_sum(l);
+    if (lse != nullptr && lane == 0) lse[m] = mx + __logf(l);
+    const float inv_l = 1.f / l;
     bf16* prow = reinterpret_cast<bf16*>(s) + 2 * m * lds;
     // bf16 columns [j0, j0 + 64) overlay float columns [j0/2, j0/2 + 32),
     // which were read by this chunk or an earlier one: read, sync, write.
@@ -203,6 +206,24 @@ __device__ __forceinline__ void softmax_strip(float* s, int lds, int n, float sc
       float p1 = 0.f, p2 = 0.f;
       if (j1 < n && valid(m, j1)) p1 = __expf(row[j1] * scale - mx) * inv_l;
       if (j2 < n && valid(m, j2)) p2 = __expf(row[j2] * scale - mx) * inv_l;
+      __syncwarp();
+      if (j1 < n) prow[j1] = to_bf(p1);
+      if (j2 < n) prow[j2] = to_bf(p2);
+      __syncwarp();
+    }
+  }
+}
+
+// Rounds a warp's 16-row float strip (stride lds, n columns) to bf16 in
+// place, with stride 2 lds, the same overlay as softmax_strip.
+__device__ __forceinline__ void strip_to_bf16(float* s, int lds, int n) {
+  const int lane = threadIdx.x & 31;
+  for (int m = 0; m < STRIP; ++m) {
+    const float* row = s + m * lds;
+    bf16* prow = reinterpret_cast<bf16*>(s) + 2 * m * lds;
+    for (int j0 = 0; j0 < n; j0 += 64) {
+      const int j1 = j0 + lane, j2 = j0 + lane + 32;
+      const float p1 = j1 < n ? row[j1] : 0.f, p2 = j2 < n ? row[j2] : 0.f;
       __syncwarp();
       if (j1 < n) prow[j1] = to_bf(p1);
       if (j2 < n) prow[j2] = to_bf(p2);

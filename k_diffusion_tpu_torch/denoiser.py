@@ -1,9 +1,10 @@
-"""EDM preconditioning and loss weightings (counterpart of
-k_diffusion_tpu/denoiser.py). Eval only: the loss wrappers come with the
-training port."""
+"""EDM preconditioning, loss weightings and loss wrappers (counterpart of
+k_diffusion_tpu/denoiser.py). Each wrapper holds a plain callable
+``inner_model(x, sigma, **kwargs)``."""
 
 import torch
 
+from . import sampling
 from .utils import append_dims
 
 
@@ -38,15 +39,14 @@ _WEIGHTINGS = {
 class Denoiser:
     """Karras et al. preconditioner around a plain callable
     ``inner_model(x, sigma, **kwargs)``:
-    ``D(x, sigma) = inner(x * c_in, sigma) * c_out + x * c_skip``."""
+    ``D(x, sigma) = inner(x * c_in, sigma) * c_out + x * c_skip``;
+    ``loss`` is the weighted MSE in the preconditioned target space."""
 
     def __init__(self, inner_model, sigma_data=1.0, weighting="karras",
                  scales=1):
-        if scales != 1:
-            raise NotImplementedError(
-                "multiscale loss weighting comes with the training port")
         self.inner_model = inner_model
         self.sigma_data = sigma_data
+        self.scales = scales
         if callable(weighting):
             self.weighting = weighting
         else:
@@ -59,8 +59,33 @@ class Denoiser:
     def get_scalings(self, sigma):
         return edm_scalings(sigma, self.sigma_data)
 
+    def loss(self, input, noise, sigma, **kwargs):
+        """Per-sample losses (batch,)."""
+        if self.scales != 1:
+            raise NotImplementedError(
+                "the DCT multiscale loss weighting (loss_scales > 1) is not "
+                "ported yet")
+        c_skip, c_out, c_in = [append_dims(s, input.ndim)
+                               for s in self.get_scalings(sigma)]
+        c_weight = self.weighting(sigma)
+        noised_input = input + noise * append_dims(sigma, input.ndim)
+        model_output = self.inner_model(noised_input * c_in, sigma, **kwargs)
+        target = (input - c_skip * noised_input) / c_out
+        return ((model_output - target) ** 2).reshape(
+            input.shape[0], -1).mean(dim=1) * c_weight
+
     def __call__(self, input, sigma, **kwargs):
         c_skip, c_out, c_in = [append_dims(s, input.ndim)
                                for s in self.get_scalings(sigma)]
         return (self.inner_model(input * c_in, sigma, **kwargs) * c_out
                 + input * c_skip)
+
+
+class SimpleLossDenoiser(Denoiser):
+    """L_simple (eps-space MSE) on top of the preconditioner."""
+
+    def loss(self, input, noise, sigma, **kwargs):
+        noised_input = input + noise * append_dims(sigma, input.ndim)
+        denoised = self(noised_input, sigma, **kwargs)
+        eps = sampling.to_d(noised_input, sigma, denoised)
+        return ((eps - noise) ** 2).reshape(input.shape[0], -1).mean(dim=1)

@@ -1,5 +1,5 @@
-"""Hourglass Diffusion Transformer (HDiT), eval forward (counterpart of
-k_diffusion_tpu/models/image_transformer_v2.py).
+"""Hourglass Diffusion Transformer (HDiT), eval and training forward
+(counterpart of k_diffusion_tpu/models/image_transformer_v2.py).
 
 Layouts follow the JAX package: NHWC activations; Dense kernels stored
 (in, out) as ``<module>.kernel``; parameter names mirror the flax tree
@@ -9,8 +9,17 @@ compute dtype, cast at every matmul as the flax layers do.
 
 The attention prologue, both attention kinds, the feed-forward block and the
 mapping network run through the wrappers in ``ops.kernels``: hand-written
-kernels for CUDA tensors, their plain versions for CPU tensors. The patch,
-merge, split and output projections are plain matmuls, as XLA ran them.
+kernels for CUDA tensors, their plain versions for CPU tensors; their
+backwards are hand-written kernels too. The patch, merge, split and output
+projections are plain matmuls, as XLA ran them.
+
+Under ``model.train()`` each level's dropout applies where the JAX model
+applies it: to the attention output before ``out_proj``, and to the GEGLU
+hidden activation of the feed-forward blocks and the mapping network. A
+block whose dropout is active runs the unfused plain chain (the fused
+kernels contain no dropout), exactly as the JAX model routes: the
+prologue always runs fused. Dropout masks are drawn from the
+``torch.Generator`` passed to ``forward``.
 """
 
 from dataclasses import dataclass
@@ -20,6 +29,7 @@ from torch import nn
 
 from ..layers import FourierFeatures
 from ..ops import norms, rope
+from ..ops.geglu import linear_geglu
 from ..ops.kernels.fused_ffn import fused_geglu_ffn
 from ..ops.kernels.fused_mapping import fused_mapping
 from ..ops.kernels.fused_qkv import fused_qkv_prologue
@@ -44,6 +54,7 @@ class LevelSpec:
     width: int
     d_ff: int
     self_attn: object
+    dropout: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -51,6 +62,15 @@ class MappingSpec:
     depth: int
     width: int
     d_ff: int
+    dropout: float = 0.0
+
+
+def dropout(x, rate, generator=None):
+    """flax's ``nn.Dropout``: keeps each element with probability 1 - rate
+    and scales it by 1 / (1 - rate); the mask is drawn from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+    return torch.where(keep, x / (1 - rate), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 def _init_tensor(shape, init, generator, device):
@@ -105,12 +125,14 @@ class RMSNorm(_Scale):
 
 class SelfAttentionBlock(nn.Module):
     """AdaRMSNorm -> qkv -> cosine-sim + RoPE (kernel K1) -> neighborhood
-    (K2) or global (K3) attention -> out projection -> residual."""
+    (K2) or global (K3) attention -> dropout -> out projection ->
+    residual."""
 
     def __init__(self, d_model, attn_spec, cond_features, dtype, generator,
-                 device):
+                 device, dropout=0.0):
         super().__init__()
         self.d_model, self.attn_spec, self.dtype = d_model, attn_spec, dtype
+        self.dropout = dropout
         self.n_heads = d_model // attn_spec.d_head
         self.qkv_proj = _Kernel((d_model, 3 * d_model), "lecun", generator,
                                 device)
@@ -119,7 +141,7 @@ class SelfAttentionBlock(nn.Module):
                                              device=device))
         self.norm = _AdaNorm(cond_features, d_model, device)
 
-    def forward(self, x, pos, cond):
+    def forward(self, x, pos, cond, generator=None):
         b, h, w, c = x.shape
         norm_scale = self.norm(cond, self.dtype)
         q, k, v = fused_qkv_prologue(x, pos, norm_scale, self.qkv_proj.kernel,
@@ -132,24 +154,35 @@ class SelfAttentionBlock(nn.Module):
         else:
             out = na2d_packed(q, k, v, self.n_heads,
                               self.attn_spec.kernel_size, scale=1.0)
+        if self.training and self.dropout:
+            out = dropout(out, self.dropout, generator)
         return out.to(self.dtype) @ self.out_proj.kernel.to(self.dtype) + x
 
 
 class FeedForwardBlock(nn.Module):
-    """x + down(GEGLU(up(AdaRMSNorm(x, cond)))) as kernel K4."""
+    """x + down(GEGLU(up(AdaRMSNorm(x, cond)))) as kernel K4; with dropout
+    active, the unfused chain norm -> GEGLU up -> dropout -> down ->
+    residual."""
 
-    def __init__(self, d_model, d_ff, cond_features, generator, device):
+    def __init__(self, d_model, d_ff, cond_features, generator, device,
+                 dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.up_proj = _Kernel((d_model, 2 * d_ff), "lecun", generator, device)
         self.down_proj = _Kernel((d_ff, d_model), "zeros", device=device)
         self.norm = _AdaNorm(cond_features, d_model, device)
 
-    def forward(self, x, cond):
+    def forward(self, x, cond, generator=None):
         b, h, w, d = x.shape
         scale = self.norm(cond, cond.dtype)
-        out = fused_geglu_ffn(x.reshape(b, h * w, d), scale,
-                              self.up_proj.kernel, self.down_proj.kernel)
-        return out.reshape(b, h, w, d)
+        if not (self.training and self.dropout):
+            out = fused_geglu_ffn(x.reshape(b, h * w, d), scale,
+                                  self.up_proj.kernel, self.down_proj.kernel)
+            return out.reshape(b, h, w, d)
+        xn = norms.rms_norm(x, scale[:, None, None, :].to(x.dtype))
+        hidden = linear_geglu(xn, self.up_proj.kernel.to(x.dtype))
+        hidden = dropout(hidden, self.dropout, generator)
+        return hidden @ self.down_proj.kernel.to(x.dtype) + x
 
 
 class TransformerLayer(nn.Module):
@@ -157,12 +190,12 @@ class TransformerLayer(nn.Module):
         super().__init__()
         self.self_attn = SelfAttentionBlock(spec.width, spec.self_attn,
                                             cond_features, dtype, generator,
-                                            device)
+                                            device, spec.dropout)
         self.ff = FeedForwardBlock(spec.width, spec.d_ff, cond_features,
-                                   generator, device)
+                                   generator, device, spec.dropout)
 
-    def forward(self, x, pos, cond):
-        return self.ff(self.self_attn(x, pos, cond), cond)
+    def forward(self, x, pos, cond, generator=None):
+        return self.ff(self.self_attn(x, pos, cond, generator), cond, generator)
 
 
 class _MappingBlock(nn.Module):
@@ -175,11 +208,13 @@ class _MappingBlock(nn.Module):
 
 class MappingNetwork(nn.Module):
     """RMSNorm -> n x (RMSNorm -> GEGLU FF -> residual) -> RMSNorm as
-    kernel K5."""
+    kernel K5; with dropout active, the unfused chain with dropout on each
+    GEGLU hidden activation."""
 
-    def __init__(self, n_layers, d_model, d_ff, dtype, generator, device):
+    def __init__(self, n_layers, d_model, d_ff, dtype, generator, device,
+                 dropout=0.0):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         self.in_norm = _Scale(d_model, device)
         for i in range(n_layers):
             self.add_module(f"block_{i}",
@@ -187,12 +222,20 @@ class MappingNetwork(nn.Module):
         self.n_layers = n_layers
         self.out_norm = _Scale(d_model, device)
 
-    def forward(self, x):
-        blocks = [getattr(self, f"block_{i}") for i in range(self.n_layers)]
-        return fused_mapping(
-            x, self.in_norm.scale, self.out_norm.scale,
-            [(blk.norm.scale, blk.up_proj.kernel, blk.down_proj.kernel)
-             for blk in blocks], dtype=self.dtype)
+    def forward(self, x, generator=None):
+        blocks = [(blk.norm.scale, blk.up_proj.kernel, blk.down_proj.kernel)
+                  for blk in (getattr(self, f"block_{i}")
+                              for i in range(self.n_layers))]
+        if not (self.training and self.dropout):
+            return fused_mapping(x, self.in_norm.scale, self.out_norm.scale,
+                                 blocks, dtype=self.dtype)
+        dtype = self.dtype
+        x = norms.rms_norm(x, self.in_norm.scale)
+        for ns, w_up, w_down in blocks:
+            hidden = linear_geglu(norms.rms_norm(x, ns).to(dtype), w_up.to(dtype))
+            hidden = dropout(hidden, self.dropout, generator)
+            x = x + hidden.to(dtype) @ w_down.to(dtype)
+        return norms.rms_norm(x, self.out_norm.scale)
 
 
 def _patch(x, ph, pw):
@@ -258,12 +301,14 @@ class TokenSplit(TokenSplitWithoutSkip):
 
 
 class ImageTransformerDenoiserModelV2(nn.Module):
-    """Multi-level hourglass transformer denoiser, eval only.
+    """Multi-level hourglass transformer denoiser.
 
-    ``model(x, sigma, aug_cond=None)`` with x (b, h, w, c) NHWC and sigma
-    (b,); returns float32 (b, h, w, c). Parameters are drawn from
-    ``generator``; the FourierFeatures bases too (the JAX package draws them
-    from a fixed threefry key, which ``convert.py`` carries across)."""
+    ``model(x, sigma, aug_cond=None, generator=None)`` with x (b, h, w, c)
+    NHWC and sigma (b,); returns float32 (b, h, w, c). ``generator`` draws
+    the dropout masks under ``model.train()``. Parameters are drawn from the
+    constructor's ``generator``; the FourierFeatures bases too (the JAX
+    package draws them from a fixed threefry key, which ``convert.py``
+    carries across)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
                  dtype=torch.float32, device=None, generator=None):
@@ -279,7 +324,7 @@ class ImageTransformerDenoiserModelV2(nn.Module):
                                        device=device)
         self.aug_in_proj = _Kernel((mw, mw), "lecun", generator, device)
         self.mapping = MappingNetwork(mapping.depth, mw, mapping.d_ff, dtype,
-                                      generator, device)
+                                      generator, device, mapping.dropout)
         for prefix, spec in self._stacks():
             for j in range(spec.depth):
                 self.add_module(f"{prefix}_layer_{j}", TransformerLayer(
@@ -303,12 +348,12 @@ class ImageTransformerDenoiserModelV2(nn.Module):
             self.levels[:-1])))]
         return down + [("mid", self.levels[-1])] + up
 
-    def _run_stack(self, prefix, depth, x, pos, cond):
+    def _run_stack(self, prefix, depth, x, pos, cond, generator):
         for j in range(depth):
-            x = getattr(self, f"{prefix}_layer_{j}")(x, pos, cond)
+            x = getattr(self, f"{prefix}_layer_{j}")(x, pos, cond, generator)
         return x
 
-    def forward(self, x, sigma, aug_cond=None):
+    def forward(self, x, sigma, aug_cond=None, generator=None):
         dtype = self.dtype
         x = self.patch_in(x.to(dtype))
         pos = rope.make_axial_pos(x.shape[-3], x.shape[-2], device=x.device)
@@ -321,19 +366,48 @@ class ImageTransformerDenoiserModelV2(nn.Module):
                                    device=x.device)
         aug_emb = (self.aug_emb(aug_cond.to(dtype)).to(dtype)
                    @ self.aug_in_proj.kernel.to(dtype))
-        cond = self.mapping(time_emb + aug_emb)
+        cond = self.mapping(time_emb + aug_emb, generator)
 
         skips, poses = [], []
         for i, spec in enumerate(self.levels[:-1]):
-            x = self._run_stack(f"down_{i}", spec.depth, x, pos, cond)
+            x = self._run_stack(f"down_{i}", spec.depth, x, pos, cond,
+                                generator)
             skips.append(x)
             poses.append(pos)
             x = getattr(self, f"merge_{i}")(x)
             pos = rope.downscale_pos(pos)
-        x = self._run_stack("mid", self.levels[-1].depth, x, pos, cond)
+        x = self._run_stack("mid", self.levels[-1].depth, x, pos, cond,
+                            generator)
         for i, spec in reversed(list(enumerate(self.levels[:-1]))):
             x = getattr(self, f"split_{i}")(x, skips[i])
-            x = self._run_stack(f"up_{i}", spec.depth, x, poses[i], cond)
+            x = self._run_stack(f"up_{i}", spec.depth, x, poses[i], cond,
+                                generator)
 
         x = self.patch_out(self.out_norm(x))
         return x.float()
+
+
+# Param taxonomy: weight decay for the Dense kernels of these modules, the
+# mapping network's params at a third of the LR (the JAX package's 4 groups)
+
+_WD_MODULE_NAMES = {"qkv_proj", "out_proj", "up_proj", "down_proj", "proj",
+                    "mapping_linear"}
+
+
+def classify_param(name):
+    """(is_wd, is_mapping) for a ``named_parameters()`` name, the JAX
+    package's rule on its flattened param path."""
+    path = name.split(".")
+    is_wd = path[-1] == "kernel" and len(path) >= 2 and path[-2] in _WD_MODULE_NAMES
+    is_mapping = any(p in ("mapping", "mapping_linear") for p in path)
+    return is_wd, is_mapping
+
+
+def param_group_labels(model):
+    """{name: one of 'wd', 'no_wd', 'mapping_wd', 'mapping_no_wd'} over
+    ``model.named_parameters()``."""
+    labels = {}
+    for name, _ in model.named_parameters():
+        is_wd, is_mapping = classify_param(name)
+        labels[name] = ("mapping_" if is_mapping else "") + ("wd" if is_wd else "no_wd")
+    return labels

@@ -41,9 +41,9 @@ def _nvcc():
 
 def library_path(name):
     """Where the library for ``csrc/<name>.cu`` is built; the name carries
-    a hash of the source, the shared header and the flags."""
+    a hash of the source, the shared headers and the flags."""
     digest = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libkdt_{name}-{digest.hexdigest()[:16]}.so"

@@ -1,8 +1,10 @@
-"""K3: exact global attention on channel-packed maps (counterpart of
-k_diffusion_tpu/ops/pallas/global_packed.py, forward only).
+"""K3 and K9: exact global attention on channel-packed maps and its backward
+(counterpart of k_diffusion_tpu/ops/pallas/global_packed.py).
 
-CUDA tensors go to the hand-written kernel in ``csrc/global_packed.cu``; CPU
-tensors to ``reference``, the plain version.
+CUDA tensors go to the hand-written kernels in ``csrc/global_packed.cu``
+through an autograd Function: the forward K3 (which also writes the per-head
+logsumexp when a backward follows) and the backward K9. CPU tensors go to
+``reference``, the plain version, which autograd differentiates.
 """
 
 import ctypes
@@ -12,13 +14,17 @@ import torch
 from ..attention import global_attention
 from . import _build
 
-launches = 0  # kernel launches since the last reset
+launches = 0      # K3 launches since the last reset
+bwd_launches = 0  # K9 launches (its two kernels count as one)
 
-MAX_SEQ = 512  # the kernel keeps a query strip's logits and K or V in smem
+MAX_SEQ = 512  # the kernels keep a query strip's logits and K or V in smem
 
-# q, k, v, out, batch, seq, heads, scale, stream
-_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-    ctypes.c_float, ctypes.c_void_p]
+_P = ctypes.c_void_p
+# q, k, v, out, lse, batch, seq, heads, scale, stream
+_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, _P]
+# q, k, v, out, dout, lse, delta, dq, dk, dv, batch, seq, heads, scale,
+# stream
+_BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, _P]
 
 
 def reference(q, k, v, n_heads, scale=1.0):
@@ -30,25 +36,92 @@ def reference(q, k, v, n_heads, scale=1.0):
     return out.reshape(b, s, c)
 
 
-def packed_global_attention(q, k, v, n_heads, scale=1.0):
-    """q, k, v (b, s, heads * e) -> (b, s, heads * e). The kernel takes
-    bfloat16, e == 64 and s a multiple of 16 up to MAX_SEQ."""
+def reference_backward(q, k, v, dout, n_heads, scale=1.0):
+    """Plain version of the backward: autograd through ``reference``.
+    Returns (dq, dk, dv)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = reference(*inputs, n_heads, scale)
+        return torch.autograd.grad(out, inputs, dout)
+
+
+def _check(q, n_heads, what):
+    _build.require_cuda(q, what)
     b, s, c = q.shape
-    if q.device.type == "cpu":
-        return reference(q, k, v, n_heads, scale)
-    _build.require_cuda(q, "packed_global_attention")
     if c != 64 * n_heads or s % 16 or not 16 <= s <= MAX_SEQ:
         raise ValueError(
             f"global_packed kernel takes head dim 64 and s a multiple of 16 "
             f"up to {MAX_SEQ}; got {tuple(q.shape)} with {n_heads} heads")
+
+
+def packed_forward(q, k, v, n_heads, scale=1.0, save_lse=False):
+    """Launches K3 on CUDA tensors. Returns (out, lse): lse (b, heads, s)
+    float32, or None unless ``save_lse``."""
+    _check(q, n_heads, "packed_global_attention")
+    b, s, c = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, q.device, torch.bfloat16, (b, s, c))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, n_heads, s), device=q.device, dtype=torch.float32)
+           if save_lse else None)
     lib = _build.load("global_packed", kdt_global_packed=_SIGNATURE)
-    status = lib.kdt_global_packed(*map(_build.ptr, (q, k, v, out)), b, s,
-                                   n_heads, scale,
-                                   _build.stream_ptr(q.device))
+    status = lib.kdt_global_packed(
+        *map(_build.ptr, (q, k, v, out)),
+        None if lse is None else _build.ptr(lse), b, s, n_heads, scale,
+        _build.stream_ptr(q.device))
     _build.check_launch(lib, status, "global_packed")
     global launches
     launches += 1
-    return out
+    return out, lse
+
+
+def packed_backward(q, k, v, out, lse, dout, n_heads, scale=1.0):
+    """Launches K9 on CUDA tensors: returns (dq, dk, dv) bf16."""
+    _check(q, n_heads, "packed_global_attention backward")
+    b, s, c = q.shape
+    dev = q.device
+    dout = dout.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        _build.require(t, name, dev, torch.bfloat16, (b, s, c))
+    _build.require(lse, "lse", dev, torch.float32, (b, n_heads, s))
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _build.load("global_packed", kdt_global_packed_bwd=_BWD_SIGNATURE)
+    status = lib.kdt_global_packed_bwd(
+        *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)),
+        b, s, n_heads, scale, _build.stream_ptr(dev))
+    _build.check_launch(lib, status, "global_packed backward")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _GlobalAttention(torch.autograd.Function):
+    """K3 forward (with lse), K9 backward. Saves q, k, v, the output and
+    the logsumexp, as the JAX custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads, scale):
+        train = any(ctx.needs_input_grad[:3])
+        out, lse = packed_forward(q, k, v, n_heads, scale, save_lse=train)
+        if train:
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (n_heads, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = packed_backward(q, k, v, out, lse, dout, *ctx.static)
+        return dq, dk, dv, None, None
+
+
+def packed_global_attention(q, k, v, n_heads, scale=1.0):
+    """q, k, v (b, s, heads * e) -> (b, s, heads * e); differentiable. The
+    kernels take bfloat16, e == 64 and s a multiple of 16 up to MAX_SEQ."""
+    if q.device.type == "cpu":
+        return reference(q, k, v, n_heads, scale)
+    if not torch.is_grad_enabled():  # sampling: no autograd node to build
+        return packed_forward(q, k, v, n_heads, scale)[0]
+    return _GlobalAttention.apply(q, k, v, n_heads, scale)

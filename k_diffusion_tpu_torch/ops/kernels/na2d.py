@@ -1,10 +1,14 @@
-"""K2: channel-packed 2-D neighborhood attention (counterpart of
-k_diffusion_tpu/ops/pallas/na2d.py: ``na2d_packed`` forward and
+"""K2, K7 and K8: channel-packed 2-D neighborhood attention and its backward
+(counterpart of k_diffusion_tpu/ops/pallas/na2d.py: ``na2d_packed`` and
 ``na2d_reference``).
 
 Each query attends to exactly kernel_size x kernel_size keys, its window
 clamped inward at the edges (NATTEN's contract). CUDA tensors go to the
-hand-written kernel in ``csrc/na2d.cu``; CPU tensors to the plain version.
+hand-written kernels in ``csrc/na2d.cu`` through an autograd Function: the
+forward K2 (which also writes the per-head logsumexp when a backward
+follows), the backward K7 (dq and per-tile dk/dv halo partials) and K8 (the
+overlap-add of the partials). CPU tensors go to the plain version, which
+autograd differentiates.
 """
 
 import ctypes
@@ -14,14 +18,22 @@ import torch
 from ..attention import neighborhood_attention
 from . import _build
 
-launches = 0  # kernel launches since the last reset
+launches = 0          # K2 launches since the last reset
+bwd_launches = 0      # K7 launches
+overlap_launches = 0  # K8 launches
 
-TILE = 8          # query tile edge of the kernel
-MAX_KERNEL = 7    # the kernel's halo holds windows up to 7 x 7
+TILE = 8          # query tile edge of the kernels
+MAX_KERNEL = 7    # the kernels' halo holds windows up to 7 x 7
+HALO_KEYS = 208   # keys of a tile's halo partial (14 x 14, rounded up to 16)
 
-# q, k, v, out, batch, h, w, heads, kernel_size, scale, stream
-_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_void_p]
+_P = ctypes.c_void_p
+# q, k, v, out, lse, batch, h, w, heads, kernel_size, scale, stream
+_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+# q, k, v, out, dout, lse, dq, dk_part, dv_part, batch, h, w, heads,
+# kernel_size, scale, stream
+_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+# dk_part, dv_part, dk, dv, batch, h, w, heads, kernel_size, stream
+_OVERLAP_SIGNATURE = [_P] * 4 + [ctypes.c_int] * 5 + [_P]
 
 
 def na2d_reference(q, k, v, kernel_size, scale=1.0):
@@ -29,32 +41,167 @@ def na2d_reference(q, k, v, kernel_size, scale=1.0):
     return neighborhood_attention(q, k, v, kernel_size, scale=scale)
 
 
-def na2d_packed(q, k, v, n_heads, kernel_size, scale=1.0):
-    """Neighborhood attention on channel-packed maps: q, k, v
-    (b, h, w, heads * e) -> (b, h, w, heads * e). The kernel takes bfloat16,
-    e == 64, h and w multiples of 8 and kernel_size <= min(7, h, w)."""
+def reference(q, k, v, n_heads, kernel_size, scale=1.0):
+    """Plain version on channel-packed maps (b, h, w, heads * e)."""
     b, h, w, c = q.shape
-    e = c // n_heads
-    if q.device.type == "cpu":
-        split = (b, h, w, n_heads, e)
-        out = na2d_reference(q.reshape(split), k.reshape(split),
-                             v.reshape(split), kernel_size, scale)
-        return out.reshape(b, h, w, c)
-    _build.require_cuda(q, "na2d_packed")
-    if e != 64 or h % TILE or w % TILE or not (
+    split = (b, h, w, n_heads, c // n_heads)
+    out = na2d_reference(q.reshape(split), k.reshape(split), v.reshape(split),
+                         kernel_size, scale)
+    return out.reshape(b, h, w, c)
+
+
+def reference_backward(q, k, v, dout, n_heads, kernel_size, scale=1.0):
+    """Plain version of the backward: autograd through ``reference``.
+    Returns (dq, dk, dv)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = reference(*inputs, n_heads, kernel_size, scale)
+        return torch.autograd.grad(out, inputs, dout)
+
+
+def _check(q, n_heads, kernel_size, what):
+    _build.require_cuda(q, what)
+    b, h, w, c = q.shape
+    if c != 64 * n_heads or h % TILE or w % TILE or not (
             1 <= kernel_size <= min(MAX_KERNEL, h, w)):
         raise ValueError(
             f"na2d kernel takes head dim 64, h and w multiples of {TILE} and "
             f"kernel_size <= min({MAX_KERNEL}, h, w); got {tuple(q.shape)} "
             f"with {n_heads} heads, kernel_size {kernel_size}")
+
+
+def packed_forward(q, k, v, n_heads, kernel_size, scale=1.0, save_lse=False):
+    """Launches K2 on CUDA tensors. Returns (out, lse): lse (b, heads, h, w)
+    float32, the logsumexp of each query's logits, or None unless
+    ``save_lse``."""
+    _check(q, n_heads, kernel_size, "na2d_packed")
+    b, h, w, c = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, q.device, torch.bfloat16, (b, h, w, c))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, n_heads, h, w), device=q.device,
+                       dtype=torch.float32) if save_lse else None)
     lib = _build.load("na2d", kdt_na2d_packed=_SIGNATURE)
-    status = lib.kdt_na2d_packed(*map(_build.ptr, (q, k, v, out)), b, h, w,
-                                 n_heads, kernel_size, scale,
-                                 _build.stream_ptr(q.device))
+    status = lib.kdt_na2d_packed(
+        *map(_build.ptr, (q, k, v, out)),
+        None if lse is None else _build.ptr(lse), b, h, w, n_heads,
+        kernel_size, scale, _build.stream_ptr(q.device))
     _build.check_launch(lib, status, "na2d_packed")
     global launches
     launches += 1
-    return out
+    return out, lse
+
+
+def overlap_add_reference(dk_part, dv_part, h, w, kernel_size,
+                          dtype=torch.bfloat16):
+    """Plain version of K8: sums the per-tile halo partials (b, heads,
+    tiles, HALO_KEYS, 64) of K7 into dk, dv (b, h, w, heads * 64) of
+    ``dtype``. Tile (ty, tx)'s halo is the 14 x 14 block of keys from its
+    clamped window origin (the window start of its first query), row-major
+    in the first 196 of its HALO_KEYS rows."""
+    b, n_heads, tiles, _, e = dk_part.shape
+    halo, r = TILE + MAX_KERNEL - 1, (kernel_size - 1) // 2
+    dev = dk_part.device
+    starts = lambda n: torch.clamp(torch.arange(0, n, TILE, device=dev) - r,
+                                   0, n - kernel_size)
+    ky = starts(h)[:, None] + torch.arange(halo, device=dev)  # (tiles_h, 14)
+    kx = starts(w)[:, None] + torch.arange(halo, device=dev)  # (tiles_w, 14)
+    ky, kx = ky[:, None, :, None], kx[None, :, None, :]
+    inside = (ky < h) & (kx < w)                    # (th, tw, 14, 14)
+    target = torch.where(inside, ky * w + kx, h * w).reshape(tiles, -1)
+    sums = []
+    for part in (dk_part, dv_part):
+        keys = part[:, :, :, :halo * halo].reshape(b, n_heads, -1, e).float()
+        out = torch.zeros((b, n_heads, h * w + 1, e), device=dev)
+        out.index_add_(2, target.reshape(-1), keys)
+        sums.append(out[:, :, :-1].permute(0, 2, 1, 3).reshape(
+            b, h, w, n_heads * e).to(dtype))
+    return tuple(sums)
+
+
+def packed_backward_partials(q, k, v, out, lse, dout, n_heads, kernel_size,
+                             scale=1.0):
+    """Launches K7 on CUDA tensors: returns dq (bf16) and the f32 dk/dv halo
+    partials (b, heads, tiles, HALO_KEYS, 64)."""
+    _check(q, n_heads, kernel_size, "na2d_packed backward")
+    b, h, w, c = q.shape
+    dev = q.device
+    dout = dout.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        _build.require(t, name, dev, torch.bfloat16, (b, h, w, c))
+    _build.require(lse, "lse", dev, torch.float32, (b, n_heads, h, w))
+    part = (b, n_heads, (h // TILE) * (w // TILE), HALO_KEYS, 64)
+    dk_part = torch.empty(part, device=dev, dtype=torch.float32)
+    dv_part = torch.empty(part, device=dev, dtype=torch.float32)
+    dq = torch.empty_like(q)
+    lib = _build.load("na2d", kdt_na2d_packed_bwd=_BWD_SIGNATURE)
+    status = lib.kdt_na2d_packed_bwd(
+        *map(_build.ptr, (q, k, v, out, dout, lse, dq, dk_part, dv_part)),
+        b, h, w, n_heads, kernel_size, scale, _build.stream_ptr(dev))
+    _build.check_launch(lib, status, "na2d_packed backward")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk_part, dv_part
+
+
+def overlap_add(dk_part, dv_part, h, w, kernel_size):
+    """Launches K8 on CUDA tensors: K7's halo partials -> (dk, dv) bf16."""
+    _build.require_cuda(dk_part, "na2d overlap-add")
+    b, n_heads = dk_part.shape[:2]
+    part = (b, n_heads, (h // TILE) * (w // TILE), HALO_KEYS, 64)
+    for name, t in (("dk_part", dk_part), ("dv_part", dv_part)):
+        _build.require(t, name, dk_part.device, torch.float32, part)
+    dk, dv = (torch.empty((b, h, w, n_heads * 64), device=dk_part.device,
+                          dtype=torch.bfloat16) for _ in range(2))
+    lib = _build.load("na2d", kdt_na2d_overlap_add=_OVERLAP_SIGNATURE)
+    status = lib.kdt_na2d_overlap_add(
+        *map(_build.ptr, (dk_part, dv_part, dk, dv)), b, h, w, n_heads,
+        kernel_size, _build.stream_ptr(dk_part.device))
+    _build.check_launch(lib, status, "na2d overlap-add")
+    global overlap_launches
+    overlap_launches += 1
+    return dk, dv
+
+
+def packed_backward(q, k, v, out, lse, dout, n_heads, kernel_size,
+                    scale=1.0):
+    """Launches K7 then K8 on CUDA tensors: returns (dq, dk, dv) bf16."""
+    dq, dk_part, dv_part = packed_backward_partials(
+        q, k, v, out, lse, dout, n_heads, kernel_size, scale)
+    return (dq, *overlap_add(dk_part, dv_part, q.shape[1], q.shape[2],
+                             kernel_size))
+
+
+class _NA2D(torch.autograd.Function):
+    """K2 forward (with lse), K7 + K8 backward. Saves q, k, v, the output
+    and the logsumexp, as the JAX custom_vjp does (it saves k and v as halo
+    slabs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads, kernel_size, scale):
+        train = any(ctx.needs_input_grad[:3])
+        out, lse = packed_forward(q, k, v, n_heads, kernel_size, scale,
+                                  save_lse=train)
+        if train:
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (n_heads, kernel_size, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = packed_backward(q, k, v, out, lse, dout, *ctx.static)
+        return dq, dk, dv, None, None, None
+
+
+def na2d_packed(q, k, v, n_heads, kernel_size, scale=1.0):
+    """Neighborhood attention on channel-packed maps: q, k, v
+    (b, h, w, heads * e) -> (b, h, w, heads * e); differentiable. The
+    kernels take bfloat16, e == 64, h and w multiples of 8 and
+    kernel_size <= min(7, h, w)."""
+    if q.device.type == "cpu":
+        return reference(q, k, v, n_heads, kernel_size, scale)
+    if not torch.is_grad_enabled():  # sampling: no autograd node to build
+        return packed_forward(q, k, v, n_heads, kernel_size, scale)[0]
+    return _NA2D.apply(q, k, v, n_heads, kernel_size, scale)

@@ -8,6 +8,13 @@ of shape ``[batch]``.
 
 import torch
 
+from .utils import append_dims
+
+
+def to_d(x, sigma, denoised):
+    """Converts a denoiser output to a Karras ODE derivative."""
+    return (x - denoised) / append_dims(sigma, x.ndim)
+
 
 def append_zero(x):
     """Appends the terminal sigma=0 to a schedule."""

@@ -1,0 +1,185 @@
+"""The training step: optimizer, train state and one step of
+sample sigmas -> noise -> loss -> backward -> clip -> AdamW -> EMA
+(counterpart of k_diffusion_tpu/training.py, without the device mesh).
+
+The JAX package jits one pure function of (state, batch, key); here the
+step is eager PyTorch that updates the model, the optimizer and the EMA
+copy in place. Draws (sigmas, noise, dropout masks) come from the
+``torch.Generator`` passed to each step.
+
+Left out, and why:
+- ``flatopt.py``, the JAX package's default AdamW for the flagship, packs
+  every parameter into one flat vector so that XLA on a TPU issues a few
+  large elementwise ops instead of one chain per leaf. It computes the same
+  update as the per-leaf optax chain; here ``torch.optim.AdamW`` runs the
+  same update as one multi-tensor pass (fused on CUDA).
+- The folded image layout of the loss (``layout.folded_model_fn``) avoids
+  TPU relayout copies and gives a bitwise-identical loss; it has no
+  counterpart here.
+"""
+
+import copy
+from dataclasses import dataclass
+
+import torch
+
+from . import config as config_mod
+from .models.image_transformer_v2 import param_group_labels
+from .utils import ema_update
+
+GROUPS = ("wd", "no_wd", "mapping_wd", "mapping_no_wd")
+
+
+@dataclass
+class TrainState:
+    """``step`` counts the updates made; ``optimizer`` updates ``model``'s
+    parameters; ``ema_model`` holds the EMA copy (no grad, eval mode)."""
+    step: int
+    model: torch.nn.Module
+    optimizer: "GroupedAdamW"
+    ema_model: torch.nn.Module
+
+
+class GroupedAdamW:
+    """The JAX package's optimizer: global-norm clipping, then AdamW over
+    the four groups {wd, no_wd} x {lr, lr * mapping_lr_scale}.
+
+    Each group's lr is ``schedule(step) * scale``, set before each update:
+    optax evaluates the schedule at the count before the increment. The
+    clip follows optax's ``clip_by_global_norm``: gradients are scaled by
+    ``max_norm / norm`` when ``norm > max_norm`` (``clip_grad_norm_`` would
+    divide by ``norm + 1e-6``)."""
+
+    def __init__(self, model, lr_schedule, betas, eps, weight_decay,
+                 mapping_lr_scale=1 / 3, max_grad_norm=1.0):
+        labels = param_group_labels(model)
+        named = dict(model.named_parameters())
+        scales = {"wd": (1.0, weight_decay), "no_wd": (1.0, 0.0),
+                  "mapping_wd": (mapping_lr_scale, weight_decay),
+                  "mapping_no_wd": (mapping_lr_scale, 0.0)}
+        groups = []
+        for label in GROUPS:
+            params = [p for n, p in named.items() if labels[n] == label]
+            if params:
+                lr_scale, wd = scales[label]
+                groups.append({"params": params, "lr_scale": lr_scale,
+                               "weight_decay": wd, "name": label})
+        fused = next(model.parameters()).device.type == "cuda"
+        self.optimizer = torch.optim.AdamW(
+            groups, lr=lr_schedule(0), betas=tuple(betas), eps=eps,
+            fused=fused, foreach=None if fused else True)
+        self.lr_schedule = lr_schedule
+        self.max_grad_norm = max_grad_norm
+        self.params = [p for g in groups for p in g["params"]]
+
+    @torch.no_grad()
+    def clip_grads(self):
+        """Scales the gradients in place as optax's clip_by_global_norm
+        does; returns the global norm before clipping (a tensor)."""
+        grads = [p.grad for p in self.params]
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+        if self.max_grad_norm is not None:
+            factor = torch.where(norm < self.max_grad_norm, 1.0,
+                                 self.max_grad_norm / norm)
+            torch._foreach_mul_(grads, factor)
+        return norm
+
+    def step(self, count):
+        """Clips, then makes update number ``count`` (0-based) with the
+        schedule's lr at ``count``. Returns the pre-clip gradient norm."""
+        norm = self.clip_grads()
+        lr = self.lr_schedule(count)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr * group["lr_scale"]
+        self.optimizer.step()
+        return norm
+
+    def zero_grad(self):
+        self.optimizer.zero_grad(set_to_none=True)
+
+
+def make_optimizer(config, model, mapping_lr_scale=1 / 3, max_grad_norm=1.0):
+    """The 4-group AdamW of the config's ``optimizer`` and ``lr_sched``
+    sections over ``model``'s parameters. ``adam8bit`` and ``sgd`` are not
+    ported yet."""
+    opt_config = config["optimizer"]
+    if opt_config["type"] != "adamw":
+        raise NotImplementedError(
+            f"optimizer {opt_config['type']!r} is not ported yet")
+    return GroupedAdamW(
+        model, config_mod.make_lr_schedule(config), opt_config["betas"],
+        opt_config["eps"], opt_config["weight_decay"], mapping_lr_scale,
+        max_grad_norm)
+
+
+def init_train_state(model, optimizer):
+    """Step 0 with an EMA copy of ``model`` (its own tensors, no grad)."""
+    ema_model = copy.deepcopy(model).eval().requires_grad_(False)
+    return TrainState(step=0, model=model, optimizer=optimizer,
+                      ema_model=ema_model)
+
+
+def _sq_norm(grads):
+    return torch.stack(torch._foreach_norm(grads)).square().sum()
+
+
+def make_train_step(denoiser_factory, sample_density, *, stratified=True,
+                    compute_gns=False):
+    """Returns ``step(state, batch, generator, ema_decay, noise=None) ->
+    metrics``.
+
+    ``batch`` is a dict with leading dims [accum, batch]: ``reals`` (A, B,
+    H, W, C) and optionally ``aug_cond`` (A, B, 9). Per step: sigmas for
+    all A * B images from ``sample_density`` (stratified over them when
+    ``stratified``), then per microbatch noise from ``generator`` (or the
+    given ``noise``, (A, B, H, W, C)), the mean ``Denoiser.loss`` and its
+    gradient, accumulated over the A microbatches and averaged; then the
+    optimizer (clip + AdamW) and the EMA update with ``ema_decay``. The
+    dropout masks come from ``generator`` too. ``metrics`` holds tensors:
+    ``loss`` and, with ``compute_gns``, the small- and big-batch gradient
+    squared norms."""
+
+    def step(state, batch, generator, ema_decay, noise=None):
+        model = state.model
+        reals = batch["reals"]
+        a_steps, b = reals.shape[:2]
+        model.train()
+        sigmas = sample_density(
+            (a_steps * b,), stratified=(0, 1) if stratified else None,
+            generator=generator, device=reals.device).reshape(a_steps, b)
+        params = state.optimizer.params
+        grads, loss_sum, sqn_small = None, 0.0, 0.0
+        for i in range(a_steps):
+            extra = {"generator": generator}
+            if "aug_cond" in batch:
+                extra["aug_cond"] = batch["aug_cond"][i]
+            mb_noise = (noise[i] if noise is not None else torch.randn(
+                reals[i].shape, generator=generator, device=reals.device,
+                dtype=reals.dtype))
+            den = denoiser_factory(model)
+            loss = den.loss(reals[i], mb_noise, sigmas[i], **extra).mean()
+            mb_grads = torch.autograd.grad(loss, params)
+            if compute_gns:
+                sqn_small = sqn_small + _sq_norm(mb_grads)
+            if grads is None:
+                grads = list(mb_grads)
+            else:
+                torch._foreach_add_(grads, mb_grads)
+            loss_sum = loss_sum + loss.detach()
+        if a_steps > 1:
+            torch._foreach_div_(grads, a_steps)
+        for p, g in zip(params, grads):
+            p.grad = g
+        metrics = {"loss": loss_sum / a_steps}
+        if compute_gns:
+            metrics["grad_sq_norm_small"] = sqn_small / a_steps
+            metrics["grad_sq_norm_big"] = _sq_norm(grads)
+        state.optimizer.step(state.step)
+        state.optimizer.zero_grad()
+        ema_update(model.parameters(), state.ema_model.parameters(),
+                   ema_decay)
+        state.step += 1
+        return metrics
+
+    return step

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes (the flagship shapes are in chip_smoke.py). Every
-test skips without a CUDA device. This file imports no JAX, so on a machine
-without JAX run it past the JAX test harness in tests/conftest.py:
+"""The port's CUDA kernels, forward and backward, against their plain
+PyTorch versions on the card, at small and ragged shapes (the flagship
+shapes are in chip_smoke.py). Every test is marked ``cuda`` and skips
+without a CUDA device. This file imports no JAX, so on a machine without JAX
+run it past the JAX test harness in tests/conftest.py:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -12,6 +13,8 @@ import torch
 from k_diffusion_tpu_torch.ops import kernels, rope
 from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_mapping,
                                                fused_qkv, global_packed, na2d)
+
+pytestmark = pytest.mark.cuda
 
 # a few bf16 roundings of the output: the plain version rounds intermediates
 # to bf16 where the kernel keeps f32 (the bound chip_smoke.py states)
@@ -41,12 +44,34 @@ def assert_close(got, want):
     assert err <= REL_BOUND * want.float().abs().max().item(), err
 
 
-def counted(module, fn):
+def assert_all_close(got, want):
+    assert len(got) == len(want)
+    for a, b_ in zip(got, want):
+        assert a.dtype == b_.dtype and a.shape == b_.shape
+        assert_close(a, b_)
+
+
+def counted(module, fn, counter="launches"):
     """fn()'s result; checks that it counted exactly one launch."""
-    before = module.launches
+    before = getattr(module, counter)
     out = fn()
-    assert module.launches == before + 1
+    assert getattr(module, counter) == before + 1
     return out
+
+
+def qkv_args(g, dev, b, h, w, d):
+    heads = d // 64
+    return (normal(g, dev, b, h, w, d), rope.make_axial_pos(h, w, device=dev),
+            (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, torch.bfloat16),
+            torch.randn((d, 3 * d), generator=g).to(dev) * d ** -0.5,
+            10 * (1 + 0.1 * torch.randn(heads, generator=g)).to(dev), heads)
+
+
+def ffn_args(g, dev, b, t, d, d_ff):
+    return (normal(g, dev, b, t, d),
+            (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, torch.bfloat16),
+            torch.randn((d, 2 * d_ff), generator=g).to(dev) * d ** -0.5,
+            torch.randn((d_ff, d), generator=g).to(dev) * d_ff ** -0.5)
 
 
 @pytest.mark.parametrize("b,h,w,d", [(5, 4, 4, 128), (2, 16, 8, 256),
@@ -100,7 +125,8 @@ def test_fused_ffn(dev, b, t, d, d_ff):
     assert_close(got, fused_ffn.reference(*args))
 
 
-@pytest.mark.parametrize("b,d,d_ff,n", [(1, 256, 768, 2), (13, 128, 192, 3)])
+@pytest.mark.parametrize("b,d,d_ff,n", [(1, 256, 768, 2), (13, 128, 192, 3),
+                                        (32, 256, 768, 2), (33, 256, 768, 2)])
 def test_fused_mapping(dev, b, d, d_ff, n):
     g = torch.Generator().manual_seed(4)
     blocks = [((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
@@ -111,6 +137,123 @@ def test_fused_mapping(dev, b, d, d_ff, n):
             torch.ones(d, device=dev), blocks)
     got = counted(fused_mapping, lambda: fused_mapping.fused_mapping(*args))
     assert_close(got, fused_mapping.reference(*args))
+
+
+@pytest.mark.parametrize("b,h,w,d", [(2, 8, 8, 128), (3, 4, 4, 256),
+                                     (1, 16, 8, 512)])
+def test_fused_qkv_backward(dev, b, h, w, d):
+    """K6 against autograd through the plain version; 4 x 4 maps leave a
+    64-row tile ragged."""
+    g = torch.Generator().manual_seed(5)
+    args = qkv_args(g, dev, b, h, w, d)
+    cots = [normal(g, dev, b, h, w, d) for _ in range(3)]
+    got = counted(fused_qkv, lambda: fused_qkv.prologue_backward(*args, *cots),
+                  "bwd_launches")
+    assert_all_close(got, fused_qkv.reference_backward(*args, *cots))
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 8, 8, 4, 7),
+                                            (1, 16, 16, 2, 3), (1, 24, 16, 1, 3),
+                                            (1, 24, 16, 1, 5)])
+def test_na2d_backward(dev, b, h, w, heads, ks):
+    """K7 + K8 against autograd through the plain version, h != w and
+    clamped windows of several sizes."""
+    g = torch.Generator().manual_seed(6)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, h, w, c), unit_heads(g, dev, b, h, w, c)
+    v, dout = normal(g, dev, b, h, w, c), normal(g, dev, b, h, w, c)
+    out, lse = na2d.packed_forward(q, k, v, heads, ks, save_lse=True)
+    got = counted(na2d, lambda: na2d.packed_backward(q, k, v, out, lse, dout,
+                                                     heads, ks), "bwd_launches")
+    assert_all_close(got, na2d.reference_backward(q, k, v, dout, heads, ks))
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 24, 16, 1, 3)])
+def test_na2d_overlap_add(dev, b, h, w, heads, ks):
+    """K8 alone against the plain overlap-add of the same K7 partials."""
+    g = torch.Generator().manual_seed(11)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, h, w, c), unit_heads(g, dev, b, h, w, c)
+    v, dout = normal(g, dev, b, h, w, c), normal(g, dev, b, h, w, c)
+    out, lse = na2d.packed_forward(q, k, v, heads, ks, save_lse=True)
+    _, dk_part, dv_part = na2d.packed_backward_partials(q, k, v, out, lse,
+                                                        dout, heads, ks)
+    got = counted(na2d, lambda: na2d.overlap_add(dk_part, dv_part, h, w, ks),
+                  "overlap_launches")
+    assert_all_close(got, na2d.overlap_add_reference(dk_part, dv_part, h, w,
+                                                     ks))
+
+
+@pytest.mark.parametrize("b,s,heads", [(3, 16, 2), (2, 48, 2), (2, 80, 8),
+                                       (1, 512, 1)])
+def test_global_packed_backward(dev, b, s, heads):
+    """K9 against autograd through the plain version, s below one 64-row
+    block and ragged."""
+    g = torch.Generator().manual_seed(7)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, s, c), unit_heads(g, dev, b, s, c)
+    v, dout = normal(g, dev, b, s, c), normal(g, dev, b, s, c)
+    out, lse = global_packed.packed_forward(q, k, v, heads, save_lse=True)
+    assert_close(lse, torch.logsumexp(
+        torch.einsum("bqhe,bkhe->bhqk", *(t.float().reshape(b, s, heads, 64)
+                                          for t in (q, k))), -1))
+    got = counted(global_packed, lambda: global_packed.packed_backward(
+        q, k, v, out, lse, dout, heads), "bwd_launches")
+    assert_all_close(got, global_packed.reference_backward(q, k, v, dout, heads))
+
+
+@pytest.mark.parametrize("b,t,d,d_ff", [(3, 16, 128, 384), (2, 100, 256, 64),
+                                        (1, 64, 512, 1536)])
+def test_fused_ffn_backward(dev, b, t, d, d_ff):
+    g = torch.Generator().manual_seed(8)
+    args = ffn_args(g, dev, b, t, d, d_ff)
+    cot = normal(g, dev, b, t, d)
+    got = counted(fused_ffn, lambda: fused_ffn.ffn_backward(*args, cot),
+                  "bwd_launches")
+    assert_all_close(got, fused_ffn.reference_backward(*args, cot))
+
+
+def test_weight_gradients_are_deterministic(dev):
+    """A rerun of K6 and K10 gives bit-equal gradients: every reduction over
+    rows is a fixed-order sum of per-block partials."""
+    g = torch.Generator().manual_seed(9)
+    args = qkv_args(g, dev, 4, 32, 32, 128)
+    cots = [normal(g, dev, 4, 32, 32, 128) for _ in range(3)]
+    first = fused_qkv.prologue_backward(*args, *cots)
+    again = fused_qkv.prologue_backward(*args, *cots)
+    args = ffn_args(g, dev, 4, 1024, 128, 384)
+    cot = normal(g, dev, 4, 1024, 128)
+    first += fused_ffn.ffn_backward(*args, cot)
+    again += fused_ffn.ffn_backward(*args, cot)
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+
+
+def test_autograd_runs_the_backward_kernels(dev):
+    """Gradients through each differentiable wrapper come from its backward
+    kernel (the mapping network: from its recomputed plain version), and
+    equal the kernel entry points' own."""
+    kernels.reset_launch_counts()
+    g = torch.Generator().manual_seed(10)
+    x, pos, ns, w_qkv, scale, heads = qkv_args(g, dev, 2, 8, 8, 128)
+    leaves = [t.requires_grad_() for t in (x, ns, w_qkv, scale)]
+    q, k, v = fused_qkv.fused_qkv_prologue(x, pos, ns, w_qkv, scale, heads)
+    out = na2d.na2d_packed(q, k, v, heads, 7)
+    out = global_packed.packed_global_attention(
+        out.reshape(2, 64, 128), k.reshape(2, 64, 128), v.reshape(2, 64, 128),
+        heads)
+    out = fused_ffn.fused_geglu_ffn(out, ns, *ffn_args(g, dev, 2, 64, 128, 384)[2:])
+    blocks = [(torch.ones(128, device=dev, requires_grad=True),
+               torch.randn((128, 384), generator=g).to(dev) * 128 ** -0.5,
+               torch.randn((192, 128), generator=g).to(dev) * 192 ** -0.5)]
+    emb = fused_mapping.fused_mapping(ns, torch.ones(128, device=dev),
+                                      torch.ones(128, device=dev), blocks)
+    (out.float().square().mean() + emb.float().square().mean()).backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+    assert blocks[0][0].grad is not None
+    assert x.grad.dtype == torch.bfloat16 and w_qkv.grad.dtype == torch.float32
+    counts = kernels.launch_counts()
+    assert counts == dict.fromkeys(kernels.COUNTERS, 1), counts
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -129,4 +272,4 @@ def test_wrappers_raise_instead_of_falling_back(dev):
             x, rope.make_axial_pos(8, 8, device=dev),
             torch.ones((1, 96), device=dev, dtype=torch.bfloat16),
             torch.zeros((96, 288), device=dev), torch.ones(3, device=dev), 3)
-    assert kernels.launch_counts() == dict.fromkeys(kernels.MODULES, 0)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.COUNTERS, 0)

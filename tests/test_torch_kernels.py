@@ -243,7 +243,7 @@ def test_cpu_tensors_take_plain_version_without_counting(name):
         fused_ffn.fused_geglu_ffn(*map(torch.from_numpy, ffn_case(12, 1, 16)))
     else:
         port_mapping(*mapping_case(12, 2))
-    assert kernels.launch_counts() == dict.fromkeys(kernels.MODULES, 0)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_unsupported_device_raises():
@@ -252,3 +252,222 @@ def test_unsupported_device_raises():
     q = torch.zeros((1, 8, 8, 128), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         na2d.na2d_packed(q, q, q, 2, 7)
+
+
+# ---- backwards: the port's gradients (autograd through the plain versions,
+# the path of CPU tensors) against jax.grad through the JAX dispatcher (its
+# XLA VJP on the CPU) and against the Pallas backward bodies in interpret
+# mode ------------------------------------------------------------------------
+
+def port_grads(fn, inputs, cots):
+    """Gradients of sum(<fn(*inputs), cots>) with respect to ``inputs``."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(out, leaves,
+                               tuple(torch.from_numpy(c) for c in cots))
+
+
+def jax_grads(fn, inputs, cots):
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, inputs))
+    cots = tuple(map(jnp.asarray, cots))
+    return vjp(cots if len(cots) > 1 else cots[0])
+
+
+def close_all(got, want, tol):
+    assert len(got) == len(want)
+    for a, b_ in zip(got, want):
+        close(a, b_, tol)
+
+
+def qkv_grad_case(seed, shape):
+    c = qkv_case(seed, *shape)
+    rng = np.random.default_rng(seed + 100)
+    cots = [rand(rng, *shape) for _ in range(3)]
+    return c, (c["x"], c["ns"], c["w"], c["scale"]), cots
+
+
+def port_qkv_grads(c, inputs, cots):
+    pos = torch.from_numpy(c["pos"])
+    return port_grads(lambda x, ns, w, s: fused_qkv.fused_qkv_prologue(
+        x, pos, ns, w, s, c["heads"]), inputs, cots)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 128), (2, 8, 16, 256)])
+def test_fused_qkv_grads_match_jax_dispatcher(shape):
+    c, inputs, cots = qkv_grad_case(20, shape)
+    pos = jnp.asarray(c["pos"])
+    want = jax_grads(lambda x, ns, w, s: j_qkv.fused_qkv_prologue(
+        x, pos, ns, w, s, c["heads"]), inputs, cots)
+    close_all(port_qkv_grads(c, inputs, cots), want, F32_TOL)
+
+
+def test_fused_qkv_grads_match_pallas_backward_body():
+    """K6's Pallas body (dx, d norm_scale, d w_qkv, d attn_scale)."""
+    c, inputs, cots = qkv_grad_case(21, (2, 16, 16, 128))
+    with pltpu.force_tpu_interpret_mode():
+        want = j_qkv._prologue_bwd_pallas(*map(jnp.asarray, inputs),
+                                          *map(jnp.asarray, cots), c["heads"],
+                                          1e-6, 1e-6)
+    close_all(port_qkv_grads(c, inputs, cots), want, F32_TOL)
+
+
+def na_grad_case(seed, b, h, w, heads):
+    q, k, v = na_case(seed, b, h, w, heads)
+    dout = rand(np.random.default_rng(seed + 100), b, h, w, heads * 64)
+    return (q, k, v), [dout]
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(1, 16, 24, 2, 7), (2, 16, 16, 4, 3)])
+def test_na2d_grads_match_jax_dispatcher(b, h, w, heads, ks):
+    inputs, cots = na_grad_case(22, b, h, w, heads)
+    want = jax_grads(lambda q, k, v: j_na.na2d_packed(q, k, v, heads, ks),
+                     inputs, cots)
+    got = port_grads(lambda q, k, v: na2d.na2d_packed(q, k, v, heads, ks),
+                     inputs, cots)
+    close_all(got, want, F32_TOL)
+
+
+def test_na2d_grads_match_pallas_backward_bodies():
+    """K7 (dq and the per-tile dk/dv halo partials) then K8 (their
+    overlap-add), from the residuals of the Pallas forward with lse."""
+    inputs, cots = na_grad_case(23, 1, 32, 32, 2)
+    q, k, v = map(jnp.asarray, inputs)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse, k_halo, v_halo = j_na._na_packed_fwd(q, k, v, 7, 1.0, 16, 2,
+                                                       save_lse=True)
+        want = j_na._na_packed_bwd(7, 1.0, 16, 2,
+                                   (q, k_halo, v_halo, out, lse),
+                                   jnp.asarray(cots[0]))
+    got = port_grads(lambda q, k, v: na2d.na2d_packed(q, k, v, 2, 7), inputs,
+                     cots)
+    close_all(got, want, F32_TOL)
+
+
+def test_overlap_add_reference_sums_per_tile_partials():
+    """K8's plain version. Per 8 x 8 query tile, the plain backward's dk/dv
+    from that tile's queries alone lie inside the tile's 14 x 14 halo;
+    laid out as K7 lays out its partials, they overlap-add to the full
+    dk/dv."""
+    b, h, w, heads, ks = 1, 16, 24, 2, 5
+    (q, k, v), (dout,) = na_grad_case(30, b, h, w, heads)
+    q, k, v, dout = map(torch.from_numpy, (q, k, v, dout))
+    r, halo = (ks - 1) // 2, na2d.TILE + na2d.MAX_KERNEL - 1
+    tiles_w = w // na2d.TILE
+    n_tiles = (h // na2d.TILE) * tiles_w
+    parts = [torch.zeros((b, heads, n_tiles, na2d.HALO_KEYS, 64))
+             for _ in range(2)]
+    for t in range(n_tiles):
+        y, x = t // tiles_w * na2d.TILE, t % tiles_w * na2d.TILE
+        d_tile = torch.zeros_like(dout)
+        d_tile[:, y:y + na2d.TILE, x:x + na2d.TILE] = \
+            dout[:, y:y + na2d.TILE, x:x + na2d.TILE]
+        _, dk, dv = na2d.reference_backward(q, k, v, d_tile, heads, ks)
+        y0, x0 = min(max(y - r, 0), h - ks), min(max(x - r, 0), w - ks)
+        for part, grad in zip(parts, (dk, dv)):
+            inside = grad[:, y0:y0 + halo, x0:x0 + halo]
+            assert torch.count_nonzero(grad) == torch.count_nonzero(inside)
+            block = torch.zeros((b, halo, halo, heads * 64))
+            block[:, :inside.shape[1], :inside.shape[2]] = inside
+            part[:, :, t, :halo * halo] = block.reshape(
+                b, halo * halo, heads, 64).transpose(1, 2)
+    got = na2d.overlap_add_reference(*parts, h, w, ks, dtype=torch.float32)
+    _, dk, dv = na2d.reference_backward(q, k, v, dout, heads, ks)
+    close_all(got, (dk, dv), F32_TOL)
+
+
+def gp_grad_case(seed, b, s, heads):
+    q, k, v = gp_case(seed, b, s, heads)
+    return (q, k, v), [rand(np.random.default_rng(seed + 100), b, s, heads * 64)]
+
+
+@pytest.mark.parametrize("b,s,heads", [(2, 64, 2), (1, 48, 8)])
+def test_global_packed_grads_match_jax_dispatcher(b, s, heads):
+    inputs, cots = gp_grad_case(24, b, s, heads)
+    want = jax_grads(lambda q, k, v: j_gp.packed_global_attention(
+        q, k, v, heads), inputs, cots)
+    got = port_grads(lambda q, k, v: global_packed.packed_global_attention(
+        q, k, v, heads), inputs, cots)
+    close_all(got, want, F32_TOL)
+
+
+def test_global_packed_grads_match_pallas_backward_body():
+    """K9's Pallas body. The JAX package reaches it only on a TPU, so the
+    pallas_call is built here as its custom_vjp backward builds it, from
+    the residuals of the Pallas forward with lse."""
+    import functools
+    from jax.experimental import pallas as pl
+    inputs, cots = gp_grad_case(25, 2, 128, 4)
+    q, k, v = map(jnp.asarray, inputs)
+    dout = jnp.asarray(cots[0])
+    b, s, c = q.shape
+    cblk, hb = 128, 2
+    blk = pl.BlockSpec((1, s, cblk), lambda i, cb: (i, 0, cb))
+    lse_blk = pl.BlockSpec((1, 1, s, hb), lambda i, cb: (i, cb, 0, 0))
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = j_gp._gp_fwd(q, k, v, 4, 1.0, save_lse=True)
+        want = pl.pallas_call(
+            functools.partial(j_gp._bwd_kernel, e=64, scale=1.0),
+            grid=(b, c // cblk), in_specs=[blk] * 5 + [lse_blk],
+            out_specs=[blk] * 3,
+            out_shape=[jax.ShapeDtypeStruct(q.shape, q.dtype)] * 3,
+        )(q, k, v, dout, out, lse)
+    got = port_grads(lambda q, k, v: global_packed.packed_global_attention(
+        q, k, v, 4), inputs, cots)
+    close_all(got, want, F32_TOL)
+
+
+def ffn_grad_case(seed, b=2, t=256, d=128, d_ff=384):
+    args = ffn_case(seed, b, t, d, d_ff)
+    return args, [rand(np.random.default_rng(seed + 100), b, t, d)]
+
+
+@pytest.mark.parametrize("b,t,d,d_ff", [(2, 256, 128, 384), (1, 64, 256, 768)])
+def test_fused_ffn_grads_match_jax_dispatcher(b, t, d, d_ff):
+    inputs, cots = ffn_grad_case(26, b, t, d, d_ff)
+    want = jax_grads(j_ffn.fused_geglu_ffn, inputs, cots)
+    close_all(port_grads(fused_ffn.fused_geglu_ffn, inputs, cots), want,
+              F32_TOL)
+
+
+def test_fused_ffn_grads_match_pallas_backward_body():
+    """K10's Pallas body (dx with the residual, d scale, d w_up, d w_down);
+    its GELU is the erf polynomial."""
+    inputs, cots = ffn_grad_case(27)
+    with pltpu.force_tpu_interpret_mode():
+        want = j_ffn._ffn_bwd_pallas(*map(jnp.asarray, inputs),
+                                     jnp.asarray(cots[0]), 1e-6, 128)
+    close_all(port_grads(fused_ffn.fused_geglu_ffn, inputs, cots), want,
+              POLY_TOL)
+
+
+def mapping_grad_case(seed, b=4, n=2):
+    emb, s_in, s_out, blocks = mapping_case(seed, b, n=n)
+    flat = [emb, s_in, s_out, *(t for blk in blocks for t in blk)]
+    return flat, [rand(np.random.default_rng(seed + 100), *emb.shape)]
+
+
+def port_mapping_grads(flat, cots):
+    return port_grads(lambda emb, s_in, s_out, *ws: fused_mapping.fused_mapping(
+        emb, s_in, s_out, [ws[i:i + 3] for i in range(0, len(ws), 3)],
+        dtype=torch.float32), flat, cots)
+
+
+def test_fused_mapping_grads_match_jax_dispatcher():
+    flat, cots = mapping_grad_case(28)
+    want = jax_grads(lambda emb, s_in, s_out, *ws: j_map.fused_mapping(
+        emb, s_in, s_out, [ws[i:i + 3] for i in range(0, len(ws), 3)],
+        dtype=jnp.float32), flat, cots)
+    close_all(port_mapping_grads(flat, cots), want, F32_TOL)
+
+
+def test_fused_mapping_grads_match_jax_custom_vjp():
+    """The JAX kernel has no Pallas backward: its custom_vjp recomputes the
+    reference, as the port's autograd Function does. Held against that
+    custom_vjp, its forward run as the Pallas body."""
+    flat, cots = mapping_grad_case(29)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_grads(lambda *f: j_map._fused_inner(list(f), 2, 1e-6,
+                                                       jnp.float32),
+                         flat, cots)
+    close_all(port_mapping_grads(flat, cots), want, F32_TOL)
