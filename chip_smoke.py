@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line (the kernel phase one per kernel and shape):
+Phases, each printing one line (the kernel phases one per kernel and shape):
 1. device: needs a CUDA device; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel from csrc/ with nvcc;
-3. kernels: each kernel against its plain PyTorch version at the flagship
-   shapes (batch 8, bfloat16), with the bound stated, and both times from
-   CUDA events;
+3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
+   the flagship shapes (batch 8, bfloat16), with the bound stated, and the
+   kernel's, the plain version's and, where one PyTorch call computes the
+   same function, that call's times from CUDA events;
 4. forward: the flagship HDiT (configs/config_oxford_flowers.json, seeded
    weights, zero-init tensors filled with noise) at batch 2 in bfloat16 on
    the card against the same weights in float32 on the CPU (plain versions);
@@ -16,24 +17,45 @@ Phases, each printing one line (the kernel phase one per kernel and shape):
    finite and every kernel's launch count must match the model's layout;
 6. backward kernels: K6-K10 against their plain versions (autograd through
    the forward's plain version; a plain overlap-add for K8) at the flagship
-   training shapes, batch 8, each output within the kernel bound, both
-   times from CUDA events;
+   training shapes, batch 8, as in phase 3;
 7. gradient parity: one training step's loss and full parameter gradient,
    the flagship at batch 2 in bfloat16 on the card against the same
    weights, reals, noise and sigmas in float32 on the CPU, dropout off;
 8. training: the flagship config as it is (dropout on) at batch 32 on
    synthetic seeded reals, a few warm-up steps then 20 timed steps through
    training.make_train_step; losses finite, params and EMA moved, and
-   every kernel's launch count per step equal to the model's layout.
+   every kernel's launch count per step equal to the model's layout. Then
+   3 more steps under torch.profiler: the device time by kernel;
+9. flash kernels: K13 and K14 against their plain versions at the U-Net's
+   shapes (configs/config_cifar10.json, batch 64: 16 x 16 and 8 x 8 levels,
+   q, k, v strided views of one projection) and K13 at the mnist HDiT's
+   (7 x 7 tokens, batch 8), as in phase 3;
+10. U-Net forward: config_cifar10.json at full width, seeded weights with
+   the zero-init tensors filled with noise, bfloat16 on the card at batch 2
+   against float32 on the CPU, through the augment wrapper;
+11. U-Net sampling: 50-step DPM++(2M) at batch 64, aug_cond zeros; launch
+   counts exactly 16 flash per step and no other kernel;
+12. U-Net training: the gradient of one step at batch 2 on the card against
+   the CPU (dropout off), then the config as it is (dropout 0.05) at batch
+   64 on seeded reals and aug_cond, 3 warm-up + 20 timed steps and a
+   3-step profile, as in phases 7 and 8;
+13. HDiT routed config: config_mnist_transformer.json (7 x 7 tokens, class
+   conditioning) at batch 8 in bfloat16 on the card against float32 on the
+   CPU; its global level goes to K13, not K3.
 
-   Then 3 more steps under torch.profiler: the device time by kernel.
-
-Then one JSON line of per-kernel results, and last
-``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero,
-no result line. Imports nothing of JAX.
+Then one JSON line of per-kernel results and last ``{"ok": true, "device":
+{...}}``. A kernel's ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms``
+are summed over its calls in one denoiser call (forward kernels) or one
+training step (backward kernels) on its main path: the flagship at batch 8
+for K1-K10, the U-Net at batch 64 for K13 and K14; ``launches`` is its
+count in that path's sampling (forward) or timed training (backward) run.
+Any failure raises: exit code non-zero, no result line. Imports nothing of
+JAX.
 """
 
+import collections
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -41,15 +63,22 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "config_oxford_flowers.json"
+UNET_CONFIG = ROOT / "configs" / "config_cifar10.json"
+MNIST_TRANSFORMER = ROOT / "configs" / "config_mnist_transformer.json"
 SEED = 0
 SAMPLE_BATCH, STEPS = 8, 50
 TRAIN_BATCH, WARMUP_STEPS, TRAIN_STEPS = 32, 3, 20
+# the U-Net's sampling and training batch: the defaults of sample.py and
+# train.py
+UNET_BATCH = 64
 # a kernel may differ from its plain version by a few bf16 roundings of its
 # output: the plain version rounds intermediates (the raw projection, the
-# GEGLU halves, the residual stream) to bf16 where the kernel keeps f32
+# GEGLU halves, the residual stream, the attention logits) to bf16 where the
+# kernel keeps f32
 KERNEL_REL_BOUND = 3e-2
 # the bf16 model on the card against the f32 model on the CPU, relative L2
 # error of the denoiser output: ~100 bf16 roundings in sequence
@@ -57,6 +86,21 @@ FORWARD_REL_BOUND = 5e-2
 # the same for the full parameter gradient of one training step, relative
 # L2 of the flattened gradient: the forward's bound
 GRAD_REL_BOUND = 5e-2
+# published dense peaks of one H100 SXM at its full 700 W limit: bf16 tensor
+# cores, and device memory
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# one kernel at one shape: ``calls`` per denoiser call or training step on
+# its main path; ``fn`` the kernel's wrapper, ``plain`` its plain version,
+# each returning a tensor or a tuple of tensors; ``flops`` the bf16
+# operations the function needs at this shape and ``inputs`` the tensors it
+# reads, for the bound; ``timed`` what is timed and counted as the kernel
+# where that is not ``fn``; ``library`` one PyTorch call that computes the
+# same function, timed as a yardstick and used nowhere in the port
+Case = collections.namedtuple(
+    "Case", "name label calls fn plain flops inputs timed library",
+    defaults=(None, None))
 
 
 def device_ms(fn, reps):
@@ -90,14 +134,87 @@ def check_close(name, got, want, bound):
     return err, limit
 
 
+def tensors(*items):
+    """The tensors among ``items``, lists and tuples opened."""
+    out = []
+    for item in items:
+        if isinstance(item, torch.Tensor):
+            out.append(item)
+        elif isinstance(item, (list, tuple)):
+            out.extend(tensors(*item))
+    return out
+
+
+def bound_ms(flops, inputs, outputs):
+    """(ms from the operations at the bf16 peak, ms from the bytes at the
+    memory rate): each input read once, each output written once."""
+    moved = sum(t.numel() * t.element_size()
+                for t in tensors(inputs, outputs))
+    return flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+
+
 def lecun(shape, g, dev):
     return (torch.randn(shape, generator=g) / shape[0] ** 0.5).to(
         dev, torch.bfloat16)
 
 
+def heads_view(t, heads):
+    """(b, s, heads * 64) -> the (b, heads, s, 64) view SDPA takes."""
+    b, s, c = t.shape
+    return t.reshape(b, s, heads, c // heads).transpose(1, 2)
+
+
+def sdpa(q, k, v, scale, mask=None):
+    """The library yardstick: q, k, v (b, s, heads, e) as (b, heads, s, e)
+    views; ``mask`` an (s, s) additive bias."""
+    return F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)), attn_mask=mask, scale=scale)
+
+
+def sdpa_backward(q, k, v, dout, scale, mask=None):
+    """The library yardstick of a backward: SDPA's backward alone, from a
+    forward graph built once. Its gradients are (b, heads, s, e)."""
+    with torch.enable_grad():
+        leaves = [t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             scale=scale)
+    cot = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+
+def na_library(qkv, heads, dout=None):
+    """The yardstick of K2, or with ``dout`` of K7 + K8: SDPA, or its
+    backward alone, on the (b, hw, heads, 64) views of packed (b, h, w, c)
+    q, k, v, each query's clamped 7 x 7 window a dense (hw, hw) additive
+    bf16 mask (the plain version's): hw / 49 times the kernels' work. Held
+    once against the plain version here; returns the timed callable."""
+    from k_diffusion_tpu_torch.ops.attention import neighborhood_mask_2d
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    b, h, w, c = qkv[0].shape
+    dev = qkv[0].device
+    mask = torch.zeros((h * w, h * w), device=dev, dtype=qkv[0].dtype)
+    mask.masked_fill_(~neighborhood_mask_2d(h, w, 7, dev), float("-inf"))
+    flat = [t.reshape(b, h * w, heads, c // heads) for t in qkv]
+    packed = lambda t: t.transpose(1, 2).reshape(b, h, w, c)
+    label = f"{b}x{h}x{w}x{c}"
+    if dout is None:
+        call = lambda: sdpa(*flat, 1.0, mask)
+        check_close(f"masked SDPA {label}", packed(call()),
+                    na2d.reference(*qkv, heads, 7), KERNEL_REL_BOUND)
+        return call
+    call = sdpa_backward(*flat, dout.reshape(flat[0].shape), 1.0, mask)
+    wants = na2d.reference_backward(*qkv, dout, heads, 7)
+    for name, got, want in zip("qkv", call(), wants):
+        check_close(f"masked SDPA backward d{name} {label}", packed(got), want,
+                    KERNEL_REL_BOUND)
+    return call
+
+
 def kernel_cases(dev):
-    """(kernel name, shape label, calls per forward, kernel fn, plain fn)
-    at the flagship eval shapes, batch 8. Inputs are seeded."""
+    """The forward kernels at the flagship eval shapes, batch 8. Inputs are
+    seeded."""
     from k_diffusion_tpu_torch.ops import rope
     from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_mapping,
                                                    fused_qkv, global_packed,
@@ -121,7 +238,7 @@ def kernel_cases(dev):
     for h, d, d_ff, attn, n in ((64, 128, 384, "na", 4),
                                 (32, 256, 768, "na", 4),
                                 (16, 512, 1536, "global", 4)):
-        heads = d // 64
+        heads, t = d // 64, b * h * h
         x = normal(b, h, h, d)
         ns = (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, bf16)
         w_qkv = lecun((d, 3 * d), g, dev)
@@ -129,49 +246,61 @@ def kernel_cases(dev):
         pos = rope.make_axial_pos(h, h, device=dev)
         label = f"{b}x{h}x{h}x{d}"
         args = (x, pos, ns, w_qkv, a_scale, heads)
-        cases.append(("fused_qkv", label, n,
-                      lambda a=args: fused_qkv.fused_qkv_prologue(*a),
-                      lambda a=args: fused_qkv.reference(*a)))
+        cases.append(Case("fused_qkv", label, n,
+                          lambda a=args: fused_qkv.fused_qkv_prologue(*a),
+                          lambda a=args: fused_qkv.reference(*a),
+                          2 * t * d * 3 * d, args))
         qkv = (unit_heads(b, h, h, d), unit_heads(b, h, h, d),
                normal(b, h, h, d))
         if attn == "na":
-            cases.append(("na2d", label, n,
-                          lambda t=qkv, nh=heads: na2d.na2d_packed(*t, nh, 7),
-                          lambda t=qkv, nh=heads: _na_plain(na2d, *t, nh)))
+            cases.append(Case(
+                "na2d", label, n,
+                lambda t=qkv, nh=heads: na2d.na2d_packed(*t, nh, 7),
+                lambda t=qkv, nh=heads: _na_plain(na2d, *t, nh),
+                4 * t * d * 7 ** 2, qkv,
+                library=na_library(qkv, heads)))
         else:
-            flat = tuple(t.reshape(b, h * h, d) for t in qkv)
-            cases.append(("global_packed", f"{b}x{h * h}x{d}", n,
-                          lambda t=flat, nh=heads:
-                          global_packed.packed_global_attention(*t, nh),
-                          lambda t=flat, nh=heads:
-                          global_packed.reference(*t, nh)))
+            s = h * h
+            flat = tuple(t.reshape(b, s, d) for t in qkv)
+            cases.append(Case(
+                "global_packed", f"{b}x{s}x{d}", n,
+                lambda t=flat, nh=heads:
+                global_packed.packed_global_attention(*t, nh),
+                lambda t=flat, nh=heads: global_packed.reference(*t, nh),
+                4 * b * s * s * d, flat,
+                library=lambda t=flat, nh=heads: F.scaled_dot_product_attention(
+                    *(heads_view(x, nh) for x in t), scale=1.0)))
         xt = x.reshape(b, h * h, d)
         ffn_args = (xt, ns, lecun((d, 2 * d_ff), g, dev),
                     lecun((d_ff, d), g, dev))
-        cases.append(("fused_ffn", f"{b}x{h * h}x{d} f={d_ff}", n,
-                      lambda a=ffn_args: fused_ffn.fused_geglu_ffn(*a),
-                      lambda a=ffn_args: fused_ffn.reference(*a)))
+        cases.append(Case("fused_ffn", f"{b}x{h * h}x{d} f={d_ff}", n,
+                          lambda a=ffn_args: fused_ffn.fused_geglu_ffn(*a),
+                          lambda a=ffn_args: fused_ffn.reference(*a),
+                          6 * t * d * d_ff, ffn_args))
     mw = 256
     blocks = [((1 + 0.1 * torch.randn(mw, generator=g)).to(dev),
                lecun((mw, 2 * 3 * mw), g, dev), lecun((3 * mw, mw), g, dev))
               for _ in range(2)]
     map_args = (normal(b, mw), torch.ones(mw, device=dev),
                 torch.ones(mw, device=dev), blocks)
-    cases.append(("fused_mapping", f"{b}x{mw} f={3 * mw}", 1,
-                  lambda a=map_args: fused_mapping.fused_mapping(*a),
-                  lambda a=map_args: fused_mapping.reference(*a)))
+    cases.append(Case("fused_mapping", f"{b}x{mw} f={3 * mw}", 1,
+                      lambda a=map_args: fused_mapping.fused_mapping(*a),
+                      lambda a=map_args: fused_mapping.reference(*a),
+                      len(blocks) * 6 * b * mw * 3 * mw, map_args))
     return cases
 
 
 def backward_cases(dev):
-    """(kernel name, shape label, calls per training step, kernel fn, plain
-    fn[, timed fn]) for the backward kernels at the flagship training shapes, batch 8:
-    K6 at every level, K7, K8 and K10 at the two NA levels (the mid
-    level's feed-forward blocks have dropout and run unfused), K9 at the
-    global level. Each fn returns a tuple of gradients; K7's dk and dv are
-    its halo partials summed by the plain overlap-add, so that each of
-    K7's outputs is held against the plain backward. Inputs are seeded;
-    the weights are float32, as the model's parameters."""
+    """The backward kernels at the flagship training shapes, batch 8: K6 at
+    every level, K7, K8 and K10 at the two NA levels (the mid level's
+    feed-forward blocks have dropout and run unfused), K9 at the global
+    level. Each fn returns a tuple of gradients; K7's dk and dv are its halo
+    partials summed by the plain overlap-add, so that each of K7's outputs
+    is held against the plain backward. Inputs are seeded; the weights are
+    float32, as the model's parameters. A backward's operations count the
+    products it cannot do without: the recomputed forward product where
+    the forward's result is not an input (the raw qkv, the logits, the
+    GEGLU hidden), and each gradient product."""
     from k_diffusion_tpu_torch.ops import rope
     from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_qkv,
                                                    global_packed, na2d)
@@ -191,16 +320,18 @@ def backward_cases(dev):
     for h, d, d_ff, attn, n in ((64, 128, 384, "na", 4),
                                 (32, 256, 768, "na", 4),
                                 (16, 512, 1536, "global", 4)):
-        heads = d // 64
+        heads, t = d // 64, b * h * h
         label = f"{b}x{h}x{h}x{d}"
         args = (normal(b, h, h, d), rope.make_axial_pos(h, h, device=dev),
                 (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, bf16),
                 normal(d, 3 * d, std=d ** -0.5, dtype=torch.float32),
                 10 * (1 + 0.1 * torch.randn(heads, generator=g)).to(dev),
                 heads, *(normal(b, h, h, d) for _ in range(3)))
-        cases.append(("fused_qkv_bwd", label, n,
-                      lambda a=args: fused_qkv.prologue_backward(*a),
-                      lambda a=args: fused_qkv.reference_backward(*a)))
+        # the raw qkv recomputed, then dW_qkv and dx
+        cases.append(Case("fused_qkv_bwd", label, n,
+                          lambda a=args: fused_qkv.prologue_backward(*a),
+                          lambda a=args: fused_qkv.reference_backward(*a),
+                          3 * 2 * t * d * 3 * d, args))
         q, k, v, dout = (unit_heads(b, h, h, d), unit_heads(b, h, h, d),
                          normal(b, h, h, d), normal(b, h, h, d))
         if attn == "na":
@@ -213,62 +344,146 @@ def backward_cases(dev):
                 return (dq, *na2d.overlap_add_reference(dk_part, dv_part, h,
                                                         h, 7))
 
-            # timed alone; its plain time is the whole plain backward
-            cases.append(("na2d_bwd", label, n, k7,
-                          lambda a=(q, k, v, dout, heads, 7):
-                          na2d.reference_backward(*a),
-                          lambda a=fwd: na2d.packed_backward_partials(*a)))
-            cases.append(("na2d_overlap_add", label, n,
-                          lambda p=parts[1:], h=h: na2d.overlap_add(*p, h, h, 7),
-                          lambda p=parts[1:], h=h:
-                          na2d.overlap_add_reference(*p, h, h, 7)))
-            xt = normal(b, h * h, d)
-            ffn_args = (xt, (1 + 0.1 * torch.randn((b, d), generator=g)).to(
-                dev, bf16), normal(d, 2 * d_ff, std=d ** -0.5,
-                                   dtype=torch.float32),
+            # timed alone; its plain time and its library's are the whole
+            # backward's (K7 + K8); the logits recomputed, then dp, dv, dk, dq
+            cases.append(Case(
+                "na2d_bwd", label, n, k7,
+                lambda a=(q, k, v, dout, heads, 7): na2d.reference_backward(*a),
+                5 * 2 * t * d * 7 ** 2, fwd,
+                timed=lambda a=fwd: na2d.packed_backward_partials(*a),
+                library=na_library((q, k, v), heads, dout)))
+            # the library call: one index_add_ of the dk and dv halo rows
+            # (side by side) into the plain version's position map
+            halo = na2d.TILE + na2d.MAX_KERNEL - 1
+            rows = torch.cat([p[:, :, :, :halo * halo].reshape(
+                b, heads, -1, 64) for p in parts[1:]], -1)
+            sums = torch.zeros((b, heads, h * h + 1, 128), device=dev)
+            cases.append(Case(
+                "na2d_overlap_add", label, n,
+                lambda p=parts[1:], h=h: na2d.overlap_add(*p, h, h, 7),
+                lambda p=parts[1:], h=h: na2d.overlap_add_reference(*p, h, h, 7),
+                0, parts[1:],
+                library=lambda s=sums, t=na2d.overlap_add_targets(h, h, 7, dev),
+                r=rows: s.index_add_(2, t, r)))
+            ffn_args = (normal(b, h * h, d), (1 + 0.1 * torch.randn(
+                (b, d), generator=g)).to(dev, bf16),
+                normal(d, 2 * d_ff, std=d ** -0.5, dtype=torch.float32),
                 normal(d_ff, d, std=d_ff ** -0.5, dtype=torch.float32),
                 normal(b, h * h, d))
-            cases.append(("fused_ffn_bwd", f"{b}x{h * h}x{d} f={d_ff}", n,
-                          lambda a=ffn_args: fused_ffn.ffn_backward(*a),
-                          lambda a=ffn_args: fused_ffn.reference_backward(*a)))
+            # the GEGLU up product recomputed, then dh, dW_down, dx, dW_up
+            cases.append(Case("fused_ffn_bwd", f"{b}x{h * h}x{d} f={d_ff}", n,
+                              lambda a=ffn_args: fused_ffn.ffn_backward(*a),
+                              lambda a=ffn_args: fused_ffn.reference_backward(*a),
+                              16 * t * d * d_ff, ffn_args))
         else:
-            q, k, v, dout = (t.reshape(b, h * h, d) for t in (q, k, v, dout))
+            s = h * h
+            q, k, v, dout = (t.reshape(b, s, d) for t in (q, k, v, dout))
             out, lse = global_packed.packed_forward(q, k, v, heads,
                                                     save_lse=True)
-            cases.append(("global_packed_bwd", f"{b}x{h * h}x{d}", n,
-                          lambda a=(q, k, v, out, lse, dout, heads):
-                          global_packed.packed_backward(*a),
-                          lambda a=(q, k, v, dout, heads):
-                          global_packed.reference_backward(*a)))
+            split = [t.reshape(b, s, heads, 64) for t in (q, k, v, dout)]
+            cases.append(Case(
+                "global_packed_bwd", f"{b}x{s}x{d}", n,
+                lambda a=(q, k, v, out, lse, dout, heads):
+                global_packed.packed_backward(*a),
+                lambda a=(q, k, v, dout, heads):
+                global_packed.reference_backward(*a),
+                5 * 2 * b * s * s * d, (q, k, v, out, lse, dout),
+                library=sdpa_backward(*split, 1.0)))
+    return cases
+
+
+def flash_cases(dev, unet):
+    """K13 and K14 at the U-Net's shapes, batch 64 (heads follow each
+    block's width, the last block of an up stack narrowing to the next
+    level's), q, k, v strided views of one (b, s, 3, heads, 64) projection
+    as the U-Net makes them, logits of about unit spread at scale 1/8; and
+    K13 at the mnist HDiT's 7 x 7 level, batch 8, with cosine-sim q and k at
+    scale 1. The HDiT's case is held and timed but counts no calls: its
+    path (phase 13) is not this kernel's main path."""
+    from k_diffusion_tpu_torch.ops.kernels import flash
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    bf16 = torch.bfloat16
+    m = unet["model"]
+    size = m["input_size"][0]
+    shapes = collections.Counter()
+    for i, (depth, attn) in enumerate(zip(m["depths"], m["self_attn_depths"])):
+        if attn:
+            s = (size >> i) ** 2
+            c, narrow = m["channels"][i], m["channels"][max(0, i - 1)]
+            shapes[s, c // 64] += 2 * depth - 1
+            shapes[s, narrow // 64] += 1
+    cases = []
+    for (s, heads), n in sorted(shapes.items(), reverse=True):
+        b = UNET_BATCH
+        label = f"{b}x{s}x{heads}x64"
+        qkv = (torch.randn((b, s, 3, heads, 64), generator=g)).to(dev, bf16)
+        q, k, v = qkv.unbind(2)
+        dout = torch.randn((b, s, heads, 64), generator=g).to(dev, bf16)
+        fwd_flops = 2 * 2 * b * heads * s * s * 64
+        cases.append(Case("flash", label, n,
+                          lambda t=(q, k, v): flash.flash_attention(*t, 0.125),
+                          lambda t=(q, k, v): flash.reference(*t, 0.125),
+                          fwd_flops, (q, k, v),
+                          library=lambda t=(q, k, v): sdpa(*t, 0.125)))
+        out, lse = flash.flash_forward(q, k, v, 0.125, save_lse=True)
+        # the logits recomputed, then dp, dv, dk, dq
+        cases.append(Case(
+            "flash_bwd", label, n,
+            lambda a=(q, k, v, out, lse, dout): flash.flash_backward(*a, 0.125),
+            lambda a=(q, k, v, dout): flash.reference_backward(*a, 0.125),
+            5 * fwd_flops // 2, (q, k, v, out, lse, dout),
+            library=sdpa_backward(q, k, v, dout, 0.125)))
+    b, s, heads = SAMPLE_BATCH, 49, 4
+    t = torch.randn((3, b, s, heads, 64), generator=g)
+    q, k, v = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).to(dev, bf16)
+    cases.append(Case("flash", f"{b}x{s}x{heads}x64 (mnist HDiT)", 0,
+                      lambda a=(q, k, v): flash.flash_attention(*a, 1.0),
+                      lambda a=(q, k, v): flash.reference(*a, 1.0),
+                      2 * 2 * b * heads * s * s * 64, (q, k, v),
+                      library=lambda a=(q, k, v): sdpa(*a, 1.0)))
     return cases
 
 
 def run_cases(cases, results, kernel_reps, plain_reps):
     """Holds each case's kernel against its plain version, times both (the
-    kernel through its timed fn where a case has one) and adds calls x ms
-    into ``results[name]``."""
-    for name, label, calls, fn, plain, *timed in cases:
-        got, want = fn(), plain()
+    kernel through its timed fn where a case has one) and the library call
+    where there is one, computes the bound, and adds calls x each into
+    ``results[name]``."""
+    for c in cases:
+        got, want = c.fn(), c.plain()
         torch.cuda.synchronize()
         outs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        checks = [check_close(f"{name} {label}", a, b_, KERNEL_REL_BOUND)
+        checks = [check_close(f"{c.name} {c.label}", a, b_, KERNEL_REL_BOUND)
                   for a, b_ in outs]
         err = max(e for e, _ in checks)
         # the worst output's error as a share of its max |plain|
         share = max(e / limit * KERNEL_REL_BOUND if limit else 0.0
                     for e, limit in checks)
+        timed = c.timed or c.fn
+        op_ms, byte_ms = bound_ms(c.flops, c.inputs,
+                                  timed() if c.timed else got)
         del got, want
-        ms = device_ms(timed[0] if timed else fn, kernel_reps)
-        plain_ms = device_ms(plain, plain_reps)
-        print(f"kernel {name} [{label}]: max abs err {err:.3e}, worst "
+        ms = device_ms(timed, kernel_reps)
+        plain_ms = device_ms(c.plain, plain_reps)
+        lib_ms = device_ms(c.library, kernel_reps) if c.library else None
+        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        print(f"kernel {c.name} [{c.label}]: max abs err {err:.3e}, worst "
               f"output {share:.2e} x its max|plain| (bound "
-              f"{KERNEL_REL_BOUND}), {ms:.4f} ms, plain {plain_ms:.4f} ms",
-              flush=True)
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                      "plain_ms": 0.0})
+              f"{KERNEL_REL_BOUND}), {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{lib}; bound {max(op_ms, byte_ms):.4f} ms (operations "
+              f"{op_ms:.4f}, bytes {byte_ms:.4f})", flush=True)
+        r = results.setdefault(c.name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "op_ms": 0.0, "byte_ms": 0.0, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += calls * ms
-        r["plain_ms"] += calls * plain_ms
+        r["ms"] += c.calls * ms
+        r["plain_ms"] += c.calls * plain_ms
+        r["bound_ms"] += c.calls * max(op_ms, byte_ms)
+        r["op_ms"] += c.calls * op_ms
+        r["byte_ms"] += c.calls * byte_ms
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + c.calls * lib_ms
     torch.cuda.empty_cache()
 
 
@@ -280,7 +495,7 @@ def _na_plain(na2d, q, k, v, heads):
 
 
 def fill_zero_init(model, g):
-    """Seeded noise into the zero-initialised projections (out_proj,
+    """Seeded noise into the HDiT's zero-initialised projections (out_proj,
     down_proj, every AdaRMSNorm mapping_linear, patch_out): a freshly
     initialised HDiT ignores every block and returns c_skip * x."""
     with torch.no_grad():
@@ -291,6 +506,98 @@ def fill_zero_init(model, g):
             elif name.endswith("mapping_linear.kernel"):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.1
                         / p.shape[0] ** 0.5)
+
+
+def fill_zero_init_unet(model, g):
+    """Seeded noise into the U-Net's zero-initialised kernels (each residual
+    block's conv_2, each attention's out_proj, proj_out, every AdaGN
+    mapper, the last at a tenth): a fresh U-Net returns c_skip * x too."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("conv_2.kernel", "out_proj.kernel",
+                              "proj_out.kernel", "mapper.kernel")):
+                gain = 0.1 if name.endswith("mapper.kernel") else 1.0
+                p.copy_(torch.randn(p.shape, generator=g) * gain
+                        / math.prod(p.shape[:-1]) ** 0.5)
+
+
+def input_shape(config, batch):
+    m = config["model"]
+    return (batch, *m["input_size"], m["input_channels"])
+
+
+def forward_parity(KT, config, dev, fill, g, name, batch=2, **cond):
+    """One bf16 denoiser call on the card against the same weights in f32 on
+    the CPU (plain versions), relative L2 of the output. Returns the card
+    model (eval mode) and the launch counts of its call."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    model = KT.config.make_model(config, dtype=torch.bfloat16, device="cpu",
+                                 generator=g)
+    fill(model, g)
+    reference = KT.config.make_model(config, device="cpu").eval()
+    reference.load_state_dict(model.state_dict())
+    model.to(dev).eval()  # dropout is for training only
+    x = torch.randn(input_shape(config, batch), generator=g)
+    sigma = torch.linspace(0.5, 8.0, batch)
+    kernels.reset_launch_counts()
+    out = KT.config.make_denoiser_wrapper(config)(model)(
+        x.to(dev), sigma.to(dev), **{k: v.to(dev) for k, v in cond.items()})
+    counts = kernels.launch_counts()
+    out = out.cpu()
+    want = KT.config.make_denoiser_wrapper(config)(reference)(x, sigma, **cond)
+    rel = ((out - want).norm() / want.norm()).item()
+    if not rel <= FORWARD_REL_BOUND or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: relative L2 error {rel:.3e} > "
+                             f"{FORWARD_REL_BOUND}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{name}: {n_params} params, batch {batch} bf16 on the card vs f32 "
+          f"on the CPU: relative L2 error {rel:.3e} (bound "
+          f"{FORWARD_REL_BOUND})", flush=True)
+    return model, counts
+
+
+def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name):
+    """50-step DPM++(2M) at ``batch`` from sigma_max; the output finite and
+    the launch counts ``per_call`` x STEPS. ``fwd_flops``: the model's
+    FLOPs per image per forward. Returns the launch counts."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    m = config["model"]
+    denoiser = KT.config.make_denoiser_wrapper(config)(model)
+    sigmas = KT.sampling.get_sigmas_karras(STEPS, m["sigma_min"],
+                                           m["sigma_max"], rho=7.0, device=dev)
+    x = (torch.randn(input_shape(config, batch), generator=g)
+         * m["sigma_max"]).to(dev)
+    with torch.no_grad():
+        denoiser(x, sigmas[:1].expand(batch))  # warm up at this batch
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        samples = KT.sampling.sample_dpmpp_2m(denoiser, x, sigmas)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        counts = kernels.launch_counts()
+    if samples.shape != x.shape or not torch.isfinite(samples).all():
+        raise AssertionError(f"{name}: output not finite or wrong shape")
+    # no backward kernel runs while sampling
+    expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+        k: STEPS * v for k, v in per_call.items()}
+    if counts != expected:
+        raise AssertionError(f"{name}: launch counts {counts} != expected "
+                             f"{expected}")
+    tflops = fwd_flops * batch * STEPS / secs / 1e12
+    print(f"{name}: {STEPS}-step DPM++(2M), batch {batch}: {secs:.3f} s, "
+          f"{batch / secs:.3f} samples/s, model {tflops:.2f} TFLOP/s on "
+          f"{smi}; launches {counts}", flush=True)
+
+    def calls(n):
+        with torch.no_grad():
+            for _ in range(n):
+                denoiser(x, sigmas[:1].expand(batch))
+
+    profile(calls, name, "denoiser calls")
+    return counts
 
 
 def main():
@@ -319,70 +626,75 @@ def main():
     with torch.no_grad():
         run_cases(kernel_cases(dev), results, 50, 5)
 
-        config = KT.config.load_config(CONFIG)
-        g = torch.Generator().manual_seed(SEED)
-        model = KT.config.make_model(config, dtype=torch.bfloat16,
-                                     generator=g)
-        fill_zero_init(model, g)
-        reference = KT.config.make_model(config).eval()
-        reference.load_state_dict(model.state_dict())
-        model.to(dev).eval()  # the level dropout is for training only
-        denoiser = KT.config.make_denoiser_wrapper(config)(model)
-        ref_denoiser = KT.config.make_denoiser_wrapper(config)(reference)
-        size = config["model"]["input_size"]
-        x = torch.randn((2, *size, 3), generator=g)
-        sigma = torch.tensor([0.5, 8.0])
-        out = denoiser(x.to(dev), sigma.to(dev)).cpu()
-        want = ref_denoiser(x, sigma)
-        rel = ((out - want).norm() / want.norm()).item()
-        if not rel <= FORWARD_REL_BOUND or not torch.isfinite(out).all():
-            raise AssertionError(f"forward: relative L2 error {rel:.3e} > "
-                                 f"{FORWARD_REL_BOUND}")
-        n_params = sum(p.numel() for p in model.parameters())
-        print(f"forward: {n_params} params, batch 2 bf16 on the card vs f32 "
-              f"on the CPU: relative L2 error {rel:.3e} (bound "
-              f"{FORWARD_REL_BOUND})", flush=True)
-
-        sigmas = KT.sampling.get_sigmas_karras(
-            STEPS, config["model"]["sigma_min"], config["model"]["sigma_max"],
-            rho=7.0, device=dev)
-        x = (torch.randn((SAMPLE_BATCH, *size, 3), generator=g)
-             * config["model"]["sigma_max"]).to(dev)
-        denoiser(x, sigmas[:1].expand(SAMPLE_BATCH))  # warm up at batch 8
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        start = time.perf_counter()
-        samples = KT.sampling.sample_dpmpp_2m(denoiser, x, sigmas)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - start
-        counts = kernels.launch_counts()
-    if samples.shape != x.shape or not torch.isfinite(samples).all():
-        raise AssertionError("sampling: output not finite or wrong shape")
+    # the flagship HDiT: phases 4-8
+    config = KT.config.load_config(CONFIG)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        model, _ = forward_parity(KT, config, dev, fill_zero_init, g,
+                                  "forward")
     levels = config["model"]["depths"]
     attn_layers = 2 * sum(levels[:-1]) + levels[-1]
-    na_layers = 2 * sum(levels[:-1])
-    # no backward kernel runs while sampling
-    expected = dict.fromkeys(kernels.COUNTERS, 0) | {
-        "fused_qkv": STEPS * attn_layers, "na2d": STEPS * na_layers,
-        "global_packed": STEPS * levels[-1],
-        "fused_ffn": STEPS * attn_layers, "fused_mapping": STEPS}
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts} != expected {expected}")
-    tflops = (2 * flops.analytic_transformer_flops(config, SAMPLE_BATCH)
-              * STEPS / secs / 1e12)
-    print(f"sampling: {STEPS}-step DPM++(2M), batch {SAMPLE_BATCH}: "
-          f"{secs:.3f} s, {SAMPLE_BATCH / secs:.3f} samples/s, model "
-          f"{tflops:.2f} TFLOP/s on {smi}; launches {counts}", flush=True)
-
-    sample_counts = counts
-    del model, reference, denoiser, ref_denoiser, samples, x
+    per_call = {"fused_qkv": attn_layers, "na2d": 2 * sum(levels[:-1]),
+                "global_packed": levels[-1], "fused_ffn": attn_layers,
+                "fused_mapping": 1}
+    sample_counts = sample(
+        KT, config, model, dev, g, SAMPLE_BATCH, per_call,
+        2 * flops.analytic_transformer_flops(config, 1), smi, "sampling")
+    del model
     torch.cuda.empty_cache()
 
     with torch.no_grad():
         run_cases(backward_cases(dev), results, 20, 3)
 
-    grad_parity(KT, config, dev)
-    train_counts = train(KT, config, dev, smi)
+    grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
+    train_counts = train(KT, config, dev, smi, TRAIN_BATCH,
+                         hdit_train_layout(config),
+                         2 * flops.analytic_transformer_flops(config, 1),
+                         "training")
+
+    # the U-Net (config_cifar10.json): phases 9-12
+    unet = KT.config.load_config(UNET_CONFIG)
+    with torch.no_grad():
+        run_cases(flash_cases(dev, unet), results, 20, 5)
+    g = torch.Generator().manual_seed(SEED + 7)
+    unet_flops = unet_forward_flops(KT, unet)
+    with torch.no_grad():
+        model, counts = forward_parity(KT, unet, dev, fill_zero_init_unet, g,
+                                       "unet forward")
+    n_attn = sum(2 * d for d, a in zip(unet["model"]["depths"],
+                                       unet["model"]["self_attn_depths"]) if a)
+    if counts != dict.fromkeys(kernels.COUNTERS, 0) | {"flash": n_attn}:
+        raise AssertionError(f"unet forward: launch counts {counts}")
+    unet_sample_counts = sample(KT, unet, model, dev, g, UNET_BATCH,
+                                {"flash": n_attn}, unet_flops, smi,
+                                "unet sampling")
+    del model
+    torch.cuda.empty_cache()
+    aug = torch.randn((2, 9), generator=torch.Generator().manual_seed(SEED + 8))
+    grad_parity(KT, unet, dev, fill_zero_init_unet, "unet gradient parity",
+                aug_cond=aug)
+    unet_train_counts = train(KT, unet, dev, smi, UNET_BATCH,
+                              {"flash": n_attn, "flash_bwd": n_attn},
+                              unet_flops, "unet training")
+
+    # the HDiT config whose global level K3 does not take: phase 13
+    mnist = KT.config.load_config(MNIST_TRANSFORMER)
+    g = torch.Generator().manual_seed(SEED + 9)
+    classes = torch.randint(0, mnist["dataset"]["num_classes"],
+                            (SAMPLE_BATCH,), generator=g)
+    with torch.no_grad():
+        _, counts = forward_parity(KT, mnist, dev, fill_zero_init, g,
+                                   "mnist transformer forward", SAMPLE_BATCH,
+                                   class_cond=classes)
+    depth = sum(mnist["model"]["depths"])
+    expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+        "fused_qkv": depth, "flash": depth, "fused_ffn": depth,
+        "fused_mapping": 1}
+    if counts != expected:
+        raise AssertionError(f"mnist transformer forward: launch counts "
+                             f"{counts} != expected {expected}")
+    print(f"mnist transformer forward: launches {counts} (the 7 x 7 global "
+          f"level through K13, none through K3)", flush=True)
 
     sources = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82"),
@@ -395,77 +707,124 @@ def main():
         "na2d_overlap_add": ("na2d.cu", "na2d.py:809"),
         "global_packed_bwd": ("global_packed.cu", "global_packed.py:111"),
         "fused_ffn_bwd": ("geglu.cu", "fused_ffn.py:115"),
+        "flash": ("flash.cu", "flash.py:34"),
+        "flash_bwd": ("flash.cu", "flash.py:57"),
     }
     report = []
     for name, (src, tpu) in sources.items():
         r = results[name]
-        # launches: the forward kernels' from the sampling run, the
-        # backward kernels' from the timed training steps
+        # launches on the kernel's main path: the forward kernels' from its
+        # sampling run, the backward kernels' from its timed training steps
+        flagship = name not in ("flash", "flash_bwd")
+        sampled = sample_counts if flagship else unet_sample_counts
+        trained = train_counts if flagship else unet_train_counts
+        backward = name.endswith(("_bwd", "_add"))
         report.append({
             "name": name, "route": "cuda",
             "source": f"k_diffusion_tpu_torch/csrc/{src}",
             "replaces": f"k_diffusion_tpu/ops/pallas/{tpu}",
-            "launches": (train_counts if name.endswith(("_bwd", "_add"))
-                         else sample_counts)[name],
-            "train_launches": train_counts[name],
+            "launches": (trained if backward else sampled)[name],
+            "train_launches": trained[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"]})
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if r["op_ms"] > r["byte_ms"] else "bytes",
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
 
 
+def unet_forward_flops(KT, config):
+    """The U-Net's FLOPs per image per forward: torch.utils.flop_counter
+    over the plain forward on the CPU at batch 1 (convolutions, matmuls and
+    the attention products)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = KT.config.make_model(config, device="cpu").eval()
+    x = torch.zeros(input_shape(config, 1))
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        KT.config.make_denoiser_wrapper(config)(model)(x, torch.ones(1))
+    total = counter.get_total_flops()
+    print(f"unet flops: {total} per image per forward (FlopCounterMode, "
+          f"plain CPU forward at batch 1)", flush=True)
+    return total
+
+
 def no_dropout(config):
-    model = dict(config["model"], dropout_rate=[0.0] * len(
-        config["model"]["dropout_rate"]), mapping_dropout_rate=0.0)
+    model = dict(config["model"])
+    for key in ("dropout_rate", "mapping_dropout_rate"):
+        rate = model.get(key)
+        if isinstance(rate, list):
+            model[key] = [0.0] * len(rate)
+        elif rate is not None:
+            model[key] = 0.0
     return dict(config, model=model)
 
 
-def grad_parity(KT, config, dev):
-    """Phase 7: one step's loss and full parameter gradient, bf16 on the
-    card against f32 on the CPU, from the same weights, reals, noise and
-    sigmas. Dropout is off: the two devices' generators draw different
-    masks."""
+def grad_parity(KT, config, dev, fill, name, **cond):
+    """Phases 7 and 12: one step's loss and full parameter gradient, bf16 on
+    the card against f32 on the CPU, from the same weights, reals, noise,
+    sigmas and ``cond`` (batch 2). Dropout is off: the two devices'
+    generators draw different masks."""
     config = no_dropout(config)
     g = torch.Generator().manual_seed(SEED + 3)
-    model = KT.config.make_model(config, dtype=torch.bfloat16, generator=g)
-    fill_zero_init(model, g)
-    reference = KT.config.make_model(config)
+    model = KT.config.make_model(config, dtype=torch.bfloat16, device="cpu",
+                                 generator=g)
+    fill(model, g)
+    reference = KT.config.make_model(config, device="cpu")
     reference.load_state_dict(model.state_dict())
     model.to(dev).train()
     reference.train()
-    size = config["model"]["input_size"]
-    reals = torch.randn((2, *size, 3), generator=g)
-    noise = torch.randn((2, *size, 3), generator=g)
+    reals = torch.randn(input_shape(config, 2), generator=g)
+    noise = torch.randn(input_shape(config, 2), generator=g)
     sigma = KT.config.make_sample_density(config["model"])(
-        (2,), stratified=(0, 1), generator=g)
+        (2,), stratified=(0, 1), generator=g, device="cpu")
     grads = []
     for m, d in ((model, dev), (reference, torch.device("cpu"))):
         den = KT.config.make_denoiser_wrapper(config)(m)
-        loss = den.loss(reals.to(d), noise.to(d), sigma.to(d)).mean()
+        loss = den.loss(reals.to(d), noise.to(d), sigma.to(d),
+                        **{k: v.to(d) for k, v in cond.items()}).mean()
         flat = torch.cat([p.flatten() for p in torch.autograd.grad(
             loss, list(m.parameters()))])
         grads.append((loss.item(), flat.float().cpu()))
     (loss, got), (ref_loss, want) = grads
     rel = ((got - want).norm() / want.norm()).item()
     if not (rel <= GRAD_REL_BOUND and torch.isfinite(got).all()):
-        raise AssertionError(f"gradient parity: relative L2 error {rel:.3e} "
+        raise AssertionError(f"{name}: relative L2 error {rel:.3e} "
                              f"> {GRAD_REL_BOUND}")
-    print(f"gradient parity: batch 2, dropout 0 (the card's and the CPU's "
-          f"mask generators differ), sigmas {sigma.tolist()}: loss "
-          f"{loss:.6f} bf16 on the card vs {ref_loss:.6f} f32 on the CPU; "
-          f"gradient of {want.numel()} params: relative L2 error {rel:.3e} "
-          f"(bound {GRAD_REL_BOUND})", flush=True)
+    print(f"{name}: batch 2, dropout 0 (the card's and the CPU's mask "
+          f"generators differ), sigmas {sigma.tolist()}: loss {loss:.6f} "
+          f"bf16 on the card vs {ref_loss:.6f} f32 on the CPU; gradient of "
+          f"{want.numel()} params: relative L2 error {rel:.3e} (bound "
+          f"{GRAD_REL_BOUND})", flush=True)
     del model, reference
     torch.cuda.empty_cache()
 
 
-def train(KT, config, dev, smi):
-    """Phase 8: the flagship as configured (dropout on) at batch 32 on
-    seeded synthetic reals through training.make_train_step. Returns the
-    launch counts of the timed steps."""
-    from k_diffusion_tpu_torch.models import flops
+def hdit_train_layout(config):
+    """The flagship's kernel launches per training step."""
+    levels = config["model"]["depths"]
+    drops = config["model"]["dropout_rate"]
+    attn = 2 * sum(levels[:-1]) + levels[-1]
+    na = 2 * sum(levels[:-1])
+    # the fused feed-forward block runs where the level's dropout is 0
+    ffn = sum((2 if i < len(levels) - 1 else 1) * depth
+              for i, (depth, p) in enumerate(zip(levels, drops)) if p == 0)
+    mapping = int(config["model"]["mapping_dropout_rate"] == 0)
+    return {"fused_qkv": attn, "na2d": na, "global_packed": levels[-1],
+            "fused_ffn": ffn, "fused_mapping": mapping,
+            "fused_qkv_bwd": attn, "na2d_bwd": na, "na2d_overlap_add": na,
+            "global_packed_bwd": levels[-1], "fused_ffn_bwd": ffn}
+
+
+def train(KT, config, dev, smi, batch, per_step, fwd_flops, name):
+    """Phases 8 and 12: the config as it is (dropout on) at ``batch`` on
+    seeded synthetic reals (and a seeded aug_cond where the model takes
+    one) through training.make_train_step; launch counts ``per_step`` per
+    step. ``fwd_flops``: the model's FLOPs per image per forward. Returns
+    the launch counts of the timed steps."""
     from k_diffusion_tpu_torch.ops import kernels
 
     g = torch.Generator().manual_seed(SEED + 4)
@@ -478,9 +837,10 @@ def train(KT, config, dev, smi):
     step = KT.training.make_train_step(
         KT.config.make_denoiser_wrapper(config),
         KT.config.make_sample_density(config["model"]))
-    size = config["model"]["input_size"]
-    reals = torch.randn((1, TRAIN_BATCH, *size, 3), generator=g).clamp(
-        -1, 1).to(dev)
+    data = {"reals": torch.randn((1, *input_shape(config, batch)),
+                                 generator=g).clamp(-1, 1).to(dev)}
+    if config["model"].get("augment_wrapper"):
+        data["aug_cond"] = torch.randn((1, batch, 9), generator=g).to(dev)
     gen = torch.Generator(dev).manual_seed(SEED + 5)
     params0 = [p.detach().clone() for p in model.parameters()]
     ema0 = [p.detach().clone() for p in state.ema_model.parameters()]
@@ -488,7 +848,7 @@ def train(KT, config, dev, smi):
     def run(n):
         losses = []
         for _ in range(n):
-            metrics = step(state, {"reals": reals}, gen, ema_sched.get_value())
+            metrics = step(state, data, gen, ema_sched.get_value())
             ema_sched.step()
             losses.append(metrics["loss"])
         return torch.stack(losses)
@@ -505,33 +865,22 @@ def train(KT, config, dev, smi):
     peak = torch.cuda.max_memory_allocated()
     losses = torch.cat([warm, losses]).cpu()
     if not torch.isfinite(losses).all():
-        raise AssertionError(f"training: losses not finite: {losses}")
+        raise AssertionError(f"{name}: losses not finite: {losses}")
     moved = lambda now, before: max((a - b).abs().max().item()
                                     for a, b in zip(now, before))
     p_moved = moved(model.parameters(), params0)
     ema_moved = moved(state.ema_model.parameters(), ema0)
     if not (p_moved > 0 and ema_moved > 0):
-        raise AssertionError(f"training: params moved {p_moved}, EMA moved "
+        raise AssertionError(f"{name}: params moved {p_moved}, EMA moved "
                              f"{ema_moved}")
-    levels = config["model"]["depths"]
-    drops = config["model"]["dropout_rate"]
-    attn = 2 * sum(levels[:-1]) + levels[-1]
-    na = 2 * sum(levels[:-1])
-    # the fused feed-forward block runs where the level's dropout is 0
-    ffn = sum((2 if i < len(levels) - 1 else 1) * depth
-              for i, (depth, p) in enumerate(zip(levels, drops)) if p == 0)
-    mapping = int(config["model"]["mapping_dropout_rate"] == 0)
-    per_step = {"fused_qkv": attn, "na2d": na, "global_packed": levels[-1],
-                "fused_ffn": ffn, "fused_mapping": mapping,
-                "fused_qkv_bwd": attn, "na2d_bwd": na, "na2d_overlap_add": na,
-                "global_packed_bwd": levels[-1], "fused_ffn_bwd": ffn}
-    expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+        k: TRAIN_STEPS * v for k, v in per_step.items()}
     if counts != expected:
-        raise AssertionError(f"training launch counts {counts} != expected "
+        raise AssertionError(f"{name}: launch counts {counts} != expected "
                              f"{expected}")
-    ips = TRAIN_BATCH * TRAIN_STEPS / secs
-    tflops = 3 * 2 * flops.analytic_transformer_flops(config, 1) * ips / 1e12
-    print(f"training: batch {TRAIN_BATCH}, dropout {drops}, "
+    ips = batch * TRAIN_STEPS / secs
+    tflops = 3 * fwd_flops * ips / 1e12
+    print(f"{name}: batch {batch}, dropout {config['model']['dropout_rate']}, "
           f"{WARMUP_STEPS} warm-up + {TRAIN_STEPS} timed steps: "
           f"{secs:.3f} s, {ips:.3f} imgs/s, model {tflops:.2f} TFLOP/s "
           f"(3 x forward), peak memory {peak / 2**30:.3f} GiB "
@@ -539,13 +888,14 @@ def train(KT, config, dev, smi):
           f"{losses[0]:.5f} last {losses[-1]:.5f}; params moved "
           f"{p_moved:.3e}, EMA {ema_moved:.3e}; launches per step "
           f"{per_step}", flush=True)
-    profile(run)
+    profile(run, name, "training steps")
     return counts
 
 
-def profile(run):
-    """3 training steps under torch.profiler: prints the host time and the
-    device time by kernel (the rows with the most device time)."""
+def profile(run, name, what):
+    """``run(3)`` (3 training steps or denoiser calls) under torch.profiler:
+    prints the host time and the device time by kernel (the rows with the
+    most device time)."""
     from torch.profiler import ProfilerActivity
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -559,8 +909,8 @@ def profile(run):
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not e.is_user_annotation) / 3e3
-    print(f"profile: 3 training steps in {secs:.3f} s under the profiler, "
-          f"device busy {device_ms:.3f} ms per step; by device time:")
+    print(f"{name} profile: 3 {what} in {secs:.3f} s under the profiler, "
+          f"device busy {device_ms:.3f} ms each; by device time:")
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
 

@@ -3,9 +3,15 @@ schedule factories (counterpart of k_diffusion_tpu/config.py). The JAX
 package's module imports jax when it is imported, so the port carries its
 own copy of the config logic.
 
-The port covers the ``image_transformer_v2`` family: the other model types,
-class and mapping conditioning, the shifted-window and no-attention levels
-and the variance head raise ``NotImplementedError`` until they are ported.
+The port covers the ``image_transformer_v2`` family (HDiT, with class
+conditioning in the forward) and the ``image_v1`` family (U-Net). The ViT
+(``image_transformer_v1``), the HDiT's mapping conditioning and
+shifted-window and no-attention levels, the U-Net's cross-attention, and
+the variance head raise ``NotImplementedError`` until they are ported.
+
+``make_model``, ``make_sample_density``'s densities and
+``sampling.get_sigmas_karras`` put their tensors on the card unless the
+caller names a device (``utils.default_device``).
 """
 
 import json
@@ -15,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from . import denoiser, utils
+from . import augmentation, denoiser, utils
 
 
 def deep_merge(base, head):
@@ -40,6 +46,18 @@ def round_to_power_of_two(x, tol):
             return approx
     return approxs[0]
 
+
+_DEFAULTS_IMAGE_V1 = {
+    "model": {
+        "patch_size": 1, "augment_wrapper": True, "mapping_cond_dim": 0,
+        "unet_cond_dim": 0, "cross_cond_dim": 0, "cross_attn_depths": None,
+        "skip_stages": 0, "has_variance": False,
+    },
+    "optimizer": {
+        "type": "adamw", "lr": 1e-4, "betas": [0.95, 0.999], "eps": 1e-6,
+        "weight_decay": 1e-3,
+    },
+}
 
 _DEFAULTS_IMAGE_TRANSFORMER_V2 = {
     "model": {
@@ -73,7 +91,8 @@ _DEFAULTS = {
 
 def load_config(path_or_dict):
     """Loads a config from a JSON file or a dict and fills in the defaults,
-    exactly as the JAX package does for ``image_transformer_v2``."""
+    exactly as the JAX package does for ``image_v1`` and
+    ``image_transformer_v2``."""
     if isinstance(path_or_dict, dict):
         config = path_or_dict
     else:
@@ -83,6 +102,8 @@ def load_config(path_or_dict):
                 "configs from checkpoint metadata come with the port's "
                 "checkpoint I/O")
         config = json.loads(file.read_text())
+    if config["model"]["type"] == "image_v1":
+        return deep_merge(_DEFAULTS, deep_merge(_DEFAULTS_IMAGE_V1, config))
     if config["model"]["type"] != "image_transformer_v2":
         raise NotImplementedError(
             f"model type {config['model']['type']!r} comes with the port of "
@@ -107,19 +128,25 @@ def load_config(path_or_dict):
 
 
 def make_model(config, dtype=torch.float32, device=None, generator=None):
-    """Builds the HDiT from a loaded config. Parameters are float32 on
-    ``device``, drawn from ``generator``; ``dtype`` is the compute dtype.
-    The levels' and the mapping network's dropout rates apply under
-    ``model.train()``, PyTorch's default mode: call ``model.eval()`` to
-    sample."""
-    from .models import image_transformer_v2 as itv2
-
+    """Builds the U-Net (``image_v1``) or the HDiT (``image_transformer_v2``)
+    from a loaded config. Parameters are float32 on ``device`` (default: the
+    card), drawn from ``generator``; ``dtype`` is the compute dtype. The
+    dropout rates apply under ``model.train()``, PyTorch's default mode:
+    call ``model.eval()`` to sample."""
+    device = utils.default_device(device)
     num_classes = config["dataset"]["num_classes"]
     config = config["model"]
-    if num_classes or config["mapping_cond_dim"]:
+    if config["type"] == "image_v1":
+        return _make_image_v1(config, dtype, device, generator)
+    if config["type"] != "image_transformer_v2":
         raise NotImplementedError(
-            "class and mapping conditioning come with the port of the other "
-            "conditioning paths")
+            f"model type {config['type']!r} comes with the port of the other "
+            "model families")
+    from .models import image_transformer_v2 as itv2
+
+    if config["mapping_cond_dim"]:
+        raise NotImplementedError(
+            "the HDiT's mapping conditioning comes with a later port")
     n = len(config["widths"])
     for key in ("depths", "d_ffs", "self_attns", "dropout_rate"):
         if len(config[key]) != n:
@@ -147,13 +174,49 @@ def make_model(config, dtype=torch.float32, device=None, generator=None):
         levels=tuple(levels), mapping=mapping,
         in_channels=config["input_channels"],
         out_channels=config["input_channels"], patch_size=patch,
+        num_classes=num_classes + 1 if num_classes else 0,
         dtype=dtype, device=device, generator=generator)
 
 
+def _make_image_v1(config, dtype, device, generator):
+    """The U-Net as the JAX package builds it; the augment wrapper's 9
+    features widen ``mapping_cond``."""
+    from .models import image_v1
+
+    if config["cross_cond_dim"]:
+        raise NotImplementedError(
+            "the U-Net's cross-attention (cross_cond_dim > 0) comes with a "
+            "later port")
+    if config["has_variance"]:
+        raise NotImplementedError(
+            "the U-Net's variance head (has_variance) comes with a later port")
+    return image_v1.ImageDenoiserModelV1(
+        c_in=config["input_channels"], feats_in=config["mapping_out"],
+        depths=tuple(config["depths"]), channels=tuple(config["channels"]),
+        self_attn_depths=tuple(config["self_attn_depths"]),
+        mapping_cond_dim=config["mapping_cond_dim"]
+        + (9 if config["augment_wrapper"] else 0),
+        unet_cond_dim=config["unet_cond_dim"],
+        dropout_rate=config["dropout_rate"], patch_size=config["patch_size"],
+        skip_stages=config["skip_stages"], dtype=dtype, device=device,
+        generator=generator)
+
+
 def make_denoiser_wrapper(config):
-    """Karras or simple loss wrapper factory. The variance head
+    """Karras or simple loss wrapper factory: ``factory(model) ->
+    denoiser``. A U-Net with ``augment_wrapper`` is wrapped in
+    ``augmentation.augment_wrapper_model_fn`` first, as the JAX ``train.py``
+    wraps it, so that the denoiser takes ``aug_cond``. The variance head
     (``has_variance``) comes with a later model port."""
-    config = config["model"]
+    factory = _denoiser_factory(config["model"])
+    if config["model"].get("type") == "image_v1" and \
+            config["model"].get("augment_wrapper"):
+        return lambda model: factory(
+            augmentation.augment_wrapper_model_fn(model))
+    return factory
+
+
+def _denoiser_factory(config):
     sigma_data = config.get("sigma_data", 1.0)
     if config.get("has_variance", False):
         raise NotImplementedError(
@@ -172,7 +235,18 @@ def make_denoiser_wrapper(config):
 def make_sample_density(config):
     """Training-time sigma density factory from the ``model`` config
     section, as the JAX package's. Returns
-    ``fn(shape, stratified=None, generator=None, device=None) -> sigmas``."""
+    ``fn(shape, stratified=None, generator=None, device=None) -> sigmas``,
+    the sigmas on ``device`` (default: the card)."""
+    density = _sample_density(config)
+
+    def sample(shape, stratified=None, generator=None, device=None):
+        return density(shape, stratified=stratified, generator=generator,
+                       device=utils.default_device(device))
+
+    return sample
+
+
+def _sample_density(config):
     sd_config = config["sigma_sample_density"]
     sigma_data = config["sigma_data"]
     kind = sd_config["type"]

@@ -2,8 +2,10 @@
 JAX ``TrainState``'s params and EMA params into the port's train state.
 
 The port's parameter names mirror the flax tree and keep its layouts (Dense
-kernels (in, out), FourierFeatures ``basis`` (in, out // 2)), so conversion
-is a rename: nested keys joined with dots, arrays copied as they are.
+kernels (in, out), the U-Net's convolution kernels (kh, kw, in, out),
+FourierFeatures ``basis`` (in, out // 2)), so conversion of the HDiT and
+the U-Net is a rename: nested keys joined with dots, arrays copied as they
+are.
 """
 
 import numpy as np

@@ -1,0 +1,371 @@
+// Exact global softmax attention on (b, s, heads, 64) q, k, v, streaming
+// over key tiles: the forward with its logsumexp (K13) and the backward
+// (K14), in the manner of FlashAttention-2.
+//
+// Replaces: k_diffusion_tpu/ops/pallas/flash.py:_fwd_kernel (the forward of
+// flash_attention) and :_dq_kernel, :_dkv_kernel (its backward, _flash_bwd).
+//
+// What bounds it on the H100, U-Net 16x16 level at batch 64 (s = 256, 4
+// heads, head dim 64): the forward does 4 s^2 64 FLOP per image and head,
+// 4.3 GFLOP (4.3 us at 989 TFLOP/s), and moves q, k, v and the output,
+// 4 x 8.4 MB (10 us at 3.35 TB/s): bound by memory. The backward does 2.5x
+// the products and moves 2.25x the bytes (q, k, v, out, dout in; dq, dk, dv
+// out, the lse and delta rows aside).
+//
+// Design. A block is four warps and owns 64 rows of one head of one image:
+// the grid is (s / 64 tiles, heads, batch), so no head-masked products and
+// no pack transposes: rows are read with the caller's batch and sequence
+// strides (the U-Net's q, k, v are strided views of one qkv projection),
+// and the head dim is the contiguous last axis. Products are wmma 16x16x16
+// bf16 fragments with float32 accumulation, a warp owning a 16-row strip.
+// - flash_fwd_kernel: 64 queries; 64-key tiles of k and v stream through
+//   shared memory. Per tile a warp forms its 16 x 64 logits, updates each
+//   row's running max and sum (the logits are not bounded, so the max is
+//   subtracted), rescales its running output, which lives in shared memory
+//   because a wmma accumulator's row layout is opaque, and adds p v. It
+//   writes out / l in bf16 and lse = max + log(sum) in float32.
+// - flash_dq_kernel: 64 queries; per key tile p = exp(scale s - lse),
+//   ds = p (dout v^T - delta), dq += ds k, in registers; no atomics.
+// - flash_dkv_kernel: 64 keys; per 64-query tile, p^T and ds^T for its keys,
+//   dv += p^T dout and dk += ds^T q in registers; no atomics.
+// delta = rowsum(out * dout) comes from the caller, as in the JAX package.
+// No tile is double-buffered: a simple kernel first.
+#include "common.cuh"
+
+namespace kdt {
+namespace {
+
+constexpr int E = 64;   // head dim
+constexpr int BN = 64;  // keys (or queries) of a streamed tile
+
+struct Rows {
+  long batch, seq;  // element strides of the batch and sequence axes
+};
+
+// The (64, 64) tile of one head starting at sequence row r0, zero past s.
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base, Rows st, int head,
+                                          int r0, int s) {
+  const int valid = s - r0 < BM ? s - r0 : BM;
+  load_tile(dst, base + r0 * st.seq + head * E, st.seq, BM, valid);
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                 int s, int n_heads, Rows in, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem);
+  bf16* s_k = s_q + BM * LDT;
+  bf16* s_v = s_k + BN * LDT;
+  float* s_s = reinterpret_cast<float*>(s_v + BN * LDT);
+  float* s_o = s_s + WARPS * STRIP * LDF;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * BM, head = blockIdx.y;
+  const long img = static_cast<long>(blockIdx.z) * in.batch;
+  float* sw = s_s + warp * STRIP * LDF;
+  float* ow = s_o + warp * STRIP * LDF;
+
+  load_rows(s_q, q + img, in, head, q0, s);
+  for (int i = lane; i < STRIP * LDF; i += 32) ow[i] = 0.f;
+  __syncthreads();
+  FragA qa[E / 16];
+#pragma unroll
+  for (int kk = 0; kk < E / 16; ++kk)
+    wmma::load_matrix_sync(qa[kk], s_q + warp * STRIP * LDT + 16 * kk, LDT);
+
+  float m_run[STRIP], l_run[STRIP];
+#pragma unroll
+  for (int m = 0; m < STRIP; ++m) {
+    m_run[m] = -INFINITY;
+    l_run[m] = 0.f;
+  }
+  for (int k0 = 0; k0 < s; k0 += BN) {
+    load_rows(s_k, k + img, in, head, k0, s);
+    load_rows(s_v, v + img, in, head, k0, s);
+    __syncthreads();
+    {
+      FragC acc[4];
+      zero(acc);
+#pragma unroll
+      for (int kk = 0; kk < E / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          FragBt fb;
+          wmma::load_matrix_sync(fb, s_k + 16 * j * LDT + 16 * kk, LDT);
+          wmma::mma_sync(acc[j], qa[kk], fb, acc[j]);
+        }
+      store_strip(sw, LDF, acc);
+    }
+    // online softmax: row m's logits become bf16 p in place (stride 2 LDF)
+    const bool ok1 = k0 + lane < s, ok2 = k0 + lane + 32 < s;
+#pragma unroll
+    for (int m = 0; m < STRIP; ++m) {
+      const float v1 = ok1 ? sw[m * LDF + lane] * scale : -INFINITY;
+      const float v2 = ok2 ? sw[m * LDF + lane + 32] * scale : -INFINITY;
+      const float m_new = fmaxf(m_run[m], warp_max(fmaxf(v1, v2)));
+      const float alpha = __expf(m_run[m] - m_new);
+      const float p1 = __expf(v1 - m_new), p2 = __expf(v2 - m_new);
+      l_run[m] = l_run[m] * alpha + warp_sum(p1 + p2);
+      m_run[m] = m_new;
+      ow[m * LDF + lane] *= alpha;
+      ow[m * LDF + lane + 32] *= alpha;
+      __syncwarp();  // every lane has read the row's floats
+      bf16* prow = reinterpret_cast<bf16*>(sw) + 2 * m * LDF;
+      prow[lane] = to_bf(p1);
+      prow[lane + 32] = to_bf(p2);
+    }
+    __syncwarp();
+    {
+      FragC acc[4];
+      zero(acc);
+      mma_strip(reinterpret_cast<const bf16*>(sw), 2 * LDF, s_v, LDT, BN, acc);
+      __syncwarp();  // every lane is done reading p
+      store_strip(sw, LDF, acc);
+    }
+    for (int i = lane; i < STRIP * E; i += 32) {
+      const int m = i / E, j = i % E;
+      ow[m * LDF + j] += sw[m * LDF + j];
+    }
+    __syncthreads();  // every warp is done with this k and v tile
+  }
+
+  const int r0 = warp * STRIP, valid = s - q0 - r0;
+  const long ldo = static_cast<long>(n_heads) * E;
+#pragma unroll
+  for (int m = 0; m < STRIP; ++m) {
+    const float inv_l = 1.f / l_run[m];
+    ow[m * LDF + lane] *= inv_l;
+    ow[m * LDF + lane + 32] *= inv_l;
+    if (lse != nullptr && lane == 0 && m < valid)
+      lse[(static_cast<long>(blockIdx.z) * n_heads + head) * s + q0 + r0 + m] =
+          m_run[m] + __logf(l_run[m]);
+  }
+  __syncwarp();
+  write_strip(ow, LDF, out + (static_cast<long>(blockIdx.z) * s + q0 + r0) * ldo + head * E,
+              ldo, nullptr, valid);
+}
+
+// dq for 64 queries of one head: streams 64-key tiles of k and v.
+__global__ void __launch_bounds__(THREADS)
+flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dq, int s, int n_heads, Rows in, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem);
+  bf16* s_do = s_q + BM * LDT;
+  bf16* s_k = s_do + BM * LDT;
+  bf16* s_v = s_k + BN * LDT;
+  float* s_s = reinterpret_cast<float*>(s_v + BN * LDT);
+  float* s_dp = s_s + WARPS * STRIP * LDF;
+  __shared__ float s_lse[BM], s_delta[BM];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * BM, head = blockIdx.y;
+  const long img = static_cast<long>(blockIdx.z) * in.batch;
+  const Rows packed{static_cast<long>(s) * n_heads * E, static_cast<long>(n_heads) * E};
+  const long opack = static_cast<long>(blockIdx.z) * packed.batch;
+  const long row0 = (static_cast<long>(blockIdx.z) * n_heads + head) * s + q0;
+  float* sw = s_s + warp * STRIP * LDF;
+  float* dw = s_dp + warp * STRIP * LDF;
+
+  load_rows(s_q, q + img, in, head, q0, s);
+  load_rows(s_do, dout + opack, packed, head, q0, s);
+  if (threadIdx.x < BM) {
+    const bool ok = q0 + threadIdx.x < s;
+    s_lse[threadIdx.x] = ok ? lse[row0 + threadIdx.x] : 0.f;
+    s_delta[threadIdx.x] = ok ? delta[row0 + threadIdx.x] : 0.f;
+  }
+  __syncthreads();
+  FragA qa[E / 16], da[E / 16];
+#pragma unroll
+  for (int kk = 0; kk < E / 16; ++kk) {
+    wmma::load_matrix_sync(qa[kk], s_q + warp * STRIP * LDT + 16 * kk, LDT);
+    wmma::load_matrix_sync(da[kk], s_do + warp * STRIP * LDT + 16 * kk, LDT);
+  }
+  FragC acc_dq[4];
+  zero(acc_dq);
+  for (int k0 = 0; k0 < s; k0 += BN) {
+    load_rows(s_k, k + img, in, head, k0, s);
+    load_rows(s_v, v + img, in, head, k0, s);
+    __syncthreads();
+    {
+      FragC acc_s[4], acc_dp[4];
+      zero(acc_s);
+      zero(acc_dp);
+#pragma unroll
+      for (int kk = 0; kk < E / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          FragBt fb;
+          wmma::load_matrix_sync(fb, s_k + 16 * j * LDT + 16 * kk, LDT);
+          wmma::mma_sync(acc_s[j], qa[kk], fb, acc_s[j]);
+          wmma::load_matrix_sync(fb, s_v + 16 * j * LDT + 16 * kk, LDT);
+          wmma::mma_sync(acc_dp[j], da[kk], fb, acc_dp[j]);
+        }
+      store_strip(sw, LDF, acc_s);
+      store_strip(dw, LDF, acc_dp);
+    }
+    for (int i = lane; i < STRIP * BN; i += 32) {
+      const int m = i / BN, j = i % BN, r = warp * STRIP + m;
+      const float p = k0 + j < s ? __expf(sw[m * LDF + j] * scale - s_lse[r]) : 0.f;
+      sw[m * LDF + j] = p * (dw[m * LDF + j] - s_delta[r]);
+    }
+    __syncwarp();
+    strip_to_bf16(sw, LDF, BN);
+    mma_strip(reinterpret_cast<const bf16*>(sw), 2 * LDF, s_k, LDT, BN, acc_dq);
+    __syncthreads();  // every warp is done with this k and v tile
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    for (int t = 0; t < acc_dq[j].num_elements; ++t) acc_dq[j].x[t] *= scale;
+  const int r0 = warp * STRIP;
+  store_strip(sw, LDF, acc_dq);
+  write_strip(sw, LDF, dq + opack + (q0 + r0) * packed.seq + head * E, packed.seq, nullptr,
+              s - q0 - r0);
+}
+
+// dk and dv for 64 keys of one head: streams 64-query tiles of q and dout.
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int n_heads, Rows in,
+                 float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_k = reinterpret_cast<bf16*>(smem);
+  bf16* s_v = s_k + BN * LDT;
+  bf16* s_q = s_v + BN * LDT;
+  bf16* s_do = s_q + BM * LDT;
+  float* s_pt = reinterpret_cast<float*>(s_do + BM * LDT);
+  float* s_dst = s_pt + WARPS * STRIP * LDF;
+  __shared__ float s_lse[BM], s_delta[BM];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * BN, head = blockIdx.y;
+  const long img = static_cast<long>(blockIdx.z) * in.batch;
+  const Rows packed{static_cast<long>(s) * n_heads * E, static_cast<long>(n_heads) * E};
+  const long opack = static_cast<long>(blockIdx.z) * packed.batch;
+  const long lrow = (static_cast<long>(blockIdx.z) * n_heads + head) * s;
+  float* pt = s_pt + warp * STRIP * LDF;
+  float* dst = s_dst + warp * STRIP * LDF;
+
+  load_rows(s_k, k + img, in, head, k0, s);
+  load_rows(s_v, v + img, in, head, k0, s);
+  __syncthreads();
+  FragA ka[E / 16], va[E / 16];
+#pragma unroll
+  for (int kk = 0; kk < E / 16; ++kk) {
+    wmma::load_matrix_sync(ka[kk], s_k + warp * STRIP * LDT + 16 * kk, LDT);
+    wmma::load_matrix_sync(va[kk], s_v + warp * STRIP * LDT + 16 * kk, LDT);
+  }
+  FragC acc_dk[4], acc_dv[4];
+  zero(acc_dk);
+  zero(acc_dv);
+  for (int q0 = 0; q0 < s; q0 += BM) {
+    load_rows(s_q, q + img, in, head, q0, s);
+    load_rows(s_do, dout + opack, packed, head, q0, s);
+    if (threadIdx.x < BM) {
+      const bool ok = q0 + threadIdx.x < s;
+      s_lse[threadIdx.x] = ok ? lse[lrow + q0 + threadIdx.x] : 0.f;
+      s_delta[threadIdx.x] = ok ? delta[lrow + q0 + threadIdx.x] : 0.f;
+    }
+    __syncthreads();
+    {
+      FragC acc_s[4], acc_dp[4];
+      zero(acc_s);
+      zero(acc_dp);
+#pragma unroll
+      for (int kk = 0; kk < E / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          FragBt fb;
+          wmma::load_matrix_sync(fb, s_q + 16 * j * LDT + 16 * kk, LDT);
+          wmma::mma_sync(acc_s[j], ka[kk], fb, acc_s[j]);
+          wmma::load_matrix_sync(fb, s_do + 16 * j * LDT + 16 * kk, LDT);
+          wmma::mma_sync(acc_dp[j], va[kk], fb, acc_dp[j]);
+        }
+      store_strip(pt, LDF, acc_s);
+      store_strip(dst, LDF, acc_dp);
+    }
+    // rows: this warp's 16 keys; columns: the tile's 64 queries
+    for (int i = lane; i < STRIP * BM; i += 32) {
+      const int m = i / BM, j = i % BM;
+      const float p = q0 + j < s ? __expf(pt[m * LDF + j] * scale - s_lse[j]) : 0.f;
+      pt[m * LDF + j] = p;
+      dst[m * LDF + j] = p * (dst[m * LDF + j] - s_delta[j]);
+    }
+    __syncwarp();
+    strip_to_bf16(pt, LDF, BM);
+    strip_to_bf16(dst, LDF, BM);
+    mma_strip(reinterpret_cast<const bf16*>(pt), 2 * LDF, s_do, LDT, BM, acc_dv);
+    mma_strip(reinterpret_cast<const bf16*>(dst), 2 * LDF, s_q, LDT, BM, acc_dk);
+    __syncthreads();  // before the next tile overwrites q, dout, lse, delta
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    for (int t = 0; t < acc_dk[j].num_elements; ++t) acc_dk[j].x[t] *= scale;
+  const int r0 = warp * STRIP;
+  bf16* dk_rows = dk + opack + (k0 + r0) * packed.seq + head * E;
+  bf16* dv_rows = dv + opack + (k0 + r0) * packed.seq + head * E;
+  store_strip(pt, LDF, acc_dk);
+  write_strip(pt, LDF, dk_rows, packed.seq, nullptr, s - k0 - r0);
+  store_strip(pt, LDF, acc_dv);
+  write_strip(pt, LDF, dv_rows, packed.seq, nullptr, s - k0 - r0);
+}
+
+constexpr size_t FWD_SMEM =
+    (BM + 2 * BN) * LDT * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
+constexpr size_t BWD_SMEM =
+    (2 * BM + 2 * BN) * LDT * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
+
+}  // namespace
+}  // namespace kdt
+
+using namespace kdt;
+
+// K13: q, k, v (b, s, heads, 64) bf16 with batch stride stride_b and
+// sequence stride stride_s (elements; the head axis packed at 64, the head
+// dim contiguous). Writes out (b, s, heads, 64) bf16, contiguous, and, when
+// lse is not null, lse (b, heads, s) f32 (max + log sum of the scaled
+// logits). Any s >= 1.
+extern "C" int kdt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                             int b, int s, int n_heads, long stride_b, long stride_s,
+                             float scale, void* stream) {
+  const cudaError_t attr = allow_smem(flash_fwd_kernel, FWD_SMEM);
+  const dim3 grid((s + BM - 1) / BM, n_heads, b);
+  flash_fwd_kernel<<<grid, THREADS, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), s, n_heads, Rows{stride_b, stride_s},
+      scale);
+  return launch_status(attr);
+}
+
+// K14: q, k, v as for K13; dout (b, s, heads, 64) bf16 contiguous; lse
+// from K13 and delta = rowsum(out * dout), both (b, heads, s) f32. Writes
+// dq, dk, dv (b, s, heads, 64) bf16, contiguous.
+extern "C" int kdt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                             int b, int s, int n_heads, long stride_b, long stride_s,
+                             float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Rows in{stride_b, stride_s};
+  const dim3 grid((s + BM - 1) / BM, n_heads, b);
+  cudaError_t attr = allow_smem(flash_dq_kernel, BWD_SMEM);
+  flash_dq_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), s, n_heads, in, scale);
+  const int status = launch_status(attr);
+  if (status != 0) return status;
+  attr = allow_smem(flash_dkv_kernel, BWD_SMEM);
+  flash_dkv_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s,
+      n_heads, in, scale);
+  return launch_status(attr);
+}
+
+KDT_DEFINE_ERROR_STRING

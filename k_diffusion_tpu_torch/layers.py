@@ -1,9 +1,41 @@
-"""Shared building blocks (counterpart of k_diffusion_tpu/layers.py)."""
+"""Shared building blocks (counterpart of k_diffusion_tpu/layers.py): flax's
+initializers and dropout as both models use them, the Fourier embedding,
+and the fixed low-pass down- and upsampling of the U-Net."""
 
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def init_tensor(shape, init, generator=None, device=None):
+    """flax's initializers for a kernel whose last dim is the output:
+    "lecun" is lecun_normal (a normal truncated at two standard deviations,
+    rescaled to variance 1 / fan_in, fan_in the product of the other dims),
+    "orthogonal" an orthogonal (fan_in, out) matrix, "zeros" zeros."""
+    t = torch.zeros(shape, device=device)
+    fan_in = math.prod(shape[:-1])
+    if init == "lecun":
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+    elif init == "orthogonal":
+        flat = torch.empty((fan_in, shape[-1]), device=device)
+        t.copy_(nn.init.orthogonal_(flat, generator=generator).reshape(shape))
+    return t
+
+
+def dropout(x, rate, generator=None, shape=None):
+    """flax's ``nn.Dropout``: keeps an element with probability 1 - rate
+    and scales it by 1 / (1 - rate), the mask drawn from ``generator``. The
+    mask has ``shape`` (default x's), broadcast over x: (b, 1, 1, c) is
+    flax's ``broadcast_dims=(1, 2)``."""
+    shape = x.shape if shape is None else shape
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1 - rate
+    return torch.where(keep, x / (1 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class FourierFeatures(nn.Module):
@@ -27,3 +59,68 @@ class FourierFeatures(nn.Module):
     def forward(self, x):
         f = 2 * math.pi * (x.float() @ self.basis.float())
         return torch.cat([f.cos(), f.sin()], dim=-1).to(x.dtype)
+
+
+_RESAMPLE_KERNELS = {
+    "linear": [1 / 8, 3 / 8, 3 / 8, 1 / 8],
+    "cubic": [-0.01171875, -0.03515625, 0.11328125, 0.43359375,
+              0.43359375, 0.11328125, -0.03515625, -0.01171875],
+    "lanczos3": [0.003689131001010537, 0.015056144446134567, -0.03399861603975296,
+                 -0.066637322306633, 0.13550527393817902, 0.44638532400131226,
+                 0.44638532400131226, 0.13550527393817902, -0.066637322306633,
+                 -0.03399861603975296, 0.015056144446134567, 0.003689131001010537],
+}
+_RESAMPLE_KERNELS["bilinear"] = _RESAMPLE_KERNELS["linear"]
+_RESAMPLE_KERNELS["bicubic"] = _RESAMPLE_KERNELS["cubic"]
+
+
+@functools.lru_cache
+def _resample_kernel(kernel, device, gain):
+    # made once per device: a tensor built from a list is copied from the
+    # host, and on the card that copy waits for the stream
+    return torch.tensor(_RESAMPLE_KERNELS[kernel], dtype=torch.float32,
+                        device=device) * gain
+
+
+def _resample_taps(kernel, c, device, gain=1.0):
+    """The 1-D kernel as depthwise conv weights for c channels: (c, 1, k, 1)
+    along h and (c, 1, 1, k) along w, float32."""
+    k1d = _resample_kernel(kernel, device, gain).expand(c, 1, -1)
+    return k1d[..., None], k1d[:, :, None, :]
+
+
+def downsample2d(x, kernel="linear"):
+    """Fixed low-pass stride-2 downsampling of NHWC ``x``, as the JAX
+    package: reflect padding by len(kernel) // 2 - 1 on h and w, then a
+    depthwise (groups=c) stride-2 convolution along h and one along w, in
+    float32; the result in x's dtype."""
+    b, h, w, c = x.shape
+    taps_h, taps_w = _resample_taps(kernel, c, x.device)
+    pad = taps_h.shape[2] // 2 - 1
+    # an NHWC tensor permuted to NCHW is the channels-last layout
+    y = F.pad(x.permute(0, 3, 1, 2).float(), (pad, pad, pad, pad),
+              mode="reflect")
+    y = F.conv2d(y, taps_h, stride=(2, 1), groups=c)
+    y = F.conv2d(y, taps_w, stride=(1, 2), groups=c)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def upsample2d(x, kernel="linear"):
+    """Fixed low-pass 2x upsampling of NHWC ``x``, as the JAX package:
+    reflect padding by (len(kernel) // 2) // 2 on h and w, then a transposed
+    depthwise stride-2 convolution along h and one along w with the kernel
+    at gain 2 per axis, in float32; the result in x's dtype. The transposed
+    convolution is the JAX package's zero insertion (lhs dilation 2) and
+    VALID convolution; the kernels are symmetric, so its flip changes
+    nothing."""
+    b, h, w, c = x.shape
+    taps_h, taps_w = _resample_taps(kernel, c, x.device, gain=2.0)
+    k = taps_h.shape[2]
+    pad = (k // 2 - 1 + 1) // 2
+    y = F.pad(x.permute(0, 3, 1, 2).float(), (pad, pad, pad, pad),
+              mode="reflect")
+    y = F.conv_transpose2d(y, taps_h, stride=(2, 1), padding=(k - 1, 0),
+                           groups=c)
+    y = F.conv_transpose2d(y, taps_w, stride=(1, 2), padding=(0, k - 1),
+                           groups=c)
+    return y.permute(0, 2, 3, 1).to(x.dtype)

@@ -1,4 +1,6 @@
-from . import flops, image_transformer_v2
+from . import flops, image_transformer_v2, image_v1
 from .image_transformer_v2 import ImageTransformerDenoiserModelV2
+from .image_v1 import ImageDenoiserModelV1
 
-__all__ = ["flops", "image_transformer_v2", "ImageTransformerDenoiserModelV2"]
+__all__ = ["flops", "image_transformer_v2", "image_v1",
+           "ImageTransformerDenoiserModelV2", "ImageDenoiserModelV1"]

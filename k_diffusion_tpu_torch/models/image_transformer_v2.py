@@ -27,13 +27,14 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..layers import FourierFeatures
+from ..layers import FourierFeatures, dropout, init_tensor
 from ..ops import norms, rope
 from ..ops.geglu import linear_geglu
 from ..ops.kernels.fused_ffn import fused_geglu_ffn
 from ..ops.kernels.fused_mapping import fused_mapping
+from ..ops.kernels import global_packed
+from ..ops.kernels.flash import flash_attention
 from ..ops.kernels.fused_qkv import fused_qkv_prologue
-from ..ops.kernels.global_packed import packed_global_attention
 from ..ops.kernels.na2d import na2d_packed
 
 
@@ -65,32 +66,24 @@ class MappingSpec:
     dropout: float = 0.0
 
 
-def dropout(x, rate, generator=None):
-    """flax's ``nn.Dropout``: keeps each element with probability 1 - rate
-    and scales it by 1 / (1 - rate); the mask is drawn from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
-    return torch.where(keep, x / (1 - rate), torch.zeros((), dtype=x.dtype,
-                                                         device=x.device))
-
-
-def _init_tensor(shape, init, generator, device):
-    """flax's initializers: "lecun" is lecun_normal (a normal truncated at
-    two standard deviations, rescaled to variance 1/fan_in), with fan_in the
-    first dim of an (in, out) kernel."""
-    if init == "zeros":
-        return torch.zeros(shape, device=device)
-    std = (1.0 / shape[0]) ** 0.5 / 0.87962566103423978
-    t = torch.empty(shape, device=device)
-    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
-                                 generator=generator)
-
-
 class _Kernel(nn.Module):
     """Owns one Dense kernel at ``<name>.kernel``."""
 
     def __init__(self, shape, init, generator=None, device=None):
         super().__init__()
-        self.kernel = nn.Parameter(_init_tensor(shape, init, generator, device))
+        self.kernel = nn.Parameter(init_tensor(shape, init, generator, device))
+
+
+class _Embedding(nn.Module):
+    """Owns a class embedding table at ``<name>.embedding`` (classes,
+    features), drawn as flax's default embedding init (a normal of variance
+    1 / features)."""
+
+    def __init__(self, classes, features, generator=None, device=None):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.randn(
+            (classes, features), generator=generator, device=device)
+            * features ** -0.5)
 
 
 class _Scale(nn.Module):
@@ -125,8 +118,9 @@ class RMSNorm(_Scale):
 
 class SelfAttentionBlock(nn.Module):
     """AdaRMSNorm -> qkv -> cosine-sim + RoPE (kernel K1) -> neighborhood
-    (K2) or global (K3) attention -> dropout -> out projection ->
-    residual."""
+    (K2) or global attention -> dropout -> out projection -> residual. A
+    global level goes to K3 where ``global_packed.takes`` it (head dim 64,
+    s a multiple of 16 up to 512) and to the flash kernel K13 otherwise."""
 
     def __init__(self, d_model, attn_spec, cond_features, dtype, generator,
                  device, dropout=0.0):
@@ -147,9 +141,14 @@ class SelfAttentionBlock(nn.Module):
         q, k, v = fused_qkv_prologue(x, pos, norm_scale, self.qkv_proj.kernel,
                                      self.scale, self.n_heads)
         if isinstance(self.attn_spec, GlobalAttentionSpec):
-            out = packed_global_attention(
-                q.reshape(b, h * w, c), k.reshape(b, h * w, c),
-                v.reshape(b, h * w, c), self.n_heads, scale=1.0)
+            if global_packed.takes(h * w, c, self.n_heads):
+                out = global_packed.packed_global_attention(
+                    q.reshape(b, h * w, c), k.reshape(b, h * w, c),
+                    v.reshape(b, h * w, c), self.n_heads, scale=1.0)
+            else:
+                split = (b, h * w, self.n_heads, c // self.n_heads)
+                out = flash_attention(q.reshape(split), k.reshape(split),
+                                      v.reshape(split), scale=1.0)
             out = out.reshape(b, h, w, c)
         else:
             out = na2d_packed(q, k, v, self.n_heads,
@@ -303,17 +302,21 @@ class TokenSplit(TokenSplitWithoutSkip):
 class ImageTransformerDenoiserModelV2(nn.Module):
     """Multi-level hourglass transformer denoiser.
 
-    ``model(x, sigma, aug_cond=None, generator=None)`` with x (b, h, w, c)
-    NHWC and sigma (b,); returns float32 (b, h, w, c). ``generator`` draws
-    the dropout masks under ``model.train()``. Parameters are drawn from the
+    ``model(x, sigma, aug_cond=None, class_cond=None, generator=None)``
+    with x (b, h, w, c) NHWC and sigma (b,); returns float32 (b, h, w, c).
+    A model with ``num_classes`` takes ``class_cond`` (b,) int, whose
+    embedding joins the mapping network's input. ``generator`` draws the
+    dropout masks under ``model.train()``. Parameters are drawn from the
     constructor's ``generator``; the FourierFeatures bases too (the JAX
     package draws them from a fixed threefry key, which ``convert.py``
     carries across)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
-                 dtype=torch.float32, device=None, generator=None):
+                 num_classes=0, dtype=torch.float32, device=None,
+                 generator=None):
         super().__init__()
         self.levels, self.dtype = levels, dtype
+        self.num_classes = num_classes
         mw = mapping.width
         self.patch_in = TokenMerge(in_channels, levels[0].width, patch_size,
                                    dtype, generator, device)
@@ -323,6 +326,8 @@ class ImageTransformerDenoiserModelV2(nn.Module):
         self.aug_emb = FourierFeatures(9, mw, generator=generator,
                                        device=device)
         self.aug_in_proj = _Kernel((mw, mw), "lecun", generator, device)
+        if num_classes:
+            self.class_emb = _Embedding(num_classes, mw, generator, device)
         self.mapping = MappingNetwork(mapping.depth, mw, mapping.d_ff, dtype,
                                       generator, device, mapping.dropout)
         for prefix, spec in self._stacks():
@@ -353,7 +358,10 @@ class ImageTransformerDenoiserModelV2(nn.Module):
             x = getattr(self, f"{prefix}_layer_{j}")(x, pos, cond, generator)
         return x
 
-    def forward(self, x, sigma, aug_cond=None, generator=None):
+    def forward(self, x, sigma, aug_cond=None, class_cond=None,
+                generator=None):
+        if self.num_classes and class_cond is None:
+            raise ValueError("class_cond must be specified if num_classes > 0")
         dtype = self.dtype
         x = self.patch_in(x.to(dtype))
         pos = rope.make_axial_pos(x.shape[-3], x.shape[-2], device=x.device)
@@ -366,7 +374,10 @@ class ImageTransformerDenoiserModelV2(nn.Module):
                                    device=x.device)
         aug_emb = (self.aug_emb(aug_cond.to(dtype)).to(dtype)
                    @ self.aug_in_proj.kernel.to(dtype))
-        cond = self.mapping(time_emb + aug_emb, generator)
+        emb = time_emb + aug_emb
+        if self.num_classes:
+            emb = emb + self.class_emb.embedding.to(dtype)[class_cond]
+        cond = self.mapping(emb, generator)
 
         skips, poses = [], []
         for i, spec in enumerate(self.levels[:-1]):

@@ -38,17 +38,23 @@ def neighborhood_mask_1d(n, kernel_size):
     return (j >= start) & (j < start + kernel_size)
 
 
+def neighborhood_mask_2d(h, w, kernel_size, device):
+    """2-D NATTEN mask over the h * w row-major tokens: (hw, hw) bool, the
+    product of the two axes' 1-D masks."""
+    mask_h = torch.from_numpy(neighborhood_mask_1d(h, min(kernel_size, h)))
+    mask_w = torch.from_numpy(neighborhood_mask_1d(w, min(kernel_size, w)))
+    mask_h, mask_w = mask_h.to(device), mask_w.to(device)
+    return (mask_h[:, None, :, None] & mask_w[None, :, None, :]).reshape(
+        h * w, h * w)
+
+
 def neighborhood_attention(q, k, v, kernel_size, scale=1.0):
     """2-D neighborhood attention as masked dense attention.
     q/k/v: (batch, h, w, heads, head_dim). Each query attends to its
     kernel_size x kernel_size window, clamped at the edges. O((hw)^2)
     memory: this is the specification, not a fast path."""
     b, h, w, heads, e = q.shape
-    mask_h = torch.from_numpy(neighborhood_mask_1d(h, min(kernel_size, h)))
-    mask_w = torch.from_numpy(neighborhood_mask_1d(w, min(kernel_size, w)))
-    mask_h, mask_w = mask_h.to(q.device), mask_w.to(q.device)
-    mask = (mask_h[:, None, :, None] & mask_w[None, :, None, :]).reshape(
-        h * w, h * w)
+    mask = neighborhood_mask_2d(h, w, kernel_size, q.device)
     out = _attention(q.reshape(b, h * w, heads, e), k.reshape(b, h * w, heads, e),
                      v.reshape(b, h * w, heads, e), scale, mask)
     return out.reshape(b, h, w, heads, e)

@@ -10,11 +10,12 @@ raises. The CUDA sources are in
 importing this package compiles nothing.
 """
 
-from . import fused_ffn, fused_mapping, fused_qkv, global_packed, na2d
+from . import flash, fused_ffn, fused_mapping, fused_qkv, global_packed, na2d
 from ._build import build
 
-# kernel name -> (module, name of its launch counter), forward kernels
-# K1-K5 first, then the backward kernels K6-K10
+# kernel name -> (module, name of its launch counter): forward kernels
+# K1-K5, the backward kernels K6-K10, then flash attention K13 and its
+# backward K14
 COUNTERS = {
     "fused_qkv": (fused_qkv, "launches"),
     "na2d": (na2d, "launches"),
@@ -26,6 +27,8 @@ COUNTERS = {
     "na2d_overlap_add": (na2d, "overlap_launches"),
     "global_packed_bwd": (global_packed, "bwd_launches"),
     "fused_ffn_bwd": (fused_ffn, "bwd_launches"),
+    "flash": (flash, "launches"),
+    "flash_bwd": (flash, "bwd_launches"),
 }
 
 

@@ -1,0 +1,146 @@
+"""K13 and K14: exact global attention on (b, s, heads, e) q, k, v and its
+backward (counterpart of k_diffusion_tpu/ops/pallas/flash.py).
+
+CUDA tensors go to the hand-written kernels in ``csrc/flash.cu`` through an
+autograd Function: the forward K13 (which also writes the per-head
+logsumexp when a backward follows) and the backward K14 (a dq kernel and a
+dk/dv kernel, counted as one launch). With autograd off, as in sampling,
+the wrapper calls K13 directly. CPU tensors go to ``reference``, the plain
+version, which autograd differentiates.
+
+The kernels read q, k and v through their batch and sequence strides, so
+the U-Net's q, k, v, strided views of one qkv projection, are not copied;
+the head axis must be packed at the head dim and the head dim contiguous.
+"""
+
+import ctypes
+
+import torch
+
+from ..attention import global_attention
+from . import _build
+
+launches = 0      # K13 launches since the last reset
+bwd_launches = 0  # K14 launches (its two kernels count as one)
+
+HEAD_DIM = 64
+
+_P = ctypes.c_void_p
+_L = ctypes.c_long
+# q, k, v, out, lse, batch, seq, heads, stride_b, stride_s, scale, stream
+_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 3 + [_L] * 2 + [ctypes.c_float, _P]
+# q, k, v, dout, lse, delta, dq, dk, dv, batch, seq, heads, stride_b,
+# stride_s, scale, stream
+_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 3 + [_L] * 2 + [ctypes.c_float,
+                                                                _P]
+
+
+def reference(q, k, v, scale=1.0):
+    """Plain version: softmax attention, q/k/v (b, s, heads, e)."""
+    return global_attention(q, k, v, scale)
+
+
+def reference_backward(q, k, v, dout, scale=1.0):
+    """Plain version of the backward: autograd through ``reference``.
+    Returns (dq, dk, dv)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = reference(*inputs, scale)
+        return torch.autograd.grad(out, inputs, dout)
+
+
+def _check(q, k, v, what):
+    """Raises unless q, k, v are as the kernels take them: bf16 CUDA tensors
+    of one shape (b, s, heads, 64) with the same strides, the head axis
+    packed and the head dim contiguous, 16-byte aligned rows."""
+    _build.require_cuda(q, what)
+    b, s, heads, e = q.shape
+    if e != HEAD_DIM or s < 1:
+        raise ValueError(f"flash kernel takes head dim {HEAD_DIM} and s >= 1; "
+                         f"got q of shape {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.bfloat16 or \
+                t.shape != q.shape:
+            raise ValueError(
+                f"{what}: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
+                f"the kernel takes bfloat16 {tuple(q.shape)} on {q.device}")
+        if not (t.stride() == q.stride() and t.stride()[2:] == (e, 1)
+                and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                and t.data_ptr() % 16 == 0):
+            raise ValueError(
+                f"{what}: {name} has strides {t.stride()} at offset "
+                f"{t.data_ptr() % 16} mod 16 bytes; the kernel takes q, k, v "
+                f"of equal strides (x, y, {e}, 1), x and y multiples of 8, "
+                f"16-byte aligned (q's are {q.stride()})")
+
+
+def flash_forward(q, k, v, scale=1.0, save_lse=False):
+    """Launches K13 on CUDA tensors. Returns (out, lse): out (b, s, heads,
+    64) bf16 contiguous, lse (b, heads, s) float32, or None unless
+    ``save_lse``."""
+    _check(q, k, v, "flash_attention")
+    b, s, heads, e = q.shape
+    out = torch.empty((b, s, heads, e), device=q.device, dtype=q.dtype)
+    lse = (torch.empty((b, heads, s), device=q.device, dtype=torch.float32)
+           if save_lse else None)
+    lib = _build.load("flash", kdt_flash_fwd=_SIGNATURE)
+    status = lib.kdt_flash_fwd(
+        *map(_build.ptr, (q, k, v, out)),
+        None if lse is None else _build.ptr(lse), b, s, heads, q.stride(0),
+        q.stride(1), scale, _build.stream_ptr(q.device))
+    _build.check_launch(lib, status, "flash")
+    global launches
+    launches += 1
+    return out, lse
+
+
+def flash_backward(q, k, v, out, lse, dout, scale=1.0):
+    """Launches K14 on CUDA tensors: returns (dq, dk, dv) bf16, each (b, s,
+    heads, 64) contiguous. delta = rowsum(out * dout) is a plain float32
+    reduction here, as in the JAX package."""
+    _check(q, k, v, "flash_attention backward")
+    b, s, heads, e = q.shape
+    dev = q.device
+    dout = dout.contiguous()
+    for name, t in (("out", out), ("dout", dout)):
+        _build.require(t, name, dev, torch.bfloat16, (b, s, heads, e))
+    _build.require(lse, "lse", dev, torch.float32, (b, heads, s))
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = (torch.empty((b, s, heads, e), device=dev, dtype=q.dtype)
+                  for _ in range(3))
+    lib = _build.load("flash", kdt_flash_bwd=_BWD_SIGNATURE)
+    status = lib.kdt_flash_bwd(
+        *map(_build.ptr, (q, k, v, dout, lse, delta, dq, dk, dv)), b, s, heads,
+        q.stride(0), q.stride(1), scale, _build.stream_ptr(dev))
+    _build.check_launch(lib, status, "flash backward")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K13 forward (with lse), K14 backward. Saves q, k, v, the output and
+    the logsumexp, as the JAX custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_forward(q, k, v, scale, save_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_backward(q, k, v, out, lse, dout, ctx.scale), None)
+
+
+def flash_attention(q, k, v, scale=1.0):
+    """Exact global attention: q, k, v (b, s, heads, e) -> (b, s, heads, e);
+    differentiable. The kernels take bfloat16, e == 64 and any s >= 1."""
+    if q.device.type == "cpu":
+        return reference(q, k, v, scale)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return flash_forward(q, k, v, scale)[0]  # no autograd node to build
+    return _FlashAttention.apply(q, k, v, scale)

@@ -45,10 +45,19 @@ def reference_backward(q, k, v, dout, n_heads, scale=1.0):
         return torch.autograd.grad(out, inputs, dout)
 
 
+def takes(s, c, n_heads):
+    """Whether K3 and K9 take a global level of s tokens and c = heads * e
+    channels: e == 64 and s a multiple of 16 in [16, MAX_SEQ]. The HDiT
+    sends a global level that passes to K3 and any other to the flash
+    kernel K13 (``flash.py``), as the JAX model routes between its two
+    Pallas kernels (``packed_global_ok``)."""
+    return c == 64 * n_heads and s % 16 == 0 and 16 <= s <= MAX_SEQ
+
+
 def _check(q, n_heads, what):
     _build.require_cuda(q, what)
     b, s, c = q.shape
-    if c != 64 * n_heads or s % 16 or not 16 <= s <= MAX_SEQ:
+    if not takes(s, c, n_heads):
         raise ValueError(
             f"global_packed kernel takes head dim 64 and s a multiple of 16 "
             f"up to {MAX_SEQ}; got {tuple(q.shape)} with {n_heads} heads")

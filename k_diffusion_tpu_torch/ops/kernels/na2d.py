@@ -92,28 +92,37 @@ def packed_forward(q, k, v, n_heads, kernel_size, scale=1.0, save_lse=False):
     return out, lse
 
 
+def overlap_add_targets(h, w, kernel_size, device):
+    """Where the overlap-add sends each halo row: (tiles * 196,) flat key
+    positions y * w + x, tile by tile, and h * w (a row past the map) where
+    the halo runs past the map's edge. Tile (ty, tx)'s halo is the 14 x 14
+    block of keys from its clamped window origin (the window start of its
+    first query), row-major."""
+    halo, r = TILE + MAX_KERNEL - 1, (kernel_size - 1) // 2
+    starts = lambda n: torch.clamp(
+        torch.arange(0, n, TILE, device=device) - r, 0, n - kernel_size)
+    ky = starts(h)[:, None] + torch.arange(halo, device=device)  # (th, 14)
+    kx = starts(w)[:, None] + torch.arange(halo, device=device)  # (tw, 14)
+    ky, kx = ky[:, None, :, None], kx[None, :, None, :]
+    inside = (ky < h) & (kx < w)                    # (th, tw, 14, 14)
+    return torch.where(inside, ky * w + kx, h * w).reshape(-1)
+
+
 def overlap_add_reference(dk_part, dv_part, h, w, kernel_size,
                           dtype=torch.bfloat16):
     """Plain version of K8: sums the per-tile halo partials (b, heads,
     tiles, HALO_KEYS, 64) of K7 into dk, dv (b, h, w, heads * 64) of
-    ``dtype``. Tile (ty, tx)'s halo is the 14 x 14 block of keys from its
-    clamped window origin (the window start of its first query), row-major
-    in the first 196 of its HALO_KEYS rows."""
-    b, n_heads, tiles, _, e = dk_part.shape
-    halo, r = TILE + MAX_KERNEL - 1, (kernel_size - 1) // 2
+    ``dtype``; a tile's halo fills the first 196 of its HALO_KEYS rows
+    (``overlap_add_targets``)."""
+    b, n_heads, _, _, e = dk_part.shape
+    halo = TILE + MAX_KERNEL - 1
     dev = dk_part.device
-    starts = lambda n: torch.clamp(torch.arange(0, n, TILE, device=dev) - r,
-                                   0, n - kernel_size)
-    ky = starts(h)[:, None] + torch.arange(halo, device=dev)  # (tiles_h, 14)
-    kx = starts(w)[:, None] + torch.arange(halo, device=dev)  # (tiles_w, 14)
-    ky, kx = ky[:, None, :, None], kx[None, :, None, :]
-    inside = (ky < h) & (kx < w)                    # (th, tw, 14, 14)
-    target = torch.where(inside, ky * w + kx, h * w).reshape(tiles, -1)
+    target = overlap_add_targets(h, w, kernel_size, dev)
     sums = []
     for part in (dk_part, dv_part):
         keys = part[:, :, :, :halo * halo].reshape(b, n_heads, -1, e).float()
         out = torch.zeros((b, n_heads, h * w + 1, e), device=dev)
-        out.index_add_(2, target.reshape(-1), keys)
+        out.index_add_(2, target, keys)
         sums.append(out[:, :, :-1].permute(0, 2, 1, 3).reshape(
             b, h, w, n_heads * e).to(dtype))
     return tuple(sums)

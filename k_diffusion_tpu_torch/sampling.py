@@ -8,7 +8,7 @@ of shape ``[batch]``.
 
 import torch
 
-from .utils import append_dims
+from .utils import append_dims, default_device
 
 
 def to_d(x, sigma, denoised):
@@ -21,9 +21,11 @@ def append_zero(x):
     return torch.cat([x, x.new_zeros([1])])
 
 
-def get_sigmas_karras(n, sigma_min, sigma_max, rho=7.0, device="cpu"):
-    """Karras et al. (2022) rho-schedule, float32."""
-    ramp = torch.linspace(0, 1, n, dtype=torch.float32, device=device)
+def get_sigmas_karras(n, sigma_min, sigma_max, rho=7.0, device=None):
+    """Karras et al. (2022) rho-schedule, float32, on ``device`` (default:
+    the card, see ``utils.default_device``)."""
+    ramp = torch.linspace(0, 1, n, dtype=torch.float32,
+                          device=default_device(device))
     min_inv_rho = sigma_min ** (1 / rho)
     max_inv_rho = sigma_max ** (1 / rho)
     sigmas = (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho

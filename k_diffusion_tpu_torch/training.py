@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from . import config as config_mod
-from .models.image_transformer_v2 import param_group_labels
+from .models import image_transformer_v2, image_v1
 from .utils import ema_update
 
 GROUPS = ("wd", "no_wd", "mapping_wd", "mapping_no_wd")
@@ -42,7 +42,9 @@ class TrainState:
 
 class GroupedAdamW:
     """The JAX package's optimizer: global-norm clipping, then AdamW over
-    the four groups {wd, no_wd} x {lr, lr * mapping_lr_scale}.
+    the four groups {wd, no_wd} x {lr, lr * mapping_lr_scale}; ``labels``
+    maps each parameter name to its group (a family whose taxonomy has two
+    groups leaves the mapping groups empty).
 
     Each group's lr is ``schedule(step) * scale``, set before each update:
     optax evaluates the schedule at the count before the increment. The
@@ -50,9 +52,8 @@ class GroupedAdamW:
     ``max_norm / norm`` when ``norm > max_norm`` (``clip_grad_norm_`` would
     divide by ``norm + 1e-6``)."""
 
-    def __init__(self, model, lr_schedule, betas, eps, weight_decay,
+    def __init__(self, model, labels, lr_schedule, betas, eps, weight_decay,
                  mapping_lr_scale=1 / 3, max_grad_norm=1.0):
-        labels = param_group_labels(model)
         named = dict(model.named_parameters())
         scales = {"wd": (1.0, weight_decay), "no_wd": (1.0, 0.0),
                   "mapping_wd": (mapping_lr_scale, weight_decay),
@@ -99,16 +100,23 @@ class GroupedAdamW:
         self.optimizer.zero_grad(set_to_none=True)
 
 
+# the param taxonomy of each model family
+_PARAM_LABELS = {"image_v1": image_v1.param_group_labels,
+                 "image_transformer_v2": image_transformer_v2.param_group_labels}
+
+
 def make_optimizer(config, model, mapping_lr_scale=1 / 3, max_grad_norm=1.0):
-    """The 4-group AdamW of the config's ``optimizer`` and ``lr_sched``
-    sections over ``model``'s parameters. ``adam8bit`` and ``sgd`` are not
-    ported yet."""
+    """The grouped AdamW of the config's ``optimizer`` and ``lr_sched``
+    sections over ``model``'s parameters, grouped by the param taxonomy of
+    the config's model family (4 groups for the HDiT, 2 for the U-Net).
+    ``adam8bit`` and ``sgd`` are not ported yet."""
     opt_config = config["optimizer"]
     if opt_config["type"] != "adamw":
         raise NotImplementedError(
             f"optimizer {opt_config['type']!r} is not ported yet")
+    labels = _PARAM_LABELS[config["model"]["type"]](model)
     return GroupedAdamW(
-        model, config_mod.make_lr_schedule(config), opt_config["betas"],
+        model, labels, config_mod.make_lr_schedule(config), opt_config["betas"],
         opt_config["eps"], opt_config["weight_decay"], mapping_lr_scale,
         max_grad_norm)
 
@@ -170,7 +178,11 @@ def make_train_step(denoiser_factory, sample_density, *, stratified=True,
         if a_steps > 1:
             torch._foreach_div_(grads, a_steps)
         for p, g in zip(params, grads):
-            p.grad = g
+            # autograd.grad keeps the strides the backward made (a U-Net
+            # conv kernel's gradient comes back permuted); the fused AdamW
+            # takes only the parameter's own dense layout, which
+            # .backward() would have given it
+            p.grad = g.contiguous()
         metrics = {"loss": loss_sum / a_steps}
         if compute_gns:
             metrics["grad_sq_norm_small"] = sqn_small / a_steps

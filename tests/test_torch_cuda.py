@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from k_diffusion_tpu_torch.ops import kernels, rope
-from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_mapping,
+from k_diffusion_tpu_torch.ops.kernels import (flash, fused_ffn, fused_mapping,
                                                fused_qkv, global_packed, na2d)
 
 pytestmark = pytest.mark.cuda
@@ -213,6 +213,64 @@ def test_fused_ffn_backward(dev, b, t, d, d_ff):
     assert_all_close(got, fused_ffn.reference_backward(*args, cot))
 
 
+# (b, s, heads, scale): the mnist models' 7 x 7 level at the HDiT's scale 1,
+# the U-Net's 8 x 8 and 16 x 16 levels at 1/8, a 32 x 32 level, one token,
+# and ragged lengths below and above one 64-row tile
+FLASH_CASES = [(2, 49, 4, 1.0), (3, 64, 8, 0.125), (2, 256, 4, 0.125),
+               (1, 1024, 2, 0.125), (2, 1, 1, 0.125), (1, 100, 3, 0.125)]
+
+
+def flash_qkv(g, dev, b, s, heads, scale):
+    """q, k, v as the U-Net makes them, strided views of one (b, s, 3, heads,
+    64) projection, and a cotangent; logits of about unit spread at either
+    scale."""
+    qkv = normal(g, dev, b, s, 3, heads, 64, std=(0.125 / scale) ** 0.5)
+    return (*qkv.unbind(2), normal(g, dev, b, s, heads, 64))
+
+
+@pytest.mark.parametrize("b,s,heads,scale", FLASH_CASES)
+def test_flash(dev, b, s, heads, scale):
+    """K13 on strided q, k, v; its logsumexp against the f32 logits."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v, _ = flash_qkv(g, dev, b, s, heads, scale)
+    assert not q.is_contiguous()
+    got = counted(flash, lambda: flash.flash_attention(q, k, v, scale))
+    assert_close(got, flash.reference(q, k, v, scale))
+    out, lse = flash.flash_forward(q, k, v, scale, save_lse=True)
+    assert torch.equal(out, got)
+    logits = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) * scale
+    assert_close(lse, torch.logsumexp(logits, -1))
+
+
+@pytest.mark.parametrize("b,s,heads,scale",
+                         [c for c in FLASH_CASES if c[1] > 1])
+def test_flash_backward(dev, b, s, heads, scale):
+    """K14 against autograd through the plain version; a rerun gives
+    bit-equal gradients (no atomics)."""
+    g = torch.Generator().manual_seed(13)
+    q, k, v, dout = flash_qkv(g, dev, b, s, heads, scale)
+    out, lse = flash.flash_forward(q, k, v, scale, save_lse=True)
+    got = counted(flash, lambda: flash.flash_backward(q, k, v, out, lse, dout,
+                                                      scale), "bwd_launches")
+    assert_all_close(got, flash.reference_backward(q, k, v, dout, scale))
+    again = flash.flash_backward(q, k, v, out, lse, dout, scale)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+def test_flash_backward_of_one_token(dev):
+    """With one key, p = 1: dv = dout, and dq and dk vanish up to the f32
+    rounding of dp - delta (the plain version's are exactly 0)."""
+    g = torch.Generator().manual_seed(14)
+    q, k, v, dout = flash_qkv(g, dev, 3, 1, 2, 0.125)
+    out, lse = flash.flash_forward(q, k, v, 0.125, save_lse=True)
+    dq, dk, dv = flash.flash_backward(q, k, v, out, lse, dout, 0.125)
+    assert torch.equal(dv, dout)
+    top = dout.float().abs().max().item()
+    for t in (dq, dk):
+        assert t.float().abs().max().item() <= 1e-5 * top
+
+
 def test_weight_gradients_are_deterministic(dev):
     """A rerun of K6 and K10 gives bit-equal gradients: every reduction over
     rows is a fixed-order sum of per-block partials."""
@@ -243,6 +301,8 @@ def test_autograd_runs_the_backward_kernels(dev):
         out.reshape(2, 64, 128), k.reshape(2, 64, 128), v.reshape(2, 64, 128),
         heads)
     out = fused_ffn.fused_geglu_ffn(out, ns, *ffn_args(g, dev, 2, 64, 128, 384)[2:])
+    out = flash.flash_attention(*(t.reshape(2, 64, 2, 64) for t in (out, k, v)),
+                                0.125)
     blocks = [(torch.ones(128, device=dev, requires_grad=True),
                torch.randn((128, 384), generator=g).to(dev) * 128 ** -0.5,
                torch.randn((192, 128), generator=g).to(dev) * 192 ** -0.5)]
@@ -272,4 +332,18 @@ def test_wrappers_raise_instead_of_falling_back(dev):
             x, rope.make_axial_pos(8, 8, device=dev),
             torch.ones((1, 96), device=dev, dtype=torch.bfloat16),
             torch.zeros((96, 288), device=dev), torch.ones(3, device=dev), 3)
+    x = torch.zeros((1, 16, 2, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash.flash_attention(x, x, x)
+    x = torch.zeros((1, 16, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash.flash_attention(x, x, x)
+    # the head axis not packed at the head dim; q's strides unlike k's
+    x = torch.zeros((1, 2, 16, 64), device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="strides"):
+        flash.flash_attention(x, x, x)
+    y = x.contiguous()
+    with pytest.raises(ValueError, match="strides"):
+        flash.flash_attention(y, x, y)
     assert kernels.launch_counts() == dict.fromkeys(kernels.COUNTERS, 0)

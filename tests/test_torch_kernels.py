@@ -14,8 +14,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from k_diffusion_tpu_torch.ops import rope as t_rope
-from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_mapping,
-                                               fused_qkv, global_packed, na2d)
+from k_diffusion_tpu_torch.ops.kernels import (flash, fused_ffn,
+                                               fused_mapping, fused_qkv,
+                                               global_packed, na2d)
 
 torch.set_num_threads(2)
 
@@ -24,6 +25,7 @@ j_na = importlib.import_module("k_diffusion_tpu.ops.pallas.na2d")
 j_gp = importlib.import_module("k_diffusion_tpu.ops.pallas.global_packed")
 j_ffn = importlib.import_module("k_diffusion_tpu.ops.pallas.fused_ffn")
 j_map = importlib.import_module("k_diffusion_tpu.ops.pallas.fused_mapping")
+j_flash = importlib.import_module("k_diffusion_tpu.ops.pallas.flash")
 j_rope = importlib.import_module("k_diffusion_tpu.ops.rope")
 
 # float32 on both sides, the same operations summed in another order
@@ -227,7 +229,7 @@ def test_fused_mapping_matches_pallas_body():
 
 
 @pytest.mark.parametrize("name", ["fused_qkv", "na2d", "global_packed",
-                                  "fused_ffn", "fused_mapping"])
+                                  "fused_ffn", "fused_mapping", "flash"])
 def test_cpu_tensors_take_plain_version_without_counting(name):
     """A CPU tensor runs the plain version: no build, no launch counted."""
     from k_diffusion_tpu_torch.ops import kernels
@@ -241,6 +243,8 @@ def test_cpu_tensors_take_plain_version_without_counting(name):
             *map(torch.from_numpy, gp_case(12, 1, 16, 2)), 2)
     elif name == "fused_ffn":
         fused_ffn.fused_geglu_ffn(*map(torch.from_numpy, ffn_case(12, 1, 16)))
+    elif name == "flash":
+        flash.flash_attention(*map(torch.from_numpy, flash_case(12, 49)))
     else:
         port_mapping(*mapping_case(12, 2))
     assert kernels.launch_counts() == dict.fromkeys(kernels.COUNTERS, 0)
@@ -471,3 +475,81 @@ def test_fused_mapping_grads_match_jax_custom_vjp():
                                                        jnp.float32),
                          flat, cots)
     close_all(port_mapping_grads(flat, cots), want, F32_TOL)
+
+
+# ---- K13/K14 flash attention: the plain version and its gradients against
+# the JAX dispatcher (jax.nn.dot_product_attention on the CPU) and against
+# the Pallas bodies _flash_fwd / _flash_bwd in interpret mode, the latter on
+# the (b * heads, s, e) packing the JAX dispatcher makes. The logits are
+# not cosine-bounded here, as in the U-Net ---------------------------------
+
+FLASH_CASES = [(s, scale) for s in (49, 64, 256) for scale in (1.0, 0.125)]
+
+
+def flash_case(seed, s, b=2, heads=2):
+    rng = np.random.default_rng(seed)
+    return tuple(rand(rng, b, s, heads, 64, std=0.5) for _ in range(3))
+
+
+def pack(t):
+    """(b, s, heads, e) -> (b * heads, s, e), the JAX dispatcher's pack."""
+    b, s, heads, e = t.shape
+    return jnp.moveaxis(jnp.asarray(t), 2, 1).reshape(b * heads, s, e)
+
+
+def unpack(t, b):
+    n, s, e = t.shape
+    return np.moveaxis(np.asarray(t).reshape(b, n // b, s, e), 1, 2)
+
+
+@pytest.mark.parametrize("s,scale", FLASH_CASES)
+def test_flash_matches_jax_dispatcher(s, scale):
+    q, k, v = flash_case(40, s)
+    want = j_flash.flash_attention(*map(jnp.asarray, (q, k, v)), scale=scale)
+    close(flash.flash_attention(*map(torch.from_numpy, (q, k, v)), scale=scale),
+          want, F32_TOL)
+
+
+@pytest.mark.parametrize("s,scale", FLASH_CASES)
+def test_flash_matches_pallas_body(s, scale):
+    """K13's Pallas body (tq = min(256, s), as the dispatcher picks), its
+    output and its logsumexp."""
+    q, k, v = flash_case(41, s)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = j_flash._flash_fwd(pack(q), pack(k), pack(v), scale,
+                                      min(256, s))
+    tq, t = map(torch.from_numpy, (q, k))
+    close(flash.flash_attention(*map(torch.from_numpy, (q, k, v)), scale=scale),
+          unpack(out, 2), F32_TOL)
+    logits = torch.einsum("bqhe,bkhe->bhqk", tq, t) * scale
+    close(torch.logsumexp(logits, -1).reshape(4, s),
+          np.asarray(lse).reshape(4, -1)[:, :s], F32_TOL)
+
+
+@pytest.mark.parametrize("s,scale", FLASH_CASES)
+def test_flash_grads_match_jax_dispatcher(s, scale):
+    inputs = flash_case(42, s)
+    cots = [rand(np.random.default_rng(43), 2, s, 2, 64)]
+    want = jax_grads(lambda q, k, v: j_flash.flash_attention(q, k, v,
+                                                             scale=scale),
+                     inputs, cots)
+    got = port_grads(lambda q, k, v: flash.flash_attention(q, k, v, scale),
+                     inputs, cots)
+    close_all(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("s", [49, 64, 256])
+def test_flash_grads_match_pallas_backward_bodies(s):
+    """K14's Pallas bodies (the dq kernel over query tiles, the dk/dv kernel
+    over key tiles), from the residuals of the Pallas forward with lse, at
+    the U-Net's scale 1/8."""
+    inputs = flash_case(44, s)
+    dout = rand(np.random.default_rng(45), 2, s, 2, 64)
+    q, k, v = map(pack, inputs)
+    tq = min(256, s)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = j_flash._flash_fwd(q, k, v, 0.125, tq)
+        want = j_flash._flash_bwd(0.125, tq, (q, k, v, out, lse), pack(dout))
+    got = port_grads(lambda q, k, v: flash.flash_attention(q, k, v, 0.125),
+                     inputs, [dout])
+    close_all(got, [unpack(w, 2) for w in want], F32_TOL)

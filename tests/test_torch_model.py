@@ -17,6 +17,7 @@ import torch
 import k_diffusion_tpu as K
 import k_diffusion_tpu_torch as KT
 from k_diffusion_tpu_torch import convert
+from k_diffusion_tpu_torch.ops.kernels import global_packed
 
 torch.set_num_threads(2)
 
@@ -69,7 +70,7 @@ def models():
                                  jnp.zeros((1, 64, 64, 3)),
                                  jnp.ones((1,)))["params"]
     params = randomized(params, 0)
-    port = KT.config.make_model(reduced(KT.config.load_config),
+    port = KT.config.make_model(reduced(KT.config.load_config), device="cpu",
                                 generator=torch.Generator().manual_seed(0))
     port.load_state_dict(convert.state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params)))
@@ -113,7 +114,7 @@ def test_fresh_model_ignores_its_blocks():
     """The zero-init trap: a freshly initialised HDiT's output head is zero,
     so its denoiser returns exactly c_skip * x whatever the blocks do."""
     config = reduced(KT.config.load_config)
-    model = KT.config.make_model(config,
+    model = KT.config.make_model(config, device="cpu",
                                  generator=torch.Generator().manual_seed(1))
     x = torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
@@ -160,11 +161,84 @@ def test_sample_dpmpp_2m_trajectory_matches_jax(models):
     denoiser = KT.config.make_denoiser_wrapper(config)(port)
     got = KT.sampling.sample_dpmpp_2m(
         denoiser, torch.from_numpy(x),
-        KT.sampling.get_sigmas_karras(10, 1e-2, 160.0, rho=7.0),
+        KT.sampling.get_sigmas_karras(10, 1e-2, 160.0, rho=7.0, device="cpu"),
         callback=lambda info: steps_t.append(info["denoised"]))
     assert len(steps_t) == len(steps_j) == 10
     for d_t, d_j in zip(steps_t, steps_j):
         close(d_t, d_j)
+    close(got, want)
+
+
+MNIST_TRANSFORMER = REPO / "configs" / "config_mnist_transformer.json"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device named, the model, the schedule and the training
+    density go to the card: without CUDA they raise, never falling back to
+    the CPU (CUDA is made absent here whatever the machine has)."""
+    config = KT.config.load_config(CONFIG)
+    unet = KT.config.load_config(REPO / "configs" / "config_cifar10.json")
+    density = KT.config.make_sample_density(config["model"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: KT.config.make_model(config),
+                 lambda: KT.config.make_model(unet),
+                 lambda: KT.sampling.get_sigmas_karras(10, 1e-2, 80.0),
+                 lambda: density((2,))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert KT.sampling.get_sigmas_karras(10, 1e-2, 80.0,
+                                         device="cpu").device.type == "cpu"
+
+
+def test_global_routing_predicate():
+    """The HDiT's global levels go to K3 where it takes them (head dim 64,
+    s a multiple of 16 in [16, 512]) and to the flash kernel K13 otherwise:
+    the flagship's 16 x 16 mid level, the mnist transformer's 7 x 7."""
+    takes = global_packed.takes
+    assert takes(256, 512, 8) and takes(16, 64, 1) and takes(512, 128, 2)
+    assert not takes(49, 256, 4)     # config_mnist_transformer.json
+    assert not takes(1024, 512, 8)   # longer than K3's shared memory holds
+    assert not takes(8, 64, 1)       # shorter than one 16-row strip
+    assert not takes(64, 64, 2)      # head dim 32
+
+
+def test_mnist_transformer_routes_to_flash_and_matches_jax():
+    """config_mnist_transformer.json cut to 2 layers: a 7 x 7 global level
+    (49 tokens, 4 heads of 64) and class conditioning. Its attention goes
+    through the flash wrapper (here its plain version), not K3's, and the
+    denoiser matches the JAX model."""
+    from k_diffusion_tpu_torch.ops.kernels import flash
+    config = K.config.load_config(MNIST_TRANSFORMER)
+    config["model"]["depths"] = [2]
+    model = K.config.make_model(config)
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((2, 28, 28, 1)).astype(np.float32)
+    sigma = np.float32([0.3, 6.0])
+    classes = np.int32([3, 10])
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(x),
+                                 jnp.asarray(sigma),
+                                 class_cond=jnp.asarray(classes))["params"]
+    params = randomized(params, 21)
+    want = K.config.make_denoiser_wrapper(config)(
+        lambda x, s, **kw: model.apply({"params": params}, x, s, **kw))(
+        jnp.asarray(x), jnp.asarray(sigma), class_cond=jnp.asarray(classes))
+    t_config = KT.config.load_config(MNIST_TRANSFORMER)
+    t_config["model"]["depths"] = [2]
+    port = KT.config.make_model(t_config, device="cpu").eval()
+    port.load_state_dict(convert.state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    calls = []
+    orig = (flash.reference, global_packed.reference)
+    flash.reference = lambda *a, **k: calls.append("flash") or orig[0](*a, **k)
+    global_packed.reference = lambda *a, **k: calls.append("k3") or orig[1](*a, **k)
+    try:
+        with torch.no_grad():
+            got = KT.config.make_denoiser_wrapper(t_config)(port)(
+                torch.from_numpy(x), torch.from_numpy(sigma),
+                class_cond=torch.from_numpy(classes).long())
+    finally:
+        flash.reference, global_packed.reference = orig
+    assert calls == ["flash", "flash"]
     close(got, want)
 
 
@@ -179,7 +253,7 @@ def test_import_without_jax():
         import k_diffusion_tpu_torch as KT
         config = KT.config.load_config({str(CONFIG)!r})
         config["model"].update({OVERRIDES!r})
-        model = KT.config.make_model(config)
+        model = KT.config.make_model(config, device="cpu")
         with torch.no_grad():
             out = model(torch.zeros(1, 64, 64, 3), torch.ones(1))
         assert out.shape == (1, 64, 64, 3)

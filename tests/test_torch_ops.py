@@ -62,11 +62,11 @@ def test_make_model_rejects_what_is_not_ported():
     config = KT.config.load_config(REPO / "configs" /
                                    "config_oxford_flowers_shifted_window.json")
     with pytest.raises(NotImplementedError, match="shifted-window"):
-        KT.config.make_model(config)
+        KT.config.make_model(config, device="cpu")
     config = KT.config.load_config(REPO / "configs" / "config_oxford_flowers.json")
-    config["dataset"]["num_classes"] = 10
-    with pytest.raises(NotImplementedError, match="class"):
-        KT.config.make_model(config)
+    config["model"]["mapping_cond_dim"] = 10
+    with pytest.raises(NotImplementedError, match="mapping conditioning"):
+        KT.config.make_model(config, device="cpu")
 
 
 def test_analytic_flops_match_jax():
@@ -93,7 +93,8 @@ def test_denoiser_scalings_and_weightings_match_jax(weighting):
 
 
 def test_get_sigmas_karras_matches_jax():
-    close(KT.sampling.get_sigmas_karras(50, 0.01, 160.0, rho=7.0),
+    close(KT.sampling.get_sigmas_karras(50, 0.01, 160.0, rho=7.0,
+                                        device="cpu"),
           K.sampling.get_sigmas_karras(50, 0.01, 160.0, rho=7.0))
 
 
@@ -109,7 +110,7 @@ def test_sample_dpmpp_2m_matches_jax_gaussian_denoiser():
         gaussian, jnp.asarray(x), K.sampling.get_sigmas_karras(20, 1e-2, 80.0))
     got = KT.sampling.sample_dpmpp_2m(
         gaussian, torch.from_numpy(x),
-        KT.sampling.get_sigmas_karras(20, 1e-2, 80.0))
+        KT.sampling.get_sigmas_karras(20, 1e-2, 80.0, device="cpu"))
     close(got, want)
 
 

@@ -100,7 +100,7 @@ def setup():
 
 def port_model(setup, params=None):
     _, _, j_params, t_config = setup
-    model = KT.config.make_model(t_config,
+    model = KT.config.make_model(t_config, device="cpu",
                                  generator=torch.Generator().manual_seed(0))
     model.load_state_dict(convert.state_dict_from_jax(
         to_numpy(j_params if params is None else params)))
@@ -145,7 +145,8 @@ def test_sigma_density_matches_jax_given_u(kind, extra, stratified):
     got = KT.config.make_sample_density(reduced(KT.config.load_config)["model"]
                                         | {"sigma_sample_density":
                                            {"type": kind, **extra}})(
-        (64,), stratified=stratified, generator=torch.Generator().manual_seed(0))
+        (64,), stratified=stratified, generator=torch.Generator().manual_seed(0),
+        device="cpu")
     assert got.shape == (64,) and bool((got > 0).all() & got.isfinite().all())
 
 
@@ -265,7 +266,8 @@ def test_train_mode_routes_like_jax(setup):
     config = {**t_config, "model": {**t_config["model"],
                                     "dropout_rate": [0.0, 0.0, 0.5],
                                     "mapping_dropout_rate": 0.5}}
-    model = KT.config.make_model(config, generator=torch.Generator().manual_seed(1))
+    model = KT.config.make_model(config, device="cpu",
+                                 generator=torch.Generator().manual_seed(1))
     with torch.no_grad():  # a fresh model's zero-init kernels output 0
         for p in model.parameters():
             if p.ndim == 2:
