@@ -41,21 +41,40 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    3-step profile, as in phases 7 and 8;
 13. HDiT routed config: config_mnist_transformer.json (7 x 7 tokens, class
    conditioning) at batch 8 in bfloat16 on the card against float32 on the
-   CPU; its global level goes to K13, not K3.
+   CPU; its global level goes to K13, not K3;
+14. per-head NA kernels: K11 and K12 against their plain versions at the
+   flagship's NA levels (batch 8, q and k contiguous, v a strided third of
+   the projection, as the unfused prologue leaves them), then at head dims
+   32 and 128 and at a level wider than K2 takes (12 heads of 64);
+15. the fused epilogue K15 (na2d_packed_proj) against its plain version at
+   the flagship's NA levels, batch 8, timed against the composition the
+   model runs (K2, a matmul with w_out, the residual add); then its op
+   path, forward and backward (K2 recompute, K7 + K8), with launch counts
+   and the gradients against the plain version's;
+16. the unfused training step: the flagship config as it is with
+   KDT_TRAIN_FUSION=0 (for this phase only): gradient parity at batch 2 as
+   in phase 7, then 3 + 20 steps at batch 32 and a profile as in phase 8,
+   every NA level through K11/K12 and no K1/K2/K4/K6/K7/K8/K10;
+17. head dim 32: K1/K6 and K13/K14 at configs/config_test_tiny.json's
+   shapes against their plain versions, its forward at batch 8 and one
+   step's gradient at batch 2 against float32 on the CPU.
 
 Then one JSON line of per-kernel results and last ``{"ok": true, "device":
 {...}}``. A kernel's ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms``
 are summed over its calls in one denoiser call (forward kernels) or one
 training step (backward kernels) on its main path: the flagship at batch 8
-for K1-K10, the U-Net at batch 64 for K13 and K14; ``launches`` is its
-count in that path's sampling (forward) or timed training (backward) run.
-Any failure raises: exit code non-zero, no result line. Imports nothing of
-JAX.
+for K1-K10 and, in the unfused step, K11 and K12; the U-Net at batch 64 for
+K13 and K14; one op call at each flagship NA level for K15. ``launches`` is
+its count in that path's sampling (forward) or timed training (backward)
+run, for K11 and K12 the unfused training run, for K15 its op path. Any
+failure raises: exit code non-zero, no result line. Imports nothing of JAX.
 """
 
 import collections
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -69,6 +88,7 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "config_oxford_flowers.json"
 UNET_CONFIG = ROOT / "configs" / "config_cifar10.json"
 MNIST_TRANSFORMER = ROOT / "configs" / "config_mnist_transformer.json"
+TEST_TINY = ROOT / "configs" / "config_test_tiny.json"
 SEED = 0
 SAMPLE_BATCH, STEPS = 8, 50
 TRAIN_BATCH, WARMUP_STEPS, TRAIN_STEPS = 32, 3, 20
@@ -183,31 +203,32 @@ def sdpa_backward(q, k, v, dout, scale, mask=None):
     return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
 
-def na_library(qkv, heads, dout=None):
-    """The yardstick of K2, or with ``dout`` of K7 + K8: SDPA, or its
-    backward alone, on the (b, hw, heads, 64) views of packed (b, h, w, c)
-    q, k, v, each query's clamped 7 x 7 window a dense (hw, hw) additive
-    bf16 mask (the plain version's): hw / 49 times the kernels' work. Held
-    once against the plain version here; returns the timed callable."""
+def na_library(qkv, dout=None):
+    """The yardstick of K2 and K11, or with ``dout`` of K7 + K8 and K12:
+    SDPA, or its backward alone, on the (b, hw, heads, e) views of (b, h, w,
+    heads, e) q, k, v, each query's clamped 7 x 7 window a dense (hw, hw)
+    additive bf16 mask (the plain version's): hw / 49 times the kernels'
+    work. Held once against the plain version here; returns the timed
+    callable."""
     from k_diffusion_tpu_torch.ops.attention import neighborhood_mask_2d
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
-    b, h, w, c = qkv[0].shape
+    b, h, w, heads, e = qkv[0].shape
     dev = qkv[0].device
     mask = torch.zeros((h * w, h * w), device=dev, dtype=qkv[0].dtype)
     mask.masked_fill_(~neighborhood_mask_2d(h, w, 7, dev), float("-inf"))
-    flat = [t.reshape(b, h * w, heads, c // heads) for t in qkv]
-    packed = lambda t: t.transpose(1, 2).reshape(b, h, w, c)
-    label = f"{b}x{h}x{w}x{c}"
+    flat = [t.reshape(b, h * w, heads, e) for t in qkv]
+    unflat = lambda t: t.transpose(1, 2).reshape(b, h, w, heads, e)
+    label = f"{b}x{h}x{w}x{heads}x{e}"
     if dout is None:
         call = lambda: sdpa(*flat, 1.0, mask)
-        check_close(f"masked SDPA {label}", packed(call()),
-                    na2d.reference(*qkv, heads, 7), KERNEL_REL_BOUND)
+        check_close(f"masked SDPA {label}", unflat(call()),
+                    na2d.na2d_reference(*qkv, 7), KERNEL_REL_BOUND)
         return call
     call = sdpa_backward(*flat, dout.reshape(flat[0].shape), 1.0, mask)
-    wants = na2d.reference_backward(*qkv, dout, heads, 7)
+    wants = na2d.heads_reference_backward(*qkv, dout, 7)
     for name, got, want in zip("qkv", call(), wants):
-        check_close(f"masked SDPA backward d{name} {label}", packed(got), want,
+        check_close(f"masked SDPA backward d{name} {label}", unflat(got), want,
                     KERNEL_REL_BOUND)
     return call
 
@@ -258,7 +279,7 @@ def kernel_cases(dev):
                 lambda t=qkv, nh=heads: na2d.na2d_packed(*t, nh, 7),
                 lambda t=qkv, nh=heads: _na_plain(na2d, *t, nh),
                 4 * t * d * 7 ** 2, qkv,
-                library=na_library(qkv, heads)))
+                library=na_library(split_heads(qkv, heads))))
         else:
             s = h * h
             flat = tuple(t.reshape(b, s, d) for t in qkv)
@@ -351,7 +372,8 @@ def backward_cases(dev):
                 lambda a=(q, k, v, dout, heads, 7): na2d.reference_backward(*a),
                 5 * 2 * t * d * 7 ** 2, fwd,
                 timed=lambda a=fwd: na2d.packed_backward_partials(*a),
-                library=na_library((q, k, v), heads, dout)))
+                library=na_library(split_heads((q, k, v), heads),
+                                   split_heads((dout,), heads)[0])))
             # the library call: one index_add_ of the dk and dv halo rows
             # (side by side) into the plain version's position map
             halo = na2d.TILE + na2d.MAX_KERNEL - 1
@@ -485,6 +507,201 @@ def run_cases(cases, results, kernel_reps, plain_reps):
         if lib_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + c.calls * lib_ms
     torch.cuda.empty_cache()
+
+
+def split_heads(maps, heads):
+    """(b, h, w, c) maps -> their (b, h, w, heads, c / heads) views."""
+    return tuple(t.reshape(*t.shape[:3], heads, -1) for t in maps)
+
+
+def heads_cases(dev):
+    """Phase 14: K11 and K12 at the flagship's NA levels in the unfused
+    training step, batch 8 as in phases 3 and 6, 4 calls per level and step
+    (2 layers in the down and in the up stack): q and k contiguous, v a
+    strided third of a (b, h, w, 3, heads, e) projection, as the model's
+    unfused prologue leaves them, q and k cosine-sim. Then, counting no
+    calls, head dims 32 and 128 and a level wider than K2 takes. K11 is
+    timed as the training forward (with its lse); its bytes count q, k, v,
+    out and lse once, its operations 4 * 49 * e per query and head; K12's
+    the 5 products of 2 * 49 * e (the logits recomputed, dp, dv, dk, dq)."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 10)
+    b, bf16 = SAMPLE_BATCH, torch.bfloat16
+    cases = []
+    for h, heads, e, n in ((64, 2, 64, 4), (32, 4, 64, 4), (32, 4, 32, 0),
+                           (32, 2, 128, 0), (16, 12, 64, 0)):
+        t = torch.randn((b, h, h, 3, heads, e), generator=g)
+        qk = t[:, :, :, :2] / t[:, :, :, :2].norm(dim=-1, keepdim=True)
+        proj = torch.cat([qk * 10 ** 0.5, t[:, :, :, 2:]], 3).to(dev, bf16)
+        q, k, v = proj.unbind(3)
+        q, k = q.contiguous(), k.contiguous()
+        dout = torch.randn((b, h, h, heads, e), generator=g).to(dev, bf16)
+        label = f"{b}x{h}x{h}x{heads}x{e}"
+        flops = 4 * b * h * h * heads * e * 7 ** 2
+        cases.append(Case(
+            "na2d_heads", label, n,
+            lambda a=(q, k, v): na2d.na2d(*a, 7),
+            lambda a=(q, k, v): na2d.na2d_reference(*a, 7), flops, (q, k, v),
+            timed=lambda a=(q, k, v): na2d.heads_forward(*a, 7, save_lse=True),
+            library=na_library((q, k, v))))
+        out, lse = na2d.heads_forward(q, k, v, 7, save_lse=True)
+        cases.append(Case(
+            "na2d_heads_bwd", label, n,
+            lambda a=(q, k, v, out, lse, dout): na2d.heads_backward(*a, 7),
+            lambda a=(q, k, v, dout): na2d.heads_reference_backward(*a, 7),
+            5 * flops // 2, (q, k, v, out, lse, dout),
+            library=na_library((q, k, v), dout)))
+    return cases
+
+
+def proj_inputs(dev):
+    """K15's inputs at the flagship's NA levels, batch 8: cosine-sim q and
+    k, v, the residual, w_out (c, c) bf16 and a cotangent."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    b, bf16 = SAMPLE_BATCH, torch.bfloat16
+    out = []
+    for h, c in ((64, 128), (32, 256)):
+        t = torch.randn((2, b, h, h, c // 64, 64), generator=g)
+        q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+            2, b, h, h, c).to(dev, bf16)
+        v, skip, dout = (torch.randn((b, h, h, c), generator=g).to(dev, bf16)
+                         for _ in range(3))
+        out.append((q, k, v, skip, lecun((c, c), g, dev), c // 64, dout))
+    return out
+
+
+def proj_cases(inputs):
+    """Phase 15: K15 against its plain version, one call per NA level (its
+    op path, phase 15's second half); operations 4 * 49 * c for the
+    attention and 2 * c * c for the projection per query. No single
+    PyTorch call computes it (library null); the composition the model runs
+    is timed beside it by ``proj_path``."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    cases = []
+    for q, k, v, skip, w, heads, _ in inputs:
+        b, h, _, c = q.shape
+        t = b * h * h
+        args = (q, k, v, skip, w, heads, 7)
+        cases.append(Case(
+            "na2d_proj", f"{b}x{h}x{h}x{c}", 1,
+            lambda a=args: na2d.na2d_packed_proj(*a),
+            lambda a=args: na2d.proj_reference(*a),
+            4 * t * c * 7 ** 2 + 2 * t * c * c, (q, k, v, skip, w)))
+    return cases
+
+
+def proj_path(inputs, results):
+    """Phase 15's op path: na2d_packed_proj forward and backward (autograd)
+    at both NA levels with the launch counts read around it (K15 forward;
+    K2 recompute, K7 + K8 backward), the gradients held against autograd
+    through the plain version; then K15 timed against the composition the
+    model runs, K2 -> matmul with w_out -> residual add. Returns the
+    counts."""
+    from k_diffusion_tpu_torch.ops import kernels
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    got = []
+    kernels.reset_launch_counts()
+    for q, k, v, skip, w, heads, dout in inputs:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, skip)]
+        w32 = w.float().requires_grad_()
+        out = na2d.na2d_packed_proj(*leaves, w32, heads, 7)
+        got.append(torch.autograd.grad(out, [*leaves, w32], dout))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n = len(inputs)
+    expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+        "na2d_proj": n, "na2d": n, "na2d_bwd": n, "na2d_overlap_add": n}
+    if counts != expected:
+        raise AssertionError(f"na2d_packed_proj path: launch counts {counts} "
+                             f"!= expected {expected}")
+    comp_ms = fused_ms = 0.0
+    for grads, (q, k, v, skip, w, heads, dout) in zip(got, inputs):
+        label = "x".join(map(str, q.shape))
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_()
+                      for t in (q, k, v, skip, w)]
+            want = torch.autograd.grad(
+                na2d.proj_reference(*leaves, heads, 7), leaves, dout.float())
+        for name, a, b_ in zip(("q", "k", "v", "skip", "w_out"), grads, want):
+            check_close(f"na2d_packed_proj backward d{name} {label}", a, b_,
+                        KERNEL_REL_BOUND)
+        with torch.no_grad():
+            comp = device_ms(lambda: na2d.na2d_packed(q, k, v, heads, 7) @ w
+                             + skip, 50)
+            fused = device_ms(lambda: na2d.na2d_packed_proj(
+                q, k, v, skip, w, heads, 7), 50)
+        comp_ms += comp
+        fused_ms += fused
+        print(f"na2d_packed_proj [{label}]: K15 {fused:.4f} ms against K2 + "
+              f"matmul + add {comp:.4f} ms", flush=True)
+    results["na2d_proj"]["composition_ms"] = comp_ms
+    print(f"na2d_packed_proj path: launches {counts}; gradients within "
+          f"{KERNEL_REL_BOUND} x max|plain|; K15 {fused_ms:.4f} ms against "
+          f"the composition's {comp_ms:.4f} ms per pair of calls", flush=True)
+    return counts
+
+
+def head32_cases(dev):
+    """Phase 17: K1/K6 and K13/K14 at head dim 32, configs/config_test_
+    tiny.json's shapes (8 x 8 tokens, width 64, 2 heads of 32), batch 8;
+    they count no calls (the kernels' main paths are phases 5, 8, 11, 12)."""
+    from k_diffusion_tpu_torch.ops import rope
+    from k_diffusion_tpu_torch.ops.kernels import flash, fused_qkv
+
+    g = torch.Generator().manual_seed(SEED + 12)
+    b, h, d, heads, bf16 = SAMPLE_BATCH, 8, 64, 2, torch.bfloat16
+    t = b * h * h
+    normal = lambda *shape: torch.randn(shape, generator=g).to(dev, bf16)
+    args = (normal(b, h, h, d), rope.make_axial_pos(h, h, device=dev),
+            (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, bf16),
+            (torch.randn((d, 3 * d), generator=g) * d ** -0.5).to(dev),
+            10 * (1 + 0.1 * torch.randn(heads, generator=g)).to(dev), heads)
+    cots = tuple(normal(b, h, h, d) for _ in range(3))
+    label = f"{b}x{h}x{h}x{d} e=32"
+    cases = [
+        Case("fused_qkv", label, 0,
+             lambda a=args: fused_qkv.fused_qkv_prologue(*a),
+             lambda a=args: fused_qkv.reference(*a), 2 * t * d * 3 * d, args),
+        Case("fused_qkv_bwd", label, 0,
+             lambda a=args + cots: fused_qkv.prologue_backward(*a),
+             lambda a=args + cots: fused_qkv.reference_backward(*a),
+             3 * 2 * t * d * 3 * d, args + cots)]
+    s = h * h
+    u = torch.randn((3, b, s, heads, 32), generator=g)
+    q, k, v = (u / u.norm(dim=-1, keepdim=True) * 10 ** 0.5).to(dev, bf16)
+    dout = normal(b, s, heads, 32)
+    flops = 2 * 2 * b * heads * s * s * 32
+    label = f"{b}x{s}x{heads}x32"
+    cases.append(Case("flash", label, 0,
+                      lambda a=(q, k, v): flash.flash_attention(*a, 1.0),
+                      lambda a=(q, k, v): flash.reference(*a, 1.0),
+                      flops, (q, k, v),
+                      library=lambda a=(q, k, v): sdpa(*a, 1.0)))
+    out, lse = flash.flash_forward(q, k, v, 1.0, save_lse=True)
+    cases.append(Case(
+        "flash_bwd", label, 0,
+        lambda a=(q, k, v, out, lse, dout): flash.flash_backward(*a, 1.0),
+        lambda a=(q, k, v, dout): flash.reference_backward(*a, 1.0),
+        5 * flops // 2, (q, k, v, out, lse, dout),
+        library=sdpa_backward(q, k, v, dout, 1.0)))
+    return cases
+
+
+@contextlib.contextmanager
+def train_fusion(value):
+    """KDT_TRAIN_FUSION set to ``value`` inside the block, restored after."""
+    old = os.environ.get("KDT_TRAIN_FUSION")
+    os.environ["KDT_TRAIN_FUSION"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["KDT_TRAIN_FUSION"]
+        else:
+            os.environ["KDT_TRAIN_FUSION"] = old
 
 
 def _na_plain(na2d, q, k, v, heads):
@@ -647,10 +864,10 @@ def main():
         run_cases(backward_cases(dev), results, 20, 3)
 
     grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
-    train_counts = train(KT, config, dev, smi, TRAIN_BATCH,
-                         hdit_train_layout(config),
-                         2 * flops.analytic_transformer_flops(config, 1),
-                         "training")
+    hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
+    train_counts, fused_ips = train(KT, config, dev, smi, TRAIN_BATCH,
+                                    hdit_train_layout(config), hdit_flops,
+                                    "training")
 
     # the U-Net (config_cifar10.json): phases 9-12
     unet = KT.config.load_config(UNET_CONFIG)
@@ -673,9 +890,9 @@ def main():
     aug = torch.randn((2, 9), generator=torch.Generator().manual_seed(SEED + 8))
     grad_parity(KT, unet, dev, fill_zero_init_unet, "unet gradient parity",
                 aug_cond=aug)
-    unet_train_counts = train(KT, unet, dev, smi, UNET_BATCH,
-                              {"flash": n_attn, "flash_bwd": n_attn},
-                              unet_flops, "unet training")
+    unet_train_counts, _ = train(KT, unet, dev, smi, UNET_BATCH,
+                                 {"flash": n_attn, "flash_bwd": n_attn},
+                                 unet_flops, "unet training")
 
     # the HDiT config whose global level K3 does not take: phase 13
     mnist = KT.config.load_config(MNIST_TRANSFORMER)
@@ -696,39 +913,94 @@ def main():
     print(f"mnist transformer forward: launches {counts} (the 7 x 7 global "
           f"level through K13, none through K3)", flush=True)
 
-    sources = {
-        "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82"),
-        "na2d": ("na2d.cu", "na2d.py:576"),
-        "global_packed": ("global_packed.cu", "global_packed.py:57"),
-        "fused_ffn": ("geglu.cu", "fused_ffn.py:42"),
-        "fused_mapping": ("geglu.cu", "fused_mapping.py:28"),
-        "fused_qkv_bwd": ("fused_qkv.cu", "fused_qkv.py:246"),
-        "na2d_bwd": ("na2d.cu", "na2d.py:701"),
-        "na2d_overlap_add": ("na2d.cu", "na2d.py:809"),
-        "global_packed_bwd": ("global_packed.cu", "global_packed.py:111"),
-        "fused_ffn_bwd": ("geglu.cu", "fused_ffn.py:115"),
-        "flash": ("flash.cu", "flash.py:34"),
-        "flash_bwd": ("flash.cu", "flash.py:57"),
+    # the per-head NA kernels and the fused epilogue: phases 14 and 15
+    with torch.no_grad():
+        run_cases(heads_cases(dev), results, 20, 3)
+        inputs = proj_inputs(dev)
+        run_cases(proj_cases(inputs), results, 50, 5)
+    proj_counts = proj_path(inputs, results)
+    del inputs
+    torch.cuda.empty_cache()
+
+    # the unfused training step, KDT_TRAIN_FUSION=0: phase 16
+    unfused = hdit_unfused_layout(config)
+    with train_fusion("0"):
+        counts = grad_parity(KT, config, dev, fill_zero_init,
+                             "unfused gradient parity")
+        if counts != dict.fromkeys(kernels.COUNTERS, 0) | unfused:
+            raise AssertionError(f"unfused gradient parity: launch counts "
+                                 f"{counts} != {unfused}")
+        unfused_counts, unfused_ips = train(KT, config, dev, smi, TRAIN_BATCH,
+                                            unfused, hdit_flops,
+                                            "unfused training")
+    print(f"unfused training: {unfused_ips:.3f} imgs/s against the fused "
+          f"step's {fused_ips:.3f} (phase 8) on {smi}", flush=True)
+
+    # head dim 32, configs/config_test_tiny.json: phase 17
+    with torch.no_grad():
+        run_cases(head32_cases(dev), results, 20, 5)
+    tiny = KT.config.load_config(TEST_TINY)
+    g = torch.Generator().manual_seed(SEED + 13)
+    classes = torch.randint(0, tiny["dataset"]["num_classes"], (SAMPLE_BATCH,),
+                            generator=g)
+    with torch.no_grad():
+        _, counts = forward_parity(KT, tiny, dev, fill_zero_init, g,
+                                   "test_tiny forward", SAMPLE_BATCH,
+                                   class_cond=classes)
+    depth = sum(tiny["model"]["depths"])
+    tiny_fwd = {"fused_qkv": depth, "flash": depth, "fused_ffn": depth,
+                "fused_mapping": 1}
+    if counts != dict.fromkeys(kernels.COUNTERS, 0) | tiny_fwd:
+        raise AssertionError(f"test_tiny forward: launch counts {counts}")
+    counts = grad_parity(KT, tiny, dev, fill_zero_init,
+                         "test_tiny gradient parity", class_cond=classes[:2])
+    tiny_step = tiny_fwd | {"fused_qkv_bwd": depth, "flash_bwd": depth,
+                            "fused_ffn_bwd": depth}
+    if counts != dict.fromkeys(kernels.COUNTERS, 0) | tiny_step:
+        raise AssertionError(f"test_tiny gradient parity: launch counts "
+                             f"{counts} != {tiny_step}")
+    print(f"test_tiny: launches per forward {tiny_fwd}, per step {tiny_step} "
+          f"(head dim 32 through K1/K6 and K13/K14)", flush=True)
+
+    # name -> (source, TPU kernel, launches on its main path: the sampling
+    # run for a forward kernel, the timed training steps for a backward one,
+    # the unfused training steps for K11/K12, the op path for K15)
+    paths = {
+        "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
+        "na2d": ("na2d.cu", "na2d.py:576", sample_counts),
+        "global_packed": ("global_packed.cu", "global_packed.py:57",
+                          sample_counts),
+        "fused_ffn": ("geglu.cu", "fused_ffn.py:42", sample_counts),
+        "fused_mapping": ("geglu.cu", "fused_mapping.py:28", sample_counts),
+        "fused_qkv_bwd": ("fused_qkv.cu", "fused_qkv.py:246", train_counts),
+        "na2d_bwd": ("na2d.cu", "na2d.py:701", train_counts),
+        "na2d_overlap_add": ("na2d.cu", "na2d.py:809", train_counts),
+        "global_packed_bwd": ("global_packed.cu", "global_packed.py:111",
+                              train_counts),
+        "fused_ffn_bwd": ("geglu.cu", "fused_ffn.py:115", train_counts),
+        "flash": ("flash.cu", "flash.py:34", unet_sample_counts),
+        "flash_bwd": ("flash.cu", "flash.py:57", unet_train_counts),
+        "na2d_heads": ("na2d_heads.cu", "na2d.py:180", unfused_counts),
+        "na2d_heads_bwd": ("na2d_heads.cu", "na2d.py:241", unfused_counts),
+        "na2d_proj": ("na2d_heads.cu", "na2d.py:991", proj_counts),
     }
     report = []
-    for name, (src, tpu) in sources.items():
+    for name, (src, tpu, counts) in paths.items():
         r = results[name]
-        # launches on the kernel's main path: the forward kernels' from its
-        # sampling run, the backward kernels' from its timed training steps
-        flagship = name not in ("flash", "flash_bwd")
-        sampled = sample_counts if flagship else unet_sample_counts
-        trained = train_counts if flagship else unet_train_counts
-        backward = name.endswith(("_bwd", "_add"))
-        report.append({
+        if not counts[name]:
+            raise AssertionError(f"{name}: no launch on its main path")
+        entry = {
             "name": name, "route": "cuda",
             "source": f"k_diffusion_tpu_torch/csrc/{src}",
             "replaces": f"k_diffusion_tpu/ops/pallas/{tpu}",
-            "launches": (trained if backward else sampled)[name],
-            "train_launches": trained[name],
+            "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["op_ms"] > r["byte_ms"] else "bytes",
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"]}
+        if "composition_ms" in r:
+            entry["composition_ms"] = r["composition_ms"]
+        report.append(entry)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -764,10 +1036,13 @@ def no_dropout(config):
 
 
 def grad_parity(KT, config, dev, fill, name, **cond):
-    """Phases 7 and 12: one step's loss and full parameter gradient, bf16 on
-    the card against f32 on the CPU, from the same weights, reals, noise,
-    sigmas and ``cond`` (batch 2). Dropout is off: the two devices'
-    generators draw different masks."""
+    """Phases 7, 12, 16 and 17: one step's loss and full parameter gradient,
+    bf16 on the card against f32 on the CPU, from the same weights, reals,
+    noise, sigmas and ``cond`` (batch 2). Dropout is off: the two devices'
+    generators draw different masks. Returns the launch counts of the
+    card's step."""
+    from k_diffusion_tpu_torch.ops import kernels
+
     config = no_dropout(config)
     g = torch.Generator().manual_seed(SEED + 3)
     model = KT.config.make_model(config, dtype=torch.bfloat16, device="cpu",
@@ -782,6 +1057,7 @@ def grad_parity(KT, config, dev, fill, name, **cond):
     sigma = KT.config.make_sample_density(config["model"])(
         (2,), stratified=(0, 1), generator=g, device="cpu")
     grads = []
+    kernels.reset_launch_counts()
     for m, d in ((model, dev), (reference, torch.device("cpu"))):
         den = KT.config.make_denoiser_wrapper(config)(m)
         loss = den.loss(reals.to(d), noise.to(d), sigma.to(d),
@@ -789,6 +1065,7 @@ def grad_parity(KT, config, dev, fill, name, **cond):
         flat = torch.cat([p.flatten() for p in torch.autograd.grad(
             loss, list(m.parameters()))])
         grads.append((loss.item(), flat.float().cpu()))
+    counts = kernels.launch_counts()  # the CPU side launches nothing
     (loss, got), (ref_loss, want) = grads
     rel = ((got - want).norm() / want.norm()).item()
     if not (rel <= GRAD_REL_BOUND and torch.isfinite(got).all()):
@@ -798,9 +1075,10 @@ def grad_parity(KT, config, dev, fill, name, **cond):
           f"generators differ), sigmas {sigma.tolist()}: loss {loss:.6f} "
           f"bf16 on the card vs {ref_loss:.6f} f32 on the CPU; gradient of "
           f"{want.numel()} params: relative L2 error {rel:.3e} (bound "
-          f"{GRAD_REL_BOUND})", flush=True)
+          f"{GRAD_REL_BOUND}); launches {counts}", flush=True)
     del model, reference
     torch.cuda.empty_cache()
+    return counts
 
 
 def hdit_train_layout(config):
@@ -819,12 +1097,24 @@ def hdit_train_layout(config):
             "global_packed_bwd": levels[-1], "fused_ffn_bwd": ffn}
 
 
+def hdit_unfused_layout(config):
+    """The flagship's kernel launches per training step with
+    KDT_TRAIN_FUSION=0: the NA levels through K11/K12, the global level
+    through K3/K9, the mapping network through K5; the prologue and the
+    feed-forward blocks unfused (no K1/K4/K6/K10), no K2/K7/K8."""
+    levels = config["model"]["depths"]
+    na = 2 * sum(levels[:-1])
+    return {"na2d_heads": na, "na2d_heads_bwd": na,
+            "global_packed": levels[-1], "global_packed_bwd": levels[-1],
+            "fused_mapping": int(config["model"]["mapping_dropout_rate"] == 0)}
+
+
 def train(KT, config, dev, smi, batch, per_step, fwd_flops, name):
-    """Phases 8 and 12: the config as it is (dropout on) at ``batch`` on
+    """Phases 8, 12 and 16: the config as it is (dropout on) at ``batch`` on
     seeded synthetic reals (and a seeded aug_cond where the model takes
     one) through training.make_train_step; launch counts ``per_step`` per
     step. ``fwd_flops``: the model's FLOPs per image per forward. Returns
-    the launch counts of the timed steps."""
+    the launch counts of the timed steps and the images per second."""
     from k_diffusion_tpu_torch.ops import kernels
 
     g = torch.Generator().manual_seed(SEED + 4)
@@ -889,7 +1179,7 @@ def train(KT, config, dev, smi, batch, per_step, fwd_flops, name):
           f"{p_moved:.3e}, EMA {ema_moved:.3e}; launches per step "
           f"{per_step}", flush=True)
     profile(run, name, "training steps")
-    return counts
+    return counts, ips
 
 
 def profile(run, name, what):

@@ -1,4 +1,4 @@
-// Exact global softmax attention on (b, s, heads, 64) q, k, v, streaming
+// Exact global softmax attention on (b, s, heads, e) q, k, v, streaming
 // over key tiles: the forward with its logsumexp (K13) and the backward
 // (K14), in the manner of FlashAttention-2.
 //
@@ -30,34 +30,41 @@
 //   dv += p^T dout and dk += ds^T q in registers; no atomics.
 // delta = rowsum(out * dout) comes from the caller, as in the JAX package.
 // No tile is double-buffered: a simple kernel first.
+//
+// The head dim E is a template parameter, 64 or 32 (the HDiT of
+// configs/config_test_tiny.json): q, k, v, dout tiles are (64, E) at row
+// stride E + 8, the logit strips stay 16 x 64 (one key tile), and a warp's
+// output strip is 16 x E.
 #include "common.cuh"
 
 namespace kdt {
 namespace {
 
-constexpr int E = 64;   // head dim
 constexpr int BN = 64;  // keys (or queries) of a streamed tile
 
 struct Rows {
   long batch, seq;  // element strides of the batch and sequence axes
 };
 
-// The (64, 64) tile of one head starting at sequence row r0, zero past s.
+// The (64, E) tile of one head starting at sequence row r0, zero past s.
+template <int E>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* base, Rows st, int head,
                                           int r0, int s) {
   const int valid = s - r0 < BM ? s - r0 : BM;
-  load_tile(dst, base + r0 * st.seq + head * E, st.seq, BM, valid);
+  load_tile<E>(dst, base + r0 * st.seq + head * E, st.seq, BM, valid);
 }
 
+template <int E>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
                  int s, int n_heads, Rows in, float scale) {
+  constexpr int LDE = E + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + BM * LDT;
-  bf16* s_v = s_k + BN * LDT;
-  float* s_s = reinterpret_cast<float*>(s_v + BN * LDT);
+  bf16* s_k = s_q + BM * LDE;
+  bf16* s_v = s_k + BN * LDE;
+  float* s_s = reinterpret_cast<float*>(s_v + BN * LDE);
   float* s_o = s_s + WARPS * STRIP * LDF;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -66,13 +73,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sw = s_s + warp * STRIP * LDF;
   float* ow = s_o + warp * STRIP * LDF;
 
-  load_rows(s_q, q + img, in, head, q0, s);
+  load_rows<E>(s_q, q + img, in, head, q0, s);
   for (int i = lane; i < STRIP * LDF; i += 32) ow[i] = 0.f;
   __syncthreads();
   FragA qa[E / 16];
 #pragma unroll
   for (int kk = 0; kk < E / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], s_q + warp * STRIP * LDT + 16 * kk, LDT);
+    wmma::load_matrix_sync(qa[kk], s_q + warp * STRIP * LDE + 16 * kk, LDE);
 
   float m_run[STRIP], l_run[STRIP];
 #pragma unroll
@@ -81,8 +88,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_run[m] = 0.f;
   }
   for (int k0 = 0; k0 < s; k0 += BN) {
-    load_rows(s_k, k + img, in, head, k0, s);
-    load_rows(s_v, v + img, in, head, k0, s);
+    load_rows<E>(s_k, k + img, in, head, k0, s);
+    load_rows<E>(s_v, v + img, in, head, k0, s);
     __syncthreads();
     {
       FragC acc[4];
@@ -92,7 +99,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           FragBt fb;
-          wmma::load_matrix_sync(fb, s_k + 16 * j * LDT + 16 * kk, LDT);
+          wmma::load_matrix_sync(fb, s_k + 16 * j * LDE + 16 * kk, LDE);
           wmma::mma_sync(acc[j], qa[kk], fb, acc[j]);
         }
       store_strip(sw, LDF, acc);
@@ -108,8 +115,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float p1 = __expf(v1 - m_new), p2 = __expf(v2 - m_new);
       l_run[m] = l_run[m] * alpha + warp_sum(p1 + p2);
       m_run[m] = m_new;
-      ow[m * LDF + lane] *= alpha;
-      ow[m * LDF + lane + 32] *= alpha;
+#pragma unroll
+      for (int j = lane; j < E; j += 32) ow[m * LDF + j] *= alpha;
       __syncwarp();  // every lane has read the row's floats
       bf16* prow = reinterpret_cast<bf16*>(sw) + 2 * m * LDF;
       prow[lane] = to_bf(p1);
@@ -117,9 +124,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
     {
-      FragC acc[4];
+      FragC acc[E / 16];
       zero(acc);
-      mma_strip(reinterpret_cast<const bf16*>(sw), 2 * LDF, s_v, LDT, BN, acc);
+      mma_strip(reinterpret_cast<const bf16*>(sw), 2 * LDF, s_v, LDE, BN, acc);
       __syncwarp();  // every lane is done reading p
       store_strip(sw, LDF, acc);
     }
@@ -135,29 +142,31 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int m = 0; m < STRIP; ++m) {
     const float inv_l = 1.f / l_run[m];
-    ow[m * LDF + lane] *= inv_l;
-    ow[m * LDF + lane + 32] *= inv_l;
+#pragma unroll
+    for (int j = lane; j < E; j += 32) ow[m * LDF + j] *= inv_l;
     if (lse != nullptr && lane == 0 && m < valid)
       lse[(static_cast<long>(blockIdx.z) * n_heads + head) * s + q0 + r0 + m] =
           m_run[m] + __logf(l_run[m]);
   }
   __syncwarp();
-  write_strip(ow, LDF, out + (static_cast<long>(blockIdx.z) * s + q0 + r0) * ldo + head * E,
-              ldo, nullptr, valid);
+  write_strip<E>(ow, LDF, out + (static_cast<long>(blockIdx.z) * s + q0 + r0) * ldo + head * E,
+                 ldo, nullptr, valid);
 }
 
 // dq for 64 queries of one head: streams 64-key tiles of k and v.
+template <int E>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dq, int s, int n_heads, Rows in, float scale) {
+  constexpr int LDE = E + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_do = s_q + BM * LDT;
-  bf16* s_k = s_do + BM * LDT;
-  bf16* s_v = s_k + BN * LDT;
-  float* s_s = reinterpret_cast<float*>(s_v + BN * LDT);
+  bf16* s_do = s_q + BM * LDE;
+  bf16* s_k = s_do + BM * LDE;
+  bf16* s_v = s_k + BN * LDE;
+  float* s_s = reinterpret_cast<float*>(s_v + BN * LDE);
   float* s_dp = s_s + WARPS * STRIP * LDF;
   __shared__ float s_lse[BM], s_delta[BM];
 
@@ -170,8 +179,8 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sw = s_s + warp * STRIP * LDF;
   float* dw = s_dp + warp * STRIP * LDF;
 
-  load_rows(s_q, q + img, in, head, q0, s);
-  load_rows(s_do, dout + opack, packed, head, q0, s);
+  load_rows<E>(s_q, q + img, in, head, q0, s);
+  load_rows<E>(s_do, dout + opack, packed, head, q0, s);
   if (threadIdx.x < BM) {
     const bool ok = q0 + threadIdx.x < s;
     s_lse[threadIdx.x] = ok ? lse[row0 + threadIdx.x] : 0.f;
@@ -181,14 +190,14 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   FragA qa[E / 16], da[E / 16];
 #pragma unroll
   for (int kk = 0; kk < E / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], s_q + warp * STRIP * LDT + 16 * kk, LDT);
-    wmma::load_matrix_sync(da[kk], s_do + warp * STRIP * LDT + 16 * kk, LDT);
+    wmma::load_matrix_sync(qa[kk], s_q + warp * STRIP * LDE + 16 * kk, LDE);
+    wmma::load_matrix_sync(da[kk], s_do + warp * STRIP * LDE + 16 * kk, LDE);
   }
-  FragC acc_dq[4];
+  FragC acc_dq[E / 16];
   zero(acc_dq);
   for (int k0 = 0; k0 < s; k0 += BN) {
-    load_rows(s_k, k + img, in, head, k0, s);
-    load_rows(s_v, v + img, in, head, k0, s);
+    load_rows<E>(s_k, k + img, in, head, k0, s);
+    load_rows<E>(s_v, v + img, in, head, k0, s);
     __syncthreads();
     {
       FragC acc_s[4], acc_dp[4];
@@ -199,9 +208,9 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           FragBt fb;
-          wmma::load_matrix_sync(fb, s_k + 16 * j * LDT + 16 * kk, LDT);
+          wmma::load_matrix_sync(fb, s_k + 16 * j * LDE + 16 * kk, LDE);
           wmma::mma_sync(acc_s[j], qa[kk], fb, acc_s[j]);
-          wmma::load_matrix_sync(fb, s_v + 16 * j * LDT + 16 * kk, LDT);
+          wmma::load_matrix_sync(fb, s_v + 16 * j * LDE + 16 * kk, LDE);
           wmma::mma_sync(acc_dp[j], da[kk], fb, acc_dp[j]);
         }
       store_strip(sw, LDF, acc_s);
@@ -214,31 +223,33 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
     strip_to_bf16(sw, LDF, BN);
-    mma_strip(reinterpret_cast<const bf16*>(sw), 2 * LDF, s_k, LDT, BN, acc_dq);
+    mma_strip(reinterpret_cast<const bf16*>(sw), 2 * LDF, s_k, LDE, BN, acc_dq);
     __syncthreads();  // every warp is done with this k and v tile
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < E / 16; ++j)
     for (int t = 0; t < acc_dq[j].num_elements; ++t) acc_dq[j].x[t] *= scale;
   const int r0 = warp * STRIP;
   store_strip(sw, LDF, acc_dq);
-  write_strip(sw, LDF, dq + opack + (q0 + r0) * packed.seq + head * E, packed.seq, nullptr,
-              s - q0 - r0);
+  write_strip<E>(sw, LDF, dq + opack + (q0 + r0) * packed.seq + head * E, packed.seq, nullptr,
+                 s - q0 - r0);
 }
 
 // dk and dv for 64 keys of one head: streams 64-query tiles of q and dout.
+template <int E>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int n_heads, Rows in,
                  float scale) {
+  constexpr int LDE = E + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_k = reinterpret_cast<bf16*>(smem);
-  bf16* s_v = s_k + BN * LDT;
-  bf16* s_q = s_v + BN * LDT;
-  bf16* s_do = s_q + BM * LDT;
-  float* s_pt = reinterpret_cast<float*>(s_do + BM * LDT);
+  bf16* s_v = s_k + BN * LDE;
+  bf16* s_q = s_v + BN * LDE;
+  bf16* s_do = s_q + BM * LDE;
+  float* s_pt = reinterpret_cast<float*>(s_do + BM * LDE);
   float* s_dst = s_pt + WARPS * STRIP * LDF;
   __shared__ float s_lse[BM], s_delta[BM];
 
@@ -251,21 +262,21 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* pt = s_pt + warp * STRIP * LDF;
   float* dst = s_dst + warp * STRIP * LDF;
 
-  load_rows(s_k, k + img, in, head, k0, s);
-  load_rows(s_v, v + img, in, head, k0, s);
+  load_rows<E>(s_k, k + img, in, head, k0, s);
+  load_rows<E>(s_v, v + img, in, head, k0, s);
   __syncthreads();
   FragA ka[E / 16], va[E / 16];
 #pragma unroll
   for (int kk = 0; kk < E / 16; ++kk) {
-    wmma::load_matrix_sync(ka[kk], s_k + warp * STRIP * LDT + 16 * kk, LDT);
-    wmma::load_matrix_sync(va[kk], s_v + warp * STRIP * LDT + 16 * kk, LDT);
+    wmma::load_matrix_sync(ka[kk], s_k + warp * STRIP * LDE + 16 * kk, LDE);
+    wmma::load_matrix_sync(va[kk], s_v + warp * STRIP * LDE + 16 * kk, LDE);
   }
-  FragC acc_dk[4], acc_dv[4];
+  FragC acc_dk[E / 16], acc_dv[E / 16];
   zero(acc_dk);
   zero(acc_dv);
   for (int q0 = 0; q0 < s; q0 += BM) {
-    load_rows(s_q, q + img, in, head, q0, s);
-    load_rows(s_do, dout + opack, packed, head, q0, s);
+    load_rows<E>(s_q, q + img, in, head, q0, s);
+    load_rows<E>(s_do, dout + opack, packed, head, q0, s);
     if (threadIdx.x < BM) {
       const bool ok = q0 + threadIdx.x < s;
       s_lse[threadIdx.x] = ok ? lse[lrow + q0 + threadIdx.x] : 0.f;
@@ -281,9 +292,9 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           FragBt fb;
-          wmma::load_matrix_sync(fb, s_q + 16 * j * LDT + 16 * kk, LDT);
+          wmma::load_matrix_sync(fb, s_q + 16 * j * LDE + 16 * kk, LDE);
           wmma::mma_sync(acc_s[j], ka[kk], fb, acc_s[j]);
-          wmma::load_matrix_sync(fb, s_do + 16 * j * LDT + 16 * kk, LDT);
+          wmma::load_matrix_sync(fb, s_do + 16 * j * LDE + 16 * kk, LDE);
           wmma::mma_sync(acc_dp[j], va[kk], fb, acc_dp[j]);
         }
       store_strip(pt, LDF, acc_s);
@@ -299,73 +310,100 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
     strip_to_bf16(pt, LDF, BM);
     strip_to_bf16(dst, LDF, BM);
-    mma_strip(reinterpret_cast<const bf16*>(pt), 2 * LDF, s_do, LDT, BM, acc_dv);
-    mma_strip(reinterpret_cast<const bf16*>(dst), 2 * LDF, s_q, LDT, BM, acc_dk);
+    mma_strip(reinterpret_cast<const bf16*>(pt), 2 * LDF, s_do, LDE, BM, acc_dv);
+    mma_strip(reinterpret_cast<const bf16*>(dst), 2 * LDF, s_q, LDE, BM, acc_dk);
     __syncthreads();  // before the next tile overwrites q, dout, lse, delta
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < E / 16; ++j)
     for (int t = 0; t < acc_dk[j].num_elements; ++t) acc_dk[j].x[t] *= scale;
   const int r0 = warp * STRIP;
   bf16* dk_rows = dk + opack + (k0 + r0) * packed.seq + head * E;
   bf16* dv_rows = dv + opack + (k0 + r0) * packed.seq + head * E;
   store_strip(pt, LDF, acc_dk);
-  write_strip(pt, LDF, dk_rows, packed.seq, nullptr, s - k0 - r0);
+  write_strip<E>(pt, LDF, dk_rows, packed.seq, nullptr, s - k0 - r0);
   store_strip(pt, LDF, acc_dv);
-  write_strip(pt, LDF, dv_rows, packed.seq, nullptr, s - k0 - r0);
+  write_strip<E>(pt, LDF, dv_rows, packed.seq, nullptr, s - k0 - r0);
 }
 
+template <int E>
 constexpr size_t FWD_SMEM =
-    (BM + 2 * BN) * LDT * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
+    (BM + 2 * BN) * (E + 8) * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
+template <int E>
 constexpr size_t BWD_SMEM =
-    (2 * BM + 2 * BN) * LDT * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
+    (2 * BM + 2 * BN) * (E + 8) * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
+
+template <int E>
+int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b, int s,
+               int n_heads, Rows in, float scale, cudaStream_t st) {
+  const cudaError_t attr = allow_smem(flash_fwd_kernel<E>, FWD_SMEM<E>);
+  const dim3 grid((s + BM - 1) / BM, n_heads, b);
+  flash_fwd_kernel<E><<<grid, THREADS, FWD_SMEM<E>, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), s, n_heads, in, scale);
+  return launch_status(attr);
+}
+
+template <int E>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dq, void* dk, void* dv, int b, int s, int n_heads,
+               Rows in, float scale, cudaStream_t st) {
+  const dim3 grid((s + BM - 1) / BM, n_heads, b);
+  cudaError_t attr = allow_smem(flash_dq_kernel<E>, BWD_SMEM<E>);
+  flash_dq_kernel<E><<<grid, THREADS, BWD_SMEM<E>, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), s, n_heads, in, scale);
+  const int status = launch_status(attr);
+  if (status != 0) return status;
+  attr = allow_smem(flash_dkv_kernel<E>, BWD_SMEM<E>);
+  flash_dkv_kernel<E><<<grid, THREADS, BWD_SMEM<E>, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s,
+      n_heads, in, scale);
+  return launch_status(attr);
+}
 
 }  // namespace
 }  // namespace kdt
 
 using namespace kdt;
 
-// K13: q, k, v (b, s, heads, 64) bf16 with batch stride stride_b and
-// sequence stride stride_s (elements; the head axis packed at 64, the head
-// dim contiguous). Writes out (b, s, heads, 64) bf16, contiguous, and, when
-// lse is not null, lse (b, heads, s) f32 (max + log sum of the scaled
-// logits). Any s >= 1.
+// K13: q, k, v (b, s, heads, e) bf16, head dim e 32 or 64, with batch
+// stride stride_b and sequence stride stride_s (elements; the head axis
+// packed at e, the head dim contiguous). Writes out (b, s, heads, e) bf16,
+// contiguous, and, when lse is not null, lse (b, heads, s) f32 (max + log
+// sum of the scaled logits). Any s >= 1.
 extern "C" int kdt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                             int b, int s, int n_heads, long stride_b, long stride_s,
-                             float scale, void* stream) {
-  const cudaError_t attr = allow_smem(flash_fwd_kernel, FWD_SMEM);
-  const dim3 grid((s + BM - 1) / BM, n_heads, b);
-  flash_fwd_kernel<<<grid, THREADS, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), s, n_heads, Rows{stride_b, stride_s},
-      scale);
-  return launch_status(attr);
-}
-
-// K14: q, k, v as for K13; dout (b, s, heads, 64) bf16 contiguous; lse
-// from K13 and delta = rowsum(out * dout), both (b, heads, s) f32. Writes
-// dq, dk, dv (b, s, heads, 64) bf16, contiguous.
-extern "C" int kdt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                             int b, int s, int n_heads, long stride_b, long stride_s,
+                             int b, int s, int n_heads, int e, long stride_b, long stride_s,
                              float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Rows in{stride_b, stride_s};
-  const dim3 grid((s + BM - 1) / BM, n_heads, b);
-  cudaError_t attr = allow_smem(flash_dq_kernel, BWD_SMEM);
-  flash_dq_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), s, n_heads, in, scale);
-  const int status = launch_status(attr);
-  if (status != 0) return status;
-  attr = allow_smem(flash_dkv_kernel, BWD_SMEM);
-  flash_dkv_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s,
-      n_heads, in, scale);
-  return launch_status(attr);
+  switch (e) {
+    case 32: return launch_fwd<32>(q, k, v, out, lse, b, s, n_heads, in, scale, st);
+    case 64: return launch_fwd<64>(q, k, v, out, lse, b, s, n_heads, in, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K14: q, k, v as for K13; dout (b, s, heads, e) bf16 contiguous; lse
+// from K13 and delta = rowsum(out * dout), both (b, heads, s) f32. Writes
+// dq, dk, dv (b, s, heads, e) bf16, contiguous.
+extern "C" int kdt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                             int b, int s, int n_heads, int e, long stride_b, long stride_s,
+                             float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Rows in{stride_b, stride_s};
+  switch (e) {
+    case 32:
+      return launch_bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, b, s, n_heads, in, scale, st);
+    case 64:
+      return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, b, s, n_heads, in, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 KDT_DEFINE_ERROR_STRING

@@ -16,131 +16,25 @@
 // at level 1. So the floor is memory; in this design the softmax over each
 // query's masked logits on the CUDA cores is the likelier limit.
 //
-// Design: no halo gather and no mask tables. A block owns an 8 x 8 query
-// tile of one head of one image and loads the clamped union of its windows,
-// at most 14 x 14 keys, for k and v into shared memory (zeros outside the
-// map). A warp owns two query rows (16 queries); their windows lie within 8
-// consecutive halo rows, i.e. 112 consecutive halo keys, so the warp
-// computes the 16 x 112 logits with wmma bf16 fragments (f32 accumulate),
-// masks each query to its own window from the coordinates, takes the
-// softmax with the running max subtracted, and multiplies the bf16
-// probabilities by the same 112 values rows of v. Heads are a grid
-// dimension: no head-masked matmuls. In training it also writes each
-// query's logsumexp, max + log(sum), for the backward.
-#include "common.cuh"
+// Design (na2d.cuh): no halo gather and no mask tables. A block owns an
+// 8 x 8 query tile of one head of one image and loads the clamped union of
+// its windows, at most 14 x 14 keys, for k and v into shared memory (zeros
+// outside the map); a warp computes its 16 queries' logits over the 112 halo
+// keys their windows can reach with wmma, masks each query to its window,
+// takes the softmax with the running max subtracted and multiplies by v.
+// Heads are a grid dimension: no head-masked matmuls. In training it also
+// writes each query's logsumexp, max + log(sum), for the backward. K2 is
+// that forward at head dim 64 on channel-packed maps; K11 (na2d_heads.cu)
+// is the same forward at head dims 32, 64 and 128 on strided maps.
+#include "na2d.cuh"
 
 namespace kdt {
 namespace {
 
 constexpr int E = 64;
-constexpr int TQ = 8;                  // query tile edge
-constexpr int HALO = 14;               // halo edge: TQ + 7 - 1
-constexpr int NKEYS = HALO * HALO;     // halo keys
-constexpr int NKEYS_ALLOC = 208;       // rounded up to 16
-constexpr int WKEYS = 8 * HALO;        // keys a warp's 2 query rows can see
-constexpr int LDK = E + 8;
-constexpr int LDS = WKEYS + 4;
+constexpr int LDK = NaDims<E>::LDK;
+constexpr int LDS = NaDims<E>::LDS;
 constexpr int LDP = NKEYS_ALLOC + 8;   // bf16 stride of a full-halo row
-
-// Is halo key j (of the warp's 112) in the window of the warp's query m?
-struct WindowMask {
-  int qy0, qx0;  // the warp's first query
-  int ky0, kx0;  // map coordinates of the warp's first key
-  int h, w, ks, r;
-  __device__ bool operator()(int m, int j) const {
-    const int qy = qy0 + (m >> 3), qx = qx0 + (m & 7);
-    const int ky = ky0 + j / HALO, kx = kx0 + j % HALO;
-    const int wy = clampi(qy - r, 0, h - ks), wx = clampi(qx - r, 0, w - ks);
-    return static_cast<unsigned>(ky - wy) < static_cast<unsigned>(ks) &&
-           static_cast<unsigned>(kx - wx) < static_cast<unsigned>(ks);
-  }
-};
-
-__global__ void __launch_bounds__(THREADS)
-na2d_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            bf16* __restrict__ out, float* __restrict__ lse, int h, int w, int n_heads, int ks,
-            float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + TQ * TQ * LDK;
-  bf16* s_v = s_k + NKEYS_ALLOC * LDK;
-  float* s_s = reinterpret_cast<float*>(s_v + NKEYS_ALLOC * LDK);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int tiles_w = w / TQ;
-  const int y0 = (blockIdx.x / tiles_w) * TQ, x0 = (blockIdx.x % tiles_w) * TQ;
-  const int head = blockIdx.y;
-  const long c = static_cast<long>(n_heads) * E;
-  const long img = static_cast<long>(blockIdx.z) * h * w * c + head * E;
-  const int r = (ks - 1) / 2;
-  const int hr0 = clampi(y0 - r, 0, h - ks), hc0 = clampi(x0 - r, 0, w - ks);
-
-  for (int i = threadIdx.x; i < TQ * TQ * 8; i += blockDim.x) {
-    const int qi = i >> 3, cv = (i & 7) * 8;
-    const long src = img + ((y0 + qi / TQ) * static_cast<long>(w) + x0 + qi % TQ) * c + cv;
-    *reinterpret_cast<uint4*>(s_q + qi * LDK + cv) = *reinterpret_cast<const uint4*>(q + src);
-  }
-  for (int i = threadIdx.x; i < NKEYS * 8; i += blockDim.x) {
-    const int kj = i >> 3, cv = (i & 7) * 8;
-    const int y = hr0 + kj / HALO, xx = hc0 + kj % HALO;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (y < h && xx < w) {
-      const long src = img + (y * static_cast<long>(w) + xx) * c + cv;
-      kv = *reinterpret_cast<const uint4*>(k + src);
-      vv = *reinterpret_cast<const uint4*>(v + src);
-    }
-    *reinterpret_cast<uint4*>(s_k + kj * LDK + cv) = kv;
-    *reinterpret_cast<uint4*>(s_v + kj * LDK + cv) = vv;
-  }
-  __syncthreads();
-
-  // the warp's queries: rows qy0, qy0 + 1 of the tile, all 8 columns; their
-  // windows start at halo row kr or kr + 1 and span at most 8 rows
-  const int qy0 = y0 + 2 * warp;
-  const int kr = clampi(qy0 - r, 0, h - ks) - hr0;
-  const bf16* keys_k = s_k + kr * HALO * LDK;
-  const bf16* keys_v = s_v + kr * HALO * LDK;
-  const bf16* a = s_q + warp * STRIP * LDK;
-  float* strip = s_s + warp * STRIP * LDS;
-
-  FragC acc[WKEYS / 16];
-  zero(acc);
-  for (int k0 = 0; k0 < E; k0 += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + k0, LDK);
-#pragma unroll
-    for (int j = 0; j < WKEYS / 16; ++j) {
-      FragBt fb;
-      wmma::load_matrix_sync(fb, keys_k + 16 * j * LDK + k0, LDK);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < WKEYS / 16; ++j)
-    wmma::store_matrix_sync(strip + 16 * j, acc[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-
-  __shared__ float s_lse[WARPS * STRIP];
-  softmax_strip(strip, LDS, WKEYS, scale, WindowMask{qy0, x0, hr0 + kr, hc0, h, w, ks, r},
-                s_lse + warp * STRIP);
-  __syncwarp();
-  if (lse != nullptr && lane < STRIP)
-    lse[((static_cast<long>(blockIdx.z) * n_heads + head) * h + qy0 + lane / TQ) * w + x0 +
-        lane % TQ] = s_lse[warp * STRIP + lane];
-
-  FragC o[4];
-  zero(o);
-  mma_strip(reinterpret_cast<const bf16*>(strip), 2 * LDS, keys_v, LDK, WKEYS, o);
-  __syncwarp();  // every lane is done reading the probabilities
-  store_strip(strip, LDS, o);
-  for (int m = 0; m < STRIP; ++m) {
-    const long dst = img + ((qy0 + m / TQ) * static_cast<long>(w) + x0 + m % TQ) * c;
-    const int cc = 2 * lane;
-    *reinterpret_cast<__nv_bfloat162*>(out + dst + cc) =
-        __floats2bfloat162_rn(strip[m * LDS + cc], strip[m * LDS + cc + 1]);
-  }
-}
-
 
 // K7, the backward of a query tile. What bounds it on the H100, flagship
 // training shapes at batch 32 (k = 7): 8 products of 2 * 49 * 64 FLOP per
@@ -180,31 +74,17 @@ na2d_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int tiles_w = w / TQ;
-  const int y0 = (blockIdx.x / tiles_w) * TQ, x0 = (blockIdx.x % tiles_w) * TQ;
-  const int head = blockIdx.y;
+  const int head = blockIdx.y, img = blockIdx.z;
+  const TileGeometry t(blockIdx.x, h, w, ks);
   const long c = static_cast<long>(n_heads) * E;
-  const long img = static_cast<long>(blockIdx.z) * h * w * c + head * E;
-  const long lse0 = (static_cast<long>(blockIdx.z) * n_heads + head) * h * w;
-  const int r = (ks - 1) / 2;
-  const int hr0 = clampi(y0 - r, 0, h - ks), hc0 = clampi(x0 - r, 0, w - ks);
+  const MapStrides packed{static_cast<long>(h) * w * c, w * c, c};
+  const long lse0 = (static_cast<long>(img) * n_heads + head) * h * w;
 
+  load_tile_and_halo<E>(s_q, s_k, s_v, q, k, v, packed, packed, packed, img, head, t, h, w);
   for (int i = threadIdx.x; i < TQ * TQ * 8; i += blockDim.x) {
     const int qi = i >> 3, cv = (i & 7) * 8;
-    const long src = img + ((y0 + qi / TQ) * static_cast<long>(w) + x0 + qi % TQ) * c + cv;
-    *reinterpret_cast<uint4*>(s_q + qi * LDK + cv) = *reinterpret_cast<const uint4*>(q + src);
-    *reinterpret_cast<uint4*>(s_do + qi * LDK + cv) = *reinterpret_cast<const uint4*>(dout + src);
-  }
-  for (int i = threadIdx.x; i < NKEYS_ALLOC * 8; i += blockDim.x) {
-    const int kj = i >> 3, cv = (i & 7) * 8;
-    const int y = hr0 + kj / HALO, xx = hc0 + kj % HALO;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (kj < NKEYS && y < h && xx < w) {
-      const long src = img + (y * static_cast<long>(w) + xx) * c + cv;
-      kv = *reinterpret_cast<const uint4*>(k + src);
-      vv = *reinterpret_cast<const uint4*>(v + src);
-    }
-    *reinterpret_cast<uint4*>(s_k + kj * LDK + cv) = kv;
-    *reinterpret_cast<uint4*>(s_v + kj * LDK + cv) = vv;
+    *reinterpret_cast<uint4*>(s_do + qi * LDK + cv) = *reinterpret_cast<const uint4*>(
+        dout + packed.at(img, t.y0 + qi / TQ, t.x0 + qi % TQ, head, E) + cv);
   }
   for (int i = threadIdx.x; i < WARPS * STRIP * LDP / 4; i += blockDim.x) {
     reinterpret_cast<uint2*>(s_p)[i] = make_uint2(0u, 0u);
@@ -212,11 +92,11 @@ na2d_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   }
   if (threadIdx.x < TQ * TQ) {
     const int qi = threadIdx.x;
-    s_lse[qi] = lse[lse0 + (y0 + qi / TQ) * static_cast<long>(w) + x0 + qi % TQ];
+    s_lse[qi] = lse[lse0 + (t.y0 + qi / TQ) * static_cast<long>(w) + t.x0 + qi % TQ];
   }
   for (int m = 0; m < STRIP; ++m) {
     const int qi = warp * STRIP + m;
-    const long src = img + ((y0 + qi / TQ) * static_cast<long>(w) + x0 + qi % TQ) * c;
+    const long src = packed.at(img, t.y0 + qi / TQ, t.x0 + qi % TQ, head, E);
     const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + src + 2 * lane));
     const float2 dv = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(dout + src + 2 * lane));
@@ -225,37 +105,13 @@ na2d_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   }
   __syncthreads();
 
-  const int qy0 = y0 + 2 * warp;
-  const int kr = clampi(qy0 - r, 0, h - ks) - hr0;
-  const bf16* keys_k = s_k + kr * HALO * LDK;
-  const bf16* keys_v = s_v + kr * HALO * LDK;
+  const int qy0 = t.y0 + 2 * warp;
+  const int kr = clampi(qy0 - t.r, 0, h - ks) - t.hr0;
   float* strip = s_s + warp * STRIP * LDS;
   float* dp_strip = s_dp + warp * STRIP * LDS;
-  {
-    FragC acc_s[WKEYS / 16], acc_dp[WKEYS / 16];
-    zero(acc_s);
-    zero(acc_dp);
-    for (int k0 = 0; k0 < E; k0 += 16) {
-      FragA fq, fd;
-      wmma::load_matrix_sync(fq, s_q + warp * STRIP * LDK + k0, LDK);
-      wmma::load_matrix_sync(fd, s_do + warp * STRIP * LDK + k0, LDK);
-#pragma unroll
-      for (int j = 0; j < WKEYS / 16; ++j) {
-        FragBt fb;
-        wmma::load_matrix_sync(fb, keys_k + 16 * j * LDK + k0, LDK);
-        wmma::mma_sync(acc_s[j], fq, fb, acc_s[j]);
-        wmma::load_matrix_sync(fb, keys_v + 16 * j * LDK + k0, LDK);
-        wmma::mma_sync(acc_dp[j], fd, fb, acc_dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < WKEYS / 16; ++j) {
-      wmma::store_matrix_sync(strip + 16 * j, acc_s[j], LDS, wmma::mem_row_major);
-      wmma::store_matrix_sync(dp_strip + 16 * j, acc_dp[j], LDS, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-  const WindowMask mask{qy0, x0, hr0 + kr, hc0, h, w, ks, r};
+  window_products<E>(s_q + warp * STRIP * LDK, s_k + kr * HALO * LDK, strip);
+  window_products<E>(s_do + warp * STRIP * LDK, s_v + kr * HALO * LDK, dp_strip);
+  const WindowMask mask{qy0, t.x0, t.hr0 + kr, t.hc0, h, w, ks, t.r};
   for (int m = 0; m < STRIP; ++m) {
     const float lse_m = s_lse[warp * STRIP + m], delta_m = s_delta[warp * STRIP + m];
     bf16* p_row = s_p + (warp * STRIP + m) * LDP + kr * HALO;
@@ -273,7 +129,7 @@ na2d_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   mma_strip(s_ds + warp * STRIP * LDP, LDP, s_k, LDK, NKEYS_ALLOC, acc);
   store_strip(strip, LDS, acc);
   for (int m = 0; m < STRIP; ++m) {
-    const long dst = img + ((qy0 + m / TQ) * static_cast<long>(w) + x0 + m % TQ) * c;
+    const long dst = packed.at(img, qy0 + m / TQ, t.x0 + m % TQ, head, E);
     const int cc = 2 * lane;
     *reinterpret_cast<__nv_bfloat162*>(dq + dst + cc) = __floats2bfloat162_rn(
         strip[m * LDS + cc] * scale, strip[m * LDS + cc + 1] * scale);
@@ -349,13 +205,14 @@ using namespace kdt;
 extern "C" int kdt_na2d_packed(const void* q, const void* k, const void* v, void* out, void* lse,
                                int b, int h, int w, int n_heads, int ks, float scale,
                                void* stream) {
-  const size_t smem = (TQ * TQ + 2 * NKEYS_ALLOC) * LDK * sizeof(bf16) +
-                      WARPS * STRIP * LDS * sizeof(float);
-  const cudaError_t attr = allow_smem(na2d_kernel, smem);
+  const cudaError_t attr = allow_smem(na2d_fwd_kernel<E>, FWD_SMEM<E>);
   const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
-  na2d_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const long c = static_cast<long>(n_heads) * E;
+  const MapStrides packed{h * w * c, w * c, c};
+  na2d_fwd_kernel<E><<<grid, THREADS, FWD_SMEM<E>, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), h, w, n_heads, ks, scale);
+      packed, packed, packed, static_cast<bf16*>(out), static_cast<float*>(lse), h, w, n_heads,
+      ks, scale);
   return launch_status(attr);
 }
 

@@ -1,0 +1,468 @@
+// Per-head 2-D neighborhood attention on (b, h, w, heads, e) maps: the
+// forward with its logsumexp (K11), its backward (K12), and the packed
+// forward with the out-projection and residual epilogue (K15).
+//
+// Replaces: k_diffusion_tpu/ops/pallas/na2d.py:_na_fwd_kernel (the forward
+// of na2d), :_na_dq_kernel and :_na_dkv_kernel (its backward, _na_bwd), and
+// :_na_packed_proj_kernel (the forward of na2d_packed_proj).
+//
+// K11, na2d_fwd_kernel<E> of na2d.cuh: a block per (8 x 8 query tile, head,
+// image), the 14 x 14 key/value halo in shared memory, wmma logits over the
+// 112 keys a warp's queries can see, f32 softmax with the running max
+// subtracted (the Pallas body does not subtract it and leans on the
+// cosine-sim bound of the logits). q, k and v are read in place through
+// their strides: the JAX dispatcher moves heads in front for the TPU, the
+// port does not need to. Head dims 32, 64 and 128. What bounds it on the
+// H100, the flagship's unfused training forward at batch 32 (k = 7, e =
+// 64): 4 * 49 * 64 FLOP per query and head, 3.3 GFLOP at level 0 (3.3 us at
+// 989 TFLOP/s), against q, k, v, out and lse, 4 * 33.5 + 1 MB (40 us at
+// 3.35 TB/s): bound by memory.
+//
+// K12, two kernels launched together, no per-tile partials, no atomics (a
+// rerun gives bit-equal gradients): the other design to K7 + K8's halo
+// partials.
+// - na2d_dq_kernel<E>: a block per query tile, as the forward: recomputes
+//   the logits and dP = dout v^T over the warp's 112 halo keys, p = exp(s -
+//   lse) masked to each window, ds = p (dP - delta), dq = ds k.
+// - na2d_dkv_kernel<E>: a block per 8 x 8 KEY tile. The queries whose
+//   clamped windows can reach the tile form a slab of at most 14 x 14
+//   (TQ + ks - 1 rows and columns, fewer at the edges, where the clamped
+//   windows pile up), as _na_dkv_kernel gathers its row slab. q, dout, lse
+//   and delta of the slab go to shared memory; a warp owns 16 keys and
+//   streams the slab in chunks of 64 queries: p^T and ds^T for its keys,
+//   dv += p^T dout, dk += ds^T q, in registers.
+// delta = rowsum(out * dout) comes from the caller, as in the JAX package.
+// Bound: 8 products of 2 * 49 * e FLOP per query and head (13 GFLOP at the
+// flagship's level 0, batch 32, 13 us) against q, k, v, out, dout, lse
+// read and dq, dk, dv written (7 * 33.5 MB, 70 us): memory.
+//
+// K15, na2d_proj_kernel: out = NA(q, k, v) @ w_out + skip on channel-packed
+// (b, h, w, c) maps, head dim 64, c <= 512 and c % 128 == 0, as the JAX
+// dispatcher takes it. A block per (8 x 8 query tile, image) runs the
+// forward of each head in turn (na_tile_forward) and keeps the tile's
+// all-head attention output in shared memory in bf16 (the Pallas body's
+// rounding point), then multiplies it by w_out, which it streams through
+// shared memory in 64 x 64 tiles (at c = 512 w_out is 512 KB in bf16, more
+// than an SM holds), adds the residual in f32 and writes bf16 once. The
+// attention output never goes to device memory. Bound: memory, q, k, v,
+// skip and out (5 * 8.4 MB at the flagship's level 0, batch 8).
+#include "na2d.cuh"
+
+namespace kdt {
+namespace {
+
+// The query rows (or columns) [lo, hi] whose clamped windows reach keys
+// [k0, k0 + TQ) on an axis of n positions: an interval, since the window
+// start is monotone in the query, of at most TQ + ks - 1 positions.
+struct Reach {
+  int lo, hi;
+  __device__ Reach(int k0, int n, int ks) {
+    const int r = (ks - 1) / 2;
+    lo = max(0, k0 - (ks - 1));
+    hi = min(n - 1, k0 + TQ - 1 + ks - 1);
+    while (clampi(lo - r, 0, n - ks) + ks - 1 < k0) ++lo;
+    while (clampi(hi - r, 0, n - ks) > k0 + TQ - 1) --hi;
+  }
+};
+
+// Converts p (or ds) rows of a warp's float strip to bf16 in place after
+// computing them: row m's values for keys [0, n) at stride 2 lds in bf16.
+template <class F>
+__device__ __forceinline__ void strip_map_to_bf16(float* s, int lds, int n, const F& f) {
+  const int lane = threadIdx.x & 31;
+  for (int m = 0; m < STRIP; ++m) {
+    bf16* row = reinterpret_cast<bf16*>(s) + 2 * m * lds;
+    for (int j0 = 0; j0 < n; j0 += 64) {
+      const int j1 = j0 + lane, j2 = j0 + lane + 32;
+      const float p1 = j1 < n ? f(m, j1) : 0.f, p2 = j2 < n ? f(m, j2) : 0.f;
+      __syncwarp();
+      if (j1 < n) row[j1] = to_bf(p1);
+      if (j2 < n) row[j2] = to_bf(p2);
+      __syncwarp();
+    }
+  }
+}
+
+template <int E>
+__global__ void __launch_bounds__(THREADS)
+na2d_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, MapStrides sq, MapStrides sk, MapStrides sv,
+               const bf16* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dq, int h, int w,
+               int n_heads, int ks, float scale) {
+  constexpr int LDK = NaDims<E>::LDK, LDS = NaDims<E>::LDS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem);
+  bf16* s_do = s_q + TQ * TQ * LDK;
+  bf16* s_k = s_do + TQ * TQ * LDK;
+  bf16* s_v = s_k + NKEYS_ALLOC * LDK;
+  float* s_s = reinterpret_cast<float*>(s_v + NKEYS_ALLOC * LDK);
+  float* s_dp = s_s + WARPS * STRIP * LDS;
+  __shared__ float s_lse[TQ * TQ], s_delta[TQ * TQ];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int head = blockIdx.y, img = blockIdx.z;
+  const TileGeometry t(blockIdx.x, h, w, ks);
+  const long c = static_cast<long>(n_heads) * E;
+  const MapStrides packed{static_cast<long>(h) * w * c, w * c, c};
+  const long stat0 = (static_cast<long>(img) * n_heads + head) * h * w;
+
+  load_tile_and_halo<E>(s_q, s_k, s_v, q, k, v, sq, sk, sv, img, head, t, h, w);
+  constexpr int V = E / 8;
+  for (int i = threadIdx.x; i < TQ * TQ * V; i += blockDim.x) {
+    const int qi = i / V, cv = (i % V) * 8;
+    *reinterpret_cast<uint4*>(s_do + qi * LDK + cv) = *reinterpret_cast<const uint4*>(
+        dout + packed.at(img, t.y0 + qi / TQ, t.x0 + qi % TQ, head, E) + cv);
+  }
+  if (threadIdx.x < TQ * TQ) {
+    const int qi = threadIdx.x;
+    const long at = stat0 + (t.y0 + qi / TQ) * static_cast<long>(w) + t.x0 + qi % TQ;
+    s_lse[qi] = lse[at];
+    s_delta[qi] = delta[at];
+  }
+  __syncthreads();
+
+  const int qy0 = t.y0 + 2 * warp;
+  const int kr = clampi(qy0 - t.r, 0, h - ks) - t.hr0;
+  const bf16* keys_k = s_k + kr * HALO * LDK;
+  float* strip = s_s + warp * STRIP * LDS;
+  float* dp_strip = s_dp + warp * STRIP * LDS;
+  window_products<E>(s_q + warp * STRIP * LDK, keys_k, strip);
+  window_products<E>(s_do + warp * STRIP * LDK, s_v + kr * HALO * LDK, dp_strip);
+  const WindowMask mask{qy0, t.x0, t.hr0 + kr, t.hc0, h, w, ks, t.r};
+  const float* lse_w = s_lse + warp * STRIP;
+  const float* delta_w = s_delta + warp * STRIP;
+  // ds = p (dP - delta), p = exp(s - lse) inside the window, in bf16 in place
+  strip_map_to_bf16(strip, LDS, WKEYS, [&](int m, int j) {
+    if (!mask(m, j)) return 0.f;
+    const float p = __expf(strip[m * LDS + j] * scale - lse_w[m]);
+    return p * (dp_strip[m * LDS + j] - delta_w[m]);
+  });
+
+  FragC acc[E / 16];
+  zero(acc);
+  mma_strip(reinterpret_cast<const bf16*>(strip), 2 * LDS, keys_k, LDK, WKEYS, acc);
+#pragma unroll
+  for (int j = 0; j < E / 16; ++j)
+    for (int i = 0; i < acc[j].num_elements; ++i) acc[j].x[i] *= scale;
+  store_strip(dp_strip, LDS, acc);
+  for (int m = 0; m < STRIP; ++m) {
+    const long dst = packed.at(img, qy0 + m / TQ, t.x0 + m % TQ, head, E);
+    for (int cc = 2 * lane; cc < E; cc += 64)
+      *reinterpret_cast<__nv_bfloat162*>(dq + dst + cc) =
+          __floats2bfloat162_rn(dp_strip[m * LDS + cc], dp_strip[m * LDS + cc + 1]);
+  }
+}
+
+constexpr int CHUNK = 64;  // queries of the slab a warp takes at a time
+
+template <int E>
+struct DkvDims {
+  static constexpr int LDK = NaDims<E>::LDK;
+  static constexpr int LDC = (E > CHUNK ? E : CHUNK) + 4;  // float strip stride
+};
+
+template <int E>
+__global__ void __launch_bounds__(THREADS)
+na2d_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, MapStrides sq, MapStrides sk, MapStrides sv,
+                const bf16* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                int h, int w, int n_heads, int ks, float scale) {
+  constexpr int LDK = DkvDims<E>::LDK, LDC = DkvDims<E>::LDC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_k = reinterpret_cast<bf16*>(smem);
+  bf16* s_v = s_k + TQ * TQ * LDK;
+  bf16* s_q = s_v + TQ * TQ * LDK;        // the query slab, row-major
+  bf16* s_do = s_q + NKEYS_ALLOC * LDK;
+  float* s_s = reinterpret_cast<float*>(s_do + NKEYS_ALLOC * LDK);
+  float* s_dp = s_s + WARPS * STRIP * LDC;
+  __shared__ float s_lse[NKEYS_ALLOC], s_delta[NKEYS_ALLOC];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int head = blockIdx.y, img = blockIdx.z;
+  const int tiles_w = w / TQ;
+  const int ky0 = (blockIdx.x / tiles_w) * TQ, kx0 = (blockIdx.x % tiles_w) * TQ;
+  const Reach rows(ky0, h, ks), cols(kx0, w, ks);
+  const int ncols = cols.hi - cols.lo + 1;
+  const int nq = (rows.hi - rows.lo + 1) * ncols;  // <= NKEYS
+  const int r = (ks - 1) / 2;
+  const long c = static_cast<long>(n_heads) * E;
+  const MapStrides packed{static_cast<long>(h) * w * c, w * c, c};
+  const long stat0 = (static_cast<long>(img) * n_heads + head) * h * w;
+
+  constexpr int V = E / 8;
+  for (int i = threadIdx.x; i < TQ * TQ * V; i += blockDim.x) {
+    const int kj = i / V, cv = (i % V) * 8;
+    const int y = ky0 + kj / TQ, xx = kx0 + kj % TQ;
+    *reinterpret_cast<uint4*>(s_k + kj * LDK + cv) =
+        *reinterpret_cast<const uint4*>(k + sk.at(img, y, xx, head, E) + cv);
+    *reinterpret_cast<uint4*>(s_v + kj * LDK + cv) =
+        *reinterpret_cast<const uint4*>(v + sv.at(img, y, xx, head, E) + cv);
+  }
+  for (int i = threadIdx.x; i < NKEYS_ALLOC * V; i += blockDim.x) {
+    const int qi = i / V, cv = (i % V) * 8;
+    uint4 qv = make_uint4(0u, 0u, 0u, 0u), dv4 = qv;
+    if (qi < nq) {
+      const int y = rows.lo + qi / ncols, xx = cols.lo + qi % ncols;
+      qv = *reinterpret_cast<const uint4*>(q + sq.at(img, y, xx, head, E) + cv);
+      dv4 = *reinterpret_cast<const uint4*>(dout + packed.at(img, y, xx, head, E) + cv);
+    }
+    *reinterpret_cast<uint4*>(s_q + qi * LDK + cv) = qv;
+    *reinterpret_cast<uint4*>(s_do + qi * LDK + cv) = dv4;
+  }
+  for (int qi = threadIdx.x; qi < NKEYS_ALLOC; qi += blockDim.x) {
+    float l = 0.f, d = 0.f;
+    if (qi < nq) {
+      const long at = stat0 + (rows.lo + qi / ncols) * static_cast<long>(w) + cols.lo +
+                      qi % ncols;
+      l = lse[at];
+      d = delta[at];
+    }
+    s_lse[qi] = l;
+    s_delta[qi] = d;
+  }
+  __syncthreads();
+
+  // the warp's 16 keys: tile rows 2 warp and 2 warp + 1
+  const bf16* ka = s_k + warp * STRIP * LDK;
+  const bf16* va = s_v + warp * STRIP * LDK;
+  float* pt = s_s + warp * STRIP * LDC;
+  float* dst = s_dp + warp * STRIP * LDC;
+  FragC acc_dk[E / 16], acc_dv[E / 16];
+  zero(acc_dk);
+  zero(acc_dv);
+  for (int q0 = 0; q0 < nq; q0 += CHUNK) {
+    // the chunk's queries, a multiple of 16 that stays inside the slab's
+    // NKEYS_ALLOC rows (the rows past nq are zeros)
+    const int cw = min(CHUNK, (nq - q0 + 15) / 16 * 16);
+    {
+      FragC acc_s[CHUNK / 16], acc_dp[CHUNK / 16];
+      zero(acc_s);
+      zero(acc_dp);
+      for (int k0 = 0; k0 < E; k0 += 16) {
+        FragA fk, fv;
+        wmma::load_matrix_sync(fk, ka + k0, LDK);
+        wmma::load_matrix_sync(fv, va + k0, LDK);
+#pragma unroll
+        for (int j = 0; j < CHUNK / 16; ++j) {
+          if (16 * j >= cw) break;
+          FragBt fb;
+          wmma::load_matrix_sync(fb, s_q + (q0 + 16 * j) * LDK + k0, LDK);
+          wmma::mma_sync(acc_s[j], fk, fb, acc_s[j]);
+          wmma::load_matrix_sync(fb, s_do + (q0 + 16 * j) * LDK + k0, LDK);
+          wmma::mma_sync(acc_dp[j], fv, fb, acc_dp[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CHUNK / 16; ++j) {
+        if (16 * j >= cw) break;
+        wmma::store_matrix_sync(pt + 16 * j, acc_s[j], LDC, wmma::mem_row_major);
+        wmma::store_matrix_sync(dst + 16 * j, acc_dp[j], LDC, wmma::mem_row_major);
+      }
+      __syncwarp();
+    }
+    // rows: the warp's keys; columns: the chunk's queries
+    for (int i = lane; i < STRIP * cw; i += 32) {
+      const int m = i / cw, j = i % cw, qi = q0 + j;
+      const int ky = ky0 + 2 * warp + m / TQ, kx = kx0 + m % TQ;
+      const int qy = rows.lo + qi / ncols, qx = cols.lo + qi % ncols;
+      const int wy = clampi(qy - r, 0, h - ks), wx = clampi(qx - r, 0, w - ks);
+      const bool in = qi < nq && static_cast<unsigned>(ky - wy) < static_cast<unsigned>(ks) &&
+                      static_cast<unsigned>(kx - wx) < static_cast<unsigned>(ks);
+      const float p = in ? __expf(pt[m * LDC + j] * scale - s_lse[qi]) : 0.f;
+      pt[m * LDC + j] = p;
+      dst[m * LDC + j] = p * (dst[m * LDC + j] - s_delta[qi]);
+    }
+    __syncwarp();
+    strip_to_bf16(pt, LDC, cw);
+    strip_to_bf16(dst, LDC, cw);
+    mma_strip(reinterpret_cast<const bf16*>(pt), 2 * LDC, s_do + q0 * LDK, LDK, cw, acc_dv);
+    mma_strip(reinterpret_cast<const bf16*>(dst), 2 * LDC, s_q + q0 * LDK, LDK, cw, acc_dk);
+    __syncwarp();  // every lane is done reading p and ds before the next chunk
+  }
+#pragma unroll
+  for (int j = 0; j < E / 16; ++j)
+    for (int i = 0; i < acc_dk[j].num_elements; ++i) acc_dk[j].x[i] *= scale;
+  store_strip(pt, LDC, acc_dk);
+  store_strip(dst, LDC, acc_dv);
+  for (int m = 0; m < STRIP; ++m) {
+    const long at = packed.at(img, ky0 + 2 * warp + m / TQ, kx0 + m % TQ, head, E);
+    for (int cc = 2 * lane; cc < E; cc += 64) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + cc) =
+          __floats2bfloat162_rn(pt[m * LDC + cc], pt[m * LDC + cc + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + cc) =
+          __floats2bfloat162_rn(dst[m * LDC + cc], dst[m * LDC + cc + 1]);
+    }
+  }
+}
+
+// K15 at head dim 64.
+constexpr int PE = 64;
+constexpr int PLDK = NaDims<PE>::LDK, PLDS = NaDims<PE>::LDS;
+
+__global__ void __launch_bounds__(THREADS)
+na2d_proj_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ skip,
+                 const bf16* __restrict__ w_out, bf16* __restrict__ out, int h, int w,
+                 int n_heads, int ks, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int c = n_heads * PE, lda = c + 8;
+  bf16* s_q = reinterpret_cast<bf16*>(smem);
+  bf16* s_k = s_q + TQ * TQ * PLDK;
+  bf16* s_v = s_k + NKEYS_ALLOC * PLDK;
+  bf16* s_att = s_v + NKEYS_ALLOC * PLDK;  // (64, c) attention output
+  bf16* s_w = s_att + TQ * TQ * lda;       // a 64 x 64 tile of w_out
+  float* s_s = reinterpret_cast<float*>(s_w + PANEL * LDT);
+  __shared__ float s_lse[WARPS * STRIP];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int img = blockIdx.y;
+  const TileGeometry t(blockIdx.x, h, w, ks);
+  const MapStrides packed{static_cast<long>(h) * w * c, static_cast<long>(w) * c, c};
+  float* strip = s_s + warp * STRIP * PLDS;
+
+  for (int head = 0; head < n_heads; ++head) {
+    load_tile_and_halo<PE>(s_q, s_k, s_v, q, k, v, packed, packed, packed, img, head, t, h, w);
+    __syncthreads();
+    na_tile_forward<PE>(s_q, s_k, s_v, s_s, s_lse, t, h, w, ks, scale);
+    write_strip(strip, PLDS, s_att + warp * STRIP * lda + head * PE, lda, nullptr, STRIP);
+    __syncthreads();  // before the next head overwrites q, k, v
+  }
+
+  // out = att @ w_out + skip, one 64-column panel at a time
+  const int qy0 = t.y0 + 2 * warp;
+  const bf16* a = s_att + warp * STRIP * lda;
+  for (int n0 = 0; n0 < c; n0 += PANEL) {
+    FragC acc[4];
+    zero(acc);
+    for (int k0 = 0; k0 < c; k0 += PANEL) {
+      load_tile(s_w, w_out + static_cast<long>(k0) * c + n0, c, PANEL, PANEL);
+      __syncthreads();
+      mma_strip(a + k0, lda, s_w, LDT, PANEL, acc);
+      __syncthreads();  // before the next tile of w_out
+    }
+    store_strip(strip, PLDS, acc);
+    for (int m = 0; m < STRIP; ++m) {
+      const long at = packed.at(img, qy0 + m / TQ, t.x0 + m % TQ, 0, PE) + n0 + 2 * lane;
+      const float2 res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(skip + at));
+      *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(
+          strip[m * PLDS + 2 * lane] + res.x, strip[m * PLDS + 2 * lane + 1] + res.y);
+    }
+    __syncwarp();  // every lane is done reading the strip
+  }
+}
+
+}  // namespace
+}  // namespace kdt
+
+using namespace kdt;
+
+namespace {
+
+MapStrides strides(const long* s) { return MapStrides{s[0], s[1], s[2]}; }
+
+template <int E>
+constexpr size_t DQ_SMEM = (2 * TQ * TQ + 2 * NKEYS_ALLOC) * NaDims<E>::LDK * sizeof(bf16) +
+                           2 * WARPS * STRIP * NaDims<E>::LDS * sizeof(float);
+template <int E>
+constexpr size_t DKV_SMEM = (2 * TQ * TQ + 2 * NKEYS_ALLOC) * DkvDims<E>::LDK * sizeof(bf16) +
+                            2 * WARPS * STRIP * DkvDims<E>::LDC * sizeof(float);
+
+template <int E>
+int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b, int h,
+               int w, int n_heads, int ks, float scale, const long* st, cudaStream_t stream) {
+  const cudaError_t attr = allow_smem(na2d_fwd_kernel<E>, FWD_SMEM<E>);
+  const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
+  na2d_fwd_kernel<E><<<grid, THREADS, FWD_SMEM<E>, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      strides(st), strides(st + 3), strides(st + 6), static_cast<bf16*>(out),
+      static_cast<float*>(lse), h, w, n_heads, ks, scale);
+  return launch_status(attr);
+}
+
+template <int E>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dq, void* dk, void* dv, int b, int h, int w,
+               int n_heads, int ks, float scale, const long* st, cudaStream_t stream) {
+  const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
+  cudaError_t attr = allow_smem(na2d_dq_kernel<E>, DQ_SMEM<E>);
+  na2d_dq_kernel<E><<<grid, THREADS, DQ_SMEM<E>, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      strides(st), strides(st + 3), strides(st + 6), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
+      h, w, n_heads, ks, scale);
+  const int status = launch_status(attr);
+  if (status != 0) return status;
+  attr = allow_smem(na2d_dkv_kernel<E>, DKV_SMEM<E>);
+  na2d_dkv_kernel<E><<<grid, THREADS, DKV_SMEM<E>, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      strides(st), strides(st + 3), strides(st + 6), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), h, w, n_heads, ks, scale);
+  return launch_status(attr);
+}
+
+}  // namespace
+
+// K11: q, k, v (b, h, w, heads, e) bf16, e 32, 64 or 128, with element
+// strides st[0..2] (q's batch, row, column), st[3..5] (k's), st[6..8]
+// (v's); the head axis packed at e and the head dim contiguous. Writes out
+// (b, h, w, heads, e) bf16 contiguous and, when lse is not null, lse (b,
+// heads, h, w) f32. Needs h % 8 == w % 8 == 0 and 1 <= ks <= min(7, h, w).
+extern "C" int kdt_na2d_heads(const void* q, const void* k, const void* v, void* out, void* lse,
+                              int b, int h, int w, int n_heads, int e, int ks, float scale,
+                              const long* st, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (e) {
+    case 32: return launch_fwd<32>(q, k, v, out, lse, b, h, w, n_heads, ks, scale, st, s);
+    case 64: return launch_fwd<64>(q, k, v, out, lse, b, h, w, n_heads, ks, scale, st, s);
+    case 128: return launch_fwd<128>(q, k, v, out, lse, b, h, w, n_heads, ks, scale, st, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K12: q, k, v and their strides as for K11; dout (b, h, w, heads, e) bf16
+// contiguous; lse from K11 and delta = rowsum(out * dout), both (b, heads,
+// h, w) f32. Writes dq, dk, dv (b, h, w, heads, e) bf16 contiguous.
+extern "C" int kdt_na2d_heads_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* delta, void* dq, void* dk,
+                                  void* dv, int b, int h, int w, int n_heads, int e, int ks,
+                                  float scale, const long* st, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (e) {
+    case 32:
+      return launch_bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks, scale,
+                            st, s);
+    case 64:
+      return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks, scale,
+                            st, s);
+    case 128:
+      return launch_bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks, scale,
+                             st, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K15: q, k, v, skip (b, h, w, c) bf16 contiguous with c = 64 * heads,
+// c <= 512 and c % 128 == 0; w_out (c, c) bf16. Writes out = NA(q, k, v) @
+// w_out + skip, (b, h, w, c) bf16. h, w and ks as for K11.
+extern "C" int kdt_na2d_proj(const void* q, const void* k, const void* v, const void* skip,
+                             const void* w_out, void* out, int b, int h, int w, int n_heads,
+                             int ks, float scale, void* stream) {
+  const int c = n_heads * PE;
+  if (c > 512 || c % 128) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (TQ * TQ + 2 * NKEYS_ALLOC) * PLDK * sizeof(bf16) +
+                      TQ * TQ * (c + 8) * sizeof(bf16) + PANEL * LDT * sizeof(bf16) +
+                      WARPS * STRIP * PLDS * sizeof(float);
+  const cudaError_t attr = allow_smem(na2d_proj_kernel, smem);
+  const dim3 grid((h / TQ) * (w / TQ), b);
+  na2d_proj_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(skip), static_cast<const bf16*>(w_out), static_cast<bf16*>(out),
+      h, w, n_heads, ks, scale);
+  return launch_status(attr);
+}
+
+KDT_DEFINE_ERROR_STRING

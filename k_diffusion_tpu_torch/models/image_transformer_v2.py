@@ -17,9 +17,11 @@ Under ``model.train()`` each level's dropout applies where the JAX model
 applies it: to the attention output before ``out_proj``, and to the GEGLU
 hidden activation of the feed-forward blocks and the mapping network. A
 block whose dropout is active runs the unfused plain chain (the fused
-kernels contain no dropout), exactly as the JAX model routes: the
-prologue always runs fused. Dropout masks are drawn from the
-``torch.Generator`` passed to ``forward``.
+kernels contain no dropout), exactly as the JAX model routes. With
+``KDT_TRAIN_FUSION=0`` (``ops.kernels.train_fusion_enabled``) training also
+runs the attention prologue unfused, written out here, and every
+feed-forward block unfused, as the JAX model does. Dropout masks are drawn
+from the ``torch.Generator`` passed to ``forward``.
 """
 
 from dataclasses import dataclass
@@ -30,12 +32,13 @@ from torch import nn
 from ..layers import FourierFeatures, dropout, init_tensor
 from ..ops import norms, rope
 from ..ops.geglu import linear_geglu
+from ..ops.kernels import global_packed, train_fusion_enabled
+from ..ops.kernels.flash import flash_attention
 from ..ops.kernels.fused_ffn import fused_geglu_ffn
 from ..ops.kernels.fused_mapping import fused_mapping
-from ..ops.kernels import global_packed
-from ..ops.kernels.flash import flash_attention
 from ..ops.kernels.fused_qkv import fused_qkv_prologue
-from ..ops.kernels.na2d import na2d_packed
+from ..ops.kernels.na2d import na2d, na2d_packed, packed_takes
+from ..utils import default_device
 
 
 @dataclass(frozen=True)
@@ -118,7 +121,13 @@ class RMSNorm(_Scale):
 
 class SelfAttentionBlock(nn.Module):
     """AdaRMSNorm -> qkv -> cosine-sim + RoPE (kernel K1) -> neighborhood
-    (K2) or global attention -> dropout -> out projection -> residual. A
+    or global attention -> dropout -> out projection -> residual.
+
+    In training with ``KDT_TRAIN_FUSION=0`` the prologue runs unfused, as
+    the JAX model's does. A neighborhood level goes to the channel-packed K2
+    where ``na2d.packed_takes`` its width and head dim and the prologue ran
+    fused, and to the per-head K11 otherwise (the unfused prologue, a level
+    wider than 512 or not a multiple of 128, a head dim other than 64). A
     global level goes to K3 where ``global_packed.takes`` it (head dim 64,
     s a multiple of 16 up to 512) and to the flash kernel K13 otherwise."""
 
@@ -135,33 +144,61 @@ class SelfAttentionBlock(nn.Module):
                                              device=device))
         self.norm = _AdaNorm(cond_features, d_model, device)
 
+    def _unfused_prologue(self, x, pos, norm_scale):
+        """The JAX model's unfused chain: AdaRMSNorm -> qkv -> cosine-sim ->
+        RoPE, returning (b, h, w, heads, e) q and k and v, a strided view of
+        the projection."""
+        b, h, w, _ = x.shape
+        e = self.attn_spec.d_head
+        xn = norms.rms_norm(x, norm_scale[:, None, None, :])
+        qkv = (xn @ self.qkv_proj.kernel.to(xn.dtype)).reshape(
+            b, h, w, 3, self.n_heads, e)
+        q, k, v = qkv.unbind(3)
+        q, k = norms.scale_for_cosine_sim(q, k, self.scale[:, None], 1e-6)
+        theta = rope.axial_rope_theta(pos, rope.axial_rope_freqs(
+            e // 2, self.n_heads, device=x.device))
+        return rope.apply_rotary_emb(q, theta), rope.apply_rotary_emb(k, theta), v
+
     def forward(self, x, pos, cond, generator=None):
         b, h, w, c = x.shape
+        e = self.attn_spec.d_head
         norm_scale = self.norm(cond, self.dtype)
-        q, k, v = fused_qkv_prologue(x, pos, norm_scale, self.qkv_proj.kernel,
-                                     self.scale, self.n_heads)
+        fused = not self.training or train_fusion_enabled()
+        if fused:
+            q, k, v = (t.reshape(b, h, w, self.n_heads, e)
+                       for t in fused_qkv_prologue(
+                           x, pos, norm_scale, self.qkv_proj.kernel,
+                           self.scale, self.n_heads))
+        else:
+            q, k, v = self._unfused_prologue(x, pos, norm_scale)
         if isinstance(self.attn_spec, GlobalAttentionSpec):
+            # the kernels read q, k, v of one layout: the unfused v is a
+            # strided view of the projection
+            q, k, v = (t.contiguous() for t in (q, k, v))
             if global_packed.takes(h * w, c, self.n_heads):
                 out = global_packed.packed_global_attention(
                     q.reshape(b, h * w, c), k.reshape(b, h * w, c),
                     v.reshape(b, h * w, c), self.n_heads, scale=1.0)
             else:
-                split = (b, h * w, self.n_heads, c // self.n_heads)
+                split = (b, h * w, self.n_heads, e)
                 out = flash_attention(q.reshape(split), k.reshape(split),
                                       v.reshape(split), scale=1.0)
-            out = out.reshape(b, h, w, c)
+        elif fused and packed_takes(c, e):
+            out = na2d_packed(*(t.reshape(b, h, w, c) for t in (q, k, v)),
+                              self.n_heads, self.attn_spec.kernel_size,
+                              scale=1.0)
         else:
-            out = na2d_packed(q, k, v, self.n_heads,
-                              self.attn_spec.kernel_size, scale=1.0)
+            out = na2d(q, k, v, self.attn_spec.kernel_size, scale=1.0)
+        out = out.reshape(b, h, w, c)
         if self.training and self.dropout:
             out = dropout(out, self.dropout, generator)
         return out.to(self.dtype) @ self.out_proj.kernel.to(self.dtype) + x
 
 
 class FeedForwardBlock(nn.Module):
-    """x + down(GEGLU(up(AdaRMSNorm(x, cond)))) as kernel K4; with dropout
-    active, the unfused chain norm -> GEGLU up -> dropout -> down ->
-    residual."""
+    """x + down(GEGLU(up(AdaRMSNorm(x, cond)))) as kernel K4; in training
+    with dropout active or ``KDT_TRAIN_FUSION=0``, the unfused chain norm ->
+    GEGLU up -> dropout -> down -> residual, as the JAX model routes."""
 
     def __init__(self, d_model, d_ff, cond_features, generator, device,
                  dropout=0.0):
@@ -174,7 +211,8 @@ class FeedForwardBlock(nn.Module):
     def forward(self, x, cond, generator=None):
         b, h, w, d = x.shape
         scale = self.norm(cond, cond.dtype)
-        if not (self.training and self.dropout):
+        if not (self.training
+                and (self.dropout or not train_fusion_enabled())):
             out = fused_geglu_ffn(x.reshape(b, h * w, d), scale,
                                   self.up_proj.kernel, self.down_proj.kernel)
             return out.reshape(b, h, w, d)
@@ -309,12 +347,14 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     dropout masks under ``model.train()``. Parameters are drawn from the
     constructor's ``generator``; the FourierFeatures bases too (the JAX
     package draws them from a fixed threefry key, which ``convert.py``
-    carries across)."""
+    carries across). Parameters go to ``device``, by default the card
+    (``utils.default_device``)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
                  num_classes=0, dtype=torch.float32, device=None,
                  generator=None):
         super().__init__()
+        device = default_device(device)
         self.levels, self.dtype = levels, dtype
         self.num_classes = num_classes
         mw = mapping.width

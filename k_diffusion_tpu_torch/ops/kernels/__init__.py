@@ -10,12 +10,25 @@ raises. The CUDA sources are in
 importing this package compiles nothing.
 """
 
+import os
+
 from . import flash, fused_ffn, fused_mapping, fused_qkv, global_packed, na2d
 from ._build import build
 
+
+def train_fusion_enabled():
+    """Whether training runs the fused attention prologue (K1) and the fused
+    feed-forward block (K4), read at each call from ``KDT_TRAIN_FUSION``
+    (default "1"), as the JAX package reads it: "0" runs the unfused
+    prologue written out in the model and the unfused feed-forward chain in
+    training, so that the neighborhood levels go to the per-head kernels
+    K11/K12. Sampling always runs fused."""
+    return os.environ.get("KDT_TRAIN_FUSION", "1") == "1"
+
+
 # kernel name -> (module, name of its launch counter): forward kernels
-# K1-K5, the backward kernels K6-K10, then flash attention K13 and its
-# backward K14
+# K1-K5, the backward kernels K6-K10, flash attention K13 and its backward
+# K14, the per-head NA kernels K11 and K12, the fused-epilogue NA K15
 COUNTERS = {
     "fused_qkv": (fused_qkv, "launches"),
     "na2d": (na2d, "launches"),
@@ -29,6 +42,9 @@ COUNTERS = {
     "fused_ffn_bwd": (fused_ffn, "bwd_launches"),
     "flash": (flash, "launches"),
     "flash_bwd": (flash, "bwd_launches"),
+    "na2d_heads": (na2d, "heads_launches"),
+    "na2d_heads_bwd": (na2d, "heads_bwd_launches"),
+    "na2d_proj": (na2d, "proj_launches"),
 }
 
 
@@ -42,4 +58,5 @@ def reset_launch_counts():
         setattr(mod, attr, 0)
 
 
-__all__ = ["COUNTERS", "build", "launch_counts", "reset_launch_counts"]
+__all__ = ["COUNTERS", "build", "launch_counts", "reset_launch_counts",
+           "train_fusion_enabled"]

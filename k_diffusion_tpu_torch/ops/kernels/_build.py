@@ -19,7 +19,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fused_qkv", "na2d", "global_packed", "geglu", "flash")
+SOURCES = ("fused_qkv", "na2d", "na2d_heads", "global_packed", "geglu",
+           "flash")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,15 +23,16 @@ from . import _build
 launches = 0      # K13 launches since the last reset
 bwd_launches = 0  # K14 launches (its two kernels count as one)
 
-HEAD_DIM = 64
+HEAD_DIMS = (32, 64)  # head dims the kernels take
 
 _P = ctypes.c_void_p
 _L = ctypes.c_long
-# q, k, v, out, lse, batch, seq, heads, stride_b, stride_s, scale, stream
-_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 3 + [_L] * 2 + [ctypes.c_float, _P]
-# q, k, v, dout, lse, delta, dq, dk, dv, batch, seq, heads, stride_b,
-# stride_s, scale, stream
-_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 3 + [_L] * 2 + [ctypes.c_float,
+# q, k, v, out, lse, batch, seq, heads, head dim, stride_b, stride_s,
+# scale, stream
+_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 4 + [_L] * 2 + [ctypes.c_float, _P]
+# q, k, v, dout, lse, delta, dq, dk, dv, batch, seq, heads, head dim,
+# stride_b, stride_s, scale, stream
+_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 4 + [_L] * 2 + [ctypes.c_float,
                                                                 _P]
 
 
@@ -51,12 +52,13 @@ def reference_backward(q, k, v, dout, scale=1.0):
 
 def _check(q, k, v, what):
     """Raises unless q, k, v are as the kernels take them: bf16 CUDA tensors
-    of one shape (b, s, heads, 64) with the same strides, the head axis
-    packed and the head dim contiguous, 16-byte aligned rows."""
+    of one shape (b, s, heads, e), e in HEAD_DIMS, with the same strides,
+    the head axis packed and the head dim contiguous, 16-byte aligned
+    rows."""
     _build.require_cuda(q, what)
     b, s, heads, e = q.shape
-    if e != HEAD_DIM or s < 1:
-        raise ValueError(f"flash kernel takes head dim {HEAD_DIM} and s >= 1; "
+    if e not in HEAD_DIMS or s < 1:
+        raise ValueError(f"flash kernel takes head dim 32 or 64 and s >= 1; "
                          f"got q of shape {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 or \
@@ -76,7 +78,7 @@ def _check(q, k, v, what):
 
 def flash_forward(q, k, v, scale=1.0, save_lse=False):
     """Launches K13 on CUDA tensors. Returns (out, lse): out (b, s, heads,
-    64) bf16 contiguous, lse (b, heads, s) float32, or None unless
+    e) bf16 contiguous, lse (b, heads, s) float32, or None unless
     ``save_lse``."""
     _check(q, k, v, "flash_attention")
     b, s, heads, e = q.shape
@@ -86,8 +88,8 @@ def flash_forward(q, k, v, scale=1.0, save_lse=False):
     lib = _build.load("flash", kdt_flash_fwd=_SIGNATURE)
     status = lib.kdt_flash_fwd(
         *map(_build.ptr, (q, k, v, out)),
-        None if lse is None else _build.ptr(lse), b, s, heads, q.stride(0),
-        q.stride(1), scale, _build.stream_ptr(q.device))
+        None if lse is None else _build.ptr(lse), b, s, heads, e,
+        q.stride(0), q.stride(1), scale, _build.stream_ptr(q.device))
     _build.check_launch(lib, status, "flash")
     global launches
     launches += 1
@@ -96,7 +98,7 @@ def flash_forward(q, k, v, scale=1.0, save_lse=False):
 
 def flash_backward(q, k, v, out, lse, dout, scale=1.0):
     """Launches K14 on CUDA tensors: returns (dq, dk, dv) bf16, each (b, s,
-    heads, 64) contiguous. delta = rowsum(out * dout) is a plain float32
+    heads, e) contiguous. delta = rowsum(out * dout) is a plain float32
     reduction here, as in the JAX package."""
     _check(q, k, v, "flash_attention backward")
     b, s, heads, e = q.shape
@@ -111,7 +113,7 @@ def flash_backward(q, k, v, out, lse, dout, scale=1.0):
     lib = _build.load("flash", kdt_flash_bwd=_BWD_SIGNATURE)
     status = lib.kdt_flash_bwd(
         *map(_build.ptr, (q, k, v, dout, lse, delta, dq, dk, dv)), b, s, heads,
-        q.stride(0), q.stride(1), scale, _build.stream_ptr(dev))
+        e, q.stride(0), q.stride(1), scale, _build.stream_ptr(dev))
     _build.check_launch(lib, status, "flash backward")
     global bwd_launches
     bwd_launches += 1
@@ -137,7 +139,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, scale=1.0):
     """Exact global attention: q, k, v (b, s, heads, e) -> (b, s, heads, e);
-    differentiable. The kernels take bfloat16, e == 64 and any s >= 1."""
+    differentiable. The kernels take bfloat16, e 32 or 64 and any s >= 1."""
     if q.device.type == "cpu":
         return reference(q, k, v, scale)
     if not (torch.is_grad_enabled()

@@ -18,6 +18,8 @@ from . import _build
 launches = 0      # forward kernel launches since the last reset
 bwd_launches = 0  # backward kernel launches since the last reset
 
+HEAD_DIMS = (32, 64)  # head dims the kernels take
+
 _P = ctypes.c_void_p
 # x, norm_scale, w_qkv, attn_scale, cos, sin, q, k, v, rows, tokens, d,
 # heads, eps, cos_eps, stream
@@ -73,18 +75,20 @@ def rope_tables(pos, n_heads, d_head):
 def _operands(x, pos, norm_scale, w_qkv, attn_scale, n_heads):
     """Checks and casts the operands both kernels share."""
     b, h, w, d = x.shape
-    if n_heads * 64 != d:
-        raise ValueError(f"fused_qkv kernel needs head dim 64, got d={d} "
-                         f"with {n_heads} heads")
+    e = d // n_heads
+    if e * n_heads != d or e not in HEAD_DIMS or d % 64:
+        raise ValueError(f"fused_qkv kernel takes head dim 32 or 64 and d a "
+                         f"multiple of 64; got d={d} with {n_heads} heads")
     dev, bf16 = x.device, torch.bfloat16
     w_qkv = w_qkv.to(bf16)
     attn_scale = attn_scale.float()
-    cos_t, sin_t = rope_tables(pos, n_heads, 64)
+    cos_t, sin_t = rope_tables(pos, n_heads, e)
     _build.require(x, "x", dev, bf16, (b, h, w, d))
     _build.require(norm_scale, "norm_scale", dev, bf16, (b, d))
     _build.require(w_qkv, "w_qkv", dev, bf16, (d, 3 * d))
     _build.require(attn_scale, "attn_scale", dev, torch.float32, (n_heads,))
-    _build.require(cos_t, "cos table", dev, torch.float32, (h * w, n_heads * 16))
+    _build.require(cos_t, "cos table", dev, torch.float32,
+                   (h * w, n_heads * e // 4))
     return w_qkv, attn_scale, cos_t, sin_t
 
 
@@ -172,7 +176,7 @@ def fused_qkv_prologue(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
                        eps=1e-6, cos_eps=1e-6):
     """Returns (q, k, v), each (b, h, w, d), with cosine-sim scaling and RoPE
     applied to q and k; differentiable. The kernels take bfloat16 x and
-    norm_scale, head dim 64 and d % 64 == 0; ``w_qkv`` is cast to x's
+    norm_scale, head dim 32 or 64 and d % 64 == 0; ``w_qkv`` is cast to x's
     dtype, as the JAX dispatcher does."""
     if x.device.type == "cpu":
         return reference(x, pos, norm_scale, w_qkv, attn_scale, n_heads, eps,

@@ -1,14 +1,24 @@
-"""K2, K7 and K8: channel-packed 2-D neighborhood attention and its backward
-(counterpart of k_diffusion_tpu/ops/pallas/na2d.py: ``na2d_packed`` and
-``na2d_reference``).
+"""2-D neighborhood attention and its backward (counterpart of
+k_diffusion_tpu/ops/pallas/na2d.py: ``na2d_packed``, ``na2d``,
+``na2d_packed_proj`` and ``na2d_reference``).
 
 Each query attends to exactly kernel_size x kernel_size keys, its window
 clamped inward at the edges (NATTEN's contract). CUDA tensors go to the
-hand-written kernels in ``csrc/na2d.cu`` through an autograd Function: the
-forward K2 (which also writes the per-head logsumexp when a backward
-follows), the backward K7 (dq and per-tile dk/dv halo partials) and K8 (the
-overlap-add of the partials). CPU tensors go to the plain version, which
-autograd differentiates.
+hand-written kernels through autograd Functions; CPU tensors go to the
+plain versions, which autograd differentiates.
+
+- ``na2d_packed`` on channel-packed (b, h, w, heads * 64) maps
+  (``csrc/na2d.cu``): the forward K2 (which also writes the per-head
+  logsumexp when a backward follows), the backward K7 (dq and per-tile
+  dk/dv halo partials) and K8 (the overlap-add of the partials).
+- ``na2d`` on (b, h, w, heads, e) maps, e 32, 64 or 128, read through their
+  strides (``csrc/na2d_heads.cu``): the forward K11 and the backward K12 (a
+  dq kernel per query tile and a dk/dv kernel per key tile, one counted
+  launch).
+- ``na2d_packed_proj``: K15, ``na2d_packed`` with the out-projection and
+  the residual fused into the forward; its backward recomputes the
+  attention with K2 and runs K7 + K8, as the JAX op's backward is the VJP of
+  its plain version.
 """
 
 import ctypes
@@ -18,13 +28,17 @@ import torch
 from ..attention import neighborhood_attention
 from . import _build
 
-launches = 0          # K2 launches since the last reset
-bwd_launches = 0      # K7 launches
-overlap_launches = 0  # K8 launches
+launches = 0            # K2 launches since the last reset
+bwd_launches = 0        # K7 launches
+overlap_launches = 0    # K8 launches
+heads_launches = 0      # K11 launches
+heads_bwd_launches = 0  # K12 launches (its two kernels count as one)
+proj_launches = 0       # K15 launches
 
 TILE = 8          # query tile edge of the kernels
 MAX_KERNEL = 7    # the kernels' halo holds windows up to 7 x 7
 HALO_KEYS = 208   # keys of a tile's halo partial (14 x 14, rounded up to 16)
+HEAD_DIMS = (32, 64, 128)  # head dims of K11 and K12
 
 _P = ctypes.c_void_p
 # q, k, v, out, lse, batch, h, w, heads, kernel_size, scale, stream
@@ -34,6 +48,15 @@ _SIGNATURE = [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
 _BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
 # dk_part, dv_part, dk, dv, batch, h, w, heads, kernel_size, stream
 _OVERLAP_SIGNATURE = [_P] * 4 + [ctypes.c_int] * 5 + [_P]
+# q, k, v, out, lse, batch, h, w, heads, e, kernel_size, scale, strides,
+# stream
+_HEADS_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
+# q, k, v, dout, lse, delta, dq, dk, dv, batch, h, w, heads, e,
+# kernel_size, scale, strides, stream
+_HEADS_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, _P,
+                                                         _P]
+# q, k, v, skip, w_out, out, batch, h, w, heads, kernel_size, scale, stream
+_PROJ_SIGNATURE = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
 
 
 def na2d_reference(q, k, v, kernel_size, scale=1.0):
@@ -59,6 +82,30 @@ def reference_backward(q, k, v, dout, n_heads, kernel_size, scale=1.0):
         return torch.autograd.grad(out, inputs, dout)
 
 
+def heads_reference_backward(q, k, v, dout, kernel_size, scale=1.0):
+    """Plain version of K12: autograd through ``na2d_reference`` on (b, h,
+    w, heads, e) maps. Returns (dq, dk, dv)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = na2d_reference(*inputs, kernel_size, scale)
+        return torch.autograd.grad(out, inputs, dout)
+
+
+def proj_reference(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
+    """Plain version of K15: ``reference(q, k, v) @ w_out + skip`` on
+    channel-packed maps (b, h, w, c), w_out (c, c) cast to q's dtype."""
+    out = reference(q, k, v, n_heads, kernel_size, scale)
+    return out @ w_out.to(out.dtype) + skip
+
+
+def packed_takes(c, e):
+    """Whether the HDiT sends an NA level of width c = heads * e to K2 rather
+    than to the per-head K11: the JAX dispatcher's test (c <= 512, c a
+    multiple of 128, whole heads per 128-lane block, which e == 64 always
+    meets) restricted to e == 64, the only head dim K2 takes."""
+    return e == 64 and c <= 512 and c % 128 == 0
+
+
 def _check(q, n_heads, kernel_size, what):
     _build.require_cuda(q, what)
     b, h, w, c = q.shape
@@ -68,6 +115,38 @@ def _check(q, n_heads, kernel_size, what):
             f"na2d kernel takes head dim 64, h and w multiples of {TILE} and "
             f"kernel_size <= min({MAX_KERNEL}, h, w); got {tuple(q.shape)} "
             f"with {n_heads} heads, kernel_size {kernel_size}")
+
+
+def _check_heads(q, k, v, kernel_size, what):
+    """Raises unless q, k, v are as K11 and K12 take them: bf16 CUDA tensors
+    of one shape (b, h, w, heads, e), e in HEAD_DIMS, h and w multiples of
+    8, the head axis packed at e and the head dim contiguous, the other
+    strides multiples of 8 elements, 16-byte aligned. Returns the nine
+    strides (q's, k's, v's batch, row and column) as a ctypes array."""
+    _build.require_cuda(q, what)
+    b, h, w, heads, e = q.shape
+    if e not in HEAD_DIMS or h % TILE or w % TILE or not (
+            1 <= kernel_size <= min(MAX_KERNEL, h, w)):
+        raise ValueError(
+            f"{what}: kernel takes head dim in {HEAD_DIMS}, h and w multiples "
+            f"of {TILE} and kernel_size <= min({MAX_KERNEL}, h, w); got "
+            f"{tuple(q.shape)}, kernel_size {kernel_size}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.bfloat16 or \
+                t.shape != q.shape:
+            raise ValueError(
+                f"{what}: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
+                f"the kernel takes bfloat16 {tuple(q.shape)} on {q.device}")
+        if not (t.stride()[3:] == (e, 1)
+                and all(st % 8 == 0 for st in t.stride()[:3])
+                and t.data_ptr() % 16 == 0):
+            raise ValueError(
+                f"{what}: {name} has strides {t.stride()} at offset "
+                f"{t.data_ptr() % 16} mod 16 bytes; the kernel takes strides "
+                f"(x, y, z, {e}, 1), x, y and z multiples of 8, 16-byte "
+                f"aligned")
+    return (ctypes.c_long * 9)(*(st for t in (q, k, v)
+                                 for st in t.stride()[:3]))
 
 
 def packed_forward(q, k, v, n_heads, kernel_size, scale=1.0, save_lse=False):
@@ -202,6 +281,148 @@ class _NA2D(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = packed_backward(q, k, v, out, lse, dout, *ctx.static)
         return dq, dk, dv, None, None, None
+
+
+def heads_forward(q, k, v, kernel_size, scale=1.0, save_lse=False):
+    """Launches K11 on CUDA tensors (b, h, w, heads, e). Returns (out, lse):
+    out (b, h, w, heads, e) bf16 contiguous, lse (b, heads, h, w) float32,
+    or None unless ``save_lse``."""
+    strides = _check_heads(q, k, v, kernel_size, "na2d")
+    b, h, w, heads, e = q.shape
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    lse = (torch.empty((b, heads, h, w), device=q.device,
+                       dtype=torch.float32) if save_lse else None)
+    lib = _build.load("na2d_heads", kdt_na2d_heads=_HEADS_SIGNATURE)
+    status = lib.kdt_na2d_heads(
+        *map(_build.ptr, (q, k, v, out)),
+        None if lse is None else _build.ptr(lse), b, h, w, heads, e,
+        kernel_size, scale, strides, _build.stream_ptr(q.device))
+    _build.check_launch(lib, status, "na2d")
+    global heads_launches
+    heads_launches += 1
+    return out, lse
+
+
+def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
+    """Launches K12 on CUDA tensors: returns (dq, dk, dv) bf16, each (b, h,
+    w, heads, e) contiguous. delta = rowsum(out * dout) is a plain float32
+    reduction here, as in the JAX package."""
+    strides = _check_heads(q, k, v, kernel_size, "na2d backward")
+    b, h, w, heads, e = q.shape
+    dev = q.device
+    dout = dout.contiguous()
+    for name, t in (("out", out), ("dout", dout)):
+        _build.require(t, name, dev, torch.bfloat16, q.shape)
+    _build.require(lse, "lse", dev, torch.float32, (b, heads, h, w))
+    delta = (out.float() * dout.float()).sum(-1).permute(0, 3, 1, 2) \
+        .contiguous()
+    dq, dk, dv = (torch.empty(q.shape, device=dev, dtype=q.dtype)
+                  for _ in range(3))
+    lib = _build.load("na2d_heads", kdt_na2d_heads_bwd=_HEADS_BWD_SIGNATURE)
+    status = lib.kdt_na2d_heads_bwd(
+        *map(_build.ptr, (q, k, v, dout, lse, delta, dq, dk, dv)), b, h, w,
+        heads, e, kernel_size, scale, strides, _build.stream_ptr(dev))
+    _build.check_launch(lib, status, "na2d backward")
+    global heads_bwd_launches
+    heads_bwd_launches += 1
+    return dq, dk, dv
+
+
+class _NA2DHeads(torch.autograd.Function):
+    """K11 forward (with lse), K12 backward. Saves q, k, v, the output and
+    the logsumexp, as the JAX custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kernel_size, scale):
+        out, lse = heads_forward(q, k, v, kernel_size, scale, save_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (kernel_size, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*heads_backward(q, k, v, out, lse, dout, *ctx.static), None,
+                None)
+
+
+def na2d(q, k, v, kernel_size, scale=1.0):
+    """Neighborhood attention per head: q, k, v (b, h, w, heads, e) ->
+    (b, h, w, heads, e); differentiable. The kernels take bfloat16, e in
+    ``HEAD_DIMS``, h and w multiples of 8, kernel_size <= min(7, h, w), and
+    q, k, v of any strides whose last two are (e, 1)."""
+    if q.device.type == "cpu":
+        return na2d_reference(q, k, v, kernel_size, scale)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return heads_forward(q, k, v, kernel_size, scale)[0]
+    return _NA2DHeads.apply(q, k, v, kernel_size, scale)
+
+
+def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
+    """Launches K15 on CUDA tensors: returns NA(q, k, v) @ w_out + skip,
+    (b, h, w, c) bf16; w_out is cast to bf16, as the JAX dispatcher casts
+    it to q's dtype."""
+    _check(q, n_heads, kernel_size, "na2d_packed_proj")
+    b, h, w, c = q.shape
+    if c > 512 or c % 128:
+        raise ValueError(f"na2d_packed_proj kernel takes c <= 512, a "
+                         f"multiple of 128; got {tuple(q.shape)}")
+    w16 = w_out.to(torch.bfloat16)
+    for name, t in (("q", q), ("k", k), ("v", v), ("skip", skip)):
+        _build.require(t, name, q.device, torch.bfloat16, (b, h, w, c))
+    _build.require(w16, "w_out", q.device, torch.bfloat16, (c, c))
+    out = torch.empty_like(q)
+    lib = _build.load("na2d_heads", kdt_na2d_proj=_PROJ_SIGNATURE)
+    status = lib.kdt_na2d_proj(
+        *map(_build.ptr, (q, k, v, skip, w16, out)), b, h, w, n_heads,
+        kernel_size, scale, _build.stream_ptr(q.device))
+    _build.check_launch(lib, status, "na2d_packed_proj")
+    global proj_launches
+    proj_launches += 1
+    return out
+
+
+class _NA2DProj(torch.autograd.Function):
+    """K15 forward; the backward recomputes the attention with K2 (saving
+    the lse), runs K7 + K8 on d(attention) = dout @ w_out^T, and takes the
+    projection's gradients with torch.matmul: the JAX op's backward is the
+    VJP of its plain version, with no Pallas kernel of its own."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, skip, w_out, n_heads, kernel_size, scale):
+        ctx.save_for_backward(q, k, v, w_out)
+        ctx.static = (n_heads, kernel_size, scale)
+        return proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, w_out = ctx.saved_tensors
+        n_heads, kernel_size, scale = ctx.static
+        att, lse = packed_forward(q, k, v, n_heads, kernel_size, scale,
+                                  save_lse=True)
+        w16 = w_out.to(q.dtype)
+        d_att = dout @ w16.T
+        dq, dk, dv = packed_backward(q, k, v, att, lse, d_att, n_heads,
+                                     kernel_size, scale)
+        c = q.shape[-1]
+        dw = (att.reshape(-1, c).T @ dout.reshape(-1, c)).to(w_out.dtype)
+        return dq, dk, dv, dout, dw, None, None, None
+
+
+def na2d_packed_proj(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
+    """``na2d_packed`` with a fused epilogue: NA(q, k, v) @ w_out + skip on
+    channel-packed maps (b, h, w, c), w_out (c, c); differentiable. No model
+    path calls it, as in the JAX package. The kernel takes bfloat16, head
+    dim 64, c <= 512 and a multiple of 128, h and w multiples of 8 and
+    kernel_size <= min(7, h, w)."""
+    if q.device.type == "cpu":
+        return proj_reference(q, k, v, skip, w_out, n_heads, kernel_size,
+                              scale)
+    if not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, skip, w_out))):
+        return proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale)
+    return _NA2DProj.apply(q, k, v, skip, w_out, n_heads, kernel_size, scale)
 
 
 def na2d_packed(q, k, v, n_heads, kernel_size, scale=1.0):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from k_diffusion_tpu_torch.ops import kernels, rope
+from k_diffusion_tpu_torch.ops.attention import neighborhood_mask_2d
 from k_diffusion_tpu_torch.ops.kernels import (flash, fused_ffn, fused_mapping,
                                                fused_qkv, global_packed, na2d)
 
@@ -220,12 +221,12 @@ FLASH_CASES = [(2, 49, 4, 1.0), (3, 64, 8, 0.125), (2, 256, 4, 0.125),
                (1, 1024, 2, 0.125), (2, 1, 1, 0.125), (1, 100, 3, 0.125)]
 
 
-def flash_qkv(g, dev, b, s, heads, scale):
+def flash_qkv(g, dev, b, s, heads, scale, e=64):
     """q, k, v as the U-Net makes them, strided views of one (b, s, 3, heads,
-    64) projection, and a cotangent; logits of about unit spread at either
+    e) projection, and a cotangent; logits of about unit spread at either
     scale."""
-    qkv = normal(g, dev, b, s, 3, heads, 64, std=(0.125 / scale) ** 0.5)
-    return (*qkv.unbind(2), normal(g, dev, b, s, heads, 64))
+    qkv = normal(g, dev, b, s, 3, heads, e, std=(0.125 / scale * 64 / e) ** 0.5)
+    return (*qkv.unbind(2), normal(g, dev, b, s, heads, e))
 
 
 @pytest.mark.parametrize("b,s,heads,scale", FLASH_CASES)
@@ -289,8 +290,9 @@ def test_weight_gradients_are_deterministic(dev):
 
 def test_autograd_runs_the_backward_kernels(dev):
     """Gradients through each differentiable wrapper come from its backward
-    kernel (the mapping network: from its recomputed plain version), and
-    equal the kernel entry points' own."""
+    kernel (the mapping network: from its recomputed plain version; the
+    fused-epilogue NA: from K2's recompute and K7 + K8), and equal the
+    kernel entry points' own."""
     kernels.reset_launch_counts()
     g = torch.Generator().manual_seed(10)
     x, pos, ns, w_qkv, scale, heads = qkv_args(g, dev, 2, 8, 8, 128)
@@ -308,12 +310,18 @@ def test_autograd_runs_the_backward_kernels(dev):
                torch.randn((192, 128), generator=g).to(dev) * 192 ** -0.5)]
     emb = fused_mapping.fused_mapping(ns, torch.ones(128, device=dev),
                                       torch.ones(128, device=dev), blocks)
-    (out.float().square().mean() + emb.float().square().mean()).backward()
+    heads = na2d.na2d(*(t.reshape(2, 8, 8, 2, 64) for t in (q, k, v)), 7)
+    w_out = torch.randn((128, 128), generator=g).to(dev).requires_grad_()
+    proj = na2d.na2d_packed_proj(q, k, v, x, w_out, 2, 7)
+    (out.float().square().mean() + emb.float().square().mean()
+     + heads.float().square().mean() + proj.float().square().mean()).backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
-    assert blocks[0][0].grad is not None
+    assert blocks[0][0].grad is not None and w_out.grad is not None
     assert x.grad.dtype == torch.bfloat16 and w_qkv.grad.dtype == torch.float32
     counts = kernels.launch_counts()
-    assert counts == dict.fromkeys(kernels.COUNTERS, 1), counts
+    # K15's backward recomputes with K2 and runs K7 + K8
+    assert counts == dict.fromkeys(kernels.COUNTERS, 1) | {
+        "na2d": 2, "na2d_bwd": 2, "na2d_overlap_add": 2}, counts
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -326,15 +334,36 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     s = torch.zeros((1, 528, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="up to 512"):
         global_packed.packed_global_attention(s, s, s, 1)
-    x = torch.zeros((1, 8, 8, 96), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 64"):
-        fused_qkv.fused_qkv_prologue(
-            x, rope.make_axial_pos(8, 8, device=dev),
-            torch.ones((1, 96), device=dev, dtype=torch.bfloat16),
-            torch.zeros((96, 288), device=dev), torch.ones(3, device=dev), 3)
-    x = torch.zeros((1, 16, 2, 32), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 64"):
+    # 2 heads of 48; 3 heads of 32 (d = 96 is not a multiple of 64)
+    for heads in (2, 3):
+        x = torch.zeros((1, 8, 8, 96), device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim 32 or 64"):
+            fused_qkv.fused_qkv_prologue(
+                x, rope.make_axial_pos(8, 8, device=dev),
+                torch.ones((1, 96), device=dev, dtype=torch.bfloat16),
+                torch.zeros((96, 288), device=dev),
+                torch.ones(heads, device=dev), heads)
+    x = torch.zeros((1, 16, 2, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 32 or 64"):
         flash.flash_attention(x, x, x)
+    # K11/K12: head dim 48, a map that does not tile, fp32, heads not packed
+    for shape in ((1, 8, 8, 2, 48), (1, 12, 8, 2, 64)):
+        x = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim in"):
+            na2d.na2d(x, x, x, 7)
+    x = torch.zeros((1, 8, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        na2d.na2d(x, x, x, 7)
+    x = torch.zeros((1, 8, 8, 64, 2), device=dev,
+                    dtype=torch.bfloat16).transpose(3, 4)
+    with pytest.raises(ValueError, match="strides"):
+        na2d.na2d(x, x, x, 7)
+    # K15: c not a multiple of 128, c above 512
+    for heads in (3, 10):
+        x = torch.zeros((1, 8, 8, 64 * heads), device=dev, dtype=torch.bfloat16)
+        w = torch.zeros((64 * heads,) * 2, device=dev)
+        with pytest.raises(ValueError, match="c <= 512"):
+            na2d.na2d_packed_proj(x, x, x, x, w, heads, 7)
     x = torch.zeros((1, 16, 2, 64), device=dev)
     with pytest.raises(ValueError, match="bfloat16"):
         flash.flash_attention(x, x, x)
@@ -347,3 +376,119 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="strides"):
         flash.flash_attention(y, x, y)
     assert kernels.launch_counts() == dict.fromkeys(kernels.COUNTERS, 0)
+
+
+# ---- head dim 32 (configs/config_test_tiny.json: 2 heads of 32) -----------
+
+@pytest.mark.parametrize("b,h,w,d", [(3, 8, 8, 64), (2, 4, 4, 128)])
+def test_fused_qkv_head_dim_32(dev, b, h, w, d):
+    """K1 and K6 at head dim 32 (two heads per 64-column panel); 4 x 4
+    maps leave a 64-row tile ragged."""
+    g = torch.Generator().manual_seed(15)
+    heads = d // 32
+    args = (normal(g, dev, b, h, w, d), rope.make_axial_pos(h, w, device=dev),
+            (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, torch.bfloat16),
+            torch.randn((d, 3 * d), generator=g).to(dev) * d ** -0.5,
+            10 * (1 + 0.1 * torch.randn(heads, generator=g)).to(dev), heads)
+    got = counted(fused_qkv, lambda: fused_qkv.fused_qkv_prologue(*args))
+    assert_all_close(got, fused_qkv.reference(*args))
+    cots = [normal(g, dev, b, h, w, d) for _ in range(3)]
+    got = counted(fused_qkv, lambda: fused_qkv.prologue_backward(*args, *cots),
+                  "bwd_launches")
+    assert_all_close(got, fused_qkv.reference_backward(*args, *cots))
+
+
+@pytest.mark.parametrize("b,s,heads,scale", [(8, 64, 2, 1.0), (2, 100, 3, 0.125),
+                                             (2, 1, 1, 0.125)])
+def test_flash_head_dim_32(dev, b, s, heads, scale):
+    """K13 and K14 at head dim 32 on strided q, k, v; bit-equal reruns."""
+    g = torch.Generator().manual_seed(16)
+    q, k, v, dout = flash_qkv(g, dev, b, s, heads, scale, e=32)
+    got = counted(flash, lambda: flash.flash_attention(q, k, v, scale))
+    assert_close(got, flash.reference(q, k, v, scale))
+    if s == 1:
+        return
+    out, lse = flash.flash_forward(q, k, v, scale, save_lse=True)
+    got = counted(flash, lambda: flash.flash_backward(q, k, v, out, lse, dout,
+                                                      scale), "bwd_launches")
+    assert_all_close(got, flash.reference_backward(q, k, v, dout, scale))
+    again = flash.flash_backward(q, k, v, out, lse, dout, scale)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+# ---- K11/K12: per-head NA; K15: packed NA with the fused epilogue ---------
+
+# (b, h, w, heads, e, ks): map edges (h != w), one 8 x 8 tile, 12 heads,
+# every head dim, smaller windows
+HEADS_CASES = [(2, 16, 24, 2, 64, 7), (1, 8, 8, 12, 64, 7),
+               (2, 32, 16, 4, 32, 7), (1, 16, 16, 2, 32, 3),
+               (1, 24, 16, 1, 128, 5), (1, 16, 16, 2, 128, 7)]
+
+
+def heads_qkv(g, dev, b, h, w, heads, e):
+    """q, k cosine-sim and contiguous, v a strided third of one (b, h, w,
+    3, heads, e) projection (as the unfused prologue leaves them), and a
+    cotangent."""
+    t = torch.randn((b, h, w, 3, heads, e), generator=g)
+    qk = t[:, :, :, :2] / t[:, :, :, :2].norm(dim=-1, keepdim=True) * 10 ** 0.5
+    proj = torch.cat([qk, t[:, :, :, 2:]], 3).to(dev, torch.bfloat16)
+    q, k, v = proj.unbind(3)
+    return (q.contiguous(), k.contiguous(), v,
+            normal(g, dev, b, h, w, heads, e))
+
+
+@pytest.mark.parametrize("b,h,w,heads,e,ks", HEADS_CASES)
+def test_na2d_heads(dev, b, h, w, heads, e, ks):
+    """K11 against the plain version, its logsumexp against the f32 masked
+    logits."""
+    g = torch.Generator().manual_seed(17)
+    q, k, v, _ = heads_qkv(g, dev, b, h, w, heads, e)
+    assert not v.is_contiguous()
+    got = counted(na2d, lambda: na2d.na2d(q, k, v, ks), "heads_launches")
+    assert_close(got, na2d.na2d_reference(q, k, v, ks))
+    out, lse = na2d.heads_forward(q, k, v, ks, save_lse=True)
+    assert torch.equal(out, got)
+    logits = torch.einsum("bqne,bkne->bnqk", q.float().reshape(b, h * w, heads, e),
+                          k.float().reshape(b, h * w, heads, e))
+    mask = neighborhood_mask_2d(h, w, ks, dev)
+    want = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), -1)
+    assert_close(lse, want.reshape(b, heads, h, w))
+
+
+@pytest.mark.parametrize("b,h,w,heads,e,ks", HEADS_CASES)
+def test_na2d_heads_backward(dev, b, h, w, heads, e, ks):
+    """K12 (the dq kernel and the key-tile dk/dv kernel) against autograd
+    through the plain version; a rerun gives bit-equal gradients (no
+    partials, no atomics)."""
+    g = torch.Generator().manual_seed(18)
+    q, k, v, dout = heads_qkv(g, dev, b, h, w, heads, e)
+    out, lse = na2d.heads_forward(q, k, v, ks, save_lse=True)
+    got = counted(na2d, lambda: na2d.heads_backward(q, k, v, out, lse, dout, ks),
+                  "heads_bwd_launches")
+    assert_all_close(got, na2d.heads_reference_backward(q, k, v, dout, ks))
+    again = na2d.heads_backward(q, k, v, out, lse, dout, ks)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 8, 8, 8, 7),
+                                            (1, 16, 16, 4, 5)])
+def test_na2d_packed_proj(dev, b, h, w, heads, ks):
+    """K15 against its plain version (c = 128, 512 and 256), and its
+    gradients (K2 recompute, K7 + K8, matmuls) against autograd through the
+    plain version."""
+    g = torch.Generator().manual_seed(19)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, h, w, c), unit_heads(g, dev, b, h, w, c)
+    v, skip, dout = (normal(g, dev, b, h, w, c) for _ in range(3))
+    w_out = torch.randn((c, c), generator=g).to(dev) * c ** -0.5
+    got = counted(na2d, lambda: na2d.na2d_packed_proj(q, k, v, skip, w_out,
+                                                      heads, ks), "proj_launches")
+    assert_close(got, na2d.proj_reference(q, k, v, skip, w_out, heads, ks))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, skip, w_out)]
+    grads = torch.autograd.grad(na2d.na2d_packed_proj(*leaves, heads, ks),
+                                leaves, dout)
+    with torch.enable_grad():
+        plain = [t.detach().requires_grad_() for t in (q, k, v, skip, w_out)]
+        want = torch.autograd.grad(na2d.proj_reference(*plain, heads, ks),
+                                   plain, dout)
+    assert_all_close(grads, want)

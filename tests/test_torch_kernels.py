@@ -229,7 +229,8 @@ def test_fused_mapping_matches_pallas_body():
 
 
 @pytest.mark.parametrize("name", ["fused_qkv", "na2d", "global_packed",
-                                  "fused_ffn", "fused_mapping", "flash"])
+                                  "fused_ffn", "fused_mapping", "flash",
+                                  "na2d_heads", "na2d_proj"])
 def test_cpu_tensors_take_plain_version_without_counting(name):
     """A CPU tensor runs the plain version: no build, no launch counted."""
     from k_diffusion_tpu_torch.ops import kernels
@@ -245,6 +246,12 @@ def test_cpu_tensors_take_plain_version_without_counting(name):
         fused_ffn.fused_geglu_ffn(*map(torch.from_numpy, ffn_case(12, 1, 16)))
     elif name == "flash":
         flash.flash_attention(*map(torch.from_numpy, flash_case(12, 49)))
+    elif name == "na2d_heads":
+        na2d.na2d(*(torch.from_numpy(t).reshape(1, 8, 8, 2, 64)
+                    for t in na_case(12, 1, 8, 8, 2)), 7)
+    elif name == "na2d_proj":
+        q, k, v = map(torch.from_numpy, na_case(12, 1, 8, 8, 2))
+        na2d.na2d_packed_proj(q, k, v, v, torch.eye(128), 2, 7)
     else:
         port_mapping(*mapping_case(12, 2))
     assert kernels.launch_counts() == dict.fromkeys(kernels.COUNTERS, 0)

@@ -179,9 +179,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
     config = KT.config.load_config(CONFIG)
     unet = KT.config.load_config(REPO / "configs" / "config_cifar10.json")
     density = KT.config.make_sample_density(config["model"])
+    from k_diffusion_tpu_torch.models import image_transformer_v2 as itv2
+    levels = (itv2.LevelSpec(1, 64, 128, itv2.GlobalAttentionSpec(64)),)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: KT.config.make_model(config),
                  lambda: KT.config.make_model(unet),
+                 lambda: itv2.ImageTransformerDenoiserModelV2(
+                     levels, itv2.MappingSpec(1, 64, 128), 3, 3, (4, 4)),
                  lambda: KT.sampling.get_sigmas_karras(10, 1e-2, 80.0),
                  lambda: density((2,))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -263,3 +267,34 @@ def test_import_without_jax():
         """)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=300)
+
+
+TEST_TINY = REPO / "configs" / "config_test_tiny.json"
+
+
+def test_config_test_tiny_forward_matches_jax():
+    """configs/config_test_tiny.json as it is: one global level of 8 x 8
+    tokens, 2 heads of 32 (K1 and K13 at head dim 32 on the card; here
+    their plain versions), class conditioning. The denoiser against JAX."""
+    config = K.config.load_config(TEST_TINY)
+    model = K.config.make_model(config)
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    sigma = np.float32([0.2, 5.0])
+    classes = np.int32([1, 4])
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(x),
+                                 jnp.asarray(sigma),
+                                 class_cond=jnp.asarray(classes))["params"]
+    params = randomized(params, 23)
+    want = K.config.make_denoiser_wrapper(config)(
+        lambda x, s, **kw: model.apply({"params": params}, x, s, **kw))(
+        jnp.asarray(x), jnp.asarray(sigma), class_cond=jnp.asarray(classes))
+    port = KT.config.make_model(KT.config.load_config(TEST_TINY),
+                                device="cpu").eval()
+    port.load_state_dict(convert.state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    with torch.no_grad():
+        got = KT.config.make_denoiser_wrapper(KT.config.load_config(TEST_TINY))(
+            port)(torch.from_numpy(x), torch.from_numpy(sigma),
+                  class_cond=torch.from_numpy(classes).long())
+    close(got, want)

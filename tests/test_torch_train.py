@@ -395,6 +395,47 @@ def test_train_step_matches_jax(setup):
     check_state(state, new_state)
 
 
+def test_unfused_train_step_matches_jax(setup, monkeypatch):
+    """With KDT_TRAIN_FUSION=0 on both sides, the training forward runs the
+    unfused prologue and feed-forward chains, and the NA levels go to the
+    per-head ``na2d`` (K11/K12 on the card; here its plain version): the
+    loss and every gradient against the JAX step's."""
+    from k_diffusion_tpu_torch.ops.kernels import fused_ffn, fused_qkv
+    config, model, params, t_config = setup
+    monkeypatch.setenv("KDT_TRAIN_FUSION", "0")
+    rng = np.random.default_rng(14)
+    reals, noise = (rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+                    for _ in range(2))
+    sigmas = np.float32([0.3, 4.0])
+
+    def loss_fn(p):
+        inner = lambda x, s, **kw: model.apply(
+            {"params": p}, x, s, train=True,
+            rngs={"dropout": jax.random.PRNGKey(0)}, **kw)
+        den = K.config.make_denoiser_wrapper(config)(inner)
+        return jnp.mean(den.loss(jnp.asarray(reals), jnp.asarray(noise),
+                                 jnp.asarray(sigmas)))
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    port = port_model(setup).train()
+    calls = []
+    for mod, name in ((t_itv2, "na2d"), (t_itv2, "na2d_packed"),
+                      (fused_qkv, "reference"), (fused_ffn, "reference")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name, **kw:
+                            calls.append(_n) or _o(*a, **kw))
+    den = KT.config.make_denoiser_wrapper(t_config)(port)
+    t_loss = den.loss(torch.from_numpy(reals), torch.from_numpy(noise),
+                      torch.from_numpy(sigmas)).mean()
+    t_loss.backward()
+    # two NA levels, each in the down and the up stack; nothing fused
+    assert calls == ["na2d"] * 4
+    close(t_loss, loss)
+    want = convert.flatten(to_numpy(grads))
+    for name, p in port.named_parameters():
+        close(p.grad, want[name], name=name)
+
+
 def test_optimizer_matches_optax_given_the_same_grads(setup):
     """Clip + the 4-group AdamW at the flagship's own settings (eps 1e-8),
     fed the same gradients on both sides, over the reduced flagship's
