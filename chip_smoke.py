@@ -5,7 +5,9 @@
 
 Phases, each printing one line (the kernel phases one per kernel and shape):
 1. device: needs a CUDA device; prints nvidia-smi's name and power limit;
-2. build: compiles every kernel from csrc/ with nvcc;
+2. build: compiles every kernel from csrc/ with nvcc, and prints the
+   registers and spills of the attention backward's kernels (none may
+   spill);
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -17,7 +19,8 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    finite and every kernel's launch count must match the model's layout;
 6. backward kernels: K6-K10 against their plain versions (autograd through
    the forward's plain version; a plain overlap-add for K8) at the flagship
-   training shapes, batch 8, as in phase 3;
+   training shapes, batch 8, as in phase 3; then K9 against K14 bit for bit
+   on one packed input (they share their wgmma kernels);
 7. gradient parity: one training step's loss and full parameter gradient,
    the flagship at batch 2 in bfloat16 on the card against the same
    weights, reals, noise and sigmas in float32 on the CPU, dropout off;
@@ -58,6 +61,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 17. head dim 32: K1/K6 and K13/K14 at configs/config_test_tiny.json's
    shapes against their plain versions, its forward at batch 8 and one
    step's gradient at batch 2 against float32 on the CPU.
+
+Each kernel line also gives the kernel's achieved TFLOP/s (the operations
+its function needs over its time) and its time's share of the bound.
 
 Then one JSON line of per-kernel results and last ``{"ok": true, "device":
 {...}}``. A kernel's ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms``
@@ -414,6 +420,32 @@ def backward_cases(dev):
     return cases
 
 
+def backward_bit_check(dev):
+    """K9 and K14 run the same kernels (csrc/attn_bwd.cuh): on one packed
+    input at the flagship's global level (batch 8, 256 tokens, 8 heads of
+    64, scale 1), with the same out and lse, their dq, dk, dv agree bit for
+    bit."""
+    from k_diffusion_tpu_torch.ops.kernels import flash, global_packed
+
+    g = torch.Generator().manual_seed(SEED + 14)
+    b, s, heads = SAMPLE_BATCH, 256, 8
+    t = torch.randn((2, b, s, heads, 64), generator=g)
+    q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+        2, b, s, heads * 64).to(dev, torch.bfloat16)
+    v, dout = torch.randn((2, b, s, heads * 64), generator=g).to(
+        dev, torch.bfloat16)
+    out, lse = global_packed.packed_forward(q, k, v, heads, save_lse=True)
+    packed = global_packed.packed_backward(q, k, v, out, lse, dout, heads)
+    split = [x.reshape(b, s, heads, 64) for x in (q, k, v, out, dout)]
+    strided = flash.flash_backward(*split[:4], lse, split[4], 1.0)
+    for name, a, b_ in zip(("dq", "dk", "dv"), packed, strided):
+        if not torch.equal(a, b_.reshape(a.shape)):
+            diff = (a.float() - b_.reshape(a.shape).float()).abs().max().item()
+            raise AssertionError(f"K9 and K14 {name} differ by {diff:.3e}")
+    print(f"backward bit check [{b}x{s}x{heads * 64}]: K9 and K14 give "
+          f"bit-identical dq, dk, dv on one packed input", flush=True)
+
+
 def flash_cases(dev, unet):
     """K13 and K14 at the U-Net's shapes, batch 64 (heads follow each
     block's width, the last block of an up stack narrowing to the next
@@ -490,11 +522,13 @@ def run_cases(cases, results, kernel_reps, plain_reps):
         plain_ms = device_ms(c.plain, plain_reps)
         lib_ms = device_ms(c.library, kernel_reps) if c.library else None
         lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        bound = max(op_ms, byte_ms)
         print(f"kernel {c.name} [{c.label}]: max abs err {err:.3e}, worst "
               f"output {share:.2e} x its max|plain| (bound "
               f"{KERNEL_REL_BOUND}), {ms:.4f} ms, plain {plain_ms:.4f} ms"
-              f"{lib}; bound {max(op_ms, byte_ms):.4f} ms (operations "
-              f"{op_ms:.4f}, bytes {byte_ms:.4f})", flush=True)
+              f"{lib}; bound {bound:.4f} ms (operations {op_ms:.4f}, bytes "
+              f"{byte_ms:.4f}); {c.flops / ms / 1e9:.2f} TFLOP/s, "
+              f"{bound / ms:.1%} of the bound", flush=True)
         r = results.setdefault(c.name, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "op_ms": 0.0, "byte_ms": 0.0, "library_ms": None})
@@ -838,6 +872,7 @@ def main():
     secs = kernels.build()
     print(f"build: {len(kernels._build.SOURCES)} libraries in {secs:.1f} s",
           flush=True)
+    attn_bwd_report(kernels._build)
 
     results = {}
     with torch.no_grad():
@@ -862,6 +897,7 @@ def main():
 
     with torch.no_grad():
         run_cases(backward_cases(dev), results, 20, 3)
+        backward_bit_check(dev)
 
     grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
@@ -975,11 +1011,11 @@ def main():
         "fused_qkv_bwd": ("fused_qkv.cu", "fused_qkv.py:246", train_counts),
         "na2d_bwd": ("na2d.cu", "na2d.py:701", train_counts),
         "na2d_overlap_add": ("na2d.cu", "na2d.py:809", train_counts),
-        "global_packed_bwd": ("global_packed.cu", "global_packed.py:111",
+        "global_packed_bwd": ("attn_bwd.cuh", "global_packed.py:111",
                               train_counts),
         "fused_ffn_bwd": ("geglu.cu", "fused_ffn.py:115", train_counts),
         "flash": ("flash.cu", "flash.py:34", unet_sample_counts),
-        "flash_bwd": ("flash.cu", "flash.py:57", unet_train_counts),
+        "flash_bwd": ("attn_bwd.cuh", "flash.py:57", unet_train_counts),
         "na2d_heads": ("na2d_heads.cu", "na2d.py:180", unfused_counts),
         "na2d_heads_bwd": ("na2d_heads.cu", "na2d.py:241", unfused_counts),
         "na2d_proj": ("na2d_heads.cu", "na2d.py:991", proj_counts),
@@ -1005,6 +1041,36 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def attn_bwd_report(build):
+    """Registers and spills of the attention backward's kernels (K9, K14;
+    csrc/attn_bwd.cuh), from the compiler report kept beside each library;
+    raises if one spills."""
+    import re
+
+    seen = {}
+    for name in ("global_packed", "flash"):
+        fn = spill = None
+        for line in build.library_path(name).with_suffix(".log").read_text(
+                ).splitlines():
+            m = re.search(r"Compiling entry function '\w*?(attn_d\w+?_kernel)"
+                          r"ILi(\d+)E", line)
+            if m:
+                fn = f"{m.group(1)}<{m.group(2)}>"
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and fn:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                seen[fn] = (int(m.group(1)), spill)
+                fn = None
+    if not seen or any(spill for _, spill in seen.values()):
+        raise AssertionError(f"attention backward kernels: {seen}")
+    print("compiler report: " + ", ".join(
+        f"{fn} {regs} registers, {spill} bytes spilled"
+        for fn, (regs, spill) in sorted(seen.items())), flush=True)
 
 
 def unet_forward_flops(KT, config):
@@ -1203,6 +1269,14 @@ def profile(run, name, what):
           f"device busy {device_ms:.3f} ms each; by device time:")
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
+    # the attention backward's two kernels (K9, K14), which the table may
+    # leave out: device time per launch
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and (
+                "attn_dq_kernel" in e.key or "attn_dkv_kernel" in e.key):
+            print(f"{name} profile: {e.key[:60]}: {e.count // 3} launches a "
+                  f"step or call, {e.self_device_time_total / e.count:.1f} us "
+                  f"each", flush=True)
 
 
 if __name__ == "__main__":

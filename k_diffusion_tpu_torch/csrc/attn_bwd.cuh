@@ -1,0 +1,632 @@
+// The backward of exact global softmax attention on Hopper, shared by K9
+// (global_packed.cu, channel-packed (b, s, heads * 64) maps) and K14
+// (flash.cu, (b, s, heads, e) q, k, v read through their strides).
+//
+// Replaces: k_diffusion_tpu/ops/pallas/global_packed.py:_bwd_kernel (K9)
+// and k_diffusion_tpu/ops/pallas/flash.py:_dq_kernel, :_dkv_kernel (K14).
+// The packed map of K9 is K14's strided layout with stride_b = s * heads *
+// 64, stride_s = heads * 64 and the head at column head * 64, so both run
+// these two kernels.
+//
+// What bounds it on the H100: 5 products of 2 s^2 e FLOP per image and head
+// (the logits recomputed, dp, dv, dk, dq) against q, k, v, out, dout read
+// and dq, dk, dv written. At the main path's shapes (s <= 256, e = 64) that
+// is 64 FLOP per byte, far below the 295 at which the tensor cores become
+// the limit: bound by memory, and at a few hundred blocks by latency.
+//
+// Design: FlashAttention-2's two-kernel backward, p recomputed from the
+// forward's lse, no atomics (bit-equal reruns). A block is one warpgroup
+// (128 threads) and owns 64 rows of one head of one image; the grid is
+// (row tiles, heads, batch). Every product is a wgmma m64nNk16 with f32
+// accumulators in registers, and p and ds never leave registers: each
+// thread forms them for its own accumulator elements (masked past s) and
+// rounds them to bf16 pairs, which in wgmma's accumulator layout are
+// already the register A operand of the next product.
+// - attn_dq_kernel: 64 queries. Q and dO are loaded once, kept as register
+//   A fragments (ldmatrix), lse and delta in registers; 64-key tiles of K
+//   and V stream through the ring. Per tile S = Q K^T and dP = dO V^T (B
+//   from shared memory), p = 2^(s scale log2 e - lse log2 e), ds = p (dp -
+//   delta), then dQ += dS K with K read MN-major. Its first tile's step also
+//   computes delta = rowsum(out * dout) from the dO tile and the out tile
+//   (parked in the ring's last stage until then) and writes it for the
+//   second kernel.
+// - attn_dkv_kernel: 64 keys. K and V stay resident in shared memory;
+//   64-query tiles of Q and dO, with their lse and delta, stream through
+//   the ring. S^T = K Q^T and dP^T = V dO^T - delta (the accumulator starts
+//   at -delta), P^T and dS^T in registers, then dV += P^T dO and dK += dS^T
+//   Q with Q and dO read MN-major. dK and dV accumulate in registers over
+//   the whole query loop, in a fixed order. At most 168 registers, so three
+//   blocks fit on an SM.
+// Both kernels stage their bf16 output tile through shared memory and
+// store whole 16-byte chunks.
+//
+// Shared-memory tiles are (64, E) bf16 in wgmma's canonical K-major layout
+// with the swizzle of their row width: at E = 64 a row is one 128-byte
+// swizzle atom, at E = 32 a 64-byte one. The same tile read with the
+// transpose bit set is the MN-major B operand of the dq, dk, dv products.
+// Loads are cp.async 16-byte copies (rows past s zero-filled by the copy's
+// source size), one commit group per tile, through a 3-stage ring: two
+// tiles are in flight while wgmma runs on the current one. cp.async, not
+// TMA: it takes the U-Net's strided views and the ragged last tile as they
+// are, with no tensor map to encode on the host for every call. At e = 64 a
+// block holds 8 tiles, 66.5 KB: three blocks share an SM.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace kdt {
+
+struct Rows {
+  long batch, seq;  // element strides of the batch and sequence axes
+};
+
+namespace attn_bwd {
+
+constexpr int ROWS = 64;  // rows of every tile: wgmma's M, and the key or query tile
+
+template <int E>
+constexpr int TILE = ROWS * E;  // elements of one (64, E) tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled (64, E) tile: the
+// 128-byte swizzle (E = 64) XORs the chunk with r mod 8, the 64-byte one
+// (E = 32) with (r / 2) mod 4, as the hardware does on the address bits.
+template <int E>
+__device__ __forceinline__ uint32_t swizzle(int r, int c) {
+  if constexpr (E == 64) return r * 128 + ((c ^ (r & 7)) << 4);
+  else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// wgmma shared-memory descriptor of a (64, E) tile at `tile` (aligned to
+// 1024 bytes). Both majors use the same strides: 8-row groups SBO apart
+// (8 rows of 2E bytes); LBO is unused by either (one swizzle atom wide).
+template <int E>
+__device__ __forceinline__ uint64_t desc(const bf16* tile) {
+  constexpr uint64_t layout = E == 64 ? 1 : 2;  // 128-byte / 64-byte swizzle
+  constexpr uint64_t sbo = 8 * 2 * E / 16;
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (sbo << 32) | (layout << 62);
+}
+// Descriptor steps of one k16 slice, in 16-byte units: along a row (K-major,
+// the contraction over E) and down 16 rows (MN-major, over the tile's rows).
+constexpr uint64_t K_STEP = 2;
+template <int E>
+constexpr uint64_t ROW_STEP = 16 * 2 * E / 16;
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's groups are in flight, then makes
+// the copies visible to wgmma (the async proxy); a __syncthreads must follow
+// before another thread's copies are read.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Starts the copy of rows [r0, r0 + 64) of one head's (s, E) slice (row
+// stride ld, `base` at row 0 of the head) into a swizzled tile; rows at or
+// past s are zero-filled.
+template <int E>
+__device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* base, long ld, int r0,
+                                                int s) {
+  constexpr int CH = E / 8;  // 16-byte chunks per row
+  const uint32_t dst = smem_u32(tile);
+  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < s;
+    cp_async16(dst + swizzle<E>(r, c), ok ? base + (r0 + r) * ld + c * 8 : base, ok);
+  }
+}
+
+// Starts the copy of entries [r0, r0 + 64) of a (s,) row of lse (off 0) or
+// delta (off 2) into a tile's statistics: entry i goes to float 4 (i / 2) +
+// off + i % 2, so that one 16-byte read gives the lse and delta of a pair
+// of columns. Entries at or past s are zero-filled. Threads [first, first +
+// 64) take part.
+__device__ __forceinline__ void load_stats_async(float* dst, const float* src, int r0, int s,
+                                                 int first, int off) {
+  const int i = static_cast<int>(threadIdx.x) - first;
+  if (i >= 0 && i < ROWS) {
+    const bool ok = r0 + i < s;
+    cp_async4(smem_u32(dst + 4 * (i / 2) + off + i % 2), ok ? src + r0 + i : src, ok);
+  }
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x, the hardware's approximation (as __expf uses it)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of the warpgroup's wgmma groups are in flight (the
+// oldest complete first).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of these registers across
+// the wgmma launch or wait next to it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d (64 x 64, f32) = or += A (64 x 16) B (16 x 64)^T, both K-major in shared
+// memory; `acc` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x N, f32) = or += A (64 x 16, bf16 pairs in registers) B (16 x N),
+// B in shared memory, K-major (TRANS_B 0) or MN-major (TRANS_B 1); `acc` 0
+// overwrites d.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TRANS_B));
+  } else {
+    static_assert(N == 32, "wgmma_rs takes N 32 or 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TRANS_B));
+  }
+}
+
+// The bf16 A fragments of the warpgroup's (64, E) tile in shared memory for
+// a product over E: k16 slice kk of each warp's 16 rows, by ldmatrix (lane
+// l gives row l % 8 of 8 x 8 matrix l / 8: rows +8 for odd matrices,
+// columns +8 for the upper two).
+template <int E>
+__device__ __forceinline__ void load_a(const bf16* tile, uint32_t (&a)[E / 16][4]) {
+  const int lane = threadIdx.x & 31, m = lane / 8;
+  const int row = (threadIdx.x / 32) * 16 + (m & 1) * 8 + (lane & 7);
+  const uint32_t base = smem_u32(tile);
+#pragma unroll
+  for (int kk = 0; kk < E / 16; ++kk)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+                 : "r"(base + swizzle<E>(row, 2 * kk + (m >> 1))));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Starts d = X Y^T over E for (64, E) tiles X and Y as a chain of E / 16
+// wgmma, not committed: Y K-major in shared memory, X there too (chain_ss,
+// which adds to d when `first` is 1) or in registers as A fragments
+// (chain_rs).
+template <int E>
+__device__ __forceinline__ void chain_ss(float (&d)[32], const bf16* x, const bf16* y,
+                                         int first) {
+  const uint64_t dx = desc<E>(x), dy = desc<E>(y);
+#pragma unroll
+  for (int kk = 0; kk < E / 16; ++kk)
+    wgmma_ss_n64(d, dx + kk * K_STEP, dy + kk * K_STEP, kk > 0 || first);
+}
+template <int E>
+__device__ __forceinline__ void chain_rs(float (&d)[32], const uint32_t (&x)[E / 16][4],
+                                         const bf16* y) {
+  const uint64_t dy = desc<E>(y);
+#pragma unroll
+  for (int kk = 0; kk < E / 16; ++kk) wgmma_rs<64, 0>(d, x[kk], dy + kk * K_STEP, kk);
+}
+
+// d += A B over the tile's 64 rows: A the 4 k16 slices of a 64 x 64 bf16
+// register operand, B a (64, E) tile read MN-major. Started and committed as
+// one group, not waited for.
+template <int E>
+__device__ __forceinline__ void rows_product(float (&d)[E / 2], uint32_t (&a)[4][4],
+                                             const bf16* b) {
+  const uint64_t db = desc<E>(b);
+  fence_regs(a);
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<E, 1>(d, a[kk], db + kk * ROW_STEP<E>, 1);
+  wgmma_commit();
+}
+
+// Packs a thread's accumulator elements of one 64 x 64 tile as the bf16
+// A operand of the next product over the tile's columns: k16 slice kk is
+// accumulator columns [16 kk, 16 kk + 16), which the thread holds as
+// x[8 kk .. 8 kk + 8) in the order the A fragment takes them.
+__device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// The bf16 A operands of P and dS = P (dP - delta) from a thread's p and
+// dp - delta (see pack_a), a pair at a time.
+__device__ __forceinline__ void pack_p_ds(const float (&p)[32], const float (&dpd)[32],
+                                          uint32_t (&a_p)[4][4], uint32_t (&a_ds)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 8 * kk + 2 * j;
+      a_p[kk][j] = pack_bf16(p[i], p[i + 1]);
+      a_ds[kk][j] = pack_bf16(p[i] * dpd[i], p[i + 1] * dpd[i + 1]);
+    }
+}
+
+// Rounds a thread's part of a 64 x E accumulator, times `mul`, to bf16 in
+// the swizzled (64, E) tile `stage` in shared memory.
+template <int E>
+__device__ __forceinline__ void stage_acc(const float (&d)[E / 2], float mul, bf16* stage) {
+  const int lane = threadIdx.x & 31;
+  const int r = (threadIdx.x / 32) * 16 + lane / 4, c = 2 * (lane & 3);
+  unsigned char* base = reinterpret_cast<unsigned char*>(stage);
+#pragma unroll
+  for (int i = 0; i < E / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(base + swizzle<E>(r + 8 * h, i) + 2 * c) =
+          __floats2bfloat162_rn(d[4 * i + 2 * h] * mul, d[4 * i + 2 * h + 1] * mul);
+}
+
+// Copies rows [0, valid) of a swizzled (64, E) tile to dst (row stride ld)
+// in whole 16-byte chunks, the block taking part.
+template <int E>
+__device__ __forceinline__ void store_tile(const bf16* stage, bf16* dst, long ld, int valid) {
+  constexpr int CH = E / 8;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(stage);
+  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    if (r < valid)
+      *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(base + swizzle<E>(r, c));
+  }
+}
+
+// Streamed tiles go through a ring of STAGES stages: the tile two ahead of
+// the current one is in flight while wgmma runs on the current one.
+constexpr int STAGES = 3;
+
+// Two resident tiles, STAGES pairs of streamed ones, STAGES statistics
+// blocks of 2 x 64 floats (the dq kernel uses one for delta), and the
+// slack to align the start to 1024 bytes.
+template <int E>
+constexpr size_t SMEM =
+    (2 + 2 * STAGES) * TILE<E> * sizeof(bf16) + STAGES * 2 * ROWS * sizeof(float) + 1024;
+
+// The dynamic shared memory, its start rounded up to 1024 bytes (the
+// swizzle pattern repeats every 1024 bytes of the shared address).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* smem) {
+  return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+}
+
+template <int E>
+__global__ void __launch_bounds__(128)
+attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ out,
+               const bf16* __restrict__ dout, const float* __restrict__ lse,
+               float* __restrict__ delta, bf16* __restrict__ dq, int s, int n_heads, Rows in,
+               float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  bf16* s_do = s_q + TILE<E>;
+  bf16* s_kv = s_do + TILE<E>;  // stage st: K at s_kv + 2 st TILE, V after it
+  float* s_delta = reinterpret_cast<float*>(s_kv + 2 * STAGES * TILE<E>);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * ROWS, head = blockIdx.y;
+  const long ld = static_cast<long>(n_heads) * E;  // packed row stride
+  const long packed = static_cast<long>(blockIdx.z) * s * ld + head * E;
+  const long src = static_cast<long>(blockIdx.z) * in.batch + head * E;
+  const long row0 = (static_cast<long>(blockIdx.z) * n_heads + head) * s;
+  const int n_tiles = (s + ROWS - 1) / ROWS;
+
+  // this thread's accumulator rows r and r + 8 of the query tile; lse in
+  // base-2 units
+  const int r = warp * 16 + lane / 4, c = 2 * (lane & 3);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    lse_r[h] = q0 + r + 8 * h < s ? lse[row0 + q0 + r + 8 * h] * LOG2E : 0.f;
+
+  // out waits in the ring's last stage, which no tile needs before delta
+  // has been computed
+  bf16* s_out = s_kv + 2 * (STAGES - 1) * TILE<E>;
+  load_tile_async<E>(s_q, q + src, in.seq, q0, s);
+  load_tile_async<E>(s_do, dout + packed, ld, q0, s);
+  load_tile_async<E>(s_out, out + packed, ld, q0, s);
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) {
+      load_tile_async<E>(s_kv + 2 * st * TILE<E>, k + src, in.seq, st * ROWS, s);
+      load_tile_async<E>(s_kv + (2 * st + 1) * TILE<E>, v + src, in.seq, st * ROWS, s);
+    }
+    cp_async_commit();
+  }
+  // starts the copy of the K and V tiles STAGES - 1 ahead of tile j (in
+  // stage st) and commits it, an empty group past the last tile
+  auto load_ahead = [&](int j, int st) {
+    if (j + STAGES - 1 < n_tiles) {
+      bf16* ahead = s_kv + 2 * ((st + STAGES - 1) % STAGES) * TILE<E>;
+      load_tile_async<E>(ahead, k + src, in.seq, (j + STAGES - 1) * ROWS, s);
+      load_tile_async<E>(ahead + TILE<E>, v + src, in.seq, (j + STAGES - 1) * ROWS, s);
+    }
+    cp_async_commit();
+  };
+
+  // delta = rowsum(out * dout) in f32 from the first group's out and dO
+  // tiles: two threads per row, each half a row in 16-byte chunks
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  {
+    const int row = threadIdx.x / 2;
+    const unsigned char* o_t = reinterpret_cast<const unsigned char*>(s_out);
+    const unsigned char* g_t = reinterpret_cast<const unsigned char*>(s_do);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < E / 16; ++i) {
+      const int ch = (threadIdx.x & 1) * (E / 16) + i;
+      const uint4 ov = *reinterpret_cast<const uint4*>(o_t + swizzle<E>(row, ch));
+      const uint4 gv = *reinterpret_cast<const uint4*>(g_t + swizzle<E>(row, ch));
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&ov)[w]);
+        const float2 b = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&gv)[w]);
+        sum += a.x * b.x + a.y * b.y;
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((threadIdx.x & 1) == 0) {
+      s_delta[row] = sum;
+      if (q0 + row < s) delta[row0 + q0 + row] = sum;
+    }
+  }
+  __syncthreads();  // s_delta written, out's stage free
+#pragma unroll
+  for (int h = 0; h < 2; ++h) delta_r[h] = s_delta[r + 8 * h];
+  // Q and dO stay in registers as A fragments
+  uint32_t a_q[E / 16][4], a_do[E / 16][4];
+  load_a<E>(s_q, a_q);
+  load_a<E>(s_do, a_do);
+
+  const float scale2 = scale * LOG2E;
+  float acc_dq[E / 2];
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) acc_dq[i] = 0.f;
+  float acc_s[32], acc_dp[32];
+  uint32_t a_ds[4][4];
+  for (int j = 0, st = 0; j < n_tiles; ++j, st = st + 1 == STAGES ? 0 : st + 1) {
+    const bf16* s_k = s_kv + 2 * st * TILE<E>;
+    const bf16* s_v = s_k + TILE<E>;
+    // the K and V tiles STAGES - 1 ahead go to the stage that iteration
+    // j - 1 (or, for j = 0, delta) finished with; tile 0 has arrived
+    load_ahead(j, st);
+    if (j > 0) {
+      cp_async_wait<STAGES - 1>();
+      __syncthreads();
+    }
+    // S, then dP, each its own group
+    fence_regs(a_q);
+    fence_regs(a_do);
+    wgmma_fence();
+    chain_rs<E>(acc_s, a_q, s_k);
+    wgmma_commit();
+    chain_rs<E>(acc_dp, a_do, s_v);
+    wgmma_commit();
+    // row r (+8), column 8i + c (+1) of the key tile: x[4i + 2h (+1)]
+    wgmma_wait<1>();
+    fence_regs(acc_s);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * ROWS + 8 * i + c + (e & 1);
+        acc_s[4 * i + e] =
+            key < s ? exp2_approx(acc_s[4 * i + e] * scale2 - lse_r[e / 2]) : 0.f;
+      }
+    wgmma_wait<0>();
+    fence_regs(acc_dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_dp[i] = acc_s[i] * (acc_dp[i] - delta_r[(i / 2) & 1]);
+    pack_a(acc_dp, a_ds);
+    rows_product<E>(acc_dq, a_ds, s_k);
+    wgmma_wait<0>();
+    fence_regs(acc_dq);
+    fence_regs(a_ds);
+    __syncthreads();  // every thread is done with this stage before it refills
+  }
+  stage_acc<E>(acc_dq, scale, s_kv);
+  __syncthreads();
+  store_tile<E>(s_kv, dq + packed + q0 * ld, ld, s - q0);
+}
+
+// At most 168 registers a thread, so that three blocks fit on an SM.
+template <int E>
+__global__ void __launch_bounds__(128, 3)
+attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int n_heads, Rows in,
+                float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* s_k = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  bf16* s_v = s_k + TILE<E>;
+  bf16* s_qd = s_v + TILE<E>;  // stage st: Q at s_qd + 2 st TILE, dO after it
+  float* s_stats = reinterpret_cast<float*>(s_qd + 2 * STAGES * TILE<E>);  // 2 x 64 a stage
+
+  const int lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * ROWS, head = blockIdx.y;
+  const long ld = static_cast<long>(n_heads) * E;
+  const long packed = static_cast<long>(blockIdx.z) * s * ld + head * E;
+  const long src = static_cast<long>(blockIdx.z) * in.batch + head * E;
+  const long row0 = (static_cast<long>(blockIdx.z) * n_heads + head) * s;
+  const int n_tiles = (s + ROWS - 1) / ROWS;
+  const bf16 *q_h = q + src, *dout_h = dout + packed;
+  const float *lse_h = lse + row0, *delta_h = delta + row0;
+
+  auto load_stage = [&](int j, int st) {
+    bf16* tile = s_qd + 2 * st * TILE<E>;
+    float* stats = s_stats + 2 * ROWS * st;
+    load_tile_async<E>(tile, q_h, in.seq, j * ROWS, s);
+    load_tile_async<E>(tile + TILE<E>, dout_h, ld, j * ROWS, s);
+    load_stats_async(stats, lse_h, j * ROWS, s, 0, 0);
+    load_stats_async(stats, delta_h, j * ROWS, s, ROWS, 2);
+  };
+  load_tile_async<E>(s_k, k + src, in.seq, k0, s);
+  load_tile_async<E>(s_v, v + src, in.seq, k0, s);
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_stage(st, st);
+    cp_async_commit();
+  }
+
+  const int c = 2 * (lane & 3);
+  const float scale2 = scale * LOG2E;
+  float acc_dk[E / 2], acc_dv[E / 2];
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  float acc_s[32], acc_dp[32];
+  uint32_t a_p[4][4], a_ds[4][4];
+  for (int j = 0, st = 0; j < n_tiles; ++j, st = st + 1 == STAGES ? 0 : st + 1) {
+    const bf16* s_q = s_qd + 2 * st * TILE<E>;
+    const bf16* s_do = s_q + TILE<E>;
+    if (j + STAGES - 1 < n_tiles) load_stage(j + STAGES - 1, (st + STAGES - 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    // rows: keys; column 8i + c (+1): query j * 64 + 8i + c (+1), whose
+    // lse and delta are the float4 4i + c / 2 of the stage's statistics
+    const float4* stats = reinterpret_cast<const float4*>(s_stats + 2 * ROWS * st);
+    float lse2[16];  // base 2
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 t = stats[4 * i + c / 2];
+      lse2[2 * i] = t.x * LOG2E;
+      lse2[2 * i + 1] = t.y * LOG2E;
+      acc_dp[4 * i] = acc_dp[4 * i + 2] = -t.z;
+      acc_dp[4 * i + 1] = acc_dp[4 * i + 3] = -t.w;
+    }
+    // S^T, then dP^T - delta, each its own group
+    wgmma_fence();
+    chain_ss<E>(acc_s, s_k, s_q, 0);
+    wgmma_commit();
+    chain_ss<E>(acc_dp, s_v, s_do, 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc_s);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * i + c + (e & 1);
+        acc_s[4 * i + e] = j * ROWS + col < s
+                               ? exp2_approx(acc_s[4 * i + e] * scale2 - lse2[2 * i + (e & 1)])
+                               : 0.f;
+      }
+    wgmma_wait<0>();
+    fence_regs(acc_dp);
+    pack_p_ds(acc_s, acc_dp, a_p, a_ds);
+    rows_product<E>(acc_dv, a_p, s_do);
+    rows_product<E>(acc_dk, a_ds, s_q);
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    fence_regs(a_p);
+    fence_regs(a_ds);
+    __syncthreads();  // every thread is done with this stage before it refills
+  }
+  stage_acc<E>(acc_dk, scale, s_qd);
+  stage_acc<E>(acc_dv, 1.f, s_qd + TILE<E>);
+  __syncthreads();
+  store_tile<E>(s_qd, dk + packed + k0 * ld, ld, s - k0);
+  store_tile<E>(s_qd + TILE<E>, dv + packed + k0 * ld, ld, s - k0);
+}
+
+// Launches the dq kernel, then the dk/dv kernel, on q, k, v read through
+// `in` (head h at column h * E) and out, dout (b, s, heads, E) contiguous;
+// writes delta (b, heads, s) f32 and dq, dk, dv (b, s, heads, E) bf16,
+// contiguous. Returns the CUDA error code.
+template <int E>
+int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
+           const void* lse, void* delta, void* dq, void* dk, void* dv, int b, int s,
+           int n_heads, Rows in, float scale, cudaStream_t st) {
+  const dim3 grid((s + ROWS - 1) / ROWS, n_heads, b);
+  cudaError_t attr = allow_smem(attn_dq_kernel<E>, SMEM<E>);
+  attn_dq_kernel<E><<<grid, 128, SMEM<E>, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), s,
+      n_heads, in, scale);
+  const int status = launch_status(attr);
+  if (status != 0) return status;
+  attr = allow_smem(attn_dkv_kernel<E>, SMEM<E>);
+  attn_dkv_kernel<E><<<grid, 128, SMEM<E>, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s,
+      n_heads, in, scale);
+  return launch_status(attr);
+}
+
+}  // namespace attn_bwd
+}  // namespace kdt

@@ -12,39 +12,35 @@
 // the products and moves 2.25x the bytes (q, k, v, out, dout in; dq, dk, dv
 // out, the lse and delta rows aside).
 //
-// Design. A block is four warps and owns 64 rows of one head of one image:
-// the grid is (s / 64 tiles, heads, batch), so no head-masked products and
-// no pack transposes: rows are read with the caller's batch and sequence
-// strides (the U-Net's q, k, v are strided views of one qkv projection),
-// and the head dim is the contiguous last axis. Products are wmma 16x16x16
-// bf16 fragments with float32 accumulation, a warp owning a 16-row strip.
-// - flash_fwd_kernel: 64 queries; 64-key tiles of k and v stream through
-//   shared memory. Per tile a warp forms its 16 x 64 logits, updates each
-//   row's running max and sum (the logits are not bounded, so the max is
-//   subtracted), rescales its running output, which lives in shared memory
-//   because a wmma accumulator's row layout is opaque, and adds p v. It
-//   writes out / l in bf16 and lse = max + log(sum) in float32.
-// - flash_dq_kernel: 64 queries; per key tile p = exp(scale s - lse),
-//   ds = p (dout v^T - delta), dq += ds k, in registers; no atomics.
-// - flash_dkv_kernel: 64 keys; per 64-query tile, p^T and ds^T for its keys,
-//   dv += p^T dout and dk += ds^T q in registers; no atomics.
-// delta = rowsum(out * dout) comes from the caller, as in the JAX package.
-// No tile is double-buffered: a simple kernel first.
+// Design of the forward. A block is four warps and owns 64 queries of one
+// head of one image: the grid is (s / 64 tiles, heads, batch), so no
+// head-masked products and no pack transposes: rows are read with the
+// caller's batch and sequence strides (the U-Net's q, k, v are strided views
+// of one qkv projection), and the head dim is the contiguous last axis.
+// Products are wmma 16x16x16 bf16 fragments with float32 accumulation, a
+// warp owning a 16-row strip. flash_fwd_kernel streams 64-key tiles of k and
+// v through shared memory. Per tile a warp forms its 16 x 64 logits, updates
+// each row's running max and sum (the logits are not bounded, so the max is
+// subtracted), rescales its running output, which lives in shared memory
+// because a wmma accumulator's row layout is opaque, and adds p v. It writes
+// out / l in bf16 and lse = max + log(sum) in float32. No tile is
+// double-buffered: a simple kernel first.
+//
+// The backward is the wgmma design of attn_bwd.cuh, which K9 shares; its dq
+// kernel also computes delta = rowsum(out * dout), which the JAX package
+// computes outside its kernels.
 //
 // The head dim E is a template parameter, 64 or 32 (the HDiT of
-// configs/config_test_tiny.json): q, k, v, dout tiles are (64, E) at row
-// stride E + 8, the logit strips stay 16 x 64 (one key tile), and a warp's
-// output strip is 16 x E.
+// configs/config_test_tiny.json): the forward's q, k, v tiles are (64, E)
+// at row stride E + 8, the logit strips stay 16 x 64 (one key tile), and a
+// warp's output strip is 16 x E.
+#include "attn_bwd.cuh"
 #include "common.cuh"
 
 namespace kdt {
 namespace {
 
 constexpr int BN = 64;  // keys (or queries) of a streamed tile
-
-struct Rows {
-  long batch, seq;  // element strides of the batch and sequence axes
-};
 
 // The (64, E) tile of one head starting at sequence row r0, zero past s.
 template <int E>
@@ -153,186 +149,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  ldo, nullptr, valid);
 }
 
-// dq for 64 queries of one head: streams 64-key tiles of k and v.
-template <int E>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int s, int n_heads, Rows in, float scale) {
-  constexpr int LDE = E + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_do = s_q + BM * LDE;
-  bf16* s_k = s_do + BM * LDE;
-  bf16* s_v = s_k + BN * LDE;
-  float* s_s = reinterpret_cast<float*>(s_v + BN * LDE);
-  float* s_dp = s_s + WARPS * STRIP * LDF;
-  __shared__ float s_lse[BM], s_delta[BM];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * BM, head = blockIdx.y;
-  const long img = static_cast<long>(blockIdx.z) * in.batch;
-  const Rows packed{static_cast<long>(s) * n_heads * E, static_cast<long>(n_heads) * E};
-  const long opack = static_cast<long>(blockIdx.z) * packed.batch;
-  const long row0 = (static_cast<long>(blockIdx.z) * n_heads + head) * s + q0;
-  float* sw = s_s + warp * STRIP * LDF;
-  float* dw = s_dp + warp * STRIP * LDF;
-
-  load_rows<E>(s_q, q + img, in, head, q0, s);
-  load_rows<E>(s_do, dout + opack, packed, head, q0, s);
-  if (threadIdx.x < BM) {
-    const bool ok = q0 + threadIdx.x < s;
-    s_lse[threadIdx.x] = ok ? lse[row0 + threadIdx.x] : 0.f;
-    s_delta[threadIdx.x] = ok ? delta[row0 + threadIdx.x] : 0.f;
-  }
-  __syncthreads();
-  FragA qa[E / 16], da[E / 16];
-#pragma unroll
-  for (int kk = 0; kk < E / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], s_q + warp * STRIP * LDE + 16 * kk, LDE);
-    wmma::load_matrix_sync(da[kk], s_do + warp * STRIP * LDE + 16 * kk, LDE);
-  }
-  FragC acc_dq[E / 16];
-  zero(acc_dq);
-  for (int k0 = 0; k0 < s; k0 += BN) {
-    load_rows<E>(s_k, k + img, in, head, k0, s);
-    load_rows<E>(s_v, v + img, in, head, k0, s);
-    __syncthreads();
-    {
-      FragC acc_s[4], acc_dp[4];
-      zero(acc_s);
-      zero(acc_dp);
-#pragma unroll
-      for (int kk = 0; kk < E / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          FragBt fb;
-          wmma::load_matrix_sync(fb, s_k + 16 * j * LDE + 16 * kk, LDE);
-          wmma::mma_sync(acc_s[j], qa[kk], fb, acc_s[j]);
-          wmma::load_matrix_sync(fb, s_v + 16 * j * LDE + 16 * kk, LDE);
-          wmma::mma_sync(acc_dp[j], da[kk], fb, acc_dp[j]);
-        }
-      store_strip(sw, LDF, acc_s);
-      store_strip(dw, LDF, acc_dp);
-    }
-    for (int i = lane; i < STRIP * BN; i += 32) {
-      const int m = i / BN, j = i % BN, r = warp * STRIP + m;
-      const float p = k0 + j < s ? __expf(sw[m * LDF + j] * scale - s_lse[r]) : 0.f;
-      sw[m * LDF + j] = p * (dw[m * LDF + j] - s_delta[r]);
-    }
-    __syncwarp();
-    strip_to_bf16(sw, LDF, BN);
-    mma_strip(reinterpret_cast<const bf16*>(sw), 2 * LDF, s_k, LDE, BN, acc_dq);
-    __syncthreads();  // every warp is done with this k and v tile
-  }
-#pragma unroll
-  for (int j = 0; j < E / 16; ++j)
-    for (int t = 0; t < acc_dq[j].num_elements; ++t) acc_dq[j].x[t] *= scale;
-  const int r0 = warp * STRIP;
-  store_strip(sw, LDF, acc_dq);
-  write_strip<E>(sw, LDF, dq + opack + (q0 + r0) * packed.seq + head * E, packed.seq, nullptr,
-                 s - q0 - r0);
-}
-
-// dk and dv for 64 keys of one head: streams 64-query tiles of q and dout.
-template <int E>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int n_heads, Rows in,
-                 float scale) {
-  constexpr int LDE = E + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem);
-  bf16* s_v = s_k + BN * LDE;
-  bf16* s_q = s_v + BN * LDE;
-  bf16* s_do = s_q + BM * LDE;
-  float* s_pt = reinterpret_cast<float*>(s_do + BM * LDE);
-  float* s_dst = s_pt + WARPS * STRIP * LDF;
-  __shared__ float s_lse[BM], s_delta[BM];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * BN, head = blockIdx.y;
-  const long img = static_cast<long>(blockIdx.z) * in.batch;
-  const Rows packed{static_cast<long>(s) * n_heads * E, static_cast<long>(n_heads) * E};
-  const long opack = static_cast<long>(blockIdx.z) * packed.batch;
-  const long lrow = (static_cast<long>(blockIdx.z) * n_heads + head) * s;
-  float* pt = s_pt + warp * STRIP * LDF;
-  float* dst = s_dst + warp * STRIP * LDF;
-
-  load_rows<E>(s_k, k + img, in, head, k0, s);
-  load_rows<E>(s_v, v + img, in, head, k0, s);
-  __syncthreads();
-  FragA ka[E / 16], va[E / 16];
-#pragma unroll
-  for (int kk = 0; kk < E / 16; ++kk) {
-    wmma::load_matrix_sync(ka[kk], s_k + warp * STRIP * LDE + 16 * kk, LDE);
-    wmma::load_matrix_sync(va[kk], s_v + warp * STRIP * LDE + 16 * kk, LDE);
-  }
-  FragC acc_dk[E / 16], acc_dv[E / 16];
-  zero(acc_dk);
-  zero(acc_dv);
-  for (int q0 = 0; q0 < s; q0 += BM) {
-    load_rows<E>(s_q, q + img, in, head, q0, s);
-    load_rows<E>(s_do, dout + opack, packed, head, q0, s);
-    if (threadIdx.x < BM) {
-      const bool ok = q0 + threadIdx.x < s;
-      s_lse[threadIdx.x] = ok ? lse[lrow + q0 + threadIdx.x] : 0.f;
-      s_delta[threadIdx.x] = ok ? delta[lrow + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    {
-      FragC acc_s[4], acc_dp[4];
-      zero(acc_s);
-      zero(acc_dp);
-#pragma unroll
-      for (int kk = 0; kk < E / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          FragBt fb;
-          wmma::load_matrix_sync(fb, s_q + 16 * j * LDE + 16 * kk, LDE);
-          wmma::mma_sync(acc_s[j], ka[kk], fb, acc_s[j]);
-          wmma::load_matrix_sync(fb, s_do + 16 * j * LDE + 16 * kk, LDE);
-          wmma::mma_sync(acc_dp[j], va[kk], fb, acc_dp[j]);
-        }
-      store_strip(pt, LDF, acc_s);
-      store_strip(dst, LDF, acc_dp);
-    }
-    // rows: this warp's 16 keys; columns: the tile's 64 queries
-    for (int i = lane; i < STRIP * BM; i += 32) {
-      const int m = i / BM, j = i % BM;
-      const float p = q0 + j < s ? __expf(pt[m * LDF + j] * scale - s_lse[j]) : 0.f;
-      pt[m * LDF + j] = p;
-      dst[m * LDF + j] = p * (dst[m * LDF + j] - s_delta[j]);
-    }
-    __syncwarp();
-    strip_to_bf16(pt, LDF, BM);
-    strip_to_bf16(dst, LDF, BM);
-    mma_strip(reinterpret_cast<const bf16*>(pt), 2 * LDF, s_do, LDE, BM, acc_dv);
-    mma_strip(reinterpret_cast<const bf16*>(dst), 2 * LDF, s_q, LDE, BM, acc_dk);
-    __syncthreads();  // before the next tile overwrites q, dout, lse, delta
-  }
-#pragma unroll
-  for (int j = 0; j < E / 16; ++j)
-    for (int t = 0; t < acc_dk[j].num_elements; ++t) acc_dk[j].x[t] *= scale;
-  const int r0 = warp * STRIP;
-  bf16* dk_rows = dk + opack + (k0 + r0) * packed.seq + head * E;
-  bf16* dv_rows = dv + opack + (k0 + r0) * packed.seq + head * E;
-  store_strip(pt, LDF, acc_dk);
-  write_strip<E>(pt, LDF, dk_rows, packed.seq, nullptr, s - k0 - r0);
-  store_strip(pt, LDF, acc_dv);
-  write_strip<E>(pt, LDF, dv_rows, packed.seq, nullptr, s - k0 - r0);
-}
-
 template <int E>
 constexpr size_t FWD_SMEM =
     (BM + 2 * BN) * (E + 8) * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
-template <int E>
-constexpr size_t BWD_SMEM =
-    (2 * BM + 2 * BN) * (E + 8) * sizeof(bf16) + 2 * WARPS * STRIP * LDF * sizeof(float);
-
 template <int E>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b, int s,
                int n_heads, Rows in, float scale, cudaStream_t st) {
@@ -341,27 +160,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   flash_fwd_kernel<E><<<grid, THREADS, FWD_SMEM<E>, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), s, n_heads, in, scale);
-  return launch_status(attr);
-}
-
-template <int E>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dq, void* dk, void* dv, int b, int s, int n_heads,
-               Rows in, float scale, cudaStream_t st) {
-  const dim3 grid((s + BM - 1) / BM, n_heads, b);
-  cudaError_t attr = allow_smem(flash_dq_kernel<E>, BWD_SMEM<E>);
-  flash_dq_kernel<E><<<grid, THREADS, BWD_SMEM<E>, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), s, n_heads, in, scale);
-  const int status = launch_status(attr);
-  if (status != 0) return status;
-  attr = allow_smem(flash_dkv_kernel<E>, BWD_SMEM<E>);
-  flash_dkv_kernel<E><<<grid, THREADS, BWD_SMEM<E>, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s,
-      n_heads, in, scale);
   return launch_status(attr);
 }
 
@@ -387,20 +185,23 @@ extern "C" int kdt_flash_fwd(const void* q, const void* k, const void* v, void* 
   }
 }
 
-// K14: q, k, v as for K13; dout (b, s, heads, e) bf16 contiguous; lse
-// from K13 and delta = rowsum(out * dout), both (b, heads, s) f32. Writes
-// dq, dk, dv (b, s, heads, e) bf16, contiguous.
-extern "C" int kdt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                             int b, int s, int n_heads, int e, long stride_b, long stride_s,
-                             float scale, void* stream) {
+// K14: q, k, v as for K13; out (K13's) and dout (b, s, heads, e) bf16
+// contiguous; lse from K13, (b, heads, s) f32. Writes delta = rowsum(out *
+// dout), (b, heads, s) f32 scratch, and dq, dk, dv (b, s, heads, e) bf16,
+// contiguous.
+extern "C" int kdt_flash_bwd(const void* q, const void* k, const void* v, const void* out,
+                             const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                             void* dv, int b, int s, int n_heads, int e, long stride_b,
+                             long stride_s, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Rows in{stride_b, stride_s};
   switch (e) {
     case 32:
-      return launch_bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, b, s, n_heads, in, scale, st);
+      return attn_bwd::launch<32>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, s, n_heads, in,
+                                  scale, st);
     case 64:
-      return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, b, s, n_heads, in, scale, st);
+      return attn_bwd::launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, s, n_heads, in,
+                                  scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,10 +3,12 @@ backward (counterpart of k_diffusion_tpu/ops/pallas/flash.py).
 
 CUDA tensors go to the hand-written kernels in ``csrc/flash.cu`` through an
 autograd Function: the forward K13 (which also writes the per-head
-logsumexp when a backward follows) and the backward K14 (a dq kernel and a
-dk/dv kernel, counted as one launch). With autograd off, as in sampling,
-the wrapper calls K13 directly. CPU tensors go to ``reference``, the plain
-version, which autograd differentiates.
+logsumexp when a backward follows) and the backward K14, the wgmma kernels
+of ``csrc/attn_bwd.cuh`` that K9 shares (a dq kernel, which also computes
+delta = rowsum(out * dout), and a dk/dv kernel, counted as one launch).
+With autograd off, as in sampling, the wrapper calls K13 directly. CPU
+tensors go to ``reference``, the plain version, which autograd
+differentiates.
 
 The kernels read q, k and v through their batch and sequence strides, so
 the U-Net's q, k, v, strided views of one qkv projection, are not copied;
@@ -30,10 +32,10 @@ _L = ctypes.c_long
 # q, k, v, out, lse, batch, seq, heads, head dim, stride_b, stride_s,
 # scale, stream
 _SIGNATURE = [_P] * 5 + [ctypes.c_int] * 4 + [_L] * 2 + [ctypes.c_float, _P]
-# q, k, v, dout, lse, delta, dq, dk, dv, batch, seq, heads, head dim,
+# q, k, v, out, dout, lse, delta, dq, dk, dv, batch, seq, heads, head dim,
 # stride_b, stride_s, scale, stream
-_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 4 + [_L] * 2 + [ctypes.c_float,
-                                                                _P]
+_BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 4 + [_L] * 2 + [ctypes.c_float,
+                                                                 _P]
 
 
 def reference(q, k, v, scale=1.0):
@@ -98,8 +100,9 @@ def flash_forward(q, k, v, scale=1.0, save_lse=False):
 
 def flash_backward(q, k, v, out, lse, dout, scale=1.0):
     """Launches K14 on CUDA tensors: returns (dq, dk, dv) bf16, each (b, s,
-    heads, e) contiguous. delta = rowsum(out * dout) is a plain float32
-    reduction here, as in the JAX package."""
+    heads, e) contiguous. Its dq kernel computes delta = rowsum(out * dout)
+    into scratch for the dk/dv kernel (the JAX package computes it outside
+    its kernels)."""
     _check(q, k, v, "flash_attention backward")
     b, s, heads, e = q.shape
     dev = q.device
@@ -107,13 +110,13 @@ def flash_backward(q, k, v, out, lse, dout, scale=1.0):
     for name, t in (("out", out), ("dout", dout)):
         _build.require(t, name, dev, torch.bfloat16, (b, s, heads, e))
     _build.require(lse, "lse", dev, torch.float32, (b, heads, s))
-    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty((b, s, heads, e), device=dev, dtype=q.dtype)
                   for _ in range(3))
     lib = _build.load("flash", kdt_flash_bwd=_BWD_SIGNATURE)
     status = lib.kdt_flash_bwd(
-        *map(_build.ptr, (q, k, v, dout, lse, delta, dq, dk, dv)), b, s, heads,
-        e, q.stride(0), q.stride(1), scale, _build.stream_ptr(dev))
+        *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, s,
+        heads, e, q.stride(0), q.stride(1), scale, _build.stream_ptr(dev))
     _build.check_launch(lib, status, "flash backward")
     global bwd_launches
     bwd_launches += 1

@@ -3,7 +3,9 @@
 
 CUDA tensors go to the hand-written kernels in ``csrc/global_packed.cu``
 through an autograd Function: the forward K3 (which also writes the per-head
-logsumexp when a backward follows) and the backward K9. CPU tensors go to
+logsumexp when a backward follows) and the backward K9, the wgmma kernels of
+``csrc/attn_bwd.cuh`` that K14 shares (a packed map is K14's strided layout
+at head dim 64). CPU tensors go to
 ``reference``, the plain version, which autograd differentiates.
 """
 
@@ -17,7 +19,7 @@ from . import _build
 launches = 0      # K3 launches since the last reset
 bwd_launches = 0  # K9 launches (its two kernels count as one)
 
-MAX_SEQ = 512  # the kernels keep a query strip's logits and K or V in smem
+MAX_SEQ = 512  # K3 keeps a query strip's logits and all of K or V in smem
 
 _P = ctypes.c_void_p
 # q, k, v, out, lse, batch, seq, heads, scale, stream

@@ -186,10 +186,10 @@ def test_na2d_overlap_add(dev, b, h, w, heads, ks):
 
 
 @pytest.mark.parametrize("b,s,heads", [(3, 16, 2), (2, 48, 2), (2, 80, 8),
-                                       (1, 512, 1)])
+                                       (1, 512, 1), (2, 512, 4)])
 def test_global_packed_backward(dev, b, s, heads):
     """K9 against autograd through the plain version, s below one 64-row
-    block and ragged."""
+    block and ragged; a rerun gives bit-equal gradients (no atomics)."""
     g = torch.Generator().manual_seed(7)
     c = heads * 64
     q, k = unit_heads(g, dev, b, s, c), unit_heads(g, dev, b, s, c)
@@ -201,6 +201,29 @@ def test_global_packed_backward(dev, b, s, heads):
     got = counted(global_packed, lambda: global_packed.packed_backward(
         q, k, v, out, lse, dout, heads), "bwd_launches")
     assert_all_close(got, global_packed.reference_backward(q, k, v, dout, heads))
+    again = global_packed.packed_backward(q, k, v, out, lse, dout, heads)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("b,s,heads,scale", [(8, 256, 8, 1.0), (3, 16, 2, 1.0),
+                                             (2, 80, 4, 0.125)])
+def test_global_packed_and_flash_backward_agree_bit_for_bit(dev, b, s, heads,
+                                                            scale):
+    """K9 and K14 share their kernels (csrc/attn_bwd.cuh): on one contiguous
+    packed input at head dim 64, with the same out and lse, they give the
+    same dq, dk, dv bit for bit."""
+    g = torch.Generator().manual_seed(20)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, s, c), unit_heads(g, dev, b, s, c)
+    v, dout = normal(g, dev, b, s, c), normal(g, dev, b, s, c)
+    out, lse = global_packed.packed_forward(q, k, v, heads, scale,
+                                            save_lse=True)
+    packed = global_packed.packed_backward(q, k, v, out, lse, dout, heads,
+                                           scale)
+    split = [t.reshape(b, s, heads, 64) for t in (q, k, v, out, dout)]
+    strided = flash.flash_backward(*split[:4], lse, split[4], scale)
+    for a, b_ in zip(packed, strided):
+        assert torch.equal(a, b_.reshape(b, s, c))
 
 
 @pytest.mark.parametrize("b,t,d,d_ff", [(3, 16, 128, 384), (2, 100, 256, 64),
@@ -399,7 +422,7 @@ def test_fused_qkv_head_dim_32(dev, b, h, w, d):
 
 
 @pytest.mark.parametrize("b,s,heads,scale", [(8, 64, 2, 1.0), (2, 100, 3, 0.125),
-                                             (2, 1, 1, 0.125)])
+                                             (1, 200, 2, 0.125), (2, 1, 1, 0.125)])
 def test_flash_head_dim_32(dev, b, s, heads, scale):
     """K13 and K14 at head dim 32 on strided q, k, v; bit-equal reruns."""
     g = torch.Generator().manual_seed(16)
