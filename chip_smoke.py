@@ -6,12 +6,13 @@
 Phases, each printing one line (the kernel phases one per kernel and shape):
 1. device: needs a CUDA device; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel from csrc/ with nvcc, and prints the
-   registers and spills of the attention backward's kernels (none may
-   spill);
+   registers and spills of the attention kernels, the forward (K3, K13)
+   and the backward's two (K9, K14) at each head dim (none may spill);
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
-   same function, that call's times from CUDA events;
+   same function, that call's times from CUDA events; then K3's training
+   forward, out and logsumexp, against the plain versions;
 4. forward: the flagship HDiT (configs/config_oxford_flowers.json, seeded
    weights, zero-init tensors filled with noise) at batch 2 in bfloat16 on
    the card against the same weights in float32 on the CPU (plain versions);
@@ -19,8 +20,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    finite and every kernel's launch count must match the model's layout;
 6. backward kernels: K6-K10 against their plain versions (autograd through
    the forward's plain version; a plain overlap-add for K8) at the flagship
-   training shapes, batch 8, as in phase 3; then K9 against K14 bit for bit
-   on one packed input (they share their wgmma kernels);
+   training shapes, batch 8, as in phase 3; then, on one packed input, K3
+   against K13 (out and logsumexp) and K9 against K14 (dq, dk, dv) bit for
+   bit: each pair runs one wgmma design;
 7. gradient parity: one training step's loss and full parameter gradient,
    the flagship at batch 2 in bfloat16 on the card against the same
    weights, reals, noise and sigmas in float32 on the CPU, dropout off;
@@ -32,7 +34,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 9. flash kernels: K13 and K14 against their plain versions at the U-Net's
    shapes (configs/config_cifar10.json, batch 64: 16 x 16 and 8 x 8 levels,
    q, k, v strided views of one projection) and K13 at the mnist HDiT's
-   (7 x 7 tokens, batch 8), as in phase 3;
+   (7 x 7 tokens, batch 8), as in phase 3; then K13's training forward, out
+   and logsumexp, against the plain versions at the U-Net's shapes, at
+   s in {1, 49, 65, 200} and at head dim 32;
 10. U-Net forward: config_cifar10.json at full width, seeded weights with
    the zero-init tensors filled with noise, bfloat16 on the card at batch 2
    against float32 on the CPU, through the augment wrapper;
@@ -60,7 +64,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    every NA level through K11/K12 and no K1/K2/K4/K6/K7/K8/K10;
 17. head dim 32: K1/K6 and K13/K14 at configs/config_test_tiny.json's
    shapes against their plain versions, its forward at batch 8 and one
-   step's gradient at batch 2 against float32 on the CPU.
+   step's gradient at batch 2 against float32 on the CPU;
+18. default build: the flagship and the U-Net from make_model(config) with
+   no dtype and no device compute in bfloat16 on the card and give a
+   finite forward at batch 2; an explicit float32 there raises ValueError.
 
 Each kernel line also gives the kernel's achieved TFLOP/s (the operations
 its function needs over its time) and its time's share of the bound.
@@ -420,12 +427,20 @@ def backward_cases(dev):
     return cases
 
 
-def backward_bit_check(dev):
-    """K9 and K14 run the same kernels (csrc/attn_bwd.cuh): on one packed
-    input at the flagship's global level (batch 8, 256 tokens, 8 heads of
-    64, scale 1), with the same out and lse, their dq, dk, dv agree bit for
-    bit."""
+def attention_bit_check(dev):
+    """K3 and K13 run the same forward (csrc/attn_fwd.cuh), K9 and K14 the
+    same backward (csrc/attn_bwd.cuh): on one packed input at the
+    flagship's global level (batch 8, 256 tokens, 8 heads of 64, scale 1),
+    the forwards' out and lse agree bit for bit, and so do the backwards'
+    dq, dk, dv from the same out and lse."""
     from k_diffusion_tpu_torch.ops.kernels import flash, global_packed
+
+    def same(pair, names, got, want):
+        for name, a, b_ in zip(names, got, want):
+            b_ = b_.reshape(a.shape)
+            if not torch.equal(a, b_):
+                diff = (a.float() - b_.float()).abs().max().item()
+                raise AssertionError(f"{pair} {name} differ by {diff:.3e}")
 
     g = torch.Generator().manual_seed(SEED + 14)
     b, s, heads = SAMPLE_BATCH, 256, 8
@@ -435,15 +450,86 @@ def backward_bit_check(dev):
     v, dout = torch.randn((2, b, s, heads * 64), generator=g).to(
         dev, torch.bfloat16)
     out, lse = global_packed.packed_forward(q, k, v, heads, save_lse=True)
-    packed = global_packed.packed_backward(q, k, v, out, lse, dout, heads)
     split = [x.reshape(b, s, heads, 64) for x in (q, k, v, out, dout)]
+    same("K3 and K13", ("out", "lse"), (out, lse),
+         flash.flash_forward(*split[:3], 1.0, save_lse=True))
+    packed = global_packed.packed_backward(q, k, v, out, lse, dout, heads)
     strided = flash.flash_backward(*split[:4], lse, split[4], 1.0)
-    for name, a, b_ in zip(("dq", "dk", "dv"), packed, strided):
-        if not torch.equal(a, b_.reshape(a.shape)):
-            diff = (a.float() - b_.reshape(a.shape).float()).abs().max().item()
-            raise AssertionError(f"K9 and K14 {name} differ by {diff:.3e}")
-    print(f"backward bit check [{b}x{s}x{heads * 64}]: K9 and K14 give "
-          f"bit-identical dq, dk, dv on one packed input", flush=True)
+    same("K9 and K14", ("dq", "dk", "dv"), packed, strided)
+    print(f"attention bit check [{b}x{s}x{heads * 64}]: K3 and K13 give "
+          f"bit-identical out and lse, K9 and K14 bit-identical dq, dk, dv "
+          f"on one packed input", flush=True)
+
+
+def unet_attention_shapes(unet):
+    """((s, heads), calls per denoiser call) of the U-Net's attention
+    blocks, longest s first: heads follow each block's width, the last
+    block of an up stack narrowing to the next level's."""
+    m = unet["model"]
+    size = m["input_size"][0]
+    shapes = collections.Counter()
+    for i, (depth, attn) in enumerate(zip(m["depths"], m["self_attn_depths"])):
+        if attn:
+            s = (size >> i) ** 2
+            c, narrow = m["channels"][i], m["channels"][max(0, i - 1)]
+            shapes[s, c // 64] += 2 * depth - 1
+            shapes[s, narrow // 64] += 1
+    return sorted(shapes.items(), reverse=True)
+
+
+def forward_lse_check(dev, unet=None):
+    """The training forward of the attention kernels (save_lse=True): out
+    and logsumexp against the plain versions (``reference``,
+    ``reference_lse``) within KERNEL_REL_BOUND. Without ``unet``, K3 at the
+    flagship's global level (batch 8, 256 tokens, 8 heads) and at two other
+    lengths it is routed (16, 208); with it, K13 at the U-Net's shapes
+    (batch 64, strided views of one projection, scale 1/8) and, at head
+    dims 64 and 32, at s in {1, 49, 65, 200}, where the last key tile is
+    ragged (K3's wrapper routes only multiples of 16 to the same kernel).
+    K9 and K14 recompute p from this lse, so its base (natural log)
+    matters."""
+    from k_diffusion_tpu_torch.ops.kernels import flash, global_packed
+
+    g = torch.Generator().manual_seed(SEED + (15 if unet is None else 16))
+    bf16 = torch.bfloat16
+    worst = {"out": 0.0, "lse": 0.0}
+
+    def hold(label, got, want):
+        for name, a, b_ in zip(("out", "lse"), got, want):
+            err, _ = check_close(f"{label} {name}", a, b_, KERNEL_REL_BOUND)
+            worst[name] = max(worst[name], err)
+
+    labels = []
+    if unet is None:
+        for b, s, heads in ((SAMPLE_BATCH, 256, 8), (2, 16, 2), (2, 208, 4)):
+            t = torch.randn((2, b, s, heads, 64), generator=g)
+            q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+                2, b, s, heads * 64).to(dev, bf16)
+            v = torch.randn((b, s, heads * 64), generator=g).to(dev, bf16)
+            label = f"{b}x{s}x{heads * 64}"
+            hold(f"global_packed {label}",
+                 global_packed.packed_forward(q, k, v, heads, save_lse=True),
+                 (global_packed.reference(q, k, v, heads),
+                  global_packed.reference_lse(q, k, v, heads)))
+            labels.append(label)
+        name = "K3 (global_packed)"
+    else:
+        shapes = [(UNET_BATCH, s, heads, 64)
+                  for (s, heads), _ in unet_attention_shapes(unet)]
+        shapes += [(2, s, 3, e) for e in (64, 32) for s in (1, 49, 65, 200)]
+        for b, s, heads, e in shapes:
+            qkv = torch.randn((b, s, 3, heads, e), generator=g) * (64 / e) ** 0.5
+            q, k, v = qkv.to(dev, bf16).unbind(2)
+            label = f"{b}x{s}x{heads}x{e}"
+            hold(f"flash {label}",
+                 flash.flash_forward(q, k, v, 0.125, save_lse=True),
+                 (flash.reference(q, k, v, 0.125),
+                  flash.reference_lse(q, k, v, 0.125)))
+            labels.append(label)
+        name = "K13 (flash)"
+    print(f"forward lse: {name} with save_lse at {', '.join(labels)}: out "
+          f"max abs err {worst['out']:.3e}, lse {worst['lse']:.3e}, each "
+          f"within {KERNEL_REL_BOUND} x its max|plain|", flush=True)
 
 
 def flash_cases(dev, unet):
@@ -458,17 +544,8 @@ def flash_cases(dev, unet):
 
     g = torch.Generator().manual_seed(SEED + 6)
     bf16 = torch.bfloat16
-    m = unet["model"]
-    size = m["input_size"][0]
-    shapes = collections.Counter()
-    for i, (depth, attn) in enumerate(zip(m["depths"], m["self_attn_depths"])):
-        if attn:
-            s = (size >> i) ** 2
-            c, narrow = m["channels"][i], m["channels"][max(0, i - 1)]
-            shapes[s, c // 64] += 2 * depth - 1
-            shapes[s, narrow // 64] += 1
     cases = []
-    for (s, heads), n in sorted(shapes.items(), reverse=True):
+    for (s, heads), n in unet_attention_shapes(unet):
         b = UNET_BATCH
         label = f"{b}x{s}x{heads}x64"
         qkv = (torch.randn((b, s, 3, heads, 64), generator=g)).to(dev, bf16)
@@ -872,11 +949,12 @@ def main():
     secs = kernels.build()
     print(f"build: {len(kernels._build.SOURCES)} libraries in {secs:.1f} s",
           flush=True)
-    attn_bwd_report(kernels._build)
+    attention_report(kernels._build)
 
     results = {}
     with torch.no_grad():
         run_cases(kernel_cases(dev), results, 50, 5)
+        forward_lse_check(dev)
 
     # the flagship HDiT: phases 4-8
     config = KT.config.load_config(CONFIG)
@@ -897,7 +975,7 @@ def main():
 
     with torch.no_grad():
         run_cases(backward_cases(dev), results, 20, 3)
-        backward_bit_check(dev)
+        attention_bit_check(dev)
 
     grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
@@ -909,6 +987,7 @@ def main():
     unet = KT.config.load_config(UNET_CONFIG)
     with torch.no_grad():
         run_cases(flash_cases(dev, unet), results, 20, 5)
+        forward_lse_check(dev, unet)
     g = torch.Generator().manual_seed(SEED + 7)
     unet_flops = unet_forward_flops(KT, unet)
     with torch.no_grad():
@@ -998,13 +1077,17 @@ def main():
     print(f"test_tiny: launches per forward {tiny_fwd}, per step {tiny_step} "
           f"(head dim 32 through K1/K6 and K13/K14)", flush=True)
 
+    # the entry point's defaults: phase 18
+    for name, cfg in (("flagship", config), ("unet", unet)):
+        default_build_check(KT, cfg, name)
+
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
     # the unfused training steps for K11/K12, the op path for K15)
     paths = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
         "na2d": ("na2d.cu", "na2d.py:576", sample_counts),
-        "global_packed": ("global_packed.cu", "global_packed.py:57",
+        "global_packed": ("attn_fwd.cuh", "global_packed.py:57",
                           sample_counts),
         "fused_ffn": ("geglu.cu", "fused_ffn.py:42", sample_counts),
         "fused_mapping": ("geglu.cu", "fused_mapping.py:28", sample_counts),
@@ -1014,7 +1097,7 @@ def main():
         "global_packed_bwd": ("attn_bwd.cuh", "global_packed.py:111",
                               train_counts),
         "fused_ffn_bwd": ("geglu.cu", "fused_ffn.py:115", train_counts),
-        "flash": ("flash.cu", "flash.py:34", unet_sample_counts),
+        "flash": ("attn_fwd.cuh", "flash.py:34", unet_sample_counts),
         "flash_bwd": ("attn_bwd.cuh", "flash.py:57", unet_train_counts),
         "na2d_heads": ("na2d_heads.cu", "na2d.py:180", unfused_counts),
         "na2d_heads_bwd": ("na2d_heads.cu", "na2d.py:241", unfused_counts),
@@ -1043,10 +1126,10 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def attn_bwd_report(build):
-    """Registers and spills of the attention backward's kernels (K9, K14;
-    csrc/attn_bwd.cuh), from the compiler report kept beside each library;
-    raises if one spills."""
+def attention_report(build):
+    """Registers and spills of the attention kernels, the forward (K3, K13;
+    csrc/attn_fwd.cuh) and the backward (K9, K14; csrc/attn_bwd.cuh), from
+    the compiler report kept beside each library; raises if one spills."""
     import re
 
     seen = {}
@@ -1054,10 +1137,11 @@ def attn_bwd_report(build):
         fn = spill = None
         for line in build.library_path(name).with_suffix(".log").read_text(
                 ).splitlines():
-            m = re.search(r"Compiling entry function '\w*?(attn_d\w+?_kernel)"
-                          r"ILi(\d+)E", line)
+            m = re.search(r"Compiling entry function '\w*?(attn_[a-z]+_kernel)"
+                          r"ILi(\d+)E(?:Li(\d+)E)?", line)
             if m:
-                fn = f"{m.group(1)}<{m.group(2)}>"
+                args = ", ".join(a for a in m.groups()[1:] if a)
+                fn = f"{m.group(1)}<{args}>"
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and fn:
@@ -1066,11 +1150,47 @@ def attn_bwd_report(build):
             if m and fn:
                 seen[fn] = (int(m.group(1)), spill)
                 fn = None
-    if not seen or any(spill for _, spill in seen.values()):
-        raise AssertionError(f"attention backward kernels: {seen}")
+    kinds = {fn.split("<")[0] for fn in seen}
+    if kinds != {"attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"} or \
+            any(spill for _, spill in seen.values()):
+        raise AssertionError(f"attention kernels: {seen}")
     print("compiler report: " + ", ".join(
         f"{fn} {regs} registers, {spill} bytes spilled"
         for fn, (regs, spill) in sorted(seen.items())), flush=True)
+
+
+def default_build_check(KT, config, name):
+    """Phase 18: ``make_model(config)`` with no dtype and no device builds
+    on the card in bfloat16 (``utils.compute_dtype``), and its denoiser
+    gives a finite output of the input's shape at batch 2 (fresh weights,
+    eval mode); an explicit float32 on the card raises ValueError naming
+    bfloat16 before anything is allocated."""
+    try:
+        KT.config.make_model(config, dtype=torch.float32)
+    except ValueError as e:
+        if "bfloat16" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{name}: float32 compute on the card built")
+    model = KT.config.make_model(config).eval()
+    dev = next(model.parameters()).device
+    if model.dtype != torch.bfloat16 or dev.type != "cuda":
+        raise AssertionError(f"{name}: default build computes in "
+                             f"{model.dtype} on {dev}")
+    g = torch.Generator().manual_seed(SEED + 17)
+    x = torch.randn(input_shape(config, 2), generator=g).to(dev)
+    with torch.no_grad():
+        out = KT.config.make_denoiser_wrapper(config)(model)(
+            x, torch.tensor([0.5, 8.0], device=dev))
+    if out.shape != x.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: default build's forward is not "
+                             f"finite or has shape {tuple(out.shape)}")
+    print(f"default build ({name}): make_model(config) computes in "
+          f"{model.dtype} on {dev}; forward at batch 2 finite, "
+          f"{tuple(out.shape)}; float32 on the card refused by name",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 def unet_forward_flops(KT, config):
@@ -1269,11 +1389,11 @@ def profile(run, name, what):
           f"device busy {device_ms:.3f} ms each; by device time:")
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
-    # the attention backward's two kernels (K9, K14), which the table may
-    # leave out: device time per launch
+    # the attention kernels (the forward of K3, K13; the backward's two of
+    # K9, K14), which the table may leave out: device time per launch
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and (
-                "attn_dq_kernel" in e.key or "attn_dkv_kernel" in e.key):
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                f"attn_{k}_kernel" in e.key for k in ("fwd", "dq", "dkv")):
             print(f"{name} profile: {e.key[:60]}: {e.count // 3} launches a "
                   f"step or call, {e.self_device_time_total / e.count:.1f} us "
                   f"each", flush=True)

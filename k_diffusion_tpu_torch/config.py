@@ -11,7 +11,8 @@ the variance head raise ``NotImplementedError`` until they are ported.
 
 ``make_model``, ``make_sample_density``'s densities and
 ``sampling.get_sigmas_karras`` put their tensors on the card unless the
-caller names a device (``utils.default_device``).
+caller names a device (``utils.default_device``); a model on the card
+computes in bfloat16 (``utils.compute_dtype``).
 """
 
 import json
@@ -127,13 +128,16 @@ def load_config(path_or_dict):
     return deep_merge(_DEFAULTS, config)
 
 
-def make_model(config, dtype=torch.float32, device=None, generator=None):
+def make_model(config, dtype=None, device=None, generator=None):
     """Builds the U-Net (``image_v1``) or the HDiT (``image_transformer_v2``)
     from a loaded config. Parameters are float32 on ``device`` (default: the
-    card), drawn from ``generator``; ``dtype`` is the compute dtype. The
-    dropout rates apply under ``model.train()``, PyTorch's default mode:
-    call ``model.eval()`` to sample."""
+    card), drawn from ``generator``; ``dtype`` is the compute dtype
+    (default: bfloat16 on the card, float32 elsewhere; on the card nothing
+    else, see ``utils.compute_dtype``). The dropout rates apply under
+    ``model.train()``, PyTorch's default mode: call ``model.eval()`` to
+    sample."""
     device = utils.default_device(device)
+    dtype = utils.compute_dtype(device, dtype)
     num_classes = config["dataset"]["num_classes"]
     config = config["model"]
     if config["type"] == "image_v1":

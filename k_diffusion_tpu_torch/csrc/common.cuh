@@ -237,10 +237,6 @@ __device__ __forceinline__ void strip_to_bf16(float* s, int lds, int n) {
   }
 }
 
-struct AllValid {
-  __device__ bool operator()(int, int) const { return true; }
-};
-
 // Allows `smem` bytes of dynamic shared memory for `kernel`.
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t smem) {

@@ -38,7 +38,7 @@ from ..ops.kernels.fused_ffn import fused_geglu_ffn
 from ..ops.kernels.fused_mapping import fused_mapping
 from ..ops.kernels.fused_qkv import fused_qkv_prologue
 from ..ops.kernels.na2d import na2d, na2d_packed, packed_takes
-from ..utils import default_device
+from ..utils import compute_dtype, default_device
 
 
 @dataclass(frozen=True)
@@ -348,13 +348,15 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     constructor's ``generator``; the FourierFeatures bases too (the JAX
     package draws them from a fixed threefry key, which ``convert.py``
     carries across). Parameters go to ``device``, by default the card
-    (``utils.default_device``)."""
+    (``utils.default_device``); ``dtype`` is the compute dtype, by default
+    bfloat16 on the card and float32 elsewhere (``utils.compute_dtype``)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
-                 num_classes=0, dtype=torch.float32, device=None,
+                 num_classes=0, dtype=None, device=None,
                  generator=None):
         super().__init__()
         device = default_device(device)
+        dtype = compute_dtype(device, dtype)
         self.levels, self.dtype = levels, dtype
         self.num_classes = num_classes
         mw = mapping.width

@@ -34,7 +34,7 @@ from torch import nn
 from ..layers import (FourierFeatures, downsample2d, dropout,
                       init_tensor, upsample2d)
 from ..ops.kernels.flash import flash_attention
-from ..utils import default_device
+from ..utils import compute_dtype, default_device
 
 
 def _space_to_depth(x, p):
@@ -229,14 +229,17 @@ class ImageDenoiserModelV1(nn.Module):
     concatenated to x's channels. ``generator`` draws the dropout masks
     under ``model.train()``. Parameters are drawn from the constructor's
     ``generator`` on ``device`` (default: the card); the FourierFeatures
-    basis too (``convert.py`` carries a JAX basis across)."""
+    basis too (``convert.py`` carries a JAX basis across). ``dtype`` is the
+    compute dtype (default: bfloat16 on the card, float32 elsewhere;
+    ``utils.compute_dtype``)."""
 
     def __init__(self, c_in, feats_in, depths, channels, self_attn_depths,
                  mapping_cond_dim=0, unet_cond_dim=0, dropout_rate=0.0,
-                 patch_size=1, skip_stages=0, dtype=torch.float32,
+                 patch_size=1, skip_stages=0, dtype=None,
                  device=None, generator=None):
         super().__init__()
         device = default_device(device)
+        dtype = compute_dtype(device, dtype)
         n = len(depths)
         self.depths, self.skip_stages = depths, skip_stages
         self.patch_size, self.dtype = patch_size, dtype

@@ -26,6 +26,14 @@ def global_attention(q, k, v, scale=1.0):
     return _attention(q, k, v, scale)
 
 
+def global_logsumexp(q, k, scale=1.0):
+    """The natural logsumexp of each query's scaled logits in float32,
+    (batch, heads, seq), from q/k (batch, seq, heads, head_dim): what the
+    global attention kernels save for their backward."""
+    logits = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) * scale
+    return torch.logsumexp(logits, -1)
+
+
 @lru_cache
 def neighborhood_mask_1d(n, kernel_size):
     """1-D NATTEN mask: query i attends to the ``kernel_size`` window whose

@@ -3,12 +3,13 @@ backward (counterpart of k_diffusion_tpu/ops/pallas/flash.py).
 
 CUDA tensors go to the hand-written kernels in ``csrc/flash.cu`` through an
 autograd Function: the forward K13 (which also writes the per-head
-logsumexp when a backward follows) and the backward K14, the wgmma kernels
-of ``csrc/attn_bwd.cuh`` that K9 shares (a dq kernel, which also computes
+logsumexp when a backward follows), the wgmma kernel of ``csrc/attn_fwd.cuh``
+that K3 shares, and the backward K14, the wgmma kernels of
+``csrc/attn_bwd.cuh`` that K9 shares (a dq kernel, which also computes
 delta = rowsum(out * dout), and a dk/dv kernel, counted as one launch).
 With autograd off, as in sampling, the wrapper calls K13 directly. CPU
 tensors go to ``reference``, the plain version, which autograd
-differentiates.
+differentiates; ``reference_lse`` is the plain version of K13's logsumexp.
 
 The kernels read q, k and v through their batch and sequence strides, so
 the U-Net's q, k, v, strided views of one qkv projection, are not copied;
@@ -19,7 +20,7 @@ import ctypes
 
 import torch
 
-from ..attention import global_attention
+from ..attention import global_attention, global_logsumexp
 from . import _build
 
 launches = 0      # K13 launches since the last reset
@@ -41,6 +42,13 @@ _BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 4 + [_L] * 2 + [ctypes.c_float,
 def reference(q, k, v, scale=1.0):
     """Plain version: softmax attention, q/k/v (b, s, heads, e)."""
     return global_attention(q, k, v, scale)
+
+
+def reference_lse(q, k, v, scale=1.0):
+    """Plain version of K13's logsumexp: log sum exp of each query's scaled
+    logits, in float32 and natural log, (b, heads, s) from q/k/v (b, s,
+    heads, e); v is not read."""
+    return global_logsumexp(q, k, scale)
 
 
 def reference_backward(q, k, v, dout, scale=1.0):

@@ -4,22 +4,25 @@
 CUDA tensors go to the hand-written kernels in ``csrc/global_packed.cu``
 through an autograd Function: the forward K3 (which also writes the per-head
 logsumexp when a backward follows) and the backward K9, the wgmma kernels of
-``csrc/attn_bwd.cuh`` that K14 shares (a packed map is K14's strided layout
-at head dim 64). CPU tensors go to
-``reference``, the plain version, which autograd differentiates.
+``csrc/attn_fwd.cuh`` and ``csrc/attn_bwd.cuh`` that K13 and K14 share (a
+packed map is their strided layout at head dim 64). CPU tensors go to
+``reference``, the plain version, which autograd differentiates;
+``reference_lse`` is the plain version of K3's logsumexp.
 """
 
 import ctypes
 
 import torch
 
-from ..attention import global_attention
+from ..attention import global_attention, global_logsumexp
 from . import _build
 
 launches = 0      # K3 launches since the last reset
 bwd_launches = 0  # K9 launches (its two kernels count as one)
 
-MAX_SEQ = 512  # K3 keeps a query strip's logits and all of K or V in smem
+# the longest global level routed here: the JAX model's bound for its packed
+# Pallas kernel (the CUDA kernels themselves take any s >= 1)
+MAX_SEQ = 512
 
 _P = ctypes.c_void_p
 # q, k, v, out, lse, batch, seq, heads, scale, stream
@@ -38,6 +41,14 @@ def reference(q, k, v, n_heads, scale=1.0):
     return out.reshape(b, s, c)
 
 
+def reference_lse(q, k, v, n_heads, scale=1.0):
+    """Plain version of K3's logsumexp: (b, heads, s) float32, natural log,
+    from q/k/v (b, s, heads * e); v is not read."""
+    b, s, c = q.shape
+    split = (b, s, n_heads, c // n_heads)
+    return global_logsumexp(q.reshape(split), k.reshape(split), scale)
+
+
 def reference_backward(q, k, v, dout, n_heads, scale=1.0):
     """Plain version of the backward: autograd through ``reference``.
     Returns (dq, dk, dv)."""
@@ -49,8 +60,9 @@ def reference_backward(q, k, v, dout, n_heads, scale=1.0):
 
 def takes(s, c, n_heads):
     """Whether K3 and K9 take a global level of s tokens and c = heads * e
-    channels: e == 64 and s a multiple of 16 in [16, MAX_SEQ]. The HDiT
-    sends a global level that passes to K3 and any other to the flash
+    channels: e == 64 and s a multiple of 16 in [16, MAX_SEQ]. A routing
+    decision, not a limit of the kernels (K3 and K13 run one kernel): the
+    HDiT sends a global level that passes to K3 and any other to the flash
     kernel K13 (``flash.py``), as the JAX model routes between its two
     Pallas kernels (``packed_global_ok``)."""
     return c == 64 * n_heads and s % 16 == 0 and 16 <= s <= MAX_SEQ

@@ -1,5 +1,5 @@
 """Where the port's entry points put their tensors when the caller names no
-device: on the card."""
+device (on the card), and the dtype they compute in there (bfloat16)."""
 
 import torch
 
@@ -16,3 +16,19 @@ def default_device(device=None):
             "no CUDA device: the port runs on the card by default; pass "
             "device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def compute_dtype(device, dtype=None):
+    """The compute dtype of a model on ``device``: ``dtype`` when it is
+    given, else bfloat16 on a CUDA device and float32 on any other. On a
+    CUDA device every kernel takes bfloat16 only, so another explicit dtype
+    raises ValueError there, before any parameter is allocated."""
+    cuda = torch.device(device).type == "cuda"
+    if dtype is None:
+        return torch.bfloat16 if cuda else torch.float32
+    if cuda and dtype != torch.bfloat16:
+        raise ValueError(
+            f"compute dtype {dtype} on {device}: the port's kernels compute "
+            "in bfloat16 on the card (float32 compute on the card comes "
+            "with a later port); pass dtype=torch.bfloat16 or None")
+    return dtype

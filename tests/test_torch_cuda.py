@@ -226,6 +226,42 @@ def test_global_packed_and_flash_backward_agree_bit_for_bit(dev, b, s, heads,
         assert torch.equal(a, b_.reshape(b, s, c))
 
 
+@pytest.mark.parametrize("b,s,heads", [(8, 256, 8), (3, 16, 2), (2, 208, 4),
+                                       (1, 512, 1)])
+def test_global_packed_forward_lse(dev, b, s, heads):
+    """K3's training forward: out and the logsumexp K9 reads against the
+    plain versions (``reference``, ``reference_lse``)."""
+    g = torch.Generator().manual_seed(21)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, s, c), unit_heads(g, dev, b, s, c)
+    v = normal(g, dev, b, s, c)
+    out, lse = counted(global_packed, lambda: global_packed.packed_forward(
+        q, k, v, heads, save_lse=True))
+    assert lse.shape == (b, heads, s) and lse.dtype == torch.float32
+    assert_close(out, global_packed.reference(q, k, v, heads))
+    assert_close(lse, global_packed.reference_lse(q, k, v, heads))
+
+
+@pytest.mark.parametrize("b,s,heads,scale", [(8, 256, 8, 1.0), (3, 16, 2, 1.0),
+                                             (2, 80, 4, 0.125)])
+def test_global_packed_and_flash_forward_agree_bit_for_bit(dev, b, s, heads,
+                                                           scale):
+    """K3 and K13 run one kernel (csrc/attn_fwd.cuh): on one contiguous
+    packed input at head dim 64 they give the same out and lse bit for bit,
+    with and without the lse."""
+    g = torch.Generator().manual_seed(22)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, s, c), unit_heads(g, dev, b, s, c)
+    v = normal(g, dev, b, s, c)
+    split = [t.reshape(b, s, heads, 64) for t in (q, k, v)]
+    for save_lse in (True, False):
+        out, lse = global_packed.packed_forward(q, k, v, heads, scale,
+                                                save_lse=save_lse)
+        out2, lse2 = flash.flash_forward(*split, scale, save_lse=save_lse)
+        assert torch.equal(out, out2.reshape(b, s, c))
+        assert (lse is None and lse2 is None) or torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("b,t,d,d_ff", [(3, 16, 128, 384), (2, 100, 256, 64),
                                         (1, 64, 512, 1536)])
 def test_fused_ffn_backward(dev, b, t, d, d_ff):
@@ -264,6 +300,22 @@ def test_flash(dev, b, s, heads, scale):
     assert torch.equal(out, got)
     logits = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) * scale
     assert_close(lse, torch.logsumexp(logits, -1))
+
+
+@pytest.mark.parametrize("b,s,heads,e", [(2, s, 3, e) for e in (64, 32)
+                                         for s in (1, 49, 65, 200)]
+                         + [(3, 256, 4, 64)])
+def test_flash_forward_lse(dev, b, s, heads, e):
+    """K13's training forward on strided q, k, v: out and the logsumexp K14
+    reads against the plain versions (``reference``, ``reference_lse``),
+    the last key tile ragged at s = 1, 49, 65 and 200."""
+    g = torch.Generator().manual_seed(23)
+    q, k, v, _ = flash_qkv(g, dev, b, s, heads, 0.125, e)
+    out, lse = counted(flash, lambda: flash.flash_forward(q, k, v, 0.125,
+                                                          save_lse=True))
+    assert lse.shape == (b, heads, s) and lse.dtype == torch.float32
+    assert_close(out, flash.reference(q, k, v, 0.125))
+    assert_close(lse, flash.reference_lse(q, k, v, 0.125))
 
 
 @pytest.mark.parametrize("b,s,heads,scale",

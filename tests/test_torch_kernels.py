@@ -170,6 +170,23 @@ def test_global_packed_matches_pallas_body():
     close(got, want, F32_TOL)
 
 
+@pytest.mark.parametrize("b,s,heads,scale", [(2, 256, 2, 1.0),
+                                             (1, 48, 1, 0.125),
+                                             (2, 64, 4, 1.0)])
+def test_global_packed_lse_matches_pallas_body(b, s, heads, scale):
+    """K3's logsumexp, which K9 reads: the plain version against the Pallas
+    forward's (b, channel blocks, s, heads a block) planes, one head per
+    block at c = 64 and two at c = 128 and 256."""
+    q, k, v = gp_case(9, b, s, heads)
+    with pltpu.force_tpu_interpret_mode():
+        _, lse = j_gp._gp_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              heads, scale, save_lse=True)
+    want = np.moveaxis(np.asarray(lse), 3, 2).reshape(b, heads, s)
+    got = global_packed.reference_lse(
+        *map(torch.from_numpy, (q, k, v)), heads, scale)
+    close(got, want, F32_TOL)
+
+
 def ffn_case(seed, b=2, t=256, d=128, d_ff=384):
     rng = np.random.default_rng(seed)
     return (rand(rng, b, t, d), 1 + rand(rng, b, d, std=0.1),
@@ -520,17 +537,17 @@ def test_flash_matches_jax_dispatcher(s, scale):
 @pytest.mark.parametrize("s,scale", FLASH_CASES)
 def test_flash_matches_pallas_body(s, scale):
     """K13's Pallas body (tq = min(256, s), as the dispatcher picks), its
-    output and its logsumexp."""
+    output and its logsumexp (the plain ``reference_lse``, which K14
+    reads)."""
     q, k, v = flash_case(41, s)
     with pltpu.force_tpu_interpret_mode():
         out, lse = j_flash._flash_fwd(pack(q), pack(k), pack(v), scale,
                                       min(256, s))
-    tq, t = map(torch.from_numpy, (q, k))
-    close(flash.flash_attention(*map(torch.from_numpy, (q, k, v)), scale=scale),
-          unpack(out, 2), F32_TOL)
-    logits = torch.einsum("bqhe,bkhe->bhqk", tq, t) * scale
-    close(torch.logsumexp(logits, -1).reshape(4, s),
-          np.asarray(lse).reshape(4, -1)[:, :s], F32_TOL)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    close(flash.flash_attention(tq, tk, tv, scale=scale), unpack(out, 2),
+          F32_TOL)
+    close(flash.reference_lse(tq, tk, tv, scale),
+          np.asarray(lse).reshape(4, -1)[:, :s].reshape(2, 2, s), F32_TOL)
 
 
 @pytest.mark.parametrize("s,scale", FLASH_CASES)

@@ -194,6 +194,59 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                          device="cpu").device.type == "cpu"
 
 
+class _NoTorchCalls(torch.overrides.TorchFunctionMode):
+    """Fails on any torch function called inside it (a parameter allocated,
+    a tensor made) other than naming a device."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.device:
+            return func(*args, **(kwargs or {}))
+        raise AssertionError(f"{func} ran before the compute dtype check")
+
+
+def _model_constructors():
+    """Each way to build a model: the flagship HDiT and the cifar10 U-Net
+    through make_model, and each model class directly at a small size."""
+    from k_diffusion_tpu_torch.models import image_transformer_v2 as itv2
+    from k_diffusion_tpu_torch.models import image_v1
+    flagship = KT.config.load_config(CONFIG)
+    unet = KT.config.load_config(REPO / "configs" / "config_cifar10.json")
+    levels = (itv2.LevelSpec(1, 64, 128, itv2.GlobalAttentionSpec(64)),)
+    return {
+        "flagship": lambda **kw: KT.config.make_model(flagship, **kw),
+        "cifar10": lambda **kw: KT.config.make_model(unet, **kw),
+        "hdit": lambda **kw: itv2.ImageTransformerDenoiserModelV2(
+            levels, itv2.MappingSpec(1, 64, 128), 3, 3, (4, 4), **kw),
+        "unet": lambda **kw: image_v1.ImageDenoiserModelV1(
+            3, 16, (1, 1), (32, 64), (False, True), **kw),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("name", ["flagship", "cifar10", "hdit", "unet"])
+def test_compute_dtype_other_than_bfloat16_on_the_card_raises(name, dtype):
+    """The card's kernels take bfloat16 only: an explicit other compute
+    dtype on a CUDA device is refused by name when the model is built,
+    before any parameter is allocated (no torch call runs first)."""
+    build = _model_constructors()[name]
+    with _NoTorchCalls(), pytest.raises(ValueError, match="bfloat16"):
+        build(dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_default_compute_dtype_is_float32_off_the_card(device):
+    """With no dtype, a model computes in float32 on the CPU and on meta,
+    and the card's default is bfloat16."""
+    from k_diffusion_tpu_torch.utils import compute_dtype
+    assert compute_dtype(device) == torch.float32
+    assert compute_dtype("cuda") == compute_dtype("cuda:0", torch.bfloat16) \
+        == torch.bfloat16
+    assert compute_dtype(device, torch.float16) == torch.float16
+    names = ("hdit", "unet") if device == "cpu" else _model_constructors()
+    for name in names:
+        assert _model_constructors()[name](device=device).dtype == torch.float32
+
+
 def test_global_routing_predicate():
     """The HDiT's global levels go to K3 where it takes them (head dim 64,
     s a multiple of 16 in [16, 512]) and to the flash kernel K13 otherwise:
