@@ -7,7 +7,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 1. device: needs a CUDA device; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel from csrc/ with nvcc, and prints the
    registers and spills of the attention kernels, the forward (K3, K13)
-   and the backward's two (K9, K14) at each head dim (none may spill);
+   and the backward's two (K9, K14) at each head dim, and of K6's and
+   K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel);
+   none may spill or be missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -20,7 +22,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    finite and every kernel's launch count must match the model's layout;
 6. backward kernels: K6-K10 against their plain versions (autograd through
    the forward's plain version; a plain overlap-add for K8) at the flagship
-   training shapes, batch 8, as in phase 3; then, on one packed input, K3
+   training shapes, batch 8, as in phase 3, and K6 and K10 at
+   config_512_hdit's 16 x 16 x 768 and 32 x 32 x 512 levels, outside the
+   sums; then, on one packed input, K3
    against K13 (out and logsumexp) and K9 against K14 (dq, dk, dv) bit for
    bit: each pair runs one wgmma design;
 7. gradient parity: one training step's loss and full parameter gradient,
@@ -424,6 +428,46 @@ def backward_cases(dev):
                 global_packed.reference_backward(*a),
                 5 * 2 * b * s * s * d, (q, k, v, out, lse, dout),
                 library=sdpa_backward(*split, 1.0)))
+    return cases
+
+
+def wide_cases(dev):
+    """Phase 6's config_512_hdit levels that the flagship does not have, at
+    batch 8: K6 at 16 x 16 x 768 (12 heads) and K10 at 32 x 32 x 512 (d_ff
+    1536, dropout 0 there). They count no calls: held, timed and printed,
+    outside the per-step sums and the JSON line."""
+    from k_diffusion_tpu_torch.ops import rope
+    from k_diffusion_tpu_torch.ops.kernels import fused_ffn, fused_qkv
+
+    g = torch.Generator().manual_seed(SEED + 18)
+    b, bf16 = SAMPLE_BATCH, torch.bfloat16
+
+    def normal(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g) * std).to(dev, dtype)
+
+    h, d = 16, 768
+    heads, t = d // 64, b * h * h
+    args = (normal(b, h, h, d), rope.make_axial_pos(h, h, device=dev),
+            (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, bf16),
+            normal(d, 3 * d, std=d ** -0.5, dtype=torch.float32),
+            10 * (1 + 0.1 * torch.randn(heads, generator=g)).to(dev),
+            heads, *(normal(b, h, h, d) for _ in range(3)))
+    cases = [Case("fused_qkv_bwd", f"{b}x{h}x{h}x{d} (config_512_hdit)", 0,
+                  lambda a=args: fused_qkv.prologue_backward(*a),
+                  lambda a=args: fused_qkv.reference_backward(*a),
+                  3 * 2 * t * d * 3 * d, args)]
+    h, d, d_ff = 32, 512, 1536
+    t = b * h * h
+    ffn_args = (normal(b, h * h, d),
+                (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, bf16),
+                normal(d, 2 * d_ff, std=d ** -0.5, dtype=torch.float32),
+                normal(d_ff, d, std=d_ff ** -0.5, dtype=torch.float32),
+                normal(b, h * h, d))
+    cases.append(Case("fused_ffn_bwd",
+                      f"{b}x{h * h}x{d} f={d_ff} (config_512_hdit)", 0,
+                      lambda a=ffn_args: fused_ffn.ffn_backward(*a),
+                      lambda a=ffn_args: fused_ffn.reference_backward(*a),
+                      16 * t * d * d_ff, ffn_args))
     return cases
 
 
@@ -949,7 +993,7 @@ def main():
     secs = kernels.build()
     print(f"build: {len(kernels._build.SOURCES)} libraries in {secs:.1f} s",
           flush=True)
-    attention_report(kernels._build)
+    compiler_report(kernels._build)
 
     results = {}
     with torch.no_grad():
@@ -975,6 +1019,7 @@ def main():
 
     with torch.no_grad():
         run_cases(backward_cases(dev), results, 20, 3)
+        run_cases(wide_cases(dev), {}, 20, 3)
         attention_bit_check(dev)
 
     grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
@@ -1126,22 +1171,38 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def attention_report(build):
-    """Registers and spills of the attention kernels, the forward (K3, K13;
-    csrc/attn_fwd.cuh) and the backward (K9, K14; csrc/attn_bwd.cuh), from
-    the compiler report kept beside each library; raises if one spills."""
+# the kernels phase 2 reports, by library: the attention forward and
+# backward (csrc/attn_fwd.cuh, attn_bwd.cuh) and K6's and K10's (their
+# first kernels and csrc/gemm.cuh's)
+REPORTED = {
+    "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
+    "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
+    "fused_qkv": ("qkv_dr_kernel", "norm_vjp_kernel", "atb_kernel",
+                  "reduce_kernel", "reduce_few_kernel"),
+    "geglu": ("ffn_dup_kernel", "norm_vjp_kernel", "atb_kernel",
+              "reduce_kernel", "reduce_few_kernel"),
+}
+
+
+def compiler_report(build):
+    """Registers and spills of the attention kernels (K3, K13: csrc/attn_
+    fwd.cuh; K9, K14: csrc/attn_bwd.cuh) and of K6's and K10's (csrc/
+    gemm.cuh's core, each backward's first kernel), from the compiler
+    report kept beside each library; raises if one spills or is missing."""
     import re
 
-    seen = {}
-    for name in ("global_packed", "flash"):
-        fn = spill = None
-        for line in build.library_path(name).with_suffix(".log").read_text(
+    seen, missing = {}, []
+    for lib, names in REPORTED.items():
+        pattern = re.compile(r"Compiling entry function '\w*?(%s)(?:ILi(\d+)E"
+                             r"(?:Li(\d+)E)?)?" % "|".join(names))
+        found, fn, spill = set(), None, None
+        for line in build.library_path(lib).with_suffix(".log").read_text(
                 ).splitlines():
-            m = re.search(r"Compiling entry function '\w*?(attn_[a-z]+_kernel)"
-                          r"ILi(\d+)E(?:Li(\d+)E)?", line)
+            m = pattern.search(line)
             if m:
                 args = ", ".join(a for a in m.groups()[1:] if a)
-                fn = f"{m.group(1)}<{args}>"
+                fn = f"{m.group(1)}<{args}>" if args else m.group(1)
+                found.add(m.group(1))
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and fn:
@@ -1150,10 +1211,9 @@ def attention_report(build):
             if m and fn:
                 seen[fn] = (int(m.group(1)), spill)
                 fn = None
-    kinds = {fn.split("<")[0] for fn in seen}
-    if kinds != {"attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"} or \
-            any(spill for _, spill in seen.values()):
-        raise AssertionError(f"attention kernels: {seen}")
+        missing += [f"{lib}: {n}" for n in names if n not in found]
+    if missing or any(spill for _, spill in seen.values()):
+        raise AssertionError(f"compiler report: missing {missing}, {seen}")
     print("compiler report: " + ", ".join(
         f"{fn} {regs} registers, {spill} bytes spilled"
         for fn, (regs, spill) in sorted(seen.items())), flush=True)
@@ -1390,13 +1450,16 @@ def profile(run, name, what):
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
     # the attention kernels (the forward of K3, K13; the backward's two of
-    # K9, K14), which the table may leave out: device time per launch
+    # K9, K14) and K6's and K10's, which the table may leave out: device
+    # time per launch and per step or call
+    kinds = {k for names in REPORTED.values() for k in names}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and any(
-                f"attn_{k}_kernel" in e.key for k in ("fwd", "dq", "dkv")):
+                k in e.key for k in kinds):
             print(f"{name} profile: {e.key[:60]}: {e.count // 3} launches a "
                   f"step or call, {e.self_device_time_total / e.count:.1f} us "
-                  f"each", flush=True)
+                  f"each, {e.self_device_time_total / 3e3:.3f} ms a step or "
+                  f"call", flush=True)
 
 
 if __name__ == "__main__":

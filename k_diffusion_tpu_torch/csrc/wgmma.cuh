@@ -1,5 +1,6 @@
 // The Hopper building blocks of the attention kernels, shared by the
-// forward (attn_fwd.cuh: K3, K13) and the backward (attn_bwd.cuh: K9, K14):
+// forward (attn_fwd.cuh: K3, K13) and the backward (attn_bwd.cuh: K9, K14),
+// and of the GEMM core of the weight-gradient backwards (gemm.cuh: K6, K10):
 // swizzled (64, E) bf16 tiles in shared memory filled by cp.async through a
 // ring of stages, wgmma descriptors and products with f32 accumulators in
 // registers, register A fragments (from a tile by ldmatrix, or from an
@@ -164,6 +165,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TRANS_B));
   }
+}
+
+// d (64 x 64, f32) = or += A (64 x 16) B (16 x 64), both (64, 64) tiles in
+// shared memory: A K-major (TRANS_A 0, rows M) or MN-major (TRANS_A 1, rows
+// K), B K-major (TRANS_B 0, rows N) or MN-major (TRANS_B 1, rows K); `acc` 0
+// overwrites d.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // The bf16 A fragments of the warpgroup's (64, E) tile in shared memory for

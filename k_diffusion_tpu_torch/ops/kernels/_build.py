@@ -8,6 +8,7 @@ nothing is downloaded; a build takes seconds per file.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -113,6 +114,30 @@ def stream_ptr(device):
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def grid_splits(blocks, most, device):
+    """Into how many parts (1 to ``most``) to split each of ``blocks``
+    blocks so that the grid holds about two blocks for each SM of
+    ``device``."""
+    import torch
+    index = device.index
+    sms = _sm_count(torch.cuda.current_device() if index is None else index)
+    return max(1, min(most, -(-2 * sms // blocks)))
+
+
+def row_chunk(rows, tiles, device):
+    """Rows per split-K chunk of a weight gradient over ``rows`` rows whose
+    output takes ``tiles`` blocks: a multiple of 64, and as many chunks as
+    ``grid_splits`` gives."""
+    row_tiles = -(-rows // 64)
+    return 64 * -(-row_tiles // grid_splits(tiles, row_tiles, device))
 
 
 def require(t, what, device, dtype, shape):

@@ -25,9 +25,10 @@ _P = ctypes.c_void_p
 _UP = [_P] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3 + [ctypes.c_float, _P]
 # h, w_down, x, out, rows, d, d_ff, stream
 _DOWN = [_P] * 4 + [ctypes.c_long] + [ctypes.c_int] * 2 + [_P]
-# x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, h, dup, xn,
-# dns_part, dw_part, images, tokens, d, d_ff, eps, stream
-_BWD = [_P] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float, _P]
+# x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, h, dup, xn, r,
+# dot_part, dns_part, dw_part, images, tokens, d, d_ff, groups, chunk_up,
+# chunk_down, eps, stream
+_BWD = [_P] * 16 + [ctypes.c_int] * 7 + [ctypes.c_float, _P]
 
 
 def reference(x, scale, w_up, w_down, eps=1e-6):
@@ -92,8 +93,12 @@ def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     g = g.contiguous()
     _build.require(g, "g", dev, bf16, (b, t, d))
-    rows = b * t
-    tiles, chunks = -(-t // 64), -(-rows // 2048)
+    rows, tiles = b * t, -(-t // 64)
+    # the first kernel's hidden panels in groups; rows per dW partial
+    groups = _build.grid_splits(b * tiles, d_ff // 64, dev)
+    chunk_up = _build.row_chunk(rows, d // 64 * (d_ff // 64), dev)
+    chunk_down = _build.row_chunk(rows, d_ff // 64 * max(1, d // 128), dev)
+    part = max(-(-rows // chunk_up), -(-rows // chunk_down)) * 2 * d * d_ff
     dx = torch.empty_like(x)
     dscale = torch.empty((b, d), device=dev, dtype=f32)
     dw_up = torch.empty((d, 2 * d_ff), device=dev, dtype=f32)
@@ -101,13 +106,17 @@ def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
     h = torch.empty((rows, d_ff), device=dev, dtype=bf16)
     dup = torch.empty((rows, 2 * d_ff), device=dev, dtype=bf16)
     xn = torch.empty_like(x)
+    r = torch.empty(rows, device=dev, dtype=f32)
+    dot_part = torch.empty((groups, rows), device=dev, dtype=f32)
     dns_part = torch.empty((b * tiles, d), device=dev, dtype=f32)
-    dw_part = torch.empty((chunks, d, 2 * d_ff), device=dev, dtype=f32)
+    dw_part = torch.empty(part, device=dev, dtype=f32)
     lib = _build.load("geglu", kdt_ffn_bwd=_BWD)
     status = lib.kdt_ffn_bwd(
         *map(_build.ptr, (x, scale, w16_up, w16_down, g, dx, dscale, dw_up,
-                          dw_down, h, dup, xn, dns_part, dw_part)),
-        b, t, d, d_ff, eps, _build.stream_ptr(dev))
+                          dw_down, h, dup, xn, r, dot_part, dns_part,
+                          dw_part)),
+        b, t, d, d_ff, groups, chunk_up, chunk_down, eps,
+        _build.stream_ptr(dev))
     _build.check_launch(lib, status, "fused_ffn backward")
     global bwd_launches
     bwd_launches += 1

@@ -26,9 +26,9 @@ _P = ctypes.c_void_p
 _SIGNATURE = [_P] * 9 + [ctypes.c_long, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]
 # x, norm_scale, w_qkv, attn_scale, cos, sin, gq, gk, gv, dx, dns, dw,
-# das_sums, dr, xn, das_part, dns_part, dw_part, images, tokens, d, heads,
-# eps, cos_eps, stream
-_BWD_SIGNATURE = [_P] * 18 + [ctypes.c_int] * 4 + [
+# das_sums, dqk, xn, r, dot_part, das_part, dns_part, dw_part, images,
+# tokens, d, heads, groups, chunk_rows, eps, cos_eps, stream
+_BWD_SIGNATURE = [_P] * 20 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, _P]
 
 
@@ -126,22 +126,28 @@ def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
         _build.require(g, name, dev, torch.bfloat16, (b, h, w, d))
     rows, tokens = b * h * w, h * w
     tiles = -(-tokens // 64)
-    chunks = -(-rows // 2048)
+    # the first kernel's column panels in groups; rows per dW partial
+    groups = _build.grid_splits(b * tiles, 3 * d // 64, dev)
+    chunk_rows = _build.row_chunk(rows, d // 64 * max(1, 3 * d // 128), dev)
     dx = torch.empty_like(x)
     dns = torch.empty((b, d), device=dev, dtype=f32)
     dw = torch.empty((d, 3 * d), device=dev, dtype=f32)
     das_sums = torch.empty(2 * n_heads, device=dev, dtype=f32)
-    dr = torch.empty((rows, 3 * d), device=dev, dtype=torch.bfloat16)
+    dqk = torch.empty((rows, 2 * d), device=dev, dtype=torch.bfloat16)
     xn = torch.empty_like(x)
+    r = torch.empty(rows, device=dev, dtype=f32)
+    dot_part = torch.empty((groups, rows), device=dev, dtype=f32)
     das_part = torch.empty((b * tiles, 2 * n_heads), device=dev, dtype=f32)
     dns_part = torch.empty((b * tiles, d), device=dev, dtype=f32)
-    dw_part = torch.empty((chunks, d, 3 * d), device=dev, dtype=f32)
+    dw_part = torch.empty((-(-rows // chunk_rows), d, 3 * d), device=dev,
+                          dtype=f32)
     lib = _build.load("fused_qkv", kdt_fused_qkv_bwd=_BWD_SIGNATURE)
     status = lib.kdt_fused_qkv_bwd(
         *map(_build.ptr, (x, norm_scale, w16, scale32, cos_t, sin_t, gq, gk,
-                          gv, dx, dns, dw, das_sums, dr, xn, das_part,
-                          dns_part, dw_part)),
-        b, tokens, d, n_heads, eps, cos_eps, _build.stream_ptr(dev))
+                          gv, dx, dns, dw, das_sums, dqk, xn, r, dot_part,
+                          das_part, dns_part, dw_part)),
+        b, tokens, d, n_heads, groups, chunk_rows, eps, cos_eps,
+        _build.stream_ptr(dev))
     _build.check_launch(lib, status, "fused_qkv backward")
     global bwd_launches
     bwd_launches += 1

@@ -141,10 +141,12 @@ def test_fused_mapping(dev, b, d, d_ff, n):
 
 
 @pytest.mark.parametrize("b,h,w,d", [(2, 8, 8, 128), (3, 4, 4, 256),
-                                     (1, 16, 8, 512)])
+                                     (1, 16, 8, 512), (1, 16, 16, 768),
+                                     (2, 64, 64, 128)])
 def test_fused_qkv_backward(dev, b, h, w, d):
     """K6 against autograd through the plain version; 4 x 4 maps leave a
-    64-row tile ragged."""
+    64-row tile ragged; d = 768 is config_512_hdit's 12-head level, and
+    2 x 64 x 64 splits the weight gradient's rows into several chunks."""
     g = torch.Generator().manual_seed(5)
     args = qkv_args(g, dev, b, h, w, d)
     cots = [normal(g, dev, b, h, w, d) for _ in range(3)]
@@ -263,8 +265,12 @@ def test_global_packed_and_flash_forward_agree_bit_for_bit(dev, b, s, heads,
 
 
 @pytest.mark.parametrize("b,t,d,d_ff", [(3, 16, 128, 384), (2, 100, 256, 64),
-                                        (1, 64, 512, 1536)])
+                                        (1, 64, 512, 1536), (2, 1024, 256, 768),
+                                        (1, 49, 256, 768)])
 def test_fused_ffn_backward(dev, b, t, d, d_ff):
+    """K10 against autograd through the plain version: ragged row tiles
+    (16, 100 and 49 tokens), d_ff of one panel, config_512_hdit's d = 512
+    level, and 2 x 1024 rows in several weight-gradient chunks."""
     g = torch.Generator().manual_seed(8)
     args = ffn_args(g, dev, b, t, d, d_ff)
     cot = normal(g, dev, b, t, d)

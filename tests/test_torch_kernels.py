@@ -56,9 +56,9 @@ def close(got, want, tol):
     assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
 
 
-def qkv_case(seed=0, b=1, h=32, w=32, d=128):
+def qkv_case(seed=0, b=1, h=32, w=32, d=128, e=64):
     rng = np.random.default_rng(seed)
-    heads = d // 64
+    heads = d // e
     return dict(x=rand(rng, b, h, w, d),
                 ns=(1 + rand(rng, b, d, std=0.1)),
                 w=rand(rng, d, 3 * d, std=d ** -0.5),
@@ -309,9 +309,10 @@ def close_all(got, want, tol):
 
 
 def qkv_grad_case(seed, shape):
+    """shape: (b, h, w, d), or (b, h, w, d, head dim) where it is not 64."""
     c = qkv_case(seed, *shape)
     rng = np.random.default_rng(seed + 100)
-    cots = [rand(rng, *shape) for _ in range(3)]
+    cots = [rand(rng, *shape[:4]) for _ in range(3)]
     return c, (c["x"], c["ns"], c["w"], c["scale"]), cots
 
 
@@ -321,7 +322,10 @@ def port_qkv_grads(c, inputs, cots):
         x, pos, ns, w, s, c["heads"]), inputs, cots)
 
 
-@pytest.mark.parametrize("shape", [(1, 16, 16, 128), (2, 8, 16, 256)])
+# every width K6 takes: the flagship's 128 and 256, config_512_hdit's 768
+# (12 heads) and config_test_tiny's 64 (2 heads of 32)
+@pytest.mark.parametrize("shape", [(1, 16, 16, 128), (2, 8, 16, 256),
+                                   (1, 4, 4, 768), (2, 8, 8, 64, 32)])
 def test_fused_qkv_grads_match_jax_dispatcher(shape):
     c, inputs, cots = qkv_grad_case(20, shape)
     pos = jnp.asarray(c["pos"])
@@ -450,7 +454,10 @@ def ffn_grad_case(seed, b=2, t=256, d=128, d_ff=384):
     return args, [rand(np.random.default_rng(seed + 100), b, t, d)]
 
 
-@pytest.mark.parametrize("b,t,d,d_ff", [(2, 256, 128, 384), (1, 64, 256, 768)])
+# every width K10 takes: the flagship's 128 and 256, config_512_hdit's 512
+# and config_test_tiny's 64
+@pytest.mark.parametrize("b,t,d,d_ff", [(2, 256, 128, 384), (1, 64, 256, 768),
+                                        (1, 16, 512, 1536), (2, 16, 64, 192)])
 def test_fused_ffn_grads_match_jax_dispatcher(b, t, d, d_ff):
     inputs, cots = ffn_grad_case(26, b, t, d, d_ff)
     want = jax_grads(j_ffn.fused_geglu_ffn, inputs, cots)
