@@ -7,9 +7,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 1. device: needs a CUDA device; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel from csrc/ with nvcc, and prints the
    registers and spills of the attention kernels, the forward (K3, K13)
-   and the backward's two (K9, K14) at each head dim, and of K6's and
-   K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel);
-   none may spill or be missing;
+   and the backward's two (K9, K14) at each head dim, of the forwards K1
+   and K4 and of K6's and K10's (csrc/gemm.cuh's dxn and dW kernels and
+   each one's first kernel); none may spill or be missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -22,9 +22,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    finite and every kernel's launch count must match the model's layout;
 6. backward kernels: K6-K10 against their plain versions (autograd through
    the forward's plain version; a plain overlap-add for K8) at the flagship
-   training shapes, batch 8, as in phase 3, and K6 and K10 at
-   config_512_hdit's 16 x 16 x 768 and 32 x 32 x 512 levels, outside the
-   sums; then, on one packed input, K3
+   training shapes, batch 8, as in phase 3, and K1 and K6 at
+   config_512_hdit's 16 x 16 x 768 level, K4 and K10 at its 32 x 32 x 512
+   level and K4 at its 16 x 16 x 768 level, outside the sums; then, on one
+   packed input, K3
    against K13 (out and logsumexp) and K9 against K14 (dq, dk, dv) bit for
    bit: each pair runs one wgmma design;
 7. gradient parity: one training step's loss and full parameter gradient,
@@ -433,9 +434,10 @@ def backward_cases(dev):
 
 def wide_cases(dev):
     """Phase 6's config_512_hdit levels that the flagship does not have, at
-    batch 8: K6 at 16 x 16 x 768 (12 heads) and K10 at 32 x 32 x 512 (d_ff
-    1536, dropout 0 there). They count no calls: held, timed and printed,
-    outside the per-step sums and the JSON line."""
+    batch 8: K1 and K6 at 16 x 16 x 768 (12 heads), K4 and K10 at 32 x 32 x
+    512 (d_ff 1536, dropout 0 there) and K4 at 16 x 16 x 768 (d_ff 2304).
+    They count no calls: held, timed and printed, outside the per-call and
+    per-step sums and the JSON line."""
     from k_diffusion_tpu_torch.ops import rope
     from k_diffusion_tpu_torch.ops.kernels import fused_ffn, fused_qkv
 
@@ -452,22 +454,33 @@ def wide_cases(dev):
             normal(d, 3 * d, std=d ** -0.5, dtype=torch.float32),
             10 * (1 + 0.1 * torch.randn(heads, generator=g)).to(dev),
             heads, *(normal(b, h, h, d) for _ in range(3)))
-    cases = [Case("fused_qkv_bwd", f"{b}x{h}x{h}x{d} (config_512_hdit)", 0,
+    label = f"{b}x{h}x{h}x{d} (config_512_hdit)"
+    cases = [Case("fused_qkv", label, 0,
+                  lambda a=args[:6]: fused_qkv.fused_qkv_prologue(*a),
+                  lambda a=args[:6]: fused_qkv.reference(*a),
+                  2 * t * d * 3 * d, args[:6]),
+             Case("fused_qkv_bwd", label, 0,
                   lambda a=args: fused_qkv.prologue_backward(*a),
                   lambda a=args: fused_qkv.reference_backward(*a),
                   3 * 2 * t * d * 3 * d, args)]
-    h, d, d_ff = 32, 512, 1536
-    t = b * h * h
-    ffn_args = (normal(b, h * h, d),
-                (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, bf16),
-                normal(d, 2 * d_ff, std=d ** -0.5, dtype=torch.float32),
-                normal(d_ff, d, std=d_ff ** -0.5, dtype=torch.float32),
-                normal(b, h * h, d))
-    cases.append(Case("fused_ffn_bwd",
-                      f"{b}x{h * h}x{d} f={d_ff} (config_512_hdit)", 0,
-                      lambda a=ffn_args: fused_ffn.ffn_backward(*a),
-                      lambda a=ffn_args: fused_ffn.reference_backward(*a),
-                      16 * t * d * d_ff, ffn_args))
+    for h, d, d_ff, backward in ((32, 512, 1536, True), (16, 768, 2304, False)):
+        t = b * h * h
+        ffn_args = (normal(b, h * h, d),
+                    (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, bf16),
+                    normal(d, 2 * d_ff, std=d ** -0.5, dtype=torch.float32),
+                    normal(d_ff, d, std=d_ff ** -0.5, dtype=torch.float32),
+                    normal(b, h * h, d))
+        label = f"{b}x{h * h}x{d} f={d_ff} (config_512_hdit)"
+        cases.append(Case("fused_ffn", label, 0,
+                          lambda a=ffn_args[:4]: fused_ffn.fused_geglu_ffn(*a),
+                          lambda a=ffn_args[:4]: fused_ffn.reference(*a),
+                          6 * t * d * d_ff, ffn_args[:4]))
+        if backward:
+            cases.append(Case(
+                "fused_ffn_bwd", label, 0,
+                lambda a=ffn_args: fused_ffn.ffn_backward(*a),
+                lambda a=ffn_args: fused_ffn.reference_backward(*a),
+                16 * t * d * d_ff, ffn_args))
     return cases
 
 
@@ -1172,23 +1185,24 @@ def main():
 
 
 # the kernels phase 2 reports, by library: the attention forward and
-# backward (csrc/attn_fwd.cuh, attn_bwd.cuh) and K6's and K10's (their
-# first kernels and csrc/gemm.cuh's)
+# backward (csrc/attn_fwd.cuh, attn_bwd.cuh), the forwards K1 and K4, and
+# K6's and K10's (their first kernels and csrc/gemm.cuh's)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
-    "fused_qkv": ("qkv_dr_kernel", "norm_vjp_kernel", "atb_kernel",
-                  "reduce_kernel", "reduce_few_kernel"),
-    "geglu": ("ffn_dup_kernel", "norm_vjp_kernel", "atb_kernel",
-              "reduce_kernel", "reduce_few_kernel"),
+    "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
+                  "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
+    "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
+              "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
 }
 
 
 def compiler_report(build):
     """Registers and spills of the attention kernels (K3, K13: csrc/attn_
-    fwd.cuh; K9, K14: csrc/attn_bwd.cuh) and of K6's and K10's (csrc/
-    gemm.cuh's core, each backward's first kernel), from the compiler
-    report kept beside each library; raises if one spills or is missing."""
+    fwd.cuh; K9, K14: csrc/attn_bwd.cuh), of the forwards K1 and K4 and of
+    K6's and K10's (csrc/gemm.cuh's core, each backward's first kernel),
+    from the compiler report kept beside each library; raises if one spills
+    or is missing."""
     import re
 
     seen, missing = {}, []
@@ -1450,8 +1464,8 @@ def profile(run, name, what):
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
     # the attention kernels (the forward of K3, K13; the backward's two of
-    # K9, K14) and K6's and K10's, which the table may leave out: device
-    # time per launch and per step or call
+    # K9, K14), the forwards K1 and K4, and K6's and K10's, which the table
+    # may leave out: device time per launch and per step or call
     kinds = {k for names in REPORTED.values() for k in names}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and any(

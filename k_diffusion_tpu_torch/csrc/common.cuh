@@ -34,7 +34,6 @@ using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 constexpr int WARPS = 4;           // warps per block
 constexpr int THREADS = WARPS * 32;
 constexpr int STRIP = 16;          // rows of a warp's strip
-constexpr int BM = WARPS * STRIP;  // rows of a block's tile
 constexpr int PANEL = 64;          // columns of an output panel (= head dim)
 constexpr int LDT = PANEL + 8;     // bf16 row stride of a 64-column tile
 constexpr int LDF = PANEL + 4;     // float row stride of a 64-column strip
@@ -131,53 +130,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long lds, 
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * lds + c);
     *reinterpret_cast<uint4*>(dst + r * (COLS + 8) + c) = v;
-  }
-}
-
-// AdaRMSNorm statistics of a block's BM-row tile of x (rows, d): per row
-// 1 / sqrt(mean(x^2) + eps) and the image the row belongs to (row / tokens).
-// Each warp takes its own 16 rows.
-__device__ __forceinline__ void norm_stats(const bf16* x, long row0, int valid, int d, int tokens,
-                                           float eps, float* inv, int* img) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  for (int r = warp * STRIP; r < (warp + 1) * STRIP; ++r) {
-    float ss = 0.f;
-    if (r < valid) {
-      const bf16* xr = x + (row0 + r) * d;
-      for (int c = 2 * lane; c < d; c += 64) {
-        const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
-        ss += t.x * t.x + t.y * t.y;
-      }
-    }
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      inv[r] = rsqrtf(ss / d + eps);
-      img[r] = r < valid ? static_cast<int>((row0 + r) / tokens) : 0;
-    }
-  }
-}
-
-// Loads columns [k0, k0 + 64) of a BM-row tile of AdaRMSNorm(x, nscale)
-// into shared memory (stride LDT): xn = bf16(x * bf16(nscale[img] * inv)),
-// the rounding point of the JAX package (the combined factor is cast to
-// the activation dtype before the multiply). nscale is (images, d) bf16.
-__device__ __forceinline__ void load_norm_tile(bf16* dst, const bf16* x, long row0, int valid,
-                                               int d, int k0, const bf16* nscale,
-                                               const float* inv, const int* img) {
-  for (int i = threadIdx.x; i < BM * 8; i += blockDim.x) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      const uint4 xv = *reinterpret_cast<const uint4*>(x + (row0 + r) * d + k0 + c);
-      const uint4 sv =
-          *reinterpret_cast<const uint4*>(nscale + static_cast<long>(img[r]) * d + k0 + c);
-      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-      const bf16* se = reinterpret_cast<const bf16*>(&sv);
-      bf16* ve = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ve[e] = to_bf(to_f(xe[e]) * bf_round(to_f(se[e]) * inv[r]));
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) = v;
   }
 }
 

@@ -1,6 +1,6 @@
 // Fused attention prologue: AdaRMSNorm -> x @ W_qkv -> per-head cosine-sim
 // scaling of q and k -> axial RoPE on q and k; packed (b, h, w, d) q, k, v.
-// Forward (K1) and backward (K6).
+// Forward (K1) and backward (K6), both on gemm.cuh's pipelined wgmma core.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/fused_qkv.py:_fused_qkv_kernel (the
 // forward of fused_qkv_prologue) and :_prologue_bwd_kernel (its backward).
@@ -12,19 +12,26 @@
 // level 2 (d = 512, weights included, 2.8 us). So levels 0 and 1 are bound
 // by memory and level 2 is balanced.
 //
-// Forward design: the raw projection never goes to device memory. A block
-// owns 64 token rows and one 64-column panel of W_qkv, i.e. 64 / E heads of
-// q, k or v (grid y). It first takes each row's RMS statistics, then walks
-// K in chunks of 64: the normalised x chunk (bf16, rounded where the JAX
-// package rounds) and the W chunk are staged in shared memory and each warp
-// multiplies its 16 rows with wmma bf16 fragments into f32 accumulators.
-// The epilogue applies the per-head cosine-sim scale (sum of squares over
-// the head's E columns, kept in f32) and the half-split RoPE (pair distance
-// E / 4 on the first E / 2 dims) and writes bf16 once. The RoPE angles
-// arrive as cos/sin tables (tokens, heads * E / 4) that the wrapper builds
-// from the positions the model passes. Staging is not double-buffered and
-// the x tile is re-normalised for each of the 3 * d / 64 panels: simple
-// first.
+// Forward design (qkv_fwd_kernel), the twin of K6's first kernel below: the
+// raw projection never goes to device memory. Each warpgroup owns a 64-row
+// tile that never spans two images, and its block the step units y, y +
+// groups, ... of NP 64-column panels of W_qkv (q, k, then v); a warpgroup
+// normalises its x tile once into resident tiles, and the block streams the
+// panels' W tiles, one 64-deep slab of d a step, through gemm.cuh's
+// 3-stage ring by the Tensor Memory Accelerator into each warpgroup's NP
+// accumulator sets. The epilogue runs in registers: a head's sum of
+// squares is the thread's own columns plus two shuffles in its quad, and
+// the RoPE partner column c ^ (E / 4) is accumulator slice i ^ (E / 32) of
+// the same thread, so the rotation needs no exchange; q and k get the
+// cosine-sim scale sqrt(attn_scale) / sqrt(ssq + eps) and the half-split
+// RoPE (pair distance E / 4 on the first E / 2 dims), v passes as it is, and
+// bf16 is written once, staged through finished ring stages for 16-byte
+// stores. The RoPE angles are formed there too, theta = pos * freq in f32
+// and sincosf, from the positions the model passes and the fixed
+// frequencies: no table is built per call. A block is two warpgroups over
+// two row tiles sharing every W tile, which halves the weight traffic from
+// L2; the grid splits the step units so that the blocks fill the SMs in as
+// few rounds as the occupancy allows.
 //
 // K6, the backward. What bounds it on the H100, flagship training shapes
 // at batch 32: the recomputed projection and the two VJP products are
@@ -53,99 +60,164 @@
 namespace kdt {
 namespace {
 
-// Where column col (lane or lane + 32) of a panel sits: its head, its dim
-// within the head, and the RoPE pair distance E / 4.
-template <int E>
-struct PanelColumn {
-  static constexpr int R = E / 4;
-  int head, dim;
-  __device__ PanelColumn(int panel, int col) : head(panel * (PANEL / E) + col / E), dim(col % E) {}
-  __device__ bool rotated() const { return dim < 2 * R; }
-  __device__ bool first_half() const { return dim < R; }
-  __device__ long table(long token, int n_heads) const {
-    return (token * n_heads + head) * R + dim % R;
-  }
-};
+// K1 on gemm.cuh's core. A block is two warpgroups, each over its own
+// 64-row tile (row tiles 2 x and 2 x + 1 over all images; a warpgroup past
+// the last one has no rows), sharing every W tile. Grid (ceil(images *
+// tiles / 2), groups): block y takes the step units y, y + groups, ... of
+// NP panels each; a unit's kt = d / 64 steps accumulate its NP raw panels
+// R = xn W (C = A B) and the last one runs the epilogue: for a q or k panel
+// per head and row, y = RoPE(R) sqrt(attn_scale[head]) / sqrt(sum R^2 +
+// cos_eps), for a v panel y = R, each rounded to bf16 once. Warpgroup g
+// stages its outputs in the ring stage of step s - g, both free then.
+template <int E, int NP>
+__global__ void __launch_bounds__(2 * gemm::THREADS, 2)
+qkv_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nscale,
+               const __grid_constant__ CUtensorMap map_w, const float* __restrict__ attn_scale,
+               const float* __restrict__ pos, const float* __restrict__ freqs,
+               bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v, int images,
+               int tokens, int d, int n_heads, int groups, float eps, float cos_eps) {
+  using namespace gemm;
+  // RoPE pair distance; heads a panel; frequencies a head and axis
+  constexpr int R = E / 4, HP = 64 / E, F = E / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const int kt = d / 64;
+  bf16* s_x = reinterpret_cast<bf16*>(aligned_smem(smem_raw));  // kt tiles a warpgroup
+  bf16* s_ring = s_x + 2 * kt * T;                              // stage: NP W tiles
+  // the row norms wait in the ring's last stage, which no copy fills before
+  // the first refill
+  float* s_r = reinterpret_cast<float*>(s_ring + (S - 1) * NP * T);
+  __shared__ uint64_t full[S];  // a stage's tiles have landed
+  tma_init(full);
 
-// Per-head sums over a row of a panel, lane l holding columns l and l + 32:
-// one head (E == 64) sums both, two heads (E == 32) each their own.
-template <int E>
-__device__ __forceinline__ void head_sums(float a0, float a1, float (&out)[2]) {
-  if constexpr (E == PANEL) {
-    out[0] = out[1] = warp_sum(a0 + a1);
-  } else {
-    out[0] = warp_sum(a0);
-    out[1] = warp_sum(a1);
+  const int wgi = threadIdx.x / gemm::THREADS, tid = threadIdx.x % gemm::THREADS;
+  const int tiles = (tokens + ROWS - 1) / ROWS;
+  RowTile rt[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int index = 2 * blockIdx.x + g;
+    rt[g] = index < images * tiles ? row_tile(tokens, index) : RowTile{0, 0, 0, 0};
+  }
+  const RowTile t = rt[wgi];
+  bf16* xt = s_x + wgi * kt * T;  // this warpgroup's x tiles
+  const int steps = (3 * kt / NP - static_cast<int>(blockIdx.y) + groups - 1) / groups * kt;
+  auto panel = [&](int s) { return NP * (static_cast<int>(blockIdx.y) + s / kt * groups); };
+  // thread 0: step s's W tiles into stage st
+  auto load = [&](int s, int st) {
+    const int p = panel(s);
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      tma_tile(s_ring + (st * NP + j) * T, &map_w, 64 * (p + j), 64 * (s % kt), &full[st]);
+    mbar_arrive(&full[st]);
+  };
+#pragma unroll
+  for (int g = 0; g < 2; ++g) load_x_tiles(x, rt[g], d, s_x + g * kt * T);
+  cp_async_commit();
+  tma_start(steps, load);
+  cp_async_wait<0>();
+  __syncthreads();
+  norm_tiles(t, d, nscale + static_cast<long>(t.img) * d, eps, xt, s_r + wgi * ROWS, nullptr,
+             nullptr, tid, gemm::THREADS);
+
+  const int c = acc_col();
+  float acc[NP][32];
+  zero(acc);
+  for (int s = 0; s < steps; ++s) {
+    const int kk = s % kt;
+    tma_step(s, steps, full, load);
+    bf16* stage = s_ring + (s % S) * NP * T;
+    wgmma_fence();
+    product<0, 1>(acc, xt + kk * T, stage, kk);
+    wgmma_commit();
+    if (kk < kt - 1) {
+      wgmma_wait<1>();
+      continue;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    __syncthreads();  // the stages of steps s and s - 1 are free: they stage the outputs
+    const int p0 = panel(s);
+    bf16* own = s_ring + ((s + S - wgi) % S) * NP * T;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const float* raw = acc[j];
+      bf16* staged = own + j * T;
+      const int sec = (p0 + j) / kt, pp = (p0 + j) % kt;
+      if (sec == 2) {  // v
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            stage_pair(staged, acc_row(hh), 8 * i + c,
+                       __floats2bfloat162_rn(raw[4 * i + 2 * hh], raw[4 * i + 2 * hh + 1]));
+        continue;
+      }
+      // the cosine-sim scale per head and row: a head's columns of the row
+      // are this thread's slices of it and the other three lanes' of its quad
+      float ssq[HP][2] = {};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ssq[8 * i / E][e / 2] += raw[4 * i + e] * raw[4 * i + e];
+      float scale[HP][2];
+#pragma unroll
+      for (int hs = 0; hs < HP; ++hs) {
+        const float root = sqrtf(attn_scale[pp * HP + hs]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          scale[hs][hh] = root * rsqrtf(quad_sum(ssq[hs][hh]) + cos_eps);
+      }
+      // the half-split RoPE: dim r < R of a head and its partner r + R (slice
+      // i ^ (R / 8) of this thread) turn by theta = pos[token, r / F] *
+      // freqs[head, r % F], the f32 product of ops/rope.py's theta
+      float y[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) y[i] = raw[i];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = acc_row(hh);
+        const long token = row < t.valid ? t.tile * ROWS + row : 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (8 * i % E >= R) continue;  // not the first of a rotated pair
+          const int pi = i ^ (R / 8), head = pp * HP + 8 * i / E;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = (8 * i + c + e) % E;
+            float sn, cs;
+            sincosf(pos[2 * token + r / F] * freqs[head * F + r % F], &sn, &cs);
+            const int a1 = 4 * i + 2 * hh + e, a2 = 4 * pi + 2 * hh + e;
+            // y1 = x1 cos - x2 sin, y2 = x2 cos + x1 sin
+            y[a1] = raw[a1] * cs - raw[a2] * sn;
+            y[a2] = raw[a2] * cs + raw[a1] * sn;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float sc = scale[8 * i / E][hh];
+          stage_pair(staged, row, 8 * i + c,
+                     __floats2bfloat162_rn(y[4 * i + 2 * hh] * sc, y[4 * i + 2 * hh + 1] * sc));
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int sec = (p0 + j) / kt;
+        bf16* dst = sec == 0 ? q : (sec == 1 ? k : v);
+        store_tile<64>(s_ring + (((s + S - g) % S) * NP + j) * T,
+                       dst + rt[g].row0 * d + 64 * ((p0 + j) % kt), d, rt[g].valid);
+      }
+    // the staged stages take copies again: plain accesses before the copy's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
 }
 
-template <int E>
-__global__ void __launch_bounds__(THREADS)
-fused_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nscale,
-                 const bf16* __restrict__ w, const float* __restrict__ attn_scale,
-                 const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                 bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v, long rows,
-                 int tokens, int d, int n_heads, float eps, float cos_eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_a = reinterpret_cast<bf16*>(smem);
-  bf16* s_b = s_a + BM * LDT;
-  float* scratch = reinterpret_cast<float*>(s_b + PANEL * LDT);
-  float* s_inv = scratch + WARPS * STRIP * LDF;
-  int* s_img = reinterpret_cast<int*>(s_inv + BM);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const long row0 = static_cast<long>(blockIdx.x) * BM;
-  const int valid = static_cast<int>(rows - row0 < BM ? rows - row0 : BM);
-  const int panels = d / PANEL;
-  const int sec = blockIdx.y / panels, panel = blockIdx.y % panels;  // sec 0/1/2: q/k/v
-  const int n0 = sec * d + panel * PANEL;
-  const long ld_w = 3L * d;
-
-  norm_stats(x, row0, valid, d, tokens, eps, s_inv, s_img);
-  __syncthreads();
-
-  FragC acc[4];
-  zero(acc);
-  for (int k0 = 0; k0 < d; k0 += PANEL) {
-    load_norm_tile(s_a, x, row0, valid, d, k0, nscale, s_inv, s_img);
-    load_tile(s_b, w + k0 * ld_w + n0, ld_w, PANEL, PANEL);
-    __syncthreads();
-    mma_strip(s_a + warp * STRIP * LDT, LDT, s_b, LDT, PANEL, acc);
-    __syncthreads();
-  }
-
-  float* strip = scratch + warp * STRIP * LDF;
-  store_strip(strip, LDF, acc);
-  bf16* out = (sec == 0 ? q : (sec == 1 ? k : v)) + panel * PANEL;
-  const PanelColumn<E> cols[2] = {PanelColumn<E>(panel, lane), PanelColumn<E>(panel, lane + 32)};
-  for (int r = 0; r < STRIP; ++r) {
-    const long row = row0 + warp * STRIP + r;
-    if (warp * STRIP + r >= valid) break;
-    const float* a_r = strip + r * LDF;
-    const float vals[2] = {a_r[lane], a_r[lane + 32]};
-    bf16* o = out + row * d;
-    if (sec == 2) {
-      o[lane] = to_bf(vals[0]);
-      o[lane + 32] = to_bf(vals[1]);
-      continue;
-    }
-    float ssq[2];
-    head_sums<E>(vals[0] * vals[0], vals[1] * vals[1], ssq);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int col = lane + 32 * i;
-      const PanelColumn<E>& pc = cols[i];
-      const float s = sqrtf(attn_scale[pc.head]) * rsqrtf(ssq[i] + cos_eps);
-      float y = vals[i];
-      if (pc.rotated()) {
-        const long t = pc.table(row % tokens, n_heads);
-        const float cs = cos_t[t], sn = sin_t[t], partner = a_r[col ^ PanelColumn<E>::R];
-        // y1 = x1 cos - x2 sin (first half), y2 = x2 cos + x1 sin
-        y = pc.first_half() ? y * cs - partner * sn : y * cs + partner * sn;
-      }
-      o[col] = to_bf(y * s);
-    }
-  }
+// x tiles of both warpgroups, the ring (NP tiles a stage) and the slack to
+// align them; the row norms live inside.
+inline size_t qkv_fwd_smem(int d, int np) {
+  return (2 * (d / 64) + gemm::S * np) * gemm::T * sizeof(bf16) + 1024;
 }
 
 // K6's first kernel, on gemm.cuh's core. Grid (images * tiles, groups): a
@@ -205,7 +277,7 @@ qkv_dr_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nscale,
   ring_arrive();
   const bool first = blockIdx.y == 0;
   norm_tiles(t, d, nscale + static_cast<long>(t.img) * d, eps, s_xn, s_r, first ? xn : nullptr,
-             first ? r_out : nullptr);
+             first ? r_out : nullptr, threadIdx.x, blockDim.x);
 
   const int warp = threadIdx.x / 32, c = acc_col();
   float acc[1][32];
@@ -331,21 +403,29 @@ using namespace kdt;
 
 namespace {
 
-constexpr size_t SMEM = (BM + PANEL) * LDT * sizeof(bf16) + WARPS * STRIP * LDF * sizeof(float) +
-                        BM * (sizeof(float) + sizeof(int));
-
-template <int E>
+// The launch of K1; with `blocks`, it is not launched and the number of
+// its blocks that fit on one SM at once goes there instead.
+template <int E, int NP>
 int launch_fused_qkv(const void* x, const void* nscale, const void* w, const void* attn_scale,
-                     const void* cos_t, const void* sin_t, void* q, void* k, void* v, long rows,
-                     int tokens, int d, int n_heads, float eps, float cos_eps, cudaStream_t st) {
-  const cudaError_t attr = allow_smem(fused_qkv_kernel<E>, SMEM);
-  const dim3 grid(static_cast<unsigned>((rows + BM - 1) / BM), 3 * (d / PANEL));
-  fused_qkv_kernel<E><<<grid, THREADS, SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(nscale),
-      static_cast<const bf16*>(w), static_cast<const float*>(attn_scale),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), static_cast<bf16*>(q),
-      static_cast<bf16*>(k), static_cast<bf16*>(v), rows, tokens, d, n_heads, eps, cos_eps);
-  return launch_status(attr);
+                     const void* pos, const void* freqs, void* q, void* k, void* v, int images,
+                     int tokens, int d, int n_heads, int groups, float eps, float cos_eps,
+                     cudaStream_t st, int* blocks) {
+  const size_t smem = qkv_fwd_smem(d, NP);
+  const cudaError_t attr = gemm::allow_shared(qkv_fwd_kernel<E, NP>, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (blocks != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, qkv_fwd_kernel<E, NP>, 2 * gemm::THREADS, smem));
+  CUtensorMap map_w;
+  const cudaError_t map_err = gemm::tile_map(&map_w, w, d, 3 * d);
+  if (map_err != cudaSuccess) return static_cast<int>(map_err);
+  const int tiles = (tokens + wg::ROWS - 1) / wg::ROWS;
+  qkv_fwd_kernel<E, NP><<<dim3((images * tiles + 1) / 2, groups), 2 * gemm::THREADS, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(nscale), map_w,
+      static_cast<const float*>(attn_scale), static_cast<const float*>(pos),
+      static_cast<const float*>(freqs), static_cast<bf16*>(q), static_cast<bf16*>(k),
+      static_cast<bf16*>(v), images, tokens, d, n_heads, groups, eps, cos_eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int E>
@@ -388,25 +468,35 @@ int launch_prologue_bwd(const void* x, const void* nscale, const void* w, const 
 }  // namespace
 
 // x (rows, d) bf16 with rows = images * tokens; nscale (images, d) bf16;
-// w (d, 3d) bf16; attn_scale (heads,) f32; cos/sin (tokens, heads * e / 4)
-// f32; q, k, v (rows, d) bf16. Needs d == e * heads with head dim e 32 or
-// 64 and d % 64 == 0.
+// w (d, 3d) bf16; attn_scale (heads,) f32; pos (tokens, 2) f32 (the
+// axial positions); freqs (heads, e / 8) f32 (the RoPE frequencies, ops/
+// rope.py's axial_rope_freqs); q, k, v (rows, d) bf16. Needs d == e * heads with head dim e 32 or
+// 64 and d % 64 == 0. A ring step takes step_panels (1, or 2 where d % 128
+// == 0) 64-column panels of W_qkv; the 3d / (64 step_panels) step units
+// split over `groups` blocks a pair of row tiles. With `blocks` not null
+// nothing is launched: the number of blocks that fit on one SM at once is
+// written there.
 extern "C" int kdt_fused_qkv(const void* x, const void* nscale, const void* w,
-                             const void* attn_scale, const void* cos_t, const void* sin_t,
-                             void* q, void* k, void* v, long rows, int tokens, int d,
-                             int n_heads, float eps, float cos_eps, void* stream) {
+                             const void* attn_scale, const void* pos, const void* freqs,
+                             void* q, void* k, void* v, int images, int tokens, int d,
+                             int n_heads, int step_panels, int groups, float eps, float cos_eps,
+                             void* stream, int* blocks) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d % PANEL) return static_cast<int>(cudaErrorInvalidValue);
-  switch (d / n_heads) {
-    case 32:
-      return launch_fused_qkv<32>(x, nscale, w, attn_scale, cos_t, sin_t, q, k, v, rows, tokens,
-                                  d, n_heads, eps, cos_eps, st);
-    case 64:
-      return launch_fused_qkv<64>(x, nscale, w, attn_scale, cos_t, sin_t, q, k, v, rows, tokens,
-                                  d, n_heads, eps, cos_eps, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d % 64 || n_heads < 1 || (step_panels != 1 && step_panels != 2) ||
+      (3 * d / 64) % step_panels || groups < 1 || groups > 3 * d / 64 / step_panels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int e = d / n_heads;
+  if (e * n_heads != d) return static_cast<int>(cudaErrorInvalidValue);
+#define KDT_FUSED_QKV(E, NP)                                                                 \
+  if (e == E && step_panels == NP)                                                           \
+    return launch_fused_qkv<E, NP>(x, nscale, w, attn_scale, pos, freqs, q, k, v, images,  \
+                                   tokens, d, n_heads, groups, eps, cos_eps, st, blocks);
+  KDT_FUSED_QKV(32, 1)
+  KDT_FUSED_QKV(32, 2)
+  KDT_FUSED_QKV(64, 1)
+  KDT_FUSED_QKV(64, 2)
+#undef KDT_FUSED_QKV
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The backward (K6). x (rows, d) bf16 with rows = images * tokens; nscale

@@ -1,6 +1,11 @@
-// The pipelined wgmma GEMM core of the weight-gradient backwards: the
-// attention prologue's (K6, fused_qkv.cu) and the feed-forward block's
-// (K10, geglu.cu), on wgmma.cuh's building blocks.
+// The pipelined wgmma GEMM core of the attention prologue (K1 forward, K6
+// backward: fused_qkv.cu) and of the feed-forward block (K4 forward, K10
+// backward: geglu.cu), on wgmma.cuh's building blocks. Each of the four
+// first kernels (qkv_fwd_kernel, ffn_fwd_kernel, qkv_dr_kernel,
+// ffn_dup_kernel) normalises its x row tile once into resident tiles
+// (load_x_tiles, norm_tiles) and streams weight tiles through the ring; the
+// forwards finish in their epilogues, the backwards with the two kernels
+// below.
 //
 // Both backwards end the same way: a cotangent dR (rows, K) of a projection
 // R = AdaRMSNorm(x, nscale) @ W with W (d, K) becomes
@@ -11,19 +16,23 @@
 // forms dR in its epilogue; the two kernels here finish both.
 //
 // Operands are (64, 64) bf16 tiles in the 128-byte swizzle (wg::swizzle<64>,
-// wg::desc<64>), copied by cp.async through a ring of S stages. A tile is
+// wg::desc<64>), copied through a ring of S stages: by cp.async in the
+// backwards, by the Tensor Memory Accelerator in the forwards (below). A
+// tile is
 // read K-major for a product over its columns and MN-major (the transpose
 // bit) for a product over its rows, which gives the three forms:
 // - C = A B, B a row-major (K, N) weight: A K-major, B MN-major;
 // - C = A B^T, B a row-major (N, K) weight: both K-major;
 // - C = A^T B over rows (dW): both MN-major.
-// Every product is a wgmma m64n64k16 with both operands in shared memory
-// (wgmma_ss) and f32 accumulators in registers; a block is one warpgroup
-// over a 64-row output tile with one to three accumulator sets of 64
-// columns (at most 96 registers a thread). Each k step's copies are issued
-// S - 1 steps ahead, so copies overlap the products; one step's products
-// stay in flight while the next step's are issued. Outputs are staged
-// through a finished stage of the ring for 16-byte stores.
+// Every product here is a wgmma m64n64k16 with both operands in shared
+// memory (wgmma_ss) and f32 accumulators in registers (K4's down product
+// with one warpgroup takes its A operand from registers, wgmma_rs); a
+// warpgroup owns a 64-row output tile with one to six accumulator sets of
+// 64 columns (32 registers a thread each), and a block is one warpgroup or
+// two that share each weight tile. Each k step's copies are issued ahead,
+// so copies overlap the products; one step's products stay in flight while
+// the next step's are issued. Outputs are staged through a finished stage
+// of the ring for 16-byte stores.
 //
 // Row reductions (dW, d(nscale), d(attn_scale)) are per-block f32 partials
 // summed by reduce_kernel in a fixed order, never atomics: a rerun gives
@@ -41,6 +50,8 @@
 // relative 2^-8 of a term that is itself small against r g1.
 #pragma once
 
+#include <cuda.h>
+
 #include <cstdint>
 
 #include "wgmma.cuh"
@@ -54,19 +65,20 @@ constexpr int THREADS = 128;  // one warpgroup
 constexpr int T = TILE<64>;   // elements of one (64, 64) tile
 constexpr int S = STAGES;     // stages of the ring
 
-// Rows of one image in 64-row tiles: block x of the grid is tile `tile` of
-// image `img`.
+// Rows of one image in 64-row tiles: row tile `index` (by default block x
+// of the grid) is tile `tile` of image `img`.
 struct RowTile {
   long row0;
   int valid, img, tile;
 };
 
-__device__ __forceinline__ RowTile row_tile(int tokens) {
+__device__ __forceinline__ RowTile row_tile(int tokens, int index) {
   const int tiles = (tokens + ROWS - 1) / ROWS;
-  const int img = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int img = index / tiles, tile = index % tiles;
   const int valid = tokens - tile * ROWS < ROWS ? tokens - tile * ROWS : ROWS;
   return {static_cast<long>(img) * tokens + static_cast<long>(tile) * ROWS, valid, img, tile};
 }
+__device__ __forceinline__ RowTile row_tile(int tokens) { return row_tile(tokens, blockIdx.x); }
 
 // The thread's accumulator coordinates in wgmma's m64n64 layout: element
 // 4 i + 2 h + e of a set lies at row acc_row(h), column 8 i + acc_col() + e.
@@ -154,6 +166,117 @@ __device__ __forceinline__ void ring_refill(int k, int steps, const Load& load) 
   cp_async_commit();
 }
 
+// The forwards' ring (K1, K4): weight tiles by the Tensor Memory
+// Accelerator, S stages, one __syncthreads a step. Thread 0 starts each
+// (64, 64) tile's copy (tma_tile: the copy engine computes the addresses
+// and applies the 128-byte swizzle of wg::swizzle<64>) and counts its bytes
+// on the stage's mbarrier, which completes a phase when they have landed;
+// every thread waits on it (tma_step). Step s's barrier follows every
+// thread's wgmma_wait<1> of step s - 1, so the products of step s - 2 are
+// done in every warpgroup and their stage takes the copies of step s + S -
+// 2 at once, before step s's products are issued: the copies overlap the
+// products still in flight. tma_start issues steps 0 to S - 3; stages S - 2
+// and S - 1 stay free until steps 0 and 1 refill them. The copies take no
+// thread's registers or issue slots but thread 0's few.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// A (64, 64) bf16 tile at (col, row) of the row-major matrix of `map` into
+// the swizzled tile at dst, its 8192 bytes counted on `bar`.
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int col, int row,
+                                         uint64_t* bar) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], 8192;\n" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Thread 0's arrival on `bar` once a step's tiles are started.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits for the phase of `bar` with the given parity to complete. A copy
+// that never lands (a fault in the ring's bookkeeping) traps after some
+// seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == 1 << 24) __trap();
+  }
+}
+
+// Initialises the S stage barriers; every thread of the block calls it.
+__device__ __forceinline__ void tma_init(uint64_t (&full)[S]) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < S; ++st) mbar_init(&full[st]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// `load(s, stage)`, called by thread 0, starts step s's tiles with
+// tma_tile on full[stage] and arrives on it.
+template <class Load>
+__device__ __forceinline__ void tma_start(int steps, const Load& load) {
+  if (threadIdx.x != 0) return;
+  for (int k = 0; k < S - 2 && k < steps; ++k) load(k, k);
+}
+
+// Waits for step s's tiles in every thread and starts the copies of step s
+// + S - 2. The caller then issues step s's products and waits for step s -
+// 1's (wgmma_wait<1>).
+template <class Load>
+__device__ __forceinline__ void tma_step(int s, int steps, uint64_t (&full)[S], const Load& load) {
+  mbar_wait(&full[s % S], (s / S) & 1);
+  __syncthreads();
+  if (threadIdx.x == 0 && s + S - 2 < steps) {
+    // earlier plain reads and writes of the stage come before the copy's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    load(s + S - 2, (s + S - 2) % S);
+  }
+}
+
+// The tensor map of a row-major (rows, cols) bf16 matrix for (64, 64) tiles
+// in the 128-byte swizzle, encoded by cuTensorMapEncodeTiled, which is
+// looked up at run time: the libraries link the CUDA runtime only.
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, 64}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The k loop of one output tile into acc: `mma(stage, k)` issues step k's
 // products.
 template <int NT, class Load, class Mma>
@@ -180,7 +303,10 @@ __device__ __forceinline__ void mainloop(float (&acc)[NT][32], int steps, const 
 // normalises the tiles in place with the row's image's nscale (d,) bf16:
 // xn = bf16(x * bf16(nscale * r)), the JAX package's rounding point. Each x
 // tile is normalised once. With xn_out and r_out, xn and r also go to
-// device memory. A __syncthreads must follow before the tiles are read.
+// device memory. The work goes to `nthreads` threads, this one number `tid`
+// (the block, or one warpgroup normalising its own tile while the others
+// normalise theirs); every thread of the block calls it, for its
+// __syncthreads. A __syncthreads must follow before the tiles are read.
 __device__ __forceinline__ void load_x_tiles(const bf16* x, const RowTile& t, int d,
                                              bf16* tiles) {
   const int r0 = static_cast<int>(t.row0);
@@ -189,14 +315,14 @@ __device__ __forceinline__ void load_x_tiles(const bf16* x, const RowTile& t, in
 }
 
 __device__ inline void norm_tiles(const RowTile& t, int d, const bf16* ns, float eps, bf16* tiles,
-                                  float* s_r, bf16* xn_out, float* r_out) {
+                                  float* s_r, bf16* xn_out, float* r_out, int tid, int nthreads) {
   unsigned char* base = reinterpret_cast<unsigned char*>(tiles);
   auto chunk = [&](int row, int c) {  // 16-byte chunk c of a row of the tile
     return reinterpret_cast<uint4*>(base + (c / 8) * T * sizeof(bf16) + swizzle<64>(row, c % 8));
   };
   const int chunks = d / 8;
-  {
-    const int row = threadIdx.x / 2, half = threadIdx.x & 1;
+  if (tid < 2 * ROWS) {
+    const int row = tid / 2, half = tid & 1;
     float ss = 0.f;
     for (int c = half * chunks / 2; c < (half + 1) * chunks / 2; ++c) {
       const uint4 v = *chunk(row, c);
@@ -211,7 +337,7 @@ __device__ inline void norm_tiles(const RowTile& t, int d, const bf16* ns, float
     if (half == 0) s_r[row] = rsqrtf(ss / d + eps);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < ROWS * chunks; i += blockDim.x) {
+  for (int i = tid; i < ROWS * chunks; i += nthreads) {
     const int row = i / chunks, c = i % chunks;
     if (row >= t.valid) continue;  // zero already
     uint4 v = *chunk(row, c);
@@ -224,8 +350,7 @@ __device__ inline void norm_tiles(const RowTile& t, int d, const bf16* ns, float
     *chunk(row, c) = v;
     if (xn_out != nullptr) *reinterpret_cast<uint4*>(xn_out + (t.row0 + row) * d + c * 8) = v;
   }
-  if (r_out != nullptr && static_cast<int>(threadIdx.x) < t.valid)
-    r_out[t.row0 + threadIdx.x] = s_r[threadIdx.x];
+  if (r_out != nullptr && tid < t.valid) r_out[t.row0 + tid] = s_r[tid];
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the tiles feed wgmma
 }
 

@@ -25,6 +25,12 @@ SOURCES = ("fused_qkv", "na2d", "na2d_heads", "global_packed", "geglu",
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the shared memory one block may take on the H100 (227 KB)
+SMEM_PER_BLOCK = 232_448
+# one (64, 64) bf16 tile of shared memory, and the slack the kernels take
+# to align their tiles to 1024 bytes
+TILE_BYTES, SMEM_SLACK = 8192, 1024
+
 _libs = {}
 _lock = threading.Lock()
 
@@ -122,14 +128,41 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(device):
+    """The number of SMs of CUDA ``device``."""
+    import torch
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+def fits(tiles):
+    """Whether ``tiles`` (64, 64) bf16 tiles and the alignment slack fit in
+    one block's shared memory."""
+    return tiles * TILE_BYTES + SMEM_SLACK <= SMEM_PER_BLOCK
+
+
+def best_split(blocks, most, slots, work):
+    """How to split each of ``blocks`` blocks into g parts (1 to
+    ``most``): returns (cost, g) for the g with the fewest rounds x
+    ``work(g)``, the steps a block takes, where a round is ``slots(g)``
+    blocks resident at once (none: g is skipped); the smaller g on a tie."""
+    best = None
+    for g in range(1, most + 1):
+        if slots(g) < 1:
+            continue
+        cost = -(-blocks * g // slots(g)) * work(g)
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    if best is None:
+        raise ValueError("no split of the grid fits on the device")
+    return best
+
+
 def grid_splits(blocks, most, device):
     """Into how many parts (1 to ``most``) to split each of ``blocks``
     blocks so that the grid holds about two blocks for each SM of
     ``device``."""
-    import torch
-    index = device.index
-    sms = _sm_count(torch.cuda.current_device() if index is None else index)
-    return max(1, min(most, -(-2 * sms // blocks)))
+    return max(1, min(most, -(-2 * sm_count(device) // blocks)))
 
 
 def row_chunk(rows, tiles, device):

@@ -2,14 +2,15 @@
 backward (counterpart of k_diffusion_tpu/ops/pallas/fused_ffn.py).
 
 ``x + down(GEGLU(up(AdaRMSNorm(x, scale))))``. On CUDA tensors the forward
-is two launches of the kernels in ``csrc/geglu.cu``: norm -> up -> GEGLU
-writes the bfloat16 hidden activation, then down + residual reads it back.
-The backward, through an autograd Function, is the kernel K10 of the same
-file. CPU tensors go to ``reference``, the plain version, which autograd
+is one launch of ``ffn_fwd_kernel`` in ``csrc/geglu.cu``: norm -> up ->
+GEGLU -> down -> + x, the bfloat16 hidden activation kept in registers. The
+backward, through an autograd Function, is the kernel K10 of the same file.
+CPU tensors go to ``reference``, the plain version, which autograd
 differentiates.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,10 +22,12 @@ launches = 0      # forward wrapper calls that launched the kernels
 bwd_launches = 0  # backward wrapper calls that launched the kernels
 
 _P = ctypes.c_void_p
-# x, scale, w_up, h, rows, tokens, d, d_ff, eps, stream
-_UP = [_P] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3 + [ctypes.c_float, _P]
-# h, w_down, x, out, rows, d, d_ff, stream
-_DOWN = [_P] * 4 + [ctypes.c_long] + [ctypes.c_int] * 2 + [_P]
+# x, scale, w_up, w_down, out, images, tokens, d, d_ff, warpgroups,
+# out_tiles, groups, eps, stream, clusters (int *: the occupancy query)
+_FWD = [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, _P, _P]
+# the widest d the forward takes: its x tiles, h tiles and ring in one
+# block's shared memory
+MAX_D = 896
 # x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, h, dup, xn, r,
 # dot_part, dns_part, dw_part, images, tokens, d, d_ff, groups, chunk_up,
 # chunk_down, eps, stream
@@ -61,22 +64,62 @@ def _operands(x, scale, w_up, w_down):
     return w_up, w_down
 
 
+@functools.lru_cache(maxsize=None)
+def _clusters(index, d, d_ff, warpgroups, out_tiles, groups):
+    """How many K4 clusters of ``groups`` blocks fit on CUDA device
+    ``index`` at once."""
+    lib = _build.load("geglu", kdt_ffn_fwd=_FWD)
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        status = lib.kdt_ffn_fwd(*[None] * 5, 1, 64, d, d_ff, warpgroups,
+                                 out_tiles, groups, 0.0, None,
+                                 ctypes.byref(clusters))
+    _build.check_launch(lib, status, "fused_ffn occupancy")
+    return clusters.value
+
+
+def forward_split(images, tokens, d, d_ff, device):
+    """K4's grid: (warpgroups, out_tiles, groups). A block is one
+    warpgroup holding every output tile where d / 64 is 1, 2 or 4 (or one
+    tile where it is odd), else two warpgroups holding out_tiles 64-column
+    tiles, half each (the most of 8, 6, 2 that divide d / 64: the register
+    budget). The hidden panels, one a warpgroup a round, split over
+    clusters of ``groups`` blocks (at most 8), as many as make the fewest
+    rounds of resident clusters times the steps a block takes on average
+    (kt and the down steps a round, and about kt + 4 for the x tiles and
+    the partials)."""
+    kt, panels = d // 64, d_ff // 64
+    if kt in (1, 2, 4) or kt % 2:
+        warpgroups, out_tiles = 1, kt if kt in (1, 2, 4) else 1
+    else:
+        warpgroups = 2
+        out_tiles = next(n for n in (8, 6, 2) if kt % n == 0)
+    # one warpgroup takes two output tiles a down step, two one each
+    down = -(-out_tiles // 2) if warpgroups == 1 else out_tiles // 2
+    index = torch.cuda.current_device() if device.index is None else device.index
+    blocks = images * -(-tokens // 64) * (kt // out_tiles)
+    _, groups = _build.best_split(
+        blocks, min(8, panels),
+        lambda g: _clusters(index, d, d_ff, warpgroups, out_tiles, g) * g,
+        lambda g: panels / g / warpgroups * (kt + down) + kt + 4)
+    return warpgroups, out_tiles, groups
+
+
 def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
     """Launches K4 on CUDA tensors: returns x + FFN(norm(x))."""
     _build.require_cuda(x, "fused_geglu_ffn")
     b, t, d = x.shape
     d_ff = w_down.shape[0]
+    if d > MAX_D:
+        raise ValueError(f"fused_ffn forward takes d up to {MAX_D}; got d={d}")
     w_up, w_down = _operands(x, scale, w_up, w_down)
-    hidden = torch.empty((b, t, d_ff), device=x.device, dtype=torch.bfloat16)
     out = torch.empty_like(x)
-    lib = _build.load("geglu", kdt_ffn_up=_UP, kdt_ffn_down=_DOWN)
-    stream = _build.stream_ptr(x.device)
-    status = lib.kdt_ffn_up(*map(_build.ptr, (x, scale, w_up, hidden)),
-                            b * t, t, d, d_ff, eps, stream)
-    _build.check_launch(lib, status, "fused_ffn up")
-    status = lib.kdt_ffn_down(*map(_build.ptr, (hidden, w_down, x, out)),
-                              b * t, d, d_ff, stream)
-    _build.check_launch(lib, status, "fused_ffn down")
+    warpgroups, out_tiles, groups = forward_split(b, t, d, d_ff, x.device)
+    lib = _build.load("geglu", kdt_ffn_fwd=_FWD)
+    status = lib.kdt_ffn_fwd(*map(_build.ptr, (x, scale, w_up, w_down, out)),
+                             b, t, d, d_ff, warpgroups, out_tiles, groups, eps,
+                             _build.stream_ptr(x.device), None)
+    _build.check_launch(lib, status, "fused_ffn")
     global launches
     launches += 1
     return out

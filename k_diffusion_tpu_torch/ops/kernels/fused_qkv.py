@@ -9,6 +9,7 @@ an autograd Function whose backward is the kernel K6; CPU tensors to
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,12 +20,15 @@ launches = 0      # forward kernel launches since the last reset
 bwd_launches = 0  # backward kernel launches since the last reset
 
 HEAD_DIMS = (32, 64)  # head dims the kernels take
+# the widest d the forward takes: two row tiles of x and its ring in one
+# block's shared memory
+MAX_D = 768
 
 _P = ctypes.c_void_p
-# x, norm_scale, w_qkv, attn_scale, cos, sin, q, k, v, rows, tokens, d,
-# heads, eps, cos_eps, stream
-_SIGNATURE = [_P] * 9 + [ctypes.c_long, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]
+# x, norm_scale, w_qkv, attn_scale, pos, freqs, q, k, v, images, tokens, d,
+# heads, step_panels, groups, eps, cos_eps, stream, blocks (int *: the
+# occupancy query)
+_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [_P] * 2
 # x, norm_scale, w_qkv, attn_scale, cos, sin, gq, gk, gv, dx, dns, dw,
 # das_sums, dqk, xn, r, dot_part, das_part, dns_part, dw_part, images,
 # tokens, d, heads, groups, chunk_rows, eps, cos_eps, stream
@@ -72,7 +76,7 @@ def rope_tables(pos, n_heads, d_head):
     return torch.cos(theta).contiguous(), torch.sin(theta).contiguous()
 
 
-def _operands(x, pos, norm_scale, w_qkv, attn_scale, n_heads):
+def _operands(x, norm_scale, w_qkv, attn_scale, n_heads):
     """Checks and casts the operands both kernels share."""
     b, h, w, d = x.shape
     e = d // n_heads
@@ -82,14 +86,50 @@ def _operands(x, pos, norm_scale, w_qkv, attn_scale, n_heads):
     dev, bf16 = x.device, torch.bfloat16
     w_qkv = w_qkv.to(bf16)
     attn_scale = attn_scale.float()
-    cos_t, sin_t = rope_tables(pos, n_heads, e)
     _build.require(x, "x", dev, bf16, (b, h, w, d))
     _build.require(norm_scale, "norm_scale", dev, bf16, (b, d))
     _build.require(w_qkv, "w_qkv", dev, bf16, (d, 3 * d))
     _build.require(attn_scale, "attn_scale", dev, torch.float32, (n_heads,))
-    _build.require(cos_t, "cos table", dev, torch.float32,
-                   (h * w, n_heads * e // 4))
-    return w_qkv, attn_scale, cos_t, sin_t
+    return w_qkv, attn_scale
+
+
+@functools.lru_cache(maxsize=None)
+def _freqs(n_heads, d_head, device):
+    """The RoPE frequencies (heads, d_head // 8) float32 on ``device``,
+    contiguous: fixed, so built once."""
+    return rope.axial_rope_freqs(d_head // 2, n_heads, device=device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index, d, n_heads, step_panels):
+    """How many K1 blocks fit on one SM of CUDA device ``index`` at once."""
+    lib = _build.load("fused_qkv", kdt_fused_qkv=_SIGNATURE)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        status = lib.kdt_fused_qkv(*[None] * 9, 1, 64, d, n_heads, step_panels,
+                                   1, 0.0, 0.0, None, ctypes.byref(blocks))
+    _build.check_launch(lib, status, "fused_qkv occupancy")
+    return blocks.value
+
+
+def forward_split(images, tokens, d, n_heads, device):
+    """K1's grid: (step_panels, groups). A ring step takes two 64-column
+    panels of W_qkv where d % 128 == 0 (3d / 64 even) and shared memory
+    holds the ring of two-tile stages, else one. A block holds two row
+    tiles, and their 3d / (64 step_panels) step units split over
+    ``groups`` blocks, as many as make the fewest rounds of resident blocks
+    times the steps a block takes on average (kt a unit, and about kt + 2
+    for the x tiles and the last stores)."""
+    kt = d // 64
+    step_panels = 2 if d % 128 == 0 and _build.fits(2 * kt + 3 * 2) else 1
+    units = 3 * kt // step_panels
+    index = torch.cuda.current_device() if device.index is None else device.index
+    slots = _build.sm_count(device) * _blocks_per_sm(index, d, n_heads,
+                                                     step_panels)
+    blocks = -(-images * -(-tokens // 64) // 2)
+    _, groups = _build.best_split(blocks, units, lambda g: slots,
+                                  lambda g: units / g * kt + kt + 2)
+    return step_panels, groups
 
 
 def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
@@ -97,14 +137,20 @@ def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
     """Launches K1 on CUDA tensors: returns (q, k, v)."""
     _build.require_cuda(x, "fused_qkv_prologue")
     b, h, w, d = x.shape
-    w_qkv, attn_scale, cos_t, sin_t = _operands(x, pos, norm_scale, w_qkv,
-                                                attn_scale, n_heads)
+    if d > MAX_D:
+        raise ValueError(f"fused_qkv forward takes d up to {MAX_D}; got d={d}")
+    w_qkv, attn_scale = _operands(x, norm_scale, w_qkv, attn_scale, n_heads)
+    pos = pos.float().contiguous()
+    freqs = _freqs(n_heads, d // n_heads, x.device)
+    _build.require(pos, "pos", x.device, torch.float32, (h, w, 2))
     q, k, v = (torch.empty_like(x) for _ in range(3))
+    step_panels, groups = forward_split(b, h * w, d, n_heads, x.device)
     lib = _build.load("fused_qkv", kdt_fused_qkv=_SIGNATURE)
     status = lib.kdt_fused_qkv(
-        *map(_build.ptr, (x, norm_scale, w_qkv, attn_scale, cos_t, sin_t,
+        *map(_build.ptr, (x, norm_scale, w_qkv, attn_scale, pos, freqs,
                           q, k, v)),
-        b * h * w, h * w, d, n_heads, eps, cos_eps, _build.stream_ptr(x.device))
+        b, h * w, d, n_heads, step_panels, groups, eps, cos_eps,
+        _build.stream_ptr(x.device), None)
     _build.check_launch(lib, status, "fused_qkv")
     global launches
     launches += 1
@@ -118,8 +164,10 @@ def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
     the parameter gradients float32)."""
     _build.require_cuda(x, "fused_qkv_prologue backward")
     b, h, w, d = x.shape
-    w16, scale32, cos_t, sin_t = _operands(x, pos, norm_scale, w_qkv,
-                                           attn_scale, n_heads)
+    w16, scale32 = _operands(x, norm_scale, w_qkv, attn_scale, n_heads)
+    cos_t, sin_t = rope_tables(pos, n_heads, d // n_heads)
+    _build.require(cos_t, "cos table", x.device, torch.float32,
+                   (h * w, d // 4))
     dev, f32 = x.device, torch.float32
     gq, gk, gv = (g.contiguous() for g in (gq, gk, gv))
     for name, g in (("gq", gq), ("gk", gk), ("gv", gv)):

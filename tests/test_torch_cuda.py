@@ -76,8 +76,13 @@ def ffn_args(g, dev, b, t, d, d_ff):
 
 
 @pytest.mark.parametrize("b,h,w,d", [(5, 4, 4, 128), (2, 16, 8, 256),
-                                     (1, 8, 8, 512)])
+                                     (1, 8, 8, 512), (2, 7, 7, 128),
+                                     (1, 10, 10, 256), (2, 7, 7, 192),
+                                     (2, 16, 16, 768)])
 def test_fused_qkv(dev, b, h, w, d):
+    """K1: 4 x 4, 7 x 7 and 10 x 10 maps leave a 64-row tile ragged; d = 192
+    takes one W panel a ring step (3d / 64 odd); d = 768 is config_512_hdit's
+    12-head level."""
     g = torch.Generator().manual_seed(0)
     heads = d // 64
     args = (normal(g, dev, b, h, w, d),
@@ -115,8 +120,16 @@ def test_global_packed(dev, b, s, heads):
     assert_close(got, global_packed.reference(q, k, v, heads))
 
 
-@pytest.mark.parametrize("b,t,d,d_ff", [(3, 16, 128, 384), (2, 100, 256, 64)])
+@pytest.mark.parametrize("b,t,d,d_ff", [(3, 16, 128, 384), (2, 100, 256, 64),
+                                        (1, 64, 512, 1536), (2, 1024, 256, 768),
+                                        (1, 49, 256, 768), (2, 49, 768, 2304),
+                                        (3, 64, 64, 128), (2, 100, 192, 384),
+                                        (8, 4096, 128, 384)])
 def test_fused_ffn(dev, b, t, d, d_ff):
+    """K4: ragged row tiles (16, 49 and 100 tokens), d_ff of one panel,
+    config_512_hdit's d = 512 and d = 768 levels (two and three column
+    groups), 2 x 1024 rows, 1 to 4 output tiles a block (d = 64, 128, 192,
+    256), and the flagship's level 0, where a cluster is one block."""
     g = torch.Generator().manual_seed(3)
     args = (normal(g, dev, b, t, d),
             (1 + 0.1 * torch.randn((b, d), generator=g)).to(dev, torch.bfloat16),
@@ -369,6 +382,21 @@ def test_weight_gradients_are_deterministic(dev):
         assert torch.equal(a, b_)
 
 
+def test_forwards_are_deterministic(dev):
+    """A rerun of K1 and K4 gives bit-equal outputs: K4's hidden-panel
+    partials meet in a fixed order, with no atomics."""
+    g = torch.Generator().manual_seed(16)
+    args = qkv_args(g, dev, 4, 32, 32, 256)
+    first = fused_qkv.prologue_forward(*args)
+    again = fused_qkv.prologue_forward(*args)
+    for shape in ((4, 1024, 128, 384), (2, 256, 512, 1536)):
+        args = ffn_args(g, dev, *shape)
+        first += (fused_ffn.ffn_forward(*args),)
+        again += (fused_ffn.ffn_forward(*args),)
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+
+
 def test_autograd_runs_the_backward_kernels(dev):
     """Gradients through each differentiable wrapper come from its backward
     kernel (the mapping network: from its recomputed plain version; the
@@ -424,6 +452,18 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                 torch.ones((1, 96), device=dev, dtype=torch.bfloat16),
                 torch.zeros((96, 288), device=dev),
                 torch.ones(heads, device=dev), heads)
+    # K1 and K4 wider than their shared memory holds
+    x = torch.zeros((1, 8, 8, 832), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d up to"):
+        fused_qkv.fused_qkv_prologue(
+            x, rope.make_axial_pos(8, 8, device=dev),
+            torch.ones((1, 832), device=dev, dtype=torch.bfloat16),
+            torch.zeros((832, 3 * 832), device=dev), torch.ones(13, device=dev), 13)
+    x = torch.zeros((1, 64, 960), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d up to"):
+        fused_ffn.fused_geglu_ffn(x, torch.ones((1, 960), device=dev),
+                                  torch.zeros((960, 128), device=dev),
+                                  torch.zeros((64, 960), device=dev))
     x = torch.zeros((1, 16, 2, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 32 or 64"):
         flash.flash_attention(x, x, x)

@@ -73,7 +73,8 @@ def port_qkv(c):
                                         t["scale"], t["heads"])
 
 
-@pytest.mark.parametrize("shape", [(1, 32, 32, 128), (2, 16, 8, 256)])
+@pytest.mark.parametrize("shape", [(1, 32, 32, 128), (2, 16, 8, 256),
+                                   (1, 7, 7, 768), (2, 7, 7, 128)])
 def test_fused_qkv_matches_jax_dispatcher(shape):
     c = qkv_case(1, *shape)
     want = j_qkv.fused_qkv_prologue(
@@ -196,6 +197,15 @@ def ffn_case(seed, b=2, t=256, d=128, d_ff=384):
 
 def test_fused_ffn_matches_jax_dispatcher():
     args = ffn_case(8)
+    want = j_ffn.fused_geglu_ffn(*map(jnp.asarray, args))
+    got = fused_ffn.fused_geglu_ffn(*map(torch.from_numpy, args))
+    close(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("b,t,d,d_ff", [(1, 49, 768, 2304), (2, 49, 128, 384)])
+def test_fused_ffn_matches_jax_dispatcher_at(b, t, d, d_ff):
+    """config_512_hdit's 7 x 7-token d = 768 width and a 49-token map."""
+    args = ffn_case(8, b, t, d, d_ff)
     want = j_ffn.fused_geglu_ffn(*map(jnp.asarray, args))
     got = fused_ffn.fused_geglu_ffn(*map(torch.from_numpy, args))
     close(got, want, F32_TOL)
