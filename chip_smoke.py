@@ -7,9 +7,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 1. device: needs a CUDA device; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel from csrc/ with nvcc, and prints the
    registers and spills of the attention kernels, the forward (K3, K13)
-   and the backward's two (K9, K14) at each head dim, of the forwards K1
-   and K4 and of K6's and K10's (csrc/gemm.cuh's dxn and dW kernels and
-   each one's first kernel); none may spill or be missing;
+   and the backward's two (K9, K14) at each head dim, of K7's two (the
+   neighborhood geometry on the same backward), of the forwards K1 and K4
+   and of K6's and K10's (csrc/gemm.cuh's dxn and dW kernels and each
+   one's first kernel); none may spill or be missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -21,13 +22,15 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 5. sampling: 50-step DPM++(2M) at batch 8 on the card; the output must be
    finite and every kernel's launch count must match the model's layout;
 6. backward kernels: K6-K10 against their plain versions (autograd through
-   the forward's plain version; a plain overlap-add for K8) at the flagship
-   training shapes, batch 8, as in phase 3, and K1 and K6 at
-   config_512_hdit's 16 x 16 x 768 level, K4 and K10 at its 32 x 32 x 512
-   level and K4 at its 16 x 16 x 768 level, outside the sums; then, on one
-   packed input, K3
+   the forward's plain version; for K8 the plain overlap-add of plain
+   per-tile halo partials) at the flagship training shapes, batch 8, as in
+   phase 3, and K1 and K6 at config_512_hdit's 16 x 16 x 768 level, K4 and
+   K10 at its 32 x 32 x 512 level and K4 at its 16 x 16 x 768 level,
+   outside the sums; then K8's op path (one call at each NA level, with
+   launch counts: no model path runs K8); then, on one packed input, K3
    against K13 (out and logsumexp) and K9 against K14 (dq, dk, dv) bit for
-   bit: each pair runs one wgmma design;
+   bit: each pair runs one wgmma design; and K7 against a rerun of itself
+   (dq, dk, dv) bit for bit at both NA levels;
 7. gradient parity: one training step's loss and full parameter gradient,
    the flagship at batch 2 in bfloat16 on the card against the same
    weights, reals, noise and sigmas in float32 on the CPU, dropout off;
@@ -61,7 +64,7 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 15. the fused epilogue K15 (na2d_packed_proj) against its plain version at
    the flagship's NA levels, batch 8, timed against the composition the
    model runs (K2, a matmul with w_out, the residual add); then its op
-   path, forward and backward (K2 recompute, K7 + K8), with launch counts
+   path, forward and backward (K2 recompute, K7), with launch counts
    and the gradients against the plain version's;
 16. the unfused training step: the flagship config as it is with
    KDT_TRAIN_FUSION=0 (for this phase only): gradient parity at batch 2 as
@@ -82,9 +85,10 @@ Then one JSON line of per-kernel results and last ``{"ok": true, "device":
 are summed over its calls in one denoiser call (forward kernels) or one
 training step (backward kernels) on its main path: the flagship at batch 8
 for K1-K10 and, in the unfused step, K11 and K12; the U-Net at batch 64 for
-K13 and K14; one op call at each flagship NA level for K15. ``launches`` is
-its count in that path's sampling (forward) or timed training (backward)
-run, for K11 and K12 the unfused training run, for K15 its op path. Any
+K13 and K14; one op call at each flagship NA level for K15 and K8.
+``launches`` is its count in that path's sampling (forward) or timed
+training (backward) run, for K11 and K12 the unfused training run, for K15
+and K8 their op paths. Any
 failure raises: exit code non-zero, no result line. Imports nothing of JAX.
 """
 
@@ -222,7 +226,7 @@ def sdpa_backward(q, k, v, dout, scale, mask=None):
 
 
 def na_library(qkv, dout=None):
-    """The yardstick of K2 and K11, or with ``dout`` of K7 + K8 and K12:
+    """The yardstick of K2 and K11, or with ``dout`` of K7 and K12:
     SDPA, or its backward alone, on the (b, hw, heads, e) views of (b, h, w,
     heads, e) q, k, v, each query's clamped 7 x 7 window a dense (hw, hw)
     additive bf16 mask (the plain version's): hw / 49 times the kernels'
@@ -333,13 +337,15 @@ def backward_cases(dev):
     """The backward kernels at the flagship training shapes, batch 8: K6 at
     every level, K7, K8 and K10 at the two NA levels (the mid level's
     feed-forward blocks have dropout and run unfused), K9 at the global
-    level. Each fn returns a tuple of gradients; K7's dk and dv are its halo
-    partials summed by the plain overlap-add, so that each of K7's outputs
-    is held against the plain backward. Inputs are seeded; the weights are
-    float32, as the model's parameters. A backward's operations count the
-    products it cannot do without: the recomputed forward product where
-    the forward's result is not an input (the raw qkv, the logits, the
-    GEGLU hidden), and each gradient product."""
+    level. Each fn returns a tuple of gradients. K7 is the whole backward,
+    (dq, dk, dv) from q, k, v, out, lse and dout; K8 sums the plain per-tile
+    halo partials of the same inputs (``packed_backward_partials_
+    reference``), held against the plain overlap-add of them. Inputs are
+    seeded; the weights are float32, as the model's parameters. A
+    backward's operations count the products it cannot do without: the
+    recomputed forward product where the forward's result is not an input
+    (the raw qkv, the logits, the GEGLU hidden), and each gradient product.
+    Returns the cases and K8's partials at each NA level, for its op path."""
     from k_diffusion_tpu_torch.ops import rope
     from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_qkv,
                                                    global_packed, na2d)
@@ -355,7 +361,7 @@ def backward_cases(dev):
         return (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
             shape).to(dev, bf16)
 
-    cases = []
+    cases, overlap = [], []
     for h, d, d_ff, attn, n in ((64, 128, 384, "na", 4),
                                 (32, 256, 768, "na", 4),
                                 (16, 512, 1536, "global", 4)):
@@ -376,33 +382,30 @@ def backward_cases(dev):
         if attn == "na":
             out, lse = na2d.packed_forward(q, k, v, heads, 7, save_lse=True)
             fwd = (q, k, v, out, lse, dout, heads, 7)
-            parts = na2d.packed_backward_partials(*fwd)
-
-            def k7(a=fwd, h=h):
-                dq, dk_part, dv_part = na2d.packed_backward_partials(*a)
-                return (dq, *na2d.overlap_add_reference(dk_part, dv_part, h,
-                                                        h, 7))
-
-            # timed alone; its plain time and its library's are the whole
-            # backward's (K7 + K8); the logits recomputed, then dp, dv, dk, dq
+            # the logits recomputed, then dp, dv, dk, dq; the bytes q, k,
+            # v, out, dout and lse read, dq, dk and dv written
             cases.append(Case(
-                "na2d_bwd", label, n, k7,
+                "na2d_bwd", label, n,
+                lambda a=fwd: na2d.packed_backward(*a),
                 lambda a=(q, k, v, dout, heads, 7): na2d.reference_backward(*a),
-                5 * 2 * t * d * 7 ** 2, fwd,
-                timed=lambda a=fwd: na2d.packed_backward_partials(*a),
+                5 * 2 * t * d * 7 ** 2, fwd[:6],
                 library=na_library(split_heads((q, k, v), heads),
                                    split_heads((dout,), heads)[0])))
+            parts = na2d.packed_backward_partials_reference(q, k, v, dout,
+                                                            heads, 7)
+            overlap.append((*parts, h, h, 7))
             # the library call: one index_add_ of the dk and dv halo rows
             # (side by side) into the plain version's position map
             halo = na2d.TILE + na2d.MAX_KERNEL - 1
             rows = torch.cat([p[:, :, :, :halo * halo].reshape(
-                b, heads, -1, 64) for p in parts[1:]], -1)
+                b, heads, -1, 64) for p in parts], -1)
             sums = torch.zeros((b, heads, h * h + 1, 128), device=dev)
+            # one call a level: K8's path is its op path (``overlap_path``)
             cases.append(Case(
-                "na2d_overlap_add", label, n,
-                lambda p=parts[1:], h=h: na2d.overlap_add(*p, h, h, 7),
-                lambda p=parts[1:], h=h: na2d.overlap_add_reference(*p, h, h, 7),
-                0, parts[1:],
+                "na2d_overlap_add", label, 1,
+                lambda p=parts, h=h: na2d.overlap_add(*p, h, h, 7),
+                lambda p=parts, h=h: na2d.overlap_add_reference(*p, h, h, 7),
+                0, parts,
                 library=lambda s=sums, t=na2d.overlap_add_targets(h, h, 7, dev),
                 r=rows: s.index_add_(2, t, r)))
             ffn_args = (normal(b, h * h, d), (1 + 0.1 * torch.randn(
@@ -429,7 +432,59 @@ def backward_cases(dev):
                 global_packed.reference_backward(*a),
                 5 * 2 * b * s * s * d, (q, k, v, out, lse, dout),
                 library=sdpa_backward(*split, 1.0)))
-    return cases
+    return cases, overlap
+
+
+def overlap_path(overlap):
+    """K8's op path: ``na2d.overlap_add`` once on each NA level's plain
+    partials (``backward_cases``), with the launch counts read around it:
+    since K7 writes dk and dv itself, no model path runs K8. Each result is
+    held against the plain overlap-add again. Returns the counts."""
+    from k_diffusion_tpu_torch.ops import kernels
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    kernels.reset_launch_counts()
+    got = [na2d.overlap_add(*args) for args in overlap]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+        "na2d_overlap_add": len(overlap)}
+    if counts != expected:
+        raise AssertionError(f"overlap-add path: launch counts {counts} != "
+                             f"expected {expected}")
+    for sums, args in zip(got, overlap):
+        for name, a, b_ in zip(("dk", "dv"), sums,
+                               na2d.overlap_add_reference(*args)):
+            check_close(f"overlap-add path {name}", a, b_, KERNEL_REL_BOUND)
+    print(f"overlap-add path: launches {counts}; dk, dv within "
+          f"{KERNEL_REL_BOUND} x max|plain|", flush=True)
+    return counts
+
+
+def na_bit_check(dev):
+    """K7 has no partials and no atomics: at both flagship NA levels (batch
+    8, cosine-sim q and k) two runs give bit-identical dq, dk, dv."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 19)
+    labels = []
+    for h, c in ((64, 128), (32, 256)):
+        b, heads = SAMPLE_BATCH, c // 64
+        t = torch.randn((2, b, h, h, heads, 64), generator=g)
+        q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+            2, b, h, h, c).to(dev, torch.bfloat16)
+        v, dout = torch.randn((2, b, h, h, c), generator=g).to(
+            dev, torch.bfloat16)
+        out, lse = na2d.packed_forward(q, k, v, heads, 7, save_lse=True)
+        first = na2d.packed_backward(q, k, v, out, lse, dout, heads, 7)
+        again = na2d.packed_backward(q, k, v, out, lse, dout, heads, 7)
+        for name, a, b_ in zip(("dq", "dk", "dv"), first, again):
+            if not torch.equal(a, b_):
+                diff = (a.float() - b_.float()).abs().max().item()
+                raise AssertionError(f"K7 rerun {name} differs by {diff:.3e}")
+        labels.append(f"{b}x{h}x{h}x{c}")
+    print(f"K7 bit check [{', '.join(labels)}]: two runs give bit-identical "
+          f"dq, dk, dv", flush=True)
 
 
 def wide_cases(dev):
@@ -763,7 +818,7 @@ def proj_cases(inputs):
 def proj_path(inputs, results):
     """Phase 15's op path: na2d_packed_proj forward and backward (autograd)
     at both NA levels with the launch counts read around it (K15 forward;
-    K2 recompute, K7 + K8 backward), the gradients held against autograd
+    K2 recompute, K7 backward), the gradients held against autograd
     through the plain version; then K15 timed against the composition the
     model runs, K2 -> matmul with w_out -> residual add. Returns the
     counts."""
@@ -781,7 +836,7 @@ def proj_path(inputs, results):
     counts = kernels.launch_counts()
     n = len(inputs)
     expected = dict.fromkeys(kernels.COUNTERS, 0) | {
-        "na2d_proj": n, "na2d": n, "na2d_bwd": n, "na2d_overlap_add": n}
+        "na2d_proj": n, "na2d": n, "na2d_bwd": n}
     if counts != expected:
         raise AssertionError(f"na2d_packed_proj path: launch counts {counts} "
                              f"!= expected {expected}")
@@ -1031,9 +1086,14 @@ def main():
     torch.cuda.empty_cache()
 
     with torch.no_grad():
-        run_cases(backward_cases(dev), results, 20, 3)
+        cases, overlap = backward_cases(dev)
+        run_cases(cases, results, 20, 3)
+        del cases
+        overlap_counts = overlap_path(overlap)
+        del overlap
         run_cases(wide_cases(dev), {}, 20, 3)
         attention_bit_check(dev)
+        na_bit_check(dev)
 
     grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
@@ -1141,7 +1201,7 @@ def main():
 
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
-    # the unfused training steps for K11/K12, the op path for K15)
+    # the unfused training steps for K11/K12, the op paths for K15 and K8)
     paths = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
         "na2d": ("na2d.cu", "na2d.py:576", sample_counts),
@@ -1150,8 +1210,8 @@ def main():
         "fused_ffn": ("geglu.cu", "fused_ffn.py:42", sample_counts),
         "fused_mapping": ("geglu.cu", "fused_mapping.py:28", sample_counts),
         "fused_qkv_bwd": ("fused_qkv.cu", "fused_qkv.py:246", train_counts),
-        "na2d_bwd": ("na2d.cu", "na2d.py:701", train_counts),
-        "na2d_overlap_add": ("na2d.cu", "na2d.py:809", train_counts),
+        "na2d_bwd": ("na_bwd.cuh", "na2d.py:701", train_counts),
+        "na2d_overlap_add": ("na2d.cu", "na2d.py:809", overlap_counts),
         "global_packed_bwd": ("attn_bwd.cuh", "global_packed.py:111",
                               train_counts),
         "fused_ffn_bwd": ("geglu.cu", "fused_ffn.py:115", train_counts),
@@ -1185,11 +1245,13 @@ def main():
 
 
 # the kernels phase 2 reports, by library: the attention forward and
-# backward (csrc/attn_fwd.cuh, attn_bwd.cuh), the forwards K1 and K4, and
-# K6's and K10's (their first kernels and csrc/gemm.cuh's)
+# backward (csrc/attn_fwd.cuh, attn_bwd.cuh), K7's two (csrc/na_bwd.cuh),
+# the forwards K1 and K4, and K6's and K10's (their first kernels and
+# csrc/gemm.cuh's)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
+    "na2d": ("na_dq_kernel", "na_dkv_kernel"),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
                   "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
@@ -1199,7 +1261,8 @@ REPORTED = {
 
 def compiler_report(build):
     """Registers and spills of the attention kernels (K3, K13: csrc/attn_
-    fwd.cuh; K9, K14: csrc/attn_bwd.cuh), of the forwards K1 and K4 and of
+    fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7: csrc/na_bwd.cuh), of the
+    forwards K1 and K4 and of
     K6's and K10's (csrc/gemm.cuh's core, each backward's first kernel),
     from the compiler report kept beside each library; raises if one spills
     or is missing."""
@@ -1353,7 +1416,7 @@ def hdit_train_layout(config):
     mapping = int(config["model"]["mapping_dropout_rate"] == 0)
     return {"fused_qkv": attn, "na2d": na, "global_packed": levels[-1],
             "fused_ffn": ffn, "fused_mapping": mapping,
-            "fused_qkv_bwd": attn, "na2d_bwd": na, "na2d_overlap_add": na,
+            "fused_qkv_bwd": attn, "na2d_bwd": na,
             "global_packed_bwd": levels[-1], "fused_ffn_bwd": ffn}
 
 
@@ -1464,8 +1527,8 @@ def profile(run, name, what):
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
     # the attention kernels (the forward of K3, K13; the backward's two of
-    # K9, K14), the forwards K1 and K4, and K6's and K10's, which the table
-    # may leave out: device time per launch and per step or call
+    # K9, K14 and of K7), the forwards K1 and K4, and K6's and K10's, which
+    # the table may leave out: device time per launch and per step or call
     kinds = {k for names in REPORTED.values() for k in names}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and any(

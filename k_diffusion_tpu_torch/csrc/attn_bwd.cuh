@@ -1,12 +1,13 @@
-// The backward of exact global softmax attention on Hopper, shared by K9
-// (global_packed.cu, channel-packed (b, s, heads * 64) maps) and K14
-// (flash.cu, (b, s, heads, e) q, k, v read through their strides).
+// The backward of softmax attention on Hopper, shared by K9
+// (global_packed.cu, channel-packed (b, s, heads * 64) maps), K14
+// (flash.cu, (b, s, heads, e) q, k, v read through their strides) and K7
+// (na_bwd.cuh, 2-D neighborhood attention on channel-packed maps).
 //
 // Replaces: k_diffusion_tpu/ops/pallas/global_packed.py:_bwd_kernel (K9)
-// and k_diffusion_tpu/ops/pallas/flash.py:_dq_kernel, :_dkv_kernel (K14).
-// The packed map of K9 is K14's strided layout with stride_b = s * heads *
-// 64, stride_s = heads * 64 and the head at column head * 64, so both run
-// these two kernels.
+// and k_diffusion_tpu/ops/pallas/flash.py:_dq_kernel, :_dkv_kernel (K14);
+// na_bwd.cuh says what K7 replaces. The packed map of K9 is K14's strided
+// layout with stride_b = s * heads * 64, stride_s = heads * 64 and the head
+// at column head * 64, so both run the same two kernels.
 //
 // What bounds it on the H100: 5 products of 2 s^2 e FLOP per image and head
 // (the logits recomputed, dp, dv, dk, dq) against q, k, v, out, dout read
@@ -19,26 +20,40 @@
 // (128 threads) and owns 64 rows of one head of one image; the grid is
 // (row tiles, heads, batch). Every product is a wgmma m64nNk16 with f32
 // accumulators in registers, and p and ds never leave registers: each
-// thread forms them for its own accumulator elements (masked past s) and
-// rounds them to bf16 pairs, which in wgmma's accumulator layout are
-// already the register A operand of the next product.
-// - attn_dq_kernel: 64 queries. Q and dO are loaded once, kept as register
-//   A fragments (ldmatrix), lse and delta in registers; 64-key tiles of K
-//   and V stream through the ring. Per tile S = Q K^T and dP = dO V^T (B
-//   from shared memory), p = 2^(s scale log2 e - lse log2 e), ds = p (dp -
+// thread forms them for its own accumulator elements (masked) and rounds
+// them to bf16 pairs, which in wgmma's accumulator layout are already the
+// register A operand of the next product.
+// - dq_body: 64 queries. Q and dO are loaded once, kept as register A
+//   fragments (ldmatrix), lse and delta in registers; 64-key tiles of K and
+//   V stream through the ring. Per tile S = Q K^T and dP = dO V^T (B from
+//   shared memory), p = 2^(s scale log2 e - lse log2 e), ds = p (dp -
 //   delta), then dQ += dS K with K read MN-major. Its first tile's step also
 //   computes delta = rowsum(out * dout) from the dO tile and the out tile
 //   (parked in the ring's last stage until then) and writes it for the
 //   second kernel.
-// - attn_dkv_kernel: 64 keys. K and V stay resident in shared memory;
-//   64-query tiles of Q and dO, with their lse and delta, stream through
-//   the ring. S^T = K Q^T and dP^T = V dO^T - delta (the accumulator starts
-//   at -delta), P^T and dS^T in registers, then dV += P^T dO and dK += dS^T
-//   Q with Q and dO read MN-major. dK and dV accumulate in registers over
-//   the whole query loop, in a fixed order. At most 168 registers, so three
+// - dkv_body: 64 keys. K and V stay resident in shared memory; 64-query
+//   tiles of Q and dO, with their lse and delta, stream through the ring.
+//   S^T = K Q^T and dP^T = V dO^T - delta (the accumulator starts at
+//   -delta), P^T and dS^T in registers, then dV += P^T dO and dK += dS^T Q
+//   with Q and dO read MN-major. dK and dV accumulate in registers over the
+//   whole query loop, in a fixed order. At most 168 registers, so three
 //   blocks fit on an SM.
-// Both kernels stage their bf16 output tile through shared memory and
-// store whole 16-byte chunks.
+// Both stage their bf16 output tile through shared memory and store whole
+// 16-byte chunks.
+//
+// Which rows a block owns, which tiles stream past them and which pairs
+// attend is the geometry, a template policy G of the two bodies (Seq below
+// for global attention; na_bwd.cuh's for neighborhood attention):
+// - G::tiles, the streamed tiles, and G::positions, the map positions per
+//   image and head (the length of a row of lse and delta);
+// - own(r) and stream(j, r): the map position (Pos) of row r of the own
+//   tile or of streamed tile j; rows gathered one by one through each
+//   tensor's MapStrides, rows that are not ok zero-filled;
+// - index(p): a position's index into its row of lse and delta;
+// - own_info(r) and mask(j, col, info): whether own row r and column col of
+//   streamed tile j attend, from a per-row summary kept in registers.
+// The __global__ kernels are thin: each builds its geometry from blockIdx.x
+// and runs a body.
 //
 // The tiles, the 3-stage cp.async ring, the descriptors and the register
 // operands are wgmma.cuh's, which the forward (attn_fwd.cuh) shares. At
@@ -54,41 +69,37 @@ namespace attn_bwd {
 
 using namespace wg;
 
+// The operands of a backward launch. q, k, v are read through the strides
+// `in` (head h at column h * E); out, dout, dq, dk and dv share the
+// contiguous strides io; lse and delta are (b, heads, positions) f32.
+struct Args {
+  const bf16 *q, *k, *v, *out, *dout;
+  const float* lse;
+  float* delta;
+  bf16 *dq, *dk, *dv;
+  MapStrides in, io;
+  int n_heads;
+  float scale;
+};
+
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 4 : 0));
 }
 
-// Starts the copy of entries [r0, r0 + 64) of a (s,) row of lse (off 0) or
-// delta (off 2) into a tile's statistics: entry i goes to float 4 (i / 2) +
-// off + i % 2, so that one 16-byte read gives the lse and delta of a pair
-// of columns. Entries at or past s are zero-filled. Threads [first, first +
-// 64) take part.
-__device__ __forceinline__ void load_stats_async(float* dst, const float* src, int r0, int s,
-                                                 int first, int off) {
+// Starts the copy of the lse (off 0) or delta (off 2) of streamed tile j's
+// rows, from `src` (the image and head's row), into the tile's statistics:
+// row i goes to float 4 (i / 2) + off + i % 2, so that one 16-byte read
+// gives the lse and delta of a pair of columns. Rows that are not ok are
+// zero-filled. Threads [first, first + 64) take part.
+template <class G>
+__device__ __forceinline__ void load_stats_async(float* dst, const float* src, const G& geo,
+                                                 int j, int first, int off) {
   const int i = static_cast<int>(threadIdx.x) - first;
   if (i >= 0 && i < ROWS) {
-    const bool ok = r0 + i < s;
-    cp_async4(smem_u32(dst + 4 * (i / 2) + off + i % 2), ok ? src + r0 + i : src, ok);
+    const Pos p = geo.stream(j, i);
+    cp_async4(smem_u32(dst + 4 * (i / 2) + off + i % 2), p.ok ? src + geo.index(p) : src, p.ok);
   }
-}
-
-// d (64 x 64, f32) = or += A (64 x 16) B (16 x 64)^T, both K-major in shared
-// memory; `acc` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
 }
 
 // Starts d = X Y^T over E for (64, E) tiles X and Y, both K-major in shared
@@ -100,7 +111,7 @@ __device__ __forceinline__ void chain_ss(float (&d)[32], const bf16* x, const bf
   const uint64_t dx = desc<E>(x), dy = desc<E>(y);
 #pragma unroll
   for (int kk = 0; kk < E / 16; ++kk)
-    wgmma_ss_n64(d, dx + kk * K_STEP, dy + kk * K_STEP, kk > 0 || first);
+    wgmma_ss<0, 0>(d, dx + kk * K_STEP, dy + kk * K_STEP, kk > 0 || first);
 }
 
 // The bf16 A operands of P and dS = P (dP - delta) from a thread's p and
@@ -124,13 +135,23 @@ template <int E>
 constexpr size_t SMEM =
     (2 + 2 * STAGES) * TILE<E> * sizeof(bf16) + STAGES * 2 * ROWS * sizeof(float) + 1024;
 
-template <int E>
-__global__ void __launch_bounds__(128)
-attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ out,
-               const bf16* __restrict__ dout, const float* __restrict__ lse,
-               float* __restrict__ delta, bf16* __restrict__ dq, int s, int n_heads, Rows in,
-               float scale) {
+// Global attention: a block owns rows [64 tile, 64 tile + 64) of the
+// sequence and every 64-row tile streams past them; a pair attends where
+// the streamed row lies before s.
+struct Seq {
+  int r0, s, tiles, positions;
+  __device__ Seq(int tile, int s_)
+      : r0(tile * ROWS), s(s_), tiles((s_ + ROWS - 1) / ROWS), positions(s_) {}
+  __device__ Pos own(int r) const { return {r0 + r, 0, r0 + r < s}; }
+  __device__ Pos stream(int j, int r) const { return {j * ROWS + r, 0, j * ROWS + r < s}; }
+  __device__ long index(Pos p) const { return p.y; }
+  struct Info {};
+  __device__ Info own_info(int) const { return {}; }
+  __device__ bool mask(int j, int col, Info) const { return j * ROWS + col < s; }
+};
+
+template <int E, class G>
+__device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   extern __shared__ unsigned char smem_raw[];
   bf16* s_q = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
   bf16* s_do = s_q + TILE<E>;
@@ -138,42 +159,43 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* s_delta = reinterpret_cast<float*>(s_kv + 2 * STAGES * TILE<E>);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * ROWS, head = blockIdx.y;
-  const long ld = static_cast<long>(n_heads) * E;  // packed row stride
-  const long packed = static_cast<long>(blockIdx.z) * s * ld + head * E;
-  const long src = static_cast<long>(blockIdx.z) * in.batch + head * E;
-  const long row0 = (static_cast<long>(blockIdx.z) * n_heads + head) * s;
-  const int n_tiles = (s + ROWS - 1) / ROWS;
+  const int head = blockIdx.y, img = blockIdx.z;
+  const long stat0 = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
+  const int n_tiles = geo.tiles;
+  const auto own_row = [&](int i) { return geo.own(i); };
 
   // this thread's accumulator rows r and r + 8 of the query tile; lse in
   // base-2 units
   const int r = warp * 16 + lane / 4, c = 2 * (lane & 3);
   float lse_r[2], delta_r[2];
+  typename G::Info info[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
-    lse_r[h] = q0 + r + 8 * h < s ? lse[row0 + q0 + r + 8 * h] * LOG2E : 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const Pos p = geo.own(r + 8 * h);
+    lse_r[h] = p.ok ? a.lse[stat0 + geo.index(p)] * LOG2E : 0.f;
+    info[h] = geo.own_info(r + 8 * h);
+  }
 
+  // starts the copy of streamed tile j's K and V rows into stage `kv`
+  auto load_kv = [&](int j, bf16* kv) {
+    const auto row = [&](int i) { return geo.stream(j, i); };
+    load_rows_async<E>(kv, a.k, a.in, img, head, row, kv + TILE<E>, a.v);
+  };
   // out waits in the ring's last stage, which no tile needs before delta
   // has been computed
   bf16* s_out = s_kv + 2 * (STAGES - 1) * TILE<E>;
-  load_tile_async<E>(s_q, q + src, in.seq, q0, s);
-  load_tile_async<E>(s_do, dout + packed, ld, q0, s);
-  load_tile_async<E>(s_out, out + packed, ld, q0, s);
+  load_rows_async<E>(s_q, a.q, a.in, img, head, own_row);
+  load_rows_async<E>(s_do, a.dout, a.io, img, head, own_row);
+  load_rows_async<E>(s_out, a.out, a.io, img, head, own_row);
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_tiles) {
-      load_tile_async<E>(s_kv + 2 * st * TILE<E>, k + src, in.seq, st * ROWS, s);
-      load_tile_async<E>(s_kv + (2 * st + 1) * TILE<E>, v + src, in.seq, st * ROWS, s);
-    }
+    if (st < n_tiles) load_kv(st, s_kv + 2 * st * TILE<E>);
     cp_async_commit();
   }
   // starts the copy of the K and V tiles STAGES - 1 ahead of tile j (in
   // stage st) and commits it, an empty group past the last tile
   auto load_ahead = [&](int j, int st) {
-    if (j + STAGES - 1 < n_tiles) {
-      bf16* ahead = s_kv + 2 * ((st + STAGES - 1) % STAGES) * TILE<E>;
-      load_tile_async<E>(ahead, k + src, in.seq, (j + STAGES - 1) * ROWS, s);
-      load_tile_async<E>(ahead + TILE<E>, v + src, in.seq, (j + STAGES - 1) * ROWS, s);
-    }
+    if (j + STAGES - 1 < n_tiles)
+      load_kv(j + STAGES - 1, s_kv + 2 * ((st + STAGES - 1) % STAGES) * TILE<E>);
     cp_async_commit();
   };
 
@@ -193,15 +215,16 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint4 gv = *reinterpret_cast<const uint4*>(g_t + swizzle<E>(row, ch));
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&ov)[w]);
-        const float2 b = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&gv)[w]);
-        sum += a.x * b.x + a.y * b.y;
+        const float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&ov)[w]);
+        const float2 y = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&gv)[w]);
+        sum += x.x * y.x + x.y * y.y;
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     if ((threadIdx.x & 1) == 0) {
       s_delta[row] = sum;
-      if (q0 + row < s) delta[row0 + q0 + row] = sum;
+      const Pos p = geo.own(row);
+      if (p.ok) a.delta[stat0 + geo.index(p)] = sum;
     }
   }
   __syncthreads();  // s_delta written, out's stage free
@@ -212,7 +235,7 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_a<E>(s_q, a_q);
   load_a<E>(s_do, a_do);
 
-  const float scale2 = scale * LOG2E;
+  const float scale2 = a.scale * LOG2E;
   float acc_dq[E / 2];
 #pragma unroll
   for (int i = 0; i < E / 2; ++i) acc_dq[i] = 0.f;
@@ -242,11 +265,10 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * ROWS + 8 * i + c + (e & 1);
-        acc_s[4 * i + e] =
-            key < s ? exp2_approx(acc_s[4 * i + e] * scale2 - lse_r[e / 2]) : 0.f;
-      }
+      for (int e = 0; e < 4; ++e)
+        acc_s[4 * i + e] = geo.mask(j, 8 * i + c + (e & 1), info[e / 2])
+                               ? exp2_approx(acc_s[4 * i + e] * scale2 - lse_r[e / 2])
+                               : 0.f;
     wgmma_wait<0>();
     fence_regs(acc_dp);
 #pragma unroll
@@ -258,52 +280,46 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(a_ds);
     __syncthreads();  // every thread is done with this stage before it refills
   }
-  stage_acc<E>(acc_dq, scale, s_kv);
+  stage_acc<E>(acc_dq, a.scale, s_kv);
   __syncthreads();
-  store_tile<E>(s_kv, dq + packed + q0 * ld, ld, s - q0);
+  store_rows<E>(s_kv, a.dq, a.io, img, head, own_row);
 }
 
-// At most 168 registers a thread, so that three blocks fit on an SM.
-template <int E>
-__global__ void __launch_bounds__(128, 3)
-attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int n_heads, Rows in,
-                float scale) {
+template <int E, class G>
+__device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
   extern __shared__ unsigned char smem_raw[];
   bf16* s_k = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
   bf16* s_v = s_k + TILE<E>;
   bf16* s_qd = s_v + TILE<E>;  // stage st: Q at s_qd + 2 st TILE, dO after it
   float* s_stats = reinterpret_cast<float*>(s_qd + 2 * STAGES * TILE<E>);  // 2 x 64 a stage
 
-  const int lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * ROWS, head = blockIdx.y;
-  const long ld = static_cast<long>(n_heads) * E;
-  const long packed = static_cast<long>(blockIdx.z) * s * ld + head * E;
-  const long src = static_cast<long>(blockIdx.z) * in.batch + head * E;
-  const long row0 = (static_cast<long>(blockIdx.z) * n_heads + head) * s;
-  const int n_tiles = (s + ROWS - 1) / ROWS;
-  const bf16 *q_h = q + src, *dout_h = dout + packed;
-  const float *lse_h = lse + row0, *delta_h = delta + row0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int head = blockIdx.y, img = blockIdx.z;
+  const long stat0 = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
+  const int n_tiles = geo.tiles;
+  const auto own_row = [&](int i) { return geo.own(i); };
 
   auto load_stage = [&](int j, int st) {
     bf16* tile = s_qd + 2 * st * TILE<E>;
     float* stats = s_stats + 2 * ROWS * st;
-    load_tile_async<E>(tile, q_h, in.seq, j * ROWS, s);
-    load_tile_async<E>(tile + TILE<E>, dout_h, ld, j * ROWS, s);
-    load_stats_async(stats, lse_h, j * ROWS, s, 0, 0);
-    load_stats_async(stats, delta_h, j * ROWS, s, ROWS, 2);
+    const auto row = [&](int i) { return geo.stream(j, i); };
+    load_rows_async<E>(tile, a.q, a.in, img, head, row);
+    load_rows_async<E>(tile + TILE<E>, a.dout, a.io, img, head, row);
+    load_stats_async(stats, a.lse + stat0, geo, j, 0, 0);
+    load_stats_async(stats, a.delta + stat0, geo, j, ROWS, 2);
   };
-  load_tile_async<E>(s_k, k + src, in.seq, k0, s);
-  load_tile_async<E>(s_v, v + src, in.seq, k0, s);
+  load_rows_async<E>(s_k, a.k, a.in, img, head, own_row, s_v, a.v);
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < n_tiles) load_stage(st, st);
     cp_async_commit();
   }
 
-  const int c = 2 * (lane & 3);
-  const float scale2 = scale * LOG2E;
+  // this thread's accumulator rows r and r + 8: keys
+  const int r = warp * 16 + lane / 4, c = 2 * (lane & 3);
+  typename G::Info info[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(r + 8 * h);
+  const float scale2 = a.scale * LOG2E;
   float acc_dk[E / 2], acc_dv[E / 2];
 #pragma unroll
   for (int i = 0; i < E / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
@@ -316,15 +332,14 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    // rows: keys; column 8i + c (+1): query j * 64 + 8i + c (+1), whose
-    // lse and delta are the float4 4i + c / 2 of the stage's statistics
+    // rows: keys; column 8i + c (+1): row 8i + c (+1) of streamed tile j,
+    // whose lse and delta are the float4 4i + c / 2 of the stage's
+    // statistics (read again where the lse is used: 16 registers fewer
+    // across the products)
     const float4* stats = reinterpret_cast<const float4*>(s_stats + 2 * ROWS * st);
-    float lse2[16];  // base 2
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float4 t = stats[4 * i + c / 2];
-      lse2[2 * i] = t.x * LOG2E;
-      lse2[2 * i + 1] = t.y * LOG2E;
       acc_dp[4 * i] = acc_dp[4 * i + 2] = -t.z;
       acc_dp[4 * i + 1] = acc_dp[4 * i + 3] = -t.w;
     }
@@ -337,14 +352,15 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait<1>();
     fence_regs(acc_s);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i) {
+      const float4 t = stats[4 * i + c / 2];
+      const float lse2[2] = {t.x * LOG2E, t.y * LOG2E};  // base 2
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * i + c + (e & 1);
-        acc_s[4 * i + e] = j * ROWS + col < s
-                               ? exp2_approx(acc_s[4 * i + e] * scale2 - lse2[2 * i + (e & 1)])
+      for (int e = 0; e < 4; ++e)
+        acc_s[4 * i + e] = geo.mask(j, 8 * i + c + (e & 1), info[e / 2])
+                               ? exp2_approx(acc_s[4 * i + e] * scale2 - lse2[e & 1])
                                : 0.f;
-      }
+    }
     wgmma_wait<0>();
     fence_regs(acc_dp);
     pack_p_ds(acc_s, acc_dp, a_p, a_ds);
@@ -357,11 +373,22 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(a_ds);
     __syncthreads();  // every thread is done with this stage before it refills
   }
-  stage_acc<E>(acc_dk, scale, s_qd);
+  stage_acc<E>(acc_dk, a.scale, s_qd);
   stage_acc<E>(acc_dv, 1.f, s_qd + TILE<E>);
   __syncthreads();
-  store_tile<E>(s_qd, dk + packed + k0 * ld, ld, s - k0);
-  store_tile<E>(s_qd + TILE<E>, dv + packed + k0 * ld, ld, s - k0);
+  store_rows<E>(s_qd, a.dk, a.io, img, head, own_row);
+  store_rows<E>(s_qd + TILE<E>, a.dv, a.io, img, head, own_row);
+}
+
+template <int E>
+__global__ void __launch_bounds__(128) attn_dq_kernel(const Args a, int s) {
+  dq_body<E>(a, Seq(blockIdx.x, s));
+}
+
+// At most 168 registers a thread, so that three blocks fit on an SM.
+template <int E>
+__global__ void __launch_bounds__(128, 3) attn_dkv_kernel(const Args a, int s) {
+  dkv_body<E>(a, Seq(blockIdx.x, s));
 }
 
 // Launches the dq kernel, then the dk/dv kernel, on q, k, v read through
@@ -372,21 +399,20 @@ template <int E>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const void* lse, void* delta, void* dq, void* dk, void* dv, int b, int s,
            int n_heads, Rows in, float scale, cudaStream_t st) {
+  const long ld = static_cast<long>(n_heads) * E;
+  const MapStrides seq{in.batch, in.seq, 0}, io{s * ld, ld, 0};
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+               static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+               static_cast<float*>(delta), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+               static_cast<bf16*>(dv), seq, io, n_heads, scale};
   const dim3 grid((s + ROWS - 1) / ROWS, n_heads, b);
   cudaError_t attr = allow_smem(attn_dq_kernel<E>, SMEM<E>);
-  attn_dq_kernel<E><<<grid, 128, SMEM<E>, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), s,
-      n_heads, in, scale);
+  attn_dq_kernel<E><<<grid, 128, SMEM<E>, st>>>(a, s);
   const int status = launch_status(attr);
   if (status != 0) return status;
   attr = allow_smem(attn_dkv_kernel<E>, SMEM<E>);
-  attn_dkv_kernel<E><<<grid, 128, SMEM<E>, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s,
-      n_heads, in, scale);
+  attn_dkv_kernel<E><<<grid, 128, SMEM<E>, st>>>(a, s);
   return launch_status(attr);
 }
 

@@ -64,6 +64,16 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Element strides of the batch, row and column axes of a (b, h, w, heads, E)
+// map; the head stride is E and the head dim is contiguous. A sequence (b,
+// s, heads, E) is the map with h = s and a column stride of 0.
+struct MapStrides {
+  long b, y, x;
+  __device__ long at(int img, int y_, int x_, int head, int e) const {
+    return img * b + y_ * y + x_ * x + static_cast<long>(head) * e;
+  }
+};
+
 template <int NF>
 __device__ __forceinline__ void zero(FragC (&acc)[NF]) {
 #pragma unroll

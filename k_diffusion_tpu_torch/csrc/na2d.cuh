@@ -36,15 +36,6 @@ struct NaDims {
   static constexpr int LDS = (E > WKEYS ? E : WKEYS) + 4;
 };
 
-// Element strides of the batch, row and column axes of a (b, h, w, heads, E)
-// map; the head stride is E and the head dim is contiguous.
-struct MapStrides {
-  long b, y, x;
-  __device__ long at(int img, int y_, int x_, int head, int e) const {
-    return img * b + y_ * y + x_ * x + static_cast<long>(head) * e;
-  }
-};
-
 // Is halo key j (of the warp's 112) in the window of the warp's query m?
 struct WindowMask {
   int qy0, qx0;  // the warp's first query
@@ -69,6 +60,20 @@ struct TileGeometry {
     r = (ks - 1) / 2;
     hr0 = clampi(y0 - r, 0, h - ks);
     hc0 = clampi(x0 - r, 0, w - ks);
+  }
+};
+
+// The query rows (or columns) [lo, hi] whose clamped windows reach keys
+// [k0, k0 + TQ) on an axis of n positions: an interval, since the window
+// start is monotone in the query, of at most TQ + ks - 1 positions.
+struct Reach {
+  int lo, hi;
+  __device__ Reach(int k0, int n, int ks) {
+    const int r = (ks - 1) / 2;
+    lo = max(0, k0 - (ks - 1));
+    hi = min(n - 1, k0 + TQ - 1 + ks - 1);
+    while (clampi(lo - r, 0, n - ks) + ks - 1 < k0) ++lo;
+    while (clampi(hi - r, 0, n - ks) > k0 + TQ - 1) --hi;
   }
 };
 

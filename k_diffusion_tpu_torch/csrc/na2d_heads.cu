@@ -19,8 +19,10 @@
 // 3.35 TB/s): bound by memory.
 //
 // K12, two kernels launched together, no per-tile partials, no atomics (a
-// rerun gives bit-equal gradients): the other design to K7 + K8's halo
-// partials.
+// rerun gives bit-equal gradients): the split by query tile and by key tile
+// that K7 (na_bwd.cuh) runs on wgmma, here on wmma with shared-memory f32
+// strips. na_bwd.cuh's kernels are written over MapStrides and a head-dim
+// template (wgmma.cuh's tiles take E 32 and 64).
 // - na2d_dq_kernel<E>: a block per query tile, as the forward: recomputes
 //   the logits and dP = dout v^T over the warp's 112 halo keys, p = exp(s -
 //   lse) masked to each window, ds = p (dP - delta), dq = ds k.
@@ -50,20 +52,6 @@
 
 namespace kdt {
 namespace {
-
-// The query rows (or columns) [lo, hi] whose clamped windows reach keys
-// [k0, k0 + TQ) on an axis of n positions: an interval, since the window
-// start is monotone in the query, of at most TQ + ks - 1 positions.
-struct Reach {
-  int lo, hi;
-  __device__ Reach(int k0, int n, int ks) {
-    const int r = (ks - 1) / 2;
-    lo = max(0, k0 - (ks - 1));
-    hi = min(n - 1, k0 + TQ - 1 + ks - 1);
-    while (clampi(lo - r, 0, n - ks) + ks - 1 < k0) ++lo;
-    while (clampi(hi - r, 0, n - ks) > k0 + TQ - 1) --hi;
-  }
-};
 
 // Converts p (or ds) rows of a warp's float strip to bf16 in place after
 // computing them: row m's values for keys [0, n) at stride 2 lds in bf16.

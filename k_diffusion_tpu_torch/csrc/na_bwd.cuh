@@ -1,0 +1,185 @@
+// The backward of 2-D neighborhood attention on Hopper (K7): dq, dk and dv
+// written once in bf16 by two wgmma kernels, attn_bwd.cuh's two bodies run
+// over the neighborhood geometry. Each query attends to exactly ks x ks
+// keys, its window start clamp(i - (ks - 1) / 2, 0, n - ks) on each axis
+// (NATTEN's contract), ks <= 7.
+//
+// Replaces: k_diffusion_tpu/ops/pallas/na2d.py:_na_packed_dqkv_kernel (the
+// backward of na2d_packed: dq and per-tile dk/dv halo partials) and
+// :_overlap_add_kernel (the overlap-add of those partials into dk and dv),
+// which this design folds into its second kernel. The overlap-add kernel
+// K8 stays in na2d.cu, held against its plain version on its own op path.
+//
+// What bounds it on the H100: the function reads q, k, v, out and dout
+// (bf16) and the lse (f32) and writes dq, dk and dv (bf16): at the
+// flagship's 8 x 64 x 64 x 128 (2 heads) that is 8 x 8.39 MB + 0.26 MB =
+// 67.4 MB, 20 us at 3.35 TB/s, against 5 products of 2 x 49 x 64 FLOP per
+// query and head, 2.06 GFLOP, 2 us at 989 TFLOP/s: bound by memory.
+//
+// Design: a block is one warpgroup, its 64 own rows an 8 x 8 tile, wgmma's
+// M, of one head of one image; the grid is (tiles, heads, batch).
+// - na_dq_kernel: the own rows are a query tile. The clamped union of its
+//   queries' windows, the halo, is he = 8 + ks - 1 rows and columns from
+//   the window start of its first query (TileGeometry); its keys stream
+//   past as 64-row tiles of K and V, 4 halo rows of 16 key slots each
+//   (slots past he or past the map zero-filled by the copy): 4 tiles at
+//   ks = 7.
+// - na_dkv_kernel: the own rows are a key tile. The queries whose clamped
+//   windows reach it form a slab of at most 14 x 14 (Reach); they stream
+//   past with their lse and delta, 4 slab rows of 16 query slots a tile.
+// A pair attends where the key lies in the query's window, tested on the
+// accumulator's coordinates in registers; the slot layout makes a column's
+// key (or query) row and column a shift and a mask of its index.
+//
+// The four limits of the design this replaces (one wmma block a query
+// tile writing f32 halo partials, K8 summing them):
+// 1. Occupancy: a block holds 8 (64, 64) bf16 tiles and statistics, 66.5
+//    KB (attn_bwd.cuh's SMEM), not 193.5 KB: three blocks an SM, not one.
+// 2. The logits and dP stay in wgmma's f32 accumulators; p and ds are
+//    formed there and rounded to bf16 pairs that are already the next
+//    product's register A operand. No shared-memory strips, no scalar loop
+//    over them.
+// 3. Products run over 64-key (or 64-query) tiles of the halo (slab) only:
+//    dq = ds k over 4 tiles, not over the 208 halo keys of every query's
+//    row; dk and dv are register accumulators of the key tile, not 104
+//    wmma fragments summed over warps from shared memory.
+// 4. No partials: dk and dv of a key tile are summed in registers over the
+//    slab in a fixed order and written once in bf16 (no atomics: reruns are
+//    bit-equal). The 2 x 218 MB of f32 partials a launch at batch 32,
+//    written and read back, are gone.
+// Geometry not taken: two tiles of 7 halo rows (98 keys). The dq product
+// over keys needs a depth that is a multiple of 16 (112), and S and dP of
+// 112 columns take 56 accumulator registers each where 64 take 32.
+//
+// The kernels are written over MapStrides and the head dim E (wgmma.cuh's
+// tiles take 32 and 64), so that the per-head strided maps of K12 can run
+// them too; K7 runs them at E = 64 on channel-packed maps.
+#pragma once
+
+#include "attn_bwd.cuh"
+#include "na2d.cuh"
+
+namespace kdt {
+namespace na_bwd {
+
+using wg::Pos;
+using wg::ROWS;
+
+constexpr int SLOTS = 16;             // slots of a halo (slab) row
+constexpr int BANDS = ROWS / SLOTS;   // halo (slab) rows of a streamed tile
+
+// The dq kernel's block: 8 x 8 query tile `tile` (row-major over the map's
+// tiles) and the tiles of its halo.
+struct NaQueries {
+  int y0, x0, hr0, hc0, r, he, h, w, ks, tiles, positions;
+  __device__ NaQueries(int tile, int h_, int w_, int ks_) : h(h_), w(w_), ks(ks_) {
+    const TileGeometry t(tile, h_, w_, ks_);
+    y0 = t.y0;
+    x0 = t.x0;
+    hr0 = t.hr0;
+    hc0 = t.hc0;
+    r = t.r;
+    he = TQ + ks_ - 1;
+    tiles = (he + BANDS - 1) / BANDS;
+    positions = h_ * w_;
+  }
+  __device__ Pos own(int i) const { return {y0 + i / TQ, x0 + i % TQ, true}; }
+  __device__ Pos stream(int j, int i) const {
+    const int hy = BANDS * j + i / SLOTS, hx = i % SLOTS;
+    const int y = hr0 + hy, x = hc0 + hx;
+    return {y, x, hy < he && hx < he && y < h && x < w};
+  }
+  __device__ long index(Pos p) const { return static_cast<long>(p.y) * w + p.x; }
+  struct Info {
+    int wy, wx;  // the query's window start
+  };
+  __device__ Info own_info(int i) const {
+    return {clampi(y0 + i / TQ - r, 0, h - ks), clampi(x0 + i % TQ - r, 0, w - ks)};
+  }
+  // key slot col of halo tile j in the window: keys past the halo or the
+  // map never are
+  __device__ bool mask(int j, int col, Info q) const {
+    const int ky = hr0 + BANDS * j + col / SLOTS, kx = hc0 + col % SLOTS;
+    return static_cast<unsigned>(ky - q.wy) < static_cast<unsigned>(ks) &&
+           static_cast<unsigned>(kx - q.wx) < static_cast<unsigned>(ks);
+  }
+};
+
+// The dk/dv kernel's block: 8 x 8 key tile `tile` and the tiles of the
+// slab of queries that reach it.
+struct NaKeys {
+  int ky0, kx0, qy0, qx0, ny, nx, r, h, w, ks, tiles, positions;
+  __device__ NaKeys(int tile, int h_, int w_, int ks_) : h(h_), w(w_), ks(ks_) {
+    const int tiles_w = w_ / TQ;
+    ky0 = tile / tiles_w * TQ;
+    kx0 = tile % tiles_w * TQ;
+    const Reach rows(ky0, h_, ks_), cols(kx0, w_, ks_);
+    qy0 = rows.lo;
+    qx0 = cols.lo;
+    ny = rows.hi - rows.lo + 1;
+    nx = cols.hi - cols.lo + 1;  // <= 14 < SLOTS
+    r = (ks_ - 1) / 2;
+    tiles = (ny + BANDS - 1) / BANDS;
+    positions = h_ * w_;
+  }
+  __device__ Pos own(int i) const { return {ky0 + i / TQ, kx0 + i % TQ, true}; }
+  __device__ Pos stream(int j, int i) const {
+    const int sy = BANDS * j + i / SLOTS, sx = i % SLOTS;
+    return {qy0 + sy, qx0 + sx, sy < ny && sx < nx};
+  }
+  __device__ long index(Pos p) const { return static_cast<long>(p.y) * w + p.x; }
+  struct Info {
+    int ky, kx;  // the key
+  };
+  __device__ Info own_info(int i) const { return {ky0 + i / TQ, kx0 + i % TQ}; }
+  // the key in the window of query slot col of slab tile j; empty slots
+  // hold no query
+  __device__ bool mask(int j, int col, Info k) const {
+    const int sy = BANDS * j + col / SLOTS, sx = col % SLOTS;
+    const int wy = clampi(qy0 + sy - r, 0, h - ks), wx = clampi(qx0 + sx - r, 0, w - ks);
+    return sy < ny && sx < nx && static_cast<unsigned>(k.ky - wy) < static_cast<unsigned>(ks) &&
+           static_cast<unsigned>(k.kx - wx) < static_cast<unsigned>(ks);
+  }
+};
+
+template <int E>
+__global__ void __launch_bounds__(128) na_dq_kernel(const attn_bwd::Args a, int h, int w,
+                                                    int ks) {
+  attn_bwd::dq_body<E>(a, NaQueries(blockIdx.x, h, w, ks));
+}
+
+// At most 168 registers a thread, so that three blocks fit on an SM.
+template <int E>
+__global__ void __launch_bounds__(128, 3) na_dkv_kernel(const attn_bwd::Args a, int h, int w,
+                                                        int ks) {
+  attn_bwd::dkv_body<E>(a, NaKeys(blockIdx.x, h, w, ks));
+}
+
+// Launches the dq kernel, then the dk/dv kernel, on (b, h, w, heads, E)
+// maps: q, k, v read through `in`, out and dout through io; writes
+// delta (b, heads, h, w) f32 and dq, dk, dv through io, bf16. Needs h % 8
+// == w % 8 == 0 and 1 <= ks <= min(7, h, w). Returns the CUDA error code.
+template <int E>
+int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
+           const void* lse, void* delta, void* dq, void* dk, void* dv, MapStrides in,
+           MapStrides io, int b, int h, int w, int n_heads, int ks, float scale,
+           cudaStream_t st) {
+  const attn_bwd::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+                         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                         static_cast<float*>(delta), static_cast<bf16*>(dq),
+                         static_cast<bf16*>(dk), static_cast<bf16*>(dv), in, io,
+                         n_heads, scale};
+  constexpr size_t smem = attn_bwd::SMEM<E>;
+  const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
+  cudaError_t attr = allow_smem(na_dq_kernel<E>, smem);
+  na_dq_kernel<E><<<grid, 128, smem, st>>>(a, h, w, ks);
+  const int status = launch_status(attr);
+  if (status != 0) return status;
+  attr = allow_smem(na_dkv_kernel<E>, smem);
+  na_dkv_kernel<E><<<grid, 128, smem, st>>>(a, h, w, ks);
+  return launch_status(attr);
+}
+
+}  // namespace na_bwd
+}  // namespace kdt

@@ -1,6 +1,7 @@
 // The Hopper building blocks of the attention kernels, shared by the
-// forward (attn_fwd.cuh: K3, K13) and the backward (attn_bwd.cuh: K9, K14),
-// and of the GEMM core of the weight-gradient backwards (gemm.cuh: K6, K10):
+// forward (attn_fwd.cuh: K3, K13) and the backward (attn_bwd.cuh: K9, K14;
+// na_bwd.cuh: K7), and of the GEMM core of the weight-gradient backwards
+// (gemm.cuh: K6, K10):
 // swizzled (64, E) bf16 tiles in shared memory filled by cp.async through a
 // ring of stages, wgmma descriptors and products with f32 accumulators in
 // registers, register A fragments (from a tile by ldmatrix, or from an
@@ -11,7 +12,8 @@
 // swizzle atom, at E = 32 a 64-byte one. The same tile read with the
 // transpose bit set is the MN-major B operand of a product over its rows.
 // Loads are cp.async 16-byte copies (rows past s zero-filled by the copy's
-// source size), one commit group per tile or pair of tiles. cp.async, not
+// source size; or rows gathered one by one from map positions), one commit
+// group per tile or pair of tiles. cp.async, not
 // TMA: it takes the U-Net's strided views and the ragged last tile as they
 // are, with no tensor map to encode on the host for every call.
 //
@@ -94,6 +96,51 @@ __device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* base, lo
     const int r = i / CH, c = i % CH;
     const bool ok = r0 + r < s;
     cp_async16(dst + swizzle<E>(r, c), ok ? base + (r0 + r) * ld + c * 8 : base, ok);
+  }
+}
+
+// A tile row's map position: row y, column x, and whether the row holds one.
+struct Pos {
+  int y, x;
+  bool ok;
+};
+
+// Starts the copy of a (64, E) tile whose row r is the E-wide row of head
+// `head` of image `img` at map position pos(r) of `base` (strides st), rows
+// gathered from anywhere in the map; rows whose position is not ok are
+// zero-filled. With tile2 and base2, the same rows of base2 (the same
+// strides) go to tile2 from the same offsets.
+template <int E, class RowPos>
+__device__ __forceinline__ void load_rows_async(bf16* tile, const bf16* base, const MapStrides& st,
+                                                int img, int head, const RowPos& pos,
+                                                bf16* tile2 = nullptr,
+                                                const bf16* base2 = nullptr) {
+  constexpr int CH = E / 8;
+  const uint32_t dst = smem_u32(tile), dst2 = tile2 ? smem_u32(tile2) : 0;
+  const long head0 = st.at(img, 0, 0, head, E);
+  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    const Pos p = pos(r);
+    const long off = head0 + p.y * st.y + p.x * st.x + c * 8;
+    cp_async16(dst + swizzle<E>(r, c), p.ok ? base + off : base, p.ok);
+    if (tile2) cp_async16(dst2 + swizzle<E>(r, c), p.ok ? base2 + off : base2, p.ok);
+  }
+}
+
+// Copies each row r of a swizzled (64, E) tile whose position pos(r) is ok
+// to that position of head `head` of image `img` in dst (strides st), in
+// whole 16-byte chunks, the block taking part.
+template <int E, class RowPos>
+__device__ __forceinline__ void store_rows(const bf16* stage, bf16* dst, const MapStrides& st,
+                                           int img, int head, const RowPos& pos) {
+  constexpr int CH = E / 8;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(stage);
+  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    const Pos p = pos(r);
+    if (p.ok)
+      *reinterpret_cast<uint4*>(dst + st.at(img, p.y, p.x, head, E) + c * 8) =
+          *reinterpret_cast<const uint4*>(base + swizzle<E>(r, c));
   }
 }
 

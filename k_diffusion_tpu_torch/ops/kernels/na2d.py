@@ -7,18 +7,23 @@ clamped inward at the edges (NATTEN's contract). CUDA tensors go to the
 hand-written kernels through autograd Functions; CPU tensors go to the
 plain versions, which autograd differentiates.
 
-- ``na2d_packed`` on channel-packed (b, h, w, heads * 64) maps
-  (``csrc/na2d.cu``): the forward K2 (which also writes the per-head
-  logsumexp when a backward follows), the backward K7 (dq and per-tile
-  dk/dv halo partials) and K8 (the overlap-add of the partials).
+- ``na2d_packed`` on channel-packed (b, h, w, heads * 64) maps: the
+  forward K2 (``csrc/na2d.cu``, which also writes the per-head logsumexp
+  when a backward follows) and the backward K7 (``csrc/na_bwd.cuh``: a dq
+  kernel per query tile and a dk/dv kernel per key tile, one counted
+  launch, dq, dk and dv written once in bf16).
+- ``overlap_add``: K8 (``csrc/na2d.cu``), the overlap-add of per-tile dk/dv
+  halo partials, the second half of the Pallas backward's design. No model
+  path runs it since K7 writes dk and dv itself; its plain version and
+  ``packed_backward_partials_reference`` hold it on its own op path.
 - ``na2d`` on (b, h, w, heads, e) maps, e 32, 64 or 128, read through their
   strides (``csrc/na2d_heads.cu``): the forward K11 and the backward K12 (a
   dq kernel per query tile and a dk/dv kernel per key tile, one counted
   launch).
 - ``na2d_packed_proj``: K15, ``na2d_packed`` with the out-projection and
   the residual fused into the forward; its backward recomputes the
-  attention with K2 and runs K7 + K8, as the JAX op's backward is the VJP of
-  its plain version.
+  attention with K2 and runs K7, as the JAX op's backward is the VJP of its
+  plain version.
 """
 
 import ctypes
@@ -29,7 +34,7 @@ from ..attention import neighborhood_attention
 from . import _build
 
 launches = 0            # K2 launches since the last reset
-bwd_launches = 0        # K7 launches
+bwd_launches = 0        # K7 launches (its two kernels count as one)
 overlap_launches = 0    # K8 launches
 heads_launches = 0      # K11 launches
 heads_bwd_launches = 0  # K12 launches (its two kernels count as one)
@@ -37,15 +42,15 @@ proj_launches = 0       # K15 launches
 
 TILE = 8          # query tile edge of the kernels
 MAX_KERNEL = 7    # the kernels' halo holds windows up to 7 x 7
-HALO_KEYS = 208   # keys of a tile's halo partial (14 x 14, rounded up to 16)
+HALO_KEYS = 208   # rows of a tile's halo partial (14 x 14, rounded up to 16)
 HEAD_DIMS = (32, 64, 128)  # head dims of K11 and K12
 
 _P = ctypes.c_void_p
 # q, k, v, out, lse, batch, h, w, heads, kernel_size, scale, stream
 _SIGNATURE = [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
-# q, k, v, out, dout, lse, dq, dk_part, dv_part, batch, h, w, heads,
+# q, k, v, out, dout, lse, delta, dq, dk, dv, batch, h, w, heads,
 # kernel_size, scale, stream
-_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+_BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
 # dk_part, dv_part, dk, dv, batch, h, w, heads, kernel_size, stream
 _OVERLAP_SIGNATURE = [_P] * 4 + [ctypes.c_int] * 5 + [_P]
 # q, k, v, out, lse, batch, h, w, heads, e, kernel_size, scale, strides,
@@ -190,7 +195,7 @@ def overlap_add_targets(h, w, kernel_size, device):
 def overlap_add_reference(dk_part, dv_part, h, w, kernel_size,
                           dtype=torch.bfloat16):
     """Plain version of K8: sums the per-tile halo partials (b, heads,
-    tiles, HALO_KEYS, 64) of K7 into dk, dv (b, h, w, heads * 64) of
+    tiles, HALO_KEYS, 64) into dk, dv (b, h, w, heads * 64) of
     ``dtype``; a tile's halo fills the first 196 of its HALO_KEYS rows
     (``overlap_add_targets``)."""
     b, n_heads, _, _, e = dk_part.shape
@@ -207,34 +212,40 @@ def overlap_add_reference(dk_part, dv_part, h, w, kernel_size,
     return tuple(sums)
 
 
-def packed_backward_partials(q, k, v, out, lse, dout, n_heads, kernel_size,
-                             scale=1.0):
-    """Launches K7 on CUDA tensors: returns dq (bf16) and the f32 dk/dv halo
-    partials (b, heads, tiles, HALO_KEYS, 64)."""
-    _check(q, n_heads, kernel_size, "na2d_packed backward")
+def packed_backward_partials_reference(q, k, v, dout, n_heads, kernel_size,
+                                       scale=1.0):
+    """Plain per-tile halo partials, laid out as K8 takes them: for each
+    8 x 8 query tile, the plain backward's dk and dv from that tile's
+    queries alone (dout zeroed elsewhere), which lie inside the tile's
+    14 x 14 halo (``overlap_add_targets``), as (b, heads, tiles, HALO_KEYS,
+    64) float32; rows past the halo's 196 keys, and halo keys past the map,
+    are zero. ``overlap_add_reference`` of them is the full dk, dv."""
     b, h, w, c = q.shape
-    dev = q.device
-    dout = dout.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
-                    ("dout", dout)):
-        _build.require(t, name, dev, torch.bfloat16, (b, h, w, c))
-    _build.require(lse, "lse", dev, torch.float32, (b, n_heads, h, w))
-    part = (b, n_heads, (h // TILE) * (w // TILE), HALO_KEYS, 64)
-    dk_part = torch.empty(part, device=dev, dtype=torch.float32)
-    dv_part = torch.empty(part, device=dev, dtype=torch.float32)
-    dq = torch.empty_like(q)
-    lib = _build.load("na2d", kdt_na2d_packed_bwd=_BWD_SIGNATURE)
-    status = lib.kdt_na2d_packed_bwd(
-        *map(_build.ptr, (q, k, v, out, dout, lse, dq, dk_part, dv_part)),
-        b, h, w, n_heads, kernel_size, scale, _build.stream_ptr(dev))
-    _build.check_launch(lib, status, "na2d_packed backward")
-    global bwd_launches
-    bwd_launches += 1
-    return dq, dk_part, dv_part
+    halo, r = TILE + MAX_KERNEL - 1, (kernel_size - 1) // 2
+    tiles_w = w // TILE
+    n_tiles = (h // TILE) * tiles_w
+    parts = [torch.zeros((b, n_heads, n_tiles, HALO_KEYS, c // n_heads),
+                         device=q.device) for _ in range(2)]
+    for t in range(n_tiles):
+        y, x = t // tiles_w * TILE, t % tiles_w * TILE
+        d_tile = torch.zeros_like(dout)
+        d_tile[:, y:y + TILE, x:x + TILE] = dout[:, y:y + TILE, x:x + TILE]
+        _, dk, dv = reference_backward(q, k, v, d_tile, n_heads, kernel_size,
+                                       scale)
+        y0 = min(max(y - r, 0), h - kernel_size)
+        x0 = min(max(x - r, 0), w - kernel_size)
+        for part, grad in zip(parts, (dk, dv)):
+            inside = grad[:, y0:y0 + halo, x0:x0 + halo].float()
+            block = torch.zeros((b, halo, halo, c), device=q.device)
+            block[:, :inside.shape[1], :inside.shape[2]] = inside
+            part[:, :, t, :halo * halo] = block.reshape(
+                b, halo * halo, n_heads, -1).transpose(1, 2)
+    return tuple(parts)
 
 
 def overlap_add(dk_part, dv_part, h, w, kernel_size):
-    """Launches K8 on CUDA tensors: K7's halo partials -> (dk, dv) bf16."""
+    """Launches K8 on CUDA tensors: per-tile halo partials (b, heads, tiles,
+    HALO_KEYS, 64) float32 -> (dk, dv) bf16."""
     _build.require_cuda(dk_part, "na2d overlap-add")
     b, n_heads = dk_part.shape[:2]
     part = (b, n_heads, (h // TILE) * (w // TILE), HALO_KEYS, 64)
@@ -254,15 +265,31 @@ def overlap_add(dk_part, dv_part, h, w, kernel_size):
 
 def packed_backward(q, k, v, out, lse, dout, n_heads, kernel_size,
                     scale=1.0):
-    """Launches K7 then K8 on CUDA tensors: returns (dq, dk, dv) bf16."""
-    dq, dk_part, dv_part = packed_backward_partials(
-        q, k, v, out, lse, dout, n_heads, kernel_size, scale)
-    return (dq, *overlap_add(dk_part, dv_part, q.shape[1], q.shape[2],
-                             kernel_size))
+    """Launches K7 (its dq kernel, then its dk/dv kernel: one counted
+    launch) on CUDA tensors: returns (dq, dk, dv) bf16, each (b, h, w,
+    heads * 64). delta = rowsum(out * dout) is formed by the dq kernel."""
+    _check(q, n_heads, kernel_size, "na2d_packed backward")
+    b, h, w, c = q.shape
+    dev = q.device
+    dout = dout.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        _build.require(t, name, dev, torch.bfloat16, (b, h, w, c))
+    _build.require(lse, "lse", dev, torch.float32, (b, n_heads, h, w))
+    delta = torch.empty((b, n_heads, h, w), device=dev, dtype=torch.float32)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _build.load("na2d", kdt_na2d_packed_bwd=_BWD_SIGNATURE)
+    status = lib.kdt_na2d_packed_bwd(
+        *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)),
+        b, h, w, n_heads, kernel_size, scale, _build.stream_ptr(dev))
+    _build.check_launch(lib, status, "na2d_packed backward")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 class _NA2D(torch.autograd.Function):
-    """K2 forward (with lse), K7 + K8 backward. Saves q, k, v, the output
+    """K2 forward (with lse), K7 backward. Saves q, k, v, the output
     and the logsumexp, as the JAX custom_vjp does (it saves k and v as halo
     slabs)."""
 
@@ -385,7 +412,7 @@ def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
 
 class _NA2DProj(torch.autograd.Function):
     """K15 forward; the backward recomputes the attention with K2 (saving
-    the lse), runs K7 + K8 on d(attention) = dout @ w_out^T, and takes the
+    the lse), runs K7 on d(attention) = dout @ w_out^T, and takes the
     projection's gradients with torch.matmul: the JAX op's backward is the
     VJP of its plain version, with no Pallas kernel of its own."""
 

@@ -371,8 +371,9 @@ def test_na2d_grads_match_jax_dispatcher(b, h, w, heads, ks):
 
 
 def test_na2d_grads_match_pallas_backward_bodies():
-    """K7 (dq and the per-tile dk/dv halo partials) then K8 (their
-    overlap-add), from the residuals of the Pallas forward with lse."""
+    """The Pallas backward of na2d_packed, K7's body (dq and the per-tile
+    dk/dv halo partials) then K8's (their overlap-add), from the residuals
+    of the Pallas forward with lse."""
     inputs, cots = na_grad_case(23, 1, 32, 32, 2)
     q, k, v = map(jnp.asarray, inputs)
     with pltpu.force_tpu_interpret_mode():
@@ -389,30 +390,25 @@ def test_na2d_grads_match_pallas_backward_bodies():
 def test_overlap_add_reference_sums_per_tile_partials():
     """K8's plain version. Per 8 x 8 query tile, the plain backward's dk/dv
     from that tile's queries alone lie inside the tile's 14 x 14 halo;
-    laid out as K7 lays out its partials, they overlap-add to the full
-    dk/dv."""
-    b, h, w, heads, ks = 1, 16, 24, 2, 5
+    laid out as K8 takes them (``packed_backward_partials_reference``),
+    they overlap-add to the full dk/dv."""
+    overlap_add_case(1, 16, 24, 2, 5)
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 24, 16, 1, 7), (1, 8, 16, 2, 1)])
+def test_overlap_add_reference_sums_per_tile_partials_at(b, h, w, heads, ks):
+    """The same at the largest window (clamped at every edge of a 24 x 16
+    map) and at kernel size 1 (each tile's halo partial is the tile)."""
+    overlap_add_case(b, h, w, heads, ks)
+
+
+def overlap_add_case(b, h, w, heads, ks):
     (q, k, v), (dout,) = na_grad_case(30, b, h, w, heads)
     q, k, v, dout = map(torch.from_numpy, (q, k, v, dout))
-    r, halo = (ks - 1) // 2, na2d.TILE + na2d.MAX_KERNEL - 1
-    tiles_w = w // na2d.TILE
-    n_tiles = (h // na2d.TILE) * tiles_w
-    parts = [torch.zeros((b, heads, n_tiles, na2d.HALO_KEYS, 64))
-             for _ in range(2)]
-    for t in range(n_tiles):
-        y, x = t // tiles_w * na2d.TILE, t % tiles_w * na2d.TILE
-        d_tile = torch.zeros_like(dout)
-        d_tile[:, y:y + na2d.TILE, x:x + na2d.TILE] = \
-            dout[:, y:y + na2d.TILE, x:x + na2d.TILE]
-        _, dk, dv = na2d.reference_backward(q, k, v, d_tile, heads, ks)
-        y0, x0 = min(max(y - r, 0), h - ks), min(max(x - r, 0), w - ks)
-        for part, grad in zip(parts, (dk, dv)):
-            inside = grad[:, y0:y0 + halo, x0:x0 + halo]
-            assert torch.count_nonzero(grad) == torch.count_nonzero(inside)
-            block = torch.zeros((b, halo, halo, heads * 64))
-            block[:, :inside.shape[1], :inside.shape[2]] = inside
-            part[:, :, t, :halo * halo] = block.reshape(
-                b, halo * halo, heads, 64).transpose(1, 2)
+    parts = na2d.packed_backward_partials_reference(q, k, v, dout, heads, ks)
+    n_tiles = (h // na2d.TILE) * (w // na2d.TILE)
+    assert all(p.shape == (b, heads, n_tiles, na2d.HALO_KEYS, 64)
+               and p.dtype == torch.float32 for p in parts)
     got = na2d.overlap_add_reference(*parts, h, w, ks, dtype=torch.float32)
     _, dk, dv = na2d.reference_backward(q, k, v, dout, heads, ks)
     close_all(got, (dk, dv), F32_TOL)
