@@ -7,10 +7,11 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 1. device: needs a CUDA device; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel from csrc/ with nvcc, and prints the
    registers and spills of the attention kernels, the forward (K3, K13)
-   and the backward's two (K9, K14) at each head dim, of K7's two (the
-   neighborhood geometry on the same backward), of the forwards K1 and K4
-   and of K6's and K10's (csrc/gemm.cuh's dxn and dW kernels and each
-   one's first kernel); none may spill or be missing;
+   and the backward's two (K9, K14) at each head dim, of the neighborhood
+   forward of K2 and K11 and K7's two (the neighborhood geometry on the
+   same forward and backward), of the forwards K1 and K4 and of K6's and
+   K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel);
+   none may spill or be missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -25,12 +26,14 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    the forward's plain version; for K8 the plain overlap-add of plain
    per-tile halo partials) at the flagship training shapes, batch 8, as in
    phase 3, and K1 and K6 at config_512_hdit's 16 x 16 x 768 level, K4 and
-   K10 at its 32 x 32 x 512 level and K4 at its 16 x 16 x 768 level,
-   outside the sums; then K8's op path (one call at each NA level, with
-   launch counts: no model path runs K8); then, on one packed input, K3
-   against K13 (out and logsumexp) and K9 against K14 (dq, dk, dv) bit for
-   bit: each pair runs one wgmma design; and K7 against a rerun of itself
-   (dq, dk, dv) bit for bit at both NA levels;
+   K10 at its 32 x 32 x 512 level, K4 at its 16 x 16 x 768 level and K2 at
+   its 128 x 128 x 128 NA level (the largest NA grid a shipped config
+   runs), outside the sums; then K8's op path (one call at each NA level,
+   with launch counts: no model path runs K8); then, on one packed input,
+   K3 against K13 (out and logsumexp) and K9 against K14 (dq, dk, dv) bit
+   for bit: each pair runs one wgmma design; at both NA levels K2 against
+   K11 (out and logsumexp) bit for bit, the same wgmma forward, and K7
+   against a rerun of itself (dq, dk, dv) bit for bit;
 7. gradient parity: one training step's loss and full parameter gradient,
    the flagship at batch 2 in bfloat16 on the card against the same
    weights, reals, noise and sigmas in float32 on the CPU, dropout off;
@@ -225,13 +228,14 @@ def sdpa_backward(q, k, v, dout, scale, mask=None):
     return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
 
-def na_library(qkv, dout=None):
+def na_library(qkv, dout=None, plain=None):
     """The yardstick of K2 and K11, or with ``dout`` of K7 and K12:
     SDPA, or its backward alone, on the (b, hw, heads, e) views of (b, h, w,
     heads, e) q, k, v, each query's clamped 7 x 7 window a dense (hw, hw)
     additive bf16 mask (the plain version's): hw / 49 times the kernels'
-    work. Held once against the plain version here; returns the timed
-    callable."""
+    work. Held once against the plain version here (``plain``, the forward's
+    on (b, h, w, heads, e) maps, where not ``na2d_reference``); returns the
+    timed callable."""
     from k_diffusion_tpu_torch.ops.attention import neighborhood_mask_2d
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
@@ -245,7 +249,7 @@ def na_library(qkv, dout=None):
     if dout is None:
         call = lambda: sdpa(*flat, 1.0, mask)
         check_close(f"masked SDPA {label}", unflat(call()),
-                    na2d.na2d_reference(*qkv, 7), KERNEL_REL_BOUND)
+                    (plain or na2d.na2d_reference)(*qkv, 7), KERNEL_REL_BOUND)
         return call
     call = sdpa_backward(*flat, dout.reshape(flat[0].shape), 1.0, mask)
     wants = na2d.heads_reference_backward(*qkv, dout, 7)
@@ -462,8 +466,11 @@ def overlap_path(overlap):
 
 
 def na_bit_check(dev):
-    """K7 has no partials and no atomics: at both flagship NA levels (batch
-    8, cosine-sim q and k) two runs give bit-identical dq, dk, dv."""
+    """At both flagship NA levels (batch 8, cosine-sim q and k): K2 and K11
+    run one forward (csrc/na_fwd.cuh), so on one packed input, read by K11
+    as its (b, h, w, heads, 64) view, they give the same out and lse bit
+    for bit; K7 has no partials and no atomics, so two runs give
+    bit-identical dq, dk, dv."""
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
     g = torch.Generator().manual_seed(SEED + 19)
@@ -476,6 +483,13 @@ def na_bit_check(dev):
         v, dout = torch.randn((2, b, h, h, c), generator=g).to(
             dev, torch.bfloat16)
         out, lse = na2d.packed_forward(q, k, v, heads, 7, save_lse=True)
+        out11, lse11 = na2d.heads_forward(*split_heads((q, k, v), heads), 7,
+                                          save_lse=True)
+        for name, a, b_ in (("out", out, out11.reshape(out.shape)),
+                            ("lse", lse, lse11)):
+            if not torch.equal(a, b_):
+                diff = (a.float() - b_.float()).abs().max().item()
+                raise AssertionError(f"K2 and K11 {name} differ by {diff:.3e}")
         first = na2d.packed_backward(q, k, v, out, lse, dout, heads, 7)
         again = na2d.packed_backward(q, k, v, out, lse, dout, heads, 7)
         for name, a, b_ in zip(("dq", "dk", "dv"), first, again):
@@ -483,18 +497,32 @@ def na_bit_check(dev):
                 diff = (a.float() - b_.float()).abs().max().item()
                 raise AssertionError(f"K7 rerun {name} differs by {diff:.3e}")
         labels.append(f"{b}x{h}x{h}x{c}")
+    print(f"NA forward bit check [{', '.join(labels)}]: K2 and K11 give "
+          f"bit-identical out and lse on one packed input", flush=True)
     print(f"K7 bit check [{', '.join(labels)}]: two runs give bit-identical "
           f"dq, dk, dv", flush=True)
+
+
+def na_plain_by_image(q, k, v, kernel_size):
+    """``na2d.na2d_reference`` one image at a time: its dense (hw, hw) f32
+    logits of a whole batch at 128 x 128 would take tens of GB."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    return torch.cat([na2d.na2d_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                          kernel_size)
+                      for i in range(q.shape[0])])
 
 
 def wide_cases(dev):
     """Phase 6's config_512_hdit levels that the flagship does not have, at
     batch 8: K1 and K6 at 16 x 16 x 768 (12 heads), K4 and K10 at 32 x 32 x
-    512 (d_ff 1536, dropout 0 there) and K4 at 16 x 16 x 768 (d_ff 2304).
-    They count no calls: held, timed and printed, outside the per-call and
-    per-step sums and the JSON line."""
+    512 (d_ff 1536, dropout 0 there), K4 at 16 x 16 x 768 (d_ff 2304) and
+    K2 at the 128 x 128 x 128 NA level (2 heads, cosine-sim q and k; its
+    plain version one image at a time). They count no calls: held, timed
+    and printed, outside the per-call and per-step sums and the JSON
+    line."""
     from k_diffusion_tpu_torch.ops import rope
-    from k_diffusion_tpu_torch.ops.kernels import fused_ffn, fused_qkv
+    from k_diffusion_tpu_torch.ops.kernels import fused_ffn, fused_qkv, na2d
 
     g = torch.Generator().manual_seed(SEED + 18)
     b, bf16 = SAMPLE_BATCH, torch.bfloat16
@@ -536,6 +564,19 @@ def wide_cases(dev):
                 lambda a=ffn_args: fused_ffn.ffn_backward(*a),
                 lambda a=ffn_args: fused_ffn.reference_backward(*a),
                 16 * t * d * d_ff, ffn_args))
+    h, d = 128, 128
+    heads, t = d // 64, b * h * h
+    u = torch.randn((2, b, h, h, heads, 64), generator=g)
+    q, k = (u / u.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+        2, b, h, h, d).to(dev, bf16)
+    qkv = (q, k, normal(b, h, h, d))
+    plain = lambda t=qkv: na_plain_by_image(
+        *split_heads(t, heads), 7).reshape(b, h, h, d)
+    cases.append(Case(
+        "na2d", f"{b}x{h}x{h}x{d} (config_512_hdit)", 0,
+        lambda t=qkv: na2d.na2d_packed(*t, heads, 7), plain,
+        4 * t * d * 7 ** 2, qkv,
+        library=na_library(split_heads(qkv, heads), plain=na_plain_by_image)))
     return cases
 
 
@@ -1204,7 +1245,7 @@ def main():
     # the unfused training steps for K11/K12, the op paths for K15 and K8)
     paths = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
-        "na2d": ("na2d.cu", "na2d.py:576", sample_counts),
+        "na2d": ("na_fwd.cuh", "na2d.py:576", sample_counts),
         "global_packed": ("attn_fwd.cuh", "global_packed.py:57",
                           sample_counts),
         "fused_ffn": ("geglu.cu", "fused_ffn.py:42", sample_counts),
@@ -1217,7 +1258,7 @@ def main():
         "fused_ffn_bwd": ("geglu.cu", "fused_ffn.py:115", train_counts),
         "flash": ("attn_fwd.cuh", "flash.py:34", unet_sample_counts),
         "flash_bwd": ("attn_bwd.cuh", "flash.py:57", unet_train_counts),
-        "na2d_heads": ("na2d_heads.cu", "na2d.py:180", unfused_counts),
+        "na2d_heads": ("na_fwd.cuh", "na2d.py:180", unfused_counts),
         "na2d_heads_bwd": ("na2d_heads.cu", "na2d.py:241", unfused_counts),
         "na2d_proj": ("na2d_heads.cu", "na2d.py:991", proj_counts),
     }
@@ -1245,13 +1286,14 @@ def main():
 
 
 # the kernels phase 2 reports, by library: the attention forward and
-# backward (csrc/attn_fwd.cuh, attn_bwd.cuh), K7's two (csrc/na_bwd.cuh),
-# the forwards K1 and K4, and K6's and K10's (their first kernels and
-# csrc/gemm.cuh's)
+# backward (csrc/attn_fwd.cuh, attn_bwd.cuh), the neighborhood forward of
+# K2 and K11 (csrc/na_fwd.cuh) and K7's two (csrc/na_bwd.cuh), the forwards
+# K1 and K4, and K6's and K10's (their first kernels and csrc/gemm.cuh's)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
-    "na2d": ("na_dq_kernel", "na_dkv_kernel"),
+    "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
+    "na2d_heads": ("na_fwd_kernel",),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
                   "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
@@ -1261,25 +1303,28 @@ REPORTED = {
 
 def compiler_report(build):
     """Registers and spills of the attention kernels (K3, K13: csrc/attn_
-    fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7: csrc/na_bwd.cuh), of the
-    forwards K1 and K4 and of
-    K6's and K10's (csrc/gemm.cuh's core, each backward's first kernel),
-    from the compiler report kept beside each library; raises if one spills
-    or is missing."""
+    fwd.cuh; K2, K11: csrc/na_fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7:
+    csrc/na_bwd.cuh), of the forwards K1 and K4 and of K6's and K10's
+    (csrc/gemm.cuh's core, each backward's first kernel), from the compiler
+    report kept beside each library; raises if one spills or is missing."""
     import re
 
     seen, missing = {}, []
     for lib, names in REPORTED.items():
+        # template arguments: ints (Li64E), then an int or a bool (Lb0E)
         pattern = re.compile(r"Compiling entry function '\w*?(%s)(?:ILi(\d+)E"
-                             r"(?:Li(\d+)E)?)?" % "|".join(names))
+                             r"(?:L([ib])(\d+)E)?)?" % "|".join(names))
         found, fn, spill = set(), None, None
         for line in build.library_path(lib).with_suffix(".log").read_text(
                 ).splitlines():
             m = pattern.search(line)
             if m:
-                args = ", ".join(a for a in m.groups()[1:] if a)
-                fn = f"{m.group(1)}<{args}>" if args else m.group(1)
-                found.add(m.group(1))
+                name, e, kind, second = m.groups()
+                args = [a for a in (e, second) if a]
+                if kind == "b":
+                    args[-1] = ("false", "true")[int(second)]
+                fn = f"{name}<{', '.join(args)}>" if args else name
+                found.add(name)
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and fn:
@@ -1526,8 +1571,9 @@ def profile(run, name, what):
           f"device busy {device_ms:.3f} ms each; by device time:")
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
-    # the attention kernels (the forward of K3, K13; the backward's two of
-    # K9, K14 and of K7), the forwards K1 and K4, and K6's and K10's, which
+    # the attention kernels (the forward of K3, K13 and of K2, K11; the
+    # backward's two of K9, K14 and of K7), the forwards K1 and K4, and K6's
+    # and K10's, which
     # the table may leave out: device time per launch and per step or call
     kinds = {k for names in REPORTED.values() for k in names}
     for e in events:

@@ -42,16 +42,9 @@
 // 16-byte chunks.
 //
 // Which rows a block owns, which tiles stream past them and which pairs
-// attend is the geometry, a template policy G of the two bodies (Seq below
-// for global attention; na_bwd.cuh's for neighborhood attention):
-// - G::tiles, the streamed tiles, and G::positions, the map positions per
-//   image and head (the length of a row of lse and delta);
-// - own(r) and stream(j, r): the map position (Pos) of row r of the own
-//   tile or of streamed tile j; rows gathered one by one through each
-//   tensor's MapStrides, rows that are not ok zero-filled;
-// - index(p): a position's index into its row of lse and delta;
-// - own_info(r) and mask(j, col, info): whether own row r and column col of
-//   streamed tile j attend, from a per-row summary kept in registers.
+// attend is the geometry, a template policy G of the two bodies (wgmma.cuh's
+// Seq for global attention, whose comment lists the members; na2d.cuh's
+// NaQueries and NaKeys for neighborhood attention).
 // The __global__ kernels are thin: each builds its geometry from blockIdx.x
 // and runs a body.
 //
@@ -134,21 +127,6 @@ __device__ __forceinline__ void pack_p_ds(const float (&p)[32], const float (&dp
 template <int E>
 constexpr size_t SMEM =
     (2 + 2 * STAGES) * TILE<E> * sizeof(bf16) + STAGES * 2 * ROWS * sizeof(float) + 1024;
-
-// Global attention: a block owns rows [64 tile, 64 tile + 64) of the
-// sequence and every 64-row tile streams past them; a pair attends where
-// the streamed row lies before s.
-struct Seq {
-  int r0, s, tiles, positions;
-  __device__ Seq(int tile, int s_)
-      : r0(tile * ROWS), s(s_), tiles((s_ + ROWS - 1) / ROWS), positions(s_) {}
-  __device__ Pos own(int r) const { return {r0 + r, 0, r0 + r < s}; }
-  __device__ Pos stream(int j, int r) const { return {j * ROWS + r, 0, j * ROWS + r < s}; }
-  __device__ long index(Pos p) const { return p.y; }
-  struct Info {};
-  __device__ Info own_info(int) const { return {}; }
-  __device__ bool mask(int j, int col, Info) const { return j * ROWS + col < s; }
-};
 
 template <int E, class G>
 __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {

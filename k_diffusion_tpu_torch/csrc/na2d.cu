@@ -2,34 +2,30 @@
 // exactly ks x ks keys, its window start clamp(i - (ks - 1) / 2, 0, n - ks)
 // on each axis (NATTEN's contract).
 //
-// The forward (K2, below), its backward (K7, na_bwd.cuh: dq, dk and dv
+// The forward (K2: na_fwd.cuh, attn_fwd.cuh's wgmma forward over the
+// query tile's key halo), its backward (K7, na_bwd.cuh: dq, dk and dv
 // written once by two wgmma kernels) and the overlap-add of per-tile halo
 // partials (K8, below), which no model path runs: K7 needs no partials.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/na2d.py:_na_packed_fwd_kernel (the
-// forward of na2d_packed), :_na_packed_dqkv_kernel (its backward: dq and
-// per-tile dk/dv halo partials; na_bwd.cuh) and :_overlap_add_kernel (the
-// overlap-add of those partials into dk/dv maps).
+// forward of na2d_packed; na_fwd.cuh), :_na_packed_dqkv_kernel (its
+// backward: dq and per-tile dk/dv halo partials; na_bwd.cuh) and
+// :_overlap_add_kernel (the overlap-add of those partials into dk/dv maps).
 //
 // What bounds it on the H100, flagship eval shapes at batch 8 (k = 7): the
 // useful work is 2 * 2 * 49 * 64 FLOP per query and head, 0.82 GFLOP at
 // level 0 (64 x 64, 2 heads) and 0.41 at level 1 (32 x 32, 4 heads), while
 // q, k, v and the output are 34 MB at level 0 (10 us at 3.35 TB/s) and 17 MB
-// at level 1. So the floor is memory; in this design the softmax over each
-// query's masked logits on the CUDA cores is the likelier limit.
+// at level 1. So the floor is memory.
 //
-// Design (na2d.cuh): no halo gather and no mask tables. A block owns an
-// 8 x 8 query tile of one head of one image and loads the clamped union of
-// its windows, at most 14 x 14 keys, for k and v into shared memory (zeros
-// outside the map); a warp computes its 16 queries' logits over the 112 halo
-// keys their windows can reach with wmma, masks each query to its window,
-// takes the softmax with the running max subtracted and multiplies by v.
-// Heads are a grid dimension: no head-masked matmuls. In training it also
-// writes each query's logsumexp, max + log(sum), for the backward. K2 is
-// that forward at head dim 64 on channel-packed maps; K11 (na2d_heads.cu)
-// is the same forward at head dims 32, 64 and 128 on strided maps.
+// The packed map is the per-head layout with the head at column head * 64,
+// so K2 is K11's forward (na2d_heads.cu) at head dim 64 with one stride set
+// for q, k and v: no head-masked matmuls, heads a grid dimension. In
+// training it also writes each query's logsumexp, max + log(sum), for the
+// backward.
 #include "na2d.cuh"
 #include "na_bwd.cuh"
+#include "na_fwd.cuh"
 
 namespace kdt {
 namespace {
@@ -82,15 +78,13 @@ using namespace kdt;
 extern "C" int kdt_na2d_packed(const void* q, const void* k, const void* v, void* out, void* lse,
                                int b, int h, int w, int n_heads, int ks, float scale,
                                void* stream) {
-  const cudaError_t attr = allow_smem(na2d_fwd_kernel<E>, FWD_SMEM<E>);
-  const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
   const long c = static_cast<long>(n_heads) * E;
   const MapStrides packed{h * w * c, w * c, c};
-  na2d_fwd_kernel<E><<<grid, THREADS, FWD_SMEM<E>, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      packed, packed, packed, static_cast<bf16*>(out), static_cast<float*>(lse), h, w, n_heads,
-      ks, scale);
-  return launch_status(attr);
+  const attn_fwd::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                         static_cast<float*>(lse), packed, packed, packed, packed, n_heads,
+                         scale};
+  return na_fwd::launch<E, false>(a, b, h, w, ks, static_cast<cudaStream_t>(stream));
 }
 
 // K7: q, k, v, out, dout (b, h, w, heads * 64) bf16; lse (b, heads, h, w)

@@ -2,14 +2,20 @@
 // attends to exactly ks x ks keys, its window start clamp(i - (ks - 1) / 2,
 // 0, n - ks) on each axis (NATTEN's contract), ks <= 7.
 //
-// A block owns an 8 x 8 query tile of one head of one image. The clamped
-// union of the tile's windows is at most 14 x 14 keys (the halo); a warp
-// owns two query rows (16 queries), whose windows lie within 8 consecutive
-// halo rows, i.e. 112 consecutive halo keys. The forward of a tile
-// (na_tile_forward) computes each warp's 16 x 112 logits with wmma bf16
-// fragments (f32 accumulate), masks each query to its own window from the
-// coordinates, takes the softmax with the running max subtracted, and
-// multiplies the bf16 probabilities by the same 112 rows of v.
+// The wgmma kernels run attn_fwd.cuh's and attn_bwd.cuh's bodies over the
+// geometry policies below (NaQueries, NaKeys): na_fwd.cuh (K2, K11 at head
+// dims 32 and 64) and na_bwd.cuh (K7).
+//
+// The wmma code below serves K11 at head dim 128 (wgmma.cuh's tiles take
+// 32 and 64), K12 and K15. A block owns an 8 x 8 query tile of one head of
+// one image. The clamped union of the tile's windows is at most 14 x 14
+// keys (the halo); a warp owns two query rows (16 queries), whose windows
+// lie within 8 consecutive halo rows, i.e. 112 consecutive halo keys. The
+// forward of a tile (na_tile_forward) computes each warp's 16 x 112 logits
+// with wmma bf16 fragments (f32 accumulate), masks each query to its own
+// window from the coordinates, takes the softmax with the running max
+// subtracted, and multiplies the bf16 probabilities by the same 112 rows
+// of v.
 //
 // The head dim E is a template parameter (32, 64 or 128). Maps are (b, h,
 // w, heads, E) with the head axis packed at E and the head dim contiguous;
@@ -18,6 +24,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace kdt {
 namespace {
@@ -74,6 +81,102 @@ struct Reach {
     hi = min(n - 1, k0 + TQ - 1 + ks - 1);
     while (clampi(lo - r, 0, n - ks) + ks - 1 < k0) ++lo;
     while (clampi(hi - r, 0, n - ks) > k0 + TQ - 1) --hi;
+  }
+};
+
+// The geometry policies of the wgmma attention bodies (wgmma.cuh's Seq
+// lists the members) for neighborhood attention: NaQueries, a query tile
+// and its key halo, for the forward (na_fwd.cuh) and the dq kernel
+// (na_bwd.cuh); NaKeys, a key tile and the queries reaching it, for the
+// dk/dv kernel. The own rows are an 8 x 8 tile, wgmma's M = 64; a streamed
+// tile is BANDS halo (slab) rows of SLOTS slots each, so that a column's
+// row and column in the halo are a shift and a mask of its index.
+using wg::Pos;
+using wg::ROWS;
+
+constexpr int SLOTS = 16;             // slots of a halo (slab) row
+constexpr int BANDS = ROWS / SLOTS;   // halo (slab) rows of a streamed tile
+
+// The forward's and the dq kernel's block: 8 x 8 query tile `tile`
+// (row-major over the map's tiles) and the tiles of its halo. The halo is
+// he = 8 + ks - 1 rows and columns from the window start of the tile's
+// first query (TileGeometry); its keys stream past as tiles of 4 halo rows
+// of 16 key slots (slots past he or past the map zero-filled by the copy):
+// 4 tiles at ks = 7. A pair attends where the key lies in the query's
+// window; no slot past the halo or the map ever does. No row can count on
+// a key in every tile: at ks = 7 the window of row t of an interior tile
+// spans halo rows t to t + 6, so the first tile (halo rows 0-3) holds no
+// key of rows 4-7 and the last (halo rows 12-13) none of rows 0-5.
+struct NaQueries {
+  int y0, x0, hr0, hc0, r, he, h, w, ks, tiles, positions;
+  __device__ NaQueries(int tile, int h_, int w_, int ks_) : h(h_), w(w_), ks(ks_) {
+    const TileGeometry t(tile, h_, w_, ks_);
+    y0 = t.y0;
+    x0 = t.x0;
+    hr0 = t.hr0;
+    hc0 = t.hc0;
+    r = t.r;
+    he = TQ + ks_ - 1;
+    tiles = (he + BANDS - 1) / BANDS;
+    positions = h_ * w_;
+  }
+  __device__ Pos own(int i) const { return {y0 + i / TQ, x0 + i % TQ, true}; }
+  __device__ Pos stream(int j, int i) const {
+    const int hy = BANDS * j + i / SLOTS, hx = i % SLOTS;
+    const int y = hr0 + hy, x = hc0 + hx;
+    return {y, x, hy < he && hx < he && y < h && x < w};
+  }
+  __device__ long index(Pos p) const { return static_cast<long>(p.y) * w + p.x; }
+  struct Info {
+    int wy, wx;  // the query's window start
+  };
+  __device__ Info own_info(int i) const {
+    return {clampi(y0 + i / TQ - r, 0, h - ks), clampi(x0 + i % TQ - r, 0, w - ks)};
+  }
+  // key slot col of halo tile j in the window: keys past the halo or the
+  // map never are
+  __device__ bool mask(int j, int col, Info q) const {
+    const int ky = hr0 + BANDS * j + col / SLOTS, kx = hc0 + col % SLOTS;
+    return static_cast<unsigned>(ky - q.wy) < static_cast<unsigned>(ks) &&
+           static_cast<unsigned>(kx - q.wx) < static_cast<unsigned>(ks);
+  }
+  __device__ bool whole(int) const { return false; }
+};
+
+// The dk/dv kernel's block: 8 x 8 key tile `tile` and the tiles of the
+// slab of queries that reach it.
+struct NaKeys {
+  int ky0, kx0, qy0, qx0, ny, nx, r, h, w, ks, tiles, positions;
+  __device__ NaKeys(int tile, int h_, int w_, int ks_) : h(h_), w(w_), ks(ks_) {
+    const int tiles_w = w_ / TQ;
+    ky0 = tile / tiles_w * TQ;
+    kx0 = tile % tiles_w * TQ;
+    const Reach rows(ky0, h_, ks_), cols(kx0, w_, ks_);
+    qy0 = rows.lo;
+    qx0 = cols.lo;
+    ny = rows.hi - rows.lo + 1;
+    nx = cols.hi - cols.lo + 1;  // <= 14 < SLOTS
+    r = (ks_ - 1) / 2;
+    tiles = (ny + BANDS - 1) / BANDS;
+    positions = h_ * w_;
+  }
+  __device__ Pos own(int i) const { return {ky0 + i / TQ, kx0 + i % TQ, true}; }
+  __device__ Pos stream(int j, int i) const {
+    const int sy = BANDS * j + i / SLOTS, sx = i % SLOTS;
+    return {qy0 + sy, qx0 + sx, sy < ny && sx < nx};
+  }
+  __device__ long index(Pos p) const { return static_cast<long>(p.y) * w + p.x; }
+  struct Info {
+    int ky, kx;  // the key
+  };
+  __device__ Info own_info(int i) const { return {ky0 + i / TQ, kx0 + i % TQ}; }
+  // the key in the window of query slot col of slab tile j; empty slots
+  // hold no query
+  __device__ bool mask(int j, int col, Info k) const {
+    const int sy = BANDS * j + col / SLOTS, sx = col % SLOTS;
+    const int wy = clampi(qy0 + sy - r, 0, h - ks), wx = clampi(qx0 + sx - r, 0, w - ks);
+    return sy < ny && sx < nx && static_cast<unsigned>(k.ky - wy) < static_cast<unsigned>(ks) &&
+           static_cast<unsigned>(k.kx - wx) < static_cast<unsigned>(ks);
   }
 };
 

@@ -6,17 +6,21 @@
 // of na2d), :_na_dq_kernel and :_na_dkv_kernel (its backward, _na_bwd), and
 // :_na_packed_proj_kernel (the forward of na2d_packed_proj).
 //
-// K11, na2d_fwd_kernel<E> of na2d.cuh: a block per (8 x 8 query tile, head,
-// image), the 14 x 14 key/value halo in shared memory, wmma logits over the
-// 112 keys a warp's queries can see, f32 softmax with the running max
+// K11 at head dims 32 and 64 is na_fwd.cuh's wgmma forward, which K2 runs
+// at 64 on packed maps: a block per (8 x 8 query tile, head, image), the
+// key halo streamed as 64-row tiles of K and V, the logits, online softmax
+// and output in registers, q and k read through their strides and v
+// through its own (v is a strided third of the qkv projection where the
+// model calls it). At head dim 128 it is na2d_fwd_kernel<128> of na2d.cuh:
+// the 14 x 14 key/value halo in shared memory, wmma logits over the 112
+// keys a warp's queries can see, f32 softmax with the running max
 // subtracted (the Pallas body does not subtract it and leans on the
-// cosine-sim bound of the logits). q, k and v are read in place through
-// their strides: the JAX dispatcher moves heads in front for the TPU, the
-// port does not need to. Head dims 32, 64 and 128. What bounds it on the
-// H100, the flagship's unfused training forward at batch 32 (k = 7, e =
-// 64): 4 * 49 * 64 FLOP per query and head, 3.3 GFLOP at level 0 (3.3 us at
-// 989 TFLOP/s), against q, k, v, out and lse, 4 * 33.5 + 1 MB (40 us at
-// 3.35 TB/s): bound by memory.
+// cosine-sim bound of the logits). The JAX dispatcher moves heads in
+// front for the TPU; the port reads the maps in place. What bounds it on
+// the H100, the flagship's unfused training forward at batch 32 (k = 7, e
+// = 64): 4 * 49 * 64 FLOP per query and head, 3.3 GFLOP at level 0 (3.3
+// us at 989 TFLOP/s), against q, k, v, out and lse, 4 * 33.5 + 1 MB (40
+// us at 3.35 TB/s): bound by memory.
 //
 // K12, two kernels launched together, no per-tile partials, no atomics (a
 // rerun gives bit-equal gradients): the split by query tile and by key tile
@@ -49,6 +53,7 @@
 // attention output never goes to device memory. Bound: memory, q, k, v,
 // skip and out (5 * 8.4 MB at the flagship's level 0, batch 8).
 #include "na2d.cuh"
+#include "na_fwd.cuh"
 
 namespace kdt {
 namespace {
@@ -357,16 +362,28 @@ template <int E>
 constexpr size_t DKV_SMEM = (2 * TQ * TQ + 2 * NKEYS_ALLOC) * DkvDims<E>::LDK * sizeof(bf16) +
                             2 * WARPS * STRIP * DkvDims<E>::LDC * sizeof(float);
 
+// K11 at head dims 32 and 64: na_fwd.cuh's wgmma forward, v through its own
+// strides; at 128, na2d.cuh's wmma forward (wgmma.cuh's tiles take 32 and
+// 64).
 template <int E>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b, int h,
                int w, int n_heads, int ks, float scale, const long* st, cudaStream_t stream) {
-  const cudaError_t attr = allow_smem(na2d_fwd_kernel<E>, FWD_SMEM<E>);
-  const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
-  na2d_fwd_kernel<E><<<grid, THREADS, FWD_SMEM<E>, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      strides(st), strides(st + 3), strides(st + 6), static_cast<bf16*>(out),
-      static_cast<float*>(lse), h, w, n_heads, ks, scale);
-  return launch_status(attr);
+  if constexpr (E == 128) {
+    const cudaError_t attr = allow_smem(na2d_fwd_kernel<E>, FWD_SMEM<E>);
+    const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
+    na2d_fwd_kernel<E><<<grid, THREADS, FWD_SMEM<E>, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        strides(st), strides(st + 3), strides(st + 6), static_cast<bf16*>(out),
+        static_cast<float*>(lse), h, w, n_heads, ks, scale);
+    return launch_status(attr);
+  } else {
+    const long c = static_cast<long>(n_heads) * E;
+    const attn_fwd::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                           static_cast<float*>(lse), strides(st), strides(st + 3),
+                           strides(st + 6), MapStrides{h * w * c, w * c, c}, n_heads, scale};
+    return na_fwd::launch<E, true>(a, b, h, w, ks, stream);
+  }
 }
 
 template <int E>

@@ -18,15 +18,14 @@
 //
 // Design: a block is one warpgroup, its 64 own rows an 8 x 8 tile, wgmma's
 // M, of one head of one image; the grid is (tiles, heads, batch).
-// - na_dq_kernel: the own rows are a query tile. The clamped union of its
-//   queries' windows, the halo, is he = 8 + ks - 1 rows and columns from
-//   the window start of its first query (TileGeometry); its keys stream
-//   past as 64-row tiles of K and V, 4 halo rows of 16 key slots each
-//   (slots past he or past the map zero-filled by the copy): 4 tiles at
-//   ks = 7.
-// - na_dkv_kernel: the own rows are a key tile. The queries whose clamped
-//   windows reach it form a slab of at most 14 x 14 (Reach); they stream
-//   past with their lse and delta, 4 slab rows of 16 query slots a tile.
+// - na_dq_kernel: the own rows are a query tile (na2d.cuh's NaQueries, as
+//   in the forward, na_fwd.cuh). The clamped union of its queries' windows,
+//   the halo, streams past as 64-row tiles of K and V, 4 halo rows of 16
+//   key slots each: 4 tiles at ks = 7.
+// - na_dkv_kernel: the own rows are a key tile (NaKeys). The queries whose
+//   clamped windows reach it form a slab of at most 14 x 14 (Reach); they
+//   stream past with their lse and delta, 4 slab rows of 16 query slots a
+//   tile.
 // A pair attends where the key lies in the query's window, tested on the
 // accumulator's coordinates in registers; the slot layout makes a column's
 // key (or query) row and column a shift and a mask of its index.
@@ -61,86 +60,6 @@
 
 namespace kdt {
 namespace na_bwd {
-
-using wg::Pos;
-using wg::ROWS;
-
-constexpr int SLOTS = 16;             // slots of a halo (slab) row
-constexpr int BANDS = ROWS / SLOTS;   // halo (slab) rows of a streamed tile
-
-// The dq kernel's block: 8 x 8 query tile `tile` (row-major over the map's
-// tiles) and the tiles of its halo.
-struct NaQueries {
-  int y0, x0, hr0, hc0, r, he, h, w, ks, tiles, positions;
-  __device__ NaQueries(int tile, int h_, int w_, int ks_) : h(h_), w(w_), ks(ks_) {
-    const TileGeometry t(tile, h_, w_, ks_);
-    y0 = t.y0;
-    x0 = t.x0;
-    hr0 = t.hr0;
-    hc0 = t.hc0;
-    r = t.r;
-    he = TQ + ks_ - 1;
-    tiles = (he + BANDS - 1) / BANDS;
-    positions = h_ * w_;
-  }
-  __device__ Pos own(int i) const { return {y0 + i / TQ, x0 + i % TQ, true}; }
-  __device__ Pos stream(int j, int i) const {
-    const int hy = BANDS * j + i / SLOTS, hx = i % SLOTS;
-    const int y = hr0 + hy, x = hc0 + hx;
-    return {y, x, hy < he && hx < he && y < h && x < w};
-  }
-  __device__ long index(Pos p) const { return static_cast<long>(p.y) * w + p.x; }
-  struct Info {
-    int wy, wx;  // the query's window start
-  };
-  __device__ Info own_info(int i) const {
-    return {clampi(y0 + i / TQ - r, 0, h - ks), clampi(x0 + i % TQ - r, 0, w - ks)};
-  }
-  // key slot col of halo tile j in the window: keys past the halo or the
-  // map never are
-  __device__ bool mask(int j, int col, Info q) const {
-    const int ky = hr0 + BANDS * j + col / SLOTS, kx = hc0 + col % SLOTS;
-    return static_cast<unsigned>(ky - q.wy) < static_cast<unsigned>(ks) &&
-           static_cast<unsigned>(kx - q.wx) < static_cast<unsigned>(ks);
-  }
-};
-
-// The dk/dv kernel's block: 8 x 8 key tile `tile` and the tiles of the
-// slab of queries that reach it.
-struct NaKeys {
-  int ky0, kx0, qy0, qx0, ny, nx, r, h, w, ks, tiles, positions;
-  __device__ NaKeys(int tile, int h_, int w_, int ks_) : h(h_), w(w_), ks(ks_) {
-    const int tiles_w = w_ / TQ;
-    ky0 = tile / tiles_w * TQ;
-    kx0 = tile % tiles_w * TQ;
-    const Reach rows(ky0, h_, ks_), cols(kx0, w_, ks_);
-    qy0 = rows.lo;
-    qx0 = cols.lo;
-    ny = rows.hi - rows.lo + 1;
-    nx = cols.hi - cols.lo + 1;  // <= 14 < SLOTS
-    r = (ks_ - 1) / 2;
-    tiles = (ny + BANDS - 1) / BANDS;
-    positions = h_ * w_;
-  }
-  __device__ Pos own(int i) const { return {ky0 + i / TQ, kx0 + i % TQ, true}; }
-  __device__ Pos stream(int j, int i) const {
-    const int sy = BANDS * j + i / SLOTS, sx = i % SLOTS;
-    return {qy0 + sy, qx0 + sx, sy < ny && sx < nx};
-  }
-  __device__ long index(Pos p) const { return static_cast<long>(p.y) * w + p.x; }
-  struct Info {
-    int ky, kx;  // the key
-  };
-  __device__ Info own_info(int i) const { return {ky0 + i / TQ, kx0 + i % TQ}; }
-  // the key in the window of query slot col of slab tile j; empty slots
-  // hold no query
-  __device__ bool mask(int j, int col, Info k) const {
-    const int sy = BANDS * j + col / SLOTS, sx = col % SLOTS;
-    const int wy = clampi(qy0 + sy - r, 0, h - ks), wx = clampi(qx0 + sx - r, 0, w - ks);
-    return sy < ny && sx < nx && static_cast<unsigned>(k.ky - wy) < static_cast<unsigned>(ks) &&
-           static_cast<unsigned>(k.kx - wx) < static_cast<unsigned>(ks);
-  }
-};
 
 template <int E>
 __global__ void __launch_bounds__(128) na_dq_kernel(const attn_bwd::Args a, int h, int w,

@@ -1,11 +1,12 @@
 // The Hopper building blocks of the attention kernels, shared by the
-// forward (attn_fwd.cuh: K3, K13) and the backward (attn_bwd.cuh: K9, K14;
-// na_bwd.cuh: K7), and of the GEMM core of the weight-gradient backwards
-// (gemm.cuh: K6, K10):
+// forward (attn_fwd.cuh: K3, K13; na_fwd.cuh: K2, K11) and the backward
+// (attn_bwd.cuh: K9, K14; na_bwd.cuh: K7), and of the GEMM core of the
+// weight-gradient backwards (gemm.cuh: K6, K10):
 // swizzled (64, E) bf16 tiles in shared memory filled by cp.async through a
 // ring of stages, wgmma descriptors and products with f32 accumulators in
 // registers, register A fragments (from a tile by ldmatrix, or from an
-// accumulator rounded to bf16), and the staged 16-byte store of a tile.
+// accumulator rounded to bf16), the staged 16-byte store of a tile, and
+// Seq, the attention bodies' geometry policy for global attention.
 //
 // Shared-memory tiles are (64, E) bf16 in wgmma's canonical K-major layout
 // with the swizzle of their row width: at E = 64 a row is one 128-byte
@@ -103,6 +104,34 @@ __device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* base, lo
 struct Pos {
   int y, x;
   bool ok;
+};
+
+// The geometry of global attention, a template policy of the attention
+// bodies (attn_fwd.cuh, attn_bwd.cuh; na2d.cuh has neighborhood
+// attention's): a block owns rows [64 tile, 64 tile + 64 WG) of the
+// sequence (WG warpgroups a block) and every 64-row tile streams past
+// them; a pair attends where the streamed row lies before s. Members:
+// - tiles, the streamed tiles, and positions, the map positions per image
+//   and head (the length of a row of lse and delta);
+// - own(r) and stream(j, r): the map position of row r of the own rows or
+//   of streamed tile j; rows gathered one by one through each tensor's
+//   MapStrides, rows that are not ok zero-filled;
+// - index(p): a position's index into its row of lse and delta;
+// - own_info(r) and mask(j, col, info): whether own row r and column col of
+//   streamed tile j attend, from a per-row summary kept in registers;
+// - whole(j): whether every column of tile j attends for every own row, so
+//   that the forward need not test the mask.
+struct Seq {
+  int r0, s, tiles, positions;
+  __device__ Seq(int tile, int s_)
+      : r0(tile * ROWS), s(s_), tiles((s_ + ROWS - 1) / ROWS), positions(s_) {}
+  __device__ Pos own(int r) const { return {r0 + r, 0, r0 + r < s}; }
+  __device__ Pos stream(int j, int r) const { return {j * ROWS + r, 0, j * ROWS + r < s}; }
+  __device__ long index(Pos p) const { return p.y; }
+  struct Info {};
+  __device__ Info own_info(int) const { return {}; }
+  __device__ bool mask(int j, int col, Info) const { return j * ROWS + col < s; }
+  __device__ bool whole(int j) const { return (j + 1) * ROWS <= s; }
 };
 
 // Starts the copy of a (64, E) tile whose row r is the E-wide row of head

@@ -8,18 +8,21 @@ hand-written kernels through autograd Functions; CPU tensors go to the
 plain versions, which autograd differentiates.
 
 - ``na2d_packed`` on channel-packed (b, h, w, heads * 64) maps: the
-  forward K2 (``csrc/na2d.cu``, which also writes the per-head logsumexp
-  when a backward follows) and the backward K7 (``csrc/na_bwd.cuh``: a dq
-  kernel per query tile and a dk/dv kernel per key tile, one counted
-  launch, dq, dk and dv written once in bf16).
+  forward K2 (``csrc/na_fwd.cuh``, launched from ``csrc/na2d.cu``: the
+  wgmma forward of ``csrc/attn_fwd.cuh`` over a query tile's key halo,
+  which also writes the per-head logsumexp when a backward follows) and
+  the backward K7 (``csrc/na_bwd.cuh``: a dq kernel per query tile and a
+  dk/dv kernel per key tile, one counted launch, dq, dk and dv written once
+  in bf16).
 - ``overlap_add``: K8 (``csrc/na2d.cu``), the overlap-add of per-tile dk/dv
   halo partials, the second half of the Pallas backward's design. No model
   path runs it since K7 writes dk and dv itself; its plain version and
   ``packed_backward_partials_reference`` hold it on its own op path.
 - ``na2d`` on (b, h, w, heads, e) maps, e 32, 64 or 128, read through their
-  strides (``csrc/na2d_heads.cu``): the forward K11 and the backward K12 (a
-  dq kernel per query tile and a dk/dv kernel per key tile, one counted
-  launch).
+  strides (``csrc/na2d_heads.cu``): the forward K11 (K2's forward, v read
+  through its own strides, at e 32 and 64; the wmma forward of
+  ``csrc/na2d.cuh`` at 128) and the backward K12 (a dq kernel per query
+  tile and a dk/dv kernel per key tile, one counted launch).
 - ``na2d_packed_proj``: K15, ``na2d_packed`` with the out-projection and
   the residual fused into the forward; its backward recomputes the
   attention with K2 and runs K7, as the JAX op's backward is the VJP of its

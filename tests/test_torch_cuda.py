@@ -95,8 +95,29 @@ def test_fused_qkv(dev, b, h, w, d):
         assert_close(a, b_)
 
 
-@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 8, 8, 4, 7),
-                                            (1, 16, 16, 2, 3), (1, 24, 16, 1, 5)])
+# (b, h, w, heads, ks) of the NA forward: one tile, h != w, and maps with
+# interior tiles (32 x 32, 40 x 24: at ks = 7 the first streamed halo tile
+# of an interior query tile holds no key of its rows 4-7, the last none of
+# its rows 0-3), at every odd kernel size
+NA_FWD_CASES = [(2, 16, 24, 2, 7), (1, 8, 8, 4, 7), (1, 16, 16, 2, 3),
+                (1, 24, 16, 1, 5)] + [
+    (1, h, w, 2, ks) for h, w in ((8, 8), (16, 24), (32, 32))
+    for ks in (1, 3, 5, 7)] + [(2, 40, 24, 1, 7), (2, 32, 32, 4, 7)]
+
+
+def na_logsumexp(q, k, ks):
+    """The f32 logsumexp of each query's masked logits, (b, heads, h, w),
+    from (b, h, w, heads, e) q and k: what the NA forwards save."""
+    b, h, w, heads, e = q.shape
+    logits = torch.einsum("bqne,bkne->bnqk",
+                          q.float().reshape(b, h * w, heads, e),
+                          k.float().reshape(b, h * w, heads, e))
+    mask = neighborhood_mask_2d(h, w, ks, q.device)
+    return torch.logsumexp(logits.masked_fill(~mask, float("-inf")),
+                           -1).reshape(b, heads, h, w)
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", NA_FWD_CASES)
 def test_na2d(dev, b, h, w, heads, ks):
     g = torch.Generator().manual_seed(1)
     c = heads * 64
@@ -107,6 +128,39 @@ def test_na2d(dev, b, h, w, heads, ks):
     want = na2d.na2d_reference(q.reshape(split), k.reshape(split),
                                v.reshape(split), ks).reshape(b, h, w, c)
     assert_close(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", NA_FWD_CASES)
+def test_na2d_forward_lse(dev, b, h, w, heads, ks):
+    """K2's training forward: out as without the lse, and the logsumexp K7
+    reads against the f32 masked logits."""
+    g = torch.Generator().manual_seed(23)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, h, w, c), unit_heads(g, dev, b, h, w, c)
+    v = normal(g, dev, b, h, w, c)
+    out, lse = counted(na2d, lambda: na2d.packed_forward(q, k, v, heads, ks,
+                                                         save_lse=True))
+    assert lse.shape == (b, heads, h, w) and lse.dtype == torch.float32
+    assert torch.equal(out, na2d.packed_forward(q, k, v, heads, ks)[0])
+    split = (b, h, w, heads, 64)
+    assert_close(lse, na_logsumexp(q.reshape(split), k.reshape(split), ks))
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(8, 32, 32, 4, 7), (2, 16, 24, 2, 7),
+                                            (1, 40, 24, 1, 3), (1, 8, 8, 2, 1)])
+def test_na2d_packed_and_heads_agree_bit_for_bit(dev, b, h, w, heads, ks):
+    """K2 and K11 run one forward (csrc/na_fwd.cuh): on one contiguous packed
+    input at head dim 64, read by K11 as its (b, h, w, heads, 64) view, they
+    give the same out and lse bit for bit."""
+    g = torch.Generator().manual_seed(24)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, h, w, c), unit_heads(g, dev, b, h, w, c)
+    v = normal(g, dev, b, h, w, c)
+    out, lse = na2d.packed_forward(q, k, v, heads, ks, save_lse=True)
+    split = [t.reshape(b, h, w, heads, 64) for t in (q, k, v)]
+    out11, lse11 = na2d.heads_forward(*split, ks, save_lse=True)
+    assert torch.equal(out, out11.reshape(b, h, w, c))
+    assert torch.equal(lse, lse11)
 
 
 @pytest.mark.parametrize("b,s,heads", [(3, 16, 2), (2, 80, 8), (1, 512, 1)])
@@ -590,7 +644,14 @@ def heads_qkv(g, dev, b, h, w, heads, e):
             normal(g, dev, b, h, w, heads, e))
 
 
-@pytest.mark.parametrize("b,h,w,heads,e,ks", HEADS_CASES)
+# the forward also at every odd kernel size on one tile, h != w and a map
+# with interior tiles, at head dims 32 and 64 (the wgmma forward's)
+HEADS_FWD_CASES = HEADS_CASES + [
+    (1, h, w, 2, e, ks) for e in (32, 64)
+    for h, w in ((8, 8), (16, 24), (32, 32)) for ks in (1, 3, 5, 7)]
+
+
+@pytest.mark.parametrize("b,h,w,heads,e,ks", HEADS_FWD_CASES)
 def test_na2d_heads(dev, b, h, w, heads, e, ks):
     """K11 against the plain version, its logsumexp against the f32 masked
     logits."""
@@ -601,11 +662,7 @@ def test_na2d_heads(dev, b, h, w, heads, e, ks):
     assert_close(got, na2d.na2d_reference(q, k, v, ks))
     out, lse = na2d.heads_forward(q, k, v, ks, save_lse=True)
     assert torch.equal(out, got)
-    logits = torch.einsum("bqne,bkne->bnqk", q.float().reshape(b, h * w, heads, e),
-                          k.float().reshape(b, h * w, heads, e))
-    mask = neighborhood_mask_2d(h, w, ks, dev)
-    want = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), -1)
-    assert_close(lse, want.reshape(b, heads, h, w))
+    assert_close(lse, na_logsumexp(q, k, ks))
 
 
 @pytest.mark.parametrize("b,h,w,heads,e,ks", HEADS_CASES)

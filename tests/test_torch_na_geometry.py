@@ -1,0 +1,205 @@
+"""The neighborhood geometry of the port's wgmma NA kernels on the CPU.
+
+The forward (csrc/na_fwd.cuh, K2 and K11) and the dq kernel of the backward
+(csrc/na_bwd.cuh, K7) run attention bodies over ``NaQueries``
+(csrc/na2d.cuh): a block owns an 8 x 8 query tile, and the tile's key halo
+streams past as 64-row tiles of 4 halo rows x 16 key slots, each pair
+masked to the query's window. CUDA does not run here, so ``NaQueries``
+below is its Python mirror, line for line, held against the JAX package's
+NATTEN mask (k_diffusion_tpu/ops/attention.py): every key of every query's
+clamped window lands in exactly one (tile, slot) of the query's block, and
+no slot past the halo or the map attends. Then the forward's streamed
+online softmax, run over that geometry in numpy with the kernel's guard for
+rows whose running max is still -inf, is held against the JAX package's
+``na2d_reference`` and the masked logsumexp; without the guard those rows
+turn to NaN, which shows which rows the guard is for."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+j_attn = importlib.import_module("k_diffusion_tpu.ops.attention")
+j_na = importlib.import_module("k_diffusion_tpu.ops.pallas.na2d")
+
+TQ = 8               # query tile edge (na2d.cuh)
+SLOTS = 16           # key slots of a halo row
+BANDS = 64 // SLOTS  # halo rows of a streamed 64-row tile
+# float32 on both sides, the same operations summed in another order
+F32_TOL = 2e-5
+
+
+class NaQueries:
+    """Mirror of csrc/na2d.cuh's NaQueries over numpy index arrays: the
+    block of 8 x 8 query tile ``tile`` (row-major over the map's tiles)."""
+
+    def __init__(self, tile, h, w, ks):
+        self.h, self.w, self.ks = h, w, ks
+        tiles_w = w // TQ
+        self.y0, self.x0 = tile // tiles_w * TQ, tile % tiles_w * TQ
+        self.r = (ks - 1) // 2
+        self.hr0 = np.clip(self.y0 - self.r, 0, h - ks)
+        self.hc0 = np.clip(self.x0 - self.r, 0, w - ks)
+        self.he = TQ + ks - 1
+        self.tiles = (self.he + BANDS - 1) // BANDS
+
+    def own(self, i):
+        return self.y0 + i // TQ, self.x0 + i % TQ
+
+    def stream(self, j, i):
+        hy, hx = BANDS * j + i // SLOTS, i % SLOTS
+        y, x = self.hr0 + hy, self.hc0 + hx
+        return y, x, (hy < self.he) & (hx < self.he) & (y < self.h) & (
+            x < self.w)
+
+    def own_info(self, i):
+        return (np.clip(self.y0 + i // TQ - self.r, 0, self.h - self.ks),
+                np.clip(self.x0 + i % TQ - self.r, 0, self.w - self.ks))
+
+    def mask(self, j, col, info):
+        wy, wx = info
+        ky = self.hr0 + BANDS * j + col // SLOTS
+        kx = self.hc0 + col % SLOTS
+        # the kernel's unsigned compares: 0 <= ky - wy < ks
+        return (0 <= ky - wy) & (ky - wy < self.ks) & (0 <= kx - wx) & (
+            kx - wx < self.ks)
+
+
+def block_layout(geo):
+    """For each own row i, streamed tile j and slot col of ``geo``'s block:
+    the key's flat map position (y * w + x), whether the slot holds a key,
+    and whether the pair attends; arrays (64, tiles, 64)."""
+    i = np.arange(64)[:, None, None]
+    j = np.arange(geo.tiles)[None, :, None]
+    col = np.arange(64)[None, None, :]
+    y, x, ok = geo.stream(j, col)
+    attends = geo.mask(j, col, geo.own_info(i))
+    shape = (64, geo.tiles, 64)
+    return (np.broadcast_to(y * geo.w + x, shape), np.broadcast_to(ok, shape),
+            attends)
+
+
+def jax_mask(h, w, ks):
+    """The JAX package's NATTEN mask over the h * w row-major positions,
+    (query, key) bool."""
+    mh = j_attn.neighborhood_mask_1d(h, ks)
+    mw = j_attn.neighborhood_mask_1d(w, ks)
+    return (mh[:, None, :, None] & mw[None, :, None, :]).reshape(h * w, h * w)
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (64, 64)])
+@pytest.mark.parametrize("ks", range(1, 8))
+def test_every_window_key_streams_once(h, w, ks):
+    want = jax_mask(h, w, ks)
+    for tile in range(h // TQ * (w // TQ)):
+        geo = NaQueries(tile, h, w, ks)
+        assert geo.tiles == -(-(TQ + ks - 1) // BANDS)
+        pos, ok, attends = block_layout(geo)
+        # no slot past the halo or the map attends for any row
+        assert not (attends & ~ok).any()
+        qy, qx = geo.own(np.arange(64))
+        for i, query in enumerate(qy * w + qx):
+            counts = np.bincount(pos[i][attends[i]], minlength=h * w)
+            # each key of the query's window exactly once, nothing else
+            np.testing.assert_array_equal(counts, want[query].astype(int))
+
+
+def rows_without_key(h, w, ks, j):
+    """(tile, own row) pairs whose window has no key in streamed tile j
+    (-1: the last tile)."""
+    found = []
+    for tile in range(h // TQ * (w // TQ)):
+        geo = NaQueries(tile, h, w, ks)
+        attends = block_layout(geo)[2]
+        found += [(tile, i) for i in np.flatnonzero(
+            ~attends[:, j % geo.tiles].any(-1))]
+    return found
+
+
+def test_interior_tiles_have_rows_without_a_key_in_a_tile():
+    """At ks = 7 the window of row t of an interior query tile spans halo
+    rows t to t + 6: the first streamed tile (halo rows 0-3) holds no key
+    of its rows 4-7 (own rows 32-63), the last (halo rows 12-13 of the 14)
+    none of its rows 0-5 (own rows 0-47); an 8 x 8 map (one tile, its halo
+    cut by the map) has no such row."""
+    tiles_w = 32 // TQ
+    interior = [t for t in range(16)
+                if 0 < t // tiles_w < 3 and 0 < t % tiles_w < 3]
+    first = rows_without_key(32, 32, 7, 0)
+    last = rows_without_key(32, 32, 7, -1)
+    for t in interior:
+        assert [i for tt, i in first if tt == t] == list(range(32, 64))
+        assert [i for tt, i in last if tt == t] == list(range(48))
+    assert not rows_without_key(8, 8, 7, 0)
+
+
+def streamed_forward(q, k, v, ks, scale, guard=True):
+    """The forward's online softmax (csrc/attn_fwd.cuh) over the NaQueries
+    geometry, in numpy float64: per block, per streamed tile, logits of
+    the attending pairs (others -inf), the running max m and sum l, p =
+    exp(s - m) and the output rescaled by exp(m_old - m). With ``guard`` a
+    row whose max is still -inf takes 0 as its reference, as the kernel
+    does. q, k, v (b, h, w, heads, e); returns out and lse (b, heads, h,
+    w)."""
+    b, h, w, heads, e = q.shape
+    flat = [t.reshape(b, h * w, heads, e).astype(np.float64)
+            for t in (q, k, v)]
+    out = np.zeros((b, h * w, heads, e))
+    lse = np.zeros((b, heads, h * w))
+    with np.errstate(invalid="ignore"):
+        for tile in range(h // TQ * (w // TQ)):
+            geo = NaQueries(tile, h, w, ks)
+            pos, ok, attends = block_layout(geo)
+            qy, qx = geo.own(np.arange(64))
+            rows = qy * w + qx
+            m = np.full((b, heads, 64), -np.inf)
+            l = np.zeros((b, heads, 64))
+            acc = np.zeros((b, heads, 64, e))
+            for j in range(geo.tiles):
+                keys = np.where(ok[0, j], pos[0, j], 0)
+                # zero-filled slots past the halo or the map
+                kt = flat[1][:, keys] * ok[0, j][None, :, None, None]
+                vt = flat[2][:, keys] * ok[0, j][None, :, None, None]
+                s = np.einsum("bqne,bkne->bnqk", flat[0][:, rows], kt) * scale
+                s = np.where(attends[:, j][None, None], s, -np.inf)
+                mx = np.maximum(m, s.max(-1))
+                ref = np.where(mx == -np.inf, 0.0, mx) if guard else mx
+                alpha = np.exp(m - ref)
+                p = np.exp(s - ref[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + np.einsum("bnqk,bkne->bnqe",
+                                                         p, vt)
+                m = mx
+            out[:, rows] = (acc / l[..., None]).transpose(0, 2, 1, 3)
+            lse[:, :, rows] = m + np.log(l)
+    return out.reshape(b, h, w, heads, e), lse.reshape(b, heads, h, w)
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (32, 32)])
+@pytest.mark.parametrize("ks", [1, 3, 5, 7])
+def test_streamed_forward_matches_jax(h, w, ks):
+    rng = np.random.default_rng(ks)
+    b, heads, e = 1, 2, 16
+    q, k, v = (rng.standard_normal((b, h, w, heads, e)).astype(np.float32)
+               for _ in range(3))
+    out, lse = streamed_forward(q, k, v, ks, 0.25)
+    want = j_na.na2d_reference(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), ks, scale=0.25)
+    np.testing.assert_allclose(out, np.asarray(want), rtol=0,
+                               atol=F32_TOL * np.abs(want).max())
+    logits = jnp.einsum("bqne,bkne->bnqk", q.reshape(b, h * w, heads, e),
+                        k.reshape(b, h * w, heads, e)) * 0.25
+    want_lse = jax.nn.logsumexp(
+        jnp.where(jax_mask(h, w, ks), logits, -jnp.inf), -1)
+    np.testing.assert_allclose(lse, np.asarray(want_lse).reshape(lse.shape),
+                               rtol=0, atol=F32_TOL * np.abs(want_lse).max())
+    if (h, w) == (32, 32) and ks == 7:
+        # without the guard, the rows with no key in the first tile are NaN
+        bad, _ = streamed_forward(q, k, v, ks, 0.25, guard=False)
+        nan_rows = np.isnan(bad).any((0, 3, 4)).reshape(-1)
+        rows = {NaQueries(t, h, w, ks).own(i)[0] * w
+                + NaQueries(t, h, w, ks).own(i)[1]
+                for t, i in rows_without_key(h, w, ks, 0)}
+        assert set(np.flatnonzero(nan_rows)) == rows and rows
