@@ -8,15 +8,19 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 2. build: compiles every kernel from csrc/ with nvcc, and prints the
    registers and spills of the attention kernels, the forward (K3, K13)
    and the backward's two (K9, K14) at each head dim, of the neighborhood
-   forward of K2 and K11 and K7's two (the neighborhood geometry on the
-   same forward and backward), of the forwards K1 and K4 and of K6's and
-   K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel);
-   none may spill or be missing;
+   forward of K2 and K11 and the backward's two of K7 and K12 (the
+   neighborhood geometry on the same forward and backward; K11's and K12's
+   with v through its own strides), of the forwards K1 and K4, of K6's and
+   K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel)
+   and of K5's cluster kernel; none may spill or be missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
-   same function, that call's times from CUDA events; then K3's training
-   forward, out and logsumexp, against the plain versions;
+   same function, that call's times from CUDA events (K5 with the model's
+   float32 weights; uncounted, with bfloat16 weights and at batch 32);
+   a profile showing that one K5 call runs one device kernel and nothing
+   else; then K3's training forward, out and logsumexp, against the plain
+   versions;
 4. forward: the flagship HDiT (configs/config_oxford_flowers.json, seeded
    weights, zero-init tensors filled with noise) at batch 2 in bfloat16 on
    the card against the same weights in float32 on the CPU (plain versions);
@@ -32,8 +36,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    with launch counts: no model path runs K8); then, on one packed input,
    K3 against K13 (out and logsumexp) and K9 against K14 (dq, dk, dv) bit
    for bit: each pair runs one wgmma design; at both NA levels K2 against
-   K11 (out and logsumexp) bit for bit, the same wgmma forward, and K7
-   against a rerun of itself (dq, dk, dv) bit for bit;
+   K11 (out and logsumexp) bit for bit, the same wgmma forward, K7
+   against K12 (dq, dk, dv) bit for bit, the same wgmma backward, and each
+   against a rerun of itself; K10 at d = 640 raises ValueError naming its
+   limit of 576 before any launch;
 7. gradient parity: one training step's loss and full parameter gradient,
    the flagship at batch 2 in bfloat16 on the card against the same
    weights, reals, noise and sigmas in float32 on the CPU, dropout off;
@@ -328,13 +334,49 @@ def kernel_cases(dev):
     blocks = [((1 + 0.1 * torch.randn(mw, generator=g)).to(dev),
                lecun((mw, 2 * 3 * mw), g, dev), lecun((3 * mw, mw), g, dev))
               for _ in range(2)]
-    map_args = (normal(b, mw), torch.ones(mw, device=dev),
-                torch.ones(mw, device=dev), blocks)
-    cases.append(Case("fused_mapping", f"{b}x{mw} f={3 * mw}", 1,
-                      lambda a=map_args: fused_mapping.fused_mapping(*a),
-                      lambda a=map_args: fused_mapping.reference(*a),
-                      len(blocks) * 6 * b * mw * 3 * mw, map_args))
+    # the model holds its weights as float32 params: the counted case;
+    # uncounted, the same weights in bfloat16 and the training batch
+    blocks32 = [(ns, wu.float(), wd.float()) for ns, wu, wd in blocks]
+    for batch, weights, calls, what in ((b, blocks32, 1, "f32 weights"),
+                                        (b, blocks, 0, "bf16 weights"),
+                                        (TRAIN_BATCH, blocks32, 0,
+                                         "f32 weights")):
+        map_args = (normal(batch, mw), torch.ones(mw, device=dev),
+                    torch.ones(mw, device=dev), weights)
+        cases.append(Case(
+            "fused_mapping", f"{batch}x{mw} f={3 * mw}, {what}", calls,
+            lambda a=map_args: fused_mapping.fused_mapping(*a),
+            lambda a=map_args: fused_mapping.reference(*a),
+            len(blocks) * 6 * batch * mw * 3 * mw, map_args))
     return cases
+
+
+def mapping_one_launch(dev):
+    """One fused_mapping call with the model's float32 params runs one
+    device kernel, K5's, and nothing else (no stack, no cast), counted by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    from k_diffusion_tpu_torch.ops.kernels import fused_mapping
+
+    g = torch.Generator().manual_seed(SEED + 20)
+    mw = 256
+    blocks = [((1 + 0.1 * torch.randn(mw, generator=g)).to(dev),
+               (torch.randn((mw, 6 * mw), generator=g) / mw ** 0.5).to(dev),
+               (torch.randn((3 * mw, mw), generator=g)
+                / (3 * mw) ** 0.5).to(dev)) for _ in range(2)]
+    emb = torch.randn((SAMPLE_BATCH, mw), generator=g).to(dev, torch.bfloat16)
+    ones = torch.ones(mw, device=dev)
+    fused_mapping.fused_mapping(emb, ones, ones, blocks)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_mapping.fused_mapping(emb, ones, ones, blocks)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(names) != 1 or "mapping_kernel" not in names[0]:
+        raise AssertionError(f"fused_mapping: one call ran {names}")
+    print(f"fused_mapping: one call with float32 weights runs one device "
+          f"kernel ({names[0][:60]})", flush=True)
 
 
 def backward_cases(dev):
@@ -469,8 +511,9 @@ def na_bit_check(dev):
     """At both flagship NA levels (batch 8, cosine-sim q and k): K2 and K11
     run one forward (csrc/na_fwd.cuh), so on one packed input, read by K11
     as its (b, h, w, heads, 64) view, they give the same out and lse bit
-    for bit; K7 has no partials and no atomics, so two runs give
-    bit-identical dq, dk, dv."""
+    for bit; K7 and K12 run one backward (csrc/na_bwd.cuh), so they give
+    the same dq, dk, dv bit for bit; neither has partials or atomics, so
+    two runs of each give bit-identical dq, dk, dv."""
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
     g = torch.Generator().manual_seed(SEED + 19)
@@ -492,15 +535,52 @@ def na_bit_check(dev):
                 raise AssertionError(f"K2 and K11 {name} differ by {diff:.3e}")
         first = na2d.packed_backward(q, k, v, out, lse, dout, heads, 7)
         again = na2d.packed_backward(q, k, v, out, lse, dout, heads, 7)
-        for name, a, b_ in zip(("dq", "dk", "dv"), first, again):
-            if not torch.equal(a, b_):
-                diff = (a.float() - b_.float()).abs().max().item()
-                raise AssertionError(f"K7 rerun {name} differs by {diff:.3e}")
+        split = split_heads((q, k, v, out11, dout), heads)
+        k12 = na2d.heads_backward(*split[:4], lse11, split[4], 7)
+        k12_again = na2d.heads_backward(*split[:4], lse11, split[4], 7)
+        for pair, got, want in (("K7 rerun", again, first),
+                                ("K12 and K7", k12, first),
+                                ("K12 rerun", k12_again, k12)):
+            for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+                if not torch.equal(a.reshape(b_.shape), b_):
+                    diff = (a.reshape(b_.shape).float()
+                            - b_.float()).abs().max().item()
+                    raise AssertionError(f"{pair} {name} differ by {diff:.3e}")
         labels.append(f"{b}x{h}x{h}x{c}")
     print(f"NA forward bit check [{', '.join(labels)}]: K2 and K11 give "
           f"bit-identical out and lse on one packed input", flush=True)
     print(f"K7 bit check [{', '.join(labels)}]: two runs give bit-identical "
           f"dq, dk, dv", flush=True)
+    print(f"K12 bit check [{', '.join(labels)}]: K12 on the packed input's "
+          f"(b, h, w, heads, 64) views gives K7's dq, dk, dv bit for bit, "
+          f"and two runs of K12 bit-identical ones", flush=True)
+
+
+def ffn_width_check(dev):
+    """K10 refuses d = 640, past its first kernel's shared memory, with a
+    ValueError naming its limit of 576, before any launch."""
+    from k_diffusion_tpu_torch.ops import kernels
+    from k_diffusion_tpu_torch.ops.kernels import fused_ffn
+
+    kernels.reset_launch_counts()
+    x = torch.zeros((1, 64, 640), device=dev, dtype=torch.bfloat16)
+    try:
+        fused_ffn.ffn_backward(
+            x, torch.ones((1, 640), device=dev, dtype=torch.bfloat16),
+            torch.zeros((640, 128), device=dev),
+            torch.zeros((64, 640), device=dev), x)
+    except ValueError as e:
+        if "576" not in str(e):
+            raise
+        message = str(e)
+    else:
+        raise AssertionError("fused_ffn backward took d = 640")
+    torch.cuda.synchronize()
+    if kernels.launch_counts() != dict.fromkeys(kernels.COUNTERS, 0):
+        raise AssertionError(f"fused_ffn backward at d = 640 launched "
+                             f"{kernels.launch_counts()}")
+    print(f"K10 width check: d = 640 raises ValueError before any launch "
+          f"({message})", flush=True)
 
 
 def na_plain_by_image(q, k, v, kernel_size):
@@ -1107,6 +1187,7 @@ def main():
     results = {}
     with torch.no_grad():
         run_cases(kernel_cases(dev), results, 50, 5)
+        mapping_one_launch(dev)
         forward_lse_check(dev)
 
     # the flagship HDiT: phases 4-8
@@ -1135,6 +1216,7 @@ def main():
         run_cases(wide_cases(dev), {}, 20, 3)
         attention_bit_check(dev)
         na_bit_check(dev)
+        ffn_width_check(dev)
 
     grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
@@ -1259,7 +1341,7 @@ def main():
         "flash": ("attn_fwd.cuh", "flash.py:34", unet_sample_counts),
         "flash_bwd": ("attn_bwd.cuh", "flash.py:57", unet_train_counts),
         "na2d_heads": ("na_fwd.cuh", "na2d.py:180", unfused_counts),
-        "na2d_heads_bwd": ("na2d_heads.cu", "na2d.py:241", unfused_counts),
+        "na2d_heads_bwd": ("na_bwd.cuh", "na2d.py:241", unfused_counts),
         "na2d_proj": ("na2d_heads.cu", "na2d.py:991", proj_counts),
     }
     report = []
@@ -1287,42 +1369,46 @@ def main():
 
 # the kernels phase 2 reports, by library: the attention forward and
 # backward (csrc/attn_fwd.cuh, attn_bwd.cuh), the neighborhood forward of
-# K2 and K11 (csrc/na_fwd.cuh) and K7's two (csrc/na_bwd.cuh), the forwards
-# K1 and K4, and K6's and K10's (their first kernels and csrc/gemm.cuh's)
+# K2 and K11 (csrc/na_fwd.cuh) and the backward's two of K7 and K12
+# (csrc/na_bwd.cuh; OWN_V false in na2d, true in na2d_heads), the forwards
+# K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's) and
+# K5's cluster kernel (f32 and bf16 weights)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
     "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
-    "na2d_heads": ("na_fwd_kernel",),
+    "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
                   "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
-              "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
+              "atb_kernel", "reduce_kernel", "reduce_few_kernel",
+              "mapping_kernel"),
 }
 
 
 def compiler_report(build):
     """Registers and spills of the attention kernels (K3, K13: csrc/attn_
-    fwd.cuh; K2, K11: csrc/na_fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7:
-    csrc/na_bwd.cuh), of the forwards K1 and K4 and of K6's and K10's
-    (csrc/gemm.cuh's core, each backward's first kernel), from the compiler
-    report kept beside each library; raises if one spills or is missing."""
+    fwd.cuh; K2, K11: csrc/na_fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7,
+    K12: csrc/na_bwd.cuh), of the forwards K1 and K4, of K6's and K10's
+    (csrc/gemm.cuh's core, each backward's first kernel) and of K5's, from
+    the compiler report kept beside each library; raises if one spills or
+    is missing."""
     import re
 
     seen, missing = {}, []
     for lib, names in REPORTED.items():
-        # template arguments: ints (Li64E), then an int or a bool (Lb0E)
-        pattern = re.compile(r"Compiling entry function '\w*?(%s)(?:ILi(\d+)E"
-                             r"(?:L([ib])(\d+)E)?)?" % "|".join(names))
+        # template arguments, each an int (Li64E) or a bool (Lb0E)
+        pattern = re.compile(r"Compiling entry function '\w*?(%s)"
+                             r"((?:I(?:L[ib]\d+E)+E)?)" % "|".join(names))
         found, fn, spill = set(), None, None
         for line in build.library_path(lib).with_suffix(".log").read_text(
                 ).splitlines():
             m = pattern.search(line)
             if m:
-                name, e, kind, second = m.groups()
-                args = [a for a in (e, second) if a]
-                if kind == "b":
-                    args[-1] = ("false", "true")[int(second)]
+                name, mangled = m.groups()
+                args = [value if kind == "i" else ("false", "true")[int(value)]
+                        for kind, value in re.findall(r"L([ib])(\d+)E",
+                                                      mangled)]
                 fn = f"{name}<{', '.join(args)}>" if args else name
                 found.add(name)
                 continue

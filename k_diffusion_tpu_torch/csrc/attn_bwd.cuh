@@ -1,11 +1,13 @@
 // The backward of softmax attention on Hopper, shared by K9
 // (global_packed.cu, channel-packed (b, s, heads * 64) maps), K14
-// (flash.cu, (b, s, heads, e) q, k, v read through their strides) and K7
-// (na_bwd.cuh, 2-D neighborhood attention on channel-packed maps).
+// (flash.cu, (b, s, heads, e) q, k, v read through their strides), K7
+// (na_bwd.cuh, 2-D neighborhood attention on channel-packed maps) and K12
+// (na_bwd.cuh, the same on per-head maps, q, k and v each read through its
+// own strides).
 //
 // Replaces: k_diffusion_tpu/ops/pallas/global_packed.py:_bwd_kernel (K9)
 // and k_diffusion_tpu/ops/pallas/flash.py:_dq_kernel, :_dkv_kernel (K14);
-// na_bwd.cuh says what K7 replaces. The packed map of K9 is K14's strided
+// na_bwd.cuh says what K7 and K12 replace. The packed map of K9 is K14's strided
 // layout with stride_b = s * heads * 64, stride_s = heads * 64 and the head
 // at column head * 64, so both run the same two kernels.
 //
@@ -44,7 +46,9 @@
 // Which rows a block owns, which tiles stream past them and which pairs
 // attend is the geometry, a template policy G of the two bodies (wgmma.cuh's
 // Seq for global attention, whose comment lists the members; na2d.cuh's
-// NaQueries and NaKeys for neighborhood attention).
+// NaQueries and NaKeys for neighborhood attention). The bodies' OWN_V
+// gives k and v their own stride sets (K12); K7, K9 and K14 leave it
+// false, and their copies are as they were.
 // The __global__ kernels are thin: each builds its geometry from blockIdx.x
 // and runs a body.
 //
@@ -63,8 +67,9 @@ namespace attn_bwd {
 using namespace wg;
 
 // The operands of a backward launch. q, k, v are read through the strides
-// `in` (head h at column h * E); out, dout, dq, dk and dv share the
-// contiguous strides io; lse and delta are (b, heads, positions) f32.
+// `in` (head h at column h * E), or k through sk and v through sv where the
+// body's OWN_V is set; out, dout, dq, dk and dv share the contiguous
+// strides io; lse and delta are (b, heads, positions) f32.
 struct Args {
   const bf16 *q, *k, *v, *out, *dout;
   const float* lse;
@@ -73,7 +78,23 @@ struct Args {
   MapStrides in, io;
   int n_heads;
   float scale;
+  MapStrides sk, sv;
 };
+
+// Starts the copy of the K and V rows pos(r) into tiles k_tile and v_tile:
+// with OWN_V each through its own strides (K12's v is a strided third of a
+// projection), else both through `in`, from one row offset (a stride set
+// more in the copies of every tile cost K9 and K14 5-7%).
+template <int E, bool OWN_V, class RowPos>
+__device__ __forceinline__ void load_kv_async(bf16* k_tile, bf16* v_tile, const Args& a, int img,
+                                              int head, const RowPos& pos) {
+  if constexpr (OWN_V) {
+    load_rows_async<E>(k_tile, a.k, a.sk, img, head, pos);
+    load_rows_async<E>(v_tile, a.v, a.sv, img, head, pos);
+  } else {
+    load_rows_async<E>(k_tile, a.k, a.in, img, head, pos, v_tile, a.v);
+  }
+}
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
@@ -128,7 +149,7 @@ template <int E>
 constexpr size_t SMEM =
     (2 + 2 * STAGES) * TILE<E> * sizeof(bf16) + STAGES * 2 * ROWS * sizeof(float) + 1024;
 
-template <int E, class G>
+template <int E, bool OWN_V = false, class G>
 __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   extern __shared__ unsigned char smem_raw[];
   bf16* s_q = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
@@ -156,8 +177,8 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
 
   // starts the copy of streamed tile j's K and V rows into stage `kv`
   auto load_kv = [&](int j, bf16* kv) {
-    const auto row = [&](int i) { return geo.stream(j, i); };
-    load_rows_async<E>(kv, a.k, a.in, img, head, row, kv + TILE<E>, a.v);
+    load_kv_async<E, OWN_V>(kv, kv + TILE<E>, a, img, head,
+                            [&](int i) { return geo.stream(j, i); });
   };
   // out waits in the ring's last stage, which no tile needs before delta
   // has been computed
@@ -263,7 +284,7 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   store_rows<E>(s_kv, a.dq, a.io, img, head, own_row);
 }
 
-template <int E, class G>
+template <int E, bool OWN_V = false, class G>
 __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
   extern __shared__ unsigned char smem_raw[];
   bf16* s_k = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
@@ -286,7 +307,7 @@ __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
     load_stats_async(stats, a.lse + stat0, geo, j, 0, 0);
     load_stats_async(stats, a.delta + stat0, geo, j, ROWS, 2);
   };
-  load_rows_async<E>(s_k, a.k, a.in, img, head, own_row, s_v, a.v);
+  load_kv_async<E, OWN_V>(s_k, s_v, a, img, head, own_row);
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < n_tiles) load_stage(st, st);
     cp_async_commit();

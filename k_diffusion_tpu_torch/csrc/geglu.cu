@@ -15,8 +15,10 @@
 //   per hidden unit (one erf per 6 d FLOP: as much issue time as the
 //   products at d = 128), as long as the hidden activation h never leaves
 //   the chip.
-// - Mapping network: 2 blocks of (256 x 1536) + (768 x 256) bf16 weights,
-//   2.4 MB (0.7 us), on an (8, 256) activation: bound by latency.
+// - Mapping network: 2 blocks of (256 x 1536) + (768 x 256) weights, 2.4
+//   MB in bf16 or 4.7 MB as the model's f32 params (1.4 us at 3.35 TB/s),
+//   on an (8, 256) activation (19 MFLOP): bound by latency, and by how many
+//   SMs share the weight reads.
 // - FF backward (K10), training shapes at batch 32: the recomputed up
 //   projection plus four VJP products, 16 * tokens * d * d_ff = 103 GFLOP
 //   at levels 0 and 1 (104 us at 989 TFLOP/s), against x, g, dx (100 MB at
@@ -65,112 +67,429 @@
 //       f32 partials over row chunks, summed in a fixed order.
 //   Grids are sized to about two blocks an SM: the hidden panels of (a)
 //   and the row chunks of (c) split as far as the row tiles leave room.
-// - mapping_kernel: one block per 16-row strip of the batch holds the
-//   strip's residual stream in f32 shared memory and runs every block of
-//   the network through the same strip code (mma_strip, geglu_strip) with
-//   W read from L2.
+// - mapping_kernel (K5), one launch: a thread block cluster per 16 batch
+//   rows spreads the weights over up to 16 SMs (below). Products by wmma
+//   (16 x 16 x 16): a batch of 8 would fill 8 of a wgmma tile's 64 rows,
+//   and 64-row tiles of xn, h and the partials would leave no room for the
+//   weights, every layer of which stays resident. What it replaced: one
+//   block per 16 rows (one SM at batch 8) took its B fragments straight
+//   from device memory panel after panel, nothing in flight, after the
+//   wrapper had stacked and cast the weights on every call.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "gemm.cuh"
 
 namespace kdt {
 namespace {
 
-// h strip = a * gelu(gate), on a warp's 16 x 64 accumulators (both have
-// the same fragment layout, so the product is elementwise), written as bf16
-// rows of dst (stride ldd) through the warp's scratch strip.
-__device__ __forceinline__ void geglu_strip(FragC (&a)[4], FragC (&g)[4], float* scratch,
-                                            bf16* dst, long ldd, int valid) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int t = 0; t < a[j].num_elements; ++t) a[j].x[t] *= gelu_erf(g[j].x[t]);
-  store_strip(scratch, LDF, a);
-  write_strip(scratch, LDF, dst, ldd, nullptr, valid);
-}
+// K5, the mapping network, on a thread block cluster (mapping_kernel). A
+// cluster of `ranks` blocks owns a strip of 16 batch rows (rows past b are
+// zero and never stored); every block of it holds the strip's whole f32
+// residual stream x. The hidden units split into panels of 16, wmma's N,
+// and rank r owns panels [P r / ranks, P (r + 1) / ranks) of P = d_ff / 16:
+// the value and gate columns of W_up and the rows of W_down that meet them.
+// Per block of the network each rank forms its panels' a | gate = xn W_up
+// (the depth split over the warps its panels leave idle), h = bf16(a
+// gelu(gate)) (exact erf) and the split-K partial h W_down[its rows] of the
+// (16, d) output; after a cluster barrier each rank takes the rows it owns
+// (r, r + ranks, ...), sums every rank's partial of them in a fixed order
+// (no atomics: reruns are bit-equal), adds x, forms the next block's xn =
+// bf16(RMSNorm(x)) (after the last block, the output) and writes x and xn
+// into every rank's copy (distributed shared memory); a second barrier
+// publishes them. The
+// weights are the model's own tensors, one pointer each (MapLayers), f32
+// or bf16 (F32W), rounded to bf16 where they land in shared memory, as the
+// plain version's .to(bf16) rounds them. Every layer's share is resident
+// (`buffers` layers, all of them when they fit; else layer l + buffers
+// starts once layer l is done with its buffer) and starts copying at the
+// top: bf16 by cp.async, one commit group a layer, so that a layer waits
+// only for its own; f32 through registers, eight 16-byte loads in flight a
+// thread before their rounded stores. The norm scales and the emb rows come
+// first, in a group of their own. Chunk indices step without divisions
+// (ChunkWalk): with one division per chunk, the index arithmetic took
+// longer than the copies.
+// The wrapper chooses `ranks` from the work (fused_mapping.cluster_size):
+// the most of 16, 12, 8, ... that does not exceed the panels and that the
+// device can place, since more ranks read fewer weight bytes an SM. Past 8
+// a cluster is not portable (cudaFuncAttributeNonPortableClusterSizeAllowed;
+// an H100 takes 16). At the flagship's d = 256, d_ff = 768 that is 16 ranks
+// of 3 panels: 295 KB of f32 weights an SM, and both layers' shares, 157 KB
+// in bf16, resident together. A cluster lives on one GPC, so the weights
+// reach it through one GPC's share of the L2 bandwidth: on an H100 the f32
+// weights took about 10 us to arrive (PERF.md), not the 1.4 us the card's
+// whole memory rate would give.
+constexpr int MAP_THREADS = 256;  // 8 warps
+constexpr int MAP_MAX_DEPTH = 8;  // blocks of the network a launch takes
+constexpr int MAP_UNIT = 16;      // hidden units of a panel
+constexpr int MAP_FLY = 8;        // f32 loads in flight a thread
+constexpr size_t MAP_SMEM_MAX = 232448 - 1024;  // an H100 block's, less static room
 
-// RMS-normalises the rows of the f32 residual stream xs (16 rows, stride
-// ldx) with scale (d,) f32, as the Pallas kernel does: bf16(bf16(x) *
-// bf16(scale / rms)). Writes bf16 rows to xn (stride ldn) when given, else
-// back into xs as floats. Each warp takes rows warp, warp + 4, ...
-__device__ void mapping_rms(float* xs, int ldx, const float* scale, int d, float eps, bf16* xn,
-                            int ldn) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  for (int r = warp; r < STRIP; r += WARPS) {
-    float* xr = xs + r * ldx;
+// Each block of the network: its norm scale (d,) f32, W_up (d, 2 d_ff) and
+// W_down (d_ff, d), f32 or bf16, row-major.
+struct MapLayers {
+  const float* scale[MAP_MAX_DEPTH];
+  const void* up[MAP_MAX_DEPTH];
+  const void* down[MAP_MAX_DEPTH];
+};
+
+// The shared memory of one rank: x (16, d) f32 (row stride ldx), the
+// partial (16, d) or the up product's f32 scratch (16, 256 or ur; ldp), xn
+// (16, d) and h (16, ur) bf16, the n + 2 norm scales (in, out, each
+// block's) f32, then `buffers` layer shares: W_up's value and gate columns
+// (d, 2 ur) and W_down's rows (ur, d), bf16. Row strides are padded by 8
+// bf16 or 4 floats, and every offset is a multiple of 32 bytes (wmma's
+// alignment) and of 16 (cp.async's).
+struct MapLayout {
+  int ur;  // hidden units a rank holds at most, a multiple of 16
+  int ldx, ldp, ldn, ldh, ldu, ldd;
+  size_t fixed, up_bytes, layer_bytes;
+  __host__ __device__ MapLayout(int d, int d_ff, int ranks, int n) {
+    const int panels = d_ff / MAP_UNIT;
+    ur = (panels + ranks - 1) / ranks * MAP_UNIT;
+    ldx = d + 4;
+    ldp = (d > 256 ? (d > ur ? d : ur) : (ur > 256 ? ur : 256)) + 4;
+    ldn = d + 8;
+    ldh = ur + 8;
+    ldu = 2 * ur + 8;
+    ldd = d + 8;
+    fixed = (STRIP * (ldx + ldp) + (n + 2) * d) * sizeof(float) +
+            STRIP * (ldn + ldh) * sizeof(bf16);
+    up_bytes = static_cast<size_t>(d) * ldu * sizeof(bf16);
+    layer_bytes = up_bytes + static_cast<size_t>(ur) * ldd * sizeof(bf16);
+  }
+  // how many of n layer shares fit (0: not one)
+  __host__ __device__ int buffers(int n) const {
+    const size_t room = MAP_SMEM_MAX > fixed ? (MAP_SMEM_MAX - fixed) / layer_bytes : 0;
+    return static_cast<int>(room < static_cast<size_t>(n) ? room : n);
+  }
+  __host__ __device__ size_t smem(int buffers) const { return fixed + buffers * layer_bytes; }
+};
+
+// Thread t's walk over the chunks of a rows x cpr region, t, t + T, ... in
+// row-major order (T threads), stepping its row and column without a
+// division past the first.
+struct ChunkWalk {
+  int r, c, dr, dc, cpr;
+  __device__ ChunkWalk(int cpr_)
+      : r(threadIdx.x / cpr_), c(threadIdx.x % cpr_), dr(blockDim.x / cpr_),
+        dc(blockDim.x % cpr_), cpr(cpr_) {}
+  __device__ void step() {
+    r += dr;
+    c += dc;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+};
+
+// RMS-normalises the 16 rows of the f32 stream xs (row stride ldx) with
+// scale (d,) f32 in shared memory, as the Pallas kernel does: bf16(bf16(x)
+// * bf16(scale / rms)); f(r, c, y) takes each result. A warp a row.
+template <class F>
+__device__ __forceinline__ void map_rms(const float* xs, int ldx, const float* scale, int d,
+                                        float eps, const F& f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, warps = blockDim.x / 32;
+  for (int r = warp; r < STRIP; r += warps) {
+    const float* xr = xs + r * ldx;
     float ss = 0.f;
+#pragma unroll 8
     for (int c = lane; c < d; c += 32) ss += xr[c] * xr[c];
     const float inv = rsqrtf(warp_sum(ss) / d + eps);
-    for (int c = lane; c < d; c += 32) {
-      const bf16 y = to_bf(bf_round(xr[c]) * bf_round(scale[c] * inv));
-      if (xn)
-        xn[r * ldn + c] = y;
-      else
-        xr[c] = to_f(y);
-    }
+#pragma unroll 8
+    for (int c = lane; c < d; c += 32) f(r, c, to_bf(bf_round(xr[c]) * bf_round(scale[c] * inv)));
   }
 }
 
-// emb (b, d) bf16; scales f32; norm_scales (n, d) f32; w_up (n, d, 2 d_ff)
-// and w_down (n, d_ff, d) bf16; out (b, d) bf16. Block x owns batch rows
-// [16 x, 16 x + 16).
-__global__ void __launch_bounds__(THREADS)
+// Waits until at most n (<= MAP_MAX_DEPTH) of this thread's cp.async groups
+// are in flight.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: wg::cp_async_wait<0>(); break;
+    case 1: wg::cp_async_wait<1>(); break;
+    case 2: wg::cp_async_wait<2>(); break;
+    case 3: wg::cp_async_wait<3>(); break;
+    case 4: wg::cp_async_wait<4>(); break;
+    case 5: wg::cp_async_wait<5>(); break;
+    case 6: wg::cp_async_wait<6>(); break;
+    case 7: wg::cp_async_wait<7>(); break;
+    default: wg::cp_async_wait<8>(); break;
+  }
+}
+
+// emb (b, d) bf16; in_scale, out_scale (d,) f32; out (b, d) bf16. Grid:
+// one cluster of `ranks` blocks per 16 batch rows.
+template <bool F32W>
+__global__ void __launch_bounds__(MAP_THREADS, 1)
 mapping_kernel(const bf16* __restrict__ emb, const float* __restrict__ in_scale,
-               const float* __restrict__ out_scale, const float* __restrict__ norm_scales,
-               const bf16* __restrict__ w_up, const bf16* __restrict__ w_down,
-               bf16* __restrict__ out, int b, int d, int d_ff, int n_blocks, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = d + 4, ldn = d + 8, ldh = d_ff + 8;
-  bf16* xn = reinterpret_cast<bf16*>(smem);
-  bf16* hs = xn + STRIP * ldn;
-  float* scratch = reinterpret_cast<float*>(hs + STRIP * ldh);
-  float* xs = scratch + WARPS * STRIP * LDF;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  float* strip = scratch + warp * STRIP * LDF;
-  const int r0 = blockIdx.x * STRIP;
+               const float* __restrict__ out_scale, const MapLayers layers,
+               bf16* __restrict__ out, int b, int d, int d_ff, int n_blocks, int buffers,
+               float eps) {
+  namespace cg = cooperative_groups;
+  using W = typename std::conditional<F32W, float, bf16>::type;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const MapLayout L(d, d_ff, ranks, n_blocks);
+  const int panels = d_ff / MAP_UNIT;
+  const int p0 = panels * rank / ranks, np = panels * (rank + 1) / ranks - p0;
+  const int u0 = p0 * MAP_UNIT, nu = np * MAP_UNIT;  // this rank's hidden units
+  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  // the up product's depth splits in ks parts over the warps its panels
+  // leave idle (ks np <= warps, d / 16 a multiple of ks): at the flagship's
+  // 3 panels a rank, 2 parts, 6 warps
+  int ks = 1;
+  while (2 * ks * np <= warps && (d / MAP_UNIT) % (2 * ks) == 0) ks *= 2;
+  const int r0 = static_cast<int>(blockIdx.x) / ranks * STRIP;  // this cluster's rows
   const int rows = b - r0 < STRIP ? b - r0 : STRIP;
-  emb += static_cast<long>(r0) * d;
-  out += static_cast<long>(r0) * d;
-  for (int i = threadIdx.x; i < STRIP * d; i += blockDim.x) {
-    const int r = i / d, c = i % d;
-    xs[r * ldx + c] = r < rows ? to_f(emb[r * d + c]) : 0.f;
-  }
-  __syncthreads();
-  mapping_rms(xs, ldx, in_scale, d, eps, nullptr, 0);
-  __syncthreads();
 
-  for (int blk = 0; blk < n_blocks; ++blk) {
-    const bf16* wu = w_up + static_cast<long>(blk) * d * 2 * d_ff;
-    const bf16* wd = w_down + static_cast<long>(blk) * d_ff * d;
-    mapping_rms(xs, ldx, norm_scales + blk * d, d, eps, xn, ldn);
-    __syncthreads();
-    for (int n0 = warp * PANEL; n0 < d_ff; n0 += WARPS * PANEL) {
-      FragC acc_a[4], acc_g[4];
-      zero(acc_a);
-      zero(acc_g);
-      mma_strip(xn, ldn, wu + n0, 2L * d_ff, d, acc_a);
-      mma_strip(xn, ldn, wu + d_ff + n0, 2L * d_ff, d, acc_g);
-      geglu_strip(acc_a, acc_g, strip, hs + n0, ldh, STRIP);
-    }
-    __syncthreads();
-    for (int n0 = warp * PANEL; n0 < d; n0 += WARPS * PANEL) {
-      FragC acc[4];
-      zero(acc);
-      mma_strip(hs, ldh, wd + n0, d, d_ff, acc);
-      store_strip(strip, LDF, acc);
-      for (int r = 0; r < STRIP; ++r) {
-        xs[r * ldx + n0 + lane] += strip[r * LDF + lane];
-        xs[r * ldx + n0 + lane + 32] += strip[r * LDF + lane + 32];
-      }
-      __syncwarp();
-    }
-    __syncthreads();
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* part = xs + STRIP * L.ldx;
+  float* scales = part + STRIP * L.ldp;  // in, out, then each block's
+  bf16* xn = reinterpret_cast<bf16*>(scales + (n_blocks + 2) * d);
+  bf16* hs = xn + STRIP * L.ldn;
+  unsigned char* shares = reinterpret_cast<unsigned char*>(hs + STRIP * L.ldh);
+  auto share_up = [&](int l) {
+    return reinterpret_cast<bf16*>(shares + (l % buffers) * L.layer_bytes);
+  };
+  auto share_down = [&](int l) {
+    return reinterpret_cast<bf16*>(shares + (l % buffers) * L.layer_bytes + L.up_bytes);
+  };
+
+  // the first group: the scales and this cluster's emb rows (into xn; rows
+  // past b zero-filled)
+  for (ChunkWalk k(d / 4); k.r < n_blocks + 2; k.step()) {
+    const float* src = k.r == 0 ? in_scale : k.r == 1 ? out_scale : layers.scale[k.r - 2];
+    wg::cp_async16(wg::smem_u32(scales + k.r * d + 4 * k.c), src + 4 * k.c, true);
   }
-  mapping_rms(xs, ldx, out_scale, d, eps, nullptr, 0);
+  for (ChunkWalk k(d / 8); k.r < STRIP; k.step())
+    wg::cp_async16(wg::smem_u32(xn + k.r * L.ldn + 8 * k.c),
+                   emb + static_cast<long>(r0 + (k.r < rows ? k.r : 0)) * d + 8 * k.c,
+                   k.r < rows);
+  wg::cp_async_commit();
+
+  // layer l's share in 16-byte chunks of V elements: W_up's rows of cu
+  // value then cu gate chunks, and W_down's rows of cd chunks
+  constexpr int V = 16 / sizeof(W);
+  const int cu = nu / V, cd = d / V;
+  auto up_src = [&](int l, const ChunkWalk& k) {
+    return static_cast<const W*>(layers.up[l]) + static_cast<long>(k.r) * 2 * d_ff + u0 +
+           (k.c < cu ? k.c * V : d_ff + (k.c - cu) * V);
+  };
+  auto up_dst = [&](int l, const ChunkWalk& k) {
+    return share_up(l) + k.r * L.ldu + (k.c < cu ? k.c * V : L.ur + (k.c - cu) * V);
+  };
+  auto down_src = [&](int l, const ChunkWalk& k) {
+    return static_cast<const W*>(layers.down[l]) + static_cast<long>(u0 + k.r) * d + k.c * V;
+  };
+  auto down_dst = [&](int l, const ChunkWalk& k) {
+    return share_down(l) + k.r * L.ldd + k.c * V;
+  };
+  // f32: MAP_FLY loads in flight, then their rounded stores
+  auto copy_f32 = [&](int region_rows, int cpr, const auto& src, const auto& dst) {
+    ChunkWalk k(cpr);
+    while (k.r < region_rows) {
+      float4 v[MAP_FLY];
+      uint32_t to[MAP_FLY];
+      int n = 0;
+#pragma unroll
+      for (int f = 0; f < MAP_FLY; ++f)
+        if (k.r < region_rows) {
+          v[f] = __ldg(reinterpret_cast<const float4*>(src(k)));
+          to[f] = wg::smem_u32(dst(k));
+          n = f + 1;
+          k.step();
+        }
+#pragma unroll
+      for (int f = 0; f < MAP_FLY; ++f)
+        if (f < n)
+          asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(to[f]),
+                       "r"(wg::pack_bf16(v[f].x, v[f].y)), "r"(wg::pack_bf16(v[f].z, v[f].w)));
+    }
+  };
+  auto load_layer = [&](int l) {
+    if constexpr (!F32W) {
+      for (ChunkWalk k(2 * cu); k.r < d; k.step())
+        wg::cp_async16(wg::smem_u32(up_dst(l, k)), up_src(l, k), true);
+      for (ChunkWalk k(cd); k.r < nu; k.step())
+        wg::cp_async16(wg::smem_u32(down_dst(l, k)), down_src(l, k), true);
+      wg::cp_async_commit();
+    } else {
+      copy_f32(d, 2 * cu, [&](const ChunkWalk& k) { return up_src(l, k); },
+               [&](const ChunkWalk& k) { return up_dst(l, k); });
+      copy_f32(nu, cd, [&](const ChunkWalk& k) { return down_src(l, k); },
+               [&](const ChunkWalk& k) { return down_dst(l, k); });
+    }
+  };
+  const int first = n_blocks < buffers ? n_blocks : buffers;
+  for (int l = 0; l < first; ++l) load_layer(l);
+
+  // x = RMSNorm(emb), f32
+  cp_async_wait_n(F32W ? 0 : first);  // the first group has landed
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * d; i += blockDim.x)
-    out[i] = to_bf(xs[(i / d) * ldx + i % d]);
+#pragma unroll
+  for (int r = 0; r < STRIP; ++r)
+    for (int c = threadIdx.x; c < d; c += blockDim.x) xs[r * L.ldx + c] = to_f(xn[r * L.ldn + c]);
+  __syncthreads();
+  map_rms(xs, L.ldx, scales, d, eps, [&](int r, int c, bf16 y) { xs[r * L.ldx + c] = to_f(y); });
+  __syncthreads();
+  map_rms(xs, L.ldx, scales + 2 * d, d, eps, [&](int r, int c, bf16 y) { xn[r * L.ldn + c] = y; });
+
+  // Rank r owns rows r, r + ranks, ... of the stream. For each, a quad of
+  // threads a float4 of the row: x += the sum of every rank's partial
+  // (thread q sums the partials of ranks [q quarter, (q + 1) quarter) in
+  // rank order, and the quad's four sums meet in order: a fixed order, so
+  // reruns are bit-equal), then the row's RMS norm with `scale`: xn =
+  // bf16(bf16(x) * bf16(scale / rms)), the next block's input, into every
+  // rank's copy with x (thread q writing ranks q, q + 4, ...), or, after
+  // the last block, out.
+  __shared__ float s_ss[MAP_THREADS / 32];
+  auto exchange = [&](const float* scale, bool last) {
+    const int quarter = (ranks + 3) / 4, q = threadIdx.x & 3, quad = threadIdx.x / 4;
+    const int lead = (threadIdx.x & 31) & ~3, quads = blockDim.x / 4;
+    for (int row = rank; row < STRIP; row += ranks) {
+      float ss = 0.f;
+      for (int c = 4 * quad; c < d; c += 4 * quads) {
+        float4 p[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          if (g < quarter && q * quarter + g < ranks)
+            p[g] = *reinterpret_cast<const float4*>(
+                cluster.map_shared_rank(part, q * quarter + g) + row * L.ldp + c);
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          if (g < quarter && q * quarter + g < ranks) {
+            sum[0] += p[g].x;
+            sum[1] += p[g].y;
+            sum[2] += p[g].z;
+            sum[3] += p[g].w;
+          }
+        float* at = xs + row * L.ldx + c;
+        const float4 x = *reinterpret_cast<const float4*>(at);
+        float y[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float total = 0.f;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) total += __shfl_sync(0xffffffffu, sum[e], lead + t);
+          y[e] += total;
+          ss += q == 0 ? y[e] * y[e] : 0.f;
+        }
+        const float4 v = make_float4(y[0], y[1], y[2], y[3]);
+        __syncwarp();  // the quad has read x
+        if (last) {
+          if (q == 0) *reinterpret_cast<float4*>(at) = v;
+        } else {
+          for (int g = q; g < ranks; g += 4)
+            *reinterpret_cast<float4*>(cluster.map_shared_rank(xs, g) + row * L.ldx + c) = v;
+        }
+      }
+      ss = warp_sum(ss);
+      if ((threadIdx.x & 31) == 0) s_ss[threadIdx.x / 32] = ss;
+      __syncthreads();  // the row's x and its partial sums of squares are in place
+      float total = 0.f;
+      for (int w = 0; w < warps; ++w) total += s_ss[w];
+      const float inv = rsqrtf(total / d + eps);
+      for (int c = 4 * quad; c < d; c += 4 * quads) {
+        const float4 x = *reinterpret_cast<const float4*>(xs + row * L.ldx + c);
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+        bf16 yv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yv[e] = to_bf(bf_round(xv[e]) * bf_round(scale[c + e] * inv));
+        const uint2 packed = *reinterpret_cast<const uint2*>(yv);
+        if (last) {
+          if (q == 0 && row < rows)
+            *reinterpret_cast<uint2*>(out + static_cast<long>(r0 + row) * d + c) = packed;
+        } else {
+          for (int g = q; g < ranks; g += 4)
+            *reinterpret_cast<uint2*>(cluster.map_shared_rank(xn, g) + row * L.ldn + c) = packed;
+        }
+      }
+      __syncthreads();  // s_ss is free for the next row
+    }
+  };
+
+  for (int l = 0; l < n_blocks; ++l) {
+    if constexpr (!F32W) {
+      const int later = n_blocks - 1 - l < buffers - 1 ? n_blocks - 1 - l : buffers - 1;
+      cp_async_wait_n(later);  // layer l's share has landed; later layers may be in flight
+    }
+    __syncthreads();  // and xn is in place
+    const bf16* su = share_up(l);
+    const bf16* sd = share_down(l);
+    // a | gate of panel j over the depth's part kh of ks: warp w takes
+    // (j, kh) = (w % np, w / np); with ks = 1 a gelu(gate) in f32 into part,
+    // else each part's a and gate, summed in kh order below
+    for (int w = warp; w < np * ks; w += warps) {
+      const int j = w % np, kh = w / np;
+      FragC a, g;
+      wmma::fill_fragment(a, 0.f);
+      wmma::fill_fragment(g, 0.f);
+#pragma unroll 4
+      for (int k0 = kh * (d / ks); k0 < (kh + 1) * (d / ks); k0 += 16) {
+        FragA fa;
+        FragB fv, fg;
+        wmma::load_matrix_sync(fa, xn + k0, L.ldn);
+        wmma::load_matrix_sync(fv, su + k0 * L.ldu + MAP_UNIT * j, L.ldu);
+        wmma::load_matrix_sync(fg, su + k0 * L.ldu + L.ur + MAP_UNIT * j, L.ldu);
+        wmma::mma_sync(a, fa, fv, a);
+        wmma::mma_sync(g, fa, fg, g);
+      }
+      if (ks == 1) {
+        // a and gate share the fragment layout: the GEGLU is elementwise
+#pragma unroll
+        for (int t = 0; t < a.num_elements; ++t) a.x[t] *= gelu_erf(g.x[t]);
+        wmma::store_matrix_sync(part + MAP_UNIT * j, a, L.ldp, wmma::mem_row_major);
+      } else {
+        float* at = part + 2 * MAP_UNIT * (kh * np + j);
+        wmma::store_matrix_sync(at, a, L.ldp, wmma::mem_row_major);
+        wmma::store_matrix_sync(at + MAP_UNIT, g, L.ldp, wmma::mem_row_major);
+      }
+    }
+    __syncthreads();
+    // h = bf16(a gelu(gate)), the Pallas rounding point
+    for (ChunkWalk k(nu); k.r < STRIP; k.step()) {
+      const float* row = part + k.r * L.ldp;
+      float v;
+      if (ks == 1) {
+        v = row[k.c];
+      } else {
+        const int j = k.c / MAP_UNIT, c = k.c % MAP_UNIT;
+        float a = 0.f, g = 0.f;
+        for (int kh = 0; kh < ks; ++kh) {
+          a += row[2 * MAP_UNIT * (kh * np + j) + c];
+          g += row[2 * MAP_UNIT * (kh * np + j) + MAP_UNIT + c];
+        }
+        v = a * gelu_erf(g);
+      }
+      hs[k.r * L.ldh + k.c] = to_bf(v);
+    }
+    __syncthreads();
+    // this rank's split-K partial h W_down[its rows] of the (16, d) output
+    for (int n0 = MAP_UNIT * warp; n0 < d; n0 += MAP_UNIT * warps) {
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int k0 = 0; k0 < nu; k0 += 16) {
+        FragA fa;
+        FragB fb;
+        wmma::load_matrix_sync(fa, hs + k0, L.ldh);
+        wmma::load_matrix_sync(fb, sd + k0 * L.ldd + n0, L.ldd);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(part + n0, acc, L.ldp, wmma::mem_row_major);
+    }
+    if (l + buffers < n_blocks) {
+      __syncthreads();  // layer l's buffer is free
+      load_layer(l + buffers);
+    }
+    cluster.sync();  // every rank's partial is in place
+    exchange(l + 1 < n_blocks ? scales + (l + 3) * d : scales + d, l + 1 == n_blocks);
+    cluster.sync();  // every rank holds the new x and xn; the partials may be overwritten
+  }
 }
 
 
@@ -425,6 +744,44 @@ cudaError_t launch_ffn_fwd(const bf16* x, const bf16* nscale, const bf16* w_up,
                             d, d_ff, eps);
 }
 
+// The launch of K5 with the hidden panels over clusters of `ranks` blocks;
+// with `clusters`, it is not launched and the number of clusters that fit
+// on the device at once goes there instead. cudaErrorInvalidValue, before
+// any CUDA call, where not one layer's share fits in shared memory.
+template <bool F32W>
+cudaError_t launch_mapping(const bf16* emb, const float* in_scale, const float* out_scale,
+                           const MapLayers& layers, bf16* out, int b, int d, int d_ff, int n,
+                           int ranks, float eps, cudaStream_t st, int* clusters) {
+  const MapLayout layout(d, d_ff, ranks, n);
+  const int buffers = layout.buffers(n);
+  if (buffers < 1) return cudaErrorInvalidValue;
+  const size_t smem = layout.smem(buffers);
+  cudaError_t err = gemm::allow_shared(mapping_kernel<F32W>, smem);
+  if (err == cudaSuccess && ranks > 8)  // 16 at most on an H100, not portable
+    err = cudaFuncSetAttribute(mapping_kernel<F32W>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ranks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((b + STRIP - 1) / STRIP * ranks);
+  cfg.blockDim = dim3(MAP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) {
+    err = cudaOccupancyMaxActiveClusters(clusters, mapping_kernel<F32W>, &cfg);
+    if (err != cudaSuccess) cudaGetLastError();  // a size the device refuses: no cluster fits
+    return err;
+  }
+  return cudaLaunchKernelEx(&cfg, mapping_kernel<F32W>, emb, in_scale, out_scale, layers, out, b,
+                            d, d_ff, n, buffers, eps);
+}
+
 // K10's first kernel, on gemm.cuh's core. Grid (images * tiles, groups):
 // a block owns one 64-row tile and the hidden panels y, y + groups, ... of
 // 64 units each. It normalises its x tile once into resident tiles (group
@@ -578,19 +935,37 @@ extern "C" int kdt_ffn_fwd(const void* x, const void* nscale, const void* w_up,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K5, the mapping network: out = RMSNorm(n x (x + GEGLU(RMSNorm(x) W_up)
+// W_down) of x = RMSNorm(emb)), emb and out (b, d) bf16, in_scale and
+// out_scale (d,) f32. `weights` holds 3 n host pointers, each block's norm
+// scale (d,) f32, W_up (d, 2 d_ff) and W_down (d_ff, d), all f32 when
+// f32_weights is 1, else all bf16. The hidden panels split over clusters
+// of `ranks` blocks (1 to 16, at most d_ff / 16), one cluster per 16 rows.
+// With `clusters` not null nothing is launched: the number of clusters
+// that fit on the device at once is written there. Needs d, d_ff % 64 == 0
+// and 1 <= n <= MAP_MAX_DEPTH.
 extern "C" int kdt_mapping(const void* emb, const void* in_scale, const void* out_scale,
-                           const void* norm_scales, const void* w_up, const void* w_down,
-                           void* out, int b, int d, int d_ff, int n_blocks, float eps,
-                           void* stream) {
-  const size_t smem = STRIP * (d + 8 + d_ff + 8) * sizeof(bf16) +
-                      (WARPS * STRIP * LDF + STRIP * (d + 4)) * sizeof(float);
-  const cudaError_t attr = allow_smem(mapping_kernel, smem);
-  mapping_kernel<<<(b + STRIP - 1) / STRIP, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(emb), static_cast<const float*>(in_scale),
-      static_cast<const float*>(out_scale), static_cast<const float*>(norm_scales),
-      static_cast<const bf16*>(w_up), static_cast<const bf16*>(w_down), static_cast<bf16*>(out),
-      b, d, d_ff, n_blocks, eps);
-  return launch_status(attr);
+                           const void* const* weights, void* out, int b, int d, int d_ff,
+                           int n_blocks, int f32_weights, int ranks, float eps, void* stream,
+                           int* clusters) {
+  if (d % 64 || d_ff % 64 || n_blocks < 1 || n_blocks > MAP_MAX_DEPTH || ranks < 1 ||
+      ranks > 16 || ranks > d_ff / MAP_UNIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MapLayers layers = {};
+  for (int l = 0; l < n_blocks && weights != nullptr; ++l) {
+    layers.scale[l] = static_cast<const float*>(weights[3 * l]);
+    layers.up[l] = weights[3 * l + 1];
+    layers.down[l] = weights[3 * l + 2];
+  }
+  const bf16* e = static_cast<const bf16*>(emb);
+  const float *si = static_cast<const float*>(in_scale), *so = static_cast<const float*>(out_scale);
+  bf16* o = static_cast<bf16*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      f32_weights ? launch_mapping<true>(e, si, so, layers, o, b, d, d_ff, n_blocks, ranks, eps,
+                                         st, clusters)
+                  : launch_mapping<false>(e, si, so, layers, o, b, d, d_ff, n_blocks, ranks, eps,
+                                          st, clusters));
 }
 
 // The FF backward (K10). x, g (rows, d) bf16 with rows = images * tokens;

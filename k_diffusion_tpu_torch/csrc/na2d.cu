@@ -97,8 +97,13 @@ extern "C" int kdt_na2d_packed_bwd(const void* q, const void* k, const void* v, 
                                    float scale, void* stream) {
   const long c = static_cast<long>(n_heads) * E;
   const MapStrides packed{h * w * c, w * c, c};
-  return na_bwd::launch<E>(q, k, v, out, dout, lse, delta, dq, dk, dv, packed, packed, b, h, w,
-                           n_heads, ks, scale, static_cast<cudaStream_t>(stream));
+  const attn_bwd::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+                         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                         static_cast<float*>(delta), static_cast<bf16*>(dq),
+                         static_cast<bf16*>(dk), static_cast<bf16*>(dv), packed, packed,
+                         n_heads, scale};
+  return na_bwd::launch<E, false>(a, b, h, w, ks, static_cast<cudaStream_t>(stream));
 }
 
 // K8: the halo partials dk_part, dv_part (b, heads, tiles, 208, 64) f32 ->

@@ -23,24 +23,37 @@
 // us at 3.35 TB/s): bound by memory.
 //
 // K12, two kernels launched together, no per-tile partials, no atomics (a
-// rerun gives bit-equal gradients): the split by query tile and by key tile
-// that K7 (na_bwd.cuh) runs on wgmma, here on wmma with shared-memory f32
-// strips. na_bwd.cuh's kernels are written over MapStrides and a head-dim
-// template (wgmma.cuh's tiles take E 32 and 64).
-// - na2d_dq_kernel<E>: a block per query tile, as the forward: recomputes
-//   the logits and dP = dout v^T over the warp's 112 halo keys, p = exp(s -
+// rerun gives bit-equal gradients). At head dims 32 and 64 it is
+// na_bwd.cuh's wgmma backward, which K7 runs at 64 on packed maps: a dq
+// kernel per 8 x 8 query tile and its key halo, a dk/dv kernel per 8 x 8
+// key tile and the slab of queries whose windows reach it, each streaming
+// 64-row tiles through attn_bwd.cuh's 3-stage cp.async ring with the
+// logits, p, dP and ds in wgmma's registers; q, k and v each read through
+// its own strides (the bodies' OWN_V), and delta = rowsum(out * dout)
+// formed by the dq kernel from the out and dout tiles it holds. It
+// replaces a wmma design (one block an SM: 137.7 KB for the dq kernel's q,
+// dout, 208-row K and V halo and f32 strips, 110.5 KB for the dk/dv
+// kernel's; p and ds formed by scalar loops over shared-memory strips; the
+// dq product over all 112 halo keys a warp's rows can see; every copy
+// finished before any product; delta a float32 reduction in PyTorch).
+// At head dim 128 that wmma design stays, as na2d_dq_kernel and
+// na2d_dkv_kernel below, with delta from the caller: wgmma.cuh's tiles and
+// swizzles take 32 and 64 only, and no shipped config has an NA level of
+// head dim 128.
+// - na2d_dq_kernel: a block per query tile, as the forward: recomputes the
+//   logits and dP = dout v^T over the warp's 112 halo keys, p = exp(s -
 //   lse) masked to each window, ds = p (dP - delta), dq = ds k.
-// - na2d_dkv_kernel<E>: a block per 8 x 8 KEY tile. The queries whose
+// - na2d_dkv_kernel: a block per 8 x 8 KEY tile. The queries whose
 //   clamped windows can reach the tile form a slab of at most 14 x 14
 //   (TQ + ks - 1 rows and columns, fewer at the edges, where the clamped
 //   windows pile up), as _na_dkv_kernel gathers its row slab. q, dout, lse
 //   and delta of the slab go to shared memory; a warp owns 16 keys and
 //   streams the slab in chunks of 64 queries: p^T and ds^T for its keys,
 //   dv += p^T dout, dk += ds^T q, in registers.
-// delta = rowsum(out * dout) comes from the caller, as in the JAX package.
-// Bound: 8 products of 2 * 49 * e FLOP per query and head (13 GFLOP at the
-// flagship's level 0, batch 32, 13 us) against q, k, v, out, dout, lse
-// read and dq, dk, dv written (7 * 33.5 MB, 70 us): memory.
+// Bound: 5 products of 2 * 49 * e FLOP per query and head (the logits
+// recomputed, dP, dv, dk, dq: 8.2 GFLOP at the flagship's level 0, batch
+// 32, 8 us) against q, k, v, out, dout, lse read and dq, dk, dv written (8
+// * 33.5 MB, 80 us): memory.
 //
 // K15, na2d_proj_kernel: out = NA(q, k, v) @ w_out + skip on channel-packed
 // (b, h, w, c) maps, head dim 64, c <= 512 and c % 128 == 0, as the JAX
@@ -53,6 +66,7 @@
 // attention output never goes to device memory. Bound: memory, q, k, v,
 // skip and out (5 * 8.4 MB at the flagship's level 0, batch 8).
 #include "na2d.cuh"
+#include "na_bwd.cuh"
 #include "na_fwd.cuh"
 
 namespace kdt {
@@ -76,14 +90,16 @@ __device__ __forceinline__ void strip_map_to_bf16(float* s, int lds, int n, cons
   }
 }
 
-template <int E>
+// Head dim of the wmma backward.
+constexpr int BE = 128;
+
 __global__ void __launch_bounds__(THREADS)
 na2d_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, MapStrides sq, MapStrides sk, MapStrides sv,
                const bf16* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, bf16* __restrict__ dq, int h, int w,
                int n_heads, int ks, float scale) {
-  constexpr int LDK = NaDims<E>::LDK, LDS = NaDims<E>::LDS;
+  constexpr int E = BE, LDK = NaDims<E>::LDK, LDS = NaDims<E>::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_q = reinterpret_cast<bf16*>(smem);
   bf16* s_do = s_q + TQ * TQ * LDK;
@@ -149,20 +165,18 @@ na2d_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 constexpr int CHUNK = 64;  // queries of the slab a warp takes at a time
 
-template <int E>
 struct DkvDims {
-  static constexpr int LDK = NaDims<E>::LDK;
-  static constexpr int LDC = (E > CHUNK ? E : CHUNK) + 4;  // float strip stride
+  static constexpr int LDK = NaDims<BE>::LDK;
+  static constexpr int LDC = (BE > CHUNK ? BE : CHUNK) + 4;  // float strip stride
 };
 
-template <int E>
 __global__ void __launch_bounds__(THREADS)
 na2d_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, MapStrides sq, MapStrides sk, MapStrides sv,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
                 int h, int w, int n_heads, int ks, float scale) {
-  constexpr int LDK = DkvDims<E>::LDK, LDC = DkvDims<E>::LDC;
+  constexpr int E = BE, LDK = DkvDims::LDK, LDC = DkvDims::LDC;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_k = reinterpret_cast<bf16*>(smem);
   bf16* s_v = s_k + TQ * TQ * LDK;
@@ -355,12 +369,10 @@ namespace {
 
 MapStrides strides(const long* s) { return MapStrides{s[0], s[1], s[2]}; }
 
-template <int E>
-constexpr size_t DQ_SMEM = (2 * TQ * TQ + 2 * NKEYS_ALLOC) * NaDims<E>::LDK * sizeof(bf16) +
-                           2 * WARPS * STRIP * NaDims<E>::LDS * sizeof(float);
-template <int E>
-constexpr size_t DKV_SMEM = (2 * TQ * TQ + 2 * NKEYS_ALLOC) * DkvDims<E>::LDK * sizeof(bf16) +
-                            2 * WARPS * STRIP * DkvDims<E>::LDC * sizeof(float);
+constexpr size_t DQ_SMEM = (2 * TQ * TQ + 2 * NKEYS_ALLOC) * NaDims<BE>::LDK * sizeof(bf16) +
+                           2 * WARPS * STRIP * NaDims<BE>::LDS * sizeof(float);
+constexpr size_t DKV_SMEM = (2 * TQ * TQ + 2 * NKEYS_ALLOC) * DkvDims::LDK * sizeof(bf16) +
+                            2 * WARPS * STRIP * DkvDims::LDC * sizeof(float);
 
 // K11 at head dims 32 and 64: na_fwd.cuh's wgmma forward, v through its own
 // strides; at 128, na2d.cuh's wmma forward (wgmma.cuh's tiles take 32 and
@@ -386,26 +398,42 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   }
 }
 
+// K12 at head dims 32 and 64: na_bwd.cuh's wgmma backward, q, k and v
+// each through its own strides, delta written by its dq kernel; at 128 the
+// wmma kernels above, delta read.
 template <int E>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dq, void* dk, void* dv, int b, int h, int w,
+int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
+               const void* lse, void* delta, void* dq, void* dk, void* dv, int b, int h, int w,
                int n_heads, int ks, float scale, const long* st, cudaStream_t stream) {
-  const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
-  cudaError_t attr = allow_smem(na2d_dq_kernel<E>, DQ_SMEM<E>);
-  na2d_dq_kernel<E><<<grid, THREADS, DQ_SMEM<E>, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      strides(st), strides(st + 3), strides(st + 6), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
-      h, w, n_heads, ks, scale);
-  const int status = launch_status(attr);
-  if (status != 0) return status;
-  attr = allow_smem(na2d_dkv_kernel<E>, DKV_SMEM<E>);
-  na2d_dkv_kernel<E><<<grid, THREADS, DKV_SMEM<E>, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      strides(st), strides(st + 3), strides(st + 6), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), h, w, n_heads, ks, scale);
-  return launch_status(attr);
+  if constexpr (E == BE) {
+    const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
+    cudaError_t attr = allow_smem(na2d_dq_kernel, DQ_SMEM);
+    na2d_dq_kernel<<<grid, THREADS, DQ_SMEM, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        strides(st), strides(st + 3), strides(st + 6), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dq), h, w, n_heads, ks, scale);
+    const int status = launch_status(attr);
+    if (status != 0) return status;
+    attr = allow_smem(na2d_dkv_kernel, DKV_SMEM);
+    na2d_dkv_kernel<<<grid, THREADS, DKV_SMEM, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        strides(st), strides(st + 3), strides(st + 6), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, w, n_heads, ks, scale);
+    return launch_status(attr);
+  } else {
+    const long c = static_cast<long>(n_heads) * E;
+    attn_bwd::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+                     static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                     static_cast<float*>(delta), static_cast<bf16*>(dq),
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), strides(st),
+                     MapStrides{h * w * c, w * c, c}, n_heads, scale};
+    a.sk = strides(st + 3);
+    a.sv = strides(st + 6);
+    return na_bwd::launch<E, true>(a, b, h, w, ks, stream);
+  }
 }
 
 }  // namespace
@@ -427,24 +455,26 @@ extern "C" int kdt_na2d_heads(const void* q, const void* k, const void* v, void*
   }
 }
 
-// K12: q, k, v and their strides as for K11; dout (b, h, w, heads, e) bf16
-// contiguous; lse from K11 and delta = rowsum(out * dout), both (b, heads,
-// h, w) f32. Writes dq, dk, dv (b, h, w, heads, e) bf16 contiguous.
-extern "C" int kdt_na2d_heads_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, void* dq, void* dk,
-                                  void* dv, int b, int h, int w, int n_heads, int e, int ks,
-                                  float scale, const long* st, void* stream) {
+// K12: q, k, v and their strides as for K11; out (K11's) and dout (b, h, w,
+// heads, e) bf16 contiguous; lse from K11, (b, heads, h, w) f32. At e 32
+// and 64 delta = rowsum(out * dout), (b, heads, h, w) f32, is written (the
+// dq kernel forms it); at 128 it is read, formed by the caller, and out is
+// not read. Writes dq, dk, dv (b, h, w, heads, e) bf16 contiguous.
+extern "C" int kdt_na2d_heads_bwd(const void* q, const void* k, const void* v, const void* out,
+                                  const void* dout, const void* lse, void* delta, void* dq,
+                                  void* dk, void* dv, int b, int h, int w, int n_heads, int e,
+                                  int ks, float scale, const long* st, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (e) {
     case 32:
-      return launch_bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks, scale,
-                            st, s);
+      return launch_bwd<32>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks,
+                            scale, st, s);
     case 64:
-      return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks, scale,
-                            st, s);
+      return launch_bwd<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks,
+                            scale, st, s);
     case 128:
-      return launch_bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks, scale,
-                             st, s);
+      return launch_bwd<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, h, w, n_heads, ks,
+                             scale, st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

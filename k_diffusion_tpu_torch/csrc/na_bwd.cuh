@@ -1,14 +1,19 @@
-// The backward of 2-D neighborhood attention on Hopper (K7): dq, dk and dv
-// written once in bf16 by two wgmma kernels, attn_bwd.cuh's two bodies run
-// over the neighborhood geometry. Each query attends to exactly ks x ks
-// keys, its window start clamp(i - (ks - 1) / 2, 0, n - ks) on each axis
-// (NATTEN's contract), ks <= 7.
+// The backward of 2-D neighborhood attention on Hopper (K7 on
+// channel-packed maps, K12 on per-head maps at head dims 32 and 64): dq,
+// dk and dv written once in bf16 by two wgmma kernels, attn_bwd.cuh's two
+// bodies run over the neighborhood geometry. Each query attends to exactly
+// ks x ks keys, its window start clamp(i - (ks - 1) / 2, 0, n - ks) on each
+// axis (NATTEN's contract), ks <= 7.
 //
-// Replaces: k_diffusion_tpu/ops/pallas/na2d.py:_na_packed_dqkv_kernel (the
-// backward of na2d_packed: dq and per-tile dk/dv halo partials) and
+// Replaces: k_diffusion_tpu/ops/pallas/na2d.py:_na_packed_dqkv_kernel (K7,
+// the backward of na2d_packed: dq and per-tile dk/dv halo partials) and
 // :_overlap_add_kernel (the overlap-add of those partials into dk and dv),
-// which this design folds into its second kernel. The overlap-add kernel
-// K8 stays in na2d.cu, held against its plain version on its own op path.
+// which this design folds into its second kernel; and :_na_dq_kernel,
+// :_na_dkv_kernel (K12, the backward of na2d, _na_bwd), whose delta =
+// rowsum(out * dout) the JAX package forms outside the kernels and this
+// design's dq kernel forms from tiles it already holds. The overlap-add
+// kernel K8 stays in na2d.cu, held against its plain version on its own op
+// path.
 //
 // What bounds it on the H100: the function reads q, k, v, out and dout
 // (bf16) and the lse (f32) and writes dq, dk and dv (bf16): at the
@@ -51,8 +56,12 @@
 // 112 columns take 56 accumulator registers each where 64 take 32.
 //
 // The kernels are written over MapStrides and the head dim E (wgmma.cuh's
-// tiles take 32 and 64), so that the per-head strided maps of K12 can run
-// them too; K7 runs them at E = 64 on channel-packed maps.
+// tiles take 32 and 64). K7 runs them at E = 64 on channel-packed maps, one
+// stride set for q, k and v; K12 (na2d_heads.cu) at E = 32 and 64 with
+// OWN_V, q, k and v each through its own strides (in the unfused training
+// step v is a strided third of the qkv projection, its row stride 3 c).
+// Each head's row of E bf16 is contiguous and its strides are multiples of
+// 8 elements, so every 16-byte cp.async stays aligned.
 #pragma once
 
 #include "attn_bwd.cuh"
@@ -61,42 +70,35 @@
 namespace kdt {
 namespace na_bwd {
 
-template <int E>
+// OWN_V: k and v read through their own strides (K12), else through q's.
+template <int E, bool OWN_V>
 __global__ void __launch_bounds__(128) na_dq_kernel(const attn_bwd::Args a, int h, int w,
                                                     int ks) {
-  attn_bwd::dq_body<E>(a, NaQueries(blockIdx.x, h, w, ks));
+  attn_bwd::dq_body<E, OWN_V>(a, NaQueries(blockIdx.x, h, w, ks));
 }
 
 // At most 168 registers a thread, so that three blocks fit on an SM.
-template <int E>
+template <int E, bool OWN_V>
 __global__ void __launch_bounds__(128, 3) na_dkv_kernel(const attn_bwd::Args a, int h, int w,
                                                         int ks) {
-  attn_bwd::dkv_body<E>(a, NaKeys(blockIdx.x, h, w, ks));
+  attn_bwd::dkv_body<E, OWN_V>(a, NaKeys(blockIdx.x, h, w, ks));
 }
 
 // Launches the dq kernel, then the dk/dv kernel, on (b, h, w, heads, E)
-// maps: q, k, v read through `in`, out and dout through io; writes
-// delta (b, heads, h, w) f32 and dq, dk, dv through io, bf16. Needs h % 8
-// == w % 8 == 0 and 1 <= ks <= min(7, h, w). Returns the CUDA error code.
-template <int E>
-int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-           const void* lse, void* delta, void* dq, void* dk, void* dv, MapStrides in,
-           MapStrides io, int b, int h, int w, int n_heads, int ks, float scale,
-           cudaStream_t st) {
-  const attn_bwd::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v), static_cast<const bf16*>(out),
-                         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-                         static_cast<float*>(delta), static_cast<bf16*>(dq),
-                         static_cast<bf16*>(dk), static_cast<bf16*>(dv), in, io,
-                         n_heads, scale};
+// maps: q, k, v read through a.in (or a.sk, a.sv with OWN_V), out and dout
+// through a.io; writes delta (b, heads, h, w) f32 and dq, dk, dv through
+// a.io, bf16. Needs h % 8 == w % 8 == 0 and 1 <= ks <= min(7, h, w).
+// Returns the CUDA error code.
+template <int E, bool OWN_V>
+int launch(const attn_bwd::Args& a, int b, int h, int w, int ks, cudaStream_t st) {
   constexpr size_t smem = attn_bwd::SMEM<E>;
-  const dim3 grid((h / TQ) * (w / TQ), n_heads, b);
-  cudaError_t attr = allow_smem(na_dq_kernel<E>, smem);
-  na_dq_kernel<E><<<grid, 128, smem, st>>>(a, h, w, ks);
+  const dim3 grid((h / TQ) * (w / TQ), a.n_heads, b);
+  cudaError_t attr = allow_smem(na_dq_kernel<E, OWN_V>, smem);
+  na_dq_kernel<E, OWN_V><<<grid, 128, smem, st>>>(a, h, w, ks);
   const int status = launch_status(attr);
   if (status != 0) return status;
-  attr = allow_smem(na_dkv_kernel<E>, smem);
-  na_dkv_kernel<E><<<grid, 128, smem, st>>>(a, h, w, ks);
+  attr = allow_smem(na_dkv_kernel<E, OWN_V>, smem);
+  na_dkv_kernel<E, OWN_V><<<grid, 128, smem, st>>>(a, h, w, ks);
   return launch_status(attr);
 }
 

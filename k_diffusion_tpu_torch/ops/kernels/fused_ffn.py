@@ -28,6 +28,9 @@ _FWD = [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, _P, _P]
 # the widest d the forward takes: its x tiles, h tiles and ring in one
 # block's shared memory
 MAX_D = 896
+# the widest d the backward takes: its first kernel's 2 d / 64 resident
+# tiles (xn and g) and 3-stage ring of 3 tiles in one block's shared memory
+MAX_BWD_D = 576
 # x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, h, dup, xn, r,
 # dot_part, dns_part, dw_part, images, tokens, d, d_ff, groups, chunk_up,
 # chunk_down, eps, stream
@@ -132,6 +135,9 @@ def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
     _build.require_cuda(x, "fused_geglu_ffn backward")
     b, t, d = x.shape
     d_ff = w_down.shape[0]
+    if d > MAX_BWD_D:
+        raise ValueError(f"fused_ffn backward takes d up to {MAX_BWD_D}; "
+                         f"got d={d}")
     w16_up, w16_down = _operands(x, scale, w_up, w_down)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     g = g.contiguous()

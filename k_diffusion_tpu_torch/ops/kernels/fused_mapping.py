@@ -3,13 +3,20 @@ k_diffusion_tpu/ops/pallas/fused_mapping.py).
 
 RMSNorm -> n x (RMSNorm -> GEGLU FF -> residual) -> RMSNorm on a (batch,
 width) activation. CUDA tensors go to the hand-written kernel in
-``csrc/geglu.cu``, one block per 16-row strip of the batch, which shares its
-GEGLU block code with K4; its backward recomputes through the plain version
-under autograd, as the JAX custom_vjp does (there is no Pallas backward).
-CPU tensors go to ``reference``, the plain version.
+``csrc/geglu.cu`` (``mapping_kernel``): one launch, a thread block cluster
+per 16 batch rows whose blocks split the hidden units in panels of 16
+(``rank_panels``) and sum their split-K partials of the down projection in
+rank order in distributed shared memory. The weights go to the kernel as
+they are, one pointer each, float32 (the model's params) or bfloat16: the
+kernel rounds them to bfloat16 where it loads them, as the plain version's
+``.to(bfloat16)`` does, so the wrapper launches nothing but the kernel. The
+backward recomputes through the plain version under autograd, as the JAX
+custom_vjp does (there is no Pallas backward). CPU tensors go to
+``reference``, the plain version.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,10 +26,18 @@ from . import _build
 
 launches = 0  # kernel launches since the last reset
 
-# emb, in_scale, out_scale, norm_scales, w_up, w_down, out, batch, d, d_ff,
-# n_blocks, eps, stream
-_SIGNATURE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_void_p]
+MAX_DEPTH = 8   # blocks of the network the kernel takes (its MapLayers)
+UNIT = 16       # hidden units of a panel, the split's grain
+ROWS = 16       # batch rows of a cluster
+# the cluster sizes the wrapper tries, most first: more ranks read fewer
+# weight bytes an SM; past 8 a cluster is not portable (an H100 takes 16)
+CLUSTER_SIZES = (16, 12, 8, 6, 4, 3, 2, 1)
+
+_P = ctypes.c_void_p
+# emb, in_scale, out_scale, weights (3 n pointers), out, batch, d, d_ff,
+# n_blocks, f32_weights, ranks, eps, stream, clusters (int *: the
+# occupancy query)
+_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
 
 
 def reference(emb, in_scale, out_scale, blocks, eps=1e-6,
@@ -37,9 +52,44 @@ def reference(emb, in_scale, out_scale, blocks, eps=1e-6,
     return rms_norm(x, out_scale, eps)
 
 
+def rank_panels(d_ff, ranks, rank):
+    """The hidden panels [first, end) that rank ``rank`` of a cluster of
+    ``ranks`` owns, as the kernel splits them: d_ff / 16 panels of 16
+    units, in ranges as even as they come."""
+    panels = d_ff // UNIT
+    return panels * rank // ranks, panels * (rank + 1) // ranks
+
+
+def _query(index, d, d_ff, n, f32, ranks):
+    """How many K5 clusters of ``ranks`` blocks fit on CUDA device
+    ``index`` at once; 0 where the device or the shared memory refuses the
+    size."""
+    lib = _build.load("geglu", kdt_mapping=_SIGNATURE)
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        status = lib.kdt_mapping(None, None, None, None, None, ROWS, d, d_ff,
+                                 n, int(f32), ranks, 0.0, None,
+                                 ctypes.byref(clusters))
+    return clusters.value if status == 0 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_size(index, d, d_ff, n, f32):
+    """K5's ranks a cluster on CUDA device ``index``: the first of
+    ``CLUSTER_SIZES`` that does not exceed the panels and of which the
+    device can place a cluster with its shared memory. Raises ValueError
+    where none fits."""
+    for ranks in CLUSTER_SIZES:
+        if ranks <= d_ff // UNIT and _query(index, d, d_ff, n, f32, ranks):
+            return ranks
+    raise ValueError(f"fused_mapping kernel: no cluster of up to 16 blocks "
+                     f"holds a layer's weight share at d={d}, d_ff={d_ff}")
+
+
 def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,
                     dtype=torch.bfloat16):
-    """Launches K5 on CUDA tensors. Any batch: one block per 16 rows."""
+    """Launches K5 on CUDA tensors: one launch, nothing else. Any batch:
+    one cluster per 16 rows."""
     _build.require_cuda(emb, "fused_mapping")
     b, d = emb.shape
     d_ff = blocks[0][2].shape[0]
@@ -47,24 +97,35 @@ def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,
         raise ValueError(
             f"fused_mapping kernel takes bfloat16 and d, d_ff multiples of "
             f"64; got {tuple(emb.shape)}, d_ff={d_ff}, {dtype}")
-    dev, n = emb.device, len(blocks)
-    f32, bf16 = torch.float32, torch.bfloat16
-    norm_scales = torch.stack([ns.float() for ns, _, _ in blocks])
-    w_up = torch.stack([wu.to(bf16) for _, wu, _ in blocks])
-    w_down = torch.stack([wd.to(bf16) for _, _, wd in blocks])
+    n = len(blocks)
+    if not 1 <= n <= MAX_DEPTH:
+        raise ValueError(f"fused_mapping kernel takes 1 to {MAX_DEPTH} "
+                         f"blocks; got {n}")
+    dev, f32 = emb.device, torch.float32
+    w_dtype = blocks[0][1].dtype
+    if w_dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"fused_mapping kernel takes float32 or bfloat16 "
+                         f"weights; got {w_dtype}")
     in_scale, out_scale = in_scale.float(), out_scale.float()
-    _build.require(emb, "emb", dev, bf16, (b, d))
+    _build.require(emb, "emb", dev, torch.bfloat16, (b, d))
     _build.require(in_scale, "in_scale", dev, f32, (d,))
     _build.require(out_scale, "out_scale", dev, f32, (d,))
-    _build.require(norm_scales, "norm scales", dev, f32, (n, d))
-    _build.require(w_up, "w_up", dev, bf16, (n, d, 2 * d_ff))
-    _build.require(w_down, "w_down", dev, bf16, (n, d_ff, d))
+    weights = []
+    for i, (ns, w_up, w_down) in enumerate(blocks):
+        ns = ns.float()
+        _build.require(ns, f"norm scale {i}", dev, f32, (d,))
+        _build.require(w_up, f"w_up {i}", dev, w_dtype, (d, 2 * d_ff))
+        _build.require(w_down, f"w_down {i}", dev, w_dtype, (d_ff, d))
+        weights += [ns, w_up, w_down]
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    ranks = cluster_size(index, d, d_ff, n, w_dtype == f32)
     out = torch.empty_like(emb)
     lib = _build.load("geglu", kdt_mapping=_SIGNATURE)
     status = lib.kdt_mapping(
-        *map(_build.ptr, (emb, in_scale, out_scale, norm_scales, w_up, w_down,
-                          out)),
-        b, d, d_ff, n, eps, _build.stream_ptr(dev))
+        *map(_build.ptr, (emb, in_scale, out_scale)),
+        (_P * len(weights))(*(t.data_ptr() for t in weights)),
+        _build.ptr(out), b, d, d_ff, n, int(w_dtype == f32), ranks, eps,
+        _build.stream_ptr(dev), None)
     _build.check_launch(lib, status, "fused_mapping")
     global launches
     launches += 1
@@ -102,8 +163,9 @@ def fused_mapping(emb, in_scale, out_scale, blocks, eps=1e-6,
                   dtype=torch.bfloat16):
     """Returns the mapping-network output (b, d) in emb's dtype;
     differentiable. The kernel takes bfloat16 emb and compute dtype, d and
-    d_ff multiples of 64, any batch; its residual stream stays float32, as
-    the Pallas kernel's does."""
+    d_ff multiples of 64, 1 to ``MAX_DEPTH`` blocks whose weights are all
+    float32 or all bfloat16, any batch; its residual stream stays float32,
+    as the Pallas kernel's does."""
     if emb.device.type == "cpu":
         return reference(emb, in_scale, out_scale, blocks, eps, dtype)
     if not torch.is_grad_enabled():  # sampling: no autograd node to build

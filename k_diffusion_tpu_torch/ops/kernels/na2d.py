@@ -21,8 +21,10 @@ plain versions, which autograd differentiates.
 - ``na2d`` on (b, h, w, heads, e) maps, e 32, 64 or 128, read through their
   strides (``csrc/na2d_heads.cu``): the forward K11 (K2's forward, v read
   through its own strides, at e 32 and 64; the wmma forward of
-  ``csrc/na2d.cuh`` at 128) and the backward K12 (a dq kernel per query
-  tile and a dk/dv kernel per key tile, one counted launch).
+  ``csrc/na2d.cuh`` at 128) and the backward K12 (K7's two kernels, q, k
+  and v each read through its own strides, at e 32 and 64; wmma kernels at
+  128; a dq kernel per query tile and a dk/dv kernel per key tile, one
+  counted launch).
 - ``na2d_packed_proj``: K15, ``na2d_packed`` with the out-projection and
   the residual fused into the forward; its backward recomputes the
   attention with K2 and runs K7, as the JAX op's backward is the VJP of its
@@ -59,10 +61,13 @@ _OVERLAP_SIGNATURE = [_P] * 4 + [ctypes.c_int] * 5 + [_P]
 # q, k, v, out, lse, batch, h, w, heads, e, kernel_size, scale, strides,
 # stream
 _HEADS_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
-# q, k, v, dout, lse, delta, dq, dk, dv, batch, h, w, heads, e,
+# q, k, v, out, dout, lse, delta, dq, dk, dv, batch, h, w, heads, e,
 # kernel_size, scale, strides, stream
-_HEADS_BWD_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, _P,
-                                                         _P]
+_HEADS_BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, _P,
+                                                          _P]
+# the head dims whose backward kernel forms delta = rowsum(out * dout)
+# itself (na_bwd.cuh's wgmma kernels); at the others the caller forms it
+DELTA_IN_KERNEL = (32, 64)
 # q, k, v, skip, w_out, out, batch, h, w, heads, kernel_size, scale, stream
 _PROJ_SIGNATURE = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
 
@@ -335,8 +340,9 @@ def heads_forward(q, k, v, kernel_size, scale=1.0, save_lse=False):
 
 def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     """Launches K12 on CUDA tensors: returns (dq, dk, dv) bf16, each (b, h,
-    w, heads, e) contiguous. delta = rowsum(out * dout) is a plain float32
-    reduction here, as in the JAX package."""
+    w, heads, e) contiguous. delta = rowsum(out * dout) is formed by the dq
+    kernel at e 32 and 64, and at 128 by a plain float32 reduction here, as
+    in the JAX package."""
     strides = _check_heads(q, k, v, kernel_size, "na2d backward")
     b, h, w, heads, e = q.shape
     dev = q.device
@@ -344,14 +350,17 @@ def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     for name, t in (("out", out), ("dout", dout)):
         _build.require(t, name, dev, torch.bfloat16, q.shape)
     _build.require(lse, "lse", dev, torch.float32, (b, heads, h, w))
-    delta = (out.float() * dout.float()).sum(-1).permute(0, 3, 1, 2) \
-        .contiguous()
+    if e in DELTA_IN_KERNEL:
+        delta = torch.empty((b, heads, h, w), device=dev, dtype=torch.float32)
+    else:
+        delta = (out.float() * dout.float()).sum(-1).permute(0, 3, 1, 2) \
+            .contiguous()
     dq, dk, dv = (torch.empty(q.shape, device=dev, dtype=q.dtype)
                   for _ in range(3))
     lib = _build.load("na2d_heads", kdt_na2d_heads_bwd=_HEADS_BWD_SIGNATURE)
     status = lib.kdt_na2d_heads_bwd(
-        *map(_build.ptr, (q, k, v, dout, lse, delta, dq, dk, dv)), b, h, w,
-        heads, e, kernel_size, scale, strides, _build.stream_ptr(dev))
+        *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, h,
+        w, heads, e, kernel_size, scale, strides, _build.stream_ptr(dev))
     _build.check_launch(lib, status, "na2d backward")
     global heads_bwd_launches
     heads_bwd_launches += 1

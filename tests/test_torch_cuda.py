@@ -207,6 +207,50 @@ def test_fused_mapping(dev, b, d, d_ff, n):
     assert_close(got, fused_mapping.reference(*args))
 
 
+@pytest.mark.parametrize("b,d,d_ff,n", [(8, 256, 768, 2), (33, 256, 768, 2),
+                                        (3, 128, 192, 3), (5, 64, 1024, 1),
+                                        (8, 256, 768, 5)])
+def test_fused_mapping_bf16_weights(dev, b, d, d_ff, n):
+    """K5 reads bf16 weights as they come, as it reads f32 ones; d_ff =
+    1024 leaves its 64 panels unevenly over 16 ranks; at depth 5 the
+    layers' weight shares do not all fit, and later layers load into the
+    buffers earlier ones are done with; a rerun is bit-equal (the partials
+    meet in a fixed order)."""
+    g = torch.Generator().manual_seed(25)
+    blocks = [((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+               normal(g, dev, d, 2 * d_ff, std=d ** -0.5),
+               normal(g, dev, d_ff, d, std=d_ff ** -0.5)) for _ in range(n)]
+    args = (normal(g, dev, b, d), torch.ones(d, device=dev),
+            torch.ones(d, device=dev), blocks)
+    got = counted(fused_mapping, lambda: fused_mapping.fused_mapping(*args))
+    assert_close(got, fused_mapping.reference(*args))
+    assert torch.equal(got, fused_mapping.fused_mapping(*args))
+    # the same weights as float32 round to the same bf16 values in the kernel
+    f32 = [(ns, wu.float(), wd.float()) for ns, wu, wd in blocks]
+    assert torch.equal(got, fused_mapping.fused_mapping(*args[:3], f32))
+
+
+def test_fused_mapping_launches_one_kernel(dev):
+    """The wrapper launches the kernel and nothing else (no stack, no cast)
+    with the model's float32 params."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(26)
+    blocks = [((1 + 0.1 * torch.randn(256, generator=g)).to(dev),
+               torch.randn((256, 1536), generator=g).to(dev) * 256 ** -0.5,
+               torch.randn((768, 256), generator=g).to(dev) * 768 ** -0.5)
+              for _ in range(2)]
+    args = (normal(g, dev, 8, 256), torch.ones(256, device=dev),
+            torch.ones(256, device=dev), blocks)
+    fused_mapping.fused_mapping(*args)
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_mapping.fused_mapping(*args)
+        torch.cuda.synchronize()
+    kernels_run = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels_run) == 1 and "mapping_kernel" in kernels_run[0].name
+
+
 @pytest.mark.parametrize("b,h,w,d", [(2, 8, 8, 128), (3, 4, 4, 256),
                                      (1, 16, 8, 512), (1, 16, 16, 768),
                                      (2, 64, 64, 128)])
@@ -466,6 +510,13 @@ def test_forwards_are_deterministic(dev):
         args = ffn_args(g, dev, *shape)
         first += (fused_ffn.ffn_forward(*args),)
         again += (fused_ffn.ffn_forward(*args),)
+    blocks = [(torch.ones(256, device=dev), *ffn_args(g, dev, 1, 1, 256, 768)[2:])
+              for _ in range(2)]
+    emb = normal(g, dev, 40, 256)
+    first += (fused_mapping.mapping_forward(emb, blocks[0][0], blocks[1][0],
+                                            blocks),)
+    again += (fused_mapping.mapping_forward(emb, blocks[0][0], blocks[1][0],
+                                            blocks),)
     for a, b_ in zip(first, again):
         assert torch.equal(a, b_)
 
@@ -550,6 +601,23 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fused_ffn.fused_geglu_ffn(x, torch.ones((1, 960), device=dev),
                                   torch.zeros((960, 128), device=dev),
                                   torch.zeros((64, 960), device=dev))
+    # K10 wider than its first kernel's shared memory holds
+    x = torch.zeros((1, 64, 640), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d up to 576"):
+        fused_ffn.ffn_backward(x, torch.ones((1, 640), device=dev,
+                                             dtype=torch.bfloat16),
+                               torch.zeros((640, 128), device=dev),
+                               torch.zeros((64, 640), device=dev), x)
+    # K5: deeper than its layer table, float16 weights
+    e = torch.zeros((2, 128), device=dev, dtype=torch.bfloat16)
+    one = torch.ones(128, device=dev)
+    block = (one, torch.zeros((128, 128), device=dev),
+             torch.zeros((64, 128), device=dev))
+    with pytest.raises(ValueError, match="1 to 8 blocks"):
+        fused_mapping.fused_mapping(e, one, one, [block] * 9)
+    with pytest.raises(ValueError, match="float32 or bfloat16 weights"):
+        fused_mapping.fused_mapping(e, one, one,
+                                    [tuple(t.half() for t in block)])
     x = torch.zeros((1, 16, 2, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 32 or 64"):
         flash.flash_attention(x, x, x)
@@ -630,6 +698,11 @@ def test_flash_head_dim_32(dev, b, s, heads, scale):
 HEADS_CASES = [(2, 16, 24, 2, 64, 7), (1, 8, 8, 12, 64, 7),
                (2, 32, 16, 4, 32, 7), (1, 16, 16, 2, 32, 3),
                (1, 24, 16, 1, 128, 5), (1, 16, 16, 2, 128, 7)]
+# K12's edge tiles at head dims 32 and 64: windows smaller than 7 on maps of
+# 8 and 16, where the slabs of queries reaching a key tile are cut by the
+# map's edge
+HEADS_EDGE_CASES = [(1, h, w, 2, e, ks) for e in (32, 64)
+                    for h, w in ((8, 8), (16, 16), (8, 16)) for ks in (1, 3, 5)]
 
 
 def heads_qkv(g, dev, b, h, w, heads, e):
@@ -678,6 +751,47 @@ def test_na2d_heads_backward(dev, b, h, w, heads, e, ks):
     assert_all_close(got, na2d.heads_reference_backward(q, k, v, dout, ks))
     again = na2d.heads_backward(q, k, v, out, lse, dout, ks)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("b,h,w,heads,e,ks", HEADS_EDGE_CASES)
+def test_na2d_heads_backward_edges(dev, b, h, w, heads, e, ks):
+    """K12 at small windows and maps of 8 and 16 (v strided): dq, dk, dv
+    against autograd through the plain version. At ks = 1 the plain dq and
+    dk are exactly 0 (a window of one key: the softmax has no gradient in
+    its logit) and the kernel's hold only the f32 rounding of dP - delta:
+    they are held to the bound on the scale of dv."""
+    g = torch.Generator().manual_seed(27)
+    q, k, v, dout = heads_qkv(g, dev, b, h, w, heads, e)
+    out, lse = na2d.heads_forward(q, k, v, ks, save_lse=True)
+    got = counted(na2d, lambda: na2d.heads_backward(q, k, v, out, lse, dout, ks),
+                  "heads_bwd_launches")
+    want = na2d.heads_reference_backward(q, k, v, dout, ks)
+    if ks == 1:
+        assert not any(b_.any() for b_ in want[:2])
+        scale = want[2].float().abs().max().item()
+        assert all(a.float().abs().max().item() <= REL_BOUND * scale
+                   for a in got[:2])
+        assert_close(got[2], want[2])
+    else:
+        assert_all_close(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(8, 32, 32, 4, 7), (2, 16, 24, 2, 7),
+                                            (1, 40, 24, 1, 3), (1, 8, 8, 2, 1)])
+def test_na2d_packed_and_heads_backward_agree_bit_for_bit(dev, b, h, w, heads, ks):
+    """K7 and K12 run one backward (csrc/na_bwd.cuh): on one packed input at
+    head dim 64, read by K12 as its (b, h, w, heads, 64) views, k and v
+    through their own strides, they give the same dq, dk, dv bit for bit."""
+    g = torch.Generator().manual_seed(28)
+    c = heads * 64
+    q, k = unit_heads(g, dev, b, h, w, c), unit_heads(g, dev, b, h, w, c)
+    v, dout = normal(g, dev, b, h, w, c), normal(g, dev, b, h, w, c)
+    out, lse = na2d.packed_forward(q, k, v, heads, ks, save_lse=True)
+    packed = na2d.packed_backward(q, k, v, out, lse, dout, heads, ks)
+    split = [t.reshape(b, h, w, heads, 64) for t in (q, k, v, out, dout)]
+    heads_grads = na2d.heads_backward(*split[:4], lse, split[4], ks)
+    for a, b_ in zip(packed, heads_grads):
+        assert torch.equal(a, b_.reshape(a.shape))
 
 
 @pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 8, 8, 8, 7),

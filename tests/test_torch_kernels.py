@@ -255,6 +255,77 @@ def test_fused_mapping_matches_pallas_body():
     close(port_mapping(emb, s_in, s_out, blocks), want, POLY_TOL)
 
 
+def cluster_mapping(emb, s_in, s_out, blocks, ranks, eps=1e-6):
+    """K5's cluster split (csrc/geglu.cu, mapping_kernel) in numpy float32:
+    per strip of 16 batch rows (one cluster; rows past b zero), every block
+    of the network has rank r of ``ranks`` take its hidden panels
+    (``fused_mapping.rank_panels``): a | gate from W_up's value and gate
+    columns of those panels, h = a gelu(gate), and the split-K partial h
+    W_down[those rows] of the output; the partials are summed in rank order
+    and added to the residual x."""
+    from scipy.special import erf
+
+    def rms(x, scale):
+        ms = np.mean(x * x, -1, keepdims=True)
+        return x * (scale / np.sqrt(ms + np.float32(eps)))
+
+    b, d = emb.shape
+    d_ff = blocks[0][2].shape[0]
+    out = np.zeros_like(emb)
+    for r0 in range(0, b, fused_mapping.ROWS):
+        rows = min(fused_mapping.ROWS, b - r0)
+        x = np.zeros((fused_mapping.ROWS, d), np.float32)
+        x[:rows] = emb[r0:r0 + rows]
+        x = rms(x, s_in)
+        for ns, w_up, w_down in blocks:
+            xn = rms(x, ns)
+            total = np.zeros_like(x)
+            for rank in range(ranks):
+                first, end = fused_mapping.rank_panels(d_ff, ranks, rank)
+                units = slice(fused_mapping.UNIT * first,
+                              fused_mapping.UNIT * end)
+                a = xn @ w_up[:, units]
+                gate = xn @ w_up[:, d_ff:][:, units]
+                h = a * (0.5 * gate * (1 + erf(gate / np.sqrt(2)))).astype(
+                    np.float32)
+                total = total + h @ w_down[units]
+            x = x + total
+        out[r0:r0 + rows] = rms(x, s_out)[:rows]
+    return out
+
+
+@pytest.mark.parametrize("b", [8, 33])
+@pytest.mark.parametrize("ranks", fused_mapping.CLUSTER_SIZES)
+def test_fused_mapping_cluster_split_matches_jax(ranks, b):
+    """The flagship's mapping network (256 wide, d_ff 768, depth 2) split
+    over a cluster of each size the kernel can choose, at batch 8 (one
+    cluster, half its rows empty) and 33 (three clusters), against the
+    JAX package's fused mapping network (its dispatcher on the CPU), both
+    computing in float32."""
+    emb, s_in, s_out, blocks = mapping_case(30 + ranks, b)
+    want = j_map.fused_mapping(jnp.asarray(emb), jnp.asarray(s_in),
+                               jnp.asarray(s_out), jax_blocks(blocks),
+                               dtype=jnp.float32)
+    close(cluster_mapping(emb, s_in, s_out, blocks, ranks), want, F32_TOL)
+
+
+@pytest.mark.parametrize("ranks", fused_mapping.CLUSTER_SIZES)
+def test_every_hidden_panel_lands_in_one_rank(ranks):
+    """The ranks' panel ranges tile the hidden units: each panel in exactly
+    one rank, none empty, at every cluster size and hidden width the kernel
+    takes it at (d_ff / 16 panels >= ranks)."""
+    for d_ff in range(64, 2049, 64):
+        panels = d_ff // fused_mapping.UNIT
+        if ranks > panels:
+            continue
+        owners = np.zeros(panels, int)
+        for rank in range(ranks):
+            first, end = fused_mapping.rank_panels(d_ff, ranks, rank)
+            assert end > first
+            owners[first:end] += 1
+        np.testing.assert_array_equal(owners, 1)
+
+
 @pytest.mark.parametrize("name", ["fused_qkv", "na2d", "global_packed",
                                   "fused_ffn", "fused_mapping", "flash",
                                   "na2d_heads", "na2d_proj"])

@@ -1,7 +1,7 @@
 """The neighborhood geometry of the port's wgmma NA kernels on the CPU.
 
 The forward (csrc/na_fwd.cuh, K2 and K11) and the dq kernel of the backward
-(csrc/na_bwd.cuh, K7) run attention bodies over ``NaQueries``
+(csrc/na_bwd.cuh, K7 and K12) run attention bodies over ``NaQueries``
 (csrc/na2d.cuh): a block owns an 8 x 8 query tile, and the tile's key halo
 streams past as 64-row tiles of 4 halo rows x 16 key slots, each pair
 masked to the query's window. CUDA does not run here, so ``NaQueries``
@@ -12,7 +12,15 @@ no slot past the halo or the map attends. Then the forward's streamed
 online softmax, run over that geometry in numpy with the kernel's guard for
 rows whose running max is still -inf, is held against the JAX package's
 ``na2d_reference`` and the masked logsumexp; without the guard those rows
-turn to NaN, which shows which rows the guard is for."""
+turn to NaN, which shows which rows the guard is for.
+
+The dk/dv kernel of the backward runs over ``NaKeys``: a block owns an 8 x
+8 key tile, and the slab of queries whose clamped windows reach it streams
+past as 64-row tiles of 4 slab rows x 16 query slots. ``NaKeys`` and
+``Reach`` below mirror it; the two-kernel streamed backward (dq over query
+tiles, dk and dv over key tiles, delta = rowsum(out * dout)), run over both
+geometries in numpy float32, is held against ``jax.vjp`` of the JAX
+package's ``na2d_reference``."""
 
 import importlib
 
@@ -203,3 +211,225 @@ def test_streamed_forward_matches_jax(h, w, ks):
                 + NaQueries(t, h, w, ks).own(i)[1]
                 for t, i in rows_without_key(h, w, ks, 0)}
         assert set(np.flatnonzero(nan_rows)) == rows and rows
+
+
+# ---- the backward: NaKeys and the two-kernel streamed backward ------------
+
+class Reach:
+    """Mirror of csrc/na2d.cuh's Reach: the query rows (or columns) [lo, hi]
+    whose clamped windows reach keys [k0, k0 + 8) on an axis of n."""
+
+    def __init__(self, k0, n, ks):
+        r = (ks - 1) // 2
+        lo = max(0, k0 - (ks - 1))
+        hi = min(n - 1, k0 + TQ - 1 + ks - 1)
+        while np.clip(lo - r, 0, n - ks) + ks - 1 < k0:
+            lo += 1
+        while np.clip(hi - r, 0, n - ks) > k0 + TQ - 1:
+            hi -= 1
+        self.lo, self.hi = lo, hi
+
+
+class NaKeys:
+    """Mirror of csrc/na2d.cuh's NaKeys: the block of 8 x 8 key tile
+    ``tile`` and the slab of queries that reach it, streamed as tiles of 4
+    slab rows x 16 query slots. ``reject`` False drops the mask's slab-edge
+    rejection (sy < ny and sx < nx)."""
+
+    def __init__(self, tile, h, w, ks, reject=True):
+        self.h, self.w, self.ks, self.reject = h, w, ks, reject
+        tiles_w = w // TQ
+        self.ky0, self.kx0 = tile // tiles_w * TQ, tile % tiles_w * TQ
+        rows, cols = Reach(self.ky0, h, ks), Reach(self.kx0, w, ks)
+        self.qy0, self.qx0 = rows.lo, cols.lo
+        self.ny, self.nx = rows.hi - rows.lo + 1, cols.hi - cols.lo + 1
+        self.r = (ks - 1) // 2
+        self.tiles = (self.ny + BANDS - 1) // BANDS
+
+    def own(self, i):
+        return self.ky0 + i // TQ, self.kx0 + i % TQ
+
+    def stream(self, j, i):
+        sy, sx = BANDS * j + i // SLOTS, i % SLOTS
+        return self.qy0 + sy, self.qx0 + sx, (sy < self.ny) & (sx < self.nx)
+
+    def own_info(self, i):
+        return self.own(i)
+
+    def mask(self, j, col, info):
+        ky, kx = info
+        sy, sx = BANDS * j + col // SLOTS, col % SLOTS
+        wy = np.clip(self.qy0 + sy - self.r, 0, self.h - self.ks)
+        wx = np.clip(self.qx0 + sx - self.r, 0, self.w - self.ks)
+        inside = (0 <= ky - wy) & (ky - wy < self.ks) & (0 <= kx - wx) & (
+            kx - wx < self.ks)
+        if not self.reject:
+            return inside
+        return (sy < self.ny) & (sx < self.nx) & inside
+
+
+def slab_rows(t, pos, ok, zero_fill):
+    """Rows pos of (b, positions, ...) t as a streamed tile: slots that are
+    not ok zero-filled (the kernels' copies), or with ``zero_fill`` False
+    the data of the position clamped into the map."""
+    rows = t[:, pos]
+    if zero_fill:
+        rows = rows * ok.reshape((1, -1) + (1,) * (t.ndim - 2))
+    return rows
+
+
+def streamed_backward(q, k, v, out, lse, dout, ks, scale, reject=True,
+                      zero_fill=True):
+    """The backward's two kernels (csrc/attn_bwd.cuh over csrc/na2d.cuh's
+    geometries) in numpy float32. dq kernel, per query tile (NaQueries):
+    per streamed key tile, s = q k^T scale, p = exp(s - lse) where the pair
+    attends, ds = p (dout v^T - delta), dq += ds k; dq scaled once. Its
+    first step forms delta = rowsum(out * dout). dk/dv kernel, per key tile
+    (NaKeys): per streamed query tile, with the queries' lse and delta,
+    p^T and ds^T as above, dv += p^T dout, dk += ds^T q; dk scaled once.
+    q, k, v, out, dout (b, h, w, heads, e); lse (b, heads, h, w). Returns
+    dq, dk, dv (b, h, w, heads, e)."""
+    b, h, w, heads, e = q.shape
+    hw = h * w
+    qf, kf, vf, of, gf = (np.asarray(t, np.float32).reshape(b, hw, heads, e)
+                          for t in (q, k, v, out, dout))
+    # statistics as (b, positions, heads)
+    lse_p = np.asarray(lse, np.float32).reshape(b, heads, hw).transpose(
+        0, 2, 1)
+    delta = np.einsum("bpne,bpne->bpn", of, gf)
+    scale = np.float32(scale)
+    dq, dk, dv = (np.zeros((b, hw, heads, e), np.float32) for _ in range(3))
+    n_tiles = h // TQ * (w // TQ)
+    for tile in range(n_tiles):
+        geo = NaQueries(tile, h, w, ks)
+        pos, ok, attends = block_layout(geo)
+        qy, qx = geo.own(np.arange(64))
+        rows = qy * w + qx
+        acc = np.zeros((b, heads, 64, e), np.float32)
+        for j in range(geo.tiles):
+            keys = np.where(ok[0, j], pos[0, j], 0)
+            kt = slab_rows(kf, keys, ok[0, j], True)
+            vt = slab_rows(vf, keys, ok[0, j], True)
+            s = np.einsum("bqne,bkne->bnqk", qf[:, rows], kt) * scale
+            lse_r = lse_p[:, rows].transpose(0, 2, 1)[..., None]
+            p = np.where(attends[:, j][None, None], np.exp(s - lse_r),
+                         np.float32(0))
+            dp = np.einsum("bqne,bkne->bnqk", gf[:, rows], vt)
+            ds = p * (dp - delta[:, rows].transpose(0, 2, 1)[..., None])
+            acc += np.einsum("bnqk,bkne->bnqe", ds, kt)
+        dq[:, rows] = (acc * scale).transpose(0, 2, 1, 3)
+    i = np.arange(64)
+    for tile in range(n_tiles):
+        geo = NaKeys(tile, h, w, ks, reject)
+        ky, kx = geo.own(i)
+        own = ky * w + kx
+        acc_k, acc_v = (np.zeros((b, heads, 64, e), np.float32)
+                        for _ in range(2))
+        for j in range(geo.tiles):
+            y, x, ok = geo.stream(j, i)
+            slot = np.clip(y, 0, h - 1) * w + np.clip(x, 0, w - 1)
+            qt = slab_rows(qf, slot, ok, zero_fill)
+            gt = slab_rows(gf, slot, ok, zero_fill)
+            lt = slab_rows(lse_p, slot, ok, zero_fill).transpose(0, 2, 1)
+            dt = slab_rows(delta, slot, ok, zero_fill).transpose(0, 2, 1)
+            attends = geo.mask(j, i[None, :], geo.own_info(i[:, None]))
+            st = np.einsum("bkne,bqne->bnkq", kf[:, own], qt) * scale
+            pt = np.where(attends[None, None], np.exp(st - lt[:, :, None]),
+                          np.float32(0))
+            dpt = np.einsum("bkne,bqne->bnkq", vf[:, own], gt) - dt[:, :, None]
+            acc_v += np.einsum("bnkq,bqne->bnke", pt, gt)
+            acc_k += np.einsum("bnkq,bqne->bnke", pt * dpt, qt)
+        dk[:, own] = (acc_k * scale).transpose(0, 2, 1, 3)
+        dv[:, own] = acc_v.transpose(0, 2, 1, 3)
+    shape = (b, h, w, heads, e)
+    return dq.reshape(shape), dk.reshape(shape), dv.reshape(shape)
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (64, 64)])
+@pytest.mark.parametrize("ks", range(1, 8))
+def test_every_slab_query_streams_once(h, w, ks):
+    """NaKeys: for every key of every key tile, each query whose clamped
+    window holds the key lands in exactly one (tile, slot) of the block's
+    slab, and no slot past the slab or the map attends."""
+    want = jax_mask(h, w, ks)
+    i = np.arange(64)
+    for tile in range(h // TQ * (w // TQ)):
+        geo = NaKeys(tile, h, w, ks)
+        assert geo.ny <= TQ + ks - 1 and geo.nx <= TQ + ks - 1 < SLOTS
+        ky, kx = geo.own(i)
+        counts = np.zeros((64, h * w), int)
+        for j in range(geo.tiles):
+            y, x, ok = geo.stream(j, i)
+            attends = geo.mask(j, i[None, :], geo.own_info(i[:, None]))
+            assert not (attends & ~ok[None]).any()
+            for key in range(64):
+                np.add.at(counts[key], (y * w + x)[attends[key]], 1)
+        np.testing.assert_array_equal(counts,
+                                      want[:, ky * w + kx].T.astype(int))
+
+
+def backward_case(h, w, ks, e, seed):
+    """q, k, v (v a strided third of one (b, h, w, 3, heads, e) projection,
+    as the unfused prologue leaves it) and dout, float32."""
+    rng = np.random.default_rng(seed)
+    b, heads = 1, 2 if h * w < 64 * 64 else 1
+    proj = rng.standard_normal((b, h, w, 3, heads, e)).astype(np.float32)
+    q, k, v = proj[:, :, :, 0], proj[:, :, :, 1], proj[:, :, :, 2]
+    assert not v.flags.c_contiguous
+    dout = rng.standard_normal((b, h, w, heads, e)).astype(np.float32)
+    return q, k, v, dout
+
+
+def jax_backward(q, k, v, dout, ks, scale):
+    """jax.vjp of the JAX package's na2d_reference."""
+    _, vjp = jax.vjp(lambda *t: j_na.na2d_reference(*t, ks, scale=scale),
+                     *map(jnp.asarray, (q, k, v)))
+    return vjp(jnp.asarray(dout))
+
+
+@pytest.mark.parametrize("e", [32, 64])
+@pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (64, 64)])
+@pytest.mark.parametrize("ks", range(1, 8))
+def test_streamed_backward_matches_jax_vjp(h, w, ks, e):
+    q, k, v, dout = backward_case(h, w, ks, e, 10 * ks + e)
+    out, lse = streamed_forward(q, k, v, ks, 0.25)
+    got = streamed_backward(q, k, v, out, lse, dout, ks, 0.25)
+    want = jax_backward(q, k, v, dout, ks, 0.25)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        b_ = np.asarray(b_)
+        np.testing.assert_allclose(a, b_, rtol=0,
+                                   atol=F32_TOL * np.abs(b_).max(), err_msg=name)
+
+
+def test_slab_edge_rejection_guards_dk_dv():
+    """Without its slab-edge rejection, NaKeys' mask lets slots past the
+    map attend at the edge tiles: their clamped windows hold the tile's
+    keys, and their logit and lse are those of the slot's data. With the
+    copies' zero fill those slots hold q = dout = 0, so p = 1 there adds
+    nothing to dk and dv; where a slot carries data (the clamped position's,
+    as a copy that clamps its addresses instead of zero-filling would), the
+    rejection is what keeps dk and dv right."""
+    h, w, ks, e = 16, 24, 7, 32
+    q, k, v, dout = backward_case(h, w, ks, e, 5)
+    out, lse = streamed_forward(q, k, v, ks, 0.25)
+    want = [np.asarray(t) for t in jax_backward(q, k, v, dout, ks, 0.25)]
+    i = np.arange(64)
+    spurious = 0
+    for tile in range(h // TQ * (w // TQ)):
+        kept, dropped = NaKeys(tile, h, w, ks), NaKeys(tile, h, w, ks, False)
+        for j in range(kept.tiles):
+            info = kept.own_info(i[:, None])
+            spurious += (dropped.mask(j, i[None, :], info)
+                         & ~kept.mask(j, i[None, :], info)).sum()
+    assert spurious > 0
+
+    def error(reject, zero_fill):
+        got = streamed_backward(q, k, v, out, lse, dout, ks, 0.25, reject,
+                                zero_fill)
+        return [np.abs(a - b_).max() / np.abs(b_).max()
+                for a, b_ in zip(got, want)]
+
+    for reject, zero_fill in ((True, True), (False, True), (True, False)):
+        assert max(error(reject, zero_fill)) <= F32_TOL
+    err_dq, err_dk, err_dv = error(False, False)
+    assert err_dq <= F32_TOL and err_dk > 1e-2 and err_dv > 1e-2
