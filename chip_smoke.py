@@ -11,8 +11,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    forward of K2 and K11 and the backward's two of K7 and K12 (the
    neighborhood geometry on the same forward and backward; K11's and K12's
    with v through its own strides), of the forwards K1 and K4, of K6's and
-   K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel)
-   and of K5's cluster kernel; none may spill or be missing;
+   K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel),
+   of K5's cluster kernel and of K15's (csrc/na_proj.cuh, head dims 32 and
+   64); none may spill or be missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -70,11 +71,15 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    flagship's NA levels (batch 8, q and k contiguous, v a strided third of
    the projection, as the unfused prologue leaves them), then at head dims
    32 and 128 and at a level wider than K2 takes (12 heads of 64);
-15. the fused epilogue K15 (na2d_packed_proj) against its plain version at
-   the flagship's NA levels, batch 8, timed against the composition the
-   model runs (K2, a matmul with w_out, the residual add); then its op
-   path, forward and backward (K2 recompute, K7), with launch counts
-   and the gradients against the plain version's;
+15. the fused epilogue K15 (na2d_packed_proj, csrc/na_proj.cuh) against
+   its plain version at the flagship's NA levels, batch 8, and, counting no
+   calls, at head dim 32 (8 x 64 x 64, 4 heads of 32) and at
+   config_512_hdit's 128 x 128 x 128 NA level; K15 with w_out = I and skip
+   = 0 against K2 bit for bit at both flagship levels; then its op path,
+   forward and backward (K2 recompute, K7), with launch counts and the
+   gradients against the plain version's, and K15 timed against the
+   composition the model runs (K2, a matmul with w_out, the residual
+   add);
 16. the unfused training step: the flagship config as it is with
    KDT_TRAIN_FUSION=0 (for this phase only): gradient parity at batch 2 as
    in phase 7, then 3 + 20 steps at batch 32 and a profile as in phase 8,
@@ -915,25 +920,71 @@ def proj_inputs(dev):
     return out
 
 
-def proj_cases(inputs):
+def proj_plain_by_image(q, k, v, skip, w, heads, kernel_size):
+    """``na2d.proj_reference`` one image at a time (``na_plain_by_image``)."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    return torch.cat([na2d.proj_reference(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], skip[i:i + 1], w, heads,
+        kernel_size) for i in range(q.shape[0])])
+
+
+def proj_cases(inputs, dev):
     """Phase 15: K15 against its plain version, one call per NA level (its
     op path, phase 15's second half); operations 4 * 49 * c for the
     attention and 2 * c * c for the projection per query. No single
     PyTorch call computes it (library null); the composition the model runs
-    is timed beside it by ``proj_path``."""
+    is timed beside it by ``proj_path``. Then, counting no calls, head dim
+    32 at the flagship's 64 x 64 x 128 level (4 heads of 32, two a rank)
+    and config_512_hdit's 128 x 128 x 128 NA level (its plain version one
+    image at a time)."""
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
+    g = torch.Generator().manual_seed(SEED + 20)
+    b, bf16 = SAMPLE_BATCH, torch.bfloat16
+    extra = []
+    for h, c, e in ((64, 128, 32), (128, 128, 64)):
+        t = torch.randn((2, b, h, h, c // e, e), generator=g)
+        q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+            2, b, h, h, c).to(dev, bf16)
+        v, skip = (torch.randn((b, h, h, c), generator=g).to(dev, bf16)
+                   for _ in range(2))
+        extra.append(((q, k, v, skip, lecun((c, c), g, dev), c // e), 0,
+                      f"{b}x{h}x{h}x{c} e={e}" + (" (config_512_hdit)"
+                                                  if h == 128 else "")))
     cases = []
-    for q, k, v, skip, w, heads, _ in inputs:
+    for args, calls, label in [(i[:6], 1, "x".join(map(str, i[0].shape)))
+                               for i in inputs] + extra:
+        q, k, v, skip, w, heads = args
         b, h, _, c = q.shape
         t = b * h * h
-        args = (q, k, v, skip, w, heads, 7)
+        plain = proj_plain_by_image if h > 64 else na2d.proj_reference
         cases.append(Case(
-            "na2d_proj", f"{b}x{h}x{h}x{c}", 1,
-            lambda a=args: na2d.na2d_packed_proj(*a),
-            lambda a=args: na2d.proj_reference(*a),
+            "na2d_proj", label, calls,
+            lambda a=args: na2d.na2d_packed_proj(*a, 7),
+            lambda a=args, f=plain: f(*a, 7),
             4 * t * c * 7 ** 2 + 2 * t * c * c, (q, k, v, skip, w)))
     return cases
+
+
+def proj_bit_check(inputs):
+    """At both flagship NA levels: K15 with w_out = I and skip = 0 gives
+    K2's output bit for bit (the same attention, rounded to bf16 at the same
+    point; the product with I and the add of 0 are exact)."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    labels = []
+    for q, k, v, skip, _, heads, _ in inputs:
+        eye = torch.eye(q.shape[-1], device=q.device)
+        got = na2d.proj_forward(q, k, v, torch.zeros_like(skip), eye, heads, 7)
+        want, _ = na2d.packed_forward(q, k, v, heads, 7)
+        if not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"K15 (w_out = I, skip = 0) and K2 differ "
+                                 f"by {diff:.3e}")
+        labels.append("x".join(map(str, q.shape)))
+    print(f"K15 bit check [{', '.join(labels)}]: K15 with w_out = I and "
+          f"skip = 0 gives K2's output bit for bit", flush=True)
 
 
 def proj_path(inputs, results):
@@ -1273,7 +1324,8 @@ def main():
     with torch.no_grad():
         run_cases(heads_cases(dev), results, 20, 3)
         inputs = proj_inputs(dev)
-        run_cases(proj_cases(inputs), results, 50, 5)
+        run_cases(proj_cases(inputs, dev), results, 50, 5)
+        proj_bit_check(inputs)
     proj_counts = proj_path(inputs, results)
     del inputs
     torch.cuda.empty_cache()
@@ -1342,7 +1394,7 @@ def main():
         "flash_bwd": ("attn_bwd.cuh", "flash.py:57", unet_train_counts),
         "na2d_heads": ("na_fwd.cuh", "na2d.py:180", unfused_counts),
         "na2d_heads_bwd": ("na_bwd.cuh", "na2d.py:241", unfused_counts),
-        "na2d_proj": ("na2d_heads.cu", "na2d.py:991", proj_counts),
+        "na2d_proj": ("na_proj.cuh", "na2d.py:991", proj_counts),
     }
     report = []
     for name, (src, tpu, counts) in paths.items():
@@ -1371,13 +1423,14 @@ def main():
 # backward (csrc/attn_fwd.cuh, attn_bwd.cuh), the neighborhood forward of
 # K2 and K11 (csrc/na_fwd.cuh) and the backward's two of K7 and K12
 # (csrc/na_bwd.cuh; OWN_V false in na2d, true in na2d_heads), the forwards
-# K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's) and
-# K5's cluster kernel (f32 and bf16 weights)
+# K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
+# K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
     "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
-    "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
+    "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
+                   "na_proj_kernel"),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
                   "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
@@ -1390,9 +1443,9 @@ def compiler_report(build):
     """Registers and spills of the attention kernels (K3, K13: csrc/attn_
     fwd.cuh; K2, K11: csrc/na_fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7,
     K12: csrc/na_bwd.cuh), of the forwards K1 and K4, of K6's and K10's
-    (csrc/gemm.cuh's core, each backward's first kernel) and of K5's, from
-    the compiler report kept beside each library; raises if one spills or
-    is missing."""
+    (csrc/gemm.cuh's core, each backward's first kernel), of K5's and of
+    K15's (csrc/na_proj.cuh), from the compiler report kept beside each
+    library; raises if one spills or is missing."""
     import re
 
     seen, missing = {}, []

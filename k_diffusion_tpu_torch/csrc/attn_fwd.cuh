@@ -1,8 +1,10 @@
 // The forward of exact softmax attention on Hopper, shared by K3
 // (global_packed.cu, channel-packed (b, s, heads * 64) maps), K13
-// (flash.cu, (b, s, heads, e) q, k, v read through their strides), and K2
+// (flash.cu, (b, s, heads, e) q, k, v read through their strides), K2
 // and K11 (na_fwd.cuh, 2-D neighborhood attention on channel-packed and on
-// per-head strided maps).
+// per-head strided maps), and K15 (na_proj.cuh, which runs attend() and
+// keeps O / l as the A operand of its out-projection in place of body()'s
+// store).
 //
 // Replaces: k_diffusion_tpu/ops/pallas/global_packed.py:_fwd_kernel (K3)
 // and k_diffusion_tpu/ops/pallas/flash.py:_fwd_kernel (K13); na_fwd.cuh
@@ -86,19 +88,23 @@ struct Args {
 template <int E>
 constexpr size_t SMEM = 2 * STAGES * TILE<E> * sizeof(bf16) + 1024;
 
+// The attention of the block's own rows for head `head` of image `img`,
+// through the ring at s_kv (STAGES pairs of (64, E) tiles, 1024-aligned):
+// leaves each thread's part of O / l in acc_o (wgmma's accumulator layout),
+// writes lse where a.lse is not null, and returns with every thread done
+// with the ring. body() ends it with the store of the output; K15
+// (na_proj.cuh) stages acc_o as a product's A operand instead.
 template <int E, int WG, bool OWN_V, class G>
-__device__ __forceinline__ void body(const Args& a, const G& geo) {
+__device__ __forceinline__ void attend(const Args& a, const G& geo, int head, int img,
+                                       bf16* s_kv, float (&acc_o)[E / 2]) {
   static_assert(WG == 1 || WG == 2, "a block is one or two warpgroups");
-  extern __shared__ unsigned char smem_raw[];
   // stage st: K at s_kv + 2 st TILE, V after it
-  bf16* s_kv = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
   bf16* s_q = s_kv + 2 * (STAGES - 1) * TILE<E>;
 
   // warp w of the block holds own rows 16 w to 16 w + 15 (wgmma.cuh's
   // helpers index rows by threadIdx.x / 32, so warpgroup g's tiles are the
   // g-th 64 rows of the staged Q and output)
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int head = blockIdx.y, img = blockIdx.z;
   const int n_tiles = geo.tiles;
 
   // starts the copy of streamed tile j's K and V rows into stage `kv`
@@ -138,7 +144,6 @@ __device__ __forceinline__ void body(const Args& a, const G& geo) {
   for (int h = 0; h < 2; ++h) info[h] = geo.own_info(r + 8 * h);
   const float scale2 = a.scale * LOG2E;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  float acc_o[E / 2];
 #pragma unroll
   for (int i = 0; i < E / 2; ++i) acc_o[i] = 0.f;
   float acc_s[32];
@@ -231,6 +236,17 @@ __device__ __forceinline__ void body(const Args& a, const G& geo) {
   }
 #pragma unroll
   for (int i = 0; i < E / 2; ++i) acc_o[i] *= inv_l[(i / 2) & 1];
+}
+
+// The forward of block (blockIdx.x, head blockIdx.y, image blockIdx.z):
+// the attention, then O / l staged through the ring for 16-byte stores.
+template <int E, int WG, bool OWN_V, class G>
+__device__ __forceinline__ void body(const Args& a, const G& geo) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* s_kv = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  const int head = blockIdx.y, img = blockIdx.z;
+  float acc_o[E / 2];
+  attend<E, WG, OWN_V>(a, geo, head, img, s_kv, acc_o);
   stage_acc<E>(acc_o, 1.f, s_kv);
   __syncthreads();
 #pragma unroll

@@ -35,7 +35,6 @@ constexpr int WARPS = 4;           // warps per block
 constexpr int THREADS = WARPS * 32;
 constexpr int STRIP = 16;          // rows of a warp's strip
 constexpr int PANEL = 64;          // columns of an output panel (= head dim)
-constexpr int LDT = PANEL + 8;     // bf16 row stride of a 64-column tile
 constexpr int LDF = PANEL + 4;     // float row stride of a 64-column strip
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -106,41 +105,6 @@ __device__ __forceinline__ void store_strip(float* scratch, int ld, FragC (&acc)
   for (int j = 0; j < NF; ++j)
     wmma::store_matrix_sync(scratch + 16 * j, acc[j], ld, wmma::mem_row_major);
   __syncwarp();
-}
-
-// Writes rows [0, min(valid, 16)) of a warp's 16 x COLS float strip
-// (stride ld) as bf16 rows of dst (stride ldd), adding the bf16 rows of res
-// (same stride) first when res is given. Two columns per lane at a time.
-template <int COLS = PANEL>
-__device__ __forceinline__ void write_strip(const float* scratch, int ld, bf16* dst, long ldd,
-                                            const bf16* res, int valid) {
-  for (int r = 0; r < STRIP && r < valid; ++r) {
-    for (int c = 2 * (threadIdx.x & 31); c < COLS; c += 64) {
-      float v0 = scratch[r * ld + c], v1 = scratch[r * ld + c + 1];
-      if (res) {
-        const __nv_bfloat162 s = *reinterpret_cast<const __nv_bfloat162*>(res + r * ldd + c);
-        v0 += __low2float(s);
-        v1 += __high2float(s);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * ldd + c) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  __syncwarp();
-}
-
-// Copies a (rows x COLS) bf16 tile of a row-major matrix (row stride lds)
-// into shared memory (row stride COLS + 8) in 16-byte vectors, the whole
-// block taking part. Rows at or past `valid` are filled with zeros.
-template <int COLS = PANEL>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long lds, int rows,
-                                          int valid) {
-  constexpr int V = COLS / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * V; i += blockDim.x) {
-    const int r = i / V, c = (i % V) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * lds + c);
-    *reinterpret_cast<uint4*>(dst + r * (COLS + 8) + c) = v;
-  }
 }
 
 // Row-wise softmax of a warp's 16-row strip of logits, in place: row m of

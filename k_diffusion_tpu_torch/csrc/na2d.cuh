@@ -7,7 +7,8 @@
 // dims 32 and 64) and na_bwd.cuh (K7, K12 at head dims 32 and 64).
 //
 // The wmma code below serves K11 and K12 at head dim 128 (wgmma.cuh's
-// tiles take 32 and 64) and K15. A block owns an 8 x 8 query tile of one head of
+// tiles take 32 and 64); K15 (na_proj.cuh) runs the wgmma forward's
+// attention over NaQueries. A block owns an 8 x 8 query tile of one head of
 // one image. The clamped union of the tile's windows is at most 14 x 14
 // keys (the halo); a warp owns two query rows (16 queries), whose windows
 // lie within 8 consecutive halo rows, i.e. 112 consecutive halo keys. The

@@ -55,19 +55,16 @@
 // 32, 8 us) against q, k, v, out, dout, lse read and dq, dk, dv written (8
 // * 33.5 MB, 80 us): memory.
 //
-// K15, na2d_proj_kernel: out = NA(q, k, v) @ w_out + skip on channel-packed
-// (b, h, w, c) maps, head dim 64, c <= 512 and c % 128 == 0, as the JAX
-// dispatcher takes it. A block per (8 x 8 query tile, image) runs the
-// forward of each head in turn (na_tile_forward) and keeps the tile's
-// all-head attention output in shared memory in bf16 (the Pallas body's
-// rounding point), then multiplies it by w_out, which it streams through
-// shared memory in 64 x 64 tiles (at c = 512 w_out is 512 KB in bf16, more
-// than an SM holds), adds the residual in f32 and writes bf16 once. The
-// attention output never goes to device memory. Bound: memory, q, k, v,
-// skip and out (5 * 8.4 MB at the flagship's level 0, batch 8).
+// K15, the packed forward with the out-projection and the residual fused
+// into its epilogue, is na_proj.cuh's cluster kernel: a cluster per query
+// tile and image, a rank per 64 channels running attn_fwd.cuh's attention
+// over NaQueries, then a wgmma product with w_out whose A operand, the
+// ranks' attention outputs, comes as register fragments over distributed
+// shared memory.
 #include "na2d.cuh"
 #include "na_bwd.cuh"
 #include "na_fwd.cuh"
+#include "na_proj.cuh"
 
 namespace kdt {
 namespace {
@@ -304,62 +301,6 @@ na2d_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K15 at head dim 64.
-constexpr int PE = 64;
-constexpr int PLDK = NaDims<PE>::LDK, PLDS = NaDims<PE>::LDS;
-
-__global__ void __launch_bounds__(THREADS)
-na2d_proj_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ skip,
-                 const bf16* __restrict__ w_out, bf16* __restrict__ out, int h, int w,
-                 int n_heads, int ks, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int c = n_heads * PE, lda = c + 8;
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + TQ * TQ * PLDK;
-  bf16* s_v = s_k + NKEYS_ALLOC * PLDK;
-  bf16* s_att = s_v + NKEYS_ALLOC * PLDK;  // (64, c) attention output
-  bf16* s_w = s_att + TQ * TQ * lda;       // a 64 x 64 tile of w_out
-  float* s_s = reinterpret_cast<float*>(s_w + PANEL * LDT);
-  __shared__ float s_lse[WARPS * STRIP];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int img = blockIdx.y;
-  const TileGeometry t(blockIdx.x, h, w, ks);
-  const MapStrides packed{static_cast<long>(h) * w * c, static_cast<long>(w) * c, c};
-  float* strip = s_s + warp * STRIP * PLDS;
-
-  for (int head = 0; head < n_heads; ++head) {
-    load_tile_and_halo<PE>(s_q, s_k, s_v, q, k, v, packed, packed, packed, img, head, t, h, w);
-    __syncthreads();
-    na_tile_forward<PE>(s_q, s_k, s_v, s_s, s_lse, t, h, w, ks, scale);
-    write_strip(strip, PLDS, s_att + warp * STRIP * lda + head * PE, lda, nullptr, STRIP);
-    __syncthreads();  // before the next head overwrites q, k, v
-  }
-
-  // out = att @ w_out + skip, one 64-column panel at a time
-  const int qy0 = t.y0 + 2 * warp;
-  const bf16* a = s_att + warp * STRIP * lda;
-  for (int n0 = 0; n0 < c; n0 += PANEL) {
-    FragC acc[4];
-    zero(acc);
-    for (int k0 = 0; k0 < c; k0 += PANEL) {
-      load_tile(s_w, w_out + static_cast<long>(k0) * c + n0, c, PANEL, PANEL);
-      __syncthreads();
-      mma_strip(a + k0, lda, s_w, LDT, PANEL, acc);
-      __syncthreads();  // before the next tile of w_out
-    }
-    store_strip(strip, PLDS, acc);
-    for (int m = 0; m < STRIP; ++m) {
-      const long at = packed.at(img, qy0 + m / TQ, t.x0 + m % TQ, 0, PE) + n0 + 2 * lane;
-      const float2 res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(skip + at));
-      *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(
-          strip[m * PLDS + 2 * lane] + res.x, strip[m * PLDS + 2 * lane + 1] + res.y);
-    }
-    __syncwarp();  // every lane is done reading the strip
-  }
-}
-
 }  // namespace
 }  // namespace kdt
 
@@ -480,24 +421,24 @@ extern "C" int kdt_na2d_heads_bwd(const void* q, const void* k, const void* v, c
   }
 }
 
-// K15: q, k, v, skip (b, h, w, c) bf16 contiguous with c = 64 * heads,
-// c <= 512 and c % 128 == 0; w_out (c, c) bf16. Writes out = NA(q, k, v) @
-// w_out + skip, (b, h, w, c) bf16. h, w and ks as for K11.
+// K15: q, k, v, skip (b, h, w, c) bf16 contiguous with c = e * heads, e 32
+// or 64, c <= 512 and c % 128 == 0; w_out (c, c) bf16. Writes out = NA(q,
+// k, v) @ w_out + skip, (b, h, w, c) bf16. h, w and ks as for K11.
 extern "C" int kdt_na2d_proj(const void* q, const void* k, const void* v, const void* skip,
                              const void* w_out, void* out, int b, int h, int w, int n_heads,
-                             int ks, float scale, void* stream) {
-  const int c = n_heads * PE;
-  if (c > 512 || c % 128) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (TQ * TQ + 2 * NKEYS_ALLOC) * PLDK * sizeof(bf16) +
-                      TQ * TQ * (c + 8) * sizeof(bf16) + PANEL * LDT * sizeof(bf16) +
-                      WARPS * STRIP * PLDS * sizeof(float);
-  const cudaError_t attr = allow_smem(na2d_proj_kernel, smem);
-  const dim3 grid((h / TQ) * (w / TQ), b);
-  na2d_proj_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(skip), static_cast<const bf16*>(w_out), static_cast<bf16*>(out),
-      h, w, n_heads, ks, scale);
-  return launch_status(attr);
+                             int e, int ks, float scale, void* stream) {
+  const long c = static_cast<long>(n_heads) * e;
+  if ((e != 32 && e != 64) || c > 512 || c % 128) return static_cast<int>(cudaErrorInvalidValue);
+  const MapStrides packed{h * w * c, w * c, c};
+  const attn_fwd::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<bf16*>(out), nullptr,
+                         packed, packed, packed, packed, n_heads, scale};
+  const bf16* s = static_cast<const bf16*>(skip);
+  const bf16* wo = static_cast<const bf16*>(w_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ranks = static_cast<int>(c / 64);
+  return e == 32 ? na_proj::launch<32>(a, s, wo, b, h, w, ks, ranks, st)
+                 : na_proj::launch<64>(a, s, wo, b, h, w, ks, ranks, st);
 }
 
 KDT_DEFINE_ERROR_STRING

@@ -25,10 +25,13 @@ plain versions, which autograd differentiates.
   and v each read through its own strides, at e 32 and 64; wmma kernels at
   128; a dq kernel per query tile and a dk/dv kernel per key tile, one
   counted launch).
-- ``na2d_packed_proj``: K15, ``na2d_packed`` with the out-projection and
-  the residual fused into the forward; its backward recomputes the
-  attention with K2 and runs K7, as the JAX op's backward is the VJP of its
-  plain version.
+- ``na2d_packed_proj``: K15 (``csrc/na_proj.cuh``, launched from
+  ``csrc/na2d_heads.cu``), ``na2d_packed`` with the out-projection and the
+  residual fused into the forward, at head dims 32 and 64: a thread block
+  cluster per query tile and image, a rank per 64 channels. Its backward
+  recomputes the attention with K2 and runs K7 (head dim 64), or K11 and
+  K12 on the per-head views (head dim 32), as the JAX op's backward is the
+  VJP of its plain version.
 """
 
 import ctypes
@@ -49,6 +52,9 @@ TILE = 8          # query tile edge of the kernels
 MAX_KERNEL = 7    # the kernels' halo holds windows up to 7 x 7
 HALO_KEYS = 208   # rows of a tile's halo partial (14 x 14, rounded up to 16)
 HEAD_DIMS = (32, 64, 128)  # head dims of K11 and K12
+# head dims of K15: a rank's 64 channels hold whole heads, and wgmma.cuh's
+# tiles take 32 and 64
+PROJ_HEAD_DIMS = (32, 64)
 
 _P = ctypes.c_void_p
 # q, k, v, out, lse, batch, h, w, heads, kernel_size, scale, stream
@@ -68,8 +74,9 @@ _HEADS_BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, _P,
 # the head dims whose backward kernel forms delta = rowsum(out * dout)
 # itself (na_bwd.cuh's wgmma kernels); at the others the caller forms it
 DELTA_IN_KERNEL = (32, 64)
-# q, k, v, skip, w_out, out, batch, h, w, heads, kernel_size, scale, stream
-_PROJ_SIGNATURE = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+# q, k, v, skip, w_out, out, batch, h, w, heads, e, kernel_size, scale,
+# stream
+_PROJ_SIGNATURE = [_P] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, _P]
 
 
 def na2d_reference(q, k, v, kernel_size, scale=1.0):
@@ -119,15 +126,22 @@ def packed_takes(c, e):
     return e == 64 and c <= 512 and c % 128 == 0
 
 
-def _check(q, n_heads, kernel_size, what):
+def _check(q, n_heads, kernel_size, what, head_dims=(64,)):
+    """Raises unless q (b, h, w, c) is as the packed kernels take it: a CUDA
+    tensor, c = heads * e with e in ``head_dims``, h and w multiples of 8,
+    kernel_size <= min(7, h, w). Returns e."""
     _build.require_cuda(q, what)
     b, h, w, c = q.shape
-    if c != 64 * n_heads or h % TILE or w % TILE or not (
-            1 <= kernel_size <= min(MAX_KERNEL, h, w)):
+    e = c // n_heads
+    if c != e * n_heads or e not in head_dims or h % TILE or w % TILE or \
+            not 1 <= kernel_size <= min(MAX_KERNEL, h, w):
+        dims = " or ".join(map(str, head_dims))
         raise ValueError(
-            f"na2d kernel takes head dim 64, h and w multiples of {TILE} and "
-            f"kernel_size <= min({MAX_KERNEL}, h, w); got {tuple(q.shape)} "
-            f"with {n_heads} heads, kernel_size {kernel_size}")
+            f"{what}: kernel takes head dim {dims}, h and w multiples of "
+            f"{TILE} and kernel_size <= min({MAX_KERNEL}, h, w); got "
+            f"{tuple(q.shape)} with {n_heads} heads, kernel_size "
+            f"{kernel_size}")
+    return e
 
 
 def _check_heads(q, k, v, kernel_size, what):
@@ -401,8 +415,9 @@ def na2d(q, k, v, kernel_size, scale=1.0):
 def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     """Launches K15 on CUDA tensors: returns NA(q, k, v) @ w_out + skip,
     (b, h, w, c) bf16; w_out is cast to bf16, as the JAX dispatcher casts
-    it to q's dtype."""
-    _check(q, n_heads, kernel_size, "na2d_packed_proj")
+    it to q's dtype. Head dim 128 and above raises: a softmax is not split
+    over the cluster's ranks of 64 channels."""
+    e = _check(q, n_heads, kernel_size, "na2d_packed_proj", PROJ_HEAD_DIMS)
     b, h, w, c = q.shape
     if c > 512 or c % 128:
         raise ValueError(f"na2d_packed_proj kernel takes c <= 512, a "
@@ -414,7 +429,7 @@ def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     out = torch.empty_like(q)
     lib = _build.load("na2d_heads", kdt_na2d_proj=_PROJ_SIGNATURE)
     status = lib.kdt_na2d_proj(
-        *map(_build.ptr, (q, k, v, skip, w16, out)), b, h, w, n_heads,
+        *map(_build.ptr, (q, k, v, skip, w16, out)), b, h, w, n_heads, e,
         kernel_size, scale, _build.stream_ptr(q.device))
     _build.check_launch(lib, status, "na2d_packed_proj")
     global proj_launches
@@ -422,11 +437,28 @@ def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     return out
 
 
+def _attention_vjp(q, k, v, d_att, n_heads, kernel_size, scale):
+    """The attention output and (dq, dk, dv) of packed maps (b, h, w, c)
+    for the cotangent d_att: K2 (with lse) and K7 at head dim 64; K11 and
+    K12 on the (b, h, w, heads, e) views at head dim 32, which K2 and K7 do
+    not take."""
+    if q.shape[-1] == 64 * n_heads:
+        att, lse = packed_forward(q, k, v, n_heads, kernel_size, scale,
+                                  save_lse=True)
+        return att, packed_backward(q, k, v, att, lse, d_att, n_heads,
+                                    kernel_size, scale)
+    split = [t.reshape(*t.shape[:3], n_heads, -1) for t in (q, k, v, d_att)]
+    att, lse = heads_forward(*split[:3], kernel_size, scale, save_lse=True)
+    grads = heads_backward(*split[:3], att, lse, split[3], kernel_size, scale)
+    return att.reshape(q.shape), tuple(g.reshape(q.shape) for g in grads)
+
+
 class _NA2DProj(torch.autograd.Function):
-    """K15 forward; the backward recomputes the attention with K2 (saving
-    the lse), runs K7 on d(attention) = dout @ w_out^T, and takes the
-    projection's gradients with torch.matmul: the JAX op's backward is the
-    VJP of its plain version, with no Pallas kernel of its own."""
+    """K15 forward; the backward recomputes the attention (saving the lse),
+    takes its gradients for d(attention) = dout @ w_out^T
+    (``_attention_vjp``), and the projection's with torch.matmul: the JAX
+    op's backward is the VJP of its plain version, with no Pallas kernel of
+    its own."""
 
     @staticmethod
     def forward(ctx, q, k, v, skip, w_out, n_heads, kernel_size, scale):
@@ -437,13 +469,8 @@ class _NA2DProj(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, w_out = ctx.saved_tensors
-        n_heads, kernel_size, scale = ctx.static
-        att, lse = packed_forward(q, k, v, n_heads, kernel_size, scale,
-                                  save_lse=True)
-        w16 = w_out.to(q.dtype)
-        d_att = dout @ w16.T
-        dq, dk, dv = packed_backward(q, k, v, att, lse, d_att, n_heads,
-                                     kernel_size, scale)
+        d_att = dout @ w_out.to(q.dtype).T
+        att, (dq, dk, dv) = _attention_vjp(q, k, v, d_att, *ctx.static)
         c = q.shape[-1]
         dw = (att.reshape(-1, c).T @ dout.reshape(-1, c)).to(w_out.dtype)
         return dq, dk, dv, dout, dw, None, None, None
@@ -453,8 +480,8 @@ def na2d_packed_proj(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     """``na2d_packed`` with a fused epilogue: NA(q, k, v) @ w_out + skip on
     channel-packed maps (b, h, w, c), w_out (c, c); differentiable. No model
     path calls it, as in the JAX package. The kernel takes bfloat16, head
-    dim 64, c <= 512 and a multiple of 128, h and w multiples of 8 and
-    kernel_size <= min(7, h, w)."""
+    dim 32 or 64, c <= 512 and a multiple of 128, h and w multiples of 8
+    and kernel_size <= min(7, h, w)."""
     if q.device.type == "cpu":
         return proj_reference(q, k, v, skip, w_out, n_heads, kernel_size,
                               scale)

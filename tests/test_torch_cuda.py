@@ -33,8 +33,8 @@ def normal(gen, dev, *shape, std=1.0):
     return (torch.randn(shape, generator=gen) * std).to(dev, torch.bfloat16)
 
 
-def unit_heads(gen, dev, *shape):
-    t = torch.randn(shape, generator=gen).reshape(*shape[:-1], -1, 64)
+def unit_heads(gen, dev, *shape, e=64):
+    t = torch.randn(shape, generator=gen).reshape(*shape[:-1], -1, e)
     t = t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5
     return t.reshape(shape).to(dev, torch.bfloat16)
 
@@ -633,12 +633,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                     dtype=torch.bfloat16).transpose(3, 4)
     with pytest.raises(ValueError, match="strides"):
         na2d.na2d(x, x, x, 7)
-    # K15: c not a multiple of 128, c above 512
+    # K15: c not a multiple of 128, c above 512; head dim 128 (a softmax is
+    # not split over the cluster's ranks of 64 channels)
     for heads in (3, 10):
         x = torch.zeros((1, 8, 8, 64 * heads), device=dev, dtype=torch.bfloat16)
         w = torch.zeros((64 * heads,) * 2, device=dev)
         with pytest.raises(ValueError, match="c <= 512"):
             na2d.na2d_packed_proj(x, x, x, x, w, heads, 7)
+    x = torch.zeros((1, 8, 8, 256), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 32 or 64"):
+        na2d.na2d_packed_proj(x, x, x, x, torch.zeros((256, 256), device=dev),
+                              2, 7)
     x = torch.zeros((1, 16, 2, 64), device=dev)
     with pytest.raises(ValueError, match="bfloat16"):
         flash.flash_attention(x, x, x)
@@ -794,17 +799,30 @@ def test_na2d_packed_and_heads_backward_agree_bit_for_bit(dev, b, h, w, heads, k
         assert torch.equal(a, b_.reshape(a.shape))
 
 
-@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 8, 8, 8, 7),
-                                            (1, 16, 16, 4, 5)])
-def test_na2d_packed_proj(dev, b, h, w, heads, ks):
-    """K15 against its plain version (c = 128, 512 and 256), and its
-    gradients (K2 recompute, K7, matmuls) against autograd through the
-    plain version."""
-    g = torch.Generator().manual_seed(19)
-    c = heads * 64
-    q, k = unit_heads(g, dev, b, h, w, c), unit_heads(g, dev, b, h, w, c)
+def proj_inputs(g, dev, b, h, w, heads, e):
+    """K15's q, k (cosine-sim per head), v, skip and cotangent, bf16, and
+    w_out (c, c) float32."""
+    c = heads * e
+    q, k = (unit_heads(g, dev, b, h, w, c, e=e) for _ in range(2))
     v, skip, dout = (normal(g, dev, b, h, w, c) for _ in range(3))
     w_out = torch.randn((c, c), generator=g).to(dev) * c ** -0.5
+    return q, k, v, skip, w_out, dout
+
+
+# (b, h, w, heads, e, ks): c = 128, 256, 384 and 512 at head dim 64, c =
+# 128 and 512 at head dim 32 (two heads a rank), smaller windows, h != w
+PROJ_CASES = [(2, 16, 24, 2, 64, 7), (1, 8, 8, 8, 64, 7), (1, 16, 16, 4, 64, 5),
+              (1, 16, 16, 6, 64, 7), (2, 16, 24, 4, 32, 7), (1, 16, 16, 16, 32, 7),
+              (1, 8, 16, 4, 32, 3)]
+
+
+@pytest.mark.parametrize("b,h,w,heads,e,ks", PROJ_CASES)
+def test_na2d_packed_proj(dev, b, h, w, heads, e, ks):
+    """K15 against its plain version, and its gradients (the attention
+    recomputed: K2 and K7 at head dim 64, K11 and K12 at 32; matmuls)
+    against autograd through the plain version."""
+    g = torch.Generator().manual_seed(19)
+    q, k, v, skip, w_out, dout = proj_inputs(g, dev, b, h, w, heads, e)
     got = counted(na2d, lambda: na2d.na2d_packed_proj(q, k, v, skip, w_out,
                                                       heads, ks), "proj_launches")
     assert_close(got, na2d.proj_reference(q, k, v, skip, w_out, heads, ks))
@@ -816,3 +834,28 @@ def test_na2d_packed_proj(dev, b, h, w, heads, ks):
         want = torch.autograd.grad(na2d.proj_reference(*plain, heads, ks),
                                    plain, dout)
     assert_all_close(grads, want)
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 8, 8, 8, 7),
+                                            (1, 16, 16, 4, 3)])
+def test_na2d_packed_proj_identity_is_k2(dev, b, h, w, heads, ks):
+    """K15 with w_out = I and skip = 0 gives K2's output bit for bit: the
+    attention is K2's (attn_fwd.cuh), rounded to bf16 at the same point,
+    and the product with I and the add of 0 are exact."""
+    g = torch.Generator().manual_seed(29)
+    q, k, v, skip, _, _ = proj_inputs(g, dev, b, h, w, heads, 64)
+    eye = torch.eye(heads * 64, device=dev)
+    got = na2d.proj_forward(q, k, v, torch.zeros_like(skip), eye, heads, ks)
+    want, _ = na2d.packed_forward(q, k, v, heads, ks)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("heads,e", [(2, 64), (8, 64), (4, 32), (16, 32)])
+def test_na2d_packed_proj_rerun_is_bit_equal(dev, heads, e):
+    """K15 has no partials and no atomics: a rerun gives the same output
+    bit for bit, at every cluster size it takes (2 to 8 ranks)."""
+    g = torch.Generator().manual_seed(30)
+    q, k, v, skip, w_out, _ = proj_inputs(g, dev, 2, 16, 24, heads, e)
+    first = na2d.proj_forward(q, k, v, skip, w_out, heads, 7)
+    assert torch.equal(na2d.proj_forward(q, k, v, skip, w_out, heads, 7),
+                       first)

@@ -20,7 +20,13 @@ past as 64-row tiles of 4 slab rows x 16 query slots. ``NaKeys`` and
 ``Reach`` below mirror it; the two-kernel streamed backward (dq over query
 tiles, dk and dv over key tiles, delta = rowsum(out * dout)), run over both
 geometries in numpy float32, is held against ``jax.vjp`` of the JAX
-package's ``na2d_reference``."""
+package's ``na2d_reference``.
+
+K15 (csrc/na_proj.cuh) runs the forward over ``NaQueries`` in a thread
+block cluster per query tile, one rank per 64 channels, then sums the
+ranks' attention tiles times blocks of w_out in a rotating order;
+``proj_schedule`` mirrors that schedule and is held against the JAX
+package's ``na2d_packed_proj``."""
 
 import importlib
 
@@ -433,3 +439,50 @@ def test_slab_edge_rejection_guards_dk_dv():
         assert max(error(reject, zero_fill)) <= F32_TOL
     err_dq, err_dk, err_dv = error(False, False)
     assert err_dq <= F32_TOL and err_dk > 1e-2 and err_dv > 1e-2
+
+
+# ---- K15: the cluster schedule of csrc/na_proj.cuh ------------------------
+
+def proj_schedule(q, k, v, skip, w_out, e, ks, scale):
+    """Mirror of K15's cluster in numpy float64. Rank r of a query tile's
+    cluster runs the streamed forward over NaQueries for the head (e = 64)
+    or heads (e = 32) of channels [64 r, 64 r + 64): its A tile. Its output
+    columns [64 r, 64 r + 64) of the tile's rows are the sum over steps s
+    of A_r' w_out[64 r' : 64 r' + 64, 64 r : 64 r + 64), r' = (r + s) mod
+    R, in that order, plus skip. q, k, v, skip (b, h, w, c); w_out (c,
+    c)."""
+    b, h, w, c = q.shape
+    ranks = c // 64
+    att = [streamed_forward(*(t[..., 64 * r:64 * r + 64].reshape(
+        b, h, w, 64 // e, e) for t in (q, k, v)), ks, scale)[0].reshape(
+            b, h * w, 64) for r in range(ranks)]
+    res = skip.reshape(b, h * w, c).astype(np.float64)
+    out = np.zeros((b, h * w, c))
+    for tile in range(h // TQ * (w // TQ)):
+        qy, qx = NaQueries(tile, h, w, ks).own(np.arange(64))
+        rows = qy * w + qx
+        for r in range(ranks):
+            cols = slice(64 * r, 64 * r + 64)
+            order = [(r + step) % ranks for step in range(ranks)]
+            assert sorted(order) == list(range(ranks))
+            acc = np.zeros((b, 64, 64))
+            for rp in order:
+                acc += att[rp][:, rows] @ w_out[64 * rp:64 * rp + 64, cols]
+            out[:, rows, cols] = acc + res[:, rows, cols]
+    return out.reshape(b, h, w, c)
+
+
+@pytest.mark.parametrize("c,e", [(128, 64), (128, 32), (256, 64), (384, 64),
+                                 (512, 64)])
+@pytest.mark.parametrize("ks", [3, 7])
+@pytest.mark.parametrize("h,w", [(8, 8), (16, 24)])
+def test_proj_schedule_matches_jax(h, w, ks, c, e):
+    rng = np.random.default_rng(c + e + ks)
+    q, k, v, skip = (rng.standard_normal((1, h, w, c)).astype(np.float32)
+                     for _ in range(4))
+    w_out = (rng.standard_normal((c, c)) * c ** -0.5).astype(np.float32)
+    got = proj_schedule(q, k, v, skip, w_out, e, ks, 0.25)
+    want = np.asarray(j_na.na2d_packed_proj(
+        *map(jnp.asarray, (q, k, v, skip, w_out)), c // e, ks, scale=0.25))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=F32_TOL * np.abs(want).max())

@@ -143,29 +143,35 @@ def test_na2d_takes_strided_views_and_smaller_windows():
 
 # ---- K15: the fused epilogue ------------------------------------------------
 
-def proj_case(seed, b=1, h=16, w=16, c=128):
+def proj_case(seed, b=1, h=16, w=16, c=128, e=64):
     rng = np.random.default_rng(seed)
-    return (unit_heads(rng, b, h, w, c // 64, 64).reshape(b, h, w, c),
-            unit_heads(rng, b, h, w, c // 64, 64).reshape(b, h, w, c),
+    return (unit_heads(rng, b, h, w, c // e, e).reshape(b, h, w, c),
+            unit_heads(rng, b, h, w, c // e, e).reshape(b, h, w, c),
             rand(rng, b, h, w, c), rand(rng, b, h, w, c),
             rand(rng, c, c, std=c ** -0.5), rand(rng, b, h, w, c))
 
 
-def test_na2d_packed_proj_matches_jax_and_pallas_body():
+@pytest.mark.parametrize("e", [64, 32])
+def test_na2d_packed_proj_matches_jax_and_pallas_body(e):
     """K15's plain version, NA(q, k, v) @ w_out + skip, and its gradients
     against the JAX op (its XLA reference on the CPU) and against the JAX
     custom_vjp run with its forward as the interpret-mode Pallas body (its
-    backward is the VJP of the reference, as the port's recomputes)."""
-    *inputs, dout = proj_case(4)
-    fn = lambda q, k, v, s, w_: na2d.na2d_packed_proj(q, k, v, s, w_, 2, 7)
+    backward is the VJP of the reference, as the port's recomputes), at c
+    = 128: 2 heads of 64, or 4 heads of 32, which the JAX dispatcher also
+    sends to its Pallas body."""
+    heads = 128 // e
+    *inputs, dout = proj_case(4 if e == 64 else 5, e=e)
+    fn = lambda q, k, v, s, w_: na2d.na2d_packed_proj(q, k, v, s, w_, heads,
+                                                      7)
     got = fn(*map(torch.from_numpy, inputs))
-    j_fn = lambda q, k, v, s, w_: j_na.na2d_packed_proj(q, k, v, s, w_, 2, 7)
+    j_fn = lambda q, k, v, s, w_: j_na.na2d_packed_proj(q, k, v, s, w_,
+                                                        heads, 7)
     close(got, j_fn(*map(jnp.asarray, inputs)))
     with pltpu.force_tpu_interpret_mode():
         close(got, j_na._na_packed_proj_fwd(*map(jnp.asarray, inputs), 7, 1.0,
-                                            TILE, 2))
+                                            TILE, heads))
         pallas = lambda q, k, v, s, w_: j_na._na2d_packed_proj_inner(
-            q, k, v, s, w_, 7, 1.0, TILE, 2)
+            q, k, v, s, w_, 7, 1.0, TILE, heads)
         want_pallas = jax_grads(pallas, inputs, dout)
     grads = port_grads(fn, inputs, dout)
     close_all(grads, jax_grads(j_fn, inputs, dout))
