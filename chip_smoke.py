@@ -89,7 +89,23 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    step's gradient at batch 2 against float32 on the CPU;
 18. default build: the flagship and the U-Net from make_model(config) with
    no dtype and no device compute in bfloat16 on the card and give a
-   finite forward at batch 2; an explicit float32 there raises ValueError.
+   finite forward at batch 2; an explicit float32 there raises ValueError;
+19. condcache and the sampler suite, the flagship at batch 8: K1 and K4
+   with their scale a (8, d) block of a (8, 7168) condcache row, read
+   through its row stride, against their plain versions and bit for bit
+   against the same kernel on the block's contiguous copy, both timed;
+   the table's precompute (one K5 launch per schedule sigma); one denoiser
+   call at three schedule sigmas, cached against uncached, bit for bit,
+   with 12 K1, 8 K2, 4 K3, 12 K4 and no K5 a cached call; the card time a
+   call with and without condcache (profiles); 50-step DPM++(2M), cached
+   against uncached, bit for bit, with its launch counts; then each of the
+   13 samplers as the sample entry point runs it (condcache under the
+   schedule-point samplers): finite output, launch counts equal to its
+   model calls x the layout (plus the table's K5 launches), samples/s;
+20. the sample entry point: a flagship inference checkpoint saved in
+   bfloat16, then ``python -m k_diffusion_tpu_torch.sample --sampler lms
+   -n 8`` on it as a subprocess on the card, which must write 8 PNGs; then
+   the cifar10 U-Net the same way under dpmpp_2m.
 
 Each kernel line also gives the kernel's achieved TFLOP/s (the operations
 its function needs over its time) and its time's share of the bound.
@@ -112,9 +128,12 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import torch
@@ -1374,6 +1393,13 @@ def main():
     for name, cfg in (("flagship", config), ("unet", unet)):
         default_build_check(KT, cfg, name)
 
+    # condcache and the sampler suite: phase 19; the sample entry point:
+    # phase 20
+    with torch.no_grad():
+        strided_scale_check(KT, config, dev)
+    condcache_phase(KT, config, dev, smi)
+    entry_point_phase(KT, config, unet, smi)
+
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
     # the unfused training steps for K11/K12, the op paths for K15 and K8)
@@ -1512,6 +1538,291 @@ def default_build_check(KT, config, name):
           flush=True)
     del model
     torch.cuda.empty_cache()
+
+
+def flagship_layout(config):
+    """The flagship's kernel launches per denoiser call, mapping network
+    (K5) aside."""
+    depths = config["model"]["depths"]
+    layers = 2 * sum(depths[:-1]) + depths[-1]
+    return {"fused_qkv": layers, "na2d": 2 * sum(depths[:-1]),
+            "global_packed": depths[-1], "fused_ffn": layers}
+
+
+def hdit_levels(KT, config):
+    """The config's depths, widths and d_ff as level specs, for the scale
+    layout (which reads no attention kind but "none", and the flagship has
+    attention at every level)."""
+    m = config["model"]
+    itv2 = KT.models.image_transformer_v2
+    return tuple(itv2.LevelSpec(depth, width, d_ff, itv2.GlobalAttentionSpec(64))
+                 for depth, width, d_ff in zip(m["depths"], m["widths"],
+                                               m["d_ffs"]))
+
+
+def strided_scale_check(KT, config, dev):
+    """Phase 19, first part: K1 and K4 at the flagship's shapes, batch 8,
+    their scale a (8, d) block of a (8, total) condcache row at the level's
+    first layer's offset (row stride 7168). Each against its plain version
+    on the same block, and bit for bit against the kernel on the block's
+    contiguous copy; both kernels timed (CUDA events), summed over a
+    denoiser call's launches."""
+    from k_diffusion_tpu_torch.ops import kernels, rope
+    from k_diffusion_tpu_torch.ops.kernels import fused_ffn, fused_qkv
+
+    layout, total = KT.models.image_transformer_v2.cond_scale_layout(
+        hdit_levels(KT, config))
+    g = torch.Generator().manual_seed(SEED + 19)
+    b, bf16 = SAMPLE_BATCH, torch.bfloat16
+    row = (1 + 0.1 * torch.randn((b, total), generator=g)).to(dev, bf16)
+    sums = collections.Counter()
+    for h, d, d_ff, n, layer in ((64, 128, 384, 4, "down_0_layer_0"),
+                                 (32, 256, 768, 4, "down_1_layer_0"),
+                                 (16, 512, 1536, 4, "mid_layer_0")):
+        heads = d // 64
+        attn_off, ff_off = layout[layer]
+        x = (torch.randn((b, h, h, d), generator=g)).to(dev, bf16)
+        pos = rope.make_axial_pos(h, h, device=dev)
+        w_qkv = lecun((d, 3 * d), g, dev)
+        a_scale = torch.full((heads,), 10.0, device=dev)
+        w_up, w_down = lecun((d, 2 * d_ff), g, dev), lecun((d_ff, d), g, dev)
+        xt = x.reshape(b, h * h, d)
+        for name, off, call, plain in (
+                ("fused_qkv", attn_off,
+                 lambda s: fused_qkv.fused_qkv_prologue(x, pos, s, w_qkv,
+                                                        a_scale, heads),
+                 lambda s: fused_qkv.reference(x, pos, s, w_qkv, a_scale,
+                                               heads)),
+                ("fused_ffn", ff_off,
+                 lambda s: (fused_ffn.fused_geglu_ffn(xt, s, w_up, w_down),),
+                 lambda s: (fused_ffn.reference(xt, s, w_up, w_down),))):
+            block = row[:, off:off + d]
+            if block.is_contiguous() or block.stride(0) != total:
+                raise AssertionError(f"{name}: the scale block is not a "
+                                     f"strided view: {block.stride()}")
+            copy = block.contiguous()
+            kernels.reset_launch_counts()
+            got = call(block)
+            if kernels.launch_counts()[name] != 1:
+                raise AssertionError(f"{name}: the strided scale did not "
+                                     "launch the kernel")
+            label = f"{name} strided scale {b}x{h}x{h}x{d} (offset {off})"
+            err = max(check_close(label, a, p, KERNEL_REL_BOUND)[0]
+                      for a, p in zip(got, plain(block)))
+            if not all(torch.equal(a, c) for a, c in zip(got, call(copy))):
+                raise AssertionError(f"{label}: differs from the kernel on "
+                                     "the block's contiguous copy")
+            strided_ms = device_ms(lambda: call(block), 50)
+            contig_ms = device_ms(lambda: call(copy), 50)
+            sums[name, "strided"] += n * strided_ms
+            sums[name, "contiguous"] += n * contig_ms
+            print(f"{label}: max abs err {err:.3e} against plain (bound "
+                  f"{KERNEL_REL_BOUND}), bit-equal to the contiguous copy's; "
+                  f"{strided_ms:.4f} ms, contiguous {contig_ms:.4f} ms",
+                  flush=True)
+    for name in ("fused_qkv", "fused_ffn"):
+        print(f"{name} per denoiser call: strided scale "
+              f"{sums[name, 'strided']:.4f} ms, contiguous "
+              f"{sums[name, 'contiguous']:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+
+def condcache_phase(KT, config, dev, smi):
+    """Phase 19: condcache on the flagship at batch 8 (seeded weights,
+    zero-init projections filled with noise, bfloat16, eval), then the 13
+    samplers as the sample entry point runs them."""
+    from k_diffusion_tpu_torch import condcache
+    from k_diffusion_tpu_torch.ops import kernels
+
+    g = torch.Generator().manual_seed(SEED + 19)
+    model = KT.config.make_model(config, dtype=torch.bfloat16, device="cpu",
+                                 generator=g)
+    fill_zero_init(model, g)
+    model.to(dev).eval()
+    m = config["model"]
+    wrap = KT.config.make_denoiser_wrapper(config)
+    sigmas = KT.sampling.get_sigmas_karras(STEPS, m["sigma_min"],
+                                           m["sigma_max"], rho=7.0, device=dev)
+    b = SAMPLE_BATCH
+    per_call = flagship_layout(config)
+    zero = dict.fromkeys(kernels.COUNTERS, 0)
+    x = (torch.randn(input_shape(config, b), generator=g)
+         * m["sigma_max"]).to(dev)
+    uncached = wrap(model)
+    with torch.no_grad():
+        uncached(x, sigmas[:1].expand(b))  # warm up at this batch
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        inner = condcache.ScheduledModel(model, sigmas[:-1], b)
+        torch.cuda.synchronize()
+        table_secs = time.perf_counter() - start
+        counts = kernels.launch_counts()
+        if counts != zero | {"fused_mapping": STEPS}:
+            raise AssertionError(f"condcache table: launch counts {counts}")
+        cached = wrap(inner)
+        print(f"condcache table: {tuple(inner.scales_table.shape)} "
+              f"{inner.scales_table.dtype} in {table_secs:.3f} s, one K5 "
+              f"launch per schedule sigma ({counts['fused_mapping']})",
+              flush=True)
+        probes = (0, STEPS // 2, STEPS - 1)
+        for i in probes:
+            s = sigmas[i:i + 1].expand(b)
+            kernels.reset_launch_counts()
+            got = cached(x, s)
+            counts = kernels.launch_counts()
+            want = uncached(x, s)
+            if counts != zero | per_call:
+                raise AssertionError(f"cached call: launch counts {counts} "
+                                     f"!= {zero | per_call}")
+            if not torch.equal(got, want):
+                diff = (got - want).abs().max().item()
+                raise AssertionError(f"cached call at sigma {s[0].item()}: "
+                                     f"differs from uncached by {diff:.3e}")
+        inner.check()
+        print(f"condcache call: cached equals uncached bit for bit at "
+              f"sigmas {[round(sigmas[i].item(), 4) for i in probes]}; "
+              f"launches a cached call {counts}", flush=True)
+
+    busy = {}
+    for name, den in (("cached", cached), ("uncached", uncached)):
+        def calls(n, den=den):
+            with torch.no_grad():
+                for _ in range(n):
+                    den(x, sigmas[:1].expand(b))
+        busy[name] = profile(calls, f"condcache {name}", "denoiser calls")
+    print(f"condcache card time per denoiser call, batch {b}: cached "
+          f"{busy['cached']:.3f} ms, uncached {busy['uncached']:.3f} ms on "
+          f"{smi}", flush=True)
+
+    with torch.no_grad():
+        runs = {}
+        for name, den in (("cached", cached), ("uncached", uncached)):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            out = KT.sampling.sample_dpmpp_2m(den, x, sigmas)
+            torch.cuda.synchronize()
+            runs[name] = (out, time.perf_counter() - start,
+                          kernels.launch_counts())
+        inner.check()
+        want = {k: STEPS * v for k, v in per_call.items()}
+        if runs["cached"][2] != zero | want:
+            raise AssertionError(f"cached DPM++(2M): launch counts "
+                                 f"{runs['cached'][2]} != {zero | want}")
+        if runs["uncached"][2] != zero | want | {"fused_mapping": STEPS}:
+            raise AssertionError(f"uncached DPM++(2M): launch counts "
+                                 f"{runs['uncached'][2]}")
+        if not torch.equal(runs["cached"][0], runs["uncached"][0]):
+            raise AssertionError("cached DPM++(2M) differs from uncached")
+        if not torch.isfinite(runs["cached"][0]).all():
+            raise AssertionError("cached DPM++(2M): output not finite")
+        print(f"condcache {STEPS}-step DPM++(2M), batch {b}: cached equals "
+              f"uncached bit for bit; cached {b / runs['cached'][1]:.3f} "
+              f"samples/s ({runs['cached'][1]:.3f} s, table excluded), "
+              f"uncached {b / runs['uncached'][1]:.3f} samples/s on {smi}; "
+              f"launches cached {runs['cached'][2]}", flush=True)
+
+        for name in KT.sampling.SAMPLERS:
+            use_cache = name in condcache.SCHEDULE_POINT_SAMPLERS
+            calls = [0]
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            scheduled = (condcache.ScheduledModel(model, sigmas[:-1], b)
+                         if use_cache else None)
+            den = wrap(scheduled) if use_cache else uncached
+
+            def counted(x, sigma, den=den):
+                calls[0] += 1
+                return den(x, sigma)
+
+            out = KT.sampling.call_sampler(
+                name, counted, x, sigmas,
+                generator=torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            counts = kernels.launch_counts()
+            if use_cache:
+                scheduled.check()
+            n = calls[0]
+            want = zero | {k: n * v for k, v in per_call.items()} | {
+                "fused_mapping": STEPS if use_cache else n}
+            if counts != want:
+                raise AssertionError(f"sampler {name}: launch counts {counts} "
+                                     f"!= {n} calls x the layout {want}")
+            if out.shape != x.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"sampler {name}: output not finite or "
+                                     f"of shape {tuple(out.shape)}")
+            print(f"sampler {name}: {n} model calls"
+                  f"{' through condcache' if use_cache else ''}, "
+                  f"{b / secs:.3f} samples/s at batch {b} ({secs:.3f} s, "
+                  f"table included) on {smi}; launches match the layout",
+                  flush=True)
+    del model, inner, cached, uncached
+    torch.cuda.empty_cache()
+
+
+def check_png(path, size):
+    """A PNG file of ``size`` x ``size`` 8-bit RGB pixels, read with zlib
+    (the card's machine has no Pillow): the header and every row."""
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path.name}: not a PNG")
+    chunks, pos = {}, 8
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        chunks[kind] = chunks.get(kind, b"") + data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    pixels = zlib.decompress(chunks[b"IDAT"])
+    if (w, h, depth, color) != (size, size, 8, 2) or \
+            len(pixels) != h * (1 + 3 * w):
+        raise AssertionError(f"{path.name}: {w} x {h}, depth {depth}, colour "
+                             f"type {color}, {len(pixels)} bytes of rows")
+
+
+def entry_point_phase(KT, config, unet, smi):
+    """Phase 20: an inference checkpoint in bfloat16 (seeded weights,
+    zero-init tensors filled with noise), then the sample entry point on it
+    as a subprocess on the card: 8 PNGs each for the flagship under LMS and
+    the U-Net under DPM++(2M)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, cfg, fill, sampler in (
+                ("flagship", config, fill_zero_init, "lms"),
+                ("unet", unet, fill_zero_init_unet, "dpmpp_2m")):
+            g = torch.Generator().manual_seed(SEED + 20)
+            model = KT.config.make_model(cfg, device="cpu", generator=g)
+            fill(model, g)
+            ckpt = KT.checkpoint.save_inference(
+                tmp / f"{name}.safetensors", model, cfg, dtype=torch.bfloat16)
+            del model
+            cmd = [sys.executable, "-m", "k_diffusion_tpu_torch.sample",
+                   "--checkpoint", str(ckpt), "--sampler", sampler, "-n", "8",
+                   "--batch-size", "8", "--prefix", str(tmp / name)]
+            start = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            secs = time.perf_counter() - start
+            if proc.returncode:
+                raise AssertionError(f"sample entry point ({name}) failed:\n"
+                                     f"{proc.stdout[-2000:]}"
+                                     f"{proc.stderr[-4000:]}")
+            files = sorted(tmp.glob(f"{name}_*.png"))
+            if [f.name for f in files] != [f"{name}_{i:05}.png"
+                                           for i in range(8)]:
+                raise AssertionError(f"sample entry point ({name}) wrote "
+                                     f"{[f.name for f in files]}")
+            for f in files:
+                check_png(f, cfg["model"]["input_size"][0])
+            print(f"sample entry point ({name}, {sampler}): 8 PNGs from a "
+                  f"bfloat16 checkpoint of {ckpt.stat().st_size} bytes in "
+                  f"{secs:.1f} s (process start and model build included) on "
+                  f"{smi}; its output: "
+                  f"{' | '.join(proc.stdout.strip().splitlines())}",
+                  flush=True)
 
 
 def unet_forward_flops(KT, config):
@@ -1708,6 +2019,7 @@ def profile(run, name, what):
                     and not e.is_user_annotation) / 3e3
     print(f"{name} profile: 3 {what} in {secs:.3f} s under the profiler, "
           f"device busy {device_ms:.3f} ms each; by device time:")
+    busy = device_ms
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
     # the attention kernels (the forward of K3, K13 and of K2, K11; the
@@ -1722,6 +2034,7 @@ def profile(run, name, what):
                   f"step or call, {e.self_device_time_total / e.count:.1f} us "
                   f"each, {e.self_device_time_total / 3e3:.3f} ms a step or "
                   f"call", flush=True)
+    return busy
 
 
 if __name__ == "__main__":

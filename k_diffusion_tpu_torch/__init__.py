@@ -3,9 +3,18 @@ reference it is held against).
 
 The port covers the HDiT (``image_transformer_v2``) with neighborhood and
 global attention levels and the U-Net (``image_v1``):
-- sampling with DPM++(2M): ``config.load_config`` -> ``config.make_model``
-  -> ``config.make_denoiser_wrapper`` -> ``sampling.get_sigmas_karras`` ->
-  ``sampling.sample_dpmpp_2m``;
+- sampling from an inference checkpoint, the serving entry point:
+  ``python -m k_diffusion_tpu_torch.sample --checkpoint model.safetensors
+  -n 64 --sampler lms`` (on the card; ``--device cpu`` runs the kernels'
+  plain versions on the CPU, as the tests do). In code:
+  ``checkpoint.load_inference`` -> ``config.make_model`` ->
+  ``config.make_denoiser_wrapper`` -> a schedule
+  (``sampling.get_sigmas_karras`` and the others) ->
+  ``sampling.call_sampler`` (13 samplers), with the HDiT's conditioning
+  precomputed for the schedule by ``condcache`` under the samplers that
+  evaluate it at schedule sigmas only; ``checkpoint.save_inference``
+  writes such a checkpoint (safetensors, read and written by
+  ``utils.io``, readable by the JAX package);
 - training: ``training.make_optimizer`` -> ``training.init_train_state`` ->
   ``training.make_train_step`` with ``config.make_sample_density``,
   ``make_lr_schedule`` and ``make_ema_sched``.
@@ -19,9 +28,10 @@ CPU tensors. Importing the package imports torch only and compiles
 nothing.
 """
 
-from . import (augmentation, config, convert, denoiser, layers, models, ops,
-               sampling, training, utils)
+from . import (augmentation, checkpoint, condcache, config, convert,
+               denoiser, layers, models, ops, sampling, training, utils)
 from .denoiser import Denoiser
 
-__all__ = ["augmentation", "config", "convert", "denoiser", "layers",
-           "models", "ops", "sampling", "training", "utils", "Denoiser"]
+__all__ = ["augmentation", "checkpoint", "condcache", "config", "convert",
+           "denoiser", "layers", "models", "ops", "sampling", "training",
+           "utils", "Denoiser"]

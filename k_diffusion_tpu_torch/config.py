@@ -91,7 +91,8 @@ _DEFAULTS = {
 
 
 def load_config(path_or_dict):
-    """Loads a config from a JSON file or a dict and fills in the defaults,
+    """Loads a config from a JSON file, a dict or the metadata of a
+    safetensors inference checkpoint and fills in the defaults,
     exactly as the JAX package does for ``image_v1`` and
     ``image_transformer_v2``."""
     if isinstance(path_or_dict, dict):
@@ -99,10 +100,9 @@ def load_config(path_or_dict):
     else:
         file = Path(path_or_dict)
         if file.suffix == ".safetensors":
-            raise NotImplementedError(
-                "configs from checkpoint metadata come with the port's "
-                "checkpoint I/O")
-        config = json.loads(file.read_text())
+            config = json.loads(utils.get_safetensors_metadata(file)["config"])
+        else:
+            config = json.loads(file.read_text())
     if config["model"]["type"] == "image_v1":
         return deep_merge(_DEFAULTS, deep_merge(_DEFAULTS_IMAGE_V1, config))
     if config["model"]["type"] != "image_transformer_v2":

@@ -1,5 +1,7 @@
 """JAX parameter trees -> the port's state_dicts: a model's params, and a
-JAX ``TrainState``'s params and EMA params into the port's train state.
+JAX ``TrainState``'s params and EMA params into the port's train state; and
+between the port's names and the ``/``-joined flax paths of the JAX
+package's safetensors files (``checkpoint.py``).
 
 The port's parameter names mirror the flax tree and keep its layouts (Dense
 kernels (in, out), the U-Net's convolution kernels (kh, kw, in, out),
@@ -22,6 +24,17 @@ def flatten(tree, prefix=""):
         else:
             flat[name] = value
     return flat
+
+
+def names_from_flax_paths(flat):
+    """{"a/b/c": x} (the JAX package's ``_flatten_params`` names) ->
+    {"a.b.c": x}, the port's state_dict names."""
+    return {name.replace("/", "."): value for name, value in flat.items()}
+
+
+def flax_paths_from_names(state):
+    """The inverse of ``names_from_flax_paths``."""
+    return {name.replace(".", "/"): value for name, value in state.items()}
 
 
 def state_dict_from_jax(params):

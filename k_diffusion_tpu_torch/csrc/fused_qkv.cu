@@ -75,7 +75,8 @@ qkv_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nscale,
                const __grid_constant__ CUtensorMap map_w, const float* __restrict__ attn_scale,
                const float* __restrict__ pos, const float* __restrict__ freqs,
                bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v, int images,
-               int tokens, int d, int n_heads, int groups, float eps, float cos_eps) {
+               int tokens, int d, int n_heads, int groups, int scale_stride, float eps,
+               float cos_eps) {
   using namespace gemm;
   // RoPE pair distance; heads a panel; frequencies a head and axis
   constexpr int R = E / 4, HP = 64 / E, F = E / 8;
@@ -115,8 +116,8 @@ qkv_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nscale,
   tma_start(steps, load);
   cp_async_wait<0>();
   __syncthreads();
-  norm_tiles(t, d, nscale + static_cast<long>(t.img) * d, eps, xt, s_r + wgi * ROWS, nullptr,
-             nullptr, tid, gemm::THREADS);
+  norm_tiles(t, d, nscale + static_cast<long>(t.img) * scale_stride, eps, xt, s_r + wgi * ROWS,
+             nullptr, nullptr, tid, gemm::THREADS);
 
   const int c = acc_col();
   float acc[NP][32];
@@ -408,8 +409,8 @@ namespace {
 template <int E, int NP>
 int launch_fused_qkv(const void* x, const void* nscale, const void* w, const void* attn_scale,
                      const void* pos, const void* freqs, void* q, void* k, void* v, int images,
-                     int tokens, int d, int n_heads, int groups, float eps, float cos_eps,
-                     cudaStream_t st, int* blocks) {
+                     int tokens, int d, int n_heads, int groups, int scale_stride, float eps,
+                     float cos_eps, cudaStream_t st, int* blocks) {
   const size_t smem = qkv_fwd_smem(d, NP);
   const cudaError_t attr = gemm::allow_shared(qkv_fwd_kernel<E, NP>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -424,7 +425,7 @@ int launch_fused_qkv(const void* x, const void* nscale, const void* w, const voi
       static_cast<const bf16*>(x), static_cast<const bf16*>(nscale), map_w,
       static_cast<const float*>(attn_scale), static_cast<const float*>(pos),
       static_cast<const float*>(freqs), static_cast<bf16*>(q), static_cast<bf16*>(k),
-      static_cast<bf16*>(v), images, tokens, d, n_heads, groups, eps, cos_eps);
+      static_cast<bf16*>(v), images, tokens, d, n_heads, groups, scale_stride, eps, cos_eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,9 +468,11 @@ int launch_prologue_bwd(const void* x, const void* nscale, const void* w, const 
 
 }  // namespace
 
-// x (rows, d) bf16 with rows = images * tokens; nscale (images, d) bf16;
-// w (d, 3d) bf16; attn_scale (heads,) f32; pos (tokens, 2) f32 (the
-// axial positions); freqs (heads, e / 8) f32 (the RoPE frequencies, ops/
+// x (rows, d) bf16 with rows = images * tokens; nscale (images, d) bf16,
+// image i's row at nscale + i * scale_stride (scale_stride >= d: a column
+// block of a condcache row, read in place, as the Pallas kernel's BlockSpec
+// reads its lane block); w (d, 3d) bf16; attn_scale (heads,) f32; pos
+// (tokens, 2) f32 (the axial positions); freqs (heads, e / 8) f32 (the RoPE frequencies, ops/
 // rope.py's axial_rope_freqs); q, k, v (rows, d) bf16. Needs d == e * heads with head dim e 32 or
 // 64 and d % 64 == 0. A ring step takes step_panels (1, or 2 where d % 128
 // == 0) 64-column panels of W_qkv; the 3d / (64 step_panels) step units
@@ -479,18 +482,20 @@ int launch_prologue_bwd(const void* x, const void* nscale, const void* w, const 
 extern "C" int kdt_fused_qkv(const void* x, const void* nscale, const void* w,
                              const void* attn_scale, const void* pos, const void* freqs,
                              void* q, void* k, void* v, int images, int tokens, int d,
-                             int n_heads, int step_panels, int groups, float eps, float cos_eps,
-                             void* stream, int* blocks) {
+                             int n_heads, int step_panels, int groups, int scale_stride,
+                             float eps, float cos_eps, void* stream, int* blocks) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 64 || n_heads < 1 || (step_panels != 1 && step_panels != 2) ||
-      (3 * d / 64) % step_panels || groups < 1 || groups > 3 * d / 64 / step_panels)
+      (3 * d / 64) % step_panels || groups < 1 || groups > 3 * d / 64 / step_panels ||
+      scale_stride < d || scale_stride % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const int e = d / n_heads;
   if (e * n_heads != d) return static_cast<int>(cudaErrorInvalidValue);
 #define KDT_FUSED_QKV(E, NP)                                                                 \
   if (e == E && step_panels == NP)                                                           \
     return launch_fused_qkv<E, NP>(x, nscale, w, attn_scale, pos, freqs, q, k, v, images,  \
-                                   tokens, d, n_heads, groups, eps, cos_eps, st, blocks);
+                                   tokens, d, n_heads, groups, scale_stride, eps, cos_eps, st, \
+                                   blocks);
   KDT_FUSED_QKV(32, 1)
   KDT_FUSED_QKV(32, 2)
   KDT_FUSED_QKV(64, 1)

@@ -519,7 +519,7 @@ __global__ void __launch_bounds__(WG * gemm::THREADS, 1)
 ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nscale,
                const __grid_constant__ CUtensorMap map_up,
                const __grid_constant__ CUtensorMap map_down, bf16* __restrict__ out, int tokens,
-               int d, int d_ff, float eps) {
+               int d, int d_ff, int scale_stride, float eps) {
   using namespace gemm;
   namespace cg = cooperative_groups;
   static_assert((WG == 1 || WG == 2) && NB % WG == 0, "NB output tiles over WG warpgroups");
@@ -586,8 +586,8 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nscale,
   tma_start(steps, load);
   cp_async_wait<0>();
   __syncthreads();
-  norm_tiles(t, d, nscale + static_cast<long>(t.img) * d, eps, s_x, s_r, nullptr, nullptr,
-             threadIdx.x, blockDim.x);
+  norm_tiles(t, d, nscale + static_cast<long>(t.img) * scale_stride, eps, s_x, s_r, nullptr,
+             nullptr, threadIdx.x, blockDim.x);
 
   float up[2][32], o[OUT][32];  // a and gate; the output tiles
   uint32_t a_h[4][4];           // h as A fragments (one warpgroup only)
@@ -717,7 +717,8 @@ inline size_t ffn_fwd_smem(int d, int wg) {
 template <int WG, int NB>
 cudaError_t launch_ffn_fwd(const bf16* x, const bf16* nscale, const bf16* w_up,
                            const bf16* w_down, bf16* out, int images, int tokens, int d,
-                           int d_ff, int groups, float eps, cudaStream_t st, int* clusters) {
+                           int d_ff, int groups, int scale_stride, float eps, cudaStream_t st,
+                           int* clusters) {
   const size_t smem = ffn_fwd_smem(d, WG);
   const cudaError_t err = gemm::allow_shared(ffn_fwd_kernel<WG, NB>, smem);
   if (err != cudaSuccess) return err;
@@ -741,7 +742,7 @@ cudaError_t launch_ffn_fwd(const bf16* x, const bf16* nscale, const bf16* w_up,
   if (map_err == cudaSuccess) map_err = gemm::tile_map(&map_down, w_down, d_ff, d);
   if (map_err != cudaSuccess) return map_err;
   return cudaLaunchKernelEx(&cfg, ffn_fwd_kernel<WG, NB>, x, nscale, map_up, map_down, out, tokens,
-                            d, d_ff, eps);
+                            d, d_ff, scale_stride, eps);
 }
 
 // The launch of K5 with the hidden panels over clusters of `ranks` blocks;
@@ -903,7 +904,10 @@ using namespace kdt;
 
 // The FF block forward (K4): out = x + bf16(GEGLU(xn W_up)) W_down with xn
 // = AdaRMSNorm(x, nscale). x, out (rows, d) bf16 with rows = images *
-// tokens; nscale (images, d) bf16; w_up (d, 2 d_ff), w_down (d_ff, d) bf16.
+// tokens; nscale (images, d) bf16, image i's row at nscale + i *
+// scale_stride (scale_stride >= d: a column block of a condcache row, read
+// in place, as the Pallas kernel's BlockSpec reads its lane block); w_up
+// (d, 2 d_ff), w_down (d_ff, d) bf16.
 // A block is `warpgroups` warpgroups holding out_tiles 64-column tiles of
 // the output (one warpgroup: 1, 2 or 4 tiles; two: 2, 6 or 8; out_tiles
 // divides d / 64); the hidden panels split over clusters of `groups`
@@ -912,10 +916,10 @@ using namespace kdt;
 // % 64 == 0.
 extern "C" int kdt_ffn_fwd(const void* x, const void* nscale, const void* w_up,
                            const void* w_down, void* out, int images, int tokens, int d,
-                           int d_ff, int warpgroups, int out_tiles, int groups, float eps,
-                           void* stream, int* clusters) {
+                           int d_ff, int warpgroups, int out_tiles, int groups, int scale_stride,
+                           float eps, void* stream, int* clusters) {
   if (d % 64 || d_ff % 64 || out_tiles < 1 || (d / 64) % out_tiles || groups < 1 ||
-      groups > 8 || groups > d_ff / 64)
+      groups > 8 || groups > d_ff / 64 || scale_stride < d || scale_stride % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16 *x_b = static_cast<const bf16*>(x), *ns_b = static_cast<const bf16*>(nscale);
   const bf16 *up_b = static_cast<const bf16*>(w_up), *down_b = static_cast<const bf16*>(w_down);
@@ -924,7 +928,8 @@ extern "C" int kdt_ffn_fwd(const void* x, const void* nscale, const void* w_up,
 #define KDT_FFN_FWD(WG, NB)                                                                \
   if (warpgroups == WG && out_tiles == NB)                                                 \
     return static_cast<int>(launch_ffn_fwd<WG, NB>(x_b, ns_b, up_b, down_b, out_b, images, \
-                                                   tokens, d, d_ff, groups, eps, st, clusters));
+                                                   tokens, d, d_ff, groups, scale_stride, eps, \
+                                                   st, clusters));
   KDT_FFN_FWD(1, 1)
   KDT_FFN_FWD(1, 2)
   KDT_FFN_FWD(1, 4)

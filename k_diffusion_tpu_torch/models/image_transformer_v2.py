@@ -13,6 +13,13 @@ kernels for CUDA tensors, their plain versions for CPU tensors; their
 backwards are hand-written kernels too. The patch, merge, split and output
 projections are plain matmuls, as XLA ran them.
 
+For condcache (``condcache.py``), ``cond_scale_layout`` packs every
+AdaRMSNorm scale the forward derives from the mapping output into one
+(b, total) row; ``forward(..., cond_only=True)`` returns the mapping output
+and ``forward(..., cond_scales=row)`` takes each layer's scale as a (b, d)
+view of the row, which the kernels read through its row stride, with no
+copy. That path is forward-only.
+
 Under ``model.train()`` each level's dropout applies where the JAX model
 applies it: to the attention output before ``out_proj``, and to the GEGLU
 hidden activation of the feed-forward blocks and the mapping network. A
@@ -53,6 +60,20 @@ class NeighborhoodAttentionSpec:
 
 
 @dataclass(frozen=True)
+class ShiftedWindowAttentionSpec:
+    """A level kind of the JAX package that the port's model does not run
+    yet; ``cond_scale_layout`` takes it."""
+    d_head: int
+    window_size: int
+
+
+@dataclass(frozen=True)
+class NoAttentionSpec:
+    """A level kind of the JAX package that the port's model does not run
+    yet; ``cond_scale_layout`` takes it."""
+
+
+@dataclass(frozen=True)
 class LevelSpec:
     depth: int
     width: int
@@ -67,6 +88,34 @@ class MappingSpec:
     width: int
     d_ff: int
     dropout: float = 0.0
+
+
+def _stacks(levels):
+    """(prefix, level spec) in execution order: down levels, mid, up."""
+    down = [(f"down_{i}", s) for i, s in enumerate(levels[:-1])]
+    up = [(f"up_{i}", s) for i, s in reversed(list(enumerate(levels[:-1])))]
+    return down + [("mid", levels[-1])] + up
+
+
+def cond_scale_layout(levels):
+    """The lanes of the precomputed cond-scales row (``condcache.py``), a
+    copy of the JAX package's: one scale per attention block and one per
+    feed-forward block, in forward order (down levels, mid, up levels),
+    each level's run aligned up to a multiple of its width (the padding
+    lanes are written and never read). Returns ({layer name: (attn_off,
+    ff_off)}, total), with attn_off None for a level with no attention."""
+    table, off = {}, 0
+    for prefix, spec in _stacks(levels):
+        has_attn = not isinstance(spec.self_attn, NoAttentionSpec)
+        off = -(-off // spec.width) * spec.width  # align to width
+        for j in range(spec.depth):
+            attn_off = None
+            if has_attn:
+                attn_off = off
+                off += spec.width
+            table[f"{prefix}_layer_{j}"] = (attn_off, off)
+            off += spec.width
+    return table, off
 
 
 class _Kernel(nn.Module):
@@ -159,10 +208,13 @@ class SelfAttentionBlock(nn.Module):
             e // 2, self.n_heads, device=x.device))
         return rope.apply_rotary_emb(q, theta), rope.apply_rotary_emb(k, theta), v
 
-    def forward(self, x, pos, cond, generator=None):
+    def forward(self, x, pos, cond, generator=None, norm_scale=None):
+        """``norm_scale``: this block's precomputed AdaRMSNorm scale (a
+        (b, d) view of a condcache row), which replaces norm(cond)."""
         b, h, w, c = x.shape
         e = self.attn_spec.d_head
-        norm_scale = self.norm(cond, self.dtype)
+        if norm_scale is None:
+            norm_scale = self.norm(cond, self.dtype)
         fused = not self.training or train_fusion_enabled()
         if fused:
             q, k, v = (t.reshape(b, h, w, self.n_heads, e)
@@ -208,9 +260,11 @@ class FeedForwardBlock(nn.Module):
         self.down_proj = _Kernel((d_ff, d_model), "zeros", device=device)
         self.norm = _AdaNorm(cond_features, d_model, device)
 
-    def forward(self, x, cond, generator=None):
+    def forward(self, x, cond, generator=None, scale=None):
+        """``scale``: as SelfAttentionBlock's ``norm_scale``."""
         b, h, w, d = x.shape
-        scale = self.norm(cond, cond.dtype)
+        if scale is None:
+            scale = self.norm(cond, cond.dtype)
         if not (self.training
                 and (self.dropout or not train_fusion_enabled())):
             out = fused_geglu_ffn(x.reshape(b, h * w, d), scale,
@@ -231,8 +285,11 @@ class TransformerLayer(nn.Module):
         self.ff = FeedForwardBlock(spec.width, spec.d_ff, cond_features,
                                    generator, device, spec.dropout)
 
-    def forward(self, x, pos, cond, generator=None):
-        return self.ff(self.self_attn(x, pos, cond, generator), cond, generator)
+    def forward(self, x, pos, cond, generator=None, scales=(None, None)):
+        """``scales``: the attention and feed-forward blocks' precomputed
+        AdaRMSNorm scales, or None each."""
+        x = self.self_attn(x, pos, cond, generator, scales[0])
+        return self.ff(x, cond, generator, scales[1])
 
 
 class _MappingBlock(nn.Module):
@@ -355,6 +412,12 @@ class ImageTransformerDenoiserModelV2(nn.Module):
                  num_classes=0, dtype=None, device=None,
                  generator=None):
         super().__init__()
+        for spec in levels:
+            if not isinstance(spec.self_attn, (GlobalAttentionSpec,
+                                               NeighborhoodAttentionSpec)):
+                raise NotImplementedError(
+                    f"{type(spec.self_attn).__name__} levels come with a "
+                    "later port")
         device = default_device(device)
         dtype = compute_dtype(device, dtype)
         self.levels, self.dtype = levels, dtype
@@ -372,7 +435,7 @@ class ImageTransformerDenoiserModelV2(nn.Module):
             self.class_emb = _Embedding(num_classes, mw, generator, device)
         self.mapping = MappingNetwork(mapping.depth, mw, mapping.d_ff, dtype,
                                       generator, device, mapping.dropout)
-        for prefix, spec in self._stacks():
+        for prefix, spec in _stacks(levels):
             for j in range(spec.depth):
                 self.add_module(f"{prefix}_layer_{j}", TransformerLayer(
                     spec, mw, dtype, generator, device))
@@ -388,56 +451,93 @@ class ImageTransformerDenoiserModelV2(nn.Module):
             levels[0].width, out_channels, patch_size, dtype, generator,
             device, zero_init=True)
 
-    def _stacks(self):
-        """(prefix, level spec) in execution order: down levels, mid, up."""
-        down = [(f"down_{i}", s) for i, s in enumerate(self.levels[:-1])]
-        up = [(f"up_{i}", s) for i, s in reversed(list(enumerate(
-            self.levels[:-1])))]
-        return down + [("mid", self.levels[-1])] + up
-
-    def _run_stack(self, prefix, depth, x, pos, cond, generator):
+    def _run_stack(self, prefix, depth, x, pos, cond, generator, scales):
         for j in range(depth):
-            x = getattr(self, f"{prefix}_layer_{j}")(x, pos, cond, generator)
+            name = f"{prefix}_layer_{j}"
+            x = getattr(self, name)(x, pos, cond, generator,
+                                    scales.get(name, (None, None)))
         return x
 
+    def _layer_scales(self, cond_scales):
+        """{layer name: (attn scale, ff scale)}: (b, d) views of the
+        (b, total) row ``cond_scales``, no copies."""
+        layout, total = cond_scale_layout(self.levels)
+        if cond_scales.ndim != 2 or cond_scales.shape[-1] != total:
+            raise ValueError(f"cond_scales has shape {tuple(cond_scales.shape)}"
+                             f"; the layout takes (batch, {total})")
+        cond_scales = cond_scales.to(self.dtype)
+        widths = {name: spec.width for prefix, spec in _stacks(self.levels)
+                  for name in (f"{prefix}_layer_{j}"
+                               for j in range(spec.depth))}
+        return {name: tuple(None if off is None
+                            else cond_scales[:, off:off + widths[name]]
+                            for off in offs)
+                for name, offs in layout.items()}
+
     def forward(self, x, sigma, aug_cond=None, class_cond=None,
-                generator=None):
-        if self.num_classes and class_cond is None:
+                generator=None, cond_scales=None, cond_only=False):
+        """``cond_only``: return the mapping network's output (b, width)
+        and run no image path (``x`` may be None). ``cond_scales``: the
+        step's condcache row (b, total), holding every layer's AdaRMSNorm
+        scale and with them the conditioning they were made from, so that
+        ``sigma`` and the mapping network are not read; forward-only, and
+        it takes no ``aug_cond`` or ``class_cond``."""
+        scales = {}
+        if cond_scales is not None:
+            if aug_cond is not None or class_cond is not None:
+                raise ValueError(
+                    "cond_scales holds the conditioning it was made from; "
+                    "pass aug_cond and class_cond to "
+                    "condcache.precompute_cond_scales, not with cond_scales")
+            if torch.is_grad_enabled():
+                raise RuntimeError(
+                    "cond_scales is a sampling path, forward-only: run it "
+                    "under torch.no_grad()")
+            scales = self._layer_scales(cond_scales)
+        elif self.num_classes and class_cond is None:
             raise ValueError("class_cond must be specified if num_classes > 0")
         dtype = self.dtype
+        cond = None if cond_scales is not None else self._cond(
+            sigma, aug_cond, class_cond, generator)
+        if cond_only:
+            return cond
         x = self.patch_in(x.to(dtype))
         pos = rope.make_axial_pos(x.shape[-3], x.shape[-2], device=x.device)
-
-        c_noise = torch.log(sigma.float()) / 4
-        time_emb = (self.time_emb(c_noise[..., None]).to(dtype)
-                    @ self.time_in_proj.kernel.to(dtype))
-        if aug_cond is None:
-            aug_cond = torch.zeros((sigma.shape[0], 9), dtype=dtype,
-                                   device=x.device)
-        aug_emb = (self.aug_emb(aug_cond.to(dtype)).to(dtype)
-                   @ self.aug_in_proj.kernel.to(dtype))
-        emb = time_emb + aug_emb
-        if self.num_classes:
-            emb = emb + self.class_emb.embedding.to(dtype)[class_cond]
-        cond = self.mapping(emb, generator)
 
         skips, poses = [], []
         for i, spec in enumerate(self.levels[:-1]):
             x = self._run_stack(f"down_{i}", spec.depth, x, pos, cond,
-                                generator)
+                                generator, scales)
             skips.append(x)
             poses.append(pos)
             x = getattr(self, f"merge_{i}")(x)
             pos = rope.downscale_pos(pos)
         x = self._run_stack("mid", self.levels[-1].depth, x, pos, cond,
-                            generator)
+                            generator, scales)
         for i, spec in reversed(list(enumerate(self.levels[:-1]))):
             x = getattr(self, f"split_{i}")(x, skips[i])
             x = self._run_stack(f"up_{i}", spec.depth, x, poses[i], cond,
-                                generator)
+                                generator, scales)
 
         x = self.patch_out(self.out_norm(x))
         return x.float()
+
+    def _cond(self, sigma, aug_cond, class_cond, generator):
+        """The mapping network's output for noise level ``sigma``."""
+        dtype = self.dtype
+        device = self.time_in_proj.kernel.device
+        c_noise = torch.log(sigma.float()) / 4
+        time_emb = (self.time_emb(c_noise[..., None]).to(dtype)
+                    @ self.time_in_proj.kernel.to(dtype))
+        if aug_cond is None:
+            aug_cond = torch.zeros((sigma.shape[0], 9), dtype=dtype,
+                                   device=device)
+        aug_emb = (self.aug_emb(aug_cond.to(dtype)).to(dtype)
+                   @ self.aug_in_proj.kernel.to(dtype))
+        emb = time_emb + aug_emb
+        if self.num_classes:
+            emb = emb + self.class_emb.embedding.to(dtype)[class_cond]
+        return self.mapping(emb, generator)
 
 
 # Param taxonomy: weight decay for the Dense kernels of these modules, the

@@ -173,10 +173,7 @@ def row_chunk(rows, tiles, device):
     return 64 * -(-row_tiles // grid_splits(tiles, row_tiles, device))
 
 
-def require(t, what, device, dtype, shape):
-    """Checks that a kernel operand lies on ``device`` with the given dtype
-    and shape, contiguous and 16-byte aligned (the kernels load 16-byte
-    vectors); raises ValueError naming the operand otherwise."""
+def _require_kind(t, what, device, dtype, shape):
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -184,8 +181,31 @@ def require(t, what, device, dtype, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def require(t, what, device, dtype, shape):
+    """Checks that a kernel operand lies on ``device`` with the given dtype
+    and shape, contiguous and 16-byte aligned (the kernels load 16-byte
+    vectors); raises ValueError naming the operand otherwise."""
+    _require_kind(t, what, device, dtype, shape)
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+
+
+def require_rows(t, what, device, dtype, shape):
+    """Checks a (rows, n) operand that the kernel reads row by row through
+    its row stride: like ``require`` but the rows may lie apart, as in a
+    column block of a wider matrix (a condcache row's layer scale), with
+    unit inner stride and every row start 16-byte aligned. Returns the row
+    stride in elements."""
+    _require_kind(t, what, device, dtype, shape)
+    rows, n = shape
+    stride = t.stride(0) if rows > 1 else n
+    if (t.stride(1) != 1 and n > 1) or stride < n or t.data_ptr() % 16 \
+            or stride * t.element_size() % 16:
+        raise ValueError(f"{what} must have unit inner stride and 16-byte "
+                         f"aligned rows; got strides {t.stride()}")
+    return stride
 
 
 def require_cuda(x, what):

@@ -7,6 +7,11 @@ GEGLU -> down -> + x, the bfloat16 hidden activation kept in registers. The
 backward, through an autograd Function, is the kernel K10 of the same file.
 CPU tensors go to ``reference``, the plain version, which autograd
 differentiates.
+
+The forward reads each image's scale through a row stride, so that
+``scale`` may be a (b, d) column block of a condcache row (the JAX
+kernel's BlockSpec lane block, ``scale_block``): no copy is made. That path
+is forward-only; the backward K10 takes a contiguous scale.
 """
 
 import ctypes
@@ -23,8 +28,9 @@ bwd_launches = 0  # backward wrapper calls that launched the kernels
 
 _P = ctypes.c_void_p
 # x, scale, w_up, w_down, out, images, tokens, d, d_ff, warpgroups,
-# out_tiles, groups, eps, stream, clusters (int *: the occupancy query)
-_FWD = [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, _P, _P]
+# out_tiles, groups, scale_stride, eps, stream, clusters (int *: the
+# occupancy query)
+_FWD = [_P] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, _P, _P]
 # the widest d the forward takes: its x tiles, h tiles and ring in one
 # block's shared memory
 MAX_D = 896
@@ -52,7 +58,10 @@ def reference_backward(x, scale, w_up, w_down, g, eps=1e-6):
         return torch.autograd.grad(reference(*inputs, eps), inputs, g)
 
 
-def _operands(x, scale, w_up, w_down):
+def _operands(x, scale, w_up, w_down, strided=False):
+    """Checks and casts the operands both kernels share. With ``strided``
+    (the forward), ``scale``'s rows may lie apart. Returns (w_up, w_down,
+    scale's row stride)."""
     b, t, d = x.shape
     d_ff = w_down.shape[0]
     if d % 64 or d_ff % 64:
@@ -61,10 +70,14 @@ def _operands(x, scale, w_up, w_down):
     dev, bf16 = x.device, torch.bfloat16
     w_up, w_down = w_up.to(bf16), w_down.to(bf16)
     _build.require(x, "x", dev, bf16, (b, t, d))
-    _build.require(scale, "scale", dev, bf16, (b, d))
+    if strided:
+        scale_stride = _build.require_rows(scale, "scale", dev, bf16, (b, d))
+    else:
+        _build.require(scale, "scale", dev, bf16, (b, d))
+        scale_stride = d
     _build.require(w_up, "w_up", dev, bf16, (d, 2 * d_ff))
     _build.require(w_down, "w_down", dev, bf16, (d_ff, d))
-    return w_up, w_down
+    return w_up, w_down, scale_stride
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,7 +88,7 @@ def _clusters(index, d, d_ff, warpgroups, out_tiles, groups):
     clusters = ctypes.c_int(0)
     with torch.cuda.device(index):
         status = lib.kdt_ffn_fwd(*[None] * 5, 1, 64, d, d_ff, warpgroups,
-                                 out_tiles, groups, 0.0, None,
+                                 out_tiles, groups, d, 0.0, None,
                                  ctypes.byref(clusters))
     _build.check_launch(lib, status, "fused_ffn occupancy")
     return clusters.value
@@ -109,19 +122,22 @@ def forward_split(images, tokens, d, d_ff, device):
 
 
 def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
-    """Launches K4 on CUDA tensors: returns x + FFN(norm(x))."""
+    """Launches K4 on CUDA tensors: returns x + FFN(norm(x)). ``scale`` is
+    (b, d) with unit inner stride, its rows contiguous or apart."""
     _build.require_cuda(x, "fused_geglu_ffn")
     b, t, d = x.shape
     d_ff = w_down.shape[0]
     if d > MAX_D:
         raise ValueError(f"fused_ffn forward takes d up to {MAX_D}; got d={d}")
-    w_up, w_down = _operands(x, scale, w_up, w_down)
+    w_up, w_down, scale_stride = _operands(x, scale, w_up, w_down,
+                                           strided=True)
     out = torch.empty_like(x)
     warpgroups, out_tiles, groups = forward_split(b, t, d, d_ff, x.device)
     lib = _build.load("geglu", kdt_ffn_fwd=_FWD)
     status = lib.kdt_ffn_fwd(*map(_build.ptr, (x, scale, w_up, w_down, out)),
-                             b, t, d, d_ff, warpgroups, out_tiles, groups, eps,
-                             _build.stream_ptr(x.device), None)
+                             b, t, d, d_ff, warpgroups, out_tiles, groups,
+                             scale_stride, eps, _build.stream_ptr(x.device),
+                             None)
     _build.check_launch(lib, status, "fused_ffn")
     global launches
     launches += 1
@@ -138,7 +154,7 @@ def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
     if d > MAX_BWD_D:
         raise ValueError(f"fused_ffn backward takes d up to {MAX_BWD_D}; "
                          f"got d={d}")
-    w16_up, w16_down = _operands(x, scale, w_up, w_down)
+    w16_up, w16_down, _ = _operands(x, scale, w_up, w_down)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     g = g.contiguous()
     _build.require(g, "g", dev, bf16, (b, t, d))
@@ -194,7 +210,12 @@ def fused_geglu_ffn(x, scale, w_up, w_down, eps=1e-6):
     (d, 2 d_ff); w_down (d_ff, d). Returns x + FFN(norm(x));
     differentiable. The kernels take bfloat16 x and scale with d and d_ff
     multiples of 64; the weights are cast to x's dtype, as the JAX
-    dispatcher does."""
+    dispatcher does. ``scale`` may be a (b, d) column block of a wider
+    matrix (a condcache row) only where autograd is off: the backward
+    kernel takes a contiguous scale."""
+    if torch.is_grad_enabled() and not scale.is_contiguous():
+        raise ValueError("a strided scale (a condcache row's block) is "
+                         "forward-only: run under torch.no_grad()")
     if x.device.type == "cpu":
         return reference(x, scale, w_up, w_down, eps)
     if not torch.is_grad_enabled():  # sampling: no autograd node to build

@@ -6,6 +6,11 @@ and k -> axial RoPE on q and k, returning channel-packed (b, h, w, d) q, k, v.
 CUDA tensors go to the hand-written kernels in ``csrc/fused_qkv.cu`` through
 an autograd Function whose backward is the kernel K6; CPU tensors to
 ``reference``, the plain version, which autograd differentiates.
+
+The forward reads each image's norm scale through a row stride, so that
+``norm_scale`` may be a (b, d) column block of a condcache row (the JAX
+kernel's BlockSpec lane block, ``scale_block``): no copy is made. That path
+is forward-only; the backward K6 takes a contiguous scale.
 """
 
 import ctypes
@@ -26,9 +31,9 @@ MAX_D = 768
 
 _P = ctypes.c_void_p
 # x, norm_scale, w_qkv, attn_scale, pos, freqs, q, k, v, images, tokens, d,
-# heads, step_panels, groups, eps, cos_eps, stream, blocks (int *: the
-# occupancy query)
-_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [_P] * 2
+# heads, step_panels, groups, scale_stride, eps, cos_eps, stream, blocks
+# (int *: the occupancy query)
+_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [_P] * 2
 # x, norm_scale, w_qkv, attn_scale, cos, sin, gq, gk, gv, dx, dns, dw,
 # das_sums, dqk, xn, r, dot_part, das_part, dns_part, dw_part, images,
 # tokens, d, heads, groups, chunk_rows, eps, cos_eps, stream
@@ -76,8 +81,10 @@ def rope_tables(pos, n_heads, d_head):
     return torch.cos(theta).contiguous(), torch.sin(theta).contiguous()
 
 
-def _operands(x, norm_scale, w_qkv, attn_scale, n_heads):
-    """Checks and casts the operands both kernels share."""
+def _operands(x, norm_scale, w_qkv, attn_scale, n_heads, strided=False):
+    """Checks and casts the operands both kernels share. With ``strided``
+    (the forward), ``norm_scale``'s rows may lie apart. Returns (w_qkv,
+    attn_scale, norm_scale's row stride)."""
     b, h, w, d = x.shape
     e = d // n_heads
     if e * n_heads != d or e not in HEAD_DIMS or d % 64:
@@ -87,10 +94,15 @@ def _operands(x, norm_scale, w_qkv, attn_scale, n_heads):
     w_qkv = w_qkv.to(bf16)
     attn_scale = attn_scale.float()
     _build.require(x, "x", dev, bf16, (b, h, w, d))
-    _build.require(norm_scale, "norm_scale", dev, bf16, (b, d))
+    if strided:
+        scale_stride = _build.require_rows(norm_scale, "norm_scale", dev,
+                                           bf16, (b, d))
+    else:
+        _build.require(norm_scale, "norm_scale", dev, bf16, (b, d))
+        scale_stride = d
     _build.require(w_qkv, "w_qkv", dev, bf16, (d, 3 * d))
     _build.require(attn_scale, "attn_scale", dev, torch.float32, (n_heads,))
-    return w_qkv, attn_scale
+    return w_qkv, attn_scale, scale_stride
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,7 +119,7 @@ def _blocks_per_sm(index, d, n_heads, step_panels):
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         status = lib.kdt_fused_qkv(*[None] * 9, 1, 64, d, n_heads, step_panels,
-                                   1, 0.0, 0.0, None, ctypes.byref(blocks))
+                                   1, d, 0.0, 0.0, None, ctypes.byref(blocks))
     _build.check_launch(lib, status, "fused_qkv occupancy")
     return blocks.value
 
@@ -134,12 +146,14 @@ def forward_split(images, tokens, d, n_heads, device):
 
 def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
                      eps=1e-6, cos_eps=1e-6):
-    """Launches K1 on CUDA tensors: returns (q, k, v)."""
+    """Launches K1 on CUDA tensors: returns (q, k, v). ``norm_scale`` is
+    (b, d) with unit inner stride, its rows contiguous or apart."""
     _build.require_cuda(x, "fused_qkv_prologue")
     b, h, w, d = x.shape
     if d > MAX_D:
         raise ValueError(f"fused_qkv forward takes d up to {MAX_D}; got d={d}")
-    w_qkv, attn_scale = _operands(x, norm_scale, w_qkv, attn_scale, n_heads)
+    w_qkv, attn_scale, scale_stride = _operands(
+        x, norm_scale, w_qkv, attn_scale, n_heads, strided=True)
     pos = pos.float().contiguous()
     freqs = _freqs(n_heads, d // n_heads, x.device)
     _build.require(pos, "pos", x.device, torch.float32, (h, w, 2))
@@ -149,7 +163,7 @@ def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
     status = lib.kdt_fused_qkv(
         *map(_build.ptr, (x, norm_scale, w_qkv, attn_scale, pos, freqs,
                           q, k, v)),
-        b, h * w, d, n_heads, step_panels, groups, eps, cos_eps,
+        b, h * w, d, n_heads, step_panels, groups, scale_stride, eps, cos_eps,
         _build.stream_ptr(x.device), None)
     _build.check_launch(lib, status, "fused_qkv")
     global launches
@@ -164,7 +178,7 @@ def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
     the parameter gradients float32)."""
     _build.require_cuda(x, "fused_qkv_prologue backward")
     b, h, w, d = x.shape
-    w16, scale32 = _operands(x, norm_scale, w_qkv, attn_scale, n_heads)
+    w16, scale32, _ = _operands(x, norm_scale, w_qkv, attn_scale, n_heads)
     cos_t, sin_t = rope_tables(pos, n_heads, d // n_heads)
     _build.require(cos_t, "cos table", x.device, torch.float32,
                    (h * w, d // 4))
@@ -231,7 +245,12 @@ def fused_qkv_prologue(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
     """Returns (q, k, v), each (b, h, w, d), with cosine-sim scaling and RoPE
     applied to q and k; differentiable. The kernels take bfloat16 x and
     norm_scale, head dim 32 or 64 and d % 64 == 0; ``w_qkv`` is cast to x's
-    dtype, as the JAX dispatcher does."""
+    dtype, as the JAX dispatcher does. ``norm_scale`` may be a (b, d) column block of a
+    wider matrix (a condcache row) only where autograd is off: the backward
+    kernel takes a contiguous scale."""
+    if torch.is_grad_enabled() and not norm_scale.is_contiguous():
+        raise ValueError("a strided norm_scale (a condcache row's block) is "
+                         "forward-only: run under torch.no_grad()")
     if x.device.type == "cpu":
         return reference(x, pos, norm_scale, w_qkv, attn_scale, n_heads, eps,
                          cos_eps)

@@ -499,6 +499,37 @@ def test_weight_gradients_are_deterministic(dev):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("b,h,d", [(3, 8, 128), (2, 16, 256), (8, 4, 512)])
+def test_strided_scale_rows(dev, b, h, d):
+    """K1 and K4 read a (b, d) block of a wider condcache row through its
+    row stride: bit-equal to the block's contiguous copy, with no copy
+    made; a misaligned block and a strided block under autograd raise
+    before any launch."""
+    g = torch.Generator().manual_seed(17)
+    row = (1 + 0.1 * torch.randn((b, 7 * d), generator=g)).to(dev, torch.bfloat16)
+    block = row[:, 3 * d:4 * d]
+    x, pos, _, w_qkv, a_scale, heads = qkv_args(g, dev, b, h, h, d)
+    xt, _, w_up, w_down = ffn_args(g, dev, b, h * h, d, 3 * d)
+    with torch.no_grad():
+        got = counted(fused_qkv, lambda: fused_qkv.fused_qkv_prologue(
+            x, pos, block, w_qkv, a_scale, heads))
+        want = fused_qkv.fused_qkv_prologue(x, pos, block.contiguous(), w_qkv,
+                                            a_scale, heads)
+        for a, b_ in zip(got, want):
+            assert torch.equal(a, b_)
+        got = counted(fused_ffn, lambda: fused_ffn.fused_geglu_ffn(
+            xt, block, w_up, w_down))
+        assert torch.equal(got, fused_ffn.fused_geglu_ffn(
+            xt, block.contiguous(), w_up, w_down))
+        assert_close(got, fused_ffn.reference(xt, block, w_up, w_down))
+        before = fused_ffn.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fused_ffn.fused_geglu_ffn(xt, row[:, 1:d + 1], w_up, w_down)
+        assert fused_ffn.launches == before
+    with pytest.raises(ValueError, match="forward-only"):
+        fused_qkv.fused_qkv_prologue(x, pos, block, w_qkv, a_scale, heads)
+
+
 def test_forwards_are_deterministic(dev):
     """A rerun of K1 and K4 gives bit-equal outputs: K4's hidden-panel
     partials meet in a fixed order, with no atomics."""
