@@ -105,7 +105,24 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 20. the sample entry point: a flagship inference checkpoint saved in
    bfloat16, then ``python -m k_diffusion_tpu_torch.sample --sampler lms
    -n 8`` on it as a subprocess on the card, which must write 8 PNGs; then
-   the cifar10 U-Net the same way under dpmpp_2m.
+   the cifar10 U-Net the same way under dpmpp_2m;
+21. the training entry point: the loader alone at batch 32 (images/s at
+   1, 4 and 8 threads, the median and range of timed epochs after an
+   untimed one, on 256 x 256 PNGs written by to_png and on Paeth-filtered
+   ones); ``python -m k_diffusion_tpu_torch.train`` as a subprocess on the
+   flagship config with an imagefolder of 128 PNGs at 256 x 256, 6 steps
+   at batch 32, checkpoints at 3 and 6, the state JSON and a demo grid at
+   6; a second subprocess resumed mid-epoch from step 3 to 6, its params
+   and EMA within relative L2 1e-3 of the first run's (bit-equal or not,
+   printed); the flagship in-process for 26 steps with phase 8's launch
+   counts, its images/s over steps 1-25 with and without the loader's
+   waits beside phase 8's; config_test_tiny in-process with two
+   microbatches and --gns (class dropout and the augmentation warp on the
+   card) for 17 steps, whose profiler trace of steps 10-15 must hold no
+   host-blocking call but the trainer's one synchronisation, and the
+   cifar10 U-Net on raw CIFAR-10 batch files for 3 steps at batch 64, each
+   with its launch counts per step; then convert_for_inference on the
+   flagship's checkpoint and the sample entry point on the result.
 
 Each kernel line also gives the kernel's achieved TFLOP/s (the operations
 its function needs over its time) and its time's share of the bound.
@@ -127,6 +144,7 @@ import contextlib
 import json
 import math
 import os
+import pickle
 import statistics
 import struct
 import subprocess
@@ -136,6 +154,7 @@ import time
 import zlib
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1400,6 +1419,9 @@ def main():
     condcache_phase(KT, config, dev, smi)
     entry_point_phase(KT, config, unet, smi)
 
+    # the training entry point: phase 21
+    trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi)
+
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
     # the unfused training steps for K11/K12, the op paths for K15 and K8)
@@ -1799,17 +1821,9 @@ def entry_point_phase(KT, config, unet, smi):
             ckpt = KT.checkpoint.save_inference(
                 tmp / f"{name}.safetensors", model, cfg, dtype=torch.bfloat16)
             del model
-            cmd = [sys.executable, "-m", "k_diffusion_tpu_torch.sample",
-                   "--checkpoint", str(ckpt), "--sampler", sampler, "-n", "8",
-                   "--batch-size", "8", "--prefix", str(tmp / name)]
-            start = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
-                                  text=True, timeout=600)
-            secs = time.perf_counter() - start
-            if proc.returncode:
-                raise AssertionError(f"sample entry point ({name}) failed:\n"
-                                     f"{proc.stdout[-2000:]}"
-                                     f"{proc.stderr[-4000:]}")
+            out, secs = run_entry("sample", "--checkpoint", ckpt,
+                                  "--sampler", sampler, "-n", 8,
+                                  "--batch-size", 8, "--prefix", tmp / name)
             files = sorted(tmp.glob(f"{name}_*.png"))
             if [f.name for f in files] != [f"{name}_{i:05}.png"
                                            for i in range(8)]:
@@ -1821,8 +1835,292 @@ def entry_point_phase(KT, config, unet, smi):
                   f"bfloat16 checkpoint of {ckpt.stat().st_size} bytes in "
                   f"{secs:.1f} s (process start and model build included) on "
                   f"{smi}; its output: "
-                  f"{' | '.join(proc.stdout.strip().splitlines())}",
+                  f"{' | '.join(out.strip().splitlines())}",
                   flush=True)
+
+
+# a custom dataset (the config's ``custom`` type): ``entries`` items
+# cycling over the float32 (n, h, w, 3) images saved at ``path``
+IN_MEMORY_DATASET = """import numpy as np
+
+
+class InMemory:
+    def __init__(self, path, entries):
+        self.images = np.load(path)
+        self.entries = entries
+
+    def __len__(self):
+        return self.entries
+
+    def __getitem__(self, i):
+        return {"image": self.images[i % len(self.images)]}
+
+
+def get_dataset(config, size):
+    return InMemory(config["path"], config["entries"])
+"""
+
+
+def loader_rates(KT, root, workers, repeats):
+    """Images/s of the port's loader alone over the PNG folder ``root`` at
+    the trainer's batch of 32 and 256 x 256 (decode and stack): one epoch
+    each, ``repeats`` epochs after a first one that is not timed."""
+    loader = KT.data.DataLoader(KT.data.FolderOfImages(root, 256),
+                                TRAIN_BATCH, num_workers=workers)
+
+    def epoch():
+        start = time.perf_counter()
+        n = sum(b["image"].shape[0] for b in loader)
+        return n / (time.perf_counter() - start)
+
+    epoch()
+    return [epoch() for _ in range(repeats)]
+
+
+def spread(rates):
+    """'median (min-max)' of a list of rates."""
+    rates = sorted(rates)
+    return (f"{rates[len(rates) // 2]:.1f} ({rates[0]:.1f}-"
+            f"{rates[-1]:.1f})")
+
+
+def trace_syncs(trace_dir):
+    """The host-blocking CUDA runtime calls (synchronisations, blocking
+    copies, pinned allocations) in the one chrome trace under
+    ``trace_dir``, by name: (those made while steps were in flight, before
+    the trace's last kernel launch; those after it, where the trainer and
+    the profiler synchronise to end the trace)."""
+    (path,) = Path(trace_dir).glob("*.json")
+    events = [ev for ev in json.loads(path.read_text())["traceEvents"]
+              if ev.get("cat") == "cuda_runtime"]
+    last = max(ev["ts"] for ev in events
+               if ev["name"].startswith("cudaLaunchKernel"))
+    during, after = {}, {}
+    for ev in events:
+        name = ev["name"]
+        if ("Synchronize" in name or name in ("cudaMemcpy", "cudaMemset")
+                or name.startswith(("cudaHostAlloc", "cudaFreeHost"))):
+            side = during if ev["ts"] < last else after
+            side[name] = side.get(name, 0) + 1
+    return during, after
+
+
+def run_entry(module, *args):
+    """``python -m k_diffusion_tpu_torch.<module> args`` from the checkout;
+    raises with its output if it fails. Returns (stdout, seconds)."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           f"k_diffusion_tpu_torch.{module}", *map(str, args)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"{module} failed:\n{proc.stdout[-3000:]}"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - start
+
+
+def flat_weights(payload, key):
+    return torch.cat([t.float().flatten() for t in payload[key].values()])
+
+
+def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
+    """Phase 21: the training entry point on the card. The loader alone at
+    the trainer's batch 32 (images/s at 1, 4 and 8 threads, each over
+    timed epochs after an untimed one: 1 024 entries linking 128 PNGs
+    written by to_png, and 64 Paeth-filtered files); the flagship at full
+    width as a subprocess on the 128 PNGs at 256 x 256 (6 steps at batch
+    32, saves at 3 and 6, a demo at 6), resumed mid-epoch from step 3 to
+    6 as a second subprocess (its params and EMA against the first
+    run's); the flagship in-process on the 1 024 entries for 26 steps,
+    its launch counts against phase 8's layout and its images/s over
+    steps 1-25 (the trainer's own window between its prints at 0 and 25,
+    with and without the loader's waits) beside phase 8's bare step;
+    config_test_tiny in-process with two microbatches and --gns (class
+    dropout and the augmentation warp on the card) for 17 steps under
+    --profile-dir, whose trace of steps 10-15 must hold no host-blocking
+    call but the trainer's own synchronisation before the trace ends; the
+    cifar10 U-Net on raw CIFAR-10 batch files, each with its launch
+    counts; then convert_for_inference and the sample entry point on the
+    flagship's checkpoint."""
+    from k_diffusion_tpu_torch import train as train_cli
+    from k_diffusion_tpu_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        g = torch.Generator().manual_seed(SEED + 21)
+        # smooth seeded images: 16 x 16 noise upsampled, a little grain
+        coarse = torch.rand((128, 3, 16, 16), generator=g)
+        images = (F.interpolate(coarse, size=(256, 256), mode="bilinear")
+                  * 0.9 + torch.rand((128, 3, 256, 256), generator=g) * 0.1)
+        images = (images * 255).round().permute(0, 2, 3, 1) / 127.5 - 1
+        folder, many, paeth = tmp / "flowers", tmp / "many", tmp / "paeth"
+        for d in (folder, many, paeth):
+            d.mkdir()
+        for i, x in enumerate(images):
+            KT.utils.to_png(x, folder / f"{i:04}.png")
+            if i < 64:
+                KT.utils.to_png(x, paeth / f"{i:04}.png", row_filter=4)
+        for i in range(1024):
+            (many / f"{i:04}.png").symlink_to(folder / f"{i % 128:04}.png")
+        rates = {f"{kind} {workers}": loader_rates(KT, root, workers, reps)
+                 for kind, root, reps in (("to_png", many, 3),
+                                          ("paeth", paeth, 2))
+                 for workers in (1, 4, 8)}
+        print(f"loader alone: 256 x 256 PNGs, batch {TRAIN_BATCH}, images/s "
+              f"by threads, median (min-max) of timed epochs after an "
+              f"untimed one (to_png: 3 epochs of 1 024 entries linking 128 "
+              f"files; paeth: 2 epochs of 64 files, 2 batches): "
+              f"{ {k: spread(r) for k, r in rates.items()} }; every epoch "
+              f"{ {k: [round(x, 1) for x in r] for k, r in rates.items()} } "
+              f"on the host of {smi} ({os.cpu_count()} cores)", flush=True)
+
+        # the flagship, its dataset replaced by the folder
+        cfg = json.loads(CONFIG.read_text())
+        cfg["dataset"] = {"type": "imagefolder", "location": str(folder)}
+        cfg_path = tmp / "flowers.json"
+        cfg_path.write_text(json.dumps(cfg))
+        run = tmp / "flag"
+        out, secs = run_entry("train", "--config", cfg_path, "--batch-size",
+                              32, "--end-step", 6, "--save-every", 3,
+                              "--demo-every", 6, "--sample-n", 4, "--name", run)
+        for f in ("flag_00000003.ckpt", "flag_00000006.ckpt",
+                  "flag_state.json"):
+            if not (tmp / f).exists():
+                raise AssertionError(f"trainer: no {f}:\n{out}")
+        check_png(tmp / "flag_demo_00000006.png", 512)
+        print(f"trainer (flagship, subprocess): 6 steps at batch 32 in "
+              f"{secs:.1f} s with process start, build and demo; its "
+              f"output: {' | '.join(out.strip().splitlines())}", flush=True)
+        resumed = tmp / "resumed"
+        out, secs = run_entry("train", "--config", cfg_path, "--batch-size",
+                              32, "--end-step", 6, "--save-every", 3,
+                              "--demo-every", 0, "--resume",
+                              tmp / "flag_00000003.ckpt", "--name", resumed)
+        a = torch.load(tmp / "flag_00000006.ckpt", map_location="cpu",
+                       weights_only=True)
+        b = torch.load(tmp / "resumed_00000006.ckpt", map_location="cpu",
+                       weights_only=True)
+        mid = torch.load(tmp / "flag_00000003.ckpt", map_location="cpu",
+                         weights_only=True)["host"]
+        if mid["batch_in_epoch"] != 3 or b["host"]["step"] != 6:
+            raise AssertionError(f"resume: saved at batch "
+                                 f"{mid['batch_in_epoch']} of its epoch, "
+                                 f"resumed run at step {b['host']['step']}")
+        errs, equal = {}, True
+        for key in ("model", "model_ema"):
+            x, y = flat_weights(a, key), flat_weights(b, key)
+            errs[key] = ((x - y).norm() / x.norm()).item()
+            equal = equal and torch.equal(x, y)
+            if not errs[key] <= 1e-3:
+                raise AssertionError(f"resume: {key} relative L2 "
+                                     f"{errs[key]:.3e} > 1e-3")
+        print(f"trainer resume (subprocess, from step 3, batch 3 of 4 in its "
+              f"epoch, to 6, {secs:.1f} s): params relative L2 "
+              f"{errs['model']:.3e}, EMA {errs['model_ema']:.3e} (bound "
+              f"1e-3), bit-equal {equal}; its output: "
+              f"{' | '.join(out.strip().splitlines())}", flush=True)
+        print(f"trainer images/s from the checkpoints' elapsed (3 steps "
+              f"a window: indicative only, the 25-step window below is the "
+              f"measurement): {6 * 32 / a['host']['elapsed']:.3f} over steps "
+              f"0-5 (the first step's warm-up included), "
+              f"{3 * 32 / (a['host']['elapsed'] - mid['elapsed']):.3f} over "
+              f"steps 3-5 of that run, on {smi}", flush=True)
+
+        # in-process runs, their launches counted
+        def counted(name, cfg, steps, per_step, *flags):
+            cfg_path = tmp / f"{name}.json"
+            cfg_path.write_text(json.dumps(cfg))
+            kernels.reset_launch_counts()
+            window = train_cli.main([
+                "--config", str(cfg_path), "--end-step", str(steps),
+                "--demo-every", "0", "--save-every", "0", "--name",
+                str(tmp / name), *flags])
+            counts = kernels.launch_counts()
+            expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+                k: steps * v for k, v in per_step.items()}
+            if counts != expected:
+                raise AssertionError(f"trainer ({name}): launch counts "
+                                     f"{counts} != {expected}")
+            host = torch.load(tmp / f"{name}_{steps:08}.ckpt",
+                              map_location="cpu", weights_only=True)["host"]
+            print(f"trainer ({name}, in-process): {steps} steps, launches "
+                  f"per step {per_step}; loss EMA "
+                  f"{host['ema_stats']['loss']:.5f}, gns "
+                  f"{(host['gns_stats'] or {}).get('gradient_noise_scale')}",
+                  flush=True)
+            return window
+
+        # the same 1 024 entries from the PNGs (decoded by 8 loader
+        # threads) and from memory (a custom dataset over the decoded
+        # arrays): the difference is what decoding costs the step
+        np.save(tmp / "images.npy", np.stack(
+            [KT.data.load_image(folder / f"{i:04}.png", 256)
+             for i in range(128)]))
+        (tmp / "in_memory.py").write_text(IN_MEMORY_DATASET)
+        sources = {
+            "PNG files": {"type": "imagefolder", "location": str(many)},
+            "memory": {"type": "custom",
+                       "location": str(tmp / "in_memory.py"),
+                       "config": {"path": str(tmp / "images.npy"),
+                                  "entries": 1024}}}
+        for source, dataset in sources.items():
+            cfg["dataset"] = dataset
+            w = counted(f"flagship_{dataset['type']}", cfg, 26,
+                        hdit_train_layout(config), "--batch-size",
+                        str(TRAIN_BATCH))
+            if w["steps"] != 25:
+                raise AssertionError(f"trainer (flagship): window {w}")
+            wall = w["body_s"] + w["wait_s"]
+            print(f"trainer images/s (flagship, in-process, batch "
+                  f"{TRAIN_BATCH}, 1 024 entries from {source}, 8 loader "
+                  f"threads, steps 1-25 after the first): "
+                  f"{w['images'] / w['body_s']:.3f} over the step bodies "
+                  f"(what the checkpoint's elapsed adds up), "
+                  f"{w['images'] / wall:.3f} with the loader's waits "
+                  f"({w['wait_s'] / wall:.1%} of the wall time waiting), "
+                  f"against the bare step's {fused_ips:.3f} (phase 8, 20 "
+                  f"steps after 3) on {smi}", flush=True)
+
+        tiny_cfg = json.loads(TEST_TINY.read_text())
+        prof = tmp / "prof"
+        counted("tiny", tiny_cfg, 17, {k: 2 * v for k, v in tiny_step.items()},
+                "--batch-size", "8", "--grad-accum-steps", "2", "--gns",
+                "--profile-dir", str(prof))
+        during, after = trace_syncs(prof)
+        if during:
+            raise AssertionError(f"trainer (tiny): host-blocking calls while "
+                                 f"steps 10-15 were in flight: {during}")
+        print(f"trainer (tiny) trace of steps 10-15 (augmentation warp, class "
+              f"dropout, 2 microbatches, GNS): no host-blocking call while "
+              f"the steps were in flight; after the last launch {after} (the "
+              f"trainer's and the profiler's, ending the trace)", flush=True)
+        cifar = tmp / "cifar"
+        cifar.mkdir()
+        for i in range(1, 6):
+            data = torch.randint(0, 256, (64, 3072), dtype=torch.uint8,
+                                 generator=g)
+            with open(cifar / f"data_batch_{i}", "wb") as f:
+                pickle.dump({b"data": data.numpy(),
+                             b"labels": torch.randint(0, 10, (64,),
+                                                      generator=g).tolist()},
+                            f)
+        unet_cfg = json.loads(UNET_CONFIG.read_text())
+        unet_cfg["dataset"]["location"] = str(cifar)
+        counted("unet", unet_cfg, 3, {"flash": n_attn, "flash_bwd": n_attn},
+                "--batch-size", str(UNET_BATCH))
+
+        # the chain on the card
+        inference = tmp / "flag.safetensors"
+        run_entry("convert_for_inference", tmp / "flag_00000006.ckpt",
+                  inference)
+        out, secs = run_entry("sample", "--checkpoint", inference, "-n", 8,
+                              "--batch-size", 8, "--prefix", tmp / "chain")
+        for i in range(8):
+            check_png(tmp / f"chain_{i:05}.png", 256)
+        print(f"trainer chain: convert_for_inference of the step-6 "
+              f"checkpoint ({inference.stat().st_size} bytes, bfloat16), "
+              f"then the sample entry point: 8 PNGs in {secs:.1f} s; its "
+              f"output: {' | '.join(out.strip().splitlines())}", flush=True)
 
 
 def unet_forward_flops(KT, config):

@@ -15,23 +15,30 @@ global attention levels and the U-Net (``image_v1``):
   evaluate it at schedule sigmas only; ``checkpoint.save_inference``
   writes such a checkpoint (safetensors, read and written by
   ``utils.io``, readable by the JAX package);
-- training: ``training.make_optimizer`` -> ``training.init_train_state`` ->
+- training, through its entry point: ``python -m
+  k_diffusion_tpu_torch.train --config config.json`` (on the card;
+  ``--device cpu`` trains on the CPU), with ``convert_for_inference``,
+  ``config_from_inference`` and ``make_grid`` beside it. In code:
+  ``data.make_dataset`` -> ``data.DataLoader`` ->
+  ``augmentation.KarrasAugmentationPipeline`` on the device ->
+  ``training.make_optimizer`` -> ``training.init_train_state`` ->
   ``training.make_train_step`` with ``config.make_sample_density``,
-  ``make_lr_schedule`` and ``make_ema_sched``.
+  ``make_lr_schedule`` and ``make_ema_sched``; ``checkpoint.save_checkpoint``
+  and ``load_checkpoint`` save and resume it.
 Models, schedules and densities go to the card unless the caller names a
 device. The HDiT's attention prologue, neighborhood and global attention,
 feed-forward block and mapping network, the backwards of the first four,
 and the flash attention of the U-Net (and of HDiT global levels that the
 packed kernel does not take) with its backward are hand-written CUDA
 kernels (``ops.kernels``) for CUDA tensors, with plain PyTorch versions for
-CPU tensors. Importing the package imports torch only and compiles
-nothing.
+CPU tensors. Importing the package imports torch and numpy only and
+compiles nothing.
 """
 
-from . import (augmentation, checkpoint, condcache, config, convert,
-               denoiser, layers, models, ops, sampling, training, utils)
+from . import (augmentation, checkpoint, condcache, config, convert, data,
+               denoiser, gns, layers, models, ops, sampling, training, utils)
 from .denoiser import Denoiser
 
 __all__ = ["augmentation", "checkpoint", "condcache", "config", "convert",
-           "denoiser", "layers", "models", "ops", "sampling", "training",
-           "utils", "Denoiser"]
+           "data", "denoiser", "gns", "layers", "models", "ops", "sampling",
+           "training", "utils", "Denoiser"]

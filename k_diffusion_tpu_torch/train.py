@@ -1,0 +1,414 @@
+"""Trains a Karras et al. (2022) diffusion model (counterpart of the JAX
+package's train.py).
+
+    python -m k_diffusion_tpu_torch.train \\
+        --config configs/config_oxford_flowers.json --batch-size 32 \\
+        --name run
+
+Builds the config's model on the card (bfloat16 compute; ``--device cpu``
+runs the kernels' plain versions on the CPU in float32), reads the config's
+dataset through a prefetching loader, augments each batch on the device,
+and trains through ``training.make_train_step`` (class-conditioning
+dropout, gradient accumulation, clip + AdamW, EMA). Every 25 steps it
+prints the loss and the images/s since the last print, over the step
+bodies alone (the seconds the checkpoint's ``elapsed`` adds up, as the JAX
+trainer keeps them) and with the waits for the loader; ``main`` returns
+the last such window ({"steps", "images", "body_s", "wait_s"}). Every ``--demo-every`` steps it samples the EMA model
+(DPM++(2M) SDE, eta 0, Heun, 50 steps) into ``{name}_demo_{step:08}.png``;
+every ``--save-every`` steps, and at ``--end-step``, it writes
+``{name}_{step:08}.ckpt`` and points ``{name}_state.json`` at it. A run
+whose ``{name}_state.json`` exists resumes from it.
+
+Each step's draws come from generators seeded by ``sampling.fold_in``:
+the step from (seed + 3, step), the augmentation from (seed + 2, step),
+the demo from (seed, step), as the JAX trainer folds its keys. With the
+loader's epoch and position restored, a resumed run draws and reads
+exactly what the uninterrupted run would have.
+"""
+
+import argparse
+import math
+import time
+from pathlib import Path
+
+import torch
+
+from . import (augmentation, checkpoint, config as config_mod, data,
+               gns as gns_mod, sampling, training, utils)
+
+
+class StarvationMonitor:
+    """Warns when the input pipeline cannot feed the device: ``record(wait_s,
+    step_s)`` each step; ``check()`` at the print cadence returns a warning
+    (and resets its window) when more than ``threshold`` of the wall time
+    went to waiting for the loader."""
+
+    def __init__(self, threshold=0.25, min_steps=10):
+        self.threshold = threshold
+        self.min_steps = min_steps
+        self.wait_s = 0.0
+        self.step_s = 0.0
+        self.n = 0
+
+    def record(self, wait_s, step_s):
+        self.wait_s += max(0.0, wait_s)
+        self.step_s += max(0.0, step_s)
+        self.n += 1
+
+    def check(self):
+        if self.n < self.min_steps:
+            return None
+        total = self.wait_s + self.step_s
+        frac = self.wait_s / total if total > 0 else 0.0
+        step_s, n = self.step_s, self.n
+        self.wait_s = self.step_s = 0.0
+        self.n = 0
+        if frac <= self.threshold:
+            return None
+        loader_rate = n / total if total else 0.0
+        device_rate = n / step_s if step_s else float("inf")
+        return (f"WARNING: input pipeline is starving the device: "
+                f"{frac:.0%} of wall time spent waiting on the data loader "
+                f"({loader_rate:.2f} batches/s fed vs {device_rate:.2f} "
+                f"batches/s consumed). Raise --num-workers, store the "
+                f"images at the model's size, or add host cores.")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("--batch-size", type=int, default=64,
+                   help="the batch size")
+    p.add_argument("--checkpointing", action="store_true",
+                   help="enable gradient checkpointing (not ported yet)")
+    p.add_argument("--checkpoint-format", type=str, default="torch",
+                   choices=["torch", "orbax"],
+                   help="torch = one torch.save file; orbax is not ported")
+    p.add_argument("--remat-levels", nargs="*", default=None,
+                   help="hourglass levels to remat (not ported yet)")
+    p.add_argument("--config", type=str, required=True,
+                   help="the configuration file")
+    p.add_argument("--demo-every", type=int, default=500,
+                   help="save a demo grid every this many steps")
+    p.add_argument("--end-step", type=int, default=None,
+                   help="the step to end training at")
+    p.add_argument("--evaluate-every", type=int, default=10000,
+                   help="evaluate every this many steps")
+    p.add_argument("--evaluate-n", type=int, default=2000,
+                   help="the number of samples to draw to evaluate")
+    p.add_argument("--evaluate-only", action="store_true",
+                   help="evaluate instead of training (not ported yet)")
+    p.add_argument("--gns", action="store_true",
+                   help="measure the gradient noise scale (disables "
+                        "stratified sampling)")
+    p.add_argument("--grad-accum-steps", type=int, default=1,
+                   help="the number of gradient accumulation steps")
+    p.add_argument("--lr", type=float, help="the learning rate")
+    p.add_argument("--mixed-precision", type=str, default="bf16",
+                   choices=["no", "bf16"],
+                   help="the compute precision on the card (the CPU "
+                        "computes in float32)")
+    p.add_argument("--name", type=str, default="model",
+                   help="the name of the run")
+    p.add_argument("--num-workers", type=int, default=8,
+                   help="the number of data loader threads")
+    p.add_argument("--reset-ema", action="store_true", help="reset the EMA")
+    p.add_argument("--resume", type=str, help="the checkpoint to resume from")
+    p.add_argument("--resume-inference", type=str,
+                   help="the inference checkpoint to resume from")
+    p.add_argument("--sample-n", type=int, default=64,
+                   help="the number of images to sample for demo grids")
+    p.add_argument("--save-every", type=int, default=10000,
+                   help="save every this many steps")
+    p.add_argument("--profile-dir", type=str,
+                   help="write a torch.profiler trace of steps 10-15 here")
+    p.add_argument("--seed", type=int, help="the random seed")
+    p.add_argument("--device", type=str, default=None,
+                   help="the device (default: the current CUDA device)")
+    p.add_argument("--wandb-entity", type=str, help="the wandb entity name")
+    p.add_argument("--wandb-group", type=str, help="the wandb group name")
+    p.add_argument("--wandb-project", type=str,
+                   help="the wandb project name (not ported yet)")
+    return p.parse_args(argv)
+
+
+def check_ported(args):
+    """Raises NotImplementedError for a flag the port does not run yet,
+    naming where it waits in ROADMAP.md."""
+    waits = [
+        (args.checkpointing, "--checkpointing", "queue 1, item 4 (remat)"),
+        (args.remat_levels is not None, "--remat-levels",
+         "queue 1, item 4 (remat)"),
+        (args.checkpoint_format == "orbax", "--checkpoint-format orbax",
+         "queue 1, item 7 (orbax and multi-process)"),
+        (args.evaluate_only, "--evaluate-only",
+         "queue 1, item 6 (evaluation)"),
+        (args.wandb_project, "--wandb-project",
+         "queue 1, item 8 (wandb logging)"),
+    ]
+    for given, flag, item in waits:
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: ROADMAP.md {item}")
+
+
+def to_device(array, device):
+    """A numpy batch array on ``device``, copied from pinned memory to the
+    card."""
+    t = torch.from_numpy(array)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    check_ported(args)
+    device = utils.default_device(args.device)
+    if device.type == "cuda" and args.mixed_precision == "no":
+        raise NotImplementedError(
+            "--mixed-precision no (float32 compute on the card) is not "
+            "ported yet: ROADMAP.md queue 1, item 9")
+    dtype = utils.compute_dtype(device)
+    print(f"Device: {device}, compute dtype {dtype}", flush=True)
+
+    config = config_mod.load_config(args.config)
+    model_config = config["model"]
+    dataset_config = config["dataset"]
+    if args.lr is not None:
+        config["optimizer"]["lr"] = args.lr
+    seed = args.seed if args.seed is not None else 42
+    size = model_config["input_size"]
+    size = size if isinstance(size, (list, tuple)) else [size, size]
+    channels = model_config["input_channels"]
+    num_classes = dataset_config["num_classes"]
+    sigma_min, sigma_max = model_config["sigma_min"], model_config["sigma_max"]
+    accum = args.grad_accum_steps
+    if args.gns and accum < 2:
+        raise ValueError("--gns needs a small batch distinct from the large "
+                         "one: set --grad-accum-steps > 1")
+
+    model = config_mod.make_model(
+        config, dtype=dtype, device=device,
+        generator=torch.Generator(device).manual_seed(seed))
+    print(f"Parameters: {sum(p.numel() for p in model.parameters()):,}")
+
+    train_set = data.make_dataset(dataset_config, size[0],
+                                  config_dir=Path(args.config).parent)
+    print(f"Number of items in dataset: {len(train_set):,}")
+    train_dl = data.DataLoader(train_set, args.batch_size * accum, seed=seed,
+                               num_workers=args.num_workers)
+    if not len(train_dl):
+        raise ValueError(f"{len(train_set)} items make no batch of "
+                         f"{args.batch_size * accum}")
+    augment_prob = model_config["augment_prob"]
+    aug_pipe = augmentation.KarrasAugmentationPipeline(
+        augment_prob, disable_all=augment_prob == 0)
+
+    state = training.init_train_state(
+        model, training.make_optimizer(config, model))
+    ema_sched = config_mod.make_ema_sched(config)
+    denoiser_factory = config_mod.make_denoiser_wrapper(config)
+    host = {"epoch": 0, "step": 0, "batch_in_epoch": 0, "elapsed": 0.0,
+            "ema_stats": {}, "ema_sched": ema_sched.state_dict(),
+            "gns_stats": None, "config": config}
+    gns_stats = gns_mod.GradientNoiseScale() if args.gns else None
+
+    if args.resume and not Path(args.resume).exists():
+        raise FileNotFoundError(f"--resume {args.resume}: no such file")
+    ckpt_path = args.resume or checkpoint.latest_checkpoint(args.name)
+    if ckpt_path and Path(ckpt_path).exists():
+        print(f"Resuming from {ckpt_path}...")
+        state, host = checkpoint.load_checkpoint(ckpt_path, state)
+        host["config"] = config  # the current run's config wins
+        ema_sched.load_state_dict(host["ema_sched"])
+        # the data order: the epoch's shuffle and the position in it
+        train_dl.epoch = host["epoch"]
+        train_dl.start_batch = host.get("batch_in_epoch", 0)
+        if args.gns and host.get("gns_stats"):
+            gns_stats.load_state_dict(host["gns_stats"])
+    if args.reset_ema:
+        state.model.load_state_dict(state.ema_model.state_dict())
+        ema_sched = config_mod.make_ema_sched(config)
+    if args.resume_inference:
+        print(f"Loading {args.resume_inference}...")
+        weights, _ = checkpoint.load_inference(args.resume_inference)
+        state.model.load_state_dict(weights)
+        state.ema_model.load_state_dict(weights)
+
+    train_step = training.make_train_step(
+        denoiser_factory, config_mod.make_sample_density(model_config),
+        num_classes=num_classes,
+        cond_dropout_rate=dataset_config["cond_dropout_rate"],
+        stratified=not args.gns, compute_gns=args.gns)
+
+    def generator(seed_, step):
+        return torch.Generator(device).manual_seed(
+            sampling.fold_in(seed_, step))
+
+    @torch.no_grad()
+    def demo(step):
+        print("Sampling...")
+        gen = generator(seed, step)
+        n = args.sample_n
+        x = torch.randn((n, size[0], size[1], channels), generator=gen,
+                        device=device) * sigma_max
+        sigmas = sampling.get_sigmas_karras(50, sigma_min, sigma_max,
+                                            rho=7.0, device=device)
+        extra = ({"class_cond": torch.randint(0, num_classes, (n,),
+                                              generator=gen, device=device)}
+                 if num_classes else {})
+        x_0 = sampling.sample_dpmpp_2m_sde(
+            denoiser_factory(state.ema_model), x, sigmas, extra_args=extra,
+            eta=0.0, solver_type="heun")
+        filename = f"{args.name}_demo_{step:08}.png"
+        utils.to_png(utils.make_grid(x_0, nrow=math.ceil(n ** 0.5)),
+                     filename)
+        print(f"Saved {filename}")
+
+    if args.evaluate_every > 0 and args.evaluate_n > 0:
+        print("Evaluation disabled (feature extractor unavailable: FID and "
+              "KID are not ported yet, ROADMAP.md queue 1, item 6)",
+              flush=True)
+
+    def save(step):
+        host["step"] = step
+        host["ema_sched"] = ema_sched.state_dict()
+        host["gns_stats"] = gns_stats.state_dict() if gns_stats else None
+        filename = f"{args.name}_{step:08}.ckpt"
+        print(f"Saving to {filename}...")
+        checkpoint.save_checkpoint(filename, state, host)
+        checkpoint.write_state_json(args.name, filename)
+
+    def due(every, step):
+        return every > 0 and step > 0 and step % every == 0
+
+    step = host["step"]
+    epoch = host["epoch"]
+    batch_in_epoch = host.get("batch_in_epoch", 0)
+    losses_since_last_print = []
+    gns_pending = []
+
+    def drain_gns():
+        for sqn_small, sqn_big in gns_pending:
+            gns_stats.update(float(sqn_small), float(sqn_big),
+                             args.batch_size, args.batch_size * accum)
+        gns_pending.clear()
+
+    starvation = StarvationMonitor()
+    # images and seconds since the last print: step bodies, and loader
+    # waits (the wait for a batch, not the prints, demos and saves)
+    window = dict.fromkeys(("steps", "images", "body_s", "wait_s"), 0)
+    last_window = None
+    t_loop_end = None
+    profiler = None
+    try:
+        while True:
+            for batch in train_dl:
+                t0 = time.perf_counter()
+                data_wait = t0 - t_loop_end if t_loop_end is not None else 0.0
+                batch_in_epoch += 1
+                host["batch_in_epoch"] = batch_in_epoch
+                images = to_device(batch["image"], device)
+                reals, _, aug_cond = aug_pipe.apply(
+                    aug_pipe.draw(images.shape[0], generator(seed + 2, step)),
+                    images)
+                dev_batch = {
+                    "reals": reals.reshape(accum, args.batch_size,
+                                           *reals.shape[1:]),
+                    "aug_cond": aug_cond.reshape(accum, args.batch_size, 9)}
+                if num_classes and "class" in batch:
+                    dev_batch["class_cond"] = to_device(
+                        batch["class"], device).long().reshape(
+                        accum, args.batch_size)
+
+                if args.profile_dir and step == 10:
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if device.type == "cuda":
+                        activities.append(torch.profiler.ProfilerActivity.CUDA)
+                    profiler = torch.profiler.profile(activities=activities)
+                    profiler.start()
+                ema_decay = ema_sched.get_value()
+                metrics = train_step(state, dev_batch,
+                                     generator(seed + 3, step), ema_decay)
+                if profiler is not None and step == 15:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    profiler.stop()
+                    Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
+                    trace = Path(args.profile_dir) / f"trace_{step:08}.json"
+                    profiler.export_chrome_trace(str(trace))
+                    profiler = None
+                    print(f"Saved profiler trace to {trace}")
+
+                losses_since_last_print.append((metrics["loss"], ema_decay))
+                ema_sched.step()
+                if args.gns:
+                    gns_pending.append((metrics["grad_sq_norm_small"],
+                                        metrics["grad_sq_norm_big"]))
+                if device.type == "cuda" and (
+                        step % 25 == 0 or step + 1 == args.end_step
+                        or due(args.demo_every, step + 1)
+                        or due(args.save_every, step + 1)):
+                    # the queued steps finish inside the timed body, so
+                    # that ``elapsed`` holds their device time
+                    torch.cuda.synchronize(device)
+                t_body_end = time.perf_counter()
+                host["elapsed"] += t_body_end - t0
+                starvation.record(data_wait, t_body_end - t0)
+                window["steps"] += 1
+                window["images"] += images.shape[0]
+                window["body_s"] += t_body_end - t0
+                window["wait_s"] += data_wait
+
+                if step % 25 == 0:
+                    for dev_loss, decay in losses_since_last_print:
+                        utils.ema_update_dict(host["ema_stats"],
+                                              {"loss": float(dev_loss)},
+                                              decay ** (1 / accum))
+                    loss_vals = [float(l) for l, _ in losses_since_last_print]
+                    losses_since_last_print.clear()
+                    drain_gns()
+                    gns_str = (f", gns: {gns_stats.get_gns():g}" if args.gns
+                               else "")
+                    last_window = dict(window)
+                    window.update(dict.fromkeys(window, 0))
+                    wall = last_window["body_s"] + last_window["wait_s"]
+                    print(f"Epoch: {epoch}, step: {step}, loss: "
+                          f"{sum(loss_vals) / len(loss_vals):g}, avg loss: "
+                          f"{host['ema_stats']['loss']:g}{gns_str}, "
+                          f"images/s: "
+                          f"{last_window['images'] / last_window['body_s']:g} "
+                          f"({last_window['images'] / wall:g} with loader "
+                          f"waits, {last_window['wait_s'] / wall:.1%} "
+                          f"waiting)", flush=True)
+                    warn = starvation.check()
+                    if warn:
+                        print(warn, flush=True)
+
+                step += 1
+                host["step"] = step
+                if due(args.demo_every, step):
+                    demo(step)
+                if step == args.end_step or due(args.save_every, step):
+                    if args.gns:
+                        drain_gns()  # the estimator up to date in the file
+                    save(step)
+                if step == args.end_step:
+                    print("Done!")
+                    return last_window
+                t_loop_end = time.perf_counter()
+            epoch += 1
+            host["epoch"] = epoch
+            batch_in_epoch = 0
+            host["batch_in_epoch"] = 0
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if profiler is not None:
+            profiler.stop()
+
+
+if __name__ == "__main__":
+    main()

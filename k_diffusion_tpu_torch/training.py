@@ -4,8 +4,8 @@ sample sigmas -> noise -> loss -> backward -> clip -> AdamW -> EMA
 
 The JAX package jits one pure function of (state, batch, key); here the
 step is eager PyTorch that updates the model, the optimizer and the EMA
-copy in place. Draws (sigmas, noise, dropout masks) come from the
-``torch.Generator`` passed to each step.
+copy in place. Draws (sigmas, noise, class dropout, dropout masks) come
+from the ``torch.Generator`` passed to each step.
 
 Left out, and why:
 - ``flatopt.py``, the JAX package's default AdamW for the flagship, packs
@@ -99,6 +99,27 @@ class GroupedAdamW:
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
 
+    def group_names(self):
+        return [g["name"] for g in self.optimizer.param_groups]
+
+    def state_dict(self):
+        """The wrapped AdamW's state (each parameter's moments and step
+        count, its groups' settings) and the group names."""
+        return {"groups": self.group_names(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state_dict):
+        """Restores ``state_dict()``'s state into an optimizer over the same
+        groups; the moments go to the parameters' device. The state is
+        copied: torch's ``load_state_dict`` keeps the given tensors where
+        their device and dtype already fit, and two optimizers would then
+        update one set of moments."""
+        if state_dict["groups"] != self.group_names():
+            raise ValueError(f"optimizer state for groups "
+                             f"{state_dict['groups']}; this optimizer has "
+                             f"{self.group_names()}")
+        self.optimizer.load_state_dict(copy.deepcopy(state_dict["optimizer"]))
+
 
 # the param taxonomy of each model family
 _PARAM_LABELS = {"image_v1": image_v1.param_group_labels,
@@ -132,23 +153,35 @@ def _sq_norm(grads):
     return torch.stack(torch._foreach_norm(grads)).square().sum()
 
 
-def make_train_step(denoiser_factory, sample_density, *, stratified=True,
-                    compute_gns=False):
-    """Returns ``step(state, batch, generator, ema_decay, noise=None) ->
-    metrics``.
+def make_train_step(denoiser_factory, sample_density, *, num_classes=0,
+                    cond_dropout_rate=0.0, stratified=True, compute_gns=False):
+    """Returns ``step(state, batch, generator, ema_decay, noise=None,
+    class_drop=None) -> metrics``.
 
     ``batch`` is a dict with leading dims [accum, batch]: ``reals`` (A, B,
-    H, W, C) and optionally ``aug_cond`` (A, B, 9). Per step: sigmas for
-    all A * B images from ``sample_density`` (stratified over them when
-    ``stratified``), then per microbatch noise from ``generator`` (or the
-    given ``noise``, (A, B, H, W, C)), the mean ``Denoiser.loss`` and its
-    gradient, accumulated over the A microbatches and averaged; then the
-    optimizer (clip + AdamW) and the EMA update with ``ema_decay``. The
-    dropout masks come from ``generator`` too. ``metrics`` holds tensors:
-    ``loss`` and, with ``compute_gns``, the small- and big-batch gradient
-    squared norms."""
+    H, W, C) and optionally ``aug_cond`` (A, B, 9) and ``class_cond`` (A, B)
+    int. Per step: sigmas for all A * B images from ``sample_density``
+    (stratified over them when ``stratified``), then per microbatch noise
+    from ``generator`` (or the given ``noise``, (A, B, H, W, C)) and, with
+    ``class_cond`` and a ``cond_dropout_rate`` above 0, one uniform per
+    label from ``generator`` (or the given ``class_drop``, (A, B) bool):
+    a label whose draw is below the rate becomes ``num_classes``, the
+    unconditional class, as the JAX step drops it. Then the mean
+    ``Denoiser.loss`` and its gradient, accumulated over the A
+    microbatches and averaged; then the optimizer (clip + AdamW) and the
+    EMA update with ``ema_decay``. The dropout masks come from
+    ``generator`` too. ``metrics`` holds tensors: ``loss`` and, with
+    ``compute_gns``, the small- and big-batch gradient squared norms."""
 
-    def step(state, batch, generator, ema_decay, noise=None):
+    def drop_classes(classes, generator, class_drop):
+        if cond_dropout_rate <= 0:
+            return classes
+        if class_drop is None:
+            class_drop = torch.rand(classes.shape, generator=generator,
+                                    device=classes.device) < cond_dropout_rate
+        return torch.where(class_drop, num_classes, classes)
+
+    def step(state, batch, generator, ema_decay, noise=None, class_drop=None):
         model = state.model
         reals = batch["reals"]
         a_steps, b = reals.shape[:2]
@@ -165,6 +198,10 @@ def make_train_step(denoiser_factory, sample_density, *, stratified=True,
             mb_noise = (noise[i] if noise is not None else torch.randn(
                 reals[i].shape, generator=generator, device=reals.device,
                 dtype=reals.dtype))
+            if "class_cond" in batch:
+                extra["class_cond"] = drop_classes(
+                    batch["class_cond"][i], generator,
+                    None if class_drop is None else class_drop[i])
             den = denoiser_factory(model)
             loss = den.loss(reals[i], mb_noise, sigmas[i], **extra).mean()
             mb_grads = torch.autograd.grad(loss, params)

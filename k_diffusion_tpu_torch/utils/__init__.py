@@ -1,12 +1,12 @@
 """Utilities (counterpart of k_diffusion_tpu/utils/): array helpers, the
 default device and compute dtype, the training-time sigma densities, LR and
-EMA schedules, the EMA update, safetensors files (``io``) and PNG images
-(``image``)."""
+EMA schedules, the EMA update, safetensors files (``io``), PNG images and
+grids (``image``)."""
 
 from .array import append_dims
 from .device import compute_dtype, default_device
-from .ema import ema_update
-from .image import to_png
+from .ema import ema_update, ema_update_dict
+from .image import from_png, make_grid, to_png
 from .io import get_safetensors_metadata
 from .random import (cosine_interpolated, log_logistic, log_normal,
                      log_uniform, rand_cosine_interpolated, rand_log_logistic,
@@ -18,7 +18,8 @@ from .schedules import (EMAWarmup, constant_lr_with_warmup, exponential_lr,
 
 __all__ = [
     "append_dims", "compute_dtype", "default_device", "ema_update",
-    "get_safetensors_metadata", "to_png",
+    "ema_update_dict",
+    "from_png", "get_safetensors_metadata", "make_grid", "to_png",
     "cosine_interpolated", "log_logistic", "log_normal", "log_uniform",
     "rand_cosine_interpolated", "rand_log_logistic", "rand_log_normal", "rand_log_uniform",
     "rand_split_log_normal", "rand_v_diffusion", "split_log_normal",

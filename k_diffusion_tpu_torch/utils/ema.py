@@ -17,3 +17,15 @@ def ema_update(params, averaged_params, decay):
                          "averages")
     torch._foreach_lerp_(averaged_params, params, 1.0 - decay)
 
+
+
+def ema_update_dict(values, updates, decay):
+    """The host-side EMA of a dict of Python floats, in place: a new key
+    takes its value."""
+    for k, v in updates.items():
+        if k not in values:
+            values[k] = v
+        else:
+            values[k] *= decay
+            values[k] += (1 - decay) * v
+    return values

@@ -300,14 +300,19 @@ def test_mnist_transformer_routes_to_flash_and_matches_jax():
 
 
 def test_import_without_jax():
-    """The port imports and runs with jax, flax and optax unimportable, as
-    on a machine that has none of them."""
+    """The port, its entry points (train, sample, convert_for_inference,
+    config_from_inference, make_grid) and its data, augmentation,
+    checkpoint and GNS modules import, and the model runs, with jax, flax
+    and optax unimportable, as on a machine that has none of them."""
     code = textwrap.dedent(f"""
         import sys
         for name in ("jax", "flax", "optax"):
             sys.modules[name] = None
         import torch
         import k_diffusion_tpu_torch as KT
+        from k_diffusion_tpu_torch import (
+            augmentation, checkpoint, config_from_inference,
+            convert_for_inference, data, gns, make_grid, sample, train)
         config = KT.config.load_config({str(CONFIG)!r})
         config["model"].update({OVERRIDES!r})
         model = KT.config.make_model(config, device="cpu")

@@ -300,9 +300,12 @@ def test_train_mode_routes_like_jax(setup):
 
 # ---- one train step against JAX --------------------------------------------
 
-def jax_step(setup, reals, key, **kw):
-    """Runs the JAX train step on a copy of the params; returns (new
-    state, metrics, the sigmas (A, B) and noise (A, B, H, W, C) it drew)."""
+def jax_step(setup, reals, key, extra=None, **kw):
+    """Runs the JAX train step on a copy of the params, with ``extra``
+    batch entries beside ``reals``; returns (new state, metrics, the EMA
+    before the step, the sigmas (A, B) and noise (A, B, H, W, C) it drew
+    and, with ``class_cond`` in ``extra``, its class-dropout draws (A, B)
+    bool, else None)."""
     config, model, params, _ = setup
     labels = j_itv2.param_group_labels(params)
     opt = K.training.make_optimizer(conditioned(config), labels)
@@ -319,21 +322,26 @@ def jax_step(setup, reals, key, **kw):
     step = K.training.make_train_step(
         model, K.config.make_denoiser_wrapper(config), density, opt, **kw)
     ema_before = to_numpy(state.ema_params)
-    new_state, metrics = step(state, {"reals": jnp.asarray(reals)}, key,
-                              EMA_DECAY)
+    batch = {"reals": jnp.asarray(reals),
+             **{k: jnp.asarray(v) for k, v in (extra or {}).items()}}
+    new_state, metrics = step(state, batch, key, EMA_DECAY)
     a, b = reals.shape[:2]
     k_sigma, k_loop = jax.random.split(key)
     sigmas = np.asarray(density(k_sigma, (a * b,), stratified=(0, 1))).reshape(a, b)
-    noise = []
+    noise, drops = [], []
     for i in range(a):
-        k_noise, _, _ = jax.random.split(jax.random.fold_in(k_loop, i), 3)
+        k_noise, k_drop, _ = jax.random.split(jax.random.fold_in(k_loop, i), 3)
         folded = j_layout.fold_images(jnp.asarray(reals[i])).shape
         noise.append(np.asarray(jax.random.normal(k_noise, folded)).reshape(
             reals[i].shape))
-    return new_state, metrics, ema_before, sigmas, np.stack(noise)
+        drops.append(np.asarray(jax.random.uniform(k_drop, (b,)))
+                     < kw.get("cond_dropout_rate", 0.0))
+    drops = np.stack(drops) if "class_cond" in (extra or {}) else None
+    return new_state, metrics, ema_before, sigmas, np.stack(noise), drops
 
 
-def port_step(setup, reals, sigmas, noise, ema_before, **kw):
+def port_step(setup, reals, sigmas, noise, ema_before, extra=None,
+              class_drop=None, **kw):
     _, _, _, t_config = setup
     model = port_model(setup)
     state = KT.training.init_train_state(
@@ -343,9 +351,14 @@ def port_step(setup, reals, sigmas, noise, ema_before, **kw):
         KT.config.make_denoiser_wrapper(t_config),
         lambda shape, stratified=None, generator=None, device=None:
         torch.from_numpy(sigmas).reshape(shape), **kw)
-    metrics = step(state, {"reals": torch.from_numpy(reals)},
-                   torch.Generator().manual_seed(0), EMA_DECAY,
-                   noise=torch.from_numpy(noise))
+    batch = {"reals": torch.from_numpy(reals),
+             **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
+    if "class_cond" in batch:
+        batch["class_cond"] = batch["class_cond"].long()
+    metrics = step(state, batch, torch.Generator().manual_seed(0), EMA_DECAY,
+                   noise=torch.from_numpy(noise),
+                   class_drop=(None if class_drop is None
+                               else torch.from_numpy(class_drop)))
     return state, metrics
 
 
@@ -365,7 +378,7 @@ def test_train_step_matches_jax(setup):
     config, model, params, t_config = setup
     reals = np.random.default_rng(7).standard_normal(
         (1, 2, 64, 64, 3)).astype(np.float32)
-    new_state, metrics, ema_before, sigmas, noise = jax_step(
+    new_state, metrics, ema_before, sigmas, noise, _ = jax_step(
         setup, reals, jax.random.PRNGKey(8))
 
     def loss_fn(p):
@@ -466,7 +479,7 @@ def test_train_step_accumulates_microbatches_like_jax(setup):
     the gradient-noise-scale norms."""
     reals = np.random.default_rng(9).standard_normal(
         (2, 1, 64, 64, 3)).astype(np.float32)
-    new_state, metrics, ema_before, sigmas, noise = jax_step(
+    new_state, metrics, ema_before, sigmas, noise, _ = jax_step(
         setup, reals, jax.random.PRNGKey(10), compute_gns=True)
     state, t_metrics = port_step(setup, reals, sigmas, noise, ema_before,
                                  compute_gns=True)
@@ -497,3 +510,167 @@ def test_converted_train_state_gives_the_same_ema_forward(setup):
             torch.from_numpy(x), torch.from_numpy(sigma))
     close(got, want)
     assert not np.allclose(online.numpy(), np.asarray(want))
+
+
+# ---- the class-conditional step, the optimizer's state, GNS ---------------
+
+TINY = REPO / "configs" / "config_test_tiny.json"
+NUM_CLASSES = 4
+# config_test_tiny's rate is 0.1; at 0.5 a batch of four both keeps and
+# drops labels
+DROP_RATE = 0.5
+
+
+def tiny_reduced(load_config):
+    """configs/config_test_tiny.json with one layer."""
+    config = load_config(TINY)
+    config["model"]["depths"] = [1]
+    return config
+
+
+@pytest.fixture(scope="module")
+def tiny_setup():
+    """(JAX config, JAX model, randomized params, port config) of the
+    reduced class-conditional config_test_tiny."""
+    config = tiny_reduced(K.config.load_config)
+    model = K.config.make_model(config)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 32, 32, 3)), jnp.ones((1,)),
+                                 class_cond=jnp.zeros((1,), jnp.int32))["params"]
+    return config, model, randomized(params, 15), tiny_reduced(KT.config.load_config)
+
+
+@pytest.mark.parametrize("a_steps,b", [(1, 4), (2, 2)])
+def test_class_conditional_step_matches_jax(tiny_setup, a_steps, b):
+    """config_test_tiny (class-conditional HDiT, augmentation cond) through
+    both steps with JAX's class-dropout draws injected into the port's: the
+    loss, every gradient of the microbatch-mean loss, the post-AdamW params
+    and the EMA, 2e-4; at one and two microbatches."""
+    config, model, params, t_config = tiny_setup
+    rng = np.random.default_rng(16 + a_steps)
+    reals = rng.standard_normal((a_steps, b, 32, 32, 3)).astype(np.float32)
+    extra = {"class_cond": rng.integers(0, NUM_CLASSES, (a_steps, b)).astype(np.int32),
+             "aug_cond": rng.standard_normal((a_steps, b, 9)).astype(np.float32)}
+    kw = {"num_classes": NUM_CLASSES, "cond_dropout_rate": DROP_RATE}
+    new_state, metrics, ema_before, sigmas, noise, drops = jax_step(
+        tiny_setup, reals, jax.random.PRNGKey(17 + a_steps), extra, **kw)
+    assert drops.any() and not drops.all()
+    classes = np.where(drops, NUM_CLASSES, extra["class_cond"])
+
+    def loss_fn(p):
+        inner = lambda x, s, **k: model.apply(
+            {"params": p}, x, s, train=True,
+            rngs={"dropout": jax.random.PRNGKey(0)}, **k)
+        den = K.config.make_denoiser_wrapper(config)(inner)
+        return sum(jnp.mean(den.loss(
+            jnp.asarray(reals[i]), jnp.asarray(noise[i]),
+            jnp.asarray(sigmas[i]), class_cond=jnp.asarray(classes[i]),
+            aug_cond=jnp.asarray(extra["aug_cond"][i])))
+            for i in range(a_steps)) / a_steps
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    close(metrics["loss"], loss, F32_TOL)
+    port = port_model(tiny_setup).train()
+    den = KT.config.make_denoiser_wrapper(t_config)(port)
+    t_loss = sum(den.loss(
+        torch.from_numpy(reals[i]), torch.from_numpy(noise[i]),
+        torch.from_numpy(sigmas[i]),
+        class_cond=torch.from_numpy(classes[i]).long(),
+        aug_cond=torch.from_numpy(extra["aug_cond"][i])).mean()
+        for i in range(a_steps)) / a_steps
+    t_loss.backward()
+    close(t_loss, loss)
+    want = convert.flatten(to_numpy(grads))
+    for name, p in port.named_parameters():
+        close(p.grad, want[name], name=name)
+
+    state, t_metrics = port_step(tiny_setup, reals, sigmas, noise, ema_before,
+                                 extra, drops, **kw)
+    close(t_metrics["loss"], metrics["loss"])
+    check_state(state, new_state)
+
+
+def test_class_dropout_draws_from_the_generator(tiny_setup):
+    """With no injected draws the step drops labels by its generator's
+    uniforms: the model sees ``num_classes`` exactly where a uniform of
+    the same generator, drawn after the sigmas and the noise, is below the
+    rate."""
+    _, _, _, t_config = tiny_setup
+    seen = []
+    model = port_model(tiny_setup)
+    forward = model.forward
+    model.forward = lambda *a, class_cond=None, **k: seen.append(
+        class_cond.clone()) or forward(*a, class_cond=class_cond, **k)
+    state = KT.training.init_train_state(
+        model, KT.training.make_optimizer(t_config, model))
+    density = KT.config.make_sample_density(t_config["model"])
+    step = KT.training.make_train_step(
+        KT.config.make_denoiser_wrapper(t_config), density,
+        num_classes=NUM_CLASSES, cond_dropout_rate=DROP_RATE)
+    classes = torch.tensor([[0, 1, 2, 3, 0, 1, 2, 3]])
+    step(state, {"reals": torch.zeros(1, 8, 32, 32, 3),
+                 "class_cond": classes},
+         torch.Generator().manual_seed(3), EMA_DECAY)
+    g = torch.Generator().manual_seed(3)
+    density((8,), stratified=(0, 1), generator=g, device="cpu")
+    torch.randn((8, 32, 32, 3), generator=g)
+    drop = torch.rand((8,), generator=g) < DROP_RATE
+    assert torch.equal(seen[0], torch.where(drop, NUM_CLASSES, classes[0]))
+    assert drop.any() and not drop.all()
+
+
+def test_grouped_adamw_state_round_trip(setup):
+    """state_dict -> load_state_dict into a fresh optimizer over a copy of
+    the model: every moment and step count equal, and the next update
+    gives the same params, bit for bit. Other groups raise."""
+    _, _, _, t_config = setup
+    rng = np.random.default_rng(18)
+    grads = [[torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32))
+              for p in port_model(setup).parameters()] for _ in range(3)]
+
+    def run(model, optimizer, steps):
+        for count in steps:
+            for p, g in zip(model.parameters(), grads[count]):
+                p.grad = g.clone()
+            optimizer.step(count)
+            optimizer.zero_grad()
+
+    model = port_model(setup)
+    optimizer = KT.training.make_optimizer(t_config, model)
+    run(model, optimizer, [0, 1])
+    saved = optimizer.state_dict()
+    assert saved["groups"] == ["wd", "no_wd", "mapping_wd", "mapping_no_wd"]
+    copy_model = port_model(setup)
+    copy_model.load_state_dict(model.state_dict())
+    restored = KT.training.make_optimizer(t_config, copy_model)
+    restored.load_state_dict(saved)
+    a, b = optimizer.optimizer.state, restored.optimizer.state
+    for p, q in zip(model.parameters(), copy_model.parameters()):
+        assert set(a[p]) == set(b[q]) == {"step", "exp_avg", "exp_avg_sq"}
+        for key in a[p]:
+            assert torch.equal(a[p][key], b[q][key]), key
+    run(model, optimizer, [2])
+    run(copy_model, restored, [2])
+    for p, q in zip(model.parameters(), copy_model.parameters()):
+        assert torch.equal(p, q)
+    with pytest.raises(ValueError, match="groups"):
+        restored.load_state_dict({**saved, "groups": ["wd", "no_wd"]})
+
+
+def test_gradient_noise_scale_matches_jax():
+    """The estimator on a sequence of (small, big) squared norms, its GNS
+    and debiased stats after each update, 1e-6; and its state round
+    trip."""
+    rng = np.random.default_rng(19)
+    want, got = K.gns.GradientNoiseScale(), KT.gns.GradientNoiseScale()
+    for _ in range(20):
+        small, big = rng.uniform(1.0, 2.0), rng.uniform(0.2, 1.0)
+        assert math.isclose(got.update(small, big, 8, 16),
+                            want.update(small, big, 8, 16), rel_tol=1e-6)
+        for g, w in zip(got.get_stats(), want.get_stats()):
+            assert math.isclose(g, w, rel_tol=1e-6)
+    copy = KT.gns.GradientNoiseScale()
+    copy.load_state_dict(got.state_dict())
+    assert copy.state_dict() == got.state_dict() == want.state_dict()
+    with pytest.raises(ValueError, match="strictly smaller"):
+        got.update(1.0, 0.5, 8, 8)
