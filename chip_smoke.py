@@ -19,9 +19,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    kernel's, the plain version's and, where one PyTorch call computes the
    same function, that call's times from CUDA events (K5 with the model's
    float32 weights; uncounted, with bfloat16 weights and at batch 32);
-   a profile showing that one K5 call runs one device kernel and nothing
-   else; then K3's training forward, out and logsumexp, against the plain
-   versions;
+   a profile showing that each K5 call runs one device kernel and nothing
+   else, at the flagship's width and at the ViT's (d 768, d_ff 2048, batch
+   64, streamed); then K3's training forward, out and logsumexp, against
+   the plain versions;
 4. forward: the flagship HDiT (configs/config_oxford_flowers.json, seeded
    weights, zero-init tensors filled with noise) at batch 2 in bfloat16 on
    the card against the same weights in float32 on the CPU (plain versions);
@@ -122,7 +123,30 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    host-blocking call but the trainer's one synchronisation, and the
    cifar10 U-Net on raw CIFAR-10 batch files for 3 steps at batch 64, each
    with its launch counts per step; then convert_for_inference on the
-   flagship's checkpoint and the sample entry point on the result.
+   flagship's checkpoint and the sample entry point on the result;
+22. the rest of the model surface: (a) config_oxford_flowers_shifted_
+   window.json at full width and depth: forward and gradient parity as in
+   phases 4 and 7, 50-step DPM++(2M) at batch 8 (per call 12 K1, 4 K3, 12
+   K4, 1 K5, no K2; the window attention's PyTorch ops by name in the
+   profile), condcache cached against uncached bit for bit, 3 + 20
+   training steps at batch 32 (also 12 K6, 4 K9, 8 K10 a step), then one
+   step at batch 32 with dropout on without checkpointing and with it over
+   every level and over level 0, on the flagship (bit-equal required) and
+   on this config (relative L2 1e-3; bit-equality printed), peak memory
+   of each, and the sample entry point on its bf16 checkpoint (8 PNGs);
+   (b) the ViT at DiT-B/2's width and depth (12 layers, width 768, 256
+   tokens): K5 at d 768 / d_ff 2048, batch 64, whose layer shares stream,
+   and at the HDiT's 256 / 768 (resident), one launch and one device
+   kernel a call; K13 and K14 at (64, 256, 12, 64) against their plain
+   versions and SDPA; forward and gradient parity, 50-step DPM++(2M) at
+   batch 64 (12 K13, 1 K5 a call), 3 + 20 training steps at batch 64 (12
+   K13, 12 K14 a step) and a checkpointed step (24 K13); (c)
+   config_cifar10.json with cross-attention on its attention levels
+   (cross_cond_dim 768, 77-token sequences with seeded padding lengths)
+   and the variance head: forward and DenoiserWithVariance gradient parity
+   at batch 2, 50-step DPM++(2M) at batch 64 (16 K13 a call); (d) the
+   flagship with loss_scales 3: one step's loss and gradient against the
+   CPU.
 
 Each kernel line also gives the kernel's achieved TFLOP/s (the operations
 its function needs over its time) and its time's share of the bound.
@@ -394,32 +418,39 @@ def kernel_cases(dev):
     return cases
 
 
-def mapping_one_launch(dev):
-    """One fused_mapping call with the model's float32 params runs one
-    device kernel, K5's, and nothing else (no stack, no cast), counted by
-    torch.profiler."""
+def mapping_one_launch(dev, mw=256, d_ff=768, batch=SAMPLE_BATCH):
+    """Each fused_mapping call with the model's float32 params (width mw,
+    d_ff, depth 2) runs one device kernel, K5's, and nothing else (no
+    stack, no cast): three calls, counted by torch.profiler and by the
+    wrapper's count."""
     from torch.profiler import ProfilerActivity
     from k_diffusion_tpu_torch.ops.kernels import fused_mapping
 
     g = torch.Generator().manual_seed(SEED + 20)
-    mw = 256
     blocks = [((1 + 0.1 * torch.randn(mw, generator=g)).to(dev),
-               (torch.randn((mw, 6 * mw), generator=g) / mw ** 0.5).to(dev),
-               (torch.randn((3 * mw, mw), generator=g)
-                / (3 * mw) ** 0.5).to(dev)) for _ in range(2)]
-    emb = torch.randn((SAMPLE_BATCH, mw), generator=g).to(dev, torch.bfloat16)
+               (torch.randn((mw, 2 * d_ff), generator=g) / mw ** 0.5).to(dev),
+               (torch.randn((d_ff, mw), generator=g)
+                / d_ff ** 0.5).to(dev)) for _ in range(2)]
+    emb = torch.randn((batch, mw), generator=g).to(dev, torch.bfloat16)
     ones = torch.ones(mw, device=dev)
     fused_mapping.fused_mapping(emb, ones, ones, blocks)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fused_mapping.fused_mapping(emb, ones, ones, blocks)
+    before = fused_mapping.launches
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused_mapping.fused_mapping(emb, ones, ones, blocks)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if len(names) != 1 or "mapping_kernel" not in names[0]:
-        raise AssertionError(f"fused_mapping: one call ran {names}")
-    print(f"fused_mapping: one call with float32 weights runs one device "
-          f"kernel ({names[0][:60]})", flush=True)
+    if (len(names) != 3 or any("mapping_kernel" not in n for n in names)
+            or fused_mapping.launches != before + 3):
+        raise AssertionError(f"fused_mapping: three calls ran {names}")
+    ranks = fused_mapping.cluster_size(dev.index or 0, mw, d_ff, 2, True)
+    print(f"fused_mapping {batch}x{mw} f={d_ff}: three calls with float32 "
+          f"weights run three device kernels ({names[0][:60]}), three "
+          f"launches counted; clusters of {ranks} ranks, "
+          f"{fused_mapping.layout(mw, d_ff, 2, ranks, True)}", flush=True)
 
 
 def backward_cases(dev):
@@ -1207,10 +1238,14 @@ def forward_parity(KT, config, dev, fill, g, name, batch=2, **cond):
     return model, counts
 
 
-def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name):
+def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name,
+           extra=None, ops=()):
     """50-step DPM++(2M) at ``batch`` from sigma_max; the output finite and
     the launch counts ``per_call`` x STEPS. ``fwd_flops``: the model's
-    FLOPs per image per forward. Returns the launch counts."""
+    FLOPs per image per forward; ``extra``: the model's other inputs (on
+    the card); ``ops``: PyTorch ops the profile lists by name. Returns the
+    launch counts."""
+    extra = extra or {}
     from k_diffusion_tpu_torch.ops import kernels
 
     m = config["model"]
@@ -1220,11 +1255,12 @@ def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name):
     x = (torch.randn(input_shape(config, batch), generator=g)
          * m["sigma_max"]).to(dev)
     with torch.no_grad():
-        denoiser(x, sigmas[:1].expand(batch))  # warm up at this batch
+        denoiser(x, sigmas[:1].expand(batch), **extra)  # warm up
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         start = time.perf_counter()
-        samples = KT.sampling.sample_dpmpp_2m(denoiser, x, sigmas)
+        samples = KT.sampling.sample_dpmpp_2m(denoiser, x, sigmas,
+                                              extra_args=extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - start
         counts = kernels.launch_counts()
@@ -1244,9 +1280,9 @@ def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name):
     def calls(n):
         with torch.no_grad():
             for _ in range(n):
-                denoiser(x, sigmas[:1].expand(batch))
+                denoiser(x, sigmas[:1].expand(batch), **extra)
 
-    profile(calls, name, "denoiser calls")
+    profile(calls, name, "denoiser calls", ops)
     return counts
 
 
@@ -1277,6 +1313,10 @@ def main():
     with torch.no_grad():
         run_cases(kernel_cases(dev), results, 50, 5)
         mapping_one_launch(dev)
+        # the ViT's (phase 22), whose layer shares stream: checked here,
+        # among the first profiler sessions, where the short window's
+        # device events are recorded
+        mapping_one_launch(dev, 768, 2048, UNET_BATCH)
         forward_lse_check(dev)
 
     # the flagship HDiT: phases 4-8
@@ -1319,7 +1359,7 @@ def main():
         run_cases(flash_cases(dev, unet), results, 20, 5)
         forward_lse_check(dev, unet)
     g = torch.Generator().manual_seed(SEED + 7)
-    unet_flops = unet_forward_flops(KT, unet)
+    unet_flops = forward_flops(KT, unet)
     with torch.no_grad():
         model, counts = forward_parity(KT, unet, dev, fill_zero_init_unet, g,
                                        "unet forward")
@@ -1421,6 +1461,10 @@ def main():
 
     # the training entry point: phase 21
     trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi)
+
+    # the shifted-window HDiT, the ViT, the cross-attention and variance
+    # U-Net, the multiscale loss: phase 22
+    families_phase(KT, config, unet, dev, smi)
 
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
@@ -1810,33 +1854,41 @@ def entry_point_phase(KT, config, unet, smi):
     zero-init tensors filled with noise), then the sample entry point on it
     as a subprocess on the card: 8 PNGs each for the flagship under LMS and
     the U-Net under DPM++(2M)."""
+    for name, cfg, fill, sampler in (
+            ("flagship", config, fill_zero_init, "lms"),
+            ("unet", unet, fill_zero_init_unet, "dpmpp_2m")):
+        sample_entry(KT, name, cfg, fill, sampler, smi)
+
+
+def sample_entry(KT, name, cfg, fill, sampler, smi):
+    """A bfloat16 inference checkpoint of ``cfg`` (seeded weights,
+    zero-init tensors filled by ``fill``), then ``python -m
+    k_diffusion_tpu_torch.sample`` on it as a subprocess on the card,
+    which must write 8 PNGs."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for name, cfg, fill, sampler in (
-                ("flagship", config, fill_zero_init, "lms"),
-                ("unet", unet, fill_zero_init_unet, "dpmpp_2m")):
-            g = torch.Generator().manual_seed(SEED + 20)
-            model = KT.config.make_model(cfg, device="cpu", generator=g)
-            fill(model, g)
-            ckpt = KT.checkpoint.save_inference(
-                tmp / f"{name}.safetensors", model, cfg, dtype=torch.bfloat16)
-            del model
-            out, secs = run_entry("sample", "--checkpoint", ckpt,
-                                  "--sampler", sampler, "-n", 8,
-                                  "--batch-size", 8, "--prefix", tmp / name)
-            files = sorted(tmp.glob(f"{name}_*.png"))
-            if [f.name for f in files] != [f"{name}_{i:05}.png"
-                                           for i in range(8)]:
-                raise AssertionError(f"sample entry point ({name}) wrote "
-                                     f"{[f.name for f in files]}")
-            for f in files:
-                check_png(f, cfg["model"]["input_size"][0])
-            print(f"sample entry point ({name}, {sampler}): 8 PNGs from a "
-                  f"bfloat16 checkpoint of {ckpt.stat().st_size} bytes in "
-                  f"{secs:.1f} s (process start and model build included) on "
-                  f"{smi}; its output: "
-                  f"{' | '.join(out.strip().splitlines())}",
-                  flush=True)
+        g = torch.Generator().manual_seed(SEED + 20)
+        model = KT.config.make_model(cfg, device="cpu", generator=g)
+        fill(model, g)
+        ckpt = KT.checkpoint.save_inference(
+            tmp / f"{name}.safetensors", model, cfg, dtype=torch.bfloat16)
+        del model
+        out, secs = run_entry("sample", "--checkpoint", ckpt,
+                              "--sampler", sampler, "-n", 8,
+                              "--batch-size", 8, "--prefix", tmp / name)
+        files = sorted(tmp.glob(f"{name}_*.png"))
+        if [f.name for f in files] != [f"{name}_{i:05}.png"
+                                       for i in range(8)]:
+            raise AssertionError(f"sample entry point ({name}) wrote "
+                                 f"{[f.name for f in files]}")
+        for f in files:
+            check_png(f, cfg["model"]["input_size"][0])
+        print(f"sample entry point ({name}, {sampler}): 8 PNGs from a "
+              f"bfloat16 checkpoint of {ckpt.stat().st_size} bytes in "
+              f"{secs:.1f} s (process start and model build included) on "
+              f"{smi}; its output: "
+              f"{' | '.join(out.strip().splitlines())}",
+              flush=True)
 
 
 # a custom dataset (the config's ``custom`` type): ``entries`` items
@@ -2123,19 +2175,343 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
               f"output: {' | '.join(out.strip().splitlines())}", flush=True)
 
 
-def unet_forward_flops(KT, config):
-    """The U-Net's FLOPs per image per forward: torch.utils.flop_counter
+# phase 22: the rest of the model surface
+SHIFTED_WINDOW = ROOT / "configs" / "config_oxford_flowers_shifted_window.json"
+# the ViT at DiT-B/2's width and depth (Peebles & Xie 2023, "Scalable
+# Diffusion Models with Transformers", Table 1: 12 layers, width 768, 12
+# heads of 64), patch 2 on 32 x 32 x 3: 256 tokens, d_ff 2048 (the
+# config's 8/3 rule); EDM's sigma range and training density
+VIT_CONFIG = {"model": {"type": "image_transformer_v1", "input_channels": 3,
+                        "input_size": [32, 32], "patch_size": 2, "depth": 12,
+                        "width": 768, "dropout_rate": 0.0, "sigma_data": 0.5,
+                        "sigma_min": 2e-3, "sigma_max": 80.0,
+                        "sigma_sample_density": {"type": "lognormal",
+                                                 "mean": -1.2, "std": 1.2}},
+              "dataset": {"type": "imagefolder"}}
+# the cross-attention sequence: CLIP's text length
+CROSS_TOKENS = 77
+# a checkpointed step against the plain one where the backward is allowed
+# to sum in a varying order (PyTorch's memory-efficient attention backward,
+# which the shifted windows run): relative L2 of the gradient and params
+REMAT_REL_BOUND = 1e-3
+
+
+def one_step(KT, config, dev, batch, fill, seed, **model_kw):
+    """One training step at ``batch`` from seeded weights (zero-init tensors
+    filled by ``fill``), reals, noise, sigmas and dropout masks (dropout as
+    the config has it): the loss, its gradient and the params after the
+    optimizer, with the launch counts and the peak memory of the loss and
+    its backward. ``model_kw`` go to make_model (checkpointing)."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    g = torch.Generator().manual_seed(seed)
+    model = KT.config.make_model(config, dtype=torch.bfloat16, device="cpu",
+                                 generator=g, **model_kw)
+    fill(model, g)
+    reals = torch.randn(input_shape(config, batch), generator=g).clamp(-1, 1)
+    model.to(dev).train()
+    opt = KT.training.make_optimizer(config, model)
+    den = KT.config.make_denoiser_wrapper(config)(model)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    sigma = KT.config.make_sample_density(config["model"])(
+        (batch,), generator=gen, device=dev)
+    noise = torch.randn(reals.shape, generator=gen, device=dev)
+    loss = den.loss(reals.to(dev), noise, sigma, generator=gen).mean()
+    grads = torch.autograd.grad(loss, opt.params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = kernels.launch_counts()
+    for p, grad in zip(opt.params, grads):
+        p.grad = grad.contiguous()
+    opt.step(0)
+    flat = lambda ts: torch.cat([t.detach().float().flatten() for t in ts])
+    out = (loss.detach().float().cpu(), flat(grads).cpu(),
+           flat(opt.params).cpu(), peak, counts)
+    del model, opt, den, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_check(KT, config, dev, name, exact, fill=None, batch=TRAIN_BATCH,
+                variants=(("all levels", {}), ("level 0", {"remat_levels": (0,)}))):
+    """Phase 22: one step at ``batch`` with dropout on, without
+    checkpointing and with it over each of ``variants``, from the same
+    weights, data and generator seed: the loss, the gradient and the params
+    after AdamW against the step without it, bit for bit where ``exact``
+    (the flagship's kernels sum in a fixed order), else within
+    REMAT_REL_BOUND, bit-equality printed; the peak memory of each.
+    Returns the launch counts of the plain step and of each variant's."""
+    fill = fill or fill_zero_init
+    plain = one_step(KT, config, dev, batch, fill, SEED + 23)
+    counts = [plain[4]]
+    print(f"{name} remat: plain step at batch {batch}, dropout "
+          f"{config['model']['dropout_rate']}: loss {plain[0].item():.6f}, "
+          f"peak memory {plain[3] / 2**30:.3f} GiB; launches {plain[4]}",
+          flush=True)
+    for label, kw in variants:
+        got = one_step(KT, config, dev, batch, fill, SEED + 23,
+                       checkpointing=True, **kw)
+        equal = all(torch.equal(a, b) for a, b in zip(got[:3], plain[:3]))
+        rels = [((a - b).norm() / b.norm()).item()
+                for a, b in zip(got[1:3], plain[1:3])]
+        if exact and not equal:
+            raise AssertionError(f"{name} remat over {label}: not bit-equal "
+                                 f"to the plain step (relative L2 gradient "
+                                 f"{rels[0]:.3e}, params {rels[1]:.3e})")
+        if not max(rels) <= REMAT_REL_BOUND:
+            raise AssertionError(f"{name} remat over {label}: relative L2 "
+                                 f"{rels} > {REMAT_REL_BOUND}")
+        print(f"{name} remat over {label}: bit-equal to the plain step: "
+              f"{equal} (loss {got[0].item():.6f}; relative L2 gradient "
+              f"{rels[0]:.3e}, params {rels[1]:.3e}; bound "
+              f"{'bit-equality' if exact else REMAT_REL_BOUND}); peak memory "
+              f"{got[3] / 2**30:.3f} GiB against {plain[3] / 2**30:.3f}; "
+              f"launches {got[4]}", flush=True)
+        counts.append(got[4])
+    return counts
+
+
+def shifted_window_phase(KT, flagship, dev, smi):
+    """Phase 22 (a): config_oxford_flowers_shifted_window.json at full
+    width and depth: forward and gradient parity, 50-step DPM++(2M) at
+    batch 8 (no K2: the windows are PyTorch ops, listed by name in the
+    profile), condcache, 3 + 20 training steps at batch 32, checkpointed
+    steps on it and on the flagship, and the sample entry point."""
+    from k_diffusion_tpu_torch import condcache
+    from k_diffusion_tpu_torch.models import flops
+    from k_diffusion_tpu_torch.ops import kernels
+
+    config = KT.config.load_config(SHIFTED_WINDOW)
+    zero = dict.fromkeys(kernels.COUNTERS, 0)
+    per_call = {k: v for k, v in flagship_layout(config).items()
+                if k != "na2d"} | {"fused_mapping": 1}
+    per_step = {k: v for k, v in hdit_train_layout(config).items()
+                if not k.startswith("na2d")}
+    g = torch.Generator().manual_seed(SEED + 22)
+    with torch.no_grad():
+        model, counts = forward_parity(KT, config, dev, fill_zero_init, g,
+                                       "shifted-window forward")
+    if counts != zero | per_call:
+        raise AssertionError(f"shifted-window forward: launch counts {counts} "
+                             f"!= {zero | per_call}")
+    counts = grad_parity(KT, config, dev, fill_zero_init,
+                         "shifted-window gradient parity")
+    # dropout off: every feed-forward block fused
+    want = zero | per_step | {"fused_ffn": per_call["fused_ffn"],
+                              "fused_ffn_bwd": per_call["fused_ffn"]}
+    if counts != want:
+        raise AssertionError(f"shifted-window gradient parity: launch counts "
+                             f"{counts} != {want}")
+    fwd = 2 * flops.analytic_transformer_flops(config, 1)
+    window_ops = ("aten::roll", "aten::scaled_dot_product_attention",
+                  "aten::_scaled_dot_product_efficient_attention",
+                  "aten::_scaled_dot_product_flash_attention",
+                  "aten::_efficient_attention_forward",
+                  "aten::_efficient_attention_backward", "aten::copy_")
+    sample(KT, config, model, dev, g, SAMPLE_BATCH, per_call, fwd, smi,
+           "shifted-window sampling", ops=window_ops)
+
+    m = config["model"]
+    sigmas = KT.sampling.get_sigmas_karras(STEPS, m["sigma_min"],
+                                           m["sigma_max"], rho=7.0, device=dev)
+    x = (torch.randn(input_shape(config, SAMPLE_BATCH), generator=g)
+         * m["sigma_max"]).to(dev)
+    wrap = KT.config.make_denoiser_wrapper(config)
+    with torch.no_grad():
+        inner = condcache.ScheduledModel(model, sigmas[:-1], SAMPLE_BATCH)
+        kernels.reset_launch_counts()
+        cached = KT.sampling.sample_dpmpp_2m(wrap(inner), x, sigmas)
+        counts = kernels.launch_counts()
+        inner.check()
+        uncached = KT.sampling.sample_dpmpp_2m(wrap(model), x, sigmas)
+    want = zero | {k: STEPS * v for k, v in per_call.items()
+                   if k != "fused_mapping"}
+    if counts != want or not torch.equal(cached, uncached):
+        raise AssertionError(f"shifted-window condcache: launch counts "
+                             f"{counts} (want {want}), bit-equal "
+                             f"{torch.equal(cached, uncached)}")
+    print(f"shifted-window condcache: {STEPS}-step DPM++(2M) at batch "
+          f"{SAMPLE_BATCH}, cached equals uncached bit for bit; launches "
+          f"cached {counts}", flush=True)
+    del model, inner
+    torch.cuda.empty_cache()
+
+    train(KT, config, dev, smi, TRAIN_BATCH, per_step, fwd,
+          "shifted-window training")
+    remat_check(KT, flagship, dev, "flagship", exact=True)
+    remat_check(KT, config, dev, "shifted-window", exact=False)
+    sample_entry(KT, "shifted_window", config, fill_zero_init, "dpmpp_2m", smi)
+
+
+def vit_cases(dev):
+    """K5 at the ViT's DiT-B/2 width (d 768, d_ff 2048, depth 2, float32
+    weights) at batch 64, whose layer shares stream, and at the HDiT's 256
+    / 768 at batch 8 (resident; phase 3's counted case); K13 and K14 at the
+    ViT's attention, (64, 256, 12, 64), q, k, v strided views of one (b,
+    s, 3, heads, 64) tensor as the ViT passes them, scale 1/8. Uncounted:
+    the JSON line keeps the flagship's and the U-Net's paths."""
+    from k_diffusion_tpu_torch.ops.kernels import flash, fused_mapping
+
+    g = torch.Generator().manual_seed(SEED + 26)
+    bf16 = torch.bfloat16
+    cases = []
+    # the streamed shape also with bf16 weights: half the bytes through
+    # the same tiles, which tells bytes from the ring's steps
+    for batch, mw, d_ff, f32 in ((UNET_BATCH, 768, 2048, True),
+                                 (UNET_BATCH, 768, 2048, False),
+                                 (SAMPLE_BATCH, 256, 768, True)):
+        blocks = [((1 + 0.1 * torch.randn(mw, generator=g)).to(dev),
+                   lecun((mw, 2 * d_ff), g, dev), lecun((d_ff, mw), g, dev))
+                  for _ in range(2)]
+        if f32:
+            blocks = [(ns, wu.float(), wd.float()) for ns, wu, wd in blocks]
+        args = ((torch.randn((batch, mw), generator=g)).to(dev, bf16),
+                torch.ones(mw, device=dev), torch.ones(mw, device=dev), blocks)
+        cases.append(Case(
+            "fused_mapping", f"{batch}x{mw} f={d_ff}, "
+            f"{'f32' if f32 else 'bf16'} weights", 0,
+            lambda a=args: fused_mapping.fused_mapping(*a),
+            lambda a=args: fused_mapping.reference(*a),
+            len(blocks) * 6 * batch * mw * d_ff, args))
+    b, s, heads = UNET_BATCH, 256, 12
+    qkv = torch.randn((b, s, 3, heads, 64), generator=g).to(dev, bf16)
+    q, k, v = qkv.unbind(2)
+    dout = torch.randn((b, s, heads, 64), generator=g).to(dev, bf16)
+    fwd_flops = 2 * 2 * b * heads * s * s * 64
+    label = f"{b}x{s}x{heads}x64 (ViT)"
+    cases.append(Case("flash", label, 0,
+                      lambda t=(q, k, v): flash.flash_attention(*t, 0.125),
+                      lambda t=(q, k, v): flash.reference(*t, 0.125),
+                      fwd_flops, (q, k, v),
+                      library=lambda t=(q, k, v): sdpa(*t, 0.125)))
+    out, lse = flash.flash_forward(q, k, v, 0.125, save_lse=True)
+    cases.append(Case(
+        "flash_bwd", label, 0,
+        lambda a=(q, k, v, out, lse, dout): flash.flash_backward(*a, 0.125),
+        lambda a=(q, k, v, dout): flash.reference_backward(*a, 0.125),
+        5 * fwd_flops // 2, (q, k, v, out, lse, dout),
+        library=sdpa_backward(q, k, v, dout, 0.125)))
+    return cases
+
+
+def vit_phase(KT, dev, smi):
+    """Phase 22 (b): the ViT at DiT-B/2's width and depth: K5 streamed and
+    resident (its one launch a call checked in phase 3), K13/K14 at its
+    shapes, forward and gradient parity, 50-step
+    DPM++(2M) at batch 64, 3 + 20 training steps at batch 64, and a
+    checkpointed step (each block's K13 launched again in the backward)."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    with torch.no_grad():
+        run_cases(vit_cases(dev), {}, 20, 5)
+    config = KT.config.load_config(VIT_CONFIG)
+    depth = config["model"]["depth"]
+    zero = dict.fromkeys(kernels.COUNTERS, 0)
+    per_call = {"flash": depth, "fused_mapping": 1}
+    per_step = per_call | {"flash_bwd": depth}
+    g = torch.Generator().manual_seed(SEED + 27)
+    with torch.no_grad():
+        model, counts = forward_parity(KT, config, dev, fill_zero_init, g,
+                                       "vit forward")
+    if counts != zero | per_call:
+        raise AssertionError(f"vit forward: launch counts {counts}")
+    counts = grad_parity(KT, config, dev, fill_zero_init,
+                         "vit gradient parity")
+    if counts != zero | per_step:
+        raise AssertionError(f"vit gradient parity: launch counts {counts}")
+    fwd = forward_flops(KT, config, "vit")
+    sample(KT, config, model, dev, g, UNET_BATCH, per_call, fwd, smi,
+           "vit sampling")
+    del model
+    torch.cuda.empty_cache()
+    train(KT, config, dev, smi, UNET_BATCH, per_step, fwd, "vit training")
+    plain, counts = remat_check(KT, config, dev, "vit", exact=False,
+                                batch=UNET_BATCH,
+                                variants=(("every block", {}),))
+    # the checkpointed step launches each block's K13 again in its backward
+    want = zero | per_step | {"flash": 2 * depth}
+    if plain != zero | per_step or counts != want:
+        raise AssertionError(f"vit steps: launch counts {plain}, "
+                             f"checkpointed {counts} != {want}")
+    print(f"vit checkpointing: launches per step {counts} against {plain} "
+          f"without it", flush=True)
+
+
+def cross_unet_phase(KT, unet, dev, smi):
+    """Phase 22 (c): config_cifar10.json with cross-attention on its
+    attention levels (cross_cond_dim 768, 77-token sequences with seeded
+    padding lengths) and the variance head: forward and
+    DenoiserWithVariance gradient parity at batch 2, 50-step DPM++(2M) at
+    batch 64 (K13 for the self-attention only)."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    config = {**unet, "model": {**unet["model"],
+                                "cross_attn_depths":
+                                    list(unet["model"]["self_attn_depths"]),
+                                "cross_cond_dim": 768, "has_variance": True}}
+    g = torch.Generator().manual_seed(SEED + 28)
+
+    def cross(batch):
+        lengths = torch.randint(1, CROSS_TOKENS + 1, (batch,), generator=g)
+        return {"cross_cond": torch.randn((batch, CROSS_TOKENS, 768),
+                                          generator=g),
+                "cross_cond_padding":
+                    torch.arange(CROSS_TOKENS)[None] >= lengths[:, None],
+                "aug_cond": torch.randn((batch, 9), generator=g) * 0.1}
+
+    zero = dict.fromkeys(kernels.COUNTERS, 0)
+    n_attn = sum(2 * d for d, a in zip(config["model"]["depths"],
+                                       config["model"]["self_attn_depths"])
+                 if a)
+    with torch.no_grad():
+        model, counts = forward_parity(KT, config, dev, fill_zero_init_unet,
+                                       g, "cross unet forward", **cross(2))
+    if counts != zero | {"flash": n_attn}:
+        raise AssertionError(f"cross unet forward: launch counts {counts}")
+    counts = grad_parity(KT, config, dev, fill_zero_init_unet,
+                         "cross unet variance gradient parity", **cross(2))
+    if counts != zero | {"flash": n_attn, "flash_bwd": n_attn}:
+        raise AssertionError(f"cross unet gradient: launch counts {counts}")
+    extra = {k: v.to(dev) for k, v in cross(UNET_BATCH).items()}
+    fwd = forward_flops(KT, config, "cross unet",
+                             **{k: v[:1] for k, v in cross(1).items()})
+    sample(KT, config, model, dev, g, UNET_BATCH, {"flash": n_attn}, fwd, smi,
+           "cross unet sampling", extra=extra,
+           ops=("aten::scaled_dot_product_attention",))
+    del model
+    torch.cuda.empty_cache()
+
+
+def families_phase(KT, flagship, unet, dev, smi):
+    """Phase 22: the shifted-window HDiT, the ViT, the cross-attention and
+    variance U-Net, and the flagship's multiscale loss."""
+    shifted_window_phase(KT, flagship, dev, smi)
+    vit_phase(KT, dev, smi)
+    cross_unet_phase(KT, unet, dev, smi)
+    scales = {**flagship, "model": {**flagship["model"], "loss_scales": 3}}
+    grad_parity(KT, scales, dev, fill_zero_init,
+                "flagship loss_scales 3 gradient parity")
+
+
+def forward_flops(KT, config, name="unet", **cond):
+    """A model's FLOPs per image per forward: torch.utils.flop_counter
     over the plain forward on the CPU at batch 1 (convolutions, matmuls and
-    the attention products)."""
+    the attention products), with ``cond`` (batch 1) as its other
+    inputs."""
     from torch.utils.flop_counter import FlopCounterMode
 
     model = KT.config.make_model(config, device="cpu").eval()
     x = torch.zeros(input_shape(config, 1))
     counter = FlopCounterMode(display=False)
     with torch.no_grad(), counter:
-        KT.config.make_denoiser_wrapper(config)(model)(x, torch.ones(1))
+        KT.config.make_denoiser_wrapper(config)(model)(x, torch.ones(1),
+                                                       **cond)
     total = counter.get_total_flops()
-    print(f"unet flops: {total} per image per forward (FlopCounterMode, "
+    print(f"{name} flops: {total} per image per forward (FlopCounterMode, "
           f"plain CPU forward at batch 1)", flush=True)
     return total
 
@@ -2298,10 +2674,11 @@ def train(KT, config, dev, smi, batch, per_step, fwd_flops, name):
     return counts, ips
 
 
-def profile(run, name, what):
+def profile(run, name, what, ops=()):
     """``run(3)`` (3 training steps or denoiser calls) under torch.profiler:
     prints the host time and the device time by kernel (the rows with the
-    most device time)."""
+    most device time), and the device time of each PyTorch op named in
+    ``ops`` (the kernels it launched)."""
     from torch.profiler import ProfilerActivity
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -2332,6 +2709,11 @@ def profile(run, name, what):
                   f"step or call, {e.self_device_time_total / e.count:.1f} us "
                   f"each, {e.self_device_time_total / 3e3:.3f} ms a step or "
                   f"call", flush=True)
+    for e in events:
+        if e.key in ops:
+            print(f"{name} profile: {e.key}: {e.count // 3} calls a step or "
+                  f"call, {e.device_time_total / 3e3:.3f} ms of device time "
+                  f"a step or call", flush=True)
     return busy
 
 

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of k-diffusion-tpu (the JAX package beside it is the
 reference it is held against).
 
-The port covers the HDiT (``image_transformer_v2``) with neighborhood and
-global attention levels and the U-Net (``image_v1``):
+The port covers every model family of the JAX package: the HDiT
+(``image_transformer_v2``: neighborhood, global, shifted-window and
+attention-free levels), the ViT (``image_transformer_v1``) and the U-Net
+(``image_v1``, with cross-attention and a variance head):
 - sampling from an inference checkpoint, the serving entry point:
   ``python -m k_diffusion_tpu_torch.sample --checkpoint model.safetensors
   -n 64 --sampler lms`` (on the card; ``--device cpu`` runs the kernels'
@@ -27,10 +29,10 @@ global attention levels and the U-Net (``image_v1``):
   and ``load_checkpoint`` save and resume it.
 Models, schedules and densities go to the card unless the caller names a
 device. The HDiT's attention prologue, neighborhood and global attention,
-feed-forward block and mapping network, the backwards of the first four,
-and the flash attention of the U-Net (and of HDiT global levels that the
-packed kernel does not take) with its backward are hand-written CUDA
-kernels (``ops.kernels``) for CUDA tensors, with plain PyTorch versions for
+feed-forward block and mapping network (also the ViT's), the backwards of
+the first four, and the flash attention of the U-Net and the ViT (and of
+HDiT global levels that the packed kernel does not take) with its
+backward are hand-written CUDA kernels (``ops.kernels``) for CUDA tensors, with plain PyTorch versions for
 CPU tensors. Importing the package imports torch and numpy only and
 compiles nothing.
 """

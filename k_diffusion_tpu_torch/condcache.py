@@ -37,16 +37,17 @@ SCHEDULE_POINT_SAMPLERS = frozenset({"lms", "euler", "euler_ancestral",
 
 @torch.no_grad()
 def precompute_cond_scales(model, sigmas, batch, aug_cond=None,
-                           class_cond=None):
+                           class_cond=None, mapping_cond=None):
     """The AdaRMSNorm scale table of a sigma schedule.
 
     ``model``: an ``ImageTransformerDenoiserModelV2``; ``sigmas``: the
     sigmas the sampler will evaluate the model at (for the fixed-step
     samplers the schedule without its terminal 0); ``batch``: the sampling
-    batch; ``aug_cond`` (batch, 9) and ``class_cond`` (batch,), if given,
-    are baked into the table. One mapping network call (one K5 launch on
-    the card) per sigma, then each layer's scale product as the layer runs
-    it. Returns (sigma_table (steps,) float32, scales_table (steps, batch,
+    batch; ``aug_cond`` (batch, 9), ``class_cond`` (batch,) and
+    ``mapping_cond`` (batch, mapping_cond_dim), if given, are baked into
+    the table. One mapping network call (one K5 launch on the card) per
+    sigma, then each layer's scale product as the layer runs it (a layer
+    with no attention has its feed-forward scale only). Returns (sigma_table (steps,) float32, scales_table (steps, batch,
     total) in the model's compute dtype), on the model's device."""
     device = model.time_in_proj.kernel.device
     sigma_table = sigmas.detach().to(device, torch.float32).reshape(-1)
@@ -54,7 +55,8 @@ def precompute_cond_scales(model, sigmas, batch, aug_cond=None,
     rows = []
     for s in sigma_table.tolist():
         cond = model(None, torch.full((batch,), s, device=device),
-                     aug_cond=aug_cond, class_cond=class_cond, cond_only=True)
+                     aug_cond=aug_cond, class_cond=class_cond,
+                     mapping_cond=mapping_cond, cond_only=True)
         pieces, pos = [], 0
 
         def emit(piece, off):
@@ -85,14 +87,16 @@ class ScheduledModel:
     """The HDiT with its conditioning precomputed for a schedule: call it
     as the model, ``(x, sigma) -> output``, with ``sigma`` (b,) one of the
     schedule's sigmas (as the samplers pass them); it equals ``model(x,
-    sigma, aug_cond=..., class_cond=...)`` bit for bit. The row is found on
+    sigma, aug_cond=..., class_cond=..., mapping_cond=...)`` bit for bit. The row is found on
     the device, with no host read; a sigma with no row is recorded, and
     ``check`` raises for it."""
 
-    def __init__(self, model, sigmas, batch, aug_cond=None, class_cond=None):
+    def __init__(self, model, sigmas, batch, aug_cond=None, class_cond=None,
+                 mapping_cond=None):
         self.model = model
         self.sigma_table, self.scales_table = precompute_cond_scales(
-            model, sigmas, batch, aug_cond=aug_cond, class_cond=class_cond)
+            model, sigmas, batch, aug_cond=aug_cond, class_cond=class_cond,
+            mapping_cond=mapping_cond)
         # the first sigma that found no row (nan while there is none)
         self.miss = torch.full((1,), float("nan"),
                                device=self.sigma_table.device)

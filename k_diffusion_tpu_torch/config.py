@@ -3,11 +3,13 @@ schedule factories (counterpart of k_diffusion_tpu/config.py). The JAX
 package's module imports jax when it is imported, so the port carries its
 own copy of the config logic.
 
-The port covers the ``image_transformer_v2`` family (HDiT, with class
-conditioning in the forward) and the ``image_v1`` family (U-Net). The ViT
-(``image_transformer_v1``), the HDiT's mapping conditioning and
-shifted-window and no-attention levels, the U-Net's cross-attention, and
-the variance head raise ``NotImplementedError`` until they are ported.
+The port builds every model family of the JAX package: the HDiT
+(``image_transformer_v2``: neighborhood, global, shifted-window and
+attention-free levels, class and mapping conditioning, gradient
+checkpointing over chosen levels), the ViT (``image_transformer_v1``) and
+the U-Net (``image_v1``, with cross-attention and the variance head).
+``remat_policy`` (the JAX package's named-residual checkpoint policies)
+raises ``NotImplementedError`` until it is ported.
 
 ``make_model``, ``make_sample_density``'s densities and
 ``sampling.get_sigmas_karras`` put their tensors on the card unless the
@@ -60,6 +62,17 @@ _DEFAULTS_IMAGE_V1 = {
     },
 }
 
+_DEFAULTS_IMAGE_TRANSFORMER_V1 = {
+    "model": {
+        "d_ff": 0, "augment_wrapper": False, "skip_stages": 0,
+        "has_variance": False,
+    },
+    "optimizer": {
+        "type": "adamw", "lr": 5e-4, "betas": [0.9, 0.99], "eps": 1e-8,
+        "weight_decay": 1e-4,
+    },
+}
+
 _DEFAULTS_IMAGE_TRANSFORMER_V2 = {
     "model": {
         "mapping_width": 256, "mapping_depth": 2, "mapping_d_ff": None,
@@ -92,9 +105,8 @@ _DEFAULTS = {
 
 def load_config(path_or_dict):
     """Loads a config from a JSON file, a dict or the metadata of a
-    safetensors inference checkpoint and fills in the defaults,
-    exactly as the JAX package does for ``image_v1`` and
-    ``image_transformer_v2``."""
+    safetensors inference checkpoint and fills in the defaults, exactly as
+    the JAX package does."""
     if isinstance(path_or_dict, dict):
         config = path_or_dict
     else:
@@ -105,10 +117,14 @@ def load_config(path_or_dict):
             config = json.loads(file.read_text())
     if config["model"]["type"] == "image_v1":
         return deep_merge(_DEFAULTS, deep_merge(_DEFAULTS_IMAGE_V1, config))
+    if config["model"]["type"] == "image_transformer_v1":
+        config = deep_merge(_DEFAULTS_IMAGE_TRANSFORMER_V1, config)
+        if not config["model"]["d_ff"]:
+            config["model"]["d_ff"] = round_to_power_of_two(
+                config["model"]["width"] * 8 / 3, tol=0.05)
+        return deep_merge(_DEFAULTS, config)
     if config["model"]["type"] != "image_transformer_v2":
-        raise NotImplementedError(
-            f"model type {config['model']['type']!r} comes with the port of "
-            "the other model families")
+        return deep_merge(_DEFAULTS, config)
     config = deep_merge(_DEFAULTS_IMAGE_TRANSFORMER_V2, config)
     model = config["model"]
     if not model["mapping_d_ff"]:
@@ -128,29 +144,42 @@ def load_config(path_or_dict):
     return deep_merge(_DEFAULTS, config)
 
 
-def make_model(config, dtype=None, device=None, generator=None):
-    """Builds the U-Net (``image_v1``) or the HDiT (``image_transformer_v2``)
-    from a loaded config. Parameters are float32 on ``device`` (default: the
-    card), drawn from ``generator``; ``dtype`` is the compute dtype
-    (default: bfloat16 on the card, float32 elsewhere; on the card nothing
-    else, see ``utils.compute_dtype``). The dropout rates apply under
+def make_model(config, dtype=None, device=None, generator=None,
+               checkpointing=False, remat_policy=None, remat_levels=None):
+    """Builds the U-Net (``image_v1``), the ViT (``image_transformer_v1``)
+    or the HDiT (``image_transformer_v2``) from a loaded config. Parameters
+    are float32 on ``device`` (default: the card), drawn from
+    ``generator``; ``dtype`` is the compute dtype (default: bfloat16 on the
+    card, float32 elsewhere; on the card nothing else, see
+    ``utils.compute_dtype``). The dropout rates apply under
     ``model.train()``, PyTorch's default mode: call ``model.eval()`` to
-    sample."""
+    sample. ``checkpointing`` recomputes the transformer layers in the
+    backward (the HDiT's in the levels ``remat_levels`` names, by index or
+    stack name, default all; every block of the ViT); the U-Net ignores
+    it, as the JAX package's does. ``remat_policy`` is not ported."""
     device = utils.default_device(device)
     dtype = utils.compute_dtype(device, dtype)
     num_classes = config["dataset"]["num_classes"]
     config = config["model"]
     if config["type"] == "image_v1":
         return _make_image_v1(config, dtype, device, generator)
+    if config["type"] == "image_transformer_v1":
+        from .models import image_transformer_v1
+
+        patch = config["patch_size"]
+        return image_transformer_v1.ImageTransformerDenoiserModelV1(
+            n_layers=config["depth"], d_model=config["width"],
+            d_ff=config["d_ff"], in_features=config["input_channels"],
+            out_features=config["input_channels"],
+            patch_size=tuple(patch) if isinstance(patch, (list, tuple))
+            else (patch, patch),
+            num_classes=num_classes + 1 if num_classes else 0,
+            dropout=config["dropout_rate"], checkpointing=checkpointing,
+            dtype=dtype, device=device, generator=generator)
     if config["type"] != "image_transformer_v2":
-        raise NotImplementedError(
-            f"model type {config['type']!r} comes with the port of the other "
-            "model families")
+        raise ValueError(f"unsupported model type {config['type']}")
     from .models import image_transformer_v2 as itv2
 
-    if config["mapping_cond_dim"]:
-        raise NotImplementedError(
-            "the HDiT's mapping conditioning comes with a later port")
     n = len(config["widths"])
     for key in ("depths", "d_ffs", "self_attns", "dropout_rate"):
         if len(config[key]) != n:
@@ -164,10 +193,14 @@ def make_model(config, dtype=None, device=None, generator=None):
         elif self_attn["type"] == "neighborhood":
             spec = itv2.NeighborhoodAttentionSpec(
                 self_attn.get("d_head", 64), self_attn.get("kernel_size", 7))
+        elif self_attn["type"] == "shifted-window":
+            spec = itv2.ShiftedWindowAttentionSpec(
+                self_attn.get("d_head", 64), self_attn["window_size"])
+        elif self_attn["type"] == "none":
+            spec = itv2.NoAttentionSpec()
         else:
-            raise NotImplementedError(
-                f"self attention type {self_attn['type']!r} comes with a "
-                "later port")
+            raise ValueError(
+                f"unsupported self attention type {self_attn['type']}")
         levels.append(itv2.LevelSpec(depth, width, d_ff, spec, dropout))
     mapping = itv2.MappingSpec(config["mapping_depth"],
                                config["mapping_width"], config["mapping_d_ff"],
@@ -179,7 +212,10 @@ def make_model(config, dtype=None, device=None, generator=None):
         in_channels=config["input_channels"],
         out_channels=config["input_channels"], patch_size=patch,
         num_classes=num_classes + 1 if num_classes else 0,
-        dtype=dtype, device=device, generator=generator)
+        mapping_cond_dim=config["mapping_cond_dim"],
+        checkpointing=checkpointing, remat_policy=remat_policy,
+        remat_levels=remat_levels, dtype=dtype, device=device,
+        generator=generator)
 
 
 def _make_image_v1(config, dtype, device, generator):
@@ -187,31 +223,28 @@ def _make_image_v1(config, dtype, device, generator):
     features widen ``mapping_cond``."""
     from .models import image_v1
 
-    if config["cross_cond_dim"]:
-        raise NotImplementedError(
-            "the U-Net's cross-attention (cross_cond_dim > 0) comes with a "
-            "later port")
-    if config["has_variance"]:
-        raise NotImplementedError(
-            "the U-Net's variance head (has_variance) comes with a later port")
+    cross = config["cross_attn_depths"]
     return image_v1.ImageDenoiserModelV1(
         c_in=config["input_channels"], feats_in=config["mapping_out"],
         depths=tuple(config["depths"]), channels=tuple(config["channels"]),
         self_attn_depths=tuple(config["self_attn_depths"]),
+        cross_attn_depths=tuple(cross) if cross else None,
         mapping_cond_dim=config["mapping_cond_dim"]
         + (9 if config["augment_wrapper"] else 0),
         unet_cond_dim=config["unet_cond_dim"],
+        cross_cond_dim=config["cross_cond_dim"],
         dropout_rate=config["dropout_rate"], patch_size=config["patch_size"],
-        skip_stages=config["skip_stages"], dtype=dtype, device=device,
+        skip_stages=config["skip_stages"],
+        has_variance=config["has_variance"], dtype=dtype, device=device,
         generator=generator)
 
 
 def make_denoiser_wrapper(config):
-    """Karras or simple loss wrapper factory: ``factory(model) ->
-    denoiser``. A U-Net with ``augment_wrapper`` is wrapped in
+    """Karras (``DenoiserWithVariance`` for a model with a variance head)
+    or simple loss wrapper factory: ``factory(model) -> denoiser``. A U-Net
+    with ``augment_wrapper`` is wrapped in
     ``augmentation.augment_wrapper_model_fn`` first, as the JAX ``train.py``
-    wraps it, so that the denoiser takes ``aug_cond``. The variance head
-    (``has_variance``) comes with a later model port."""
+    wraps it, so that the denoiser takes ``aug_cond``."""
     factory = _denoiser_factory(config["model"])
     if config["model"].get("type") == "image_v1" and \
             config["model"].get("augment_wrapper"):
@@ -222,16 +255,20 @@ def make_denoiser_wrapper(config):
 
 def _denoiser_factory(config):
     sigma_data = config.get("sigma_data", 1.0)
-    if config.get("has_variance", False):
-        raise NotImplementedError(
-            "DenoiserWithVariance and a model with a variance head are not "
-            "ported yet")
+    has_variance = config.get("has_variance", False)
     loss_config = config.get("loss_config", "karras")
     if loss_config == "karras":
+        weighting = config.get("loss_weighting", "karras")
+        if has_variance:
+            return partial(denoiser.DenoiserWithVariance,
+                           sigma_data=sigma_data, weighting=weighting)
         return partial(denoiser.Denoiser, sigma_data=sigma_data,
-                       weighting=config.get("loss_weighting", "karras"),
+                       weighting=weighting,
                        scales=config.get("loss_scales", 1))
     if loss_config == "simple":
+        if has_variance:
+            raise ValueError(
+                "Simple loss config does not support a variance output")
         return partial(denoiser.SimpleLossDenoiser, sigma_data=sigma_data)
     raise ValueError("Unknown loss config type")
 

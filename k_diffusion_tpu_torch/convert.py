@@ -5,9 +5,9 @@ package's safetensors files (``checkpoint.py``).
 
 The port's parameter names mirror the flax tree and keep its layouts (Dense
 kernels (in, out), the U-Net's convolution kernels (kh, kw, in, out),
-FourierFeatures ``basis`` (in, out // 2)), so conversion of the HDiT and
-the U-Net is a rename: nested keys joined with dots, arrays copied as they
-are.
+FourierFeatures ``basis`` (in, out // 2)), so conversion of every model
+family (the HDiT, the ViT, the U-Net) is a rename: nested keys joined
+with dots, arrays copied as they are.
 """
 
 import numpy as np

@@ -74,7 +74,10 @@
 //   weights, every layer of which stays resident. What it replaced: one
 //   block per 16 rows (one SM at batch 8) took its B fragments straight
 //   from device memory panel after panel, nothing in flight, after the
-//   wrapper had stacked and cast the weights on every call.
+//   wrapper had stacked and cast the weights on every call. Where not one
+//   layer's share fits a block (the ViT's d = 512 and 768 at 16 ranks, 305
+//   and 604 KB), mapping_kernel<F32W, true> streams it through a ring of
+//   (16, 256) tiles instead (below).
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -125,6 +128,14 @@ constexpr int MAP_MAX_DEPTH = 8;  // blocks of the network a launch takes
 constexpr int MAP_UNIT = 16;      // hidden units of a panel
 constexpr int MAP_FLY = 8;        // f32 loads in flight a thread
 constexpr size_t MAP_SMEM_MAX = 232448 - 1024;  // an H100 block's, less static room
+// The streamed path (mapping_kernel<F32W, true>): a tile is 16 weight rows
+// by up to MAP_TILE columns; an up chunk is the MAP_CHUNK hidden units of
+// one warp's panel each; at most MAP_MAX_STAGES tiles in the ring.
+constexpr int MAP_TILE = 256;
+constexpr int MAP_CHUNK = MAP_UNIT * MAP_THREADS / 32;  // 128
+constexpr int MAP_LDT = MAP_TILE + 8;  // a bf16 tile's row stride
+constexpr int MAP_MAX_STAGES = 8;
+static_assert(MAP_TILE == 2 * MAP_CHUNK, "an up tile holds a chunk's value and gate columns");
 
 // Each block of the network: its norm scale (d,) f32, W_up (d, 2 d_ff) and
 // W_down (d_ff, d), f32 or bf16, row-major.
@@ -165,6 +176,24 @@ struct MapLayout {
     return static_cast<int>(room < static_cast<size_t>(n) ? room : n);
   }
   __host__ __device__ size_t smem(int buffers) const { return fixed + buffers * layer_bytes; }
+  // The streamed path: a ring stage holds one tile as it comes, f32 (16,
+  // MAP_TILE) or bf16 (16, MAP_LDT); f32 tiles are rounded into one bf16
+  // operand tile (16, MAP_LDT) before their products.
+  __host__ __device__ static constexpr size_t stage_bytes(bool f32) {
+    return f32 ? STRIP * MAP_TILE * sizeof(float) : STRIP * MAP_LDT * sizeof(bf16);
+  }
+  __host__ __device__ static constexpr size_t operand_bytes(bool f32) {
+    return f32 ? STRIP * MAP_LDT * sizeof(bf16) : 0;
+  }
+  // how many ring stages fit (the streamed path needs 2)
+  __host__ __device__ int stages(bool f32) const {
+    const size_t used = fixed + operand_bytes(f32);
+    const size_t room = MAP_SMEM_MAX > used ? (MAP_SMEM_MAX - used) / stage_bytes(f32) : 0;
+    return static_cast<int>(room < static_cast<size_t>(MAP_MAX_STAGES) ? room : MAP_MAX_STAGES);
+  }
+  __host__ __device__ size_t stream_smem(int stages, bool f32) const {
+    return fixed + operand_bytes(f32) + stages * stage_bytes(f32);
+  }
 };
 
 // Thread t's walk over the chunks of a rows x cpr region, t, t + T, ... in
@@ -220,8 +249,29 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 }
 
 // emb (b, d) bf16; in_scale, out_scale (d,) f32; out (b, d) bf16. Grid:
-// one cluster of `ranks` blocks per 16 batch rows.
-template <bool F32W>
+// one cluster of `ranks` blocks per 16 batch rows. `buffers`: the resident
+// layer shares (STREAM false) or the ring's stages (STREAM true).
+//
+// STREAM: a rank's layer share does not fit, so it streams through a ring
+// of `buffers` stages of one tile each, 16 weight rows by up to 256
+// columns, by cp.async (f32 tiles land as they are and are rounded into one
+// bf16 operand tile, as the resident path rounds them where they land).
+// Per layer, the up product first: per chunk of 128 of the rank's hidden
+// units (warp w the units' panel w), d / 16 tiles, each the value and gate
+// columns of 16 rows of W_up, into a and gate accumulators that stay in
+// registers over the depth; a gelu(gate) goes to the f32 scratch `part`,
+// and after the last chunk h = bf16(a gelu(gate)). Then the down product:
+// per 256 output columns, the rank's units / 16 tiles of W_down's rows, each
+// warp two column tiles in registers, added in row order and stored to the
+// rank's f32 partial `part`; then the exchange, as on the resident path.
+// The tiles of the next layer stream in during the exchange. Every sum is in
+// a fixed order, so a rerun is bit-equal. On an H100 a 16 KB f32 tile takes
+// about 1.8 us at d = 768 (each SM takes in about 9 GB/s of weights) and
+// bf16 tiles of half the bytes about 1.4 us: a layer's weights reach one
+// cluster's 16 SMs at most, where the plain version spreads them over the
+// card (PERF.md). Splitting the hidden units over several clusters needs a
+// reduction across clusters.
+template <bool F32W, bool STREAM>
 __global__ void __launch_bounds__(MAP_THREADS, 1)
 mapping_kernel(const bf16* __restrict__ emb, const float* __restrict__ in_scale,
                const float* __restrict__ out_scale, const MapLayers layers,
@@ -324,11 +374,67 @@ mapping_kernel(const bf16* __restrict__ emb, const float* __restrict__ in_scale,
                [&](const ChunkWalk& k) { return down_dst(l, k); });
     }
   };
-  const int first = n_blocks < buffers ? n_blocks : buffers;
-  for (int l = 0; l < first; ++l) load_layer(l);
+  // the streamed path's tiles, in the order they are used: per layer the
+  // up tiles (chunk c, depth slab t) and then the down tiles (columns cc,
+  // unit slab t)
+  const int kt = d / MAP_UNIT, ht = nu / MAP_UNIT;
+  const int up_tiles = (nu + MAP_CHUNK - 1) / MAP_CHUNK * kt;
+  const int per_layer = up_tiles + (d + MAP_TILE - 1) / MAP_TILE * ht;
+  const int tiles = n_blocks * per_layer;
+  constexpr size_t STAGE = MapLayout::stage_bytes(F32W);
+  bf16* operand = reinterpret_cast<bf16*>(shares + buffers * STAGE);  // F32W's
+  // starts the copy of tile i into stage i % buffers: 16 rows from `r0` of
+  // a row-major matrix (row stride ld), columns [a0, a0 + wa) to the tile's
+  // columns [0, wa) and [b0, b0 + wb) to [MAP_CHUNK, MAP_CHUNK + wb); one
+  // commit group a tile (an empty one past the last)
+  auto issue = [&](int i) {
+    if (i < tiles) {
+      const int l = i / per_layer, j = i % per_layer;
+      const W* src;
+      long ld;
+      int r0, a0, wa, b0 = 0, wb = 0;
+      if (j < up_tiles) {
+        const int c = j / kt, t = j % kt;
+        wa = wb = min(MAP_CHUNK, nu - MAP_CHUNK * c);
+        src = static_cast<const W*>(layers.up[l]);
+        ld = 2L * d_ff;
+        r0 = MAP_UNIT * t;
+        a0 = u0 + MAP_CHUNK * c;
+        b0 = d_ff + a0;
+      } else {
+        const int cc = (j - up_tiles) / ht, t = (j - up_tiles) % ht;
+        wa = min(MAP_TILE, d - MAP_TILE * cc);
+        src = static_cast<const W*>(layers.down[l]);
+        ld = d;
+        r0 = u0 + MAP_UNIT * t;
+        a0 = MAP_TILE * cc;
+      }
+      constexpr int V = 16 / sizeof(W);
+      unsigned char* stage = shares + (i % buffers) * STAGE;
+      for (ChunkWalk k((wa + wb) / V); k.r < STRIP; k.step()) {
+        const int e = k.c * V;
+        const int from = e < wa ? a0 + e : b0 + e - wa, to = e < wa ? e : MAP_CHUNK + e - wa;
+        const W* at = src + (r0 + k.r) * ld + from;
+        void* dst = F32W ? static_cast<void*>(reinterpret_cast<float*>(stage) + k.r * MAP_TILE + to)
+                         : static_cast<void*>(reinterpret_cast<bf16*>(stage) + k.r * MAP_LDT + to);
+        wg::cp_async16(wg::smem_u32(dst), at, true);
+      }
+    }
+    wg::cp_async_commit();
+  };
+  if constexpr (STREAM) {
+    for (int i = 0; i + 1 < buffers; ++i) issue(i);
+  } else {
+    const int first = n_blocks < buffers ? n_blocks : buffers;
+    for (int l = 0; l < first; ++l) load_layer(l);
+  }
 
   // x = RMSNorm(emb), f32
-  cp_async_wait_n(F32W ? 0 : first);  // the first group has landed
+  if constexpr (STREAM) {
+    cp_async_wait_n(buffers - 1);  // the first group has landed
+  } else {
+    cp_async_wait_n(F32W ? 0 : (n_blocks < buffers ? n_blocks : buffers));
+  }
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < STRIP; ++r)
@@ -413,6 +519,78 @@ mapping_kernel(const bf16* __restrict__ emb, const float* __restrict__ in_scale,
     }
   };
 
+  if constexpr (STREAM) {
+    FragC a, g, acc[2];
+    for (int i = 0; i < tiles; ++i) {
+      const int l = i / per_layer, j = i % per_layer;
+      cp_async_wait_n(buffers - 2);  // tile i has landed
+      __syncthreads();  // everywhere; every warp is done with tile i - 1 and its stage
+      issue(i + buffers - 1);
+      const bf16* tile = reinterpret_cast<const bf16*>(shares + (i % buffers) * STAGE);
+      if constexpr (F32W) {
+        const float* raw = reinterpret_cast<const float*>(tile);
+        for (int q = threadIdx.x; q < STRIP * MAP_TILE / 4; q += blockDim.x) {
+          const int r = q / (MAP_TILE / 4), c = 4 * (q % (MAP_TILE / 4));
+          const float4 v = *reinterpret_cast<const float4*>(raw + r * MAP_TILE + c);
+          *reinterpret_cast<uint2*>(operand + r * MAP_LDT + c) =
+              make_uint2(wg::pack_bf16(v.x, v.y), wg::pack_bf16(v.z, v.w));
+        }
+        __syncthreads();
+        tile = operand;
+      }
+      if (j < up_tiles) {
+        const int c = j / kt, t = j % kt;
+        if (MAP_UNIT * warp < min(MAP_CHUNK, nu - MAP_CHUNK * c)) {
+          if (t == 0) {
+            wmma::fill_fragment(a, 0.f);
+            wmma::fill_fragment(g, 0.f);
+          }
+          FragA fa;
+          FragB fv, fg;
+          wmma::load_matrix_sync(fa, xn + MAP_UNIT * t, L.ldn);
+          wmma::load_matrix_sync(fv, tile + MAP_UNIT * warp, MAP_LDT);
+          wmma::load_matrix_sync(fg, tile + MAP_CHUNK + MAP_UNIT * warp, MAP_LDT);
+          wmma::mma_sync(a, fa, fv, a);
+          wmma::mma_sync(g, fa, fg, g);
+          if (t == kt - 1) {
+#pragma unroll
+            for (int e = 0; e < a.num_elements; ++e) a.x[e] *= gelu_erf(g.x[e]);
+            wmma::store_matrix_sync(part + MAP_CHUNK * c + MAP_UNIT * warp, a, L.ldp,
+                                    wmma::mem_row_major);
+          }
+        }
+      } else {
+        const int cc = (j - up_tiles) / ht, t = (j - up_tiles) % ht;
+        if (j == up_tiles) {
+          // h = bf16(a gelu(gate)), the Pallas rounding point
+          for (ChunkWalk k(nu); k.r < STRIP; k.step())
+            hs[k.r * L.ldh + k.c] = to_bf(part[k.r * L.ldp + k.c]);
+          __syncthreads();
+        }
+        FragA fa;
+        wmma::load_matrix_sync(fa, hs + MAP_UNIT * t, L.ldh);
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const int col = MAP_UNIT * (warp + warps * f);
+          if (col < min(MAP_TILE, d - MAP_TILE * cc)) {
+            if (t == 0) wmma::fill_fragment(acc[f], 0.f);
+            FragB fb;
+            wmma::load_matrix_sync(fb, tile + col, MAP_LDT);
+            wmma::mma_sync(acc[f], fa, fb, acc[f]);
+            if (t == ht - 1)
+              wmma::store_matrix_sync(part + MAP_TILE * cc + col, acc[f], L.ldp,
+                                      wmma::mem_row_major);
+          }
+        }
+      }
+      if (j == per_layer - 1) {
+        cluster.sync();  // every rank's partial is in place
+        exchange(l + 1 < n_blocks ? scales + (l + 3) * d : scales + d, l + 1 == n_blocks);
+        cluster.sync();  // every rank holds the new x and xn
+      }
+    }
+    return;
+  }
   for (int l = 0; l < n_blocks; ++l) {
     if constexpr (!F32W) {
       const int later = n_blocks - 1 - l < buffers - 1 ? n_blocks - 1 - l : buffers - 1;
@@ -747,19 +925,18 @@ cudaError_t launch_ffn_fwd(const bf16* x, const bf16* nscale, const bf16* w_up,
 
 // The launch of K5 with the hidden panels over clusters of `ranks` blocks;
 // with `clusters`, it is not launched and the number of clusters that fit
-// on the device at once goes there instead. cudaErrorInvalidValue, before
-// any CUDA call, where not one layer's share fits in shared memory.
-template <bool F32W>
-cudaError_t launch_mapping(const bf16* emb, const float* in_scale, const float* out_scale,
-                           const MapLayers& layers, bf16* out, int b, int d, int d_ff, int n,
-                           int ranks, float eps, cudaStream_t st, int* clusters) {
-  const MapLayout layout(d, d_ff, ranks, n);
-  const int buffers = layout.buffers(n);
-  if (buffers < 1) return cudaErrorInvalidValue;
-  const size_t smem = layout.smem(buffers);
-  cudaError_t err = gemm::allow_shared(mapping_kernel<F32W>, smem);
+// on the device at once goes there instead. The resident path where one
+// layer's share fits in shared memory, else the streamed path;
+// cudaErrorInvalidValue, before any CUDA call, where not two ring stages
+// fit either.
+template <bool F32W, bool STREAM>
+cudaError_t launch_map(const bf16* emb, const float* in_scale, const float* out_scale,
+                       const MapLayers& layers, bf16* out, int b, int d, int d_ff, int n,
+                       int ranks, int buffers, size_t smem, float eps, cudaStream_t st,
+                       int* clusters) {
+  cudaError_t err = gemm::allow_shared(mapping_kernel<F32W, STREAM>, smem);
   if (err == cudaSuccess && ranks > 8)  // 16 at most on an H100, not portable
-    err = cudaFuncSetAttribute(mapping_kernel<F32W>,
+    err = cudaFuncSetAttribute(mapping_kernel<F32W, STREAM>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute cluster;
@@ -775,12 +952,27 @@ cudaError_t launch_mapping(const bf16* emb, const float* in_scale, const float* 
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   if (clusters != nullptr) {
-    err = cudaOccupancyMaxActiveClusters(clusters, mapping_kernel<F32W>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(clusters, mapping_kernel<F32W, STREAM>, &cfg);
     if (err != cudaSuccess) cudaGetLastError();  // a size the device refuses: no cluster fits
     return err;
   }
-  return cudaLaunchKernelEx(&cfg, mapping_kernel<F32W>, emb, in_scale, out_scale, layers, out, b,
-                            d, d_ff, n, buffers, eps);
+  return cudaLaunchKernelEx(&cfg, mapping_kernel<F32W, STREAM>, emb, in_scale, out_scale, layers,
+                            out, b, d, d_ff, n, buffers, eps);
+}
+
+template <bool F32W>
+cudaError_t launch_mapping(const bf16* emb, const float* in_scale, const float* out_scale,
+                           const MapLayers& layers, bf16* out, int b, int d, int d_ff, int n,
+                           int ranks, float eps, cudaStream_t st, int* clusters) {
+  const MapLayout layout(d, d_ff, ranks, n);
+  const int buffers = layout.buffers(n);
+  if (buffers >= 1)
+    return launch_map<F32W, false>(emb, in_scale, out_scale, layers, out, b, d, d_ff, n, ranks,
+                                   buffers, layout.smem(buffers), eps, st, clusters);
+  const int stages = layout.stages(F32W);
+  if (stages < 2) return cudaErrorInvalidValue;
+  return launch_map<F32W, true>(emb, in_scale, out_scale, layers, out, b, d, d_ff, n, ranks,
+                                stages, layout.stream_smem(stages, F32W), eps, st, clusters);
 }
 
 // K10's first kernel, on gemm.cuh's core. Grid (images * tiles, groups):

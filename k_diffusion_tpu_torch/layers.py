@@ -1,12 +1,14 @@
 """Shared building blocks (counterpart of k_diffusion_tpu/layers.py): flax's
-initializers and dropout as both models use them, the Fourier embedding,
-and the fixed low-pass down- and upsampling of the U-Net."""
+initializers and dropout as the models use them, gradient checkpointing
+that replays the dropout masks, the Fourier embedding, and the fixed
+low-pass down- and upsampling of the U-Net."""
 
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -36,6 +38,31 @@ def dropout(x, rate, generator=None, shape=None):
     keep = torch.rand(shape, generator=generator, device=x.device) < 1 - rate
     return torch.where(keep, x / (1 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def remat(fn, generator, *args):
+    """``fn(*args, generator)`` under ``torch.utils.checkpoint``, which
+    recomputes it in the backward. The checkpoint does not replay an
+    explicit generator, so the recompute would draw new dropout masks: the
+    generator's state at entry is kept, and the recompute runs from it and
+    then puts back the state it found, so that the masks, and every later
+    draw, are those of a run without checkpointing (as JAX's ``nn.remat``
+    replays the same key)."""
+    entry = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(*args):
+        if calls and generator is not None:  # the recompute
+            now = generator.get_state()
+            generator.set_state(entry)
+            try:
+                return fn(*args, generator)
+            finally:
+                generator.set_state(now)
+        calls.append(1)
+        return fn(*args, generator)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 class FourierFeatures(nn.Module):

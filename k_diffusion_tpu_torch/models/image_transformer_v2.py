@@ -29,15 +29,25 @@ kernels contain no dropout), exactly as the JAX model routes. With
 runs the attention prologue unfused, written out here, and every
 feed-forward block unfused, as the JAX model does. Dropout masks are drawn
 from the ``torch.Generator`` passed to ``forward``.
+
+A level's attention is neighborhood (K2 or K11), global (K3 or K13),
+shifted-window (PyTorch ops, ``ops.attention.shifted_window_attention``,
+as the JAX package runs it on XLA; every other layer of a stack shifted)
+or none (the layer is its feed-forward block). With ``checkpointing``
+each selected ``TransformerLayer`` runs under
+``torch.utils.checkpoint``; its recompute replays the dropout masks the
+forward drew (``layers.remat``).
 """
 
+import functools
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
-from ..layers import FourierFeatures, dropout, init_tensor
+from ..layers import FourierFeatures, dropout, init_tensor, remat
 from ..ops import norms, rope
+from ..ops.attention import shifted_window_attention
 from ..ops.geglu import linear_geglu
 from ..ops.kernels import global_packed, train_fusion_enabled
 from ..ops.kernels.flash import flash_attention
@@ -61,16 +71,13 @@ class NeighborhoodAttentionSpec:
 
 @dataclass(frozen=True)
 class ShiftedWindowAttentionSpec:
-    """A level kind of the JAX package that the port's model does not run
-    yet; ``cond_scale_layout`` takes it."""
     d_head: int
     window_size: int
 
 
 @dataclass(frozen=True)
 class NoAttentionSpec:
-    """A level kind of the JAX package that the port's model does not run
-    yet; ``cond_scale_layout`` takes it."""
+    """A level whose layers have no attention block."""
 
 
 @dataclass(frozen=True)
@@ -169,8 +176,9 @@ class RMSNorm(_Scale):
 
 
 class SelfAttentionBlock(nn.Module):
-    """AdaRMSNorm -> qkv -> cosine-sim + RoPE (kernel K1) -> neighborhood
-    or global attention -> dropout -> out projection -> residual.
+    """AdaRMSNorm -> qkv -> cosine-sim + RoPE (kernel K1) -> neighborhood,
+    global or shifted-window attention -> dropout -> out projection ->
+    residual.
 
     In training with ``KDT_TRAIN_FUSION=0`` the prologue runs unfused, as
     the JAX model's does. A neighborhood level goes to the channel-packed K2
@@ -178,13 +186,15 @@ class SelfAttentionBlock(nn.Module):
     fused, and to the per-head K11 otherwise (the unfused prologue, a level
     wider than 512 or not a multiple of 128, a head dim other than 64). A
     global level goes to K3 where ``global_packed.takes`` it (head dim 64,
-    s a multiple of 16 up to 512) and to the flash kernel K13 otherwise."""
+    s a multiple of 16 up to 512) and to the flash kernel K13 otherwise. A
+    shifted-window level attends within windows of the map, rolled by half
+    a window where ``shifted``."""
 
     def __init__(self, d_model, attn_spec, cond_features, dtype, generator,
-                 device, dropout=0.0):
+                 device, dropout=0.0, shifted=False):
         super().__init__()
         self.d_model, self.attn_spec, self.dtype = d_model, attn_spec, dtype
-        self.dropout = dropout
+        self.dropout, self.shifted = dropout, shifted
         self.n_heads = d_model // attn_spec.d_head
         self.qkv_proj = _Kernel((d_model, 3 * d_model), "lecun", generator,
                                 device)
@@ -223,7 +233,12 @@ class SelfAttentionBlock(nn.Module):
                            self.scale, self.n_heads))
         else:
             q, k, v = self._unfused_prologue(x, pos, norm_scale)
-        if isinstance(self.attn_spec, GlobalAttentionSpec):
+        if isinstance(self.attn_spec, ShiftedWindowAttentionSpec):
+            ws = self.attn_spec.window_size
+            out = shifted_window_attention(q, k, v, ws,
+                                           ws // 2 if self.shifted else 0,
+                                           scale=1.0)
+        elif isinstance(self.attn_spec, GlobalAttentionSpec):
             # the kernels read q, k, v of one layout: the unfused v is a
             # strided view of the projection
             q, k, v = (t.contiguous() for t in (q, k, v))
@@ -277,18 +292,24 @@ class FeedForwardBlock(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    def __init__(self, spec, cond_features, dtype, generator, device):
+    """Attention (none on a ``NoAttentionSpec`` level) and feed-forward:
+    the unit of gradient checkpointing."""
+
+    def __init__(self, spec, cond_features, dtype, generator, device,
+                 shifted=False):
         super().__init__()
-        self.self_attn = SelfAttentionBlock(spec.width, spec.self_attn,
-                                            cond_features, dtype, generator,
-                                            device, spec.dropout)
+        if not isinstance(spec.self_attn, NoAttentionSpec):
+            self.self_attn = SelfAttentionBlock(
+                spec.width, spec.self_attn, cond_features, dtype, generator,
+                device, spec.dropout, shifted)
         self.ff = FeedForwardBlock(spec.width, spec.d_ff, cond_features,
                                    generator, device, spec.dropout)
 
     def forward(self, x, pos, cond, generator=None, scales=(None, None)):
         """``scales``: the attention and feed-forward blocks' precomputed
         AdaRMSNorm scales, or None each."""
-        x = self.self_attn(x, pos, cond, generator, scales[0])
+        if hasattr(self, "self_attn"):
+            x = self.self_attn(x, pos, cond, generator, scales[0])
         return self.ff(x, cond, generator, scales[1])
 
 
@@ -397,11 +418,15 @@ class TokenSplit(TokenSplitWithoutSkip):
 class ImageTransformerDenoiserModelV2(nn.Module):
     """Multi-level hourglass transformer denoiser.
 
-    ``model(x, sigma, aug_cond=None, class_cond=None, generator=None)``
-    with x (b, h, w, c) NHWC and sigma (b,); returns float32 (b, h, w, c).
-    A model with ``num_classes`` takes ``class_cond`` (b,) int, whose
-    embedding joins the mapping network's input. ``generator`` draws the
-    dropout masks under ``model.train()``. Parameters are drawn from the
+    ``model(x, sigma, aug_cond=None, class_cond=None, mapping_cond=None,
+    generator=None)`` with x (b, h, w, c) NHWC and sigma (b,); returns
+    float32 (b, h, w, c). A model with ``num_classes`` takes ``class_cond``
+    (b,) int, whose embedding joins the mapping network's input, and one
+    with ``mapping_cond_dim`` takes ``mapping_cond``. ``generator`` draws
+    the dropout masks under ``model.train()``. ``checkpointing`` runs the
+    layers of the stacks that ``remat_levels`` selects (default: all)
+    under ``torch.utils.checkpoint`` in training; ``remat_policy`` is not
+    ported and raises. Parameters are drawn from the
     constructor's ``generator``; the FourierFeatures bases too (the JAX
     package draws them from a fixed threefry key, which ``convert.py``
     carries across). Parameters go to ``device``, by default the card
@@ -409,19 +434,20 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     bfloat16 on the card and float32 elsewhere (``utils.compute_dtype``)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
-                 num_classes=0, dtype=None, device=None,
-                 generator=None):
+                 num_classes=0, mapping_cond_dim=0, checkpointing=False,
+                 remat_policy=None, remat_levels=None, dtype=None,
+                 device=None, generator=None):
         super().__init__()
-        for spec in levels:
-            if not isinstance(spec.self_attn, (GlobalAttentionSpec,
-                                               NeighborhoodAttentionSpec)):
-                raise NotImplementedError(
-                    f"{type(spec.self_attn).__name__} levels come with a "
-                    "later port")
+        if remat_policy is not None:
+            raise NotImplementedError(
+                "remat_policy is not ported yet: ROADMAP.md queue 1, item 4 "
+                "(remat_policy)")
         device = default_device(device)
         dtype = compute_dtype(device, dtype)
         self.levels, self.dtype = levels, dtype
-        self.num_classes = num_classes
+        self.num_classes, self.mapping_cond_dim = num_classes, mapping_cond_dim
+        self.checkpointing = checkpointing
+        self.remat_levels = None if remat_levels is None else tuple(remat_levels)
         mw = mapping.width
         self.patch_in = TokenMerge(in_channels, levels[0].width, patch_size,
                                    dtype, generator, device)
@@ -433,12 +459,19 @@ class ImageTransformerDenoiserModelV2(nn.Module):
         self.aug_in_proj = _Kernel((mw, mw), "lecun", generator, device)
         if num_classes:
             self.class_emb = _Embedding(num_classes, mw, generator, device)
+        if mapping_cond_dim:
+            self.mapping_cond_in_proj = _Kernel((mapping_cond_dim, mw),
+                                                "lecun", generator, device)
         self.mapping = MappingNetwork(mapping.depth, mw, mapping.d_ff, dtype,
                                       generator, device, mapping.dropout)
         for prefix, spec in _stacks(levels):
+            # layer j of a stack is shifted where j + offset is odd, the
+            # up stacks offset by the level's depth, as the JAX model does
+            offset = spec.depth if prefix.startswith("up") else 0
             for j in range(spec.depth):
                 self.add_module(f"{prefix}_layer_{j}", TransformerLayer(
-                    spec, mw, dtype, generator, device))
+                    spec, mw, dtype, generator, device,
+                    shifted=(j + offset) % 2 == 1))
         for i in range(len(levels) - 1):
             self.add_module(f"merge_{i}", TokenMerge(
                 levels[i].width, levels[i + 1].width, (2, 2), dtype, generator,
@@ -451,11 +484,28 @@ class ImageTransformerDenoiserModelV2(nn.Module):
             levels[0].width, out_channels, patch_size, dtype, generator,
             device, zero_init=True)
 
-    def _run_stack(self, prefix, depth, x, pos, cond, generator, scales):
+    def _remats(self, prefix, level):
+        """Whether the layers of stack ``prefix`` of level ``level`` run
+        under checkpointing: all of them with ``checkpointing``, unless
+        ``remat_levels`` names neither the level's index (both its down and
+        up stacks) nor the stack ("down_0", "mid", "up_1")."""
+        if not self.checkpointing:
+            return False
+        return (self.remat_levels is None or level in self.remat_levels
+                or prefix in self.remat_levels)
+
+    def _run_stack(self, prefix, level, depth, x, pos, cond, generator,
+                   scales):
+        checkpointed = (self._remats(prefix, level)
+                        and torch.is_grad_enabled())
         for j in range(depth):
             name = f"{prefix}_layer_{j}"
-            x = getattr(self, name)(x, pos, cond, generator,
-                                    scales.get(name, (None, None)))
+            layer, sc = getattr(self, name), scales.get(name, (None, None))
+            if checkpointed:
+                x = remat(functools.partial(layer, scales=sc), generator, x,
+                          pos, cond)
+            else:
+                x = layer(x, pos, cond, generator, sc)
         return x
 
     def _layer_scales(self, cond_scales):
@@ -475,19 +525,23 @@ class ImageTransformerDenoiserModelV2(nn.Module):
                 for name, offs in layout.items()}
 
     def forward(self, x, sigma, aug_cond=None, class_cond=None,
-                generator=None, cond_scales=None, cond_only=False):
-        """``cond_only``: return the mapping network's output (b, width)
-        and run no image path (``x`` may be None). ``cond_scales``: the
-        step's condcache row (b, total), holding every layer's AdaRMSNorm
-        scale and with them the conditioning they were made from, so that
-        ``sigma`` and the mapping network are not read; forward-only, and
-        it takes no ``aug_cond`` or ``class_cond``."""
+                mapping_cond=None, generator=None, cond_scales=None,
+                cond_only=False):
+        """``mapping_cond`` (b, mapping_cond_dim) joins the mapping
+        network's input through ``mapping_cond_in_proj``. ``cond_only``:
+        return the mapping network's output (b, width) and run no image
+        path (``x`` may be None). ``cond_scales``: the step's condcache row
+        (b, total), holding every layer's AdaRMSNorm scale and with them
+        the conditioning they were made from, so that ``sigma`` and the
+        mapping network are not read; forward-only, and it takes no
+        ``aug_cond``, ``class_cond`` or ``mapping_cond``."""
         scales = {}
         if cond_scales is not None:
-            if aug_cond is not None or class_cond is not None:
+            if (aug_cond is not None or class_cond is not None
+                    or mapping_cond is not None):
                 raise ValueError(
                     "cond_scales holds the conditioning it was made from; "
-                    "pass aug_cond and class_cond to "
+                    "pass aug_cond, class_cond and mapping_cond to "
                     "condcache.precompute_cond_scales, not with cond_scales")
             if torch.is_grad_enabled():
                 raise RuntimeError(
@@ -496,9 +550,12 @@ class ImageTransformerDenoiserModelV2(nn.Module):
             scales = self._layer_scales(cond_scales)
         elif self.num_classes and class_cond is None:
             raise ValueError("class_cond must be specified if num_classes > 0")
+        elif self.mapping_cond_dim and mapping_cond is None:
+            raise ValueError(
+                "mapping_cond must be specified if mapping_cond_dim > 0")
         dtype = self.dtype
         cond = None if cond_scales is not None else self._cond(
-            sigma, aug_cond, class_cond, generator)
+            sigma, aug_cond, class_cond, mapping_cond, generator)
         if cond_only:
             return cond
         x = self.patch_in(x.to(dtype))
@@ -506,23 +563,24 @@ class ImageTransformerDenoiserModelV2(nn.Module):
 
         skips, poses = [], []
         for i, spec in enumerate(self.levels[:-1]):
-            x = self._run_stack(f"down_{i}", spec.depth, x, pos, cond,
+            x = self._run_stack(f"down_{i}", i, spec.depth, x, pos, cond,
                                 generator, scales)
             skips.append(x)
             poses.append(pos)
             x = getattr(self, f"merge_{i}")(x)
             pos = rope.downscale_pos(pos)
-        x = self._run_stack("mid", self.levels[-1].depth, x, pos, cond,
-                            generator, scales)
+        x = self._run_stack("mid", len(self.levels) - 1,
+                            self.levels[-1].depth, x, pos, cond, generator,
+                            scales)
         for i, spec in reversed(list(enumerate(self.levels[:-1]))):
             x = getattr(self, f"split_{i}")(x, skips[i])
-            x = self._run_stack(f"up_{i}", spec.depth, x, poses[i], cond,
+            x = self._run_stack(f"up_{i}", i, spec.depth, x, poses[i], cond,
                                 generator, scales)
 
         x = self.patch_out(self.out_norm(x))
         return x.float()
 
-    def _cond(self, sigma, aug_cond, class_cond, generator):
+    def _cond(self, sigma, aug_cond, class_cond, mapping_cond, generator):
         """The mapping network's output for noise level ``sigma``."""
         dtype = self.dtype
         device = self.time_in_proj.kernel.device
@@ -537,6 +595,9 @@ class ImageTransformerDenoiserModelV2(nn.Module):
         emb = time_emb + aug_emb
         if self.num_classes:
             emb = emb + self.class_emb.embedding.to(dtype)[class_cond]
+        if self.mapping_cond_dim:
+            emb = emb + (mapping_cond.to(dtype)
+                         @ self.mapping_cond_in_proj.kernel.to(dtype))
         return self.mapping(emb, generator)
 
 

@@ -18,13 +18,17 @@ kernels K13 (forward) and K14 (backward) for CUDA tensors, their plain
 version for CPU tensors. The down- and upsampling are the fixed low-pass
 filters of ``layers``.
 
+Cross-attention to a sequence (``cross_attn_depths``, ``cross_cond_dim``)
+runs PyTorch ops: ``ops.attention.cross_attention``, one
+``scaled_dot_product_attention`` with the JAX model's additive -1e4 bias
+on padded keys (the JAX package runs it on XLA). With ``has_variance`` the
+output head has one more channel, whose mean over the map is the
+per-sample log variance (``return_variance=True``).
+
 Under ``model.train()`` dropout applies where the JAX model applies it:
 channel-wise (one mask value per image and channel) after each 3x3
-convolution of a residual block, element-wise on the attention output. The
-masks are drawn from the ``torch.Generator`` passed to ``forward``.
-
-Not ported yet (``config.make_model`` raises): cross-attention
-(``cross_cond_dim > 0``) and the variance head (``has_variance``).
+convolution of a residual block, element-wise on the attention outputs.
+The masks are drawn from the ``torch.Generator`` passed to ``forward``.
 """
 
 import torch
@@ -33,6 +37,7 @@ from torch import nn
 
 from ..layers import (FourierFeatures, downsample2d, dropout,
                       init_tensor, upsample2d)
+from ..ops.attention import cross_attention
 from ..ops.kernels.flash import flash_attention
 from ..utils import compute_dtype, default_device
 
@@ -174,6 +179,58 @@ class SelfAttention2d(nn.Module):
         return x + self.out_proj(att, dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: statistics over the last axis in float32 with
+    the fast variance E[x^2] - E[x]^2 (clipped at 0), epsilon 1e-6 (not
+    PyTorch's 1e-5), then a learned ``scale`` and ``bias``; the result in
+    float32, the promotion of x and the float32 params."""
+
+    def __init__(self, features, eps=1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x.square().mean(dim=-1, keepdim=True)
+               - mean.square()).clamp_min(0)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+
+
+class CrossAttention2d(nn.Module):
+    """Image-to-sequence attention: AdaGN -> 1x1 q conv; LayerNorm of the
+    sequence -> kv Dense; attention with the keys' padding as an additive
+    -1e4 bias (scale e^-1/2) -> dropout -> zero-init 1x1 out conv ->
+    residual."""
+
+    def __init__(self, c, c_enc, n_head, cond_dim, dropout_rate=0.0,
+                 group_size=32, generator=None, device=None):
+        super().__init__()
+        self.n_head, self.dropout_rate = n_head, dropout_rate
+        self.norm_dec = AdaGN(c, cond_dim, max(1, c // group_size), device)
+        self.q_proj = _Conv(c, c, 1, generator=generator, device=device)
+        self.norm_enc = LayerNorm(c_enc, device=device)
+        self.kv_proj = _Dense(c_enc, 2 * c, generator=generator,
+                              device=device)
+        self.out_proj = _Conv(c, c, 1, "zeros", device=device)
+
+    def forward(self, x, cond, cross, cross_padding, dtype, generator=None):
+        b, h, w, c = x.shape
+        e = c // self.n_head
+        q = self.q_proj(self.norm_dec(x, cond, dtype), dtype).reshape(
+            b, h * w, self.n_head, e)
+        kv = self.kv_proj(self.norm_enc(cross), dtype).reshape(
+            b, -1, 2, self.n_head, e)
+        k, v = kv.unbind(2)
+        att = cross_attention(q, k, v, cross_padding, scale=e ** -0.5)
+        att = att.reshape(b, h, w, c)
+        if self.training and self.dropout_rate:
+            att = dropout(att, self.dropout_rate, generator)
+        return x + self.out_proj(att, dtype)
+
+
 class MappingNet(nn.Module):
     """n x (orthogonal-init Dense -> GELU)."""
 
@@ -194,13 +251,16 @@ class MappingNet(nn.Module):
 
 class _Stack(nn.Module):
     """One down or up stack: residual blocks ``res_{i}``, each followed by
-    self-attention ``attn_{i}`` when the level has it. The last block
-    narrows to ``c_out``; attention heads are 64 wide."""
+    self-attention ``attn_{i}`` and cross-attention ``cross_{i}`` when the
+    level has them. The last block narrows to ``c_out``; attention heads
+    are 64 wide."""
 
     def __init__(self, n_layers, c_in, c_mid, c_out, cond_dim, self_attn,
-                 dropout_rate, head_size=64, generator=None, device=None):
+                 dropout_rate, head_size=64, cross_attn=False, c_enc=0,
+                 generator=None, device=None):
         super().__init__()
         self.n_layers, self.self_attn = n_layers, self_attn
+        self.cross_attn = cross_attn
         for i in range(n_layers):
             my_c_out = c_mid if i < n_layers - 1 else c_out
             self.add_module(f"res_{i}", ResConvBlock(
@@ -210,23 +270,35 @@ class _Stack(nn.Module):
                 self.add_module(f"attn_{i}", SelfAttention2d(
                     my_c_out, max(1, my_c_out // head_size), cond_dim,
                     dropout_rate, generator=generator, device=device))
+            if cross_attn:
+                self.add_module(f"cross_{i}", CrossAttention2d(
+                    my_c_out, c_enc, max(1, my_c_out // head_size), cond_dim,
+                    dropout_rate, generator=generator, device=device))
 
-    def forward(self, x, cond, dtype, generator=None):
+    def forward(self, x, cond, dtype, generator=None, cross=None,
+                cross_padding=None):
         for i in range(self.n_layers):
             x = getattr(self, f"res_{i}")(x, cond, dtype, generator)
             if self.self_attn:
                 x = getattr(self, f"attn_{i}")(x, cond, dtype, generator)
+            if self.cross_attn:
+                x = getattr(self, f"cross_{i}")(x, cond, cross, cross_padding,
+                                                dtype, generator)
         return x
 
 
 class ImageDenoiserModelV1(nn.Module):
     """EDM U-Net denoiser.
 
-    ``model(x, sigma, mapping_cond=None, unet_cond=None, generator=None)``
-    with x (b, h, w, c) NHWC and sigma (b,); returns float32 (b, h, w, c).
-    ``mapping_cond`` (b, mapping_cond_dim) joins the timestep embedding
-    through a bias-free Dense; ``unet_cond`` (b, h, w, unet_cond_dim) is
-    concatenated to x's channels. ``generator`` draws the dropout masks
+    ``model(x, sigma, mapping_cond=None, unet_cond=None, cross_cond=None,
+    cross_cond_padding=None, return_variance=False, generator=None)`` with
+    x (b, h, w, c) NHWC and sigma (b,); returns float32 (b, h, w, c), and
+    with ``return_variance`` on a model with ``has_variance`` also the
+    float32 (b,) log variance. ``mapping_cond`` (b, mapping_cond_dim) joins
+    the timestep embedding through a bias-free Dense; ``unet_cond`` (b, h,
+    w, unet_cond_dim) is concatenated to x's channels; ``cross_cond`` (b,
+    s, cross_cond_dim) is the sequence the ``cross_attn_depths`` levels
+    attend to, ``cross_cond_padding`` (b, s) set where it is padding. ``generator`` draws the dropout masks
     under ``model.train()``. Parameters are drawn from the constructor's
     ``generator`` on ``device`` (default: the card); the FourierFeatures
     basis too (``convert.py`` carries a JAX basis across). ``dtype`` is the
@@ -234,8 +306,9 @@ class ImageDenoiserModelV1(nn.Module):
     ``utils.compute_dtype``)."""
 
     def __init__(self, c_in, feats_in, depths, channels, self_attn_depths,
-                 mapping_cond_dim=0, unet_cond_dim=0, dropout_rate=0.0,
-                 patch_size=1, skip_stages=0, dtype=None,
+                 cross_attn_depths=None, mapping_cond_dim=0, unet_cond_dim=0,
+                 cross_cond_dim=0, dropout_rate=0.0, patch_size=1,
+                 skip_stages=0, has_variance=False, dtype=None,
                  device=None, generator=None):
         super().__init__()
         device = default_device(device)
@@ -244,6 +317,9 @@ class ImageDenoiserModelV1(nn.Module):
         self.depths, self.skip_stages = depths, skip_stages
         self.patch_size, self.dtype = patch_size, dtype
         self.mapping_cond_dim = mapping_cond_dim
+        self.has_variance = has_variance
+        if not cross_cond_dim or cross_attn_depths is None:
+            cross_attn_depths = (False,) * len(self_attn_depths)
         self.timestep_embed = FourierFeatures(1, feats_in, generator=generator,
                                               device=device)
         if mapping_cond_dim:
@@ -257,21 +333,24 @@ class ImageDenoiserModelV1(nn.Module):
         for i in range(skip_stages, n):
             self.add_module(f"u_net_d_{i}", _Stack(
                 depths[i], width, channels[i], channels[i], feats_in,
-                self_attn_depths[i], dropout_rate, generator=generator,
-                device=device))
+                self_attn_depths[i], dropout_rate,
+                cross_attn=cross_attn_depths[i], c_enc=cross_cond_dim,
+                generator=generator, device=device))
             width = channels[i]
         for idx, i in enumerate(reversed(range(skip_stages, n))):
             c_up = width + (channels[i] if idx > 0 else 0)
             self.add_module(f"u_net_u_{i}", _Stack(
                 depths[i], c_up, channels[i], channels[max(0, i - 1)],
                 feats_in, self_attn_depths[i], dropout_rate,
+                cross_attn=cross_attn_depths[i], c_enc=cross_cond_dim,
                 generator=generator, device=device))
             width = channels[max(0, i - 1)]
-        self.proj_out = _Conv(width, c_in * patch_size ** 2, 1, "zeros",
-                              device=device)
+        self.proj_out = _Conv(width, c_in * patch_size ** 2 + has_variance,
+                              1, "zeros", device=device)
 
     def forward(self, x, sigma, mapping_cond=None, unet_cond=None,
-                generator=None):
+                cross_cond=None, cross_cond_padding=None,
+                return_variance=False, generator=None):
         dtype = self.dtype
         x = x.to(dtype)
         c_noise = torch.log(sigma.float()) / 4
@@ -294,18 +373,24 @@ class ImageDenoiserModelV1(nn.Module):
         for i in range(self.skip_stages, n):
             if i > self.skip_stages:
                 x = downsample2d(x)
-            x = getattr(self, f"u_net_d_{i}")(x, cond, dtype, generator)
+            x = getattr(self, f"u_net_d_{i}")(x, cond, dtype, generator,
+                                              cross_cond, cross_cond_padding)
             skips.append(x)
         for idx, i in enumerate(reversed(range(self.skip_stages, n))):
             if idx > 0:
                 x = torch.cat([x, skips[i - self.skip_stages]], dim=-1)
-            x = getattr(self, f"u_net_u_{i}")(x, cond, dtype, generator)
+            x = getattr(self, f"u_net_u_{i}")(x, cond, dtype, generator,
+                                              cross_cond, cross_cond_padding)
             if i > self.skip_stages:
                 x = upsample2d(x)
 
         x = self.proj_out(x, dtype)
+        if self.has_variance:
+            x, logvar = x[..., :-1], x[..., -1].reshape(x.shape[0], -1).mean(1)
         if self.patch_size > 1:
             x = _depth_to_space(x, self.patch_size)
+        if self.has_variance and return_variance:
+            return x.float(), logvar.float()
         return x.float()
 
 

@@ -6,7 +6,12 @@ width) activation. CUDA tensors go to the hand-written kernel in
 ``csrc/geglu.cu`` (``mapping_kernel``): one launch, a thread block cluster
 per 16 batch rows whose blocks split the hidden units in panels of 16
 (``rank_panels``) and sum their split-K partials of the down projection in
-rank order in distributed shared memory. The weights go to the kernel as
+rank order in distributed shared memory. Where a rank's share of a layer's
+weights fits one block's shared memory (the HDiT's 256 / 768), every share
+is resident; where it does not (the ViT's 512 / 1408 and 768 / 2048, about
+305 and 604 KB a layer at 16 ranks), the share streams through a ring of
+(16, 256) weight tiles, each rank's down-product partial added up in a
+fixed order before the ranks' sum (``layout``). The weights go to the kernel as
 they are, one pointer each, float32 (the model's params) or bfloat16: the
 kernel rounds them to bfloat16 where it loads them, as the plain version's
 ``.to(bfloat16)`` does, so the wrapper launches nothing but the kernel. The
@@ -60,6 +65,31 @@ def rank_panels(d_ff, ranks, rank):
     return panels * rank // ranks, panels * (rank + 1) // ranks
 
 
+# the kernel's shared memory (csrc/geglu.cu, MapLayout): an H100 block's
+# 232448 bytes less static room; a streamed tile's rows, columns and
+# padding; the ring's most stages
+SMEM_MAX = 232448 - 1024
+TILE, TILE_PAD, MAX_STAGES = 256, 8, 8
+
+
+def layout(d, d_ff, n, ranks, f32):
+    """K5's path at one shape and cluster size, as ``MapLayout`` in
+    csrc/geglu.cu sizes it: ("resident", the layer shares that fit at
+    once) where one layer's share fits a block's shared memory, else
+    ("stream", ring stages); ("none", 0) where not two stages fit either."""
+    ur = -(-(d_ff // UNIT) // ranks) * UNIT
+    ldp = (max(d, ur) if d > 256 else max(ur, 256)) + 4
+    fixed = (ROWS * (d + 4 + ldp) + (n + 2) * d) * 4 + ROWS * (d + 8 + ur + 8) * 2
+    layer = d * (2 * ur + 8) * 2 + ur * (d + 8) * 2
+    buffers = min(max(SMEM_MAX - fixed, 0) // layer, n)
+    if buffers:
+        return "resident", buffers
+    stage = ROWS * TILE * 4 if f32 else ROWS * (TILE + TILE_PAD) * 2
+    operand = ROWS * (TILE + TILE_PAD) * 2 if f32 else 0
+    stages = min(max(SMEM_MAX - fixed - operand, 0) // stage, MAX_STAGES)
+    return ("stream", stages) if stages >= 2 else ("none", 0)
+
+
 def _query(index, d, d_ff, n, f32, ranks):
     """How many K5 clusters of ``ranks`` blocks fit on CUDA device
     ``index`` at once; 0 where the device or the shared memory refuses the
@@ -83,7 +113,8 @@ def cluster_size(index, d, d_ff, n, f32):
         if ranks <= d_ff // UNIT and _query(index, d, d_ff, n, f32, ranks):
             return ranks
     raise ValueError(f"fused_mapping kernel: no cluster of up to 16 blocks "
-                     f"holds a layer's weight share at d={d}, d_ff={d_ff}")
+                     f"takes a layer's weight share, resident or streamed, "
+                     f"at d={d}, d_ff={d_ff}")
 
 
 def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,

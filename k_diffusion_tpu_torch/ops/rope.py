@@ -76,3 +76,38 @@ def downscale_pos(pos):
     """Mean-pools a (h, w, 2) position grid 2x2."""
     h, w, e = pos.shape
     return pos.reshape(h // 2, 2, w // 2, 2, e).mean(dim=(1, 3))
+
+
+def rotate_half_interleaved(x):
+    """The ViT's rotate-half on interleaved pairs: (x0, x1, x2, x3, ...)
+    -> (-x1, x0, -x3, x2, ...)."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
+
+
+def apply_rotary_emb_interleaved(freqs, t, start_index=0, scale=1.0):
+    """The ViT's RoPE, t cos + rotate_half(t) sin on interleaved pairs,
+    over channels [start_index, start_index + freqs.shape[-1]) of t."""
+    freqs = freqs.to(t.dtype)
+    end_index = start_index + freqs.shape[-1]
+    if end_index > t.shape[-1]:
+        raise ValueError("freqs is wider than t")
+    t_mid = t[..., start_index:end_index]
+    cos, sin = torch.cos(freqs), torch.sin(freqs)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
+    t_mid = t_mid * cos + rotate_half_interleaved(t_mid) * sin
+    if start_index == 0 and end_index == t.shape[-1]:
+        return t_mid
+    return torch.cat([t[..., :start_index], t_mid, t[..., end_index:]], dim=-1)
+
+
+def freqs_pixel_log_init(shape, max_freq=10.0, device=None):
+    """The ViT's learned RoPE log-frequencies at init: log(pi) to log(
+    max_freq pi / 2), evenly spaced over the last dim of ``shape`` and
+    broadcast over the rest. float32."""
+    log_min = math.log(math.pi)
+    log_max = math.log(max_freq * math.pi / 2)
+    freqs = torch.linspace(log_min, log_max, shape[-1], dtype=torch.float32,
+                           device=device)
+    return freqs.expand(shape).clone()

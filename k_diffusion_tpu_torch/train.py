@@ -81,12 +81,16 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=64,
                    help="the batch size")
     p.add_argument("--checkpointing", action="store_true",
-                   help="enable gradient checkpointing (not ported yet)")
+                   help="enable gradient checkpointing")
     p.add_argument("--checkpoint-format", type=str, default="torch",
                    choices=["torch", "orbax"],
                    help="torch = one torch.save file; orbax is not ported")
-    p.add_argument("--remat-levels", nargs="*", default=None,
-                   help="hourglass levels to remat (not ported yet)")
+    p.add_argument("--remat-levels",
+                   type=lambda s: int(s) if s.isdigit() else s, nargs="*",
+                   default=None,
+                   help="hourglass levels to remat under --checkpointing "
+                        "(default all; e.g. '0' remats the high-resolution "
+                        "level, 'down_0' only its down stack)")
     p.add_argument("--config", type=str, required=True,
                    help="the configuration file")
     p.add_argument("--demo-every", type=int, default=500,
@@ -137,9 +141,6 @@ def check_ported(args):
     """Raises NotImplementedError for a flag the port does not run yet,
     naming where it waits in ROADMAP.md."""
     waits = [
-        (args.checkpointing, "--checkpointing", "queue 1, item 4 (remat)"),
-        (args.remat_levels is not None, "--remat-levels",
-         "queue 1, item 4 (remat)"),
         (args.checkpoint_format == "orbax", "--checkpoint-format orbax",
          "queue 1, item 7 (orbax and multi-process)"),
         (args.evaluate_only, "--evaluate-only",
@@ -191,7 +192,8 @@ def main(argv=None):
 
     model = config_mod.make_model(
         config, dtype=dtype, device=device,
-        generator=torch.Generator(device).manual_seed(seed))
+        generator=torch.Generator(device).manual_seed(seed),
+        checkpointing=args.checkpointing, remat_levels=args.remat_levels)
     print(f"Parameters: {sum(p.numel() for p in model.parameters()):,}")
 
     train_set = data.make_dataset(dataset_config, size[0],

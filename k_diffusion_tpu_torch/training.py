@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from . import config as config_mod
-from .models import image_transformer_v2, image_v1
+from .models import image_transformer_v1, image_transformer_v2, image_v1
 from .utils import ema_update
 
 GROUPS = ("wd", "no_wd", "mapping_wd", "mapping_no_wd")
@@ -123,6 +123,7 @@ class GroupedAdamW:
 
 # the param taxonomy of each model family
 _PARAM_LABELS = {"image_v1": image_v1.param_group_labels,
+                 "image_transformer_v1": image_transformer_v1.param_group_labels,
                  "image_transformer_v2": image_transformer_v2.param_group_labels}
 
 
@@ -159,8 +160,9 @@ def make_train_step(denoiser_factory, sample_density, *, num_classes=0,
     class_drop=None) -> metrics``.
 
     ``batch`` is a dict with leading dims [accum, batch]: ``reals`` (A, B,
-    H, W, C) and optionally ``aug_cond`` (A, B, 9) and ``class_cond`` (A, B)
-    int. Per step: sigmas for all A * B images from ``sample_density``
+    H, W, C) and optionally ``aug_cond`` (A, B, 9), ``class_cond`` (A, B)
+    int, ``mapping_cond`` (A, B, D), and ``cross_cond`` (A, B, S, D) with
+    ``cross_cond_padding`` (A, B, S), each passed to the model. Per step: sigmas for all A * B images from ``sample_density``
     (stratified over them when ``stratified``), then per microbatch noise
     from ``generator`` (or the given ``noise``, (A, B, H, W, C)) and, with
     ``class_cond`` and a ``cond_dropout_rate`` above 0, one uniform per
@@ -193,8 +195,10 @@ def make_train_step(denoiser_factory, sample_density, *, num_classes=0,
         grads, loss_sum, sqn_small = None, 0.0, 0.0
         for i in range(a_steps):
             extra = {"generator": generator}
-            if "aug_cond" in batch:
-                extra["aug_cond"] = batch["aug_cond"][i]
+            for key in ("aug_cond", "mapping_cond", "cross_cond",
+                        "cross_cond_padding"):
+                if key in batch:
+                    extra[key] = batch[key][i]
             mb_noise = (noise[i] if noise is not None else torch.randn(
                 reals[i].shape, generator=generator, device=reals.device,
                 dtype=reals.dtype))

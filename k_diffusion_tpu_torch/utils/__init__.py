@@ -1,9 +1,11 @@
-"""Utilities (counterpart of k_diffusion_tpu/utils/): array helpers, the
+"""Utilities (counterpart of k_diffusion_tpu/utils/): array helpers (with
+the DCT and the frequency weights of the multiscale loss), the
 default device and compute dtype, the training-time sigma densities, LR and
 EMA schedules, the EMA update, safetensors files (``io``), PNG images and
 grids (``image``)."""
 
-from .array import append_dims
+from .array import (append_dims, dct, freq_weight_1d, freq_weight_nd,
+                    idct)
 from .device import compute_dtype, default_device
 from .ema import ema_update, ema_update_dict
 from .image import from_png, make_grid, to_png
@@ -17,7 +19,8 @@ from .schedules import (EMAWarmup, constant_lr_with_warmup, exponential_lr,
                         inverse_lr)
 
 __all__ = [
-    "append_dims", "compute_dtype", "default_device", "ema_update",
+    "append_dims", "dct", "freq_weight_1d", "freq_weight_nd", "idct",
+    "compute_dtype", "default_device", "ema_update",
     "ema_update_dict",
     "from_png", "get_safetensors_metadata", "make_grid", "to_png",
     "cosine_interpolated", "log_logistic", "log_normal", "log_uniform",

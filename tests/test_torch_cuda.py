@@ -194,8 +194,11 @@ def test_fused_ffn(dev, b, t, d, d_ff):
 
 
 @pytest.mark.parametrize("b,d,d_ff,n", [(1, 256, 768, 2), (13, 128, 192, 3),
-                                        (32, 256, 768, 2), (33, 256, 768, 2)])
+                                        (32, 256, 768, 2), (33, 256, 768, 2),
+                                        (64, 768, 2048, 2), (5, 512, 1408, 3)])
 def test_fused_mapping(dev, b, d, d_ff, n):
+    """The last two are the ViT's widths, whose layer shares stream through
+    the kernel's ring (``fused_mapping.layout``)."""
     g = torch.Generator().manual_seed(4)
     blocks = [((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
                torch.randn((d, 2 * d_ff), generator=g).to(dev) * d ** -0.5,
@@ -209,13 +212,15 @@ def test_fused_mapping(dev, b, d, d_ff, n):
 
 @pytest.mark.parametrize("b,d,d_ff,n", [(8, 256, 768, 2), (33, 256, 768, 2),
                                         (3, 128, 192, 3), (5, 64, 1024, 1),
-                                        (8, 256, 768, 5)])
+                                        (8, 256, 768, 5), (17, 768, 2048, 2),
+                                        (8, 1024, 2752, 1)])
 def test_fused_mapping_bf16_weights(dev, b, d, d_ff, n):
     """K5 reads bf16 weights as they come, as it reads f32 ones; d_ff =
     1024 leaves its 64 panels unevenly over 16 ranks; at depth 5 the
     layers' weight shares do not all fit, and later layers load into the
-    buffers earlier ones are done with; a rerun is bit-equal (the partials
-    meet in a fixed order)."""
+    buffers earlier ones are done with; at d = 768 and 1024 not one share
+    fits, and they stream through the ring; a rerun is bit-equal (the
+    partials meet in a fixed order)."""
     g = torch.Generator().manual_seed(25)
     blocks = [((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
                normal(g, dev, d, 2 * d_ff, std=d ** -0.5),

@@ -255,14 +255,25 @@ def test_fused_mapping_matches_pallas_body():
     close(port_mapping(emb, s_in, s_out, blocks), want, POLY_TOL)
 
 
-def cluster_mapping(emb, s_in, s_out, blocks, ranks, eps=1e-6):
+def stream_product(a, w):
+    """a @ w as the streamed K5 forms it: one 16-row slab of w at a time,
+    added in slab order into a float32 accumulator."""
+    out = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    for k in range(0, w.shape[0], fused_mapping.UNIT):
+        out += a[:, k:k + fused_mapping.UNIT] @ w[k:k + fused_mapping.UNIT]
+    return out
+
+
+def cluster_mapping(emb, s_in, s_out, blocks, ranks, eps=1e-6, stream=False):
     """K5's cluster split (csrc/geglu.cu, mapping_kernel) in numpy float32:
     per strip of 16 batch rows (one cluster; rows past b zero), every block
     of the network has rank r of ``ranks`` take its hidden panels
     (``fused_mapping.rank_panels``): a | gate from W_up's value and gate
     columns of those panels, h = a gelu(gate), and the split-K partial h
     W_down[those rows] of the output; the partials are summed in rank order
-    and added to the residual x."""
+    and added to the residual x. ``stream``: each product over 16-row slabs
+    of the weights, as the streamed path adds its tiles."""
+    mm = stream_product if stream else np.matmul
     from scipy.special import erf
 
     def rms(x, scale):
@@ -284,11 +295,11 @@ def cluster_mapping(emb, s_in, s_out, blocks, ranks, eps=1e-6):
                 first, end = fused_mapping.rank_panels(d_ff, ranks, rank)
                 units = slice(fused_mapping.UNIT * first,
                               fused_mapping.UNIT * end)
-                a = xn @ w_up[:, units]
-                gate = xn @ w_up[:, d_ff:][:, units]
+                a = mm(xn, w_up[:, units])
+                gate = mm(xn, w_up[:, d_ff:][:, units])
                 h = a * (0.5 * gate * (1 + erf(gate / np.sqrt(2)))).astype(
                     np.float32)
-                total = total + h @ w_down[units]
+                total = total + mm(h, w_down[units])
             x = x + total
         out[r0:r0 + rows] = rms(x, s_out)[:rows]
     return out
@@ -307,6 +318,34 @@ def test_fused_mapping_cluster_split_matches_jax(ranks, b):
                                jnp.asarray(s_out), jax_blocks(blocks),
                                dtype=jnp.float32)
     close(cluster_mapping(emb, s_in, s_out, blocks, ranks), want, F32_TOL)
+
+
+@pytest.mark.parametrize("d,d_ff,ranks", [(768, 2048, 16), (512, 1408, 12)])
+def test_fused_mapping_streamed_split_matches_jax(d, d_ff, ranks):
+    """The ViT's mapping networks (DiT-B/2's 768 / 2048, and 512 / 1408),
+    whose layer shares stream through K5's ring: the split over ranks with
+    every product formed slab by slab, against the JAX package's fused
+    mapping network."""
+    emb, s_in, s_out, blocks = mapping_case(40, 8, d, d_ff)
+    want = j_map.fused_mapping(jnp.asarray(emb), jnp.asarray(s_in),
+                               jnp.asarray(s_out), jax_blocks(blocks),
+                               dtype=jnp.float32)
+    close(cluster_mapping(emb, s_in, s_out, blocks, ranks, stream=True), want,
+          F32_TOL)
+
+
+def test_mapping_layout_keeps_the_hdit_resident_and_streams_the_vit():
+    """The HDiT's 256 / 768 network keeps both layer shares resident at 16
+    ranks (the path it ran before streaming existed); the ViT's widths
+    stream, with at least the two
+    stages the ring needs, for f32 and bf16 weights; a width whose fixed
+    room leaves no two stages is refused."""
+    assert fused_mapping.layout(256, 768, 2, 16, True) == ("resident", 2)
+    for d, d_ff in ((512, 1408), (768, 2048)):
+        for f32 in (True, False):
+            kind, stages = fused_mapping.layout(d, d_ff, 2, 16, f32)
+            assert kind == "stream" and 2 <= stages <= fused_mapping.MAX_STAGES
+    assert fused_mapping.layout(768, 2048, 2, 1, True) == ("none", 0)
 
 
 @pytest.mark.parametrize("ranks", fused_mapping.CLUSTER_SIZES)

@@ -40,16 +40,19 @@ def close(got, want, tol=TOL):
     assert np.abs(got - want).max() <= tol * max(np.abs(want).max(), 1e-30)
 
 
-@pytest.mark.parametrize("name", ["config_oxford_flowers.json",
-                                  "config_512_hdit.json",
-                                  "config_test_tiny.json"])
+CONFIGS = sorted(p.name for p in (REPO / "configs").glob("*.json"))
+# the ViT, which no shipped config uses: DiT-B/2's width and depth
+VIT = {"model": {"type": "image_transformer_v1", "input_channels": 3,
+                 "input_size": [32, 32], "patch_size": 2, "depth": 12,
+                 "width": 768, "dropout_rate": 0.0},
+       "dataset": {"type": "imagefolder"}}
+
+
+@pytest.mark.parametrize("name", CONFIGS + ["vit"])
 def test_load_config_matches_jax(name):
-    want = K.config.load_config(REPO / "configs" / name)
-    if want["model"]["type"] != "image_transformer_v2":
-        with pytest.raises(NotImplementedError):
-            KT.config.load_config(REPO / "configs" / name)
-        return
-    assert KT.config.load_config(REPO / "configs" / name) == want
+    source = VIT if name == "vit" else REPO / "configs" / name
+    want = K.config.load_config(source)
+    assert KT.config.load_config(source) == want
 
 
 def test_round_to_power_of_two_matches_jax():
@@ -58,15 +61,27 @@ def test_round_to_power_of_two_matches_jax():
                 == K.config.round_to_power_of_two(x, 0.05))
 
 
-def test_make_model_rejects_what_is_not_ported():
-    config = KT.config.load_config(REPO / "configs" /
-                                   "config_oxford_flowers_shifted_window.json")
-    with pytest.raises(NotImplementedError, match="shifted-window"):
-        KT.config.make_model(config, device="cpu")
-    config = KT.config.load_config(REPO / "configs" / "config_oxford_flowers.json")
-    config["model"]["mapping_cond_dim"] = 10
-    with pytest.raises(NotImplementedError, match="mapping conditioning"):
-        KT.config.make_model(config, device="cpu")
+@pytest.mark.parametrize("name", CONFIGS + ["vit"])
+def test_every_config_builds_the_jax_tree(name):
+    """make_model builds each shipped config (and the ViT) on the CPU with
+    the JAX model's parameter names and shapes: its params and the
+    FourierFeatures bases (buffers here)."""
+    source = VIT if name == "vit" else REPO / "configs" / name
+    config = K.config.load_config(source)
+    m = config["model"]
+    size = m["input_size"] if isinstance(m["input_size"], list) else [m["input_size"]] * 2
+    kw = {}
+    if config["dataset"]["num_classes"]:
+        kw["class_cond"] = jnp.zeros((1,), jnp.int32)
+    if m["type"] == "image_v1" and m["augment_wrapper"]:
+        kw["mapping_cond"] = jnp.zeros((1, 9))
+    shapes = jax.eval_shape(
+        K.config.make_model(config).init, jax.random.PRNGKey(0),
+        jnp.zeros((1, *size, m["input_channels"])), jnp.ones((1,)), **kw)
+    want = {k: tuple(v.shape) for k, v in KT.convert.flatten(
+        jax.tree_util.tree_map(lambda a: a, shapes["params"])).items()}
+    model = KT.config.make_model(KT.config.load_config(source), device="cpu")
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == want
 
 
 def test_analytic_flops_match_jax():

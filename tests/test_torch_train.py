@@ -234,15 +234,43 @@ def test_denoiser_loss_matches_jax(setup, loss_config):
     close(got, want)
 
 
-def test_unported_loss_paths_raise(setup):
-    _, _, _, t_config = setup
-    with pytest.raises(NotImplementedError, match="variance"):
-        KT.config.make_denoiser_wrapper(
-            {"model": {**t_config["model"], "has_variance": True}})
-    den = KT.denoiser.Denoiser(lambda x, s: x, scales=2)
-    x = torch.zeros(1, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="loss_scales"):
-        den.loss(x, x, torch.ones(1))
+@pytest.mark.parametrize("path", ["variance", "scales_2", "scales_3"])
+def test_variance_and_multiscale_loss_paths_match_jax(setup, path):
+    """DenoiserWithVariance (the factory's pick for has_variance) on a
+    closed-form model with a log variance, and Denoiser.loss with
+    loss_scales 2 and 3 (the DCT multiscale weighting) through the reduced
+    flagship, per sample."""
+    config, model, params, t_config = setup
+    rng = np.random.default_rng(9)
+    reals = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    noise = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    sigma = np.float32([0.3, 4.0])
+    if path == "variance":
+        extra = {"has_variance": True}
+        w = np.float32(0.7)
+
+        def j_inner(x, s, return_variance=False):
+            out = jnp.tanh(x) * w
+            return (out, jnp.log(s) * 0.5 - 0.2) if return_variance else out
+
+        def t_inner(x, s, return_variance=False):
+            out = torch.tanh(x) * float(w)
+            return (out, torch.log(s) * 0.5 - 0.2) if return_variance else out
+    else:
+        extra = {"loss_scales": int(path[-1])}
+        j_inner = lambda x, s, **kw: model.apply({"params": params}, x, s, **kw)
+        t_inner = port_model(setup)
+    config = {**config, "model": {**config["model"], **extra}}
+    t_config = {**t_config, "model": {**t_config["model"], **extra}}
+    want = K.config.make_denoiser_wrapper(config)(j_inner).loss(
+        jnp.asarray(reals), jnp.asarray(noise), jnp.asarray(sigma))
+    den = KT.config.make_denoiser_wrapper(t_config)(t_inner)
+    assert type(den) is (KT.denoiser.DenoiserWithVariance if path == "variance"
+                         else KT.denoiser.Denoiser)
+    with torch.no_grad():
+        got = den.loss(torch.from_numpy(reals), torch.from_numpy(noise),
+                       torch.from_numpy(sigma))
+    close(got, want)
 
 
 def test_param_group_labels_match_jax(setup):

@@ -3,8 +3,9 @@ CPU, as tests/test_cli_chain.py runs the JAX package's: ``python -m
 k_diffusion_tpu_torch.train`` on configs/config_test_tiny.json (synthetic
 data, 4 classes with dropout, augmentation at 0.12), a resumed run against
 an uninterrupted one (bit for bit), then convert_for_inference ->
-config_from_inference -> sample -> make_grid; and the flags and devices
-that raise."""
+config_from_inference -> sample -> make_grid; the checkpointing flags, the
+ViT and a U-Net with a variance head through the entry point; and the
+flags and devices that raise."""
 
 import json
 from pathlib import Path
@@ -172,9 +173,57 @@ def test_resume_inference_reset_ema_and_profile(runs, tmp_path):
     assert trace["traceEvents"]
 
 
+@pytest.mark.parametrize("flags", [["--checkpointing"],
+                                   ["--checkpointing", "--remat-levels", "0"]])
+def test_checkpointing_flags_train_as_the_plain_run(runs, tmp_path, flags):
+    """--checkpointing (every level) and --remat-levels (a digit is a level
+    index: 0 is config_test_tiny's one level) train 2 steps and save, to
+    the same weights as the run without them, bit for bit."""
+    train(tmp_path / "remat", "--end-step", "2", "--save-every", "2",
+          "--demo-every", "0", *flags)
+    want = load(runs / "full_00000002.ckpt")
+    got = load(tmp_path / "remat_00000002.ckpt")
+    for key in ("model", "model_ema"):
+        assert got[key].keys() == want[key].keys()
+        for name, value in want[key].items():
+            assert torch.equal(got[key][name], value), (key, name)
+
+
+VIT = {"type": "image_transformer_v1", "input_channels": 3,
+       "input_size": [16, 16], "patch_size": 2, "depth": 2, "width": 128,
+       "dropout_rate": 0.1}
+UNET = {"type": "image_v1", "input_channels": 3, "input_size": [16, 16],
+        "mapping_out": 64, "depths": [1, 1], "channels": [32, 64],
+        "self_attn_depths": [False, True], "has_variance": True,
+        "dropout_rate": 0.05, "augment_prob": 0.12}
+
+
+@pytest.mark.parametrize("model", [VIT, UNET], ids=["vit", "unet_variance"])
+def test_model_families_train_through_the_entry_point(tmp_path, model):
+    """The ViT (class-conditional, dropout on) and a U-Net with the
+    variance head (DenoiserWithVariance, the augment wrapper) train 2 steps
+    on synthetic data, save, and sample a demo grid."""
+    config = json.loads(Path(TINY).read_text())
+    if model["type"] == "image_v1":  # the U-Net takes no classes
+        config["dataset"]["num_classes"] = 0
+    config["model"] = {**model, "sigma_data": 0.5, "sigma_min": 1e-2,
+                       "sigma_max": 80,
+                       "sigma_sample_density": {"type": "lognormal",
+                                                "mean": -1.2, "std": 1.2}}
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(config))
+    t_train.main(["--config", str(path), "--device", "cpu", "--batch-size",
+                  "4", "--num-workers", "1", "--sample-n", "4", "--name",
+                  str(tmp_path / "run"), "--end-step", "2", "--save-every",
+                  "2", "--demo-every", "2"])
+    payload = load(tmp_path / "run_00000002.ckpt")
+    assert payload["host"]["config"]["model"]["type"] == model["type"]
+    assert np.isfinite(payload["host"]["ema_stats"]["loss"])
+    demo = t_image.from_png(tmp_path / "run_demo_00000002.png")
+    assert demo.shape == (32, 32, 3)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--checkpointing"], "queue 1, item 4"),
-    (["--remat-levels", "0"], "queue 1, item 4"),
     (["--checkpoint-format", "orbax"], "queue 1, item 7"),
     (["--evaluate-only"], "queue 1, item 6"),
     (["--wandb-project", "p"], "queue 1, item 8"),

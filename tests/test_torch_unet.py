@@ -114,11 +114,49 @@ def test_load_config_matches_jax(name):
 
 @pytest.mark.parametrize("key,value", [("cross_cond_dim", 8),
                                        ("has_variance", True)])
-def test_make_model_rejects_what_is_not_ported(key, value):
-    config = reduced(KT.config.load_config)
-    config["model"][key] = value
-    with pytest.raises(NotImplementedError, match=key):
-        KT.config.make_model(config, device="cpu")
+def test_cross_attention_and_variance_unet_match_jax(key, value):
+    """The reduced cifar10 U-Net with cross-attention on its attention
+    levels (a 4-token sequence, one row wholly padding) or with the
+    variance head: the JAX tree converts by renaming, and the denoiser's
+    output through the augment wrapper (and the log variance) match JAX."""
+    extra = {key: value}
+    if key == "cross_cond_dim":
+        extra["cross_attn_depths"] = [False, True, True]
+    config = reduced(K.config.load_config, **extra)
+    model = K.config.make_model(config)
+    rng = np.random.default_rng(20)
+    kw = {}
+    if key == "cross_cond_dim":
+        padding = np.zeros((2, 4), bool)
+        padding[1] = True
+        kw = {"cross_cond": rng.standard_normal((2, 4, 8)).astype(np.float32),
+              "cross_cond_padding": padding}
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(0), jnp.zeros((2, 16, 16, 3)), jnp.ones((2,)),
+        mapping_cond=jnp.zeros((2, 9)),
+        **{k: jnp.asarray(v) for k, v in kw.items()})["params"]
+    params = randomized(params, 21)
+    t_config = reduced(KT.config.load_config, **extra)
+    port = KT.config.make_model(t_config, device="cpu")
+    port.load_state_dict(convert.state_dict_from_jax(to_numpy(params)))
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    sigma = np.float32([0.5, 3.0])
+    inner = jax_inner(model, params, **{k: jnp.asarray(v) for k, v in kw.items()})
+    want = K.config.make_denoiser_wrapper(config)(inner)(
+        jnp.asarray(x), jnp.asarray(sigma))
+    with torch.no_grad():
+        got = KT.config.make_denoiser_wrapper(t_config)(port.eval())(
+            torch.from_numpy(x), torch.from_numpy(sigma),
+            **{k: torch.from_numpy(v) for k, v in kw.items()})
+    close(got, want)
+    if key == "has_variance":
+        want = inner(jnp.asarray(x), jnp.asarray(sigma), return_variance=True)
+        with torch.no_grad():
+            got = KT.augmentation.augment_wrapper_model_fn(port)(
+                torch.from_numpy(x), torch.from_numpy(sigma),
+                return_variance=True)
+        close(got[0], want[0])
+        close(got[1], want[1])
 
 
 def test_parameter_count_of_cifar10():
