@@ -1466,6 +1466,10 @@ def main():
     # U-Net, the multiscale loss: phase 22
     families_phase(KT, config, unet, dev, smi)
 
+    # remat policies, 8-bit AdamW and SGD, guidance, the likelihood, FID and
+    # KID in the trainer: phase 23
+    engine_phase(KT, config, dev, smi, fused_ips)
+
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
     # the unfused training steps for K11/K12, the op paths for K15 and K8)
@@ -2196,12 +2200,13 @@ CROSS_TOKENS = 77
 REMAT_REL_BOUND = 1e-3
 
 
-def one_step(KT, config, dev, batch, fill, seed, **model_kw):
+def one_step(KT, config, dev, batch, fill, seed, cond=None, **model_kw):
     """One training step at ``batch`` from seeded weights (zero-init tensors
     filled by ``fill``), reals, noise, sigmas and dropout masks (dropout as
     the config has it): the loss, its gradient and the params after the
     optimizer, with the launch counts and the peak memory of the loss and
-    its backward. ``model_kw`` go to make_model (checkpointing)."""
+    its backward. ``cond``: the model's other inputs (on the card);
+    ``model_kw`` go to make_model (checkpointing, remat_policy)."""
     from k_diffusion_tpu_torch.ops import kernels
 
     g = torch.Generator().manual_seed(seed)
@@ -2220,7 +2225,8 @@ def one_step(KT, config, dev, batch, fill, seed, **model_kw):
     sigma = KT.config.make_sample_density(config["model"])(
         (batch,), generator=gen, device=dev)
     noise = torch.randn(reals.shape, generator=gen, device=dev)
-    loss = den.loss(reals.to(dev), noise, sigma, generator=gen).mean()
+    loss = den.loss(reals.to(dev), noise, sigma, generator=gen,
+                    **(cond or {})).mean()
     grads = torch.autograd.grad(loss, opt.params)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
@@ -2495,6 +2501,399 @@ def families_phase(KT, flagship, unet, dev, smi):
     scales = {**flagship, "model": {**flagship["model"], "loss_scales": 3}}
     grad_parity(KT, scales, dev, fill_zero_init,
                 "flagship loss_scales 3 gradient parity")
+
+
+# phase 23: the rest of training and the engine
+
+# the remat policies a checkpointed HDiT takes (None: plain checkpointing)
+REMAT_POLICIES = (None, "save_attn_out", "save_attn", "save_attn_qkv_raw",
+                  "dots_saveable", "nothing_saveable", "everything_saveable")
+# the likelihood's steps on the card: bf16 rounding in the model makes the
+# error estimate noisy, and each step is 6 forwards and backwards
+LIKELIHOOD_MAX_STEPS = 200
+# the gaussian denoiser's likelihood on the card against its closed form
+# (float32): the integrator's default tolerance; at rtol = atol = 1e-6 its
+# error over 64 x 64 x 3 elements is about 1e-5
+LIKELIHOOD_REL_BOUND = 1e-4
+# InceptionV3 on the card (float32, TF32 off) against the CPU, relative L2
+INCEPTION_REL_BOUND = 1e-4
+
+
+def step_ms(KT, config, dev, batch, steps, cond=None, **model_kw):
+    """(host, device) milliseconds a training step (make_train_step: loss,
+    backward, clip, optimizer, EMA) at ``batch`` takes: host clock around a
+    synchronised run of ``steps`` steps after 3, and the card's busy time
+    a step in a profile of 3 more."""
+    model = KT.config.make_model(config, dtype=torch.bfloat16, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(
+                                     SEED + 31), **model_kw)
+    state = KT.training.init_train_state(
+        model, KT.training.make_optimizer(config, model))
+    step = KT.training.make_train_step(
+        KT.config.make_denoiser_wrapper(config),
+        KT.config.make_sample_density(config["model"]))
+    data = {"reals": torch.randn((1, *input_shape(config, batch)),
+                                 generator=torch.Generator().manual_seed(
+                                     SEED + 32)).clamp(-1, 1).to(dev)}
+    data.update({k: v[None] for k, v in (cond or {}).items()})
+    gen = torch.Generator(dev).manual_seed(SEED + 33)
+    for i in range(3 + steps):
+        if i == 3:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        step(state, data, gen, 0.999)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) / steps * 1e3
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(state, data, gen, 0.999)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 3e3
+    del model, state
+    torch.cuda.empty_cache()
+    return ms, busy
+
+
+def policy_check(KT, config, dev, name, batch, attention, cond=None,
+                 policies=REMAT_POLICIES):
+    """Phase 23 (a): one step at ``batch`` with the config's dropout,
+    without checkpointing and checkpointed under each remat policy, from
+    the same weights, data and generator seed: bit-equal to the plain step
+    (loss, gradient, params after the optimizer); launch counts, peak
+    memory, and the time of a step (make_train_step: host clock over 10
+    steps, card busy time over 3). The
+    attention forward kernels ``attention`` launch once a layer under a
+    ``save_*`` policy (the recompute reads the kept output), twice under
+    plain checkpointing."""
+    plain = one_step(KT, config, dev, batch, fill_zero_init, SEED + 29, cond)
+    plain_ms = step_ms(KT, config, dev, batch, 10, cond)
+    print(f"{name} policies: plain step at batch {batch}, dropout "
+          f"{config['model']['dropout_rate']}: peak memory "
+          f"{plain[3] / 2**30:.3f} GiB, {plain_ms[0]:.3f} ms a step, card "
+          f"busy {plain_ms[1]:.3f} ms of it; launches {plain[4]}",
+          flush=True)
+    for policy in policies:
+        kw = {"checkpointing": True, "remat_policy": policy}
+        got = one_step(KT, config, dev, batch, fill_zero_init, SEED + 29,
+                       cond, **kw)
+        equal = all(torch.equal(a, b) for a, b in zip(got[:3], plain[:3]))
+        if not equal:
+            rels = [((a - b).norm() / b.norm()).item()
+                    for a, b in zip(got[1:3], plain[1:3])]
+            raise AssertionError(f"{name} under {policy}: not bit-equal to "
+                                 f"the plain step (relative L2 gradient, "
+                                 f"params {rels})")
+        saves = policy in ("save_attn_out", "save_attn", "save_attn_qkv_raw",
+                           "everything_saveable")
+        for k in attention:
+            want = plain[4][k] * (1 if saves else 2)
+            if got[4][k] != want:
+                raise AssertionError(f"{name} under {policy}: {got[4][k]} "
+                                     f"{k} launches a step, not {want}")
+        ms = step_ms(KT, config, dev, batch, 10, cond, **kw)
+        print(f"{name} under {policy or 'plain checkpointing'}: bit-equal to "
+              f"the plain step; peak memory {got[3] / 2**30:.3f} GiB against "
+              f"{plain[3] / 2**30:.3f}; {ms[0]:.3f} ms a step against "
+              f"{plain_ms[0]:.3f}, card busy {ms[1]:.3f} against "
+              f"{plain_ms[1]:.3f}; launches a step {got[4]}", flush=True)
+
+
+def optimizer_phase(KT, config, dev, smi, fused_ips):
+    """Phase 23 (b): 8-bit AdamW and SGD (momentum 0.9, nesterov) on the
+    flagship: the optimizer state's bytes a parameter; 3 + 20 training
+    steps at batch 32 each with the checks of phase 8; then the time of a
+    step with AdamW, 8-bit AdamW, SGD and AdamW again, in turns (the host
+    clock drifts over a run: host-bound steps compare only side by
+    side)."""
+    from k_diffusion_tpu_torch.models import flops
+    hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
+    configs = {}
+    for kind, extra in (("adamw", {}), ("adam8bit", {}),
+                        ("sgd", {"momentum": 0.9, "nesterov": True})):
+        cfg = json.loads(json.dumps(config))
+        cfg["optimizer"].update({"type": kind, **extra})
+        configs[kind] = cfg
+        model = KT.config.make_model(cfg, dtype=torch.bfloat16, device=dev)
+        opt = KT.training.make_optimizer(cfg, model)
+        for p in model.parameters():
+            p.grad = torch.ones_like(p)
+        opt.step(0)
+        n = sum(p.numel() for p in model.parameters())
+        size = sum(t.numel() * t.element_size()
+                   for st in opt.optimizer.state.values()
+                   for key, t in st.items() if key != "step")
+        del model, opt
+        torch.cuda.empty_cache()
+        print(f"{kind}: optimizer state {size} bytes for {n} parameters, "
+              f"{size / n:.4f} bytes a parameter", flush=True)
+        if kind != "adamw":
+            _, ips = train(KT, cfg, dev, smi, TRAIN_BATCH,
+                           hdit_train_layout(cfg), hdit_flops,
+                           f"{kind} training")
+            print(f"{kind} training: {ips:.3f} imgs/s (AdamW's phase 8: "
+                  f"{fused_ips:.3f}) on {smi}", flush=True)
+    turns = []
+    for kind in ("adamw", "adam8bit", "sgd", "adamw"):
+        host, busy = step_ms(KT, configs[kind], dev, TRAIN_BATCH, 10)
+        turns.append(f"{kind} {host:.3f} ms ({TRAIN_BATCH / host * 1e3:.1f} "
+                     f"imgs/s), card busy {busy:.3f} ms")
+    print(f"optimizers in turns, a step at batch {TRAIN_BATCH}: "
+          f"{'; '.join(turns)} on {smi}", flush=True)
+
+
+def cfg_sampling(KT, dev, smi):
+    """Phase 23 (c): classifier-free guidance at scale 3 on
+    config_mnist_transformer.json, batch 8: one guided call against its
+    two halves run apart, then 50-step DPM++(2M) with its launch counts
+    (each model call on the doubled batch: the mnist layout once)."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    mnist = KT.config.load_config(MNIST_TRANSFORMER)
+    g = torch.Generator().manual_seed(SEED + 41)
+    model = KT.config.make_model(mnist, dtype=torch.bfloat16, device="cpu",
+                                 generator=g)
+    fill_zero_init(model, g)
+    model.to(dev).eval()
+    m, n_classes = mnist["model"], mnist["dataset"]["num_classes"]
+    den = KT.config.make_denoiser_wrapper(mnist)(model)
+    guided = KT.guidance.make_cfg_model_fn(den, 3.0, n_classes)
+    classes = torch.randint(0, n_classes, (SAMPLE_BATCH,), generator=g).to(dev)
+    x = (torch.randn(input_shape(mnist, SAMPLE_BATCH), generator=g)
+         * m["sigma_max"]).to(dev)
+    sigmas = KT.sampling.get_sigmas_karras(STEPS, m["sigma_min"],
+                                           m["sigma_max"], rho=7.0, device=dev)
+    with torch.no_grad():
+        s = torch.full((SAMPLE_BATCH,), 5.0, device=dev)
+        out = guided(x / 16, s, class_cond=classes)
+        cond = den(x / 16, s, class_cond=classes)
+        uncond = den(x / 16, s, class_cond=torch.full_like(classes, n_classes))
+        want = uncond + (cond - uncond) * 3.0
+        rel = ((out - want).norm() / want.norm()).item()
+        if not rel <= KERNEL_REL_BOUND:
+            raise AssertionError(f"cfg: guided call against its halves: "
+                                 f"relative L2 {rel:.3e}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        samples = KT.sampling.sample_dpmpp_2m(
+            guided, x, sigmas, extra_args={"class_cond": classes})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        counts = kernels.launch_counts()
+    depth = sum(m["depths"])
+    expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+        "fused_qkv": STEPS * depth, "flash": STEPS * depth,
+        "fused_ffn": STEPS * depth, "fused_mapping": STEPS}
+    if counts != expected or not torch.isfinite(samples).all():
+        raise AssertionError(f"cfg sampling: launch counts {counts} != "
+                             f"{expected}, or the samples are not finite")
+    print(f"cfg: mnist transformer, scale 3, batch {SAMPLE_BATCH} (the model "
+          f"on {2 * SAMPLE_BATCH}): one guided call against its halves run "
+          f"apart, relative L2 {rel:.3e}; {STEPS}-step DPM++(2M) {secs:.3f} "
+          f"s, {SAMPLE_BATCH / secs:.3f} samples/s on {smi}; launches "
+          f"{counts}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def gaussian_denoiser(x, sigma):
+    """The exact posterior mean for N(0, 1) data."""
+    return x / (1 + sigma ** 2)[:, None, None, None]
+
+
+def likelihood_phase(KT, config, dev, smi):
+    """Phase 23 (d): the likelihood. The closed-form gaussian denoiser on
+    the card at 64 x 64 x 3, batch 2, against its exact value (the flow is
+    linear: log N(z; 0, sigma_max^2) + n / 2 log((1 + sigma_max^2) / (1 +
+    sigma_min^2)) at z = x sqrt((1 + sigma_max^2) / (1 + sigma_min^2)));
+    then config_test_tiny (f32 on the CPU, bf16 on the card) and the
+    flagship (bf16 on the card) at batch 2 from seeded weights, eval mode:
+    finite, the divergence's backward kernels launched, nfe and time."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    g = torch.Generator().manual_seed(SEED + 51)
+    x = torch.randn((2, 64, 64, 3), generator=g).to(dev)
+    lo, hi = 1 + 0.01 ** 2, 1 + 80.0 ** 2
+    ll, info = KT.log_likelihood(gaussian_denoiser, x, 0.01, 80.0,
+                                 probe=torch.ones_like(x), atol=1e-6,
+                                 rtol=1e-6)
+    z = x.double().reshape(2, -1) * (hi / lo) ** 0.5
+    want = ((-0.5 * z ** 2 / 80.0 ** 2 - 0.5 * math.log(2 * math.pi * 6400))
+            .sum(1) + z.shape[1] / 2 * math.log(hi / lo))
+    rel = ((ll.double() - want).abs().max() / want.abs().max()).item()
+    if not rel <= LIKELIHOOD_REL_BOUND:
+        raise AssertionError(f"gaussian likelihood: relative error {rel:.3e}"
+                             f", nfe {info['nfe']}")
+    print(f"likelihood: gaussian denoiser, 64 x 64 x 3, batch 2, on the card: "
+          f"ll {ll.tolist()} against the closed form {want.tolist()}, "
+          f"relative {rel:.3e} (bound {LIKELIHOOD_REL_BOUND}); nfe "
+          f"{info['nfe']}", flush=True)
+    tiny = KT.config.load_config(TEST_TINY)
+    for name, cfg, devices in (("test_tiny", tiny, ("cpu", dev)),
+                               ("flagship", config, (dev,))):
+        m = cfg["model"]
+        g = torch.Generator().manual_seed(SEED + 53)
+        model = KT.config.make_model(cfg, device="cpu", generator=g)
+        fill_zero_init(model, g)
+        x = torch.randn(input_shape(cfg, 2), generator=g).clamp(-1, 1)
+        probe = torch.randint(0, 2, x.shape, generator=g).float() * 2 - 1
+        extra = ({"class_cond": torch.zeros(2, dtype=torch.long)}
+                 if cfg["dataset"]["num_classes"] else {})
+        for where in devices:
+            run = (KT.config.make_model(cfg, dtype=torch.bfloat16,
+                                        device=where)
+                   if where != "cpu" else
+                   KT.config.make_model(cfg, device="cpu"))
+            run.load_state_dict(model.state_dict())
+            den = KT.config.make_denoiser_wrapper(cfg)(run.eval())
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            ll, info = KT.log_likelihood(
+                den, x.to(where), m["sigma_min"], m["sigma_max"],
+                extra_args={k: v.to(where) for k, v in extra.items()},
+                probe=probe.to(where), max_steps=LIKELIHOOD_MAX_STEPS)
+            secs = time.perf_counter() - start
+            counts = kernels.launch_counts()
+            if not torch.isfinite(ll).all():
+                raise AssertionError(f"{name} likelihood: not finite: {ll}")
+            if where != "cpu":
+                missing = [k for k in ("fused_qkv_bwd", "fused_ffn_bwd")
+                           if not counts[k]]
+                if name == "flagship":
+                    missing += [k for k in ("na2d_bwd", "global_packed_bwd")
+                                if not counts[k]]
+                if missing:
+                    raise AssertionError(f"{name} likelihood: no launch of "
+                                         f"{missing}: {counts}")
+            print(f"likelihood: {name}, batch 2, "
+                  f"{'f32 on the CPU' if where == 'cpu' else 'bf16 on the card'}"
+                  f": ll {ll.tolist()}, nfe {info['nfe']}, steps "
+                  f"{info['steps']} ({info['naccept']} accepted; at most "
+                  f"{LIKELIHOOD_MAX_STEPS}), {secs:.3f} s; launches {counts}",
+                  flush=True)
+            del run
+        torch.cuda.empty_cache()
+
+
+def write_random_inception_npz(KT, path, seed):
+    """Seeded random InceptionV3W weights in the layout of
+    scripts/convert_inception_weights.py's .npz (architecture-ordered OIHW
+    kernels, each followed by its norm's parameters): He-scaled kernels
+    and identity norms, so that the features keep the input's variation
+    through 94 ReLU layers."""
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for i, (cout, cin, kh, kw) in enumerate(
+            KT.models.inception_v3.conv_shape_order()):
+        arrays[f"layers.{i}.weight"] = rng.normal(
+            0.0, (2.0 / (kh * kw * cin)) ** 0.5,
+            (cout, cin, kh, kw)).astype(np.float32)
+        arrays[f"layers.{i}.scale"] = np.ones(cout, np.float32)
+        arrays[f"layers.{i}.bias"] = np.zeros(cout, np.float32)
+        arrays[f"layers.{i}.running_mean"] = np.zeros(cout, np.float32)
+        arrays[f"layers.{i}.running_var"] = np.ones(cout, np.float32)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def inception_phase(KT, dev, smi, cache):
+    """Phase 23 (e): InceptionV3W at full width (299 x 299, float32, TF32
+    off), seeded random weights from the cache's .npz: the extractor's
+    features at batch 2 on the card against the CPU's, then images/s at
+    batch 2 and 32 (CUDA events, 5 calls after one)."""
+    path = Path(cache) / "k-diffusion" / "inception-2015-12-05.pt"
+    card = KT.evaluation.make_extractor("inception", path=path, device=dev)
+    cpu = KT.evaluation.make_extractor("inception", path=path, device="cpu")
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(
+        SEED + 61)) * 2 - 1
+    got = card(x.to(dev)).cpu()
+    want = cpu(x)
+    rel = ((got - want).norm() / want.norm()).item()
+    if got.shape != (2, 2048) or not rel <= INCEPTION_REL_BOUND:
+        raise AssertionError(f"inception: {tuple(got.shape)}, relative L2 "
+                             f"{rel:.3e} against the CPU")
+    rates = []
+    for batch in (2, 32):
+        images = torch.rand((batch, 299, 299, 3), device=dev) * 2 - 1
+        ms = device_ms(lambda: card(images), 5)
+        rates.append(f"batch {batch}: {ms:.3f} ms, {batch / ms * 1e3:.1f} "
+                     f"images/s")
+    print(f"inception: features at batch 2 on the card against the CPU, "
+          f"relative L2 {rel:.3e} (bound {INCEPTION_REL_BOUND}); "
+          f"{'; '.join(rates)} (299 x 299, float32, TF32 off) on {smi}",
+          flush=True)
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def evaluation_entry(KT, config, cache, smi):
+    """Phase 23 (f): the training entry point as a subprocess on the
+    flagship (synthetic data in place of its image folder) for 6 steps at
+    batch 32 with --evaluate-every 3 --evaluate-n 64 and the cache's random
+    Inception weights: two rows of {name}_metrics.csv, finite FID and
+    KID."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = json.loads(json.dumps(config))
+        cfg["dataset"] = {"type": "synthetic", "num_classes": 0,
+                          "cond_dropout_rate": 0.0}
+        path = Path(tmp) / "config.json"
+        path.write_text(json.dumps(cfg))
+        name = Path(tmp) / "run"
+        env = {**os.environ, "XDG_CACHE_HOME": str(cache)}
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "k_diffusion_tpu_torch.train", "--config",
+             str(path), "--batch-size", "32", "--end-step", "6",
+             "--evaluate-every", "3", "--evaluate-n", "64", "--demo-every",
+             "0", "--save-every", "0", "--num-workers", "4", "--name",
+             str(name)], cwd=ROOT, capture_output=True, text=True,
+            timeout=600, env=env)
+        secs = time.perf_counter() - start
+        if proc.returncode:
+            raise AssertionError(f"train --evaluate-every failed:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-4000:]}")
+        lines = Path(f"{name}_metrics.csv").read_text().splitlines()
+        rows = [[float(v) for v in line.split(",")] for line in lines[1:]]
+        if (lines[0] != "step,time,loss,fid,kid" or [r[0] for r in rows]
+                != [3, 6] or not all(math.isfinite(v) for r in rows
+                                     for v in r[3:])):
+            raise AssertionError(f"metrics csv: {lines}")
+    evals = [l for l in proc.stdout.splitlines() if l.startswith("FID")]
+    print(f"train --evaluate-every 3 --evaluate-n 64 (flagship, batch 32, 6 "
+          f"steps, random Inception weights): {secs:.1f} s; {evals}; "
+          f"metrics csv {lines}", flush=True)
+
+
+def engine_phase(KT, config, dev, smi, fused_ips):
+    """Phase 23: remat policies, 8-bit AdamW and SGD, classifier-free
+    guidance, the likelihood, InceptionV3 and the trainer's evaluation."""
+    print(f"phase 23: flagship remat policies at batch {TRAIN_BATCH}",
+          flush=True)
+    policy_check(KT, config, dev, "flagship", TRAIN_BATCH,
+                 ("na2d", "global_packed"))
+    with train_fusion("0"):
+        policy_check(KT, config, dev, "flagship unfused", TRAIN_BATCH,
+                     ("na2d_heads", "global_packed"),
+                     policies=(None, "save_attn_out"))
+    mnist = KT.config.load_config(MNIST_TRANSFORMER)
+    classes = torch.randint(0, mnist["dataset"]["num_classes"],
+                            (SAMPLE_BATCH,), generator=torch.Generator()
+                            .manual_seed(SEED + 43)).to(dev)
+    policy_check(KT, mnist, dev, "mnist transformer", SAMPLE_BATCH, ("flash",),
+                 cond={"class_cond": classes}, policies=(None, "save_attn"))
+    optimizer_phase(KT, config, dev, smi, fused_ips)
+    cfg_sampling(KT, dev, smi)
+    likelihood_phase(KT, config, dev, smi)
+    with tempfile.TemporaryDirectory() as cache:
+        write_random_inception_npz(
+            KT, Path(cache) / "k-diffusion" / "inception-2015-12-05.npz",
+            SEED + 60)
+        inception_phase(KT, dev, smi, cache)
+        evaluation_entry(KT, config, cache, smi)
 
 
 def forward_flops(KT, config, name="unet", **cond):

@@ -26,7 +26,12 @@ attention-free levels), the ViT (``image_transformer_v1``) and the U-Net
   ``training.make_optimizer`` -> ``training.init_train_state`` ->
   ``training.make_train_step`` with ``config.make_sample_density``,
   ``make_lr_schedule`` and ``make_ema_sched``; ``checkpoint.save_checkpoint``
-  and ``load_checkpoint`` save and resume it.
+  and ``load_checkpoint`` save and resume it; the trainer scores FID and
+  KID (``evaluation``, ``models.inception_v3``) where the Inception
+  weights are in the local cache;
+- the engine: classifier-free and gradient guidance (``guidance``),
+  wrappers for other models' schedules (``external``), and the exact
+  log-likelihood of the probability-flow ODE (``log_likelihood``, ``ode``).
 Models, schedules and densities go to the card unless the caller names a
 device. The HDiT's attention prologue, neighborhood and global attention,
 feed-forward block and mapping network (also the ViT's), the backwards of
@@ -38,9 +43,12 @@ compiles nothing.
 """
 
 from . import (augmentation, checkpoint, condcache, config, convert, data,
-               denoiser, gns, layers, models, ops, sampling, training, utils)
+               denoiser, evaluation, external, gns, guidance, layers, models,
+               ode, ops, optim8bit, sampling, training, utils)
 from .denoiser import Denoiser
+from .ode import log_likelihood
 
 __all__ = ["augmentation", "checkpoint", "condcache", "config", "convert",
-           "data", "denoiser", "gns", "layers", "models", "ops", "sampling",
-           "training", "utils", "Denoiser"]
+           "data", "denoiser", "evaluation", "external", "gns", "guidance",
+           "layers", "models", "ode", "ops", "optim8bit", "sampling",
+           "training", "utils", "Denoiser", "log_likelihood"]

@@ -2,7 +2,8 @@
 k_diffusion_tpu/checkpoint.py).
 
 A training checkpoint is one ``torch.save`` file: the model, its EMA copy,
-``GroupedAdamW``'s state (the AdamW moments and their step counts), the
+``GroupedOptimizer``'s state (AdamW's or 8-bit AdamW's moments and their
+step counts, or SGD's momentum), the
 step and the trainer's host dict (epoch, step, ``batch_in_epoch``,
 elapsed seconds, the loss EMA, the EMA schedule's state, the GNS state and
 the config). Files are named as the JAX package names them,

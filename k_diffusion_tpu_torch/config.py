@@ -8,8 +8,8 @@ The port builds every model family of the JAX package: the HDiT
 attention-free levels, class and mapping conditioning, gradient
 checkpointing over chosen levels), the ViT (``image_transformer_v1``) and
 the U-Net (``image_v1``, with cross-attention and the variance head).
-``remat_policy`` (the JAX package's named-residual checkpoint policies)
-raises ``NotImplementedError`` until it is ported.
+The HDiT takes the JAX package's ``remat_policy`` names
+(``layers.REMAT_POLICIES``).
 
 ``make_model``, ``make_sample_density``'s densities and
 ``sampling.get_sigmas_karras`` put their tensors on the card unless the
@@ -156,7 +156,8 @@ def make_model(config, dtype=None, device=None, generator=None,
     sample. ``checkpointing`` recomputes the transformer layers in the
     backward (the HDiT's in the levels ``remat_levels`` names, by index or
     stack name, default all; every block of the ViT); the U-Net ignores
-    it, as the JAX package's does. ``remat_policy`` is not ported."""
+    it, as the JAX package's does. ``remat_policy`` (the HDiT's) names
+    what its checkpointed layers keep (``layers.REMAT_POLICIES``)."""
     device = utils.default_device(device)
     dtype = utils.compute_dtype(device, dtype)
     num_classes = config["dataset"]["num_classes"]

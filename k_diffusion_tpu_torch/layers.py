@@ -3,6 +3,7 @@ initializers and dropout as the models use them, gradient checkpointing
 that replays the dropout masks, the Fourier embedding, and the fixed
 low-pass down- and upsampling of the U-Net."""
 
+import contextlib
 import functools
 import math
 
@@ -10,6 +11,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
+
+from .ops.kernels import residuals
 
 
 def init_tensor(shape, init, generator=None, device=None):
@@ -40,29 +45,95 @@ def dropout(x, rate, generator=None, shape=None):
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def remat(fn, generator, *args):
+# remat_policy names, as the JAX HDiT takes them: its named-residual
+# policies (``save_*``) and ``jax.checkpoint_policies``' policy names, each
+# as (attention residuals kept: None, "out" or "qkv"; matmul outputs saved:
+# None, "all" or "no_batch"). "save_attn_qkv_raw" keeps what
+# "save_attn_out" keeps: the JAX package names no tensor ``qkv_raw``.
+REMAT_POLICIES = {
+    "save_attn_out": ("out", None),
+    "save_attn": ("qkv", None),
+    "save_attn_qkv_raw": ("out", None),
+    "nothing_saveable": (None, None),
+    "dots_saveable": (None, "all"),
+    "checkpoint_dots": (None, "all"),
+    "dots_with_no_batch_dims_saveable": (None, "no_batch"),
+    "checkpoint_dots_with_no_batch_dims": (None, "no_batch"),
+}
+# "everything_saveable" keeps every tensor: the layer runs without remat
+NO_REMAT = "everything_saveable"
+# jax.checkpoint_policies' factories: a name of one is not a policy
+_POLICY_FACTORIES = {"save_only_these_names", "save_any_names_but_these",
+                     "save_anything_except_these_names",
+                     "save_from_both_policies", "offload_dot_with_no_batch_dims",
+                     "save_and_offload_only_these_names"}
+
+
+def check_remat_policy(name):
+    """Raises ValueError unless ``name`` is None, ``NO_REMAT`` or a key of
+    ``REMAT_POLICIES``."""
+    if name is None or name == NO_REMAT or name in REMAT_POLICIES:
+        return
+    kind = ("a policy factory in jax.checkpoint_policies, not a policy"
+            if name in _POLICY_FACTORIES else "not a remat policy")
+    raise ValueError(f"remat_policy {name!r} is {kind}; the HDiT takes "
+                     f"{sorted([*REMAT_POLICIES, NO_REMAT])}")
+
+
+_DOTS = {"all": ("mm", "addmm", "bmm", "baddbmm"), "no_batch": ("mm", "addmm")}
+
+
+def _dots_context(which):
+    """A selective checkpoint that saves the outputs of aten's matmuls
+    (``which``: "all", or "no_batch" for the unbatched ones) and recomputes
+    the rest, as ``jax.checkpoint_policies.dots_saveable`` and
+    ``dots_with_no_batch_dims_saveable`` do. The kernels, bound outside the
+    dispatcher, are recomputed."""
+    saved = {getattr(torch.ops.aten, name).default for name in _DOTS[which]}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def remat(fn, generator, *args, policy=None):
     """``fn(*args, generator)`` under ``torch.utils.checkpoint``, which
     recomputes it in the backward. The checkpoint does not replay an
     explicit generator, so the recompute would draw new dropout masks: the
     generator's state at entry is kept, and the recompute runs from it and
     then puts back the state it found, so that the masks, and every later
     draw, are those of a run without checkpointing (as JAX's ``nn.remat``
-    replays the same key)."""
+    replays the same key).
+
+    ``policy``, a key of ``REMAT_POLICIES`` (default: recompute all): a
+    ``save_*`` policy keeps the attention kernels' outputs and logsumexp
+    (and q, k, v under "save_attn") in a ``residuals.Stash``, so that the
+    recompute launches no attention forward; a dots policy saves matmul
+    outputs through torch's selective checkpointing."""
+    keep, dots = REMAT_POLICIES[policy] if policy else (None, None)
+    stash = residuals.Stash(keep_qkv=keep == "qkv") if keep else None
     entry = None if generator is None else generator.get_state()
     calls = []
 
     def run(*args):
-        if calls and generator is not None:  # the recompute
-            now = generator.get_state()
-            generator.set_state(entry)
-            try:
-                return fn(*args, generator)
-            finally:
-                generator.set_state(now)
+        recompute = bool(calls)
         calls.append(1)
-        return fn(*args, generator)
+        with (residuals.recording(stash, recompute) if stash
+              else contextlib.nullcontext()):
+            if recompute and generator is not None:
+                now = generator.get_state()
+                generator.set_state(entry)
+                try:
+                    return fn(*args, generator)
+                finally:
+                    generator.set_state(now)
+            return fn(*args, generator)
 
-    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+    kw = {"context_fn": _dots_context(dots)} if dots else {}
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             **kw)
 
 
 class FourierFeatures(nn.Module):

@@ -36,7 +36,8 @@ as the JAX package runs it on XLA; every other layer of a stack shifted)
 or none (the layer is its feed-forward block). With ``checkpointing``
 each selected ``TransformerLayer`` runs under
 ``torch.utils.checkpoint``; its recompute replays the dropout masks the
-forward drew (``layers.remat``).
+forward drew (``layers.remat``) and, under a ``save_*`` ``remat_policy``,
+reads the attention kernels' kept outputs instead of launching them.
 """
 
 import functools
@@ -45,7 +46,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..layers import FourierFeatures, dropout, init_tensor, remat
+from ..layers import (NO_REMAT, FourierFeatures, check_remat_policy, dropout,
+                      init_tensor, remat)
 from ..ops import norms, rope
 from ..ops.attention import shifted_window_attention
 from ..ops.geglu import linear_geglu
@@ -425,8 +427,11 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     with ``mapping_cond_dim`` takes ``mapping_cond``. ``generator`` draws
     the dropout masks under ``model.train()``. ``checkpointing`` runs the
     layers of the stacks that ``remat_levels`` selects (default: all)
-    under ``torch.utils.checkpoint`` in training; ``remat_policy`` is not
-    ported and raises. Parameters are drawn from the
+    under ``torch.utils.checkpoint`` in training, keeping what
+    ``remat_policy`` names (``layers.REMAT_POLICIES``: the JAX model's
+    ``save_*`` policies keep the attention kernels' outputs, so that the
+    recompute launches no attention forward; "everything_saveable" runs
+    no checkpoint). Parameters are drawn from the
     constructor's ``generator``; the FourierFeatures bases too (the JAX
     package draws them from a fixed threefry key, which ``convert.py``
     carries across). Parameters go to ``device``, by default the card
@@ -438,15 +443,13 @@ class ImageTransformerDenoiserModelV2(nn.Module):
                  remat_policy=None, remat_levels=None, dtype=None,
                  device=None, generator=None):
         super().__init__()
-        if remat_policy is not None:
-            raise NotImplementedError(
-                "remat_policy is not ported yet: ROADMAP.md queue 1, item 4 "
-                "(remat_policy)")
+        check_remat_policy(remat_policy)
         device = default_device(device)
         dtype = compute_dtype(device, dtype)
         self.levels, self.dtype = levels, dtype
         self.num_classes, self.mapping_cond_dim = num_classes, mapping_cond_dim
-        self.checkpointing = checkpointing
+        self.checkpointing = checkpointing and remat_policy != NO_REMAT
+        self.remat_policy = remat_policy
         self.remat_levels = None if remat_levels is None else tuple(remat_levels)
         mw = mapping.width
         self.patch_in = TokenMerge(in_channels, levels[0].width, patch_size,
@@ -503,7 +506,7 @@ class ImageTransformerDenoiserModelV2(nn.Module):
             layer, sc = getattr(self, name), scales.get(name, (None, None))
             if checkpointed:
                 x = remat(functools.partial(layer, scales=sc), generator, x,
-                          pos, cond)
+                          pos, cond, policy=self.remat_policy)
             else:
                 x = layer(x, pos, cond, generator, sc)
         return x

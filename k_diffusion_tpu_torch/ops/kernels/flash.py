@@ -6,7 +6,9 @@ autograd Function: the forward K13 (which also writes the per-head
 logsumexp when a backward follows), the wgmma kernel of ``csrc/attn_fwd.cuh``
 that K3 shares, and the backward K14, the wgmma kernels of
 ``csrc/attn_bwd.cuh`` that K9 shares (a dq kernel, which also computes
-delta = rowsum(out * dout), and a dk/dv kernel, counted as one launch).
+delta = rowsum(out * dout), and a dk/dv kernel, counted as one launch);
+the Function saves q, k, v, the output and the logsumexp, as the JAX
+custom_vjp does, and under a remat policy keeps them (``residuals``).
 With autograd off, as in sampling, the wrapper calls K13 directly. CPU
 tensors go to ``reference``, the plain version, which autograd
 differentiates; ``reference_lse`` is the plain version of K13's logsumexp.
@@ -17,11 +19,12 @@ the head axis must be packed at the head dim and the head dim contiguous.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from ..attention import global_attention, global_logsumexp
-from . import _build
+from . import _build, residuals
 
 launches = 0      # K13 launches since the last reset
 bwd_launches = 0  # K14 launches (its two kernels count as one)
@@ -131,29 +134,16 @@ def flash_backward(q, k, v, out, lse, dout, scale=1.0):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K13 forward (with lse), K14 backward. Saves q, k, v, the output and
-    the logsumexp, as the JAX custom_vjp does."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_forward(q, k, v, scale, save_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_backward(q, k, v, out, lse, dout, ctx.scale), None)
-
-
 def flash_attention(q, k, v, scale=1.0):
     """Exact global attention: q, k, v (b, s, heads, e) -> (b, s, heads, e);
     differentiable. The kernels take bfloat16, e 32 or 64 and any s >= 1."""
     if q.device.type == "cpu":
-        return reference(q, k, v, scale)
+        return residuals.plain(
+            q, k, v, functools.partial(reference, scale=scale),
+            functools.partial(reference_backward, scale=scale))
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return flash_forward(q, k, v, scale)[0]  # no autograd node to build
-    return _FlashAttention.apply(q, k, v, scale)
+    return residuals.attention(
+        q, k, v, functools.partial(flash_forward, scale=scale, save_lse=True),
+        functools.partial(flash_backward, scale=scale))

@@ -5,17 +5,20 @@ CUDA tensors go to the hand-written kernels in ``csrc/global_packed.cu``
 through an autograd Function: the forward K3 (which also writes the per-head
 logsumexp when a backward follows) and the backward K9, the wgmma kernels of
 ``csrc/attn_fwd.cuh`` and ``csrc/attn_bwd.cuh`` that K13 and K14 share (a
-packed map is their strided layout at head dim 64). CPU tensors go to
+packed map is their strided layout at head dim 64); the Function saves
+q, k, v, the output and the logsumexp, and under a remat policy keeps them
+(``residuals``). CPU tensors go to
 ``reference``, the plain version, which autograd differentiates;
 ``reference_lse`` is the plain version of K3's logsumexp.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from ..attention import global_attention, global_logsumexp
-from . import _build
+from . import _build, residuals
 
 launches = 0      # K3 launches since the last reset
 bwd_launches = 0  # K9 launches (its two kernels count as one)
@@ -120,31 +123,15 @@ def packed_backward(q, k, v, out, lse, dout, n_heads, scale=1.0):
     return dq, dk, dv
 
 
-class _GlobalAttention(torch.autograd.Function):
-    """K3 forward (with lse), K9 backward. Saves q, k, v, the output and
-    the logsumexp, as the JAX custom_vjp does."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, n_heads, scale):
-        train = any(ctx.needs_input_grad[:3])
-        out, lse = packed_forward(q, k, v, n_heads, scale, save_lse=train)
-        if train:
-            ctx.save_for_backward(q, k, v, out, lse)
-        ctx.static = (n_heads, scale)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = packed_backward(q, k, v, out, lse, dout, *ctx.static)
-        return dq, dk, dv, None, None
-
-
 def packed_global_attention(q, k, v, n_heads, scale=1.0):
     """q, k, v (b, s, heads * e) -> (b, s, heads * e); differentiable. The
     kernels take bfloat16, e == 64 and s a multiple of 16 up to MAX_SEQ."""
+    static = {"n_heads": n_heads, "scale": scale}
     if q.device.type == "cpu":
-        return reference(q, k, v, n_heads, scale)
+        return residuals.plain(q, k, v, functools.partial(reference, **static),
+                               functools.partial(reference_backward, **static))
     if not torch.is_grad_enabled():  # sampling: no autograd node to build
         return packed_forward(q, k, v, n_heads, scale)[0]
-    return _GlobalAttention.apply(q, k, v, n_heads, scale)
+    return residuals.attention(
+        q, k, v, functools.partial(packed_forward, **static, save_lse=True),
+        functools.partial(packed_backward, **static))

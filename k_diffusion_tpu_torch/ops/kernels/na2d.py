@@ -4,8 +4,11 @@ k_diffusion_tpu/ops/pallas/na2d.py: ``na2d_packed``, ``na2d``,
 
 Each query attends to exactly kernel_size x kernel_size keys, its window
 clamped inward at the edges (NATTEN's contract). CUDA tensors go to the
-hand-written kernels through autograd Functions; CPU tensors go to the
-plain versions, which autograd differentiates.
+hand-written kernels through autograd Functions (``na2d_packed`` and
+``na2d`` through ``residuals``' node, which saves q, k, v, the output and
+the logsumexp, as the JAX custom_vjp does, and under a remat policy keeps
+them); CPU tensors go to the plain versions, which autograd
+differentiates.
 
 - ``na2d_packed`` on channel-packed (b, h, w, heads * 64) maps: the
   forward K2 (``csrc/na_fwd.cuh``, launched from ``csrc/na2d.cu``: the
@@ -35,11 +38,12 @@ plain versions, which autograd differentiates.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from ..attention import neighborhood_attention
-from . import _build
+from . import _build, residuals
 
 launches = 0            # K2 launches since the last reset
 bwd_launches = 0        # K7 launches (its two kernels count as one)
@@ -310,28 +314,6 @@ def packed_backward(q, k, v, out, lse, dout, n_heads, kernel_size,
     return dq, dk, dv
 
 
-class _NA2D(torch.autograd.Function):
-    """K2 forward (with lse), K7 backward. Saves q, k, v, the output
-    and the logsumexp, as the JAX custom_vjp does (it saves k and v as halo
-    slabs)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, n_heads, kernel_size, scale):
-        train = any(ctx.needs_input_grad[:3])
-        out, lse = packed_forward(q, k, v, n_heads, kernel_size, scale,
-                                  save_lse=train)
-        if train:
-            ctx.save_for_backward(q, k, v, out, lse)
-        ctx.static = (n_heads, kernel_size, scale)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = packed_backward(q, k, v, out, lse, dout, *ctx.static)
-        return dq, dk, dv, None, None, None
-
-
 def heads_forward(q, k, v, kernel_size, scale=1.0, save_lse=False):
     """Launches K11 on CUDA tensors (b, h, w, heads, e). Returns (out, lse):
     out (b, h, w, heads, e) bf16 contiguous, lse (b, heads, h, w) float32,
@@ -381,35 +363,22 @@ def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     return dq, dk, dv
 
 
-class _NA2DHeads(torch.autograd.Function):
-    """K11 forward (with lse), K12 backward. Saves q, k, v, the output and
-    the logsumexp, as the JAX custom_vjp does."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kernel_size, scale):
-        out, lse = heads_forward(q, k, v, kernel_size, scale, save_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.static = (kernel_size, scale)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*heads_backward(q, k, v, out, lse, dout, *ctx.static), None,
-                None)
-
-
 def na2d(q, k, v, kernel_size, scale=1.0):
     """Neighborhood attention per head: q, k, v (b, h, w, heads, e) ->
     (b, h, w, heads, e); differentiable. The kernels take bfloat16, e in
     ``HEAD_DIMS``, h and w multiples of 8, kernel_size <= min(7, h, w), and
     q, k, v of any strides whose last two are (e, 1)."""
+    static = {"kernel_size": kernel_size, "scale": scale}
     if q.device.type == "cpu":
-        return na2d_reference(q, k, v, kernel_size, scale)
+        return residuals.plain(
+            q, k, v, functools.partial(na2d_reference, **static),
+            functools.partial(heads_reference_backward, **static))
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return heads_forward(q, k, v, kernel_size, scale)[0]
-    return _NA2DHeads.apply(q, k, v, kernel_size, scale)
+    return residuals.attention(
+        q, k, v, functools.partial(heads_forward, **static, save_lse=True),
+        functools.partial(heads_backward, **static))
 
 
 def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
@@ -496,8 +465,12 @@ def na2d_packed(q, k, v, n_heads, kernel_size, scale=1.0):
     (b, h, w, heads * e) -> (b, h, w, heads * e); differentiable. The
     kernels take bfloat16, e == 64, h and w multiples of 8 and
     kernel_size <= min(7, h, w)."""
+    static = {"n_heads": n_heads, "kernel_size": kernel_size, "scale": scale}
     if q.device.type == "cpu":
-        return reference(q, k, v, n_heads, kernel_size, scale)
+        return residuals.plain(q, k, v, functools.partial(reference, **static),
+                               functools.partial(reference_backward, **static))
     if not torch.is_grad_enabled():  # sampling: no autograd node to build
         return packed_forward(q, k, v, n_heads, kernel_size, scale)[0]
-    return _NA2D.apply(q, k, v, n_heads, kernel_size, scale)
+    return residuals.attention(
+        q, k, v, functools.partial(packed_forward, **static, save_lse=True),
+        functools.partial(packed_backward, **static))

@@ -17,7 +17,13 @@ the last such window ({"steps", "images", "body_s", "wait_s"}). Every ``--demo-e
 (DPM++(2M) SDE, eta 0, Heun, 50 steps) into ``{name}_demo_{step:08}.png``;
 every ``--save-every`` steps, and at ``--end-step``, it writes
 ``{name}_{step:08}.ckpt`` and points ``{name}_state.json`` at it. A run
-whose ``{name}_state.json`` exists resumes from it.
+whose ``{name}_state.json`` exists resumes from it. Every
+``--evaluate-every`` steps it samples ``--evaluate-n`` images from the EMA
+model as the demo does and writes their FID and KID against the training
+set's (``evaluation``, InceptionV3 from the local cache) to
+``{name}_metrics.csv``; ``--evaluate-only`` evaluates once and returns.
+Without the extractor's weights it says "Evaluation disabled" and trains,
+as the JAX trainer does.
 
 Each step's draws come from generators seeded by ``sampling.fold_in``:
 the step from (seed + 3, step), the augmentation from (seed + 2, step),
@@ -29,12 +35,14 @@ exactly what the uninterrupted run would have.
 import argparse
 import math
 import time
+import traceback
 from pathlib import Path
 
 import torch
 
 from . import (augmentation, checkpoint, config as config_mod, data,
-               gns as gns_mod, sampling, training, utils)
+               evaluation, gns as gns_mod, guidance, sampling, training,
+               utils)
 
 
 class StarvationMonitor:
@@ -102,7 +110,15 @@ def parse_args(argv=None):
     p.add_argument("--evaluate-n", type=int, default=2000,
                    help="the number of samples to draw to evaluate")
     p.add_argument("--evaluate-only", action="store_true",
-                   help="evaluate instead of training (not ported yet)")
+                   help="evaluate instead of training")
+    p.add_argument("--evaluate-with", type=str, default="inception",
+                   choices=["inception", "clip", "dinov2"],
+                   help="the feature extractor to use for evaluation")
+    p.add_argument("--clip-model", type=str,
+                   default="openai/clip-vit-base-patch16",
+                   help="the CLIP model to use to evaluate")
+    p.add_argument("--dinov2-model", type=str, default="facebook/dinov2-large",
+                   help="the DINOv2 model to use to evaluate")
     p.add_argument("--gns", action="store_true",
                    help="measure the gradient noise scale (disables "
                         "stratified sampling)")
@@ -143,8 +159,6 @@ def check_ported(args):
     waits = [
         (args.checkpoint_format == "orbax", "--checkpoint-format orbax",
          "queue 1, item 7 (orbax and multi-process)"),
-        (args.evaluate_only, "--evaluate-only",
-         "queue 1, item 6 (evaluation)"),
         (args.wandb_project, "--wandb-project",
          "queue 1, item 8 (wandb logging)"),
     ]
@@ -269,10 +283,78 @@ def main(argv=None):
                      filename)
         print(f"Saved {filename}")
 
-    if args.evaluate_every > 0 and args.evaluate_n > 0:
-        print("Evaluation disabled (feature extractor unavailable: FID and "
-              "KID are not ported yet, ROADMAP.md queue 1, item 6)",
-              flush=True)
+    # evaluation (FID, KID)
+    evaluate_enabled = args.evaluate_every > 0 and args.evaluate_n > 0
+    extractor = None
+    if evaluate_enabled:
+        kw = {"device": device}
+        if args.evaluate_with == "clip":
+            kw["model_name"] = args.clip_model
+        elif args.evaluate_with == "dinov2":
+            kw["model_name"] = args.dinov2_model
+        try:
+            extractor = evaluation.make_extractor(args.evaluate_with, **kw)
+        except Exception as e:
+            traceback.print_exc()
+            print(f"Evaluation disabled (feature extractor unavailable: {e})",
+                  flush=True)
+            evaluate_enabled = False
+    reals_features = None
+    if evaluate_enabled:
+        print("Computing features for reals...")
+        # a loader of its own over the training set: the first batches of
+        # the training order, which the training loader reads unchanged
+        reals_dl = data.DataLoader(train_set, args.batch_size, seed=seed,
+                                   num_workers=args.num_workers)
+
+        def reals():
+            while True:
+                yield from reals_dl
+
+        real_iter = reals()
+        reals_features = evaluation.compute_features(
+            lambda n: to_device(next(real_iter)["image"][:n], device) * 2 - 1,
+            extractor, args.evaluate_n, args.batch_size)
+    metrics_log = utils.CSVLogger(f"{args.name}_metrics.csv",
+                                  ["step", "time", "loss", "fid", "kid"])
+
+    @torch.no_grad()
+    def evaluate(step):
+        """FID and KID of ``--evaluate-n`` EMA samples (DPM++(2M) SDE, eta
+        0, Heun, 50 Karras steps, through the CFG wrapper at scale 1, as
+        the JAX trainer samples) against the reals' features; one row of
+        ``{name}_metrics.csv``."""
+        if not evaluate_enabled:
+            return
+        print("Evaluating...")
+        sigmas = sampling.get_sigmas_karras(50, sigma_min, sigma_max,
+                                            rho=7.0, device=device)
+        den = guidance.make_cfg_model_fn(denoiser_factory(state.ema_model),
+                                         1.0, num_classes)
+        calls = [0]
+
+        def sample_fn(n):
+            calls[0] += 1
+            gen = generator(seed + 1, step * 1000 + calls[0])
+            b = args.batch_size
+            x = torch.randn((b, size[0], size[1], channels), generator=gen,
+                            device=device) * sigma_max
+            extra = ({"class_cond": torch.randint(0, num_classes, (b,),
+                                                  generator=gen,
+                                                  device=device)}
+                     if num_classes else {})
+            return sampling.sample_dpmpp_2m_sde(
+                den, x, sigmas, extra_args=extra, eta=0.0,
+                solver_type="heun")[:n]
+
+        fakes_features = evaluation.compute_features(
+            sample_fn, extractor, args.evaluate_n, args.batch_size)
+        fid = float(evaluation.fid(fakes_features, reals_features))
+        kid = float(evaluation.kid(fakes_features, reals_features))
+        print(f"FID: {fid:g}, KID: {kid:g}", flush=True)
+        metrics_log.write(step, host["elapsed"],
+                          host["ema_stats"].get("loss", float("nan")), fid,
+                          kid)
 
     def save(step):
         host["step"] = step
@@ -285,6 +367,13 @@ def main(argv=None):
 
     def due(every, step):
         return every > 0 and step > 0 and step % every == 0
+
+    if args.evaluate_only:
+        if not evaluate_enabled:
+            raise ValueError(
+                "--evaluate-only requested but evaluation is disabled")
+        evaluate(host["step"])
+        return None
 
     step = host["step"]
     epoch = host["epoch"]
@@ -352,7 +441,9 @@ def main(argv=None):
                 if device.type == "cuda" and (
                         step % 25 == 0 or step + 1 == args.end_step
                         or due(args.demo_every, step + 1)
-                        or due(args.save_every, step + 1)):
+                        or due(args.save_every, step + 1)
+                        or (evaluate_enabled
+                            and due(args.evaluate_every, step + 1))):
                     # the queued steps finish inside the timed body, so
                     # that ``elapsed`` holds their device time
                     torch.cuda.synchronize(device)
@@ -393,6 +484,8 @@ def main(argv=None):
                 host["step"] = step
                 if due(args.demo_every, step):
                     demo(step)
+                if evaluate_enabled and due(args.evaluate_every, step):
+                    evaluate(step)
                 if step == args.end_step or due(args.save_every, step):
                     if args.gns:
                         drain_gns()  # the estimator up to date in the file

@@ -1,5 +1,6 @@
 """The training step: optimizer, train state and one step of
-sample sigmas -> noise -> loss -> backward -> clip -> AdamW -> EMA
+sample sigmas -> noise -> loss -> backward -> clip -> AdamW (or 8-bit
+AdamW, or SGD) -> EMA
 (counterpart of k_diffusion_tpu/training.py, without the device mesh).
 
 The JAX package jits one pure function of (state, batch, key); here the
@@ -25,6 +26,7 @@ import torch
 
 from . import config as config_mod
 from .models import image_transformer_v1, image_transformer_v2, image_v1
+from .optim8bit import AdamW8bit
 from .utils import ema_update
 
 GROUPS = ("wd", "no_wd", "mapping_wd", "mapping_no_wd")
@@ -36,24 +38,31 @@ class TrainState:
     parameters; ``ema_model`` holds the EMA copy (no grad, eval mode)."""
     step: int
     model: torch.nn.Module
-    optimizer: "GroupedAdamW"
+    optimizer: "GroupedOptimizer"
     ema_model: torch.nn.Module
 
 
-class GroupedAdamW:
-    """The JAX package's optimizer: global-norm clipping, then AdamW over
-    the four groups {wd, no_wd} x {lr, lr * mapping_lr_scale}; ``labels``
-    maps each parameter name to its group (a family whose taxonomy has two
-    groups leaves the mapping groups empty).
+class GroupedOptimizer:
+    """The JAX package's optimizer: global-norm clipping, then AdamW,
+    8-bit AdamW or SGD over the four groups {wd, no_wd} x {lr, lr *
+    mapping_lr_scale}; ``labels`` maps each parameter name to its group (a
+    family whose taxonomy has two groups leaves the mapping groups empty).
 
     Each group's lr is ``schedule(step) * scale``, set before each update:
     optax evaluates the schedule at the count before the increment. The
     clip follows optax's ``clip_by_global_norm``: gradients are scaled by
     ``max_norm / norm`` when ``norm > max_norm`` (``clip_grad_norm_`` would
-    divide by ``norm + 1e-6``)."""
+    divide by ``norm + 1e-6``).
+
+    ``kind`` "adamw" is ``torch.optim.AdamW`` (fused on the card);
+    "adam8bit" is ``optim8bit.AdamW8bit``; "sgd" is ``torch.optim.SGD``
+    with ``momentum`` and ``nesterov``, no dampening, and the weight decay
+    added to the clipped gradient before the momentum, as the JAX package
+    chains ``add_decayed_weights`` before ``optax.sgd``."""
 
     def __init__(self, model, labels, lr_schedule, betas, eps, weight_decay,
-                 mapping_lr_scale=1 / 3, max_grad_norm=1.0):
+                 mapping_lr_scale=1 / 3, max_grad_norm=1.0, kind="adamw",
+                 momentum=0.0, nesterov=False):
         named = dict(model.named_parameters())
         scales = {"wd": (1.0, weight_decay), "no_wd": (1.0, 0.0),
                   "mapping_wd": (mapping_lr_scale, weight_decay),
@@ -66,9 +75,21 @@ class GroupedAdamW:
                 groups.append({"params": params, "lr_scale": lr_scale,
                                "weight_decay": wd, "name": label})
         fused = next(model.parameters()).device.type == "cuda"
-        self.optimizer = torch.optim.AdamW(
-            groups, lr=lr_schedule(0), betas=tuple(betas), eps=eps,
-            fused=fused, foreach=None if fused else True)
+        many = {"fused": fused, "foreach": None if fused else True}
+        if kind == "adamw":
+            self.optimizer = torch.optim.AdamW(
+                groups, lr=lr_schedule(0), betas=tuple(betas), eps=eps, **many)
+        elif kind == "adam8bit":
+            self.optimizer = AdamW8bit(groups, lr=lr_schedule(0), betas=betas,
+                                       eps=eps)
+        elif kind == "sgd":
+            # optax's trace at momentum 0 is the identity, nesterov or not;
+            # torch refuses nesterov without momentum
+            self.optimizer = torch.optim.SGD(
+                groups, lr=lr_schedule(0), momentum=momentum,
+                nesterov=nesterov and momentum > 0, **many)
+        else:
+            raise ValueError(f"Invalid optimizer type {kind!r}")
         self.lr_schedule = lr_schedule
         self.max_grad_norm = max_grad_norm
         self.params = [p for g in groups for p in g["params"]]
@@ -103,8 +124,9 @@ class GroupedAdamW:
         return [g["name"] for g in self.optimizer.param_groups]
 
     def state_dict(self):
-        """The wrapped AdamW's state (each parameter's moments and step
-        count, its groups' settings) and the group names."""
+        """The wrapped optimizer's state (each parameter's moments or
+        momentum and step count, its groups' settings) and the group
+        names."""
         return {"groups": self.group_names(),
                 "optimizer": self.optimizer.state_dict()}
 
@@ -128,19 +150,18 @@ _PARAM_LABELS = {"image_v1": image_v1.param_group_labels,
 
 
 def make_optimizer(config, model, mapping_lr_scale=1 / 3, max_grad_norm=1.0):
-    """The grouped AdamW of the config's ``optimizer`` and ``lr_sched``
-    sections over ``model``'s parameters, grouped by the param taxonomy of
-    the config's model family (4 groups for the HDiT, 2 for the U-Net).
-    ``adam8bit`` and ``sgd`` are not ported yet."""
+    """The grouped optimizer of the config's ``optimizer`` (``type`` adamw,
+    adam8bit or sgd) and ``lr_sched`` sections over ``model``'s
+    parameters, grouped by the param taxonomy of the config's model family
+    (4 groups for the HDiT, 2 for the U-Net)."""
     opt_config = config["optimizer"]
-    if opt_config["type"] != "adamw":
-        raise NotImplementedError(
-            f"optimizer {opt_config['type']!r} is not ported yet")
     labels = _PARAM_LABELS[config["model"]["type"]](model)
-    return GroupedAdamW(
-        model, labels, config_mod.make_lr_schedule(config), opt_config["betas"],
-        opt_config["eps"], opt_config["weight_decay"], mapping_lr_scale,
-        max_grad_norm)
+    return GroupedOptimizer(
+        model, labels, config_mod.make_lr_schedule(config),
+        opt_config["betas"], opt_config["eps"],
+        opt_config["weight_decay"], mapping_lr_scale, max_grad_norm,
+        kind=opt_config["type"], momentum=opt_config.get("momentum", 0.0),
+        nesterov=opt_config.get("nesterov", False))
 
 
 def init_train_state(model, optimizer):

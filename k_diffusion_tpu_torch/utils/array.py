@@ -72,3 +72,19 @@ def freq_weight_nd(shape, scales=0, dtype=torch.float32, device=None):
             [n if j == i else 1 for j in range(len(shape))])
         out = w if out is None else torch.minimum(out, w)
     return out
+
+
+def transfer_params(new_state, old_state):
+    """Carries ``old_state``'s tensors into ``new_state`` (two
+    ``state_dict()``s) where a name is in both with the same shape, cast to
+    the new tensor's dtype and device; the rest keep their fresh values.
+    Progressive growing, as the JAX package does it: rebuild the model
+    with new settings (``skip_stages``, ``patch_size``), then load what
+    survived. Returns (state dict, n transferred, n total)."""
+    out, n = dict(new_state), 0
+    for name, t in new_state.items():
+        old = old_state.get(name)
+        if old is not None and old.shape == t.shape:
+            out[name] = old.to(dtype=t.dtype, device=t.device)
+            n += 1
+    return out, n, len(new_state)

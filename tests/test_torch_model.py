@@ -302,8 +302,10 @@ def test_mnist_transformer_routes_to_flash_and_matches_jax():
 def test_import_without_jax():
     """The port, its entry points (train, sample, convert_for_inference,
     config_from_inference, make_grid) and its data, augmentation,
-    checkpoint and GNS modules import, and the model runs, with jax, flax
-    and optax unimportable, as on a machine that has none of them."""
+    checkpoint, GNS, optimizer, guidance, external, ODE, evaluation,
+    Inception and remat-residual modules import, and the model runs, with
+    jax, flax and optax unimportable, as on a machine that has none of
+    them; nothing of the JAX package is imported."""
     code = textwrap.dedent(f"""
         import sys
         for name in ("jax", "flax", "optax"):
@@ -312,7 +314,11 @@ def test_import_without_jax():
         import k_diffusion_tpu_torch as KT
         from k_diffusion_tpu_torch import (
             augmentation, checkpoint, config_from_inference,
-            convert_for_inference, data, gns, make_grid, sample, train)
+            convert_for_inference, data, evaluation, external, gns,
+            guidance, make_grid, ode, optim8bit, sample, train)
+        from k_diffusion_tpu_torch.models import inception_v3
+        from k_diffusion_tpu_torch.ops.kernels import residuals
+        from k_diffusion_tpu_torch.utils import logging
         config = KT.config.load_config({str(CONFIG)!r})
         config["model"].update({OVERRIDES!r})
         model = KT.config.make_model(config, device="cpu")
@@ -320,7 +326,8 @@ def test_import_without_jax():
             out = model(torch.zeros(1, 64, 64, 3), torch.ones(1))
         assert out.shape == (1, 64, 64, 3)
         assert not [m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "flax", "optax")
+                    if m.split(".")[0] in ("jax", "flax", "optax",
+                                           "k_diffusion_tpu", "k_diffusion")
                     and sys.modules[m] is not None]
         """)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

@@ -4,8 +4,10 @@ k_diffusion_tpu_torch.train`` on configs/config_test_tiny.json (synthetic
 data, 4 classes with dropout, augmentation at 0.12), a resumed run against
 an uninterrupted one (bit for bit), then convert_for_inference ->
 config_from_inference -> sample -> make_grid; the checkpointing flags, the
-ViT and a U-Net with a variance head through the entry point; and the
-flags and devices that raise."""
+ViT and a U-Net with a variance head through the entry point; FID and KID
+into the metrics CSV with random Inception weights in a temporary cache,
+and "Evaluation disabled" without them; and the flags and devices that
+raise."""
 
 import json
 from pathlib import Path
@@ -225,7 +227,6 @@ def test_model_families_train_through_the_entry_point(tmp_path, model):
 
 @pytest.mark.parametrize("flags,item", [
     (["--checkpoint-format", "orbax"], "queue 1, item 7"),
-    (["--evaluate-only"], "queue 1, item 6"),
     (["--wandb-project", "p"], "queue 1, item 8"),
     (["--device", "cuda", "--mixed-precision", "no"], "queue 1, item 9"),
 ])
@@ -235,6 +236,87 @@ def test_unported_flags_raise(tmp_path, flags, item):
                       *([] if "--device" in flags else ["--device", "cpu"]),
                       *flags])
     assert not list(tmp_path.iterdir())
+
+
+def write_random_inception_npz(path, seed=0):
+    """Random InceptionV3W weights in the layout that
+    scripts/convert_inception_weights.py writes: architecture-ordered
+    (name, OIHW kernel or 1-d norm parameter) pairs; He-scaled kernels, so
+    that the features keep the input's variation through 94 ReLU layers."""
+    from k_diffusion_tpu_torch.models import inception_v3
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for i, (cout, cin, kh, kw) in enumerate(inception_v3.conv_shape_order()):
+        arrays[f"layers.{i}.weight"] = rng.normal(
+            0.0, (2.0 / (kh * kw * cin)) ** 0.5,
+            (cout, cin, kh, kw)).astype(np.float32)
+        arrays[f"layers.{i}.scale"] = np.ones(cout, np.float32)
+        arrays[f"layers.{i}.bias"] = np.zeros(cout, np.float32)
+        arrays[f"layers.{i}.running_mean"] = np.zeros(cout, np.float32)
+        arrays[f"layers.{i}.running_var"] = np.ones(cout, np.float32)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
+
+
+@pytest.fixture
+def inception_cache(tmp_path, monkeypatch):
+    """A cache holding random Inception weights as the .npz export."""
+    write_random_inception_npz(
+        tmp_path / "cache" / "k-diffusion" / "inception-2015-12-05.npz")
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+
+
+def metrics_rows(name):
+    lines = Path(f"{name}_metrics.csv").read_text().splitlines()
+    assert lines[0] == "step,time,loss,fid,kid"
+    return [[float(v) for v in line.split(",")] for line in lines[1:]]
+
+
+def test_train_evaluates_into_the_metrics_csv(tmp_path, inception_cache,
+                                              capsys):
+    """--evaluate-every 2 on a 4-step run: FID and KID of 4 EMA samples
+    against 4 reals at steps 2 and 4, finite, one CSV row each."""
+    train(tmp_path / "run", "--end-step", "4", "--save-every", "0",
+          "--demo-every", "0", "--evaluate-every", "2", "--evaluate-n", "4")
+    rows = metrics_rows(tmp_path / "run")
+    assert [r[0] for r in rows] == [2, 4]
+    for step, elapsed, loss, fid, kid in rows:
+        assert elapsed > 0 and np.isfinite([loss, fid, kid]).all()
+        assert fid > 0
+    out = capsys.readouterr().out
+    assert "Computing features for reals..." in out
+    assert out.count("FID: ") == 2
+
+
+def test_evaluate_only_writes_one_row(tmp_path, inception_cache):
+    assert train(tmp_path / "run", "--evaluate-only",
+                 "--evaluate-n", "4") is None
+    rows = metrics_rows(tmp_path / "run")
+    assert len(rows) == 1 and rows[0][0] == 0
+    assert np.isfinite(rows[0][3:]).all()
+    assert not list(tmp_path.glob("run_*.ckpt"))
+
+
+@pytest.mark.parametrize("extractor,named", [
+    ("inception", "Inception weights not found"),
+    ("clip", "openai/clip-vit-base-patch16"),
+    ("dinov2", "facebook/dinov2-large")])
+def test_evaluation_is_disabled_without_weights(tmp_path, monkeypatch,
+                                                capsys, extractor, named):
+    """An extractor whose weights are absent: the JAX trainer's message,
+    naming what is missing, and training goes on; --evaluate-only then
+    raises."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "empty"))
+    train(tmp_path / "run", "--end-step", "1", "--save-every", "0",
+          "--demo-every", "0", "--evaluate-every", "1", "--evaluate-n", "4",
+          "--evaluate-with", extractor)
+    out = capsys.readouterr().out
+    assert "Evaluation disabled (feature extractor unavailable: " in out
+    assert named in out and "FID: " not in out
+    assert metrics_rows(tmp_path / "run") == []
+    with pytest.raises(ValueError, match="evaluation is disabled"):
+        train(tmp_path / "run", "--evaluate-only", "--evaluate-with",
+              extractor)
 
 
 def test_missing_resume_file_raises(tmp_path):
