@@ -147,6 +147,31 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    at batch 2, 50-step DPM++(2M) at batch 64 (16 K13 a call); (d) the
    flagship with loss_scales 3: one step's loss and gradient against the
    CPU.
+23. the engine (``engine_phase``): each remat policy's flagship step
+   against the plain step, 8-bit AdamW and SGD, CFG sampling, the
+   likelihood, InceptionV3 on the card and FID/KID in the trainer;
+24. data parallelism: (a) two ranks on the one card over gloo (two
+   processes running this script with ``--dp-rank``; NCCL refuses two ranks
+   on one device), the flagship at full width and depth on the fused
+   training path, dropout 0, 16 images a rank, 3 steps, against one
+   process at batch 32 with the same weights and global draws: the losses
+   within 1e-3 relative; step 1's all-reduced gradient within 1e-2
+   relative L2, tensor by tensor, of one process's gradient over the
+   ranks' two blocks of rows (bit-equal tensors counted), and within 1e-2
+   over all tensors of the batch-32 gradient (the worst tensor printed:
+   the bf16 kernels split their sums by the batch); the ranks' params, EMA
+   and gradients bit for bit equal, each rank's launch counts 3 steps of
+   the layout (K1-K7, K9, K10) and no plain version called on a CUDA
+   tensor but K5's backward (the VJP of its plain version, once a step);
+   the step times of both, which measure no scaling (the two ranks share
+   one card); (b) the trainer
+   under ``python -m torch.distributed.run --standalone --nproc_per_node 1``
+   (NCCL) on the flagship with a synthetic dataset and
+   ``--checkpoint-format orbax``: 2 steps and a sharded save, then a second
+   run that resumes from the state pointer to step 4; each prints ``World:
+   1 process(es)``; that checkpoint loaded on the card, saved again
+   sharded (async, the pointer moved after the commit) and loaded back
+   through the pointer gives bit-equal model, EMA and optimizer state.
 
 Each kernel line also gives the kernel's achieved TFLOP/s (the operations
 its function needs over its time) and its time's share of the bound.
@@ -1469,6 +1494,9 @@ def main():
     # remat policies, 8-bit AdamW and SGD, guidance, the likelihood, FID and
     # KID in the trainer: phase 23
     engine_phase(KT, config, dev, smi, fused_ips)
+
+    # data parallelism: phase 24
+    data_parallel_phase(KT, config, dev, smi)
 
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
@@ -2896,6 +2924,363 @@ def engine_phase(KT, config, dev, smi, fused_ips):
         evaluation_entry(KT, config, cache, smi)
 
 
+# phase 24: the ranks, and the steps of the comparison
+DP_WORLD, DP_STEPS = 2, 3
+
+
+def count_plain_calls():
+    """Wraps each plain version in ``ops.kernels`` (every module's
+    ``*reference*`` functions and ``residuals.plain``) to count its calls
+    on CUDA tensors. Returns the counter."""
+    import inspect
+    from k_diffusion_tpu_torch.ops.kernels import (
+        flash, fused_ffn, fused_mapping, fused_qkv, global_packed, na2d,
+        residuals)
+
+    calls = collections.Counter()
+    for module in (flash, fused_ffn, fused_mapping, fused_qkv, global_packed,
+                   na2d, residuals):
+        for name, fn in list(vars(module).items()):
+            if not inspect.isfunction(fn) or not (
+                    "reference" in name or (module is residuals
+                                            and name == "plain")):
+                continue
+
+            def counted(*args, _fn=fn, _name=f"{module.__name__}.{name}",
+                        **kwargs):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in args):
+                    calls[_name] += 1
+                return _fn(*args, **kwargs)
+
+            setattr(module, name, counted)
+    return calls
+
+
+def dp_setup(KT, config, dev, rank, world):
+    """The flagship (dropout 0) in bfloat16 on ``dev`` from seeded weights
+    (zero-init projections filled), its state, its train step for ``rank``
+    of ``world``, this rank's rows of a seeded global batch of
+    TRAIN_BATCH, and a list that receives step 1's gradient (the reduced
+    one under data parallelism) when the optimizer takes it."""
+    g = torch.Generator().manual_seed(SEED + 24)
+    model = KT.config.make_model(config, dtype=torch.bfloat16, device="cpu",
+                                 generator=g)
+    fill_zero_init(model, g)
+    model.to(dev)
+    if world > 1:
+        KT.parallel.replicate(model)
+    state = KT.training.init_train_state(
+        model, KT.training.make_optimizer(config, model))
+    step = KT.training.make_train_step(
+        KT.config.make_denoiser_wrapper(config),
+        KT.config.make_sample_density(config["model"]), world=world,
+        rank=rank)
+    reals = torch.randn((1, *input_shape(config, TRAIN_BATCH)),
+                        generator=g).clamp(-1, 1)
+    batch = {"reals": KT.parallel.local_rows(reals[0], rank, world)[None]
+             .to(dev)}
+    grads = []
+    names = [n for n, _ in model.named_parameters()]
+    optimizer_step = state.optimizer.step
+
+    def keep_first_gradient(count):
+        if count == 0:
+            grads.append({n: p.grad.detach().float().cpu() for n, p in
+                          zip(names, model.parameters())})
+        return optimizer_step(count)
+
+    state.optimizer.step = keep_first_gradient
+    return state, step, batch, grads
+
+
+def split_gradient(KT, config, model, reals, dev):
+    """Step 1's gradient as the ranks compute it, in one process: the mean
+    over the DP_WORLD blocks of rows of each block's mean-loss gradient,
+    with step 1's global draws (``dp_steps``'s first generator, the
+    step's order: sigmas, then noise)."""
+    gen = torch.Generator(dev).manual_seed(KT.sampling.fold_in(SEED + 25, 0))
+    sigmas = KT.config.make_sample_density(config["model"])(
+        (reals.shape[0],), stratified=(0, 1), generator=gen, device=dev)
+    noise = torch.randn(reals.shape, generator=gen, device=dev,
+                        dtype=reals.dtype)
+    den = KT.config.make_denoiser_wrapper(config)(model.train())
+    total = None
+    for r in range(DP_WORLD):
+        rows = [KT.parallel.local_rows(t, r, DP_WORLD)
+                for t in (reals, noise, sigmas)]
+        grads = torch.autograd.grad(den.loss(*rows).mean(),
+                                    list(model.parameters()))
+        total = grads if total is None else [a + b for a, b in
+                                             zip(total, grads)]
+    return {n: (t / DP_WORLD).float().cpu()
+            for (n, _), t in zip(model.named_parameters(), total)}
+
+
+def relative_errors(got, want):
+    """Each tensor's relative L2 error (its L2 where ``want``'s is 0) and
+    that of all of them together."""
+    errs = {n: ((got[n] - w).norm() / w.norm()).item() if w.norm() > 0
+            else got[n].norm().item() for n, w in want.items()}
+    flat = lambda d: torch.cat([d[n].flatten() for n in want])
+    overall = ((flat(got) - flat(want)).norm() / flat(want).norm()).item()
+    return errs, overall
+
+
+def dp_steps(KT, state, step, batch, dev):
+    """DP_STEPS steps with the generators every rank shares; returns the
+    losses and each step's seconds (synchronised)."""
+    losses, secs = [], []
+    for i in range(DP_STEPS):
+        gen = torch.Generator(dev).manual_seed(
+            KT.sampling.fold_in(SEED + 25, i))
+        torch.cuda.synchronize(dev)
+        start = time.perf_counter()
+        losses.append(float(step(state, batch, gen, 0.999)["loss"]))
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - start)
+    return losses, secs
+
+
+def digest(tensors):
+    """A SHA-256 of the tensors' bytes, in order: bit equality across
+    processes without moving the tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank_main(rank, port, out, config_path):
+    """One rank of phase 24 (a): joins a gloo group of DP_WORLD on this
+    card, trains its rows of the global batch and writes
+    ``out/rank{rank}.pt``: the losses and step seconds, step 1's reduced
+    gradient (rank 0), digests of it and of the params and EMA after the
+    steps, the launch counts and the plain versions' calls on CUDA
+    tensors."""
+    sys.path.insert(0, str(ROOT))
+    import k_diffusion_tpu_torch as KT
+    from k_diffusion_tpu_torch.ops import kernels
+
+    rank = int(rank)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    KT.parallel.initialize_distributed(
+        backend="gloo", init_method=f"tcp://localhost:{port}",
+        world_size=DP_WORLD, rank=rank)
+    plain = count_plain_calls()
+    config = json.loads(Path(config_path).read_text())
+    state, step, batch, grads = dp_setup(KT, config, dev, rank, DP_WORLD)
+    kernels.reset_launch_counts()
+    losses, secs = dp_steps(KT, state, step, batch, dev)
+    result = {
+        "losses": losses, "secs": secs, "counts": kernels.launch_counts(),
+        "plain": dict(plain),
+        "grad_digest": digest(grads[0].values()),
+        "params_digest": digest(state.model.parameters()),
+        "ema_digest": digest(state.ema_model.parameters())}
+    if rank == 0:
+        result["grads"] = grads[0]
+    torch.save(result, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def data_parallel_phase(KT, config, dev, smi):
+    """Phase 24 (see the module docstring)."""
+    import socket
+
+    config = no_dropout(config)
+    layout = hdit_train_layout(config)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        config_path = tmp / "flagship.json"
+        config_path.write_text(json.dumps(config))
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        start = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+             str(r), str(port), str(tmp), str(config_path)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_WORLD)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"data parallel rank {r} failed:\n"
+                                     f"{out[-4000:]}")
+        ranks_s = time.perf_counter() - start
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=True)
+                 for r in range(DP_WORLD)]
+
+    # one process at the global batch, the same weights and draws; first
+    # the ranks' gradient computed in this one process over their rows
+    state, step, batch, grads = dp_setup(KT, config, dev, 0, 1)
+    split = split_gradient(KT, config, state.model, batch["reals"][0], dev)
+    losses, secs = dp_steps(KT, state, step, batch, dev)
+    full = grads[0]
+    del state, step, batch, grads
+    torch.cuda.empty_cache()
+
+    expected = dict.fromkeys(KT.ops.kernels.COUNTERS, 0) | {
+        k: DP_STEPS * v for k, v in layout.items()}
+    # K5 has no backward kernel, as in the JAX package: its backward is the
+    # VJP of its plain version, recomputed once a step; no other plain
+    # version may run on the card
+    recompute = {"k_diffusion_tpu_torch.ops.kernels.fused_mapping.reference":
+                 DP_STEPS * layout["fused_mapping"]}
+    for r, result in enumerate(ranks):
+        if result["counts"] != expected:
+            raise AssertionError(f"data parallel rank {r}: launch counts "
+                                 f"{result['counts']} != {expected}")
+        if result["plain"] != recompute:
+            raise AssertionError(f"data parallel rank {r}: plain versions "
+                                 f"ran on the card: {result['plain']}, "
+                                 f"expected {recompute}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(result["losses"], losses)]
+        if not max(rel) <= 1e-3:
+            raise AssertionError(f"data parallel rank {r}: losses "
+                                 f"{result['losses']} vs one process "
+                                 f"{losses}: relative {rel} > 1e-3")
+    for key in ("losses", "grad_digest", "params_digest", "ema_digest"):
+        if ranks[0][key] != ranks[1][key]:
+            raise AssertionError(f"data parallel: ranks differ in {key}")
+    got = ranks[0]["grads"]
+    if not all(torch.isfinite(g).all() for g in got.values()):
+        raise AssertionError("data parallel: step 1's gradient not finite")
+    # the data-parallel step against one process over the same rows: what
+    # the reduce may change is the order of one sum
+    errs, overall = relative_errors(got, split)
+    worst = max(errs, key=errs.get)
+    bit_equal = sum(torch.equal(got[n], w) for n, w in split.items())
+    if not errs[worst] <= 1e-2:
+        raise AssertionError(f"data parallel: step 1's reduced gradient of "
+                             f"{worst} against one process over the same "
+                             f"rows: relative L2 {errs[worst]:.3e} > 1e-2")
+    # against one process at batch 32: the bf16 kernels split their sums
+    # by the batch (K1/K4 forward splits, K6/K10 split-K over the rows), so
+    # two blocks of 16 differ from 32 rows in one process as much as the
+    # two ranks do; bounded on the whole gradient
+    errs32, overall32 = relative_errors(got, full)
+    worst32 = max(errs32, key=errs32.get)
+    split32 = relative_errors(split, full)[1]
+    if not overall32 <= 1e-2:
+        raise AssertionError(f"data parallel: step 1's reduced gradient "
+                             f"against one process at batch {TRAIN_BATCH}: "
+                             f"relative L2 {overall32:.3e} > 1e-2")
+    print(f"data parallel (a): 2 gloo ranks on one card, the flagship at "
+          f"full width, dropout 0, batch {TRAIN_BATCH // DP_WORLD} a rank, "
+          f"{DP_STEPS} steps, against 1 process at batch {TRAIN_BATCH} with "
+          f"the same weights and global draws: losses {ranks[0]['losses']} "
+          f"vs {losses} (bound 1e-3 relative); step 1's reduced gradient, "
+          f"{len(errs)} tensors, against one process over the ranks' two "
+          f"blocks of rows: worst relative L2 {errs[worst]:.3e} ({worst}; "
+          f"bound 1e-2), all together {overall:.3e}, {bit_equal} of "
+          f"{len(errs)} tensors bit-equal; against one process at batch "
+          f"{TRAIN_BATCH}: all together {overall32:.3e} (bound 1e-2), worst "
+          f"tensor {errs32[worst32]:.3e} ({worst32}), "
+          f"{sum(e > 1e-2 for e in errs32.values())} tensors above 1e-2, "
+          f"where one process's two blocks of rows against its batch "
+          f"{TRAIN_BATCH} give {split32:.3e} all together; the ranks' "
+          f"losses, gradients, params and EMA bit for bit equal; each "
+          f"rank's launches {DP_STEPS} x {layout}, and no plain version on "
+          f"the card but K5's backward recompute {ranks[0]['plain']}",
+          flush=True)
+    print(f"data parallel (a) times: a step of the two ranks sharing the "
+          f"card (gloo all-reduce through the host) {ranks[0]['secs']} s "
+          f"(rank 0), {ranks[1]['secs']} s (rank 1); one process at batch "
+          f"{TRAIN_BATCH} {secs} s; both ranks' processes {ranks_s:.1f} s "
+          f"with start and build; on {smi}. Two ranks sharing one card "
+          f"measure no scaling.", flush=True)
+    data_parallel_trainer(KT, config, dev, smi)
+
+
+def data_parallel_trainer(KT, config, dev, smi):
+    """Phase 24 (b): the trainer under torchrun, one NCCL rank, sharded
+    checkpoints; then a sharded round trip on the card through the state
+    pointer."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = dict(config, dataset={"type": "synthetic", "num_classes": 0,
+                                    "length": 1024})
+        cfg_path = tmp / "flagship.json"
+        cfg_path.write_text(json.dumps(cfg))
+        name = tmp / "nccl"
+        outs = []
+        for end in (2, 4):
+            start = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "1", "-m",
+                 "k_diffusion_tpu_torch.train", "--config", str(cfg_path),
+                 "--batch-size", "16", "--end-step", str(end),
+                 "--save-every", "2", "--demo-every", "0",
+                 "--evaluate-every", "0", "--checkpoint-format", "orbax",
+                 "--name", str(name)],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"torchrun trainer failed:\n"
+                                     f"{proc.stdout[-3000:]}"
+                                     f"{proc.stderr[-4000:]}")
+            outs.append((proc.stdout, time.perf_counter() - start))
+        for out, _ in outs:
+            if "World: 1 process(es)" not in out:
+                raise AssertionError(f"torchrun trainer: no world line:\n"
+                                     f"{out}")
+        if f"Resuming from {name}_00000002.orbax" not in outs[1][0]:
+            raise AssertionError(f"torchrun trainer: no resume from the "
+                                 f"pointer:\n{outs[1][0]}")
+        pointer = KT.checkpoint.latest_checkpoint(name)
+        if pointer != f"{name}_00000004.orbax":
+            raise AssertionError(f"torchrun trainer: pointer {pointer}")
+
+        def fresh():
+            model = KT.config.make_model(cfg, dtype=torch.bfloat16,
+                                         device=dev)
+            return KT.training.init_train_state(
+                model, KT.training.make_optimizer(cfg, model))
+
+        def flat(state):
+            import torch.utils._pytree as pytree
+            return pytree.tree_flatten(
+                {"model": state.model.state_dict(),
+                 "ema": state.ema_model.state_dict(),
+                 "optimizer": state.optimizer.state_dict(),
+                 "step": state.step})
+
+        saved, host = KT.checkpoint.load_checkpoint(
+            f"{name}_00000002.orbax", fresh())
+        again = tmp / "again"
+        path = KT.checkpoint.save_checkpoint_sharded(
+            f"{again}_00000002.orbax", saved, host)
+        KT.checkpoint.write_state_json_after_commit(again, path)
+        KT.checkpoint.wait_for_checkpoints()
+        restored, host2 = KT.checkpoint.load_checkpoint(
+            KT.checkpoint.latest_checkpoint(again), fresh())
+        (a, spec_a), (b, spec_b) = flat(saved), flat(restored)
+        devices = {t.device.type for t in a if isinstance(t, torch.Tensor)}
+        tensors = sum(isinstance(t, torch.Tensor) for t in a)
+        if spec_a != spec_b or host2 != host or not all(
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                for x, y in zip(a, b)):
+            raise AssertionError("sharded round trip: the restored state "
+                                 "differs from the saved one")
+    print(f"data parallel (b): the trainer under torchrun, 1 NCCL rank, "
+          f"flagship at batch 16, --checkpoint-format orbax: 2 steps and a "
+          f"sharded save in {outs[0][1]:.1f} s, resumed from the pointer to "
+          f"step 4 in {outs[1][1]:.1f} s (process start and model build "
+          f"included), each printing 'World: 1 process(es)'; the step-2 "
+          f"checkpoint loaded on the card, saved sharded again and loaded "
+          f"back through the pointer: {tensors} tensors (on {devices}) and "
+          f"the host dict bit for bit equal; on {smi}", flush=True)
+
+
 def forward_flops(KT, config, name="unet", **cond):
     """A model's FLOPs per image per forward: torch.utils.flop_counter
     over the plain forward on the CPU at batch 1 (convolutions, matmuls and
@@ -3117,4 +3502,7 @@ def profile(run, name, what, ops=()):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(*sys.argv[2:])
+    else:
+        main()

@@ -29,6 +29,11 @@ attention-free levels), the ViT (``image_transformer_v1``) and the U-Net
   and ``load_checkpoint`` save and resume it; the trainer scores FID and
   KID (``evaluation``, ``models.inception_v3``) where the Inception
   weights are in the local cache;
+- data parallel (``parallel``): under ``python -m torch.distributed.run
+  --nproc_per_node N -m k_diffusion_tpu_torch.train ...`` each process is
+  one rank; the train step draws at the global batch, takes its rows and
+  all-reduces its gradients; ``checkpoint.save_checkpoint_sharded``
+  writes ``torch.distributed.checkpoint`` directories in the background;
 - the engine: classifier-free and gradient guidance (``guidance``),
   wrappers for other models' schedules (``external``), and the exact
   log-likelihood of the probability-flow ODE (``log_likelihood``, ``ode``).
@@ -44,11 +49,11 @@ compiles nothing.
 
 from . import (augmentation, checkpoint, condcache, config, convert, data,
                denoiser, evaluation, external, gns, guidance, layers, models,
-               ode, ops, optim8bit, sampling, training, utils)
+               ode, ops, optim8bit, parallel, sampling, training, utils)
 from .denoiser import Denoiser
 from .ode import log_likelihood
 
 __all__ = ["augmentation", "checkpoint", "condcache", "config", "convert",
            "data", "denoiser", "evaluation", "external", "gns", "guidance",
-           "layers", "models", "ode", "ops", "optim8bit", "sampling",
-           "training", "utils", "Denoiser", "log_likelihood"]
+           "layers", "models", "ode", "ops", "optim8bit", "parallel",
+           "sampling", "training", "utils", "Denoiser", "log_likelihood"]

@@ -238,8 +238,12 @@ def make_dataset(dataset_config, size, config_dir=None):
 class DataLoader:
     """Shuffling, drop-last, prefetching batch loader yielding dicts of
     stacked numpy arrays ({"image": (B, H, W, C) float32, "class": (B,)
-    int32}), as the JAX package's for one process: epoch ``e`` visits
-    ``RandomState(seed + e).permutation(len(dataset))`` in batches.
+    int32}), as the JAX package's: epoch ``e`` visits
+    ``RandomState(seed + e).permutation(len(dataset))`` in batches. With
+    ``process_count`` above 1, every process shuffles with the same seed
+    and takes the stride ``order[process_index::process_count]``, trimmed
+    to ``len(dataset) // process_count`` items, so the processes' strides
+    partition each epoch (the JAX loader's, and DistributedSampler's).
 
     ``epoch`` is the next epoch to iterate (each ``__iter__`` takes it and
     adds one); ``start_batch`` makes the next ``__iter__`` skip that many
@@ -249,24 +253,32 @@ class DataLoader:
     ``prefetch + num_workers`` ahead of the consumer."""
 
     def __init__(self, dataset, batch_size, seed=0, num_workers=4,
-                 prefetch=4, drop_last=True):
+                 prefetch=4, drop_last=True, process_index=0,
+                 process_count=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self.start_batch = 0
 
     def __len__(self):
-        n, rem = divmod(len(self.dataset), self.batch_size)
+        n, rem = divmod(len(self.dataset) // self.process_count,
+                        self.batch_size)
         return n + int(not self.drop_last and rem > 0)
 
     def batch_indices(self, epoch):
-        """The dataset indices of each batch of ``epoch``."""
+        """The dataset indices of each of this process's batches of
+        ``epoch``."""
         order = np.random.RandomState(self.seed + epoch).permutation(
             len(self.dataset))
+        if self.process_count > 1:
+            order = order[self.process_index::self.process_count][
+                :len(self.dataset) // self.process_count]
         return [order[i * self.batch_size:(i + 1) * self.batch_size]
                 for i in range(len(self))]
 

@@ -24,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from . import parallel
 from .models import inception_v3
 from .utils import default_device
 
@@ -186,12 +187,19 @@ def make_extractor(name, **kwargs):
 
 def compute_features(sample_fn, extractor_fn, n, batch_size):
     """Draws ``n`` samples in batches of ``batch_size`` (``sample_fn(k)``
-    returns at least k images) and returns their (n, d) features."""
+    returns at least k images) and returns their (n, d) features. ``n``
+    counts the samples of all processes: with W of them, each draws
+    ``ceil((n - got) / W)`` (at most ``batch_size``) a round, and each
+    round's features are gathered in rank order
+    (``parallel.all_gather_rows``), so that every process returns the same
+    matrix, as the JAX package's ``process_allgather`` gives it."""
+    world = parallel.process_count()
     feats, got = [], 0
     while got < n:
-        cur = min(n - got, batch_size)
-        feats.append(extractor_fn(sample_fn(cur)[:cur]))
-        got += cur
+        cur = min(-(-(n - got) // world), batch_size)
+        batch = extractor_fn(sample_fn(cur)[:cur])
+        feats.append(parallel.all_gather_rows(batch) if world > 1 else batch)
+        got += cur * world
     return torch.cat(feats)[:n]
 
 

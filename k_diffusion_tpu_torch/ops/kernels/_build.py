@@ -112,6 +112,18 @@ def check_launch(lib, status, what):
             f"({lib.kdt_error_string(status).decode()})")
 
 
+def launch(lib, entry, what, device, *args):
+    """Calls ``lib``'s C entry point ``entry`` with ``args`` while CUDA
+    ``device`` is the current device (``torch.cuda.device``), so that a
+    kernel launches on its tensors' card whatever the calling thread's
+    current device is (a rank on ``cuda:N``); raises if it returns a CUDA
+    error."""
+    import torch
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(*args)
+    check_launch(lib, status, what)
+
+
 def stream_ptr(device):
     """The current CUDA stream of ``device`` as a pointer for ctypes."""
     import torch

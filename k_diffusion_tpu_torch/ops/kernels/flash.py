@@ -99,11 +99,11 @@ def flash_forward(q, k, v, scale=1.0, save_lse=False):
     lse = (torch.empty((b, heads, s), device=q.device, dtype=torch.float32)
            if save_lse else None)
     lib = _build.load("flash", kdt_flash_fwd=_SIGNATURE)
-    status = lib.kdt_flash_fwd(
+    _build.launch(
+        lib, "kdt_flash_fwd", "flash", q.device,
         *map(_build.ptr, (q, k, v, out)),
         None if lse is None else _build.ptr(lse), b, s, heads, e,
         q.stride(0), q.stride(1), scale, _build.stream_ptr(q.device))
-    _build.check_launch(lib, status, "flash")
     global launches
     launches += 1
     return out, lse
@@ -125,10 +125,10 @@ def flash_backward(q, k, v, out, lse, dout, scale=1.0):
     dq, dk, dv = (torch.empty((b, s, heads, e), device=dev, dtype=q.dtype)
                   for _ in range(3))
     lib = _build.load("flash", kdt_flash_bwd=_BWD_SIGNATURE)
-    status = lib.kdt_flash_bwd(
+    _build.launch(
+        lib, "kdt_flash_bwd", "flash backward", dev,
         *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, s,
         heads, e, q.stride(0), q.stride(1), scale, _build.stream_ptr(dev))
-    _build.check_launch(lib, status, "flash backward")
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv

@@ -134,11 +134,11 @@ def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
     out = torch.empty_like(x)
     warpgroups, out_tiles, groups = forward_split(b, t, d, d_ff, x.device)
     lib = _build.load("geglu", kdt_ffn_fwd=_FWD)
-    status = lib.kdt_ffn_fwd(*map(_build.ptr, (x, scale, w_up, w_down, out)),
-                             b, t, d, d_ff, warpgroups, out_tiles, groups,
-                             scale_stride, eps, _build.stream_ptr(x.device),
-                             None)
-    _build.check_launch(lib, status, "fused_ffn")
+    _build.launch(
+        lib, "kdt_ffn_fwd", "fused_ffn", x.device,
+        *map(_build.ptr, (x, scale, w_up, w_down, out)), b, t, d, d_ff,
+        warpgroups, out_tiles, groups, scale_stride, eps,
+        _build.stream_ptr(x.device), None)
     global launches
     launches += 1
     return out
@@ -176,13 +176,13 @@ def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
     dns_part = torch.empty((b * tiles, d), device=dev, dtype=f32)
     dw_part = torch.empty(part, device=dev, dtype=f32)
     lib = _build.load("geglu", kdt_ffn_bwd=_BWD)
-    status = lib.kdt_ffn_bwd(
+    _build.launch(
+        lib, "kdt_ffn_bwd", "fused_ffn backward", dev,
         *map(_build.ptr, (x, scale, w16_up, w16_down, g, dx, dscale, dw_up,
                           dw_down, h, dup, xn, r, dot_part, dns_part,
                           dw_part)),
         b, t, d, d_ff, groups, chunk_up, chunk_down, eps,
         _build.stream_ptr(dev))
-    _build.check_launch(lib, status, "fused_ffn backward")
     global bwd_launches
     bwd_launches += 1
     return (dx, dscale.to(scale.dtype), dw_up.to(w_up.dtype),

@@ -152,12 +152,12 @@ def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,
     ranks = cluster_size(index, d, d_ff, n, w_dtype == f32)
     out = torch.empty_like(emb)
     lib = _build.load("geglu", kdt_mapping=_SIGNATURE)
-    status = lib.kdt_mapping(
+    _build.launch(
+        lib, "kdt_mapping", "fused_mapping", dev,
         *map(_build.ptr, (emb, in_scale, out_scale)),
         (_P * len(weights))(*(t.data_ptr() for t in weights)),
         _build.ptr(out), b, d, d_ff, n, int(w_dtype == f32), ranks, eps,
         _build.stream_ptr(dev), None)
-    _build.check_launch(lib, status, "fused_mapping")
     global launches
     launches += 1
     return out

@@ -160,12 +160,12 @@ def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
     q, k, v = (torch.empty_like(x) for _ in range(3))
     step_panels, groups = forward_split(b, h * w, d, n_heads, x.device)
     lib = _build.load("fused_qkv", kdt_fused_qkv=_SIGNATURE)
-    status = lib.kdt_fused_qkv(
+    _build.launch(
+        lib, "kdt_fused_qkv", "fused_qkv", x.device,
         *map(_build.ptr, (x, norm_scale, w_qkv, attn_scale, pos, freqs,
                           q, k, v)),
         b, h * w, d, n_heads, step_panels, groups, scale_stride, eps, cos_eps,
         _build.stream_ptr(x.device), None)
-    _build.check_launch(lib, status, "fused_qkv")
     global launches
     launches += 1
     return q, k, v
@@ -204,13 +204,13 @@ def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
     dw_part = torch.empty((-(-rows // chunk_rows), d, 3 * d), device=dev,
                           dtype=f32)
     lib = _build.load("fused_qkv", kdt_fused_qkv_bwd=_BWD_SIGNATURE)
-    status = lib.kdt_fused_qkv_bwd(
+    _build.launch(
+        lib, "kdt_fused_qkv_bwd", "fused_qkv backward", dev,
         *map(_build.ptr, (x, norm_scale, w16, scale32, cos_t, sin_t, gq, gk,
                           gv, dx, dns, dw, das_sums, dqk, xn, r, dot_part,
                           das_part, dns_part, dw_part)),
         b, tokens, d, n_heads, groups, chunk_rows, eps, cos_eps,
         _build.stream_ptr(dev))
-    _build.check_launch(lib, status, "fused_qkv backward")
     global bwd_launches
     bwd_launches += 1
     das = (das_sums[:n_heads] + das_sums[n_heads:]) / (2 * scale32)

@@ -91,11 +91,11 @@ def packed_forward(q, k, v, n_heads, scale=1.0, save_lse=False):
     lse = (torch.empty((b, n_heads, s), device=q.device, dtype=torch.float32)
            if save_lse else None)
     lib = _build.load("global_packed", kdt_global_packed=_SIGNATURE)
-    status = lib.kdt_global_packed(
+    _build.launch(
+        lib, "kdt_global_packed", "global_packed", q.device,
         *map(_build.ptr, (q, k, v, out)),
         None if lse is None else _build.ptr(lse), b, s, n_heads, scale,
         _build.stream_ptr(q.device))
-    _build.check_launch(lib, status, "global_packed")
     global launches
     launches += 1
     return out, lse
@@ -114,10 +114,10 @@ def packed_backward(q, k, v, out, lse, dout, n_heads, scale=1.0):
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("global_packed", kdt_global_packed_bwd=_BWD_SIGNATURE)
-    status = lib.kdt_global_packed_bwd(
+    _build.launch(
+        lib, "kdt_global_packed_bwd", "global_packed backward", dev,
         *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)),
         b, s, n_heads, scale, _build.stream_ptr(dev))
-    _build.check_launch(lib, status, "global_packed backward")
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv

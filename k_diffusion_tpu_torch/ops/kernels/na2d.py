@@ -192,11 +192,11 @@ def packed_forward(q, k, v, n_heads, kernel_size, scale=1.0, save_lse=False):
     lse = (torch.empty((b, n_heads, h, w), device=q.device,
                        dtype=torch.float32) if save_lse else None)
     lib = _build.load("na2d", kdt_na2d_packed=_SIGNATURE)
-    status = lib.kdt_na2d_packed(
+    _build.launch(
+        lib, "kdt_na2d_packed", "na2d_packed", q.device,
         *map(_build.ptr, (q, k, v, out)),
         None if lse is None else _build.ptr(lse), b, h, w, n_heads,
         kernel_size, scale, _build.stream_ptr(q.device))
-    _build.check_launch(lib, status, "na2d_packed")
     global launches
     launches += 1
     return out, lse
@@ -280,10 +280,10 @@ def overlap_add(dk_part, dv_part, h, w, kernel_size):
     dk, dv = (torch.empty((b, h, w, n_heads * 64), device=dk_part.device,
                           dtype=torch.bfloat16) for _ in range(2))
     lib = _build.load("na2d", kdt_na2d_overlap_add=_OVERLAP_SIGNATURE)
-    status = lib.kdt_na2d_overlap_add(
+    _build.launch(
+        lib, "kdt_na2d_overlap_add", "na2d overlap-add", dk_part.device,
         *map(_build.ptr, (dk_part, dv_part, dk, dv)), b, h, w, n_heads,
         kernel_size, _build.stream_ptr(dk_part.device))
-    _build.check_launch(lib, status, "na2d overlap-add")
     global overlap_launches
     overlap_launches += 1
     return dk, dv
@@ -305,10 +305,10 @@ def packed_backward(q, k, v, out, lse, dout, n_heads, kernel_size,
     delta = torch.empty((b, n_heads, h, w), device=dev, dtype=torch.float32)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("na2d", kdt_na2d_packed_bwd=_BWD_SIGNATURE)
-    status = lib.kdt_na2d_packed_bwd(
+    _build.launch(
+        lib, "kdt_na2d_packed_bwd", "na2d_packed backward", dev,
         *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)),
         b, h, w, n_heads, kernel_size, scale, _build.stream_ptr(dev))
-    _build.check_launch(lib, status, "na2d_packed backward")
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv
@@ -324,11 +324,11 @@ def heads_forward(q, k, v, kernel_size, scale=1.0, save_lse=False):
     lse = (torch.empty((b, heads, h, w), device=q.device,
                        dtype=torch.float32) if save_lse else None)
     lib = _build.load("na2d_heads", kdt_na2d_heads=_HEADS_SIGNATURE)
-    status = lib.kdt_na2d_heads(
+    _build.launch(
+        lib, "kdt_na2d_heads", "na2d", q.device,
         *map(_build.ptr, (q, k, v, out)),
         None if lse is None else _build.ptr(lse), b, h, w, heads, e,
         kernel_size, scale, strides, _build.stream_ptr(q.device))
-    _build.check_launch(lib, status, "na2d")
     global heads_launches
     heads_launches += 1
     return out, lse
@@ -354,10 +354,10 @@ def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     dq, dk, dv = (torch.empty(q.shape, device=dev, dtype=q.dtype)
                   for _ in range(3))
     lib = _build.load("na2d_heads", kdt_na2d_heads_bwd=_HEADS_BWD_SIGNATURE)
-    status = lib.kdt_na2d_heads_bwd(
+    _build.launch(
+        lib, "kdt_na2d_heads_bwd", "na2d backward", dev,
         *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, h,
         w, heads, e, kernel_size, scale, strides, _build.stream_ptr(dev))
-    _build.check_launch(lib, status, "na2d backward")
     global heads_bwd_launches
     heads_bwd_launches += 1
     return dq, dk, dv
@@ -397,10 +397,10 @@ def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     _build.require(w16, "w_out", q.device, torch.bfloat16, (c, c))
     out = torch.empty_like(q)
     lib = _build.load("na2d_heads", kdt_na2d_proj=_PROJ_SIGNATURE)
-    status = lib.kdt_na2d_proj(
+    _build.launch(
+        lib, "kdt_na2d_proj", "na2d_packed_proj", q.device,
         *map(_build.ptr, (q, k, v, skip, w16, out)), b, h, w, n_heads, e,
         kernel_size, scale, _build.stream_ptr(q.device))
-    _build.check_launch(lib, status, "na2d_packed_proj")
     global proj_launches
     proj_launches += 1
     return out

@@ -30,6 +30,21 @@ the step from (seed + 3, step), the augmentation from (seed + 2, step),
 the demo from (seed, step), as the JAX trainer folds its keys. With the
 loader's epoch and position restored, a resumed run draws and reads
 exactly what the uninterrupted run would have.
+
+Data parallel: under ``python -m torch.distributed.run --nproc_per_node
+N -m k_diffusion_tpu_torch.train ...`` each process is one rank
+(``parallel``; NCCL with one card a rank, ``cuda:LOCAL_RANK``, or gloo
+with ``--device cpu``). ``--batch-size`` is the global batch, which must
+divide by N: each rank reads its stride of every epoch at batch
+``batch_size // N`` and runs the step on it, which draws at the global
+batch, takes its rows and all-reduces the gradients
+(``training.make_train_step``). The augmentation's generator also folds
+in the rank. The demo's and the evaluation's noise is drawn at the global
+batch and split over the ranks, and their samples and features are
+gathered. Only rank 0 prints and writes files, but every rank writes its
+share of an ``--checkpoint-format orbax`` checkpoint
+(``checkpoint.save_checkpoint_sharded``: ``torch.distributed.checkpoint``
+in the background, ``{name}_{step:08}.orbax``).
 """
 
 import argparse
@@ -39,10 +54,11 @@ import traceback
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from . import (augmentation, checkpoint, config as config_mod, data,
-               evaluation, gns as gns_mod, guidance, sampling, training,
-               utils)
+               evaluation, gns as gns_mod, guidance, parallel, sampling,
+               training, utils)
 
 
 class StarvationMonitor:
@@ -92,7 +108,10 @@ def parse_args(argv=None):
                    help="enable gradient checkpointing")
     p.add_argument("--checkpoint-format", type=str, default="torch",
                    choices=["torch", "orbax"],
-                   help="torch = one torch.save file; orbax is not ported")
+                   help="torch = one torch.save file; orbax = a sharded "
+                        "torch.distributed.checkpoint directory that every "
+                        "rank writes in the background (not Orbax's "
+                        "format; the JAX trainer's flag and file name)")
     p.add_argument("--remat-levels",
                    type=lambda s: int(s) if s.isdigit() else s, nargs="*",
                    default=None,
@@ -157,8 +176,6 @@ def check_ported(args):
     """Raises NotImplementedError for a flag the port does not run yet,
     naming where it waits in ROADMAP.md."""
     waits = [
-        (args.checkpoint_format == "orbax", "--checkpoint-format orbax",
-         "queue 1, item 7 (orbax and multi-process)"),
         (args.wandb_project, "--wandb-project",
          "queue 1, item 8 (wandb logging)"),
     ]
@@ -180,13 +197,32 @@ def to_device(array, device):
 def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    joined = parallel.initialize_distributed(backend="gloo" if cpu else None)
+    try:
+        return run(args)
+    finally:
+        checkpoint.wait_for_checkpoints()
+        if joined:
+            dist.destroy_process_group()
+
+
+def run(args):
+    world, rank = parallel.process_count(), parallel.process_index()
+    is_main = parallel.is_main_process()
+
+    def log(*values, **kwargs):
+        if is_main:
+            print(*values, **kwargs)
+
+    log(f"World: {world} process(es)", flush=True)
     device = utils.default_device(args.device)
     if device.type == "cuda" and args.mixed_precision == "no":
         raise NotImplementedError(
             "--mixed-precision no (float32 compute on the card) is not "
             "ported yet: ROADMAP.md queue 1, item 9")
     dtype = utils.compute_dtype(device)
-    print(f"Device: {device}, compute dtype {dtype}", flush=True)
+    log(f"Device: {device}, compute dtype {dtype}", flush=True)
 
     config = config_mod.load_config(args.config)
     model_config = config["model"]
@@ -200,24 +236,34 @@ def main(argv=None):
     num_classes = dataset_config["num_classes"]
     sigma_min, sigma_max = model_config["sigma_min"], model_config["sigma_max"]
     accum = args.grad_accum_steps
-    if args.gns and accum < 2:
+    if args.gns and world == 1 and accum < 2:
         raise ValueError("--gns needs a small batch distinct from the large "
-                         "one: set --grad-accum-steps > 1")
+                         "one: run on more than one process or set "
+                         "--grad-accum-steps > 1")
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} (the global batch) "
+                         f"does not divide over the {world} processes")
+    # a rank's batch: the GNS small batch, and each microbatch's size
+    local_batch = args.batch_size // world
 
     model = config_mod.make_model(
         config, dtype=dtype, device=device,
         generator=torch.Generator(device).manual_seed(seed),
         checkpointing=args.checkpointing, remat_levels=args.remat_levels)
-    print(f"Parameters: {sum(p.numel() for p in model.parameters()):,}")
+    if world > 1:
+        parallel.replicate(model)
+    log(f"Parameters: {sum(p.numel() for p in model.parameters()):,}")
 
     train_set = data.make_dataset(dataset_config, size[0],
                                   config_dir=Path(args.config).parent)
-    print(f"Number of items in dataset: {len(train_set):,}")
-    train_dl = data.DataLoader(train_set, args.batch_size * accum, seed=seed,
-                               num_workers=args.num_workers)
+    log(f"Number of items in dataset: {len(train_set):,}")
+    train_dl = data.DataLoader(train_set, local_batch * accum, seed=seed,
+                               num_workers=args.num_workers,
+                               process_index=rank, process_count=world)
     if not len(train_dl):
         raise ValueError(f"{len(train_set)} items make no batch of "
-                         f"{args.batch_size * accum}")
+                         f"{local_batch * accum} on each of {world} "
+                         f"processes")
     augment_prob = model_config["augment_prob"]
     aug_pipe = augmentation.KarrasAugmentationPipeline(
         augment_prob, disable_all=augment_prob == 0)
@@ -235,7 +281,7 @@ def main(argv=None):
         raise FileNotFoundError(f"--resume {args.resume}: no such file")
     ckpt_path = args.resume or checkpoint.latest_checkpoint(args.name)
     if ckpt_path and Path(ckpt_path).exists():
-        print(f"Resuming from {ckpt_path}...")
+        log(f"Resuming from {ckpt_path}...")
         state, host = checkpoint.load_checkpoint(ckpt_path, state)
         host["config"] = config  # the current run's config wins
         ema_sched.load_state_dict(host["ema_sched"])
@@ -248,7 +294,7 @@ def main(argv=None):
         state.model.load_state_dict(state.ema_model.state_dict())
         ema_sched = config_mod.make_ema_sched(config)
     if args.resume_inference:
-        print(f"Loading {args.resume_inference}...")
+        log(f"Loading {args.resume_inference}...")
         weights, _ = checkpoint.load_inference(args.resume_inference)
         state.model.load_state_dict(weights)
         state.ema_model.load_state_dict(weights)
@@ -257,17 +303,26 @@ def main(argv=None):
         denoiser_factory, config_mod.make_sample_density(model_config),
         num_classes=num_classes,
         cond_dropout_rate=dataset_config["cond_dropout_rate"],
-        stratified=not args.gns, compute_gns=args.gns)
+        stratified=not args.gns, compute_gns=args.gns, world=world,
+        rank=rank)
 
     def generator(seed_, step):
         return torch.Generator(device).manual_seed(
             sampling.fold_in(seed_, step))
 
+    def local(t):
+        return parallel.local_rows(t, rank, world) if world > 1 else t
+
     @torch.no_grad()
     def demo(step):
-        print("Sampling...")
+        """Every rank draws the global noise and classes; each samples its
+        rows where the ranks divide ``--sample-n``, else all of them (as
+        the JAX trainer's ``shard_sampler``), and rank 0 writes the
+        gathered grid."""
+        log("Sampling...")
         gen = generator(seed, step)
         n = args.sample_n
+        split = world > 1 and n % world == 0
         x = torch.randn((n, size[0], size[1], channels), generator=gen,
                         device=device) * sigma_max
         sigmas = sampling.get_sigmas_karras(50, sigma_min, sigma_max,
@@ -275,9 +330,15 @@ def main(argv=None):
         extra = ({"class_cond": torch.randint(0, num_classes, (n,),
                                               generator=gen, device=device)}
                  if num_classes else {})
+        if split:
+            x, extra = local(x), {k: local(v) for k, v in extra.items()}
         x_0 = sampling.sample_dpmpp_2m_sde(
             denoiser_factory(state.ema_model), x, sigmas, extra_args=extra,
             eta=0.0, solver_type="heun")
+        if split:
+            x_0 = parallel.all_gather_rows(x_0)
+        if not is_main:
+            return
         filename = f"{args.name}_demo_{step:08}.png"
         utils.to_png(utils.make_grid(x_0, nrow=math.ceil(n ** 0.5)),
                      filename)
@@ -295,17 +356,20 @@ def main(argv=None):
         try:
             extractor = evaluation.make_extractor(args.evaluate_with, **kw)
         except Exception as e:
-            traceback.print_exc()
-            print(f"Evaluation disabled (feature extractor unavailable: {e})",
-                  flush=True)
+            if is_main:
+                traceback.print_exc()
+            log(f"Evaluation disabled (feature extractor unavailable: {e})",
+                flush=True)
             evaluate_enabled = False
     reals_features = None
     if evaluate_enabled:
-        print("Computing features for reals...")
+        log("Computing features for reals...")
         # a loader of its own over the training set: the first batches of
-        # the training order, which the training loader reads unchanged
-        reals_dl = data.DataLoader(train_set, args.batch_size, seed=seed,
-                                   num_workers=args.num_workers)
+        # the training order (this rank's stride), which the training
+        # loader reads unchanged
+        reals_dl = data.DataLoader(train_set, local_batch, seed=seed,
+                                   num_workers=args.num_workers,
+                                   process_index=rank, process_count=world)
 
         def reals():
             while True:
@@ -314,19 +378,21 @@ def main(argv=None):
         real_iter = reals()
         reals_features = evaluation.compute_features(
             lambda n: to_device(next(real_iter)["image"][:n], device) * 2 - 1,
-            extractor, args.evaluate_n, args.batch_size)
-    metrics_log = utils.CSVLogger(f"{args.name}_metrics.csv",
-                                  ["step", "time", "loss", "fid", "kid"])
+            extractor, args.evaluate_n, local_batch)
+    metrics_log = (utils.CSVLogger(f"{args.name}_metrics.csv",
+                                   ["step", "time", "loss", "fid", "kid"])
+                   if is_main else None)
 
     @torch.no_grad()
     def evaluate(step):
         """FID and KID of ``--evaluate-n`` EMA samples (DPM++(2M) SDE, eta
         0, Heun, 50 Karras steps, through the CFG wrapper at scale 1, as
         the JAX trainer samples) against the reals' features; one row of
-        ``{name}_metrics.csv``."""
+        ``{name}_metrics.csv``. Each rank samples its rows of a batch drawn
+        at the global batch."""
         if not evaluate_enabled:
             return
-        print("Evaluating...")
+        log("Evaluating...")
         sigmas = sampling.get_sigmas_karras(50, sigma_min, sigma_max,
                                             rho=7.0, device=device)
         den = guidance.make_cfg_model_fn(denoiser_factory(state.ema_model),
@@ -336,21 +402,24 @@ def main(argv=None):
         def sample_fn(n):
             calls[0] += 1
             gen = generator(seed + 1, step * 1000 + calls[0])
-            b = args.batch_size
+            b = world * local_batch
             x = torch.randn((b, size[0], size[1], channels), generator=gen,
                             device=device) * sigma_max
             extra = ({"class_cond": torch.randint(0, num_classes, (b,),
                                                   generator=gen,
                                                   device=device)}
                      if num_classes else {})
+            x, extra = local(x), {k: local(v) for k, v in extra.items()}
             return sampling.sample_dpmpp_2m_sde(
                 den, x, sigmas, extra_args=extra, eta=0.0,
                 solver_type="heun")[:n]
 
         fakes_features = evaluation.compute_features(
-            sample_fn, extractor, args.evaluate_n, args.batch_size)
+            sample_fn, extractor, args.evaluate_n, local_batch)
         fid = float(evaluation.fid(fakes_features, reals_features))
         kid = float(evaluation.kid(fakes_features, reals_features))
+        if not is_main:
+            return
         print(f"FID: {fid:g}, KID: {kid:g}", flush=True)
         metrics_log.write(step, host["elapsed"],
                           host["ema_stats"].get("loss", float("nan")), fid,
@@ -360,6 +429,17 @@ def main(argv=None):
         host["step"] = step
         host["ema_sched"] = ema_sched.state_dict()
         host["gns_stats"] = gns_stats.state_dict() if gns_stats else None
+        if args.checkpoint_format == "orbax":
+            # every rank writes its share, in the background; the pointer
+            # moves once the save has committed
+            filename = f"{args.name}_{step:08}.orbax"
+            log(f"Saving to {filename}...")
+            checkpoint.save_checkpoint_sharded(filename, state, host)
+            if is_main:
+                checkpoint.write_state_json_after_commit(args.name, filename)
+            return
+        if not is_main:
+            return
         filename = f"{args.name}_{step:08}.ckpt"
         print(f"Saving to {filename}...")
         checkpoint.save_checkpoint(filename, state, host)
@@ -384,7 +464,7 @@ def main(argv=None):
     def drain_gns():
         for sqn_small, sqn_big in gns_pending:
             gns_stats.update(float(sqn_small), float(sqn_big),
-                             args.batch_size, args.batch_size * accum)
+                             local_batch, args.batch_size * accum)
         gns_pending.clear()
 
     starvation = StarvationMonitor()
@@ -402,19 +482,21 @@ def main(argv=None):
                 batch_in_epoch += 1
                 host["batch_in_epoch"] = batch_in_epoch
                 images = to_device(batch["image"], device)
+                aug_gen = generator(seed + 2, step)
+                if world > 1:  # each rank's images get draws of their own
+                    aug_gen = generator(aug_gen.initial_seed(), rank)
                 reals, _, aug_cond = aug_pipe.apply(
-                    aug_pipe.draw(images.shape[0], generator(seed + 2, step)),
-                    images)
+                    aug_pipe.draw(images.shape[0], aug_gen), images)
                 dev_batch = {
-                    "reals": reals.reshape(accum, args.batch_size,
+                    "reals": reals.reshape(accum, local_batch,
                                            *reals.shape[1:]),
-                    "aug_cond": aug_cond.reshape(accum, args.batch_size, 9)}
+                    "aug_cond": aug_cond.reshape(accum, local_batch, 9)}
                 if num_classes and "class" in batch:
                     dev_batch["class_cond"] = to_device(
                         batch["class"], device).long().reshape(
-                        accum, args.batch_size)
+                        accum, local_batch)
 
-                if args.profile_dir and step == 10:
+                if args.profile_dir and step == 10 and is_main:
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if device.type == "cuda":
                         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -451,7 +533,7 @@ def main(argv=None):
                 host["elapsed"] += t_body_end - t0
                 starvation.record(data_wait, t_body_end - t0)
                 window["steps"] += 1
-                window["images"] += images.shape[0]
+                window["images"] += world * images.shape[0]
                 window["body_s"] += t_body_end - t0
                 window["wait_s"] += data_wait
 
@@ -468,17 +550,17 @@ def main(argv=None):
                     last_window = dict(window)
                     window.update(dict.fromkeys(window, 0))
                     wall = last_window["body_s"] + last_window["wait_s"]
-                    print(f"Epoch: {epoch}, step: {step}, loss: "
-                          f"{sum(loss_vals) / len(loss_vals):g}, avg loss: "
-                          f"{host['ema_stats']['loss']:g}{gns_str}, "
-                          f"images/s: "
-                          f"{last_window['images'] / last_window['body_s']:g} "
-                          f"({last_window['images'] / wall:g} with loader "
-                          f"waits, {last_window['wait_s'] / wall:.1%} "
-                          f"waiting)", flush=True)
+                    log(f"Epoch: {epoch}, step: {step}, loss: "
+                        f"{sum(loss_vals) / len(loss_vals):g}, avg loss: "
+                        f"{host['ema_stats']['loss']:g}{gns_str}, "
+                        f"images/s: "
+                        f"{last_window['images'] / last_window['body_s']:g} "
+                        f"({last_window['images'] / wall:g} with loader "
+                        f"waits, {last_window['wait_s'] / wall:.1%} "
+                        f"waiting)", flush=True)
                     warn = starvation.check()
                     if warn:
-                        print(warn, flush=True)
+                        log(warn, flush=True)
 
                 step += 1
                 host["step"] = step
@@ -491,7 +573,7 @@ def main(argv=None):
                         drain_gns()  # the estimator up to date in the file
                     save(step)
                 if step == args.end_step:
-                    print("Done!")
+                    log("Done!")
                     return last_window
                 t_loop_end = time.perf_counter()
             epoch += 1

@@ -1,12 +1,15 @@
 """The training step: optimizer, train state and one step of
 sample sigmas -> noise -> loss -> backward -> clip -> AdamW (or 8-bit
 AdamW, or SGD) -> EMA
-(counterpart of k_diffusion_tpu/training.py, without the device mesh).
+(counterpart of k_diffusion_tpu/training.py).
 
 The JAX package jits one pure function of (state, batch, key); here the
 step is eager PyTorch that updates the model, the optimizer and the EMA
 copy in place. Draws (sigmas, noise, class dropout, dropout masks) come
-from the ``torch.Generator`` passed to each step.
+from the ``torch.Generator`` passed to each step. Under data parallelism
+each rank runs the step on its rows of the global batch and averages the
+gradients with an explicit all-reduce (``parallel.all_mean_``), as the
+JAX step's ``shard_map`` path does with ``pmean``.
 
 Left out, and why:
 - ``flatopt.py``, the JAX package's default AdamW for the flagship, packs
@@ -24,7 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import config as config_mod
+from . import config as config_mod, parallel, sampling
 from .models import image_transformer_v1, image_transformer_v2, image_v1
 from .optim8bit import AdamW8bit
 from .utils import ema_update
@@ -176,7 +179,8 @@ def _sq_norm(grads):
 
 
 def make_train_step(denoiser_factory, sample_density, *, num_classes=0,
-                    cond_dropout_rate=0.0, stratified=True, compute_gns=False):
+                    cond_dropout_rate=0.0, stratified=True, compute_gns=False,
+                    world=1, rank=0):
     """Returns ``step(state, batch, generator, ema_decay, noise=None,
     class_drop=None) -> metrics``.
 
@@ -194,15 +198,36 @@ def make_train_step(denoiser_factory, sample_density, *, num_classes=0,
     microbatches and averaged; then the optimizer (clip + AdamW) and the
     EMA update with ``ema_decay``. The dropout masks come from
     ``generator`` too. ``metrics`` holds tensors: ``loss`` and, with
-    ``compute_gns``, the small- and big-batch gradient squared norms."""
+    ``compute_gns``, the small- and big-batch gradient squared norms.
+
+    With ``world`` ranks, this one ``rank``, B is the rank's batch and the
+    global batch is W * B. Every rank passes a generator in the same state:
+    the sigmas (A, W * B), stratified over the global batch, the noise and
+    the class-dropout uniforms are drawn at the global batch, and the
+    given ``noise`` and ``class_drop`` are global too; each rank takes its
+    rows (``parallel.local_rows``). So the step computes what one process
+    computes at batch W * B, up to the order in which the gradients are
+    summed. The dropout masks come from a generator of the rank's own,
+    seeded from ``generator``'s seed and the rank (JAX's per-shard
+    ``fold_in``). After each microbatch's gradient the step all-reduces
+    the gradient and the loss to their means over the ranks
+    (``parallel.all_mean_``); with ``compute_gns`` the small-batch signal
+    is each rank's squared norm before the reduce, averaged over the ranks
+    (B images a microbatch). At world 1 nothing is reduced and every draw
+    is as above."""
+    shared = world > 1
+
+    def local(t):
+        return parallel.local_rows(t, rank, world) if shared else t
 
     def drop_classes(classes, generator, class_drop):
         if cond_dropout_rate <= 0:
             return classes
         if class_drop is None:
-            class_drop = torch.rand(classes.shape, generator=generator,
+            class_drop = torch.rand((world * classes.shape[0],),
+                                    generator=generator,
                                     device=classes.device) < cond_dropout_rate
-        return torch.where(class_drop, num_classes, classes)
+        return torch.where(local(class_drop), num_classes, classes)
 
     def step(state, batch, generator, ema_decay, noise=None, class_drop=None):
         model = state.model
@@ -210,33 +235,44 @@ def make_train_step(denoiser_factory, sample_density, *, num_classes=0,
         a_steps, b = reals.shape[:2]
         model.train()
         sigmas = sample_density(
-            (a_steps * b,), stratified=(0, 1) if stratified else None,
-            generator=generator, device=reals.device).reshape(a_steps, b)
+            (a_steps * world * b,), stratified=(0, 1) if stratified else None,
+            generator=generator, device=reals.device).reshape(
+            a_steps, world * b)
+        dropout_generator = generator
+        if shared:
+            dropout_generator = torch.Generator(reals.device).manual_seed(
+                sampling.fold_in(generator.initial_seed(), rank))
         params = state.optimizer.params
         grads, loss_sum, sqn_small = None, 0.0, 0.0
         for i in range(a_steps):
-            extra = {"generator": generator}
+            extra = {"generator": dropout_generator}
             for key in ("aug_cond", "mapping_cond", "cross_cond",
                         "cross_cond_padding"):
                 if key in batch:
                     extra[key] = batch[key][i]
             mb_noise = (noise[i] if noise is not None else torch.randn(
-                reals[i].shape, generator=generator, device=reals.device,
-                dtype=reals.dtype))
+                (world * b, *reals.shape[2:]), generator=generator,
+                device=reals.device, dtype=reals.dtype))
             if "class_cond" in batch:
                 extra["class_cond"] = drop_classes(
                     batch["class_cond"][i], generator,
                     None if class_drop is None else class_drop[i])
             den = denoiser_factory(model)
-            loss = den.loss(reals[i], mb_noise, sigmas[i], **extra).mean()
-            mb_grads = torch.autograd.grad(loss, params)
+            loss = den.loss(reals[i], local(mb_noise), local(sigmas[i]),
+                            **extra).mean()
+            mb_grads = list(torch.autograd.grad(loss, params))
+            loss = loss.detach()
+            sqn = _sq_norm(mb_grads) if compute_gns else None
+            if shared:
+                parallel.all_mean_(
+                    mb_grads + [loss] + ([sqn] if compute_gns else []))
             if compute_gns:
-                sqn_small = sqn_small + _sq_norm(mb_grads)
+                sqn_small = sqn_small + sqn
             if grads is None:
-                grads = list(mb_grads)
+                grads = mb_grads
             else:
                 torch._foreach_add_(grads, mb_grads)
-            loss_sum = loss_sum + loss.detach()
+            loss_sum = loss_sum + loss
         if a_steps > 1:
             torch._foreach_div_(grads, a_steps)
         for p, g in zip(params, grads):

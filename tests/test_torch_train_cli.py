@@ -226,7 +226,6 @@ def test_model_families_train_through_the_entry_point(tmp_path, model):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--checkpoint-format", "orbax"], "queue 1, item 7"),
     (["--wandb-project", "p"], "queue 1, item 8"),
     (["--device", "cuda", "--mixed-precision", "no"], "queue 1, item 9"),
 ])
