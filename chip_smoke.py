@@ -172,6 +172,25 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    1 process(es)``; that checkpoint loaded on the card, saved again
    sharded (async, the pointer moved after the commit) and loaded back
    through the pointer gives bit-equal model, EMA and optimizer state.
+25. float32 compute on the card (``float32_phase``, ``--mixed-precision
+   no``, the U-Net family): (a) the float32 forms of K13 and K14
+   (csrc/attn_tf32.cuh, TF32 tensor cores) against their plain versions in
+   float32 with TF32 off, within 5e-3 x max|plain|, at the cifar10 U-Net's
+   shapes at batch 64 (its main path), config_mnist.json's 7 x 7 level and
+   head dim 32; (c) their times beside the plain version's and SDPA's on
+   the float32 inputs (TF32 on), the bound from TF32's 494.7 TFLOP/s; (b)
+   on the same inputs each float32 kernel's error against float64 at most
+   1/4 of the bf16 kernel's; (d) the cifar10 U-Net at batch 64 in float32
+   (TF32) and in bf16 on the card against float32 on the CPU, forward and
+   gradient: the float32 errors at most 1/4 of bf16's, launch counts in
+   each dtype's kernels only; (e) 50-step DPM++(2M) and 3 + 20 training
+   steps at batch 64 in float32 (16 float32 K13 a call; 16 K13 and 16 K14
+   a step; no bf16 flash launch) beside phases 11 and 12; (f) the trainer
+   with --mixed-precision no on config_cifar10.json from seeded in-memory
+   images: 4 steps with saves and a demo grid as a subprocess, a resume
+   from step 2 within 1e-3, 3 steps in-process with launch counts; (g) the
+   flagship HDiT and the ViT in float32 on the card, and the trainer's
+   --mixed-precision no on the flagship, refused by name.
 
 Each kernel line also gives the kernel's achieved TFLOP/s (the operations
 its function needs over its time) and its time's share of the bound.
@@ -181,7 +200,8 @@ Then one JSON line of per-kernel results and last ``{"ok": true, "device":
 are summed over its calls in one denoiser call (forward kernels) or one
 training step (backward kernels) on its main path: the flagship at batch 8
 for K1-K10 and, in the unfused step, K11 and K12; the U-Net at batch 64 for
-K13 and K14; one op call at each flagship NA level for K15 and K8.
+K13 and K14, in bf16 and (``flash_f32``, ``flash_bwd_f32``) in float32;
+one op call at each flagship NA level for K15 and K8.
 ``launches`` is its count in that path's sampling (forward) or timed
 training (backward) run, for K11 and K12 the unfused training run, for K15
 and K8 their op paths. Any
@@ -236,14 +256,16 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # one kernel at one shape: ``calls`` per denoiser call or training step on
 # its main path; ``fn`` the kernel's wrapper, ``plain`` its plain version,
-# each returning a tensor or a tuple of tensors; ``flops`` the bf16
-# operations the function needs at this shape and ``inputs`` the tensors it
-# reads, for the bound; ``timed`` what is timed and counted as the kernel
-# where that is not ``fn``; ``library`` one PyTorch call that computes the
-# same function, timed as a yardstick and used nowhere in the port
+# each returning a tensor or a tuple of tensors; ``flops`` the operations
+# the function needs at this shape and ``inputs`` the tensors it reads, for
+# the bound; ``timed`` what is timed and counted as the kernel where that
+# is not ``fn``; ``library`` one PyTorch call that computes the same
+# function, timed as a yardstick and used nowhere in the port; ``rel_bound``
+# the kernel's error bound against the plain version (x its max|plain|) and
+# ``peak`` the card's peak rate for the operations' type
 Case = collections.namedtuple(
-    "Case", "name label calls fn plain flops inputs timed library",
-    defaults=(None, None))
+    "Case", "name label calls fn plain flops inputs timed library rel_bound "
+    "peak", defaults=(None, None, KERNEL_REL_BOUND, PEAK_BF16_FLOPS))
 
 
 def device_ms(fn, reps):
@@ -288,12 +310,13 @@ def tensors(*items):
     return out
 
 
-def bound_ms(flops, inputs, outputs):
-    """(ms from the operations at the bf16 peak, ms from the bytes at the
-    memory rate): each input read once, each output written once."""
+def bound_ms(flops, inputs, outputs, peak=PEAK_BF16_FLOPS):
+    """(ms from the operations at the ``peak`` rate, by default bf16's, ms
+    from the bytes at the memory rate): each input read once, each output
+    written once."""
     moved = sum(t.numel() * t.element_size()
                 for t in tensors(inputs, outputs))
-    return flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    return flops / peak * 1e3, moved / PEAK_BYTES_PER_S * 1e3
 
 
 def lecun(shape, g, dev):
@@ -917,15 +940,15 @@ def run_cases(cases, results, kernel_reps, plain_reps):
         got, want = c.fn(), c.plain()
         torch.cuda.synchronize()
         outs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        checks = [check_close(f"{c.name} {c.label}", a, b_, KERNEL_REL_BOUND)
+        checks = [check_close(f"{c.name} {c.label}", a, b_, c.rel_bound)
                   for a, b_ in outs]
         err = max(e for e, _ in checks)
         # the worst output's error as a share of its max |plain|
-        share = max(e / limit * KERNEL_REL_BOUND if limit else 0.0
+        share = max(e / limit * c.rel_bound if limit else 0.0
                     for e, limit in checks)
         timed = c.timed or c.fn
         op_ms, byte_ms = bound_ms(c.flops, c.inputs,
-                                  timed() if c.timed else got)
+                                  timed() if c.timed else got, c.peak)
         del got, want
         ms = device_ms(timed, kernel_reps)
         plain_ms = device_ms(c.plain, plain_reps)
@@ -934,7 +957,7 @@ def run_cases(cases, results, kernel_reps, plain_reps):
         bound = max(op_ms, byte_ms)
         print(f"kernel {c.name} [{c.label}]: max abs err {err:.3e}, worst "
               f"output {share:.2e} x its max|plain| (bound "
-              f"{KERNEL_REL_BOUND}), {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{c.rel_bound}), {ms:.4f} ms, plain {plain_ms:.4f} ms"
               f"{lib}; bound {bound:.4f} ms (operations {op_ms:.4f}, bytes "
               f"{byte_ms:.4f}); {c.flops / ms / 1e9:.2f} TFLOP/s, "
               f"{bound / ms:.1%} of the bound", flush=True)
@@ -1264,12 +1287,13 @@ def forward_parity(KT, config, dev, fill, g, name, batch=2, **cond):
 
 
 def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name,
-           extra=None, ops=()):
+           extra=None, ops=(), report=None):
     """50-step DPM++(2M) at ``batch`` from sigma_max; the output finite and
     the launch counts ``per_call`` x STEPS. ``fwd_flops``: the model's
     FLOPs per image per forward; ``extra``: the model's other inputs (on
     the card); ``ops``: PyTorch ops the profile lists by name. Returns the
-    launch counts."""
+    launch counts; ``report``, where given, receives the seconds, samples/s,
+    peak memory and the profile's card time per call."""
     extra = extra or {}
     from k_diffusion_tpu_torch.ops import kernels
 
@@ -1282,6 +1306,7 @@ def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name,
     with torch.no_grad():
         denoiser(x, sigmas[:1].expand(batch), **extra)  # warm up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         start = time.perf_counter()
         samples = KT.sampling.sample_dpmpp_2m(denoiser, x, sigmas,
@@ -1289,6 +1314,7 @@ def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name,
         torch.cuda.synchronize()
         secs = time.perf_counter() - start
         counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
     if samples.shape != x.shape or not torch.isfinite(samples).all():
         raise AssertionError(f"{name}: output not finite or wrong shape")
     # no backward kernel runs while sampling
@@ -1299,15 +1325,18 @@ def sample(KT, config, model, dev, g, batch, per_call, fwd_flops, smi, name,
                              f"{expected}")
     tflops = fwd_flops * batch * STEPS / secs / 1e12
     print(f"{name}: {STEPS}-step DPM++(2M), batch {batch}: {secs:.3f} s, "
-          f"{batch / secs:.3f} samples/s, model {tflops:.2f} TFLOP/s on "
-          f"{smi}; launches {counts}", flush=True)
+          f"{batch / secs:.3f} samples/s, model {tflops:.2f} TFLOP/s, peak "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated) on {smi}; "
+          f"launches {counts}", flush=True)
 
     def calls(n):
         with torch.no_grad():
             for _ in range(n):
                 denoiser(x, sigmas[:1].expand(batch), **extra)
 
-    profile(calls, name, "denoiser calls", ops)
+    busy = profile(calls, name, "denoiser calls", ops)
+    if report is not None:
+        report.update(secs=secs, rate=batch / secs, peak=peak, busy_ms=busy)
     return counts
 
 
@@ -1392,9 +1421,10 @@ def main():
                                        unet["model"]["self_attn_depths"]) if a)
     if counts != dict.fromkeys(kernels.COUNTERS, 0) | {"flash": n_attn}:
         raise AssertionError(f"unet forward: launch counts {counts}")
+    unet_sample, unet_train = {}, {}
     unet_sample_counts = sample(KT, unet, model, dev, g, UNET_BATCH,
                                 {"flash": n_attn}, unet_flops, smi,
-                                "unet sampling")
+                                "unet sampling", report=unet_sample)
     del model
     torch.cuda.empty_cache()
     aug = torch.randn((2, 9), generator=torch.Generator().manual_seed(SEED + 8))
@@ -1402,7 +1432,8 @@ def main():
                 aug_cond=aug)
     unet_train_counts, _ = train(KT, unet, dev, smi, UNET_BATCH,
                                  {"flash": n_attn, "flash_bwd": n_attn},
-                                 unet_flops, "unet training")
+                                 unet_flops, "unet training",
+                                 report=unet_train)
 
     # the HDiT config whose global level K3 does not take: phase 13
     mnist = KT.config.load_config(MNIST_TRANSFORMER)
@@ -1498,9 +1529,15 @@ def main():
     # data parallelism: phase 24
     data_parallel_phase(KT, config, dev, smi)
 
+    # float32 compute on the card, the U-Net: phase 25
+    f32_sample_counts, f32_train_counts = float32_phase(
+        KT, unet, dev, smi, results, n_attn, unet_flops, unet_sample,
+        unet_train)
+
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
-    # the unfused training steps for K11/K12, the op paths for K15 and K8)
+    # the unfused training steps for K11/K12, the op paths for K15 and K8,
+    # phase 25's float32 runs for K13's and K14's float32 forms)
     paths = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
         "na2d": ("na_fwd.cuh", "na2d.py:576", sample_counts),
@@ -1519,6 +1556,8 @@ def main():
         "na2d_heads": ("na_fwd.cuh", "na2d.py:180", unfused_counts),
         "na2d_heads_bwd": ("na_bwd.cuh", "na2d.py:241", unfused_counts),
         "na2d_proj": ("na_proj.cuh", "na2d.py:991", proj_counts),
+        "flash_f32": ("attn_tf32.cuh", "flash.py:34", f32_sample_counts),
+        "flash_bwd_f32": ("attn_tf32.cuh", "flash.py:57", f32_train_counts),
     }
     report = []
     for name, (src, tpu, counts) in paths.items():
@@ -1551,7 +1590,8 @@ def main():
 # K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
-    "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
+    "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
+              "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
     "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
     "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
                    "na_proj_kernel"),
@@ -1608,15 +1648,20 @@ def default_build_check(KT, config, name):
     """Phase 18: ``make_model(config)`` with no dtype and no device builds
     on the card in bfloat16 (``utils.compute_dtype``), and its denoiser
     gives a finite output of the input's shape at batch 2 (fresh weights,
-    eval mode); an explicit float32 on the card raises ValueError naming
-    bfloat16 before anything is allocated."""
+    eval mode); an explicit float32 on the card builds a float32 model for
+    a family whose kernels take it (the U-Net) and raises ValueError naming
+    bfloat16 before anything is allocated for the others."""
+    takes_f32 = torch.float32 in KT.config.model_module(config).CARD_DTYPES
     try:
-        KT.config.make_model(config, dtype=torch.float32)
+        built = KT.config.make_model(config, dtype=torch.float32)
     except ValueError as e:
-        if "bfloat16" not in str(e):
+        if takes_f32 or "bfloat16" not in str(e):
             raise
     else:
-        raise AssertionError(f"{name}: float32 compute on the card built")
+        if not takes_f32 or built.dtype != torch.float32:
+            raise AssertionError(f"{name}: float32 compute on the card built "
+                                 f"a {built.dtype} model")
+        del built
     model = KT.config.make_model(config).eval()
     dev = next(model.parameters()).device
     if model.dtype != torch.bfloat16 or dev.type != "cuda":
@@ -1632,8 +1677,8 @@ def default_build_check(KT, config, name):
                              f"finite or has shape {tuple(out.shape)}")
     print(f"default build ({name}): make_model(config) computes in "
           f"{model.dtype} on {dev}; forward at batch 2 finite, "
-          f"{tuple(out.shape)}; float32 on the card refused by name",
-          flush=True)
+          f"{tuple(out.shape)}; float32 on the card "
+          f"{'builds' if takes_f32 else 'refused by name'}", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -3281,6 +3326,376 @@ def data_parallel_trainer(KT, config, dev, smi):
           f"the host dict bit for bit equal; on {smi}", flush=True)
 
 
+# phase 25: float32 compute on the card (--mixed-precision no), the U-Net
+# family: the float32 forms of K13 and K14 (csrc/attn_tf32.cuh)
+MNIST_UNET = ROOT / "configs" / "config_mnist.json"
+# a float32 kernel against its plain version in float32 with TF32 off, x
+# its max|plain|: the kernel rounds each product's operands to TF32 (10
+# mantissa bits, 2^-11 relative), the plain version keeps 23
+F32_KERNEL_REL_BOUND = 5e-3
+# each float32 kernel's error against float64 at most this share of the
+# bf16 kernel's on the same inputs: TF32 keeps 3 mantissa bits more than
+# bf16 (8x finer), so a kernel that rounded to bf16 anywhere would not pass
+TF32_SHARE = 0.25
+# the float32 U-Net on the card (TF32 products) against float32 on the CPU,
+# relative L2 of the output and of the gradient, at most this share of the
+# bf16 card model's error against the same CPU model
+F32_MODEL_SHARE = 0.25
+# published dense TF32 tensor-core peak of one H100 SXM at 700 W
+PEAK_TF32_FLOPS = 494.7e12
+# the float32 trainer's resume against the uninterrupted run, relative L2
+RESUME_REL_BOUND = 1e-3
+
+
+@contextlib.contextmanager
+def tf32(enabled):
+    """TF32 products on (as ``--mixed-precision no`` trains) or off for
+    cuBLAS and cuDNN inside; the flags as they were afterwards."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def under_tf32(enabled, fn):
+    """``fn`` called with TF32 ``enabled``."""
+    def call():
+        with tf32(enabled):
+            return fn()
+    return call
+
+
+def float32_shapes(unet):
+    """((b, s, heads, e), calls per denoiser call or step) of phase 25: the
+    cifar10 U-Net's attention at batch 64 (its main path); at batch 64
+    config_mnist.json's 7 x 7 level and head dim 32 at s 256, which count
+    no calls."""
+    shapes = [((UNET_BATCH, s, heads, 64), n)
+              for (s, heads), n in unet_attention_shapes(unet)]
+    mnist = json.loads(MNIST_UNET.read_text())
+    shapes += [((UNET_BATCH, s, heads, 64), 0)
+               for (s, heads), _ in unet_attention_shapes(mnist)]
+    return shapes + [((UNET_BATCH, 256, 4, 32), 0)]
+
+
+def float32_inputs(g, dev, b, s, heads, e):
+    """q, k, v strided views of one float32 (b, s, 3, heads, e) projection,
+    as the U-Net makes them, logits of about unit spread at scale 1/8, and
+    a contiguous dout."""
+    qkv = torch.randn((b, s, 3, heads, e), generator=g) * (64 / e) ** 0.5
+    dout = torch.randn((b, s, heads, e), generator=g)
+    return (*qkv.to(dev).unbind(2), dout.to(dev))
+
+
+def float32_cases(dev, shapes):
+    """Phase 25 (a) and (c): K13 and K14 in float32 against their plain
+    versions in float32 with TF32 off, within F32_KERNEL_REL_BOUND; the
+    bound from TF32's peak; SDPA and its backward on the float32 inputs,
+    TF32 on, as the library yardstick."""
+    from k_diffusion_tpu_torch.ops.kernels import flash
+
+    g = torch.Generator().manual_seed(SEED + 25)
+    cases = []
+    for (b, s, heads, e), n in shapes:
+        label = f"{b}x{s}x{heads}x{e}"
+        q, k, v, dout = float32_inputs(g, dev, b, s, heads, e)
+        fwd_flops = 2 * 2 * b * heads * s * s * e
+        cases.append(Case(
+            "flash_f32", label, n,
+            lambda t=(q, k, v): flash.flash_attention(*t, 0.125),
+            under_tf32(False, lambda t=(q, k, v): flash.reference(*t, 0.125)),
+            fwd_flops, (q, k, v),
+            library=under_tf32(True, lambda t=(q, k, v): sdpa(*t, 0.125)),
+            rel_bound=F32_KERNEL_REL_BOUND, peak=PEAK_TF32_FLOPS))
+        out, lse = flash.flash_forward(q, k, v, 0.125, save_lse=True)
+        with tf32(True):
+            library = sdpa_backward(q, k, v, dout, 0.125)
+        cases.append(Case(
+            "flash_bwd_f32", label, n,
+            lambda a=(q, k, v, out, lse, dout): flash.flash_backward(*a, 0.125),
+            under_tf32(False, lambda a=(q, k, v, dout):
+                       flash.reference_backward(*a, 0.125)),
+            5 * fwd_flops // 2, (q, k, v, out, lse, dout),
+            library=under_tf32(True, library),
+            rel_bound=F32_KERNEL_REL_BOUND, peak=PEAK_TF32_FLOPS))
+    return cases
+
+
+def tf32_check(dev, shapes):
+    """Phase 25 (b): on the same float32 inputs, each float32 kernel's and
+    each bf16 kernel's (on the inputs rounded to bf16) output, dq, dk and
+    dv against the plain version in float64, max abs error over max|f64|;
+    the float32 kernels' at most TF32_SHARE x the bf16 kernels'. Also the
+    lse of both against float64, printed."""
+    from k_diffusion_tpu_torch.ops.kernels import flash
+
+    g = torch.Generator().manual_seed(SEED + 26)
+    worst = 0.0
+    for (b, s, heads, e), _ in shapes:
+        inputs = float32_inputs(g, dev, b, s, heads, e)
+        wide = [t.double() for t in inputs]
+        want = (flash.reference(*wide[:3], 0.125),
+                flash.reference_lse(*wide[:3], 0.125),
+                *flash.reference_backward(*wide, 0.125))
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (t.to(dtype) for t in inputs)
+            out, lse = flash.flash_forward(q, k, v, 0.125, save_lse=True)
+            got = (out, lse, *flash.flash_backward(q, k, v, out, lse, dout,
+                                                   0.125))
+            errs[dtype] = [((a.double() - w).abs().max()
+                            / w.abs().max()).item() for a, w in zip(got, want)]
+        shares = {name: a / c for name, a, c in zip(
+            ("out", "lse", "dq", "dk", "dv"), errs[torch.float32],
+            errs[torch.bfloat16]) if name != "lse"}
+        label = f"{b}x{s}x{heads}x{e}"
+        if not max(shares.values()) <= TF32_SHARE:
+            raise AssertionError(f"tf32 check {label}: float32 kernels' "
+                                 f"errors against float64 {shares} x the "
+                                 f"bf16 kernels', bound {TF32_SHARE}")
+        worst = max(worst, *shares.values())
+        print(f"tf32 check [{label}]: against float64, max abs err over "
+              f"max|f64| (out, lse, dq, dk, dv): float32 kernels "
+              f"{[f'{x:.2e}' for x in errs[torch.float32]]}, bf16 kernels "
+              f"{[f'{x:.2e}' for x in errs[torch.bfloat16]]}; float32 / "
+              f"bf16 {({k: round(v, 3) for k, v in shares.items()})} "
+              f"(bound {TF32_SHARE})", flush=True)
+    print(f"tf32 check: worst float32 / bf16 error share {worst:.3f} over "
+          f"{len(shapes)} shapes (bound {TF32_SHARE})", flush=True)
+
+
+def float32_model_parity(KT, unet, dev, n_attn, batch=UNET_BATCH):
+    """Phase 25 (d): the cifar10 U-Net (dropout 0, seeded weights, zero-init
+    kernels filled) at ``batch``, in float32 on the card with TF32 on and
+    in bf16 on the card, against the same weights in float32 on the CPU:
+    relative L2 of the denoiser output (eval) and of one loss's full
+    parameter gradient (train, the same reals, noise, sigmas and
+    aug_cond). The float32 model's errors at most F32_MODEL_SHARE x the
+    bf16 model's; each run's launch counts: K13 twice a block (the forward,
+    the loss) and K14 once, in its dtype's kernels only."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    config = no_dropout(unet)
+    g = torch.Generator().manual_seed(SEED + 27)
+    reference = KT.config.make_model(config, device="cpu", generator=g)
+    fill_zero_init_unet(reference, g)
+    x = torch.randn(input_shape(config, batch), generator=g)
+    sigma = torch.linspace(0.5, 8.0, batch)
+    reals, noise = (torch.randn(input_shape(config, batch), generator=g)
+                    for _ in range(2))
+    loss_sigma = KT.config.make_sample_density(config["model"])(
+        (batch,), stratified=(0, 1), generator=g, device="cpu")
+    aug = torch.randn((batch, 9), generator=g)
+
+    def run(model, d):
+        den = KT.config.make_denoiser_wrapper(config)(model)
+        with torch.no_grad():
+            out = den(x.to(d), sigma.to(d)).float().cpu()
+        model.train()
+        loss = den.loss(reals.to(d), noise.to(d), loss_sigma.to(d),
+                        aug_cond=aug.to(d)).mean()
+        grad = torch.cat([p.flatten() for p in torch.autograd.grad(
+            loss, list(model.parameters()))]).float().cpu()
+        model.eval()
+        return out, loss.item(), grad
+
+    start = time.perf_counter()
+    want = run(reference.eval(), torch.device("cpu"))
+    cpu_secs = time.perf_counter() - start
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    found = {}
+    for dtype, flash_names in ((torch.float32, ("flash_f32", "flash_bwd_f32")),
+                               (torch.bfloat16, ("flash", "flash_bwd"))):
+        model = KT.config.make_model(config, dtype=dtype, device="cpu")
+        model.load_state_dict(reference.state_dict())
+        model.to(dev).eval()
+        kernels.reset_launch_counts()
+        with tf32(True):
+            out, loss, grad = run(model, dev)
+        counts = kernels.launch_counts()
+        expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+            flash_names[0]: 2 * n_attn, flash_names[1]: n_attn}
+        if counts != expected:
+            raise AssertionError(f"float32 parity ({dtype}): launch counts "
+                                 f"{counts} != {expected}")
+        if not (torch.isfinite(out).all() and torch.isfinite(grad).all()):
+            raise AssertionError(f"float32 parity ({dtype}): not finite")
+        found[dtype] = (rel(out, want[0]), rel(grad, want[2]), loss)
+        del model
+        torch.cuda.empty_cache()
+    (f_out, f_grad, f_loss), (b_out, b_grad, b_loss) = (
+        found[torch.float32], found[torch.bfloat16])
+    print(f"unet float32 parity: batch {batch}, dropout 0, against float32 "
+          f"on the CPU ({cpu_secs:.1f} s): output relative L2 float32 "
+          f"(TF32) {f_out:.3e}, bf16 {b_out:.3e} ({f_out / b_out:.3f}); "
+          f"gradient of {want[2].numel()} params float32 {f_grad:.3e}, bf16 "
+          f"{b_grad:.3e} ({f_grad / b_grad:.3f}), bound {F32_MODEL_SHARE} "
+          f"x bf16's; loss {f_loss:.6f} float32, {b_loss:.6f} bf16, "
+          f"{want[1]:.6f} CPU", flush=True)
+    if not (f_out <= F32_MODEL_SHARE * b_out
+            and f_grad <= F32_MODEL_SHARE * b_grad):
+        raise AssertionError(f"unet float32 parity: float32 errors {f_out:.3e}"
+                             f", {f_grad:.3e} against bf16 {b_out:.3e}, "
+                             f"{b_grad:.3e}: above {F32_MODEL_SHARE} x")
+
+
+def float32_trainer(KT, n_attn, smi):
+    """Phase 25 (f): ``python -m k_diffusion_tpu_torch.train
+    --mixed-precision no`` on config_cifar10.json from 256 seeded images in
+    memory (a custom dataset) at batch 64: 4 steps as a subprocess with
+    saves at 2 and 4 and a 16-sample demo grid at 4 (it must log float32
+    compute), then resumed from step 2 to 4 in a second subprocess (params
+    and EMA within RESUME_REL_BOUND relative L2 of the first run's); 3
+    steps in-process with the launch counts of float32 K13 and K14 only."""
+    from k_diffusion_tpu_torch import train as train_cli
+    from k_diffusion_tpu_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        g = torch.Generator().manual_seed(SEED + 28)
+        coarse = torch.rand((256, 3, 8, 8), generator=g)
+        images = F.interpolate(coarse, size=(32, 32), mode="bilinear") * 2 - 1
+        np.save(tmp / "images.npy", images.permute(0, 2, 3, 1).numpy())
+        (tmp / "in_memory.py").write_text(IN_MEMORY_DATASET)
+        cfg = json.loads(UNET_CONFIG.read_text())
+        cfg["dataset"] = {"type": "custom",
+                          "location": str(tmp / "in_memory.py"),
+                          "config": {"path": str(tmp / "images.npy"),
+                                     "entries": 256}}
+        cfg_path = tmp / "unet.json"
+        cfg_path.write_text(json.dumps(cfg))
+        flags = ("--config", cfg_path, "--batch-size", UNET_BATCH,
+                 "--mixed-precision", "no", "--end-step", 4, "--save-every",
+                 2, "--evaluate-every", 0)
+        out, secs = run_entry("train", *flags, "--demo-every", 4,
+                              "--sample-n", 16, "--name", tmp / "f32")
+        if "compute dtype torch.float32" not in out:
+            raise AssertionError(f"float32 trainer: not float32:\n{out}")
+        check_png(tmp / "f32_demo_00000004.png", 128)
+        resumed_out, resumed_secs = run_entry(
+            "train", *flags, "--demo-every", 0, "--resume",
+            tmp / "f32_00000002.ckpt", "--name", tmp / "resumed")
+        a, b = (torch.load(tmp / f"{name}_00000004.ckpt", map_location="cpu",
+                           weights_only=True) for name in ("f32", "resumed"))
+        errs, equal = {}, True
+        for key in ("model", "model_ema"):
+            x, y = flat_weights(a, key), flat_weights(b, key)
+            errs[key] = ((x - y).norm() / x.norm()).item()
+            equal = equal and torch.equal(x, y)
+        if not max(errs.values()) <= RESUME_REL_BOUND or \
+                not math.isfinite(a["host"]["ema_stats"]["loss"]):
+            raise AssertionError(f"float32 trainer resume: {errs}, loss "
+                                 f"{a['host']['ema_stats']}")
+        print(f"float32 trainer (subprocess, --mixed-precision no, "
+              f"config_cifar10.json at batch {UNET_BATCH}): 4 steps, saves "
+              f"at 2 and 4, a 16-sample demo grid, in {secs:.1f} s with "
+              f"process start and demo; resumed from step 2 to 4 in "
+              f"{resumed_secs:.1f} s: params relative L2 "
+              f"{errs['model']:.3e}, EMA {errs['model_ema']:.3e} (bound "
+              f"{RESUME_REL_BOUND}), bit-equal {equal}, on {smi}; its output: "
+              f"{' | '.join(out.strip().splitlines())}", flush=True)
+
+        steps = 3
+        kernels.reset_launch_counts()
+        with tf32(False):  # the trainer turns TF32 on; restored after
+            train_cli.main([
+                "--config", str(cfg_path), "--batch-size", str(UNET_BATCH),
+                "--mixed-precision", "no", "--end-step", str(steps),
+                "--demo-every", "0", "--save-every", "0",
+                "--evaluate-every", "0", "--name", str(tmp / "counted")])
+        counts = kernels.launch_counts()
+        expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+            "flash_f32": steps * n_attn, "flash_bwd_f32": steps * n_attn}
+        if counts != expected:
+            raise AssertionError(f"float32 trainer (in-process): launch "
+                                 f"counts {counts} != {expected}")
+        print(f"float32 trainer (in-process): {steps} steps, launches "
+              f"{ {k: v for k, v in counts.items() if v} }, no bf16 kernel",
+              flush=True)
+
+
+def float32_refusals(KT, dev):
+    """Phase 25 (g): the flagship HDiT and the ViT in float32 on the card
+    raise ValueError naming their kernels without a float32 form and
+    ROADMAP.md's item 9; the trainer's --mixed-precision no on the
+    flagship raises NotImplementedError, as the model is not built."""
+    from k_diffusion_tpu_torch import train as train_cli
+
+    cases = (("flagship HDiT", KT.config.load_config(CONFIG), "K1-K5"),
+             ("ViT", KT.config.load_config(VIT_CONFIG), "K5"))
+    for name, cfg, kernel in cases:
+        try:
+            KT.config.make_model(cfg, dtype=torch.float32, device=dev)
+        except ValueError as e:
+            if kernel not in str(e) or "item 9" not in str(e):
+                raise
+            print(f"float32 refusal ({name}): {e}", flush=True)
+        else:
+            raise AssertionError(f"{name}: built in float32 on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            train_cli.main(["--config", str(CONFIG), "--mixed-precision",
+                            "no", "--name", str(Path(tmp) / "x")])
+        except NotImplementedError as e:
+            if "item 9" not in str(e):
+                raise
+            print(f"float32 refusal (trainer, flagship): {e}", flush=True)
+        else:
+            raise AssertionError("trainer: --mixed-precision no trained the "
+                                 "flagship")
+
+
+def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
+                  bf16_sample, bf16_train):
+    """Phase 25: (a)-(c) the float32 kernels at their shapes, (b) the TF32
+    check, (d) the model's parity, (e) sampling and training in float32
+    beside phases 11 and 12's bf16 (``bf16_sample``, ``bf16_train``), (f)
+    the trainer, (g) the refusals. Returns the launch counts of the float32
+    sampling and training runs."""
+    print("phase 25: float32 compute on the card (--mixed-precision no), "
+          "the cifar10 U-Net", flush=True)
+    shapes = float32_shapes(unet)
+    with torch.no_grad():
+        run_cases(float32_cases(dev, shapes), results, 20, 5)
+        tf32_check(dev, shapes)
+    float32_model_parity(KT, unet, dev, n_attn)
+
+    g = torch.Generator().manual_seed(SEED + 29)
+    model = KT.config.make_model(unet, dtype=torch.float32, device="cpu",
+                                 generator=g)
+    fill_zero_init_unet(model, g)
+    model.to(dev).eval()
+    f32_sample, f32_train = {}, {}
+    with tf32(True):
+        sample_counts = sample(KT, unet, model, dev, g, UNET_BATCH,
+                               {"flash_f32": n_attn}, unet_flops, smi,
+                               "unet sampling float32", report=f32_sample)
+        del model
+        torch.cuda.empty_cache()
+        train_counts, _ = train(
+            KT, unet, dev, smi, UNET_BATCH,
+            {"flash_f32": n_attn, "flash_bwd_f32": n_attn}, unet_flops,
+            "unet training float32", dtype=torch.float32, report=f32_train)
+    for what, f32, bf in (("sampling (50-step DPM++(2M))", f32_sample,
+                           bf16_sample),
+                          ("training", f32_train, bf16_train)):
+        print(f"unet {what} at batch {UNET_BATCH}, float32 against bf16 "
+              f"(phases 11, 12): {f32['rate']:.3f} against {bf['rate']:.3f} "
+              f"{'samples' if 'DPM' in what else 'images'}/s; card time "
+              f"{f32['busy_ms']:.3f} against {bf['busy_ms']:.3f} ms a "
+              f"{'call' if 'DPM' in what else 'step'} (profile); peak memory "
+              f"{f32['peak'] / 2**30:.3f} against {bf['peak'] / 2**30:.3f} "
+              f"GiB, on {smi}", flush=True)
+    float32_trainer(KT, n_attn, smi)
+    float32_refusals(KT, dev)
+    return sample_counts, train_counts
+
+
 def forward_flops(KT, config, name="unet", **cond):
     """A model's FLOPs per image per forward: torch.utils.flop_counter
     over the plain forward on the CPU at batch 1 (convolutions, matmuls and
@@ -3385,16 +3800,20 @@ def hdit_unfused_layout(config):
             "fused_mapping": int(config["model"]["mapping_dropout_rate"] == 0)}
 
 
-def train(KT, config, dev, smi, batch, per_step, fwd_flops, name):
-    """Phases 8, 12 and 16: the config as it is (dropout on) at ``batch`` on
-    seeded synthetic reals (and a seeded aug_cond where the model takes
-    one) through training.make_train_step; launch counts ``per_step`` per
-    step. ``fwd_flops``: the model's FLOPs per image per forward. Returns
-    the launch counts of the timed steps and the images per second."""
+def train(KT, config, dev, smi, batch, per_step, fwd_flops, name,
+          dtype=torch.bfloat16, report=None):
+    """Phases 8, 12, 16 and 25: the config as it is (dropout on) at
+    ``batch``, computing in ``dtype``, on seeded synthetic reals (and a
+    seeded aug_cond where the model takes one) through
+    training.make_train_step; launch counts ``per_step`` per step.
+    ``fwd_flops``: the model's FLOPs per image per forward. Returns the
+    launch counts of the timed steps and the images per second;
+    ``report``, where given, receives the seconds, images/s, peak memory
+    and the profile's card time per step."""
     from k_diffusion_tpu_torch.ops import kernels
 
     g = torch.Generator().manual_seed(SEED + 4)
-    model = KT.config.make_model(config, dtype=torch.bfloat16, device=dev,
+    model = KT.config.make_model(config, dtype=dtype, device=dev,
                                  generator=torch.Generator(dev).manual_seed(
                                      SEED + 4))
     state = KT.training.init_train_state(
@@ -3446,7 +3865,8 @@ def train(KT, config, dev, smi, batch, per_step, fwd_flops, name):
                              f"{expected}")
     ips = batch * TRAIN_STEPS / secs
     tflops = 3 * fwd_flops * ips / 1e12
-    print(f"{name}: batch {batch}, dropout {config['model']['dropout_rate']}, "
+    print(f"{name}: {dtype}, batch {batch}, dropout "
+          f"{config['model']['dropout_rate']}, "
           f"{WARMUP_STEPS} warm-up + {TRAIN_STEPS} timed steps: "
           f"{secs:.3f} s, {ips:.3f} imgs/s, model {tflops:.2f} TFLOP/s "
           f"(3 x forward), peak memory {peak / 2**30:.3f} GiB "
@@ -3454,7 +3874,10 @@ def train(KT, config, dev, smi, batch, per_step, fwd_flops, name):
           f"{losses[0]:.5f} last {losses[-1]:.5f}; params moved "
           f"{p_moved:.3e}, EMA {ema_moved:.3e}; launches per step "
           f"{per_step}", flush=True)
-    profile(run, name, "training steps")
+    busy = profile(run, name, "training steps")
+    if report is not None:
+        report.update(secs=secs, rate=ips, peak=peak, busy_ms=busy,
+                      losses=losses)
     return counts, ips
 
 

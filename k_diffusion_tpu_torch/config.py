@@ -14,9 +14,11 @@ The HDiT takes the JAX package's ``remat_policy`` names
 ``make_model``, ``make_sample_density``'s densities and
 ``sampling.get_sigmas_karras`` put their tensors on the card unless the
 caller names a device (``utils.default_device``); a model on the card
-computes in bfloat16 (``utils.compute_dtype``).
+computes in bfloat16 unless given a dtype its family takes there
+(``model_module``, ``utils.compute_dtype``).
 """
 
+import importlib
 import json
 import math
 from functools import partial
@@ -144,14 +146,27 @@ def load_config(path_or_dict):
     return deep_merge(_DEFAULTS, config)
 
 
+MODEL_TYPES = ("image_v1", "image_transformer_v1", "image_transformer_v2")
+
+
+def model_module(config):
+    """The module of a config's model family, ``models.<type>``: its
+    ``CARD_DTYPES`` are the compute dtypes its kernels take on the card."""
+    kind = config["model"]["type"]
+    if kind not in MODEL_TYPES:
+        raise ValueError(f"unsupported model type {kind}")
+    return importlib.import_module(f".models.{kind}", __package__)
+
+
 def make_model(config, dtype=None, device=None, generator=None,
                checkpointing=False, remat_policy=None, remat_levels=None):
     """Builds the U-Net (``image_v1``), the ViT (``image_transformer_v1``)
     or the HDiT (``image_transformer_v2``) from a loaded config. Parameters
     are float32 on ``device`` (default: the card), drawn from
     ``generator``; ``dtype`` is the compute dtype (default: bfloat16 on the
-    card, float32 elsewhere; on the card nothing else, see
-    ``utils.compute_dtype``). The dropout rates apply under
+    card, float32 elsewhere), passed through to the model, which refuses a
+    dtype its kernels do not take on the card (``model_module(config).
+    CARD_DTYPES``, ``utils.compute_dtype``). The dropout rates apply under
     ``model.train()``, PyTorch's default mode: call ``model.eval()`` to
     sample. ``checkpointing`` recomputes the transformer layers in the
     backward (the HDiT's in the levels ``remat_levels`` names, by index or
@@ -159,7 +174,6 @@ def make_model(config, dtype=None, device=None, generator=None,
     it, as the JAX package's does. ``remat_policy`` (the HDiT's) names
     what its checkpointed layers keep (``layers.REMAT_POLICIES``)."""
     device = utils.default_device(device)
-    dtype = utils.compute_dtype(device, dtype)
     num_classes = config["dataset"]["num_classes"]
     config = config["model"]
     if config["type"] == "image_v1":

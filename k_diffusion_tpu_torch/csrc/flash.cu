@@ -24,8 +24,13 @@
 //
 // The head dim E is a template parameter, 64 or 32 (the HDiT of
 // configs/config_test_tiny.json).
+//
+// The float32 forms of both (--mixed-precision no) are attn_tf32.cuh's
+// mma.sync kernels: the same contract on f32 operands, products on the
+// TF32 tensor cores.
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
+#include "attn_tf32.cuh"
 
 using namespace kdt;
 
@@ -65,6 +70,58 @@ extern "C" int kdt_flash_bwd(const void* q, const void* k, const void* v, const 
                                   scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K13 in float32: kdt_flash_fwd's contract with q, k, v and out f32; the
+// strides multiples of 4 elements and the rows 16-byte aligned.
+extern "C" int kdt_flash_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                                 void* lse, int b, int s, int n_heads, int e, long stride_b,
+                                 long stride_s, float scale, void* stream) {
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.in = Rows{stride_b, stride_s};
+  a.s = s;
+  a.n_heads = n_heads;
+  a.scale = scale;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (e) {
+    case 32: return tf32::launch_fwd<32>(a, b, st);
+    case 64: return tf32::launch_fwd<64>(a, b, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K14 in float32: kdt_flash_bwd's contract with q, k, v, out, dout, dq,
+// dk, dv f32.
+extern "C" int kdt_flash_bwd_f32(const void* q, const void* k, const void* v, const void* out,
+                                 const void* dout, const void* lse, void* delta, void* dq,
+                                 void* dk, void* dv, int b, int s, int n_heads, int e,
+                                 long stride_b, long stride_s, float scale, void* stream) {
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(const_cast<void*>(out));
+  a.dout = static_cast<const float*>(dout);
+  a.lse = static_cast<float*>(const_cast<void*>(lse));
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.in = Rows{stride_b, stride_s};
+  a.s = s;
+  a.n_heads = n_heads;
+  a.scale = scale;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (e) {
+    case 32: return tf32::launch_bwd<32>(a, b, st);
+    case 64: return tf32::launch_bwd<64>(a, b, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -59,6 +59,12 @@ from ..ops.kernels.fused_qkv import fused_qkv_prologue
 from ..ops.kernels.na2d import na2d, na2d_packed, packed_takes
 from ..utils import compute_dtype, default_device
 
+# the compute dtypes the HDiT takes on the card, and its kernels that have
+# no float32 form yet
+CARD_DTYPES = (torch.bfloat16,)
+NO_FLOAT32 = ("K1-K5 and K11/K12 (with their backwards K6-K10 and the "
+              "fused-epilogue K15)")
+
 
 @dataclass(frozen=True)
 class GlobalAttentionSpec:
@@ -436,7 +442,8 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     package draws them from a fixed threefry key, which ``convert.py``
     carries across). Parameters go to ``device``, by default the card
     (``utils.default_device``); ``dtype`` is the compute dtype, by default
-    bfloat16 on the card and float32 elsewhere (``utils.compute_dtype``)."""
+    bfloat16 on the card and float32 elsewhere (``utils.compute_dtype``);
+    on the card bfloat16 only (``CARD_DTYPES``)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
                  num_classes=0, mapping_cond_dim=0, checkpointing=False,
@@ -445,7 +452,7 @@ class ImageTransformerDenoiserModelV2(nn.Module):
         super().__init__()
         check_remat_policy(remat_policy)
         device = default_device(device)
-        dtype = compute_dtype(device, dtype)
+        dtype = compute_dtype(device, dtype, CARD_DTYPES, NO_FLOAT32)
         self.levels, self.dtype = levels, dtype
         self.num_classes, self.mapping_cond_dim = num_classes, mapping_cond_dim
         self.checkpointing = checkpointing and remat_policy != NO_REMAT

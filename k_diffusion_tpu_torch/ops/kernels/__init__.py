@@ -28,7 +28,8 @@ def train_fusion_enabled():
 
 # kernel name -> (module, name of its launch counter): forward kernels
 # K1-K5, the backward kernels K6-K10, flash attention K13 and its backward
-# K14, the per-head NA kernels K11 and K12, the fused-epilogue NA K15
+# K14, the per-head NA kernels K11 and K12, the fused-epilogue NA K15, and
+# the float32 forms of K13 and K14
 COUNTERS = {
     "fused_qkv": (fused_qkv, "launches"),
     "na2d": (na2d, "launches"),
@@ -45,6 +46,8 @@ COUNTERS = {
     "na2d_heads": (na2d, "heads_launches"),
     "na2d_heads_bwd": (na2d, "heads_bwd_launches"),
     "na2d_proj": (na2d, "proj_launches"),
+    "flash_f32": (flash, "launches_f32"),
+    "flash_bwd_f32": (flash, "bwd_launches_f32"),
 }
 
 

@@ -16,6 +16,12 @@ differentiates; ``reference_lse`` is the plain version of K13's logsumexp.
 The kernels read q, k and v through their batch and sequence strides, so
 the U-Net's q, k, v, strided views of one qkv projection, are not copied;
 the head axis must be packed at the head dim and the head dim contiguous.
+
+bfloat16 operands go to those wgmma kernels, float32 operands (a model
+built with ``dtype=torch.float32``, ``--mixed-precision no``) to their
+float32 forms in ``csrc/attn_tf32.cuh`` (``kdt_flash_fwd_f32``,
+``kdt_flash_bwd_f32``): the same contract, products on the TF32 tensor
+cores with f32 accumulation. Each dtype's launches are counted apart.
 """
 
 import ctypes
@@ -26,8 +32,12 @@ import torch
 from ..attention import global_attention, global_logsumexp
 from . import _build, residuals
 
-launches = 0      # K13 launches since the last reset
-bwd_launches = 0  # K14 launches (its two kernels count as one)
+launches = 0      # K13 launches since the last reset, bfloat16
+bwd_launches = 0  # K14 launches (its two kernels count as one), bfloat16
+launches_f32 = 0      # K13 launches on float32 operands
+bwd_launches_f32 = 0  # K14 launches on float32 operands
+
+DTYPES = (torch.bfloat16, torch.float32)  # operand dtypes the kernels take
 
 HEAD_DIMS = (32, 64)  # head dims the kernels take
 
@@ -64,79 +74,96 @@ def reference_backward(q, k, v, dout, scale=1.0):
 
 
 def _check(q, k, v, what):
-    """Raises unless q, k, v are as the kernels take them: bf16 CUDA tensors
-    of one shape (b, s, heads, e), e in HEAD_DIMS, with the same strides,
-    the head axis packed and the head dim contiguous, 16-byte aligned
-    rows."""
+    """Raises unless q, k, v are as the kernels take them: CUDA tensors of
+    one dtype, bfloat16 or float32, and one shape (b, s, heads, e), e in
+    HEAD_DIMS, with the same strides, the head axis packed and the head dim
+    contiguous, 16-byte aligned rows (strides multiples of 8 bfloat16 or 4
+    float32 elements). Returns the dtype."""
     _build.require_cuda(q, what)
     b, s, heads, e = q.shape
     if e not in HEAD_DIMS or s < 1:
         raise ValueError(f"flash kernel takes head dim 32 or 64 and s >= 1; "
                          f"got q of shape {tuple(q.shape)}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{what}: q is {q.dtype}; the kernels take "
+                         f"bfloat16 or float32")
+    per_row = 16 // q.element_size()  # elements in 16 bytes
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or \
-                t.shape != q.shape:
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(
                 f"{what}: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
-                f"the kernel takes bfloat16 {tuple(q.shape)} on {q.device}")
+                f"the kernel takes q's {q.dtype} {tuple(q.shape)} on "
+                f"{q.device}")
         if not (t.stride() == q.stride() and t.stride()[2:] == (e, 1)
-                and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                and t.stride(0) % per_row == 0 and t.stride(1) % per_row == 0
                 and t.data_ptr() % 16 == 0):
             raise ValueError(
                 f"{what}: {name} has strides {t.stride()} at offset "
                 f"{t.data_ptr() % 16} mod 16 bytes; the kernel takes q, k, v "
-                f"of equal strides (x, y, {e}, 1), x and y multiples of 8, "
-                f"16-byte aligned (q's are {q.stride()})")
+                f"of equal strides (x, y, {e}, 1), x and y multiples of "
+                f"{per_row} ({q.dtype}), 16-byte aligned (q's are "
+                f"{q.stride()})")
+    return q.dtype
 
 
 def flash_forward(q, k, v, scale=1.0, save_lse=False):
-    """Launches K13 on CUDA tensors. Returns (out, lse): out (b, s, heads,
-    e) bf16 contiguous, lse (b, heads, s) float32, or None unless
-    ``save_lse``."""
-    _check(q, k, v, "flash_attention")
+    """Launches K13 (its float32 form on float32 operands) on CUDA tensors.
+    Returns (out, lse): out (b, s, heads, e) in q's dtype, contiguous, lse
+    (b, heads, s) float32, or None unless ``save_lse``."""
+    dtype = _check(q, k, v, "flash_attention")
     b, s, heads, e = q.shape
     out = torch.empty((b, s, heads, e), device=q.device, dtype=q.dtype)
     lse = (torch.empty((b, heads, s), device=q.device, dtype=torch.float32)
            if save_lse else None)
-    lib = _build.load("flash", kdt_flash_fwd=_SIGNATURE)
-    _build.launch(
-        lib, "kdt_flash_fwd", "flash", q.device,
-        *map(_build.ptr, (q, k, v, out)),
-        None if lse is None else _build.ptr(lse), b, s, heads, e,
-        q.stride(0), q.stride(1), scale, _build.stream_ptr(q.device))
-    global launches
-    launches += 1
+    lib = _build.load("flash", kdt_flash_fwd=_SIGNATURE,
+                      kdt_flash_fwd_f32=_SIGNATURE)
+    args = (*map(_build.ptr, (q, k, v, out)),
+            None if lse is None else _build.ptr(lse), b, s, heads, e,
+            q.stride(0), q.stride(1), scale, _build.stream_ptr(q.device))
+    global launches, launches_f32
+    if dtype == torch.float32:
+        _build.launch(lib, "kdt_flash_fwd_f32", "flash", q.device, *args)
+        launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_flash_fwd", "flash", q.device, *args)
+        launches += 1
     return out, lse
 
 
 def flash_backward(q, k, v, out, lse, dout, scale=1.0):
-    """Launches K14 on CUDA tensors: returns (dq, dk, dv) bf16, each (b, s,
-    heads, e) contiguous. Its dq kernel computes delta = rowsum(out * dout)
-    into scratch for the dk/dv kernel (the JAX package computes it outside
-    its kernels)."""
-    _check(q, k, v, "flash_attention backward")
+    """Launches K14 (its float32 form on float32 operands) on CUDA tensors:
+    returns (dq, dk, dv) in q's dtype, each (b, s, heads, e) contiguous.
+    Its dq kernel computes delta = rowsum(out * dout) into scratch for the
+    dk/dv kernel (the JAX package computes it outside its kernels)."""
+    dtype = _check(q, k, v, "flash_attention backward")
     b, s, heads, e = q.shape
     dev = q.device
     dout = dout.contiguous()
     for name, t in (("out", out), ("dout", dout)):
-        _build.require(t, name, dev, torch.bfloat16, (b, s, heads, e))
+        _build.require(t, name, dev, dtype, (b, s, heads, e))
     _build.require(lse, "lse", dev, torch.float32, (b, heads, s))
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty((b, s, heads, e), device=dev, dtype=q.dtype)
                   for _ in range(3))
-    lib = _build.load("flash", kdt_flash_bwd=_BWD_SIGNATURE)
-    _build.launch(
-        lib, "kdt_flash_bwd", "flash backward", dev,
-        *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, s,
-        heads, e, q.stride(0), q.stride(1), scale, _build.stream_ptr(dev))
-    global bwd_launches
-    bwd_launches += 1
+    lib = _build.load("flash", kdt_flash_bwd=_BWD_SIGNATURE,
+                      kdt_flash_bwd_f32=_BWD_SIGNATURE)
+    args = (*map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)),
+            b, s, heads, e, q.stride(0), q.stride(1), scale,
+            _build.stream_ptr(dev))
+    global bwd_launches, bwd_launches_f32
+    if dtype == torch.float32:
+        _build.launch(lib, "kdt_flash_bwd_f32", "flash backward", dev, *args)
+        bwd_launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_flash_bwd", "flash backward", dev, *args)
+        bwd_launches += 1
     return dq, dk, dv
 
 
 def flash_attention(q, k, v, scale=1.0):
     """Exact global attention: q, k, v (b, s, heads, e) -> (b, s, heads, e);
-    differentiable. The kernels take bfloat16, e 32 or 64 and any s >= 1."""
+    differentiable. The kernels take bfloat16 or float32, e 32 or 64 and
+    any s >= 1."""
     if q.device.type == "cpu":
         return residuals.plain(
             q, k, v, functools.partial(reference, scale=scale),

@@ -146,8 +146,9 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, help="the learning rate")
     p.add_argument("--mixed-precision", type=str, default="bf16",
                    choices=["no", "bf16"],
-                   help="the compute precision on the card (the CPU "
-                        "computes in float32)")
+                   help="the compute precision on the card: bf16, or no "
+                        "(float32 with TF32 products; the U-Net family "
+                        "only so far). The CPU computes in float32")
     p.add_argument("--name", type=str, default="model",
                    help="the name of the run")
     p.add_argument("--num-workers", type=int, default=8,
@@ -185,6 +186,23 @@ def check_ported(args):
                 f"{flag} is not ported yet: ROADMAP.md {item}")
 
 
+def float32_on_the_card(config):
+    """``--mixed-precision no`` on the card: float32 compute for a model
+    family whose kernels all have float32 forms, with TF32 on for cuBLAS
+    and cuDNN, as the upstream PyTorch trainer runs float32 (the float32
+    flash kernels use the TF32 tensor cores too). Raises
+    NotImplementedError, before any CUDA call, for the other families."""
+    family = config_mod.model_module(config)
+    if torch.float32 not in family.CARD_DTYPES:
+        raise NotImplementedError(
+            f"--mixed-precision no (float32 compute on the card) for "
+            f"{config['model']['type']}: its kernels {family.NO_FLOAT32} "
+            f"have no float32 form yet: ROADMAP.md queue 1, item 9")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    return torch.float32
+
+
 def to_device(array, device):
     """A numpy batch array on ``device``, copied from pinned memory to the
     card."""
@@ -217,15 +235,13 @@ def run(args):
 
     log(f"World: {world} process(es)", flush=True)
     device = utils.default_device(args.device)
-    if device.type == "cuda" and args.mixed_precision == "no":
-        raise NotImplementedError(
-            "--mixed-precision no (float32 compute on the card) is not "
-            "ported yet: ROADMAP.md queue 1, item 9")
-    dtype = utils.compute_dtype(device)
-    log(f"Device: {device}, compute dtype {dtype}", flush=True)
-
     config = config_mod.load_config(args.config)
     model_config = config["model"]
+    dtype = utils.compute_dtype(device)
+    if device.type == "cuda" and args.mixed_precision == "no":
+        dtype = float32_on_the_card(config)
+    log(f"Device: {device}, compute dtype {dtype}", flush=True)
+
     dataset_config = config["dataset"]
     if args.lr is not None:
         config["optimizer"]["lr"] = args.lr

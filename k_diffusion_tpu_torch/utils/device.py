@@ -1,5 +1,7 @@
 """Where the port's entry points put their tensors when the caller names no
-device (on the card), and the dtype they compute in there (bfloat16)."""
+device (on the card), and the dtype they compute in there (bfloat16 by
+default; float32 for the model families whose kernels have float32
+forms)."""
 
 import os
 
@@ -23,17 +25,32 @@ def default_device(device=None):
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def compute_dtype(device, dtype=None):
+# the compute dtypes of the card's kernels: all take bfloat16; the flash
+# pair K13/K14 also float32 (TF32 tensor cores), so a family whose kernels
+# are only those takes both
+CARD_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def compute_dtype(device, dtype=None, card_dtypes=CARD_DTYPES,
+                  lacking=None):
     """The compute dtype of a model on ``device``: ``dtype`` when it is
     given, else bfloat16 on a CUDA device and float32 on any other. On a
-    CUDA device every kernel takes bfloat16 only, so another explicit dtype
-    raises ValueError there, before any parameter is allocated."""
+    CUDA device a model computes only in a dtype its kernels take,
+    ``card_dtypes`` (its family's); another explicit dtype raises
+    ValueError there, before any parameter is allocated, naming
+    ``lacking``, the family's kernels that have no float32 form yet."""
     cuda = torch.device(device).type == "cuda"
     if dtype is None:
         return torch.bfloat16 if cuda else torch.float32
-    if cuda and dtype != torch.bfloat16:
+    if cuda and dtype not in card_dtypes:
+        if dtype in CARD_DTYPES:
+            raise ValueError(
+                f"compute dtype {dtype} on {device}: the kernels {lacking} "
+                "compute in bfloat16 only on the card (their float32 forms: "
+                "ROADMAP.md queue 1, item 9); pass dtype=torch.bfloat16 or "
+                "None")
         raise ValueError(
             f"compute dtype {dtype} on {device}: the port's kernels compute "
-            "in bfloat16 on the card (float32 compute on the card comes "
-            "with a later port); pass dtype=torch.bfloat16 or None")
+            "in bfloat16 or float32 on the card; pass dtype=torch.bfloat16, "
+            "torch.float32 or None")
     return dtype

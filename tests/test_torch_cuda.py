@@ -488,6 +488,57 @@ def test_flash_backward_of_one_token(dev):
         assert t.float().abs().max().item() <= 1e-5 * top
 
 
+# K13 and K14 in float32 against the plain version in float32 with TF32 off:
+# the kernels round the products' operands to TF32 (10 mantissa bits), the
+# bound chip_smoke.py states
+F32_REL_BOUND = 5e-3
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("b,s,heads,e", [(2, s, 3, e) for e in (64, 32)
+                                         for s in (1, 49, 65, 200)]
+                         + [(3, 256, 4, 64)])
+def test_flash_float32(dev, no_tf32, b, s, heads, e):
+    """The float32 forms of K13 and K14 on strided float32 q, k, v: out,
+    the logsumexp and the gradients against the plain versions, the last
+    tile ragged; each launch counted on its own counter; a rerun bit-equal
+    (no atomics). With one key dv is dout."""
+    g = torch.Generator().manual_seed(24)
+    qkv = torch.randn((b, s, 3, heads, e), generator=g) * (64 / e) ** 0.5
+    q, k, v = qkv.to(dev).unbind(2)
+    dout = torch.randn((b, s, heads, e), generator=g).to(dev)
+    assert not q.is_contiguous()
+    out, lse = counted(flash, lambda: flash.flash_forward(
+        q, k, v, 0.125, save_lse=True), "launches_f32")
+    grads = counted(flash, lambda: flash.flash_backward(
+        q, k, v, out, lse, dout, 0.125), "bwd_launches_f32")
+    torch.cuda.synchronize()
+    for got, want in ((out, flash.reference(q, k, v, 0.125)),
+                      (lse, flash.reference_lse(q, k, v, 0.125))):
+        err = (got - want).abs().max().item()
+        assert err <= F32_REL_BOUND * want.abs().max().item(), err
+    wants = flash.reference_backward(q, k, v, dout, 0.125)
+    for got, want in zip(grads, wants):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+    if s == 1:
+        err = (grads[2] - dout).abs().max().item()
+        assert err <= F32_REL_BOUND * dout.abs().max().item(), err
+    else:
+        for got, want in zip(grads, wants):
+            err = (got - want).abs().max().item()
+            assert err <= F32_REL_BOUND * want.abs().max().item(), err
+    again = flash.flash_backward(q, k, v, out, lse, dout, 0.125)
+    for a, b_ in zip(grads, again):
+        assert torch.equal(a, b_)
+
+
 def test_weight_gradients_are_deterministic(dev):
     """A rerun of K6 and K10 gives bit-equal gradients: every reduction over
     rows is a fixed-order sum of per-block partials."""
@@ -590,7 +641,8 @@ def test_autograd_runs_the_backward_kernels(dev):
     counts = kernels.launch_counts()
     # K15's backward recomputes with K2 and runs K7
     assert counts == dict.fromkeys(kernels.COUNTERS, 1) | {
-        "na2d": 2, "na2d_bwd": 2, "na2d_overlap_add": 0}, counts
+        "na2d": 2, "na2d_bwd": 2, "na2d_overlap_add": 0, "flash_f32": 0,
+        "flash_bwd_f32": 0}, counts
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -680,9 +732,13 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="head dim 32 or 64"):
         na2d.na2d_packed_proj(x, x, x, x, torch.zeros((256, 256), device=dev),
                               2, 7)
-    x = torch.zeros((1, 16, 2, 64), device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
+    # K13/K14: float16, and q, k, v of mixed dtypes (bfloat16 and float32
+    # each have kernels)
+    x = torch.zeros((1, 16, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         flash.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="takes q's torch.float32"):
+        flash.flash_attention(x.float(), x.bfloat16(), x.float())
     # the head axis not packed at the head dim; q's strides unlike k's
     x = torch.zeros((1, 2, 16, 64), device=dev,
                     dtype=torch.bfloat16).transpose(1, 2)

@@ -194,14 +194,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                          device="cpu").device.type == "cpu"
 
 
+class _TorchCalled(AssertionError):
+    pass
+
+
 class _NoTorchCalls(torch.overrides.TorchFunctionMode):
-    """Fails on any torch function called inside it (a parameter allocated,
-    a tensor made) other than naming a device."""
+    """Fails (_TorchCalled) on any torch function called inside it (a
+    parameter allocated, a tensor made) other than naming a device."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.device:
             return func(*args, **(kwargs or {}))
-        raise AssertionError(f"{func} ran before the compute dtype check")
+        raise _TorchCalled(f"{func} ran before the compute dtype check")
 
 
 def _model_constructors():
@@ -225,10 +229,17 @@ def _model_constructors():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("name", ["flagship", "cifar10", "hdit", "unet"])
 def test_compute_dtype_other_than_bfloat16_on_the_card_raises(name, dtype):
-    """The card's kernels take bfloat16 only: an explicit other compute
-    dtype on a CUDA device is refused by name when the model is built,
-    before any parameter is allocated (no torch call runs first)."""
+    """The HDiT's kernels take bfloat16 only on the card, and no kernel
+    takes float16: such an explicit compute dtype on a CUDA device is
+    refused by name when the model is built, before any parameter is
+    allocated (no torch call runs first). The U-Net's kernels, the flash
+    pair, also have float32 forms: its float32 build on the card passes
+    the check and goes on to allocate its first parameter."""
     build = _model_constructors()[name]
+    if dtype == torch.float32 and name in ("cifar10", "unet"):
+        with _NoTorchCalls(), pytest.raises(_TorchCalled):
+            build(dtype=dtype, device="cuda")
+        return
     with _NoTorchCalls(), pytest.raises(ValueError, match="bfloat16"):
         build(dtype=dtype, device="cuda")
 

@@ -528,6 +528,7 @@ def launch_cases():
     heads = [bf16(1, 8, 8, 2, 32) for _ in range(5)]
     seq = [bf16(1, 16, 64) for _ in range(5)]
     flat = [bf16(1, 4, 2, 32) for _ in range(5)]
+    flat32 = [f32(1, 4, 2, 32) for _ in range(5)]
     proj = [bf16(1, 8, 8, 128) for _ in range(4)]
     return {
         "kdt_fused_qkv": lambda: fused_qkv.prologue_forward(*qkv),
@@ -554,6 +555,9 @@ def launch_cases():
         "kdt_flash_fwd": lambda: flash.flash_forward(*flat[:3]),
         "kdt_flash_bwd": lambda: flash.flash_backward(
             *flat[:4], f32(1, 2, 4), flat[4]),
+        "kdt_flash_fwd_f32": lambda: flash.flash_forward(*flat32[:3]),
+        "kdt_flash_bwd_f32": lambda: flash.flash_backward(
+            *flat32[:4], f32(1, 2, 4), flat32[4]),
     }
 
 
