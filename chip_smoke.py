@@ -109,8 +109,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    the cifar10 U-Net the same way under dpmpp_2m;
 21. the training entry point: the loader alone at batch 32 (images/s at
    1, 4 and 8 threads, the median and range of timed epochs after an
-   untimed one, on 256 x 256 PNGs written by to_png and on Paeth-filtered
-   ones); ``python -m k_diffusion_tpu_torch.train`` as a subprocess on the
+   untimed one, on 256 x 256 PNGs written by to_png, and at 1 thread on
+   one batch of Paeth-filtered ones); ``python -m
+   k_diffusion_tpu_torch.train`` as a subprocess on the
    flagship config with an imagefolder of 128 PNGs at 256 x 256, 6 steps
    at batch 32, checkpoints at 3 and 6, the state JSON and a demo grid at
    6; a second subprocess resumed mid-epoch from step 3 to 6, its params
@@ -188,9 +189,31 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    a step; no bf16 flash launch) beside phases 11 and 12; (f) the trainer
    with --mixed-precision no on config_cifar10.json from seeded in-memory
    images: 4 steps with saves and a demo grid as a subprocess, a resume
-   from step 2 within 1e-3, 3 steps in-process with launch counts; (g) the
-   flagship HDiT and the ViT in float32 on the card, and the trainer's
-   --mixed-precision no on the flagship, refused by name.
+   in-process from step 2 within 1e-3, with launch counts.
+26. float32 compute on the card for the ViT and the HDiT without
+   neighborhood-attention levels (``transformers_float32_phase``): (a) the
+   float32 forms of K1, K4, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu
+   on the TF32 core csrc/gemm_tf32.cuh), K5 and K3/K9 (csrc/attn_tf32.cuh)
+   against their plain versions in float32 with TF32 off, within 5e-3 x
+   max|plain|, at the shifted-window config's shapes (K1, K4 at batch 8 a
+   call, K6, K10 at batch-8 step shapes, K3, K9 at 8 x 256 x 512), K5 at
+   the HDiT's 8 x 256 and the ViT's 64 x 768, f 2048, and K1, K4, K6, K10
+   at config_test_tiny's d 64 (head dim 32); (c) their times beside the
+   plain version's, the TF32 bound's and, for K3/K9, SDPA's on the float32
+   inputs; (b) on the same inputs each float32 kernel's error against
+   float64 at most 1/4 of its bf16 form's, output by output; (d) the
+   shifted-window config (a call at batch 8, a step at 32) and the ViT at
+   DiT-B/2 (batch 64) in float32 and in bf16 on the card against float32
+   on the CPU, forward and gradient: the float32 errors at most 1/4 of
+   bf16's, launches in each dtype's kernels only; (e) 50-step DPM++(2M)
+   and 3 + 20 training steps of each in float32 with launch counts; (f)
+   the trainer with --mixed-precision no on config_cifar10_transformer.json
+   as in phase 25 (f); (g) the flagship HDiT in float32 on the card, and
+   the trainer's --mixed-precision no on it, refused naming K2, K7, K11,
+   K12 and K15.
+
+Each phase ends with a ``time:`` line (its seconds, and in all), the long
+ones also each part of them, and the script with its total.
 
 Each kernel line also gives the kernel's achieved TFLOP/s (the operations
 its function needs over its time) and its time's share of the bound.
@@ -201,10 +224,13 @@ are summed over its calls in one denoiser call (forward kernels) or one
 training step (backward kernels) on its main path: the flagship at batch 8
 for K1-K10 and, in the unfused step, K11 and K12; the U-Net at batch 64 for
 K13 and K14, in bf16 and (``flash_f32``, ``flash_bwd_f32``) in float32;
-one op call at each flagship NA level for K15 and K8.
+the shifted-window config at batch 8 for the float32 forms of K1, K3-K6,
+K9 and K10 (``*_f32``; K3 and K9 on K13's and K14's float32 bodies); one op
+call at each flagship NA level for K15 and K8.
 ``launches`` is its count in that path's sampling (forward) or timed
 training (backward) run, for K11 and K12 the unfused training run, for K15
-and K8 their op paths. Any
+and K8 their op paths, for the ``*_f32`` forms of phase 26 the
+shifted-window config's float32 runs. Any
 failure raises: exit code non-zero, no result line. Imports nothing of JAX.
 """
 
@@ -266,6 +292,28 @@ PEAK_BYTES_PER_S = 3.35e12
 Case = collections.namedtuple(
     "Case", "name label calls fn plain flops inputs timed library rel_bound "
     "peak", defaults=(None, None, KERNEL_REL_BOUND, PEAK_BF16_FLOPS))
+
+
+class Clock:
+    """The run's ``time:`` lines: ``part`` prints the seconds since the
+    last mark, ``lap`` a phase's seconds and the total so far."""
+
+    def __init__(self):
+        self.start = self.phase = self.last = time.perf_counter()
+
+    def part(self, what):
+        now = time.perf_counter()
+        print(f"time: {what} {now - self.last:.1f} s", flush=True)
+        self.last = now
+
+    def lap(self, what):
+        now = time.perf_counter()
+        print(f"time: {what} {now - self.phase:.1f} s, total "
+              f"{now - self.start:.1f} s", flush=True)
+        self.phase = self.last = now
+
+
+CLOCK = Clock()
 
 
 def device_ms(fn, reps):
@@ -1350,6 +1398,9 @@ def main():
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    global CLOCK
+    CLOCK = Clock()
+    lap = CLOCK.lap
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1373,6 +1424,7 @@ def main():
         mapping_one_launch(dev, 768, 2048, UNET_BATCH)
         forward_lse_check(dev)
 
+    lap("phases 1-3")
     # the flagship HDiT: phases 4-8
     config = KT.config.load_config(CONFIG)
     g = torch.Generator().manual_seed(SEED)
@@ -1404,9 +1456,10 @@ def main():
     grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
     train_counts, fused_ips = train(KT, config, dev, smi, TRAIN_BATCH,
-                                    hdit_train_layout(config), hdit_flops,
+                                    hdit_layout(KT, config, True), hdit_flops,
                                     "training")
 
+    lap("phases 4-8")
     # the U-Net (config_cifar10.json): phases 9-12
     unet = KT.config.load_config(UNET_CONFIG)
     with torch.no_grad():
@@ -1435,6 +1488,7 @@ def main():
                                  unet_flops, "unet training",
                                  report=unet_train)
 
+    lap("phases 9-12")
     # the HDiT config whose global level K3 does not take: phase 13
     mnist = KT.config.load_config(MNIST_TRANSFORMER)
     g = torch.Generator().manual_seed(SEED + 9)
@@ -1454,6 +1508,7 @@ def main():
     print(f"mnist transformer forward: launches {counts} (the 7 x 7 global "
           f"level through K13, none through K3)", flush=True)
 
+    lap("phase 13")
     # the per-head NA kernels and the fused epilogue: phases 14 and 15
     with torch.no_grad():
         run_cases(heads_cases(dev), results, 20, 3)
@@ -1464,6 +1519,7 @@ def main():
     del inputs
     torch.cuda.empty_cache()
 
+    lap("phases 14-15")
     # the unfused training step, KDT_TRAIN_FUSION=0: phase 16
     unfused = hdit_unfused_layout(config)
     with train_fusion("0"):
@@ -1478,6 +1534,7 @@ def main():
     print(f"unfused training: {unfused_ips:.3f} imgs/s against the fused "
           f"step's {fused_ips:.3f} (phase 8) on {smi}", flush=True)
 
+    lap("phase 16")
     # head dim 32, configs/config_test_tiny.json: phase 17
     with torch.no_grad():
         run_cases(head32_cases(dev), results, 20, 5)
@@ -1504,6 +1561,7 @@ def main():
     print(f"test_tiny: launches per forward {tiny_fwd}, per step {tiny_step} "
           f"(head dim 32 through K1/K6 and K13/K14)", flush=True)
 
+    lap("phase 17")
     # the entry point's defaults: phase 18
     for name, cfg in (("flagship", config), ("unet", unet)):
         default_build_check(KT, cfg, name)
@@ -1513,31 +1571,45 @@ def main():
     with torch.no_grad():
         strided_scale_check(KT, config, dev)
     condcache_phase(KT, config, dev, smi)
+    lap("phases 18-19")
     entry_point_phase(KT, config, unet, smi)
+    lap("phase 20")
 
     # the training entry point: phase 21
     trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi)
+    lap("phase 21")
 
     # the shifted-window HDiT, the ViT, the cross-attention and variance
     # U-Net, the multiscale loss: phase 22
     families_phase(KT, config, unet, dev, smi)
+    lap("phase 22")
 
     # remat policies, 8-bit AdamW and SGD, guidance, the likelihood, FID and
     # KID in the trainer: phase 23
     engine_phase(KT, config, dev, smi, fused_ips)
+    lap("phase 23")
 
     # data parallelism: phase 24
     data_parallel_phase(KT, config, dev, smi)
+    lap("phase 24")
 
     # float32 compute on the card, the U-Net: phase 25
     f32_sample_counts, f32_train_counts = float32_phase(
         KT, unet, dev, smi, results, n_attn, unet_flops, unet_sample,
         unet_train)
+    lap("phase 25")
+
+    # float32 compute on the card, the ViT and the HDiT without
+    # neighborhood levels: phase 26
+    sw_f32_sample, sw_f32_train = transformers_float32_phase(KT, dev, smi,
+                                                             results)
+    lap("phase 26")
 
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
     # the unfused training steps for K11/K12, the op paths for K15 and K8,
-    # phase 25's float32 runs for K13's and K14's float32 forms)
+    # phase 25's float32 runs for K13's and K14's float32 forms, phase 26's
+    # shifted-window float32 runs for the others)
     paths = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
         "na2d": ("na_fwd.cuh", "na2d.py:576", sample_counts),
@@ -1558,7 +1630,8 @@ def main():
         "na2d_proj": ("na_proj.cuh", "na2d.py:991", proj_counts),
         "flash_f32": ("attn_tf32.cuh", "flash.py:34", f32_sample_counts),
         "flash_bwd_f32": ("attn_tf32.cuh", "flash.py:57", f32_train_counts),
-    }
+    } | {name: (src, tpu, sw_f32_train if "bwd" in name else sw_f32_sample)
+         for name, (src, tpu) in F32_KERNELS.items()}
     report = []
     for name, (src, tpu, counts) in paths.items():
         r = results[name]
@@ -1577,6 +1650,8 @@ def main():
             entry["composition_ms"] = r["composition_ms"]
         report.append(entry)
     print(json.dumps({"kernels": report}))
+    print(f"chip_smoke: {time.perf_counter() - CLOCK.start:.1f} s in all",
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -1587,9 +1662,12 @@ def main():
 # K2 and K11 (csrc/na_fwd.cuh) and the backward's two of K7 and K12
 # (csrc/na_bwd.cuh; OWN_V false in na2d, true in na2d_heads), the forwards
 # K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
-# K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh)
+# K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh);
+# the float32 forms: K3's and K9's (csrc/attn_tf32.cuh), K1's, K6's, K4's,
+# K10's and K5's (their kernels and csrc/gemm_tf32.cuh's)
 REPORTED = {
-    "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel"),
+    "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
+                      "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
               "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
     "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
@@ -1600,6 +1678,12 @@ REPORTED = {
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
               "atb_kernel", "reduce_kernel", "reduce_few_kernel",
               "mapping_kernel"),
+    "fused_qkv_f32": ("qkv_f32_kernel", "qkv_f32_dr_kernel",
+                      "norm_vjp_f32_kernel", "atb_f32_kernel",
+                      "reduce_kernel"),
+    "geglu_f32": ("ffn_f32_up_kernel", "ffn_f32_down_kernel",
+                  "add_parts_kernel", "ffn_f32_dup_kernel", "rms_rows_kernel",
+                  "norm_vjp_f32_kernel", "atb_f32_kernel", "reduce_kernel"),
 }
 
 
@@ -1649,9 +1733,10 @@ def default_build_check(KT, config, name):
     on the card in bfloat16 (``utils.compute_dtype``), and its denoiser
     gives a finite output of the input's shape at batch 2 (fresh weights,
     eval mode); an explicit float32 on the card builds a float32 model for
-    a family whose kernels take it (the U-Net) and raises ValueError naming
-    bfloat16 before anything is allocated for the others."""
-    takes_f32 = torch.float32 in KT.config.model_module(config).CARD_DTYPES
+    a model whose kernels take it (``config.card_dtypes``: the U-Net) and
+    raises ValueError naming bfloat16 before anything is allocated for the
+    others (the flagship's neighborhood attention)."""
+    takes_f32 = torch.float32 in KT.config.card_dtypes(config)[0]
     try:
         built = KT.config.make_model(config, dtype=torch.float32)
     except ValueError as e:
@@ -1681,15 +1766,6 @@ def default_build_check(KT, config, name):
           f"{'builds' if takes_f32 else 'refused by name'}", flush=True)
     del model
     torch.cuda.empty_cache()
-
-
-def flagship_layout(config):
-    """The flagship's kernel launches per denoiser call, mapping network
-    (K5) aside."""
-    depths = config["model"]["depths"]
-    layers = 2 * sum(depths[:-1]) + depths[-1]
-    return {"fused_qkv": layers, "na2d": 2 * sum(depths[:-1]),
-            "global_packed": depths[-1], "fused_ffn": layers}
 
 
 def hdit_levels(KT, config):
@@ -1787,7 +1863,9 @@ def condcache_phase(KT, config, dev, smi):
     sigmas = KT.sampling.get_sigmas_karras(STEPS, m["sigma_min"],
                                            m["sigma_max"], rho=7.0, device=dev)
     b = SAMPLE_BATCH
-    per_call = flagship_layout(config)
+    # a cached call launches no K5
+    per_call = {k: v for k, v in hdit_layout(KT, config, False).items()
+                if k != "fused_mapping"}
     zero = dict.fromkeys(kernels.COUNTERS, 0)
     x = (torch.randn(input_shape(config, b), generator=g)
          * m["sigma_max"]).to(dev)
@@ -2055,8 +2133,9 @@ def flat_weights(payload, key):
 def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
     """Phase 21: the training entry point on the card. The loader alone at
     the trainer's batch 32 (images/s at 1, 4 and 8 threads, each over
-    timed epochs after an untimed one: 1 024 entries linking 128 PNGs
-    written by to_png, and 64 Paeth-filtered files); the flagship at full
+    timed epochs after an untimed one, on 1 024 entries linking 128 PNGs
+    written by to_png, and at 1 thread on one batch of Paeth-filtered
+    files); the flagship at full
     width as a subprocess on the 128 PNGs at 256 x 256 (6 steps at batch
     32, saves at 3 and 6, a demo at 6), resumed mid-epoch from step 3 to
     6 as a second subprocess (its params and EMA against the first
@@ -2087,21 +2166,24 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
             d.mkdir()
         for i, x in enumerate(images):
             KT.utils.to_png(x, folder / f"{i:04}.png")
-            if i < 64:
+            if i < TRAIN_BATCH:
                 KT.utils.to_png(x, paeth / f"{i:04}.png", row_filter=4)
         for i in range(1024):
             (many / f"{i:04}.png").symlink_to(folder / f"{i % 128:04}.png")
-        rates = {f"{kind} {workers}": loader_rates(KT, root, workers, reps)
-                 for kind, root, reps in (("to_png", many, 3),
-                                          ("paeth", paeth, 2))
+        rates = {f"to_png {workers}": loader_rates(KT, many, workers, 2)
                  for workers in (1, 4, 8)}
+        # Paeth-filtered rows decode in a Python loop at one rate on any
+        # thread count, so one batch at one thread drives that path
+        rates["paeth 1"] = loader_rates(KT, paeth, 1, 1)
         print(f"loader alone: 256 x 256 PNGs, batch {TRAIN_BATCH}, images/s "
               f"by threads, median (min-max) of timed epochs after an "
-              f"untimed one (to_png: 3 epochs of 1 024 entries linking 128 "
-              f"files; paeth: 2 epochs of 64 files, 2 batches): "
+              f"untimed one (to_png: 2 epochs of 1 024 entries linking 128 "
+              f"files; paeth: 1 epoch of {TRAIN_BATCH} Paeth-filtered "
+              f"files, 1 batch): "
               f"{ {k: spread(r) for k, r in rates.items()} }; every epoch "
               f"{ {k: [round(x, 1) for x in r] for k, r in rates.items()} } "
               f"on the host of {smi} ({os.cpu_count()} cores)", flush=True)
+        CLOCK.part("phase 21 loader")
 
         # the flagship, its dataset replaced by the folder
         cfg = json.loads(CONFIG.read_text())
@@ -2156,6 +2238,7 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
               f"steps 3-5 of that run, on {smi}", flush=True)
 
         # in-process runs, their launches counted
+        CLOCK.part("phase 21 trainer subprocesses")
         def counted(name, cfg, steps, per_step, *flags):
             cfg_path = tmp / f"{name}.json"
             cfg_path.write_text(json.dumps(cfg))
@@ -2195,7 +2278,7 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
         for source, dataset in sources.items():
             cfg["dataset"] = dataset
             w = counted(f"flagship_{dataset['type']}", cfg, 26,
-                        hdit_train_layout(config), "--batch-size",
+                        hdit_layout(KT, config, True), "--batch-size",
                         str(TRAIN_BATCH))
             if w["steps"] != 25:
                 raise AssertionError(f"trainer (flagship): window {w}")
@@ -2210,6 +2293,7 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
                   f"against the bare step's {fused_ips:.3f} (phase 8, 20 "
                   f"steps after 3) on {smi}", flush=True)
 
+        CLOCK.part("phase 21 flagship in-process")
         tiny_cfg = json.loads(TEST_TINY.read_text())
         prof = tmp / "prof"
         counted("tiny", tiny_cfg, 17, {k: 2 * v for k, v in tiny_step.items()},
@@ -2240,6 +2324,7 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
 
         # the chain on the card
         inference = tmp / "flag.safetensors"
+        CLOCK.part("phase 21 tiny and U-Net in-process")
         run_entry("convert_for_inference", tmp / "flag_00000006.ckpt",
                   inference)
         out, secs = run_entry("sample", "--checkpoint", inference, "-n", 8,
@@ -2366,10 +2451,8 @@ def shifted_window_phase(KT, flagship, dev, smi):
 
     config = KT.config.load_config(SHIFTED_WINDOW)
     zero = dict.fromkeys(kernels.COUNTERS, 0)
-    per_call = {k: v for k, v in flagship_layout(config).items()
-                if k != "na2d"} | {"fused_mapping": 1}
-    per_step = {k: v for k, v in hdit_train_layout(config).items()
-                if not k.startswith("na2d")}
+    per_call = hdit_layout(KT, config, False)
+    per_step = hdit_layout(KT, config, True)
     g = torch.Generator().manual_seed(SEED + 22)
     with torch.no_grad():
         model, counts = forward_parity(KT, config, dev, fill_zero_init, g,
@@ -2569,7 +2652,9 @@ def families_phase(KT, flagship, unet, dev, smi):
     """Phase 22: the shifted-window HDiT, the ViT, the cross-attention and
     variance U-Net, and the flagship's multiscale loss."""
     shifted_window_phase(KT, flagship, dev, smi)
+    CLOCK.part("phase 22 (a) shifted windows")
     vit_phase(KT, dev, smi)
+    CLOCK.part("phase 22 (b) ViT")
     cross_unet_phase(KT, unet, dev, smi)
     scales = {**flagship, "model": {**flagship["model"], "loss_scales": 3}}
     grad_parity(KT, scales, dev, fill_zero_init,
@@ -2632,18 +2717,19 @@ def step_ms(KT, config, dev, batch, steps, cond=None, **model_kw):
 
 
 def policy_check(KT, config, dev, name, batch, attention, cond=None,
-                 policies=REMAT_POLICIES):
+                 policies=REMAT_POLICIES, timed=(None, "save_attn_out")):
     """Phase 23 (a): one step at ``batch`` with the config's dropout,
     without checkpointing and checkpointed under each remat policy, from
     the same weights, data and generator seed: bit-equal to the plain step
     (loss, gradient, params after the optimizer); launch counts, peak
-    memory, and the time of a step (make_train_step: host clock over 10
-    steps, card busy time over 3). The
+    memory, and for the plain step and the policies ``timed`` the time of
+    a step (make_train_step: host clock over 5 steps, card busy time over
+    3; PERF.md holds the other policies' times). The
     attention forward kernels ``attention`` launch once a layer under a
     ``save_*`` policy (the recompute reads the kept output), twice under
     plain checkpointing."""
     plain = one_step(KT, config, dev, batch, fill_zero_init, SEED + 29, cond)
-    plain_ms = step_ms(KT, config, dev, batch, 10, cond)
+    plain_ms = step_ms(KT, config, dev, batch, 5, cond)
     print(f"{name} policies: plain step at batch {batch}, dropout "
           f"{config['model']['dropout_rate']}: peak memory "
           f"{plain[3] / 2**30:.3f} GiB, {plain_ms[0]:.3f} ms a step, card "
@@ -2667,29 +2753,28 @@ def policy_check(KT, config, dev, name, batch, attention, cond=None,
             if got[4][k] != want:
                 raise AssertionError(f"{name} under {policy}: {got[4][k]} "
                                      f"{k} launches a step, not {want}")
-        ms = step_ms(KT, config, dev, batch, 10, cond, **kw)
+        times = ""
+        if policy in timed:
+            ms = step_ms(KT, config, dev, batch, 5, cond, **kw)
+            times = (f"; {ms[0]:.3f} ms a step against {plain_ms[0]:.3f}, "
+                     f"card busy {ms[1]:.3f} against {plain_ms[1]:.3f}")
         print(f"{name} under {policy or 'plain checkpointing'}: bit-equal to "
               f"the plain step; peak memory {got[3] / 2**30:.3f} GiB against "
-              f"{plain[3] / 2**30:.3f}; {ms[0]:.3f} ms a step against "
-              f"{plain_ms[0]:.3f}, card busy {ms[1]:.3f} against "
-              f"{plain_ms[1]:.3f}; launches a step {got[4]}", flush=True)
+              f"{plain[3] / 2**30:.3f}{times}; launches a step {got[4]}",
+              flush=True)
 
 
 def optimizer_phase(KT, config, dev, smi, fused_ips):
     """Phase 23 (b): 8-bit AdamW and SGD (momentum 0.9, nesterov) on the
     flagship: the optimizer state's bytes a parameter; 3 + 20 training
-    steps at batch 32 each with the checks of phase 8; then the time of a
-    step with AdamW, 8-bit AdamW, SGD and AdamW again, in turns (the host
-    clock drifts over a run: host-bound steps compare only side by
-    side)."""
+    steps at batch 32 each with the checks of phase 8. (PERF.md holds
+    their times a step side by side with AdamW's.)"""
     from k_diffusion_tpu_torch.models import flops
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
-    configs = {}
     for kind, extra in (("adamw", {}), ("adam8bit", {}),
                         ("sgd", {"momentum": 0.9, "nesterov": True})):
         cfg = json.loads(json.dumps(config))
         cfg["optimizer"].update({"type": kind, **extra})
-        configs[kind] = cfg
         model = KT.config.make_model(cfg, dtype=torch.bfloat16, device=dev)
         opt = KT.training.make_optimizer(cfg, model)
         for p in model.parameters():
@@ -2705,17 +2790,10 @@ def optimizer_phase(KT, config, dev, smi, fused_ips):
               f"{size / n:.4f} bytes a parameter", flush=True)
         if kind != "adamw":
             _, ips = train(KT, cfg, dev, smi, TRAIN_BATCH,
-                           hdit_train_layout(cfg), hdit_flops,
+                           hdit_layout(KT, cfg, True), hdit_flops,
                            f"{kind} training")
             print(f"{kind} training: {ips:.3f} imgs/s (AdamW's phase 8: "
                   f"{fused_ips:.3f}) on {smi}", flush=True)
-    turns = []
-    for kind in ("adamw", "adam8bit", "sgd", "adamw"):
-        host, busy = step_ms(KT, configs[kind], dev, TRAIN_BATCH, 10)
-        turns.append(f"{kind} {host:.3f} ms ({TRAIN_BATCH / host * 1e3:.1f} "
-                     f"imgs/s), card busy {busy:.3f} ms")
-    print(f"optimizers in turns, a step at batch {TRAIN_BATCH}: "
-          f"{'; '.join(turns)} on {smi}", flush=True)
 
 
 def cfg_sampling(KT, dev, smi):
@@ -2957,15 +3035,20 @@ def engine_phase(KT, config, dev, smi, fused_ips):
                             (SAMPLE_BATCH,), generator=torch.Generator()
                             .manual_seed(SEED + 43)).to(dev)
     policy_check(KT, mnist, dev, "mnist transformer", SAMPLE_BATCH, ("flash",),
-                 cond={"class_cond": classes}, policies=(None, "save_attn"))
+                 cond={"class_cond": classes}, policies=(None, "save_attn"),
+                 timed=())
+    CLOCK.part("phase 23 remat policies")
     optimizer_phase(KT, config, dev, smi, fused_ips)
+    CLOCK.part("phase 23 optimizers")
     cfg_sampling(KT, dev, smi)
     likelihood_phase(KT, config, dev, smi)
+    CLOCK.part("phase 23 guidance and likelihood")
     with tempfile.TemporaryDirectory() as cache:
         write_random_inception_npz(
             KT, Path(cache) / "k-diffusion" / "inception-2015-12-05.npz",
             SEED + 60)
         inception_phase(KT, dev, smi, cache)
+        CLOCK.part("phase 23 InceptionV3")
         evaluation_entry(KT, config, cache, smi)
 
 
@@ -3137,7 +3220,7 @@ def data_parallel_phase(KT, config, dev, smi):
     import socket
 
     config = no_dropout(config)
-    layout = hdit_train_layout(config)
+    layout = hdit_layout(KT, config, True)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         config_path = tmp / "flagship.json"
@@ -3243,6 +3326,7 @@ def data_parallel_phase(KT, config, dev, smi):
           f"{TRAIN_BATCH} {secs} s; both ranks' processes {ranks_s:.1f} s "
           f"with start and build; on {smi}. Two ranks sharing one card "
           f"measure no scaling.", flush=True)
+    CLOCK.part("phase 24 (a) gloo ranks")
     data_parallel_trainer(KT, config, dev, smi)
 
 
@@ -3544,14 +3628,14 @@ def float32_model_parity(KT, unet, dev, n_attn, batch=UNET_BATCH):
                              f"{b_grad:.3e}: above {F32_MODEL_SHARE} x")
 
 
-def float32_trainer(KT, n_attn, smi):
-    """Phase 25 (f): ``python -m k_diffusion_tpu_torch.train
-    --mixed-precision no`` on config_cifar10.json from 256 seeded images in
-    memory (a custom dataset) at batch 64: 4 steps as a subprocess with
-    saves at 2 and 4 and a 16-sample demo grid at 4 (it must log float32
-    compute), then resumed from step 2 to 4 in a second subprocess (params
-    and EMA within RESUME_REL_BOUND relative L2 of the first run's); 3
-    steps in-process with the launch counts of float32 K13 and K14 only."""
+def float32_trainer(KT, config_path, batch, per_step, smi):
+    """Phases 25 (f) and 26 (f): ``python -m k_diffusion_tpu_torch.train
+    --mixed-precision no`` on ``config_path`` (a 32 x 32 config) from 256
+    seeded images in memory (a custom dataset) at ``batch``: 4 steps as a
+    subprocess with saves at 2 and 4 and a 16-sample demo grid at 4 (it
+    must log float32 compute), then resumed from step 2 to 4 in-process
+    (params and EMA within RESUME_REL_BOUND relative L2 of the first run's),
+    its 2 steps' launch counts ``per_step`` in float32 kernels only."""
     from k_diffusion_tpu_torch import train as train_cli
     from k_diffusion_tpu_torch.ops import kernels
 
@@ -3562,14 +3646,14 @@ def float32_trainer(KT, n_attn, smi):
         images = F.interpolate(coarse, size=(32, 32), mode="bilinear") * 2 - 1
         np.save(tmp / "images.npy", images.permute(0, 2, 3, 1).numpy())
         (tmp / "in_memory.py").write_text(IN_MEMORY_DATASET)
-        cfg = json.loads(UNET_CONFIG.read_text())
+        cfg = json.loads(config_path.read_text())
         cfg["dataset"] = {"type": "custom",
                           "location": str(tmp / "in_memory.py"),
                           "config": {"path": str(tmp / "images.npy"),
                                      "entries": 256}}
-        cfg_path = tmp / "unet.json"
+        cfg_path = tmp / "config.json"
         cfg_path.write_text(json.dumps(cfg))
-        flags = ("--config", cfg_path, "--batch-size", UNET_BATCH,
+        flags = ("--config", cfg_path, "--batch-size", batch,
                  "--mixed-precision", "no", "--end-step", 4, "--save-every",
                  2, "--evaluate-every", 0)
         out, secs = run_entry("train", *flags, "--demo-every", 4,
@@ -3577,9 +3661,19 @@ def float32_trainer(KT, n_attn, smi):
         if "compute dtype torch.float32" not in out:
             raise AssertionError(f"float32 trainer: not float32:\n{out}")
         check_png(tmp / "f32_demo_00000004.png", 128)
-        resumed_out, resumed_secs = run_entry(
-            "train", *flags, "--demo-every", 0, "--resume",
-            tmp / "f32_00000002.ckpt", "--name", tmp / "resumed")
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        with tf32(False):  # the trainer turns TF32 on; restored after
+            train_cli.main([*map(str, flags), "--demo-every", "0", "--resume",
+                            str(tmp / "f32_00000002.ckpt"), "--name",
+                            str(tmp / "resumed")])
+        resumed_secs = time.perf_counter() - start
+        counts = kernels.launch_counts()
+        expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+            k: 2 * v for k, v in per_step.items()}
+        if counts != expected:
+            raise AssertionError(f"float32 trainer (resumed in-process): "
+                                 f"launch counts {counts} != {expected}")
         a, b = (torch.load(tmp / f"{name}_00000004.ckpt", map_location="cpu",
                            weights_only=True) for name in ("f32", "resumed"))
         errs, equal = {}, True
@@ -3592,51 +3686,35 @@ def float32_trainer(KT, n_attn, smi):
             raise AssertionError(f"float32 trainer resume: {errs}, loss "
                                  f"{a['host']['ema_stats']}")
         print(f"float32 trainer (subprocess, --mixed-precision no, "
-              f"config_cifar10.json at batch {UNET_BATCH}): 4 steps, saves "
+              f"{config_path.name} at batch {batch}): 4 steps, saves "
               f"at 2 and 4, a 16-sample demo grid, in {secs:.1f} s with "
-              f"process start and demo; resumed from step 2 to 4 in "
-              f"{resumed_secs:.1f} s: params relative L2 "
+              f"process start and demo; resumed in-process from step 2 to 4 "
+              f"in {resumed_secs:.1f} s: params relative L2 "
               f"{errs['model']:.3e}, EMA {errs['model_ema']:.3e} (bound "
-              f"{RESUME_REL_BOUND}), bit-equal {equal}, on {smi}; its output: "
+              f"{RESUME_REL_BOUND}), bit-equal {equal}, launches "
+              f"{ {k: v for k, v in counts.items() if v} } (no bf16 "
+              f"kernel), on {smi}; its output: "
               f"{' | '.join(out.strip().splitlines())}", flush=True)
-
-        steps = 3
-        kernels.reset_launch_counts()
-        with tf32(False):  # the trainer turns TF32 on; restored after
-            train_cli.main([
-                "--config", str(cfg_path), "--batch-size", str(UNET_BATCH),
-                "--mixed-precision", "no", "--end-step", str(steps),
-                "--demo-every", "0", "--save-every", "0",
-                "--evaluate-every", "0", "--name", str(tmp / "counted")])
-        counts = kernels.launch_counts()
-        expected = dict.fromkeys(kernels.COUNTERS, 0) | {
-            "flash_f32": steps * n_attn, "flash_bwd_f32": steps * n_attn}
-        if counts != expected:
-            raise AssertionError(f"float32 trainer (in-process): launch "
-                                 f"counts {counts} != {expected}")
-        print(f"float32 trainer (in-process): {steps} steps, launches "
-              f"{ {k: v for k, v in counts.items() if v} }, no bf16 kernel",
-              flush=True)
 
 
 def float32_refusals(KT, dev):
-    """Phase 25 (g): the flagship HDiT and the ViT in float32 on the card
-    raise ValueError naming their kernels without a float32 form and
-    ROADMAP.md's item 9; the trainer's --mixed-precision no on the
-    flagship raises NotImplementedError, as the model is not built."""
+    """Phase 26 (g): the flagship HDiT in float32 on the card raises
+    ValueError naming its neighborhood-attention kernels, which have no
+    float32 form, and ROADMAP.md's item 9 (c); the trainer's
+    --mixed-precision no on the flagship raises NotImplementedError, as the
+    model is not built."""
     from k_diffusion_tpu_torch import train as train_cli
 
-    cases = (("flagship HDiT", KT.config.load_config(CONFIG), "K1-K5"),
-             ("ViT", KT.config.load_config(VIT_CONFIG), "K5"))
-    for name, cfg, kernel in cases:
-        try:
-            KT.config.make_model(cfg, dtype=torch.float32, device=dev)
-        except ValueError as e:
-            if kernel not in str(e) or "item 9" not in str(e):
-                raise
-            print(f"float32 refusal ({name}): {e}", flush=True)
-        else:
-            raise AssertionError(f"{name}: built in float32 on the card")
+    try:
+        KT.config.make_model(KT.config.load_config(CONFIG),
+                             dtype=torch.float32, device=dev)
+    except ValueError as e:
+        if "K2, K7, K11, K12 and K15" not in str(e) or \
+                "item 9 (c)" not in str(e):
+            raise
+        print(f"float32 refusal (flagship HDiT): {e}", flush=True)
+    else:
+        raise AssertionError("flagship HDiT: built in float32 on the card")
     with tempfile.TemporaryDirectory() as tmp:
         try:
             train_cli.main(["--config", str(CONFIG), "--mixed-precision",
@@ -3663,7 +3741,9 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
     with torch.no_grad():
         run_cases(float32_cases(dev, shapes), results, 20, 5)
         tf32_check(dev, shapes)
+    CLOCK.part("phase 25 (a)-(c) kernels")
     float32_model_parity(KT, unet, dev, n_attn)
+    CLOCK.part("phase 25 (d) parity")
 
     g = torch.Generator().manual_seed(SEED + 29)
     model = KT.config.make_model(unet, dtype=torch.float32, device="cpu",
@@ -3691,9 +3771,385 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
               f"{'call' if 'DPM' in what else 'step'} (profile); peak memory "
               f"{f32['peak'] / 2**30:.3f} against {bf['peak'] / 2**30:.3f} "
               f"GiB, on {smi}", flush=True)
-    float32_trainer(KT, n_attn, smi)
-    float32_refusals(KT, dev)
+    float32_trainer(KT, UNET_CONFIG, UNET_BATCH,
+                    {"flash_f32": n_attn, "flash_bwd_f32": n_attn}, smi)
     return sample_counts, train_counts
+
+
+# phase 26: float32 compute on the card (--mixed-precision no) for the ViT
+# and the HDiT without neighborhood-attention levels: the float32 forms of
+# K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu on the TF32 core
+# csrc/gemm_tf32.cuh) and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
+CIFAR10_TRANSFORMER = ROOT / "configs" / "config_cifar10_transformer.json"
+# the float32 kernels of the slice, with the TPU kernel each replaces (the
+# JSON line's source and replaces)
+F32_KERNELS = {
+    "fused_qkv_f32": ("fused_qkv_f32.cu", "fused_qkv.py:82"),
+    "fused_ffn_f32": ("geglu_f32.cu", "fused_ffn.py:42"),
+    "fused_mapping_f32": ("geglu_f32.cu", "fused_mapping.py:28"),
+    "global_packed_f32": ("attn_tf32.cuh", "global_packed.py:57"),
+    "fused_qkv_bwd_f32": ("fused_qkv_f32.cu", "fused_qkv.py:246"),
+    "fused_ffn_bwd_f32": ("geglu_f32.cu", "fused_ffn.py:115"),
+    "global_packed_bwd_f32": ("attn_tf32.cuh", "global_packed.py:111"),
+}
+
+# one float32 kernel at one shape: ``make()`` gives its float32 inputs on
+# the card; ``act`` the indices of the activations among them, which the
+# bf16 form takes in bfloat16 (the weights stay the model's float32
+# params); ``run(*inputs)`` calls the wrapper and ``plain(*inputs)`` its
+# plain version, each returning a tuple; ``timed``, where given, the
+# wrapper call that is timed (the backward alone); ``skip`` outputs left
+# out of the TF32 check (a logsumexp, computed in f32 by both forms)
+F32Spec = collections.namedtuple(
+    "F32Spec", "name label calls make act run plain flops timed library skip",
+    defaults=(None, None, ()))
+
+
+def f32_specs(dev):
+    """Phase 26 (a): each new float32 kernel at the shifted-window config's
+    shapes (its levels are the flagship's: K1, K4 at batch 8 per call, K6,
+    K10 at batch-8 step shapes, K3, K9 at 8 x 256 x 512; K10 at level 2
+    counts no call, whose feed-forward blocks train with dropout, unfused),
+    K5 at the HDiT's 8 x 256, f 768 (counted) and streamed in bf16 at the
+    ViT's 64 x 768, f 2048, and K1, K4, K6, K10 at config_test_tiny's d 64
+    (2 heads of 32), uncounted."""
+    from k_diffusion_tpu_torch.ops import rope
+    from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_mapping,
+                                                   fused_qkv, global_packed)
+
+    g = torch.Generator().manual_seed(SEED + 30)
+    b = SAMPLE_BATCH
+
+    def rnd(*shape, std=1.0, shift=0.0):
+        return lambda: (torch.randn(shape, generator=g) * std + shift).to(dev)
+
+    specs = []
+    for h, d, d_ff, heads, n, n_ffn_bwd, attn in (
+            (64, 128, 384, 2, 4, 4, False), (32, 256, 768, 4, 4, 4, False),
+            (16, 512, 1536, 8, 4, 0, True), (8, 64, 192, 2, 0, 0, False)):
+        t = b * h * h
+        label = f"{b}x{h}x{h}x{d}" + (" e=32" if d // heads == 32 else "")
+        pos = rope.make_axial_pos(h, h, device=dev)
+        made = [rnd(b, h, h, d)(), rnd(b, d, std=0.1, shift=1.0)(),
+                rnd(d, 3 * d, std=d ** -0.5)(),
+                (10 * (1 + 0.1 * torch.randn(heads, generator=g))).to(dev),
+                *(rnd(b, h, h, d)() for _ in range(3))]
+        qkv = lambda x, ns, w, s, heads=heads, pos=pos: (x, pos, ns, w, s,
+                                                         heads)
+        specs.append(F32Spec(
+            "fused_qkv_f32", label, n, lambda m=made: m[:4], (0, 1),
+            lambda *a, f=qkv: fused_qkv.fused_qkv_prologue(*f(*a)),
+            lambda *a, f=qkv: fused_qkv.reference(*f(*a)), 2 * t * d * 3 * d))
+        specs.append(F32Spec(
+            "fused_qkv_bwd_f32", label, n, lambda m=made: m, (0, 1, 4, 5, 6),
+            lambda *a, f=qkv: fused_qkv.prologue_backward(*f(*a[:4]), *a[4:]),
+            lambda *a, f=qkv: fused_qkv.reference_backward(*f(*a[:4]), *a[4:]),
+            3 * 2 * t * d * 3 * d))
+        ffn = [rnd(b, h * h, d)(), rnd(b, d, std=0.1, shift=1.0)(),
+               rnd(d, 2 * d_ff, std=d ** -0.5)(),
+               rnd(d_ff, d, std=d_ff ** -0.5)(), rnd(b, h * h, d)()]
+        flabel = f"{b}x{h * h}x{d} f={d_ff}"
+        specs.append(F32Spec(
+            "fused_ffn_f32", flabel, n, lambda m=ffn: m[:4], (0, 1),
+            lambda *a: (fused_ffn.fused_geglu_ffn(*a),),
+            lambda *a: (fused_ffn.reference(*a),), 6 * t * d * d_ff))
+        specs.append(F32Spec(
+            "fused_ffn_bwd_f32", flabel, n_ffn_bwd, lambda m=ffn: m,
+            (0, 1, 4), lambda *a: fused_ffn.ffn_backward(*a),
+            lambda *a: fused_ffn.reference_backward(*a), 16 * t * d * d_ff))
+        if not attn:
+            continue
+        s = h * h
+        gp = [rnd(b, s, d, std=0.3)() for _ in range(4)]
+        split = lambda *a, heads=heads: [x.reshape(b, s, heads, 64) for x in a]
+        specs.append(F32Spec(
+            "global_packed_f32", f"{b}x{s}x{d}", n, lambda m=gp: m[:3],
+            (0, 1, 2),
+            lambda *a, heads=heads: global_packed.packed_forward(
+                *a, heads, save_lse=True),
+            lambda *a, heads=heads: (global_packed.reference(*a, heads),
+                                     global_packed.reference_lse(*a, heads)),
+            4 * b * s * s * d,
+            timed=lambda m=gp, heads=heads: global_packed.packed_forward(
+                *m[:3], heads),
+            library=under_tf32(True, lambda m=gp: sdpa(*split(*m[:3]), 1.0)),
+            skip=(1,)))
+        fwd = global_packed.packed_forward(*gp[:3], heads, save_lse=True)
+        with tf32(True):
+            library = sdpa_backward(*split(*gp), 1.0)
+        specs.append(F32Spec(
+            "global_packed_bwd_f32", f"{b}x{s}x{d}", n, lambda m=gp: m,
+            (0, 1, 2, 3),
+            lambda q, k, v, dout, heads=heads: global_packed.packed_backward(
+                q, k, v, *global_packed.packed_forward(q, k, v, heads,
+                                                       save_lse=True),
+                dout, heads),
+            lambda *a, heads=heads: global_packed.reference_backward(*a, heads),
+            5 * 2 * b * s * s * d,
+            timed=lambda m=gp, f=fwd, heads=heads: global_packed.packed_backward(
+                *m[:3], *f, m[3], heads),
+            library=under_tf32(True, library)))
+    for batch, mw, d_ff, calls in ((b, 256, 768, 1), (UNET_BATCH, 768, 2048, 0)):
+        flat = [rnd(batch, mw)(), rnd(mw, std=0.1, shift=1.0)(),
+                rnd(mw, std=0.1, shift=1.0)()]
+        for _ in range(2):
+            flat += [rnd(mw, std=0.1, shift=1.0)(),
+                     rnd(mw, 2 * d_ff, std=mw ** -0.5)(),
+                     rnd(d_ff, mw, std=d_ff ** -0.5)()]
+        blocks = lambda a: [a[i:i + 3] for i in range(3, len(a), 3)]
+        specs.append(F32Spec(
+            "fused_mapping_f32", f"{batch}x{mw} f={d_ff}", calls,
+            lambda m=flat: m, (0,),
+            lambda *a: (fused_mapping.fused_mapping(
+                *a[:3], blocks(a), dtype=a[0].dtype),),
+            lambda *a: (fused_mapping.reference(*a[:3], blocks(a),
+                                                dtype=a[0].dtype),),
+            2 * 6 * batch * mw * d_ff))
+    return specs
+
+
+def f32_cases(specs):
+    """Phase 26 (a), (c): each spec as a Case, the float32 kernel against its
+    plain version in float32 with TF32 off, within F32_KERNEL_REL_BOUND,
+    its bound from TF32's peak."""
+    cases = []
+    for s in specs:
+        inputs = s.make()
+        cases.append(Case(
+            s.name, s.label, s.calls, lambda r=s.run, a=inputs: tuple(r(*a)),
+            under_tf32(False, lambda p=s.plain, a=inputs: tuple(p(*a))),
+            s.flops, inputs, timed=s.timed, library=s.library,
+            rel_bound=F32_KERNEL_REL_BOUND, peak=PEAK_TF32_FLOPS))
+    return cases
+
+
+def f32_tf32_check(specs):
+    """Phase 26 (b): on the same inputs, each float32 kernel's outputs and
+    the bf16 form's (its activations rounded to bf16, the float32 weights
+    as the model holds them) against the plain version in float64, max abs
+    error over max|f64|; the float32 kernel's at most TF32_SHARE x the bf16
+    form's, output by output."""
+    worst = 0.0
+    for s in specs:
+        inputs = s.make()
+        wide = [x.double() for x in inputs]
+        with torch.no_grad():
+            want = s.plain(*wide)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [x.to(dtype) if i in s.act else x
+                    for i, x in enumerate(inputs)]
+            got = s.run(*cast)
+            errs[dtype] = [((a.double() - w).abs().max() / w.abs().max()).item()
+                           for a, w in zip(got, want)]
+        shares = [a / c for i, (a, c) in enumerate(zip(errs[torch.float32],
+                                                       errs[torch.bfloat16]))
+                  if i not in s.skip]
+        label = f"{s.name} [{s.label}]"
+        print(f"tf32 check {label}: against float64, max abs err over "
+              f"max|f64| by output: float32 kernel "
+              f"{[f'{x:.2e}' for x in errs[torch.float32]]}, bf16 form "
+              f"{[f'{x:.2e}' for x in errs[torch.bfloat16]]}; float32 / bf16 "
+              f"{[round(x, 3) for x in shares]} (bound {TF32_SHARE})",
+              flush=True)
+        if not max(shares) <= TF32_SHARE:
+            raise AssertionError(f"tf32 check {label}: float32 / bf16 error "
+                                 f"shares {shares}, bound {TF32_SHARE}")
+        worst = max(worst, *shares)
+    print(f"tf32 check: worst float32 / bf16 error share {worst:.3f} over "
+          f"{len(specs)} kernels and shapes (bound {TF32_SHARE})", flush=True)
+
+
+def as_f32(counts):
+    """Launch counts under the float32 kernels' counter names."""
+    return {f"{k}_f32": v for k, v in counts.items()}
+
+
+def f32_model_parity(KT, config, dev, name, call_batch, step_batch, per_call,
+                     per_step):
+    """Phase 26 (d): a model (dropout 0, seeded weights, zero-init kernels
+    filled) in float32 on the card with TF32 on and in bf16 on the card,
+    against the same weights in float32 on the CPU: relative L2 of the
+    denoiser output at ``call_batch`` (eval) and of one loss's full
+    parameter gradient at ``step_batch`` (train, the same reals, noise and
+    sigmas). The float32 model's errors at most F32_MODEL_SHARE x the bf16
+    model's; each run's launch counts ``per_call`` (the forward) plus
+    ``per_step`` (the loss's forward and backward), in its dtype's kernels
+    only."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    config = no_dropout(config)
+    g = torch.Generator().manual_seed(SEED + 31)
+    reference = KT.config.make_model(config, device="cpu", generator=g)
+    fill_zero_init(reference, g)
+    x = torch.randn(input_shape(config, call_batch), generator=g)
+    sigma = torch.linspace(0.5, 8.0, call_batch)
+    reals, noise = (torch.randn(input_shape(config, step_batch), generator=g)
+                    for _ in range(2))
+    loss_sigma = KT.config.make_sample_density(config["model"])(
+        (step_batch,), stratified=(0, 1), generator=g, device="cpu")
+
+    def run(model, d):
+        den = KT.config.make_denoiser_wrapper(config)(model)
+        with torch.no_grad():
+            out = den(x.to(d), sigma.to(d)).float().cpu()
+        model.train()
+        loss = den.loss(reals.to(d), noise.to(d), loss_sigma.to(d)).mean()
+        grad = torch.cat([p.flatten() for p in torch.autograd.grad(
+            loss, list(model.parameters()))]).float().cpu()
+        model.eval()
+        return out, loss.item(), grad
+
+    start = time.perf_counter()
+    want = run(reference.eval(), torch.device("cpu"))
+    cpu_secs = time.perf_counter() - start
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    found = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = KT.config.make_model(config, dtype=dtype, device="cpu")
+        model.load_state_dict(reference.state_dict())
+        model.to(dev).eval()
+        kernels.reset_launch_counts()
+        with tf32(True):
+            out, loss, grad = run(model, dev)
+        counts = kernels.launch_counts()
+        total = collections.Counter(per_call) + collections.Counter(per_step)
+        expected = dict.fromkeys(kernels.COUNTERS, 0) | (
+            as_f32(total) if dtype == torch.float32 else dict(total))
+        if counts != expected:
+            raise AssertionError(f"{name} float32 parity ({dtype}): launch "
+                                 f"counts {counts} != {expected}")
+        if not (torch.isfinite(out).all() and torch.isfinite(grad).all()):
+            raise AssertionError(f"{name} float32 parity ({dtype}): not "
+                                 f"finite")
+        found[dtype] = (rel(out, want[0]), rel(grad, want[2]), loss)
+        del model
+        torch.cuda.empty_cache()
+    (f_out, f_grad, f_loss), (b_out, b_grad, b_loss) = (
+        found[torch.float32], found[torch.bfloat16])
+    print(f"{name} float32 parity: forward at batch {call_batch}, gradient at "
+          f"batch {step_batch}, dropout 0, against float32 on the CPU "
+          f"({cpu_secs:.1f} s): output relative L2 float32 (TF32) "
+          f"{f_out:.3e}, bf16 {b_out:.3e} ({f_out / b_out:.3f}); gradient of "
+          f"{want[2].numel()} params float32 {f_grad:.3e}, bf16 {b_grad:.3e} "
+          f"({f_grad / b_grad:.3f}), bound {F32_MODEL_SHARE} x bf16's; loss "
+          f"{f_loss:.6f} float32, {b_loss:.6f} bf16, {want[1]:.6f} CPU",
+          flush=True)
+    if not (f_out <= F32_MODEL_SHARE * b_out
+            and f_grad <= F32_MODEL_SHARE * b_grad):
+        raise AssertionError(f"{name} float32 parity: float32 errors "
+                             f"{f_out:.3e}, {f_grad:.3e} against bf16 "
+                             f"{b_out:.3e}, {b_grad:.3e}: above "
+                             f"{F32_MODEL_SHARE} x")
+
+
+def f32_condcache_check(KT, config, model, dev, g, per_call):
+    """Phase 26 (e): an HDiT's float32 50-step DPM++(2M) at batch 8 through
+    condcache, K1's and K4's float32 forms reading each layer's scale out
+    of the schedule's table row through its row stride, against the
+    uncached run: equal (the strided scale is read as the contiguous one
+    is; printed whether bit for bit), launches in the float32 kernels only,
+    no K5 a cached call."""
+    from k_diffusion_tpu_torch import condcache
+    from k_diffusion_tpu_torch.ops import kernels
+
+    m = config["model"]
+    sigmas = KT.sampling.get_sigmas_karras(STEPS, m["sigma_min"],
+                                           m["sigma_max"], rho=7.0, device=dev)
+    x = (torch.randn(input_shape(config, SAMPLE_BATCH), generator=g)
+         * m["sigma_max"]).to(dev)
+    wrap = KT.config.make_denoiser_wrapper(config)
+    with torch.no_grad():
+        inner = condcache.ScheduledModel(model, sigmas[:-1], SAMPLE_BATCH)
+        kernels.reset_launch_counts()
+        cached = KT.sampling.sample_dpmpp_2m(wrap(inner), x, sigmas)
+        counts = kernels.launch_counts()
+        inner.check()
+        uncached = KT.sampling.sample_dpmpp_2m(wrap(model), x, sigmas)
+    want = dict.fromkeys(kernels.COUNTERS, 0) | {
+        k: STEPS * v for k, v in as_f32(per_call).items()
+        if k != "fused_mapping_f32"}
+    err = ((cached - uncached).abs().max() / uncached.abs().max()).item()
+    if counts != want or not err <= 1e-5:
+        raise AssertionError(f"float32 condcache: launch counts {counts} "
+                             f"(want {want}), relative error {err:.3e}")
+    print(f"float32 condcache: {STEPS}-step DPM++(2M) at batch "
+          f"{SAMPLE_BATCH}, cached against uncached: max abs err over "
+          f"max|uncached| {err:.3e} (bound 1e-5), bit-equal "
+          f"{torch.equal(cached, uncached)}; launches cached {counts}",
+          flush=True)
+
+
+def f32_model_runs(KT, config, dev, smi, name, batch_call, batch_step,
+                   per_call, per_step, fwd_flops):
+    """Phase 26 (e): 50-step DPM++(2M) at ``batch_call`` (for an HDiT also
+    through condcache) and 3 + 20 training steps at ``batch_step`` in
+    float32 (TF32 on), each with its launch counts in the float32 kernels
+    only. Returns the sampling and the training runs' counts."""
+    g = torch.Generator().manual_seed(SEED + 32)
+    model = KT.config.make_model(config, dtype=torch.float32, device="cpu",
+                                 generator=g)
+    fill_zero_init(model, g)
+    model.to(dev).eval()
+    with tf32(True):
+        sample_counts = sample(KT, config, model, dev, g, batch_call,
+                               as_f32(per_call), fwd_flops, smi,
+                               f"{name} sampling float32")
+        if config["model"]["type"] == "image_transformer_v2":
+            f32_condcache_check(KT, config, model, dev, g, per_call)
+        del model
+        torch.cuda.empty_cache()
+        train_counts, _ = train(KT, config, dev, smi, batch_step,
+                                as_f32(per_step), fwd_flops,
+                                f"{name} training float32",
+                                dtype=torch.float32)
+    return sample_counts, train_counts
+
+
+def transformers_float32_phase(KT, dev, smi, results):
+    """Phase 26: (a)-(c) the new float32 kernels at their shapes, (b) the
+    TF32 check, (d) the shifted-window config and the ViT against the CPU
+    beside bf16, (e) their float32 sampling and training, (f) the trainer
+    on config_cifar10_transformer.json, (g) the flagship's refusal. Returns
+    the launch counts of the shifted-window config's float32 sampling and
+    training runs (the main path of K1-K5's and K6, K9, K10's float32
+    forms)."""
+    from k_diffusion_tpu_torch.models import flops
+
+    print("phase 26: float32 compute on the card (--mixed-precision no), the "
+          "ViT and the HDiT without neighborhood levels", flush=True)
+    specs = f32_specs(dev)
+    with torch.no_grad():
+        run_cases(f32_cases(specs), results, 20, 3)
+        f32_tf32_check(specs)
+    del specs
+    torch.cuda.empty_cache()
+    CLOCK.part("phase 26 (a)-(c) kernels")
+
+    sw = KT.config.load_config(SHIFTED_WINDOW)
+    sw_call, sw_step = hdit_layout(KT, sw, False), hdit_layout(KT, sw, True)
+    f32_model_parity(KT, sw, dev, "shifted-window", SAMPLE_BATCH, TRAIN_BATCH,
+                     sw_call, hdit_layout(KT, no_dropout(sw), True))
+    vit = KT.config.load_config(VIT_CONFIG)
+    depth = vit["model"]["depth"]
+    vit_call = {"flash": depth, "fused_mapping": 1}
+    vit_step = vit_call | {"flash_bwd": depth}
+    f32_model_parity(KT, vit, dev, "vit", UNET_BATCH, UNET_BATCH, vit_call,
+                     vit_step)
+    CLOCK.part("phase 26 (d) parity")
+
+    counts = f32_model_runs(
+        KT, sw, dev, smi, "shifted-window", SAMPLE_BATCH, TRAIN_BATCH,
+        sw_call, sw_step, 2 * flops.analytic_transformer_flops(sw, 1))
+    f32_model_runs(KT, vit, dev, smi, "vit", UNET_BATCH, UNET_BATCH, vit_call,
+                   vit_step, forward_flops(KT, vit, "vit"))
+    CLOCK.part("phase 26 (e) sampling and training")
+
+    cifar = KT.config.load_config(CIFAR10_TRANSFORMER)
+    per_step = as_f32(hdit_layout(KT, cifar, True))
+    float32_trainer(KT, CIFAR10_TRANSFORMER, TRAIN_BATCH, per_step, smi)
+    float32_refusals(KT, dev)
+    return counts
 
 
 def forward_flops(KT, config, name="unet", **cond):
@@ -3772,20 +4228,43 @@ def grad_parity(KT, config, dev, fill, name, **cond):
     return counts
 
 
-def hdit_train_layout(config):
-    """The flagship's kernel launches per training step."""
-    levels = config["model"]["depths"]
-    drops = config["model"]["dropout_rate"]
-    attn = 2 * sum(levels[:-1]) + levels[-1]
-    na = 2 * sum(levels[:-1])
-    # the fused feed-forward block runs where the level's dropout is 0
-    ffn = sum((2 if i < len(levels) - 1 else 1) * depth
-              for i, (depth, p) in enumerate(zip(levels, drops)) if p == 0)
-    mapping = int(config["model"]["mapping_dropout_rate"] == 0)
-    return {"fused_qkv": attn, "na2d": na, "global_packed": levels[-1],
-            "fused_ffn": ffn, "fused_mapping": mapping,
-            "fused_qkv_bwd": attn, "na2d_bwd": na,
-            "global_packed_bwd": levels[-1], "fused_ffn_bwd": ffn}
+def hdit_layout(KT, config, training):
+    """An HDiT config's launches per denoiser call (``training`` False) or
+    per fused training step (True, dropout as configured) on its kernels,
+    by level: K1 at each attention layer, K2 at a neighborhood one, K3 (or
+    the flash kernel where K3 does not take the level) at a global one,
+    none at a shifted-window one (PyTorch ops); K4 where the feed-forward
+    block runs fused (in training where its dropout is 0), K5 once (in
+    training where the mapping network's dropout is 0); in training also
+    each fused op's backward."""
+    from k_diffusion_tpu_torch.ops.kernels import global_packed
+
+    m = config["model"]
+    side = m["input_size"][0] // m["patch_size"][0]
+    last = len(m["depths"]) - 1
+    counts = collections.Counter()
+    for i, (depth, width, attn, p) in enumerate(zip(
+            m["depths"], m["widths"], m["self_attns"], m["dropout_rate"])):
+        layers = depth if i == last else 2 * depth
+        s = (side >> i) ** 2
+        kinds = []
+        if attn["type"] != "none":
+            kinds.append("fused_qkv")
+        if attn["type"] == "neighborhood":
+            kinds.append("na2d")
+        if attn["type"] == "global":
+            heads = width // attn.get("d_head", 64)
+            kinds.append("global_packed" if global_packed.takes(
+                s, width, heads) else "flash")
+        if not (training and p):
+            kinds.append("fused_ffn")
+        for kind in kinds:
+            counts[kind] += layers
+            if training:
+                counts[kind + "_bwd"] += layers
+    if not (training and m["mapping_dropout_rate"]):
+        counts["fused_mapping"] += 1
+    return dict(counts)
 
 
 def hdit_unfused_layout(config):

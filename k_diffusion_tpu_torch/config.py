@@ -14,8 +14,8 @@ The HDiT takes the JAX package's ``remat_policy`` names
 ``make_model``, ``make_sample_density``'s densities and
 ``sampling.get_sigmas_karras`` put their tensors on the card unless the
 caller names a device (``utils.default_device``); a model on the card
-computes in bfloat16 unless given a dtype its family takes there
-(``model_module``, ``utils.compute_dtype``).
+computes in bfloat16 unless given a dtype it takes there
+(``card_dtypes``, ``utils.compute_dtype``).
 """
 
 import importlib
@@ -150,12 +150,23 @@ MODEL_TYPES = ("image_v1", "image_transformer_v1", "image_transformer_v2")
 
 
 def model_module(config):
-    """The module of a config's model family, ``models.<type>``: its
-    ``CARD_DTYPES`` are the compute dtypes its kernels take on the card."""
+    """The module of a config's model family, ``models.<type>``."""
     kind = config["model"]["type"]
     if kind not in MODEL_TYPES:
         raise ValueError(f"unsupported model type {kind}")
     return importlib.import_module(f".models.{kind}", __package__)
+
+
+def card_dtypes(config):
+    """(the compute dtypes a config's model takes on the card, the kernels
+    that keep it from float32 or None), the answer its constructor gives:
+    the U-Net and the ViT take bfloat16 and float32; the HDiT float32 too
+    unless a level runs neighborhood attention."""
+    module = model_module(config)
+    if config["model"]["type"] == "image_transformer_v2":
+        return module.card_dtypes(
+            attn["type"] for attn in config["model"]["self_attns"])
+    return utils.device.CARD_DTYPES, None
 
 
 def make_model(config, dtype=None, device=None, generator=None,
@@ -165,8 +176,8 @@ def make_model(config, dtype=None, device=None, generator=None,
     are float32 on ``device`` (default: the card), drawn from
     ``generator``; ``dtype`` is the compute dtype (default: bfloat16 on the
     card, float32 elsewhere), passed through to the model, which refuses a
-    dtype its kernels do not take on the card (``model_module(config).
-    CARD_DTYPES``, ``utils.compute_dtype``). The dropout rates apply under
+    dtype its kernels do not take on the card (``card_dtypes(config)``,
+    ``utils.compute_dtype``). The dropout rates apply under
     ``model.train()``, PyTorch's default mode: call ``model.eval()`` to
     sample. ``checkpointing`` recomputes the transformer layers in the
     backward (the HDiT's in the levels ``remat_levels`` names, by index or

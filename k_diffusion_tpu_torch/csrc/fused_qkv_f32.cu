@@ -1,0 +1,416 @@
+// The fused attention prologue in float32: AdaRMSNorm -> x @ W_qkv ->
+// per-head cosine-sim scaling of q and k -> axial RoPE on q and k; packed
+// (b, h, w, d) f32 q, k, v. Forward (K1 in f32) and backward (K6 in f32),
+// the kernels of --mixed-precision no, on gemm_tf32.cuh's TF32 core.
+//
+// Replaces: k_diffusion_tpu/ops/pallas/fused_qkv.py:_fused_qkv_kernel (the
+// forward of fused_qkv_prologue) and :_prologue_bwd_kernel (its backward)
+// as they run on f32 operands (the JAX model built with dtype=float32):
+// f32 dots with f32 accumulation. Here every product runs on the TF32
+// tensor cores with f32 accumulation, as PyTorch's float32 training does
+// with TF32 on; the norm, the cosine-sim scale, RoPE and their VJPs stay
+// in f32.
+//
+// What bounds the forward on the H100, the shifted-window config's eval
+// shapes at batch 8 (its levels are the flagship's): the product is 2
+// tokens d 3d = 3.2 GFLOP at every level (6.5 us at TF32's 494.7
+// TFLOP/s), while x in and q, k, v out are 67 MB at level 0 (d = 128, 20
+// us at 3.35 TB/s) and 19 MB at level 2 (d = 512, weights included, 5.7
+// us): levels 0 and 1 are bound by memory, level 2 by operations and
+// memory alike. The backward at batch-8 training shapes does 3x the
+// products against x, gq, gk, gv and dx (and, in this design, dR and xn
+// written once and read back).
+//
+// Forward design (qkv_f32_kernel): a block owns a 128-row tile that never
+// spans two images and one 64-column panel of the 3d projection columns (q,
+// k, then v); grid (images * tiles, 3d / 64). The product xn W = r (x
+// nscale) W runs with x nscale formed at each A fragment, whose squares
+// give the rows' norms r on the way (gemm_tf32.cuh's Normed), and r applied
+// in the epilogue, the panel's W tiles read MN-major. The epilogue
+// runs in registers: a head's sum of squares is the thread's own columns
+// plus two shuffles in its quad, and the RoPE partner column c ^ (E / 4) is
+// accumulator block n ^ (E / 32) of the same thread, so the rotation needs
+// no exchange; q and k get the cosine-sim scale sqrt(attn_scale) /
+// sqrt(ssq + eps) and the half-split RoPE (pair distance E / 4 on the first
+// E / 2 dims), v passes as it is; the angles theta = pos * freq are formed
+// there in f32 with sincosf, as K1's bf16 form does. f32 goes out with
+// 8-byte stores, a quad's 32 contiguous bytes.
+//
+// K6 in f32, three steps (the bf16 form's, fused_qkv.cu):
+// (a) qkv_f32_dr_kernel: the raw projection recomputed per row tile and
+//     panel, as the forward's; the RoPE and cosine-sim VJPs in registers
+//     write f32 dR's q and k parts (v's is gv itself) and the
+//     d(attn_scale) partials; every panel adds its dR R to the per-row
+//     partial of dot_part for the RMS-norm VJP (gemm.cuh's note: sum(g1 x)
+//     = sum_k dR_k R_k / r, here up to the TF32 rounding of the products);
+//     panel 0 also writes xn and r;
+// (b) tg::norm_vjp_f32_kernel: dxn = dR W^T over K = 3d and the RMS-norm
+//     VJP in its epilogue -> dx and the d(norm_scale) partials;
+// (c) tg::atb_f32_kernel: dW_qkv = xn^T dR in f32 partials over row
+//     chunks; every partial summed in a fixed order (gemm::reduce_kernel).
+//
+// The head dim E is a template parameter, 64 or 32 (config_test_tiny.json):
+// a panel then holds 64 / E heads, accumulator blocks [8 hs E / 64, 8 (hs +
+// 1) E / 64) holding head hs of the panel.
+#include "gemm_tf32.cuh"
+
+namespace kdt {
+namespace {
+
+using tg::Mat;
+
+// The cosine-sim scale of the thread's two rows for each of the panel's HP
+// heads: sqrt(attn_scale) / sqrt(sum of the head's R^2 + cos_eps), and the
+// head's inverse norm 1 / sqrt(ssq + cos_eps) in inv.
+template <int E>
+__device__ __forceinline__ void cos_scale(const float (&raw)[8][4], const float* attn_scale,
+                                          int head0, float cos_eps, float (&rho)[64 / E][2],
+                                          float (&inv)[64 / E][2]) {
+  constexpr int HP = 64 / E;
+  float ssq[HP][2] = {};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ssq[8 * n / E][i / 2] += raw[n][i] * raw[n][i];
+#pragma unroll
+  for (int hs = 0; hs < HP; ++hs) {
+    const float root = sqrtf(attn_scale[head0 + hs]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      inv[hs][h] = rsqrtf(gemm::quad_sum(ssq[hs][h]) + cos_eps);
+      rho[hs][h] = root * inv[hs][h];
+    }
+  }
+}
+
+// cos and sin of the RoPE angle of accumulator element (n, h, e), n the
+// first of a rotated pair: dim r = (8 n + 2 t + e) % E < E / 4 of head
+// `head` at the token of row h, theta = pos[token, r / F] freqs[head, r %
+// F], the f32 product of ops/rope.py's theta.
+template <int E>
+__device__ __forceinline__ void rope_angle(const float* pos, const float* freqs, long token,
+                                           int head, int n, int e, float& sn, float& cs) {
+  constexpr int F = E / 8;
+  const int r = (8 * n + 2 * tg::lane_t() + e) % E;
+  sincosf(pos[2 * token + r / F] * freqs[head * F + r % F], &sn, &cs);
+}
+
+// K1 in f32. Grid (images * tiles, 3d / 64): block y owns panel y.
+template <int E>
+__global__ void __launch_bounds__(tg::THREADS)
+qkv_f32_kernel(const float* __restrict__ x, const float* __restrict__ nscale, int scale_stride,
+               const float* __restrict__ w, const float* __restrict__ attn_scale,
+               const float* __restrict__ pos, const float* __restrict__ freqs,
+               float* __restrict__ q, float* __restrict__ k, float* __restrict__ v, int tokens,
+               int d, float eps, float cos_eps) {
+  constexpr int R = E / 4, HP = 64 / E;  // RoPE pair distance; heads a panel
+  extern __shared__ __align__(16) float smem[];
+  float* s_ns = smem;
+  float* ring = smem + d + tg::ROWS;
+  const tg::RowTile t = tg::row_tile(tokens);
+  const int p = blockIdx.y, kt = d / 64, sec = p / kt, pp = p % kt;
+  tg::load_scale(nscale + static_cast<long>(t.img) * scale_stride, d, s_ns);
+  float acc[1][8][4];
+  tg::zero(acc);
+  const int b0[1] = {64 * p};
+  tg::Normed norm{s_ns};
+  tg::mainloop<true, false, 1>(acc, ring, tg::mat(x, d), t.row0, t.row0 + t.valid,
+                               tg::mat(w, 3L * d), b0, 0, d, norm);
+  float r[2];
+  tg::row_norms(norm, d, eps, r);
+  float(&raw)[8][4] = acc[0];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) raw[n][i] *= r[i / 2];
+  float* dst = (sec == 0 ? q : sec == 1 ? k : v) + 64 * pp + 2 * tg::lane_t();
+  if (sec < 2) {
+    float rho[HP][2], inv[HP][2];
+    cos_scale<E>(raw, attn_scale, pp * HP, cos_eps, rho, inv);
+    float y[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[n][i] = raw[n][i];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = tg::acc_row(h);
+      const long token = row < t.valid ? t.tile * static_cast<long>(tg::ROWS) + row : 0;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (8 * n % E >= R) continue;  // not the first of a rotated pair
+        const int pn = n ^ (R / 8);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sn, cs;
+          rope_angle<E>(pos, freqs, token, pp * HP + 8 * n / E, n, e, sn, cs);
+          const float x1 = raw[n][2 * h + e], x2 = raw[pn][2 * h + e];
+          // y1 = x1 cos - x2 sin, y2 = x2 cos + x1 sin
+          y[n][2 * h + e] = x1 * cs - x2 * sn;
+          y[pn][2 * h + e] = x2 * cs + x1 * sn;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) raw[n][i] = y[n][i] * rho[8 * n / E][i / 2];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (tg::acc_row(h) >= t.valid) continue;
+    float* out = dst + (t.row0 + tg::acc_row(h)) * d;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(raw[n][2 * h], raw[n][2 * h + 1]);
+  }
+}
+
+// K6's first kernel in f32. Grid (images * tiles, 3d / 64): the forward's
+// product per panel; for a q or k panel the RoPE VJP (the forward rotation
+// with the sine's sign flipped, the partner column in the same thread) and
+// the cosine-sim VJP write dR into dqk (rows, 2d), and the tile's sums of
+// g * qn per head go to das_part (images * tiles, 2 * heads), finished by
+// reduce_kernel and a division by 2 * attn_scale in the wrapper; every
+// panel adds dR R over its columns to its per-row partial of dot_part
+// (3d / 64, rows) (v's dR is gv itself, so a v panel writes nothing else).
+// Panel 0 writes xn and r.
+template <int E>
+__global__ void __launch_bounds__(tg::THREADS)
+qkv_f32_dr_kernel(const float* __restrict__ x, const float* __restrict__ nscale,
+                  const float* __restrict__ w, const float* __restrict__ attn_scale,
+                  const float* __restrict__ pos, const float* __restrict__ freqs,
+                  const float* __restrict__ gq, const float* __restrict__ gk,
+                  const float* __restrict__ gv, float* __restrict__ dqk, float* __restrict__ xn,
+                  float* __restrict__ r_out, float* __restrict__ dot_part,
+                  float* __restrict__ das_part, long n_rows, int tokens, int d, int n_heads,
+                  float eps, float cos_eps) {
+  constexpr int R = E / 4, HP = 64 / E;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float s_das[tg::WARPS][HP];
+  float* s_ns = smem;
+  float* s_r = smem + d;
+  float* ring = s_r + tg::ROWS;
+  const tg::RowTile t = tg::row_tile(tokens);
+  const int p = blockIdx.y, kt = d / 64, sec = p / kt, pp = p % kt;
+  tg::load_scale(nscale + static_cast<long>(t.img) * d, d, s_ns);
+  float acc[1][8][4];
+  tg::zero(acc);
+  const int b0[1] = {64 * p};
+  tg::Normed norm{s_ns};
+  tg::mainloop<true, false, 1>(acc, ring, tg::mat(x, d), t.row0, t.row0 + t.valid,
+                               tg::mat(w, 3L * d), b0, 0, d, norm);
+  float r[2];
+  tg::row_norms(norm, d, eps, r);
+  if (p == 0) tg::write_xn(x, t, d, s_ns, r, s_r, xn, r_out);
+  float(&raw)[8][4] = acc[0];
+  const int c = 2 * tg::lane_t(), warp = threadIdx.x / 32;
+  bool ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) ok[h] = tg::acc_row(h) < t.valid;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) raw[n][i] *= r[i / 2];
+  // the cotangent at the thread's elements (zero on rows past the tile's end)
+  const float* g = (sec == 0 ? gq : sec == 1 ? gk : gv) + 64 * pp + c;
+  float gr[8][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 gg = ok[h] ? *reinterpret_cast<const float2*>(
+                                    g + (t.row0 + tg::acc_row(h)) * d + 8 * n)
+                              : make_float2(0.f, 0.f);
+      gr[n][2 * h] = gg.x;
+      gr[n][2 * h + 1] = gg.y;
+    }
+  float dot[2] = {0.f, 0.f};
+  if (sec == 2) {  // v: dR = gv
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dot[i / 2] += gr[n][i] * raw[n][i];
+  } else {
+    // the RoPE VJP: g1' = g1 cos + g2 sin, g2' = g2 cos - g1 sin
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long token = ok[h] ? t.tile * static_cast<long>(tg::ROWS) + tg::acc_row(h) : 0;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (8 * n % E >= R) continue;
+        const int pn = n ^ (R / 8);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sn, cs;
+          rope_angle<E>(pos, freqs, token, pp * HP + 8 * n / E, n, e, sn, cs);
+          const float g1 = gr[n][2 * h + e], g2 = gr[pn][2 * h + e];
+          gr[n][2 * h + e] = g1 * cs + g2 * sn;
+          gr[pn][2 * h + e] = g2 * cs - g1 * sn;
+        }
+      }
+    }
+    // the cosine-sim VJP per head: qn = raw rho, rho = root / sqrt(ssq + eps)
+    float rho[HP][2], inv[HP][2], gsum[HP][2] = {};
+    cos_scale<E>(raw, attn_scale, pp * HP, cos_eps, rho, inv);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gsum[8 * n / E][i / 2] += gr[n][i] * raw[n][i];
+    float coef[HP][2], das[HP];
+#pragma unroll
+    for (int hs = 0; hs < HP; ++hs) {
+      das[hs] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float gs = gemm::quad_sum(gsum[hs][h]);
+        coef[hs][h] = rho[hs][h] * inv[hs][h] * inv[hs][h] * gs;
+        // the row's sum of g * qn over the head, once per quad
+        if (tg::lane_t() == 0 && ok[h]) das[hs] += rho[hs][h] * gs;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* out = dqk + (t.row0 + tg::acc_row(h)) * 2L * d + sec * d + 64 * pp + c;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int hs = 8 * n / E;
+        const float v0 = rho[hs][h] * gr[n][2 * h] - raw[n][2 * h] * coef[hs][h];
+        const float v1 = rho[hs][h] * gr[n][2 * h + 1] - raw[n][2 * h + 1] * coef[hs][h];
+        dot[h] += v0 * raw[n][2 * h] + v1 * raw[n][2 * h + 1];
+        if (ok[h]) *reinterpret_cast<float2*>(out + 8 * n) = make_float2(v0, v1);
+      }
+    }
+#pragma unroll
+    for (int hs = 0; hs < HP; ++hs) {
+      const float s = warp_sum(das[hs]);
+      if ((threadIdx.x & 31) == 0) s_das[warp][hs] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < HP) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < tg::WARPS; ++w) s += s_das[w][threadIdx.x];  // warp order
+      das_part[static_cast<long>(blockIdx.x) * 2 * n_heads + sec * n_heads + pp * HP +
+               threadIdx.x] = s;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float s = gemm::quad_sum(dot[h]);
+    if (tg::lane_t() == 0 && ok[h]) dot_part[p * n_rows + t.row0 + tg::acc_row(h)] = s;
+  }
+}
+
+template <int E>
+int launch_fwd(const float* x, const float* nscale, int scale_stride, const float* w,
+               const float* attn_scale, const float* pos, const float* freqs, float* q, float* k,
+               float* v, int images, int tokens, int d, float eps, float cos_eps,
+               cudaStream_t st) {
+  const size_t smem = tg::normed_smem<1>(d);
+  const cudaError_t attr = allow_smem(qkv_f32_kernel<E>, smem);
+  const int tiles = tg::tiles(tokens);
+  qkv_f32_kernel<E><<<dim3(images * tiles, 3 * d / 64), tg::THREADS, smem, st>>>(
+      x, nscale, scale_stride, w, attn_scale, pos, freqs, q, k, v, tokens, d, eps, cos_eps);
+  return launch_status(attr);
+}
+
+template <int E>
+int launch_bwd(const float* x, const float* nscale, const float* w, const float* attn_scale,
+               const float* pos, const float* freqs, const float* gq, const float* gk,
+               const float* gv, float* dx, float* dns, float* dw, float* das_sums, float* dqk,
+               float* xn, float* r, float* dot_part, float* das_part, float* dns_part,
+               float* dw_part, int images, int tokens, int d, int n_heads, long chunk_rows,
+               float eps, float cos_eps, cudaStream_t st) {
+  const size_t smem = tg::normed_smem<1>(d);
+  cudaError_t err = allow_smem(qkv_f32_dr_kernel<E>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = tg::tiles(tokens);
+  const long rows = static_cast<long>(images) * tokens;
+  qkv_f32_dr_kernel<E><<<dim3(images * tiles, 3 * d / 64), tg::THREADS, smem, st>>>(
+      x, nscale, w, attn_scale, pos, freqs, gq, gk, gv, dqk, xn, r, dot_part, das_part, rows,
+      tokens, d, n_heads, eps, cos_eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = gemm::launch_reduce(das_part, das_sums, 1, images * tiles, 2 * n_heads, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // dR: (dq, dk) in dqk, then gv as given
+  const Mat dr{dqk, 2L * d, 2 * d, gv, d};
+  err = tg::launch_norm_vjp(dr, w, x, nscale, nullptr, r, dot_part, 3 * d / 64, dx, dns_part, dns,
+                            images, tokens, d, 3 * d, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      tg::launch_atb(tg::mat(xn, d), dr, dw_part, dw, rows, d, 3 * d, chunk_rows, st));
+}
+
+}  // namespace
+}  // namespace kdt
+
+using namespace kdt;
+
+// K1 in f32. x (rows, d) f32 with rows = images * tokens; nscale (images,
+// d) f32, image i's row at nscale + i * scale_stride (scale_stride >= d, a
+// multiple of 4: a column block of a condcache row, read in place); w (d,
+// 3d) f32; attn_scale (heads,) f32; pos (tokens, 2) f32; freqs (heads, e /
+// 8) f32; q, k, v (rows, d) f32. Needs d == e * heads with head dim e 32
+// or 64 and d % 64 == 0.
+extern "C" int kdt_fused_qkv_f32(const void* x, const void* nscale, const void* w,
+                                 const void* attn_scale, const void* pos, const void* freqs,
+                                 void* q, void* k, void* v, int images, int tokens, int d,
+                                 int n_heads, int scale_stride, float eps, float cos_eps,
+                                 void* stream) {
+  if (d % 64 || n_heads < 1 || d % n_heads || scale_stride < d || scale_stride % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  switch (d / n_heads) {
+    case 32:
+      return launch_fwd<32>(f(x), f(nscale), scale_stride, f(w), f(attn_scale), f(pos), f(freqs),
+                            o(q), o(k), o(v), images, tokens, d, eps, cos_eps, st);
+    case 64:
+      return launch_fwd<64>(f(x), f(nscale), scale_stride, f(w), f(attn_scale), f(pos), f(freqs),
+                            o(q), o(k), o(v), images, tokens, d, eps, cos_eps, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K6 in f32. x (rows, d) f32; nscale (images, d) f32; w (d, 3d) f32;
+// attn_scale (heads,) f32; pos and freqs as the forward's; gq, gk, gv
+// (rows, d) f32. Writes dx (rows, d), dns (images, d), dw (d, 3d) and
+// das_sums (2 * heads) f32, the sums of g * qn for q then k (the wrapper
+// divides by 2 * attn_scale). Scratch f32: dqk (rows, 2d), xn (rows, d), r
+// (rows), dot_part (3d / 64, rows), das_part (images * tiles, 2 * heads),
+// dns_part (images * tiles, d) and dw_part (ceil(rows / chunk_rows), d, 3d),
+// tiles = ceil(tokens / tg::ROWS), the count the caller sized das_part and
+// dns_part for (refused if it differs); chunk_rows, the rows per dW partial, a
+// multiple of 32. Head dims as the forward's.
+extern "C" int kdt_fused_qkv_bwd_f32(const void* x, const void* nscale, const void* w,
+                                     const void* attn_scale, const void* pos, const void* freqs,
+                                     const void* gq, const void* gk, const void* gv, void* dx,
+                                     void* dns, void* dw, void* das_sums, void* dqk, void* xn,
+                                     void* r, void* dot_part, void* das_part, void* dns_part,
+                                     void* dw_part, int images, int tokens, int tiles, int d,
+                                     int n_heads, long chunk_rows, float eps, float cos_eps,
+                                     void* stream) {
+  if (d % 64 || n_heads < 1 || d % n_heads || chunk_rows < 1 || chunk_rows % 32 ||
+      tiles != tg::tiles(tokens))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+#define KDT_QKV_BWD_F32(E)                                                                       \
+  return launch_bwd<E>(f(x), f(nscale), f(w), f(attn_scale), f(pos), f(freqs), f(gq), f(gk),  \
+                       f(gv), o(dx), o(dns), o(dw), o(das_sums), o(dqk), o(xn), o(r),           \
+                       o(dot_part), o(das_part), o(dns_part), o(dw_part), images, tokens, d,    \
+                       n_heads, chunk_rows, eps, cos_eps, st)
+  switch (d / n_heads) {
+    case 32: KDT_QKV_BWD_F32(32);
+    case 64: KDT_QKV_BWD_F32(64);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef KDT_QKV_BWD_F32
+}
+
+KDT_DEFINE_ERROR_STRING

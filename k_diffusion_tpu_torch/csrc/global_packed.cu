@@ -19,8 +19,13 @@
 // its output in registers. Both take any s >= 1; the wrapper routes to them
 // only the global levels the JAX model sends to this Pallas kernel (s a
 // multiple of 16 up to 512).
+//
+// Their float32 forms (--mixed-precision no) run attn_tf32.cuh's TF32
+// forward and two-kernel backward, which K13 and K14 share in float32, on
+// the same strided layout: no kernel body of their own, as in bf16.
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
+#include "attn_tf32.cuh"
 
 namespace kdt {
 namespace {
@@ -52,6 +57,49 @@ extern "C" int kdt_global_packed_bwd(const void* q, const void* k, const void* v
   const long c = static_cast<long>(n_heads) * E;
   return attn_bwd::launch<E>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, s, n_heads,
                              Rows{s * c, c}, scale, static_cast<cudaStream_t>(stream));
+}
+
+// K3 in float32: kdt_global_packed's contract with q, k, v and out f32.
+extern "C" int kdt_global_packed_f32(const void* q, const void* k, const void* v, void* out,
+                                     void* lse, int b, int s, int n_heads, float scale,
+                                     void* stream) {
+  const long c = static_cast<long>(n_heads) * E;
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.in = Rows{s * c, c};
+  a.s = s;
+  a.n_heads = n_heads;
+  a.scale = scale;
+  return tf32::launch_fwd<E>(a, b, static_cast<cudaStream_t>(stream));
+}
+
+// K9 in float32: kdt_global_packed_bwd's contract with q, k, v, out, dout,
+// dq, dk, dv f32.
+extern "C" int kdt_global_packed_bwd_f32(const void* q, const void* k, const void* v,
+                                         const void* out, const void* dout, const void* lse,
+                                         void* delta, void* dq, void* dk, void* dv, int b, int s,
+                                         int n_heads, float scale, void* stream) {
+  const long c = static_cast<long>(n_heads) * E;
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(const_cast<void*>(out));
+  a.dout = static_cast<const float*>(dout);
+  a.lse = static_cast<float*>(const_cast<void*>(lse));
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.in = Rows{s * c, c};
+  a.s = s;
+  a.n_heads = n_heads;
+  a.scale = scale;
+  return tf32::launch_bwd<E>(a, b, static_cast<cudaStream_t>(stream));
 }
 
 KDT_DEFINE_ERROR_STRING

@@ -41,10 +41,6 @@ from .image_transformer_v2 import (MappingNetwork, RMSNorm, _AdaNorm,
 __all__ = ["ImageTransformerDenoiserModelV1", "param_group_labels"]
 
 D_HEAD = 64
-# the compute dtypes the ViT takes on the card, and its kernel that has no
-# float32 form yet (its attention, K13/K14, has one)
-CARD_DTYPES = (torch.bfloat16,)
-NO_FLOAT32 = "K5 (the mapping network)"
 
 
 class AxialRoPEv1(nn.Module):
@@ -148,15 +144,16 @@ class ImageTransformerDenoiserModelV1(nn.Module):
     are drawn from ``generator`` on ``device`` (default: the card), the
     FourierFeatures bases too (``convert.py`` carries a JAX basis across);
     ``dtype`` is the compute dtype (default: bfloat16 on the card, float32
-    elsewhere; ``utils.compute_dtype``; on the card bfloat16 only,
-    ``CARD_DTYPES``)."""
+    elsewhere; ``utils.compute_dtype``; on the card bfloat16 or float32:
+    its kernels, the flash pair K13/K14 and the mapping network K5, have
+    both forms)."""
 
     def __init__(self, n_layers, d_model, d_ff, in_features, out_features,
                  patch_size, num_classes=0, dropout=0.0, checkpointing=False,
                  dtype=None, device=None, generator=None):
         super().__init__()
         device = default_device(device)
-        dtype = compute_dtype(device, dtype, CARD_DTYPES, NO_FLOAT32)
+        dtype = compute_dtype(device, dtype)
         self.n_layers, self.dtype = n_layers, dtype
         self.patch_size, self.num_classes = tuple(patch_size), num_classes
         self.checkpointing = checkpointing

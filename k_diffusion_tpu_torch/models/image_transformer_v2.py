@@ -59,11 +59,24 @@ from ..ops.kernels.fused_qkv import fused_qkv_prologue
 from ..ops.kernels.na2d import na2d, na2d_packed, packed_takes
 from ..utils import compute_dtype, default_device
 
-# the compute dtypes the HDiT takes on the card, and its kernels that have
-# no float32 form yet
-CARD_DTYPES = (torch.bfloat16,)
-NO_FLOAT32 = ("K1-K5 and K11/K12 (with their backwards K6-K10 and the "
-              "fused-epilogue K15)")
+# the kernels of a neighborhood-attention level that have no float32 form
+# yet: an HDiT with such a level computes in bfloat16 only on the card
+NO_FLOAT32 = ("the neighborhood-attention kernels K2, K7, K11, K12 and K15 "
+              "(ROADMAP.md queue 1, item 9 (c))")
+
+
+def card_dtypes(attention_kinds):
+    """(the compute dtypes an HDiT takes on the card, the kernels that keep
+    it from float32 or None) from its levels' attention kinds ("global",
+    "neighborhood", "shifted-window", "none", or their specs): bfloat16 and
+    float32 (the kernels of the other kinds and of every level's prologue,
+    feed-forward block and mapping network have float32 forms) unless a
+    level runs neighborhood attention."""
+    if any(kind == "neighborhood"
+           or isinstance(kind, NeighborhoodAttentionSpec)
+           for kind in attention_kinds):
+        return (torch.bfloat16,), NO_FLOAT32
+    return (torch.bfloat16, torch.float32), None
 
 
 @dataclass(frozen=True)
@@ -443,7 +456,8 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     carries across). Parameters go to ``device``, by default the card
     (``utils.default_device``); ``dtype`` is the compute dtype, by default
     bfloat16 on the card and float32 elsewhere (``utils.compute_dtype``);
-    on the card bfloat16 only (``CARD_DTYPES``)."""
+    on the card bfloat16, or also float32 where no level runs neighborhood
+    attention (``card_dtypes``)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
                  num_classes=0, mapping_cond_dim=0, checkpointing=False,
@@ -452,7 +466,8 @@ class ImageTransformerDenoiserModelV2(nn.Module):
         super().__init__()
         check_remat_policy(remat_policy)
         device = default_device(device)
-        dtype = compute_dtype(device, dtype, CARD_DTYPES, NO_FLOAT32)
+        dtype = compute_dtype(device, dtype,
+                              *card_dtypes(s.self_attn for s in levels))
         self.levels, self.dtype = levels, dtype
         self.num_classes, self.mapping_cond_dim = num_classes, mapping_cond_dim
         self.checkpointing = checkpointing and remat_policy != NO_REMAT

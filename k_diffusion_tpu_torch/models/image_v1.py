@@ -41,11 +41,6 @@ from ..ops.attention import cross_attention
 from ..ops.kernels.flash import flash_attention
 from ..utils import compute_dtype, default_device
 
-# the compute dtypes the U-Net takes on the card: its only kernels, the
-# flash pair K13/K14, have bfloat16 and float32 forms
-CARD_DTYPES = (torch.bfloat16, torch.float32)
-
-
 def _space_to_depth(x, p):
     b, h, w, c = x.shape
     x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
@@ -307,9 +302,8 @@ class ImageDenoiserModelV1(nn.Module):
     ``generator`` on ``device`` (default: the card); the FourierFeatures
     basis too (``convert.py`` carries a JAX basis across). ``dtype`` is the
     compute dtype (default: bfloat16 on the card, float32 elsewhere;
-    ``utils.compute_dtype``); on the card bfloat16 or float32
-    (``CARD_DTYPES``: its kernels are the flash pair K13/K14, which have
-    float32 forms)."""
+    ``utils.compute_dtype``); on the card bfloat16 or float32 (its kernels
+    are the flash pair K13/K14, which have float32 forms)."""
 
     def __init__(self, c_in, feats_in, depths, channels, self_attn_depths,
                  cross_attn_depths=None, mapping_cond_dim=0, unet_cond_dim=0,
@@ -318,7 +312,7 @@ class ImageDenoiserModelV1(nn.Module):
                  device=None, generator=None):
         super().__init__()
         device = default_device(device)
-        dtype = compute_dtype(device, dtype, CARD_DTYPES)
+        dtype = compute_dtype(device, dtype)
         n = len(depths)
         self.depths, self.skip_stages = depths, skip_stages
         self.patch_size, self.dtype = patch_size, dtype

@@ -29,7 +29,7 @@ def train_fusion_enabled():
 # kernel name -> (module, name of its launch counter): forward kernels
 # K1-K5, the backward kernels K6-K10, flash attention K13 and its backward
 # K14, the per-head NA kernels K11 and K12, the fused-epilogue NA K15, and
-# the float32 forms of K13 and K14
+# the float32 forms of K13 and K14, of K1-K5 and of K6, K9 and K10
 COUNTERS = {
     "fused_qkv": (fused_qkv, "launches"),
     "na2d": (na2d, "launches"),
@@ -48,6 +48,13 @@ COUNTERS = {
     "na2d_proj": (na2d, "proj_launches"),
     "flash_f32": (flash, "launches_f32"),
     "flash_bwd_f32": (flash, "bwd_launches_f32"),
+    "fused_mapping_f32": (fused_mapping, "launches_f32"),
+    "fused_qkv_f32": (fused_qkv, "launches_f32"),
+    "fused_qkv_bwd_f32": (fused_qkv, "bwd_launches_f32"),
+    "fused_ffn_f32": (fused_ffn, "launches_f32"),
+    "fused_ffn_bwd_f32": (fused_ffn, "bwd_launches_f32"),
+    "global_packed_f32": (global_packed, "launches_f32"),
+    "global_packed_bwd_f32": (global_packed, "bwd_launches_f32"),
 }
 
 

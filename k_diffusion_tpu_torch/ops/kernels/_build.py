@@ -21,7 +21,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("fused_qkv", "na2d", "na2d_heads", "global_packed", "geglu",
-           "flash")
+           "flash", "fused_qkv_f32", "geglu_f32")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -30,6 +30,10 @@ SMEM_PER_BLOCK = 232_448
 # one (64, 64) bf16 tile of shared memory, and the slack the kernels take
 # to align their tiles to 1024 bytes
 TILE_BYTES, SMEM_SLACK = 8192, 1024
+# the rows of the float32 kernels' row tiles (csrc/gemm_tf32.cuh, tg::ROWS):
+# their per-tile partials (d(scale), d(attn_scale)) take one row a tile; the
+# backward entry points take the tile count and refuse one that differs
+F32_ROWS = 128
 
 _libs = {}
 _lock = threading.Lock()

@@ -12,6 +12,14 @@ The forward reads each image's scale through a row stride, so that
 ``scale`` may be a (b, d) column block of a condcache row (the JAX
 kernel's BlockSpec lane block, ``scale_block``): no copy is made. That path
 is forward-only; the backward K10 takes a contiguous scale.
+
+bfloat16 operands go to those kernels, float32 operands (a model built
+with ``dtype=torch.float32``, ``--mixed-precision no``) to their float32
+forms in ``csrc/geglu_f32.cu`` (``kdt_ffn_fwd_f32``, two kernels with the
+f32 h through device memory, and ``kdt_ffn_bwd_f32``, on the TF32 core
+``csrc/gemm_tf32.cuh``): the same contract, products on the TF32 tensor
+cores with f32 accumulation, any d and d_ff multiples of 64. Each dtype's
+launches are counted apart.
 """
 
 import ctypes
@@ -23,8 +31,12 @@ from ..geglu import linear_geglu
 from ..norms import rms_norm
 from . import _build
 
-launches = 0      # forward wrapper calls that launched the kernels
-bwd_launches = 0  # backward wrapper calls that launched the kernels
+launches = 0      # forward wrapper calls that launched the kernels, bf16
+bwd_launches = 0  # backward wrapper calls that launched the kernels, bf16
+launches_f32 = 0      # forward wrapper calls on float32 operands
+bwd_launches_f32 = 0  # backward wrapper calls on float32 operands
+
+DTYPES = (torch.bfloat16, torch.float32)  # x dtypes the kernels take
 
 _P = ctypes.c_void_p
 # x, scale, w_up, w_down, out, images, tokens, d, d_ff, warpgroups,
@@ -41,6 +53,14 @@ MAX_BWD_D = 576
 # dot_part, dns_part, dw_part, images, tokens, d, d_ff, groups, chunk_up,
 # chunk_down, eps, stream
 _BWD = [_P] * 16 + [ctypes.c_int] * 7 + [ctypes.c_float, _P]
+# the float32 forms: x, scale, w_up, w_down, out, h, images, tokens, d,
+# d_ff, scale_stride, eps, stream
+_F32_FWD = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+# x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, h, dup, xn, r,
+# dot_part, dns_part, dw_part, images, tokens, d, d_ff, chunk_up,
+# chunk_down, eps, stream
+_F32_BWD = [_P] * 16 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2 + [
+    ctypes.c_float, _P]
 
 
 def reference(x, scale, w_up, w_down, eps=1e-6):
@@ -59,7 +79,8 @@ def reference_backward(x, scale, w_up, w_down, g, eps=1e-6):
 
 
 def _operands(x, scale, w_up, w_down, strided=False):
-    """Checks and casts the operands both kernels share. With ``strided``
+    """Checks and casts the operands both kernels share: x bfloat16 or
+    float32, scale of x's dtype, the weights cast to it. With ``strided``
     (the forward), ``scale``'s rows may lie apart. Returns (w_up, w_down,
     scale's row stride)."""
     b, t, d = x.shape
@@ -67,16 +88,19 @@ def _operands(x, scale, w_up, w_down, strided=False):
     if d % 64 or d_ff % 64:
         raise ValueError(f"fused_ffn kernels take d and d_ff multiples of 64; "
                          f"got d={d}, d_ff={d_ff}")
-    dev, bf16 = x.device, torch.bfloat16
-    w_up, w_down = w_up.to(bf16), w_down.to(bf16)
-    _build.require(x, "x", dev, bf16, (b, t, d))
+    dev, dtype = x.device, x.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"fused_ffn kernel: x is {dtype}; the kernels take "
+                         f"bfloat16 or float32")
+    w_up, w_down = w_up.to(dtype), w_down.to(dtype)
+    _build.require(x, "x", dev, dtype, (b, t, d))
     if strided:
-        scale_stride = _build.require_rows(scale, "scale", dev, bf16, (b, d))
+        scale_stride = _build.require_rows(scale, "scale", dev, dtype, (b, d))
     else:
-        _build.require(scale, "scale", dev, bf16, (b, d))
+        _build.require(scale, "scale", dev, dtype, (b, d))
         scale_stride = d
-    _build.require(w_up, "w_up", dev, bf16, (d, 2 * d_ff))
-    _build.require(w_down, "w_down", dev, bf16, (d_ff, d))
+    _build.require(w_up, "w_up", dev, dtype, (d, 2 * d_ff))
+    _build.require(w_down, "w_down", dev, dtype, (d_ff, d))
     return w_up, w_down, scale_stride
 
 
@@ -122,16 +146,27 @@ def forward_split(images, tokens, d, d_ff, device):
 
 
 def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
-    """Launches K4 on CUDA tensors: returns x + FFN(norm(x)). ``scale`` is
-    (b, d) with unit inner stride, its rows contiguous or apart."""
+    """Launches K4 (its float32 form on float32 x) on CUDA tensors: returns
+    x + FFN(norm(x)). ``scale`` is (b, d) with unit inner stride, its rows
+    contiguous or apart."""
     _build.require_cuda(x, "fused_geglu_ffn")
     b, t, d = x.shape
     d_ff = w_down.shape[0]
-    if d > MAX_D:
+    if d > MAX_D and x.dtype != torch.float32:
         raise ValueError(f"fused_ffn forward takes d up to {MAX_D}; got d={d}")
     w_up, w_down, scale_stride = _operands(x, scale, w_up, w_down,
                                            strided=True)
     out = torch.empty_like(x)
+    global launches, launches_f32
+    if x.dtype == torch.float32:
+        h = torch.empty((b * t, d_ff), device=x.device, dtype=x.dtype)
+        lib = _build.load("geglu_f32", kdt_ffn_fwd_f32=_F32_FWD)
+        _build.launch(
+            lib, "kdt_ffn_fwd_f32", "fused_ffn", x.device,
+            *map(_build.ptr, (x, scale, w_up, w_down, out, h)), b, t, d, d_ff,
+            scale_stride, eps, _build.stream_ptr(x.device))
+        launches_f32 += 1
+        return out
     warpgroups, out_tiles, groups = forward_split(b, t, d, d_ff, x.device)
     lib = _build.load("geglu", kdt_ffn_fwd=_FWD)
     _build.launch(
@@ -139,18 +174,19 @@ def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
         *map(_build.ptr, (x, scale, w_up, w_down, out)), b, t, d, d_ff,
         warpgroups, out_tiles, groups, scale_stride, eps,
         _build.stream_ptr(x.device), None)
-    global launches
     launches += 1
     return out
 
 
 def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
-    """Launches K10 on CUDA tensors: returns (dx, d scale, d w_up,
-    d w_down), each in its input's dtype (dx, d scale bf16; the weight
-    gradients float32)."""
+    """Launches K10 (its float32 form on float32 x) on CUDA tensors: returns
+    (dx, d scale, d w_up, d w_down), each in its input's dtype (dx, d scale
+    in x's; the weight gradients float32)."""
     _build.require_cuda(x, "fused_geglu_ffn backward")
     b, t, d = x.shape
     d_ff = w_down.shape[0]
+    if x.dtype == torch.float32:
+        return _backward_f32(x, scale, w_up, w_down, g, eps)
     if d > MAX_BWD_D:
         raise ValueError(f"fused_ffn backward takes d up to {MAX_BWD_D}; "
                          f"got d={d}")
@@ -189,6 +225,42 @@ def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
             dw_down.to(w_down.dtype))
 
 
+def _backward_f32(x, scale, w_up, w_down, g, eps):
+    """K10's float32 form on CUDA tensors."""
+    b, t, d = x.shape
+    d_ff = w_down.shape[0]
+    w32_up, w32_down, _ = _operands(x, scale, w_up, w_down)
+    dev, f32 = x.device, torch.float32
+    g = g.contiguous()
+    _build.require(g, "g", dev, f32, (b, t, d))
+    rows, tiles = b * t, -(-t // _build.F32_ROWS)
+    chunk_up = _build.row_chunk(rows, d // 64 * (2 * d_ff // 64), dev)
+    chunk_down = _build.row_chunk(rows, d_ff // 64 * (d // 64), dev)
+    part = max(-(-rows // chunk_up), -(-rows // chunk_down)) * 2 * d * d_ff
+    dx = torch.empty_like(x)
+    dscale = torch.empty((b, d), device=dev, dtype=f32)
+    dw_up = torch.empty((d, 2 * d_ff), device=dev, dtype=f32)
+    dw_down = torch.empty((d_ff, d), device=dev, dtype=f32)
+    h = torch.empty((rows, d_ff), device=dev, dtype=f32)
+    dup = torch.empty((rows, 2 * d_ff), device=dev, dtype=f32)
+    xn = torch.empty_like(x)
+    r = torch.empty(rows, device=dev, dtype=f32)
+    dot_part = torch.empty((d_ff // 64, rows), device=dev, dtype=f32)
+    dns_part = torch.empty((b * tiles, d), device=dev, dtype=f32)
+    dw_part = torch.empty(part, device=dev, dtype=f32)
+    lib = _build.load("geglu_f32", kdt_ffn_bwd_f32=_F32_BWD)
+    _build.launch(
+        lib, "kdt_ffn_bwd_f32", "fused_ffn backward", dev,
+        *map(_build.ptr, (x, scale, w32_up, w32_down, g, dx, dscale, dw_up,
+                          dw_down, h, dup, xn, r, dot_part, dns_part,
+                          dw_part)),
+        b, t, tiles, d, d_ff, chunk_up, chunk_down, eps,
+        _build.stream_ptr(dev))
+    global bwd_launches_f32
+    bwd_launches_f32 += 1
+    return dx, dscale, dw_up.to(w_up.dtype), dw_down.to(w_down.dtype)
+
+
 class _FFN(torch.autograd.Function):
     """K4 forward, K10 backward. Saves only the primal inputs: the backward
     recomputes the up projection, as the JAX custom_vjp does."""
@@ -208,11 +280,11 @@ class _FFN(torch.autograd.Function):
 def fused_geglu_ffn(x, scale, w_up, w_down, eps=1e-6):
     """x (b, t, d); scale (b, d) = AdaRMSNorm proj(cond) + 1; w_up
     (d, 2 d_ff); w_down (d_ff, d). Returns x + FFN(norm(x));
-    differentiable. The kernels take bfloat16 x and scale with d and d_ff
-    multiples of 64; the weights are cast to x's dtype, as the JAX
-    dispatcher does. ``scale`` may be a (b, d) column block of a wider
-    matrix (a condcache row) only where autograd is off: the backward
-    kernel takes a contiguous scale."""
+    differentiable. The kernels take bfloat16 or float32 x and scale of x's
+    dtype with d and d_ff multiples of 64; the weights are cast to x's
+    dtype, as the JAX dispatcher does. ``scale`` may be a (b, d) column
+    block of a wider matrix (a condcache row) only where autograd is off:
+    the backward kernel takes a contiguous scale."""
     if torch.is_grad_enabled() and not scale.is_contiguous():
         raise ValueError("a strided scale (a condcache row's block) is "
                          "forward-only: run under torch.no_grad()")

@@ -18,6 +18,16 @@ kernel rounds them to bfloat16 where it loads them, as the plain version's
 backward recomputes through the plain version under autograd, as the JAX
 custom_vjp does (there is no Pallas backward). CPU tensors go to
 ``reference``, the plain version.
+
+A float32 emb with the float32 compute dtype (a model built with
+``dtype=torch.float32``, ``--mixed-precision no``) goes to the float32
+form in ``csrc/geglu_f32.cu`` (``kdt_mapping_f32``, on the TF32 core
+``csrc/gemm_tf32.cuh``): the network as 2 + 3 n kernels on f32 operands
+(the in norm, per block the GEGLU up product with its norm, the down
+product split over the hidden units and the sum of its partials with the
+residual, the out norm), products on the TF32 tensor cores with f32
+accumulation, any width (nothing resident, no cluster), the f32 weights
+read as they are. Its launches are counted apart, one a call.
 """
 
 import ctypes
@@ -29,7 +39,8 @@ from ..geglu import linear_geglu
 from ..norms import rms_norm
 from . import _build
 
-launches = 0  # kernel launches since the last reset
+launches = 0  # kernel launches since the last reset, bfloat16
+launches_f32 = 0  # calls of the float32 form
 
 MAX_DEPTH = 8   # blocks of the network the kernel takes (its MapLayers)
 UNIT = 16       # hidden units of a panel, the split's grain
@@ -43,6 +54,12 @@ _P = ctypes.c_void_p
 # n_blocks, f32_weights, ranks, eps, stream, clusters (int *: the
 # occupancy query)
 _SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
+# the float32 form: emb, in_scale, out_scale, weights (3 n pointers), out,
+# scratch xa, xb, h, part, batch, d, d_ff, n_blocks, eps, stream
+_F32_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, _P]
+# hidden units of a chunk of the float32 form's split down product
+# (csrc/geglu_f32.cu, MAP_CHUNK)
+F32_CHUNK = 256
 
 
 def reference(emb, in_scale, out_scale, blocks, eps=1e-6,
@@ -119,19 +136,25 @@ def cluster_size(index, d, d_ff, n, f32):
 
 def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,
                     dtype=torch.bfloat16):
-    """Launches K5 on CUDA tensors: one launch, nothing else. Any batch:
-    one cluster per 16 rows."""
+    """Launches K5 (its float32 form on a float32 emb and compute dtype) on
+    CUDA tensors: one launch, nothing else. Any batch: one cluster per 16
+    rows."""
     _build.require_cuda(emb, "fused_mapping")
     b, d = emb.shape
     d_ff = blocks[0][2].shape[0]
-    if dtype != torch.bfloat16 or d % 64 or d_ff % 64:
+    if dtype not in (torch.bfloat16, torch.float32) or emb.dtype != dtype \
+            or d % 64 or d_ff % 64:
         raise ValueError(
-            f"fused_mapping kernel takes bfloat16 and d, d_ff multiples of "
-            f"64; got {tuple(emb.shape)}, d_ff={d_ff}, {dtype}")
+            f"fused_mapping kernel takes a bfloat16 or float32 emb of the "
+            f"compute dtype and d, d_ff multiples of 64; got emb "
+            f"{emb.dtype} {tuple(emb.shape)}, d_ff={d_ff}, compute dtype "
+            f"{dtype}")
     n = len(blocks)
     if not 1 <= n <= MAX_DEPTH:
         raise ValueError(f"fused_mapping kernel takes 1 to {MAX_DEPTH} "
                          f"blocks; got {n}")
+    if dtype == torch.float32:
+        return _forward_f32(emb, in_scale, out_scale, blocks, eps)
     dev, f32 = emb.device, torch.float32
     w_dtype = blocks[0][1].dtype
     if w_dtype not in (f32, torch.bfloat16):
@@ -160,6 +183,36 @@ def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,
         _build.stream_ptr(dev), None)
     global launches
     launches += 1
+    return out
+
+
+def _forward_f32(emb, in_scale, out_scale, blocks, eps):
+    """K5's float32 form on a checked float32 emb: every weight float32."""
+    b, d = emb.shape
+    d_ff = blocks[0][2].shape[0]
+    dev, f32 = emb.device, torch.float32
+    _build.require(emb, "emb", dev, f32, (b, d))
+    _build.require(in_scale, "in_scale", dev, f32, (d,))
+    _build.require(out_scale, "out_scale", dev, f32, (d,))
+    weights = []
+    for i, (ns, w_up, w_down) in enumerate(blocks):
+        _build.require(ns, f"norm scale {i}", dev, f32, (d,))
+        _build.require(w_up, f"w_up {i}", dev, f32, (d, 2 * d_ff))
+        _build.require(w_down, f"w_down {i}", dev, f32, (d_ff, d))
+        weights += [ns, w_up, w_down]
+    out = torch.empty_like(emb)
+    xa, xb = torch.empty_like(emb), torch.empty_like(emb)
+    h = torch.empty((b, d_ff), device=dev, dtype=f32)
+    part = torch.empty((-(-d_ff // F32_CHUNK), b, d), device=dev, dtype=f32)
+    lib = _build.load("geglu_f32", kdt_mapping_f32=_F32_SIGNATURE)
+    _build.launch(
+        lib, "kdt_mapping_f32", "fused_mapping", dev,
+        *map(_build.ptr, (emb, in_scale, out_scale)),
+        (_P * len(weights))(*(t.data_ptr() for t in weights)),
+        *map(_build.ptr, (out, xa, xb, h, part)), b, d, d_ff, len(blocks),
+        eps, _build.stream_ptr(dev))
+    global launches_f32
+    launches_f32 += 1
     return out
 
 
@@ -193,10 +246,11 @@ class _Mapping(torch.autograd.Function):
 def fused_mapping(emb, in_scale, out_scale, blocks, eps=1e-6,
                   dtype=torch.bfloat16):
     """Returns the mapping-network output (b, d) in emb's dtype;
-    differentiable. The kernel takes bfloat16 emb and compute dtype, d and
-    d_ff multiples of 64, 1 to ``MAX_DEPTH`` blocks whose weights are all
-    float32 or all bfloat16, any batch; its residual stream stays float32,
-    as the Pallas kernel's does."""
+    differentiable. The kernel takes a bfloat16 emb and compute dtype, d
+    and d_ff multiples of 64, 1 to ``MAX_DEPTH`` blocks whose weights are
+    all float32 or all bfloat16, any batch; its residual stream stays
+    float32, as the Pallas kernel's does. Its float32 form takes a float32
+    emb and compute dtype and float32 weights."""
     if emb.device.type == "cpu":
         return reference(emb, in_scale, out_scale, blocks, eps, dtype)
     if not torch.is_grad_enabled():  # sampling: no autograd node to build

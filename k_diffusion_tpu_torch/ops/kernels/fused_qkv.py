@@ -11,6 +11,13 @@ The forward reads each image's norm scale through a row stride, so that
 ``norm_scale`` may be a (b, d) column block of a condcache row (the JAX
 kernel's BlockSpec lane block, ``scale_block``): no copy is made. That path
 is forward-only; the backward K6 takes a contiguous scale.
+
+bfloat16 operands go to those kernels, float32 operands (a model built
+with ``dtype=torch.float32``, ``--mixed-precision no``) to their float32
+forms in ``csrc/fused_qkv_f32.cu`` (``kdt_fused_qkv_f32``,
+``kdt_fused_qkv_bwd_f32``, on the TF32 core ``csrc/gemm_tf32.cuh``): the
+same contract, products on the TF32 tensor cores with f32 accumulation,
+any d a multiple of 64. Each dtype's launches are counted apart.
 """
 
 import ctypes
@@ -21,8 +28,12 @@ import torch
 from .. import norms, rope
 from . import _build
 
-launches = 0      # forward kernel launches since the last reset
-bwd_launches = 0  # backward kernel launches since the last reset
+launches = 0      # forward kernel launches since the last reset, bfloat16
+bwd_launches = 0  # backward kernel launches since the last reset, bfloat16
+launches_f32 = 0      # forward launches on float32 operands
+bwd_launches_f32 = 0  # backward launches on float32 operands
+
+DTYPES = (torch.bfloat16, torch.float32)  # x dtypes the kernels take
 
 HEAD_DIMS = (32, 64)  # head dims the kernels take
 # the widest d the forward takes: two row tiles of x and its ring in one
@@ -39,6 +50,14 @@ _SIGNATURE = [_P] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [_P] * 2
 # tokens, d, heads, groups, chunk_rows, eps, cos_eps, stream
 _BWD_SIGNATURE = [_P] * 20 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, _P]
+# the float32 forms: x, norm_scale, w_qkv, attn_scale, pos, freqs, q, k, v,
+# images, tokens, d, heads, scale_stride, eps, cos_eps, stream
+_F32_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [_P]
+# x, norm_scale, w_qkv, attn_scale, pos, freqs, gq, gk, gv, dx, dns, dw,
+# das_sums, dqk, xn, r, dot_part, das_part, dns_part, dw_part, images,
+# tokens, d, heads, chunk_rows, eps, cos_eps, stream
+_F32_BWD_SIGNATURE = [_P] * 20 + [ctypes.c_int] * 5 + [
+    ctypes.c_long, ctypes.c_float, ctypes.c_float, _P]
 
 
 def reference(x, pos, norm_scale, w_qkv, attn_scale, n_heads, eps=1e-6,
@@ -82,25 +101,29 @@ def rope_tables(pos, n_heads, d_head):
 
 
 def _operands(x, norm_scale, w_qkv, attn_scale, n_heads, strided=False):
-    """Checks and casts the operands both kernels share. With ``strided``
-    (the forward), ``norm_scale``'s rows may lie apart. Returns (w_qkv,
-    attn_scale, norm_scale's row stride)."""
+    """Checks and casts the operands both kernels share: x bfloat16 or
+    float32, norm_scale of x's dtype, ``w_qkv`` cast to it. With
+    ``strided`` (the forward), ``norm_scale``'s rows may lie apart.
+    Returns (w_qkv, attn_scale, norm_scale's row stride)."""
     b, h, w, d = x.shape
     e = d // n_heads
     if e * n_heads != d or e not in HEAD_DIMS or d % 64:
         raise ValueError(f"fused_qkv kernel takes head dim 32 or 64 and d a "
                          f"multiple of 64; got d={d} with {n_heads} heads")
-    dev, bf16 = x.device, torch.bfloat16
-    w_qkv = w_qkv.to(bf16)
+    dev, dtype = x.device, x.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"fused_qkv kernel: x is {dtype}; the kernels take "
+                         f"bfloat16 or float32")
+    w_qkv = w_qkv.to(dtype)
     attn_scale = attn_scale.float()
-    _build.require(x, "x", dev, bf16, (b, h, w, d))
+    _build.require(x, "x", dev, dtype, (b, h, w, d))
     if strided:
         scale_stride = _build.require_rows(norm_scale, "norm_scale", dev,
-                                           bf16, (b, d))
+                                           dtype, (b, d))
     else:
-        _build.require(norm_scale, "norm_scale", dev, bf16, (b, d))
+        _build.require(norm_scale, "norm_scale", dev, dtype, (b, d))
         scale_stride = d
-    _build.require(w_qkv, "w_qkv", dev, bf16, (d, 3 * d))
+    _build.require(w_qkv, "w_qkv", dev, dtype, (d, 3 * d))
     _build.require(attn_scale, "attn_scale", dev, torch.float32, (n_heads,))
     return w_qkv, attn_scale, scale_stride
 
@@ -146,11 +169,12 @@ def forward_split(images, tokens, d, n_heads, device):
 
 def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
                      eps=1e-6, cos_eps=1e-6):
-    """Launches K1 on CUDA tensors: returns (q, k, v). ``norm_scale`` is
-    (b, d) with unit inner stride, its rows contiguous or apart."""
+    """Launches K1 (its float32 form on float32 x) on CUDA tensors: returns
+    (q, k, v) in x's dtype. ``norm_scale`` is (b, d) with unit inner
+    stride, its rows contiguous or apart."""
     _build.require_cuda(x, "fused_qkv_prologue")
     b, h, w, d = x.shape
-    if d > MAX_D:
+    if d > MAX_D and x.dtype != torch.float32:
         raise ValueError(f"fused_qkv forward takes d up to {MAX_D}; got d={d}")
     w_qkv, attn_scale, scale_stride = _operands(
         x, norm_scale, w_qkv, attn_scale, n_heads, strided=True)
@@ -158,6 +182,17 @@ def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
     freqs = _freqs(n_heads, d // n_heads, x.device)
     _build.require(pos, "pos", x.device, torch.float32, (h, w, 2))
     q, k, v = (torch.empty_like(x) for _ in range(3))
+    global launches, launches_f32
+    if x.dtype == torch.float32:
+        lib = _build.load("fused_qkv_f32", kdt_fused_qkv_f32=_F32_SIGNATURE)
+        _build.launch(
+            lib, "kdt_fused_qkv_f32", "fused_qkv", x.device,
+            *map(_build.ptr, (x, norm_scale, w_qkv, attn_scale, pos, freqs,
+                              q, k, v)),
+            b, h * w, d, n_heads, scale_stride, eps, cos_eps,
+            _build.stream_ptr(x.device))
+        launches_f32 += 1
+        return q, k, v
     step_panels, groups = forward_split(b, h * w, d, n_heads, x.device)
     lib = _build.load("fused_qkv", kdt_fused_qkv=_SIGNATURE)
     _build.launch(
@@ -166,19 +201,22 @@ def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
                           q, k, v)),
         b, h * w, d, n_heads, step_panels, groups, scale_stride, eps, cos_eps,
         _build.stream_ptr(x.device), None)
-    global launches
     launches += 1
     return q, k, v
 
 
 def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
                       gv, eps=1e-6, cos_eps=1e-6):
-    """Launches K6 on CUDA tensors: returns (dx, d norm_scale, d w_qkv,
-    d attn_scale), each in its input's dtype (dx and d norm_scale bf16,
-    the parameter gradients float32)."""
+    """Launches K6 (its float32 form on float32 x) on CUDA tensors: returns
+    (dx, d norm_scale, d w_qkv, d attn_scale), each in its input's dtype
+    (dx and d norm_scale in x's, the parameter gradients float32)."""
     _build.require_cuda(x, "fused_qkv_prologue backward")
     b, h, w, d = x.shape
-    w16, scale32, _ = _operands(x, norm_scale, w_qkv, attn_scale, n_heads)
+    w_cast, scale32, _ = _operands(x, norm_scale, w_qkv, attn_scale,
+                                   n_heads)
+    if x.dtype == torch.float32:
+        return _backward_f32(x, pos, norm_scale, w_cast, scale32, n_heads,
+                             gq, gk, gv, eps, cos_eps, attn_scale.dtype)
     cos_t, sin_t = rope_tables(pos, n_heads, d // n_heads)
     _build.require(cos_t, "cos table", x.device, torch.float32,
                    (h * w, d // 4))
@@ -206,9 +244,9 @@ def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
     lib = _build.load("fused_qkv", kdt_fused_qkv_bwd=_BWD_SIGNATURE)
     _build.launch(
         lib, "kdt_fused_qkv_bwd", "fused_qkv backward", dev,
-        *map(_build.ptr, (x, norm_scale, w16, scale32, cos_t, sin_t, gq, gk,
-                          gv, dx, dns, dw, das_sums, dqk, xn, r, dot_part,
-                          das_part, dns_part, dw_part)),
+        *map(_build.ptr, (x, norm_scale, w_cast, scale32, cos_t, sin_t, gq,
+                          gk, gv, dx, dns, dw, das_sums, dqk, xn, r,
+                          dot_part, das_part, dns_part, dw_part)),
         b, tokens, d, n_heads, groups, chunk_rows, eps, cos_eps,
         _build.stream_ptr(dev))
     global bwd_launches
@@ -216,6 +254,48 @@ def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
     das = (das_sums[:n_heads] + das_sums[n_heads:]) / (2 * scale32)
     return (dx, dns.to(norm_scale.dtype), dw.to(w_qkv.dtype),
             das.to(attn_scale.dtype))
+
+
+def _backward_f32(x, pos, norm_scale, w_qkv, scale32, n_heads, gq, gk, gv,
+                  eps, cos_eps, scale_dtype):
+    """K6's float32 form on checked float32 operands (``w_qkv`` and
+    ``scale32`` as ``_operands`` returns them)."""
+    b, h, w, d = x.shape
+    dev, f32 = x.device, torch.float32
+    pos = pos.float().contiguous()
+    _build.require(pos, "pos", dev, f32, (h, w, 2))
+    freqs = _freqs(n_heads, d // n_heads, dev)
+    gq, gk, gv = (g.contiguous() for g in (gq, gk, gv))
+    for name, g in (("gq", gq), ("gk", gk), ("gv", gv)):
+        _build.require(g, name, dev, f32, (b, h, w, d))
+    rows, tokens = b * h * w, h * w
+    tiles = -(-tokens // _build.F32_ROWS)
+    chunk_rows = _build.row_chunk(rows, d // 64 * (3 * d // 64), dev)
+    dx = torch.empty_like(x)
+    dns = torch.empty((b, d), device=dev, dtype=f32)
+    dw = torch.empty((d, 3 * d), device=dev, dtype=f32)
+    das_sums = torch.empty(2 * n_heads, device=dev, dtype=f32)
+    dqk = torch.empty((rows, 2 * d), device=dev, dtype=f32)
+    xn = torch.empty_like(x)
+    r = torch.empty(rows, device=dev, dtype=f32)
+    dot_part = torch.empty((3 * d // 64, rows), device=dev, dtype=f32)
+    das_part = torch.empty((b * tiles, 2 * n_heads), device=dev, dtype=f32)
+    dns_part = torch.empty((b * tiles, d), device=dev, dtype=f32)
+    dw_part = torch.empty((-(-rows // chunk_rows), d, 3 * d), device=dev,
+                          dtype=f32)
+    lib = _build.load("fused_qkv_f32",
+                      kdt_fused_qkv_bwd_f32=_F32_BWD_SIGNATURE)
+    _build.launch(
+        lib, "kdt_fused_qkv_bwd_f32", "fused_qkv backward", dev,
+        *map(_build.ptr, (x, norm_scale, w_qkv, scale32, pos, freqs, gq, gk,
+                          gv, dx, dns, dw, das_sums, dqk, xn, r, dot_part,
+                          das_part, dns_part, dw_part)),
+        b, tokens, tiles, d, n_heads, chunk_rows, eps, cos_eps,
+        _build.stream_ptr(dev))
+    global bwd_launches_f32
+    bwd_launches_f32 += 1
+    das = (das_sums[:n_heads] + das_sums[n_heads:]) / (2 * scale32)
+    return dx, dns, dw, das.to(scale_dtype)
 
 
 class _Prologue(torch.autograd.Function):
@@ -243,11 +323,12 @@ class _Prologue(torch.autograd.Function):
 def fused_qkv_prologue(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
                        eps=1e-6, cos_eps=1e-6):
     """Returns (q, k, v), each (b, h, w, d), with cosine-sim scaling and RoPE
-    applied to q and k; differentiable. The kernels take bfloat16 x and
-    norm_scale, head dim 32 or 64 and d % 64 == 0; ``w_qkv`` is cast to x's
-    dtype, as the JAX dispatcher does. ``norm_scale`` may be a (b, d) column block of a
-    wider matrix (a condcache row) only where autograd is off: the backward
-    kernel takes a contiguous scale."""
+    applied to q and k; differentiable. The kernels take bfloat16 or float32
+    x and norm_scale of x's dtype, head dim 32 or 64 and d % 64 == 0;
+    ``w_qkv`` is cast to x's dtype, as the JAX dispatcher does.
+    ``norm_scale`` may be a (b, d) column block of a wider matrix (a
+    condcache row) only where autograd is off: the backward kernel takes a
+    contiguous scale."""
     if torch.is_grad_enabled() and not norm_scale.is_contiguous():
         raise ValueError("a strided norm_scale (a condcache row's block) is "
                          "forward-only: run under torch.no_grad()")

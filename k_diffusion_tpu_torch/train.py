@@ -147,8 +147,9 @@ def parse_args(argv=None):
     p.add_argument("--mixed-precision", type=str, default="bf16",
                    choices=["no", "bf16"],
                    help="the compute precision on the card: bf16, or no "
-                        "(float32 with TF32 products; the U-Net family "
-                        "only so far). The CPU computes in float32")
+                        "(float32 with TF32 products; every model but an "
+                        "HDiT with neighborhood-attention levels). The CPU "
+                        "computes in float32")
     p.add_argument("--name", type=str, default="model",
                    help="the name of the run")
     p.add_argument("--num-workers", type=int, default=8,
@@ -188,16 +189,16 @@ def check_ported(args):
 
 def float32_on_the_card(config):
     """``--mixed-precision no`` on the card: float32 compute for a model
-    family whose kernels all have float32 forms, with TF32 on for cuBLAS
-    and cuDNN, as the upstream PyTorch trainer runs float32 (the float32
-    flash kernels use the TF32 tensor cores too). Raises
-    NotImplementedError, before any CUDA call, for the other families."""
-    family = config_mod.model_module(config)
-    if torch.float32 not in family.CARD_DTYPES:
+    whose kernels all have float32 forms (``config.card_dtypes``), with
+    TF32 on for cuBLAS and cuDNN, as the upstream PyTorch trainer runs
+    float32 (the float32 kernels use the TF32 tensor cores too). Raises
+    NotImplementedError, before any CUDA call, for the others."""
+    dtypes, lacking = config_mod.card_dtypes(config)
+    if torch.float32 not in dtypes:
         raise NotImplementedError(
             f"--mixed-precision no (float32 compute on the card) for "
-            f"{config['model']['type']}: its kernels {family.NO_FLOAT32} "
-            f"have no float32 form yet: ROADMAP.md queue 1, item 9")
+            f"{config['model']['type']}: {lacking} have no float32 form "
+            f"yet")
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     return torch.float32

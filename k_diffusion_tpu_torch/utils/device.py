@@ -1,7 +1,6 @@
 """Where the port's entry points put their tensors when the caller names no
 device (on the card), and the dtype they compute in there (bfloat16 by
-default; float32 for the model families whose kernels have float32
-forms)."""
+default; float32 for the models whose kernels all have float32 forms)."""
 
 import os
 
@@ -25,9 +24,9 @@ def default_device(device=None):
     return torch.device("cuda", torch.cuda.current_device())
 
 
-# the compute dtypes of the card's kernels: all take bfloat16; the flash
-# pair K13/K14 also float32 (TF32 tensor cores), so a family whose kernels
-# are only those takes both
+# the compute dtypes of the card's kernels: all take bfloat16, and all but
+# the neighborhood-attention kernels also float32 (TF32 tensor cores), so a
+# model that runs none of those takes both
 CARD_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -38,16 +37,15 @@ def compute_dtype(device, dtype=None, card_dtypes=CARD_DTYPES,
     CUDA device a model computes only in a dtype its kernels take,
     ``card_dtypes`` (its family's); another explicit dtype raises
     ValueError there, before any parameter is allocated, naming
-    ``lacking``, the family's kernels that have no float32 form yet."""
+    ``lacking``, the model's kernels that have no float32 form yet."""
     cuda = torch.device(device).type == "cuda"
     if dtype is None:
         return torch.bfloat16 if cuda else torch.float32
     if cuda and dtype not in card_dtypes:
         if dtype in CARD_DTYPES:
             raise ValueError(
-                f"compute dtype {dtype} on {device}: the kernels {lacking} "
-                "compute in bfloat16 only on the card (their float32 forms: "
-                "ROADMAP.md queue 1, item 9); pass dtype=torch.bfloat16 or "
+                f"compute dtype {dtype} on {device}: {lacking} compute in "
+                "bfloat16 only on the card; pass dtype=torch.bfloat16 or "
                 "None")
         raise ValueError(
             f"compute dtype {dtype} on {device}: the port's kernels compute "

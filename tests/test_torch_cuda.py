@@ -539,6 +539,95 @@ def test_flash_float32(dev, no_tf32, b, s, heads, e):
         assert torch.equal(a, b_)
 
 
+def f32_close(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= F32_REL_BOUND * want.abs().max().item(), err
+
+
+def f32(gen, dev, *shape, std=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen) * std + shift).to(dev)
+
+
+@pytest.mark.parametrize("b,h,w,d,heads", [(2, 7, 7, 128, 2), (1, 9, 8, 192, 3),
+                                           (3, 4, 4, 64, 2)])
+def test_fused_qkv_float32(dev, no_tf32, b, h, w, d, heads):
+    """K1's and K6's float32 forms against the plain versions on a ragged
+    row tile (49 and 72 tokens), at head dims 64 and 32; each launch on its
+    own counter; the backward rerun bit-equal."""
+    g = torch.Generator().manual_seed(25)
+    args = (f32(g, dev, b, h, w, d), rope.make_axial_pos(h, w, device=dev),
+            f32(g, dev, b, d, std=0.1, shift=1.0),
+            f32(g, dev, d, 3 * d, std=d ** -0.5),
+            10 * (1 + 0.1 * torch.randn(heads, generator=g)).to(dev), heads)
+    cots = tuple(f32(g, dev, b, h, w, d) for _ in range(3))
+    got = counted(fused_qkv, lambda: fused_qkv.prologue_forward(*args),
+                  "launches_f32")
+    for a, want in zip(got, fused_qkv.reference(*args)):
+        f32_close(a, want)
+    grads = counted(fused_qkv, lambda: fused_qkv.prologue_backward(
+        *args, *cots), "bwd_launches_f32")
+    for a, want in zip(grads, fused_qkv.reference_backward(*args, *cots)):
+        f32_close(a, want)
+    for a, b_ in zip(grads, fused_qkv.prologue_backward(*args, *cots)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("b,t,d,d_ff", [(2, 49, 128, 384), (1, 72, 640, 1280)])
+def test_fused_ffn_float32(dev, no_tf32, b, t, d, d_ff):
+    """K4's and K10's float32 forms against the plain versions, a ragged
+    row tile, and at d = 640, wider than K10's bf16 form takes."""
+    g = torch.Generator().manual_seed(26)
+    args = (f32(g, dev, b, t, d), f32(g, dev, b, d, std=0.1, shift=1.0),
+            f32(g, dev, d, 2 * d_ff, std=d ** -0.5),
+            f32(g, dev, d_ff, d, std=d_ff ** -0.5))
+    cot = f32(g, dev, b, t, d)
+    f32_close(counted(fused_ffn, lambda: fused_ffn.ffn_forward(*args),
+                      "launches_f32"), fused_ffn.reference(*args))
+    grads = counted(fused_ffn, lambda: fused_ffn.ffn_backward(*args, cot),
+                    "bwd_launches_f32")
+    for a, want in zip(grads, fused_ffn.reference_backward(*args, cot)):
+        f32_close(a, want)
+    for a, b_ in zip(grads, fused_ffn.ffn_backward(*args, cot)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("b,d,d_ff,n", [(3, 256, 768, 2), (70, 768, 2048, 2),
+                                        (1, 64, 192, 1)])
+def test_fused_mapping_float32(dev, no_tf32, b, d, d_ff, n):
+    """K5's float32 form against the plain version at the HDiT's and the
+    ViT's widths, a batch past one 64-row tile and one row; one counted
+    launch a call."""
+    g = torch.Generator().manual_seed(27)
+    blocks = [(f32(g, dev, d, std=0.1, shift=1.0),
+               f32(g, dev, d, 2 * d_ff, std=d ** -0.5),
+               f32(g, dev, d_ff, d, std=d_ff ** -0.5)) for _ in range(n)]
+    args = (f32(g, dev, b, d), f32(g, dev, d, std=0.1, shift=1.0),
+            f32(g, dev, d, std=0.1, shift=1.0), blocks)
+    got = counted(fused_mapping, lambda: fused_mapping.mapping_forward(
+        *args, dtype=torch.float32), "launches_f32")
+    f32_close(got, fused_mapping.reference(*args, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("b,s,heads", [(2, 64, 2), (1, 256, 8), (3, 48, 1)])
+def test_global_packed_float32(dev, no_tf32, b, s, heads):
+    """K3's and K9's float32 forms (attn_tf32.cuh on the packed layout)
+    against the plain versions, out, the logsumexp and the gradients; each
+    launch on its own counter."""
+    g = torch.Generator().manual_seed(28)
+    q, k, v, dout = (f32(g, dev, b, s, 64 * heads, std=0.3) for _ in range(4))
+    out, lse = counted(global_packed, lambda: global_packed.packed_forward(
+        q, k, v, heads, save_lse=True), "launches_f32")
+    f32_close(out, global_packed.reference(q, k, v, heads))
+    f32_close(lse, global_packed.reference_lse(q, k, v, heads))
+    grads = counted(global_packed, lambda: global_packed.packed_backward(
+        q, k, v, out, lse, dout, heads), "bwd_launches_f32")
+    for a, want in zip(grads, global_packed.reference_backward(
+            q, k, v, dout, heads)):
+        f32_close(a, want)
+
+
 def test_weight_gradients_are_deterministic(dev):
     """A rerun of K6 and K10 gives bit-equal gradients: every reduction over
     rows is a fixed-order sum of per-block partials."""
@@ -641,8 +730,8 @@ def test_autograd_runs_the_backward_kernels(dev):
     counts = kernels.launch_counts()
     # K15's backward recomputes with K2 and runs K7
     assert counts == dict.fromkeys(kernels.COUNTERS, 1) | {
-        "na2d": 2, "na2d_bwd": 2, "na2d_overlap_add": 0, "flash_f32": 0,
-        "flash_bwd_f32": 0}, counts
+        "na2d": 2, "na2d_bwd": 2, "na2d_overlap_add": 0} | {
+        name: 0 for name in kernels.COUNTERS if name.endswith("_f32")}, counts
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

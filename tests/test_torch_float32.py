@@ -1,12 +1,14 @@
 """Float32 compute on the card (``--mixed-precision no``) in the port, on the
-CPU: which model families take float32 on a CUDA device (the U-Net, whose
-kernels are the flash pair K13/K14) and which refuse it by name before any
-torch call; the flash wrapper's dispatch of float32 operands to the
-float32 kernels (``kdt_flash_fwd_f32``, ``kdt_flash_bwd_f32``) with the
-library stood in for; the autograd node carrying float32 residuals; and a
-small U-Net trained for 2 steps through ``train.run`` with
-``--mixed-precision no --device cpu`` against JAX's float32 step from the
-same numpy-seeded weights, batches and draws."""
+CPU: which models take float32 on a CUDA device (every config and the ViT
+but the HDiT configs with neighborhood-attention levels, which refuse it by
+name before any torch call); the flash wrapper's dispatch of float32
+operands to the float32 kernels (``kdt_flash_fwd_f32``,
+``kdt_flash_bwd_f32``) with the library stood in for; the autograd node
+carrying float32 residuals; and a small U-Net trained for 2 steps through
+``train.run`` with ``--mixed-precision no --device cpu`` against JAX's
+float32 step from the same numpy-seeded weights, batches and draws
+(tests/test_torch_float32_transformers.py does the same for the ViT and
+the HDiT)."""
 
 import ctypes
 import json
@@ -56,47 +58,55 @@ def load(name):
     return KT.config.load_config(REPO / "configs" / name)
 
 
-# ---- which families take float32 on the card ---------------------------------
+# ---- which models take float32 on the card ----------------------------------
 
-@pytest.mark.parametrize("name", CONFIGS)
-def test_float32_on_the_card_routes_by_family(name, monkeypatch):
-    """A U-Net config builds in float32 on a CUDA device: the dtype check
-    passes and the build goes on to allocate its first parameter. Every
-    other config is refused by name, by the model and by the trainer's
-    ``--mixed-precision no``, before any torch call."""
+# the shipped configs whose HDiT runs neighborhood attention, whose kernels
+# have no float32 form yet
+NEIGHBORHOOD = {"config_256_p8_wide.json", "config_512_hdit.json",
+                "config_oxford_flowers.json"}
+# a small ViT beside the configs (no config ships one)
+VIT = "vit"
+
+
+def build_on_the_card(name, dtype):
+    """Builds config ``name`` (or the small ViT) with ``dtype`` on a CUDA
+    device, through make_model as the trainer does."""
+    if name == VIT:
+        return t_vit.ImageTransformerDenoiserModelV1(
+            1, 64, 128, 3, 3, (2, 2), dtype=dtype, device="cuda")
+    return KT.config.make_model(load(name), dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", CONFIGS + [VIT])
+def test_float32_on_the_card_routes_by_family(name, dtype, monkeypatch):
+    """Every config and the ViT build in bfloat16 on a CUDA device: the
+    dtype check passes and the build goes on to allocate its first
+    parameter. In float32 the U-Nets, the ViT and the HDiT configs without
+    neighborhood-attention levels do too, and the trainer's
+    ``--mixed-precision no`` turns TF32 on for cuBLAS and cuDNN; the
+    three HDiT configs with such levels are refused by name (K2, K7, K11,
+    K12, K15), by the model and by the trainer, before any torch call,
+    and TF32 stays off."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    config = load(name)
-    if config["model"]["type"] == "image_v1":
+    if dtype == torch.bfloat16 or name not in NEIGHBORHOOD:
         with _NoTorchCalls(), pytest.raises(_TorchCalled):
-            KT.config.make_model(config, dtype=torch.float32, device="cuda")
-        assert t_train.float32_on_the_card(config) == torch.float32
-        assert torch.backends.cuda.matmul.allow_tf32
-        assert torch.backends.cudnn.allow_tf32
+            build_on_the_card(name, dtype)
+        if name != VIT and dtype == torch.float32:
+            config = load(name)
+            assert KT.config.card_dtypes(config) == (
+                (torch.bfloat16, torch.float32), None)
+            assert t_train.float32_on_the_card(config) == torch.float32
+            assert torch.backends.cuda.matmul.allow_tf32
+            assert torch.backends.cudnn.allow_tf32
         return
-    family = KT.config.model_module(config)
-    with _NoTorchCalls(), pytest.raises(ValueError, match="item 9") as info:
-        KT.config.make_model(config, dtype=torch.float32, device="cuda")
-    assert family.NO_FLOAT32 in str(info.value)
-    with _NoTorchCalls(), pytest.raises(NotImplementedError,
-                                        match="ROADMAP.md queue 1, item 9"):
-        t_train.float32_on_the_card(config)
+    kernels = r"K2, K7, K11, K12 and K15 \(ROADMAP.md queue 1, item 9 \(c\)\)"
+    with _NoTorchCalls(), pytest.raises(ValueError, match=kernels):
+        build_on_the_card(name, dtype)
+    with _NoTorchCalls(), pytest.raises(NotImplementedError, match=kernels):
+        t_train.float32_on_the_card(load(name))
     assert not torch.backends.cuda.matmul.allow_tf32
-
-
-@pytest.mark.parametrize("dtype,routes", [(torch.float32, False),
-                                          (torch.bfloat16, True)])
-def test_vit_takes_bfloat16_only_on_the_card(dtype, routes):
-    """The ViT's K5 has no float32 form: float32 on the card is refused
-    naming it; bfloat16 passes the check."""
-    build = lambda: t_vit.ImageTransformerDenoiserModelV1(
-        1, 64, 128, 3, 3, (2, 2), dtype=dtype, device="cuda")
-    if routes:
-        with _NoTorchCalls(), pytest.raises(_TorchCalled):
-            build()
-        return
-    with _NoTorchCalls(), pytest.raises(ValueError, match="K5.*item 9"):
-        build()
 
 
 def test_float16_and_the_defaults():

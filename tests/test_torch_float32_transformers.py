@@ -1,0 +1,759 @@
+"""Float32 compute on the card (``--mixed-precision no``) for the ViT and the
+HDiT without neighborhood-attention levels, on the CPU: the plain versions
+of the kernels whose float32 forms this slice adds (K1/K6, K4/K10, K5,
+K3/K9) against the JAX package in float32, forward and backward; the
+arithmetic of the float32 kernels (csrc/fused_qkv_f32.cu, geglu_f32.cu:
+the norm folded into the products, the per-panel epilogues, the RMS-norm
+VJP from per-panel dot partials, the split-K weight gradients, the mapping
+network as its up and down kernels) mirrored in torch against the JAX
+VJP; each wrapper's dispatch by dtype with the library stood in for; the
+float32 residual stash of K3; and 2-step float32 trainer runs of a
+narrowed config_cifar10_transformer.json and of a small ViT against JAX's
+float32 step. Same float32 inputs on both sides, made with numpy from a
+seed."""
+
+import ctypes
+import importlib
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from jax.experimental.pallas import tpu as pltpu
+
+import k_diffusion_tpu as K
+from k_diffusion_tpu import layout as j_layout
+from k_diffusion_tpu.models import image_transformer_v2 as j_itv2
+from k_diffusion_tpu_torch import checkpoint, convert
+from k_diffusion_tpu_torch import train as t_train
+from k_diffusion_tpu_torch import training as t_training
+from k_diffusion_tpu_torch.ops import rope as t_rope
+from k_diffusion_tpu_torch.ops.kernels import (_build, fused_ffn,
+                                               fused_mapping, fused_qkv,
+                                               global_packed, residuals)
+
+torch.set_num_threads(2)
+
+j_qkv = importlib.import_module("k_diffusion_tpu.ops.pallas.fused_qkv")
+j_gp = importlib.import_module("k_diffusion_tpu.ops.pallas.global_packed")
+j_ffn = importlib.import_module("k_diffusion_tpu.ops.pallas.fused_ffn")
+j_map = importlib.import_module("k_diffusion_tpu.ops.pallas.fused_mapping")
+j_rope = importlib.import_module("k_diffusion_tpu.ops.rope")
+
+REPO = Path(__file__).resolve().parents[1]
+# float32 on both sides, the same operations summed in another order
+F32_TOL = 2e-5
+# the Pallas GEGLU bodies take erf from a polynomial (erf_poly.py)
+POLY_TOL = 3e-4
+# the train-step parity tests' bound and optimizer eps
+# (tests/test_torch_train.py explains the eps)
+TOL = 2e-4
+STEP_EPS = 1e-4
+EPS = 1e-6
+
+
+def rand(rng, *shape, std=1.0):
+    return (rng.standard_normal(shape) * std).astype(np.float32)
+
+
+def close(got, want, tol, name=""):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape, name
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (name, err, np.abs(want).max())
+
+
+def close_all(got, want, tol):
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        close(a, b, tol, str(i))
+
+
+def jax_vjp(fn, inputs, cots):
+    """(outputs, input gradients of sum(<fn(*inputs), cots>)) through JAX."""
+    out, vjp = jax.vjp(fn, *map(jnp.asarray, inputs))
+    cots = tuple(map(jnp.asarray, cots))
+    return out, vjp(cots if len(cots) > 1 else cots[0])
+
+
+def torch_vjp(fn, inputs, cots):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    grads = torch.autograd.grad(out, leaves,
+                                tuple(map(torch.from_numpy, cots)))
+    return out, grads
+
+
+# ---- the cases: the slice's widths at small batch ---------------------------
+
+def qkv_case(seed, b, h, w, d, e):
+    rng = np.random.default_rng(seed)
+    heads = d // e
+    inputs = (rand(rng, b, h, w, d), 1 + rand(rng, b, d, std=0.1),
+              rand(rng, d, 3 * d, std=d ** -0.5),
+              10 * (1 + rand(rng, heads, std=0.1)))
+    cots = [rand(rng, b, h, w, d) for _ in range(3)]
+    return inputs, cots, np.array(j_rope.make_axial_pos(h, w)), heads
+
+
+def ffn_case(seed, b, t, d, d_ff):
+    rng = np.random.default_rng(seed)
+    inputs = (rand(rng, b, t, d), 1 + rand(rng, b, d, std=0.1),
+              rand(rng, d, 2 * d_ff, std=d ** -0.5),
+              rand(rng, d_ff, d, std=d_ff ** -0.5))
+    return inputs, [rand(rng, b, t, d)]
+
+
+def mapping_case(seed, b, d, d_ff, n=2):
+    rng = np.random.default_rng(seed)
+    flat = [rand(rng, b, d), 1 + rand(rng, d, std=0.1),
+            1 + rand(rng, d, std=0.1)]
+    for _ in range(n):
+        flat += [1 + rand(rng, d, std=0.1), rand(rng, d, 2 * d_ff, std=d ** -0.5),
+                 rand(rng, d_ff, d, std=d_ff ** -0.5)]
+    return flat, [rand(rng, b, d)]
+
+
+def gp_case(seed, b, s, heads):
+    rng = np.random.default_rng(seed)
+    return ([rand(rng, b, s, 64 * heads, std=0.3) for _ in range(3)],
+            [rand(rng, b, s, 64 * heads)])
+
+
+def blocks_of(flat):
+    return [flat[i:i + 3] for i in range(3, len(flat), 3)]
+
+
+# (name, case): the shifted-window config's levels 0 and 2 and
+# config_test_tiny's head dim 32; the HDiT's mapping network (resident in
+# the bf16 kernel) and the ViT's at DiT-B/2's width (streamed there)
+QKV_CASES = {"d128": (1, 8, 8, 128, 64), "d512": (1, 4, 4, 512, 64),
+             "tiny_e32": (2, 4, 4, 64, 32)}
+FFN_CASES = {"d128": (1, 64, 128, 384), "d512": (1, 16, 512, 1536),
+             "tiny": (2, 16, 64, 192)}
+MAPPING_CASES = {"hdit": (3, 256, 768), "vit": (2, 768, 2048)}
+
+
+# ---- the plain versions in float32 against JAX -------------------------------
+
+@pytest.mark.parametrize("case", list(QKV_CASES))
+def test_fused_qkv_plain_version_matches_jax_in_float32(case):
+    """fused_qkv_prologue's plain version (the CPU path, K1-f32's spec) and
+    its gradients (K6-f32's) against the JAX dispatcher and its VJP."""
+    inputs, cots, pos, heads = qkv_case(1, *QKV_CASES[case])
+    t_pos = torch.from_numpy(pos)
+    got, grads = torch_vjp(lambda x, ns, w, s: fused_qkv.fused_qkv_prologue(
+        x, t_pos, ns, w, s, heads), inputs, cots)
+    want, want_grads = jax_vjp(lambda x, ns, w, s: j_qkv.fused_qkv_prologue(
+        x, jnp.asarray(pos), ns, w, s, heads), inputs, cots)
+    close_all(got, want, F32_TOL)
+    close_all(grads, want_grads, F32_TOL)
+
+
+@pytest.mark.parametrize("case", list(FFN_CASES))
+def test_fused_ffn_plain_version_matches_jax_in_float32(case):
+    inputs, cots = ffn_case(2, *FFN_CASES[case])
+    got, grads = torch_vjp(fused_ffn.fused_geglu_ffn, inputs, cots)
+    want, want_grads = jax_vjp(j_ffn.fused_geglu_ffn, inputs, cots)
+    close_all(got, (want,), F32_TOL)
+    close_all(grads, want_grads, F32_TOL)
+    with pltpu.force_tpu_interpret_mode():
+        body = j_ffn._ffn_fwd(*map(jnp.asarray, inputs), EPS, 256)
+    close(got[0], body, POLY_TOL)
+
+
+@pytest.mark.parametrize("case", list(MAPPING_CASES))
+def test_fused_mapping_plain_version_matches_jax_in_float32(case):
+    """fused_mapping at compute dtype float32 (K5-f32's spec) and its
+    gradients against the JAX dispatcher at float32, at the HDiT's and the
+    ViT's widths."""
+    flat, cots = mapping_case(3, *MAPPING_CASES[case])
+    got, grads = torch_vjp(lambda e, si, so, *ws: fused_mapping.fused_mapping(
+        e, si, so, blocks_of([e, si, so, *ws]), dtype=torch.float32), flat, cots)
+    want, want_grads = jax_vjp(lambda e, si, so, *ws: j_map.fused_mapping(
+        e, si, so, blocks_of([e, si, so, *ws]), dtype=jnp.float32), flat, cots)
+    close_all(got, (want,), F32_TOL)
+    close_all(grads, want_grads, F32_TOL)
+
+
+@pytest.mark.parametrize("b,s,heads", [(2, 64, 2), (1, 256, 1)])
+def test_packed_global_attention_plain_version_matches_jax_in_float32(
+        b, s, heads):
+    """K3-f32's and K9-f32's spec against the JAX dispatcher and VJP, and
+    the logsumexp against the Pallas forward in interpret mode."""
+    inputs, cots = gp_case(4, b, s, heads)
+    got, grads = torch_vjp(lambda q, k, v: global_packed.packed_global_attention(
+        q, k, v, heads), inputs, cots)
+    want, want_grads = jax_vjp(lambda q, k, v: j_gp.packed_global_attention(
+        q, k, v, heads), inputs, cots)
+    close_all(got, (want,), F32_TOL)
+    close_all(grads, want_grads, F32_TOL)
+    with pltpu.force_tpu_interpret_mode():
+        _, lse = j_gp._gp_fwd(*map(jnp.asarray, inputs), heads, 1.0,
+                              save_lse=True)
+    lse = np.moveaxis(np.asarray(lse), 3, 2).reshape(b, heads, s)
+    close(global_packed.reference_lse(*map(torch.from_numpy, inputs), heads),
+          lse, F32_TOL)
+
+
+# ---- the float32 kernels' arithmetic, mirrored ---------------------------------
+
+def chunked_atb(a, b, chunk):
+    """a^T b as tg::atb_f32_kernel forms it: per chunk of rows, the partials
+    then summed in chunk order."""
+    parts = [a[i:i + chunk].T @ b[i:i + chunk] for i in range(0, len(a), chunk)]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def norm_vjp(dxn, x, ns_rows, r, dot, res=None):
+    """tg::norm_vjp_f32_kernel's epilogue: dx = r dxn nscale - x (r^2 / d)
+    dot (+ res) and the rows' d(nscale) terms dxn x r, with dot the
+    per-row sum of dR R over the panels (sum(g1 x) = dot / r)."""
+    d = x.shape[-1]
+    dx = r * dxn * ns_rows - x * (r * r * dot / d)
+    return (dx if res is None else dx + res), dxn * x * r
+
+
+def qkv_f32_mirror(x, pos, ns, w, attn_scale, heads, gq, gk, gv):
+    """K1-f32's forward and K6-f32's three steps on (rows, d) f32 as the
+    kernels compute them: R = r ((x nscale) W), the cosine-sim scale and
+    RoPE in the epilogue; the RoPE and cosine-sim VJPs on the panel's
+    columns, dot partials per 64-column panel summed in panel order, the
+    RMS-norm VJP, dW_qkv over row chunks, d(attn_scale) from the sums of g
+    qn."""
+    b, h, w_, d = x.shape
+    e, rows = d // heads, b * h * w_
+    t = h * w_
+    xf = x.reshape(rows, d)
+    ns_rows = ns.repeat_interleave(t, 0)
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + EPS)
+    raw = r * ((xf * ns_rows) @ w)                      # (rows, 3d)
+    theta = t_rope.axial_rope_theta(pos.reshape(t, 2), t_rope.axial_rope_freqs(
+        e // 2, heads)).repeat(b, 1, 1)                 # (rows, heads, e / 4)
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    quarter = e // 4
+
+    def heads_of(m):
+        return m.reshape(rows, heads, e)
+
+    outs, dr_parts, das = [], [], []
+    dot_panels = []
+    for sec, g in enumerate((gq, gk, gv)):
+        rs = heads_of(raw[:, sec * d:(sec + 1) * d])
+        gs = heads_of(g.reshape(rows, d))
+        if sec == 2:
+            outs.append(rs.reshape(rows, d))
+            dr = gs
+        else:
+            inv = torch.rsqrt(rs.square().sum(-1, keepdim=True) + EPS)
+            rho = attn_scale[:, None].sqrt() * inv
+            x1, x2 = rs[..., :quarter], rs[..., quarter:2 * quarter]
+            y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin,
+                           rs[..., 2 * quarter:]], -1)
+            outs.append((y * rho).reshape(rows, d))
+            g1, g2 = gs[..., :quarter], gs[..., quarter:2 * quarter]
+            gr = torch.cat([g1 * cos + g2 * sin, g2 * cos - g1 * sin,
+                            gs[..., 2 * quarter:]], -1)
+            gsum = (gr * rs).sum(-1, keepdim=True)
+            dr = rho * gr - rs * (rho * inv * inv * gsum)
+            das.append((rho * gsum).sum((0, 2)))
+        dr = dr.reshape(rows, d)
+        dr_parts.append(dr)
+        prod = dr * raw[:, sec * d:(sec + 1) * d]
+        dot_panels += [prod[:, c:c + 64].sum(-1, keepdim=True)
+                       for c in range(0, d, 64)]
+    dot = dot_panels[0]
+    for p in dot_panels[1:]:
+        dot = dot + p
+    dR = torch.cat(dr_parts, -1)
+    dxn = dR @ w.T
+    dx, dns_terms = norm_vjp(dxn, xf, ns_rows, r, dot)
+    dns = dns_terms.reshape(b, t, d).sum(1)
+    dw = chunked_atb(xf * ns_rows * r, dR, 64)
+    d_scale = (das[0] + das[1]) / (2 * attn_scale)
+    shape = (b, h, w_, d)
+    return ([o.reshape(shape) for o in outs],
+            (dx.reshape(shape), dns, dw, d_scale))
+
+
+@pytest.mark.parametrize("case", list(QKV_CASES))
+def test_fused_qkv_f32_kernel_arithmetic_matches_jax(case):
+    inputs, cots, pos, heads = qkv_case(5, *QKV_CASES[case])
+    got, grads = qkv_f32_mirror(*map(torch.from_numpy, inputs[:1]),
+                                torch.from_numpy(pos),
+                                *map(torch.from_numpy, inputs[1:]), heads,
+                                *map(torch.from_numpy, cots))
+    want, want_grads = jax_vjp(lambda x, ns, w, s: j_qkv.fused_qkv_prologue(
+        x, jnp.asarray(pos), ns, w, s, heads), inputs, cots)
+    close_all(got, want, F32_TOL)
+    close_all(grads, want_grads, F32_TOL)
+
+
+def gelu_grad(g):
+    return 0.5 * (1 + torch.erf(g * 2 ** -0.5)) + g * torch.exp(
+        -0.5 * g * g) / (2 * torch.pi) ** 0.5
+
+
+def ffn_f32_mirror(x, ns, w_up, w_down, g):
+    """K4-f32 (the up kernel's h through device memory, then the down
+    kernel with the residual) and K10-f32's three steps, as the kernels
+    compute them."""
+    b, t, d = x.shape
+    d_ff, rows = w_down.shape[0], b * t
+    xf, gf = x.reshape(rows, d), g.reshape(rows, d)
+    ns_rows = ns.repeat_interleave(t, 0)
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + EPS)
+    up = r * ((xf * ns_rows) @ w_up)
+    a, gate = up[:, :d_ff], up[:, d_ff:]
+    h = a * F.gelu(gate)
+    out = xf + h @ w_down
+    dh = gf @ w_down.T
+    da, dgate = dh * F.gelu(gate), dh * a * gelu_grad(gate)
+    prod = da * a + dgate * gate
+    dot = sum(prod[:, c:c + 64].sum(-1, keepdim=True)
+              for c in range(0, d_ff, 64))
+    dup = torch.cat([da, dgate], -1)
+    dx, dns_terms = norm_vjp(dup @ w_up.T, xf, ns_rows, r, dot, gf)
+    dw_up = chunked_atb(xf * ns_rows * r, dup, 64)
+    dw_down = chunked_atb(h, gf, 64)
+    return out.reshape(b, t, d), (dx.reshape(b, t, d),
+                                  dns_terms.reshape(b, t, d).sum(1), dw_up,
+                                  dw_down)
+
+
+@pytest.mark.parametrize("case", list(FFN_CASES))
+def test_fused_ffn_f32_kernel_arithmetic_matches_jax(case):
+    inputs, cots = ffn_case(6, *FFN_CASES[case])
+    got, grads = ffn_f32_mirror(*map(torch.from_numpy, inputs),
+                                torch.from_numpy(cots[0]))
+    want, want_grads = jax_vjp(j_ffn.fused_geglu_ffn, inputs, cots)
+    close(got, want, F32_TOL)
+    close_all(grads, want_grads, F32_TOL)
+
+
+def mapping_f32_mirror(emb, s_in, s_out, blocks):
+    """K5-f32 as its 2 + 3 n kernels compute it: rms_rows_kernel, per block
+    ffn_f32_up_kernel (the block's scale for every row, r applied after
+    the product), ffn_f32_down_kernel's partials over chunks of 256 hidden
+    units and add_parts_kernel (the residual, then each partial in chunk
+    order), rms_rows_kernel."""
+    def rms_rows(x, s):
+        return x * (s * torch.rsqrt(x.square().mean(-1, keepdim=True) + EPS))
+
+    x = rms_rows(emb, s_in)
+    for ns, w_up, w_down in blocks:
+        r = torch.rsqrt(x.square().mean(-1, keepdim=True) + EPS)
+        a, gate = (r * ((x * ns) @ w_up)).chunk(2, -1)
+        h = a * F.gelu(gate)
+        chunk = fused_mapping.F32_CHUNK
+        for c in range(0, h.shape[-1], chunk):
+            x = x + h[:, c:c + chunk] @ w_down[c:c + chunk]
+    return rms_rows(x, s_out)
+
+
+@pytest.mark.parametrize("case", list(MAPPING_CASES))
+def test_fused_mapping_f32_kernel_arithmetic_matches_jax(case):
+    flat, _ = mapping_case(7, *MAPPING_CASES[case])
+    t = [torch.from_numpy(a) for a in flat]
+    got = mapping_f32_mirror(t[0], t[1], t[2], blocks_of(t))
+    want = j_map.fused_mapping(*map(jnp.asarray, flat[:3]),
+                               blocks_of(list(map(jnp.asarray, flat))),
+                               dtype=jnp.float32)
+    close(got, want, F32_TOL)
+
+
+# ---- each wrapper's dispatch by dtype ------------------------------------------
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The kernel libraries stood in for: each launch records (entry, its
+    arguments as Python values) and returns status 0; CPU tensors pass the
+    CUDA check and the bf16 paths' occupancy queries answer a fixed split,
+    so every wrapper's launch path runs here."""
+    calls = []
+
+    def launch(lib, entry, what, device, *args):
+        calls.append((entry, [a.value if isinstance(a, ctypes.c_void_p)
+                              else a for a in args]))
+
+    monkeypatch.setattr(_build, "load", lambda name, **_: None)
+    monkeypatch.setattr(_build, "launch", launch)
+    monkeypatch.setattr(_build, "require_cuda", lambda x, what: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(fused_qkv, "forward_split", lambda *a: (1, 1))
+    monkeypatch.setattr(fused_ffn, "forward_split", lambda *a: (1, 1, 1))
+    monkeypatch.setattr(fused_mapping, "cluster_size", lambda *a: 1)
+    for module in (fused_qkv, fused_ffn, fused_mapping, global_packed):
+        for attr in ("launches", "bwd_launches", "launches_f32",
+                     "bwd_launches_f32"):
+            if hasattr(module, attr):
+                monkeypatch.setattr(module, attr, 0)
+    return calls
+
+
+def counts(module):
+    return tuple(getattr(module, a, None) for a in (
+        "launches", "launches_f32", "bwd_launches", "bwd_launches_f32"))
+
+
+def operands(name, dtype, seed=8):
+    """Inputs of each wrapper in ``dtype`` at a small size."""
+    rng = np.random.default_rng(seed)
+    t = lambda *shape, std=1.0: torch.from_numpy(rand(rng, *shape, std=std)).to(dtype)
+    if name == "fused_qkv":
+        return (t(2, 4, 4, 128), t_rope.make_axial_pos(4, 4), 1 + t(2, 128),
+                torch.from_numpy(rand(rng, 128, 384)),
+                torch.full((2,), 10.0), 2)
+    if name == "fused_ffn":
+        return (t(2, 16, 128), 1 + t(2, 128), torch.from_numpy(rand(rng, 128, 384)),
+                torch.from_numpy(rand(rng, 192, 128)))
+    if name == "fused_mapping":
+        w = lambda *s: torch.from_numpy(rand(rng, *s)).to(
+            torch.float32 if dtype == torch.float16 else dtype)
+        return (t(3, 128), torch.ones(128), torch.ones(128),
+                [(torch.ones(128), w(128, 384), w(192, 128))])
+    return tuple(t(2, 64, 128) for _ in range(3)) + (2,)
+
+
+ENTRIES = {  # name -> dtype -> (forward entry, backward entry)
+    "fused_qkv": {torch.float32: ("kdt_fused_qkv_f32", "kdt_fused_qkv_bwd_f32"),
+                  torch.bfloat16: ("kdt_fused_qkv", "kdt_fused_qkv_bwd")},
+    "fused_ffn": {torch.float32: ("kdt_ffn_fwd_f32", "kdt_ffn_bwd_f32"),
+                  torch.bfloat16: ("kdt_ffn_fwd", "kdt_ffn_bwd")},
+    "global_packed": {
+        torch.float32: ("kdt_global_packed_f32", "kdt_global_packed_bwd_f32"),
+        torch.bfloat16: ("kdt_global_packed", "kdt_global_packed_bwd")},
+    "fused_mapping": {torch.float32: ("kdt_mapping_f32", None),
+                      torch.bfloat16: ("kdt_mapping", None)},
+}
+
+
+def forward_and_backward(name, args):
+    """Runs the wrapper's forward entry and, where it has a backward
+    kernel, the backward's, with cotangents of the outputs' shapes; returns
+    the forward's outputs and the backward's gradients."""
+    if name == "fused_qkv":
+        out = fused_qkv.prologue_forward(*args)
+        cots = [torch.zeros_like(o) for o in out]
+        return out, fused_qkv.prologue_backward(*args, *cots)
+    if name == "fused_ffn":
+        out = fused_ffn.ffn_forward(*args)
+        return (out,), fused_ffn.ffn_backward(*args, torch.zeros_like(out))
+    if name == "fused_mapping":
+        dtype = args[0].dtype
+        return (fused_mapping.mapping_forward(*args, dtype=dtype),), ()
+    out, lse = global_packed.packed_forward(*args, save_lse=True)
+    return (out, lse), global_packed.packed_backward(
+        *args[:3], out, lse, torch.zeros_like(out), args[3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(ENTRIES))
+def test_wrappers_dispatch_by_dtype(fake_library, name, dtype):
+    """float32 operands reach the float32 entry points and counters,
+    bfloat16 the bf16 ones; the outputs and the activations' gradients are
+    in the operands' dtype, the parameters' gradients float32."""
+    module = {"fused_qkv": fused_qkv, "fused_ffn": fused_ffn,
+              "fused_mapping": fused_mapping,
+              "global_packed": global_packed}[name]
+    args = operands(name, dtype)
+    outs, grads = forward_and_backward(name, args)
+    fwd, bwd = ENTRIES[name][dtype]
+    assert [entry for entry, _ in fake_library] == [fwd] + ([bwd] if bwd else [])
+    assert outs[0].dtype == dtype
+    if name == "global_packed":
+        assert outs[1].dtype == torch.float32
+        assert all(g.dtype == dtype for g in grads)
+    elif grads:
+        assert grads[0].dtype == dtype and grads[2].dtype == torch.float32
+    f32 = dtype == torch.float32
+    want = (0 if f32 else 1, 1 if f32 else 0)
+    got = counts(module)
+    assert got[:2] == want
+    if bwd:
+        assert got[2:] == want
+
+
+@pytest.mark.parametrize("name", list(ENTRIES))
+@pytest.mark.parametrize("case", ["float16", "mixed"])
+def test_wrappers_refuse_what_no_kernel_takes(fake_library, name, case):
+    """float16 operands and operands of mixed dtypes raise ValueError by
+    name; nothing launches."""
+    if case == "float16":
+        args = operands(name, torch.float16)
+        match = "bfloat16 or float32"
+        if name == "fused_mapping":
+            call = lambda: fused_mapping.mapping_forward(
+                *args, dtype=torch.float16)
+        else:
+            call = lambda: forward_and_backward(name, args)
+    else:
+        args = list(operands(name, torch.float32))
+        match = "dtype"
+        if name == "fused_mapping":
+            call = lambda: fused_mapping.mapping_forward(
+                args[0].bfloat16(), *args[1:], dtype=torch.float32)
+        else:
+            # the norm scale (K1, K4) or k (K3) in bfloat16
+            at = 2 if name == "fused_qkv" else 1
+            args[at] = args[at].bfloat16()
+            call = lambda: forward_and_backward(name, args)
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert not fake_library
+
+
+def test_float32_passes_the_widths_the_bf16_forms_refuse(fake_library):
+    """The float32 forms take any d a multiple of 64: K1 past the bf16
+    form's 768, K10 past its 576; the bf16 forms still refuse those widths
+    by name before any launch."""
+    rng = np.random.default_rng(9)
+    for dtype in (torch.bfloat16, torch.float32):
+        t = lambda *s: torch.from_numpy(rand(rng, *s)).to(dtype)
+        x, ns = t(1, 2, 2, 832), 1 + t(1, 832)
+        args = (x, t_rope.make_axial_pos(2, 2), ns,
+                torch.from_numpy(rand(rng, 832, 3 * 832)),
+                torch.full((13,), 10.0), 13)
+        ffn = (t(1, 4, 640), 1 + t(1, 640),
+               torch.from_numpy(rand(rng, 640, 1280)),
+               torch.from_numpy(rand(rng, 640, 640)))
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="768"):
+                fused_qkv.prologue_forward(*args)
+            with pytest.raises(ValueError, match="576"):
+                fused_ffn.ffn_backward(*ffn, ffn[0])
+            assert not fake_library
+        else:
+            fused_qkv.prologue_forward(*args)
+            fused_ffn.ffn_backward(*ffn, ffn[0])
+            assert [e for e, _ in fake_library] == ["kdt_fused_qkv_f32",
+                                                    "kdt_ffn_bwd_f32"]
+
+
+def test_float32_forwards_read_a_strided_scale_row(fake_library):
+    """K1's and K4's float32 forms take their scale as a (b, d) column
+    block of a wider matrix (a condcache row), read in place through its
+    row stride, as the bf16 forms do: the launch gets the block's pointer
+    and the row stride; a stride that is not a multiple of 4 floats (16
+    bytes) is refused by name."""
+    rng = np.random.default_rng(11)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    table = t(2, 3 * 128 + 64)
+    scale = table[:, 64:192]
+    x = t(2, 4, 4, 128)
+    fused_qkv.prologue_forward(x, t_rope.make_axial_pos(4, 4), scale,
+                               t(128, 384), torch.full((2,), 10.0), 2)
+    fused_ffn.ffn_forward(x.reshape(2, 16, 128), scale, t(128, 384),
+                          t(192, 128))
+    (qkv, args), (ffn, ffn_args) = fake_library
+    assert (qkv, ffn) == ("kdt_fused_qkv_f32", "kdt_ffn_fwd_f32")
+    assert args[1] == ffn_args[1] == scale.data_ptr()
+    assert args[13] == ffn_args[10] == 3 * 128 + 64
+    odd = t(2, 3 * 128 + 2)[:, :128]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fused_ffn.ffn_forward(x.reshape(2, 16, 128), odd, t(128, 384),
+                              t(192, 128))
+
+
+def test_cpu_float32_takes_the_plain_versions(fake_library):
+    """float32 CPU tensors go to the plain versions: no launch."""
+    for name in ENTRIES:
+        args = operands(name, torch.float32)
+        if name == "fused_qkv":
+            fused_qkv.fused_qkv_prologue(*args)
+        elif name == "fused_ffn":
+            fused_ffn.fused_geglu_ffn(*args)
+        elif name == "fused_mapping":
+            fused_mapping.fused_mapping(*args, dtype=torch.float32)
+        else:
+            global_packed.packed_global_attention(*args)
+    assert not fake_library
+
+
+# ---- K3's float32 residuals under a save_* policy -------------------------------
+
+def test_packed_attention_stash_keeps_float32_residuals():
+    """Under a ``save_attn_out`` layer, K3's autograd node keeps float32
+    (out, lse) in the Stash as they are: the recompute reads them back with
+    no forward call, and K9's backward gets them, and dout, in float32."""
+    (q0, k0, v0), (dout,) = gp_case(10, 2, 64, 2)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (q0, k0, v0))
+    dout = torch.from_numpy(dout)
+    seen = []
+
+    def forward(q, k, v):
+        seen.append("forward")
+        return (global_packed.reference(q, k, v, 2),
+                global_packed.reference_lse(q, k, v, 2))
+
+    def backward(q, k, v, out, lse, dout):
+        seen.append((out.dtype, lse.dtype, dout.dtype))
+        return global_packed.reference_backward(q, k, v, dout, 2)
+
+    stash = residuals.Stash()
+    with residuals.recording(stash, replay=False):
+        first = residuals.attention(q, k, v, forward, backward)
+    with residuals.recording(stash, replay=True):
+        out = residuals.attention(q, k, v, forward, backward)
+    assert stash.kept[0][0].dtype == stash.kept[0][1].dtype == torch.float32
+    assert stash.kept[0][1].shape == (2, 2, 64)
+    assert torch.equal(out, first)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert seen == ["forward", (torch.float32,) * 3]
+    want = global_packed.reference_backward(q, k, v, dout, 2)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref)
+
+
+# ---- the trainer against JAX ------------------------------------------------------
+
+BATCH, STEPS = 2, 2
+# a learning rate at which 2 AdamW steps move the params far past TOL
+LR = 3e-3
+
+
+def randomized(params, seed):
+    """Seeded noise into every kernel, the zero-initialised ones included;
+    scales perturbed; the FourierFeatures bases kept."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, p):
+        p = np.asarray(p)
+        if path[-1].key == "basis":
+            return p
+        noise = rng.standard_normal(p.shape).astype(np.float32)
+        if path[-1].key == "kernel":
+            return noise / np.sqrt(np.prod(p.shape[:-1]))
+        return p * (1 + 0.1 * noise)
+
+    return jax.tree_util.tree_map_with_path(fill, params)
+
+
+def cifar10_transformer():
+    """config_cifar10_transformer.json narrowed: 16 x 16 inputs (8 x 8 and 4
+    x 4 tokens), widths 64 and 128 (one and two global heads of 64), one
+    layer a level, the mapping network at width 64; dropout,
+    augmentation and classes off (their draws differ between the
+    frameworks)."""
+    config = json.loads((REPO / "configs" /
+                         "config_cifar10_transformer.json").read_text())
+    config["model"].update(input_size=[16, 16], widths=[64, 128],
+                           depths=[1, 1], d_ffs=[192, 384], mapping_width=64,
+                           mapping_d_ff=192, dropout_rate=0.0,
+                           augment_prob=0.0)
+    return config
+
+
+def small_vit():
+    """A ViT of 2 layers at width 128 (2 heads of 64) on 16 x 16 inputs,
+    patch 2, EDM's training density; dropout off."""
+    return {"model": {"type": "image_transformer_v1", "input_channels": 3,
+                      "input_size": [16, 16], "patch_size": 2, "depth": 2,
+                      "width": 128, "dropout_rate": 0.0, "sigma_data": 0.5,
+                      "sigma_min": 1e-2, "sigma_max": 80.0,
+                      "sigma_sample_density": {"type": "lognormal",
+                                               "mean": -1.2, "std": 1.2}},
+            "optimizer": {"type": "adamw", "lr": LR, "betas": [0.9, 0.95],
+                          "eps": STEP_EPS, "weight_decay": 1e-4}}
+
+
+@pytest.mark.parametrize("family", ["cifar10_transformer", "vit"])
+def test_float32_training_run_matches_jax(tmp_path, monkeypatch, family):
+    """``train.run`` with ``--mixed-precision no --device cpu`` for 2 steps
+    (weights from ``--resume-inference``, synthetic data) against JAX's
+    float32 step from the same weights: the trainer's batches and EMA
+    decays are recorded, each step's sigmas and noise are JAX's draws from
+    its key, injected. Each step's loss, and the params and EMA after 2
+    steps, within 2e-4 (the params having moved by more than 10x that)."""
+    config = cifar10_transformer() if family != "vit" else small_vit()
+    config.setdefault("optimizer", {}).update(eps=STEP_EPS, lr=LR)
+    config["dataset"] = {"type": "synthetic", "length": BATCH}
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(config))
+    config = K.config.load_config(path)
+    model = K.config.make_model(config)
+    params = randomized(jax.jit(model.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
+        jnp.ones((1,)))["params"], 19)
+    weights = tmp_path / "weights.safetensors"
+    checkpoint.save_inference(
+        weights, convert.state_dict_from_jax(jax.tree_util.tree_map(
+            np.asarray, params)), config, dtype=torch.float32)
+
+    density = K.config.make_sample_density(config["model"])
+    shape = (1, BATCH, 16, 16, 3)
+    keys = [jax.random.PRNGKey(40 + i) for i in range(STEPS)]
+    draws = []
+    for key in keys:  # the draws JAX's step makes from its key
+        k_sigma, k_loop = jax.random.split(key)
+        sigmas = np.array(density(k_sigma, (BATCH,), stratified=(0, 1)))
+        k_noise, _, _ = jax.random.split(jax.random.fold_in(k_loop, 0), 3)
+        folded = j_layout.fold_images(jnp.zeros(shape[1:])).shape
+        noise = np.array(jax.random.normal(k_noise, folded)).reshape(shape)
+        draws.append((sigmas, noise))
+
+    seen = []
+    make_step = t_training.make_train_step
+
+    def recording(denoiser_factory, sample_density, **kw):
+        def injected(shape, stratified=None, generator=None, device=None):
+            return torch.from_numpy(draws[len(seen)][0]).reshape(shape)
+
+        step = make_step(denoiser_factory, injected, **kw)
+
+        def run(state, batch, generator, ema_decay):
+            assert next(state.model.parameters()).dtype == torch.float32
+            assert state.model.dtype == torch.float32
+            metrics = step(state, batch, generator, ema_decay,
+                           noise=torch.from_numpy(draws[len(seen)][1]))
+            seen.append({"batch": {k: v.clone() for k, v in batch.items()},
+                         "ema_decay": ema_decay,
+                         "loss": float(metrics["loss"]),
+                         "params": {k: v.clone() for k, v in
+                                    state.model.state_dict().items()},
+                         "ema": {k: v.clone() for k, v in
+                                 state.ema_model.state_dict().items()}})
+            return metrics
+        return run
+
+    monkeypatch.setattr(t_training, "make_train_step", recording)
+    t_train.main(["--config", str(path), "--device", "cpu",
+                  "--mixed-precision", "no", "--batch-size", str(BATCH),
+                  "--num-workers", "1", "--name", str(tmp_path / "run"),
+                  "--end-step", str(STEPS), "--save-every", "0",
+                  "--demo-every", "0", "--evaluate-every", "0",
+                  "--resume-inference", str(weights)])
+    assert len(seen) == STEPS
+
+    opt = K.training.make_optimizer(config, j_itv2.param_group_labels(params))
+    state = K.training.TrainState(
+        step=jnp.int32(0), params=params, opt_state=opt.init(params),
+        ema_params=jax.tree_util.tree_map(jnp.array, params))
+    step = K.training.make_train_step(
+        model, K.config.make_denoiser_wrapper(config), density, opt)
+    for key, record in zip(keys, seen):
+        batch = {k: jnp.asarray(v.numpy()) for k, v in record["batch"].items()}
+        state, metrics = step(state, batch, key, record["ema_decay"])
+        want = float(metrics["loss"])
+        assert abs(record["loss"] - want) <= TOL * abs(want), (record["loss"],
+                                                                want)
+    before = convert.flatten(jax.tree_util.tree_map(np.asarray, params))
+    moved = max(np.abs(seen[-1]["params"][k].numpy() - v).max() /
+                np.abs(v).max() for k, v in before.items()
+                if not k.endswith(".basis"))
+    assert moved > 10 * TOL, moved
+    for tree, kind in ((state.params, "params"), (state.ema_params, "ema")):
+        want = convert.flatten(jax.tree_util.tree_map(np.asarray, tree))
+        for name, got in seen[-1][kind].items():
+            close(got.numpy(), want[name], TOL, f"{kind} {name}")

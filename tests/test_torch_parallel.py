@@ -530,6 +530,10 @@ def launch_cases():
     flat = [bf16(1, 4, 2, 32) for _ in range(5)]
     flat32 = [f32(1, 4, 2, 32) for _ in range(5)]
     proj = [bf16(1, 8, 8, 128) for _ in range(4)]
+    # the float32 forms' operands
+    qkv32 = (f32(1, 8, 8, 64), pos, f32(1, 64), f32(64, 192), torch.ones(2), 2)
+    ffn32 = (f32(1, 64, 64), f32(1, 64), f32(64, 256), f32(128, 64))
+    seq32 = [f32(1, 16, 64) for _ in range(5)]
     return {
         "kdt_fused_qkv": lambda: fused_qkv.prologue_forward(*qkv),
         "kdt_fused_qkv_bwd": lambda: fused_qkv.prologue_backward(*qkv, *grads),
@@ -558,6 +562,20 @@ def launch_cases():
         "kdt_flash_fwd_f32": lambda: flash.flash_forward(*flat32[:3]),
         "kdt_flash_bwd_f32": lambda: flash.flash_backward(
             *flat32[:4], f32(1, 2, 4), flat32[4]),
+        "kdt_fused_qkv_f32": lambda: fused_qkv.prologue_forward(*qkv32),
+        "kdt_fused_qkv_bwd_f32": lambda: fused_qkv.prologue_backward(
+            *qkv32, *(f32(1, 8, 8, 64) for _ in range(3))),
+        "kdt_ffn_fwd_f32": lambda: fused_ffn.ffn_forward(*ffn32),
+        "kdt_ffn_bwd_f32": lambda: fused_ffn.ffn_backward(*ffn32,
+                                                          f32(1, 64, 64)),
+        "kdt_mapping_f32": lambda: fused_mapping.mapping_forward(
+            f32(2, 64), torch.ones(64), torch.ones(64),
+            [(torch.ones(64), f32(64, 256), f32(128, 64))],
+            dtype=torch.float32),
+        "kdt_global_packed_f32": lambda: global_packed.packed_forward(
+            *seq32[:3], 1),
+        "kdt_global_packed_bwd_f32": lambda: global_packed.packed_backward(
+            *seq32[:4], f32(1, 1, 16), seq32[4], 1),
     }
 
 

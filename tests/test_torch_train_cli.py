@@ -227,7 +227,10 @@ def test_model_families_train_through_the_entry_point(tmp_path, model):
 
 @pytest.mark.parametrize("flags,item", [
     (["--wandb-project", "p"], "queue 1, item 8"),
-    (["--device", "cuda", "--mixed-precision", "no"], "queue 1, item 9"),
+    # float32 on the card for a config with neighborhood-attention levels
+    (["--device", "cuda", "--mixed-precision", "no", "--config",
+      str(REPO / "configs" / "config_oxford_flowers.json")],
+     "queue 1, item 9"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
