@@ -13,7 +13,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    with v through its own strides), of the forwards K1 and K4, of K6's and
    K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel),
    of K5's cluster kernel and of K15's (csrc/na_proj.cuh, head dims 32 and
-   64); none may spill or be missing;
+   64), and of the float32 forms (csrc/attn_tf32.cuh's dense kernels,
+   csrc/na_tf32.cuh's, the TF32 GEMM core's); none may spill or be
+   missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -90,7 +92,8 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    step's gradient at batch 2 against float32 on the CPU;
 18. default build: the flagship and the U-Net from make_model(config) with
    no dtype and no device compute in bfloat16 on the card and give a
-   finite forward at batch 2; an explicit float32 there raises ValueError;
+   finite forward at batch 2; an explicit float32 there builds a float32
+   model (both take float32 on the card);
 19. condcache and the sampler suite, the flagship at batch 8: K1 and K4
    with their scale a (8, d) block of a (8, 7168) condcache row, read
    through its row stride, against their plain versions and bit for bit
@@ -202,15 +205,48 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    plain version's, the TF32 bound's and, for K3/K9, SDPA's on the float32
    inputs; (b) on the same inputs each float32 kernel's error against
    float64 at most 1/4 of its bf16 form's, output by output; (d) the
-   shifted-window config (a call at batch 8, a step at 32) and the ViT at
-   DiT-B/2 (batch 64) in float32 and in bf16 on the card against float32
-   on the CPU, forward and gradient: the float32 errors at most 1/4 of
+   shifted-window config and the ViT at DiT-B/2 (a call and a step at
+   batch 8 each) in float32 and in bf16 on the card against float32 on
+   the CPU, forward and gradient: the float32 errors at most 1/4 of
    bf16's, launches in each dtype's kernels only; (e) 50-step DPM++(2M)
    and 3 + 20 training steps of each in float32 with launch counts; (f)
    the trainer with --mixed-precision no on config_cifar10_transformer.json
-   as in phase 25 (f); (g) the flagship HDiT in float32 on the card, and
-   the trainer's --mixed-precision no on it, refused naming K2, K7, K11,
-   K12 and K15.
+   as in phase 25 (f), its resume bit-equal; (g) the refusals that remain, each by name before
+   any launch: the flagship with head dim 128 at its neighborhood levels
+   in float32 on the card and the trainer's --mixed-precision no on it
+   (K11 and K12 at head dim 128), K11 on float32 maps of head dim 128 and
+   K15 (na2d_packed_proj).
+27. float32 compute on the card for the neighborhood-attention configs
+   (``na_float32_phase``; the flagship, config_512_hdit and
+   config_256_p8_wide): (a) the float32 forms of K2 and K7 (channel-packed)
+   and of K11 and K12 (per head, v strided), csrc/na_tf32.cuh, against
+   their plain versions in float32 with TF32 off, within 5e-3 x
+   max|plain|, at the flagship's NA levels (batch 8), K11 and K12 also at
+   head dim 32 and K2 and K7 at config_512_hdit's 128 x 128 x 128 level,
+   timed beside the plain versions, the TF32 bound and masked SDPA on
+   float32 (TF32 on), and each against float64 at most 1/4 of its bf16
+   form's error, output by output; (b) on one input at each flagship NA
+   level K2-f32 = K11-f32 (out, lse) and K7-f32 = K12-f32 (dq, dk, dv)
+   bit for bit, and a rerun of each bit-equal; (c) the flagship at batch 2
+   in float32 and in bf16 on the card against the float32 CPU side of
+   phases 4 and 7 (reused), forward and gradient: the float32 errors at
+   most 1/4 of bf16's; (d) 50-step DPM++(2M) at batch 8 in float32 (12
+   K1-f32, 8 K2-f32, 4 K3-f32, 12 K4-f32, 1 K5-f32 a call, no bf16 launch;
+   also through condcache); (e) 3 + 20 training steps at batch 32, fused
+   (also 12 K6-f32, 8 K7-f32, 4 K9-f32, 8 K10-f32 a step) and unfused
+   (KDT_TRAIN_FUSION=0: 8 K11-f32 and 8 K12-f32), card time, peak memory
+   and host-clock rates beside phases 5, 8 and 16's bf16; (f) the trainer
+   with --mixed-precision no on config_oxford_flowers.json as in phase 26
+   (f), its resume bit-equal; (g) config_512_hdit at 512 x 512, batch 2,
+   in float32 and bf16 on the card from the same weights: a call, an
+   unfused loss gradient and, in float32, a fused one, each dtype's
+   launches only, float32 within 5e-2 of bf16 and its fused gradient
+   within 1/4 of that distance of its unfused one; config_512_hdit cut to
+   256 x 256 (batch 2, unfused) and config_256_p8_wide (batch 8, fused and
+   unfused) as in (c) against float32 on the CPU, the float32 errors at
+   most 1/4 of bf16's; each of the two as shipped (dropout on) 3 + 20
+   float32 training steps (config_512_hdit at 8, config_256_p8_wide at
+   32) with their launch counts.
 
 Each phase ends with a ``time:`` line (its seconds, and in all), the long
 ones also each part of them, and the script with its total.
@@ -225,17 +261,21 @@ training step (backward kernels) on its main path: the flagship at batch 8
 for K1-K10 and, in the unfused step, K11 and K12; the U-Net at batch 64 for
 K13 and K14, in bf16 and (``flash_f32``, ``flash_bwd_f32``) in float32;
 the shifted-window config at batch 8 for the float32 forms of K1, K3-K6,
-K9 and K10 (``*_f32``; K3 and K9 on K13's and K14's float32 bodies); one op
-call at each flagship NA level for K15 and K8.
+K9 and K10 (``*_f32``; K3 and K9 on K13's and K14's float32 bodies); the
+flagship at batch 8 for the float32 forms of K2 and K7 and, in the unfused
+step, of K11 and K12 (phase 27); one op call at each flagship NA level for
+K15 and K8.
 ``launches`` is its count in that path's sampling (forward) or timed
 training (backward) run, for K11 and K12 the unfused training run, for K15
 and K8 their op paths, for the ``*_f32`` forms of phase 26 the
-shifted-window config's float32 runs. Any
+shifted-window config's float32 runs, for those of phase 27 the flagship's
+float32 runs. Any
 failure raises: exit code non-zero, no result line. Imports nothing of JAX.
 """
 
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -1303,10 +1343,13 @@ def input_shape(config, batch):
     return (batch, *m["input_size"], m["input_channels"])
 
 
-def forward_parity(KT, config, dev, fill, g, name, batch=2, **cond):
+def forward_parity(KT, config, dev, fill, g, name, batch=2, keep=None,
+                   **cond):
     """One bf16 denoiser call on the card against the same weights in f32 on
     the CPU (plain versions), relative L2 of the output. Returns the card
-    model (eval mode) and the launch counts of its call."""
+    model (eval mode) and the launch counts of its call. ``keep``, where
+    given, receives the CPU side: the weights, the inputs and the output
+    (phase 27 holds the float32 model against them)."""
     from k_diffusion_tpu_torch.ops import kernels
 
     model = KT.config.make_model(config, dtype=torch.bfloat16, device="cpu",
@@ -1324,6 +1367,9 @@ def forward_parity(KT, config, dev, fill, g, name, batch=2, **cond):
     out = out.cpu()
     want = KT.config.make_denoiser_wrapper(config)(reference)(x, sigma, **cond)
     rel = ((out - want).norm() / want.norm()).item()
+    if keep is not None:
+        keep.update(state=reference.state_dict(), x=x, sigma=sigma, out=want,
+                    bf16=rel)
     if not rel <= FORWARD_REL_BOUND or not torch.isfinite(out).all():
         raise AssertionError(f"{name}: relative L2 error {rel:.3e} > "
                              f"{FORWARD_REL_BOUND}")
@@ -1428,9 +1474,13 @@ def main():
     # the flagship HDiT: phases 4-8
     config = KT.config.load_config(CONFIG)
     g = torch.Generator().manual_seed(SEED)
+    # the CPU side of phases 4 and 7, which phase 27 reuses, and the bf16
+    # figures of phases 5, 8 and 16, which it prints beside float32's
+    cpu_ref = {"forward": {}, "gradient": {}}
+    bf16_reports = {"sampling": {}, "training": {}, "unfused training": {}}
     with torch.no_grad():
         model, _ = forward_parity(KT, config, dev, fill_zero_init, g,
-                                  "forward")
+                                  "forward", keep=cpu_ref["forward"])
     levels = config["model"]["depths"]
     attn_layers = 2 * sum(levels[:-1]) + levels[-1]
     per_call = {"fused_qkv": attn_layers, "na2d": 2 * sum(levels[:-1]),
@@ -1438,7 +1488,8 @@ def main():
                 "fused_mapping": 1}
     sample_counts = sample(
         KT, config, model, dev, g, SAMPLE_BATCH, per_call,
-        2 * flops.analytic_transformer_flops(config, 1), smi, "sampling")
+        2 * flops.analytic_transformer_flops(config, 1), smi, "sampling",
+        report=bf16_reports["sampling"])
     del model
     torch.cuda.empty_cache()
 
@@ -1453,11 +1504,13 @@ def main():
         na_bit_check(dev)
         ffn_width_check(dev)
 
-    grad_parity(KT, config, dev, fill_zero_init, "gradient parity")
+    grad_parity(KT, config, dev, fill_zero_init, "gradient parity",
+                keep=cpu_ref["gradient"])
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
     train_counts, fused_ips = train(KT, config, dev, smi, TRAIN_BATCH,
                                     hdit_layout(KT, config, True), hdit_flops,
-                                    "training")
+                                    "training",
+                                    report=bf16_reports["training"])
 
     lap("phases 4-8")
     # the U-Net (config_cifar10.json): phases 9-12
@@ -1528,9 +1581,9 @@ def main():
         if counts != dict.fromkeys(kernels.COUNTERS, 0) | unfused:
             raise AssertionError(f"unfused gradient parity: launch counts "
                                  f"{counts} != {unfused}")
-        unfused_counts, unfused_ips = train(KT, config, dev, smi, TRAIN_BATCH,
-                                            unfused, hdit_flops,
-                                            "unfused training")
+        unfused_counts, unfused_ips = train(
+            KT, config, dev, smi, TRAIN_BATCH, unfused, hdit_flops,
+            "unfused training", report=bf16_reports["unfused training"])
     print(f"unfused training: {unfused_ips:.3f} imgs/s against the fused "
           f"step's {fused_ips:.3f} (phase 8) on {smi}", flush=True)
 
@@ -1605,11 +1658,20 @@ def main():
                                                              results)
     lap("phase 26")
 
+    # float32 compute on the card, the neighborhood-attention configs (the
+    # flagship): phase 27
+    na_f32_sample, na_f32_train, na_f32_unfused = na_float32_phase(
+        KT, config, dev, smi, results, cpu_ref, bf16_reports)
+    del cpu_ref
+    lap("phase 27")
+
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
     # the unfused training steps for K11/K12, the op paths for K15 and K8,
     # phase 25's float32 runs for K13's and K14's float32 forms, phase 26's
-    # shifted-window float32 runs for the others)
+    # shifted-window float32 runs for those of K1, K3-K6, K9 and K10, phase
+    # 27's flagship float32 runs for those of K2, K7 (sampling, fused
+    # training) and K11, K12 (unfused training))
     paths = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
         "na2d": ("na_fwd.cuh", "na2d.py:576", sample_counts),
@@ -1631,7 +1693,12 @@ def main():
         "flash_f32": ("attn_tf32.cuh", "flash.py:34", f32_sample_counts),
         "flash_bwd_f32": ("attn_tf32.cuh", "flash.py:57", f32_train_counts),
     } | {name: (src, tpu, sw_f32_train if "bwd" in name else sw_f32_sample)
-         for name, (src, tpu) in F32_KERNELS.items()}
+         for name, (src, tpu) in F32_KERNELS.items()} | {
+        "na2d_f32": (*NA_F32_KERNELS["na2d_f32"], na_f32_sample),
+        "na2d_bwd_f32": (*NA_F32_KERNELS["na2d_bwd_f32"], na_f32_train),
+        "na2d_heads_f32": (*NA_F32_KERNELS["na2d_heads_f32"], na_f32_unfused),
+        "na2d_heads_bwd_f32": (*NA_F32_KERNELS["na2d_heads_bwd_f32"],
+                               na_f32_unfused)}
     report = []
     for name, (src, tpu, counts) in paths.items():
         r = results[name]
@@ -1664,15 +1731,18 @@ def main():
 # K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
 # K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh);
 # the float32 forms: K3's and K9's (csrc/attn_tf32.cuh), K1's, K6's, K4's,
-# K10's and K5's (their kernels and csrc/gemm_tf32.cuh's)
+# K10's and K5's (their kernels and csrc/gemm_tf32.cuh's), K2's and K7's
+# (in na2d) and K11's and K12's (in na2d_heads; csrc/na_tf32.cuh)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
                       "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
               "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
-    "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel"),
+    "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
+             "na_tf32_fwd_kernel", "na_tf32_dq_kernel", "na_tf32_dkv_kernel"),
     "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
-                   "na_proj_kernel"),
+                   "na_proj_kernel", "na_tf32_fwd_kernel",
+                   "na_tf32_dq_kernel", "na_tf32_dkv_kernel"),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
                   "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
@@ -1692,8 +1762,9 @@ def compiler_report(build):
     fwd.cuh; K2, K11: csrc/na_fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7,
     K12: csrc/na_bwd.cuh), of the forwards K1 and K4, of K6's and K10's
     (csrc/gemm.cuh's core, each backward's first kernel), of K5's and of
-    K15's (csrc/na_proj.cuh), from the compiler report kept beside each
-    library; raises if one spills or is missing."""
+    K15's (csrc/na_proj.cuh), and of the float32 forms (``REPORTED``),
+    from the compiler report kept beside each library; raises if one
+    spills or is missing."""
     import re
 
     seen, missing = {}, []
@@ -1733,9 +1804,10 @@ def default_build_check(KT, config, name):
     on the card in bfloat16 (``utils.compute_dtype``), and its denoiser
     gives a finite output of the input's shape at batch 2 (fresh weights,
     eval mode); an explicit float32 on the card builds a float32 model for
-    a model whose kernels take it (``config.card_dtypes``: the U-Net) and
-    raises ValueError naming bfloat16 before anything is allocated for the
-    others (the flagship's neighborhood attention)."""
+    a model whose kernels take it (``config.card_dtypes``: the U-Net and
+    the flagship) and raises ValueError naming bfloat16 before anything is
+    allocated for the others (an HDiT with a neighborhood level of head dim
+    128)."""
     takes_f32 = torch.float32 in KT.config.card_dtypes(config)[0]
     try:
         built = KT.config.make_model(config, dtype=torch.float32)
@@ -3628,25 +3700,29 @@ def float32_model_parity(KT, unet, dev, n_attn, batch=UNET_BATCH):
                              f"{b_grad:.3e}: above {F32_MODEL_SHARE} x")
 
 
-def float32_trainer(KT, config_path, batch, per_step, smi):
-    """Phases 25 (f) and 26 (f): ``python -m k_diffusion_tpu_torch.train
-    --mixed-precision no`` on ``config_path`` (a 32 x 32 config) from 256
-    seeded images in memory (a custom dataset) at ``batch``: 4 steps as a
-    subprocess with saves at 2 and 4 and a 16-sample demo grid at 4 (it
-    must log float32 compute), then resumed from step 2 to 4 in-process
-    (params and EMA within RESUME_REL_BOUND relative L2 of the first run's),
-    its 2 steps' launch counts ``per_step`` in float32 kernels only."""
+def float32_trainer(KT, config_path, batch, per_step, smi, exact=True):
+    """Phases 25 (f), 26 (f) and 27 (f): ``python -m
+    k_diffusion_tpu_torch.train --mixed-precision no`` on ``config_path``
+    from a custom dataset of 256 entries cycling over seeded images in
+    memory (256 distinct ones at 32 x 32, 32 at a larger size) at
+    ``batch``: 4 steps as a subprocess with saves at 2 and 4 and a
+    16-sample demo grid at 4 (it must log float32 compute), then resumed
+    from step 2 to 4 in-process (params and EMA bit for bit the first
+    run's, or with ``exact`` False within RESUME_REL_BOUND relative L2), its
+    2 steps' launch counts ``per_step`` in float32 kernels only."""
     from k_diffusion_tpu_torch import train as train_cli
     from k_diffusion_tpu_torch.ops import kernels
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         g = torch.Generator().manual_seed(SEED + 28)
-        coarse = torch.rand((256, 3, 8, 8), generator=g)
-        images = F.interpolate(coarse, size=(32, 32), mode="bilinear") * 2 - 1
+        cfg = json.loads(config_path.read_text())
+        size = cfg["model"]["input_size"][0]
+        coarse = torch.rand((256 if size == 32 else 32, 3, 8, 8), generator=g)
+        images = F.interpolate(coarse, size=(size, size),
+                               mode="bilinear") * 2 - 1
         np.save(tmp / "images.npy", images.permute(0, 2, 3, 1).numpy())
         (tmp / "in_memory.py").write_text(IN_MEMORY_DATASET)
-        cfg = json.loads(config_path.read_text())
         cfg["dataset"] = {"type": "custom",
                           "location": str(tmp / "in_memory.py"),
                           "config": {"path": str(tmp / "images.npy"),
@@ -3660,7 +3736,7 @@ def float32_trainer(KT, config_path, batch, per_step, smi):
                               "--sample-n", 16, "--name", tmp / "f32")
         if "compute dtype torch.float32" not in out:
             raise AssertionError(f"float32 trainer: not float32:\n{out}")
-        check_png(tmp / "f32_demo_00000004.png", 128)
+        check_png(tmp / "f32_demo_00000004.png", 4 * size)
         kernels.reset_launch_counts()
         start = time.perf_counter()
         with tf32(False):  # the trainer turns TF32 on; restored after
@@ -3682,8 +3758,10 @@ def float32_trainer(KT, config_path, batch, per_step, smi):
             errs[key] = ((x - y).norm() / x.norm()).item()
             equal = equal and torch.equal(x, y)
         if not max(errs.values()) <= RESUME_REL_BOUND or \
-                not math.isfinite(a["host"]["ema_stats"]["loss"]):
-            raise AssertionError(f"float32 trainer resume: {errs}, loss "
+                not math.isfinite(a["host"]["ema_stats"]["loss"]) or \
+                (exact and not equal):
+            raise AssertionError(f"float32 trainer resume: {errs}, bit-equal "
+                                 f"{equal} (required: {exact}), loss "
                                  f"{a['host']['ema_stats']}")
         print(f"float32 trainer (subprocess, --mixed-precision no, "
               f"{config_path.name} at batch {batch}): 4 steps, saves "
@@ -3691,41 +3769,76 @@ def float32_trainer(KT, config_path, batch, per_step, smi):
               f"process start and demo; resumed in-process from step 2 to 4 "
               f"in {resumed_secs:.1f} s: params relative L2 "
               f"{errs['model']:.3e}, EMA {errs['model_ema']:.3e} (bound "
-              f"{RESUME_REL_BOUND}), bit-equal {equal}, launches "
+              f"{RESUME_REL_BOUND}), bit-equal {equal}"
+              f"{' (required)' if exact else ''}, launches "
               f"{ {k: v for k, v in counts.items() if v} } (no bf16 "
               f"kernel), on {smi}; its output: "
               f"{' | '.join(out.strip().splitlines())}", flush=True)
 
 
 def float32_refusals(KT, dev):
-    """Phase 26 (g): the flagship HDiT in float32 on the card raises
-    ValueError naming its neighborhood-attention kernels, which have no
-    float32 form, and ROADMAP.md's item 9 (c); the trainer's
-    --mixed-precision no on the flagship raises NotImplementedError, as the
-    model is not built."""
+    """Phase 26 (g): what still has no float32 form on the card is refused
+    by name before any launch. The flagship with head dim 128 at its
+    neighborhood levels (no config ships one) in float32 raises ValueError
+    naming K11 and K12 at head dim 128, and the trainer's
+    --mixed-precision no on it NotImplementedError, before the model is
+    built; K11 at head dim 128 on float32 maps and K15
+    (``na2d_packed_proj``) raise ValueError naming themselves; no kernel
+    launches."""
     from k_diffusion_tpu_torch import train as train_cli
+    from k_diffusion_tpu_torch.ops import kernels
+    from k_diffusion_tpu_torch.ops.kernels import na2d
 
-    try:
-        KT.config.make_model(KT.config.load_config(CONFIG),
-                             dtype=torch.float32, device=dev)
-    except ValueError as e:
-        if "K2, K7, K11, K12 and K15" not in str(e) or \
-                "item 9 (c)" not in str(e):
-            raise
-        print(f"float32 refusal (flagship HDiT): {e}", flush=True)
-    else:
-        raise AssertionError("flagship HDiT: built in float32 on the card")
+    wide = json.loads(CONFIG.read_text())
+    for attn in wide["model"]["self_attns"]:
+        if attn["type"] == "neighborhood":
+            attn["d_head"] = 128
+    named = "K11 and K12 at head dim 128"
+    kernels.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "config.json"
+        path.write_text(json.dumps(wide))
         try:
-            train_cli.main(["--config", str(CONFIG), "--mixed-precision",
-                            "no", "--name", str(Path(tmp) / "x")])
-        except NotImplementedError as e:
-            if "item 9" not in str(e):
+            KT.config.make_model(KT.config.load_config(path),
+                                 dtype=torch.float32, device=dev)
+        except ValueError as e:
+            if named not in str(e):
                 raise
-            print(f"float32 refusal (trainer, flagship): {e}", flush=True)
+            print(f"float32 refusal (flagship, NA head dim 128): {e}",
+                  flush=True)
         else:
-            raise AssertionError("trainer: --mixed-precision no trained the "
-                                 "flagship")
+            raise AssertionError("NA at head dim 128: built in float32 on "
+                                 "the card")
+        try:
+            train_cli.main(["--config", str(path), "--mixed-precision", "no",
+                            "--name", str(Path(tmp) / "x")])
+        except NotImplementedError as e:
+            if named not in str(e):
+                raise
+            print(f"float32 refusal (trainer, NA head dim 128): {e}",
+                  flush=True)
+        else:
+            raise AssertionError("trainer: --mixed-precision no trained NA at "
+                                 "head dim 128")
+    x = torch.zeros((1, 16, 16, 2, 128), device=dev)
+    p = torch.zeros((1, 16, 16, 128), device=dev)
+    for what, named, call in (
+            ("K11 at head dim 128", "head dim 128",
+             lambda: na2d.heads_forward(x, x, x, 7)),
+            ("K15", "K15-f32", lambda: na2d.na2d_packed_proj(
+                p, p, p, p, torch.eye(128, device=dev), 2, 7))):
+        try:
+            call()
+        except ValueError as e:
+            if named not in str(e):
+                raise
+            print(f"float32 refusal ({what}): {e}", flush=True)
+        else:
+            raise AssertionError(f"{what}: took float32 on the card")
+    torch.cuda.synchronize()
+    if kernels.launch_counts() != dict.fromkeys(kernels.COUNTERS, 0):
+        raise AssertionError(f"float32 refusals launched "
+                             f"{kernels.launch_counts()}")
 
 
 def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
@@ -3771,8 +3884,13 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
               f"{'call' if 'DPM' in what else 'step'} (profile); peak memory "
               f"{f32['peak'] / 2**30:.3f} against {bf['peak'] / 2**30:.3f} "
               f"GiB, on {smi}", flush=True)
+    # Not bit-equal: the U-Net's convolutions run cuDNN, whose algorithms
+    # are not deterministic by default (a resume differed by ~6e-9 relative
+    # L2); the transformers' float32 steps run only the hand-written
+    # kernels, which have no atomics, so phases 26 and 27 require it.
     float32_trainer(KT, UNET_CONFIG, UNET_BATCH,
-                    {"flash_f32": n_attn, "flash_bwd_f32": n_attn}, smi)
+                    {"flash_f32": n_attn, "flash_bwd_f32": n_attn}, smi,
+                    exact=False)
     return sample_counts, train_counts
 
 
@@ -3781,6 +3899,9 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
 # K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu on the TF32 core
 # csrc/gemm_tf32.cuh) and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
 CIFAR10_TRANSFORMER = ROOT / "configs" / "config_cifar10_transformer.json"
+# the batch of phase 26 (d)'s CPU references (the shifted-window config's
+# step, the ViT's call and step): the CPU's time, not the card's, sets it
+F32_PARITY_BATCH = 8
 # the float32 kernels of the slice, with the TPU kernel each replaces (the
 # JSON line's source and replaces)
 F32_KERNELS = {
@@ -3799,10 +3920,13 @@ F32_KERNELS = {
 # params); ``run(*inputs)`` calls the wrapper and ``plain(*inputs)`` its
 # plain version, each returning a tuple; ``timed``, where given, the
 # wrapper call that is timed (the backward alone); ``skip`` outputs left
-# out of the TF32 check (a logsumexp, computed in f32 by both forms)
+# out of the TF32 check (a logsumexp, computed in f32 by both forms);
+# ``reads`` tensors the timed call reads besides the inputs (a backward's
+# out and lse), for the bound
 F32Spec = collections.namedtuple(
-    "F32Spec", "name label calls make act run plain flops timed library skip",
-    defaults=(None, None, ()))
+    "F32Spec",
+    "name label calls make act run plain flops timed library skip reads",
+    defaults=(None, None, (), ()))
 
 
 def f32_specs(dev):
@@ -3918,7 +4042,7 @@ def f32_cases(specs):
         cases.append(Case(
             s.name, s.label, s.calls, lambda r=s.run, a=inputs: tuple(r(*a)),
             under_tf32(False, lambda p=s.plain, a=inputs: tuple(p(*a))),
-            s.flops, inputs, timed=s.timed, library=s.library,
+            s.flops, (inputs, s.reads), timed=s.timed, library=s.library,
             rel_bound=F32_KERNEL_REL_BOUND, peak=PEAK_TF32_FLOPS))
     return cases
 
@@ -3966,18 +4090,15 @@ def as_f32(counts):
 
 
 def f32_model_parity(KT, config, dev, name, call_batch, step_batch, per_call,
-                     per_step):
-    """Phase 26 (d): a model (dropout 0, seeded weights, zero-init kernels
-    filled) in float32 on the card with TF32 on and in bf16 on the card,
-    against the same weights in float32 on the CPU: relative L2 of the
-    denoiser output at ``call_batch`` (eval) and of one loss's full
-    parameter gradient at ``step_batch`` (train, the same reals, noise and
-    sigmas). The float32 model's errors at most F32_MODEL_SHARE x the bf16
-    model's; each run's launch counts ``per_call`` (the forward) plus
-    ``per_step`` (the loss's forward and backward), in its dtype's kernels
-    only."""
-    from k_diffusion_tpu_torch.ops import kernels
-
+                     per_step, unfused=None):
+    """Phases 26 (d) and 27 (g): a model (dropout 0, seeded weights,
+    zero-init kernels filled) in float32 on the card with TF32 on and in
+    bf16 on the card, against the same weights in float32 on the CPU:
+    relative L2 of the denoiser output at ``call_batch`` (eval) and of one
+    loss's full parameter gradient at ``step_batch`` (train, the same
+    reals, noise and sigmas), through ``f32_parity``; where ``unfused``
+    (the unfused step's launches) is given, the same again with
+    KDT_TRAIN_FUSION=0 against the same CPU side."""
     config = no_dropout(config)
     g = torch.Generator().manual_seed(SEED + 31)
     reference = KT.config.make_model(config, device="cpu", generator=g)
@@ -3988,30 +4109,60 @@ def f32_model_parity(KT, config, dev, name, call_batch, step_batch, per_call,
                     for _ in range(2))
     loss_sigma = KT.config.make_sample_density(config["model"])(
         (step_batch,), stratified=(0, 1), generator=g, device="cpu")
-
-    def run(model, d):
-        den = KT.config.make_denoiser_wrapper(config)(model)
-        with torch.no_grad():
-            out = den(x.to(d), sigma.to(d)).float().cpu()
-        model.train()
-        loss = den.loss(reals.to(d), noise.to(d), loss_sigma.to(d)).mean()
-        grad = torch.cat([p.flatten() for p in torch.autograd.grad(
-            loss, list(model.parameters()))]).float().cpu()
-        model.eval()
-        return out, loss.item(), grad
-
     start = time.perf_counter()
-    want = run(reference.eval(), torch.device("cpu"))
+    den = KT.config.make_denoiser_wrapper(config)(reference.eval())
+    with torch.no_grad():
+        out = den(x, sigma)
+    reference.train()
+    loss = den.loss(reals, noise, loss_sigma).mean()
+    grad = torch.cat([p.flatten() for p in torch.autograd.grad(
+        loss, list(reference.parameters()))])
+    state = reference.state_dict()
     cpu_secs = time.perf_counter() - start
+    fwd = {"state": state, "x": x, "sigma": sigma, "out": out}
+    grads = {"state": state, "reals": reals, "noise": noise,
+             "sigma": loss_sigma, "loss": loss.item(), "grad": grad}
+    f32_parity(KT, config, dev, name, fwd, grads, per_call, per_step,
+               cpu_secs)
+    if unfused is not None:
+        with train_fusion("0"):
+            f32_parity(KT, config, dev, f"{name} unfused", fwd, grads,
+                       per_call, unfused, cpu_secs)
+
+
+def f32_parity(KT, config, dev, name, fwd, grad, per_call, per_step,
+               cpu_secs=None):
+    """Phases 26 (d) and 27 (c): a model (dropout 0) in float32 on the card
+    with TF32 on and in bf16 on the card, against float32 on the CPU:
+    relative L2 of the denoiser output from ``fwd``'s weights and inputs
+    (eval) against its CPU output, and of one loss's full parameter
+    gradient from ``grad``'s weights, reals, noise and sigmas (train)
+    against its CPU gradient. The float32 model's errors at most
+    F32_MODEL_SHARE x the bf16 model's; each run's launch counts
+    ``per_call`` (the forward) plus ``per_step`` (the loss's forward and
+    backward), in its dtype's kernels only. ``cpu_secs``: what the CPU side
+    took, where it was computed here."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    config = no_dropout(config)
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     found = {}
     for dtype in (torch.float32, torch.bfloat16):
         model = KT.config.make_model(config, dtype=dtype, device="cpu")
-        model.load_state_dict(reference.state_dict())
+        model.load_state_dict(fwd["state"])
         model.to(dev).eval()
+        den = KT.config.make_denoiser_wrapper(config)(model)
         kernels.reset_launch_counts()
         with tf32(True):
-            out, loss, grad = run(model, dev)
+            with torch.no_grad():
+                out = den(fwd["x"].to(dev), fwd["sigma"].to(dev)).float().cpu()
+            if grad["state"] is not fwd["state"]:
+                model.load_state_dict(grad["state"])
+            model.train()
+            loss = den.loss(grad["reals"].to(dev), grad["noise"].to(dev),
+                            grad["sigma"].to(dev)).mean()
+            flat = torch.cat([p.flatten() for p in torch.autograd.grad(
+                loss, list(model.parameters()))]).float().cpu()
         counts = kernels.launch_counts()
         total = collections.Counter(per_call) + collections.Counter(per_step)
         expected = dict.fromkeys(kernels.COUNTERS, 0) | (
@@ -4019,22 +4170,25 @@ def f32_model_parity(KT, config, dev, name, call_batch, step_batch, per_call,
         if counts != expected:
             raise AssertionError(f"{name} float32 parity ({dtype}): launch "
                                  f"counts {counts} != {expected}")
-        if not (torch.isfinite(out).all() and torch.isfinite(grad).all()):
+        if not (torch.isfinite(out).all() and torch.isfinite(flat).all()):
             raise AssertionError(f"{name} float32 parity ({dtype}): not "
                                  f"finite")
-        found[dtype] = (rel(out, want[0]), rel(grad, want[2]), loss)
-        del model
+        found[dtype] = (rel(out, fwd["out"]), rel(flat, grad["grad"]),
+                        loss.item())
+        del model, den
         torch.cuda.empty_cache()
     (f_out, f_grad, f_loss), (b_out, b_grad, b_loss) = (
         found[torch.float32], found[torch.bfloat16])
-    print(f"{name} float32 parity: forward at batch {call_batch}, gradient at "
-          f"batch {step_batch}, dropout 0, against float32 on the CPU "
-          f"({cpu_secs:.1f} s): output relative L2 float32 (TF32) "
+    cpu = (f"{cpu_secs:.1f} s" if cpu_secs is not None else
+           "the CPU side of phases 4 and 7, reused")
+    print(f"{name} float32 parity: forward at batch {fwd['x'].shape[0]}, "
+          f"gradient at batch {grad['reals'].shape[0]}, dropout 0, against "
+          f"float32 on the CPU ({cpu}): output relative L2 float32 (TF32) "
           f"{f_out:.3e}, bf16 {b_out:.3e} ({f_out / b_out:.3f}); gradient of "
-          f"{want[2].numel()} params float32 {f_grad:.3e}, bf16 {b_grad:.3e} "
-          f"({f_grad / b_grad:.3f}), bound {F32_MODEL_SHARE} x bf16's; loss "
-          f"{f_loss:.6f} float32, {b_loss:.6f} bf16, {want[1]:.6f} CPU",
-          flush=True)
+          f"{grad['grad'].numel()} params float32 {f_grad:.3e}, bf16 "
+          f"{b_grad:.3e} ({f_grad / b_grad:.3f}), bound {F32_MODEL_SHARE} x "
+          f"bf16's; loss {f_loss:.6f} float32, {b_loss:.6f} bf16, "
+          f"{grad['loss']:.6f} CPU", flush=True)
     if not (f_out <= F32_MODEL_SHARE * b_out
             and f_grad <= F32_MODEL_SHARE * b_grad):
         raise AssertionError(f"{name} float32 parity: float32 errors "
@@ -4081,11 +4235,12 @@ def f32_condcache_check(KT, config, model, dev, g, per_call):
 
 
 def f32_model_runs(KT, config, dev, smi, name, batch_call, batch_step,
-                   per_call, per_step, fwd_flops):
-    """Phase 26 (e): 50-step DPM++(2M) at ``batch_call`` (for an HDiT also
-    through condcache) and 3 + 20 training steps at ``batch_step`` in
-    float32 (TF32 on), each with its launch counts in the float32 kernels
-    only. Returns the sampling and the training runs' counts."""
+                   per_call, per_step, fwd_flops, reports=(None, None)):
+    """Phases 26 (e) and 27 (d), (e): 50-step DPM++(2M) at ``batch_call``
+    (for an HDiT also through condcache) and 3 + 20 training steps at
+    ``batch_step`` in float32 (TF32 on), each with its launch counts in the
+    float32 kernels only; ``reports`` receive the sampling and the training
+    runs' figures. Returns the sampling and the training runs' counts."""
     g = torch.Generator().manual_seed(SEED + 32)
     model = KT.config.make_model(config, dtype=torch.float32, device="cpu",
                                  generator=g)
@@ -4094,7 +4249,7 @@ def f32_model_runs(KT, config, dev, smi, name, batch_call, batch_step,
     with tf32(True):
         sample_counts = sample(KT, config, model, dev, g, batch_call,
                                as_f32(per_call), fwd_flops, smi,
-                               f"{name} sampling float32")
+                               f"{name} sampling float32", report=reports[0])
         if config["model"]["type"] == "image_transformer_v2":
             f32_condcache_check(KT, config, model, dev, g, per_call)
         del model
@@ -4102,7 +4257,7 @@ def f32_model_runs(KT, config, dev, smi, name, batch_call, batch_step,
         train_counts, _ = train(KT, config, dev, smi, batch_step,
                                 as_f32(per_step), fwd_flops,
                                 f"{name} training float32",
-                                dtype=torch.float32)
+                                dtype=torch.float32, report=reports[1])
     return sample_counts, train_counts
 
 
@@ -4110,7 +4265,8 @@ def transformers_float32_phase(KT, dev, smi, results):
     """Phase 26: (a)-(c) the new float32 kernels at their shapes, (b) the
     TF32 check, (d) the shifted-window config and the ViT against the CPU
     beside bf16, (e) their float32 sampling and training, (f) the trainer
-    on config_cifar10_transformer.json, (g) the flagship's refusal. Returns
+    on config_cifar10_transformer.json, (g) the refusals that remain
+    (``float32_refusals``). Returns
     the launch counts of the shifted-window config's float32 sampling and
     training runs (the main path of K1-K5's and K6, K9, K10's float32
     forms)."""
@@ -4128,14 +4284,15 @@ def transformers_float32_phase(KT, dev, smi, results):
 
     sw = KT.config.load_config(SHIFTED_WINDOW)
     sw_call, sw_step = hdit_layout(KT, sw, False), hdit_layout(KT, sw, True)
-    f32_model_parity(KT, sw, dev, "shifted-window", SAMPLE_BATCH, TRAIN_BATCH,
-                     sw_call, hdit_layout(KT, no_dropout(sw), True))
+    f32_model_parity(KT, sw, dev, "shifted-window", SAMPLE_BATCH,
+                     F32_PARITY_BATCH, sw_call,
+                     hdit_layout(KT, no_dropout(sw), True))
     vit = KT.config.load_config(VIT_CONFIG)
     depth = vit["model"]["depth"]
     vit_call = {"flash": depth, "fused_mapping": 1}
     vit_step = vit_call | {"flash_bwd": depth}
-    f32_model_parity(KT, vit, dev, "vit", UNET_BATCH, UNET_BATCH, vit_call,
-                     vit_step)
+    f32_model_parity(KT, vit, dev, "vit", F32_PARITY_BATCH, F32_PARITY_BATCH,
+                     vit_call, vit_step)
     CLOCK.part("phase 26 (d) parity")
 
     counts = f32_model_runs(
@@ -4150,6 +4307,373 @@ def transformers_float32_phase(KT, dev, smi, results):
     float32_trainer(KT, CIFAR10_TRANSFORMER, TRAIN_BATCH, per_step, smi)
     float32_refusals(KT, dev)
     return counts
+
+
+# phase 27: float32 compute on the card for the neighborhood-attention
+# configs (the flagship, config_512_hdit, config_256_p8_wide): the float32
+# forms of K2, K7, K11 and K12 (csrc/na_tf32.cuh, csrc/attn_tf32.cuh's TF32
+# bodies over csrc/na2d.cuh's neighborhood geometry)
+HDIT_512 = ROOT / "configs" / "config_512_hdit.json"
+P8_WIDE = ROOT / "configs" / "config_256_p8_wide.json"
+NA_F32_KERNELS = {
+    "na2d_f32": ("na_tf32.cuh", "na2d.py:576"),
+    "na2d_bwd_f32": ("na_tf32.cuh", "na2d.py:701"),
+    "na2d_heads_f32": ("na_tf32.cuh", "na2d.py:180"),
+    "na2d_heads_bwd_f32": ("na_tf32.cuh", "na2d.py:241"),
+}
+
+
+def na_lse_plain(q, k, kernel_size):
+    """The logsumexp of each query's masked logits, (b, heads, h, w), from
+    (b, h, w, heads, e) q and k, one image at a time: the plain version of
+    what the NA forwards save for the backward."""
+    from k_diffusion_tpu_torch.ops.attention import neighborhood_mask_2d
+
+    b, h, w, heads, e = q.shape
+    mask = neighborhood_mask_2d(h, w, kernel_size, q.device)
+    return torch.stack([torch.logsumexp(torch.einsum(
+        "qne,kne->nqk", q[i].reshape(h * w, heads, e),
+        k[i].reshape(h * w, heads, e)).masked_fill(~mask, float("-inf")),
+        -1).reshape(heads, h, w) for i in range(b)])
+
+
+def na_backward_by_image(q, k, v, dout, kernel_size):
+    """``na2d.heads_reference_backward`` one image at a time (its dense
+    (hw, hw) logits of a whole batch at 128 x 128 would take tens of GB)."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    grads = [na2d.heads_reference_backward(
+        *(t[i:i + 1] for t in (q, k, v, dout)), kernel_size)
+        for i in range(q.shape[0])]
+    return tuple(torch.cat(g) for g in zip(*grads))
+
+
+def na_f32_specs(dev):
+    """Phase 27 (a): the float32 forms of K2 and K7 on packed maps at the
+    flagship's NA levels (batch 8: 64 x 64 x 128 and 32 x 32 x 256, 4
+    calls a level per denoiser call or fused step) and, uncounted, at
+    config_512_hdit's 128 x 128 x 128 level (plain versions one image at a
+    time); of K11 and K12 on per-head maps at the flagship's NA levels (q
+    and k contiguous, v a strided third of the projection, as the unfused
+    step leaves them; 4 calls a level per unfused step) and, uncounted, at
+    head dim 32 (32 x 32, 4 heads of 32). q and k cosine-sim. K2 is timed
+    as sampling runs it (no lse), K11 as the unfused step's forward (with
+    its lse), each backward alone from its forward's out and lse."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 33)
+    b = SAMPLE_BATCH
+
+    def maps(h, heads, e):
+        t = torch.randn((b, h, h, 3, heads, e), generator=g)
+        qk = t[:, :, :, :2] / t[:, :, :, :2].norm(dim=-1, keepdim=True)
+        q, k, v = torch.cat([qk * 10 ** 0.5, t[:, :, :, 2:]], 3).to(
+            dev).unbind(3)
+        dout = torch.randn((b, h, h, heads, e), generator=g).to(dev)
+        return [q.contiguous(), k.contiguous(), v, dout]
+
+    def packed_plain(q, k, v, heads, wide):
+        split = split_heads((q, k, v), heads)
+        out = (na_plain_by_image if wide else na2d.na2d_reference)(*split, 7)
+        return out.reshape(q.shape), na_lse_plain(*split[:2], 7)
+
+    def packed_plain_bwd(q, k, v, dout, heads, wide):
+        if not wide:
+            return na2d.reference_backward(q, k, v, dout, heads, 7)
+        grads = na_backward_by_image(*split_heads((q, k, v, dout), heads), 7)
+        return tuple(t.reshape(q.shape) for t in grads)
+
+    def packed_vjp(q, k, v, dout, heads):
+        fwd = na2d.packed_forward(q, k, v, heads, 7, save_lse=True)
+        return na2d.packed_backward(q, k, v, *fwd, dout, heads, 7)
+
+    def heads_vjp(q, k, v, dout):
+        fwd = na2d.heads_forward(q, k, v, 7, save_lse=True)
+        return na2d.heads_backward(q, k, v, *fwd, dout, 7)
+
+    specs = []
+    for h, heads, n, wide in ((64, 2, 4, False), (32, 4, 4, False),
+                              (128, 2, 0, True)):
+        c = heads * 64
+        m = [t.reshape(b, h, h, c).contiguous() for t in maps(h, heads, 64)]
+        label = f"{b}x{h}x{h}x{c}" + (" (config_512_hdit)" if wide else "")
+        flops = 4 * b * h * h * c * 7 ** 2
+        split = split_heads(m, heads)
+        specs.append(F32Spec(
+            "na2d_f32", label, n, lambda m=m: m[:3], (0, 1, 2),
+            lambda q, k, v, heads=heads: na2d.packed_forward(
+                q, k, v, heads, 7, save_lse=True),
+            lambda q, k, v, heads=heads, wide=wide: packed_plain(
+                q, k, v, heads, wide), flops,
+            timed=lambda m=m, heads=heads: na2d.packed_forward(*m[:3], heads,
+                                                               7),
+            library=None if wide else under_tf32(
+                True, na_library(split[:3])), skip=(1,)))
+        fwd = na2d.packed_forward(*m[:3], heads, 7, save_lse=True)
+        specs.append(F32Spec(
+            "na2d_bwd_f32", label, n, lambda m=m: m, (0, 1, 2, 3),
+            lambda q, k, v, dout, heads=heads: packed_vjp(q, k, v, dout,
+                                                          heads),
+            lambda q, k, v, dout, heads=heads, wide=wide: packed_plain_bwd(
+                q, k, v, dout, heads, wide), 5 * flops // 2,
+            timed=lambda m=m, f=fwd, heads=heads: na2d.packed_backward(
+                *m[:3], *f, m[3], heads, 7),
+            library=None if wide else under_tf32(
+                True, na_library(split[:3], split[3])), reads=fwd))
+    for h, heads, e, n in ((64, 2, 64, 4), (32, 4, 64, 4), (32, 4, 32, 0)):
+        m = maps(h, heads, e)
+        label = f"{b}x{h}x{h}x{heads}x{e}"
+        flops = 4 * b * h * h * heads * e * 7 ** 2
+        specs.append(F32Spec(
+            "na2d_heads_f32", label, n, lambda m=m: m[:3], (0, 1, 2),
+            lambda q, k, v: na2d.heads_forward(q, k, v, 7, save_lse=True),
+            lambda q, k, v: (na2d.na2d_reference(q, k, v, 7),
+                             na_lse_plain(q, k, 7)), flops,
+            timed=lambda m=m: na2d.heads_forward(*m[:3], 7, save_lse=True),
+            library=under_tf32(True, na_library(m[:3])), skip=(1,)))
+        fwd = na2d.heads_forward(*m[:3], 7, save_lse=True)
+        specs.append(F32Spec(
+            "na2d_heads_bwd_f32", label, n, lambda m=m: m, (0, 1, 2, 3),
+            heads_vjp,
+            lambda q, k, v, dout: na2d.heads_reference_backward(q, k, v, dout,
+                                                                7),
+            5 * flops // 2,
+            timed=lambda m=m, f=fwd: na2d.heads_backward(*m[:3], *f, m[3], 7),
+            library=under_tf32(True, na_library(m[:3], m[3])), reads=fwd))
+    return specs
+
+
+def na_f32_bit_check(dev):
+    """Phase 27 (b): at both flagship NA levels (batch 8, cosine-sim q and
+    k, float32): K2-f32 and K11-f32 run one kernel (csrc/na_tf32.cuh), so
+    on one packed input, read by K11 as its (b, h, w, heads, 64) views,
+    they give the same out and lse bit for bit; K7-f32 and K12-f32 the
+    same dq, dk, dv; no partials and no atomics, so a rerun of each gives
+    bit-identical outputs."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 34)
+
+    def same(pair, names, got, want):
+        for name, a, b_ in zip(names, got, want):
+            a = a.reshape(b_.shape)
+            if not torch.equal(a, b_):
+                diff = (a - b_).abs().max().item()
+                raise AssertionError(f"{pair} {name} differ by {diff:.3e}")
+
+    labels = []
+    for h, c in ((64, 128), (32, 256)):
+        b, heads = SAMPLE_BATCH, c // 64
+        t = torch.randn((2, b, h, h, heads, 64), generator=g)
+        q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+            2, b, h, h, c).to(dev)
+        v, dout = torch.randn((2, b, h, h, c), generator=g).to(dev)
+        fwd = na2d.packed_forward(q, k, v, heads, 7, save_lse=True)
+        split = split_heads((q, k, v, dout), heads)
+        fwd11 = na2d.heads_forward(*split[:3], 7, save_lse=True)
+        same("K2-f32 and K11-f32", ("out", "lse"), fwd11, fwd)
+        same("K2-f32 rerun", ("out", "lse"),
+             na2d.packed_forward(q, k, v, heads, 7, save_lse=True), fwd)
+        same("K11-f32 rerun", ("out", "lse"),
+             na2d.heads_forward(*split[:3], 7, save_lse=True), fwd11)
+        k7 = na2d.packed_backward(q, k, v, *fwd, dout, heads, 7)
+        k12 = na2d.heads_backward(*split[:3], *fwd11, split[3], 7)
+        names = ("dq", "dk", "dv")
+        same("K12-f32 and K7-f32", names, k12, k7)
+        same("K7-f32 rerun", names,
+             na2d.packed_backward(q, k, v, *fwd, dout, heads, 7), k7)
+        same("K12-f32 rerun", names,
+             na2d.heads_backward(*split[:3], *fwd11, split[3], 7), k12)
+        labels.append(f"{b}x{h}x{h}x{c}")
+    print(f"NA float32 bit check [{', '.join(labels)}]: K2-f32 = K11-f32 "
+          f"(out, lse) and K7-f32 = K12-f32 (dq, dk, dv) bit for bit on one "
+          f"packed input, and a rerun of each bit-identical", flush=True)
+
+
+def na_float32_phase(KT, config, dev, smi, results, cpu_ref, bf16_reports):
+    """Phase 27: (a) the float32 NA kernels at their shapes against their
+    plain versions, timed beside them, the TF32 bound and masked SDPA on
+    float32, and against float64 beside their bf16 forms; (b) the bit
+    checks; (c) the flagship at batch 2 in float32 and in bf16 against the
+    float32 CPU side of phases 4 and 7 (``cpu_ref``), forward and
+    gradient; (d) 50-step DPM++(2M) at batch 8 in float32, (e) 3 + 20
+    training steps at batch 32, fused and unfused, each with its launch
+    counts in float32 kernels only and beside phases 5, 8 and 16's bf16
+    figures (``bf16_reports``); (f) the trainer with --mixed-precision no
+    on the flagship, its resume bit-equal; (g) config_512_hdit at full
+    size in float32 against bf16 (``f32_full_size``), and cut to 256 x 256
+    (unfused) and config_256_p8_wide (fused and unfused) against the CPU
+    (``f32_model_parity``), and 3 + 20 float32 training steps of each as
+    shipped. Returns the launch counts of the flagship's
+    float32 sampling, fused and unfused training runs."""
+    from k_diffusion_tpu_torch.models import flops
+
+    print("phase 27: float32 compute on the card (--mixed-precision no), the "
+          "neighborhood-attention configs", flush=True)
+    specs = na_f32_specs(dev)
+    with torch.no_grad():
+        run_cases(f32_cases(specs), results, 20, 2)
+        f32_tf32_check(specs)
+    del specs
+    torch.cuda.empty_cache()
+    na_f32_bit_check(dev)
+    CLOCK.part("phase 27 (a)-(b) kernels")
+
+    per_call = hdit_layout(KT, config, False)
+    f32_parity(KT, config, dev, "flagship", cpu_ref["forward"],
+               cpu_ref["gradient"], per_call,
+               hdit_layout(KT, no_dropout(config), True))
+    CLOCK.part("phase 27 (c) parity")
+
+    hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
+    f32_reports = {"sampling": {}, "training": {}, "unfused training": {}}
+    sample_counts, train_counts = f32_model_runs(
+        KT, config, dev, smi, "flagship", SAMPLE_BATCH, TRAIN_BATCH, per_call,
+        hdit_layout(KT, config, True), hdit_flops,
+        (f32_reports["sampling"], f32_reports["training"]))
+    with tf32(True), train_fusion("0"):
+        unfused_counts, _ = train(
+            KT, config, dev, smi, TRAIN_BATCH,
+            as_f32(hdit_unfused_layout(config)), hdit_flops,
+            "flagship unfused training float32", dtype=torch.float32,
+            report=f32_reports["unfused training"])
+    for what, f32 in f32_reports.items():
+        bf, call = bf16_reports[what], what == "sampling"
+        print(f"flagship {what} at batch "
+              f"{SAMPLE_BATCH if call else TRAIN_BATCH}, float32 against "
+              f"bf16 (phase {5 if call else 8 if what == 'training' else 16})"
+              f": {f32['rate']:.3f} against {bf['rate']:.3f} "
+              f"{'samples' if call else 'images'}/s (host clock); card time "
+              f"{f32['busy_ms']:.3f} against {bf['busy_ms']:.3f} ms a "
+              f"{'call' if call else 'step'} (profile); peak memory "
+              f"{f32['peak'] / 2**30:.3f} against {bf['peak'] / 2**30:.3f} "
+              f"GiB, on {smi}", flush=True)
+    CLOCK.part("phase 27 (d)-(e) sampling and training")
+
+    float32_trainer(KT, CONFIG, TRAIN_BATCH,
+                    as_f32(hdit_layout(KT, config, True)), smi)
+    CLOCK.part("phase 27 (f) trainer")
+
+    other_na_configs_f32(KT, dev, smi)
+    CLOCK.part("phase 27 (g) config_512_hdit and config_256_p8_wide")
+    return sample_counts, train_counts, unfused_counts
+
+
+def other_na_configs_f32(KT, dev, smi):
+    """Phase 27 (g): config_512_hdit at full size in float32 against bf16
+    (``f32_full_size``); config_512_hdit cut to 256 x 256 (unfused) and
+    config_256_p8_wide (fused and unfused) against the CPU
+    (``f32_model_parity``); 3 + 20 float32 training steps of each as
+    shipped."""
+    from k_diffusion_tpu_torch.models import flops
+
+    hdit_512 = no_dropout(KT.config.load_config(HDIT_512))
+    f32_full_size(KT, hdit_512, dev, HDIT_512.stem, 2)
+    # cut to 256 x 256 for the CPU side; unfused only, as f32_full_size
+    # says why (bf16's K10 at d 768)
+    cut = copy.deepcopy(hdit_512)
+    cut["model"]["input_size"] = [256, 256]
+    with train_fusion("0"):
+        f32_model_parity(KT, cut, dev, f"{HDIT_512.stem} at 256 x 256 "
+                         f"unfused", 2, 2, hdit_layout(KT, cut, False),
+                         hdit_unfused_layout(cut))
+    p8_wide = no_dropout(KT.config.load_config(P8_WIDE))
+    f32_model_parity(KT, p8_wide, dev, P8_WIDE.stem, F32_PARITY_BATCH,
+                     F32_PARITY_BATCH, hdit_layout(KT, p8_wide, False),
+                     hdit_layout(KT, p8_wide, True),
+                     hdit_unfused_layout(p8_wide))
+    for path, batch in ((HDIT_512, SAMPLE_BATCH), (P8_WIDE, TRAIN_BATCH)):
+        shipped = KT.config.load_config(path)
+        with tf32(True):
+            train(KT, shipped, dev, smi, batch,
+                  as_f32(hdit_layout(KT, shipped, True)),
+                  2 * flops.analytic_transformer_flops(shipped, 1),
+                  f"{path.stem} training float32", dtype=torch.float32)
+
+
+def f32_full_size(KT, config, dev, name, batch):
+    """Phase 27 (g): ``config`` (dropout 0) at its full size, the same
+    seeded weights in float32 on the card with TF32 on and in bf16 on the
+    card: a denoiser call (eval) and one loss's full parameter gradient,
+    unfused (KDT_TRAIN_FUSION=0) in both dtypes and fused in float32, each
+    with its launch counts in its dtype's kernels only and finite. bf16
+    takes no fused step here: its K10 takes d up to 576 and
+    config_512_hdit's 768-wide level runs its feed-forward block fused once
+    its dropout is 0. float32 within FORWARD_REL_BOUND (the call) and
+    GRAD_REL_BOUND (both gradients) relative L2 of bf16 (the call, the
+    unfused gradient), and the fused float32 gradient within
+    F32_MODEL_SHARE x that distance of the unfused float32 one. No CPU side
+    at this size: the plain neighborhood attention is dense masked
+    attention, O((h w)^2) at 128 x 128."""
+    from k_diffusion_tpu_torch.ops import kernels
+
+    g = torch.Generator().manual_seed(SEED + 33)
+    reference = KT.config.make_model(config, device="cpu", generator=g)
+    fill_zero_init(reference, g)
+    state = reference.state_dict()
+    del reference
+    x, reals, noise = (torch.randn(input_shape(config, batch), generator=g)
+                       for _ in range(3))
+    sigma = torch.linspace(0.5, 8.0, batch)
+    loss_sigma = KT.config.make_sample_density(config["model"])(
+        (batch,), stratified=(0, 1), generator=g, device="cpu")
+    runs = {"call": (hdit_layout(KT, config, False), "1"),
+            "fused step": (hdit_layout(KT, config, True), "1"),
+            "unfused step": (hdit_unfused_layout(config), "0")}
+    found = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = KT.config.make_model(config, dtype=dtype, device="cpu")
+        model.load_state_dict(state)
+        model.to(dev).eval()
+        den = KT.config.make_denoiser_wrapper(config)(model)
+        for what, (per, fusion) in runs.items():
+            if dtype == torch.bfloat16 and what == "fused step":
+                continue
+            kernels.reset_launch_counts()
+            with tf32(True), train_fusion(fusion):
+                if what == "call":
+                    with torch.no_grad():
+                        got = den(x.to(dev), sigma.to(dev))
+                else:
+                    loss = den.loss(reals.to(dev), noise.to(dev),
+                                    loss_sigma.to(dev)).mean()
+                    got = torch.cat([p.flatten() for p in torch.autograd.grad(
+                        loss, list(model.parameters()))])
+            got = got.float().cpu()
+            counts = kernels.launch_counts()
+            expected = dict.fromkeys(kernels.COUNTERS, 0) | (
+                as_f32(per) if dtype == torch.float32 else per)
+            if counts != expected:
+                raise AssertionError(f"{name} {what} ({dtype}): launch "
+                                     f"counts {counts} != {expected}")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {what} ({dtype}): not finite")
+            found[dtype, what] = got
+            model.train()
+        del model, den
+        torch.cuda.empty_cache()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    bf = lambda what: found[torch.bfloat16, what]
+    f32 = lambda what: found[torch.float32, what]
+    errs = {"call": rel(f32("call"), bf("call")),
+            "fused": rel(f32("fused step"), bf("unfused step")),
+            "unfused": rel(f32("unfused step"), bf("unfused step")),
+            "routes": rel(f32("fused step"), f32("unfused step"))}
+    print(f"{name} float32 at full size ({tuple(x.shape)}), dropout 0, "
+          f"against bf16 on the card, same weights and inputs: relative L2 "
+          f"call {errs['call']:.3e} (bound {FORWARD_REL_BOUND}); gradient "
+          f"of {f32('fused step').numel()} params, against bf16's unfused: "
+          f"float32 fused {errs['fused']:.3e}, unfused {errs['unfused']:.3e} "
+          f"(bound {GRAD_REL_BOUND}), float32 fused against float32 unfused "
+          f"{errs['routes']:.3e} (bound {F32_MODEL_SHARE} x "
+          f"{errs['unfused']:.3e}); launches in each dtype's kernels only, "
+          f"float32: call {as_f32(runs['call'][0])}, fused step "
+          f"{as_f32(runs['fused step'][0])}, unfused step "
+          f"{as_f32(runs['unfused step'][0])}", flush=True)
+    if not (errs["call"] <= FORWARD_REL_BOUND
+            and max(errs["fused"], errs["unfused"]) <= GRAD_REL_BOUND
+            and errs["routes"] <= F32_MODEL_SHARE * errs["unfused"]):
+        raise AssertionError(f"{name} float32 against bf16: {errs}")
 
 
 def forward_flops(KT, config, name="unet", **cond):
@@ -4182,12 +4706,13 @@ def no_dropout(config):
     return dict(config, model=model)
 
 
-def grad_parity(KT, config, dev, fill, name, **cond):
+def grad_parity(KT, config, dev, fill, name, keep=None, **cond):
     """Phases 7, 12, 16 and 17: one step's loss and full parameter gradient,
     bf16 on the card against f32 on the CPU, from the same weights, reals,
     noise, sigmas and ``cond`` (batch 2). Dropout is off: the two devices'
     generators draw different masks. Returns the launch counts of the
-    card's step."""
+    card's step. ``keep``, where given, receives the CPU side: the
+    weights, the draws, the loss and the gradient."""
     from k_diffusion_tpu_torch.ops import kernels
 
     config = no_dropout(config)
@@ -4215,6 +4740,9 @@ def grad_parity(KT, config, dev, fill, name, **cond):
     counts = kernels.launch_counts()  # the CPU side launches nothing
     (loss, got), (ref_loss, want) = grads
     rel = ((got - want).norm() / want.norm()).item()
+    if keep is not None:
+        keep.update(state=reference.state_dict(), reals=reals, noise=noise,
+                    sigma=sigma, loss=ref_loss, grad=want, bf16=rel)
     if not (rel <= GRAD_REL_BOUND and torch.isfinite(got).all()):
         raise AssertionError(f"{name}: relative L2 error {rel:.3e} "
                              f"> {GRAD_REL_BOUND}")
@@ -4268,9 +4796,10 @@ def hdit_layout(KT, config, training):
 
 
 def hdit_unfused_layout(config):
-    """The flagship's kernel launches per training step with
-    KDT_TRAIN_FUSION=0: the NA levels through K11/K12, the global level
-    through K3/K9, the mapping network through K5; the prologue and the
+    """An HDiT config's kernel launches per training step with
+    KDT_TRAIN_FUSION=0, for neighborhood levels under one global level
+    (the flagship, config_512_hdit, config_256_p8_wide): the NA levels
+    through K11/K12, the global level through K3/K9, the mapping network through K5; the prologue and the
     feed-forward blocks unfused (no K1/K4/K6/K10), no K2/K7/K8."""
     levels = config["model"]["depths"]
     na = 2 * sum(levels[:-1])
@@ -4281,7 +4810,7 @@ def hdit_unfused_layout(config):
 
 def train(KT, config, dev, smi, batch, per_step, fwd_flops, name,
           dtype=torch.bfloat16, report=None):
-    """Phases 8, 12, 16 and 25: the config as it is (dropout on) at
+    """Phases 8, 12, 16 and 25-27: the config as it is (dropout on) at
     ``batch``, computing in ``dtype``, on seeded synthetic reals (and a
     seeded aug_cond where the model takes one) through
     training.make_train_step; launch counts ``per_step`` per step.

@@ -161,11 +161,12 @@ def card_dtypes(config):
     """(the compute dtypes a config's model takes on the card, the kernels
     that keep it from float32 or None), the answer its constructor gives:
     the U-Net and the ViT take bfloat16 and float32; the HDiT float32 too
-    unless a level runs neighborhood attention."""
+    unless a neighborhood level has head dim 128."""
     module = model_module(config)
     if config["model"]["type"] == "image_transformer_v2":
         return module.card_dtypes(
-            attn["type"] for attn in config["model"]["self_attns"])
+            attn.get("d_head", 64) for attn in config["model"]["self_attns"]
+            if attn["type"] == "neighborhood")
     return utils.device.CARD_DTYPES, None
 
 

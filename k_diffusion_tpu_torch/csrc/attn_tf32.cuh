@@ -1,14 +1,19 @@
-// Exact global softmax attention in float32 on (b, s, heads, e) q, k, v:
-// the forward with its logsumexp (K13 in f32) and the backward (K14 in
-// f32), the kernels of --mixed-precision no.
+// Exact softmax attention in float32, the kernels of --mixed-precision no:
+// the forward with its logsumexp and the two-kernel backward, as bodies
+// over a geometry policy (below, before fwd_body). Over wg::Seq they are
+// K13 and K14 in f32 (flash.cu) and K3 and K9 in f32 (global_packed.cu),
+// the dense kernels below; over na2d.cuh's NaQueries and NaKeys they are
+// K2 and K7 in f32 (na2d.cu) and K11 and K12 in f32 (na2d_heads.cu), the
+// kernels of na_tf32.cuh.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/flash.py:_fwd_kernel,
 // :_dq_kernel and :_dkv_kernel as they run on f32 operands (the JAX model
-// built with dtype=float32): f32 dots with f32 accumulation, p / l in f32.
-// Here every product runs on the TF32 tensor cores (operands rounded to
-// TF32 by cvt.rna, 10 mantissa bits) with f32 accumulation, as PyTorch's
-// float32 training does with TF32 on; the softmax, its rescales, lse and
-// delta stay in f32.
+// built with dtype=float32): f32 dots with f32 accumulation, p / l in f32;
+// na_tf32.cuh says what the neighborhood kernels replace. Here every
+// product runs on the TF32 tensor cores (operands rounded to TF32 by
+// cvt.rna, 10 mantissa bits) with f32 accumulation, as PyTorch's float32
+// training does with TF32 on; the softmax, its rescales, lse and delta
+// stay in f32.
 //
 // What bounds it on the H100, cifar10 U-Net at batch 64 (s = 256, 4 heads,
 // head dim 64): the forward does 4 s^2 64 FLOP per image and head, 4.3
@@ -20,8 +25,9 @@
 // mma.sync m16n8k8 (tf32 x tf32 -> f32). A block is 4 warps and owns 64
 // rows of one head of one image (grid: row tiles, heads, batch); a warp
 // owns 16 of them. The other operand streams through shared memory in
-// 64-row f32 tiles, two stages filled by 16-byte cp.async (rows past s
-// zero-filled by the copy's source size), one commit group per tile pair.
+// 64-row f32 tiles, two stages filled by 16-byte cp.async (rows the
+// geometry marks as not ok, past s or past a halo, zero-filled by the
+// copy's source size), one commit group per tile pair.
 // Tiles keep the rows as they lie in memory, padded to E + 4 floats a row,
 // so that every fragment load below is one conflict-free 32-bit shared
 // load, in whichever orientation a product needs:
@@ -40,7 +46,10 @@
 // reduced over the quad of threads that holds a row. The backward's dq
 // kernel also computes delta = rowsum(out * dout), which the JAX package
 // computes outside its kernels, and writes it for the dk/dv kernel; no
-// atomics, so a rerun is bit-equal.
+// atomics, so a rerun is bit-equal. Over Seq the bodies do what the dense
+// kernels did before they took a geometry: the same products in the same
+// order (a row of global attention always has a key in the first tile, so
+// the forward's guard for rows with none never changes a value).
 //
 // At E = 64 the forward holds 5 tiles (85 KB), each backward kernel 6
 // (102 KB): two blocks an SM. A simple design; making it fast is later work
@@ -80,17 +89,21 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Starts the copy of rows [r0, r0 + 64) of one head's (s, E) slice (row
-// stride ld, `base` at row 0 of the head) into a padded tile; rows at or
-// past s are zero-filled.
-template <int E>
-__device__ __forceinline__ void load_tile(float* tile, const float* base, long ld, int r0, int s) {
+// Starts the copy of a padded (64, E) f32 tile whose row r is the E-wide
+// row of head `head` of image `img` at map position pos(r) of `base`
+// (strides st), rows gathered from anywhere in the map; rows whose
+// position is not ok are zero-filled.
+template <int E, class RowPos>
+__device__ __forceinline__ void load_tile(float* tile, const float* base, const MapStrides& st,
+                                          int img, int head, const RowPos& pos) {
   constexpr int CH = E / 4;  // 16-byte chunks per row
   const uint32_t dst = wg::smem_u32(tile);
+  const long head0 = st.at(img, 0, 0, head, E);
   for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
     const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < s;
-    wg::cp_async16(dst + (r * LD<E> + c * 4) * 4, ok ? base + (r0 + r) * ld + c * 4 : base, ok);
+    const wg::Pos p = pos(r);
+    const long off = head0 + p.y * st.y + p.x * st.x + c * 4;
+    wg::cp_async16(dst + (r * LD<E> + c * 4) * 4, p.ok ? base + off : base, p.ok);
   }
 }
 
@@ -146,23 +159,24 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
   for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 }
 
-// Writes a warp's 16 x E accumulator to rows [r0, r0 + 16) of a contiguous
-// (b, s, heads, E) tensor at `out` (row 0 of the head in its image: stride
-// heads E a row), rows r0 + g times mul0 and rows r0 + g + 8 times mul1;
-// rows at or past s are skipped.
-template <int E>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[E / 8][4], int r0,
-                                           int s, int n_heads, float mul0, float mul1) {
+// Writes a warp's 16 x E accumulator, rows m0 + g and m0 + g + 8 of the
+// block's own rows (times mul0 and mul1), to their map positions pos(row)
+// of head `head` of image `img` in `out` (strides st); rows whose position
+// is not ok are skipped.
+template <int E, class RowPos>
+__device__ __forceinline__ void store_rows(float* out, const MapStrides& st, int img, int head,
+                                           const float (&acc)[E / 8][4], int m0,
+                                           const RowPos& pos, float mul0, float mul1) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const long ld = static_cast<long>(n_heads) * E;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    if (r >= s) continue;
+    const wg::Pos p = pos(m0 + g + 8 * h);
+    if (!p.ok) continue;
+    float* row = out + st.at(img, p.y, p.x, head, E);
     const float mul = h ? mul1 : mul0;
 #pragma unroll
     for (int n = 0; n < E / 8; ++n)
-      *reinterpret_cast<float2*>(out + r * ld + 8 * n + 2 * t) =
+      *reinterpret_cast<float2*>(row + 8 * n + 2 * t) =
           make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
   }
 }
@@ -176,46 +190,65 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The operands of a launch: q, k, v (b, s, heads, E) f32 through the
-// strides `in`; out (the forward's output, which the backward reads), dout,
-// dq, dk, dv (b, s, heads, E) f32 contiguous; lse and delta (b, heads, s)
-// f32.
+// The operands of a launch: q, k and v read through sq, sk and sv, head h
+// at column h * E (K11's v is a strided third of a projection); out (the
+// forward's output, which the backward reads), dout, dq, dk and dv through
+// io; lse and delta (b, heads, positions) f32.
 struct Args {
   const float *q, *k, *v, *dout;
   float *out, *lse, *delta, *dq, *dk, *dv;
-  Rows in;
-  int s, n_heads;
+  MapStrides sq, sk, sv, io;
+  int n_heads;
   float scale;
 };
 
-// The forward: a block's 64 query rows against every key tile; O / l to
-// a.out and, when a.lse is not null, lse = max + log(sum) of each row's
-// scaled logits, natural log.
-template <int E>
-__global__ void __launch_bounds__(128) tf32_fwd_kernel(const Args a) {
+// Which rows a block owns, which 64-row tiles stream past them and which
+// pairs attend is the geometry G, a template policy of the three bodies
+// below (wgmma.cuh's Seq for global attention, whose comment lists the
+// members; na2d.cuh's NaQueries and NaKeys for neighborhood attention,
+// na_tf32.cuh), as for the bf16 bodies of attn_fwd.cuh and attn_bwd.cuh.
+// Each row is copied from its map position through its tensor's strides;
+// the mask is tested on the logits' accumulator coordinates (row 16 warp +
+// g (+ 8), column 8 n + 2 t (+ 1) of the streamed tile), before p becomes
+// the next product's A operand, whose keys are permuted within each 8-key
+// group.
+
+// The forward: the block's 64 own (query) rows against every streamed
+// (key) tile; O / l to a.out and, when a.lse is not null, lse = max +
+// log(sum) of each row's scaled logits, natural log. A row none of whose
+// keys has streamed past yet keeps m = -inf and takes 0 as its reference,
+// so that p and alpha are 2^-inf = 0 and not NaN (attn_fwd.cuh's guard: in
+// neighborhood attention a query tile's first halo tile misses the windows
+// of its lower rows, the last one those of its upper rows).
+template <int E, class G>
+__device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;
   float* s_kv = smem + TILE<E>;  // stage st: K at 2 st TILE, V after it
-  const int tile = blockIdx.x, head = blockIdx.y, img = blockIdx.z, s = a.s;
+  const int head = blockIdx.y, img = blockIdx.z;
   const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const long off = img * a.in.batch + static_cast<long>(head) * E;
-  const float *q = a.q + off, *k = a.k + off, *v = a.v + off;
-  const int n_tiles = (s + ROWS - 1) / ROWS;
+  const int n_tiles = geo.tiles;
   const float scale = a.scale * LOG2E;
+  const auto own = [&](int i) { return geo.own(i); };
+  const auto load_kv = [&](int j, float* kv) {
+    const auto row = [&](int i) { return geo.stream(j, i); };
+    load_tile<E>(kv, a.k, a.sk, img, head, row);
+    load_tile<E>(kv + TILE<E>, a.v, a.sv, img, head, row);
+  };
 
-  load_tile<E>(s_q, q, a.in.seq, tile * ROWS, s);
-  load_tile<E>(s_kv, k, a.in.seq, 0, s);
-  load_tile<E>(s_kv + TILE<E>, v, a.in.seq, 0, s);
+  load_tile<E>(s_q, a.q, a.sq, img, head, own);
+  load_kv(0, s_kv);
   wg::cp_async_commit();
 
+  typename G::Info info[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(16 * warp + g + 8 * h);
   float acc_o[E / 8][4];
   zero(acc_o);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {
-      float* next = s_kv + 2 * ((j + 1) & 1) * TILE<E>;
-      load_tile<E>(next, k, a.in.seq, (j + 1) * ROWS, s);
-      load_tile<E>(next + TILE<E>, v, a.in.seq, (j + 1) * ROWS, s);
+      load_kv(j + 1, s_kv + 2 * ((j + 1) & 1) * TILE<E>);
       wg::cp_async_commit();
       wg::cp_async_wait<1>();
     } else {
@@ -226,20 +259,23 @@ __global__ void __launch_bounds__(128) tf32_fwd_kernel(const Args a) {
     float acc_s[8][4];
     zero(acc_s);
     mma_nt<E>(acc_s, s_q, 16 * warp, s_k);
-    // scaled logits, keys past s masked; each row's running max
+    // scaled logits, pairs that do not attend (zero-filled slots included:
+    // their logit is 0) at -inf; each row's running max
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int col = j * ROWS + 8 * n + 2 * t + (i & 1);
-        acc_s[n][i] = col < s ? acc_s[n][i] * scale : -INFINITY;
+        const bool on = geo.mask(j, 8 * n + 2 * t + (i & 1), info[i >> 1]);
+        acc_s[n][i] = on ? acc_s[n][i] * scale : -INFINITY;
         mx[i >> 1] = fmaxf(mx[i >> 1], acc_s[n][i]);
       }
+    float ref[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = quad_max(mx[h]);
-      const float alpha = exp2f(m[h] - mx[h]);  // 0 on the first tile
+      ref[h] = mx[h] == -INFINITY ? 0.f : mx[h];
+      const float alpha = exp2f(m[h] - ref[h]);  // 0 until the row has a key
       m[h] = mx[h];
       l[h] *= alpha;
 #pragma unroll
@@ -252,83 +288,86 @@ __global__ void __launch_bounds__(128) tf32_fwd_kernel(const Args a) {
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        acc_s[n][i] = exp2f(acc_s[n][i] - m[i >> 1]);
+        acc_s[n][i] = exp2f(acc_s[n][i] - ref[i >> 1]);
         l[i >> 1] += acc_s[n][i];
       }
     mma_pv<E>(acc_o, acc_s, s_k + TILE<E>);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  const int r0 = tile * ROWS + 16 * warp;
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
-  float* o = a.out + (static_cast<long>(img) * s) * a.n_heads * E + static_cast<long>(head) * E;
-  store_rows<E>(o, acc_o, r0, s, a.n_heads, 1.f / l[0], 1.f / l[1]);
+  store_rows<E>(a.out, a.io, img, head, acc_o, 16 * warp, own, 1.f / l[0], 1.f / l[1]);
   if (a.lse != nullptr && t == 0) {
-    float* lse = a.lse + (static_cast<long>(img) * a.n_heads + head) * s;
+    float* lse = a.lse + (static_cast<long>(img) * a.n_heads + head) * geo.positions;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (r0 + g + 8 * h < s) lse[r0 + g + 8 * h] = (m[h] + __log2f(l[h])) * LN2;
+    for (int h = 0; h < 2; ++h) {
+      const wg::Pos p = geo.own(16 * warp + g + 8 * h);
+      if (p.ok) lse[geo.index(p)] = (m[h] + __log2f(l[h])) * LN2;
+    }
   }
 }
 
-// The backward's dq kernel: a block's 64 query rows against every key tile.
-// It first forms delta = rowsum(out * dout) for its rows (written to
-// a.delta for the dk/dv kernel), then dq = scale sum_j dS_j K_j with dS =
-// P (dP - delta), P = exp(logits - lse), dP = dO V^T.
-template <int E>
-__global__ void __launch_bounds__(128) tf32_dq_kernel(const Args a) {
+// The backward's dq kernel: the block's 64 own (query) rows against every
+// streamed (key) tile. It first forms delta = rowsum(out * dout) for its
+// rows (written to a.delta for the dk/dv kernel), then dq = scale sum_j dS_j
+// K_j with dS = P (dP - delta), P = exp(logits - lse) where the pair
+// attends (else 0), dP = dO V^T.
+template <int E, class G>
+__device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;
   float* s_do = smem + TILE<E>;
   float* s_kv = smem + 2 * TILE<E>;
   float* s_stat = smem + 6 * TILE<E>;  // lse log2 e, then delta, of the own rows
-  const int tile = blockIdx.x, head = blockIdx.y, img = blockIdx.z, s = a.s;
+  const int head = blockIdx.y, img = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long off = img * a.in.batch + static_cast<long>(head) * E;
-  const float *q = a.q + off, *k = a.k + off, *v = a.v + off;
-  const long ld = static_cast<long>(a.n_heads) * E;  // row stride of out, dout, dq
-  const long off_c = static_cast<long>(img) * s * ld + static_cast<long>(head) * E;
-  const int n_tiles = (s + ROWS - 1) / ROWS;
+  const int n_tiles = geo.tiles;
   const float scale = a.scale * LOG2E;
+  const auto own = [&](int i) { return geo.own(i); };
+  const auto load_kv = [&](int j, float* kv) {
+    const auto row = [&](int i) { return geo.stream(j, i); };
+    load_tile<E>(kv, a.k, a.sk, img, head, row);
+    load_tile<E>(kv + TILE<E>, a.v, a.sv, img, head, row);
+  };
 
-  load_tile<E>(s_q, q, a.in.seq, tile * ROWS, s);
-  load_tile<E>(s_do, a.dout + off_c, ld, tile * ROWS, s);
-  load_tile<E>(s_kv, k, a.in.seq, 0, s);
-  load_tile<E>(s_kv + TILE<E>, v, a.in.seq, 0, s);
+  load_tile<E>(s_q, a.q, a.sq, img, head, own);
+  load_tile<E>(s_do, a.dout, a.io, img, head, own);
+  load_kv(0, s_kv);
   wg::cp_async_commit();
 
   // delta and lse of the warp's 16 rows, one row at a time over the warp
-  const long stat = (static_cast<long>(img) * a.n_heads + head) * s;
+  const long stat = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
   for (int i = 0; i < 16; ++i) {
-    const int r = tile * ROWS + 16 * warp + i;
+    const wg::Pos p = geo.own(16 * warp + i);
     float d = 0.f;
-    if (r < s) {
-      const float* o_row = a.out + off_c + r * ld;
-      const float* do_row = a.dout + off_c + r * ld;
+    if (p.ok) {
+      const long at = a.io.at(img, p.y, p.x, head, E);
+      const float* o_row = a.out + at;
+      const float* do_row = a.dout + at;
       for (int c = lane; c < E; c += 32) d += o_row[c] * do_row[c];
     }
     d = warp_sum(d);
     if (lane == 0) {
-      s_stat[16 * warp + i] = r < s ? a.lse[stat + r] * LOG2E : 0.f;
+      s_stat[16 * warp + i] = p.ok ? a.lse[stat + geo.index(p)] * LOG2E : 0.f;
       s_stat[ROWS + 16 * warp + i] = d;
-      if (r < s) a.delta[stat + r] = d;
+      if (p.ok) a.delta[stat + geo.index(p)] = d;
     }
   }
   __syncwarp();
   float lse[2], delta[2];
+  typename G::Info info[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     lse[h] = s_stat[16 * warp + g + 8 * h];
     delta[h] = s_stat[ROWS + 16 * warp + g + 8 * h];
+    info[h] = geo.own_info(16 * warp + g + 8 * h);
   }
 
   float acc_dq[E / 8][4];
   zero(acc_dq);
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {
-      float* next = s_kv + 2 * ((j + 1) & 1) * TILE<E>;
-      load_tile<E>(next, k, a.in.seq, (j + 1) * ROWS, s);
-      load_tile<E>(next + TILE<E>, v, a.in.seq, (j + 1) * ROWS, s);
+      load_kv(j + 1, s_kv + 2 * ((j + 1) & 1) * TILE<E>);
       wg::cp_async_commit();
       wg::cp_async_wait<1>();
     } else {
@@ -346,65 +385,67 @@ __global__ void __launch_bounds__(128) tf32_dq_kernel(const Args a) {
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int col = j * ROWS + 8 * n + 2 * t + (i & 1);
-        const float p = col < s ? exp2f(acc_s[n][i] * scale - lse[i >> 1]) : 0.f;
+        const bool on = geo.mask(j, 8 * n + 2 * t + (i & 1), info[i >> 1]);
+        const float p = on ? exp2f(acc_s[n][i] * scale - lse[i >> 1]) : 0.f;
         acc_s[n][i] = p * (acc_dp[n][i] - delta[i >> 1]);  // dS
       }
     mma_pv<E>(acc_dq, acc_s, s_k);
     __syncthreads();
   }
-  store_rows<E>(a.dq + off_c, acc_dq, tile * ROWS + 16 * warp, s, a.n_heads, a.scale, a.scale);
+  store_rows<E>(a.dq, a.io, img, head, acc_dq, 16 * warp, own, a.scale, a.scale);
 }
 
-// The backward's dk/dv kernel: a block's 64 key rows against every query
-// tile, in the transposed products: S^T = K Q^T, P^T = exp(S^T - lse),
-// dP^T = V dO^T, dS^T = P^T (dP^T - delta); dv = sum_i P^T dO, dk = scale
-// sum_i dS^T Q. lse and delta of each query tile are staged in shared
-// memory beside it.
-template <int E>
-__global__ void __launch_bounds__(128) tf32_dkv_kernel(const Args a) {
+// The backward's dk/dv kernel: the block's 64 own (key) rows against every
+// streamed (query) tile, in the transposed products: S^T = K Q^T, P^T =
+// exp(S^T - lse) where the pair attends (else 0), dP^T = V dO^T, dS^T = P^T
+// (dP^T - delta); dv = sum_i P^T dO, dk = scale sum_i dS^T Q. lse and delta
+// of each streamed tile are staged in shared memory beside it (0 for slots
+// that hold no row: the geometry, not their values, rejects them).
+template <int E, class G>
+__device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
   extern __shared__ __align__(16) float smem[];
   float* s_k = smem;
   float* s_v = smem + TILE<E>;
   float* s_qd = smem + 2 * TILE<E>;   // stage st: Q at 2 st TILE, dO after it
-  float* s_stat = smem + 6 * TILE<E>;  // lse log2 e, then delta, of the query tile
-  const int tile = blockIdx.x, head = blockIdx.y, img = blockIdx.z, s = a.s;
-  const int warp = threadIdx.x / 32, t = threadIdx.x & 3;
-  const long off = img * a.in.batch + static_cast<long>(head) * E;
-  const float *q = a.q + off, *k = a.k + off, *v = a.v + off;
-  const long ld = static_cast<long>(a.n_heads) * E;
-  const long off_c = static_cast<long>(img) * s * ld + static_cast<long>(head) * E;
-  const float* dout = a.dout + off_c;
-  const long stat = (static_cast<long>(img) * a.n_heads + head) * s;
-  const int n_tiles = (s + ROWS - 1) / ROWS;
+  float* s_stat = smem + 6 * TILE<E>;  // lse log2 e, then delta, of the streamed tile
+  const int head = blockIdx.y, img = blockIdx.z;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const long stat = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
+  const int n_tiles = geo.tiles;
   const float scale = a.scale * LOG2E;
+  const auto own = [&](int i) { return geo.own(i); };
+  const auto load_qd = [&](int j, float* qd) {
+    const auto row = [&](int i) { return geo.stream(j, i); };
+    load_tile<E>(qd, a.q, a.sq, img, head, row);
+    load_tile<E>(qd + TILE<E>, a.dout, a.io, img, head, row);
+  };
 
-  load_tile<E>(s_k, k, a.in.seq, tile * ROWS, s);
-  load_tile<E>(s_v, v, a.in.seq, tile * ROWS, s);
-  load_tile<E>(s_qd, q, a.in.seq, 0, s);
-  load_tile<E>(s_qd + TILE<E>, dout, ld, 0, s);
+  load_tile<E>(s_k, a.k, a.sk, img, head, own);
+  load_tile<E>(s_v, a.v, a.sv, img, head, own);
+  load_qd(0, s_qd);
   wg::cp_async_commit();
 
+  typename G::Info info[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(16 * warp + g + 8 * h);
   float acc_dk[E / 8][4], acc_dv[E / 8][4];
   zero(acc_dk);
   zero(acc_dv);
-  for (int i0 = 0; i0 < n_tiles; ++i0) {
-    if (i0 + 1 < n_tiles) {
-      float* next = s_qd + 2 * ((i0 + 1) & 1) * TILE<E>;
-      load_tile<E>(next, q, a.in.seq, (i0 + 1) * ROWS, s);
-      load_tile<E>(next + TILE<E>, dout, ld, (i0 + 1) * ROWS, s);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_qd(j + 1, s_qd + 2 * ((j + 1) & 1) * TILE<E>);
       wg::cp_async_commit();
       wg::cp_async_wait<1>();
     } else {
       wg::cp_async_wait<0>();
     }
     if (threadIdx.x < ROWS) {
-      const int r = i0 * ROWS + threadIdx.x;
-      s_stat[threadIdx.x] = r < s ? a.lse[stat + r] * LOG2E : 0.f;
-      s_stat[ROWS + threadIdx.x] = r < s ? a.delta[stat + r] : 0.f;
+      const wg::Pos p = geo.stream(j, threadIdx.x);
+      s_stat[threadIdx.x] = p.ok ? a.lse[stat + geo.index(p)] * LOG2E : 0.f;
+      s_stat[ROWS + threadIdx.x] = p.ok ? a.delta[stat + geo.index(p)] : 0.f;
     }
     __syncthreads();
-    const float* s_q = s_qd + 2 * (i0 & 1) * TILE<E>;
+    const float* s_q = s_qd + 2 * (j & 1) * TILE<E>;
     const float* s_do = s_q + TILE<E>;
     float acc_s[8][4], acc_dp[8][4];
     zero(acc_s);
@@ -417,17 +458,16 @@ __global__ void __launch_bounds__(128) tf32_dkv_kernel(const Args a) {
       for (int i = 0; i < 4; ++i) {
         const int c = 8 * n + 2 * t + (i & 1);  // the query's row in the tile
         const float p =
-            i0 * ROWS + c < s ? exp2f(acc_s[n][i] * scale - s_stat[c]) : 0.f;
-        acc_s[n][i] = p;                                   // P^T
+            geo.mask(j, c, info[i >> 1]) ? exp2f(acc_s[n][i] * scale - s_stat[c]) : 0.f;
+        acc_s[n][i] = p;                                       // P^T
         acc_dp[n][i] = p * (acc_dp[n][i] - s_stat[ROWS + c]);  // dS^T
       }
     mma_pv<E>(acc_dv, acc_s, s_do);
     mma_pv<E>(acc_dk, acc_dp, s_q);
     __syncthreads();
   }
-  const int r0 = tile * ROWS + 16 * warp;
-  store_rows<E>(a.dk + off_c, acc_dk, r0, s, a.n_heads, a.scale, a.scale);
-  store_rows<E>(a.dv + off_c, acc_dv, r0, s, a.n_heads, 1.f, 1.f);
+  store_rows<E>(a.dk, a.io, img, head, acc_dk, 16 * warp, own, a.scale, a.scale);
+  store_rows<E>(a.dv, a.io, img, head, acc_dv, 16 * warp, own, 1.f, 1.f);
 }
 
 template <int E>
@@ -435,25 +475,56 @@ constexpr size_t FWD_SMEM = 5 * TILE<E> * sizeof(float);
 template <int E>
 constexpr size_t BWD_SMEM = (6 * TILE<E> + 2 * ROWS) * sizeof(float);
 
+// The dense kernels (K13 and K3 in f32, K14 and K9 in f32): a block owns
+// rows [64 blockIdx.x, 64 blockIdx.x + 64) of the sequence (wg::Seq) and
+// every 64-row tile streams past them.
 template <int E>
-int launch_fwd(const Args& a, int b, cudaStream_t st) {
-  const dim3 grid((a.s + ROWS - 1) / ROWS, a.n_heads, b);
+__global__ void __launch_bounds__(128) tf32_fwd_kernel(const Args a, int s) {
+  fwd_body<E>(a, wg::Seq(blockIdx.x, s));
+}
+
+template <int E>
+__global__ void __launch_bounds__(128) tf32_dq_kernel(const Args a, int s) {
+  dq_body<E>(a, wg::Seq(blockIdx.x, s));
+}
+
+template <int E>
+__global__ void __launch_bounds__(128) tf32_dkv_kernel(const Args a, int s) {
+  dkv_body<E>(a, wg::Seq(blockIdx.x, s));
+}
+
+// A dense launch's strides: q, k and v through `in` (head h at column h *
+// E), out, dout, dq, dk and dv (b, s, heads, E) contiguous.
+template <int E>
+Args dense(Args a, Rows in, int s) {
+  const long ld = static_cast<long>(a.n_heads) * E;
+  a.sq = a.sk = a.sv = MapStrides{in.batch, in.seq, 0};
+  a.io = MapStrides{s * ld, ld, 0};
+  return a;
+}
+
+// The forward on q, k, v read through `in`; any s >= 1.
+template <int E>
+int launch_fwd(const Args& args, Rows in, int b, int s, cudaStream_t st) {
+  const Args a = dense<E>(args, in, s);
+  const dim3 grid((s + ROWS - 1) / ROWS, a.n_heads, b);
   const cudaError_t attr = allow_smem(tf32_fwd_kernel<E>, FWD_SMEM<E>);
-  tf32_fwd_kernel<E><<<grid, 128, FWD_SMEM<E>, st>>>(a);
+  tf32_fwd_kernel<E><<<grid, 128, FWD_SMEM<E>, st>>>(a, s);
   return launch_status(attr);
 }
 
 // The dq kernel (which writes delta), then the dk/dv kernel on the same
 // stream.
 template <int E>
-int launch_bwd(const Args& a, int b, cudaStream_t st) {
-  const dim3 grid((a.s + ROWS - 1) / ROWS, a.n_heads, b);
+int launch_bwd(const Args& args, Rows in, int b, int s, cudaStream_t st) {
+  const Args a = dense<E>(args, in, s);
+  const dim3 grid((s + ROWS - 1) / ROWS, a.n_heads, b);
   cudaError_t attr = allow_smem(tf32_dq_kernel<E>, BWD_SMEM<E>);
-  tf32_dq_kernel<E><<<grid, 128, BWD_SMEM<E>, st>>>(a);
+  tf32_dq_kernel<E><<<grid, 128, BWD_SMEM<E>, st>>>(a, s);
   const int status = launch_status(attr);
   if (status != 0) return status;
   attr = allow_smem(tf32_dkv_kernel<E>, BWD_SMEM<E>);
-  tf32_dkv_kernel<E><<<grid, 128, BWD_SMEM<E>, st>>>(a);
+  tf32_dkv_kernel<E><<<grid, 128, BWD_SMEM<E>, st>>>(a, s);
   return launch_status(attr);
 }
 

@@ -84,14 +84,12 @@ extern "C" int kdt_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   a.v = static_cast<const float*>(v);
   a.out = static_cast<float*>(out);
   a.lse = static_cast<float*>(lse);
-  a.in = Rows{stride_b, stride_s};
-  a.s = s;
   a.n_heads = n_heads;
   a.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (e) {
-    case 32: return tf32::launch_fwd<32>(a, b, st);
-    case 64: return tf32::launch_fwd<64>(a, b, st);
+    case 32: return tf32::launch_fwd<32>(a, Rows{stride_b, stride_s}, b, s, st);
+    case 64: return tf32::launch_fwd<64>(a, Rows{stride_b, stride_s}, b, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -113,14 +111,12 @@ extern "C" int kdt_flash_bwd_f32(const void* q, const void* k, const void* v, co
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
-  a.in = Rows{stride_b, stride_s};
-  a.s = s;
   a.n_heads = n_heads;
   a.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (e) {
-    case 32: return tf32::launch_bwd<32>(a, b, st);
-    case 64: return tf32::launch_bwd<64>(a, b, st);
+    case 32: return tf32::launch_bwd<32>(a, Rows{stride_b, stride_s}, b, s, st);
+    case 64: return tf32::launch_bwd<64>(a, Rows{stride_b, stride_s}, b, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -70,11 +70,9 @@ extern "C" int kdt_global_packed_f32(const void* q, const void* k, const void* v
   a.v = static_cast<const float*>(v);
   a.out = static_cast<float*>(out);
   a.lse = static_cast<float*>(lse);
-  a.in = Rows{s * c, c};
-  a.s = s;
   a.n_heads = n_heads;
   a.scale = scale;
-  return tf32::launch_fwd<E>(a, b, static_cast<cudaStream_t>(stream));
+  return tf32::launch_fwd<E>(a, Rows{s * c, c}, b, s, static_cast<cudaStream_t>(stream));
 }
 
 // K9 in float32: kdt_global_packed_bwd's contract with q, k, v, out, dout,
@@ -95,11 +93,9 @@ extern "C" int kdt_global_packed_bwd_f32(const void* q, const void* k, const voi
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
-  a.in = Rows{s * c, c};
-  a.s = s;
   a.n_heads = n_heads;
   a.scale = scale;
-  return tf32::launch_bwd<E>(a, b, static_cast<cudaStream_t>(stream));
+  return tf32::launch_bwd<E>(a, Rows{s * c, c}, b, s, static_cast<cudaStream_t>(stream));
 }
 
 KDT_DEFINE_ERROR_STRING

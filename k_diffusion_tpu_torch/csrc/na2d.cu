@@ -23,9 +23,14 @@
 // for q, k and v: no head-masked matmuls, heads a grid dimension. In
 // training it also writes each query's logsumexp, max + log(sum), for the
 // backward.
+//
+// The float32 forms of K2 and K7 (--mixed-precision no) are na_tf32.cuh's
+// TF32 kernels, which K11 and K12 run in float32 too: the same contract on
+// f32 maps. K8 has no float32 form yet (no model path runs it).
 #include "na2d.cuh"
 #include "na_bwd.cuh"
 #include "na_fwd.cuh"
+#include "na_tf32.cuh"
 
 namespace kdt {
 namespace {
@@ -115,6 +120,50 @@ extern "C" int kdt_na2d_overlap_add(const void* dk_part, const void* dv_part, vo
       static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, w, n_heads, ks);
   return launch_status(cudaSuccess);
+}
+
+namespace {
+
+tf32::Args packed_f32(const void* q, const void* k, const void* v, void* out, void* lse, int h,
+                      int w, int n_heads, float scale) {
+  const long c = static_cast<long>(n_heads) * E;
+  const MapStrides packed{h * w * c, w * c, c};
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.sq = a.sk = a.sv = a.io = packed;
+  a.n_heads = n_heads;
+  a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+// K2 in float32: kdt_na2d_packed's contract with q, k, v and out f32.
+extern "C" int kdt_na2d_packed_f32(const void* q, const void* k, const void* v, void* out,
+                                   void* lse, int b, int h, int w, int n_heads, int ks,
+                                   float scale, void* stream) {
+  return na_tf32::launch_fwd<E>(packed_f32(q, k, v, out, lse, h, w, n_heads, scale), b,
+                                       h, w, ks, static_cast<cudaStream_t>(stream));
+}
+
+// K7 in float32: kdt_na2d_packed_bwd's contract with q, k, v, out, dout,
+// dq, dk and dv f32.
+extern "C" int kdt_na2d_packed_bwd_f32(const void* q, const void* k, const void* v,
+                                       const void* out, const void* dout, const void* lse,
+                                       void* delta, void* dq, void* dk, void* dv, int b, int h,
+                                       int w, int n_heads, int ks, float scale, void* stream) {
+  tf32::Args a = packed_f32(q, k, v, const_cast<void*>(out), const_cast<void*>(lse), h, w,
+                            n_heads, scale);
+  a.dout = static_cast<const float*>(dout);
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  return na_tf32::launch_bwd<E>(a, b, h, w, ks, static_cast<cudaStream_t>(stream));
 }
 
 KDT_DEFINE_ERROR_STRING

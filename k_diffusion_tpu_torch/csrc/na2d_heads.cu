@@ -55,6 +55,11 @@
 // 32, 8 us) against q, k, v, out, dout, lse read and dq, dk, dv written (8
 // * 33.5 MB, 80 us): memory.
 //
+// The float32 forms of K11 and K12 (--mixed-precision no) at head dims 32
+// and 64 are na_tf32.cuh's TF32 kernels, q, k and v each through its own
+// strides, which K2 and K7 run in float32 at 64 on packed maps. Head dim
+// 128 and K15 have no float32 form yet.
+//
 // K15, the packed forward with the out-projection and the residual fused
 // into its epilogue, is na_proj.cuh's cluster kernel: a cluster per query
 // tile and image, a rank per 64 channels running attn_fwd.cuh's attention
@@ -65,6 +70,7 @@
 #include "na_bwd.cuh"
 #include "na_fwd.cuh"
 #include "na_proj.cuh"
+#include "na_tf32.cuh"
 
 namespace kdt {
 namespace {
@@ -439,6 +445,65 @@ extern "C" int kdt_na2d_proj(const void* q, const void* k, const void* v, const 
   const int ranks = static_cast<int>(c / 64);
   return e == 32 ? na_proj::launch<32>(a, s, wo, b, h, w, ks, ranks, st)
                  : na_proj::launch<64>(a, s, wo, b, h, w, ks, ranks, st);
+}
+
+namespace {
+
+tf32::Args heads_f32(const void* q, const void* k, const void* v, void* out, void* lse, int h,
+                     int w, int n_heads, int e, float scale, const long* st) {
+  const long c = static_cast<long>(n_heads) * e;
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.sq = strides(st);
+  a.sk = strides(st + 3);
+  a.sv = strides(st + 6);
+  a.io = MapStrides{h * w * c, w * c, c};
+  a.n_heads = n_heads;
+  a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+// K11 in float32: kdt_na2d_heads's contract with q, k, v and out f32 and
+// e 32 or 64; the strides multiples of 4 elements, the rows 16-byte
+// aligned.
+extern "C" int kdt_na2d_heads_f32(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int b, int h, int w, int n_heads, int e, int ks,
+                                  float scale, const long* st, void* stream) {
+  const tf32::Args a = heads_f32(q, k, v, out, lse, h, w, n_heads, e, scale, st);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (e) {
+    case 32: return na_tf32::launch_fwd<32>(a, b, h, w, ks, s);
+    case 64: return na_tf32::launch_fwd<64>(a, b, h, w, ks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K12 in float32: kdt_na2d_heads_bwd's contract at e 32 and 64 with q, k,
+// v, out, dout, dq, dk and dv f32; delta is written by the dq kernel.
+extern "C" int kdt_na2d_heads_bwd_f32(const void* q, const void* k, const void* v,
+                                      const void* out, const void* dout, const void* lse,
+                                      void* delta, void* dq, void* dk, void* dv, int b, int h,
+                                      int w, int n_heads, int e, int ks, float scale,
+                                      const long* st, void* stream) {
+  tf32::Args a = heads_f32(q, k, v, const_cast<void*>(out), const_cast<void*>(lse), h, w,
+                           n_heads, e, scale, st);
+  a.dout = static_cast<const float*>(dout);
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (e) {
+    case 32: return na_tf32::launch_bwd<32>(a, b, h, w, ks, s);
+    case 64: return na_tf32::launch_bwd<64>(a, b, h, w, ks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 KDT_DEFINE_ERROR_STRING

@@ -56,25 +56,24 @@ from ..ops.kernels.flash import flash_attention
 from ..ops.kernels.fused_ffn import fused_geglu_ffn
 from ..ops.kernels.fused_mapping import fused_mapping
 from ..ops.kernels.fused_qkv import fused_qkv_prologue
-from ..ops.kernels.na2d import na2d, na2d_packed, packed_takes
+from ..ops.kernels.na2d import F32_HEAD_DIMS, na2d, na2d_packed, packed_takes
 from ..utils import compute_dtype, default_device
 
-# the kernels of a neighborhood-attention level that have no float32 form
-# yet: an HDiT with such a level computes in bfloat16 only on the card
-NO_FLOAT32 = ("the neighborhood-attention kernels K2, K7, K11, K12 and K15 "
-              "(ROADMAP.md queue 1, item 9 (c))")
+# the kernels of a neighborhood-attention level at a head dim their float32
+# forms do not take: an HDiT with such a level computes in bfloat16 only on
+# the card
+NO_FLOAT32 = ("the neighborhood-attention kernels K11 and K12 at head dim "
+              "128 (their float32 forms take head dims 32 and 64: "
+              "ROADMAP.md, known limits, NA at e = 128 in float32)")
 
 
-def card_dtypes(attention_kinds):
+def card_dtypes(na_head_dims):
     """(the compute dtypes an HDiT takes on the card, the kernels that keep
-    it from float32 or None) from its levels' attention kinds ("global",
-    "neighborhood", "shifted-window", "none", or their specs): bfloat16 and
-    float32 (the kernels of the other kinds and of every level's prologue,
-    feed-forward block and mapping network have float32 forms) unless a
-    level runs neighborhood attention."""
-    if any(kind == "neighborhood"
-           or isinstance(kind, NeighborhoodAttentionSpec)
-           for kind in attention_kinds):
+    it from float32 or None) from the head dims of its neighborhood levels:
+    bfloat16 and float32 (every kernel of its levels has a float32 form,
+    the neighborhood kernels K2, K7, K11 and K12 at head dims 32 and 64)
+    unless a neighborhood level has another head dim."""
+    if any(e not in F32_HEAD_DIMS for e in na_head_dims):
         return (torch.bfloat16,), NO_FLOAT32
     return (torch.bfloat16, torch.float32), None
 
@@ -456,8 +455,8 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     carries across). Parameters go to ``device``, by default the card
     (``utils.default_device``); ``dtype`` is the compute dtype, by default
     bfloat16 on the card and float32 elsewhere (``utils.compute_dtype``);
-    on the card bfloat16, or also float32 where no level runs neighborhood
-    attention (``card_dtypes``)."""
+    on the card bfloat16, or also float32 unless a neighborhood level has
+    head dim 128 (``card_dtypes``)."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
                  num_classes=0, mapping_cond_dim=0, checkpointing=False,
@@ -466,8 +465,9 @@ class ImageTransformerDenoiserModelV2(nn.Module):
         super().__init__()
         check_remat_policy(remat_policy)
         device = default_device(device)
-        dtype = compute_dtype(device, dtype,
-                              *card_dtypes(s.self_attn for s in levels))
+        dtype = compute_dtype(device, dtype, *card_dtypes(
+            s.self_attn.d_head for s in levels
+            if isinstance(s.self_attn, NeighborhoodAttentionSpec)))
         self.levels, self.dtype = levels, dtype
         self.num_classes, self.mapping_cond_dim = num_classes, mapping_cond_dim
         self.checkpointing = checkpointing and remat_policy != NO_REMAT

@@ -29,7 +29,8 @@ def train_fusion_enabled():
 # kernel name -> (module, name of its launch counter): forward kernels
 # K1-K5, the backward kernels K6-K10, flash attention K13 and its backward
 # K14, the per-head NA kernels K11 and K12, the fused-epilogue NA K15, and
-# the float32 forms of K13 and K14, of K1-K5 and of K6, K9 and K10
+# the float32 forms of K13 and K14, of K1-K5, of K6, K9 and K10 and of the
+# neighborhood kernels K7, K11 and K12
 COUNTERS = {
     "fused_qkv": (fused_qkv, "launches"),
     "na2d": (na2d, "launches"),
@@ -55,6 +56,10 @@ COUNTERS = {
     "fused_ffn_bwd_f32": (fused_ffn, "bwd_launches_f32"),
     "global_packed_f32": (global_packed, "launches_f32"),
     "global_packed_bwd_f32": (global_packed, "bwd_launches_f32"),
+    "na2d_f32": (na2d, "launches_f32"),
+    "na2d_bwd_f32": (na2d, "bwd_launches_f32"),
+    "na2d_heads_f32": (na2d, "heads_launches_f32"),
+    "na2d_heads_bwd_f32": (na2d, "heads_bwd_launches_f32"),
 }
 
 

@@ -35,6 +35,19 @@ differentiates.
   recomputes the attention with K2 and runs K7 (head dim 64), or K11 and
   K12 on the per-head views (head dim 32), as the JAX op's backward is the
   VJP of its plain version.
+
+bfloat16 operands go to those kernels, float32 operands (a model built with
+``dtype=torch.float32``, ``--mixed-precision no``) to the float32 forms of
+K2, K7, K11 and K12 (``csrc/na_tf32.cuh``: ``csrc/attn_tf32.cuh``'s TF32
+bodies over the same neighborhood geometry; ``kdt_na2d_packed_f32``,
+``kdt_na2d_packed_bwd_f32`` in ``csrc/na2d.cu``, ``kdt_na2d_heads_f32``,
+``kdt_na2d_heads_bwd_f32`` in ``csrc/na2d_heads.cu``), K11's and K12's at
+head dims 32 and 64 (``F32_HEAD_DIMS``). Each dtype's launches are counted
+apart. K15 and K11/K12 at head dim 128 have no float32 form yet: their
+wrappers refuse float32 CUDA tensors by name before any launch (ROADMAP.md
+queue 2 and known limits). K8 has none either; it takes float32 partials
+and writes bf16 whatever the model's dtype. Only CPU tensors reach the
+plain versions.
 """
 
 import ctypes
@@ -51,11 +64,18 @@ overlap_launches = 0    # K8 launches
 heads_launches = 0      # K11 launches
 heads_bwd_launches = 0  # K12 launches (its two kernels count as one)
 proj_launches = 0       # K15 launches
+launches_f32 = 0            # K2 launches on float32 operands
+bwd_launches_f32 = 0        # K7 launches on float32 operands
+heads_launches_f32 = 0      # K11 launches on float32 operands
+heads_bwd_launches_f32 = 0  # K12 launches on float32 operands
+
+DTYPES = (torch.bfloat16, torch.float32)  # operand dtypes the kernels take
 
 TILE = 8          # query tile edge of the kernels
 MAX_KERNEL = 7    # the kernels' halo holds windows up to 7 x 7
 HALO_KEYS = 208   # rows of a tile's halo partial (14 x 14, rounded up to 16)
 HEAD_DIMS = (32, 64, 128)  # head dims of K11 and K12
+F32_HEAD_DIMS = (32, 64)   # head dims of their float32 forms
 # head dims of K15: a rank's 64 channels hold whole heads, and wgmma.cuh's
 # tiles take 32 and 64
 PROJ_HEAD_DIMS = (32, 64)
@@ -130,11 +150,21 @@ def packed_takes(c, e):
     return e == 64 and c <= 512 and c % 128 == 0
 
 
+def _dtype(q, what):
+    """Raises unless q is bfloat16 or float32. Returns its dtype, which
+    every operand of the launch must share."""
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{what}: q is {q.dtype}; the kernels take "
+                         f"bfloat16 or float32")
+    return q.dtype
+
+
 def _check(q, n_heads, kernel_size, what, head_dims=(64,)):
     """Raises unless q (b, h, w, c) is as the packed kernels take it: a CUDA
-    tensor, c = heads * e with e in ``head_dims``, h and w multiples of 8,
-    kernel_size <= min(7, h, w). Returns e."""
+    tensor, bfloat16 or float32, c = heads * e with e in ``head_dims``, h
+    and w multiples of 8, kernel_size <= min(7, h, w). Returns e."""
     _build.require_cuda(q, what)
+    _dtype(q, what)
     b, h, w, c = q.shape
     e = c // n_heads
     if c != e * n_heads or e not in head_dims or h % TILE or w % TILE or \
@@ -149,12 +179,15 @@ def _check(q, n_heads, kernel_size, what, head_dims=(64,)):
 
 
 def _check_heads(q, k, v, kernel_size, what):
-    """Raises unless q, k, v are as K11 and K12 take them: bf16 CUDA tensors
-    of one shape (b, h, w, heads, e), e in HEAD_DIMS, h and w multiples of
-    8, the head axis packed at e and the head dim contiguous, the other
-    strides multiples of 8 elements, 16-byte aligned. Returns the nine
-    strides (q's, k's, v's batch, row and column) as a ctypes array."""
+    """Raises unless q, k, v are as K11 and K12 take them: CUDA tensors of
+    one dtype, bfloat16 or float32, and one shape (b, h, w, heads, e), e in
+    HEAD_DIMS (F32_HEAD_DIMS in float32), h and w multiples of 8, the head
+    axis packed at e and the head dim contiguous, the other strides
+    multiples of 16 bytes (8 bfloat16 or 4 float32 elements), 16-byte
+    aligned. Returns the nine strides (q's, k's, v's batch, row and column)
+    as a ctypes array."""
     _build.require_cuda(q, what)
+    dtype = _dtype(q, what)
     b, h, w, heads, e = q.shape
     if e not in HEAD_DIMS or h % TILE or w % TILE or not (
             1 <= kernel_size <= min(MAX_KERNEL, h, w)):
@@ -162,43 +195,55 @@ def _check_heads(q, k, v, kernel_size, what):
             f"{what}: kernel takes head dim in {HEAD_DIMS}, h and w multiples "
             f"of {TILE} and kernel_size <= min({MAX_KERNEL}, h, w); got "
             f"{tuple(q.shape)}, kernel_size {kernel_size}")
+    if dtype == torch.float32 and e not in F32_HEAD_DIMS:
+        raise ValueError(
+            f"{what}: the float32 forms of K11 and K12 take head dim 32 or "
+            f"64; head dim {e} has no float32 form yet (ROADMAP.md, known "
+            f"limits: NA at e = 128 in float32)")
+    per_row = 16 // q.element_size()  # elements in 16 bytes
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or \
-                t.shape != q.shape:
+        if t.device != q.device or t.dtype != dtype or t.shape != q.shape:
             raise ValueError(
                 f"{what}: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
-                f"the kernel takes bfloat16 {tuple(q.shape)} on {q.device}")
+                f"the kernel takes q's dtype, shape and device: {dtype} "
+                f"{tuple(q.shape)} on {q.device}")
         if not (t.stride()[3:] == (e, 1)
-                and all(st % 8 == 0 for st in t.stride()[:3])
+                and all(st % per_row == 0 for st in t.stride()[:3])
                 and t.data_ptr() % 16 == 0):
             raise ValueError(
                 f"{what}: {name} has strides {t.stride()} at offset "
                 f"{t.data_ptr() % 16} mod 16 bytes; the kernel takes strides "
-                f"(x, y, z, {e}, 1), x, y and z multiples of 8, 16-byte "
-                f"aligned")
+                f"(x, y, z, {e}, 1), x, y and z multiples of {per_row} "
+                f"({dtype}), 16-byte aligned")
     return (ctypes.c_long * 9)(*(st for t in (q, k, v)
                                  for st in t.stride()[:3]))
 
 
 def packed_forward(q, k, v, n_heads, kernel_size, scale=1.0, save_lse=False):
-    """Launches K2 on CUDA tensors. Returns (out, lse): lse (b, heads, h, w)
-    float32, the logsumexp of each query's logits, or None unless
-    ``save_lse``."""
+    """Launches K2 (its float32 form on float32 operands) on CUDA tensors.
+    Returns (out, lse): out in q's dtype, lse (b, heads, h, w) float32, the
+    logsumexp of each query's logits, or None unless ``save_lse``."""
     _check(q, n_heads, kernel_size, "na2d_packed")
+    dtype = q.dtype
     b, h, w, c = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.require(t, name, q.device, torch.bfloat16, (b, h, w, c))
+        _build.require(t, name, q.device, dtype, (b, h, w, c))
     out = torch.empty_like(q)
     lse = (torch.empty((b, n_heads, h, w), device=q.device,
                        dtype=torch.float32) if save_lse else None)
-    lib = _build.load("na2d", kdt_na2d_packed=_SIGNATURE)
-    _build.launch(
-        lib, "kdt_na2d_packed", "na2d_packed", q.device,
-        *map(_build.ptr, (q, k, v, out)),
-        None if lse is None else _build.ptr(lse), b, h, w, n_heads,
-        kernel_size, scale, _build.stream_ptr(q.device))
-    global launches
-    launches += 1
+    lib = _build.load("na2d", kdt_na2d_packed=_SIGNATURE,
+                      kdt_na2d_packed_f32=_SIGNATURE)
+    args = (*map(_build.ptr, (q, k, v, out)),
+            None if lse is None else _build.ptr(lse), b, h, w, n_heads,
+            kernel_size, scale, _build.stream_ptr(q.device))
+    global launches, launches_f32
+    if dtype == torch.float32:
+        _build.launch(lib, "kdt_na2d_packed_f32", "na2d_packed", q.device,
+                      *args)
+        launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_na2d_packed", "na2d_packed", q.device, *args)
+        launches += 1
     return out, lse
 
 
@@ -271,7 +316,8 @@ def packed_backward_partials_reference(q, k, v, dout, n_heads, kernel_size,
 
 def overlap_add(dk_part, dv_part, h, w, kernel_size):
     """Launches K8 on CUDA tensors: per-tile halo partials (b, heads, tiles,
-    HALO_KEYS, 64) float32 -> (dk, dv) bf16."""
+    HALO_KEYS, 64) float32 -> (dk, dv) bf16, always: K8 has no float32
+    form yet (ROADMAP.md queue 2)."""
     _build.require_cuda(dk_part, "na2d overlap-add")
     b, n_heads = dk_part.shape[:2]
     part = (b, n_heads, (h // TILE) * (w // TILE), HALO_KEYS, 64)
@@ -291,60 +337,74 @@ def overlap_add(dk_part, dv_part, h, w, kernel_size):
 
 def packed_backward(q, k, v, out, lse, dout, n_heads, kernel_size,
                     scale=1.0):
-    """Launches K7 (its dq kernel, then its dk/dv kernel: one counted
-    launch) on CUDA tensors: returns (dq, dk, dv) bf16, each (b, h, w,
-    heads * 64). delta = rowsum(out * dout) is formed by the dq kernel."""
+    """Launches K7 (its float32 form on float32 operands; its dq kernel,
+    then its dk/dv kernel: one counted launch) on CUDA tensors: returns
+    (dq, dk, dv) in q's dtype, each (b, h, w, heads * 64). delta =
+    rowsum(out * dout) is formed by the dq kernel."""
     _check(q, n_heads, kernel_size, "na2d_packed backward")
+    dtype = q.dtype
     b, h, w, c = q.shape
     dev = q.device
     dout = dout.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)):
-        _build.require(t, name, dev, torch.bfloat16, (b, h, w, c))
+        _build.require(t, name, dev, dtype, (b, h, w, c))
     _build.require(lse, "lse", dev, torch.float32, (b, n_heads, h, w))
     delta = torch.empty((b, n_heads, h, w), device=dev, dtype=torch.float32)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("na2d", kdt_na2d_packed_bwd=_BWD_SIGNATURE)
-    _build.launch(
-        lib, "kdt_na2d_packed_bwd", "na2d_packed backward", dev,
-        *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)),
-        b, h, w, n_heads, kernel_size, scale, _build.stream_ptr(dev))
-    global bwd_launches
-    bwd_launches += 1
+    lib = _build.load("na2d", kdt_na2d_packed_bwd=_BWD_SIGNATURE,
+                      kdt_na2d_packed_bwd_f32=_BWD_SIGNATURE)
+    args = (*map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)),
+            b, h, w, n_heads, kernel_size, scale, _build.stream_ptr(dev))
+    global bwd_launches, bwd_launches_f32
+    if dtype == torch.float32:
+        _build.launch(lib, "kdt_na2d_packed_bwd_f32", "na2d_packed backward",
+                      dev, *args)
+        bwd_launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_na2d_packed_bwd", "na2d_packed backward", dev,
+                      *args)
+        bwd_launches += 1
     return dq, dk, dv
 
 
 def heads_forward(q, k, v, kernel_size, scale=1.0, save_lse=False):
-    """Launches K11 on CUDA tensors (b, h, w, heads, e). Returns (out, lse):
-    out (b, h, w, heads, e) bf16 contiguous, lse (b, heads, h, w) float32,
-    or None unless ``save_lse``."""
+    """Launches K11 (its float32 form on float32 operands) on CUDA tensors
+    (b, h, w, heads, e). Returns (out, lse): out (b, h, w, heads, e) in q's
+    dtype, contiguous, lse (b, heads, h, w) float32, or None unless
+    ``save_lse``."""
     strides = _check_heads(q, k, v, kernel_size, "na2d")
     b, h, w, heads, e = q.shape
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     lse = (torch.empty((b, heads, h, w), device=q.device,
                        dtype=torch.float32) if save_lse else None)
-    lib = _build.load("na2d_heads", kdt_na2d_heads=_HEADS_SIGNATURE)
-    _build.launch(
-        lib, "kdt_na2d_heads", "na2d", q.device,
-        *map(_build.ptr, (q, k, v, out)),
-        None if lse is None else _build.ptr(lse), b, h, w, heads, e,
-        kernel_size, scale, strides, _build.stream_ptr(q.device))
-    global heads_launches
-    heads_launches += 1
+    lib = _build.load("na2d_heads", kdt_na2d_heads=_HEADS_SIGNATURE,
+                      kdt_na2d_heads_f32=_HEADS_SIGNATURE)
+    args = (*map(_build.ptr, (q, k, v, out)),
+            None if lse is None else _build.ptr(lse), b, h, w, heads, e,
+            kernel_size, scale, strides, _build.stream_ptr(q.device))
+    global heads_launches, heads_launches_f32
+    if q.dtype == torch.float32:
+        _build.launch(lib, "kdt_na2d_heads_f32", "na2d", q.device, *args)
+        heads_launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_na2d_heads", "na2d", q.device, *args)
+        heads_launches += 1
     return out, lse
 
 
 def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
-    """Launches K12 on CUDA tensors: returns (dq, dk, dv) bf16, each (b, h,
-    w, heads, e) contiguous. delta = rowsum(out * dout) is formed by the dq
-    kernel at e 32 and 64, and at 128 by a plain float32 reduction here, as
-    in the JAX package."""
+    """Launches K12 (its float32 form on float32 operands) on CUDA tensors:
+    returns (dq, dk, dv) in q's dtype, each (b, h, w, heads, e)
+    contiguous. delta = rowsum(out * dout) is formed by the dq kernel at e
+    32 and 64, and at 128 (bfloat16 only) by a plain float32 reduction
+    here, as in the JAX package."""
     strides = _check_heads(q, k, v, kernel_size, "na2d backward")
     b, h, w, heads, e = q.shape
     dev = q.device
     dout = dout.contiguous()
     for name, t in (("out", out), ("dout", dout)):
-        _build.require(t, name, dev, torch.bfloat16, q.shape)
+        _build.require(t, name, dev, q.dtype, q.shape)
     _build.require(lse, "lse", dev, torch.float32, (b, heads, h, w))
     if e in DELTA_IN_KERNEL:
         delta = torch.empty((b, heads, h, w), device=dev, dtype=torch.float32)
@@ -353,21 +413,28 @@ def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
             .contiguous()
     dq, dk, dv = (torch.empty(q.shape, device=dev, dtype=q.dtype)
                   for _ in range(3))
-    lib = _build.load("na2d_heads", kdt_na2d_heads_bwd=_HEADS_BWD_SIGNATURE)
-    _build.launch(
-        lib, "kdt_na2d_heads_bwd", "na2d backward", dev,
-        *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, h,
-        w, heads, e, kernel_size, scale, strides, _build.stream_ptr(dev))
-    global heads_bwd_launches
-    heads_bwd_launches += 1
+    lib = _build.load("na2d_heads", kdt_na2d_heads_bwd=_HEADS_BWD_SIGNATURE,
+                      kdt_na2d_heads_bwd_f32=_HEADS_BWD_SIGNATURE)
+    args = (*map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b,
+            h, w, heads, e, kernel_size, scale, strides,
+            _build.stream_ptr(dev))
+    global heads_bwd_launches, heads_bwd_launches_f32
+    if q.dtype == torch.float32:
+        _build.launch(lib, "kdt_na2d_heads_bwd_f32", "na2d backward", dev,
+                      *args)
+        heads_bwd_launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_na2d_heads_bwd", "na2d backward", dev, *args)
+        heads_bwd_launches += 1
     return dq, dk, dv
 
 
 def na2d(q, k, v, kernel_size, scale=1.0):
     """Neighborhood attention per head: q, k, v (b, h, w, heads, e) ->
-    (b, h, w, heads, e); differentiable. The kernels take bfloat16, e in
-    ``HEAD_DIMS``, h and w multiples of 8, kernel_size <= min(7, h, w), and
-    q, k, v of any strides whose last two are (e, 1)."""
+    (b, h, w, heads, e); differentiable. The kernels take bfloat16 with e in
+    ``HEAD_DIMS`` or float32 with e in ``F32_HEAD_DIMS``, h and w multiples
+    of 8, kernel_size <= min(7, h, w), and q, k, v of any strides whose
+    last two are (e, 1)."""
     static = {"kernel_size": kernel_size, "scale": scale}
     if q.device.type == "cpu":
         return residuals.plain(
@@ -385,8 +452,14 @@ def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     """Launches K15 on CUDA tensors: returns NA(q, k, v) @ w_out + skip,
     (b, h, w, c) bf16; w_out is cast to bf16, as the JAX dispatcher casts
     it to q's dtype. Head dim 128 and above raises: a softmax is not split
-    over the cluster's ranks of 64 channels."""
+    over the cluster's ranks of 64 channels; so does float32 (K15 has no
+    float32 form yet), before any launch."""
     e = _check(q, n_heads, kernel_size, "na2d_packed_proj", PROJ_HEAD_DIMS)
+    if q.dtype == torch.float32:
+        raise ValueError("na2d_packed_proj: K15-f32, the float32 form of "
+                         "K15, is not ported yet (ROADMAP.md queue 2; no "
+                         "model path runs K15); float32 on the card is "
+                         "refused")
     b, h, w, c = q.shape
     if c > 512 or c % 128:
         raise ValueError(f"na2d_packed_proj kernel takes c <= 512, a "
@@ -450,7 +523,8 @@ def na2d_packed_proj(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     channel-packed maps (b, h, w, c), w_out (c, c); differentiable. No model
     path calls it, as in the JAX package. The kernel takes bfloat16, head
     dim 32 or 64, c <= 512 and a multiple of 128, h and w multiples of 8
-    and kernel_size <= min(7, h, w)."""
+    and kernel_size <= min(7, h, w); float32 CUDA tensors raise (K15 has no
+    float32 form yet)."""
     if q.device.type == "cpu":
         return proj_reference(q, k, v, skip, w_out, n_heads, kernel_size,
                               scale)
@@ -463,7 +537,7 @@ def na2d_packed_proj(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
 def na2d_packed(q, k, v, n_heads, kernel_size, scale=1.0):
     """Neighborhood attention on channel-packed maps: q, k, v
     (b, h, w, heads * e) -> (b, h, w, heads * e); differentiable. The
-    kernels take bfloat16, e == 64, h and w multiples of 8 and
+    kernels take bfloat16 or float32, e == 64, h and w multiples of 8 and
     kernel_size <= min(7, h, w)."""
     static = {"n_heads": n_heads, "kernel_size": kernel_size, "scale": scale}
     if q.device.type == "cpu":

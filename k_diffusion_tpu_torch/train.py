@@ -189,10 +189,12 @@ def check_ported(args):
 
 def float32_on_the_card(config):
     """``--mixed-precision no`` on the card: float32 compute for a model
-    whose kernels all have float32 forms (``config.card_dtypes``), with
-    TF32 on for cuBLAS and cuDNN, as the upstream PyTorch trainer runs
-    float32 (the float32 kernels use the TF32 tensor cores too). Raises
-    NotImplementedError, before any CUDA call, for the others."""
+    whose kernels all have float32 forms (``config.card_dtypes``: every
+    shipped config, the neighborhood-attention HDiTs included), with TF32
+    on for cuBLAS and cuDNN, as the upstream PyTorch trainer runs float32
+    (the float32 kernels use the TF32 tensor cores too). Raises
+    NotImplementedError, before any CUDA call, for the others (an HDiT
+    with a neighborhood level of head dim 128)."""
     dtypes, lacking = config_mod.card_dtypes(config)
     if torch.float32 not in dtypes:
         raise NotImplementedError(

@@ -24,9 +24,10 @@ def default_device(device=None):
     return torch.device("cuda", torch.cuda.current_device())
 
 
-# the compute dtypes of the card's kernels: all take bfloat16, and all but
-# the neighborhood-attention kernels also float32 (TF32 tensor cores), so a
-# model that runs none of those takes both
+# the compute dtypes of the card's kernels: all take bfloat16, and all on a
+# model path also float32 (TF32 tensor cores) but the per-head
+# neighborhood kernels at head dim 128, so a model that runs none of those
+# takes both
 CARD_DTYPES = (torch.bfloat16, torch.float32)
 
 

@@ -739,8 +739,14 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     x = torch.zeros((1, 12, 12, 128), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         na2d.na2d_packed(x, x, x, 2, 7)
+    # float16 (no kernel takes it) and mixed dtypes (float32 q, k and a
+    # bfloat16 v)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        na2d.na2d_packed(*(torch.zeros((1, 8, 8, 128), device=dev,
+                                       dtype=torch.float16),) * 3, 2, 7)
+    f = torch.zeros((1, 8, 8, 128), device=dev)
     with pytest.raises(ValueError, match="dtype"):
-        na2d.na2d_packed(*(torch.zeros((1, 8, 8, 128), device=dev),) * 3, 2, 7)
+        na2d.na2d_packed(f, f, f.bfloat16(), 2, 7)
     # K7: a map that does not tile, a float32 cotangent, an lse of the
     # wrong shape, a CPU tensor
     x = torch.zeros((1, 8, 8, 128), device=dev, dtype=torch.bfloat16)
@@ -798,13 +804,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     x = torch.zeros((1, 16, 2, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 32 or 64"):
         flash.flash_attention(x, x, x)
-    # K11/K12: head dim 48, a map that does not tile, fp32, heads not packed
+    # K11/K12: head dim 48, a map that does not tile, float16, float32 at
+    # head dim 128 (the float32 forms take 32 and 64), heads not packed
     for shape in ((1, 8, 8, 2, 48), (1, 12, 8, 2, 64)):
         x = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim in"):
             na2d.na2d(x, x, x, 7)
-    x = torch.zeros((1, 8, 8, 2, 64), device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
+    x = torch.zeros((1, 8, 8, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        na2d.na2d(x, x, x, 7)
+    x = torch.zeros((1, 8, 8, 1, 128), device=dev)
+    with pytest.raises(ValueError, match="head dim 128 has no float32 form"):
         na2d.na2d(x, x, x, 7)
     x = torch.zeros((1, 8, 8, 64, 2), device=dev,
                     dtype=torch.bfloat16).transpose(3, 4)
@@ -1040,3 +1050,74 @@ def test_na2d_packed_proj_rerun_is_bit_equal(dev, heads, e):
     first = na2d.proj_forward(q, k, v, skip, w_out, heads, 7)
     assert torch.equal(na2d.proj_forward(q, k, v, skip, w_out, heads, 7),
                        first)
+
+
+# K2, K7, K11 and K12 in float32 (csrc/na_tf32.cuh: attn_tf32.cuh's TF32
+# bodies over the neighborhood geometry): (b, h, w, heads, e, ks), one tile
+# and interior tiles, h != w, every window size class, head dims 64 and 32
+NA_F32_CASES = [(2, 16, 24, 2, 64, 7), (1, 32, 32, 2, 64, 7),
+                (1, 8, 8, 2, 64, 1), (1, 16, 16, 1, 64, 3),
+                (2, 32, 16, 4, 32, 7), (1, 8, 16, 2, 32, 5)]
+
+
+def na_f32_inputs(g, dev, b, h, w, heads, e):
+    """Float32 q, k (cosine-sim per head, contiguous), v a strided third of
+    one (b, h, w, 3, heads, e) projection, and a cotangent."""
+    t = torch.randn((b, h, w, 3, heads, e), generator=g)
+    qk = t[:, :, :, :2] / t[:, :, :, :2].norm(dim=-1, keepdim=True) * 10 ** 0.5
+    q, k, v = torch.cat([qk, t[:, :, :, 2:]], 3).to(dev).unbind(3)
+    return (q.contiguous(), k.contiguous(), v,
+            torch.randn((b, h, w, heads, e), generator=g).to(dev))
+
+
+@pytest.mark.parametrize("b,h,w,heads,e,ks", NA_F32_CASES)
+def test_na2d_float32(dev, no_tf32, b, h, w, heads, e, ks):
+    """K11's and K12's float32 forms on strided float32 maps against the
+    plain versions (TF32 off): out, the logsumexp, dq, dk, dv; each launch
+    on its own counter; a rerun bit-equal (no atomics). At head dim 64 K2
+    and K7 on the packed maps give the same out, lse, dq, dk, dv bit for
+    bit: one kernel."""
+    g = torch.Generator().manual_seed(31)
+    q, k, v, dout = na_f32_inputs(g, dev, b, h, w, heads, e)
+    assert not v.is_contiguous()
+    out, lse = counted(na2d, lambda: na2d.heads_forward(
+        q, k, v, ks, save_lse=True), "heads_launches_f32")
+    f32_close(out, na2d.na2d_reference(q, k, v, ks))
+    f32_close(lse, na_logsumexp(q, k, ks))
+    grads = counted(na2d, lambda: na2d.heads_backward(
+        q, k, v, out, lse, dout, ks), "heads_bwd_launches_f32")
+    want = na2d.heads_reference_backward(q, k, v, dout, ks)
+    if ks == 1:  # dq and dk are exactly 0 in the plain version (see above)
+        scale = want[2].abs().max().item()
+        assert all(a.abs().max().item() <= F32_REL_BOUND * scale
+                   for a in grads[:2])
+        f32_close(grads[2], want[2])
+    else:
+        for a, b_ in zip(grads, want):
+            f32_close(a, b_)
+    again = na2d.heads_backward(q, k, v, out, lse, dout, ks)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    if e != 64:
+        return
+    packed = [t.reshape(b, h, w, heads * e).contiguous()
+              for t in (q, k, v, dout)]
+    p_out, p_lse = counted(na2d, lambda: na2d.packed_forward(
+        *packed[:3], heads, ks, save_lse=True), "launches_f32")
+    assert torch.equal(p_out.reshape(out.shape), out)
+    assert torch.equal(p_lse, lse)
+    p_grads = counted(na2d, lambda: na2d.packed_backward(
+        *packed[:3], p_out, p_lse, packed[3], heads, ks), "bwd_launches_f32")
+    for a, b_ in zip(p_grads, grads):
+        assert torch.equal(a.reshape(b_.shape), b_)
+
+
+def test_na2d_float32_refusals(dev):
+    """Float32 at what has no float32 form yet raises ValueError by name
+    before any launch: K11 at head dim 128 and K15."""
+    g = torch.Generator().manual_seed(32)
+    q, k, v, _ = na_f32_inputs(g, dev, 1, 16, 16, 1, 128)
+    with pytest.raises(ValueError, match="head dim 128"):
+        na2d.heads_forward(q, k, v, 7)
+    x = torch.randn((1, 16, 16, 128), generator=g).to(dev)
+    with pytest.raises(ValueError, match="K15-f32"):
+        na2d.na2d_packed_proj(x, x, x, x, torch.eye(128, device=dev), 2, 7)

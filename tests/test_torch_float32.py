@@ -1,7 +1,7 @@
 """Float32 compute on the card (``--mixed-precision no``) in the port, on the
-CPU: which models take float32 on a CUDA device (every config and the ViT
-but the HDiT configs with neighborhood-attention levels, which refuse it by
-name before any torch call); the flash wrapper's dispatch of float32
+CPU: which models take float32 on a CUDA device (every config and the ViT;
+an HDiT with a neighborhood level of head dim 128, which no config ships,
+refuses it by name before any torch call); the flash wrapper's dispatch of float32
 operands to the float32 kernels (``kdt_flash_fwd_f32``,
 ``kdt_flash_bwd_f32``) with the library stood in for; the autograd node
 carrying float32 residuals; and a small U-Net trained for 2 steps through
@@ -60,37 +60,46 @@ def load(name):
 
 # ---- which models take float32 on the card ----------------------------------
 
-# the shipped configs whose HDiT runs neighborhood attention, whose kernels
-# have no float32 form yet
-NEIGHBORHOOD = {"config_256_p8_wide.json", "config_512_hdit.json",
-                "config_oxford_flowers.json"}
 # a small ViT beside the configs (no config ships one)
 VIT = "vit"
+# the flagship with head dim 128 at its neighborhood levels (no config ships
+# one): K11 and K12 have no float32 form at head dim 128
+NA_HEAD_DIM_128 = "oxford_flowers, neighborhood head dim 128"
+
+
+def na_head_dim_128():
+    config = load("config_oxford_flowers.json")
+    for attn in config["model"]["self_attns"]:
+        if attn["type"] == "neighborhood":
+            attn["d_head"] = 128
+    return config
 
 
 def build_on_the_card(name, dtype):
-    """Builds config ``name`` (or the small ViT) with ``dtype`` on a CUDA
-    device, through make_model as the trainer does."""
+    """Builds config ``name`` (or the small ViT, or the flagship with head
+    dim 128 at its neighborhood levels) with ``dtype`` on a CUDA device,
+    through make_model as the trainer does."""
     if name == VIT:
         return t_vit.ImageTransformerDenoiserModelV1(
             1, 64, 128, 3, 3, (2, 2), dtype=dtype, device="cuda")
-    return KT.config.make_model(load(name), dtype=dtype, device="cuda")
+    config = na_head_dim_128() if name == NA_HEAD_DIM_128 else load(name)
+    return KT.config.make_model(config, dtype=dtype, device="cuda")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", CONFIGS + [VIT])
+@pytest.mark.parametrize("name", CONFIGS + [VIT, NA_HEAD_DIM_128])
 def test_float32_on_the_card_routes_by_family(name, dtype, monkeypatch):
-    """Every config and the ViT build in bfloat16 on a CUDA device: the
-    dtype check passes and the build goes on to allocate its first
-    parameter. In float32 the U-Nets, the ViT and the HDiT configs without
-    neighborhood-attention levels do too, and the trainer's
-    ``--mixed-precision no`` turns TF32 on for cuBLAS and cuDNN; the
-    three HDiT configs with such levels are refused by name (K2, K7, K11,
-    K12, K15), by the model and by the trainer, before any torch call,
-    and TF32 stays off."""
+    """Every config and the ViT build in bfloat16 and in float32 on a CUDA
+    device: the dtype check passes and the build goes on to allocate its
+    first parameter; in float32 ``card_dtypes`` says so and the trainer's
+    ``--mixed-precision no`` turns TF32 on for cuBLAS and cuDNN. The three
+    HDiT configs with neighborhood levels (head dim 64) are among them. An
+    HDiT with a neighborhood level of head dim 128 builds in bfloat16 and
+    is refused float32 by name (K11 and K12 at head dim 128), by the model
+    and by the trainer, before any torch call, and TF32 stays off."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    if dtype == torch.bfloat16 or name not in NEIGHBORHOOD:
+    if dtype == torch.bfloat16 or name != NA_HEAD_DIM_128:
         with _NoTorchCalls(), pytest.raises(_TorchCalled):
             build_on_the_card(name, dtype)
         if name != VIT and dtype == torch.float32:
@@ -101,11 +110,11 @@ def test_float32_on_the_card_routes_by_family(name, dtype, monkeypatch):
             assert torch.backends.cuda.matmul.allow_tf32
             assert torch.backends.cudnn.allow_tf32
         return
-    kernels = r"K2, K7, K11, K12 and K15 \(ROADMAP.md queue 1, item 9 \(c\)\)"
+    kernels = r"K11 and K12 at head dim 128"
     with _NoTorchCalls(), pytest.raises(ValueError, match=kernels):
         build_on_the_card(name, dtype)
     with _NoTorchCalls(), pytest.raises(NotImplementedError, match=kernels):
-        t_train.float32_on_the_card(load(name))
+        t_train.float32_on_the_card(na_head_dim_128())
     assert not torch.backends.cuda.matmul.allow_tf32
 
 

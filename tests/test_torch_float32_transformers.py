@@ -1,14 +1,15 @@
 """Float32 compute on the card (``--mixed-precision no``) for the ViT and the
-HDiT without neighborhood-attention levels, on the CPU: the plain versions
-of the kernels whose float32 forms this slice adds (K1/K6, K4/K10, K5,
-K3/K9) against the JAX package in float32, forward and backward; the
+HDiT, on the CPU: the plain versions of the float32 kernels of the ViT and
+of the HDiT's levels but the neighborhood kernels (K1/K6, K4/K10, K5,
+K3/K9; tests/test_torch_float32_na.py has K2/K7 and K11/K12) against the JAX package in float32, forward and backward; the
 arithmetic of the float32 kernels (csrc/fused_qkv_f32.cu, geglu_f32.cu:
 the norm folded into the products, the per-panel epilogues, the RMS-norm
 VJP from per-panel dot partials, the split-K weight gradients, the mapping
 network as its up and down kernels) mirrored in torch against the JAX
 VJP; each wrapper's dispatch by dtype with the library stood in for; the
 float32 residual stash of K3; and 2-step float32 trainer runs of a
-narrowed config_cifar10_transformer.json and of a small ViT against JAX's
+narrowed config_cifar10_transformer.json, of a small ViT and of a narrowed
+config_oxford_flowers.json (a neighborhood level kept) against JAX's
 float32 step. Same float32 inputs on both sides, made with numpy from a
 seed."""
 
@@ -655,6 +656,23 @@ def cifar10_transformer():
     return config
 
 
+def oxford_flowers_na():
+    """config_oxford_flowers.json narrowed, its neighborhood attention kept:
+    32 x 32 inputs at patch 4 (8 x 8 tokens at a 7 x 7 neighborhood level
+    of one head of 64, then 4 x 4 tokens at a global level of two), widths
+    64 and 128, one layer a level, the mapping network at width 64;
+    dropout off."""
+    config = json.loads((REPO / "configs" /
+                         "config_oxford_flowers.json").read_text())
+    config["model"].update(
+        input_size=[32, 32], widths=[64, 128], depths=[1, 1],
+        d_ffs=[192, 384], self_attns=[
+            {"type": "neighborhood", "d_head": 64, "kernel_size": 7},
+            {"type": "global", "d_head": 64}],
+        dropout_rate=[0.0, 0.0], mapping_width=64, mapping_d_ff=192)
+    return config
+
+
 def small_vit():
     """A ViT of 2 layers at width 128 (2 heads of 64) on 16 x 16 inputs,
     patch 2, EDM's training density; dropout off."""
@@ -668,7 +686,11 @@ def small_vit():
                           "eps": STEP_EPS, "weight_decay": 1e-4}}
 
 
-@pytest.mark.parametrize("family", ["cifar10_transformer", "vit"])
+FAMILIES = {"cifar10_transformer": cifar10_transformer, "vit": small_vit,
+            "oxford_flowers_na": oxford_flowers_na}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
 def test_float32_training_run_matches_jax(tmp_path, monkeypatch, family):
     """``train.run`` with ``--mixed-precision no --device cpu`` for 2 steps
     (weights from ``--resume-inference``, synthetic data) against JAX's
@@ -676,15 +698,16 @@ def test_float32_training_run_matches_jax(tmp_path, monkeypatch, family):
     decays are recorded, each step's sigmas and noise are JAX's draws from
     its key, injected. Each step's loss, and the params and EMA after 2
     steps, within 2e-4 (the params having moved by more than 10x that)."""
-    config = cifar10_transformer() if family != "vit" else small_vit()
+    config = FAMILIES[family]()
     config.setdefault("optimizer", {}).update(eps=STEP_EPS, lr=LR)
+    size = config["model"]["input_size"][0]
     config["dataset"] = {"type": "synthetic", "length": BATCH}
     path = tmp_path / "config.json"
     path.write_text(json.dumps(config))
     config = K.config.load_config(path)
     model = K.config.make_model(config)
     params = randomized(jax.jit(model.init)(
-        jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
+        jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3)),
         jnp.ones((1,)))["params"], 19)
     weights = tmp_path / "weights.safetensors"
     checkpoint.save_inference(
@@ -692,7 +715,7 @@ def test_float32_training_run_matches_jax(tmp_path, monkeypatch, family):
             np.asarray, params)), config, dtype=torch.float32)
 
     density = K.config.make_sample_density(config["model"])
-    shape = (1, BATCH, 16, 16, 3)
+    shape = (1, BATCH, size, size, 3)
     keys = [jax.random.PRNGKey(40 + i) for i in range(STEPS)]
     draws = []
     for key in keys:  # the draws JAX's step makes from its key

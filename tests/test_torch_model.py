@@ -229,15 +229,14 @@ def _model_constructors():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("name", ["flagship", "cifar10", "hdit", "unet"])
 def test_compute_dtype_other_than_bfloat16_on_the_card_raises(name, dtype):
-    """No kernel takes float16, and the neighborhood-attention kernels of
-    the flagship HDiT take bfloat16 only on the card: such an explicit
-    compute dtype on a CUDA device is refused by name when the model is
-    built, before any parameter is allocated (no torch call runs first).
-    The U-Net's kernels and those of an HDiT without neighborhood levels
+    """No kernel takes float16: such an explicit compute dtype on a CUDA
+    device is refused by name when the model is built, before any
+    parameter is allocated (no torch call runs first). The kernels of the
+    U-Net and of the HDiT, the flagship's neighborhood attention included,
     also have float32 forms: their float32 build on the card passes the
     check and goes on to allocate its first parameter."""
     build = _model_constructors()[name]
-    if dtype == torch.float32 and name in ("cifar10", "hdit", "unet"):
+    if dtype == torch.float32:
         with _NoTorchCalls(), pytest.raises(_TorchCalled):
             build(dtype=dtype, device="cuda")
         return

@@ -22,6 +22,16 @@ tiles, dk and dv over key tiles, delta = rowsum(out * dout)), run over both
 geometries in numpy float32, is held against ``jax.vjp`` of the JAX
 package's ``na2d_reference``.
 
+Both mirrors also run with each product's operands rounded as a kernel
+rounds them: to TF32 by ``cvt.rna`` (csrc/attn_tf32.cuh, the float32 forms
+of K2, K7, K11 and K12 in csrc/na_tf32.cuh; mirrored on the float32 bits:
+10 mantissa bits, ties away from zero) and to bfloat16 (the bf16 kernels,
+round to nearest even; out and dout in bf16, as those kernels read them),
+the softmax, lse and delta in float32. The TF32
+mirror stays within 5e-3 x max|ref| of JAX, and its error against the
+unrounded mirror in float64 (relative L2) is at most 1/4 of the bf16
+mirror's, output by output: TF32 keeps 3 mantissa bits more than bf16.
+
 K15 (csrc/na_proj.cuh) runs the forward over ``NaQueries`` in a thread
 block cluster per query tile, one rank per 64 channels, then sums the
 ranks' attention tiles times blocks of w_out in a rotating order;
@@ -43,6 +53,47 @@ SLOTS = 16           # key slots of a halo row
 BANDS = 64 // SLOTS  # halo rows of a streamed 64-row tile
 # float32 on both sides, the same operations summed in another order
 F32_TOL = 2e-5
+# the TF32 mirror against JAX in float32, x max|ref| (the bound chip_smoke.py
+# states for the float32 kernels against their plain versions), and its
+# error against float64 at most this share of the bf16 mirror's
+TF32_TOL, TF32_SHARE = 5e-3, 0.25
+# the bf16 mirror against JAX, x max|ref| (the bf16 kernels' bound)
+BF16_TOL = 3e-2
+ROUNDINGS = ("none", "tf32", "bf16")
+
+
+def rounded(x, rounding):
+    """x with each element rounded as a kernel rounds a product's operand:
+    "tf32" as cvt.rna.tf32.f32 (the float32 bits plus half of the 13
+    dropped bits' place, then truncated: nearest, ties away from zero),
+    "bf16" to nearest even bfloat16, "none" unchanged; in x's dtype."""
+    if rounding == "none":
+        return x
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    if rounding == "tf32":
+        bits = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    else:
+        bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) \
+            & np.uint32(0xFFFF0000)
+    return bits.view(np.float32).astype(np.asarray(x).dtype)
+
+
+def rel_errors(got, want, scale=None):
+    """max|got - want| over max|want| for each pair (over ``scale``'s max
+    where want is all zero)."""
+    errs = []
+    for a, b_ in zip(got, want):
+        top = np.abs(b_).max() or np.abs(scale).max()
+        errs.append(np.abs(np.asarray(a, np.float64) - b_).max() / top)
+    return errs
+
+
+def l2_errors(got, want):
+    """Relative L2 error of each pair: the share tests' statistic, as the
+    max over the few thousand elements of the smallest maps swings by 2x
+    between seeds."""
+    return [np.linalg.norm(np.asarray(a, np.float64) - b_) / np.linalg.norm(b_)
+            for a, b_ in zip(got, want)]
 
 
 class NaQueries:
@@ -149,14 +200,16 @@ def test_interior_tiles_have_rows_without_a_key_in_a_tile():
     assert not rows_without_key(8, 8, 7, 0)
 
 
-def streamed_forward(q, k, v, ks, scale, guard=True):
-    """The forward's online softmax (csrc/attn_fwd.cuh) over the NaQueries
-    geometry, in numpy float64: per block, per streamed tile, logits of
-    the attending pairs (others -inf), the running max m and sum l, p =
-    exp(s - m) and the output rescaled by exp(m_old - m). With ``guard`` a
-    row whose max is still -inf takes 0 as its reference, as the kernel
-    does. q, k, v (b, h, w, heads, e); returns out and lse (b, heads, h,
-    w)."""
+def streamed_forward(q, k, v, ks, scale, guard=True, rounding="none"):
+    """The forward's online softmax (csrc/attn_fwd.cuh, csrc/attn_tf32.cuh)
+    over the NaQueries geometry, in numpy float64: per block, per streamed
+    tile, logits of the attending pairs (others -inf), the running max m
+    and sum l, p = exp(s - m) and the output rescaled by exp(m_old - m).
+    With ``guard`` a row whose max is still -inf takes 0 as its reference,
+    as the kernels do. ``rounding`` rounds the operands of q k^T and p v
+    (``rounded``); l sums p unrounded, as the kernels do. q, k, v (b, h, w,
+    heads, e); returns out and lse (b, heads, h, w)."""
+    rnd = lambda x: rounded(x, rounding)
     b, h, w, heads, e = q.shape
     flat = [t.reshape(b, h * w, heads, e).astype(np.float64)
             for t in (q, k, v)]
@@ -176,7 +229,8 @@ def streamed_forward(q, k, v, ks, scale, guard=True):
                 # zero-filled slots past the halo or the map
                 kt = flat[1][:, keys] * ok[0, j][None, :, None, None]
                 vt = flat[2][:, keys] * ok[0, j][None, :, None, None]
-                s = np.einsum("bqne,bkne->bnqk", flat[0][:, rows], kt) * scale
+                s = np.einsum("bqne,bkne->bnqk", rnd(flat[0][:, rows]),
+                              rnd(kt)) * scale
                 s = np.where(attends[:, j][None, None], s, -np.inf)
                 mx = np.maximum(m, s.max(-1))
                 ref = np.where(mx == -np.inf, 0.0, mx) if guard else mx
@@ -184,32 +238,45 @@ def streamed_forward(q, k, v, ks, scale, guard=True):
                 p = np.exp(s - ref[..., None])
                 l = l * alpha + p.sum(-1)
                 acc = acc * alpha[..., None] + np.einsum("bnqk,bkne->bnqe",
-                                                         p, vt)
+                                                         rnd(p), rnd(vt))
                 m = mx
             out[:, rows] = (acc / l[..., None]).transpose(0, 2, 1, 3)
             lse[:, :, rows] = m + np.log(l)
     return out.reshape(b, h, w, heads, e), lse.reshape(b, heads, h, w)
 
 
+@pytest.mark.parametrize("rounding", ROUNDINGS)
 @pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (32, 32)])
 @pytest.mark.parametrize("ks", [1, 3, 5, 7])
-def test_streamed_forward_matches_jax(h, w, ks):
+def test_streamed_forward_matches_jax(h, w, ks, rounding):
+    """The streamed forward against JAX's na2d_reference and masked
+    logsumexp: unrounded within F32_TOL; with TF32 operands within
+    TF32_TOL, its error against the unrounded float64 mirror at most
+    TF32_SHARE of the bf16 mirror's (out and lse); with bf16 operands
+    within BF16_TOL (relative L2 for the shares)."""
     rng = np.random.default_rng(ks)
     b, heads, e = 1, 2, 16
     q, k, v = (rng.standard_normal((b, h, w, heads, e)).astype(np.float32)
                for _ in range(3))
-    out, lse = streamed_forward(q, k, v, ks, 0.25)
+    out, lse = streamed_forward(q, k, v, ks, 0.25, rounding=rounding)
     want = j_na.na2d_reference(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), ks, scale=0.25)
+    tol = {"none": F32_TOL, "tf32": TF32_TOL, "bf16": BF16_TOL}[rounding]
     np.testing.assert_allclose(out, np.asarray(want), rtol=0,
-                               atol=F32_TOL * np.abs(want).max())
+                               atol=tol * np.abs(want).max())
     logits = jnp.einsum("bqne,bkne->bnqk", q.reshape(b, h * w, heads, e),
                         k.reshape(b, h * w, heads, e)) * 0.25
     want_lse = jax.nn.logsumexp(
         jnp.where(jax_mask(h, w, ks), logits, -jnp.inf), -1)
     np.testing.assert_allclose(lse, np.asarray(want_lse).reshape(lse.shape),
-                               rtol=0, atol=F32_TOL * np.abs(want_lse).max())
-    if (h, w) == (32, 32) and ks == 7:
+                               rtol=0, atol=tol * np.abs(want_lse).max())
+    if rounding == "tf32":
+        exact = streamed_forward(q, k, v, ks, 0.25)
+        bf16 = streamed_forward(q, k, v, ks, 0.25, rounding="bf16")
+        for name, a, c in zip(("out", "lse"), l2_errors((out, lse), exact),
+                              l2_errors(bf16, exact)):
+            assert a <= TF32_SHARE * c, (name, a, c)
+    if (h, w) == (32, 32) and ks == 7 and rounding == "none":
         # without the guard, the rows with no key in the first tile are NaN
         bad, _ = streamed_forward(q, k, v, ks, 0.25, guard=False)
         nan_rows = np.isnan(bad).any((0, 3, 4)).reshape(-1)
@@ -285,9 +352,12 @@ def slab_rows(t, pos, ok, zero_fill):
 
 
 def streamed_backward(q, k, v, out, lse, dout, ks, scale, reject=True,
-                      zero_fill=True):
-    """The backward's two kernels (csrc/attn_bwd.cuh over csrc/na2d.cuh's
-    geometries) in numpy float32. dq kernel, per query tile (NaQueries):
+                      zero_fill=True, rounding="none", dtype=np.float32):
+    """The backward's two kernels (csrc/attn_bwd.cuh, csrc/attn_tf32.cuh
+    over csrc/na2d.cuh's geometries) in numpy ``dtype`` (float32, as the
+    kernels accumulate), each product's operands rounded by ``rounding``
+    (``rounded``); with bf16 operands out and dout are bf16 for delta too,
+    as the bf16 kernels read them. dq kernel, per query tile (NaQueries):
     per streamed key tile, s = q k^T scale, p = exp(s - lse) where the pair
     attends, ds = p (dout v^T - delta), dq += ds k; dq scaled once. Its
     first step forms delta = rowsum(out * dout). dk/dv kernel, per key tile
@@ -297,39 +367,41 @@ def streamed_backward(q, k, v, out, lse, dout, ks, scale, reject=True,
     dq, dk, dv (b, h, w, heads, e)."""
     b, h, w, heads, e = q.shape
     hw = h * w
-    qf, kf, vf, of, gf = (np.asarray(t, np.float32).reshape(b, hw, heads, e)
+    rnd = lambda x: rounded(x, rounding)
+    qf, kf, vf, of, gf = (np.asarray(t, dtype).reshape(b, hw, heads, e)
                           for t in (q, k, v, out, dout))
     # statistics as (b, positions, heads)
-    lse_p = np.asarray(lse, np.float32).reshape(b, heads, hw).transpose(
-        0, 2, 1)
+    lse_p = np.asarray(lse, dtype).reshape(b, heads, hw).transpose(0, 2, 1)
+    if rounding == "bf16":
+        of, gf = rnd(of), rnd(gf)
     delta = np.einsum("bpne,bpne->bpn", of, gf)
-    scale = np.float32(scale)
-    dq, dk, dv = (np.zeros((b, hw, heads, e), np.float32) for _ in range(3))
+    scale = dtype(scale)
+    dq, dk, dv = (np.zeros((b, hw, heads, e), dtype) for _ in range(3))
     n_tiles = h // TQ * (w // TQ)
     for tile in range(n_tiles):
         geo = NaQueries(tile, h, w, ks)
         pos, ok, attends = block_layout(geo)
         qy, qx = geo.own(np.arange(64))
         rows = qy * w + qx
-        acc = np.zeros((b, heads, 64, e), np.float32)
+        acc = np.zeros((b, heads, 64, e), dtype)
         for j in range(geo.tiles):
             keys = np.where(ok[0, j], pos[0, j], 0)
             kt = slab_rows(kf, keys, ok[0, j], True)
             vt = slab_rows(vf, keys, ok[0, j], True)
-            s = np.einsum("bqne,bkne->bnqk", qf[:, rows], kt) * scale
+            s = np.einsum("bqne,bkne->bnqk", rnd(qf[:, rows]), rnd(kt)) * scale
             lse_r = lse_p[:, rows].transpose(0, 2, 1)[..., None]
             p = np.where(attends[:, j][None, None], np.exp(s - lse_r),
-                         np.float32(0))
-            dp = np.einsum("bqne,bkne->bnqk", gf[:, rows], vt)
+                         dtype(0))
+            dp = np.einsum("bqne,bkne->bnqk", rnd(gf[:, rows]), rnd(vt))
             ds = p * (dp - delta[:, rows].transpose(0, 2, 1)[..., None])
-            acc += np.einsum("bnqk,bkne->bnqe", ds, kt)
+            acc += np.einsum("bnqk,bkne->bnqe", rnd(ds), rnd(kt))
         dq[:, rows] = (acc * scale).transpose(0, 2, 1, 3)
     i = np.arange(64)
     for tile in range(n_tiles):
         geo = NaKeys(tile, h, w, ks, reject)
         ky, kx = geo.own(i)
         own = ky * w + kx
-        acc_k, acc_v = (np.zeros((b, heads, 64, e), np.float32)
+        acc_k, acc_v = (np.zeros((b, heads, 64, e), dtype)
                         for _ in range(2))
         for j in range(geo.tiles):
             y, x, ok = geo.stream(j, i)
@@ -339,12 +411,13 @@ def streamed_backward(q, k, v, out, lse, dout, ks, scale, reject=True,
             lt = slab_rows(lse_p, slot, ok, zero_fill).transpose(0, 2, 1)
             dt = slab_rows(delta, slot, ok, zero_fill).transpose(0, 2, 1)
             attends = geo.mask(j, i[None, :], geo.own_info(i[:, None]))
-            st = np.einsum("bkne,bqne->bnkq", kf[:, own], qt) * scale
+            st = np.einsum("bkne,bqne->bnkq", rnd(kf[:, own]), rnd(qt)) * scale
             pt = np.where(attends[None, None], np.exp(st - lt[:, :, None]),
-                          np.float32(0))
-            dpt = np.einsum("bkne,bqne->bnkq", vf[:, own], gt) - dt[:, :, None]
-            acc_v += np.einsum("bnkq,bqne->bnke", pt, gt)
-            acc_k += np.einsum("bnkq,bqne->bnke", pt * dpt, qt)
+                          dtype(0))
+            dpt = np.einsum("bkne,bqne->bnkq", rnd(vf[:, own]),
+                            rnd(gt)) - dt[:, :, None]
+            acc_v += np.einsum("bnkq,bqne->bnke", rnd(pt), rnd(gt))
+            acc_k += np.einsum("bnkq,bqne->bnke", rnd(pt * dpt), rnd(qt))
         dk[:, own] = (acc_k * scale).transpose(0, 2, 1, 3)
         dv[:, own] = acc_v.transpose(0, 2, 1, 3)
     shape = (b, h, w, heads, e)
@@ -393,18 +466,39 @@ def jax_backward(q, k, v, dout, ks, scale):
     return vjp(jnp.asarray(dout))
 
 
+@pytest.mark.parametrize("rounding", ROUNDINGS)
 @pytest.mark.parametrize("e", [32, 64])
 @pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (64, 64)])
 @pytest.mark.parametrize("ks", range(1, 8))
-def test_streamed_backward_matches_jax_vjp(h, w, ks, e):
+def test_streamed_backward_matches_jax_vjp(h, w, ks, e, rounding):
+    """The streamed backward against jax.vjp of na2d_reference: unrounded
+    within F32_TOL; with TF32 operands within TF32_TOL, its error against
+    the unrounded mirror in float64 (relative L2) at most TF32_SHARE of
+    the bf16 mirror's, dq, dk and dv each; with bf16 operands within
+    BF16_TOL. At ks = 1 dq and dk are exactly 0 (a window of one key) and a
+    rounded mirror's hold the rounding of dP - delta: they are held to the
+    tolerance on dv's scale, and only dv to the share (the bf16 mirror's
+    dP and delta read the same bf16 dout and v = out, and cancel
+    exactly)."""
     q, k, v, dout = backward_case(h, w, ks, e, 10 * ks + e)
     out, lse = streamed_forward(q, k, v, ks, 0.25)
-    got = streamed_backward(q, k, v, out, lse, dout, ks, 0.25)
-    want = jax_backward(q, k, v, dout, ks, 0.25)
-    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
-        b_ = np.asarray(b_)
-        np.testing.assert_allclose(a, b_, rtol=0,
-                                   atol=F32_TOL * np.abs(b_).max(), err_msg=name)
+    got = streamed_backward(q, k, v, out, lse, dout, ks, 0.25,
+                            rounding=rounding)
+    want = [np.asarray(t) for t in jax_backward(q, k, v, dout, ks, 0.25)]
+    tol = {"none": F32_TOL, "tf32": TF32_TOL, "bf16": BF16_TOL}[rounding]
+    for name, err in zip(("dq", "dk", "dv"),
+                         rel_errors(got, want, scale=want[2])):
+        assert err <= tol, (name, err)
+    if rounding == "tf32":
+        exact = streamed_backward(q, k, v, out, lse, dout, ks, 0.25,
+                                  dtype=np.float64)
+        bf16 = streamed_backward(q, k, v, out, lse, dout, ks, 0.25,
+                                 rounding="bf16")
+        n = 3 if ks > 1 else 1  # dq, dk, dv; or dv alone
+        for name, a, c in zip(("dq", "dk", "dv")[-n:],
+                              l2_errors(got[-n:], exact[-n:]),
+                              l2_errors(bf16[-n:], exact[-n:])):
+            assert a <= TF32_SHARE * c, (name, a, c)
 
 
 def test_slab_edge_rejection_guards_dk_dv():

@@ -534,6 +534,8 @@ def launch_cases():
     qkv32 = (f32(1, 8, 8, 64), pos, f32(1, 64), f32(64, 192), torch.ones(2), 2)
     ffn32 = (f32(1, 64, 64), f32(1, 64), f32(64, 256), f32(128, 64))
     seq32 = [f32(1, 16, 64) for _ in range(5)]
+    maps32 = [f32(1, 8, 8, 64) for _ in range(5)]
+    heads32 = [f32(1, 8, 8, 2, 32) for _ in range(5)]
     return {
         "kdt_fused_qkv": lambda: fused_qkv.prologue_forward(*qkv),
         "kdt_fused_qkv_bwd": lambda: fused_qkv.prologue_backward(*qkv, *grads),
@@ -576,6 +578,12 @@ def launch_cases():
             *seq32[:3], 1),
         "kdt_global_packed_bwd_f32": lambda: global_packed.packed_backward(
             *seq32[:4], f32(1, 1, 16), seq32[4], 1),
+        "kdt_na2d_packed_f32": lambda: na2d.packed_forward(*maps32[:3], 1, 7),
+        "kdt_na2d_packed_bwd_f32": lambda: na2d.packed_backward(
+            *maps32[:4], f32(1, 1, 8, 8), maps32[4], 1, 7),
+        "kdt_na2d_heads_f32": lambda: na2d.heads_forward(*heads32[:3], 7),
+        "kdt_na2d_heads_bwd_f32": lambda: na2d.heads_backward(
+            *heads32[:4], f32(1, 2, 8, 8), heads32[4], 7),
     }
 
 
