@@ -13,9 +13,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    with v through its own strides), of the forwards K1 and K4, of K6's and
    K10's (csrc/gemm.cuh's dxn and dW kernels and each one's first kernel),
    of K5's cluster kernel and of K15's (csrc/na_proj.cuh, head dims 32 and
-   64), and of the float32 forms (csrc/attn_tf32.cuh's dense kernels,
-   csrc/na_tf32.cuh's, the TF32 GEMM core's); none may spill or be
-   missing;
+   64), of K8's (bf16 and float32 outputs), and of the float32 forms
+   (csrc/attn_tf32.cuh's dense kernels, csrc/na_tf32.cuh's, also at head
+   dim 128, csrc/na_proj_tf32.cuh's, the TF32 GEMM core's); none may spill
+   or be missing;
 3. kernels: each forward kernel K1-K5 against its plain PyTorch version at
    the flagship shapes (batch 8, bfloat16), with the bound stated, and the
    kernel's, the plain version's and, where one PyTorch call computes the
@@ -184,7 +185,7 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    head dim 32; (c) their times beside the plain version's and SDPA's on
    the float32 inputs (TF32 on), the bound from TF32's 494.7 TFLOP/s; (b)
    on the same inputs each float32 kernel's error against float64 at most
-   1/4 of the bf16 kernel's; (d) the cifar10 U-Net at batch 64 in float32
+   1/4 of the bf16 kernel's; (d) the cifar10 U-Net at batch 8 in float32
    (TF32) and in bf16 on the card against float32 on the CPU, forward and
    gradient: the float32 errors at most 1/4 of bf16's, launch counts in
    each dtype's kernels only; (e) 50-step DPM++(2M) and 3 + 20 training
@@ -211,11 +212,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    bf16's, launches in each dtype's kernels only; (e) 50-step DPM++(2M)
    and 3 + 20 training steps of each in float32 with launch counts; (f)
    the trainer with --mixed-precision no on config_cifar10_transformer.json
-   as in phase 25 (f), its resume bit-equal; (g) the refusals that remain, each by name before
-   any launch: the flagship with head dim 128 at its neighborhood levels
-   in float32 on the card and the trainer's --mixed-precision no on it
-   (K11 and K12 at head dim 128), K11 on float32 maps of head dim 128 and
-   K15 (na2d_packed_proj).
+   as in phase 25 (f), its resume bit-equal; (g) the refusals that remain,
+   each by name before any launch: float16 for the flagship with head dim
+   128 at its neighborhood levels, K11 at head dim 128, K15
+   (na2d_packed_proj) and K8's output.
 27. float32 compute on the card for the neighborhood-attention configs
    (``na_float32_phase``; the flagship, config_512_hdit and
    config_256_p8_wide): (a) the float32 forms of K2 and K7 (channel-packed)
@@ -247,6 +247,30 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    most 1/4 of bf16's; each of the two as shipped (dropout on) 3 + 20
    float32 training steps (config_512_hdit at 8, config_256_p8_wide at
    32) with their launch counts.
+28. the flagship with head dim 128 at its neighborhood levels
+   (``na128_phase``; config_oxford_flowers.json with d_head 128 there, no
+   config ships it: one head of 128 at 64 x 64, two at 32 x 32), whose NA
+   levels take the plain prologue (``fused_qkv.takes``) and K11/K12 at
+   head dim 128: (a) K11 and K12 at its NA levels (batch 8) in float32
+   (csrc/na_tf32.cuh, two warpgroups a block) and bf16 (the wmma kernels
+   of csrc/na2d.cuh, csrc/na2d_heads.cu) against their plain versions
+   (float32: TF32 off, 5e-3), timed beside them, the bound and masked
+   SDPA, the float32 forms against float64 within 1/4 of the bf16 forms'
+   errors, output by output, and rerun bit-equal; (b) K15-f32
+   (csrc/na_proj_tf32.cuh) at one op call at each flagship NA level and
+   at head dim 32 against its plain version and float64, with w_out = I
+   and skip = 0 within 2^-10 of K2-f32 (head dim 64) or K11-f32 (32)
+   element by element, and its op path forward and backward (K2-f32 and
+   K7-f32 recompute) with launch counts; (c) K8-f32 at each flagship NA
+   level and its op path; (d) the model at batch 2 in bf16 and float32
+   from the same weights against float32 on the CPU, forward and gradient,
+   float32's errors at most 1/4 of bf16's, launches in each dtype's
+   kernels only (a call 4 K1, 8 K11, 4 K3, 12 K4, 1 K5: K1 at the global
+   level only, no K2); (e) 50-step DPM++(2M) at batch 8, also through
+   condcache, and 3 + 20 training steps at batch 32 in each dtype (also 4
+   K6, 8 K12, 4 K9, 8 K10 a step; no K7), beside the flagship's; (f) the
+   trainer with --mixed-precision no on it as in phase 27 (f), its resume
+   bit-equal.
 
 Each phase ends with a ``time:`` line (its seconds, and in all), the long
 ones also each part of them, and the script with its total.
@@ -263,13 +287,15 @@ K13 and K14, in bf16 and (``flash_f32``, ``flash_bwd_f32``) in float32;
 the shifted-window config at batch 8 for the float32 forms of K1, K3-K6,
 K9 and K10 (``*_f32``; K3 and K9 on K13's and K14's float32 bodies); the
 flagship at batch 8 for the float32 forms of K2 and K7 and, in the unfused
-step, of K11 and K12 (phase 27); one op call at each flagship NA level for
-K15 and K8.
+step, of K11 and K12 (phase 27); the NA-128 flagship at batch 8 for K11
+and K12 at head dim 128 in each dtype (``*_e128``, phase 28); one op call
+at each flagship NA level for K15 and K8 and their float32 forms.
 ``launches`` is its count in that path's sampling (forward) or timed
 training (backward) run, for K11 and K12 the unfused training run, for K15
-and K8 their op paths, for the ``*_f32`` forms of phase 26 the
-shifted-window config's float32 runs, for those of phase 27 the flagship's
-float32 runs. Any
+and K8 and their float32 forms their op paths, for the ``*_f32`` forms of
+phase 26 the shifted-window config's float32 runs, for those of phase 27
+the flagship's float32 runs, for the ``*_e128`` ones the NA-128
+flagship's runs in their dtype. Any
 failure raises: exit code non-zero, no result line. Imports nothing of JAX.
 """
 
@@ -691,29 +717,35 @@ def backward_cases(dev):
     return cases, overlap
 
 
-def overlap_path(overlap):
-    """K8's op path: ``na2d.overlap_add`` once on each NA level's plain
-    partials (``backward_cases``), with the launch counts read around it:
-    since K7 writes dk and dv itself, no model path runs K8. Each result is
-    held against the plain overlap-add again. Returns the counts."""
+def overlap_path(overlap, dtype=torch.bfloat16):
+    """K8's op path: ``na2d.overlap_add`` once on each NA level's partials
+    (``backward_cases``' plain ones; phase 28's seeded ones with ``dtype``
+    float32, K8-f32), writing ``dtype``, with the launch counts read around
+    it: since K7 writes dk and dv itself, no model path runs K8. Each
+    result is held against the plain overlap-add again. Returns the
+    counts."""
     from k_diffusion_tpu_torch.ops import kernels
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
+    f32 = dtype == torch.float32
+    bound = F32_KERNEL_REL_BOUND if f32 else KERNEL_REL_BOUND
     kernels.reset_launch_counts()
-    got = [na2d.overlap_add(*args) for args in overlap]
+    got = [na2d.overlap_add(*args, dtype=dtype) for args in overlap]
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     expected = dict.fromkeys(kernels.COUNTERS, 0) | {
-        "na2d_overlap_add": len(overlap)}
+        "na2d_overlap_add_f32" if f32 else "na2d_overlap_add": len(overlap)}
     if counts != expected:
         raise AssertionError(f"overlap-add path: launch counts {counts} != "
                              f"expected {expected}")
     for sums, args in zip(got, overlap):
-        for name, a, b_ in zip(("dk", "dv"), sums,
-                               na2d.overlap_add_reference(*args)):
-            check_close(f"overlap-add path {name}", a, b_, KERNEL_REL_BOUND)
-    print(f"overlap-add path: launches {counts}; dk, dv within "
-          f"{KERNEL_REL_BOUND} x max|plain|", flush=True)
+        for name, a, b_ in zip(("dk", "dv"), sums, na2d.overlap_add_reference(
+                *args, dtype=dtype)):
+            if a.dtype != dtype:
+                raise AssertionError(f"overlap-add path {name}: {a.dtype}")
+            check_close(f"overlap-add path {name}", a, b_, bound)
+    print(f"overlap-add path ({dtype}): launches {counts}; dk, dv within "
+          f"{bound} x max|plain|", flush=True)
     return counts
 
 
@@ -1660,10 +1692,16 @@ def main():
 
     # float32 compute on the card, the neighborhood-attention configs (the
     # flagship): phase 27
-    na_f32_sample, na_f32_train, na_f32_unfused = na_float32_phase(
-        KT, config, dev, smi, results, cpu_ref, bf16_reports)
+    na_f32_sample, na_f32_train, na_f32_unfused, f32_reports = \
+        na_float32_phase(KT, config, dev, smi, results, cpu_ref, bf16_reports)
     del cpu_ref
     lap("phase 27")
+
+    # the flagship with head dim 128 at its neighborhood levels, in bf16 and
+    # float32; K15-f32 and K8-f32: phase 28
+    na128_counts = na128_phase(KT, dev, smi, results, bf16_reports,
+                               f32_reports)
+    lap("phase 28")
 
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
@@ -1671,7 +1709,10 @@ def main():
     # phase 25's float32 runs for K13's and K14's float32 forms, phase 26's
     # shifted-window float32 runs for those of K1, K3-K6, K9 and K10, phase
     # 27's flagship float32 runs for those of K2, K7 (sampling, fused
-    # training) and K11, K12 (unfused training))
+    # training) and K11, K12 (unfused training), phase 28's NA-128 flagship
+    # runs for K11 and K12 at head dim 128 in each dtype (sampling,
+    # training) and its op paths for K15-f32 and K8-f32; a fourth element
+    # names the launch counter where it is not the kernel's name)
     paths = {
         "fused_qkv": ("fused_qkv.cu", "fused_qkv.py:82", sample_counts),
         "na2d": ("na_fwd.cuh", "na2d.py:576", sample_counts),
@@ -1698,17 +1739,20 @@ def main():
         "na2d_bwd_f32": (*NA_F32_KERNELS["na2d_bwd_f32"], na_f32_train),
         "na2d_heads_f32": (*NA_F32_KERNELS["na2d_heads_f32"], na_f32_unfused),
         "na2d_heads_bwd_f32": (*NA_F32_KERNELS["na2d_heads_bwd_f32"],
-                               na_f32_unfused)}
+                               na_f32_unfused)} | {
+        name: (src, tpu, na128_counts[name], counter)
+        for name, (src, tpu, counter) in NA128_KERNELS.items()}
     report = []
-    for name, (src, tpu, counts) in paths.items():
+    for name, (src, tpu, counts, *counter) in paths.items():
         r = results[name]
-        if not counts[name]:
+        launched = counts[counter[0] if counter else name]
+        if not launched:
             raise AssertionError(f"{name}: no launch on its main path")
         entry = {
             "name": name, "route": "cuda",
             "source": f"k_diffusion_tpu_torch/csrc/{src}",
             "replaces": f"k_diffusion_tpu/ops/pallas/{tpu}",
-            "launches": counts[name],
+            "launches": launched,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["op_ms"] > r["byte_ms"] else "bytes",
@@ -1730,19 +1774,23 @@ def main():
 # (csrc/na_bwd.cuh; OWN_V false in na2d, true in na2d_heads), the forwards
 # K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
 # K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh);
-# the float32 forms: K3's and K9's (csrc/attn_tf32.cuh), K1's, K6's, K4's,
-# K10's and K5's (their kernels and csrc/gemm_tf32.cuh's), K2's and K7's
-# (in na2d) and K11's and K12's (in na2d_heads; csrc/na_tf32.cuh)
+# K8 (bf16 and float32 outputs); the float32 forms: K3's and K9's
+# (csrc/attn_tf32.cuh), K1's, K6's, K4's, K10's and K5's (their kernels and
+# csrc/gemm_tf32.cuh's), K2's and K7's (in na2d), K11's and K12's (in
+# na2d_heads; csrc/na_tf32.cuh, also at head dim 128) and K15's
+# (csrc/na_proj_tf32.cuh)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
                       "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
               "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
     "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
-             "na_tf32_fwd_kernel", "na_tf32_dq_kernel", "na_tf32_dkv_kernel"),
+             "na_tf32_fwd_kernel", "na_tf32_dq_kernel", "na_tf32_dkv_kernel",
+             "na2d_overlap_add_kernel"),
     "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
                    "na_proj_kernel", "na_tf32_fwd_kernel",
-                   "na_tf32_dq_kernel", "na_tf32_dkv_kernel"),
+                   "na_tf32_dq_kernel", "na_tf32_dkv_kernel",
+                   "na_proj_tf32_kernel"),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
                   "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
@@ -1756,15 +1804,25 @@ REPORTED = {
                   "norm_vjp_f32_kernel", "atb_f32_kernel", "reduce_kernel"),
 }
 
+# instantiations the report must list: the float32 forms of K11 and K12 at
+# head dim 128 (two warpgroups a block), K15's at both head dims and K8's
+# two outputs
+REPORTED_INSTANCES = ("na_tf32_fwd_kernel<128>", "na_tf32_dq_kernel<128>",
+                      "na_tf32_dkv_kernel<128>", "na_proj_tf32_kernel<32>",
+                      "na_proj_tf32_kernel<64>",
+                      "na2d_overlap_add_kernel<false>",
+                      "na2d_overlap_add_kernel<true>")
+
 
 def compiler_report(build):
     """Registers and spills of the attention kernels (K3, K13: csrc/attn_
     fwd.cuh; K2, K11: csrc/na_fwd.cuh; K9, K14: csrc/attn_bwd.cuh; K7,
     K12: csrc/na_bwd.cuh), of the forwards K1 and K4, of K6's and K10's
-    (csrc/gemm.cuh's core, each backward's first kernel), of K5's and of
-    K15's (csrc/na_proj.cuh), and of the float32 forms (``REPORTED``),
-    from the compiler report kept beside each library; raises if one
-    spills or is missing."""
+    (csrc/gemm.cuh's core, each backward's first kernel), of K5's, of
+    K15's (csrc/na_proj.cuh) and K8's, and of the float32 forms
+    (``REPORTED``; ``REPORTED_INSTANCES`` by template argument), from the
+    compiler report kept beside each library; raises if one spills or is
+    missing."""
     import re
 
     seen, missing = {}, []
@@ -1792,6 +1850,7 @@ def compiler_report(build):
                 seen[fn] = (int(m.group(1)), spill)
                 fn = None
         missing += [f"{lib}: {n}" for n in names if n not in found]
+    missing += [fn for fn in REPORTED_INSTANCES if fn not in seen]
     if missing or any(spill for _, spill in seen.values()):
         raise AssertionError(f"compiler report: missing {missing}, {seen}")
     print("compiler report: " + ", ".join(
@@ -1804,10 +1863,9 @@ def default_build_check(KT, config, name):
     on the card in bfloat16 (``utils.compute_dtype``), and its denoiser
     gives a finite output of the input's shape at batch 2 (fresh weights,
     eval mode); an explicit float32 on the card builds a float32 model for
-    a model whose kernels take it (``config.card_dtypes``: the U-Net and
-    the flagship) and raises ValueError naming bfloat16 before anything is
-    allocated for the others (an HDiT with a neighborhood level of head dim
-    128)."""
+    a model whose kernels take it (``config.card_dtypes``: every model the
+    port builds, the U-Net and the flagship among them) and would raise
+    ValueError naming bfloat16 before anything is allocated for another."""
     takes_f32 = torch.float32 in KT.config.card_dtypes(config)[0]
     try:
         built = KT.config.make_model(config, dtype=torch.float32)
@@ -3625,7 +3683,7 @@ def tf32_check(dev, shapes):
           f"{len(shapes)} shapes (bound {TF32_SHARE})", flush=True)
 
 
-def float32_model_parity(KT, unet, dev, n_attn, batch=UNET_BATCH):
+def float32_model_parity(KT, unet, dev, n_attn, batch):
     """Phase 25 (d): the cifar10 U-Net (dropout 0, seeded weights, zero-init
     kernels filled) at ``batch``, in float32 on the card with TF32 on and
     in bf16 on the card, against the same weights in float32 on the CPU:
@@ -3777,67 +3835,40 @@ def float32_trainer(KT, config_path, batch, per_step, smi, exact=True):
 
 
 def float32_refusals(KT, dev):
-    """Phase 26 (g): what still has no float32 form on the card is refused
-    by name before any launch. The flagship with head dim 128 at its
-    neighborhood levels (no config ships one) in float32 raises ValueError
-    naming K11 and K12 at head dim 128, and the trainer's
-    --mixed-precision no on it NotImplementedError, before the model is
-    built; K11 at head dim 128 on float32 maps and K15
-    (``na2d_packed_proj``) raise ValueError naming themselves; no kernel
-    launches."""
-    from k_diffusion_tpu_torch import train as train_cli
+    """Phase 26 (g): what no kernel takes on the card is refused by name
+    before any launch: float16. The flagship with head dim 128 at its
+    neighborhood levels (no config ships one; phase 28 runs it in bf16 and
+    float32) built in float16 on the card raises ValueError naming the
+    dtypes the kernels take; K11 on float16 maps of head dim 128, K15
+    (``na2d_packed_proj``) on float16 maps and K8 asked to write float16
+    raise ValueError naming them; no kernel launches."""
     from k_diffusion_tpu_torch.ops import kernels
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
-    wide = json.loads(CONFIG.read_text())
-    for attn in wide["model"]["self_attns"]:
-        if attn["type"] == "neighborhood":
-            attn["d_head"] = 128
-    named = "K11 and K12 at head dim 128"
+    named = "bfloat16 or float32"
     kernels.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "config.json"
-        path.write_text(json.dumps(wide))
-        try:
-            KT.config.make_model(KT.config.load_config(path),
-                                 dtype=torch.float32, device=dev)
-        except ValueError as e:
-            if named not in str(e):
-                raise
-            print(f"float32 refusal (flagship, NA head dim 128): {e}",
-                  flush=True)
-        else:
-            raise AssertionError("NA at head dim 128: built in float32 on "
-                                 "the card")
-        try:
-            train_cli.main(["--config", str(path), "--mixed-precision", "no",
-                            "--name", str(Path(tmp) / "x")])
-        except NotImplementedError as e:
-            if named not in str(e):
-                raise
-            print(f"float32 refusal (trainer, NA head dim 128): {e}",
-                  flush=True)
-        else:
-            raise AssertionError("trainer: --mixed-precision no trained NA at "
-                                 "head dim 128")
-    x = torch.zeros((1, 16, 16, 2, 128), device=dev)
-    p = torch.zeros((1, 16, 16, 128), device=dev)
-    for what, named, call in (
-            ("K11 at head dim 128", "head dim 128",
-             lambda: na2d.heads_forward(x, x, x, 7)),
-            ("K15", "K15-f32", lambda: na2d.na2d_packed_proj(
-                p, p, p, p, torch.eye(128, device=dev), 2, 7))):
+    x = torch.zeros((1, 16, 16, 2, 128), device=dev, dtype=torch.float16)
+    p = torch.zeros((1, 16, 16, 128), device=dev, dtype=torch.float16)
+    part = torch.zeros((1, 2, 4, na2d.HALO_KEYS, 64), device=dev)
+    for what, call in (
+            ("flagship, NA head dim 128", lambda: KT.config.make_model(
+                na128_config(KT), dtype=torch.float16, device=dev)),
+            ("K11 at head dim 128", lambda: na2d.heads_forward(x, x, x, 7)),
+            ("K15", lambda: na2d.na2d_packed_proj(
+                p, p, p, p, torch.eye(128, device=dev), 2, 7)),
+            ("K8", lambda: na2d.overlap_add(part, part, 16, 16, 7,
+                                            dtype=torch.float16))):
         try:
             call()
         except ValueError as e:
             if named not in str(e):
                 raise
-            print(f"float32 refusal ({what}): {e}", flush=True)
+            print(f"float16 refusal ({what}): {e}", flush=True)
         else:
-            raise AssertionError(f"{what}: took float32 on the card")
+            raise AssertionError(f"{what}: took float16 on the card")
     torch.cuda.synchronize()
     if kernels.launch_counts() != dict.fromkeys(kernels.COUNTERS, 0):
-        raise AssertionError(f"float32 refusals launched "
+        raise AssertionError(f"float16 refusals launched "
                              f"{kernels.launch_counts()}")
 
 
@@ -3855,7 +3886,7 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
         run_cases(float32_cases(dev, shapes), results, 20, 5)
         tf32_check(dev, shapes)
     CLOCK.part("phase 25 (a)-(c) kernels")
-    float32_model_parity(KT, unet, dev, n_attn)
+    float32_model_parity(KT, unet, dev, n_attn, F32_PARITY_BATCH)
     CLOCK.part("phase 25 (d) parity")
 
     g = torch.Generator().manual_seed(SEED + 29)
@@ -3899,8 +3930,9 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
 # K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu on the TF32 core
 # csrc/gemm_tf32.cuh) and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
 CIFAR10_TRANSFORMER = ROOT / "configs" / "config_cifar10_transformer.json"
-# the batch of phase 26 (d)'s CPU references (the shifted-window config's
-# step, the ViT's call and step): the CPU's time, not the card's, sets it
+# the batch of phases 25 (d) and 26 (d)'s CPU references (the U-Net's call
+# and step, the shifted-window config's step, the ViT's call and step): the
+# CPU's time, not the card's, sets it
 F32_PARITY_BATCH = 8
 # the float32 kernels of the slice, with the TPU kernel each replaces (the
 # JSON line's source and replaces)
@@ -4197,13 +4229,15 @@ def f32_parity(KT, config, dev, name, fwd, grad, per_call, per_step,
                              f"{F32_MODEL_SHARE} x")
 
 
-def f32_condcache_check(KT, config, model, dev, g, per_call):
-    """Phase 26 (e): an HDiT's float32 50-step DPM++(2M) at batch 8 through
-    condcache, K1's and K4's float32 forms reading each layer's scale out
-    of the schedule's table row through its row stride, against the
-    uncached run: equal (the strided scale is read as the contiguous one
-    is; printed whether bit for bit), launches in the float32 kernels only,
-    no K5 a cached call."""
+def condcache_check(KT, config, model, dev, g, per_call,
+                        dtype=torch.float32):
+    """Phases 26 (e), 27 (d) and 28 (e): an HDiT's 50-step DPM++(2M) at
+    batch 8 in ``dtype`` (by default float32) through condcache, K1's and
+    K4's forms (and the plain prologue where K1 does not take a level)
+    reading each layer's scale out of the schedule's table row through its
+    row stride, against the uncached run: equal (the strided scale is read
+    as the contiguous one is; printed whether bit for bit), launches in
+    ``dtype``'s kernels only, no K5 a cached call."""
     from k_diffusion_tpu_torch import condcache
     from k_diffusion_tpu_torch.ops import kernels
 
@@ -4220,44 +4254,52 @@ def f32_condcache_check(KT, config, model, dev, g, per_call):
         counts = kernels.launch_counts()
         inner.check()
         uncached = KT.sampling.sample_dpmpp_2m(wrap(model), x, sigmas)
+    f32 = dtype == torch.float32
     want = dict.fromkeys(kernels.COUNTERS, 0) | {
-        k: STEPS * v for k, v in as_f32(per_call).items()
-        if k != "fused_mapping_f32"}
-    err = ((cached - uncached).abs().max() / uncached.abs().max()).item()
+        k: STEPS * v for k, v in (as_f32(per_call) if f32 else per_call).items()
+        if not k.startswith("fused_mapping")}
+    err = ((cached.float() - uncached.float()).abs().max()
+           / uncached.float().abs().max()).item()
+    what = "float32" if f32 else "bf16"
     if counts != want or not err <= 1e-5:
-        raise AssertionError(f"float32 condcache: launch counts {counts} "
+        raise AssertionError(f"{what} condcache: launch counts {counts} "
                              f"(want {want}), relative error {err:.3e}")
-    print(f"float32 condcache: {STEPS}-step DPM++(2M) at batch "
+    print(f"{what} condcache: {STEPS}-step DPM++(2M) at batch "
           f"{SAMPLE_BATCH}, cached against uncached: max abs err over "
           f"max|uncached| {err:.3e} (bound 1e-5), bit-equal "
           f"{torch.equal(cached, uncached)}; launches cached {counts}",
           flush=True)
 
 
-def f32_model_runs(KT, config, dev, smi, name, batch_call, batch_step,
-                   per_call, per_step, fwd_flops, reports=(None, None)):
-    """Phases 26 (e) and 27 (d), (e): 50-step DPM++(2M) at ``batch_call``
-    (for an HDiT also through condcache) and 3 + 20 training steps at
-    ``batch_step`` in float32 (TF32 on), each with its launch counts in the
-    float32 kernels only; ``reports`` receive the sampling and the training
-    runs' figures. Returns the sampling and the training runs' counts."""
+def model_runs(KT, config, dev, smi, name, batch_call, batch_step,
+                   per_call, per_step, fwd_flops, reports=(None, None),
+                   dtype=torch.float32):
+    """Phases 26 (e), 27 (d), (e) and 28 (e): 50-step DPM++(2M) at
+    ``batch_call`` (for an HDiT also through condcache) and 3 + 20 training
+    steps at ``batch_step`` in ``dtype`` (by default float32, TF32 on),
+    each with its launch counts in ``dtype``'s kernels only; ``reports``
+    receive the sampling and the training runs' figures. Returns the
+    sampling and the training runs' counts."""
+    f32 = dtype == torch.float32
+    named = as_f32 if f32 else dict
+    what = "float32" if f32 else "bf16"
     g = torch.Generator().manual_seed(SEED + 32)
-    model = KT.config.make_model(config, dtype=torch.float32, device="cpu",
+    model = KT.config.make_model(config, dtype=dtype, device="cpu",
                                  generator=g)
     fill_zero_init(model, g)
     model.to(dev).eval()
-    with tf32(True):
+    with tf32(f32):
         sample_counts = sample(KT, config, model, dev, g, batch_call,
-                               as_f32(per_call), fwd_flops, smi,
-                               f"{name} sampling float32", report=reports[0])
+                               named(per_call), fwd_flops, smi,
+                               f"{name} sampling {what}", report=reports[0])
         if config["model"]["type"] == "image_transformer_v2":
-            f32_condcache_check(KT, config, model, dev, g, per_call)
+            condcache_check(KT, config, model, dev, g, per_call, dtype)
         del model
         torch.cuda.empty_cache()
         train_counts, _ = train(KT, config, dev, smi, batch_step,
-                                as_f32(per_step), fwd_flops,
-                                f"{name} training float32",
-                                dtype=torch.float32, report=reports[1])
+                                named(per_step), fwd_flops,
+                                f"{name} training {what}",
+                                dtype=dtype, report=reports[1])
     return sample_counts, train_counts
 
 
@@ -4295,10 +4337,10 @@ def transformers_float32_phase(KT, dev, smi, results):
                      vit_call, vit_step)
     CLOCK.part("phase 26 (d) parity")
 
-    counts = f32_model_runs(
+    counts = model_runs(
         KT, sw, dev, smi, "shifted-window", SAMPLE_BATCH, TRAIN_BATCH,
         sw_call, sw_step, 2 * flops.analytic_transformer_flops(sw, 1))
-    f32_model_runs(KT, vit, dev, smi, "vit", UNET_BATCH, UNET_BATCH, vit_call,
+    model_runs(KT, vit, dev, smi, "vit", UNET_BATCH, UNET_BATCH, vit_call,
                    vit_step, forward_flops(KT, vit, "vit"))
     CLOCK.part("phase 26 (e) sampling and training")
 
@@ -4504,8 +4546,9 @@ def na_float32_phase(KT, config, dev, smi, results, cpu_ref, bf16_reports):
     size in float32 against bf16 (``f32_full_size``), and cut to 256 x 256
     (unfused) and config_256_p8_wide (fused and unfused) against the CPU
     (``f32_model_parity``), and 3 + 20 float32 training steps of each as
-    shipped. Returns the launch counts of the flagship's
-    float32 sampling, fused and unfused training runs."""
+    shipped. Returns the launch counts of the flagship's float32 sampling,
+    fused and unfused training runs, and the figures of those runs (rates,
+    card time, peak memory), which phase 28 prints its own beside."""
     from k_diffusion_tpu_torch.models import flops
 
     print("phase 27: float32 compute on the card (--mixed-precision no), the "
@@ -4527,7 +4570,7 @@ def na_float32_phase(KT, config, dev, smi, results, cpu_ref, bf16_reports):
 
     hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
     f32_reports = {"sampling": {}, "training": {}, "unfused training": {}}
-    sample_counts, train_counts = f32_model_runs(
+    sample_counts, train_counts = model_runs(
         KT, config, dev, smi, "flagship", SAMPLE_BATCH, TRAIN_BATCH, per_call,
         hdit_layout(KT, config, True), hdit_flops,
         (f32_reports["sampling"], f32_reports["training"]))
@@ -4556,7 +4599,7 @@ def na_float32_phase(KT, config, dev, smi, results, cpu_ref, bf16_reports):
 
     other_na_configs_f32(KT, dev, smi)
     CLOCK.part("phase 27 (g) config_512_hdit and config_256_p8_wide")
-    return sample_counts, train_counts, unfused_counts
+    return sample_counts, train_counts, unfused_counts, f32_reports
 
 
 def other_na_configs_f32(KT, dev, smi):
@@ -4676,6 +4719,359 @@ def f32_full_size(KT, config, dev, name, batch):
         raise AssertionError(f"{name} float32 against bf16: {errs}")
 
 
+# phase 28: the flagship with head dim 128 at its neighborhood levels (no
+# config ships one; ``na128_config``), sampled and trained in bf16 and in
+# float32: its NA levels take the plain prologue (``fused_qkv.takes``) and
+# K11/K12 at head dim 128, in bf16 the wmma kernels of csrc/na2d.cuh and
+# csrc/na2d_heads.cu, in float32 csrc/na_tf32.cuh's (two warpgroups a
+# block); K15-f32 (csrc/na_proj_tf32.cuh) and K8-f32 on their op paths.
+# name -> (source, TPU kernel, the launch counter its main path reads)
+NA128_KERNELS = {
+    "na2d_heads_e128": ("na2d.cuh", "na2d.py:180", "na2d_heads"),
+    "na2d_heads_bwd_e128": ("na2d_heads.cu", "na2d.py:241", "na2d_heads_bwd"),
+    "na2d_heads_f32_e128": ("na_tf32.cuh", "na2d.py:180", "na2d_heads_f32"),
+    "na2d_heads_bwd_f32_e128": ("na_tf32.cuh", "na2d.py:241",
+                                "na2d_heads_bwd_f32"),
+    "na2d_proj_f32": ("na_proj_tf32.cuh", "na2d.py:991", "na2d_proj_f32"),
+    "na2d_overlap_add_f32": ("na2d.cu", "na2d.py:809", "na2d_overlap_add_f32"),
+}
+# K15-f32 with w_out = I and skip = 0 against the float32 forward's output,
+# element by element: one TF32 rounding (2^-11) of the attention output
+PROJ_IDENTITY_REL_BOUND = 2.0 ** -10
+
+
+def with_na_head_dim_128(config):
+    """``config`` (config_oxford_flowers.json, as JSON or loaded) with head
+    dim 128 at its neighborhood levels: one head of 128 at 64 x 64 tokens,
+    two at 32 x 32; the global level keeps eight heads of 64 at 16 x 16."""
+    for attn in config["model"]["self_attns"]:
+        if attn["type"] == "neighborhood":
+            attn["d_head"] = 128
+    return config
+
+
+def na128_config(KT):
+    """The NA-128 flagship's config, loaded as the port loads a config."""
+    return with_na_head_dim_128(KT.config.load_config(CONFIG))
+
+
+def na128_specs(dev):
+    """Phase 28 (a): K11 and K12 at head dim 128 at the NA-128 flagship's
+    NA levels, batch 8 (8 x 64 x 64 x 1 x 128 and 8 x 32 x 32 x 2 x 128, 4
+    calls a level per denoiser call or step), q and k cosine-sim and
+    contiguous, v a strided third of the projection, as the plain prologue
+    leaves them: their float32 forms (``F32Spec``, timed beside the plain
+    version, the TF32 bound and masked SDPA on float32) and their bf16
+    forms on the same maps (``Case``). The forward is timed as sampling
+    runs it (no lse), each backward alone from its forward's out and lse."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    b, bf16 = SAMPLE_BATCH, torch.bfloat16
+
+    def vjp(q, k, v, dout):
+        fwd = na2d.heads_forward(q, k, v, 7, save_lse=True)
+        return na2d.heads_backward(q, k, v, *fwd, dout, 7)
+
+    specs, cases = [], []
+    for h, heads in ((64, 1), (32, 2)):
+        t = torch.randn((b, h, h, 3, heads, 128), generator=g)
+        qk = t[:, :, :, :2] / t[:, :, :, :2].norm(dim=-1, keepdim=True)
+        q, k, v = torch.cat([qk * 10 ** 0.5, t[:, :, :, 2:]], 3).to(
+            dev).unbind(3)
+        m = [q.contiguous(), k.contiguous(), v,
+             torch.randn((b, h, h, heads, 128), generator=g).to(dev)]
+        label = f"{b}x{h}x{h}x{heads}x128"
+        flops = 4 * b * h * h * heads * 128 * 7 ** 2
+        specs.append(F32Spec(
+            "na2d_heads_f32_e128", label, 4, lambda m=m: m[:3], (0, 1, 2),
+            lambda q, k, v: na2d.heads_forward(q, k, v, 7, save_lse=True),
+            lambda q, k, v: (na2d.na2d_reference(q, k, v, 7),
+                             na_lse_plain(q, k, 7)), flops,
+            timed=lambda m=m: na2d.heads_forward(*m[:3], 7),
+            library=under_tf32(True, na_library(m[:3])), skip=(1,)))
+        fwd = na2d.heads_forward(*m[:3], 7, save_lse=True)
+        specs.append(F32Spec(
+            "na2d_heads_bwd_f32_e128", label, 4, lambda m=m: m, (0, 1, 2, 3),
+            vjp,
+            lambda q, k, v, dout: na2d.heads_reference_backward(q, k, v, dout,
+                                                                7),
+            5 * flops // 2,
+            timed=lambda m=m, f=fwd: na2d.heads_backward(*m[:3], *f, m[3], 7),
+            library=under_tf32(True, na_library(m[:3], m[3])), reads=fwd))
+        q, k, v, dout = (x.to(bf16) for x in m)
+        cases.append(Case(
+            "na2d_heads_e128", label, 4,
+            lambda a=(q, k, v): na2d.na2d(*a, 7),
+            lambda a=(q, k, v): na2d.na2d_reference(*a, 7), flops, (q, k, v),
+            timed=lambda a=(q, k, v): na2d.heads_forward(*a, 7),
+            library=na_library((q, k, v))))
+        out, lse = na2d.heads_forward(q, k, v, 7, save_lse=True)
+        cases.append(Case(
+            "na2d_heads_bwd_e128", label, 4,
+            lambda a=(q, k, v, out, lse, dout): na2d.heads_backward(*a, 7),
+            lambda a=(q, k, v, dout): na2d.heads_reference_backward(*a, 7),
+            5 * flops // 2, (q, k, v, out, lse, dout),
+            library=na_library((q, k, v), dout)))
+    return specs, cases
+
+
+def na128_rerun_check(specs):
+    """Phase 28 (a): K11-f32 and K12-f32 at head dim 128 have no partials
+    and no atomics: a rerun of each on the same maps is bit-equal (out,
+    lse; dq, dk, dv)."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    labels = []
+    for s in specs:
+        if s.name != "na2d_heads_bwd_f32_e128":
+            continue
+        q, k, v, dout = s.make()
+        fwd = na2d.heads_forward(q, k, v, 7, save_lse=True)
+        grads = na2d.heads_backward(q, k, v, *fwd, dout, 7)
+        for what, first, again in (
+                ("K11-f32", fwd, na2d.heads_forward(q, k, v, 7,
+                                                   save_lse=True)),
+                ("K12-f32", grads, na2d.heads_backward(q, k, v, *fwd, dout,
+                                                      7))):
+            for a, b_ in zip(first, again):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f"{what} at head dim 128 [{s.label}]"
+                                         f": a rerun differs")
+        labels.append(s.label)
+    print(f"NA-128 float32 rerun check [{', '.join(labels)}]: K11-f32 (out, "
+          f"lse) and K12-f32 (dq, dk, dv) at head dim 128 bit-identical on a "
+          f"rerun", flush=True)
+
+
+def proj_f32_specs(dev):
+    """Phase 28 (b): K15-f32 at one op call at each flagship NA level
+    (batch 8: 8 x 64 x 64 x 128 and 8 x 32 x 32 x 256, head dim 64) and,
+    counting no call, at head dim 32 (8 x 64 x 64 x 128, two heads a
+    rank); operations 4 * 49 * c for the attention and 2 * c * c for the
+    projection per query. No single PyTorch call computes it (library
+    null)."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 41)
+    b = SAMPLE_BATCH
+    specs = []
+    for h, c, e, n in ((64, 128, 64, 1), (32, 256, 64, 1), (64, 128, 32, 0)):
+        t = torch.randn((2, b, h, h, c // e, e), generator=g)
+        q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+            2, b, h, h, c).to(dev)
+        v, skip = (torch.randn((b, h, h, c), generator=g).to(dev)
+                   for _ in range(2))
+        w = (torch.randn((c, c), generator=g) * c ** -0.5).to(dev)
+        m, heads, rows = [q, k, v, skip, w], c // e, b * h * h
+        specs.append(F32Spec(
+            "na2d_proj_f32", f"{b}x{h}x{h}x{c} e={e}", n, lambda m=m: m,
+            (0, 1, 2, 3),
+            lambda *a, heads=heads: (na2d.na2d_packed_proj(*a, heads, 7),),
+            lambda *a, heads=heads: (na2d.proj_reference(*a, heads, 7),),
+            4 * rows * c * 7 ** 2 + 2 * rows * c * c))
+    return specs
+
+
+def proj_f32_identity_check(specs):
+    """Phase 28 (b): K15-f32 with w_out = I and skip = 0 against the float32
+    forward on the same maps (K2-f32 at head dim 64, K11-f32 on the
+    per-head views at 32): one TF32 rounding of the attention output
+    apart, within PROJ_IDENTITY_REL_BOUND of it element by element."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    worst = 0.0
+    for s in specs:
+        q, k, v, skip, _ = s.make()
+        c, e = q.shape[-1], int(s.label.split("e=")[1])
+        heads = c // e
+        got = na2d.proj_forward(q, k, v, torch.zeros_like(skip),
+                                torch.eye(c, device=q.device), heads, 7)
+        if e == 64:
+            want, _ = na2d.packed_forward(q, k, v, heads, 7)
+        else:
+            split = split_heads((q, k, v), heads)
+            want = na2d.heads_forward(*split, 7)[0].reshape(q.shape)
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30))
+        rel = torch.where(want == 0, (got != 0).float(), rel).max().item()
+        if not rel <= PROJ_IDENTITY_REL_BOUND:
+            raise AssertionError(f"K15-f32 identity [{s.label}]: {rel:.3e} "
+                                 f"of the float32 forward's output")
+        worst = max(worst, rel)
+    print(f"K15-f32 identity check [{', '.join(s.label for s in specs)}]: "
+          f"w_out = I, skip = 0 against K2-f32 (e = 64) and K11-f32 (e = "
+          f"32): worst {worst:.3e} of each element (bound 2^-10)", flush=True)
+
+
+def proj_f32_path(specs):
+    """Phase 28 (b): K15-f32's op path, forward and backward (autograd) at
+    both flagship NA levels with the launch counts read around it (K15-f32
+    forward; the attention recomputed by K2-f32 and its gradients by
+    K7-f32), the gradients held against autograd through the plain
+    version in float32 (TF32 off) within F32_KERNEL_REL_BOUND. Returns the
+    counts."""
+    from k_diffusion_tpu_torch.ops import kernels
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 42)
+    calls = [s for s in specs if s.calls]
+    got, cots = [], []
+    kernels.reset_launch_counts()
+    with tf32(False):
+        for s in calls:
+            q = s.make()[0]
+            heads = q.shape[-1] // int(s.label.split("e=")[1])
+            leaves = [t.detach().requires_grad_() for t in s.make()]
+            dout = torch.randn(q.shape, generator=g).to(q.device)
+            out = na2d.na2d_packed_proj(*leaves, heads, 7)
+            got.append(torch.autograd.grad(out, leaves, dout))
+            cots.append((heads, dout))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        n = len(calls)
+        expected = dict.fromkeys(kernels.COUNTERS, 0) | {
+            "na2d_proj_f32": n, "na2d_f32": n, "na2d_bwd_f32": n}
+        if counts != expected:
+            raise AssertionError(f"na2d_packed_proj float32 path: launch "
+                                 f"counts {counts} != expected {expected}")
+        for s, grads, (heads, dout) in zip(calls, got, cots):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in s.make()]
+                want = torch.autograd.grad(
+                    na2d.proj_reference(*leaves, heads, 7), leaves, dout)
+            for name, a, b_ in zip(("q", "k", "v", "skip", "w_out"), grads,
+                                   want):
+                check_close(f"na2d_packed_proj float32 backward d{name} "
+                            f"{s.label}", a, b_, F32_KERNEL_REL_BOUND)
+    print(f"na2d_packed_proj float32 path: launches {counts}; gradients "
+          f"within {F32_KERNEL_REL_BOUND} x max|plain| (TF32 off)", flush=True)
+    return counts
+
+
+def overlap_f32_cases(dev):
+    """Phase 28 (c): K8-f32 at one op call at each flagship NA level, batch
+    8, on seeded float32 halo partials (b, heads, tiles, 208, 64) (K8
+    sums them, so any partials hold it to its plain version), against the
+    plain overlap-add in float32; the library call one ``index_add_`` of
+    the dk and dv halo rows, as phase 6's. Returns the cases and the op
+    path's arguments."""
+    from k_diffusion_tpu_torch.ops.kernels import na2d
+
+    g = torch.Generator().manual_seed(SEED + 43)
+    b, halo = SAMPLE_BATCH, na2d.TILE + na2d.MAX_KERNEL - 1
+    cases, overlap = [], []
+    for h, heads in ((64, 2), (32, 4)):
+        parts = tuple(torch.randn((b, heads, (h // na2d.TILE) ** 2,
+                                   na2d.HALO_KEYS, 64), generator=g).to(dev)
+                      for _ in range(2))
+        overlap.append((*parts, h, h, 7))
+        rows = torch.cat([p[:, :, :, :halo * halo].reshape(b, heads, -1, 64)
+                          for p in parts], -1)
+        sums = torch.zeros((b, heads, h * h + 1, 128), device=dev)
+        cases.append(Case(
+            "na2d_overlap_add_f32", f"{b}x{h}x{h}x{heads * 64}", 1,
+            lambda p=parts, h=h: na2d.overlap_add(*p, h, h, 7,
+                                                  dtype=torch.float32),
+            lambda p=parts, h=h: na2d.overlap_add_reference(
+                *p, h, h, 7, dtype=torch.float32),
+            0, parts,
+            library=lambda s=sums, t=na2d.overlap_add_targets(h, h, 7, dev),
+            r=rows: s.index_add_(2, t, r),
+            rel_bound=F32_KERNEL_REL_BOUND, peak=PEAK_TF32_FLOPS))
+    return cases, overlap
+
+
+def na128_phase(KT, dev, smi, results, bf16_reports, f32_reports):
+    """Phase 28: the flagship with head dim 128 at its NA levels. (a) K11
+    and K12 at head dim 128 in float32 and bf16 at its NA levels against
+    their plain versions, the float32 forms against float64 beside the bf16
+    ones and rerun bit-equal; (b) K15-f32 against its plain version, its
+    identity check and its op path; (c) K8-f32 and its op path; (d) the
+    model at batch 2 in bf16 and float32 from the same weights against
+    float32 on the CPU, forward and gradient; (e) 50-step DPM++(2M) at
+    batch 8 (also through condcache) and 3 + 20 training steps at batch 32
+    in each dtype, beside the flagship's (phases 5, 8 and 27:
+    ``bf16_reports``, ``f32_reports``); (f) the trainer with
+    --mixed-precision no on it, its resume bit-equal. Returns the launch
+    counts of each kernel's main path, by kernel name."""
+    from k_diffusion_tpu_torch.models import flops
+
+    print("phase 28: the flagship with head dim 128 at its neighborhood "
+          "levels, bf16 and float32", flush=True)
+    specs, cases = na128_specs(dev)
+    with torch.no_grad():
+        run_cases(f32_cases(specs), results, 20, 2)
+        run_cases(cases, results, 20, 2)
+        f32_tf32_check(specs)
+        na128_rerun_check(specs)
+    del specs, cases
+    torch.cuda.empty_cache()
+    CLOCK.part("phase 28 (a) K11, K12 at head dim 128")
+
+    specs = proj_f32_specs(dev)
+    with torch.no_grad():
+        run_cases(f32_cases(specs), results, 50, 3)
+        f32_tf32_check(specs)
+        proj_f32_identity_check(specs)
+    proj_counts = proj_f32_path(specs)
+    del specs
+    cases, overlap = overlap_f32_cases(dev)
+    with torch.no_grad():
+        run_cases(cases, results, 20, 3)
+    overlap_counts = overlap_path(overlap, torch.float32)
+    del cases, overlap
+    torch.cuda.empty_cache()
+    CLOCK.part("phase 28 (b)-(c) K15-f32, K8-f32")
+
+    config = na128_config(KT)
+    per_call = hdit_layout(KT, config, False)
+    f32_model_parity(KT, config, dev, "NA-128 flagship", 2, 2, per_call,
+                     hdit_layout(KT, no_dropout(config), True))
+    CLOCK.part("phase 28 (d) parity")
+
+    hdit_flops = 2 * flops.analytic_transformer_flops(config, 1)
+    per_step = hdit_layout(KT, config, True)
+    reports, counts = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        reports[dtype] = ({}, {})
+        counts[dtype] = model_runs(
+            KT, config, dev, smi, "NA-128 flagship", SAMPLE_BATCH,
+            TRAIN_BATCH, per_call, per_step, hdit_flops, reports[dtype],
+            dtype)
+    flagship = {torch.bfloat16: (bf16_reports["sampling"],
+                                 bf16_reports["training"]),
+                torch.float32: (f32_reports["sampling"],
+                                f32_reports["training"])}
+    for dtype, (s, t) in reports.items():
+        fs, ft = flagship[dtype]
+        what = "float32" if dtype == torch.float32 else "bf16"
+        print(f"NA-128 flagship {what} against the flagship's {what} (phase "
+              f"{27 if dtype == torch.float32 else '5 and 8'}): sampling at "
+              f"batch {SAMPLE_BATCH} {s['rate']:.3f} against {fs['rate']:.3f} "
+              f"samples/s (host clock), card time {s['busy_ms']:.3f} against "
+              f"{fs['busy_ms']:.3f} ms a call, peak {s['peak'] / 2**30:.3f} "
+              f"against {fs['peak'] / 2**30:.3f} GiB; training at batch "
+              f"{TRAIN_BATCH} {t['rate']:.3f} against {ft['rate']:.3f} "
+              f"images/s, card time {t['busy_ms']:.3f} against "
+              f"{ft['busy_ms']:.3f} ms a step, peak {t['peak'] / 2**30:.3f} "
+              f"against {ft['peak'] / 2**30:.3f} GiB; launches per call "
+              f"{per_call}, per step {per_step}, on {smi}", flush=True)
+    CLOCK.part("phase 28 (e) sampling and training")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "config_oxford_flowers_na128.json"
+        path.write_text(json.dumps(with_na_head_dim_128(json.loads(
+            CONFIG.read_text()))))
+        float32_trainer(KT, path, TRAIN_BATCH, as_f32(per_step), smi)
+    CLOCK.part("phase 28 (f) trainer")
+    (bf_sample, bf_train), (f_sample, f_train) = (counts[torch.bfloat16],
+                                                  counts[torch.float32])
+    return {"na2d_heads_e128": bf_sample, "na2d_heads_bwd_e128": bf_train,
+            "na2d_heads_f32_e128": f_sample,
+            "na2d_heads_bwd_f32_e128": f_train, "na2d_proj_f32": proj_counts,
+            "na2d_overlap_add_f32": overlap_counts}
+
+
 def forward_flops(KT, config, name="unet", **cond):
     """A model's FLOPs per image per forward: torch.utils.flop_counter
     over the plain forward on the CPU at batch 1 (convolutions, matmuls and
@@ -4759,13 +5155,16 @@ def grad_parity(KT, config, dev, fill, name, keep=None, **cond):
 def hdit_layout(KT, config, training):
     """An HDiT config's launches per denoiser call (``training`` False) or
     per fused training step (True, dropout as configured) on its kernels,
-    by level: K1 at each attention layer, K2 at a neighborhood one, K3 (or
-    the flash kernel where K3 does not take the level) at a global one,
-    none at a shifted-window one (PyTorch ops); K4 where the feed-forward
-    block runs fused (in training where its dropout is 0), K5 once (in
-    training where the mapping network's dropout is 0); in training also
-    each fused op's backward."""
-    from k_diffusion_tpu_torch.ops.kernels import global_packed
+    by level, routed as the model routes: K1 at each attention layer whose
+    width and head dim it takes (``fused_qkv.takes``; the plain prologue
+    elsewhere), at a neighborhood one K2 where the prologue ran fused and
+    ``na2d.packed_takes`` the level, else K11, K3 (or the flash kernel
+    where K3 does not take the level) at a global one, none at a
+    shifted-window one (PyTorch ops); K4 where the feed-forward block runs
+    fused (in training where its dropout is 0), K5 once (in training where
+    the mapping network's dropout is 0); in training also each kernel's
+    backward."""
+    from k_diffusion_tpu_torch.ops.kernels import fused_qkv, global_packed, na2d
 
     m = config["model"]
     side = m["input_size"][0] // m["patch_size"][0]
@@ -4776,14 +5175,16 @@ def hdit_layout(KT, config, training):
         layers = depth if i == last else 2 * depth
         s = (side >> i) ** 2
         kinds = []
-        if attn["type"] != "none":
+        e = attn.get("d_head", 64)
+        fused = attn["type"] != "none" and fused_qkv.takes(width, width // e)
+        if fused:
             kinds.append("fused_qkv")
         if attn["type"] == "neighborhood":
-            kinds.append("na2d")
+            kinds.append("na2d" if fused and na2d.packed_takes(width, e)
+                         else "na2d_heads")
         if attn["type"] == "global":
-            heads = width // attn.get("d_head", 64)
             kinds.append("global_packed" if global_packed.takes(
-                s, width, heads) else "flash")
+                s, width, width // e) else "flash")
         if not (training and p):
             kinds.append("fused_ffn")
         for kind in kinds:

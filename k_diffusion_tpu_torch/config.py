@@ -160,13 +160,10 @@ def model_module(config):
 def card_dtypes(config):
     """(the compute dtypes a config's model takes on the card, the kernels
     that keep it from float32 or None), the answer its constructor gives:
-    the U-Net and the ViT take bfloat16 and float32; the HDiT float32 too
-    unless a neighborhood level has head dim 128."""
-    module = model_module(config)
-    if config["model"]["type"] == "image_transformer_v2":
-        return module.card_dtypes(
-            attn.get("d_head", 64) for attn in config["model"]["self_attns"]
-            if attn["type"] == "neighborhood")
+    every family (the U-Net, the ViT, the HDiT at every head dim its
+    neighborhood kernels take) takes bfloat16 and float32, each kernel of
+    its path having a form in both."""
+    model_module(config)  # raises for a model type the port does not build
     return utils.device.CARD_DTYPES, None
 
 

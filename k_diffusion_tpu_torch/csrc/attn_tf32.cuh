@@ -22,9 +22,9 @@
 // does 2.5x the products and moves 2.25x the bytes.
 //
 // Design: FlashAttention-2's forward and two-kernel backward on warp-level
-// mma.sync m16n8k8 (tf32 x tf32 -> f32). A block is 4 warps and owns 64
-// rows of one head of one image (grid: row tiles, heads, batch); a warp
-// owns 16 of them. The other operand streams through shared memory in
+// mma.sync m16n8k8 (tf32 x tf32 -> f32). A block is 4 warps (8 at E = 128,
+// below) and owns 64 rows of one head of one image (grid: row tiles, heads,
+// batch); a warp owns 16 of them. The other operand streams through shared memory in
 // 64-row f32 tiles, two stages filled by 16-byte cp.async (rows the
 // geometry marks as not ok, past s or past a halo, zero-filled by the
 // copy's source size), one commit group per tile pair.
@@ -52,8 +52,16 @@
 // the forward's guard for rows with none never changes a value).
 //
 // At E = 64 the forward holds 5 tiles (85 KB), each backward kernel 6
-// (102 KB): two blocks an SM. A simple design; making it fast is later work
-// (PERF.md, ROADMAP.md queue 2).
+// (102 KB): two blocks an SM. At E = 128 (the neighborhood kernels at head
+// dim 128) the forward's tiles take 165 KB and each backward kernel's 198.5
+// KB: one block an SM; there a block is two warpgroups (WG<128> = 2, 256
+// threads), warp w owning rows 16 (w % 4) of the block's 64 and output
+// columns [64 (w / 4), 64 (w / 4) + 64): each warpgroup forms the logits
+// (and dP) of its rows over all 128 columns itself, so that no thread holds
+// accumulators over more than 64 output columns (the dk/dv kernel's two
+// sets of 128 would take 128 registers a thread beside the logits'). A
+// simple design; making it fast is later work (PERF.md, ROADMAP.md queue
+// 2).
 #pragma once
 
 #include <cstdint>
@@ -71,6 +79,22 @@ template <int E>
 constexpr int LD = E + 4;  // f32 row stride of a tile in shared memory
 template <int E>
 constexpr int TILE = ROWS * LD<E>;  // floats of one tile
+// warpgroups a block runs at head dim E, its threads, and the 8-column
+// accumulator blocks a warp owns of each output
+template <int E>
+constexpr int WG = E > 64 ? 2 : 1;
+template <int E>
+constexpr int BLOCK = 128 * WG<E>;
+template <int E>
+constexpr int NC = E / 8 / WG<E>;
+
+// The rows (16 (w % 4) of the block's 64) and the first output column
+// (64 (w / 4) at E = 128, else 0) of this thread's warp w.
+__device__ __forceinline__ int own_row0() { return 16 * ((threadIdx.x / 32) % 4); }
+template <int E>
+__device__ __forceinline__ int own_col0() {
+  return static_cast<int>(threadIdx.x / 128) * 8 * NC<E>;
+}
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -136,11 +160,12 @@ __device__ __forceinline__ void mma_nt(float (&acc)[8][4], const float* x_tile, 
   }
 }
 
-// acc[n] (16 x 8 block n of 16 x E) += P Y over the tile's 64 rows: P the
+// acc[n] (16 x 8 block n of 16 x 8 N) += P Y over the tile's 64 rows: P the
 // 16 x 64 accumulator p (its 8-key blocks are the A fragments, keys
-// permuted within each block), Y the tile y_tile.
-template <int E>
-__device__ __forceinline__ void mma_pv(float (&acc)[E / 8][4], const float (&p)[8][4],
+// permuted within each block), Y the first 8 N columns from y_tile of a
+// tile (y_tile may point past the tile's first column).
+template <int E, int N = E / 8>
+__device__ __forceinline__ void mma_pv(float (&acc)[N][4], const float (&p)[8][4],
                                        const float* y_tile) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
@@ -149,7 +174,7 @@ __device__ __forceinline__ void mma_pv(float (&acc)[E / 8][4], const float (&p)[
                            to_tf32(p[kb][3])};
     const float* row = y_tile + (8 * kb + 2 * t) * LD<E> + g;
 #pragma unroll
-    for (int n = 0; n < E / 8; ++n) mma(acc[n], a, to_tf32(row[8 * n]), to_tf32(row[LD<E> + 8 * n]));
+    for (int n = 0; n < N; ++n) mma(acc[n], a, to_tf32(row[8 * n]), to_tf32(row[LD<E> + 8 * n]));
   }
 }
 
@@ -159,13 +184,13 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
   for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 }
 
-// Writes a warp's 16 x E accumulator, rows m0 + g and m0 + g + 8 of the
+// Writes a warp's 16 x 8 N accumulator, rows m0 + g and m0 + g + 8 of the
 // block's own rows (times mul0 and mul1), to their map positions pos(row)
-// of head `head` of image `img` in `out` (strides st); rows whose position
-// is not ok are skipped.
-template <int E, class RowPos>
+// of head `head` of image `img` in `out` (strides st; out may point past
+// the head's first column); rows whose position is not ok are skipped.
+template <int E, int N = E / 8, class RowPos>
 __device__ __forceinline__ void store_rows(float* out, const MapStrides& st, int img, int head,
-                                           const float (&acc)[E / 8][4], int m0,
+                                           const float (&acc)[N][4], int m0,
                                            const RowPos& pos, float mul0, float mul1) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
@@ -175,7 +200,7 @@ __device__ __forceinline__ void store_rows(float* out, const MapStrides& st, int
     float* row = out + st.at(img, p.y, p.x, head, E);
     const float mul = h ? mul1 : mul0;
 #pragma unroll
-    for (int n = 0; n < E / 8; ++n)
+    for (int n = 0; n < N; ++n)
       *reinterpret_cast<float2*>(row + 8 * n + 2 * t) =
           make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
   }
@@ -213,20 +238,24 @@ struct Args {
 // the next product's A operand, whose keys are permuted within each 8-key
 // group.
 
-// The forward: the block's 64 own (query) rows against every streamed
-// (key) tile; O / l to a.out and, when a.lse is not null, lse = max +
-// log(sum) of each row's scaled logits, natural log. A row none of whose
-// keys has streamed past yet keeps m = -inf and takes 0 as its reference,
-// so that p and alpha are 2^-inf = 0 and not NaN (attn_fwd.cuh's guard: in
-// neighborhood attention a query tile's first halo tile misses the windows
-// of its lower rows, the last one those of its upper rows).
+// The attention of the block's 64 own (query) rows of head `head` of image
+// `img` against every streamed (key) tile, in the 5 tiles at smem: acc_o
+// the thread's share of the warp's output columns [own_col0, own_col0 + 8
+// NC) of sum_j P_j V_j (not yet divided by l), m each of its two rows' max
+// scaled logit (log2 domain) and l the row's sum of p (over the quad). A
+// row none of whose keys has streamed past yet keeps m = -inf and takes 0
+// as its reference, so that p and alpha are 2^-inf = 0 and not NaN
+// (attn_fwd.cuh's guard: in neighborhood attention a query tile's first
+// halo tile misses the windows of its lower rows, the last one those of
+// its upper rows). Ends with every warp done with the tiles.
 template <int E, class G>
-__device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
-  extern __shared__ __align__(16) float smem[];
+__device__ __forceinline__ void attend(const Args& a, const G& geo, int head, int img,
+                                       float* smem, float (&acc_o)[NC<E>][4], float (&m)[2],
+                                       float (&l)[2]) {
   float* s_q = smem;
   float* s_kv = smem + TILE<E>;  // stage st: K at 2 st TILE, V after it
-  const int head = blockIdx.y, img = blockIdx.z;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int r0 = own_row0(), c0 = own_col0<E>();
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const int n_tiles = geo.tiles;
   const float scale = a.scale * LOG2E;
   const auto own = [&](int i) { return geo.own(i); };
@@ -242,10 +271,10 @@ __device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
 
   typename G::Info info[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(16 * warp + g + 8 * h);
-  float acc_o[E / 8][4];
+  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(r0 + g + 8 * h);
   zero(acc_o);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {
       load_kv(j + 1, s_kv + 2 * ((j + 1) & 1) * TILE<E>);
@@ -258,7 +287,7 @@ __device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
     const float* s_k = s_kv + 2 * (j & 1) * TILE<E>;
     float acc_s[8][4];
     zero(acc_s);
-    mma_nt<E>(acc_s, s_q, 16 * warp, s_k);
+    mma_nt<E>(acc_s, s_q, r0, s_k);
     // scaled logits, pairs that do not attend (zero-filled slots included:
     // their logit is 0) at -inf; each row's running max
     float mx[2] = {m[0], m[1]};
@@ -279,7 +308,7 @@ __device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
       m[h] = mx[h];
       l[h] *= alpha;
 #pragma unroll
-      for (int n = 0; n < E / 8; ++n) {
+      for (int n = 0; n < NC<E>; ++n) {
         acc_o[n][2 * h] *= alpha;
         acc_o[n][2 * h + 1] *= alpha;
       }
@@ -291,17 +320,31 @@ __device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
         acc_s[n][i] = exp2f(acc_s[n][i] - ref[i >> 1]);
         l[i >> 1] += acc_s[n][i];
       }
-    mma_pv<E>(acc_o, acc_s, s_k + TILE<E>);
+    mma_pv<E, NC<E>>(acc_o, acc_s, s_k + TILE<E> + c0);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
-  store_rows<E>(a.out, a.io, img, head, acc_o, 16 * warp, own, 1.f / l[0], 1.f / l[1]);
-  if (a.lse != nullptr && t == 0) {
+}
+
+// The forward: attend() on the block's own rows of head blockIdx.y of
+// image blockIdx.z; O / l to a.out and, when a.lse is not null, lse = max +
+// log(sum) of each row's scaled logits, natural log.
+template <int E, class G>
+__device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
+  extern __shared__ __align__(16) float smem[];
+  const int head = blockIdx.y, img = blockIdx.z;
+  const int r0 = own_row0(), c0 = own_col0<E>();
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float acc_o[NC<E>][4], m[2], l[2];
+  attend<E>(a, geo, head, img, smem, acc_o, m, l);
+  const auto own = [&](int i) { return geo.own(i); };
+  store_rows<E, NC<E>>(a.out + c0, a.io, img, head, acc_o, r0, own, 1.f / l[0], 1.f / l[1]);
+  if (a.lse != nullptr && t == 0 && c0 == 0) {
     float* lse = a.lse + (static_cast<long>(img) * a.n_heads + head) * geo.positions;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const wg::Pos p = geo.own(16 * warp + g + 8 * h);
+      const wg::Pos p = geo.own(r0 + g + 8 * h);
       if (p.ok) lse[geo.index(p)] = (m[h] + __log2f(l[h])) * LN2;
     }
   }
@@ -321,6 +364,7 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   float* s_stat = smem + 6 * TILE<E>;  // lse log2 e, then delta, of the own rows
   const int head = blockIdx.y, img = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = own_row0(), c0 = own_col0<E>();
   const int n_tiles = geo.tiles;
   const float scale = a.scale * LOG2E;
   const auto own = [&](int i) { return geo.own(i); };
@@ -335,10 +379,12 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   load_kv(0, s_kv);
   wg::cp_async_commit();
 
-  // delta and lse of the warp's 16 rows, one row at a time over the warp
+  // delta and lse of the block's 64 rows, PER a warp, one row at a time
+  // over the warp
+  constexpr int PER = ROWS / (4 * WG<E>);
   const long stat = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
-  for (int i = 0; i < 16; ++i) {
-    const wg::Pos p = geo.own(16 * warp + i);
+  for (int i = PER * warp; i < PER * (warp + 1); ++i) {
+    const wg::Pos p = geo.own(i);
     float d = 0.f;
     if (p.ok) {
       const long at = a.io.at(img, p.y, p.x, head, E);
@@ -348,22 +394,22 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
     }
     d = warp_sum(d);
     if (lane == 0) {
-      s_stat[16 * warp + i] = p.ok ? a.lse[stat + geo.index(p)] * LOG2E : 0.f;
-      s_stat[ROWS + 16 * warp + i] = d;
+      s_stat[i] = p.ok ? a.lse[stat + geo.index(p)] * LOG2E : 0.f;
+      s_stat[ROWS + i] = d;
       if (p.ok) a.delta[stat + geo.index(p)] = d;
     }
   }
-  __syncwarp();
+  __syncthreads();  // at E = 128 a warp reads rows two other warps formed
   float lse[2], delta[2];
   typename G::Info info[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    lse[h] = s_stat[16 * warp + g + 8 * h];
-    delta[h] = s_stat[ROWS + 16 * warp + g + 8 * h];
-    info[h] = geo.own_info(16 * warp + g + 8 * h);
+    lse[h] = s_stat[r0 + g + 8 * h];
+    delta[h] = s_stat[ROWS + r0 + g + 8 * h];
+    info[h] = geo.own_info(r0 + g + 8 * h);
   }
 
-  float acc_dq[E / 8][4];
+  float acc_dq[NC<E>][4];
   zero(acc_dq);
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {
@@ -379,8 +425,8 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
     float acc_s[8][4], acc_dp[8][4];
     zero(acc_s);
     zero(acc_dp);
-    mma_nt<E>(acc_s, s_q, 16 * warp, s_k);
-    mma_nt<E>(acc_dp, s_do, 16 * warp, s_v);
+    mma_nt<E>(acc_s, s_q, r0, s_k);
+    mma_nt<E>(acc_dp, s_do, r0, s_v);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -389,10 +435,10 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
         const float p = on ? exp2f(acc_s[n][i] * scale - lse[i >> 1]) : 0.f;
         acc_s[n][i] = p * (acc_dp[n][i] - delta[i >> 1]);  // dS
       }
-    mma_pv<E>(acc_dq, acc_s, s_k);
+    mma_pv<E, NC<E>>(acc_dq, acc_s, s_k + c0);
     __syncthreads();
   }
-  store_rows<E>(a.dq, a.io, img, head, acc_dq, 16 * warp, own, a.scale, a.scale);
+  store_rows<E, NC<E>>(a.dq + c0, a.io, img, head, acc_dq, r0, own, a.scale, a.scale);
 }
 
 // The backward's dk/dv kernel: the block's 64 own (key) rows against every
@@ -409,7 +455,8 @@ __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
   float* s_qd = smem + 2 * TILE<E>;   // stage st: Q at 2 st TILE, dO after it
   float* s_stat = smem + 6 * TILE<E>;  // lse log2 e, then delta, of the streamed tile
   const int head = blockIdx.y, img = blockIdx.z;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int r0 = own_row0(), c0 = own_col0<E>();
   const long stat = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
   const int n_tiles = geo.tiles;
   const float scale = a.scale * LOG2E;
@@ -427,8 +474,8 @@ __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
 
   typename G::Info info[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(16 * warp + g + 8 * h);
-  float acc_dk[E / 8][4], acc_dv[E / 8][4];
+  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(r0 + g + 8 * h);
+  float acc_dk[NC<E>][4], acc_dv[NC<E>][4];
   zero(acc_dk);
   zero(acc_dv);
   for (int j = 0; j < n_tiles; ++j) {
@@ -450,8 +497,8 @@ __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
     float acc_s[8][4], acc_dp[8][4];
     zero(acc_s);
     zero(acc_dp);
-    mma_nt<E>(acc_s, s_k, 16 * warp, s_q);
-    mma_nt<E>(acc_dp, s_v, 16 * warp, s_do);
+    mma_nt<E>(acc_s, s_k, r0, s_q);
+    mma_nt<E>(acc_dp, s_v, r0, s_do);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -462,12 +509,12 @@ __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
         acc_s[n][i] = p;                                       // P^T
         acc_dp[n][i] = p * (acc_dp[n][i] - s_stat[ROWS + c]);  // dS^T
       }
-    mma_pv<E>(acc_dv, acc_s, s_do);
-    mma_pv<E>(acc_dk, acc_dp, s_q);
+    mma_pv<E, NC<E>>(acc_dv, acc_s, s_do + c0);
+    mma_pv<E, NC<E>>(acc_dk, acc_dp, s_q + c0);
     __syncthreads();
   }
-  store_rows<E>(a.dk, a.io, img, head, acc_dk, 16 * warp, own, a.scale, a.scale);
-  store_rows<E>(a.dv, a.io, img, head, acc_dv, 16 * warp, own, 1.f, 1.f);
+  store_rows<E, NC<E>>(a.dk + c0, a.io, img, head, acc_dk, r0, own, a.scale, a.scale);
+  store_rows<E, NC<E>>(a.dv + c0, a.io, img, head, acc_dv, r0, own, 1.f, 1.f);
 }
 
 template <int E>
@@ -479,17 +526,17 @@ constexpr size_t BWD_SMEM = (6 * TILE<E> + 2 * ROWS) * sizeof(float);
 // rows [64 blockIdx.x, 64 blockIdx.x + 64) of the sequence (wg::Seq) and
 // every 64-row tile streams past them.
 template <int E>
-__global__ void __launch_bounds__(128) tf32_fwd_kernel(const Args a, int s) {
+__global__ void __launch_bounds__(BLOCK<E>) tf32_fwd_kernel(const Args a, int s) {
   fwd_body<E>(a, wg::Seq(blockIdx.x, s));
 }
 
 template <int E>
-__global__ void __launch_bounds__(128) tf32_dq_kernel(const Args a, int s) {
+__global__ void __launch_bounds__(BLOCK<E>) tf32_dq_kernel(const Args a, int s) {
   dq_body<E>(a, wg::Seq(blockIdx.x, s));
 }
 
 template <int E>
-__global__ void __launch_bounds__(128) tf32_dkv_kernel(const Args a, int s) {
+__global__ void __launch_bounds__(BLOCK<E>) tf32_dkv_kernel(const Args a, int s) {
   dkv_body<E>(a, wg::Seq(blockIdx.x, s));
 }
 
@@ -509,7 +556,7 @@ int launch_fwd(const Args& args, Rows in, int b, int s, cudaStream_t st) {
   const Args a = dense<E>(args, in, s);
   const dim3 grid((s + ROWS - 1) / ROWS, a.n_heads, b);
   const cudaError_t attr = allow_smem(tf32_fwd_kernel<E>, FWD_SMEM<E>);
-  tf32_fwd_kernel<E><<<grid, 128, FWD_SMEM<E>, st>>>(a, s);
+  tf32_fwd_kernel<E><<<grid, BLOCK<E>, FWD_SMEM<E>, st>>>(a, s);
   return launch_status(attr);
 }
 
@@ -520,11 +567,11 @@ int launch_bwd(const Args& args, Rows in, int b, int s, cudaStream_t st) {
   const Args a = dense<E>(args, in, s);
   const dim3 grid((s + ROWS - 1) / ROWS, a.n_heads, b);
   cudaError_t attr = allow_smem(tf32_dq_kernel<E>, BWD_SMEM<E>);
-  tf32_dq_kernel<E><<<grid, 128, BWD_SMEM<E>, st>>>(a, s);
+  tf32_dq_kernel<E><<<grid, BLOCK<E>, BWD_SMEM<E>, st>>>(a, s);
   const int status = launch_status(attr);
   if (status != 0) return status;
   attr = allow_smem(tf32_dkv_kernel<E>, BWD_SMEM<E>);
-  tf32_dkv_kernel<E><<<grid, 128, BWD_SMEM<E>, st>>>(a, s);
+  tf32_dkv_kernel<E><<<grid, BLOCK<E>, BWD_SMEM<E>, st>>>(a, s);
   return launch_status(attr);
 }
 

@@ -26,7 +26,9 @@
 //
 // The float32 forms of K2 and K7 (--mixed-precision no) are na_tf32.cuh's
 // TF32 kernels, which K11 and K12 run in float32 too: the same contract on
-// f32 maps. K8 has no float32 form yet (no model path runs it).
+// f32 maps. K8's float32 form is the same kernel writing f32 dk and dv.
+#include <type_traits>
+
 #include "na2d.cuh"
 #include "na_bwd.cuh"
 #include "na_fwd.cuh"
@@ -39,17 +41,19 @@ constexpr int E = 64;
 
 // K8: overlap-adds per-tile f32 halo partials (b, heads, tiles, 208, 64),
 // each 8 x 8 query tile's dk and dv over its 14 x 14 halo, into dk and dv
-// maps: the second half of the Pallas backward's design, which K7 folds
-// into its dk/dv kernel. A thread owns one channel of one key (4 keys per
-// block of 256 threads) and gathers, in a fixed tile order, the partial of
-// every tile whose halo holds that key (at most 3 x 3 tiles; halo origins
-// clamped like the window starts), so the sum is deterministic. Reads 2 *
-// 218 MB of f32 partials at the flagship's level 0, batch 32: bound by
-// memory.
+// maps, bf16 or (F32) f32 as the Pallas kernel writes the partials' dtype:
+// the second half of the Pallas backward's design, which K7 folds into its
+// dk/dv kernel. A thread owns one channel of one key (4 keys per block of
+// 256 threads) and gathers, in a fixed tile order, the partial of every
+// tile whose halo holds that key (at most 3 x 3 tiles; halo origins clamped
+// like the window starts), so the sum is deterministic. Reads 2 * 218 MB of
+// f32 partials at the flagship's level 0, batch 32: bound by memory.
+template <bool F32>
 __global__ void __launch_bounds__(256)
 na2d_overlap_add_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int w, int n_heads,
-                        int ks) {
+                        std::conditional_t<F32, float, bf16>* __restrict__ dk,
+                        std::conditional_t<F32, float, bf16>* __restrict__ dv, int h, int w,
+                        int n_heads, int ks) {
   const int pixel = blockIdx.x * 4 + threadIdx.x / E, e = threadIdx.x % E;
   if (pixel >= h * w) return;
   const int y = pixel / w, xx = pixel % w, head = blockIdx.y;
@@ -68,8 +72,24 @@ na2d_overlap_add_kernel(const float* __restrict__ dk_part, const float* __restri
     }
   }
   const long dst = ((static_cast<long>(blockIdx.z) * h + y) * w + xx) * n_heads * E + head * E + e;
-  dk[dst] = to_bf(sk);
-  dv[dst] = to_bf(sv);
+  if constexpr (F32) {
+    dk[dst] = sk;
+    dv[dst] = sv;
+  } else {
+    dk[dst] = to_bf(sk);
+    dv[dst] = to_bf(sv);
+  }
+}
+
+template <bool F32>
+int launch_overlap_add(const void* dk_part, const void* dv_part, void* dk, void* dv, int b,
+                       int h, int w, int n_heads, int ks, void* stream) {
+  using Out = std::conditional_t<F32, float, bf16>;
+  const dim3 grid((h * w + 3) / 4, n_heads, b);
+  na2d_overlap_add_kernel<F32><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
+      static_cast<Out*>(dk), static_cast<Out*>(dv), h, w, n_heads, ks);
+  return launch_status(cudaSuccess);
 }
 
 }  // namespace
@@ -115,11 +135,14 @@ extern "C" int kdt_na2d_packed_bwd(const void* q, const void* k, const void* v, 
 // dk, dv (b, h, w, heads * 64) bf16.
 extern "C" int kdt_na2d_overlap_add(const void* dk_part, const void* dv_part, void* dk, void* dv,
                                     int b, int h, int w, int n_heads, int ks, void* stream) {
-  const dim3 grid((h * w + 3) / 4, n_heads, b);
-  na2d_overlap_add_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, w, n_heads, ks);
-  return launch_status(cudaSuccess);
+  return launch_overlap_add<false>(dk_part, dv_part, dk, dv, b, h, w, n_heads, ks, stream);
+}
+
+// K8 in float32: kdt_na2d_overlap_add's contract with dk, dv f32.
+extern "C" int kdt_na2d_overlap_add_f32(const void* dk_part, const void* dv_part, void* dk,
+                                        void* dv, int b, int h, int w, int n_heads, int ks,
+                                        void* stream) {
+  return launch_overlap_add<true>(dk_part, dv_part, dk, dv, b, h, w, n_heads, ks, stream);
 }
 
 namespace {

@@ -55,21 +55,24 @@
 // 32, 8 us) against q, k, v, out, dout, lse read and dq, dk, dv written (8
 // * 33.5 MB, 80 us): memory.
 //
-// The float32 forms of K11 and K12 (--mixed-precision no) at head dims 32
-// and 64 are na_tf32.cuh's TF32 kernels, q, k and v each through its own
-// strides, which K2 and K7 run in float32 at 64 on packed maps. Head dim
-// 128 and K15 have no float32 form yet.
+// The float32 forms of K11 and K12 (--mixed-precision no) at head dims 32,
+// 64 and 128 are na_tf32.cuh's TF32 kernels, q, k and v each through its
+// own strides, which K2 and K7 run in float32 at 64 on packed maps (at 128
+// a block of two warpgroups, one an SM).
 //
 // K15, the packed forward with the out-projection and the residual fused
 // into its epilogue, is na_proj.cuh's cluster kernel: a cluster per query
 // tile and image, a rank per 64 channels running attn_fwd.cuh's attention
 // over NaQueries, then a wgmma product with w_out whose A operand, the
 // ranks' attention outputs, comes as register fragments over distributed
-// shared memory.
+// shared memory. Its float32 form is na_proj_tf32.cuh's: the same cluster
+// on attn_tf32.cuh's TF32 attention, the ranks' f32 outputs read as
+// mma.sync A fragments over distributed shared memory.
 #include "na2d.cuh"
 #include "na_bwd.cuh"
 #include "na_fwd.cuh"
 #include "na_proj.cuh"
+#include "na_proj_tf32.cuh"
 #include "na_tf32.cuh"
 
 namespace kdt {
@@ -469,8 +472,8 @@ tf32::Args heads_f32(const void* q, const void* k, const void* v, void* out, voi
 
 }  // namespace
 
-// K11 in float32: kdt_na2d_heads's contract with q, k, v and out f32 and
-// e 32 or 64; the strides multiples of 4 elements, the rows 16-byte
+// K11 in float32: kdt_na2d_heads's contract with q, k, v and out f32 (e 32,
+// 64 or 128); the strides multiples of 4 elements, the rows 16-byte
 // aligned.
 extern "C" int kdt_na2d_heads_f32(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int b, int h, int w, int n_heads, int e, int ks,
@@ -480,12 +483,14 @@ extern "C" int kdt_na2d_heads_f32(const void* q, const void* k, const void* v, v
   switch (e) {
     case 32: return na_tf32::launch_fwd<32>(a, b, h, w, ks, s);
     case 64: return na_tf32::launch_fwd<64>(a, b, h, w, ks, s);
+    case 128: return na_tf32::launch_fwd<128>(a, b, h, w, ks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K12 in float32: kdt_na2d_heads_bwd's contract at e 32 and 64 with q, k,
-// v, out, dout, dq, dk and dv f32; delta is written by the dq kernel.
+// K12 in float32: kdt_na2d_heads_bwd's contract with q, k, v, out, dout,
+// dq, dk and dv f32 (e 32, 64 or 128); delta is written by the dq kernel
+// at every head dim.
 extern "C" int kdt_na2d_heads_bwd_f32(const void* q, const void* k, const void* v,
                                       const void* out, const void* dout, const void* lse,
                                       void* delta, void* dq, void* dk, void* dv, int b, int h,
@@ -502,8 +507,33 @@ extern "C" int kdt_na2d_heads_bwd_f32(const void* q, const void* k, const void* 
   switch (e) {
     case 32: return na_tf32::launch_bwd<32>(a, b, h, w, ks, s);
     case 64: return na_tf32::launch_bwd<64>(a, b, h, w, ks, s);
+    case 128: return na_tf32::launch_bwd<128>(a, b, h, w, ks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K15 in float32: kdt_na2d_proj's contract with q, k, v, skip, w_out and
+// out f32.
+extern "C" int kdt_na2d_proj_f32(const void* q, const void* k, const void* v, const void* skip,
+                                 const void* w_out, void* out, int b, int h, int w, int n_heads,
+                                 int e, int ks, float scale, void* stream) {
+  const long c = static_cast<long>(n_heads) * e;
+  if ((e != 32 && e != 64) || c > 512 || c % 128) return static_cast<int>(cudaErrorInvalidValue);
+  const MapStrides packed{h * w * c, w * c, c};
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.sq = a.sk = a.sv = a.io = packed;
+  a.n_heads = n_heads;
+  a.scale = scale;
+  const float* s = static_cast<const float*>(skip);
+  const float* wo = static_cast<const float*>(w_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ranks = static_cast<int>(c / 64);
+  return e == 32 ? na_proj_tf32::launch<32>(a, s, wo, b, h, w, ks, ranks, st)
+                 : na_proj_tf32::launch<64>(a, s, wo, b, h, w, ks, ranks, st);
 }
 
 KDT_DEFINE_ERROR_STRING

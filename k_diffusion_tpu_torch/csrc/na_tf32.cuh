@@ -1,7 +1,7 @@
 // 2-D neighborhood attention in float32 on Hopper, the kernels of
 // --mixed-precision no for the HDiT's neighborhood levels: the forward
 // with its logsumexp (K2 in f32 on channel-packed maps, na2d.cu; K11 in
-// f32 on per-head maps at head dims 32 and 64, na2d_heads.cu) and the
+// f32 on per-head maps at head dims 32, 64 and 128, na2d_heads.cu) and the
 // two-kernel backward (K7 and K12 in f32). attn_tf32.cuh's bodies run over
 // na2d.cuh's neighborhood geometry, as na_fwd.cuh and na_bwd.cuh run the
 // bf16 bodies. Each query attends to exactly ks x ks keys, its window start
@@ -23,8 +23,8 @@
 // 67 MB, 20 us: bound by memory. The backward reads q, k, v, out, dout and
 // the lse and writes dq, dk, dv: 8 f32 maps, bound by memory too.
 //
-// Design: a block is 4 warps, its 64 own rows an 8 x 8 tile of one head of
-// one image; the grid is (tiles, heads, batch).
+// Design: a block is 4 warps (8 at E = 128, below), its 64 own rows an 8 x
+// 8 tile of one head of one image; the grid is (tiles, heads, batch).
 // - na_tf32_fwd_kernel and na_tf32_dq_kernel: the own rows are a query
 //   tile (NaQueries). The clamped union of its queries' windows, the halo,
 //   streams past as 64-row f32 tiles of K and V, 4 halo rows of 16 key
@@ -44,21 +44,26 @@
 // bit the same kernel.
 //
 // At E = 64 the forward holds 5 padded f32 tiles (85 KB) and each backward
-// kernel 6 (102 KB): two blocks an SM, as the dense TF32 kernels. wgmma's
-// tf32 form reads K-major operands only, and the P V, dS K, P^T dO and dS^T
-// Q products read their B operand MN-major: mma.sync m16n8k8 reads either
-// from the padded tiles. Head dim 128 has no float32 form: its tiles would
-// take 169 KB (the forward) and 203 KB (each backward kernel), one block an
-// SM, and the dk/dv kernel's accumulators 128 registers a thread; no
-// shipped config has an NA level of head dim 128.
+// kernel 6 (102 KB): two blocks an SM, as the dense TF32 kernels. At E =
+// 128 (K11 and K12 at head dim 128) the forward's tiles take 165 KB
+// (168,960 bytes) and each backward kernel's 198.5 KB (203,264 bytes with
+// its lse and delta rows), under the 227 KB a block may take: one block an
+// SM, of two warpgroups (attn_tf32.cuh's WG<128>): a warp keeps its 16
+// rows' accumulators over 64 of the 128 output columns (64 registers for
+// the dk/dv kernel's dk and dv, 32 for the forward's O), and each
+// warpgroup forms its rows' logits and dP over all 128 columns itself.
+// wgmma's tf32 form reads K-major operands only, and the P V, dS K, P^T dO
+// and dS^T Q products read their B operand MN-major: mma.sync m16n8k8 reads
+// either from the padded tiles; at 132 floats a row (132 mod 32 = 4, as 68)
+// the fragment loads stay conflict-free.
 //
-// The kernels are written over MapStrides and the head dim E (32 or 64),
-// q, k and v each read through its own strides: K2 and K7 run them at E =
-// 64 on channel-packed maps (the three stride sets equal), K11 and K12 at
-// 32 and 64 on per-head maps (in the unfused training step v is a strided
-// third of the qkv projection, its row stride 3 c). Each head's row of E
-// floats is contiguous and its strides are multiples of 4 elements, so
-// every 16-byte cp.async stays aligned.
+// The kernels are written over MapStrides and the head dim E (32, 64 or
+// 128), q, k and v each read through its own strides: K2 and K7 run them at
+// E = 64 on channel-packed maps (the three stride sets equal), K11 and K12
+// at 32, 64 and 128 on per-head maps (in the unfused prologue v is a
+// strided third of the qkv projection, its row stride 3 c). Each head's row
+// of E floats is contiguous and its strides are multiples of 4 elements,
+// so every 16-byte cp.async stays aligned.
 #pragma once
 
 #include "attn_tf32.cuh"
@@ -68,20 +73,20 @@ namespace kdt {
 namespace na_tf32 {
 
 template <int E>
-__global__ void __launch_bounds__(128) na_tf32_fwd_kernel(const tf32::Args a, int h, int w,
-                                                          int ks) {
+__global__ void __launch_bounds__(tf32::BLOCK<E>)
+    na_tf32_fwd_kernel(const tf32::Args a, int h, int w, int ks) {
   tf32::fwd_body<E>(a, NaQueries(blockIdx.x, h, w, ks));
 }
 
 template <int E>
-__global__ void __launch_bounds__(128) na_tf32_dq_kernel(const tf32::Args a, int h, int w,
-                                                         int ks) {
+__global__ void __launch_bounds__(tf32::BLOCK<E>)
+    na_tf32_dq_kernel(const tf32::Args a, int h, int w, int ks) {
   tf32::dq_body<E>(a, NaQueries(blockIdx.x, h, w, ks));
 }
 
 template <int E>
-__global__ void __launch_bounds__(128) na_tf32_dkv_kernel(const tf32::Args a, int h, int w,
-                                                          int ks) {
+__global__ void __launch_bounds__(tf32::BLOCK<E>)
+    na_tf32_dkv_kernel(const tf32::Args a, int h, int w, int ks) {
   tf32::dkv_body<E>(a, NaKeys(blockIdx.x, h, w, ks));
 }
 
@@ -94,7 +99,7 @@ int launch_fwd(const tf32::Args& a, int b, int h, int w, int ks, cudaStream_t st
   constexpr size_t smem = tf32::FWD_SMEM<E>;
   const cudaError_t attr = allow_smem(na_tf32_fwd_kernel<E>, smem);
   const dim3 grid((h / TQ) * (w / TQ), a.n_heads, b);
-  na_tf32_fwd_kernel<E><<<grid, 128, smem, st>>>(a, h, w, ks);
+  na_tf32_fwd_kernel<E><<<grid, tf32::BLOCK<E>, smem, st>>>(a, h, w, ks);
   return launch_status(attr);
 }
 
@@ -107,11 +112,11 @@ int launch_bwd(const tf32::Args& a, int b, int h, int w, int ks, cudaStream_t st
   constexpr size_t smem = tf32::BWD_SMEM<E>;
   const dim3 grid((h / TQ) * (w / TQ), a.n_heads, b);
   cudaError_t attr = allow_smem(na_tf32_dq_kernel<E>, smem);
-  na_tf32_dq_kernel<E><<<grid, 128, smem, st>>>(a, h, w, ks);
+  na_tf32_dq_kernel<E><<<grid, tf32::BLOCK<E>, smem, st>>>(a, h, w, ks);
   const int status = launch_status(attr);
   if (status != 0) return status;
   attr = allow_smem(na_tf32_dkv_kernel<E>, smem);
-  na_tf32_dkv_kernel<E><<<grid, 128, smem, st>>>(a, h, w, ks);
+  na_tf32_dkv_kernel<E><<<grid, tf32::BLOCK<E>, smem, st>>>(a, h, w, ks);
   return launch_status(attr);
 }
 

@@ -56,26 +56,9 @@ from ..ops.kernels.flash import flash_attention
 from ..ops.kernels.fused_ffn import fused_geglu_ffn
 from ..ops.kernels.fused_mapping import fused_mapping
 from ..ops.kernels.fused_qkv import fused_qkv_prologue
-from ..ops.kernels.na2d import F32_HEAD_DIMS, na2d, na2d_packed, packed_takes
+from ..ops.kernels.fused_qkv import takes as prologue_takes
+from ..ops.kernels.na2d import na2d, na2d_packed, packed_takes
 from ..utils import compute_dtype, default_device
-
-# the kernels of a neighborhood-attention level at a head dim their float32
-# forms do not take: an HDiT with such a level computes in bfloat16 only on
-# the card
-NO_FLOAT32 = ("the neighborhood-attention kernels K11 and K12 at head dim "
-              "128 (their float32 forms take head dims 32 and 64: "
-              "ROADMAP.md, known limits, NA at e = 128 in float32)")
-
-
-def card_dtypes(na_head_dims):
-    """(the compute dtypes an HDiT takes on the card, the kernels that keep
-    it from float32 or None) from the head dims of its neighborhood levels:
-    bfloat16 and float32 (every kernel of its levels has a float32 form,
-    the neighborhood kernels K2, K7, K11 and K12 at head dims 32 and 64)
-    unless a neighborhood level has another head dim."""
-    if any(e not in F32_HEAD_DIMS for e in na_head_dims):
-        return (torch.bfloat16,), NO_FLOAT32
-    return (torch.bfloat16, torch.float32), None
 
 
 @dataclass(frozen=True)
@@ -200,11 +183,14 @@ class SelfAttentionBlock(nn.Module):
     global or shifted-window attention -> dropout -> out projection ->
     residual.
 
-    In training with ``KDT_TRAIN_FUSION=0`` the prologue runs unfused, as
-    the JAX model's does. A neighborhood level goes to the channel-packed K2
-    where ``na2d.packed_takes`` its width and head dim and the prologue ran
-    fused, and to the per-head K11 otherwise (the unfused prologue, a level
-    wider than 512 or not a multiple of 128, a head dim other than 64). A
+    The prologue runs unfused (written out here, plain torch on the card)
+    in training with ``KDT_TRAIN_FUSION=0``, as the JAX model's does, and
+    wherever ``fused_qkv.takes`` is false (a head dim other than 32 or 64:
+    the JAX dispatcher runs its plain chain there). A neighborhood level
+    goes to the channel-packed K2 where ``na2d.packed_takes`` its width and
+    head dim and the prologue ran fused, and to the per-head K11 otherwise
+    (the unfused prologue, a level wider than 512 or not a multiple of 128,
+    a head dim other than 64). A
     global level goes to K3 where ``global_packed.takes`` it (head dim 64,
     s a multiple of 16 up to 512) and to the flash kernel K13 otherwise. A
     shifted-window level attends within windows of the map, rolled by half
@@ -245,7 +231,8 @@ class SelfAttentionBlock(nn.Module):
         e = self.attn_spec.d_head
         if norm_scale is None:
             norm_scale = self.norm(cond, self.dtype)
-        fused = not self.training or train_fusion_enabled()
+        fused = (not self.training or train_fusion_enabled()) and \
+            prologue_takes(c, self.n_heads)
         if fused:
             q, k, v = (t.reshape(b, h, w, self.n_heads, e)
                        for t in fused_qkv_prologue(
@@ -455,8 +442,7 @@ class ImageTransformerDenoiserModelV2(nn.Module):
     carries across). Parameters go to ``device``, by default the card
     (``utils.default_device``); ``dtype`` is the compute dtype, by default
     bfloat16 on the card and float32 elsewhere (``utils.compute_dtype``);
-    on the card bfloat16, or also float32 unless a neighborhood level has
-    head dim 128 (``card_dtypes``)."""
+    on the card bfloat16 or float32."""
 
     def __init__(self, levels, mapping, in_channels, out_channels, patch_size,
                  num_classes=0, mapping_cond_dim=0, checkpointing=False,
@@ -465,9 +451,7 @@ class ImageTransformerDenoiserModelV2(nn.Module):
         super().__init__()
         check_remat_policy(remat_policy)
         device = default_device(device)
-        dtype = compute_dtype(device, dtype, *card_dtypes(
-            s.self_attn.d_head for s in levels
-            if isinstance(s.self_attn, NeighborhoodAttentionSpec)))
+        dtype = compute_dtype(device, dtype)
         self.levels, self.dtype = levels, dtype
         self.num_classes, self.mapping_cond_dim = num_classes, mapping_cond_dim
         self.checkpointing = checkpointing and remat_policy != NO_REMAT

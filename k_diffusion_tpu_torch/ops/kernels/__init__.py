@@ -30,7 +30,7 @@ def train_fusion_enabled():
 # K1-K5, the backward kernels K6-K10, flash attention K13 and its backward
 # K14, the per-head NA kernels K11 and K12, the fused-epilogue NA K15, and
 # the float32 forms of K13 and K14, of K1-K5, of K6, K9 and K10 and of the
-# neighborhood kernels K7, K11 and K12
+# neighborhood kernels K7, K8, K11, K12 and K15
 COUNTERS = {
     "fused_qkv": (fused_qkv, "launches"),
     "na2d": (na2d, "launches"),
@@ -60,6 +60,8 @@ COUNTERS = {
     "na2d_bwd_f32": (na2d, "bwd_launches_f32"),
     "na2d_heads_f32": (na2d, "heads_launches_f32"),
     "na2d_heads_bwd_f32": (na2d, "heads_bwd_launches_f32"),
+    "na2d_overlap_add_f32": (na2d, "overlap_launches_f32"),
+    "na2d_proj_f32": (na2d, "proj_launches_f32"),
 }
 
 

@@ -100,14 +100,24 @@ def rope_tables(pos, n_heads, d_head):
     return torch.cos(theta).contiguous(), torch.sin(theta).contiguous()
 
 
+def takes(d, n_heads):
+    """Whether K1 and K6 take an attention layer of width d = heads * e: e
+    in ``HEAD_DIMS`` and d a multiple of 64. A routing decision made by
+    shape before any launch: the HDiT runs the plain prologue on the card
+    where it is false (a neighborhood level of head dim 128), as the JAX
+    dispatcher computes the prologue outside its Pallas kernel for the
+    shapes that kernel does not take."""
+    e = d // n_heads
+    return e * n_heads == d and e in HEAD_DIMS and d % 64 == 0
+
+
 def _operands(x, norm_scale, w_qkv, attn_scale, n_heads, strided=False):
     """Checks and casts the operands both kernels share: x bfloat16 or
     float32, norm_scale of x's dtype, ``w_qkv`` cast to it. With
     ``strided`` (the forward), ``norm_scale``'s rows may lie apart.
     Returns (w_qkv, attn_scale, norm_scale's row stride)."""
     b, h, w, d = x.shape
-    e = d // n_heads
-    if e * n_heads != d or e not in HEAD_DIMS or d % 64:
+    if not takes(d, n_heads):
         raise ValueError(f"fused_qkv kernel takes head dim 32 or 64 and d a "
                          f"multiple of 64; got d={d} with {n_heads} heads")
     dev, dtype = x.device, x.dtype
@@ -324,8 +334,11 @@ def fused_qkv_prologue(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
                        eps=1e-6, cos_eps=1e-6):
     """Returns (q, k, v), each (b, h, w, d), with cosine-sim scaling and RoPE
     applied to q and k; differentiable. The kernels take bfloat16 or float32
-    x and norm_scale of x's dtype, head dim 32 or 64 and d % 64 == 0;
-    ``w_qkv`` is cast to x's dtype, as the JAX dispatcher does.
+    x and norm_scale of x's dtype, head dim 32 or 64 and d % 64 == 0
+    (``takes``), and a CUDA tensor of another shape raises: a model routes
+    the head dims they do not take to the plain prologue before calling
+    (the HDiT's neighborhood levels of head dim 128); ``w_qkv`` is cast to
+    x's dtype, as the JAX dispatcher does.
     ``norm_scale`` may be a (b, d) column block of a wider matrix (a
     condcache row) only where autograd is off: the backward kernel takes a
     contiguous scale."""

@@ -18,9 +18,10 @@ differentiates.
   dk/dv kernel per key tile, one counted launch, dq, dk and dv written once
   in bf16).
 - ``overlap_add``: K8 (``csrc/na2d.cu``), the overlap-add of per-tile dk/dv
-  halo partials, the second half of the Pallas backward's design. No model
-  path runs it since K7 writes dk and dv itself; its plain version and
-  ``packed_backward_partials_reference`` hold it on its own op path.
+  halo partials, the second half of the Pallas backward's design, writing
+  bf16 or float32 dk and dv. No model path runs it since K7 writes dk and
+  dv itself; its plain version and ``packed_backward_partials_reference``
+  hold it on its own op path.
 - ``na2d`` on (b, h, w, heads, e) maps, e 32, 64 or 128, read through their
   strides (``csrc/na2d_heads.cu``): the forward K11 (K2's forward, v read
   through its own strides, at e 32 and 64; the wmma forward of
@@ -37,17 +38,15 @@ differentiates.
   VJP of its plain version.
 
 bfloat16 operands go to those kernels, float32 operands (a model built with
-``dtype=torch.float32``, ``--mixed-precision no``) to the float32 forms of
-K2, K7, K11 and K12 (``csrc/na_tf32.cuh``: ``csrc/attn_tf32.cuh``'s TF32
+``dtype=torch.float32``, ``--mixed-precision no``) to their float32 forms:
+K2, K7, K11 and K12 in ``csrc/na_tf32.cuh`` (``csrc/attn_tf32.cuh``'s TF32
 bodies over the same neighborhood geometry; ``kdt_na2d_packed_f32``,
 ``kdt_na2d_packed_bwd_f32`` in ``csrc/na2d.cu``, ``kdt_na2d_heads_f32``,
-``kdt_na2d_heads_bwd_f32`` in ``csrc/na2d_heads.cu``), K11's and K12's at
-head dims 32 and 64 (``F32_HEAD_DIMS``). Each dtype's launches are counted
-apart. K15 and K11/K12 at head dim 128 have no float32 form yet: their
-wrappers refuse float32 CUDA tensors by name before any launch (ROADMAP.md
-queue 2 and known limits). K8 has none either; it takes float32 partials
-and writes bf16 whatever the model's dtype. Only CPU tensors reach the
-plain versions.
+``kdt_na2d_heads_bwd_f32`` in ``csrc/na2d_heads.cu``; K11's and K12's at
+every head dim of ``HEAD_DIMS``), K15 in ``csrc/na_proj_tf32.cuh``
+(``kdt_na2d_proj_f32``) and K8 writing float32 (``kdt_na2d_overlap_add_f32``,
+``overlap_add(..., dtype=torch.float32)``). Each dtype's launches are
+counted apart. Only CPU tensors reach the plain versions.
 """
 
 import ctypes
@@ -66,16 +65,17 @@ heads_bwd_launches = 0  # K12 launches (its two kernels count as one)
 proj_launches = 0       # K15 launches
 launches_f32 = 0            # K2 launches on float32 operands
 bwd_launches_f32 = 0        # K7 launches on float32 operands
+overlap_launches_f32 = 0    # K8 launches writing float32
 heads_launches_f32 = 0      # K11 launches on float32 operands
 heads_bwd_launches_f32 = 0  # K12 launches on float32 operands
+proj_launches_f32 = 0       # K15 launches on float32 operands
 
 DTYPES = (torch.bfloat16, torch.float32)  # operand dtypes the kernels take
 
 TILE = 8          # query tile edge of the kernels
 MAX_KERNEL = 7    # the kernels' halo holds windows up to 7 x 7
 HALO_KEYS = 208   # rows of a tile's halo partial (14 x 14, rounded up to 16)
-HEAD_DIMS = (32, 64, 128)  # head dims of K11 and K12
-F32_HEAD_DIMS = (32, 64)   # head dims of their float32 forms
+HEAD_DIMS = (32, 64, 128)  # head dims of K11 and K12, in either dtype
 # head dims of K15: a rank's 64 channels hold whole heads, and wgmma.cuh's
 # tiles take 32 and 64
 PROJ_HEAD_DIMS = (32, 64)
@@ -95,8 +95,9 @@ _HEADS_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
 # kernel_size, scale, strides, stream
 _HEADS_BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, _P,
                                                           _P]
-# the head dims whose backward kernel forms delta = rowsum(out * dout)
-# itself (na_bwd.cuh's wgmma kernels); at the others the caller forms it
+# the bf16 head dims whose backward kernel forms delta = rowsum(out * dout)
+# itself (na_bwd.cuh's wgmma kernels; the float32 forms do at every head
+# dim); at 128 in bf16 the caller forms it
 DELTA_IN_KERNEL = (32, 64)
 # q, k, v, skip, w_out, out, batch, h, w, heads, e, kernel_size, scale,
 # stream
@@ -181,7 +182,7 @@ def _check(q, n_heads, kernel_size, what, head_dims=(64,)):
 def _check_heads(q, k, v, kernel_size, what):
     """Raises unless q, k, v are as K11 and K12 take them: CUDA tensors of
     one dtype, bfloat16 or float32, and one shape (b, h, w, heads, e), e in
-    HEAD_DIMS (F32_HEAD_DIMS in float32), h and w multiples of 8, the head
+    HEAD_DIMS, h and w multiples of 8, the head
     axis packed at e and the head dim contiguous, the other strides
     multiples of 16 bytes (8 bfloat16 or 4 float32 elements), 16-byte
     aligned. Returns the nine strides (q's, k's, v's batch, row and column)
@@ -195,11 +196,6 @@ def _check_heads(q, k, v, kernel_size, what):
             f"{what}: kernel takes head dim in {HEAD_DIMS}, h and w multiples "
             f"of {TILE} and kernel_size <= min({MAX_KERNEL}, h, w); got "
             f"{tuple(q.shape)}, kernel_size {kernel_size}")
-    if dtype == torch.float32 and e not in F32_HEAD_DIMS:
-        raise ValueError(
-            f"{what}: the float32 forms of K11 and K12 take head dim 32 or "
-            f"64; head dim {e} has no float32 form yet (ROADMAP.md, known "
-            f"limits: NA at e = 128 in float32)")
     per_row = 16 // q.element_size()  # elements in 16 bytes
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != dtype or t.shape != q.shape:
@@ -265,10 +261,10 @@ def overlap_add_targets(h, w, kernel_size, device):
 
 def overlap_add_reference(dk_part, dv_part, h, w, kernel_size,
                           dtype=torch.bfloat16):
-    """Plain version of K8: sums the per-tile halo partials (b, heads,
-    tiles, HALO_KEYS, 64) into dk, dv (b, h, w, heads * 64) of
-    ``dtype``; a tile's halo fills the first 196 of its HALO_KEYS rows
-    (``overlap_add_targets``)."""
+    """Plain version of K8 (of its float32 form with ``dtype`` float32):
+    sums the per-tile halo partials (b, heads, tiles, HALO_KEYS, 64) into
+    dk, dv (b, h, w, heads * 64) of ``dtype``; a tile's halo fills the
+    first 196 of its HALO_KEYS rows (``overlap_add_targets``)."""
     b, n_heads, _, _, e = dk_part.shape
     halo = TILE + MAX_KERNEL - 1
     dev = dk_part.device
@@ -314,24 +310,34 @@ def packed_backward_partials_reference(q, k, v, dout, n_heads, kernel_size,
     return tuple(parts)
 
 
-def overlap_add(dk_part, dv_part, h, w, kernel_size):
-    """Launches K8 on CUDA tensors: per-tile halo partials (b, heads, tiles,
-    HALO_KEYS, 64) float32 -> (dk, dv) bf16, always: K8 has no float32
-    form yet (ROADMAP.md queue 2)."""
+def overlap_add(dk_part, dv_part, h, w, kernel_size, dtype=torch.bfloat16):
+    """Launches K8 (its float32 form where ``dtype`` is float32) on CUDA
+    tensors: per-tile halo partials (b, heads, tiles, HALO_KEYS, 64)
+    float32 -> (dk, dv) (b, h, w, heads * 64) of ``dtype``, bfloat16 or
+    float32, as the JAX kernel writes its partials' dtype."""
     _build.require_cuda(dk_part, "na2d overlap-add")
+    if dtype not in DTYPES:
+        raise ValueError(f"na2d overlap-add: writes bfloat16 or float32, "
+                         f"not {dtype}")
     b, n_heads = dk_part.shape[:2]
     part = (b, n_heads, (h // TILE) * (w // TILE), HALO_KEYS, 64)
     for name, t in (("dk_part", dk_part), ("dv_part", dv_part)):
         _build.require(t, name, dk_part.device, torch.float32, part)
     dk, dv = (torch.empty((b, h, w, n_heads * 64), device=dk_part.device,
-                          dtype=torch.bfloat16) for _ in range(2))
-    lib = _build.load("na2d", kdt_na2d_overlap_add=_OVERLAP_SIGNATURE)
-    _build.launch(
-        lib, "kdt_na2d_overlap_add", "na2d overlap-add", dk_part.device,
-        *map(_build.ptr, (dk_part, dv_part, dk, dv)), b, h, w, n_heads,
-        kernel_size, _build.stream_ptr(dk_part.device))
-    global overlap_launches
-    overlap_launches += 1
+                          dtype=dtype) for _ in range(2))
+    lib = _build.load("na2d", kdt_na2d_overlap_add=_OVERLAP_SIGNATURE,
+                      kdt_na2d_overlap_add_f32=_OVERLAP_SIGNATURE)
+    args = (*map(_build.ptr, (dk_part, dv_part, dk, dv)), b, h, w, n_heads,
+            kernel_size, _build.stream_ptr(dk_part.device))
+    global overlap_launches, overlap_launches_f32
+    if dtype == torch.float32:
+        _build.launch(lib, "kdt_na2d_overlap_add_f32", "na2d overlap-add",
+                      dk_part.device, *args)
+        overlap_launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_na2d_overlap_add", "na2d overlap-add",
+                      dk_part.device, *args)
+        overlap_launches += 1
     return dk, dv
 
 
@@ -396,9 +402,10 @@ def heads_forward(q, k, v, kernel_size, scale=1.0, save_lse=False):
 def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     """Launches K12 (its float32 form on float32 operands) on CUDA tensors:
     returns (dq, dk, dv) in q's dtype, each (b, h, w, heads, e)
-    contiguous. delta = rowsum(out * dout) is formed by the dq kernel at e
-    32 and 64, and at 128 (bfloat16 only) by a plain float32 reduction
-    here, as in the JAX package."""
+    contiguous. delta = rowsum(out * dout) is formed by the dq kernel (the
+    float32 form's at every head dim, the bf16 one's at e 32 and 64), and
+    at e 128 in bfloat16 by a plain float32 reduction here, as in the JAX
+    package."""
     strides = _check_heads(q, k, v, kernel_size, "na2d backward")
     b, h, w, heads, e = q.shape
     dev = q.device
@@ -406,7 +413,7 @@ def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     for name, t in (("out", out), ("dout", dout)):
         _build.require(t, name, dev, q.dtype, q.shape)
     _build.require(lse, "lse", dev, torch.float32, (b, heads, h, w))
-    if e in DELTA_IN_KERNEL:
+    if q.dtype == torch.float32 or e in DELTA_IN_KERNEL:
         delta = torch.empty((b, heads, h, w), device=dev, dtype=torch.float32)
     else:
         delta = (out.float() * dout.float()).sum(-1).permute(0, 3, 1, 2) \
@@ -431,10 +438,10 @@ def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
 
 def na2d(q, k, v, kernel_size, scale=1.0):
     """Neighborhood attention per head: q, k, v (b, h, w, heads, e) ->
-    (b, h, w, heads, e); differentiable. The kernels take bfloat16 with e in
-    ``HEAD_DIMS`` or float32 with e in ``F32_HEAD_DIMS``, h and w multiples
-    of 8, kernel_size <= min(7, h, w), and q, k, v of any strides whose
-    last two are (e, 1)."""
+    (b, h, w, heads, e); differentiable. The kernels take bfloat16 or
+    float32 with e in ``HEAD_DIMS``, h and w multiples of 8, kernel_size
+    <= min(7, h, w), and q, k, v of any strides whose last two are (e, 1)
+    and whose others are multiples of 16 bytes."""
     static = {"kernel_size": kernel_size, "scale": scale}
     if q.device.type == "cpu":
         return residuals.plain(
@@ -449,33 +456,35 @@ def na2d(q, k, v, kernel_size, scale=1.0):
 
 
 def proj_forward(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
-    """Launches K15 on CUDA tensors: returns NA(q, k, v) @ w_out + skip,
-    (b, h, w, c) bf16; w_out is cast to bf16, as the JAX dispatcher casts
-    it to q's dtype. Head dim 128 and above raises: a softmax is not split
-    over the cluster's ranks of 64 channels; so does float32 (K15 has no
-    float32 form yet), before any launch."""
+    """Launches K15 (its float32 form on float32 operands) on CUDA tensors:
+    returns NA(q, k, v) @ w_out + skip, (b, h, w, c) in q's dtype; w_out is
+    cast to q's dtype, as the JAX dispatcher casts it. Head dim 128 and
+    above raises before any launch: a softmax is not split over the
+    cluster's ranks of 64 channels."""
     e = _check(q, n_heads, kernel_size, "na2d_packed_proj", PROJ_HEAD_DIMS)
-    if q.dtype == torch.float32:
-        raise ValueError("na2d_packed_proj: K15-f32, the float32 form of "
-                         "K15, is not ported yet (ROADMAP.md queue 2; no "
-                         "model path runs K15); float32 on the card is "
-                         "refused")
+    dtype = q.dtype
     b, h, w, c = q.shape
     if c > 512 or c % 128:
         raise ValueError(f"na2d_packed_proj kernel takes c <= 512, a "
                          f"multiple of 128; got {tuple(q.shape)}")
-    w16 = w_out.to(torch.bfloat16)
+    w_cast = w_out.to(dtype)
     for name, t in (("q", q), ("k", k), ("v", v), ("skip", skip)):
-        _build.require(t, name, q.device, torch.bfloat16, (b, h, w, c))
-    _build.require(w16, "w_out", q.device, torch.bfloat16, (c, c))
+        _build.require(t, name, q.device, dtype, (b, h, w, c))
+    _build.require(w_cast, "w_out", q.device, dtype, (c, c))
     out = torch.empty_like(q)
-    lib = _build.load("na2d_heads", kdt_na2d_proj=_PROJ_SIGNATURE)
-    _build.launch(
-        lib, "kdt_na2d_proj", "na2d_packed_proj", q.device,
-        *map(_build.ptr, (q, k, v, skip, w16, out)), b, h, w, n_heads, e,
-        kernel_size, scale, _build.stream_ptr(q.device))
-    global proj_launches
-    proj_launches += 1
+    lib = _build.load("na2d_heads", kdt_na2d_proj=_PROJ_SIGNATURE,
+                      kdt_na2d_proj_f32=_PROJ_SIGNATURE)
+    args = (*map(_build.ptr, (q, k, v, skip, w_cast, out)), b, h, w, n_heads,
+            e, kernel_size, scale, _build.stream_ptr(q.device))
+    global proj_launches, proj_launches_f32
+    if dtype == torch.float32:
+        _build.launch(lib, "kdt_na2d_proj_f32", "na2d_packed_proj", q.device,
+                      *args)
+        proj_launches_f32 += 1
+    else:
+        _build.launch(lib, "kdt_na2d_proj", "na2d_packed_proj", q.device,
+                      *args)
+        proj_launches += 1
     return out
 
 
@@ -483,7 +492,7 @@ def _attention_vjp(q, k, v, d_att, n_heads, kernel_size, scale):
     """The attention output and (dq, dk, dv) of packed maps (b, h, w, c)
     for the cotangent d_att: K2 (with lse) and K7 at head dim 64; K11 and
     K12 on the (b, h, w, heads, e) views at head dim 32, which K2 and K7 do
-    not take."""
+    not take (each in its float32 form on float32 maps)."""
     if q.shape[-1] == 64 * n_heads:
         att, lse = packed_forward(q, k, v, n_heads, kernel_size, scale,
                                   save_lse=True)
@@ -521,10 +530,9 @@ class _NA2DProj(torch.autograd.Function):
 def na2d_packed_proj(q, k, v, skip, w_out, n_heads, kernel_size, scale=1.0):
     """``na2d_packed`` with a fused epilogue: NA(q, k, v) @ w_out + skip on
     channel-packed maps (b, h, w, c), w_out (c, c); differentiable. No model
-    path calls it, as in the JAX package. The kernel takes bfloat16, head
-    dim 32 or 64, c <= 512 and a multiple of 128, h and w multiples of 8
-    and kernel_size <= min(7, h, w); float32 CUDA tensors raise (K15 has no
-    float32 form yet)."""
+    path calls it, as in the JAX package. The kernels take bfloat16 or
+    float32, head dim 32 or 64, c <= 512 and a multiple of 128, h and w
+    multiples of 8 and kernel_size <= min(7, h, w)."""
     if q.device.type == "cpu":
         return proj_reference(q, k, v, skip, w_out, n_heads, kernel_size,
                               scale)

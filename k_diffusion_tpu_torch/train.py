@@ -147,9 +147,8 @@ def parse_args(argv=None):
     p.add_argument("--mixed-precision", type=str, default="bf16",
                    choices=["no", "bf16"],
                    help="the compute precision on the card: bf16, or no "
-                        "(float32 with TF32 products; every model but an "
-                        "HDiT with neighborhood-attention levels). The CPU "
-                        "computes in float32")
+                        "(float32 with TF32 products; every model). The "
+                        "CPU computes in float32")
     p.add_argument("--name", type=str, default="model",
                    help="the name of the run")
     p.add_argument("--num-workers", type=int, default=8,
@@ -187,20 +186,12 @@ def check_ported(args):
                 f"{flag} is not ported yet: ROADMAP.md {item}")
 
 
-def float32_on_the_card(config):
-    """``--mixed-precision no`` on the card: float32 compute for a model
-    whose kernels all have float32 forms (``config.card_dtypes``: every
-    shipped config, the neighborhood-attention HDiTs included), with TF32
-    on for cuBLAS and cuDNN, as the upstream PyTorch trainer runs float32
-    (the float32 kernels use the TF32 tensor cores too). Raises
-    NotImplementedError, before any CUDA call, for the others (an HDiT
-    with a neighborhood level of head dim 128)."""
-    dtypes, lacking = config_mod.card_dtypes(config)
-    if torch.float32 not in dtypes:
-        raise NotImplementedError(
-            f"--mixed-precision no (float32 compute on the card) for "
-            f"{config['model']['type']}: {lacking} have no float32 form "
-            f"yet")
+def float32_on_the_card():
+    """``--mixed-precision no`` on the card: float32 compute, which every
+    model the port builds takes (``config.card_dtypes``: each kernel on its
+    path has a float32 form), with TF32 on for cuBLAS and cuDNN, as the
+    upstream PyTorch trainer runs float32 (the float32 kernels use the TF32
+    tensor cores too)."""
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     return torch.float32
@@ -242,7 +233,7 @@ def run(args):
     model_config = config["model"]
     dtype = utils.compute_dtype(device)
     if device.type == "cuda" and args.mixed_precision == "no":
-        dtype = float32_on_the_card(config)
+        dtype = float32_on_the_card()
     log(f"Device: {device}, compute dtype {dtype}", flush=True)
 
     dataset_config = config["dataset"]

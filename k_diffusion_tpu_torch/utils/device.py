@@ -1,6 +1,6 @@
 """Where the port's entry points put their tensors when the caller names no
 device (on the card), and the dtype they compute in there (bfloat16 by
-default; float32 for the models whose kernels all have float32 forms)."""
+default; float32 on request, every kernel having a float32 form)."""
 
 import os
 
@@ -24,10 +24,8 @@ def default_device(device=None):
     return torch.device("cuda", torch.cuda.current_device())
 
 
-# the compute dtypes of the card's kernels: all take bfloat16, and all on a
-# model path also float32 (TF32 tensor cores) but the per-head
-# neighborhood kernels at head dim 128, so a model that runs none of those
-# takes both
+# the compute dtypes of the card's kernels: every kernel takes bfloat16 and
+# has a float32 form (TF32 tensor cores), so every model family takes both
 CARD_DTYPES = (torch.bfloat16, torch.float32)
 
 

@@ -804,8 +804,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     x = torch.zeros((1, 16, 2, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 32 or 64"):
         flash.flash_attention(x, x, x)
-    # K11/K12: head dim 48, a map that does not tile, float16, float32 at
-    # head dim 128 (the float32 forms take 32 and 64), heads not packed
+    # K11/K12: head dim 48, a map that does not tile, float16, mixed dtypes
+    # at head dim 128, heads not packed
     for shape in ((1, 8, 8, 2, 48), (1, 12, 8, 2, 64)):
         x = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim in"):
@@ -814,8 +814,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         na2d.na2d(x, x, x, 7)
     x = torch.zeros((1, 8, 8, 1, 128), device=dev)
-    with pytest.raises(ValueError, match="head dim 128 has no float32 form"):
-        na2d.na2d(x, x, x, 7)
+    with pytest.raises(ValueError, match="dtype"):
+        na2d.na2d(x, x.bfloat16(), x, 7)
     x = torch.zeros((1, 8, 8, 64, 2), device=dev,
                     dtype=torch.bfloat16).transpose(3, 4)
     with pytest.raises(ValueError, match="strides"):
@@ -1054,10 +1054,13 @@ def test_na2d_packed_proj_rerun_is_bit_equal(dev, heads, e):
 
 # K2, K7, K11 and K12 in float32 (csrc/na_tf32.cuh: attn_tf32.cuh's TF32
 # bodies over the neighborhood geometry): (b, h, w, heads, e, ks), one tile
-# and interior tiles, h != w, every window size class, head dims 64 and 32
+# and interior tiles, h != w, every window size class, head dims 64, 32
+# and 128 (blocks of two warpgroups)
 NA_F32_CASES = [(2, 16, 24, 2, 64, 7), (1, 32, 32, 2, 64, 7),
                 (1, 8, 8, 2, 64, 1), (1, 16, 16, 1, 64, 3),
-                (2, 32, 16, 4, 32, 7), (1, 8, 16, 2, 32, 5)]
+                (2, 32, 16, 4, 32, 7), (1, 8, 16, 2, 32, 5),
+                (2, 16, 24, 2, 128, 7), (1, 32, 32, 1, 128, 5),
+                (1, 8, 8, 1, 128, 1)]
 
 
 def na_f32_inputs(g, dev, b, h, w, heads, e):
@@ -1112,12 +1115,98 @@ def test_na2d_float32(dev, no_tf32, b, h, w, heads, e, ks):
 
 
 def test_na2d_float32_refusals(dev):
-    """Float32 at what has no float32 form yet raises ValueError by name
-    before any launch: K11 at head dim 128 and K15."""
+    """What the float32 forms do not take raises ValueError by name before
+    any launch: float16 maps at head dim 128 (K11), float16 and mixed
+    dtypes at K15, and K8 asked to write float16."""
+    kernels.reset_launch_counts()
     g = torch.Generator().manual_seed(32)
     q, k, v, _ = na_f32_inputs(g, dev, 1, 16, 16, 1, 128)
-    with pytest.raises(ValueError, match="head dim 128"):
-        na2d.heads_forward(q, k, v, 7)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        na2d.heads_forward(q.half(), k.half(), v.half(), 7)
     x = torch.randn((1, 16, 16, 128), generator=g).to(dev)
-    with pytest.raises(ValueError, match="K15-f32"):
-        na2d.na2d_packed_proj(x, x, x, x, torch.eye(128, device=dev), 2, 7)
+    eye = torch.eye(128, device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        na2d.na2d_packed_proj(*(x.half() for _ in range(4)), eye, 2, 7)
+    with pytest.raises(ValueError, match="dtype"):
+        na2d.na2d_packed_proj(x, x, x.bfloat16(), x, eye, 2, 7)
+    part = torch.zeros((1, 2, 4, na2d.HALO_KEYS, 64), device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        na2d.overlap_add(part, part, 16, 16, 7, dtype=torch.float16)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.COUNTERS, 0)
+
+
+# K15 in float32 (csrc/na_proj_tf32.cuh): (b, h, w, heads, e, ks), clusters
+# of 2, 8 and 6 ranks at head dim 64, two heads a rank at head dim 32
+PROJ_F32_CASES = [(2, 16, 24, 2, 64, 7), (1, 8, 8, 8, 64, 7),
+                  (1, 16, 16, 6, 64, 5), (2, 16, 24, 4, 32, 7),
+                  (1, 8, 16, 16, 32, 3)]
+
+
+def proj_f32_inputs(g, dev, b, h, w, heads, e):
+    """K15's operands in float32: q, k (cosine-sim per head), v, skip and
+    the cotangent (b, h, w, heads * e), w_out (c, c)."""
+    c = heads * e
+    t = torch.randn((2, b, h, w, heads, e), generator=g)
+    q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+        2, b, h, w, c).to(dev)
+    v, skip, dout = (f32(g, dev, b, h, w, c) for _ in range(3))
+    return q, k, v, skip, f32(g, dev, c, c, std=c ** -0.5), dout
+
+
+@pytest.mark.parametrize("b,h,w,heads,e,ks", PROJ_F32_CASES)
+def test_na2d_packed_proj_float32(dev, no_tf32, b, h, w, heads, e, ks):
+    """K15's float32 form against its plain version (TF32 off), a rerun
+    bit-equal, and its gradients (the attention recomputed by the float32
+    forms of K2 and K7, or of K11 and K12 at head dim 32; matmuls) against
+    autograd through the plain version. With w_out = I and skip = 0 it is
+    the float32 forward's attention output (K2-f32 at head dim 64, K11-f32
+    at 32) rounded once to TF32: within 2^-10 of it, element by element."""
+    g = torch.Generator().manual_seed(33)
+    q, k, v, skip, w_out, dout = proj_f32_inputs(g, dev, b, h, w, heads, e)
+    got = counted(na2d, lambda: na2d.na2d_packed_proj(
+        q, k, v, skip, w_out, heads, ks), "proj_launches_f32")
+    f32_close(got, na2d.proj_reference(q, k, v, skip, w_out, heads, ks))
+    assert torch.equal(na2d.proj_forward(q, k, v, skip, w_out, heads, ks), got)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, skip, w_out)]
+    grads = torch.autograd.grad(na2d.na2d_packed_proj(*leaves, heads, ks),
+                                leaves, dout)
+    with torch.enable_grad():
+        plain = [t.detach().requires_grad_() for t in (q, k, v, skip, w_out)]
+        want = torch.autograd.grad(na2d.proj_reference(*plain, heads, ks),
+                                   plain, dout)
+    for a, b_ in zip(grads, want):
+        f32_close(a, b_)
+    eye = torch.eye(heads * e, device=dev)
+    ident = na2d.proj_forward(q, k, v, torch.zeros_like(skip), eye, heads, ks)
+    if e == 64:
+        att, _ = na2d.packed_forward(q, k, v, heads, ks)
+    else:
+        att = na2d.heads_forward(*(t.reshape(b, h, w, heads, e)
+                                   for t in (q, k, v)), ks)[0].reshape(q.shape)
+    torch.cuda.synchronize()
+    assert ((ident - att).abs() <= 2 ** -10 * att.abs()).all()
+
+
+@pytest.mark.parametrize("b,h,w,heads,ks", [(2, 16, 24, 2, 7), (1, 24, 16, 1, 3)])
+def test_na2d_overlap_add_float32(dev, b, h, w, heads, ks):
+    """K8's float32 form against its plain overlap-add in float32 of the
+    same plain per-tile halo partials (the same sums of at most 9 terms in
+    another order: within 1e-5 x max|plain|), on its own counter."""
+    g = torch.Generator().manual_seed(34)
+    c = heads * 64
+    t = torch.randn((2, b, h, w, heads, 64), generator=g)
+    q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+        2, b, h, w, c).to(dev)
+    v, dout = (f32(g, dev, b, h, w, c) for _ in range(2))
+    dk_part, dv_part = na2d.packed_backward_partials_reference(q, k, v, dout,
+                                                               heads, ks)
+    got = counted(na2d, lambda: na2d.overlap_add(
+        dk_part, dv_part, h, w, ks, dtype=torch.float32),
+        "overlap_launches_f32")
+    want = na2d.overlap_add_reference(dk_part, dv_part, h, w, ks,
+                                      dtype=torch.float32)
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b_.shape
+        err = (a - b_).abs().max().item()
+        assert err <= 1e-5 * b_.abs().max().item(), err

@@ -1,7 +1,7 @@
 """Float32 compute on the card (``--mixed-precision no``) in the port, on the
-CPU: which models take float32 on a CUDA device (every config and the ViT;
-an HDiT with a neighborhood level of head dim 128, which no config ships,
-refuses it by name before any torch call); the flash wrapper's dispatch of float32
+CPU: which models take float32 on a CUDA device (every config, the ViT and
+an HDiT with a neighborhood level of head dim 128, which no config ships);
+the flash wrapper's dispatch of float32
 operands to the float32 kernels (``kdt_flash_fwd_f32``,
 ``kdt_flash_bwd_f32``) with the library stood in for; the autograd node
 carrying float32 residuals; and a small U-Net trained for 2 steps through
@@ -63,7 +63,7 @@ def load(name):
 # a small ViT beside the configs (no config ships one)
 VIT = "vit"
 # the flagship with head dim 128 at its neighborhood levels (no config ships
-# one): K11 and K12 have no float32 form at head dim 128
+# one): its NA levels run the plain prologue and K11/K12 at head dim 128
 NA_HEAD_DIM_128 = "oxford_flowers, neighborhood head dim 128"
 
 
@@ -89,33 +89,25 @@ def build_on_the_card(name, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", CONFIGS + [VIT, NA_HEAD_DIM_128])
 def test_float32_on_the_card_routes_by_family(name, dtype, monkeypatch):
-    """Every config and the ViT build in bfloat16 and in float32 on a CUDA
-    device: the dtype check passes and the build goes on to allocate its
-    first parameter; in float32 ``card_dtypes`` says so and the trainer's
+    """Every config, the ViT and the flagship with head dim 128 at its
+    neighborhood levels build in bfloat16 and in float32 on a CUDA device:
+    the dtype check passes and the build goes on to allocate its first
+    parameter; in float32 ``card_dtypes`` says so and the trainer's
     ``--mixed-precision no`` turns TF32 on for cuBLAS and cuDNN. The three
-    HDiT configs with neighborhood levels (head dim 64) are among them. An
-    HDiT with a neighborhood level of head dim 128 builds in bfloat16 and
-    is refused float32 by name (K11 and K12 at head dim 128), by the model
-    and by the trainer, before any torch call, and TF32 stays off."""
+    HDiT configs with neighborhood levels (head dim 64) are among them, and
+    the head-dim-128 flagship, whose NA levels run K11 and K12 in float32
+    at head dim 128."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    if dtype == torch.bfloat16 or name != NA_HEAD_DIM_128:
-        with _NoTorchCalls(), pytest.raises(_TorchCalled):
-            build_on_the_card(name, dtype)
-        if name != VIT and dtype == torch.float32:
-            config = load(name)
-            assert KT.config.card_dtypes(config) == (
-                (torch.bfloat16, torch.float32), None)
-            assert t_train.float32_on_the_card(config) == torch.float32
-            assert torch.backends.cuda.matmul.allow_tf32
-            assert torch.backends.cudnn.allow_tf32
-        return
-    kernels = r"K11 and K12 at head dim 128"
-    with _NoTorchCalls(), pytest.raises(ValueError, match=kernels):
+    with _NoTorchCalls(), pytest.raises(_TorchCalled):
         build_on_the_card(name, dtype)
-    with _NoTorchCalls(), pytest.raises(NotImplementedError, match=kernels):
-        t_train.float32_on_the_card(na_head_dim_128())
-    assert not torch.backends.cuda.matmul.allow_tf32
+    if name != VIT and dtype == torch.float32:
+        config = na_head_dim_128() if name == NA_HEAD_DIM_128 else load(name)
+        assert KT.config.card_dtypes(config) == (
+            (torch.bfloat16, torch.float32), None)
+        assert t_train.float32_on_the_card() == torch.float32
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
 
 
 def test_float16_and_the_defaults():

@@ -1,20 +1,27 @@
 """Float32 compute on the card (``--mixed-precision no``) for the HDiT's
 neighborhood-attention levels, on the CPU: the plain versions of the
-kernels whose float32 forms this slice adds (K2/K7 on channel-packed maps,
-K11/K12 per head) against the JAX package in float32, its dispatchers and
-its Pallas bodies in interpret mode, forward and backward; each wrapper's
-dispatch by dtype with the library stood in for, and its refusals (float16,
-mixed dtypes, float32 strides that are not multiples of 16 bytes, head dim
-128 in float32, K15 in float32); and the float32 residual stash of
-K2 under a ``save_attn_out`` layer. Same float32 inputs on both sides, made
-with numpy from a seed. The arithmetic of the TF32 kernels over the
-neighborhood geometry is mirrored in tests/test_torch_na_geometry.py, and
-2 float32 trainer steps of a narrowed flagship against JAX's are in
+neighborhood kernels' float32 forms (K2/K7 on channel-packed maps, K11/K12
+per head at head dims 32, 64 and 128, K15 with its out-projection, K8's
+overlap-add writing float32) against the JAX package in float32, its
+dispatchers and its Pallas bodies in interpret mode, forward and backward;
+each wrapper's dispatch by dtype with the library stood in for, and its
+refusals (float16, mixed dtypes, float32 strides that are not multiples of
+16 bytes); the float32 residual stash of K2 under a ``save_attn_out``
+layer; and the flagship with head dim 128 at its neighborhood levels,
+narrowed: its prologue routed by ``fused_qkv.takes`` (the plain prologue at
+the NA levels, K1 at the global one) and its eval forward against the JAX
+model in float32. Same float32 inputs on both sides, made with numpy from
+a seed. The arithmetic of the TF32 kernels over the neighborhood geometry
+is mirrored in tests/test_torch_na_geometry.py, and 2 float32 trainer
+steps of narrowed flagships (NA head dim 64 and 128) against JAX's are in
 tests/test_torch_float32_transformers.py."""
 
 import ctypes
 import functools
 import importlib
+
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +30,10 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import k_diffusion_tpu as K
+import k_diffusion_tpu_torch as KT
+from k_diffusion_tpu_torch import convert
+from k_diffusion_tpu_torch.models import image_transformer_v2 as t_itv2
 from k_diffusion_tpu_torch.ops.attention import neighborhood_mask_2d
 from k_diffusion_tpu_torch.ops.kernels import _build, na2d, residuals
 
@@ -34,9 +45,12 @@ j_na = importlib.import_module("k_diffusion_tpu.ops.pallas.na2d")
 F32_TOL = 2e-5
 TILE = 8  # the Pallas bodies' query tile here
 
-# (head dim, kernel size, h, w) of the plain versions against JAX
+# (head dim, kernel size, h, w) of the plain versions against JAX; the
+# per-head ones also at head dim 128 (one head)
 CASES = [(e, ks, h, w) for e in (64, 32) for ks in (7, 3)
          for h, w in ((16, 16), (8, 24))]
+HEADS_CASES = CASES + [(128, ks, h, w) for ks in (7, 3)
+                       for h, w in ((16, 16), (8, 24))]
 
 
 def rand(rng, *shape):
@@ -79,8 +93,8 @@ def jax_vjp(fn, inputs, cot):
 
 def heads_case(seed, e, h, w, b=1):
     """q, k (cosine-sim per head), v, dout (b, h, w, heads, e) float32 with
-    heads * e = 128, the width at which the Pallas packed body takes both
-    head dims."""
+    heads * e = 128, the width at which the Pallas packed body takes head
+    dims 32 and 64 (one head at 128)."""
     rng = np.random.default_rng(seed)
     shape = (b, h, w, 128 // e, e)
     return (unit_heads(rng, *shape), unit_heads(rng, *shape),
@@ -130,7 +144,7 @@ def unpack(t, b):
     return np.moveaxis(np.asarray(t).reshape(b, n // b, h, w, e), 1, 3)
 
 
-@pytest.mark.parametrize("e,ks,h,w", CASES)
+@pytest.mark.parametrize("e,ks,h,w", HEADS_CASES)
 def test_na2d_heads_float32_matches_jax(e, ks, h, w):
     """The plain versions of K11 and K12 (``na2d`` on float32 CPU tensors, v
     a strided third of a projection) against the JAX dispatcher's forward
@@ -165,6 +179,73 @@ def test_na2d_heads_float32_matches_jax(e, ks, h, w):
     close(plain.reshape(n, h, w), lse)
 
 
+# (c, e) of K15's plain version against JAX: c = 128 at head dims 64 and 32
+# (2 and 4 heads, the Pallas body takes both), and c = 256
+PROJ_CASES = [(128, 64), (128, 32), (256, 64)]
+
+
+@pytest.mark.parametrize("c,e", PROJ_CASES)
+def test_na2d_packed_proj_float32_matches_jax(c, e):
+    """K15-f32's plain version (``na2d_packed_proj`` on float32 CPU tensors:
+    ``proj_reference``, NA(q, k, v) @ w_out + skip, and autograd through
+    it) against the JAX dispatcher's forward and VJP, and against its
+    custom_vjp with the interpret-mode Pallas body ``_na_packed_proj_fwd``
+    as the forward (its backward the VJP of the reference, as the port's
+    recomputes)."""
+    heads = c // e
+    rng = np.random.default_rng(c + e)
+    shape = (1, 16, 16, heads, e)
+    q, k = (unit_heads(rng, *shape).reshape(1, 16, 16, c) for _ in range(2))
+    v, skip, dout = (rand(rng, 1, 16, 16, c) for _ in range(3))
+    w_out = (rand(rng, c, c) * c ** -0.5).astype(np.float32)
+    inputs = (q, k, v, skip, w_out)
+    got, grads = port_vjp(
+        lambda *t: na2d.na2d_packed_proj(*t, heads, 7), inputs, dout)
+    assert got.dtype == torch.float32
+    close(got, na2d.proj_reference(*map(torch.from_numpy, inputs), heads, 7))
+    want, want_grads = jax_vjp(
+        lambda *t: j_na.na2d_packed_proj(*t, heads, 7), inputs, dout)
+    close(got, want)
+    close_all(grads, want_grads)
+    with pltpu.force_tpu_interpret_mode():
+        body = j_na._na_packed_proj_fwd(*map(jnp.asarray, inputs), 7, 1.0,
+                                        TILE, heads)
+        _, body_grads = jax_vjp(
+            lambda *t: j_na._na2d_packed_proj_inner(*t, 7, 1.0, TILE, heads),
+            inputs, dout)
+    close(got, body)
+    close_all(grads, body_grads)
+
+
+@pytest.mark.parametrize("ks,h,w", [(7, 16, 16), (3, 8, 24), (7, 16, 24)])
+def test_overlap_add_float32_matches_jax(ks, h, w):
+    """K8-f32's plain version (``overlap_add_reference`` with dtype
+    float32) of the plain per-tile halo partials
+    (``packed_backward_partials_reference``) against dk and dv of the JAX
+    ``na2d_packed``'s VJP in float32, its dispatcher and its Pallas
+    backward in interpret mode, whose dk, dv are its own overlap-add of its
+    own halo partials."""
+    heads = 2
+    q, k, v, dout = (t.reshape(1, h, w, 128) for t in heads_case(ks + h, 64,
+                                                                 h, w))
+    parts = na2d.packed_backward_partials_reference(
+        *map(torch.from_numpy, (q, k, v, dout)), heads, ks)
+    assert all(p.dtype == torch.float32 for p in parts)
+    got = na2d.overlap_add_reference(*parts, h, w, ks, dtype=torch.float32)
+    assert all(t.dtype == torch.float32 for t in got)
+    _, want = jax_vjp(lambda *t: j_na.na2d_packed(*t, heads, ks), (q, k, v),
+                      dout)
+    close_all(got, want[1:])
+    qj, kj, vj = map(jnp.asarray, (q, k, v))
+    with pltpu.force_tpu_interpret_mode():
+        out, lse, k_halo, v_halo = j_na._na_packed_fwd(
+            qj, kj, vj, ks, 1.0, TILE, heads, save_lse=True)
+        body = j_na._na_packed_bwd(ks, 1.0, TILE, heads,
+                                   (qj, k_halo, v_halo, out, lse),
+                                   jnp.asarray(dout))
+    close_all(got, body[1:])
+
+
 # ---- each wrapper's dispatch by dtype ------------------------------------------
 
 @pytest.fixture
@@ -188,10 +269,12 @@ def fake_library(monkeypatch):
     return calls
 
 
-# the wrapper's launch counters: K2, K7, K11, K12 in bf16, then in float32
+# the wrapper's launch counters: K2, K7, K11, K12, K15, K8 in bf16, then in
+# float32
 COUNTERS = ("launches", "bwd_launches", "heads_launches", "heads_bwd_launches",
-            "launches_f32", "bwd_launches_f32", "heads_launches_f32",
-            "heads_bwd_launches_f32")
+            "proj_launches", "overlap_launches", "launches_f32",
+            "bwd_launches_f32", "heads_launches_f32", "heads_bwd_launches_f32",
+            "proj_launches_f32", "overlap_launches_f32")
 ENTRIES = {  # layout -> dtype -> (forward entry, backward entry)
     "packed": {torch.float32: ("kdt_na2d_packed_f32", "kdt_na2d_packed_bwd_f32"),
                torch.bfloat16: ("kdt_na2d_packed", "kdt_na2d_packed_bwd")},
@@ -286,28 +369,89 @@ def test_na_wrappers_refuse_what_no_kernel_takes(fake_library, layout, case):
     assert not fake_library
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heads_at_head_dim_128_dispatch_by_dtype(fake_library, dtype):
+    """At head dim 128 (one head, v a strided third of a projection) float32
+    operands reach the float32 entries of K11 and K12, whose dq kernel
+    forms delta, and bfloat16 the bf16 ones (delta formed here), with the
+    shape, kernel size, scale and strides; each on its own counter."""
+    q, k, v, dout = operands("heads", dtype, e=128)
+    (out, lse), grads = forward_and_backward("heads", q, k, v, dout)
+    (e_fwd, a_fwd), (e_bwd, a_bwd) = fake_library
+    assert (e_fwd, e_bwd) == ENTRIES["heads"][dtype]
+    assert a_fwd[5:12] == a_bwd[10:17] == [2, 16, 8, 1, 128, 7, 0.5]
+    assert a_fwd[12] == a_bwd[17] == [
+        st for t in (q, k, v) for st in t.stride()[:3]]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert all(g.dtype == dtype and g.shape == q.shape for g in grads)
+    names = ("heads_launches", "heads_bwd_launches")
+    want = dict.fromkeys(COUNTERS, 0) | {
+        f"{n}_f32" if dtype == torch.float32 else n: 1 for n in names}
+    assert {c: getattr(na2d, c) for c in COUNTERS} == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_dispatches_by_dtype(fake_library, dtype):
+    """K15's wrapper sends float32 operands to ``kdt_na2d_proj_f32`` with
+    the float32 w_out as it is, bfloat16 to ``kdt_na2d_proj`` with w_out
+    cast, with the shape, heads, head dim, kernel size and scale; the
+    output in the operands' dtype; each on its own counter."""
+    x = operands("packed", dtype)[0]
+    w_out = torch.eye(128)
+    out = na2d.proj_forward(x, x, x, x, w_out, 2, 7, 0.5)
+    (entry, args), = fake_library
+    f32 = dtype == torch.float32
+    assert entry == ("kdt_na2d_proj_f32" if f32 else "kdt_na2d_proj")
+    assert args[:4] == [x.data_ptr()] * 4
+    assert (args[4] == w_out.data_ptr()) == f32
+    assert args[6:13] == [2, 16, 8, 2, 64, 7, 0.5]
+    assert out.dtype == dtype and out.shape == x.shape
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "proj_launches_f32" if f32 else "proj_launches": 1}
+    assert {c: getattr(na2d, c) for c in COUNTERS} == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_overlap_add_dispatches_by_dtype(fake_library, dtype):
+    """K8 writes bfloat16 by default and float32 through
+    ``kdt_na2d_overlap_add_f32`` where asked, with the shape, heads and
+    kernel size; each on its own counter."""
+    part = torch.zeros((2, 2, 2, na2d.HALO_KEYS, 64))
+    f32 = dtype == torch.float32
+    dk, dv = na2d.overlap_add(part, part, 16, 8, 7,
+                              **({"dtype": dtype} if f32 else {}))
+    (entry, args), = fake_library
+    assert entry == ("kdt_na2d_overlap_add_f32" if f32
+                     else "kdt_na2d_overlap_add")
+    assert args[:2] == [part.data_ptr()] * 2
+    assert args[4:9] == [2, 16, 8, 2, 7]
+    assert dk.dtype == dv.dtype == dtype and dk.shape == (2, 16, 8, 128)
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "overlap_launches_f32" if f32 else "overlap_launches": 1}
+    assert {c: getattr(na2d, c) for c in COUNTERS} == want
+
+
 def test_float32_refusals_by_name(fake_library):
-    """What has no float32 form yet raises ValueError naming it before any
-    launch: K11 and K12 at head dim 128 (their bf16 forms take it), K15
-    (``na2d_packed_proj``, its op path and its launch), each naming
-    ROADMAP.md."""
-    q, k, v, dout = operands("heads", torch.float32, e=128)
-    with pytest.raises(ValueError, match="head dim 128 has no float32 form"):
+    """What no kernel takes raises ValueError by name before any launch:
+    float16 at K11 and K12 at head dim 128, at K15 (its op path and its
+    launch) and as K8's output; float32 at those now launches (the
+    dispatch tests above)."""
+    q, k, v, dout = operands("heads", torch.float16, e=128)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         na2d.heads_forward(q, k, v, 7)
-    out, lse = torch.zeros(q.shape), torch.zeros((2, 1, 16, 8))
-    with pytest.raises(ValueError, match="head dim 128 has no float32 form"):
+    out, lse = torch.zeros(q.shape, dtype=q.dtype), torch.zeros((2, 1, 16, 8))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         na2d.heads_backward(q, k, v, out, lse, dout, 7)
-    bf = operands("heads", torch.bfloat16, e=128)
-    na2d.heads_forward(*bf[:3], 7)  # the bf16 form takes head dim 128
-    assert [e for e, _ in fake_library] == ["kdt_na2d_heads"]
-    fake_library.clear()
-    x = operands("packed", torch.float32)[0]
+    x = operands("packed", torch.float16)[0]
     eye = torch.eye(128)
     for call in (lambda: na2d.proj_forward(x, x, x, x, eye, 2, 7),
                  lambda: na2d.na2d_packed_proj(
                      *(t.to("meta") for t in (x, x, x, x, eye)), 2, 7)):
-        with pytest.raises(ValueError, match=r"K15-f32.*ROADMAP.md queue 2"):
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
             call()
+    part = torch.zeros((2, 2, 2, na2d.HALO_KEYS, 64))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        na2d.overlap_add(part, part, 16, 8, 7, dtype=torch.float16)
     assert not fake_library
 
 
@@ -316,6 +460,7 @@ def test_cpu_float32_takes_the_plain_versions(fake_library):
     q, k, v, _ = operands("packed", torch.float32)
     na2d.na2d_packed(q, k, v, 2, 7)
     na2d.na2d(*operands("heads", torch.float32, e=32)[:3], 7)
+    na2d.na2d(*operands("heads", torch.float32, e=128)[:3], 7)
     na2d.na2d_packed_proj(q, k, v, q, torch.eye(128), 2, 7)
     assert not fake_library
 
@@ -348,3 +493,106 @@ def test_packed_na_stash_keeps_float32_residuals(fake_library):
     assert entry == "kdt_na2d_packed_bwd_f32"
     assert (args[3], args[5]) == (kept_out.data_ptr(), kept_lse.data_ptr())
     assert all(g.dtype == torch.float32 for g in grads)
+
+
+# ---- the flagship with head dim 128 at its neighborhood levels --------------
+
+REPO = Path(__file__).resolve().parents[1]
+# float32 on both sides: the bound of the model parity tests
+MODEL_TOL = 2e-4
+
+
+def na128_config(load_config):
+    """config_oxford_flowers.json with head dim 128 at its neighborhood
+    levels, narrowed: 32 x 32 inputs at patch 2 (16 x 16 tokens at an NA
+    level of one head of 128, 8 x 8 at one of two, 4 x 4 at the global
+    level of four heads of 64), widths 128, 256, 256, one layer a level,
+    the mapping network at width 64; dropout off."""
+    config = load_config(REPO / "configs" / "config_oxford_flowers.json")
+    config["model"].update(
+        input_size=[32, 32], patch_size=[2, 2], widths=[128, 256, 256],
+        depths=[1, 1, 1], d_ffs=[384, 768, 768], mapping_width=64,
+        mapping_d_ff=192, dropout_rate=[0.0, 0.0, 0.0])
+    for attn in config["model"]["self_attns"]:
+        if attn["type"] == "neighborhood":
+            attn["d_head"] = 128
+    return config
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_na128_prologue_routes_by_takes(monkeypatch, training):
+    """The flagship with head dim 128 at its NA levels, narrowed: its eval
+    forward and its fused training forward (KDT_TRAIN_FUSION=1) call the
+    fused prologue (K1 on the card) at its global level only, where
+    ``fused_qkv.takes`` is true, and the plain prologue at each NA layer
+    (down and up stacks), which then runs the per-head ``na2d`` (K11)."""
+    monkeypatch.setenv("KDT_TRAIN_FUSION", "1")
+    calls = []
+
+    def spy(name, orig):
+        def call(*args, **kw):
+            x = args[1] if name == "plain prologue" else args[0]
+            # the layer's width: x's channels, or heads x e of q
+            calls.append((name, x.shape[-1] if "prologue" in name or
+                          name == "K1" else x.shape[-2] * x.shape[-1]))
+            return orig(*args, **kw)
+        return call
+
+    for owner, attr, name in (
+            (t_itv2, "fused_qkv_prologue", "K1"),
+            (t_itv2.SelfAttentionBlock, "_unfused_prologue",
+             "plain prologue"),
+            (t_itv2, "na2d", "na2d"), (t_itv2, "na2d_packed", "na2d_packed")):
+        monkeypatch.setattr(owner, attr, spy(name, getattr(owner, attr)))
+    config = na128_config(KT.config.load_config)
+    model = KT.config.make_model(config, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    model.train(training)
+    with torch.set_grad_enabled(training):
+        out = model(torch.randn(2, 32, 32, 3), torch.ones(2))
+    assert out.shape == (2, 32, 32, 3)
+    na = [("plain prologue", 128), ("na2d", 128), ("plain prologue", 256),
+          ("na2d", 256)]
+    assert calls == na + [("K1", 256)] + na[2:] + na[:2]
+
+
+def test_na128_forward_matches_jax():
+    """The narrowed flagship with head dim 128 at its NA levels: the
+    denoiser's eval forward through the new routing (the plain prologue at
+    the NA levels, K11's plain version per head, K1's and K3's at the
+    global level) against the JAX model in float32 from the same seeded
+    weights (every zero-initialised kernel filled), within 2e-4 x
+    max|JAX|; the blocks matter (the inner output is far from zero)."""
+    config = na128_config(K.config.load_config)
+    model = K.config.make_model(config)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 32, 32, 3)),
+                                 jnp.ones((1,)))["params"]
+    rng = np.random.default_rng(12)
+
+    def fill(path, p):
+        p = np.asarray(p)
+        if path[-1].key == "basis":
+            return p
+        noise = rng.standard_normal(p.shape).astype(np.float32)
+        if path[-1].key == "kernel":
+            return noise / np.sqrt(p.shape[0])
+        return p * (1 + 0.1 * noise)
+
+    params = jax.tree_util.tree_map_with_path(fill, params)
+    port = KT.config.make_model(na128_config(KT.config.load_config),
+                                device="cpu")
+    port.load_state_dict(convert.state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    port.eval()
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    sigma = np.float32([0.4, 2.5])
+    want = K.config.make_denoiser_wrapper(config)(
+        lambda x, s: model.apply({"params": params}, x, s))(
+            jnp.asarray(x), jnp.asarray(sigma))
+    with torch.no_grad():
+        got = KT.config.make_denoiser_wrapper(config)(port)(
+            torch.from_numpy(x), torch.from_numpy(sigma))
+        inner = port(torch.from_numpy(x), torch.from_numpy(sigma))
+    close(got, want, MODEL_TOL)
+    assert inner.std() > 0.1

@@ -673,6 +673,26 @@ def oxford_flowers_na():
     return config
 
 
+def oxford_flowers_na128():
+    """config_oxford_flowers.json with head dim 128 at its neighborhood
+    levels, narrowed: 32 x 32 inputs at patch 2 (16 x 16 tokens at an NA
+    level of one head of 128, 8 x 8 at one of two, then 4 x 4 tokens at a
+    global level of four heads of 64), widths 128, 256, 256, one layer a
+    level, the mapping network at width 64; dropout off. Its NA levels run
+    the plain prologue and the per-head NA (K11/K12 on the card), its
+    global level the fused prologue."""
+    config = json.loads((REPO / "configs" /
+                         "config_oxford_flowers.json").read_text())
+    config["model"].update(
+        input_size=[32, 32], patch_size=[2, 2], widths=[128, 256, 256],
+        depths=[1, 1, 1], d_ffs=[384, 768, 768], self_attns=[
+            {"type": "neighborhood", "d_head": 128, "kernel_size": 7},
+            {"type": "neighborhood", "d_head": 128, "kernel_size": 7},
+            {"type": "global", "d_head": 64}],
+        dropout_rate=[0.0, 0.0, 0.0], mapping_width=64, mapping_d_ff=192)
+    return config
+
+
 def small_vit():
     """A ViT of 2 layers at width 128 (2 heads of 64) on 16 x 16 inputs,
     patch 2, EDM's training density; dropout off."""
@@ -687,7 +707,8 @@ def small_vit():
 
 
 FAMILIES = {"cifar10_transformer": cifar10_transformer, "vit": small_vit,
-            "oxford_flowers_na": oxford_flowers_na}
+            "oxford_flowers_na": oxford_flowers_na,
+            "oxford_flowers_na128": oxford_flowers_na128}
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

@@ -258,6 +258,40 @@ def test_streamed_forward_matches_jax(h, w, ks, rounding):
     b, heads, e = 1, 2, 16
     q, k, v = (rng.standard_normal((b, h, w, heads, e)).astype(np.float32)
                for _ in range(3))
+    check_streamed_forward(q, k, v, ks, rounding)
+    if (h, w) == (32, 32) and ks == 7 and rounding == "none":
+        # without the guard, the rows with no key in the first tile are NaN
+        bad, _ = streamed_forward(q, k, v, ks, 0.25, guard=False)
+        nan_rows = np.isnan(bad).any((0, 3, 4)).reshape(-1)
+        rows = {NaQueries(t, h, w, ks).own(i)[0] * w
+                + NaQueries(t, h, w, ks).own(i)[1]
+                for t, i in rows_without_key(h, w, ks, 0)}
+        assert set(np.flatnonzero(nan_rows)) == rows and rows
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("h,w", [(8, 8), (16, 24)])
+@pytest.mark.parametrize("ks", [1, 3, 7])
+def test_streamed_forward_head_dim_128_matches_jax(h, w, ks, rounding):
+    """The streamed forward at head dim 128 (K11-f32 at 128, whose two
+    warpgroups each form their rows' logits over all 128 columns and
+    accumulate 64 of the output's: the same products, in the same order,
+    for every output element) against JAX as above, q and k cosine-sim
+    (norm sqrt(10) per head, as the prologue leaves them)."""
+    rng = np.random.default_rng(128 + ks)
+    b, heads, e = 1, 1, 128
+    q, k, v = (rng.standard_normal((b, h, w, heads, e)).astype(np.float32)
+               for _ in range(3))
+    q, k = ((t / np.linalg.norm(t, axis=-1, keepdims=True) * np.sqrt(10.0))
+            .astype(np.float32) for t in (q, k))
+    check_streamed_forward(q, k, v, ks, rounding)
+
+
+def check_streamed_forward(q, k, v, ks, rounding):
+    """``streamed_forward`` at scale 0.25 with ``rounding`` against JAX's
+    na2d_reference and masked logsumexp, and with TF32 operands its error
+    against float64 at most TF32_SHARE of the bf16 mirror's."""
+    b, h, w, heads, e = q.shape
     out, lse = streamed_forward(q, k, v, ks, 0.25, rounding=rounding)
     want = j_na.na2d_reference(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), ks, scale=0.25)
@@ -276,14 +310,6 @@ def test_streamed_forward_matches_jax(h, w, ks, rounding):
         for name, a, c in zip(("out", "lse"), l2_errors((out, lse), exact),
                               l2_errors(bf16, exact)):
             assert a <= TF32_SHARE * c, (name, a, c)
-    if (h, w) == (32, 32) and ks == 7 and rounding == "none":
-        # without the guard, the rows with no key in the first tile are NaN
-        bad, _ = streamed_forward(q, k, v, ks, 0.25, guard=False)
-        nan_rows = np.isnan(bad).any((0, 3, 4)).reshape(-1)
-        rows = {NaQueries(t, h, w, ks).own(i)[0] * w
-                + NaQueries(t, h, w, ks).own(i)[1]
-                for t, i in rows_without_key(h, w, ks, 0)}
-        assert set(np.flatnonzero(nan_rows)) == rows and rows
 
 
 # ---- the backward: NaKeys and the two-kernel streamed backward ------------
@@ -467,7 +493,7 @@ def jax_backward(q, k, v, dout, ks, scale):
 
 
 @pytest.mark.parametrize("rounding", ROUNDINGS)
-@pytest.mark.parametrize("e", [32, 64])
+@pytest.mark.parametrize("e", [32, 64, 128])
 @pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (64, 64)])
 @pytest.mark.parametrize("ks", range(1, 8))
 def test_streamed_backward_matches_jax_vjp(h, w, ks, e, rounding):

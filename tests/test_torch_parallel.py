@@ -584,6 +584,11 @@ def launch_cases():
         "kdt_na2d_heads_f32": lambda: na2d.heads_forward(*heads32[:3], 7),
         "kdt_na2d_heads_bwd_f32": lambda: na2d.heads_backward(
             *heads32[:4], f32(1, 2, 8, 8), heads32[4], 7),
+        "kdt_na2d_proj_f32": lambda: na2d.proj_forward(
+            *(f32(1, 8, 8, 128) for _ in range(4)), f32(128, 128), 2, 7),
+        "kdt_na2d_overlap_add_f32": lambda: na2d.overlap_add(
+            f32(1, 1, 1, na2d.HALO_KEYS, 64), f32(1, 1, 1, na2d.HALO_KEYS, 64),
+            8, 8, 7, dtype=torch.float32),
     }
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import k_diffusion_tpu_torch as KT
 from k_diffusion_tpu_torch import checkpoint
 from k_diffusion_tpu_torch import config_from_inference as t_config_from_inference
 from k_diffusion_tpu_torch import convert_for_inference as t_convert
@@ -226,28 +227,40 @@ def test_model_families_train_through_the_entry_point(tmp_path, model):
     assert demo.shape == (32, 32, 3)
 
 
-# the flagship with head dim 128 at its neighborhood levels, whose float32
-# forms of K11 and K12 take head dims 32 and 64 only (no config ships one)
-NA_HEAD_DIM_128 = "na_head_dim_128.json"
-
-
 @pytest.mark.parametrize("flags,item", [
     (["--wandb-project", "p"], "queue 1, item 8"),
-    # float32 on the card for neighborhood attention at head dim 128
-    (["--device", "cuda", "--mixed-precision", "no", "--config",
-      NA_HEAD_DIM_128], "ROADMAP.md, known limits"),
 ])
-def test_unported_flags_raise(tmp_path, tmp_path_factory, flags, item):
-    if NA_HEAD_DIM_128 in flags:
-        path = tmp_path_factory.mktemp("config") / NA_HEAD_DIM_128
-        path.write_text(json.dumps(na_head_dim_128()))
-        flags = [str(path) if f == NA_HEAD_DIM_128 else f for f in flags]
-    match = item if "ROADMAP.md" in item else f"ROADMAP.md {item}"
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise(tmp_path, flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         t_train.main(["--config", TINY, "--name", str(tmp_path / "x"),
-                      *([] if "--device" in flags else ["--device", "cpu"]),
-                      *flags])
+                      "--device", "cpu", *flags])
     assert not list(tmp_path.iterdir())
+
+
+def test_mixed_precision_no_trains_na_head_dim_128(tmp_path):
+    """The flagship with head dim 128 at its neighborhood levels (no config
+    ships one) takes ``--mixed-precision no``: ``config.card_dtypes`` gives
+    it float32 on the card (where the trainer turns TF32 on), and on the
+    CPU, narrowed to 32 x 32 at patch 2 with one layer a level, the trainer
+    takes 2 float32 steps with that flag and saves a finite loss."""
+    config = na_head_dim_128()
+    assert KT.config.card_dtypes(config) == (
+        (torch.bfloat16, torch.float32), None)
+    config["model"].update(
+        input_size=[32, 32], patch_size=[2, 2], widths=[128, 256, 256],
+        depths=[1, 1, 1], d_ffs=[256, 512, 512], mapping_width=64,
+        mapping_d_ff=128, augment_prob=0.0)
+    config["dataset"] = {"type": "synthetic", "length": 8}
+    path = tmp_path / "na128.json"
+    path.write_text(json.dumps(config))
+    t_train.main(["--config", str(path), "--device", "cpu",
+                  "--mixed-precision", "no", "--batch-size", "2",
+                  "--num-workers", "1", "--name", str(tmp_path / "run"),
+                  "--end-step", "2", "--save-every", "2", "--demo-every", "0",
+                  "--evaluate-every", "0"])
+    payload = load(tmp_path / "run_00000002.ckpt")
+    assert payload["host"]["config"]["model"]["self_attns"][0]["d_head"] == 128
+    assert np.isfinite(payload["host"]["ema_stats"]["loss"])
 
 
 def write_random_inception_npz(path, seed=0):
