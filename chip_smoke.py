@@ -252,11 +252,13 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    config ships it: one head of 128 at 64 x 64, two at 32 x 32), whose NA
    levels take the plain prologue (``fused_qkv.takes``) and K11/K12 at
    head dim 128: (a) K11 and K12 at its NA levels (batch 8) in float32
-   (csrc/na_tf32.cuh, two warpgroups a block) and bf16 (the wmma kernels
-   of csrc/na2d.cuh, csrc/na2d_heads.cu) against their plain versions
-   (float32: TF32 off, 5e-3), timed beside them, the bound and masked
-   SDPA, the float32 forms against float64 within 1/4 of the bf16 forms'
-   errors, output by output, and rerun bit-equal; (b) K15-f32
+   (csrc/na_tf32.cuh, two warpgroups a block) and bf16 (csrc/na_fwd.cuh,
+   csrc/na_bwd.cuh on csrc/wgmma.cuh's tiles of two column halves)
+   against their plain versions (float32: TF32 off, 5e-3), timed beside
+   them, the bound and masked SDPA, the bf16 forms' times at each shape
+   printed against masked SDPA's and their sums against the float32
+   forms', the float32 forms against float64 within 1/4 of the bf16 forms'
+   errors, output by output, and both dtypes rerun bit-equal; (b) K15-f32
    (csrc/na_proj_tf32.cuh) at one op call at each flagship NA level and
    at head dim 32 against its plain version and float64, with w_out = I
    and skip = 0 within 2^-10 of K2-f32 (head dim 64) or K11-f32 (32)
@@ -1085,6 +1087,7 @@ def run_cases(cases, results, kernel_reps, plain_reps):
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "op_ms": 0.0, "byte_ms": 0.0, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.setdefault("shapes", {})[c.label] = {"ms": ms, "library_ms": lib_ms}
         r["ms"] += c.calls * ms
         r["plain_ms"] += c.calls * plain_ms
         r["bound_ms"] += c.calls * max(op_ms, byte_ms)
@@ -1804,10 +1807,13 @@ REPORTED = {
                   "norm_vjp_f32_kernel", "atb_f32_kernel", "reduce_kernel"),
 }
 
-# instantiations the report must list: the float32 forms of K11 and K12 at
-# head dim 128 (two warpgroups a block), K15's at both head dims and K8's
-# two outputs
-REPORTED_INSTANCES = ("na_tf32_fwd_kernel<128>", "na_tf32_dq_kernel<128>",
+# instantiations the report must list: K11 and K12 at head dim 128 (the
+# forward two blocks an SM, the dk/dv kernel two warpgroups a block), the
+# float32 forms of K11 and K12 at head dim 128 (two warpgroups a block),
+# K15's at both head dims and K8's two outputs
+REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
+                      "na_dkv_kernel<128, true>",
+                      "na_tf32_fwd_kernel<128>", "na_tf32_dq_kernel<128>",
                       "na_tf32_dkv_kernel<128>", "na_proj_tf32_kernel<32>",
                       "na_proj_tf32_kernel<64>",
                       "na2d_overlap_add_kernel<false>",
@@ -4722,13 +4728,14 @@ def f32_full_size(KT, config, dev, name, batch):
 # phase 28: the flagship with head dim 128 at its neighborhood levels (no
 # config ships one; ``na128_config``), sampled and trained in bf16 and in
 # float32: its NA levels take the plain prologue (``fused_qkv.takes``) and
-# K11/K12 at head dim 128, in bf16 the wmma kernels of csrc/na2d.cuh and
-# csrc/na2d_heads.cu, in float32 csrc/na_tf32.cuh's (two warpgroups a
-# block); K15-f32 (csrc/na_proj_tf32.cuh) and K8-f32 on their op paths.
+# K11/K12 at head dim 128, in bf16 the wgmma kernels of csrc/na_fwd.cuh and
+# csrc/na_bwd.cuh (as at head dims 32 and 64), in float32
+# csrc/na_tf32.cuh's (two warpgroups a block); K15-f32
+# (csrc/na_proj_tf32.cuh) and K8-f32 on their op paths.
 # name -> (source, TPU kernel, the launch counter its main path reads)
 NA128_KERNELS = {
-    "na2d_heads_e128": ("na2d.cuh", "na2d.py:180", "na2d_heads"),
-    "na2d_heads_bwd_e128": ("na2d_heads.cu", "na2d.py:241", "na2d_heads_bwd"),
+    "na2d_heads_e128": ("na_fwd.cuh", "na2d.py:180", "na2d_heads"),
+    "na2d_heads_bwd_e128": ("na_bwd.cuh", "na2d.py:241", "na2d_heads_bwd"),
     "na2d_heads_f32_e128": ("na_tf32.cuh", "na2d.py:180", "na2d_heads_f32"),
     "na2d_heads_bwd_f32_e128": ("na_tf32.cuh", "na2d.py:241",
                                 "na2d_heads_bwd_f32"),
@@ -4817,31 +4824,50 @@ def na128_specs(dev):
 
 
 def na128_rerun_check(specs):
-    """Phase 28 (a): K11-f32 and K12-f32 at head dim 128 have no partials
-    and no atomics: a rerun of each on the same maps is bit-equal (out,
-    lse; dq, dk, dv)."""
+    """Phase 28 (a): K11 and K12 at head dim 128 have no partials and no
+    atomics, in float32 and in bf16: a rerun of each on the same maps (the
+    float32 specs', and the same maps in bf16) is bit-equal (out, lse; dq,
+    dk, dv)."""
     from k_diffusion_tpu_torch.ops.kernels import na2d
 
     labels = []
     for s in specs:
         if s.name != "na2d_heads_bwd_f32_e128":
             continue
-        q, k, v, dout = s.make()
-        fwd = na2d.heads_forward(q, k, v, 7, save_lse=True)
-        grads = na2d.heads_backward(q, k, v, *fwd, dout, 7)
-        for what, first, again in (
-                ("K11-f32", fwd, na2d.heads_forward(q, k, v, 7,
-                                                   save_lse=True)),
-                ("K12-f32", grads, na2d.heads_backward(q, k, v, *fwd, dout,
-                                                      7))):
-            for a, b_ in zip(first, again):
-                if not torch.equal(a, b_):
-                    raise AssertionError(f"{what} at head dim 128 [{s.label}]"
-                                         f": a rerun differs")
+        maps = s.make()
+        for tag, dtype in (("-f32", torch.float32), ("", torch.bfloat16)):
+            q, k, v, dout = (t.to(dtype) for t in maps)
+            fwd = na2d.heads_forward(q, k, v, 7, save_lse=True)
+            grads = na2d.heads_backward(q, k, v, *fwd, dout, 7)
+            for what, first, again in (
+                    (f"K11{tag}", fwd, na2d.heads_forward(q, k, v, 7,
+                                                         save_lse=True)),
+                    (f"K12{tag}", grads, na2d.heads_backward(q, k, v, *fwd,
+                                                            dout, 7))):
+                for a, b_ in zip(first, again):
+                    if not torch.equal(a, b_):
+                        raise AssertionError(f"{what} at head dim 128 "
+                                             f"[{s.label}]: a rerun differs")
         labels.append(s.label)
-    print(f"NA-128 float32 rerun check [{', '.join(labels)}]: K11-f32 (out, "
-          f"lse) and K12-f32 (dq, dk, dv) at head dim 128 bit-identical on a "
-          f"rerun", flush=True)
+    print(f"NA-128 rerun check [{', '.join(labels)}]: K11 and K11-f32 (out, "
+          f"lse), K12 and K12-f32 (dq, dk, dv) at head dim 128 bit-identical "
+          f"on a rerun", flush=True)
+
+
+def na128_compare(results):
+    """Phase 28 (a): the bf16 forms of K11 and K12 at head dim 128 at each
+    NA-128 shape against masked SDPA (the same shapes; hw / 49 times the
+    work), and their sums a call or step against their float32 forms'."""
+    for bf, f32 in (("na2d_heads_e128", "na2d_heads_f32_e128"),
+                    ("na2d_heads_bwd_e128", "na2d_heads_bwd_f32_e128")):
+        r = results[bf]
+        shapes = "; ".join(
+            f"{label} {t['ms']:.4f} ms, masked SDPA {t['library_ms']:.4f} "
+            f"({t['library_ms'] / t['ms']:.2f}x)"
+            for label, t in r["shapes"].items())
+        print(f"NA-128 {bf}: {shapes}; a call or step {r['ms']:.4f} ms, "
+              f"{r['bound_ms'] / r['ms']:.1%} of its bound, against its "
+              f"float32 form's {results[f32]['ms']:.4f} ms", flush=True)
 
 
 def proj_f32_specs(dev):
@@ -5002,6 +5028,7 @@ def na128_phase(KT, dev, smi, results, bf16_reports, f32_reports):
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 20, 2)
         run_cases(cases, results, 20, 2)
+        na128_compare(results)
         f32_tf32_check(specs)
         na128_rerun_check(specs)
     del specs, cases

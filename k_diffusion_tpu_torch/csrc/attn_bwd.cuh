@@ -54,7 +54,9 @@
 //
 // The tiles, the 3-stage cp.async ring, the descriptors and the register
 // operands are wgmma.cuh's, which the forward (attn_fwd.cuh) shares. At
-// e = 64 a block holds 8 tiles, 66.5 KB: three blocks share an SM.
+// e = 64 a block holds 8 tiles, 66.5 KB: three blocks share an SM. At e =
+// 128 (K12 only) the dq kernel parks Q and dO in the ring (PARK) and the
+// dk/dv block is two warpgroups taking alternate tiles (dkv_pairs_body).
 #pragma once
 
 #include <cstdint>
@@ -125,7 +127,7 @@ __device__ __forceinline__ void chain_ss(float (&d)[32], const bf16* x, const bf
   const uint64_t dx = desc<E>(x), dy = desc<E>(y);
 #pragma unroll
   for (int kk = 0; kk < E / 16; ++kk)
-    wgmma_ss<0, 0>(d, dx + kk * K_STEP, dy + kk * K_STEP, kk > 0 || first);
+    wgmma_ss<0, 0>(d, dx + k_slice<E>(kk), dy + k_slice<E>(kk), kk > 0 || first);
 }
 
 // The bf16 A operands of P and dS = P (dP - delta) from a thread's p and
@@ -149,12 +151,38 @@ template <int E>
 constexpr size_t SMEM =
     (2 + 2 * STAGES) * TILE<E> * sizeof(bf16) + STAGES * 2 * ROWS * sizeof(float) + 1024;
 
+// At E = 128 the dq kernel parks Q and dO in the ring's last stage, which
+// no tile needs before they are in registers (as the forward parks Q), and
+// reads out for delta from device memory: 6 tiles and delta, 97.3 KB, two
+// blocks an SM, where SMEM's 8 tiles (130.5 KB) would leave one.
+template <int E>
+constexpr bool PARK = E == 128;
+template <int E>
+constexpr size_t DQ_SMEM =
+    PARK<E> ? 2 * STAGES * TILE<E> * sizeof(bf16) + ROWS * sizeof(float) + 1024 : SMEM<E>;
+// Warpgroups of a dk/dv block: at E = 128 two (dkv_pairs_body), else one.
+template <int E>
+constexpr int DKV_WG = E == 128 ? 2 : 1;
+// Pair stages of dkv_pairs_body's ring, each the Q and dO tiles and the
+// statistics of two streamed tiles.
+constexpr int PAIRS = 2;
+// The dk/dv kernel's shared memory: SMEM's, or at E = 128 the resident K
+// and V, PAIRS stages of 4 tiles and their statistics (163 KB, one block
+// an SM, as its registers allow anyway).
+template <int E>
+constexpr size_t DKV_SMEM =
+    E == 128 ? (2 + 4 * PAIRS) * TILE<E> * sizeof(bf16) + PAIRS * 4 * ROWS * sizeof(float) + 1024
+             : SMEM<E>;
+
 template <int E, bool OWN_V = false, class G>
 __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   extern __shared__ unsigned char smem_raw[];
-  bf16* s_q = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  bf16* base = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  // stage st: K at s_kv + 2 st TILE, V after it; Q and dO in tiles of
+  // their own before the ring, or with PARK in its last stage
+  bf16* s_kv = PARK<E> ? base : base + 2 * TILE<E>;
+  bf16* s_q = PARK<E> ? s_kv + 2 * (STAGES - 1) * TILE<E> : base;
   bf16* s_do = s_q + TILE<E>;
-  bf16* s_kv = s_do + TILE<E>;  // stage st: K at s_kv + 2 st TILE, V after it
   float* s_delta = reinterpret_cast<float*>(s_kv + 2 * STAGES * TILE<E>);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -181,11 +209,11 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
                             [&](int i) { return geo.stream(j, i); });
   };
   // out waits in the ring's last stage, which no tile needs before delta
-  // has been computed
+  // has been computed (with PARK it is read from device memory)
   bf16* s_out = s_kv + 2 * (STAGES - 1) * TILE<E>;
   load_rows_async<E>(s_q, a.q, a.in, img, head, own_row);
   load_rows_async<E>(s_do, a.dout, a.io, img, head, own_row);
-  load_rows_async<E>(s_out, a.out, a.io, img, head, own_row);
+  if constexpr (!PARK<E>) load_rows_async<E>(s_out, a.out, a.io, img, head, own_row);
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < n_tiles) load_kv(st, s_kv + 2 * st * TILE<E>);
     cp_async_commit();
@@ -199,18 +227,32 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   };
 
   // delta = rowsum(out * dout) in f32 from the first group's out and dO
-  // tiles: two threads per row, each half a row in 16-byte chunks
+  // tiles: two threads per row, each half a row in 16-byte chunks. With
+  // PARK a thread's chunks of out come from device memory, read before the
+  // wait so that they arrive with the tiles.
+  const int row = threadIdx.x / 2;
+  uint4 o_park[PARK<E> ? E / 16 : 1];
+  if constexpr (PARK<E>) {
+    const Pos p = geo.own(row);
+    const bf16* o_row = a.out + a.io.at(img, p.y, p.x, head, E);
+#pragma unroll
+    for (int i = 0; i < E / 16; ++i)
+      o_park[i] = p.ok ? *reinterpret_cast<const uint4*>(
+                             o_row + ((threadIdx.x & 1) * (E / 16) + i) * 8)
+                       : make_uint4(0u, 0u, 0u, 0u);
+  }
   cp_async_wait<STAGES - 2>();
   __syncthreads();
   {
-    const int row = threadIdx.x / 2;
     const unsigned char* o_t = reinterpret_cast<const unsigned char*>(s_out);
     const unsigned char* g_t = reinterpret_cast<const unsigned char*>(s_do);
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < E / 16; ++i) {
       const int ch = (threadIdx.x & 1) * (E / 16) + i;
-      const uint4 ov = *reinterpret_cast<const uint4*>(o_t + swizzle<E>(row, ch));
+      uint4 ov;
+      if constexpr (PARK<E>) ov = o_park[i];
+      else ov = *reinterpret_cast<const uint4*>(o_t + swizzle<E>(row, ch));
       const uint4 gv = *reinterpret_cast<const uint4*>(g_t + swizzle<E>(row, ch));
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
@@ -233,6 +275,7 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   uint32_t a_q[E / 16][4], a_do[E / 16][4];
   load_a<E>(s_q, a_q);
   load_a<E>(s_do, a_do);
+  if constexpr (PARK<E>) __syncthreads();  // the last stage is free for tile STAGES - 1
 
   const float scale2 = a.scale * LOG2E;
   float acc_dq[E / 2];
@@ -284,6 +327,57 @@ __device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
   store_rows<E>(s_kv, a.dq, a.io, img, head, own_row);
 }
 
+// One streamed tile j's step of the dk/dv bodies, for the warpgroup's 64
+// keys (rows r and r + 8 of this thread, their Info in `info`): S^T = K
+// Q^T and dP^T = V dO^T - delta (the accumulator starts at -delta), P^T and
+// dS^T in registers, then dV += P^T dO and dK += dS^T Q with Q and dO read
+// MN-major. Column 8i + c (+1) is row 8i + c (+1) of tile j, whose lse and
+// delta are the float4 4i + c / 2 of `stats` (read again where the lse is
+// used: 16 registers fewer across the products). Returns with the products
+// done.
+template <int E, class G>
+__device__ __forceinline__ void dkv_step(const G& geo, int j, const bf16* s_k, const bf16* s_v,
+                                         const bf16* s_q, const bf16* s_do, const float4* stats,
+                                         const typename G::Info (&info)[2], int c, float scale2,
+                                         float (&acc_dk)[E / 2], float (&acc_dv)[E / 2]) {
+  float acc_s[32], acc_dp[32];
+  uint32_t a_p[4][4], a_ds[4][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 t = stats[4 * i + c / 2];
+    acc_dp[4 * i] = acc_dp[4 * i + 2] = -t.z;
+    acc_dp[4 * i + 1] = acc_dp[4 * i + 3] = -t.w;
+  }
+  // S^T, then dP^T - delta, each its own group
+  wgmma_fence();
+  chain_ss<E>(acc_s, s_k, s_q, 0);
+  wgmma_commit();
+  chain_ss<E>(acc_dp, s_v, s_do, 1);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(acc_s);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 t = stats[4 * i + c / 2];
+    const float lse2[2] = {t.x * LOG2E, t.y * LOG2E};  // base 2
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc_s[4 * i + e] = geo.mask(j, 8 * i + c + (e & 1), info[e / 2])
+                             ? exp2_approx(acc_s[4 * i + e] * scale2 - lse2[e & 1])
+                             : 0.f;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc_dp);
+  pack_p_ds(acc_s, acc_dp, a_p, a_ds);
+  rows_product<E>(acc_dv, a_p, s_do);
+  rows_product<E>(acc_dk, a_ds, s_q);
+  wgmma_wait<0>();
+  fence_regs(acc_dv);
+  fence_regs(acc_dk);
+  fence_regs(a_p);
+  fence_regs(a_ds);
+}
+
 template <int E, bool OWN_V = false, class G>
 __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
   extern __shared__ unsigned char smem_raw[];
@@ -322,54 +416,15 @@ __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
   float acc_dk[E / 2], acc_dv[E / 2];
 #pragma unroll
   for (int i = 0; i < E / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-  float acc_s[32], acc_dp[32];
-  uint32_t a_p[4][4], a_ds[4][4];
   for (int j = 0, st = 0; j < n_tiles; ++j, st = st + 1 == STAGES ? 0 : st + 1) {
     const bf16* s_q = s_qd + 2 * st * TILE<E>;
-    const bf16* s_do = s_q + TILE<E>;
     if (j + STAGES - 1 < n_tiles) load_stage(j + STAGES - 1, (st + STAGES - 1) % STAGES);
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    // rows: keys; column 8i + c (+1): row 8i + c (+1) of streamed tile j,
-    // whose lse and delta are the float4 4i + c / 2 of the stage's
-    // statistics (read again where the lse is used: 16 registers fewer
-    // across the products)
-    const float4* stats = reinterpret_cast<const float4*>(s_stats + 2 * ROWS * st);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 t = stats[4 * i + c / 2];
-      acc_dp[4 * i] = acc_dp[4 * i + 2] = -t.z;
-      acc_dp[4 * i + 1] = acc_dp[4 * i + 3] = -t.w;
-    }
-    // S^T, then dP^T - delta, each its own group
-    wgmma_fence();
-    chain_ss<E>(acc_s, s_k, s_q, 0);
-    wgmma_commit();
-    chain_ss<E>(acc_dp, s_v, s_do, 1);
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(acc_s);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 t = stats[4 * i + c / 2];
-      const float lse2[2] = {t.x * LOG2E, t.y * LOG2E};  // base 2
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc_s[4 * i + e] = geo.mask(j, 8 * i + c + (e & 1), info[e / 2])
-                               ? exp2_approx(acc_s[4 * i + e] * scale2 - lse2[e & 1])
-                               : 0.f;
-    }
-    wgmma_wait<0>();
-    fence_regs(acc_dp);
-    pack_p_ds(acc_s, acc_dp, a_p, a_ds);
-    rows_product<E>(acc_dv, a_p, s_do);
-    rows_product<E>(acc_dk, a_ds, s_q);
-    wgmma_wait<0>();
-    fence_regs(acc_dv);
-    fence_regs(acc_dk);
-    fence_regs(a_p);
-    fence_regs(a_ds);
+    dkv_step<E>(geo, j, s_k, s_v, s_q, s_q + TILE<E>,
+                reinterpret_cast<const float4*>(s_stats + 2 * ROWS * st), info, c, scale2,
+                acc_dk, acc_dv);
     __syncthreads();  // every thread is done with this stage before it refills
   }
   stage_acc<E>(acc_dk, a.scale, s_qd);
@@ -377,6 +432,105 @@ __device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
   __syncthreads();
   store_rows<E>(s_qd, a.dk, a.io, img, head, own_row);
   store_rows<E>(s_qd + TILE<E>, a.dv, a.io, img, head, own_row);
+}
+
+// dkv_body at E = 128: a block of two warpgroups over one key tile, each
+// taking every other streamed tile (warpgroup g tiles g, g + 2, ...) with
+// dK and dV over all 128 columns in its registers; the two partial sums
+// meet in shared memory at the end, warpgroup 0 finishing dK and 1 dV, each
+// adding the other's partial to its own (a fixed order: reruns are
+// bit-equal). Tiles stream in pairs through PAIRS stages; S^T and dP^T of
+// a tile are formed once, by the warpgroup that takes it.
+template <int E, bool OWN_V = false, class G>
+__device__ __forceinline__ void dkv_pairs_body(const Args& a, const G& geo) {
+  static_assert(E == 128, "the paired dk/dv body is E = 128's");
+  extern __shared__ unsigned char smem_raw[];
+  bf16* s_k = reinterpret_cast<bf16*>(aligned_smem(smem_raw));
+  bf16* s_v = s_k + TILE<E>;
+  // pair stage p, slot g (the tile of warpgroup g): Q at s_ring + (4 p + 2 g)
+  // TILE, dO after it; its statistics 2 x 64 floats at s_stats + 128 (2 p + g)
+  bf16* s_ring = s_v + TILE<E>;
+  float* s_stats = reinterpret_cast<float*>(s_ring + 4 * PAIRS * TILE<E>);
+
+  // this thread's warpgroup, its index in it and its warp in it
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int warp = t / 32, lane = threadIdx.x & 31;
+  const int head = blockIdx.y, img = blockIdx.z;
+  const long stat0 = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
+  const int n_tiles = geo.tiles, rounds = (n_tiles + 1) / 2;
+  const auto own_row = [&](int i) { return geo.own(i); };
+
+  // starts the copy of tiles 2 u and 2 u + 1 (those there are) into pair
+  // stage p and commits it, an empty group past the last tile
+  auto load_pair = [&](int u, int p) {
+    for (int g = 0; g < 2; ++g) {
+      const int j = 2 * u + g;
+      if (j >= n_tiles) break;
+      bf16* tile = s_ring + (4 * p + 2 * g) * TILE<E>;
+      float* stats = s_stats + 2 * ROWS * (2 * p + g);
+      const auto row = [&](int i) { return geo.stream(j, i); };
+      load_rows_async<E>(tile, a.q, a.in, img, head, row);
+      load_rows_async<E>(tile + TILE<E>, a.dout, a.io, img, head, row);
+      load_stats_async(stats, a.lse + stat0, geo, j, 0, 0);
+      load_stats_async(stats, a.delta + stat0, geo, j, ROWS, 2);
+    }
+    cp_async_commit();
+  };
+  load_kv_async<E, OWN_V>(s_k, s_v, a, img, head, own_row);
+  for (int p = 0; p < PAIRS; ++p) load_pair(p, p);
+
+  // this thread's accumulator rows r and r + 8: keys
+  const int r = warp * 16 + lane / 4, c = 2 * (lane & 3);
+  typename G::Info info[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(r + 8 * h);
+  const float scale2 = a.scale * LOG2E;
+  float acc_dk[E / 2], acc_dv[E / 2];
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int u = 0; u < rounds; ++u) {
+    const int p = u % PAIRS, j = 2 * u + wg;
+    cp_async_wait<PAIRS - 1>();
+    __syncthreads();
+    if (j < n_tiles) {  // uniform over the warpgroup
+      const bf16* s_q = s_ring + (4 * p + 2 * wg) * TILE<E>;
+      dkv_step<E>(geo, j, s_k, s_v, s_q, s_q + TILE<E>,
+                  reinterpret_cast<const float4*>(s_stats + 2 * ROWS * (2 * p + wg)), info, c,
+                  scale2, acc_dk, acc_dv);
+    }
+    __syncthreads();  // both warpgroups are done with pair stage p before it refills
+    if (u + PAIRS < rounds) load_pair(u + PAIRS, p);
+    else cp_async_commit();
+  }
+
+  // the partials meet where the ring was: warpgroup 1's dK and 0's dV, each
+  // (E / 2) x 128 floats in thread order; then the bf16 dK and dV stages
+  float* s_pk = reinterpret_cast<float*>(s_ring);
+  float* s_pv = s_pk + (E / 2) * 128;
+  bf16* s_out = reinterpret_cast<bf16*>(s_pv + (E / 2) * 128);
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) s_pv[i * 128 + t] = acc_dv[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) s_pk[i * 128 + t] = acc_dk[i];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) acc_dk[i] += s_pk[i * 128 + t];
+    stage_acc<E>(acc_dk, a.scale, s_out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) acc_dv[i] += s_pv[i * 128 + t];
+    // stage_acc takes rows by threadIdx.x / 32: warpgroup 1's rows are
+    // 64-127, which a tile 64 rows (8 KB, half an E = 128 tile) before dV's
+    // stage puts at dV's rows 0-63
+    stage_acc<E>(acc_dv, 1.f, s_out + TILE<E> - TILE<64>);
+  }
+  __syncthreads();
+  store_rows<E>(s_out, a.dk, a.io, img, head, own_row);
+  store_rows<E>(s_out + TILE<E>, a.dv, a.io, img, head, own_row);
 }
 
 template <int E>

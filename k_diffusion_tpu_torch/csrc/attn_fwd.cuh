@@ -54,7 +54,8 @@
 // tile cost the backward's shared bodies 5-7%.
 //
 // At E = 64 a block of one warpgroup holds 6 tiles, 49 KB, and at most 128
-// registers a thread: four warpgroups share an SM. Running the P V product
+// registers a thread: four warpgroups share an SM (at E = 128, K11's, 97 KB
+// and two). Running the P V product
 // of one tile while the next tile's softmax is formed (FlashAttention-3's
 // overlap) gained nothing at four warpgroups an SM, which already overlap
 // each other's phases.

@@ -4,24 +4,17 @@
 //
 // The wgmma kernels run attn_fwd.cuh's and attn_bwd.cuh's bodies over the
 // geometry policies below (NaQueries, NaKeys): na_fwd.cuh (K2, K11 at head
-// dims 32 and 64) and na_bwd.cuh (K7, K12 at head dims 32 and 64).
+// dims 32, 64 and 128) and na_bwd.cuh (K7, K12 at the same head dims); K15
+// (na_proj.cuh) runs the wgmma forward's attention over NaQueries, and the
+// TF32 forms (na_tf32.cuh, na_proj_tf32.cuh) the same geometry. A block
+// owns an 8 x 8 tile of one head of one image; the clamped union of a
+// query tile's windows is at most 14 x 14 keys (the halo), whose rows K8's
+// halo partials (na2d.cu) hold.
 //
-// The wmma code below serves K11 and K12 at head dim 128 (wgmma.cuh's
-// tiles take 32 and 64); K15 (na_proj.cuh) runs the wgmma forward's
-// attention over NaQueries. A block owns an 8 x 8 query tile of one head of
-// one image. The clamped union of the tile's windows is at most 14 x 14
-// keys (the halo); a warp owns two query rows (16 queries), whose windows
-// lie within 8 consecutive halo rows, i.e. 112 consecutive halo keys. The
-// forward of a tile (na_tile_forward) computes each warp's 16 x 112 logits
-// with wmma bf16 fragments (f32 accumulate), masks each query to its own
-// window from the coordinates, takes the softmax with the running max
-// subtracted, and multiplies the bf16 probabilities by the same 112 rows
-// of v.
-//
-// The head dim E is a template parameter (32, 64 or 128). Maps are (b, h,
-// w, heads, E) with the head axis packed at E and the head dim contiguous;
-// the batch, row and column strides come from the caller (MapStrides), so a
-// strided view (one third of a qkv projection) is read in place.
+// Maps are (b, h, w, heads, E) with the head axis packed at E and the head
+// dim contiguous; the batch, row and column strides come from the caller
+// (MapStrides), so a strided view (one third of a qkv projection) is read
+// in place.
 #pragma once
 
 #include "common.cuh"
@@ -32,31 +25,7 @@ namespace {
 
 constexpr int TQ = 8;                  // query tile edge
 constexpr int HALO = 14;               // halo edge: TQ + 7 - 1
-constexpr int NKEYS = HALO * HALO;     // halo keys
-constexpr int NKEYS_ALLOC = 208;       // rounded up to 16
-constexpr int WKEYS = 8 * HALO;        // keys a warp's 2 query rows can see
-
-// Shared-memory row strides for head dim E: bf16 rows of q, k, v, and the
-// float strips that hold a warp's logits (WKEYS columns) or its output (E).
-template <int E>
-struct NaDims {
-  static constexpr int LDK = E + 8;
-  static constexpr int LDS = (E > WKEYS ? E : WKEYS) + 4;
-};
-
-// Is halo key j (of the warp's 112) in the window of the warp's query m?
-struct WindowMask {
-  int qy0, qx0;  // the warp's first query
-  int ky0, kx0;  // map coordinates of the warp's first key
-  int h, w, ks, r;
-  __device__ bool operator()(int m, int j) const {
-    const int qy = qy0 + (m >> 3), qx = qx0 + (m & 7);
-    const int ky = ky0 + j / HALO, kx = kx0 + j % HALO;
-    const int wy = clampi(qy - r, 0, h - ks), wx = clampi(qx - r, 0, w - ks);
-    return static_cast<unsigned>(ky - wy) < static_cast<unsigned>(ks) &&
-           static_cast<unsigned>(kx - wx) < static_cast<unsigned>(ks);
-  }
-};
+constexpr int NKEYS_ALLOC = 208;       // halo keys, 14 x 14 rounded up to 16
 
 // The tile's query (y0, x0) geometry: the halo's origin (hr0, hc0).
 struct TileGeometry {
@@ -180,127 +149,6 @@ struct NaKeys {
            static_cast<unsigned>(k.kx - wx) < static_cast<unsigned>(ks);
   }
 };
-
-// Loads the tile's 64 queries of one head (rows of s_q) and the k and v
-// halo (NKEYS_ALLOC rows of s_k, s_v; zeros past the map and past NKEYS)
-// into shared memory in 16-byte vectors, the whole block taking part.
-template <int E>
-__device__ __forceinline__ void load_tile_and_halo(bf16* s_q, bf16* s_k, bf16* s_v,
-                                                   const bf16* q, const bf16* k, const bf16* v,
-                                                   MapStrides sq, MapStrides sk, MapStrides sv,
-                                                   int img, int head, const TileGeometry& t,
-                                                   int h, int w) {
-  constexpr int LDK = NaDims<E>::LDK, V = E / 8;
-  for (int i = threadIdx.x; i < TQ * TQ * V; i += blockDim.x) {
-    const int qi = i / V, cv = (i % V) * 8;
-    *reinterpret_cast<uint4*>(s_q + qi * LDK + cv) = *reinterpret_cast<const uint4*>(
-        q + sq.at(img, t.y0 + qi / TQ, t.x0 + qi % TQ, head, E) + cv);
-  }
-  for (int i = threadIdx.x; i < NKEYS_ALLOC * V; i += blockDim.x) {
-    const int kj = i / V, cv = (i % V) * 8;
-    const int y = t.hr0 + kj / HALO, xx = t.hc0 + kj % HALO;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (kj < NKEYS && y < h && xx < w) {
-      kv = *reinterpret_cast<const uint4*>(k + sk.at(img, y, xx, head, E) + cv);
-      vv = *reinterpret_cast<const uint4*>(v + sv.at(img, y, xx, head, E) + cv);
-    }
-    *reinterpret_cast<uint4*>(s_k + kj * LDK + cv) = kv;
-    *reinterpret_cast<uint4*>(s_v + kj * LDK + cv) = vv;
-  }
-}
-
-// A warp's 16 x 112 products a k^T with the halo keys its queries' windows
-// can reach: a its 16 rows of q (or dout), keys the first of those halo rows
-// of k (or v); into its float strip (stride LDS), in f32.
-template <int E>
-__device__ __forceinline__ void window_products(const bf16* a, const bf16* keys, float* strip) {
-  constexpr int LDK = NaDims<E>::LDK, LDS = NaDims<E>::LDS;
-  FragC acc[WKEYS / 16];
-  zero(acc);
-  for (int k0 = 0; k0 < E; k0 += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + k0, LDK);
-#pragma unroll
-    for (int j = 0; j < WKEYS / 16; ++j) {
-      FragBt fb;
-      wmma::load_matrix_sync(fb, keys + 16 * j * LDK + k0, LDK);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-  store_strip(strip, LDS, acc);
-}
-
-// The forward of the block's 64 queries of one head, from s_q and the k, v
-// halo that load_tile_and_halo put in shared memory: warp w's 16 outputs,
-// normalised, land in columns [0, E) of its float strip s_s + w * 16 * LDS,
-// and their logsumexps (max + log sum) in s_lse[w * 16 + m].
-template <int E>
-__device__ __forceinline__ void na_tile_forward(const bf16* s_q, const bf16* s_k, const bf16* s_v,
-                                                float* s_s, float* s_lse, const TileGeometry& t,
-                                                int h, int w, int ks, float scale) {
-  constexpr int LDK = NaDims<E>::LDK, LDS = NaDims<E>::LDS;
-  const int warp = threadIdx.x / 32;
-  // the warp's queries: rows qy0, qy0 + 1 of the tile, all 8 columns; their
-  // windows start at halo row kr or kr + 1 and span at most 8 rows
-  const int qy0 = t.y0 + 2 * warp;
-  const int kr = clampi(qy0 - t.r, 0, h - ks) - t.hr0;
-  const bf16* keys_v = s_v + kr * HALO * LDK;
-  float* strip = s_s + warp * STRIP * LDS;
-  window_products<E>(s_q + warp * STRIP * LDK, s_k + kr * HALO * LDK, strip);
-  softmax_strip(strip, LDS, WKEYS, scale,
-                WindowMask{qy0, t.x0, t.hr0 + kr, t.hc0, h, w, ks, t.r}, s_lse + warp * STRIP);
-  __syncwarp();
-
-  FragC o[E / 16];
-  zero(o);
-  mma_strip(reinterpret_cast<const bf16*>(strip), 2 * LDS, keys_v, LDK, WKEYS, o);
-  __syncwarp();  // every lane is done reading the probabilities
-  store_strip(strip, LDS, o);
-}
-
-// The forward kernel: the block's output written once in bf16 to out (b, h,
-// w, heads, E), contiguous, and, when lse is not null, each query's
-// logsumexp to lse (b, heads, h, w) f32 for the backward.
-template <int E>
-__global__ void __launch_bounds__(THREADS)
-na2d_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, MapStrides sq, MapStrides sk, MapStrides sv,
-                bf16* __restrict__ out, float* __restrict__ lse, int h, int w, int n_heads,
-                int ks, float scale) {
-  constexpr int LDK = NaDims<E>::LDK, LDS = NaDims<E>::LDS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + TQ * TQ * LDK;
-  bf16* s_v = s_k + NKEYS_ALLOC * LDK;
-  float* s_s = reinterpret_cast<float*>(s_v + NKEYS_ALLOC * LDK);
-  __shared__ float s_lse[WARPS * STRIP];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int head = blockIdx.y, img = blockIdx.z;
-  const TileGeometry t(blockIdx.x, h, w, ks);
-  load_tile_and_halo<E>(s_q, s_k, s_v, q, k, v, sq, sk, sv, img, head, t, h, w);
-  __syncthreads();
-  na_tile_forward<E>(s_q, s_k, s_v, s_s, s_lse, t, h, w, ks, scale);
-
-  const int qy0 = t.y0 + 2 * warp;
-  if (lse != nullptr && lane < STRIP)
-    lse[((static_cast<long>(img) * n_heads + head) * h + qy0 + lane / TQ) * w + t.x0 +
-        lane % TQ] = s_lse[warp * STRIP + lane];
-  const float* strip = s_s + warp * STRIP * LDS;
-  const long c = static_cast<long>(n_heads) * E;
-  for (int m = 0; m < STRIP; ++m) {
-    const long dst = ((static_cast<long>(img) * h + qy0 + m / TQ) * w + t.x0 + m % TQ) * c +
-                     head * E;
-    for (int cc = 2 * lane; cc < E; cc += 64)
-      *reinterpret_cast<__nv_bfloat162*>(out + dst + cc) =
-          __floats2bfloat162_rn(strip[m * LDS + cc], strip[m * LDS + cc + 1]);
-  }
-}
-
-// Shared memory of na2d_fwd_kernel<E>: q, the k and v halos, the strips.
-template <int E>
-constexpr size_t FWD_SMEM = (TQ * TQ + 2 * NKEYS_ALLOC) * NaDims<E>::LDK * sizeof(bf16) +
-                            WARPS * STRIP * NaDims<E>::LDS * sizeof(float);
 
 }  // namespace
 }  // namespace kdt

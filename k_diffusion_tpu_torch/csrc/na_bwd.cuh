@@ -1,5 +1,5 @@
 // The backward of 2-D neighborhood attention on Hopper (K7 on
-// channel-packed maps, K12 on per-head maps at head dims 32 and 64): dq,
+// channel-packed maps, K12 on per-head maps at head dims 32, 64 and 128): dq,
 // dk and dv written once in bf16 by two wgmma kernels, attn_bwd.cuh's two
 // bodies run over the neighborhood geometry. Each query attends to exactly
 // ks x ks keys, its window start clamp(i - (ks - 1) / 2, 0, n - ks) on each
@@ -56,10 +56,18 @@
 // 112 columns take 56 accumulator registers each where 64 take 32.
 //
 // The kernels are written over MapStrides and the head dim E (wgmma.cuh's
-// tiles take 32 and 64). K7 runs them at E = 64 on channel-packed maps, one
-// stride set for q, k and v; K12 (na2d_heads.cu) at E = 32 and 64 with
-// OWN_V, q, k and v each through its own strides (in the unfused training
-// step v is a strided third of the qkv projection, its row stride 3 c).
+// tiles take 32, 64 and 128). K7 runs them at E = 64 on channel-packed
+// maps, one stride set for q, k and v; K12 (na2d_heads.cu) at E = 32, 64
+// and 128 with OWN_V, q, k and v each through its own strides (in the
+// unfused training step v is a strided third of the qkv projection, its
+// row stride 3 c). At E = 128 (attn_bwd.cuh's PARK and dkv_pairs_body)
+// the dq kernel parks Q and dO in its ring's last stage and reads out for
+// delta from device memory, two blocks an SM; the dk/dv block is two
+// warpgroups taking alternate query tiles, each with dk and dv over all
+// 128 columns in its registers, their partials summed at the end, one
+// block an SM. Tried first and slower at both of the NA-128 flagship's
+// levels: each warpgroup owning 64 of the columns and forming every
+// tile's S^T and dP^T itself, the work of S^T and dP^T done twice.
 // Each head's row of E bf16 is contiguous and its strides are multiples of
 // 8 elements, so every 16-byte cp.async stays aligned.
 #pragma once
@@ -77,11 +85,14 @@ __global__ void __launch_bounds__(128) na_dq_kernel(const attn_bwd::Args a, int 
   attn_bwd::dq_body<E, OWN_V>(a, NaQueries(blockIdx.x, h, w, ks));
 }
 
-// At most 168 registers a thread, so that three blocks fit on an SM.
+// At most 168 registers a thread, so that three blocks fit on an SM; at E =
+// 128 a block of two warpgroups taking alternate query tiles
+// (dkv_pairs_body), one an SM.
 template <int E, bool OWN_V>
-__global__ void __launch_bounds__(128, 3) na_dkv_kernel(const attn_bwd::Args a, int h, int w,
-                                                        int ks) {
-  attn_bwd::dkv_body<E, OWN_V>(a, NaKeys(blockIdx.x, h, w, ks));
+__global__ void __launch_bounds__(128 * attn_bwd::DKV_WG<E>, E == 128 ? 1 : 3)
+    na_dkv_kernel(const attn_bwd::Args a, int h, int w, int ks) {
+  if constexpr (E == 128) attn_bwd::dkv_pairs_body<E, OWN_V>(a, NaKeys(blockIdx.x, h, w, ks));
+  else attn_bwd::dkv_body<E, OWN_V>(a, NaKeys(blockIdx.x, h, w, ks));
 }
 
 // Launches the dq kernel, then the dk/dv kernel, on (b, h, w, heads, E)
@@ -91,14 +102,14 @@ __global__ void __launch_bounds__(128, 3) na_dkv_kernel(const attn_bwd::Args a, 
 // Returns the CUDA error code.
 template <int E, bool OWN_V>
 int launch(const attn_bwd::Args& a, int b, int h, int w, int ks, cudaStream_t st) {
-  constexpr size_t smem = attn_bwd::SMEM<E>;
+  constexpr size_t dq_smem = attn_bwd::DQ_SMEM<E>, smem = attn_bwd::DKV_SMEM<E>;
   const dim3 grid((h / TQ) * (w / TQ), a.n_heads, b);
-  cudaError_t attr = allow_smem(na_dq_kernel<E, OWN_V>, smem);
-  na_dq_kernel<E, OWN_V><<<grid, 128, smem, st>>>(a, h, w, ks);
+  cudaError_t attr = allow_smem(na_dq_kernel<E, OWN_V>, dq_smem);
+  na_dq_kernel<E, OWN_V><<<grid, 128, dq_smem, st>>>(a, h, w, ks);
   const int status = launch_status(attr);
   if (status != 0) return status;
   attr = allow_smem(na_dkv_kernel<E, OWN_V>, smem);
-  na_dkv_kernel<E, OWN_V><<<grid, 128, smem, st>>>(a, h, w, ks);
+  na_dkv_kernel<E, OWN_V><<<grid, 128 * attn_bwd::DKV_WG<E>, smem, st>>>(a, h, w, ks);
   return launch_status(attr);
 }
 

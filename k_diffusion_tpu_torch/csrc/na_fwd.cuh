@@ -1,7 +1,8 @@
 // The forward of 2-D neighborhood attention on Hopper, shared by K2
 // (na2d.cu, channel-packed (b, h, w, heads * 64) maps) and K11
 // (na2d_heads.cu, (b, h, w, heads, e) maps read through their strides, e
-// 32 or 64): attn_fwd.cuh's wgmma body run over the neighborhood geometry.
+// 32, 64 or 128): attn_fwd.cuh's wgmma body run over the neighborhood
+// geometry.
 // Each query attends to exactly ks x ks keys, its window start clamp(i -
 // (ks - 1) / 2, 0, n - ks) on each axis (NATTEN's contract), ks <= 7.
 //
@@ -28,8 +29,10 @@
 // a row that has no key in a tile keeps its running max at -inf and adds
 // nothing (attn_fwd.cuh's guard).
 //
-// The three limits of the design this replaces (na2d.cuh's na2d_fwd_kernel:
-// wmma over the 112 halo keys a warp's queries can reach):
+// The three limits of the design this replaces (a wmma kernel over the 112
+// halo keys a warp's queries can reach, K11's at e = 128 until wgmma.cuh's
+// tiles took 128: 0.1490 and 0.0664 ms at the NA-128 flagship's 64^2 x 1
+// and 32^2 x 2 heads, batch 8, behind masked SDPA's 0.0331 at 32^2):
 // 1. Its logits went to f32 strips in shared memory, the softmax was a
 //    scalar loop over them, the probabilities came back as bf16 for the
 //    P V product and the output took a second trip through the strip.
@@ -37,11 +40,11 @@
 //    operand of O += P V.
 // 2. It fetched the whole 208-row K and V halo and then computed, with
 //    nothing in flight; here two tiles are in flight while wgmma runs.
-// 3. A block took 96.5 KB (two blocks an SM; 164 KB at e = 128, one); here
-//    6 tiles, 49 KB at e = 64, and at most 128 registers: four blocks an
-//    SM.
-// Head dim 128 stays on the wmma forward (wgmma.cuh's tiles and swizzles
-// take 32 and 64 only); no shipped config has an NA level of head dim 128.
+// 3. A block took 96.5 KB (two blocks an SM; 160.5 KB at e = 128, one);
+//    here 6 tiles, 49 KB at e = 64, and at most 128 registers: four blocks
+//    an SM. At e = 128 the 6 tiles take 97 KB (each two 128-byte-swizzled
+//    column halves, wgmma.cuh) and a thread holds 64 accumulators of O
+//    beside the 32 logits and Q's 32 fragment registers: two blocks an SM.
 #pragma once
 
 #include "attn_fwd.cuh"
@@ -50,10 +53,12 @@
 namespace kdt {
 namespace na_fwd {
 
-// OWN_V: v read through its own strides (K11), else from k's offsets.
+// OWN_V: v read through its own strides (K11), else from k's offsets. At
+// most 128 registers a thread, four blocks an SM; at E = 128 two (6 tiles
+// of 16 KB, and 64 accumulators of O a thread beside the logits).
 template <int E, bool OWN_V>
-__global__ void __launch_bounds__(128, 4) na_fwd_kernel(const attn_fwd::Args a, int h, int w,
-                                                        int ks) {
+__global__ void __launch_bounds__(128, E == 128 ? 2 : 4)
+    na_fwd_kernel(const attn_fwd::Args a, int h, int w, int ks) {
   attn_fwd::body<E, 1, OWN_V>(a, NaQueries(blockIdx.x, h, w, ks));
 }
 

@@ -1,6 +1,6 @@
 // The Hopper building blocks of the attention kernels, shared by the
 // forward (attn_fwd.cuh: K3, K13; na_fwd.cuh: K2, K11) and the backward
-// (attn_bwd.cuh: K9, K14; na_bwd.cuh: K7), and of the GEMM core of the
+// (attn_bwd.cuh: K9, K14; na_bwd.cuh: K7, K12), and of the GEMM core of the
 // weight-gradient backwards (gemm.cuh: K6, K10):
 // swizzled (64, E) bf16 tiles in shared memory filled by cp.async through a
 // ring of stages, wgmma descriptors and products with f32 accumulators in
@@ -8,10 +8,15 @@
 // accumulator rounded to bf16), the staged 16-byte store of a tile, and
 // Seq, the attention bodies' geometry policy for global attention.
 //
-// Shared-memory tiles are (64, E) bf16 in wgmma's canonical K-major layout
-// with the swizzle of their row width: at E = 64 a row is one 128-byte
-// swizzle atom, at E = 32 a 64-byte one. The same tile read with the
-// transpose bit set is the MN-major B operand of a product over its rows.
+// Shared-memory tiles are (64, E) bf16, E 32, 64 or 128, in wgmma's
+// canonical K-major layout with the swizzle of their row width: at E = 64 a
+// row is one 128-byte swizzle atom, at E = 32 a 64-byte one. At E = 128 a
+// row is two atoms: the tile is two (64, 64) column halves of 8 KB, each
+// 128-byte swizzled (CUTLASS's K_SW128 atom tiled along K), so that half h
+// is a (64, 64) tile in its own right. A contraction over E steps its k16
+// slices along a half's row and then to the next half (k_slice); the same
+// tile read with the transpose bit set is the MN-major B operand of a
+// product over its rows, at E = 128 one N = 64 product per half.
 // Loads are cp.async 16-byte copies (rows past s zero-filled by the copy's
 // source size; or rows gathered one by one from map positions), one commit
 // group per tile or pair of tiles. cp.async, not
@@ -46,28 +51,44 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Byte offset of 16-byte chunk c of row r in a swizzled (64, E) tile: the
 // 128-byte swizzle (E = 64) XORs the chunk with r mod 8, the 64-byte one
-// (E = 32) with (r / 2) mod 4, as the hardware does on the address bits.
+// (E = 32) with (r / 2) mod 4, as the hardware does on the address bits; at
+// E = 128 chunks 8-15 are those of the second column half, 8 KB on.
 template <int E>
 __device__ __forceinline__ uint32_t swizzle(int r, int c) {
-  if constexpr (E == 64) return r * 128 + ((c ^ (r & 7)) << 4);
+  static_assert(E == 32 || E == 64 || E == 128, "tiles take E 32, 64 or 128");
+  if constexpr (E == 128) return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  else if constexpr (E == 64) return r * 128 + ((c ^ (r & 7)) << 4);
   else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
+// The elements of a swizzle atom's row: a tile's row pitch in shared memory.
+template <int E>
+constexpr int ATOM = E < 64 ? E : 64;
+
 // wgmma shared-memory descriptor of a (64, E) tile at `tile` (aligned to
-// 1024 bytes). Both majors use the same strides: 8-row groups SBO apart
-// (8 rows of 2E bytes); LBO is unused by either (one swizzle atom wide).
+// 1024 bytes), or of one column half of it at E = 128. Both majors use the
+// same strides: 8-row groups SBO apart (8 rows of one atom's row); LBO is
+// unused by every product here (each reads one swizzle atom's width).
 template <int E>
 __device__ __forceinline__ uint64_t desc(const bf16* tile) {
-  constexpr uint64_t layout = E == 64 ? 1 : 2;  // 128-byte / 64-byte swizzle
-  constexpr uint64_t sbo = 8 * 2 * E / 16;
+  constexpr uint64_t layout = ATOM<E> == 64 ? 1 : 2;  // 128-byte / 64-byte swizzle
+  constexpr uint64_t sbo = 8 * 2 * ATOM<E> / 16;
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
          (sbo << 32) | (layout << 62);
 }
-// Descriptor steps of one k16 slice, in 16-byte units: along a row (K-major,
-// the contraction over E) and down 16 rows (MN-major, over the tile's rows).
+// Descriptor steps, in 16-byte units: one k16 slice along a row (K-major,
+// the contraction over E), one column half of an E = 128 tile, and one k16
+// slice down 16 rows (MN-major, over the tile's rows).
 constexpr uint64_t K_STEP = 2;
+constexpr uint64_t HALF_STEP = ROWS * 128 / 16;
 template <int E>
-constexpr uint64_t ROW_STEP = 16 * 2 * E / 16;
+constexpr uint64_t ROW_STEP = 16 * 2 * ATOM<E> / 16;
+// The descriptor offset of k16 slice kk of a contraction over E: at E = 128
+// slices 4-7 lie in the second column half.
+template <int E>
+__device__ __forceinline__ constexpr uint64_t k_slice(int kk) {
+  return E == 128 ? (kk / 4) * HALF_STEP + (kk % 4) * K_STEP : kk * K_STEP;
+}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -211,10 +232,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 
 // d (64 x N, f32) = or += A (64 x 16, bf16 pairs in registers) B (16 x N),
 // B in shared memory, K-major (TRANS_B 0) or MN-major (TRANS_B 1); `acc` 0
-// overwrites d.
-template <int N, int TRANS_B>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+// overwrites d. d is the thread's N / 2 accumulator elements from d[OFF]
+// (OFF 32: the second 64 columns of an m64n128 accumulator).
+template <int N, int TRANS_B, int OFF = 0, int M>
+__device__ __forceinline__ void wgmma_rs(float (&d)[M], const uint32_t (&a)[4], uint64_t b,
                                          int acc) {
+  static_assert(OFF + N / 2 <= M, "the accumulator holds the product");
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -222,12 +245,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
         "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
+        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]),
+          "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]),
+          "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]),
+          "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+          "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]),
+          "+f"(d[OFF + 22]), "+f"(d[OFF + 23]), "+f"(d[OFF + 24]), "+f"(d[OFF + 25]),
+          "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+          "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TRANS_B));
   } else {
     static_assert(N == 32, "wgmma_rs takes N 32 or 64");
@@ -236,9 +261,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
         "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]),
+          "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]),
+          "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]),
+          "+f"(d[OFF + 14]), "+f"(d[OFF + 15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TRANS_B));
   }
 }
@@ -293,12 +319,14 @@ __device__ __forceinline__ void chain_rs(float (&d)[32], const uint32_t (&x)[E /
                                          const bf16* y) {
   const uint64_t dy = desc<E>(y);
 #pragma unroll
-  for (int kk = 0; kk < E / 16; ++kk) wgmma_rs<64, 0>(d, x[kk], dy + kk * K_STEP, kk);
+  for (int kk = 0; kk < E / 16; ++kk) wgmma_rs<64, 0>(d, x[kk], dy + k_slice<E>(kk), kk);
 }
 
 // d += A B over the tile's 64 rows: A the 4 k16 slices of a 64 x 64 bf16
-// register operand, B a (64, E) tile read MN-major. Started and committed as
-// one group, not waited for.
+// register operand, B a (64, E) tile read MN-major (at E = 128 an N = 64
+// product per column half, into d's first and second 32 elements: the
+// layout of one m64n128 accumulator). Started and committed as one group,
+// not waited for.
 template <int E>
 __device__ __forceinline__ void rows_product(float (&d)[E / 2], uint32_t (&a)[4][4],
                                              const bf16* b) {
@@ -307,7 +335,14 @@ __device__ __forceinline__ void rows_product(float (&d)[E / 2], uint32_t (&a)[4]
   fence_regs(d);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<E, 1>(d, a[kk], db + kk * ROW_STEP<E>, 1);
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (E == 128) {
+      wgmma_rs<64, 1>(d, a[kk], db + kk * ROW_STEP<E>, 1);
+      wgmma_rs<64, 1, 32>(d, a[kk], db + HALF_STEP + kk * ROW_STEP<E>, 1);
+    } else {
+      wgmma_rs<E, 1>(d, a[kk], db + kk * ROW_STEP<E>, 1);
+    }
+  }
   wgmma_commit();
 }
 

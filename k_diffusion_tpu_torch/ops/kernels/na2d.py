@@ -24,11 +24,11 @@ differentiates.
   hold it on its own op path.
 - ``na2d`` on (b, h, w, heads, e) maps, e 32, 64 or 128, read through their
   strides (``csrc/na2d_heads.cu``): the forward K11 (K2's forward, v read
-  through its own strides, at e 32 and 64; the wmma forward of
-  ``csrc/na2d.cuh`` at 128) and the backward K12 (K7's two kernels, q, k
-  and v each read through its own strides, at e 32 and 64; wmma kernels at
-  128; a dq kernel per query tile and a dk/dv kernel per key tile, one
-  counted launch).
+  through its own strides) and the backward K12 (K7's two kernels, q, k
+  and v each read through its own strides: a dq kernel per query tile,
+  which forms delta = rowsum(out * dout), and a dk/dv kernel per key tile,
+  one counted launch), at e 128 on ``csrc/wgmma.cuh``'s tiles of two
+  128-byte-swizzled column halves.
 - ``na2d_packed_proj``: K15 (``csrc/na_proj.cuh``, launched from
   ``csrc/na2d_heads.cu``), ``na2d_packed`` with the out-projection and the
   residual fused into the forward, at head dims 32 and 64: a thread block
@@ -76,8 +76,7 @@ TILE = 8          # query tile edge of the kernels
 MAX_KERNEL = 7    # the kernels' halo holds windows up to 7 x 7
 HALO_KEYS = 208   # rows of a tile's halo partial (14 x 14, rounded up to 16)
 HEAD_DIMS = (32, 64, 128)  # head dims of K11 and K12, in either dtype
-# head dims of K15: a rank's 64 channels hold whole heads, and wgmma.cuh's
-# tiles take 32 and 64
+# head dims of K15: a rank's 64 channels hold whole heads
 PROJ_HEAD_DIMS = (32, 64)
 
 _P = ctypes.c_void_p
@@ -95,10 +94,6 @@ _HEADS_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
 # kernel_size, scale, strides, stream
 _HEADS_BWD_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, _P,
                                                           _P]
-# the bf16 head dims whose backward kernel forms delta = rowsum(out * dout)
-# itself (na_bwd.cuh's wgmma kernels; the float32 forms do at every head
-# dim); at 128 in bf16 the caller forms it
-DELTA_IN_KERNEL = (32, 64)
 # q, k, v, skip, w_out, out, batch, h, w, heads, e, kernel_size, scale,
 # stream
 _PROJ_SIGNATURE = [_P] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, _P]
@@ -402,10 +397,9 @@ def heads_forward(q, k, v, kernel_size, scale=1.0, save_lse=False):
 def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     """Launches K12 (its float32 form on float32 operands) on CUDA tensors:
     returns (dq, dk, dv) in q's dtype, each (b, h, w, heads, e)
-    contiguous. delta = rowsum(out * dout) is formed by the dq kernel (the
-    float32 form's at every head dim, the bf16 one's at e 32 and 64), and
-    at e 128 in bfloat16 by a plain float32 reduction here, as in the JAX
-    package."""
+    contiguous. delta = rowsum(out * dout) is formed by the dq kernel in
+    either dtype at every head dim (the JAX package forms it outside its
+    kernels); here it is only allocated."""
     strides = _check_heads(q, k, v, kernel_size, "na2d backward")
     b, h, w, heads, e = q.shape
     dev = q.device
@@ -413,11 +407,7 @@ def heads_backward(q, k, v, out, lse, dout, kernel_size, scale=1.0):
     for name, t in (("out", out), ("dout", dout)):
         _build.require(t, name, dev, q.dtype, q.shape)
     _build.require(lse, "lse", dev, torch.float32, (b, heads, h, w))
-    if q.dtype == torch.float32 or e in DELTA_IN_KERNEL:
-        delta = torch.empty((b, heads, h, w), device=dev, dtype=torch.float32)
-    else:
-        delta = (out.float() * dout.float()).sum(-1).permute(0, 3, 1, 2) \
-            .contiguous()
+    delta = torch.empty((b, heads, h, w), device=dev, dtype=torch.float32)
     dq, dk, dv = (torch.empty(q.shape, device=dev, dtype=q.dtype)
                   for _ in range(3))
     lib = _build.load("na2d_heads", kdt_na2d_heads_bwd=_HEADS_BWD_SIGNATURE,

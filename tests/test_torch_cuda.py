@@ -894,10 +894,10 @@ def test_flash_head_dim_32(dev, b, s, heads, scale):
 HEADS_CASES = [(2, 16, 24, 2, 64, 7), (1, 8, 8, 12, 64, 7),
                (2, 32, 16, 4, 32, 7), (1, 16, 16, 2, 32, 3),
                (1, 24, 16, 1, 128, 5), (1, 16, 16, 2, 128, 7)]
-# K12's edge tiles at head dims 32 and 64: windows smaller than 7 on maps of
-# 8 and 16, where the slabs of queries reaching a key tile are cut by the
+# K12's edge tiles at every head dim: windows smaller than 7 on maps of 8
+# and 16, where the slabs of queries reaching a key tile are cut by the
 # map's edge
-HEADS_EDGE_CASES = [(1, h, w, 2, e, ks) for e in (32, 64)
+HEADS_EDGE_CASES = [(1, h, w, 2, e, ks) for e in (32, 64, 128)
                     for h, w in ((8, 8), (16, 16), (8, 16)) for ks in (1, 3, 5)]
 
 
@@ -914,9 +914,9 @@ def heads_qkv(g, dev, b, h, w, heads, e):
 
 
 # the forward also at every odd kernel size on one tile, h != w and a map
-# with interior tiles, at head dims 32 and 64 (the wgmma forward's)
+# with interior tiles, at every head dim
 HEADS_FWD_CASES = HEADS_CASES + [
-    (1, h, w, 2, e, ks) for e in (32, 64)
+    (1, h, w, 2, e, ks) for e in (32, 64, 128)
     for h, w in ((8, 8), (16, 24), (32, 32)) for ks in (1, 3, 5, 7)]
 
 

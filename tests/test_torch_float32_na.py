@@ -305,25 +305,39 @@ def forward_and_backward(layout, q, k, v, dout):
     return (out, lse), na2d.heads_backward(q, k, v, out, lse, dout, 7, 0.5)
 
 
+# (layout, head dim): the packed maps, and the per-head ones at every head
+# dim of K11 and K12 ("heads" at 64)
+LAYOUTS = {"packed": ("packed", 64), "heads": ("heads", 64),
+           "heads-e32": ("heads", 32), "heads-e128": ("heads", 128)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("layout", list(ENTRIES))
-def test_na_wrappers_dispatch_by_dtype(fake_library, layout, dtype):
+@pytest.mark.parametrize("layout, e", list(LAYOUTS.values()),
+                         ids=list(LAYOUTS))
+def test_na_wrappers_dispatch_by_dtype(fake_library, layout, e, dtype):
     """float32 operands reach the float32 entry points and counters,
     bfloat16 the bf16 ones, with the shape, the kernel size, the scale and
-    (per head) q's, k's and v's strides; the outputs and the gradients are
-    in the operands' dtype, the lse float32."""
-    q, k, v, dout = operands(layout, dtype)
+    (per head, at head dims 32, 64 and 128, v a strided third of a
+    projection) q's, k's and v's strides; each dtype's backward entry gets
+    the same arguments at every head dim, a fresh float32 delta the dq
+    kernel writes included (nothing here forms it); the outputs and the
+    gradients are in the operands' dtype, the lse float32."""
+    q, k, v, dout = operands(layout, dtype, e=e)
     (out, lse), grads = forward_and_backward(layout, q, k, v, dout)
     (e_fwd, a_fwd), (e_bwd, a_bwd) = fake_library
     assert (e_fwd, e_bwd) == ENTRIES[layout][dtype]
     assert a_fwd[:3] == [t.data_ptr() for t in (q, k, v)]
     assert a_bwd[:5] == [t.data_ptr() for t in (q, k, v, out, dout)]
+    assert a_bwd[5] == lse.data_ptr()
+    # delta: a pointer of its own, past out's and lse's, beside dq, dk, dv
+    assert len(set(a_bwd[:10])) == 10 and None not in a_bwd[:10]
     if layout == "packed":
         assert a_fwd[5:11] == a_bwd[10:16] == [2, 16, 8, 2, 7, 0.5]
     else:
+        heads = 128 // e
         strides = [st for t in (q, k, v) for st in t.stride()[:3]]
         assert strides[6:] == [16 * 8 * 3 * 128, 8 * 3 * 128, 3 * 128]
-        assert a_fwd[5:12] == a_bwd[10:17] == [2, 16, 8, 2, 64, 7, 0.5]
+        assert a_fwd[5:12] == a_bwd[10:17] == [2, 16, 8, heads, e, 7, 0.5]
         assert a_fwd[12] == a_bwd[17] == strides
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert all(g.dtype == dtype and g.shape == q.shape for g in grads)
@@ -370,24 +384,27 @@ def test_na_wrappers_refuse_what_no_kernel_takes(fake_library, layout, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_heads_at_head_dim_128_dispatch_by_dtype(fake_library, dtype):
-    """At head dim 128 (one head, v a strided third of a projection) float32
-    operands reach the float32 entries of K11 and K12, whose dq kernel
-    forms delta, and bfloat16 the bf16 ones (delta formed here), with the
-    shape, kernel size, scale and strides; each on its own counter."""
-    q, k, v, dout = operands("heads", dtype, e=128)
-    (out, lse), grads = forward_and_backward("heads", q, k, v, dout)
-    (e_fwd, a_fwd), (e_bwd, a_bwd) = fake_library
-    assert (e_fwd, e_bwd) == ENTRIES["heads"][dtype]
-    assert a_fwd[5:12] == a_bwd[10:17] == [2, 16, 8, 1, 128, 7, 0.5]
-    assert a_fwd[12] == a_bwd[17] == [
-        st for t in (q, k, v) for st in t.stride()[:3]]
-    assert out.dtype == dtype and lse.dtype == torch.float32
-    assert all(g.dtype == dtype and g.shape == q.shape for g in grads)
-    names = ("heads_launches", "heads_bwd_launches")
-    want = dict.fromkeys(COUNTERS, 0) | {
-        f"{n}_f32" if dtype == torch.float32 else n: 1 for n in names}
-    assert {c: getattr(na2d, c) for c in COUNTERS} == want
+@pytest.mark.parametrize("e", na2d.HEAD_DIMS)
+def test_heads_backward_forms_no_delta(fake_library, e, dtype):
+    """K12's wrapper leaves delta = rowsum(out * dout) to the dq kernel at
+    every head dim and in either dtype: under a dispatch mode that records
+    every aten op, it issues no product and no sum (it only allocates and
+    launches)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    q, k, v, dout = operands("heads", dtype, e=e)
+    out, lse = na2d.heads_forward(q, k, v, 7, 0.5, save_lse=True)
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        na2d.heads_backward(q, k, v, out, lse, dout, 7, 0.5)
+    assert ops and not {"mul", "sum", "mean", "einsum", "bmm", "mm"} & set(ops)
+    assert fake_library[-1][0] == ENTRIES["heads"][dtype][1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
