@@ -196,15 +196,19 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    in-process from step 2 within 1e-3, with launch counts.
 26. float32 compute on the card for the ViT and the HDiT without
    neighborhood-attention levels (``transformers_float32_phase``): (a) the
-   float32 forms of K1, K4, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu
-   on the TF32 core csrc/gemm_tf32.cuh), K5 and K3/K9 (csrc/attn_tf32.cuh)
+   float32 forms of K1, K4, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu;
+   the forwards on the TF32 mma.sync core csrc/gemm_tf32.cuh, the
+   backwards on the TF32 wgmma core csrc/gemm_tf32_wg.cuh), K5 and K3/K9
+   (csrc/attn_tf32.cuh)
    against their plain versions in float32 with TF32 off, within 5e-3 x
    max|plain|, at the shifted-window config's shapes (K1, K4 at batch 8 a
    call, K6, K10 at batch-8 step shapes, K3, K9 at 8 x 256 x 512), K5 at
    the HDiT's 8 x 256 and the ViT's 64 x 768, f 2048, and K1, K4, K6, K10
    at config_test_tiny's d 64 (head dim 32); (c) their times beside the
    plain version's, the TF32 bound's and, for K3/K9, SDPA's on the float32
-   inputs; (b) on the same inputs each float32 kernel's error against
+   inputs, for K6/K10 their products alone as torch.matmul with TF32 on
+   (``products_ms``), their reruns bit-equal and their time split by
+   kernel; (b) on the same inputs each float32 kernel's error against
    float64 at most 1/4 of its bf16 form's, output by output; (d) the
    shifted-window config and the ViT at DiT-B/2 (a call and a step at
    batch 8 each) in float32 and in bf16 on the card against float32 on
@@ -356,10 +360,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # is not ``fn``; ``library`` one PyTorch call that computes the same
 # function, timed as a yardstick and used nowhere in the port; ``rel_bound``
 # the kernel's error bound against the plain version (x its max|plain|) and
-# ``peak`` the card's peak rate for the operations' type
+# ``peak`` the card's peak rate for the operations' type; ``products``,
+# where given, the kernel's matrix products alone as torch.matmul calls, a
+# second yardstick the port never calls
 Case = collections.namedtuple(
     "Case", "name label calls fn plain flops inputs timed library rel_bound "
-    "peak", defaults=(None, None, KERNEL_REL_BOUND, PEAK_BF16_FLOPS))
+    "peak products",
+    defaults=(None, None, KERNEL_REL_BOUND, PEAK_BF16_FLOPS, None))
 
 
 class Clock:
@@ -1076,6 +1083,9 @@ def run_cases(cases, results, kernel_reps, plain_reps):
         plain_ms = device_ms(c.plain, plain_reps)
         lib_ms = device_ms(c.library, kernel_reps) if c.library else None
         lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        prod_ms = device_ms(c.products, kernel_reps) if c.products else None
+        if prod_ms is not None:
+            lib += f", its products as torch.matmul (TF32) {prod_ms:.4f} ms"
         bound = max(op_ms, byte_ms)
         print(f"kernel {c.name} [{c.label}]: max abs err {err:.3e}, worst "
               f"output {share:.2e} x its max|plain| (bound "
@@ -1095,6 +1105,8 @@ def run_cases(cases, results, kernel_reps, plain_reps):
         r["byte_ms"] += c.calls * byte_ms
         if lib_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + c.calls * lib_ms
+        if prod_ms is not None:
+            r["products_ms"] = r.get("products_ms", 0.0) + c.calls * prod_ms
     torch.cuda.empty_cache()
 
 
@@ -1760,8 +1772,9 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["op_ms"] > r["byte_ms"] else "bytes",
             "library_ms": r["library_ms"]}
-        if "composition_ms" in r:
-            entry["composition_ms"] = r["composition_ms"]
+        for extra in ("composition_ms", "products_ms"):
+            if extra in r:
+                entry[extra] = r[extra]
         report.append(entry)
     print(json.dumps({"kernels": report}))
     print(f"chip_smoke: {time.perf_counter() - CLOCK.start:.1f} s in all",
@@ -1778,8 +1791,9 @@ def main():
 # K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
 # K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh);
 # K8 (bf16 and float32 outputs); the float32 forms: K3's and K9's
-# (csrc/attn_tf32.cuh), K1's, K6's, K4's, K10's and K5's (their kernels and
-# csrc/gemm_tf32.cuh's), K2's and K7's (in na2d), K11's and K12's (in
+# (csrc/attn_tf32.cuh), K1's, K4's and K5's (their kernels on
+# csrc/gemm_tf32.cuh), K6's and K10's (their first kernels and
+# csrc/gemm_tf32_wg.cuh's), K2's and K7's (in na2d), K11's and K12's (in
 # na2d_heads; csrc/na_tf32.cuh, also at head dim 128) and K15's
 # (csrc/na_proj_tf32.cuh)
 REPORTED = {
@@ -1799,25 +1813,30 @@ REPORTED = {
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
               "atb_kernel", "reduce_kernel", "reduce_few_kernel",
               "mapping_kernel"),
-    "fused_qkv_f32": ("qkv_f32_kernel", "qkv_f32_dr_kernel",
-                      "norm_vjp_f32_kernel", "atb_f32_kernel",
-                      "reduce_kernel"),
+    "fused_qkv_f32": ("qkv_f32_kernel", "qkv_f32_dr_kernel", "dxn_kernel",
+                      "dw_kernel", "round_weights_kernel", "reduce_kernel"),
     "geglu_f32": ("ffn_f32_up_kernel", "ffn_f32_down_kernel",
                   "add_parts_kernel", "ffn_f32_dup_kernel", "rms_rows_kernel",
-                  "norm_vjp_f32_kernel", "atb_f32_kernel", "reduce_kernel"),
+                  "dxn_kernel", "dw_kernel", "round_weights_kernel",
+                  "reduce_t_kernel", "reduce_kernel"),
 }
 
 # instantiations the report must list: K11 and K12 at head dim 128 (the
 # forward two blocks an SM, the dk/dv kernel two warpgroups a block), the
 # float32 forms of K11 and K12 at head dim 128 (two warpgroups a block),
-# K15's at both head dims and K8's two outputs
+# K15's at both head dims, K8's two outputs, and K6-f32's first kernel at
+# both head dims with one and two panels an item, and the dxn kernel of the
+# float32 backwards at both widths
 REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
                       "na_dkv_kernel<128, true>",
                       "na_tf32_fwd_kernel<128>", "na_tf32_dq_kernel<128>",
                       "na_tf32_dkv_kernel<128>", "na_proj_tf32_kernel<32>",
                       "na_proj_tf32_kernel<64>",
                       "na2d_overlap_add_kernel<false>",
-                      "na2d_overlap_add_kernel<true>")
+                      "na2d_overlap_add_kernel<true>",
+                      "qkv_f32_dr_kernel<32, 1>", "qkv_f32_dr_kernel<32, 2>",
+                      "qkv_f32_dr_kernel<64, 1>", "qkv_f32_dr_kernel<64, 2>",
+                      "dxn_kernel<64>", "dxn_kernel<128>")
 
 
 def compiler_report(build):
@@ -3933,8 +3952,9 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
 
 # phase 26: float32 compute on the card (--mixed-precision no) for the ViT
 # and the HDiT without neighborhood-attention levels: the float32 forms of
-# K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu on the TF32 core
-# csrc/gemm_tf32.cuh) and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
+# K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu; the forwards on
+# the TF32 core csrc/gemm_tf32.cuh, the backwards on csrc/gemm_tf32_wg.cuh)
+# and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
 CIFAR10_TRANSFORMER = ROOT / "configs" / "config_cifar10_transformer.json"
 # the batch of phases 25 (d) and 26 (d)'s CPU references (the U-Net's call
 # and step, the shifted-window config's step, the ViT's call and step): the
@@ -3960,11 +3980,13 @@ F32_KERNELS = {
 # wrapper call that is timed (the backward alone); ``skip`` outputs left
 # out of the TF32 check (a logsumexp, computed in f32 by both forms);
 # ``reads`` tensors the timed call reads besides the inputs (a backward's
-# out and lse), for the bound
+# out and lse), for the bound; ``products`` the kernel's matrix products
+# alone as torch.matmul calls with TF32 on (Case's)
 F32Spec = collections.namedtuple(
     "F32Spec",
-    "name label calls make act run plain flops timed library skip reads",
-    defaults=(None, None, (), ()))
+    "name label calls make act run plain flops timed library skip reads "
+    "products",
+    defaults=(None, None, (), (), None))
 
 
 def f32_specs(dev):
@@ -4006,7 +4028,8 @@ def f32_specs(dev):
             "fused_qkv_bwd_f32", label, n, lambda m=made: m, (0, 1, 4, 5, 6),
             lambda *a, f=qkv: fused_qkv.prologue_backward(*f(*a[:4]), *a[4:]),
             lambda *a, f=qkv: fused_qkv.reference_backward(*f(*a[:4]), *a[4:]),
-            3 * 2 * t * d * 3 * d))
+            3 * 2 * t * d * 3 * d,
+            products=under_tf32(True, qkv_bwd_products(t, d, dev, g))))
         ffn = [rnd(b, h * h, d)(), rnd(b, d, std=0.1, shift=1.0)(),
                rnd(d, 2 * d_ff, std=d ** -0.5)(),
                rnd(d_ff, d, std=d_ff ** -0.5)(), rnd(b, h * h, d)()]
@@ -4018,7 +4041,8 @@ def f32_specs(dev):
         specs.append(F32Spec(
             "fused_ffn_bwd_f32", flabel, n_ffn_bwd, lambda m=ffn: m,
             (0, 1, 4), lambda *a: fused_ffn.ffn_backward(*a),
-            lambda *a: fused_ffn.reference_backward(*a), 16 * t * d * d_ff))
+            lambda *a: fused_ffn.reference_backward(*a), 16 * t * d * d_ff,
+            products=under_tf32(True, ffn_bwd_products(t, d, d_ff, dev, g))))
         if not attn:
             continue
         s = h * h
@@ -4070,6 +4094,82 @@ def f32_specs(dev):
     return specs
 
 
+def qkv_bwd_products(rows, d, dev, g):
+    """K6-f32's matrix products alone as torch.matmul calls on (rows, d)
+    operands: the recomputed projection R = xn W, dxn = dR W^T and dW =
+    xn^T dR (the yardstick ``products_ms``, used nowhere in the port)."""
+    xn, w, dr = (torch.randn(shape, generator=g).to(dev)
+                 for shape in ((rows, d), (d, 3 * d), (rows, 3 * d)))
+
+    def run():
+        return xn @ w, dr @ w.T, xn.T @ dr
+    return run
+
+
+def ffn_bwd_products(rows, d, d_ff, dev, g):
+    """K10-f32's matrix products alone as torch.matmul calls: the up
+    projection xn W_up, dh = g W_down^T, dxn = dup W_up^T, dW_up = xn^T dup
+    and dW_down = h^T g (the yardstick ``products_ms``)."""
+    xn, gr, w_up, w_down, dup, h = (
+        torch.randn(shape, generator=g).to(dev) for shape in (
+            (rows, d), (rows, d), (d, 2 * d_ff), (d_ff, d), (rows, 2 * d_ff),
+            (rows, d_ff)))
+
+    def run():
+        return (xn @ w_up, gr @ w_down.T, dup @ w_up.T, xn.T @ dup, h.T @ gr)
+    return run
+
+
+# the float32 backwards redesigned on csrc/gemm_tf32_wg.cuh, held to
+# bit-equal reruns and split by kernel in phase 26
+F32_BACKWARDS = ("fused_qkv_bwd_f32", "fused_ffn_bwd_f32")
+
+
+def f32_rerun_and_split(specs):
+    """Phase 26 (c): K6-f32 and K10-f32 at each shape rerun on the same
+    inputs give bit-equal gradients (every row reduction is a fixed-order
+    sum of partials), and one call's device time split by kernel name
+    (torch.profiler over 5 calls)."""
+    import re
+
+    from torch.profiler import ProfilerActivity
+
+    for s in specs:
+        if s.name not in F32_BACKWARDS:
+            continue
+        inputs = s.make()
+        first, again = s.run(*inputs), s.run(*inputs)
+        for i, (a, b_) in enumerate(zip(first, again)):
+            if not torch.equal(a, b_):
+                raise AssertionError(f"{s.name} [{s.label}]: output {i} of a "
+                                     f"rerun differs by "
+                                     f"{(a - b_).abs().max().item():.3e}")
+        del first, again
+        torch.cuda.synchronize()
+        # a short profile now and then records no device activity: take
+        # the first of up to three that does
+        for _ in range(3):
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    s.run(*inputs)
+                torch.cuda.synchronize()
+            rows = sorted(((e.self_device_time_total / 5, e.count // 5, e.key)
+                           for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and e.self_device_time_total > 0), reverse=True)
+            if rows:
+                break
+
+        def short(key):
+            m = re.search(r"\w+_kernel(?:<[^>]*>)?", key)
+            return m.group(0) if m else key[:40]
+        print(f"{s.name} [{s.label}]: rerun bit-equal; "
+              f"{sum(r[0] for r in rows):.1f} us of device time a call: " +
+              "; ".join(f"{short(key)} {us:.1f} us x {n}"
+                        for us, n, key in rows), flush=True)
+
+
 def f32_cases(specs):
     """Phase 26 (a), (c): each spec as a Case, the float32 kernel against its
     plain version in float32 with TF32 off, within F32_KERNEL_REL_BOUND,
@@ -4081,7 +4181,8 @@ def f32_cases(specs):
             s.name, s.label, s.calls, lambda r=s.run, a=inputs: tuple(r(*a)),
             under_tf32(False, lambda p=s.plain, a=inputs: tuple(p(*a))),
             s.flops, (inputs, s.reads), timed=s.timed, library=s.library,
-            rel_bound=F32_KERNEL_REL_BOUND, peak=PEAK_TF32_FLOPS))
+            rel_bound=F32_KERNEL_REL_BOUND, peak=PEAK_TF32_FLOPS,
+            products=s.products))
     return cases
 
 
@@ -4310,8 +4411,10 @@ def model_runs(KT, config, dev, smi, name, batch_call, batch_step,
 
 
 def transformers_float32_phase(KT, dev, smi, results):
-    """Phase 26: (a)-(c) the new float32 kernels at their shapes, (b) the
-    TF32 check, (d) the shifted-window config and the ViT against the CPU
+    """Phase 26: (a)-(c) the new float32 kernels at their shapes (K6's and
+    K10's also beside their products as torch.matmul), (b) the TF32 check,
+    (c) K6's and K10's reruns bit-equal and their time split by kernel, (d)
+    the shifted-window config and the ViT against the CPU
     beside bf16, (e) their float32 sampling and training, (f) the trainer
     on config_cifar10_transformer.json, (g) the refusals that remain
     (``float32_refusals``). Returns
@@ -4326,6 +4429,7 @@ def transformers_float32_phase(KT, dev, smi, results):
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 20, 3)
         f32_tf32_check(specs)
+        f32_rerun_and_split(specs)
     del specs
     torch.cuda.empty_cache()
     CLOCK.part("phase 26 (a)-(c) kernels")

@@ -1,7 +1,8 @@
 // The fused attention prologue in float32: AdaRMSNorm -> x @ W_qkv ->
 // per-head cosine-sim scaling of q and k -> axial RoPE on q and k; packed
 // (b, h, w, d) f32 q, k, v. Forward (K1 in f32) and backward (K6 in f32),
-// the kernels of --mixed-precision no, on gemm_tf32.cuh's TF32 core.
+// the kernels of --mixed-precision no: the forward on gemm_tf32.cuh's
+// TF32 mma.sync core, the backward on gemm_tf32_wg.cuh's TF32 wgmma core.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/fused_qkv.py:_fused_qkv_kernel (the
 // forward of fused_qkv_prologue) and :_prologue_bwd_kernel (its backward)
@@ -36,28 +37,29 @@
 // there in f32 with sincosf, as K1's bf16 form does. f32 goes out with
 // 8-byte stores, a quad's 32 contiguous bytes.
 //
-// K6 in f32, three steps (the bf16 form's, fused_qkv.cu):
+// K6 in f32, three steps (the bf16 form's, fused_qkv.cu) on
+// gemm_tf32_wg.cuh's TF32 wgmma core, after W and W^T are copied rounded
+// to TF32 (tw::round_weights_kernel):
 // (a) qkv_f32_dr_kernel: the raw projection recomputed per row tile and
-//     panel, as the forward's; the RoPE and cosine-sim VJPs in registers
-//     write f32 dR's q and k parts (v's is gv itself) and the
-//     d(attn_scale) partials; every panel adds its dR R to the per-row
-//     partial of dot_part for the RMS-norm VJP (gemm.cuh's note: sum(g1 x)
-//     = sum_k dR_k R_k / r, here up to the TF32 rounding of the products);
-//     panel 0 also writes xn and r;
-// (b) tg::norm_vjp_f32_kernel: dxn = dR W^T over K = 3d and the RMS-norm
-//     VJP in its epilogue -> dx and the d(norm_scale) partials;
-// (c) tg::atb_f32_kernel: dW_qkv = xn^T dR in f32 partials over row
-//     chunks; every partial summed in a fixed order (gemm::reduce_kernel).
+//     one or two panels; the RoPE and cosine-sim VJPs in registers
+//     give dR's q and k parts (v's is gv itself), written rounded and
+//     transposed, and the d(attn_scale) partials; every panel adds its dR R
+//     to the per-row partial of dot_part for the RMS-norm VJP (gemm.cuh's
+//     note: sum(g1 x) = sum_k dR_k R_k / r, here up to the TF32 rounding
+//     of the products); panel 0 also writes xn and r;
+// (b) tw::dxn_kernel: dxn = dR W^T over K = 3d and the RMS-norm VJP in its
+//     epilogue -> dx and the d(norm_scale) partials;
+// (c) tw::dw_kernel: dW_qkv = xn^T dR in f32 partials over row chunks;
+//     every partial summed in a fixed order (gemm::reduce_kernel).
 //
 // The head dim E is a template parameter, 64 or 32 (config_test_tiny.json):
 // a panel then holds 64 / E heads, accumulator blocks [8 hs E / 64, 8 (hs +
 // 1) E / 64) holding head hs of the panel.
 #include "gemm_tf32.cuh"
+#include "gemm_tf32_wg.cuh"
 
 namespace kdt {
 namespace {
-
-using tg::Mat;
 
 // The cosine-sim scale of the thread's two rows for each of the panel's HP
 // heads: sqrt(attn_scale) / sqrt(sum of the head's R^2 + cos_eps), and the
@@ -114,8 +116,7 @@ qkv_f32_kernel(const float* __restrict__ x, const float* __restrict__ nscale, in
   tg::zero(acc);
   const int b0[1] = {64 * p};
   tg::Normed norm{s_ns};
-  tg::mainloop<true, false, 1>(acc, ring, tg::mat(x, d), t.row0, t.row0 + t.valid,
-                               tg::mat(w, 3L * d), b0, 0, d, norm);
+  tg::mainloop<1>(acc, ring, x, d, t.row0, t.row0 + t.valid, w, 3L * d, b0, 0, d, norm);
   float r[2];
   tg::row_norms(norm, d, eps, r);
   float(&raw)[8][4] = acc[0];
@@ -166,139 +167,186 @@ qkv_f32_kernel(const float* __restrict__ x, const float* __restrict__ nscale, in
   }
 }
 
-// K6's first kernel in f32. Grid (images * tiles, 3d / 64): the forward's
-// product per panel; for a q or k panel the RoPE VJP (the forward rotation
-// with the sine's sign flipped, the partner column in the same thread) and
-// the cosine-sim VJP write dR into dqk (rows, 2d), and the tile's sums of
-// g * qn per head go to das_part (images * tiles, 2 * heads), finished by
-// reduce_kernel and a division by 2 * attn_scale in the wrapper; every
-// panel adds dR R over its columns to its per-row partial of dot_part
-// (3d / 64, rows) (v's dR is gv itself, so a v panel writes nothing else).
-// Panel 0 writes xn and r.
-template <int E>
-__global__ void __launch_bounds__(tg::THREADS)
-qkv_f32_dr_kernel(const float* __restrict__ x, const float* __restrict__ nscale,
-                  const float* __restrict__ w, const float* __restrict__ attn_scale,
+// K6's first kernel in f32, on gemm_tf32_wg.cuh's core. An item is one row
+// tile and NP 64-column panels of the 3d projection (NP 2 where d is a
+// multiple of 128, so that an item's panels lie in one of q, k, v; else
+// 1): the forward's product R = r ((x nscale) W) (N = 64 NP, B from the
+// rounded W^T); then per panel, for a q or k panel the RoPE VJP (the
+// forward rotation with the sine's sign flipped, the partner column in the
+// same thread) and the cosine-sim VJP give dR, and the tile's sums of g *
+// qn per head go to das_part (images * tiles, 2 * heads), finished by
+// reduce_kernel and a division by 2 * attn_scale in the wrapper; for a v
+// panel dR is gv itself. dR goes out rounded to TF32 and transposed into
+// drt (3d, ld), the A operand of dxn and the B of dW_qkv; every panel adds
+// dR R over its columns, unrounded, to its per-row partial of dot_part (3d
+// / 64, rows). Panel 0 writes xn and r.
+template <int E, int NP>
+__global__ void __launch_bounds__(tw::THREADS, 1)
+qkv_f32_dr_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_wt, const float* __restrict__ x,
+                  const float* __restrict__ nscale, const float* __restrict__ attn_scale,
                   const float* __restrict__ pos, const float* __restrict__ freqs,
                   const float* __restrict__ gq, const float* __restrict__ gk,
-                  const float* __restrict__ gv, float* __restrict__ dqk, float* __restrict__ xn,
-                  float* __restrict__ r_out, float* __restrict__ dot_part,
-                  float* __restrict__ das_part, long n_rows, int tokens, int d, int n_heads,
-                  float eps, float cos_eps) {
+                  const float* __restrict__ gv, float* __restrict__ drt, long ld,
+                  float* __restrict__ xn, float* __restrict__ r_out,
+                  float* __restrict__ dot_part, float* __restrict__ das_part, long n_rows,
+                  int images, int tokens, int d, int n_heads, float eps, float cos_eps) {
   constexpr int R = E / 4, HP = 64 / E;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float s_das[tg::WARPS][HP];
-  float* s_ns = smem;
-  float* s_r = smem + d;
-  float* ring = s_r + tg::ROWS;
-  const tg::RowTile t = tg::row_tile(tokens);
-  const int p = blockIdx.y, kt = d / 64, sec = p / kt, pp = p % kt;
-  tg::load_scale(nscale + static_cast<long>(t.img) * d, d, s_ns);
-  float acc[1][8][4];
-  tg::zero(acc);
-  const int b0[1] = {64 * p};
-  tg::Normed norm{s_ns};
-  tg::mainloop<true, false, 1>(acc, ring, tg::mat(x, d), t.row0, t.row0 + t.valid,
-                               tg::mat(w, 3L * d), b0, 0, d, norm);
-  float r[2];
-  tg::row_norms(norm, d, eps, r);
-  if (p == 0) tg::write_xn(x, t, d, s_ns, r, s_r, xn, r_out);
-  float(&raw)[8][4] = acc[0];
-  const int c = 2 * tg::lane_t(), warp = threadIdx.x / 32;
-  bool ok[2];
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ tw::Ring ring;
+  __shared__ float s_r[tw::ROWS];
+  __shared__ float s_das[4 * tw::CONSUMERS][HP];
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  float* s_ns = reinterpret_cast<float*>(smem + tw::S * tw::STAGE);
+  float* s_t = s_ns + d;  // a panel's dR^T, staged
+  tw::ring_init(ring);
+  const int groups = 3 * d / (64 * NP), kt = d / 64, steps = d / tw::BK;
+  const tw::Items span = tw::my_items(images * tw::tiles(tokens) * groups);
+  if (tw::is_producer()) {
+    tw::producer_regs();
+    if (!tw::tma_thread()) return;
+    tw::Producer p{ring, smem};
+    for (int item = span.begin; item < span.end; ++item) {
+      const tw::RowTile t = tw::row_tile(tokens, item / groups);
+      const int c0 = 64 * NP * (item % groups);
+      for (int k = 0; k < steps; ++k) {
+        uint64_t* bar;
+        unsigned char* st = p.next(tw::K_TILE + NP * tw::B_BYTES / 2, bar);
+        tw::tma(st, &map_x, tw::BK * k, t.row0, bar);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) ok[h] = tg::acc_row(h) < t.valid;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) raw[n][i] *= r[i / 2];
-  // the cotangent at the thread's elements (zero on rows past the tile's end)
-  const float* g = (sec == 0 ? gq : sec == 1 ? gk : gv) + 64 * pp + c;
-  float gr[8][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float2 gg = ok[h] ? *reinterpret_cast<const float2*>(
-                                    g + (t.row0 + tg::acc_row(h)) * d + 8 * n)
-                              : make_float2(0.f, 0.f);
-      gr[n][2 * h] = gg.x;
-      gr[n][2 * h + 1] = gg.y;
+        for (int j = 0; j < NP; ++j)
+          tw::tma(st + tw::A_BYTES + j * tw::B_BYTES / 2, &map_wt, tw::BK * k, c0 + 64 * j, bar);
+      }
     }
-  float dot[2] = {0.f, 0.f};
-  if (sec == 2) {  // v: dR = gv
+    return;
+  }
+  tw::consumer_regs();
+  tw::Consumer cons{ring, smem};
+  const int c = 2 * tw::lane_t(), warp = tw::warp();
+  int staged = -1;  // the image whose scale s_ns holds
+  for (int item = span.begin; item < span.end; ++item) {
+    const int rt = item / groups;
+    const tw::RowTile t = tw::row_tile(tokens, rt);
+    if (t.img != staged) tw::stage_scale(nscale + static_cast<long>(t.img) * d, d, s_ns);
+    staged = t.img;
+    float acc[32 * NP];
+    tw::zero(acc);
+    tw::Normed norm{s_ns};
+    tw::product<64 * NP>(acc, cons, steps, norm);
+    float r[2];
+    norm.norms(d, eps, r);
+    bool ok[2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int h = 0; h < 2; ++h) ok[h] = tw::acc_row(h) < t.valid;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dot[i / 2] += gr[n][i] * raw[n][i];
-  } else {
-    // the RoPE VJP: g1' = g1 cos + g2 sin, g2' = g2 cos - g1 sin
+    for (int np = 0; np < NP; ++np) {
+      const int p = NP * (item % groups) + np, sec = p / kt, pp = p % kt;
+      // R of the panel: raw[n][2 h + e] at row h, column 8 n + c + e
+      float raw[8][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long token = ok[h] ? t.tile * static_cast<long>(tg::ROWS) + tg::acc_row(h) : 0;
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        if (8 * n % E >= R) continue;
-        const int pn = n ^ (R / 8);
+        for (int i = 0; i < 4; ++i) raw[n][i] = acc[32 * np + 4 * n + i] * r[i / 2];
+      // the cotangent at the thread's elements (zero on rows past the tile's end)
+      const float* g = (sec == 0 ? gq : sec == 1 ? gk : gv) + 64 * pp + c;
+      float gr[8][4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float sn, cs;
-          rope_angle<E>(pos, freqs, token, pp * HP + 8 * n / E, n, e, sn, cs);
-          const float g1 = gr[n][2 * h + e], g2 = gr[pn][2 * h + e];
-          gr[n][2 * h + e] = g1 * cs + g2 * sn;
-          gr[pn][2 * h + e] = g2 * cs - g1 * sn;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 gg = ok[h] ? *reinterpret_cast<const float2*>(
+                                        g + (t.row0 + tw::acc_row(h)) * d + 8 * n)
+                                  : make_float2(0.f, 0.f);
+          gr[n][2 * h] = gg.x;
+          gr[n][2 * h + 1] = gg.y;
+        }
+      float dot[2] = {0.f, 0.f};
+      // dR, rounded, staged as the panel's rows of dR^T at the thread's rows
+      float* st = s_t + c * tw::ST_LD;
+      if (sec == 2) {  // v: dR = gv
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              dot[h] += gr[n][2 * h + e] * raw[n][2 * h + e];
+              st[(8 * n + e) * tw::ST_LD + tw::acc_row(h)] =
+                  tw::round_tf32(gr[n][2 * h + e]);
+            }
+      } else {
+        // the RoPE VJP: g1' = g1 cos + g2 sin, g2' = g2 cos - g1 sin
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long token = ok[h] ? t.tile * static_cast<long>(tw::ROWS) + tw::acc_row(h) : 0;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            if (8 * n % E >= R) continue;
+            const int pn = n ^ (R / 8);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float sn, cs;
+              rope_angle<E>(pos, freqs, token, pp * HP + 8 * n / E, n, e, sn, cs);
+              const float g1 = gr[n][2 * h + e], g2 = gr[pn][2 * h + e];
+              gr[n][2 * h + e] = g1 * cs + g2 * sn;
+              gr[pn][2 * h + e] = g2 * cs - g1 * sn;
+            }
+          }
+        }
+        // the cosine-sim VJP per head: qn = raw rho, rho = root / sqrt(ssq + eps)
+        float rho[HP][2], inv[HP][2], gsum[HP][2] = {};
+        cos_scale<E>(raw, attn_scale, pp * HP, cos_eps, rho, inv);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gsum[8 * n / E][i / 2] += gr[n][i] * raw[n][i];
+        float coef[HP][2], das[HP];
+#pragma unroll
+        for (int hs = 0; hs < HP; ++hs) {
+          das[hs] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float gs = gemm::quad_sum(gsum[hs][h]);
+            coef[hs][h] = rho[hs][h] * inv[hs][h] * inv[hs][h] * gs;
+            // the row's sum of g * qn over the head, once per quad
+            if (tw::lane_t() == 0 && ok[h]) das[hs] += rho[hs][h] * gs;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int hs = 8 * n / E;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = rho[hs][h] * gr[n][2 * h + e] - raw[n][2 * h + e] * coef[hs][h];
+              dot[h] += v * raw[n][2 * h + e];
+              st[(8 * n + e) * tw::ST_LD + tw::acc_row(h)] = tw::round_tf32(v);
+            }
+          }
+#pragma unroll
+        for (int hs = 0; hs < HP; ++hs) {
+          const float s = warp_sum(das[hs]);
+          if ((threadIdx.x & 31) == 0) s_das[warp][hs] = s;
         }
       }
-    }
-    // the cosine-sim VJP per head: qn = raw rho, rho = root / sqrt(ssq + eps)
-    float rho[HP][2], inv[HP][2], gsum[HP][2] = {};
-    cos_scale<E>(raw, attn_scale, pp * HP, cos_eps, rho, inv);
+      tw::consumers_sync();
+      if (sec < 2 && threadIdx.x < HP) {
+        float s = 0.f;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gsum[8 * n / E][i / 2] += gr[n][i] * raw[n][i];
-    float coef[HP][2], das[HP];
-#pragma unroll
-    for (int hs = 0; hs < HP; ++hs) {
-      das[hs] = 0.f;
+        for (int w = 0; w < 4 * tw::CONSUMERS; ++w) s += s_das[w][threadIdx.x];  // warp order
+        das_part[static_cast<long>(rt) * 2 * n_heads + sec * n_heads + pp * HP + threadIdx.x] =
+            s;
+      }
+      tw::store_t(s_t, drt + static_cast<long>(p) * 64 * ld + t.row0, ld, t.valid);
+      tw::consumers_sync();  // s_t and s_das are free again
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float gs = gemm::quad_sum(gsum[hs][h]);
-        coef[hs][h] = rho[hs][h] * inv[hs][h] * inv[hs][h] * gs;
-        // the row's sum of g * qn over the head, once per quad
-        if (tg::lane_t() == 0 && ok[h]) das[hs] += rho[hs][h] * gs;
+        const float s = gemm::quad_sum(dot[h]);
+        if (tw::lane_t() == 0 && ok[h]) dot_part[p * n_rows + t.row0 + tw::acc_row(h)] = s;
       }
+      if (p == 0) tw::write_xn(x, t, d, s_ns, r, s_r, xn, r_out);
     }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* out = dqk + (t.row0 + tg::acc_row(h)) * 2L * d + sec * d + 64 * pp + c;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int hs = 8 * n / E;
-        const float v0 = rho[hs][h] * gr[n][2 * h] - raw[n][2 * h] * coef[hs][h];
-        const float v1 = rho[hs][h] * gr[n][2 * h + 1] - raw[n][2 * h + 1] * coef[hs][h];
-        dot[h] += v0 * raw[n][2 * h] + v1 * raw[n][2 * h + 1];
-        if (ok[h]) *reinterpret_cast<float2*>(out + 8 * n) = make_float2(v0, v1);
-      }
-    }
-#pragma unroll
-    for (int hs = 0; hs < HP; ++hs) {
-      const float s = warp_sum(das[hs]);
-      if ((threadIdx.x & 31) == 0) s_das[warp][hs] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < HP) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < tg::WARPS; ++w) s += s_das[w][threadIdx.x];  // warp order
-      das_part[static_cast<long>(blockIdx.x) * 2 * n_heads + sec * n_heads + pp * HP +
-               threadIdx.x] = s;
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float s = gemm::quad_sum(dot[h]);
-    if (tg::lane_t() == 0 && ok[h]) dot_part[p * n_rows + t.row0 + tg::acc_row(h)] = s;
   }
 }
 
@@ -315,32 +363,55 @@ int launch_fwd(const float* x, const float* nscale, int scale_stride, const floa
   return launch_status(attr);
 }
 
+template <int E, int NP>
+cudaError_t launch_dr(const CUtensorMap& map_x, const CUtensorMap& map_wt, const float* x,
+                      const float* nscale, const float* attn_scale, const float* pos,
+                      const float* freqs, const float* gq, const float* gk, const float* gv,
+                      float* drt, long ld, float* xn, float* r, float* dot_part,
+                      float* das_part, int images, int tokens, int d, int n_heads, float eps,
+                      float cos_eps, cudaStream_t st) {
+  const size_t smem = tw::RING_SMEM + d * sizeof(float) + tw::STAGING;
+  const cudaError_t err = allow_smem(qkv_f32_dr_kernel<E, NP>, smem);
+  if (err != cudaSuccess) return err;
+  const long items = static_cast<long>(images) * tw::tiles(tokens) * (3 * d / (64 * NP));
+  qkv_f32_dr_kernel<E, NP><<<tw::grid(items), tw::THREADS, smem, st>>>(
+      map_x, map_wt, x, nscale, attn_scale, pos, freqs, gq, gk, gv, drt, ld, xn, r, dot_part,
+      das_part, static_cast<long>(images) * tokens, images, tokens, d, n_heads, eps, cos_eps);
+  return cudaGetLastError();
+}
+
 template <int E>
 int launch_bwd(const float* x, const float* nscale, const float* w, const float* attn_scale,
                const float* pos, const float* freqs, const float* gq, const float* gk,
-               const float* gv, float* dx, float* dns, float* dw, float* das_sums, float* dqk,
-               float* xn, float* r, float* dot_part, float* das_part, float* dns_part,
-               float* dw_part, int images, int tokens, int d, int n_heads, long chunk_rows,
-               float eps, float cos_eps, cudaStream_t st) {
-  const size_t smem = tg::normed_smem<1>(d);
-  cudaError_t err = allow_smem(qkv_f32_dr_kernel<E>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = tg::tiles(tokens);
+               const float* gv, float* dx, float* dns, float* dw, float* das_sums, float* wt,
+               float* w_r, float* drt, float* xn, float* r, float* dot_part, float* das_part,
+               float* dns_part, float* dw_part, int images, int tokens, int d, int n_heads,
+               long ld, long chunk_rows, float eps, float cos_eps, cudaStream_t st) {
   const long rows = static_cast<long>(images) * tokens;
-  qkv_f32_dr_kernel<E><<<dim3(images * tiles, 3 * d / 64), tg::THREADS, smem, st>>>(
-      x, nscale, w, attn_scale, pos, freqs, gq, gk, gv, dqk, xn, r, dot_part, das_part, rows,
-      tokens, d, n_heads, eps, cos_eps);
-  err = cudaGetLastError();
+  const int tiles = tw::tiles(tokens);
+  cudaError_t err = tw::launch_round(w, d, 3 * d, w_r, wt, st);
+  CUtensorMap map_x, map_wt;
+  if (err == cudaSuccess) err = tw::map_f32(&map_x, x, rows, d, d, tw::ROWS);
+  if (err == cudaSuccess) err = tw::map_f32(&map_wt, wt, 3 * d, d, d, 64);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = gemm::launch_reduce(das_part, das_sums, 1, images * tiles, 2 * n_heads, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dR: (dq, dk) in dqk, then gv as given
-  const Mat dr{dqk, 2L * d, 2 * d, gv, d};
-  err = tg::launch_norm_vjp(dr, w, x, nscale, nullptr, r, dot_part, 3 * d / 64, dx, dns_part, dns,
-                            images, tokens, d, 3 * d, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      tg::launch_atb(tg::mat(xn, d), dr, dw_part, dw, rows, d, 3 * d, chunk_rows, st));
+  // two panels an item where they lie in one of q, k, v and the items still
+  // come to two rounds of blocks
+  const bool pairs =
+      d % 128 == 0 && static_cast<long>(images) * tiles * (3 * d / 128) >= 2 * tw::sm_count();
+  err = pairs ? launch_dr<E, 2>(map_x, map_wt, x, nscale, attn_scale, pos, freqs, gq, gk,
+                                gv, drt, ld, xn, r, dot_part, das_part, images, tokens, d,
+                                n_heads, eps, cos_eps, st)
+              : launch_dr<E, 1>(map_x, map_wt, x, nscale, attn_scale, pos, freqs, gq, gk,
+                                gv, drt, ld, xn, r, dot_part, das_part, images, tokens, d,
+                                n_heads, eps, cos_eps, st);
+  if (err == cudaSuccess)
+    err = gemm::launch_reduce(das_part, das_sums, 1, images * tiles, 2 * n_heads, st);
+  if (err == cudaSuccess)
+    err = tw::launch_dxn(drt, ld, w_r, x, nscale, nullptr, r, dot_part, 3 * d / 64, dx, dns_part,
+                         dns, images, tokens, d, 3 * d, st);
+  if (err == cudaSuccess)
+    err = tw::launch_dw(xn, drt, ld, dw_part, dw, false, rows, d, 3 * d, chunk_rows, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -380,31 +451,32 @@ extern "C" int kdt_fused_qkv_f32(const void* x, const void* nscale, const void* 
 // attn_scale (heads,) f32; pos and freqs as the forward's; gq, gk, gv
 // (rows, d) f32. Writes dx (rows, d), dns (images, d), dw (d, 3d) and
 // das_sums (2 * heads) f32, the sums of g * qn for q then k (the wrapper
-// divides by 2 * attn_scale). Scratch f32: dqk (rows, 2d), xn (rows, d), r
-// (rows), dot_part (3d / 64, rows), das_part (images * tiles, 2 * heads),
-// dns_part (images * tiles, d) and dw_part (ceil(rows / chunk_rows), d, 3d),
-// tiles = ceil(tokens / tg::ROWS), the count the caller sized das_part and
-// dns_part for (refused if it differs); chunk_rows, the rows per dW partial, a
-// multiple of 32. Head dims as the forward's.
+// divides by 2 * attn_scale). Scratch f32: the rounded weights wt (3d, d)
+// and w_r (d, 3d); drt (3d, ld), xn (rows, d), r (rows), dot_part (3d / 64,
+// rows), das_part (images * tiles, 2 * heads), dns_part (images * tiles, d)
+// and dw_part (ceil(rows / chunk_rows), d, 3d), tiles = ceil(tokens /
+// tw::ROWS), the count the caller sized das_part and dns_part for (refused
+// if it differs); ld >= rows, a multiple of 4; chunk_rows, the rows per dW
+// partial, a multiple of 32. Head dims as the forward's.
 extern "C" int kdt_fused_qkv_bwd_f32(const void* x, const void* nscale, const void* w,
                                      const void* attn_scale, const void* pos, const void* freqs,
                                      const void* gq, const void* gk, const void* gv, void* dx,
-                                     void* dns, void* dw, void* das_sums, void* dqk, void* xn,
-                                     void* r, void* dot_part, void* das_part, void* dns_part,
-                                     void* dw_part, int images, int tokens, int tiles, int d,
-                                     int n_heads, long chunk_rows, float eps, float cos_eps,
-                                     void* stream) {
+                                     void* dns, void* dw, void* das_sums, void* wt, void* w_r,
+                                     void* drt, void* xn, void* r, void* dot_part,
+                                     void* das_part, void* dns_part, void* dw_part, int images,
+                                     int tokens, int tiles, int d, int n_heads, long ld,
+                                     long chunk_rows, float eps, float cos_eps, void* stream) {
   if (d % 64 || n_heads < 1 || d % n_heads || chunk_rows < 1 || chunk_rows % 32 ||
-      tiles != tg::tiles(tokens))
+      tiles != tw::tiles(tokens) || ld < static_cast<long>(images) * tokens || ld % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
-#define KDT_QKV_BWD_F32(E)                                                                       \
-  return launch_bwd<E>(f(x), f(nscale), f(w), f(attn_scale), f(pos), f(freqs), f(gq), f(gk),  \
-                       f(gv), o(dx), o(dns), o(dw), o(das_sums), o(dqk), o(xn), o(r),           \
-                       o(dot_part), o(das_part), o(dns_part), o(dw_part), images, tokens, d,    \
-                       n_heads, chunk_rows, eps, cos_eps, st)
+#define KDT_QKV_BWD_F32(E)                                                                      \
+  return launch_bwd<E>(f(x), f(nscale), f(w), f(attn_scale), f(pos), f(freqs), f(gq), f(gk), \
+                       f(gv), o(dx), o(dns), o(dw), o(das_sums), o(wt), o(w_r), o(drt), o(xn), \
+                       o(r), o(dot_part), o(das_part), o(dns_part), o(dw_part), images, tokens, \
+                       d, n_heads, ld, chunk_rows, eps, cos_eps, st)
   switch (d / n_heads) {
     case 32: KDT_QKV_BWD_F32(32);
     case 64: KDT_QKV_BWD_F32(64);

@@ -1,6 +1,8 @@
 // The GEGLU kernels in float32, the kernels of --mixed-precision no: the
 // HDiT feed-forward block, forward (K4 in f32) and backward (K10 in f32),
-// and the whole mapping network (K5 in f32), on gemm_tf32.cuh's TF32 core.
+// and the whole mapping network (K5 in f32): the forwards on
+// gemm_tf32.cuh's TF32 mma.sync core, the backward on gemm_tf32_wg.cuh's
+// TF32 wgmma core.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/fused_ffn.py:_ffn_kernel (the
 // forward of fused_geglu_ffn), :_ffn_bwd_kernel (its backward) and
@@ -31,14 +33,16 @@
 // K4 in f32 is the two, one after the other: h (rows, d_ff) goes through
 // device memory, where the bf16 form keeps it in registers; a simple
 // design first (PERF.md).
-// K10 in f32, three steps (the bf16 form's, geglu.cu):
+// K10 in f32, three steps (the bf16 form's, geglu.cu) on gemm_tf32_wg.cuh's
+// TF32 wgmma core, after W_up, W_up^T and W_down are copied rounded to TF32
+// (tw::round_weights_kernel):
 // (a) ffn_f32_dup_kernel: per row tile and hidden panel, the up product
-//     recomputed and dh = g W_down^T (both K-major), the GEGLU derivative
-//     in registers: h, dup = (da, dgate) and (once) xn and r in f32, and
-//     the per-row sums of dup (a, gate) for the RMS-norm VJP;
-// (b) tg::norm_vjp_f32_kernel: dxn = dup W_up^T over K = 2 d_ff and the
-//     RMS-norm VJP: dx (+ g, the residual) and the d(scale) partials;
-// (c) tg::atb_f32_kernel: dW_up = xn^T dup and dW_down = h^T g as split-K
+//     recomputed and dh = g W_down^T, the GEGLU derivative in registers:
+//     h^T and dup^T = (da, dgate)^T rounded, (once) xn and r, and the
+//     per-row sums of dup (a, gate) for the RMS-norm VJP;
+// (b) tw::dxn_kernel: dxn = dup W_up^T over K = 2 d_ff and the RMS-norm
+//     VJP: dx (+ g, the residual) and the d(scale) partials;
+// (c) tw::dw_kernel: dW_up = xn^T dup and dW_down = (g^T h)^T as split-K
 //     f32 partials over row chunks, every partial summed in a fixed order.
 // K5 in f32 runs the network as these kernels on the (b, d) activation, the
 // batch one "image" whose scale is the block's own norm scale (a row
@@ -51,20 +55,20 @@
 // the bf16 form keeps each layer's share in a thread block cluster's
 // shared memory.
 #include "gemm_tf32.cuh"
+#include "gemm_tf32_wg.cuh"
 
 namespace kdt {
 namespace {
-
-using tg::Mat;
 
 constexpr float INV_SQRT_2PI = 0.3989422804014327f;
 // hidden units of a chunk of K5's split down product
 constexpr int MAP_CHUNK = 256;
 
-// d gelu(g) / dg for the exact (erf) GELU
-__device__ __forceinline__ float gelu_erf_grad(float g) {
-  return 0.5f * (1.0f + erff(g * 0.70710678118654752440f)) +
-         g * INV_SQRT_2PI * __expf(-0.5f * g * g);
+// gelu(g) and d gelu(g) / dg for the exact (erf) GELU, one erf for both
+__device__ __forceinline__ void gelu_erf_both(float g, float& gelu, float& grad) {
+  const float cdf = 0.5f * (1.0f + erff(g * 0.70710678118654752440f));
+  gelu = g * cdf;
+  grad = cdf + g * INV_SQRT_2PI * __expf(-0.5f * g * g);
 }
 
 // h = a gelu(gate) for one row tile and 64 hidden units. Grid (images *
@@ -83,8 +87,8 @@ ffn_f32_up_kernel(const float* __restrict__ x, const float* __restrict__ nscale,
   tg::zero(acc);
   const int b0[2] = {u0, d_ff + u0};
   tg::Normed norm{s_ns};
-  tg::mainloop<true, false, 2>(acc, smem + d + tg::ROWS, tg::mat(x, d), t.row0, t.row0 + t.valid,
-                               tg::mat(w_up, 2L * d_ff), b0, 0, d, norm);
+  tg::mainloop<2>(acc, smem + d + tg::ROWS, x, d, t.row0, t.row0 + t.valid, w_up, 2L * d_ff, b0,
+                  0, d, norm);
   float rows_r[2];
   tg::row_norms(norm, d, eps, rows_r);
 #pragma unroll
@@ -120,8 +124,8 @@ ffn_f32_down_kernel(const float* __restrict__ a, const float* __restrict__ w,
   float acc[1][8][4];
   tg::zero(acc);
   const int b0[1] = {n0};
-  tg::mainloop<true, false, 1>(acc, smem, tg::mat(a, k_dim), t.row0, t.row0 + t.valid,
-                               tg::mat(w, n), b0, k_begin, k_end, tg::Plain{});
+  tg::mainloop<1>(acc, smem, a, k_dim, t.row0, t.row0 + t.valid, w, n, b0, k_begin, k_end,
+                  tg::Plain{});
   const long rows = static_cast<long>(gridDim.x / tg::tiles(tokens)) * tokens;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -152,70 +156,109 @@ __global__ void add_parts_kernel(const float* __restrict__ res, const float* __r
   out[i] = s;
 }
 
-// K10's first kernel in f32. Grid (images * tiles, d_ff / 64): per row
-// tile and hidden panel u, a | gate = xn W_up (C = A B) and dh = g
-// W_down[u rows]^T (C = A B^T); h = a gelu(gate), da = dh gelu(gate),
-// dgate = dh a gelu'(gate) (exact erf) into h (rows, d_ff) and dup (rows,
-// 2 d_ff); the block's per-row sum of dup (a, gate) over its columns into
-// dot_part (d_ff / 64, rows). Panel 0 writes xn and r.
-__global__ void __launch_bounds__(tg::THREADS)
-ffn_f32_dup_kernel(const float* __restrict__ x, const float* __restrict__ nscale,
-                   const float* __restrict__ w_up, const float* __restrict__ w_down,
-                   const float* __restrict__ g, float* __restrict__ h, float* __restrict__ dup,
-                   float* __restrict__ xn, float* __restrict__ r_out,
-                   float* __restrict__ dot_part, long n_rows, int tokens, int d, int d_ff,
-                   float eps) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_ns = smem;
-  float* s_r = smem + d;
-  float* ring = s_r + tg::ROWS;
-  const tg::RowTile t = tg::row_tile(tokens);
-  const int p = blockIdx.y, u0 = 64 * p;
-  tg::load_scale(nscale + static_cast<long>(t.img) * d, d, s_ns);
-  float up[2][8][4], dh[1][8][4];
-  tg::zero(up);
-  tg::zero(dh);
-  const int b_up[2] = {u0, d_ff + u0};
-  tg::Normed norm{s_ns};
-  tg::mainloop<true, false, 2>(up, ring, tg::mat(x, d), t.row0, t.row0 + t.valid,
-                               tg::mat(w_up, 2L * d_ff), b_up, 0, d, norm);
-  float rows_r[2];
-  tg::row_norms(norm, d, eps, rows_r);
-  if (p == 0) tg::write_xn(x, t, d, s_ns, rows_r, s_r, xn, r_out);
-  const int b_down[1] = {u0};
-  tg::mainloop<true, true, 1>(dh, ring, tg::mat(g, d), t.row0, t.row0 + t.valid,
-                              tg::mat(w_down, d), b_down, 0, d, tg::Plain{});
-  float dot[2] = {0.f, 0.f};
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = tg::acc_row(hh);
-    const bool ok = row < t.valid;
-    const float r = rows_r[hh];
-    const long at = (t.row0 + row) * d_ff + u0 + 2 * tg::lane_t();  // in h
-    const long at2 = at + (t.row0 + row) * d_ff;                     // in dup
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float hv[2], da[2], dg[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float a = up[0][n][2 * hh + e] * r, gt = up[1][n][2 * hh + e] * r;
-        const float gl = gelu_erf(gt), dhv = dh[0][n][2 * hh + e];
-        hv[e] = a * gl;
-        da[e] = dhv * gl;
-        dg[e] = dhv * a * gelu_erf_grad(gt);
-        dot[hh] += da[e] * a + dg[e] * gt;
+// K10's first kernel in f32, on gemm_tf32_wg.cuh's core. An item is one
+// row tile and hidden panel u of 64 units: a | gate = r ((x nscale) W_up)
+// over the panel's value and gate columns (one N = 128 product, B from the
+// rounded W_up^T) and dh = g W_down^T over its rows (N = 64, B the rounded
+// W_down, K-major as it lies); h = a gelu(gate), da = dh gelu(gate), dgate
+// = dh a gelu'(gate) (exact erf), each rounded to TF32 and written
+// transposed into ht (d_ff, ld) and dupt (2 d_ff, ld), the B operands of
+// the weight gradients; the per-row sum of dup (a, gate) over the panel's
+// columns, unrounded, into dot_part (d_ff / 64, rows). Panel 0 writes xn
+// and r.
+__global__ void __launch_bounds__(tw::THREADS, 1)
+ffn_f32_dup_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_g,
+                   const __grid_constant__ CUtensorMap map_upt,
+                   const __grid_constant__ CUtensorMap map_down, const float* __restrict__ x,
+                   const float* __restrict__ nscale, float* __restrict__ ht,
+                   float* __restrict__ dupt, long ld, float* __restrict__ xn,
+                   float* __restrict__ r_out, float* __restrict__ dot_part, long n_rows,
+                   int images, int tokens, int d, int d_ff, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ tw::Ring ring;
+  __shared__ float s_r[tw::ROWS];
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  float* s_ns = reinterpret_cast<float*>(smem + tw::S * tw::STAGE);
+  float* s_t = s_ns + d;  // one output's (64, ROWS) transposed tile, staged
+  tw::ring_init(ring);
+  const int panels = d_ff / 64, steps = d / tw::BK;
+  const tw::Items span = tw::my_items(images * tw::tiles(tokens) * panels);
+  if (tw::is_producer()) {
+    tw::producer_regs();
+    if (!tw::tma_thread()) return;
+    tw::Producer p{ring, smem};
+    for (int item = span.begin; item < span.end; ++item) {
+      const tw::RowTile t = tw::row_tile(tokens, item / panels);
+      const int u0 = 64 * (item % panels);
+      uint64_t* bar;
+      for (int k = 0; k < steps; ++k) {  // the up product: x, then W_up^T's two slabs
+        unsigned char* st = p.next(tw::K_TILE + tw::B_BYTES, bar);
+        tw::tma(st, &map_x, tw::BK * k, t.row0, bar);
+        tw::tma(st + tw::A_BYTES, &map_upt, tw::BK * k, u0, bar);
+        tw::tma(st + tw::A_BYTES + tw::B_BYTES / 2, &map_upt, tw::BK * k, d_ff + u0, bar);
       }
-      if (!ok) continue;
-      *reinterpret_cast<float2*>(h + at + 8 * n) = make_float2(hv[0], hv[1]);
-      *reinterpret_cast<float2*>(dup + at2 + 8 * n) = make_float2(da[0], da[1]);
-      *reinterpret_cast<float2*>(dup + at2 + d_ff + 8 * n) = make_float2(dg[0], dg[1]);
+      for (int k = 0; k < steps; ++k) {  // dh: g, then W_down's panel rows
+        unsigned char* st = p.next(tw::K_TILE + tw::B_BYTES / 2, bar);
+        tw::tma(st, &map_g, tw::BK * k, t.row0, bar);
+        tw::tma(st + tw::A_BYTES, &map_down, tw::BK * k, u0, bar);
+      }
     }
+    return;
   }
+  tw::consumer_regs();
+  tw::Consumer c{ring, smem};
+  int staged = -1;  // the image whose scale s_ns holds
+  for (int item = span.begin; item < span.end; ++item) {
+    const tw::RowTile t = tw::row_tile(tokens, item / panels);
+    const int p = item % panels, u0 = 64 * p;
+    if (t.img != staged) tw::stage_scale(nscale + static_cast<long>(t.img) * d, d, s_ns);
+    staged = t.img;
+    float up[64], dh[32];
+    tw::zero(up);
+    tw::zero(dh);
+    tw::Normed norm{s_ns};
+    tw::product<128>(up, c, steps, norm);
+    tw::product<64>(dh, c, steps, tw::RoundedK{});
+    float rows_r[2];
+    norm.norms(d, eps, rows_r);
+    // h, da, dgate at the thread's elements (i = 4 n + 2 hh + e: row hh,
+    // column 8 n + 2 t + e of the panel) and the rows' dot partials
+    float hv[32], da[32], dg[32];
+    float dot[2] = {0.f, 0.f};
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float s = gemm::quad_sum(dot[hh]);
-    if (tg::lane_t() == 0 && tg::acc_row(hh) < t.valid)
-      dot_part[p * n_rows + t.row0 + tg::acc_row(hh)] = s;
+    for (int i = 0; i < 32; ++i) {
+      const float r = rows_r[i / 2 % 2];
+      const float a = up[i] * r, gt = up[32 + i] * r, dhv = dh[i];
+      float gl, grad;
+      gelu_erf_both(gt, gl, grad);
+      hv[i] = tw::round_tf32(a * gl);
+      da[i] = dhv * gl;
+      dg[i] = dhv * a * grad;
+      dot[i / 2 % 2] += da[i] * a + dg[i] * gt;
+      da[i] = tw::round_tf32(da[i]);
+      dg[i] = tw::round_tf32(dg[i]);
+    }
+    // each output staged transposed, then stored coalesced
+    const long at = t.row0 + static_cast<long>(u0) * ld;
+    auto emit = [&](const float (&v)[32], float* dst) {
+      float* st = s_t + 2 * tw::lane_t() * tw::ST_LD + tw::acc_row(0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[(8 * (i / 4) + i % 2) * tw::ST_LD + 8 * (i / 2 % 2)] = v[i];
+      tw::consumers_sync();
+      tw::store_t(s_t, dst + at, ld, t.valid);
+      tw::consumers_sync();
+    };
+    emit(hv, ht);
+    emit(da, dupt);
+    emit(dg, dupt + static_cast<long>(d_ff) * ld);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float s = gemm::quad_sum(dot[hh]);
+      if (tw::lane_t() == 0 && tw::acc_row(hh) < t.valid)
+        dot_part[p * n_rows + t.row0 + tw::acc_row(hh)] = s;
+    }
+    if (p == 0) tw::write_xn(x, t, d, s_ns, rows_r, s_r, xn, r_out);
   }
 }
 
@@ -296,49 +339,56 @@ extern "C" int kdt_ffn_fwd_f32(const void* x, const void* nscale, const void* w_
 // K10 in f32. x, g (rows, d) f32 with rows = images * tokens; nscale
 // (images, d) f32; w_up (d, 2 d_ff), w_down (d_ff, d) f32. Writes dx (rows,
 // d) (the residual's g included), dscale (images, d), dw_up (d, 2 d_ff) and
-// dw_down (d_ff, d) f32. Scratch f32: h (rows, d_ff), dup (rows, 2 d_ff), xn
-// (rows, d), r (rows), dot_part (d_ff / 64, rows), dns_part (images * tiles,
-// d) and dw_part (chunks, d, 2 d_ff), tiles = ceil(tokens / tg::ROWS), the
-// count the caller sized dns_part for (refused if it differs), chunks the
-// larger of ceil(rows / chunk_up) and ceil(rows / chunk_down) (dw_down's
-// partials reuse dw_part); chunk_up and chunk_down multiples of 32. Needs
-// d, d_ff % 64 == 0.
+// dw_down (d_ff, d) f32. Scratch f32: the rounded weights w_upt (2 d_ff, d),
+// w_up_r (d, 2 d_ff) and w_down_r (d_ff, d); ht (d_ff, ld), dupt (2 d_ff,
+// ld), xn (rows, d), r (rows), dot_part (d_ff / 64, rows), dns_part (images
+// * tiles, d) and dw_part, which holds the larger of ceil(rows / chunk_up)
+// * 2 d d_ff and ceil(rows / chunk_down) * d d_ff floats (dw_down's
+// partials reuse it); tiles = ceil(tokens / tw::ROWS), the count the
+// caller sized dns_part for (refused if it differs); ld >= rows, a
+// multiple of 4 (a 16-byte row pitch for the copy engine); chunk_up and
+// chunk_down multiples of 32. Needs d, d_ff % 64 == 0.
 extern "C" int kdt_ffn_bwd_f32(const void* x, const void* nscale, const void* w_up,
                                const void* w_down, const void* g, void* dx, void* dscale,
-                               void* dw_up, void* dw_down, void* h, void* dup, void* xn, void* r,
+                               void* dw_up, void* dw_down, void* w_upt, void* w_up_r,
+                               void* w_down_r, void* ht, void* dupt, void* xn, void* r,
                                void* dot_part, void* dns_part, void* dw_part, int images,
-                               int tokens, int tiles, int d, int d_ff, long chunk_up,
+                               int tokens, int tiles, int d, int d_ff, long ld, long chunk_up,
                                long chunk_down, float eps, void* stream) {
+  const long rows = static_cast<long>(images) * tokens;
   if (d % 64 || d_ff % 64 || chunk_up < 1 || chunk_down < 1 || chunk_up % 32 ||
-      chunk_down % 32 || tiles != tg::tiles(tokens))
+      chunk_down % 32 || tiles != tw::tiles(tokens) || ld < rows || ld % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = tg::normed_smem<2>(d);
-  cudaError_t err = allow_smem(ffn_f32_dup_kernel, smem);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  float *upt = o(w_upt), *up_r = o(w_up_r), *down_r = o(w_down_r);
+  cudaError_t err = tw::launch_round(f(w_up), d, 2 * d_ff, up_r, upt, st);
+  if (err == cudaSuccess) err = tw::launch_round(f(w_down), d_ff, d, down_r, nullptr, st);
+  CUtensorMap map_x, map_g, map_upt, map_down;
+  if (err == cudaSuccess) err = tw::map_f32(&map_x, f(x), rows, d, d, tw::ROWS);
+  if (err == cudaSuccess) err = tw::map_f32(&map_g, f(g), rows, d, d, tw::ROWS);
+  if (err == cudaSuccess) err = tw::map_f32(&map_upt, upt, 2 * d_ff, d, d, 64);
+  if (err == cudaSuccess) err = tw::map_f32(&map_down, down_r, d_ff, d, d, 64);
+  const size_t smem = tw::RING_SMEM + d * sizeof(float) + tw::STAGING;
+  if (err == cudaSuccess) err = allow_smem(ffn_f32_dup_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long rows = static_cast<long>(images) * tokens;
-  const float *xf = static_cast<const float*>(x), *nsf = static_cast<const float*>(nscale);
-  const float *upf = static_cast<const float*>(w_up), *gf = static_cast<const float*>(g);
-  float *hf = static_cast<float*>(h), *dupf = static_cast<float*>(dup);
-  float *xnf = static_cast<float*>(xn), *rf = static_cast<float*>(r);
-  float* dotf = static_cast<float*>(dot_part);
-  ffn_f32_dup_kernel<<<dim3(images * tiles, d_ff / 64), tg::THREADS, smem, st>>>(
-      xf, nsf, upf, static_cast<const float*>(w_down), gf, hf, dupf, xnf, rf, dotf, rows, tokens,
-      d, d_ff, eps);
+  const long items = static_cast<long>(images) * tiles * (d_ff / 64);
+  ffn_f32_dup_kernel<<<tw::grid(items), tw::THREADS, smem, st>>>(
+      map_x, map_g, map_upt, map_down, f(x), f(nscale), o(ht), o(dupt), ld, o(xn), o(r),
+      o(dot_part), rows, images, tokens, d, d_ff, eps);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Mat dup_m = tg::mat(dupf, 2L * d_ff);
-  err = tg::launch_norm_vjp(dup_m, upf, xf, nsf, gf, rf, dotf, d_ff / 64, static_cast<float*>(dx),
-                            static_cast<float*>(dns_part), static_cast<float*>(dscale), images,
-                            tokens, d, 2 * d_ff, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  float* part = static_cast<float*>(dw_part);
-  err = tg::launch_atb(tg::mat(xnf, d), dup_m, part, static_cast<float*>(dw_up), rows, d,
-                       2 * d_ff, chunk_up, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tg::launch_atb(tg::mat(hf, d_ff), tg::mat(gf, d), part,
-                                         static_cast<float*>(dw_down), rows, d_ff, d, chunk_down,
-                                         st));
+  if (err == cudaSuccess)
+    err = tw::launch_dxn(o(dupt), ld, up_r, f(x), f(nscale), f(g), o(r), o(dot_part), d_ff / 64,
+                         o(dx), o(dns_part), o(dscale), images, tokens, d, 2 * d_ff, st);
+  if (err == cudaSuccess)
+    err = tw::launch_dw(o(xn), o(dupt), ld, o(dw_part), o(dw_up), false, rows, d, 2 * d_ff,
+                        chunk_up, st);
+  // dW_down = h^T g as its transpose g^T h, written back as (d_ff, d)
+  if (err == cudaSuccess)
+    err = tw::launch_dw(f(g), o(ht), ld, o(dw_part), o(dw_down), true, rows, d, d_ff, chunk_down,
+                        st);
+  return static_cast<int>(err);
 }
 
 // K5 in f32. emb (b, d) f32; in_scale, out_scale (d,) f32; weights: 3 n

@@ -249,10 +249,13 @@ __device__ __forceinline__ void tma_step(int s, int steps, uint64_t (&full)[S], 
   }
 }
 
-// The tensor map of a row-major (rows, cols) bf16 matrix for (64, 64) tiles
-// in the 128-byte swizzle, encoded by cuTensorMapEncodeTiled, which is
-// looked up at run time: the libraries link the CUDA runtime only.
-inline cudaError_t tile_map(CUtensorMap* map, const void* base, int rows, int cols) {
+// The tensor map of a row-major (rows, cols) matrix of `type` whose rows
+// lie row_bytes apart, for (box_rows, box_cols) tiles in the 128-byte
+// swizzle (box_cols elements are at most 128 bytes), encoded by
+// cuTensorMapEncodeTiled, which is looked up at run time: the libraries
+// link the CUDA runtime only. A box past the matrix's edge reads zeros.
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              long rows, long cols, long row_bytes, int box_cols, int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -268,13 +271,21 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int rows, int co
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, 64}, unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major (rows, cols) bf16 matrix for (64, 64) tiles
+// in the 128-byte swizzle (wg::swizzle<64>).
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows, cols,
+                    static_cast<long>(cols) * sizeof(bf16), 64, 64);
 }
 
 // The k loop of one output tile into acc: `mma(stage, k)` issues step k's

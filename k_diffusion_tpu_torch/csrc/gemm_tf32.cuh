@@ -1,16 +1,15 @@
-// The TF32 GEMM core of the float32 kernels (--mixed-precision no): the
-// attention prologue K1 and its backward K6 (fused_qkv_f32.cu), the
-// feed-forward block K4 and its backward K10 and the mapping network K5
-// (geglu_f32.cu). What gemm.cuh is to their bf16 forms, on attn_tf32.cuh's
-// scheme.
+// The TF32 GEMM core of the float32 forwards (--mixed-precision no): the
+// attention prologue K1 (fused_qkv_f32.cu), the feed-forward block K4 and
+// the mapping network K5 (geglu_f32.cu). What gemm.cuh is to their bf16
+// forms, on attn_tf32.cuh's scheme. Their backwards K6 and K10 run on
+// gemm_tf32_wg.cuh's wgmma core.
 //
-// Why not gemm.cuh's wgmma core: wgmma takes TF32 operands K-major only,
-// and these products read their weights MN-major (C = A B: K1's and K4's
-// W, read along their rows) and both operands MN-major (C = A^T B: the
-// weight gradients). So every product here is a warp-level mma.sync
+// Why not wgmma here: wgmma takes TF32 B operands K-major only, and these
+// products read their weights MN-major (C = A B: K1's and K4's W, read
+// along their rows). So every product here is a warp-level mma.sync
 // m16n8k8 (tf32 x tf32 -> f32; operands rounded by cvt.rna, 10 mantissa
 // bits), whose fragments are gathered from f32 tiles in shared memory one
-// 32-bit load each, in whichever orientation a product needs.
+// 32-bit load each.
 //
 // A block is 8 warps and owns a 128-row output tile and NT accumulator
 // sets of 64 columns; warp w owns rows [16 w, 16 w + 16) of every set
@@ -31,26 +30,16 @@
 // more shared memory a block, fewer blocks an SM.) A tile keeps its rows
 // as they lie in memory, padded so that every fragment load is
 // conflict-free:
-// - K-major (128 rows of A's M index or 64 of B's N index, 32 depth
-//   columns), row stride 36 floats (4 mod 32): fragment element (row g,
-//   depth t) at bank 4 g + t;
-// - MN-major (32 depth rows, 128 columns of A's M index or 64 of B's N
-//   index), row stride 136 or 72 floats (8 mod 32): element (depth t,
-//   column g) at bank 8 t + g.
-// The three product forms of gemm.cuh: C = A B (A K-major, B MN-major),
-// C = A B^T (both K-major) and C = A^T B (both MN-major). Rows or columns
-// of A past its M extent, and depth rows of an MN-major operand past the
-// depth's end, are zero-filled by the copy's source size; a K-major
-// operand's depth is a multiple of 32 everywhere here (d, 3 d, d_ff, 2
+// - A, K-major (128 rows of A's M index, 32 depth columns), row stride 36
+//   floats (4 mod 32): fragment element (row g, depth t) at bank 4 g + t;
+// - B, MN-major (32 depth rows, 64 columns of B's N index), row stride 72
+//   floats (8 mod 32): element (depth t, column g) at bank 8 t + g.
+// That is C = A B with A K-major and B MN-major. Rows of A past its M
+// extent, and depth rows of B past the depth's end, are zero-filled by the
+// copy's source size; A's depth is a multiple of 32 everywhere here (d,
 // d_ff with d, d_ff multiples of 64).
-//
-// Row reductions (the weight gradients, d(scale), d(attn_scale)) are
-// per-block f32 partials summed by gemm.cuh's reduce_kernel in a fixed
-// order, never atomics: a rerun gives bit-equal results. A simple design;
-// wgmma with transposed tiles, and TMA, are later work (PERF.md).
 #pragma once
 
-#include <climits>
 #include <cstdint>
 
 #include "gemm.cuh"
@@ -63,12 +52,10 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 16 * WARPS;  // rows of a block's output tile, A's M
 constexpr int BK = 32;            // depth of a ring step
 constexpr int STAGES = 2;
-constexpr int LDK = BK + 4;       // row stride of a K-major tile
-constexpr int LDA = ROWS + 8;     // row stride of an MN-major A tile
+constexpr int LDK = BK + 4;       // row stride of the K-major A tile
 constexpr int LDB = 64 + 8;       // row stride of an MN-major B tile
 constexpr int A_TILE = ROWS * LDK;
-constexpr int B_TILE = 64 * LDK;
-static_assert(A_TILE >= BK * LDA && B_TILE == BK * LDB, "either kind fits its slot");
+constexpr int B_TILE = BK * LDB;
 
 // Shared memory of a core loop with NT sets: its ring.
 template <int NT>
@@ -89,21 +76,6 @@ __device__ __forceinline__ RowTile row_tile(int tokens) {
   const int valid = tokens - tile * ROWS < ROWS ? tokens - tile * ROWS : ROWS;
   return {static_cast<long>(img) * tokens + static_cast<long>(tile) * ROWS, valid, img, tile};
 }
-
-// A row-major (rows, cols) f32 operand held in two parts by columns:
-// columns [0, split) at p0 (row stride ld0), the rest at p1 (row stride
-// ld1). K6's dR is (dq, dk) in its own buffer and gv as the model gave it.
-struct Mat {
-  const float* p0;
-  long ld0;
-  int split;
-  const float* p1;
-  long ld1;
-  __device__ const float* at(long r, int c) const {
-    return c < split ? p0 + r * ld0 + c : p1 + r * ld1 + (c - split);
-  }
-};
-__host__ __device__ inline Mat mat(const float* p, long ld) { return {p, ld, INT_MAX, p, ld}; }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -134,29 +106,27 @@ __device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
 // The tile row of a thread's accumulator element h (0: row g, 1: row g + 8).
 __device__ __forceinline__ int acc_row(int h) { return 16 * (threadIdx.x / 32) + lane_g() + 8 * h; }
 
-// Starts the copy of a K-major tile: rows [r0, r0 + R) of m (rows at or
-// past r_end zero), depth columns [k0, k0 + 32).
-template <int R>
-__device__ __forceinline__ void load_k(float* tile, const Mat& m, long r0, long r_end, int k0) {
+// Starts the copy of the K-major A tile: rows [r0, r0 + ROWS) of a (row
+// stride ld; rows at or past r_end zero), depth columns [k0, k0 + 32).
+__device__ __forceinline__ void load_a(float* tile, const float* a, long ld, long r0, long r_end,
+                                       int k0) {
   const uint32_t dst = wg::smem_u32(tile);
-  for (int i = threadIdx.x; i < R * 8; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
     const int r = i >> 3, c = (i & 7) * 4;
     const bool ok = r0 + r < r_end;
-    wg::cp_async16(dst + (r * LDK + c) * 4, m.at(ok ? r0 + r : r0, k0 + c), ok);
+    wg::cp_async16(dst + (r * LDK + c) * 4, a + (ok ? r0 + r : r0) * ld + k0 + c, ok);
   }
 }
 
-// Starts the copy of an MN-major tile of row stride LD: depth rows [k0, k0
-// + 32) of m, columns [c0, c0 + C); rows at or past k_end and columns at
-// or past c_end zero.
-template <int C, int LD>
-__device__ __forceinline__ void load_mn(float* tile, const Mat& m, long k0, long k_end, int c0,
-                                        int c_end) {
+// Starts the copy of an MN-major B tile: depth rows [k0, k0 + 32) of b (row
+// stride ld; rows at or past k_end zero), columns [c0, c0 + 64).
+__device__ __forceinline__ void load_b(float* tile, const float* b, long ld, long k0, long k_end,
+                                       int c0) {
   const uint32_t dst = wg::smem_u32(tile);
-  for (int i = threadIdx.x; i < BK * (C / 4); i += THREADS) {
-    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
-    const bool ok = k0 + r < k_end && c0 + c < c_end;
-    wg::cp_async16(dst + (r * LD + c) * 4, m.at(ok ? k0 + r : k0, ok ? c0 + c : c0), ok);
+  for (int i = threadIdx.x; i < BK * 16; i += THREADS) {
+    const int r = i / 16, c = (i % 16) * 4;
+    const bool ok = k0 + r < k_end;
+    wg::cp_async16(dst + (r * LDB + c) * 4, b + (ok ? k0 + r : k0) * ld + c0 + c, ok);
   }
 }
 
@@ -181,33 +151,24 @@ struct Normed {
   }
 };
 
-// acc[j] += A B_j over the depth [k_begin, k_end), A and every B_j read as
-// AK and BK say (true: K-major). A K-major A is rows [a0, a0 + ROWS) of
-// `a`, those at or past a_end zero; an MN-major A is its columns [a0, a0 +
-// ROWS), those at or past a_end zero. A K-major B_j is rows [b0[j],
-// b0[j] + 64) of `b`; an MN-major one its columns [b0[j], b0[j] + 64).
-// `f(v, k, h)` maps each element of a K-major A at depth k in the thread's
-// row h before its TF32 rounding (Normed: the norm folded into the
-// product). Ends with the ring drained and every thread past it, so that
-// the caller may reuse the ring.
-template <bool AK, bool BK_, int NT, class F>
-__device__ __forceinline__ void mainloop(float (&acc)[NT][8][4], float* ring, const Mat& a,
-                                         long a0, long a_end, const Mat& b,
-                                         const int (&b0)[NT], long k_begin, long k_end,
-                                         F&& f) {
+// acc[j] += A B_j over the depth [k_begin, k_end): A rows [a0, a0 + ROWS)
+// of `a` (row stride lda; those at or past a_end zero), B_j the columns
+// [b0[j], b0[j] + 64) of `b` (row stride ldb). `f(v, k, h)` maps each A
+// element at depth k in the thread's row h before its TF32 rounding
+// (Normed: the norm folded into the product). Ends with the ring drained
+// and every thread past it, so that the caller may reuse the ring.
+template <int NT, class F>
+__device__ __forceinline__ void mainloop(float (&acc)[NT][8][4], float* ring, const float* a,
+                                         long lda, long a0, long a_end, const float* b, long ldb,
+                                         const int (&b0)[NT], long k_begin, long k_end, F&& f) {
   const int steps = static_cast<int>((k_end - k_begin + BK - 1) / BK);
   constexpr int STAGE = A_TILE + NT * B_TILE;
   auto load = [&](int s, int st) {
     float* stage = ring + st * STAGE;
     const long k0 = k_begin + static_cast<long>(s) * BK;
-    if constexpr (AK) load_k<ROWS>(stage, a, a0, a_end, static_cast<int>(k0));
-    else load_mn<ROWS, LDA>(stage, a, k0, k_end, static_cast<int>(a0), static_cast<int>(a_end));
+    load_a(stage, a, lda, a0, a_end, static_cast<int>(k0));
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float* tile = stage + A_TILE + j * B_TILE;
-      if constexpr (BK_) load_k<64>(tile, b, b0[j], LONG_MAX, static_cast<int>(k0));
-      else load_mn<64, LDB>(tile, b, k0, k_end, b0[j], INT_MAX);
-    }
+    for (int j = 0; j < NT; ++j) load_b(stage + A_TILE + j * B_TILE, b, ldb, k0, k_end, b0[j]);
   };
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < steps) load(s, s);
@@ -224,31 +185,18 @@ __device__ __forceinline__ void mainloop(float (&acc)[NT][8][4], float* ring, co
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8) {
       uint32_t fa[4];
-      if constexpr (AK) {
-        const float* p = sa + (m0 + g) * LDK + kk + t;
-        fa[0] = to_tf32(f(p[0], k0 + kk + t, 0));
-        fa[1] = to_tf32(f(p[8 * LDK], k0 + kk + t, 1));
-        fa[2] = to_tf32(f(p[4], k0 + kk + t + 4, 0));
-        fa[3] = to_tf32(f(p[8 * LDK + 4], k0 + kk + t + 4, 1));
-      } else {
-        const float* p = sa + (kk + t) * LDA + m0 + g;
-        fa[0] = to_tf32(p[0]);
-        fa[1] = to_tf32(p[8]);
-        fa[2] = to_tf32(p[4 * LDA]);
-        fa[3] = to_tf32(p[4 * LDA + 8]);
-      }
+      const float* p = sa + (m0 + g) * LDK + kk + t;
+      fa[0] = to_tf32(f(p[0], k0 + kk + t, 0));
+      fa[1] = to_tf32(f(p[8 * LDK], k0 + kk + t, 1));
+      fa[2] = to_tf32(f(p[4], k0 + kk + t + 4, 0));
+      fa[3] = to_tf32(f(p[8 * LDK + 4], k0 + kk + t + 4, 1));
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const float* sb = sa + A_TILE + j * B_TILE;
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
-          if constexpr (BK_) {
-            const float* p = sb + (8 * n + g) * LDK + kk + t;
-            mma(acc[j][n], fa, to_tf32(p[0]), to_tf32(p[4]));
-          } else {
-            const float* p = sb + (kk + t) * LDB + 8 * n + g;
-            mma(acc[j][n], fa, to_tf32(p[0]), to_tf32(p[4 * LDB]));
-          }
+          const float* q = sb + (kk + t) * LDB + 8 * n + g;
+          mma(acc[j][n], fa, to_tf32(q[0]), to_tf32(q[4 * LDB]));
         }
       }
     }
@@ -272,166 +220,11 @@ __device__ __forceinline__ void row_norms(const Normed& f, int d, float eps, flo
   for (int h = 0; h < 2; ++h) r[h] = rsqrtf(gemm::quad_sum(f.ss[h]) / d + eps);
 }
 
-// xn = x * (nscale r), the plain version's xn, and r of a row tile to
-// device memory, for the backwards' weight gradients: r from row_norms
-// through s_r (ROWS floats), x read again (from L2, most likely). Every
-// thread of the block calls it.
-__device__ inline void write_xn(const float* __restrict__ x, const RowTile& t, int d,
-                                const float* s_ns, const float (&r)[2], float* s_r,
-                                float* __restrict__ xn_out, float* __restrict__ r_out) {
-  if (lane_t() == 0) {
-    s_r[acc_row(0)] = r[0];
-    s_r[acc_row(1)] = r[1];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < t.valid * (d / 4); i += THREADS) {
-    const int row = i / (d / 4), c = 4 * (i % (d / 4));
-    const float4 v = *reinterpret_cast<const float4*>(x + (t.row0 + row) * d + c);
-    const float rr = s_r[row];
-    *reinterpret_cast<float4*>(xn_out + (t.row0 + row) * d + c) =
-        make_float4(v.x * (s_ns[c] * rr), v.y * (s_ns[c + 1] * rr), v.z * (s_ns[c + 2] * rr),
-                    v.w * (s_ns[c + 3] * rr));
-  }
-  if (static_cast<int>(threadIdx.x) < t.valid) r_out[t.row0 + threadIdx.x] = s_r[threadIdx.x];
-}
-
-// Shared memory of a kernel with a normalised product: s_ns (d), s_r
-// (ROWS), then the ring, 16-byte aligned (d is a multiple of 64).
+// Shared memory of a kernel with a normalised product: s_ns (d), ROWS
+// floats, then the ring, 16-byte aligned (d is a multiple of 64).
 template <int NT>
 inline size_t normed_smem(int d) {
   return (d + ROWS) * sizeof(float) + RING_BYTES<NT>;
-}
-
-// dxn = dR W^T (dR (rows, K) a Mat, W (d, K) row-major) for one row tile
-// and one 64-column panel of d (both operands K-major), and the RMS-norm
-// VJP in the epilogue (gemm.cuh's note), per row with r and s, the
-// fixed-order sum over its `groups` partials dot_part (groups, rows):
-//   dx = r dxn nscale - x (r^2 / d) s  (+ res, the block's own residual)
-// and the tile's d(nscale) partial, the sum over its rows of dxn x r, into
-// dns_part (images * tiles, d). Grid (images * tiles, d / 64), ROWS-row
-// tiles.
-__global__ void __launch_bounds__(THREADS)
-norm_vjp_f32_kernel(Mat dr, const float* __restrict__ w, const float* __restrict__ x,
-                    const float* __restrict__ nscale, const float* __restrict__ res,
-                    const float* __restrict__ r_rows, const float* __restrict__ dot_part,
-                    int groups, float* __restrict__ dx, float* __restrict__ dns_part, long n_rows,
-                    int tokens, int d, int k_dim) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float s_red[WARPS][64];
-  const RowTile t = row_tile(tokens);
-  const int n0 = 64 * blockIdx.y;
-  float acc[1][8][4];
-  zero(acc);
-  const int b0[1] = {n0};
-  mainloop<true, true, 1>(acc, smem, dr, t.row0, t.row0 + t.valid, mat(w, k_dim), b0, 0, k_dim,
-                          Plain{});
-  const int t4 = lane_t(), warp = threadIdx.x / 32;
-  const float* ns = nscale + static_cast<long>(t.img) * d + n0;
-  float r[2], coef[2];
-  bool ok[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    ok[h] = acc_row(h) < t.valid;
-    const long row = t.row0 + (ok[h] ? acc_row(h) : 0);
-    float s = 0.f;
-    for (int gi = 0; gi < groups; ++gi) s += dot_part[gi * n_rows + row];
-    r[h] = r_rows[row];
-    coef[h] = r[h] * r[h] * s / d;
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = 8 * n + 2 * t4;
-    const float2 nv = *reinterpret_cast<const float2*>(ns + col);
-    float p0 = 0.f, p1 = 0.f;  // this column pair's d(nscale) terms
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (!ok[h]) continue;
-      const long at = (t.row0 + acc_row(h)) * d + n0 + col;
-      const float d0 = acc[0][n][2 * h], d1 = acc[0][n][2 * h + 1];
-      const float2 xv = *reinterpret_cast<const float2*>(x + at);
-      float v0 = r[h] * d0 * nv.x - xv.x * coef[h], v1 = r[h] * d1 * nv.y - xv.y * coef[h];
-      if (res != nullptr) {
-        const float2 rv = *reinterpret_cast<const float2*>(res + at);
-        v0 += rv.x;
-        v1 += rv.y;
-      }
-      *reinterpret_cast<float2*>(dx + at) = make_float2(v0, v1);
-      p0 += d0 * xv.x * r[h];
-      p1 += d1 * xv.y * r[h];
-    }
-    p0 = gemm::column_sum(p0);
-    p1 = gemm::column_sum(p1);
-    if (lane_g() == 0) {
-      s_red[warp][col] = p0;
-      s_red[warp][col + 1] = p1;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 64) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += s_red[w][threadIdx.x];  // warp order
-    dns_part[static_cast<long>(blockIdx.x) * d + n0 + threadIdx.x] = s;
-  }
-}
-
-// dW partials: part[chunk] (m, n) = A[rows of chunk]^T B[rows of chunk],
-// A (rows, m) and B (rows, n) Mats, both MN-major. Grid (ceil(m / ROWS), n
-// / 64, chunks): a block owns a ROWS x 64 output tile (its rows past m
-// zero, not stored) and walks its chunk's rows.
-__global__ void __launch_bounds__(THREADS)
-atb_f32_kernel(Mat a, Mat b, float* __restrict__ part, long rows, int m, int n, long chunk_rows) {
-  extern __shared__ __align__(16) float smem[];
-  const int m0 = ROWS * blockIdx.x, n0 = 64 * blockIdx.y;
-  const long begin = blockIdx.z * chunk_rows;
-  const long end = begin + chunk_rows < rows ? begin + chunk_rows : rows;
-  float acc[1][8][4];
-  zero(acc);
-  const int b0[1] = {n0};
-  mainloop<false, false, 1>(acc, smem, a, m0, m, b, b0, begin, end, Plain{});
-  float* out = part + (static_cast<long>(blockIdx.z) * m + m0) * n + n0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (m0 + acc_row(h) >= m) continue;
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-      *reinterpret_cast<float2*>(out + static_cast<long>(acc_row(h)) * n + 8 * nn +
-                                 2 * lane_t()) =
-          make_float2(acc[0][nn][2 * h], acc[0][nn][2 * h + 1]);
-  }
-}
-
-// Launches norm_vjp_f32_kernel and the reduction of its partials into dns
-// (images, d) f32; dns_part holds images * tiles(tokens) * d floats.
-inline cudaError_t launch_norm_vjp(const Mat& dr, const float* w, const float* x,
-                                   const float* nscale, const float* res, const float* r,
-                                   const float* dot_part, int groups, float* dx,
-                                   float* dns_part, float* dns, int images, int tokens, int d,
-                                   int k_dim, cudaStream_t st) {
-  cudaError_t err = allow_smem(norm_vjp_f32_kernel, RING_BYTES<1>);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = tiles(tokens);
-  norm_vjp_f32_kernel<<<dim3(images * n_tiles, d / 64), THREADS, RING_BYTES<1>, st>>>(
-      dr, w, x, nscale, res, r, dot_part, groups, dx, dns_part,
-      static_cast<long>(images) * tokens, tokens, d, k_dim);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return gemm::launch_reduce(dns_part, dns, images, n_tiles, d, st);
-}
-
-// Launches the dW partials of A^T B over chunks of chunk_rows rows and
-// their reduction into dw (m, n) f32; part holds ceil(rows / chunk_rows) *
-// m * n floats.
-inline cudaError_t launch_atb(const Mat& a, const Mat& b, float* part, float* dw, long rows,
-                              int m, int n, long chunk_rows, cudaStream_t st) {
-  cudaError_t err = allow_smem(atb_f32_kernel, RING_BYTES<1>);
-  if (err != cudaSuccess) return err;
-  const int chunks = static_cast<int>((rows + chunk_rows - 1) / chunk_rows);
-  atb_f32_kernel<<<dim3((m + ROWS - 1) / ROWS, n / 64, chunks), THREADS, RING_BYTES<1>, st>>>(
-      a, b, part, rows, m, n, chunk_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return gemm::launch_reduce(part, dw, 1, chunks, static_cast<long>(m) * n, st);
 }
 
 }  // namespace tg

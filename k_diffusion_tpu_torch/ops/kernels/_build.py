@@ -30,10 +30,14 @@ SMEM_PER_BLOCK = 232_448
 # one (64, 64) bf16 tile of shared memory, and the slack the kernels take
 # to align their tiles to 1024 bytes
 TILE_BYTES, SMEM_SLACK = 8192, 1024
-# the rows of the float32 kernels' row tiles (csrc/gemm_tf32.cuh, tg::ROWS):
-# their per-tile partials (d(scale), d(attn_scale)) take one row a tile; the
-# backward entry points take the tile count and refuse one that differs
+# the rows of the float32 backwards' row tiles (csrc/gemm_tf32_wg.cuh,
+# tw::ROWS): their per-tile partials (d(scale), d(attn_scale)) take one row
+# a tile; the backward entry points take the tile count and refuse one that
+# differs
 F32_ROWS = 128
+# the float32 weight gradients' output tiles are F32_ROWS x 128
+# (tw::dw_kernel), one block's work item
+F32_COLS = 128
 
 _libs = {}
 _lock = threading.Lock()
@@ -185,8 +189,30 @@ def row_chunk(rows, tiles, device):
     """Rows per split-K chunk of a weight gradient over ``rows`` rows whose
     output takes ``tiles`` blocks: a multiple of 64, and as many chunks as
     ``grid_splits`` gives."""
+    return chunk_rows(rows, tiles, sm_count(device))
+
+
+def chunk_rows(rows, tiles, sms, per_sm=2):
+    """``row_chunk`` on a device of ``sms`` SMs, about ``per_sm`` blocks an
+    SM."""
     row_tiles = -(-rows // 64)
-    return 64 * -(-row_tiles // grid_splits(tiles, row_tiles, device))
+    splits = max(1, min(row_tiles, -(-per_sm * sms // tiles)))
+    return 64 * -(-row_tiles // splits)
+
+
+def f32_pitch(rows):
+    """The row pitch, in floats, of the float32 backwards' transposed
+    intermediates (K10's h and dup, K6's dR as (columns, rows)): ``rows``
+    rounded up to 32, so that each row of the copy engine's view starts on
+    128 bytes."""
+    return -(-rows // 32) * 32
+
+
+def f32_weight_chunks(rows, d, n, sms):
+    """Rows per split-K chunk of a float32 weight gradient (d, n) over
+    ``rows`` rows, the output in F32_ROWS x F32_COLS tiles: one work item
+    an SM (tw::dw_kernel's blocks stay on their SMs and walk the items)."""
+    return chunk_rows(rows, -(-d // F32_ROWS) * -(-n // F32_COLS), sms, 1)
 
 
 def _require_kind(t, what, device, dtype, shape):

@@ -15,9 +15,10 @@ is forward-only; the backward K10 takes a contiguous scale.
 
 bfloat16 operands go to those kernels, float32 operands (a model built
 with ``dtype=torch.float32``, ``--mixed-precision no``) to their float32
-forms in ``csrc/geglu_f32.cu`` (``kdt_ffn_fwd_f32``, two kernels with the
-f32 h through device memory, and ``kdt_ffn_bwd_f32``, on the TF32 core
-``csrc/gemm_tf32.cuh``): the same contract, products on the TF32 tensor
+forms in ``csrc/geglu_f32.cu`` (``kdt_ffn_fwd_f32``, two kernels on the
+TF32 ``mma.sync`` core ``csrc/gemm_tf32.cuh`` with the f32 h through device
+memory, and ``kdt_ffn_bwd_f32``, on the TF32 ``wgmma`` core
+``csrc/gemm_tf32_wg.cuh``): the same contract, products on the TF32 tensor
 cores with f32 accumulation, any d and d_ff multiples of 64. Each dtype's
 launches are counted apart.
 """
@@ -56,10 +57,10 @@ _BWD = [_P] * 16 + [ctypes.c_int] * 7 + [ctypes.c_float, _P]
 # the float32 forms: x, scale, w_up, w_down, out, h, images, tokens, d,
 # d_ff, scale_stride, eps, stream
 _F32_FWD = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
-# x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, h, dup, xn, r,
-# dot_part, dns_part, dw_part, images, tokens, d, d_ff, chunk_up,
-# chunk_down, eps, stream
-_F32_BWD = [_P] * 16 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2 + [
+# x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, w_upt, w_up_r,
+# w_down_r, ht, dupt, xn, r, dot_part, dns_part, dw_part, images, tokens,
+# tiles, d, d_ff, ld, chunk_up, chunk_down, eps, stream
+_F32_BWD = [_P] * 19 + [ctypes.c_int] * 5 + [ctypes.c_long] * 3 + [
     ctypes.c_float, _P]
 
 
@@ -225,6 +226,25 @@ def ffn_backward(x, scale, w_up, w_down, g, eps=1e-6):
             dw_down.to(w_down.dtype))
 
 
+def backward_f32_scratch(images, tokens, d, d_ff, sms):
+    """K10-f32's scratch as ``kdt_ffn_bwd_f32`` takes it: name -> shape
+    (float32), and (tiles, ld, chunk_up, chunk_down). The weights rounded
+    to TF32 (W_up^T, W_up, W_down), h^T and dup^T at row pitch ld, xn, r,
+    the per-panel dot partials, the per-tile d(scale) partials and the
+    split-K partials of dW_up = xn^T dup and dW_down^T = g^T h, which share
+    one buffer."""
+    rows, tiles = images * tokens, -(-tokens // _build.F32_ROWS)
+    ld = _build.f32_pitch(rows)
+    chunk_up = _build.f32_weight_chunks(rows, d, 2 * d_ff, sms)
+    chunk_down = _build.f32_weight_chunks(rows, d, d_ff, sms)
+    part = max(-(-rows // chunk_up) * 2, -(-rows // chunk_down)) * d * d_ff
+    shapes = {"w_upt": (2 * d_ff, d), "w_up_r": (d, 2 * d_ff),
+              "w_down_r": (d_ff, d), "ht": (d_ff, ld), "dupt": (2 * d_ff, ld),
+              "xn": (rows, d), "r": (rows,), "dot_part": (d_ff // 64, rows),
+              "dns_part": (images * tiles, d), "dw_part": (part,)}
+    return shapes, (tiles, ld, chunk_up, chunk_down)
+
+
 def _backward_f32(x, scale, w_up, w_down, g, eps):
     """K10's float32 form on CUDA tensors."""
     b, t, d = x.shape
@@ -233,28 +253,20 @@ def _backward_f32(x, scale, w_up, w_down, g, eps):
     dev, f32 = x.device, torch.float32
     g = g.contiguous()
     _build.require(g, "g", dev, f32, (b, t, d))
-    rows, tiles = b * t, -(-t // _build.F32_ROWS)
-    chunk_up = _build.row_chunk(rows, d // 64 * (2 * d_ff // 64), dev)
-    chunk_down = _build.row_chunk(rows, d_ff // 64 * (d // 64), dev)
-    part = max(-(-rows // chunk_up), -(-rows // chunk_down)) * 2 * d * d_ff
+    shapes, (tiles, ld, chunk_up, chunk_down) = backward_f32_scratch(
+        b, t, d, d_ff, _build.sm_count(dev))
+    scratch = [torch.empty(shape, device=dev, dtype=f32)
+               for shape in shapes.values()]
     dx = torch.empty_like(x)
     dscale = torch.empty((b, d), device=dev, dtype=f32)
     dw_up = torch.empty((d, 2 * d_ff), device=dev, dtype=f32)
     dw_down = torch.empty((d_ff, d), device=dev, dtype=f32)
-    h = torch.empty((rows, d_ff), device=dev, dtype=f32)
-    dup = torch.empty((rows, 2 * d_ff), device=dev, dtype=f32)
-    xn = torch.empty_like(x)
-    r = torch.empty(rows, device=dev, dtype=f32)
-    dot_part = torch.empty((d_ff // 64, rows), device=dev, dtype=f32)
-    dns_part = torch.empty((b * tiles, d), device=dev, dtype=f32)
-    dw_part = torch.empty(part, device=dev, dtype=f32)
     lib = _build.load("geglu_f32", kdt_ffn_bwd_f32=_F32_BWD)
     _build.launch(
         lib, "kdt_ffn_bwd_f32", "fused_ffn backward", dev,
         *map(_build.ptr, (x, scale, w32_up, w32_down, g, dx, dscale, dw_up,
-                          dw_down, h, dup, xn, r, dot_part, dns_part,
-                          dw_part)),
-        b, t, tiles, d, d_ff, chunk_up, chunk_down, eps,
+                          dw_down, *scratch)),
+        b, t, tiles, d, d_ff, ld, chunk_up, chunk_down, eps,
         _build.stream_ptr(dev))
     global bwd_launches_f32
     bwd_launches_f32 += 1

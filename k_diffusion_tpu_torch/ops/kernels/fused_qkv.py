@@ -14,10 +14,11 @@ is forward-only; the backward K6 takes a contiguous scale.
 
 bfloat16 operands go to those kernels, float32 operands (a model built
 with ``dtype=torch.float32``, ``--mixed-precision no``) to their float32
-forms in ``csrc/fused_qkv_f32.cu`` (``kdt_fused_qkv_f32``,
-``kdt_fused_qkv_bwd_f32``, on the TF32 core ``csrc/gemm_tf32.cuh``): the
-same contract, products on the TF32 tensor cores with f32 accumulation,
-any d a multiple of 64. Each dtype's launches are counted apart.
+forms in ``csrc/fused_qkv_f32.cu`` (``kdt_fused_qkv_f32`` on the TF32
+``mma.sync`` core ``csrc/gemm_tf32.cuh``, ``kdt_fused_qkv_bwd_f32`` on the
+TF32 ``wgmma`` core ``csrc/gemm_tf32_wg.cuh``): the same contract, products
+on the TF32 tensor cores with f32 accumulation, any d a multiple of 64.
+Each dtype's launches are counted apart.
 """
 
 import ctypes
@@ -54,10 +55,10 @@ _BWD_SIGNATURE = [_P] * 20 + [ctypes.c_int] * 6 + [
 # images, tokens, d, heads, scale_stride, eps, cos_eps, stream
 _F32_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [_P]
 # x, norm_scale, w_qkv, attn_scale, pos, freqs, gq, gk, gv, dx, dns, dw,
-# das_sums, dqk, xn, r, dot_part, das_part, dns_part, dw_part, images,
-# tokens, d, heads, chunk_rows, eps, cos_eps, stream
-_F32_BWD_SIGNATURE = [_P] * 20 + [ctypes.c_int] * 5 + [
-    ctypes.c_long, ctypes.c_float, ctypes.c_float, _P]
+# das_sums, wt, w_r, drt, xn, r, dot_part, das_part, dns_part, dw_part,
+# images, tokens, tiles, d, heads, ld, chunk_rows, eps, cos_eps, stream
+_F32_BWD_SIGNATURE = [_P] * 22 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2 + [
+    ctypes.c_float, ctypes.c_float, _P]
 
 
 def reference(x, pos, norm_scale, w_qkv, attn_scale, n_heads, eps=1e-6,
@@ -266,6 +267,23 @@ def prologue_backward(x, pos, norm_scale, w_qkv, attn_scale, n_heads, gq, gk,
             das.to(attn_scale.dtype))
 
 
+def backward_f32_scratch(images, tokens, d, n_heads, sms):
+    """K6-f32's scratch as ``kdt_fused_qkv_bwd_f32`` takes it: name -> shape
+    (float32), and (tiles, ld, chunk_rows). W_qkv^T and W_qkv rounded to
+    TF32, dR^T at row pitch ld (q, k, then v's part, gv), xn, r, the
+    per-panel dot partials, the per-tile d(attn_scale) and d(scale)
+    partials and the split-K partials of dW_qkv = xn^T dR."""
+    rows, tiles = images * tokens, -(-tokens // _build.F32_ROWS)
+    ld = _build.f32_pitch(rows)
+    chunk_rows = _build.f32_weight_chunks(rows, d, 3 * d, sms)
+    shapes = {"wt": (3 * d, d), "w_r": (d, 3 * d), "drt": (3 * d, ld),
+              "xn": (rows, d), "r": (rows,), "dot_part": (3 * d // 64, rows),
+              "das_part": (images * tiles, 2 * n_heads),
+              "dns_part": (images * tiles, d),
+              "dw_part": (-(-rows // chunk_rows), d, 3 * d)}
+    return shapes, (tiles, ld, chunk_rows)
+
+
 def _backward_f32(x, pos, norm_scale, w_qkv, scale32, n_heads, gq, gk, gv,
                   eps, cos_eps, scale_dtype):
     """K6's float32 form on checked float32 operands (``w_qkv`` and
@@ -278,29 +296,21 @@ def _backward_f32(x, pos, norm_scale, w_qkv, scale32, n_heads, gq, gk, gv,
     gq, gk, gv = (g.contiguous() for g in (gq, gk, gv))
     for name, g in (("gq", gq), ("gk", gk), ("gv", gv)):
         _build.require(g, name, dev, f32, (b, h, w, d))
-    rows, tokens = b * h * w, h * w
-    tiles = -(-tokens // _build.F32_ROWS)
-    chunk_rows = _build.row_chunk(rows, d // 64 * (3 * d // 64), dev)
+    shapes, (tiles, ld, chunk_rows) = backward_f32_scratch(
+        b, h * w, d, n_heads, _build.sm_count(dev))
+    scratch = [torch.empty(shape, device=dev, dtype=f32)
+               for shape in shapes.values()]
     dx = torch.empty_like(x)
     dns = torch.empty((b, d), device=dev, dtype=f32)
     dw = torch.empty((d, 3 * d), device=dev, dtype=f32)
     das_sums = torch.empty(2 * n_heads, device=dev, dtype=f32)
-    dqk = torch.empty((rows, 2 * d), device=dev, dtype=f32)
-    xn = torch.empty_like(x)
-    r = torch.empty(rows, device=dev, dtype=f32)
-    dot_part = torch.empty((3 * d // 64, rows), device=dev, dtype=f32)
-    das_part = torch.empty((b * tiles, 2 * n_heads), device=dev, dtype=f32)
-    dns_part = torch.empty((b * tiles, d), device=dev, dtype=f32)
-    dw_part = torch.empty((-(-rows // chunk_rows), d, 3 * d), device=dev,
-                          dtype=f32)
     lib = _build.load("fused_qkv_f32",
                       kdt_fused_qkv_bwd_f32=_F32_BWD_SIGNATURE)
     _build.launch(
         lib, "kdt_fused_qkv_bwd_f32", "fused_qkv backward", dev,
         *map(_build.ptr, (x, norm_scale, w_qkv, scale32, pos, freqs, gq, gk,
-                          gv, dx, dns, dw, das_sums, dqk, xn, r, dot_part,
-                          das_part, dns_part, dw_part)),
-        b, tokens, tiles, d, n_heads, chunk_rows, eps, cos_eps,
+                          gv, dx, dns, dw, das_sums, *scratch)),
+        b, h * w, tiles, d, n_heads, ld, chunk_rows, eps, cos_eps,
         _build.stream_ptr(dev))
     global bwd_launches_f32
     bwd_launches_f32 += 1

@@ -205,8 +205,16 @@ def test_packed_global_attention_plain_version_matches_jax_in_float32(
 
 # ---- the float32 kernels' arithmetic, mirrored ---------------------------------
 
+# the SMs of the card the mirrors size their split-K chunks for (an H100)
+SMS = 132
+
+
+def plain(t):
+    return t
+
+
 def chunked_atb(a, b, chunk):
-    """a^T b as tg::atb_f32_kernel forms it: per chunk of rows, the partials
+    """a^T b as tw::dw_kernel forms it: per chunk of rows, the partials
     then summed in chunk order."""
     parts = [a[i:i + chunk].T @ b[i:i + chunk] for i in range(0, len(a), chunk)]
     total = parts[0]
@@ -216,20 +224,22 @@ def chunked_atb(a, b, chunk):
 
 
 def norm_vjp(dxn, x, ns_rows, r, dot, res=None):
-    """tg::norm_vjp_f32_kernel's epilogue: dx = r dxn nscale - x (r^2 / d)
-    dot (+ res) and the rows' d(nscale) terms dxn x r, with dot the
-    per-row sum of dR R over the panels (sum(g1 x) = dot / r)."""
+    """tw::dxn_kernel's epilogue: dx = r dxn nscale - x (r^2 / d) dot (+ res)
+    and the rows' d(nscale) terms dxn x r, with dot the per-row sum of dR R
+    over the 64-column panels (sum(g1 x) = dot / r)."""
     d = x.shape[-1]
     dx = r * dxn * ns_rows - x * (r * r * dot / d)
     return (dx if res is None else dx + res), dxn * x * r
 
 
-def qkv_f32_mirror(x, pos, ns, w, attn_scale, heads, gq, gk, gv):
-    """K1-f32's forward and K6-f32's three steps on (rows, d) f32 as the
-    kernels compute them: R = r ((x nscale) W), the cosine-sim scale and
-    RoPE in the epilogue; the RoPE and cosine-sim VJPs on the panel's
-    columns, dot partials per 64-column panel summed in panel order, the
-    RMS-norm VJP, dW_qkv over row chunks, d(attn_scale) from the sums of g
+def qkv_f32_mirror(x, pos, ns, w, attn_scale, heads, gq, gk, gv, rnd=plain):
+    """K1-f32's forward and K6-f32's three steps on (rows, d) as the kernels
+    compute them, ``rnd`` applied to every product operand where the
+    kernels round it to TF32: R = r (rnd(x nscale) rnd(W)), the cosine-sim
+    scale and RoPE in the epilogue; the RoPE and cosine-sim VJPs on the
+    panel's columns, dot partials per 64-column panel summed in panel
+    order, the RMS-norm VJP after dxn = rnd(dR) rnd(W)^T, dW_qkv = rnd(xn)^T
+    rnd(dR) over the wrapper's row chunks, d(attn_scale) from the sums of g
     qn."""
     b, h, w_, d = x.shape
     e, rows = d // heads, b * h * w_
@@ -237,7 +247,8 @@ def qkv_f32_mirror(x, pos, ns, w, attn_scale, heads, gq, gk, gv):
     xf = x.reshape(rows, d)
     ns_rows = ns.repeat_interleave(t, 0)
     r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + EPS)
-    raw = r * ((xf * ns_rows) @ w)                      # (rows, 3d)
+    w_r = rnd(w)
+    raw = r * (rnd(xf * ns_rows) @ w_r)                 # (rows, 3d)
     theta = t_rope.axial_rope_theta(pos.reshape(t, 2), t_rope.axial_rope_freqs(
         e // 2, heads)).repeat(b, 1, 1)                 # (rows, heads, e / 4)
     cos, sin = torch.cos(theta), torch.sin(theta)
@@ -275,11 +286,12 @@ def qkv_f32_mirror(x, pos, ns, w, attn_scale, heads, gq, gk, gv):
     dot = dot_panels[0]
     for p in dot_panels[1:]:
         dot = dot + p
-    dR = torch.cat(dr_parts, -1)
-    dxn = dR @ w.T
+    dR = rnd(torch.cat(dr_parts, -1))                   # dR^T, written rounded
+    dxn = dR @ w_r.T
     dx, dns_terms = norm_vjp(dxn, xf, ns_rows, r, dot)
     dns = dns_terms.reshape(b, t, d).sum(1)
-    dw = chunked_atb(xf * ns_rows * r, dR, 64)
+    chunk = _build.f32_weight_chunks(rows, d, 3 * d, SMS)
+    dw = chunked_atb(rnd(xf * ns_rows * r), dR, chunk)
     d_scale = (das[0] + das[1]) / (2 * attn_scale)
     shape = (b, h, w_, d)
     return ([o.reshape(shape) for o in outs],
@@ -304,28 +316,35 @@ def gelu_grad(g):
         -0.5 * g * g) / (2 * torch.pi) ** 0.5
 
 
-def ffn_f32_mirror(x, ns, w_up, w_down, g):
+def ffn_f32_mirror(x, ns, w_up, w_down, g, rnd=plain):
     """K4-f32 (the up kernel's h through device memory, then the down
     kernel with the residual) and K10-f32's three steps, as the kernels
-    compute them."""
+    compute them, ``rnd`` applied to every product operand where the
+    kernels round it to TF32: the up product and dh = rnd(g) rnd(W_down)^T,
+    dot partials per 64-unit panel, dxn = rnd(dup) rnd(W_up)^T, dW_up =
+    rnd(xn)^T rnd(dup) and dW_down = (rnd(g)^T rnd(h))^T over the wrapper's
+    row chunks."""
     b, t, d = x.shape
     d_ff, rows = w_down.shape[0], b * t
     xf, gf = x.reshape(rows, d), g.reshape(rows, d)
     ns_rows = ns.repeat_interleave(t, 0)
     r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + EPS)
-    up = r * ((xf * ns_rows) @ w_up)
+    up_r, down_r = rnd(w_up), rnd(w_down)
+    up = r * (rnd(xf * ns_rows) @ up_r)
     a, gate = up[:, :d_ff], up[:, d_ff:]
     h = a * F.gelu(gate)
-    out = xf + h @ w_down
-    dh = gf @ w_down.T
+    out = xf + rnd(h) @ down_r
+    dh = rnd(gf) @ down_r.T
     da, dgate = dh * F.gelu(gate), dh * a * gelu_grad(gate)
     prod = da * a + dgate * gate
     dot = sum(prod[:, c:c + 64].sum(-1, keepdim=True)
               for c in range(0, d_ff, 64))
-    dup = torch.cat([da, dgate], -1)
-    dx, dns_terms = norm_vjp(dup @ w_up.T, xf, ns_rows, r, dot, gf)
-    dw_up = chunked_atb(xf * ns_rows * r, dup, 64)
-    dw_down = chunked_atb(h, gf, 64)
+    dup = rnd(torch.cat([da, dgate], -1))              # dup^T, written rounded
+    dx, dns_terms = norm_vjp(dup @ up_r.T, xf, ns_rows, r, dot, gf)
+    dw_up = chunked_atb(rnd(xf * ns_rows * r), dup,
+                        _build.f32_weight_chunks(rows, d, 2 * d_ff, SMS))
+    dw_down = chunked_atb(rnd(gf), rnd(h),
+                          _build.f32_weight_chunks(rows, d, d_ff, SMS)).T
     return out.reshape(b, t, d), (dx.reshape(b, t, d),
                                   dns_terms.reshape(b, t, d).sum(1), dw_up,
                                   dw_down)
@@ -339,6 +358,83 @@ def test_fused_ffn_f32_kernel_arithmetic_matches_jax(case):
     want, want_grads = jax_vjp(j_ffn.fused_geglu_ffn, inputs, cots)
     close(got, want, F32_TOL)
     close_all(grads, want_grads, F32_TOL)
+
+
+def tf32_round(t):
+    """cvt.rna.tf32.f32 on the float32 bits, in numpy: the low 13 mantissa
+    bits rounded to nearest, ties away from zero (half an ulp added to the
+    magnitude, the sign bit apart), then cleared."""
+    bits = t.float().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000)) & np.uint32(
+        0xFFFFE000)).view(np.float32)).to(t.dtype)
+
+
+def tf32_truncate(t):
+    """A TF32 operand landed as it is: the low 13 mantissa bits ignored."""
+    bits = t.float().numpy().view(np.uint32)
+    return torch.from_numpy((bits & np.uint32(0xFFFFE000)).view(
+        np.float32)).to(t.dtype)
+
+
+def bf16_round(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def test_tf32_emulation_rounds_to_nearest_away():
+    """The emulation of cvt.rna: exact TF32 values stay, the halfway
+    point rounds away from zero in both signs, truncation drops it."""
+    one, half = 1.0, 2.0 ** -11  # half a TF32 ulp at 1
+    t = torch.tensor([one, one + half, -(one + half), one + half / 2,
+                      one + 1.5 * half], dtype=torch.float64)
+    want = [one, one + 2 * half, -(one + 2 * half), one, one + 2 * half]
+    assert tf32_round(t).tolist() == want
+    assert tf32_truncate(t).tolist() == [one, one, -one, one, one]
+
+
+# the level-0 shapes of the flagship's float32 backwards cut to batch 1:
+# K6 at 64 x 64 x 128 (2 heads of 64), K10 at 4096 x 128, d_ff 384
+ROUNDING_CASES = {"fused_qkv": (1, 64, 64, 128, 64),
+                  "fused_ffn": (1, 4096, 128, 384)}
+# the bound phase 26 (b) holds the float32 kernels to on the card
+TF32_SHARE = 0.25
+
+
+@pytest.mark.parametrize("name", list(ROUNDING_CASES))
+def test_float32_backward_rounding_against_float64(name, record_property):
+    """K6-f32's and K10-f32's mirrors in float64 with every product operand
+    rounded to TF32 as the kernels round it (cvt.rna), against the plain
+    version in float64: each output's max abs error over its max|f64| is at
+    most TF32_SHARE x that of the same mirror with its operands rounded to
+    bf16, output by output (phase 26 (b)'s check on the card). The mirror
+    with truncated operands (what the copy engine would land unrounded) is
+    measured beside them and recorded, not held to the bound."""
+    if name == "fused_qkv":
+        inputs, cots, pos, heads = qkv_case(12, *ROUNDING_CASES[name])
+        wide = [torch.from_numpy(a).double() for a in inputs]
+        gs = [torch.from_numpy(c).double() for c in cots]
+        t_pos = torch.from_numpy(pos)
+        want = fused_qkv.reference_backward(wide[0], t_pos, *wide[1:], heads,
+                                            *gs)
+        run = lambda rnd: qkv_f32_mirror(wide[0], t_pos, *wide[1:], heads,
+                                         *gs, rnd=rnd)[1]
+    else:
+        inputs, cots = ffn_case(13, *ROUNDING_CASES[name])
+        wide = [torch.from_numpy(a).double() for a in inputs]
+        g = torch.from_numpy(cots[0]).double()
+        want = fused_ffn.reference_backward(*wide, g)
+        run = lambda rnd: ffn_f32_mirror(*wide, g, rnd=rnd)[1]
+    errs = {}
+    for label, rnd in (("tf32", tf32_round), ("bf16", bf16_round),
+                       ("truncated", tf32_truncate)):
+        errs[label] = [((a - w).abs().max() / w.abs().max()).item()
+                       for a, w in zip(run(rnd), want)]
+    shares = [a / c for a, c in zip(errs["tf32"], errs["bf16"])]
+    truncated = [a / c for a, c in zip(errs["truncated"], errs["bf16"])]
+    record_property("tf32_over_bf16", shares)
+    record_property("truncated_over_bf16", truncated)
+    print(f"{name}: against float64 by output, tf32 / bf16 {shares}, "
+          f"truncated / bf16 {truncated}")
+    assert max(shares) <= TF32_SHARE, shares
 
 
 def mapping_f32_mirror(emb, s_in, s_out, blocks):
@@ -540,6 +636,109 @@ def test_float32_passes_the_widths_the_bf16_forms_refuse(fake_library):
             fused_ffn.ffn_backward(*ffn, ffn[0])
             assert [e for e, _ in fake_library] == ["kdt_fused_qkv_f32",
                                                     "kdt_ffn_bwd_f32"]
+
+
+# (b, t, d, d_ff) of K10-f32 and (b, h, w, d, heads) of K6-f32: ragged row
+# tiles (49, 72 tokens: row counts not a multiple of 4), a width past the
+# bf16 form's and head dim 32
+F32_BWD_CASES = {"fused_ffn": [(2, 49, 128, 384), (1, 72, 640, 1280),
+                               (3, 16, 64, 192)],
+                 "fused_qkv": [(2, 7, 7, 128, 2), (1, 9, 8, 192, 3),
+                               (3, 4, 4, 64, 2)]}
+
+
+@pytest.mark.parametrize("name,case", [(n, c) for n, cases in
+                                       F32_BWD_CASES.items() for c in cases])
+def test_float32_backward_scratch_is_what_the_entry_point_is_told(
+        fake_library, monkeypatch, name, case):
+    """K10-f32's and K6-f32's scratch, as the wrappers allocate it, has the
+    shapes and dtype that kdt_ffn_bwd_f32 and kdt_fused_qkv_bwd_f32 are
+    told (csrc/geglu_f32.cu, fused_qkv_f32.cu): the rounded weight copies,
+    the transposed intermediates at row pitch ld (at least the row count,
+    a multiple of 4), the per-panel and per-tile partials of 128-row tiles
+    and the split-K partials of chunks of a multiple of 32 rows."""
+    seen = []
+
+    def ptr(t):
+        seen.append(t)
+        return ctypes.c_void_p(t.data_ptr())
+
+    monkeypatch.setattr(_build, "ptr", ptr)
+    rng = np.random.default_rng(14)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    if name == "fused_ffn":
+        b, tok, d, d_ff = case
+        fused_ffn.ffn_backward(t(b, tok, d), 1 + t(b, d), t(d, 2 * d_ff),
+                               t(d_ff, d), t(b, tok, d))
+        (entry, args), = fake_library
+        assert entry == "kdt_ffn_bwd_f32"
+        names = ("w_upt", "w_up_r", "w_down_r", "ht", "dupt", "xn", "r",
+                 "dot_part", "dns_part", "dw_part")
+        scratch = dict(zip(names, seen[9:19]))
+        images, tokens, tiles, d_, dff, ld, chunk_up, chunk_down = args[19:27]
+        assert (images, tokens, d_, dff) == (b, tok, d, d_ff)
+        rows = b * tok
+        want = {"w_upt": (2 * d_ff, d), "w_up_r": (d, 2 * d_ff),
+                "w_down_r": (d_ff, d), "ht": (d_ff, ld), "dupt": (2 * d_ff, ld),
+                "xn": (rows, d), "r": (rows,), "dot_part": (d_ff // 64, rows),
+                "dns_part": (b * tiles, d)}
+        chunks = [chunk_up, chunk_down]
+        parts = max(-(-rows // chunk_up) * 2 * d * d_ff,
+                    -(-rows // chunk_down) * d * d_ff)
+    else:
+        b, h, w, d, heads = case
+        fused_qkv.prologue_backward(
+            t(b, h, w, d), t_rope.make_axial_pos(h, w), 1 + t(b, d),
+            t(d, 3 * d), torch.full((heads,), 10.0), heads,
+            *(t(b, h, w, d) for _ in range(3)))
+        (entry, args), = fake_library
+        assert entry == "kdt_fused_qkv_bwd_f32"
+        names = ("wt", "w_r", "drt", "xn", "r", "dot_part", "das_part",
+                 "dns_part", "dw_part")
+        scratch = dict(zip(names, seen[13:22]))
+        images, tokens, tiles, d_, n_heads, ld, chunk = args[22:29]
+        assert (images, tokens, d_, n_heads) == (b, h * w, d, heads)
+        rows = b * h * w
+        want = {"wt": (3 * d, d), "w_r": (d, 3 * d), "drt": (3 * d, ld),
+                "xn": (rows, d), "r": (rows,), "dot_part": (3 * d // 64, rows),
+                "das_part": (b * tiles, 2 * heads), "dns_part": (b * tiles, d),
+                "dw_part": (-(-rows // chunk), d, 3 * d)}
+        chunks = [chunk]
+        parts = -(-rows // chunk) * d * 3 * d
+    assert tiles == -(-tokens // 128) == -(-tokens // _build.F32_ROWS)
+    assert ld >= rows and ld % 4 == 0
+    assert all(c > 0 and c % 32 == 0 for c in chunks)
+    for key, tensor in scratch.items():
+        assert tensor.dtype == torch.float32 and tensor.is_contiguous(), key
+        if key in want:
+            assert tuple(tensor.shape) == want[key], key
+    assert scratch["dw_part"].numel() >= parts
+
+
+@pytest.mark.parametrize("name,case", [
+    ("fused_ffn", (1, 16, 96, 192)), ("fused_ffn", (1, 16, 128, 96)),
+    ("fused_qkv", (1, 4, 4, 96, 3)), ("fused_qkv", (1, 4, 4, 128, 1)),
+    ("fused_qkv", (1, 4, 4, 128, 8))])
+def test_float32_backwards_refuse_before_any_launch(fake_library, name, case):
+    """K10-f32 refuses d or d_ff not a multiple of 64, K6-f32 a d not a
+    multiple of 64 and head dims other than 32 and 64 (128, 16), with
+    ValueError before anything launches."""
+    rng = np.random.default_rng(15)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    if name == "fused_ffn":
+        b, tok, d, d_ff = case
+        call = lambda: fused_ffn.ffn_backward(
+            t(b, tok, d), 1 + t(b, d), t(d, 2 * d_ff), t(d_ff, d),
+            t(b, tok, d))
+    else:
+        b, h, w, d, heads = case
+        call = lambda: fused_qkv.prologue_backward(
+            t(b, h, w, d), t_rope.make_axial_pos(h, w), 1 + t(b, d),
+            t(d, 3 * d), torch.full((heads,), 10.0), heads,
+            *(t(b, h, w, d) for _ in range(3)))
+    with pytest.raises(ValueError):
+        call()
+    assert not fake_library
 
 
 def test_float32_forwards_read_a_strided_scale_row(fake_library):
