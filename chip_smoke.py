@@ -108,9 +108,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    schedule-point samplers): finite output, launch counts equal to its
    model calls x the layout (plus the table's K5 launches), samples/s;
 20. the sample entry point: a flagship inference checkpoint saved in
-   bfloat16, then ``python -m k_diffusion_tpu_torch.sample --sampler lms
-   -n 8`` on it as a subprocess on the card, which must write 8 PNGs; then
-   the cifar10 U-Net the same way under dpmpp_2m;
+   bfloat16, then the sample entry point (``k_diffusion_tpu_torch.sample``'s
+   main with ``--sampler lms -n 8``) on it in-process on the card, which
+   must write 8 PNGs; then the cifar10 U-Net the same way under dpmpp_2m
+   (phase 21 runs the entry point as a process of its own);
 21. the training entry point: the loader alone at batch 32 (images/s at
    1, 4 and 8 threads, the median and range of timed epochs after an
    untimed one, on 256 x 256 PNGs written by to_png, and at 1 thread on
@@ -118,7 +119,7 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    k_diffusion_tpu_torch.train`` as a subprocess on the
    flagship config with an imagefolder of 128 PNGs at 256 x 256, 6 steps
    at batch 32, checkpoints at 3 and 6, the state JSON and a demo grid at
-   6; a second subprocess resumed mid-epoch from step 3 to 6, its params
+   6; a second run in-process resumed mid-epoch from step 3 to 6, its params
    and EMA within relative L2 1e-3 of the first run's (bit-equal or not,
    printed); the flagship in-process for 26 steps with phase 8's launch
    counts, its images/s over steps 1-25 with and without the loader's
@@ -127,8 +128,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    card) for 17 steps, whose profiler trace of steps 10-15 must hold no
    host-blocking call but the trainer's one synchronisation, and the
    cifar10 U-Net on raw CIFAR-10 batch files for 3 steps at batch 64, each
-   with its launch counts per step; then convert_for_inference on the
-   flagship's checkpoint and the sample entry point on the result;
+   with its launch counts per step; then convert_for_inference (in-process)
+   on the flagship's checkpoint and ``python -m k_diffusion_tpu_torch.sample``
+   on the result as a subprocess;
 22. the rest of the model surface: (a) config_oxford_flowers_shifted_
    window.json at full width and depth: forward and gradient parity as in
    phases 4 and 7, 50-step DPM++(2M) at batch 8 (per call 12 K1, 4 K3, 12
@@ -173,27 +175,35 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    under ``python -m torch.distributed.run --standalone --nproc_per_node 1``
    (NCCL) on the flagship with a synthetic dataset and
    ``--checkpoint-format orbax``: 2 steps and a sharded save, then a second
-   run that resumes from the state pointer to step 4; each prints ``World:
-   1 process(es)``; that checkpoint loaded on the card, saved again
+   run (the entry point in-process) that resumes from the state pointer to
+   step 4; each prints ``World: 1 process(es)``; that checkpoint loaded on
+   the card, saved again
    sharded (async, the pointer moved after the commit) and loaded back
    through the pointer gives bit-equal model, EMA and optimizer state.
 25. float32 compute on the card (``float32_phase``, ``--mixed-precision
    no``, the U-Net family): (a) the float32 forms of K13 and K14
-   (csrc/attn_tf32.cuh, TF32 tensor cores) against their plain versions in
-   float32 with TF32 off, within 5e-3 x max|plain|, at the cifar10 U-Net's
-   shapes at batch 64 (its main path), config_mnist.json's 7 x 7 level and
-   head dim 32; (c) their times beside the plain version's and SDPA's on
-   the float32 inputs (TF32 on), the bound from TF32's 494.7 TFLOP/s; (b)
-   on the same inputs each float32 kernel's error against float64 at most
-   1/4 of the bf16 kernel's; (d) the cifar10 U-Net at batch 8 in float32
-   (TF32) and in bf16 on the card against float32 on the CPU, forward and
-   gradient: the float32 errors at most 1/4 of bf16's, launch counts in
-   each dtype's kernels only; (e) 50-step DPM++(2M) and 3 + 20 training
-   steps at batch 64 in float32 (16 float32 K13 a call; 16 K13 and 16 K14
-   a step; no bf16 flash launch) beside phases 11 and 12; (f) the trainer
-   with --mixed-precision no on config_cifar10.json from seeded in-memory
-   images: 4 steps with saves and a demo grid as a subprocess, a resume
-   in-process from step 2 within 1e-3, with launch counts.
+   (csrc/attn_tf32.cuh's mma.sync forward, csrc/attn_tf32_bwd.cuh's TF32
+   wgmma backward) against their plain versions in float32 with TF32 off,
+   within 5e-3 x max|plain|, at the cifar10 U-Net's shapes at batch 64
+   (its main path), config_mnist.json's 7 x 7 level and head dim 32; (c)
+   their times beside the plain version's and SDPA's on the float32 inputs
+   (TF32 on), the bound from TF32's 494.7 TFLOP/s, the backward's at each
+   shape and on its path beside its earlier row (``f32_bwd_compare``, as
+   phases 26 (a), 27 (a) and 28 (a) do for K9, K7 and K12 in float32), and
+   K9-f32 = K14-f32 (dq, dk, dv) bit for bit on one packed input, a K14-f32
+   rerun bit-equal; (b) on the same inputs each float32 kernel's error
+   against float64 at most 1/4 of the bf16 kernel's; (d) the cifar10
+   U-Net at batch 8 in float32 (TF32) and in bf16 on the card against
+   float32 on the CPU, forward and gradient: the float32 errors at most
+   1/4 of bf16's, launch counts in each dtype's kernels only; (e) 50-step
+   DPM++(2M) and 3 + 20 training steps at batch 64 in float32 (16 float32
+   K13 a call; 16 K13 and 16 K14 a step; no bf16 flash launch) beside
+   phases 11 and 12, each profile also giving the float32 attention
+   backward's share of a step's card time (as phases 26-28 do); (f) the
+   trainer with --mixed-precision no on config_cifar10.json from seeded
+   in-memory images: 4 steps with saves and a demo grid, then a resume
+   from step 2 within 1e-3, with launch counts, both through the entry
+   point in-process.
 26. float32 compute on the card for the ViT and the HDiT without
    neighborhood-attention levels (``transformers_float32_phase``): (a) the
    float32 forms of K1, K4, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu;
@@ -223,7 +233,8 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
 27. float32 compute on the card for the neighborhood-attention configs
    (``na_float32_phase``; the flagship, config_512_hdit and
    config_256_p8_wide): (a) the float32 forms of K2 and K7 (channel-packed)
-   and of K11 and K12 (per head, v strided), csrc/na_tf32.cuh, against
+   and of K11 and K12 (per head, v strided), csrc/na_tf32.cuh (the
+   backwards on csrc/attn_tf32_bwd.cuh's TF32 wgmma bodies), against
    their plain versions in float32 with TF32 off, within 5e-3 x
    max|plain|, at the flagship's NA levels (batch 8), K11 and K12 also at
    head dim 32 and K2 and K7 at config_512_hdit's 128 x 128 x 128 level,
@@ -256,7 +267,8 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    config ships it: one head of 128 at 64 x 64, two at 32 x 32), whose NA
    levels take the plain prologue (``fused_qkv.takes``) and K11/K12 at
    head dim 128: (a) K11 and K12 at its NA levels (batch 8) in float32
-   (csrc/na_tf32.cuh, two warpgroups a block) and bf16 (csrc/na_fwd.cuh,
+   (csrc/na_tf32.cuh; the backward two warpgroups a block that split its
+   products, csrc/attn_tf32_bwd.cuh) and bf16 (csrc/na_fwd.cuh,
    csrc/na_bwd.cuh on csrc/wgmma.cuh's tiles of two column halves)
    against their plain versions (float32: TF32 off, 5e-3), timed beside
    them, the bound and masked SDPA, the bf16 forms' times at each shape
@@ -395,14 +407,19 @@ def device_ms(fn, reps):
     """Median over 5 trials of the mean device time of ``fn`` in ms, from
     CUDA events. Each trial first queues a sleep on the card so that the
     host enqueues all ``reps`` calls before the card reaches them: the
-    events then time the card, not the host's launch rate."""
+    events then time the card, not the host's launch rate. The sleep is
+    4x the host time of ``reps`` untimed calls (as the first took), at
+    2 GHz, within 5e6 and 5e7 cycles."""
+    host = time.perf_counter()
     fn()
+    host = time.perf_counter() - host
     torch.cuda.synchronize()
+    cycles = int(min(5e7, max(5e6, 4 * reps * host * 2e9)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     trials = []
     for _ in range(5):
-        torch.cuda._sleep(50_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -1097,7 +1114,8 @@ def run_cases(cases, results, kernel_reps, plain_reps):
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "op_ms": 0.0, "byte_ms": 0.0, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.setdefault("shapes", {})[c.label] = {"ms": ms, "library_ms": lib_ms}
+        r.setdefault("shapes", {})[c.label] = {"ms": ms, "library_ms": lib_ms,
+                                               "bound_ms": bound}
         r["ms"] += c.calls * ms
         r["plain_ms"] += c.calls * plain_ms
         r["bound_ms"] += c.calls * max(op_ms, byte_ms)
@@ -1747,7 +1765,8 @@ def main():
         "na2d_heads_bwd": ("na_bwd.cuh", "na2d.py:241", unfused_counts),
         "na2d_proj": ("na_proj.cuh", "na2d.py:991", proj_counts),
         "flash_f32": ("attn_tf32.cuh", "flash.py:34", f32_sample_counts),
-        "flash_bwd_f32": ("attn_tf32.cuh", "flash.py:57", f32_train_counts),
+        "flash_bwd_f32": ("attn_tf32_bwd.cuh", "flash.py:57",
+                          f32_train_counts),
     } | {name: (src, tpu, sw_f32_train if "bwd" in name else sw_f32_sample)
          for name, (src, tpu) in F32_KERNELS.items()} | {
         "na2d_f32": (*NA_F32_KERNELS["na2d_f32"], na_f32_sample),
@@ -1790,23 +1809,25 @@ def main():
 # (csrc/na_bwd.cuh; OWN_V false in na2d, true in na2d_heads), the forwards
 # K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
 # K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh);
-# K8 (bf16 and float32 outputs); the float32 forms: K3's and K9's
-# (csrc/attn_tf32.cuh), K1's, K4's and K5's (their kernels on
-# csrc/gemm_tf32.cuh), K6's and K10's (their first kernels and
-# csrc/gemm_tf32_wg.cuh's), K2's and K7's (in na2d), K11's and K12's (in
-# na2d_heads; csrc/na_tf32.cuh, also at head dim 128) and K15's
+# K8 (bf16 and float32 outputs); the float32 forms: K3's (csrc/attn_
+# tf32.cuh) and K9's (csrc/attn_tf32_bwd.cuh's TF32 wgmma kernels), K1's,
+# K4's and K5's (their kernels on csrc/gemm_tf32.cuh), K6's and K10's
+# (their first kernels and csrc/gemm_tf32_wg.cuh's), K2's and K7's (in
+# na2d), K11's and K12's (in na2d_heads; csrc/na_tf32.cuh, also at head
+# dim 128, the backwards on attn_tf32_bwd.cuh's bodies) and K15's
 # (csrc/na_proj_tf32.cuh)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
-                      "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
+                      "tf32_fwd_kernel", "tf32_wg_dq_kernel",
+                      "tf32_wg_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
-              "tf32_fwd_kernel", "tf32_dq_kernel", "tf32_dkv_kernel"),
+              "tf32_fwd_kernel", "tf32_wg_dq_kernel", "tf32_wg_dkv_kernel"),
     "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
-             "na_tf32_fwd_kernel", "na_tf32_dq_kernel", "na_tf32_dkv_kernel",
-             "na2d_overlap_add_kernel"),
+             "na_tf32_fwd_kernel", "na_tf32_wg_dq_kernel",
+             "na_tf32_wg_dkv_kernel", "na2d_overlap_add_kernel"),
     "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
                    "na_proj_kernel", "na_tf32_fwd_kernel",
-                   "na_tf32_dq_kernel", "na_tf32_dkv_kernel",
+                   "na_tf32_wg_dq_kernel", "na_tf32_wg_dkv_kernel",
                    "na_proj_tf32_kernel"),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
                   "atb_kernel", "reduce_kernel", "reduce_few_kernel"),
@@ -1824,13 +1845,17 @@ REPORTED = {
 # instantiations the report must list: K11 and K12 at head dim 128 (the
 # forward two blocks an SM, the dk/dv kernel two warpgroups a block), the
 # float32 forms of K11 and K12 at head dim 128 (two warpgroups a block),
-# K15's at both head dims, K8's two outputs, and K6-f32's first kernel at
-# both head dims with one and two panels an item, and the dxn kernel of the
-# float32 backwards at both widths
+# the float32 attention backward's one-warpgroup kernels at head dims 32
+# and 64 (K14, K12), K15's at both head dims, K8's two outputs, and
+# K6-f32's first kernel at both head dims with one and two panels an item,
+# and the dxn kernel of the float32 backwards at both widths
 REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
                       "na_dkv_kernel<128, true>",
-                      "na_tf32_fwd_kernel<128>", "na_tf32_dq_kernel<128>",
-                      "na_tf32_dkv_kernel<128>", "na_proj_tf32_kernel<32>",
+                      "na_tf32_fwd_kernel<128>", "na_tf32_wg_dq_kernel<128>",
+                      "na_tf32_wg_dkv_kernel<128>", "tf32_wg_dq_kernel<32>",
+                      "tf32_wg_dkv_kernel<32>", "tf32_wg_dq_kernel<64>",
+                      "tf32_wg_dkv_kernel<64>", "na_tf32_wg_dq_kernel<32>",
+                      "na_tf32_wg_dkv_kernel<32>", "na_proj_tf32_kernel<32>",
                       "na_proj_tf32_kernel<64>",
                       "na2d_overlap_add_kernel<false>",
                       "na2d_overlap_add_kernel<true>",
@@ -2162,8 +2187,8 @@ def check_png(path, size):
 def entry_point_phase(KT, config, unet, smi):
     """Phase 20: an inference checkpoint in bfloat16 (seeded weights,
     zero-init tensors filled with noise), then the sample entry point on it
-    as a subprocess on the card: 8 PNGs each for the flagship under LMS and
-    the U-Net under DPM++(2M)."""
+    in-process on the card: 8 PNGs each for the flagship under LMS and the
+    U-Net under DPM++(2M)."""
     for name, cfg, fill, sampler in (
             ("flagship", config, fill_zero_init, "lms"),
             ("unet", unet, fill_zero_init_unet, "dpmpp_2m")):
@@ -2172,9 +2197,9 @@ def entry_point_phase(KT, config, unet, smi):
 
 def sample_entry(KT, name, cfg, fill, sampler, smi):
     """A bfloat16 inference checkpoint of ``cfg`` (seeded weights,
-    zero-init tensors filled by ``fill``), then ``python -m
-    k_diffusion_tpu_torch.sample`` on it as a subprocess on the card,
-    which must write 8 PNGs."""
+    zero-init tensors filled by ``fill``), then the entry point
+    ``k_diffusion_tpu_torch.sample`` on it in-process on the card, which
+    must write 8 PNGs."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         g = torch.Generator().manual_seed(SEED + 20)
@@ -2183,9 +2208,9 @@ def sample_entry(KT, name, cfg, fill, sampler, smi):
         ckpt = KT.checkpoint.save_inference(
             tmp / f"{name}.safetensors", model, cfg, dtype=torch.bfloat16)
         del model
-        out, secs = run_entry("sample", "--checkpoint", ckpt,
-                              "--sampler", sampler, "-n", 8,
-                              "--batch-size", 8, "--prefix", tmp / name)
+        out, secs = call_entry("sample", "--checkpoint", ckpt,
+                               "--sampler", sampler, "-n", 8,
+                               "--batch-size", 8, "--prefix", tmp / name)
         files = sorted(tmp.glob(f"{name}_*.png"))
         if [f.name for f in files] != [f"{name}_{i:05}.png"
                                        for i in range(8)]:
@@ -2195,7 +2220,7 @@ def sample_entry(KT, name, cfg, fill, sampler, smi):
             check_png(f, cfg["model"]["input_size"][0])
         print(f"sample entry point ({name}, {sampler}): 8 PNGs from a "
               f"bfloat16 checkpoint of {ckpt.stat().st_size} bytes in "
-              f"{secs:.1f} s (process start and model build included) on "
+              f"{secs:.1f} s in-process (model build included) on "
               f"{smi}; its output: "
               f"{' | '.join(out.strip().splitlines())}",
               flush=True)
@@ -2281,6 +2306,42 @@ def run_entry(module, *args):
     return proc.stdout, time.perf_counter() - start
 
 
+def call_entry(module, *args, env=None):
+    """``k_diffusion_tpu_torch.<module>.main(args)`` in this process: the
+    entry point as run_entry runs it, without a process start, a CUDA
+    context and a kernel load of its own. ``env``: variables set for the
+    call. TF32 flags, which the trainer sets, are restored after it.
+    Returns (its stdout, seconds)."""
+    import importlib
+    import io
+
+    entry = importlib.import_module(f"k_diffusion_tpu_torch.{module}").main
+    saved = {k: os.environ.get(k) for k in env or {}}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    os.environ.update(env or {})
+    out = io.StringIO()
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            entry([str(a) for a in args])
+    except BaseException:
+        sys.stderr.write(f"{module} failed in-process; its output:\n"
+                         f"{out.getvalue()[-3000:]}\n")
+        raise
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - start
+    torch.cuda.empty_cache()
+    return out.getvalue(), secs
+
+
 def flat_weights(payload, key):
     return torch.cat([t.float().flatten() for t in payload[key].values()])
 
@@ -2293,8 +2354,8 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
     files); the flagship at full
     width as a subprocess on the 128 PNGs at 256 x 256 (6 steps at batch
     32, saves at 3 and 6, a demo at 6), resumed mid-epoch from step 3 to
-    6 as a second subprocess (its params and EMA against the first
-    run's); the flagship in-process on the 1 024 entries for 26 steps,
+    6 through the entry point in-process (its params and EMA against the
+    first run's); the flagship in-process on the 1 024 entries for 26 steps,
     its launch counts against phase 8's layout and its images/s over
     steps 1-25 (the trainer's own window between its prints at 0 and 25,
     with and without the loader's waits) beside phase 8's bare step;
@@ -2303,8 +2364,8 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
     --profile-dir, whose trace of steps 10-15 must hold no host-blocking
     call but the trainer's own synchronisation before the trace ends; the
     cifar10 U-Net on raw CIFAR-10 batch files, each with its launch
-    counts; then convert_for_inference and the sample entry point on the
-    flagship's checkpoint."""
+    counts; then convert_for_inference (in-process) and the sample entry
+    point (a subprocess) on the flagship's checkpoint."""
     from k_diffusion_tpu_torch import train as train_cli
     from k_diffusion_tpu_torch.ops import kernels
 
@@ -2358,10 +2419,11 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
               f"{secs:.1f} s with process start, build and demo; its "
               f"output: {' | '.join(out.strip().splitlines())}", flush=True)
         resumed = tmp / "resumed"
-        out, secs = run_entry("train", "--config", cfg_path, "--batch-size",
-                              32, "--end-step", 6, "--save-every", 3,
-                              "--demo-every", 0, "--resume",
-                              tmp / "flag_00000003.ckpt", "--name", resumed)
+        out, secs = call_entry("train", "--config", cfg_path,
+                               "--batch-size", 32, "--end-step", 6,
+                               "--save-every", 3, "--demo-every", 0,
+                               "--resume", tmp / "flag_00000003.ckpt",
+                               "--name", resumed)
         a = torch.load(tmp / "flag_00000006.ckpt", map_location="cpu",
                        weights_only=True)
         b = torch.load(tmp / "resumed_00000006.ckpt", map_location="cpu",
@@ -2380,7 +2442,7 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
             if not errs[key] <= 1e-3:
                 raise AssertionError(f"resume: {key} relative L2 "
                                      f"{errs[key]:.3e} > 1e-3")
-        print(f"trainer resume (subprocess, from step 3, batch 3 of 4 in its "
+        print(f"trainer resume (in-process, from step 3, batch 3 of 4 in its "
               f"epoch, to 6, {secs:.1f} s): params relative L2 "
               f"{errs['model']:.3e}, EMA {errs['model_ema']:.3e} (bound "
               f"1e-3), bit-equal {equal}; its output: "
@@ -2393,7 +2455,7 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
               f"steps 3-5 of that run, on {smi}", flush=True)
 
         # in-process runs, their launches counted
-        CLOCK.part("phase 21 trainer subprocesses")
+        CLOCK.part("phase 21 trainer and resume")
         def counted(name, cfg, steps, per_step, *flags):
             cfg_path = tmp / f"{name}.json"
             cfg_path.write_text(json.dumps(cfg))
@@ -2480,8 +2542,8 @@ def trainer_phase(KT, config, unet, tiny, tiny_step, n_attn, fused_ips, smi):
         # the chain on the card
         inference = tmp / "flag.safetensors"
         CLOCK.part("phase 21 tiny and U-Net in-process")
-        run_entry("convert_for_inference", tmp / "flag_00000006.ckpt",
-                  inference)
+        call_entry("convert_for_inference", tmp / "flag_00000006.ckpt",
+                   inference)
         out, secs = run_entry("sample", "--checkpoint", inference, "-n", 8,
                               "--batch-size", 8, "--prefix", tmp / "chain")
         for i in range(8):
@@ -2858,8 +2920,7 @@ def step_ms(KT, config, dev, batch, steps, cond=None, **model_kw):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - start) / steps * 1e3
     from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             step(state, data, gen, 0.999)
         torch.cuda.synchronize()
@@ -3137,9 +3198,9 @@ def inception_phase(KT, dev, smi, cache):
 
 
 def evaluation_entry(KT, config, cache, smi):
-    """Phase 23 (f): the training entry point as a subprocess on the
-    flagship (synthetic data in place of its image folder) for 6 steps at
-    batch 32 with --evaluate-every 3 --evaluate-n 64 and the cache's random
+    """Phase 23 (f): the training entry point in-process on the flagship
+    (synthetic data in place of its image folder) for 6 steps at batch 32
+    with --evaluate-every 3 --evaluate-n 64 and the cache's random
     Inception weights: two rows of {name}_metrics.csv, finite FID and
     KID."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -3149,28 +3210,21 @@ def evaluation_entry(KT, config, cache, smi):
         path = Path(tmp) / "config.json"
         path.write_text(json.dumps(cfg))
         name = Path(tmp) / "run"
-        env = {**os.environ, "XDG_CACHE_HOME": str(cache)}
-        start = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "k_diffusion_tpu_torch.train", "--config",
-             str(path), "--batch-size", "32", "--end-step", "6",
-             "--evaluate-every", "3", "--evaluate-n", "64", "--demo-every",
-             "0", "--save-every", "0", "--num-workers", "4", "--name",
-             str(name)], cwd=ROOT, capture_output=True, text=True,
-            timeout=600, env=env)
-        secs = time.perf_counter() - start
-        if proc.returncode:
-            raise AssertionError(f"train --evaluate-every failed:\n"
-                                 f"{proc.stdout[-3000:]}{proc.stderr[-4000:]}")
+        out, secs = call_entry(
+            "train", "--config", path, "--batch-size", 32, "--end-step", 6,
+            "--evaluate-every", 3, "--evaluate-n", 64, "--demo-every", 0,
+            "--save-every", 0, "--num-workers", 4, "--name", name,
+            env={"XDG_CACHE_HOME": str(cache)})
         lines = Path(f"{name}_metrics.csv").read_text().splitlines()
         rows = [[float(v) for v in line.split(",")] for line in lines[1:]]
         if (lines[0] != "step,time,loss,fid,kid" or [r[0] for r in rows]
                 != [3, 6] or not all(math.isfinite(v) for r in rows
                                      for v in r[3:])):
             raise AssertionError(f"metrics csv: {lines}")
-    evals = [l for l in proc.stdout.splitlines() if l.startswith("FID")]
+    evals = [l for l in out.splitlines() if l.startswith("FID")]
     print(f"train --evaluate-every 3 --evaluate-n 64 (flagship, batch 32, 6 "
-          f"steps, random Inception weights): {secs:.1f} s; {evals}; "
+          f"steps, random Inception weights, in-process): {secs:.1f} s; "
+          f"{evals}; "
           f"metrics csv {lines}", flush=True)
 
 
@@ -3487,8 +3541,9 @@ def data_parallel_phase(KT, config, dev, smi):
 
 def data_parallel_trainer(KT, config, dev, smi):
     """Phase 24 (b): the trainer under torchrun, one NCCL rank, sharded
-    checkpoints; then a sharded round trip on the card through the state
-    pointer."""
+    checkpoints, then resumed from the state pointer through the entry
+    point in-process; then a sharded round trip on the card through the
+    state pointer."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         cfg = dict(config, dataset={"type": "synthetic", "num_classes": 0,
@@ -3496,23 +3551,21 @@ def data_parallel_trainer(KT, config, dev, smi):
         cfg_path = tmp / "flagship.json"
         cfg_path.write_text(json.dumps(cfg))
         name = tmp / "nccl"
-        outs = []
-        for end in (2, 4):
-            start = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--standalone", "--nproc_per_node", "1", "-m",
-                 "k_diffusion_tpu_torch.train", "--config", str(cfg_path),
-                 "--batch-size", "16", "--end-step", str(end),
-                 "--save-every", "2", "--demo-every", "0",
-                 "--evaluate-every", "0", "--checkpoint-format", "orbax",
-                 "--name", str(name)],
-                cwd=ROOT, capture_output=True, text=True, timeout=600)
-            if proc.returncode:
-                raise AssertionError(f"torchrun trainer failed:\n"
-                                     f"{proc.stdout[-3000:]}"
-                                     f"{proc.stderr[-4000:]}")
-            outs.append((proc.stdout, time.perf_counter() - start))
+        flags = ("--config", cfg_path, "--batch-size", 16, "--save-every", 2,
+                 "--demo-every", 0, "--evaluate-every", 0,
+                 "--checkpoint-format", "orbax", "--name", name)
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "k_diffusion_tpu_torch.train",
+             *map(str, flags), "--end-step", "2"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"torchrun trainer failed:\n"
+                                 f"{proc.stdout[-3000:]}"
+                                 f"{proc.stderr[-4000:]}")
+        outs = [(proc.stdout, time.perf_counter() - start),
+                call_entry("train", *flags, "--end-step", 4)]
         for out, _ in outs:
             if "World: 1 process(es)" not in out:
                 raise AssertionError(f"torchrun trainer: no world line:\n"
@@ -3557,12 +3610,13 @@ def data_parallel_trainer(KT, config, dev, smi):
                                  "differs from the saved one")
     print(f"data parallel (b): the trainer under torchrun, 1 NCCL rank, "
           f"flagship at batch 16, --checkpoint-format orbax: 2 steps and a "
-          f"sharded save in {outs[0][1]:.1f} s, resumed from the pointer to "
-          f"step 4 in {outs[1][1]:.1f} s (process start and model build "
-          f"included), each printing 'World: 1 process(es)'; the step-2 "
-          f"checkpoint loaded on the card, saved sharded again and loaded "
-          f"back through the pointer: {tensors} tensors (on {devices}) and "
-          f"the host dict bit for bit equal; on {smi}", flush=True)
+          f"sharded save in {outs[0][1]:.1f} s (process start and model "
+          f"build included), resumed from the pointer to step 4 in-process "
+          f"in {outs[1][1]:.1f} s, each printing 'World: 1 process(es)'; "
+          f"the step-2 checkpoint loaded on the card, saved sharded again "
+          f"and loaded back through the pointer: {tensors} tensors (on "
+          f"{devices}) and the host dict bit for bit equal; on {smi}",
+          flush=True)
 
 
 # phase 25: float32 compute on the card (--mixed-precision no), the U-Net
@@ -3784,16 +3838,15 @@ def float32_model_parity(KT, unet, dev, n_attn, batch):
 
 
 def float32_trainer(KT, config_path, batch, per_step, smi, exact=True):
-    """Phases 25 (f), 26 (f) and 27 (f): ``python -m
-    k_diffusion_tpu_torch.train --mixed-precision no`` on ``config_path``
-    from a custom dataset of 256 entries cycling over seeded images in
-    memory (256 distinct ones at 32 x 32, 32 at a larger size) at
-    ``batch``: 4 steps as a subprocess with saves at 2 and 4 and a
+    """Phases 25 (f), 26 (f), 27 (f) and 28 (f): the training entry point
+    ``k_diffusion_tpu_torch.train`` with ``--mixed-precision no``,
+    in-process, on ``config_path`` from a custom dataset of 256 entries
+    cycling over seeded images in memory (256 distinct ones at 32 x 32, 32
+    at a larger size) at ``batch``: 4 steps with saves at 2 and 4 and a
     16-sample demo grid at 4 (it must log float32 compute), then resumed
-    from step 2 to 4 in-process (params and EMA bit for bit the first
-    run's, or with ``exact`` False within RESUME_REL_BOUND relative L2), its
-    2 steps' launch counts ``per_step`` in float32 kernels only."""
-    from k_diffusion_tpu_torch import train as train_cli
+    from step 2 to 4 (params and EMA bit for bit the first run's, or with
+    ``exact`` False within RESUME_REL_BOUND relative L2), its 2 steps'
+    launch counts ``per_step`` in float32 kernels only."""
     from k_diffusion_tpu_torch.ops import kernels
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3815,23 +3868,20 @@ def float32_trainer(KT, config_path, batch, per_step, smi, exact=True):
         flags = ("--config", cfg_path, "--batch-size", batch,
                  "--mixed-precision", "no", "--end-step", 4, "--save-every",
                  2, "--evaluate-every", 0)
-        out, secs = run_entry("train", *flags, "--demo-every", 4,
-                              "--sample-n", 16, "--name", tmp / "f32")
+        out, secs = call_entry("train", *flags, "--demo-every", 4,
+                               "--sample-n", 16, "--name", tmp / "f32")
         if "compute dtype torch.float32" not in out:
             raise AssertionError(f"float32 trainer: not float32:\n{out}")
         check_png(tmp / "f32_demo_00000004.png", 4 * size)
         kernels.reset_launch_counts()
-        start = time.perf_counter()
-        with tf32(False):  # the trainer turns TF32 on; restored after
-            train_cli.main([*map(str, flags), "--demo-every", "0", "--resume",
-                            str(tmp / "f32_00000002.ckpt"), "--name",
-                            str(tmp / "resumed")])
-        resumed_secs = time.perf_counter() - start
+        _, resumed_secs = call_entry(
+            "train", *flags, "--demo-every", 0, "--resume",
+            tmp / "f32_00000002.ckpt", "--name", tmp / "resumed")
         counts = kernels.launch_counts()
         expected = dict.fromkeys(kernels.COUNTERS, 0) | {
             k: 2 * v for k, v in per_step.items()}
         if counts != expected:
-            raise AssertionError(f"float32 trainer (resumed in-process): "
+            raise AssertionError(f"float32 trainer (resumed): "
                                  f"launch counts {counts} != {expected}")
         a, b = (torch.load(tmp / f"{name}_00000004.ckpt", map_location="cpu",
                            weights_only=True) for name in ("f32", "resumed"))
@@ -3846,11 +3896,11 @@ def float32_trainer(KT, config_path, batch, per_step, smi, exact=True):
             raise AssertionError(f"float32 trainer resume: {errs}, bit-equal "
                                  f"{equal} (required: {exact}), loss "
                                  f"{a['host']['ema_stats']}")
-        print(f"float32 trainer (subprocess, --mixed-precision no, "
+        print(f"float32 trainer (in-process, --mixed-precision no, "
               f"{config_path.name} at batch {batch}): 4 steps, saves "
               f"at 2 and 4, a 16-sample demo grid, in {secs:.1f} s with "
-              f"process start and demo; resumed in-process from step 2 to 4 "
-              f"in {resumed_secs:.1f} s: params relative L2 "
+              f"model build and demo; resumed from step 2 to 4 in "
+              f"{resumed_secs:.1f} s: params relative L2 "
               f"{errs['model']:.3e}, EMA {errs['model_ema']:.3e} (bound "
               f"{RESUME_REL_BOUND}), bit-equal {equal}"
               f"{' (required)' if exact else ''}, launches "
@@ -3897,6 +3947,80 @@ def float32_refusals(KT, dev):
                              f"{kernels.launch_counts()}")
 
 
+# The float32 attention backward's rows in PERF.md from its earlier
+# mma.sync design (ms summed over each main path's calls, and by shape
+# where PERF.md has them), beside which its TF32 wgmma kernels
+# (csrc/attn_tf32_bwd.cuh) print their times.
+F32_BWD_BEFORE = {
+    "flash_bwd_f32": (2.520, {}),
+    "global_packed_bwd_f32": (0.2506, {}),
+    "na2d_bwd_f32": (1.5668, {"8x64x64x128": 0.2584, "8x32x32x256": 0.1333}),
+    "na2d_heads_bwd_f32": (1.5684, {}),
+    "na2d_heads_bwd_f32_e128": (2.1441, {"8x64x64x1x128": 0.3559,
+                                         "8x32x32x2x128": 0.1839}),
+}
+
+
+def f32_bwd_compare(results, names):
+    """Phases 25 (c), 26 (a), 27 (a) and 28 (a): the float32 attention
+    backward (csrc/attn_tf32_bwd.cuh) at each shape beside its bound, SDPA's
+    backward on float32 (TF32 on) and PERF.md's earlier time where it has
+    one, and its sum over the main path's calls beside the earlier row
+    (``F32_BWD_BEFORE``)."""
+    for name in names:
+        r = results[name]
+        before, shapes = F32_BWD_BEFORE[name]
+        parts = []
+        for label, t in r["shapes"].items():
+            lib = ("" if t["library_ms"] is None
+                   else f", SDPA backward {t['library_ms']:.4f}")
+            was = f", was {shapes[label]:.4f}" if label in shapes else ""
+            parts.append(f"{label} {t['ms']:.4f} ms (bound "
+                         f"{t['bound_ms']:.4f}{lib}{was})")
+        print(f"float32 attention backward {name}: " + "; ".join(parts) +
+              f"; on its main path {r['ms']:.4f} ms, "
+              f"{r['bound_ms'] / r['ms']:.1%} of its bound "
+              f"{r['bound_ms']:.4f}, against the mma.sync design's "
+              f"{before:.4f} ms ({before / r['ms']:.2f}x faster)", flush=True)
+
+
+def attention_f32_bit_check(dev):
+    """Phase 25 (c): K9-f32 and K14-f32 run the same backward kernels
+    (csrc/attn_tf32_bwd.cuh over wg::Seq): on one packed float32 input at
+    the flagship's global level (batch 8, 256 tokens, 8 heads of 64, scale
+    1) their dq, dk, dv from the same out and lse agree bit for bit; and a
+    rerun of K14-f32 on the U-Net's strided q, k, v (batch 64, 256 tokens,
+    4 heads of 64) is bit-equal (no atomics)."""
+    from k_diffusion_tpu_torch.ops.kernels import flash, global_packed
+
+    def same(what, got, want):
+        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            b_ = b_.reshape(a.shape)
+            if not torch.equal(a, b_):
+                raise AssertionError(f"{what} {name} differ by "
+                                     f"{(a - b_).abs().max().item():.3e}")
+
+    g = torch.Generator().manual_seed(SEED + 27)
+    b, s, heads = SAMPLE_BATCH, 256, 8
+    t = torch.randn((2, b, s, heads, 64), generator=g)
+    q, k = (t / t.norm(dim=-1, keepdim=True) * 10 ** 0.5).reshape(
+        2, b, s, heads * 64).to(dev)
+    v, dout = torch.randn((2, b, s, heads * 64), generator=g).to(dev)
+    out, lse = global_packed.packed_forward(q, k, v, heads, save_lse=True)
+    split = [x.reshape(b, s, heads, 64) for x in (q, k, v, out, dout)]
+    same("K9-f32 and K14-f32",
+         global_packed.packed_backward(q, k, v, out, lse, dout, heads),
+         flash.flash_backward(*split[:4], lse, split[4], 1.0))
+    q, k, v, dout = float32_inputs(g, dev, UNET_BATCH, 256, 4, 64)
+    out, lse = flash.flash_forward(q, k, v, 0.125, save_lse=True)
+    same("K14-f32 and its rerun",
+         flash.flash_backward(q, k, v, out, lse, dout, 0.125),
+         flash.flash_backward(q, k, v, out, lse, dout, 0.125))
+    print(f"float32 attention bit check: K9-f32 and K14-f32 bit-identical "
+          f"dq, dk, dv on one packed input [{b}x{s}x{heads * 64}]; a K14-f32 "
+          f"rerun bit-equal [{UNET_BATCH}x256x4x64]", flush=True)
+
+
 def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
                   bf16_sample, bf16_train):
     """Phase 25: (a)-(c) the float32 kernels at their shapes, (b) the TF32
@@ -3909,7 +4033,9 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
     shapes = float32_shapes(unet)
     with torch.no_grad():
         run_cases(float32_cases(dev, shapes), results, 20, 5)
+        f32_bwd_compare(results, ("flash_bwd_f32",))
         tf32_check(dev, shapes)
+        attention_f32_bit_check(dev)
     CLOCK.part("phase 25 (a)-(c) kernels")
     float32_model_parity(KT, unet, dev, n_attn, F32_PARITY_BATCH)
     CLOCK.part("phase 25 (d) parity")
@@ -3969,7 +4095,7 @@ F32_KERNELS = {
     "global_packed_f32": ("attn_tf32.cuh", "global_packed.py:57"),
     "fused_qkv_bwd_f32": ("fused_qkv_f32.cu", "fused_qkv.py:246"),
     "fused_ffn_bwd_f32": ("geglu_f32.cu", "fused_ffn.py:115"),
-    "global_packed_bwd_f32": ("attn_tf32.cuh", "global_packed.py:111"),
+    "global_packed_bwd_f32": ("attn_tf32_bwd.cuh", "global_packed.py:111"),
 }
 
 # one float32 kernel at one shape: ``make()`` gives its float32 inputs on
@@ -4428,6 +4554,7 @@ def transformers_float32_phase(KT, dev, smi, results):
     specs = f32_specs(dev)
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 20, 3)
+        f32_bwd_compare(results, ("global_packed_bwd_f32",))
         f32_tf32_check(specs)
         f32_rerun_and_split(specs)
     del specs
@@ -4666,6 +4793,7 @@ def na_float32_phase(KT, config, dev, smi, results, cpu_ref, bf16_reports):
     specs = na_f32_specs(dev)
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 20, 2)
+        f32_bwd_compare(results, ("na2d_bwd_f32", "na2d_heads_bwd_f32"))
         f32_tf32_check(specs)
     del specs
     torch.cuda.empty_cache()
@@ -5133,6 +5261,7 @@ def na128_phase(KT, dev, smi, results, bf16_reports, f32_reports):
         run_cases(f32_cases(specs), results, 20, 2)
         run_cases(cases, results, 20, 2)
         na128_compare(results)
+        f32_bwd_compare(results, ("na2d_heads_bwd_f32_e128",))
         f32_tf32_check(specs)
         na128_rerun_check(specs)
     del specs, cases
@@ -5427,8 +5556,11 @@ def profile(run, name, what, ops=()):
     most device time), and the device time of each PyTorch op named in
     ``ops`` (the kernels it launched)."""
     from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    # the host's operator events only where ``ops`` asks for them: reading
+    # them back takes seconds a profile
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ops
+                                            else [])
+    with torch.profiler.profile(activities=activities) as prof:
         start = time.perf_counter()
         run(3)
         torch.cuda.synchronize()
@@ -5456,6 +5588,16 @@ def profile(run, name, what, ops=()):
                   f"step or call, {e.self_device_time_total / e.count:.1f} us "
                   f"each, {e.self_device_time_total / 3e3:.3f} ms a step or "
                   f"call", flush=True)
+    # the float32 attention backward (csrc/attn_tf32_bwd.cuh): its share of
+    # a float32 step's card time
+    wg_ms = sum(e.self_device_time_total for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "tf32_wg_d" in e.key) / 3e3
+    if wg_ms:
+        print(f"{name} profile: the float32 attention backward "
+              f"(tf32_wg_dq_kernel, tf32_wg_dkv_kernel) {wg_ms:.3f} ms of the "
+              f"{device_ms:.3f} ms a step ({wg_ms / device_ms:.1%})",
+              flush=True)
     for e in events:
         if e.key in ops:
             print(f"{name} profile: {e.key}: {e.count // 3} calls a step or "

@@ -1,67 +1,60 @@
 // Exact softmax attention in float32, the kernels of --mixed-precision no:
-// the forward with its logsumexp and the two-kernel backward, as bodies
-// over a geometry policy (below, before fwd_body). Over wg::Seq they are
-// K13 and K14 in f32 (flash.cu) and K3 and K9 in f32 (global_packed.cu),
-// the dense kernels below; over na2d.cuh's NaQueries and NaKeys they are
-// K2 and K7 in f32 (na2d.cu) and K11 and K12 in f32 (na2d_heads.cu), the
-// kernels of na_tf32.cuh.
+// the forward with its logsumexp, as a body over a geometry policy (below,
+// before fwd_body), and the launch arguments (Args) it shares with the
+// backward (attn_tf32_bwd.cuh, on TF32 wgmma). Over wg::Seq the forward is
+// K13 in f32 (flash.cu) and K3 in f32 (global_packed.cu), the dense kernel
+// below; over na2d.cuh's NaQueries it is K2 in f32 (na2d.cu) and K11 in f32
+// (na2d_heads.cu), na_tf32.cuh's kernel, and na_proj_tf32.cuh's K15 in f32
+// runs attend() in its cluster.
 //
-// Replaces: k_diffusion_tpu/ops/pallas/flash.py:_fwd_kernel,
-// :_dq_kernel and :_dkv_kernel as they run on f32 operands (the JAX model
-// built with dtype=float32): f32 dots with f32 accumulation, p / l in f32;
-// na_tf32.cuh says what the neighborhood kernels replace. Here every
-// product runs on the TF32 tensor cores (operands rounded to TF32 by
-// cvt.rna, 10 mantissa bits) with f32 accumulation, as PyTorch's float32
-// training does with TF32 on; the softmax, its rescales, lse and delta
-// stay in f32.
+// Replaces: k_diffusion_tpu/ops/pallas/flash.py:_fwd_kernel as it runs on
+// f32 operands (the JAX model built with dtype=float32): f32 dots with f32
+// accumulation, p / l in f32; na_tf32.cuh says what the neighborhood
+// kernels replace. Here every product runs on the TF32 tensor cores
+// (operands rounded to TF32 by cvt.rna, 10 mantissa bits) with f32
+// accumulation, as PyTorch's float32 training does with TF32 on; the
+// softmax, its rescales and lse stay in f32.
 //
 // What bounds it on the H100, cifar10 U-Net at batch 64 (s = 256, 4 heads,
 // head dim 64): the forward does 4 s^2 64 FLOP per image and head, 4.3
 // GFLOP, 8.7 us at TF32's 494.7 TFLOP/s, and moves q, k, v and the output
-// in f32, 4 x 16.8 MB, 20 us at 3.35 TB/s: bound by memory. The backward
-// does 2.5x the products and moves 2.25x the bytes.
+// in f32, 4 x 16.8 MB, 20 us at 3.35 TB/s: bound by memory.
 //
-// Design: FlashAttention-2's forward and two-kernel backward on warp-level
-// mma.sync m16n8k8 (tf32 x tf32 -> f32). A block is 4 warps (8 at E = 128,
-// below) and owns 64 rows of one head of one image (grid: row tiles, heads,
-// batch); a warp owns 16 of them. The other operand streams through shared memory in
-// 64-row f32 tiles, two stages filled by 16-byte cp.async (rows the
-// geometry marks as not ok, past s or past a halo, zero-filled by the
-// copy's source size), one commit group per tile pair.
+// Design: FlashAttention-2's forward on warp-level mma.sync m16n8k8 (tf32
+// x tf32 -> f32). A block is 4 warps (8 at E = 128, below) and owns 64 rows
+// of one head of one image (grid: row tiles, heads, batch); a warp owns 16
+// of them. K and V stream through shared memory in 64-row f32 tiles, two
+// stages filled by 16-byte cp.async (rows the geometry marks as not ok,
+// past s or past a halo, zero-filled by the copy's source size), one
+// commit group per tile pair.
 // Tiles keep the rows as they lie in memory, padded to E + 4 floats a row,
 // so that every fragment load below is one conflict-free 32-bit shared
 // load, in whichever orientation a product needs:
-// - an A fragment of rows (Q, dO, own K or V): a[i] = X[row g (+8)][k (+4)];
-// - the B operand of a product against a tile's rows (Q K^T, dO V^T,
-//   K Q^T, V dO^T): b[i] = Y[n0 + g][k0 + t (+4)];
-// - the B operand of a product over a tile's rows (P V, dS K, P^T dO,
-//   dS^T Q), whose A is the accumulator of the previous product. An m16n8
-//   accumulator holds columns 2t and 2t + 1 where the m16n8k8 A fragment
-//   takes columns t and t + 4; so within each 8-key group the k index is
-//   permuted, A column t being key 2t and column t + 4 key 2t + 1, and B
-//   reads rows 2t and 2t + 1 to match. The accumulator is then the next
-//   product's A operand with no shuffle.
+// - an A fragment of rows (Q): a[i] = X[row g (+8)][k (+4)];
+// - the B operand of the product against a tile's rows (Q K^T): b[i] =
+//   Y[n0 + g][k0 + t (+4)];
+// - the B operand of the product over a tile's rows (P V), whose A is the
+//   accumulator of the previous product. An m16n8 accumulator holds
+//   columns 2t and 2t + 1 where the m16n8k8 A fragment takes columns t and
+//   t + 4; so within each 8-key group the k index is permuted, A column t
+//   being key 2t and column t + 4 key 2t + 1, and B reads rows 2t and 2t +
+//   1 to match. The accumulator is then the next product's A operand with
+//   no shuffle.
 // (g = lane / 4 and t = lane % 4 name a thread's place in the fragments.)
 // The logits are kept in the log2 domain (scale log2 e) and the row max
-// reduced over the quad of threads that holds a row. The backward's dq
-// kernel also computes delta = rowsum(out * dout), which the JAX package
-// computes outside its kernels, and writes it for the dk/dv kernel; no
-// atomics, so a rerun is bit-equal. Over Seq the bodies do what the dense
-// kernels did before they took a geometry: the same products in the same
-// order (a row of global attention always has a key in the first tile, so
-// the forward's guard for rows with none never changes a value).
+// reduced over the quad of threads that holds a row. Over Seq the body
+// does what the dense kernel did before it took a geometry: the same
+// products in the same order (a row of global attention always has a key
+// in the first tile, so the guard for rows with none never changes a
+// value).
 //
-// At E = 64 the forward holds 5 tiles (85 KB), each backward kernel 6
-// (102 KB): two blocks an SM. At E = 128 (the neighborhood kernels at head
-// dim 128) the forward's tiles take 165 KB and each backward kernel's 198.5
-// KB: one block an SM; there a block is two warpgroups (WG<128> = 2, 256
-// threads), warp w owning rows 16 (w % 4) of the block's 64 and output
-// columns [64 (w / 4), 64 (w / 4) + 64): each warpgroup forms the logits
-// (and dP) of its rows over all 128 columns itself, so that no thread holds
-// accumulators over more than 64 output columns (the dk/dv kernel's two
-// sets of 128 would take 128 registers a thread beside the logits'). A
-// simple design; making it fast is later work (PERF.md, ROADMAP.md queue
-// 2).
+// At E = 64 the forward holds 5 tiles (85 KB): two blocks an SM. At E =
+// 128 (the neighborhood kernels at head dim 128) its tiles take 165 KB:
+// one block an SM, of two warpgroups (WG<128> = 2, 256 threads), warp w
+// owning rows 16 (w % 4) of the block's 64 and output columns [64 (w /
+// 4), 64 (w / 4) + 64): each warpgroup forms the logits of its rows over
+// all 128 columns itself, so that no thread holds accumulators over more
+// than 64 output columns.
 #pragma once
 
 #include <cstdint>
@@ -215,8 +208,9 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The operands of a launch: q, k and v read through sq, sk and sv, head h
-// at column h * E (K11's v is a strided third of a projection); out (the
+// The operands of a launch, the forward's and the backward's
+// (attn_tf32_bwd.cuh): q, k and v read through sq, sk and sv, head h at
+// column h * E (K11's v is a strided third of a projection); out (the
 // forward's output, which the backward reads), dout, dq, dk and dv through
 // io; lse and delta (b, heads, positions) f32.
 struct Args {
@@ -228,8 +222,8 @@ struct Args {
 };
 
 // Which rows a block owns, which 64-row tiles stream past them and which
-// pairs attend is the geometry G, a template policy of the three bodies
-// below (wgmma.cuh's Seq for global attention, whose comment lists the
+// pairs attend is the geometry G, a template policy of the bodies here and
+// in attn_tf32_bwd.cuh (wgmma.cuh's Seq for global attention, whose comment lists the
 // members; na2d.cuh's NaQueries and NaKeys for neighborhood attention,
 // na_tf32.cuh), as for the bf16 bodies of attn_fwd.cuh and attn_bwd.cuh.
 // Each row is copied from its map position through its tensor's strides;
@@ -350,179 +344,10 @@ __device__ __forceinline__ void fwd_body(const Args& a, const G& geo) {
   }
 }
 
-// The backward's dq kernel: the block's 64 own (query) rows against every
-// streamed (key) tile. It first forms delta = rowsum(out * dout) for its
-// rows (written to a.delta for the dk/dv kernel), then dq = scale sum_j dS_j
-// K_j with dS = P (dP - delta), P = exp(logits - lse) where the pair
-// attends (else 0), dP = dO V^T.
-template <int E, class G>
-__device__ __forceinline__ void dq_body(const Args& a, const G& geo) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;
-  float* s_do = smem + TILE<E>;
-  float* s_kv = smem + 2 * TILE<E>;
-  float* s_stat = smem + 6 * TILE<E>;  // lse log2 e, then delta, of the own rows
-  const int head = blockIdx.y, img = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = own_row0(), c0 = own_col0<E>();
-  const int n_tiles = geo.tiles;
-  const float scale = a.scale * LOG2E;
-  const auto own = [&](int i) { return geo.own(i); };
-  const auto load_kv = [&](int j, float* kv) {
-    const auto row = [&](int i) { return geo.stream(j, i); };
-    load_tile<E>(kv, a.k, a.sk, img, head, row);
-    load_tile<E>(kv + TILE<E>, a.v, a.sv, img, head, row);
-  };
-
-  load_tile<E>(s_q, a.q, a.sq, img, head, own);
-  load_tile<E>(s_do, a.dout, a.io, img, head, own);
-  load_kv(0, s_kv);
-  wg::cp_async_commit();
-
-  // delta and lse of the block's 64 rows, PER a warp, one row at a time
-  // over the warp
-  constexpr int PER = ROWS / (4 * WG<E>);
-  const long stat = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
-  for (int i = PER * warp; i < PER * (warp + 1); ++i) {
-    const wg::Pos p = geo.own(i);
-    float d = 0.f;
-    if (p.ok) {
-      const long at = a.io.at(img, p.y, p.x, head, E);
-      const float* o_row = a.out + at;
-      const float* do_row = a.dout + at;
-      for (int c = lane; c < E; c += 32) d += o_row[c] * do_row[c];
-    }
-    d = warp_sum(d);
-    if (lane == 0) {
-      s_stat[i] = p.ok ? a.lse[stat + geo.index(p)] * LOG2E : 0.f;
-      s_stat[ROWS + i] = d;
-      if (p.ok) a.delta[stat + geo.index(p)] = d;
-    }
-  }
-  __syncthreads();  // at E = 128 a warp reads rows two other warps formed
-  float lse[2], delta[2];
-  typename G::Info info[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse[h] = s_stat[r0 + g + 8 * h];
-    delta[h] = s_stat[ROWS + r0 + g + 8 * h];
-    info[h] = geo.own_info(r0 + g + 8 * h);
-  }
-
-  float acc_dq[NC<E>][4];
-  zero(acc_dq);
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_kv(j + 1, s_kv + 2 * ((j + 1) & 1) * TILE<E>);
-      wg::cp_async_commit();
-      wg::cp_async_wait<1>();
-    } else {
-      wg::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* s_k = s_kv + 2 * (j & 1) * TILE<E>;
-    const float* s_v = s_k + TILE<E>;
-    float acc_s[8][4], acc_dp[8][4];
-    zero(acc_s);
-    zero(acc_dp);
-    mma_nt<E>(acc_s, s_q, r0, s_k);
-    mma_nt<E>(acc_dp, s_do, r0, s_v);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool on = geo.mask(j, 8 * n + 2 * t + (i & 1), info[i >> 1]);
-        const float p = on ? exp2f(acc_s[n][i] * scale - lse[i >> 1]) : 0.f;
-        acc_s[n][i] = p * (acc_dp[n][i] - delta[i >> 1]);  // dS
-      }
-    mma_pv<E, NC<E>>(acc_dq, acc_s, s_k + c0);
-    __syncthreads();
-  }
-  store_rows<E, NC<E>>(a.dq + c0, a.io, img, head, acc_dq, r0, own, a.scale, a.scale);
-}
-
-// The backward's dk/dv kernel: the block's 64 own (key) rows against every
-// streamed (query) tile, in the transposed products: S^T = K Q^T, P^T =
-// exp(S^T - lse) where the pair attends (else 0), dP^T = V dO^T, dS^T = P^T
-// (dP^T - delta); dv = sum_i P^T dO, dk = scale sum_i dS^T Q. lse and delta
-// of each streamed tile are staged in shared memory beside it (0 for slots
-// that hold no row: the geometry, not their values, rejects them).
-template <int E, class G>
-__device__ __forceinline__ void dkv_body(const Args& a, const G& geo) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_k = smem;
-  float* s_v = smem + TILE<E>;
-  float* s_qd = smem + 2 * TILE<E>;   // stage st: Q at 2 st TILE, dO after it
-  float* s_stat = smem + 6 * TILE<E>;  // lse log2 e, then delta, of the streamed tile
-  const int head = blockIdx.y, img = blockIdx.z;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int r0 = own_row0(), c0 = own_col0<E>();
-  const long stat = (static_cast<long>(img) * a.n_heads + head) * geo.positions;
-  const int n_tiles = geo.tiles;
-  const float scale = a.scale * LOG2E;
-  const auto own = [&](int i) { return geo.own(i); };
-  const auto load_qd = [&](int j, float* qd) {
-    const auto row = [&](int i) { return geo.stream(j, i); };
-    load_tile<E>(qd, a.q, a.sq, img, head, row);
-    load_tile<E>(qd + TILE<E>, a.dout, a.io, img, head, row);
-  };
-
-  load_tile<E>(s_k, a.k, a.sk, img, head, own);
-  load_tile<E>(s_v, a.v, a.sv, img, head, own);
-  load_qd(0, s_qd);
-  wg::cp_async_commit();
-
-  typename G::Info info[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) info[h] = geo.own_info(r0 + g + 8 * h);
-  float acc_dk[NC<E>][4], acc_dv[NC<E>][4];
-  zero(acc_dk);
-  zero(acc_dv);
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_qd(j + 1, s_qd + 2 * ((j + 1) & 1) * TILE<E>);
-      wg::cp_async_commit();
-      wg::cp_async_wait<1>();
-    } else {
-      wg::cp_async_wait<0>();
-    }
-    if (threadIdx.x < ROWS) {
-      const wg::Pos p = geo.stream(j, threadIdx.x);
-      s_stat[threadIdx.x] = p.ok ? a.lse[stat + geo.index(p)] * LOG2E : 0.f;
-      s_stat[ROWS + threadIdx.x] = p.ok ? a.delta[stat + geo.index(p)] : 0.f;
-    }
-    __syncthreads();
-    const float* s_q = s_qd + 2 * (j & 1) * TILE<E>;
-    const float* s_do = s_q + TILE<E>;
-    float acc_s[8][4], acc_dp[8][4];
-    zero(acc_s);
-    zero(acc_dp);
-    mma_nt<E>(acc_s, s_k, r0, s_q);
-    mma_nt<E>(acc_dp, s_v, r0, s_do);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = 8 * n + 2 * t + (i & 1);  // the query's row in the tile
-        const float p =
-            geo.mask(j, c, info[i >> 1]) ? exp2f(acc_s[n][i] * scale - s_stat[c]) : 0.f;
-        acc_s[n][i] = p;                                       // P^T
-        acc_dp[n][i] = p * (acc_dp[n][i] - s_stat[ROWS + c]);  // dS^T
-      }
-    mma_pv<E, NC<E>>(acc_dv, acc_s, s_do + c0);
-    mma_pv<E, NC<E>>(acc_dk, acc_dp, s_q + c0);
-    __syncthreads();
-  }
-  store_rows<E, NC<E>>(a.dk + c0, a.io, img, head, acc_dk, r0, own, a.scale, a.scale);
-  store_rows<E, NC<E>>(a.dv + c0, a.io, img, head, acc_dv, r0, own, 1.f, 1.f);
-}
-
 template <int E>
 constexpr size_t FWD_SMEM = 5 * TILE<E> * sizeof(float);
-template <int E>
-constexpr size_t BWD_SMEM = (6 * TILE<E> + 2 * ROWS) * sizeof(float);
 
-// The dense kernels (K13 and K3 in f32, K14 and K9 in f32): a block owns
+// The dense forward (K13 and K3 in f32): a block owns
 // rows [64 blockIdx.x, 64 blockIdx.x + 64) of the sequence (wg::Seq) and
 // every 64-row tile streams past them.
 template <int E>
@@ -530,18 +355,9 @@ __global__ void __launch_bounds__(BLOCK<E>) tf32_fwd_kernel(const Args a, int s)
   fwd_body<E>(a, wg::Seq(blockIdx.x, s));
 }
 
-template <int E>
-__global__ void __launch_bounds__(BLOCK<E>) tf32_dq_kernel(const Args a, int s) {
-  dq_body<E>(a, wg::Seq(blockIdx.x, s));
-}
-
-template <int E>
-__global__ void __launch_bounds__(BLOCK<E>) tf32_dkv_kernel(const Args a, int s) {
-  dkv_body<E>(a, wg::Seq(blockIdx.x, s));
-}
-
 // A dense launch's strides: q, k and v through `in` (head h at column h *
-// E), out, dout, dq, dk and dv (b, s, heads, E) contiguous.
+// E), out, dout, dq, dk and dv (b, s, heads, E) contiguous (the backward's
+// launch takes them too).
 template <int E>
 Args dense(Args a, Rows in, int s) {
   const long ld = static_cast<long>(a.n_heads) * E;
@@ -557,21 +373,6 @@ int launch_fwd(const Args& args, Rows in, int b, int s, cudaStream_t st) {
   const dim3 grid((s + ROWS - 1) / ROWS, a.n_heads, b);
   const cudaError_t attr = allow_smem(tf32_fwd_kernel<E>, FWD_SMEM<E>);
   tf32_fwd_kernel<E><<<grid, BLOCK<E>, FWD_SMEM<E>, st>>>(a, s);
-  return launch_status(attr);
-}
-
-// The dq kernel (which writes delta), then the dk/dv kernel on the same
-// stream.
-template <int E>
-int launch_bwd(const Args& args, Rows in, int b, int s, cudaStream_t st) {
-  const Args a = dense<E>(args, in, s);
-  const dim3 grid((s + ROWS - 1) / ROWS, a.n_heads, b);
-  cudaError_t attr = allow_smem(tf32_dq_kernel<E>, BWD_SMEM<E>);
-  tf32_dq_kernel<E><<<grid, BLOCK<E>, BWD_SMEM<E>, st>>>(a, s);
-  const int status = launch_status(attr);
-  if (status != 0) return status;
-  attr = allow_smem(tf32_dkv_kernel<E>, BWD_SMEM<E>);
-  tf32_dkv_kernel<E><<<grid, BLOCK<E>, BWD_SMEM<E>, st>>>(a, s);
   return launch_status(attr);
 }
 

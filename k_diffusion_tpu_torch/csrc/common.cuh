@@ -6,9 +6,10 @@
 // returns the CUDA error code of the launch (0 on success).
 //
 // The attention and GEMM kernels are built from wgmma.cuh's warpgroup
-// products (the float32 forms from mma.sync TF32 fragments); the mapping
-// network's kernel (geglu.cu) takes nvcuda::wmma 16x16x16 bf16 fragments
-// with float32 accumulation over strips of 16 rows. A fragment's pointer
+// products (the float32 forwards from mma.sync TF32 fragments, the float32
+// backwards from TF32 wgmma); the mapping network's kernel (geglu.cu)
+// takes nvcuda::wmma 16x16x16 bf16 fragments with float32 accumulation
+// over strips of 16 rows. A fragment's pointer
 // must be 32-byte aligned and its leading dimension a multiple of 8
 // elements (bf16) or 4 (float).
 #pragma once

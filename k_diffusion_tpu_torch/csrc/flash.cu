@@ -25,12 +25,14 @@
 // The head dim E is a template parameter, 64 or 32 (the HDiT of
 // configs/config_test_tiny.json).
 //
-// The float32 forms of both (--mixed-precision no) are attn_tf32.cuh's
-// mma.sync kernels: the same contract on f32 operands, products on the
-// TF32 tensor cores.
+// The float32 forms of both (--mixed-precision no): the forward is
+// attn_tf32.cuh's mma.sync kernel, the backward attn_tf32_bwd.cuh's TF32
+// wgmma kernels; the same contract on f32 operands, products on the TF32
+// tensor cores.
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
 #include "attn_tf32.cuh"
+#include "attn_tf32_bwd.cuh"
 
 using namespace kdt;
 

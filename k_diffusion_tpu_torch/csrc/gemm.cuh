@@ -249,18 +249,14 @@ __device__ __forceinline__ void tma_step(int s, int steps, uint64_t (&full)[S], 
   }
 }
 
-// The tensor map of a row-major (rows, cols) matrix of `type` whose rows
-// lie row_bytes apart, for (box_rows, box_cols) tiles in the 128-byte
-// swizzle (box_cols elements are at most 128 bytes), encoded by
 // cuTensorMapEncodeTiled, which is looked up at run time: the libraries
-// link the CUDA runtime only. A box past the matrix's edge reads zeros.
-inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                              long rows, long cols, long row_bytes, int box_cols, int box_rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+// link the CUDA runtime only.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline cudaError_t encode_tiled(EncodeTiled* out) {
+  static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -268,8 +264,21 @@ inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const 
         cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// The tensor map of a row-major (rows, cols) matrix of `type` whose rows
+// lie row_bytes apart, for (box_rows, box_cols) tiles in the 128-byte
+// swizzle (box_cols elements are at most 128 bytes). A box past the
+// matrix's edge reads zeros.
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              long rows, long cols, long row_bytes, int box_cols, int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};

@@ -111,6 +111,8 @@ struct NaQueries {
            static_cast<unsigned>(kx - q.wx) < static_cast<unsigned>(ks);
   }
   __device__ bool whole(int) const { return false; }
+  __device__ Pos own_box() const { return {y0, x0, true}; }
+  __device__ Pos stream_box(int j) const { return {hr0 + BANDS * j, hc0, true}; }
 };
 
 // The dk/dv kernel's block: 8 x 8 key tile `tile` and the tiles of the
@@ -148,6 +150,8 @@ struct NaKeys {
     return sy < ny && sx < nx && static_cast<unsigned>(k.ky - wy) < static_cast<unsigned>(ks) &&
            static_cast<unsigned>(k.kx - wx) < static_cast<unsigned>(ks);
   }
+  __device__ Pos own_box() const { return {ky0, kx0, true}; }
+  __device__ Pos stream_box(int j) const { return {qy0 + BANDS * j, qx0, true}; }
 };
 
 }  // namespace

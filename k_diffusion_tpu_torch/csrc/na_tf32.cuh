@@ -2,7 +2,8 @@
 // --mixed-precision no for the HDiT's neighborhood levels: the forward
 // with its logsumexp (K2 in f32 on channel-packed maps, na2d.cu; K11 in
 // f32 on per-head maps at head dims 32, 64 and 128, na2d_heads.cu) and the
-// two-kernel backward (K7 and K12 in f32). attn_tf32.cuh's bodies run over
+// two-kernel backward (K7 and K12 in f32). attn_tf32.cuh's forward body
+// (mma.sync) and attn_tf32_bwd.cuh's backward bodies (TF32 wgmma) run over
 // na2d.cuh's neighborhood geometry, as na_fwd.cuh and na_bwd.cuh run the
 // bf16 bodies. Each query attends to exactly ks x ks keys, its window start
 // clamp(i - (ks - 1) / 2, 0, n - ks) on each axis (NATTEN's contract),
@@ -23,39 +24,35 @@
 // 67 MB, 20 us: bound by memory. The backward reads q, k, v, out, dout and
 // the lse and writes dq, dk, dv: 8 f32 maps, bound by memory too.
 //
-// Design: a block is 4 warps (8 at E = 128, below), its 64 own rows an 8 x
+// Design: the forward's block is 4 warps (8 at E = 128), a backward
+// block one or two warpgroups (attn_tf32_bwd.cuh); its 64 own rows an 8 x
 // 8 tile of one head of one image; the grid is (tiles, heads, batch).
-// - na_tf32_fwd_kernel and na_tf32_dq_kernel: the own rows are a query
+// - na_tf32_fwd_kernel and na_tf32_wg_dq_kernel: the own rows are a query
 //   tile (NaQueries). The clamped union of its queries' windows, the halo,
 //   streams past as 64-row f32 tiles of K and V, 4 halo rows of 16 key
 //   slots each: 4 tiles at ks = 7, 2 at ks = 1.
-// - na_tf32_dkv_kernel: the own rows are a key tile (NaKeys). The queries
-//   whose clamped windows reach it form a slab of at most 14 x 14 (Reach);
-//   they stream past with their lse and delta, 4 slab rows of 16 query
-//   slots a tile.
+// - na_tf32_wg_dkv_kernel: the own rows are a key tile (NaKeys). The
+//   queries whose clamped windows reach it form a slab of at most 14 x 14
+//   (Reach); they stream past with their lse and delta, 4 slab rows of 16
+//   query slots a tile.
 // A pair attends where the key lies in the query's window, tested on the
-// logits' accumulator coordinates in registers before p becomes the P V
-// (or dS K, P^T dO, dS^T Q) A operand; slots past the halo, the slab or
-// the map are zero-filled by the copy and rejected by the geometry, not by
-// their values (their logit, lse and delta are 0). A row that has no key
-// in a tile keeps its running max at -inf and adds nothing (the forward's
+// logits' accumulator coordinates in registers before p becomes an
+// operand; slots past the halo, the slab or the map are zero-filled by the
+// forward's copies (the backward's TMA boxes zero-fill those past the map
+// and carry the data of the others) and rejected by the geometry, not by
+// their values (their lse and delta are 0). A row that has no key in a
+// tile keeps its running max at -inf and adds nothing (the forward's
 // guard). The dq kernel forms delta = rowsum(out * dout); no atomics, so a
 // rerun is bit-equal, and K2 / K11 (K7 / K12) on the same maps are bit for
 // bit the same kernel.
 //
-// At E = 64 the forward holds 5 padded f32 tiles (85 KB) and each backward
-// kernel 6 (102 KB): two blocks an SM, as the dense TF32 kernels. At E =
-// 128 (K11 and K12 at head dim 128) the forward's tiles take 165 KB
-// (168,960 bytes) and each backward kernel's 198.5 KB (203,264 bytes with
-// its lse and delta rows), under the 227 KB a block may take: one block an
-// SM, of two warpgroups (attn_tf32.cuh's WG<128>): a warp keeps its 16
-// rows' accumulators over 64 of the 128 output columns (64 registers for
-// the dk/dv kernel's dk and dv, 32 for the forward's O), and each
-// warpgroup forms its rows' logits and dP over all 128 columns itself.
-// wgmma's tf32 form reads K-major operands only, and the P V, dS K, P^T dO
-// and dS^T Q products read their B operand MN-major: mma.sync m16n8k8 reads
-// either from the padded tiles; at 132 floats a row (132 mod 32 = 4, as 68)
-// the fragment loads stay conflict-free.
+// At E = 64 the forward holds 5 padded f32 tiles (85 KB), two blocks an
+// SM; at E = 128 165 KB (168,960 bytes), one block an SM, of two
+// warpgroups (attn_tf32.cuh's WG<128>). The backward's blocks are one
+// warpgroup, two an SM, at E = 32 and 64 (97.5 KB for dq, 113 KB for dk/dv
+// at 64) and two warpgroups, one an SM, at E = 128 (209.5 KB and 225 KB):
+// attn_tf32_bwd.cuh's sizes. Its copies are TMA boxes: an own tile is 8 x
+// 8 positions, a streamed tile 4 halo (slab) rows of 16 slots.
 //
 // The kernels are written over MapStrides and the head dim E (32, 64 or
 // 128), q, k and v each read through its own strides: K2 and K7 run them at
@@ -63,10 +60,12 @@
 // at 32, 64 and 128 on per-head maps (in the unfused prologue v is a
 // strided third of the qkv projection, its row stride 3 c). Each head's row
 // of E floats is contiguous and its strides are multiples of 4 elements,
-// so every 16-byte cp.async stays aligned.
+// so every 16-byte cp.async stays aligned and every stride of a TMA box's
+// map is a multiple of 16 bytes.
 #pragma once
 
 #include "attn_tf32.cuh"
+#include "attn_tf32_bwd.cuh"
 #include "na2d.cuh"
 
 namespace kdt {
@@ -79,15 +78,17 @@ __global__ void __launch_bounds__(tf32::BLOCK<E>)
 }
 
 template <int E>
-__global__ void __launch_bounds__(tf32::BLOCK<E>)
-    na_tf32_dq_kernel(const tf32::Args a, int h, int w, int ks) {
-  tf32::dq_body<E>(a, NaQueries(blockIdx.x, h, w, ks));
+__global__ void __launch_bounds__(tf32::BWD_THREADS<E>, tf32::BWD_BLOCKS<E>)
+    na_tf32_wg_dq_kernel(const tf32::Args a, const __grid_constant__ tf32::Maps m, int h, int w,
+                         int ks) {
+  tf32::wg_dq_body<E>(a, m, NaQueries(blockIdx.x, h, w, ks));
 }
 
 template <int E>
-__global__ void __launch_bounds__(tf32::BLOCK<E>)
-    na_tf32_dkv_kernel(const tf32::Args a, int h, int w, int ks) {
-  tf32::dkv_body<E>(a, NaKeys(blockIdx.x, h, w, ks));
+__global__ void __launch_bounds__(tf32::BWD_THREADS<E>, tf32::BWD_BLOCKS<E>)
+    na_tf32_wg_dkv_kernel(const tf32::Args a, const __grid_constant__ tf32::Maps m, int h, int w,
+                          int ks) {
+  tf32::wg_dkv_body<E>(a, m, NaKeys(blockIdx.x, h, w, ks));
 }
 
 // Launches the forward on (b, h, w, heads, E) f32 maps read and written
@@ -109,15 +110,12 @@ int launch_fwd(const tf32::Args& a, int b, int h, int w, int ks, cudaStream_t st
 // the forward. Returns the CUDA error code.
 template <int E>
 int launch_bwd(const tf32::Args& a, int b, int h, int w, int ks, cudaStream_t st) {
-  constexpr size_t smem = tf32::BWD_SMEM<E>;
+  tf32::Maps dq, dkv;
+  const cudaError_t err = tf32::bwd_maps<E>(a, b, h, w, TQ, TQ, SLOTS, BANDS, dq, dkv);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((h / TQ) * (w / TQ), a.n_heads, b);
-  cudaError_t attr = allow_smem(na_tf32_dq_kernel<E>, smem);
-  na_tf32_dq_kernel<E><<<grid, tf32::BLOCK<E>, smem, st>>>(a, h, w, ks);
-  const int status = launch_status(attr);
-  if (status != 0) return status;
-  attr = allow_smem(na_tf32_dkv_kernel<E>, smem);
-  na_tf32_dkv_kernel<E><<<grid, tf32::BLOCK<E>, smem, st>>>(a, h, w, ks);
-  return launch_status(attr);
+  return tf32::launch_pair<E>(na_tf32_wg_dq_kernel<E>, na_tf32_wg_dkv_kernel<E>, grid, a, dq, dkv,
+                              st, h, w, ks);
 }
 
 }  // namespace na_tf32

@@ -141,7 +141,12 @@ struct Pos {
 // - own_info(r) and mask(j, col, info): whether own row r and column col of
 //   streamed tile j attend, from a per-row summary kept in registers;
 // - whole(j): whether every column of tile j attends for every own row, so
-//   that the forward need not test the mask.
+//   that the forward need not test the mask;
+// - own_box() and stream_box(j): the map position of row 0 of the own rows
+//   and of streamed tile j, the origin of the box by which the Tensor
+//   Memory Accelerator copies the tile (the float32 backward,
+//   attn_tf32_bwd.cuh): a sequence's 64 rows, a neighborhood tile's 8 x 8
+//   positions or a halo (slab) band's 4 rows of 16 slots.
 struct Seq {
   int r0, s, tiles, positions;
   __device__ Seq(int tile, int s_)
@@ -153,6 +158,8 @@ struct Seq {
   __device__ Info own_info(int) const { return {}; }
   __device__ bool mask(int j, int col, Info) const { return j * ROWS + col < s; }
   __device__ bool whole(int j) const { return (j + 1) * ROWS <= s; }
+  __device__ Pos own_box() const { return {r0, 0, true}; }
+  __device__ Pos stream_box(int j) const { return {j * ROWS, 0, true}; }
 };
 
 // Starts the copy of a (64, E) tile whose row r is the E-wide row of head

@@ -174,6 +174,8 @@ def test_flash_dispatches_by_dtype(fake_library, dtype, fwd, bwd):
     assert a_bwd[10:16] == [2, 5, 2, 32, *strides]
     assert a_fwd[11] == a_bwd[16] == 0.25
     assert a_fwd[:3] == [t.data_ptr() for t in (q, k, v)]
+    # the float32 backward's TMA boxes and stores start on 16-byte bases
+    assert all(p % 16 == 0 for p in a_bwd[:10])
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert all(g.dtype == dtype and g.is_contiguous() for g in grads)
     f32 = dtype == torch.float32

@@ -331,6 +331,8 @@ def test_na_wrappers_dispatch_by_dtype(fake_library, layout, e, dtype):
     assert a_bwd[5] == lse.data_ptr()
     # delta: a pointer of its own, past out's and lse's, beside dq, dk, dv
     assert len(set(a_bwd[:10])) == 10 and None not in a_bwd[:10]
+    # the float32 backward's TMA boxes and stores start on 16-byte bases
+    assert all(p % 16 == 0 for p in a_bwd[:10])
     if layout == "packed":
         assert a_fwd[5:11] == a_bwd[10:16] == [2, 16, 8, 2, 7, 0.5]
     else:

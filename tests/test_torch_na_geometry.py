@@ -20,17 +20,26 @@ past as 64-row tiles of 4 slab rows x 16 query slots. ``NaKeys`` and
 ``Reach`` below mirror it; the two-kernel streamed backward (dq over query
 tiles, dk and dv over key tiles, delta = rowsum(out * dout)), run over both
 geometries in numpy float32, is held against ``jax.vjp`` of the JAX
-package's ``na2d_reference``.
+package's ``na2d_reference``. The same two kernels over the dense geometry
+(csrc/wgmma.cuh's Seq: K14 and K9 in float32 at the U-Net's lengths) are
+held against ``jax.vjp`` of the JAX package's ``flash_attention``. The
+float32 backward (csrc/attn_tf32_bwd.cuh) copies its tiles in TMA boxes,
+which zero-fill what lies past the map but carry the data of the halo's
+or slab's slots inside it: the mirrors copy as it does, and the
+geometry's mask keeps those slots out.
 
 Both mirrors also run with each product's operands rounded as a kernel
-rounds them: to TF32 by ``cvt.rna`` (csrc/attn_tf32.cuh, the float32 forms
-of K2, K7, K11 and K12 in csrc/na_tf32.cuh; mirrored on the float32 bits:
-10 mantissa bits, ties away from zero) and to bfloat16 (the bf16 kernels,
-round to nearest even; out and dout in bf16, as those kernels read them),
-the softmax, lse and delta in float32. The TF32
+rounds them: to TF32 by ``cvt.rna`` (csrc/attn_tf32.cuh's forward and
+csrc/attn_tf32_bwd.cuh's backward, the float32 forms of K2, K7, K11 and
+K12 in csrc/na_tf32.cuh and of K13, K14, K3 and K9; mirrored on the
+float32 bits: 10 mantissa bits, ties away from zero) and to bfloat16 (the
+bf16 kernels, round to nearest even; out and dout in bf16, as those
+kernels read them), the softmax, lse and delta in float32. The TF32
 mirror stays within 5e-3 x max|ref| of JAX, and its error against the
 unrounded mirror in float64 (relative L2) is at most 1/4 of the bf16
 mirror's, output by output: TF32 keeps 3 mantissa bits more than bf16.
+The same mirror with truncated operands (a .tf32 operand landed
+unrounded) is measured beside it and recorded, not held to that bound.
 
 K15 (csrc/na_proj.cuh) runs the forward over ``NaQueries`` in a thread
 block cluster per query tile, one rank per 64 channels, then sums the
@@ -47,6 +56,7 @@ import pytest
 
 j_attn = importlib.import_module("k_diffusion_tpu.ops.attention")
 j_na = importlib.import_module("k_diffusion_tpu.ops.pallas.na2d")
+j_flash = importlib.import_module("k_diffusion_tpu.ops.pallas.flash")
 
 TQ = 8               # query tile edge (na2d.cuh)
 SLOTS = 16           # key slots of a halo row
@@ -66,12 +76,15 @@ def rounded(x, rounding):
     """x with each element rounded as a kernel rounds a product's operand:
     "tf32" as cvt.rna.tf32.f32 (the float32 bits plus half of the 13
     dropped bits' place, then truncated: nearest, ties away from zero),
+    "truncate" as a .tf32 operand landed unrounded (the 13 bits ignored),
     "bf16" to nearest even bfloat16, "none" unchanged; in x's dtype."""
     if rounding == "none":
         return x
     bits = np.asarray(x, np.float32).view(np.uint32)
     if rounding == "tf32":
         bits = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    elif rounding == "truncate":
+        bits = bits & np.uint32(0xFFFFE000)
     else:
         bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) \
             & np.uint32(0xFFFF0000)
@@ -367,87 +380,135 @@ class NaKeys:
         return (sy < self.ny) & (sx < self.nx) & inside
 
 
-def slab_rows(t, pos, ok, zero_fill):
-    """Rows pos of (b, positions, ...) t as a streamed tile: slots that are
-    not ok zero-filled (the kernels' copies), or with ``zero_fill`` False
-    the data of the position clamped into the map."""
+def slab_rows(t, pos, ok, copy):
+    """Rows pos of (b, positions, ...) t as a streamed tile, the slots that
+    are not ok as a kernel's copy leaves them: zero-filled ("zero", the
+    forwards' and the bf16 kernels' cp.async), the data of the position
+    clamped into the map ("clamp", a copy that clamps its addresses), or,
+    for "box", the positions' own data, ``ok`` there saying which lie in
+    the map (the float32 backward's TMA boxes zero-fill only what lies past
+    the map)."""
     rows = t[:, pos]
-    if zero_fill:
+    if copy in ("zero", "box"):
         rows = rows * ok.reshape((1, -1) + (1,) * (t.ndim - 2))
     return rows
 
 
+def two_kernel_backward(qf, kf, vf, of, gf, lse_p, scale, q_blocks, k_blocks,
+                        rounding, dtype):
+    """The backward's two kernels in numpy ``dtype`` over blocks of 64 own
+    rows: qf, kf, vf, of, gf (b, positions, heads, e) and lse_p (b,
+    positions, heads) in dtype. Each dq block is (rows, tiles): its own
+    queries' positions and, per streamed key tile, (kt, vt, attends): the
+    tile's K and V rows as the copy leaves them and attends (64 own, 64
+    slots). Per tile s = q k^T scale, p = exp(s - lse) where the pair
+    attends, ds = p (dout v^T - delta), dq += ds k, dq scaled once; delta
+    = rowsum(out * dout) in f32 from the staged out and dout. Each dk/dv
+    block is (rows, tiles) with (qt, gt, lt, dt, attends) a tile: its
+    queries' Q and dO rows, their lse and delta (0 for slots that hold no
+    row); p^T and ds^T as above, dv += p^T dout, dk += ds^T q; dk scaled
+    once. Every product's operands rounded by ``rounding`` (``rounded``):
+    p and ds in f32, rounded where they become an operand. Each output
+    element is summed over the tiles in order (the float32 kernels: one
+    thread an element, no partials, the e = 128 dk/dv block's two
+    warpgroups each owning one of dK and dV). Returns dq, dk, dv."""
+    rnd = lambda x: rounded(x, rounding)
+    b, _, heads, e = qf.shape
+    delta = np.einsum("bpne,bpne->bpn", of, gf)
+    scale = dtype(scale)
+    dq, dk, dv = (np.zeros(qf.shape, dtype) for _ in range(3))
+    for rows, tiles in q_blocks:
+        acc = np.zeros((b, heads, len(rows), e), dtype)
+        lse_r = lse_p[:, rows].transpose(0, 2, 1)[..., None]
+        delta_r = delta[:, rows].transpose(0, 2, 1)[..., None]
+        for kt, vt, attends in tiles:
+            s = np.einsum("bqne,bkne->bnqk", rnd(qf[:, rows]), rnd(kt)) * scale
+            p = np.where(attends[None, None], np.exp(s - lse_r), dtype(0))
+            dp = np.einsum("bqne,bkne->bnqk", rnd(gf[:, rows]), rnd(vt))
+            ds = p * (dp - delta_r)
+            acc += np.einsum("bnqk,bkne->bnqe", rnd(ds), rnd(kt))
+        dq[:, rows] = (acc * scale).transpose(0, 2, 1, 3)
+    for rows, tiles in k_blocks:
+        acc_k, acc_v = (np.zeros((b, heads, len(rows), e), dtype)
+                        for _ in range(2))
+        for qt, gt, lt, dt, attends in tiles:
+            st = np.einsum("bkne,bqne->bnkq", rnd(kf[:, rows]),
+                           rnd(qt)) * scale
+            pt = np.where(attends[None, None], np.exp(st - lt[:, :, None]),
+                          dtype(0))
+            dpt = np.einsum("bkne,bqne->bnkq", rnd(vf[:, rows]),
+                            rnd(gt)) - dt[:, :, None]
+            acc_v += np.einsum("bnkq,bqne->bnke", rnd(pt), rnd(gt))
+            acc_k += np.einsum("bnkq,bqne->bnke", rnd(pt * dpt), rnd(qt))
+        dk[:, rows] = (acc_k * scale).transpose(0, 2, 1, 3)
+        dv[:, rows] = acc_v.transpose(0, 2, 1, 3)
+    return dq, dk, dv
+
+
 def streamed_backward(q, k, v, out, lse, dout, ks, scale, reject=True,
-                      zero_fill=True, rounding="none", dtype=np.float32):
-    """The backward's two kernels (csrc/attn_bwd.cuh, csrc/attn_tf32.cuh
+                      copy="box", rounding="none", dtype=np.float32):
+    """The backward's two kernels (csrc/attn_bwd.cuh, csrc/attn_tf32_bwd.cuh
     over csrc/na2d.cuh's geometries) in numpy ``dtype`` (float32, as the
     kernels accumulate), each product's operands rounded by ``rounding``
-    (``rounded``); with bf16 operands out and dout are bf16 for delta too,
-    as the bf16 kernels read them. dq kernel, per query tile (NaQueries):
-    per streamed key tile, s = q k^T scale, p = exp(s - lse) where the pair
-    attends, ds = p (dout v^T - delta), dq += ds k; dq scaled once. Its
-    first step forms delta = rowsum(out * dout). dk/dv kernel, per key tile
-    (NaKeys): per streamed query tile, with the queries' lse and delta,
-    p^T and ds^T as above, dv += p^T dout, dk += ds^T q; dk scaled once.
-    q, k, v, out, dout (b, h, w, heads, e); lse (b, heads, h, w). Returns
-    dq, dk, dv (b, h, w, heads, e)."""
+    (``rounded``), the streamed slots that hold no row as ``copy`` leaves
+    them (``slab_rows``; "box", the float32 kernels' TMA boxes, by
+    default); with bf16 operands out and dout are bf16 for delta too, as
+    the bf16 kernels read them. dq kernel per query tile (NaQueries) over
+    its halo's key tiles, dk/dv kernel per key tile (NaKeys) over its
+    slab's query tiles (``two_kernel_backward``). q, k, v, out, dout (b, h,
+    w, heads, e); lse (b, heads, h, w). Returns dq, dk, dv (b, h, w, heads,
+    e)."""
     b, h, w, heads, e = q.shape
     hw = h * w
-    rnd = lambda x: rounded(x, rounding)
     qf, kf, vf, of, gf = (np.asarray(t, dtype).reshape(b, hw, heads, e)
                           for t in (q, k, v, out, dout))
     # statistics as (b, positions, heads)
     lse_p = np.asarray(lse, dtype).reshape(b, heads, hw).transpose(0, 2, 1)
     if rounding == "bf16":
-        of, gf = rnd(of), rnd(gf)
+        of, gf = rounded(of, rounding), rounded(gf, rounding)
     delta = np.einsum("bpne,bpne->bpn", of, gf)
-    scale = dtype(scale)
-    dq, dk, dv = (np.zeros((b, hw, heads, e), dtype) for _ in range(3))
     n_tiles = h // TQ * (w // TQ)
+    i = np.arange(64)
+
+    def slot_rows(y, x, ok):
+        # flat positions of the slots (clamped into the map) and which
+        # hold data as the copy leaves them
+        slot = np.clip(y, 0, h - 1) * w + np.clip(x, 0, w - 1)
+        held = ((y >= 0) & (y < h) & (x >= 0) & (x < w)) if copy == "box" \
+            else ok
+        return slot, held
+
+    q_blocks = []
     for tile in range(n_tiles):
         geo = NaQueries(tile, h, w, ks)
-        pos, ok, attends = block_layout(geo)
-        qy, qx = geo.own(np.arange(64))
-        rows = qy * w + qx
-        acc = np.zeros((b, heads, 64, e), dtype)
+        _, _, attends = block_layout(geo)
+        qy, qx = geo.own(i)
+        tiles = []
         for j in range(geo.tiles):
-            keys = np.where(ok[0, j], pos[0, j], 0)
-            kt = slab_rows(kf, keys, ok[0, j], True)
-            vt = slab_rows(vf, keys, ok[0, j], True)
-            s = np.einsum("bqne,bkne->bnqk", rnd(qf[:, rows]), rnd(kt)) * scale
-            lse_r = lse_p[:, rows].transpose(0, 2, 1)[..., None]
-            p = np.where(attends[:, j][None, None], np.exp(s - lse_r),
-                         dtype(0))
-            dp = np.einsum("bqne,bkne->bnqk", rnd(gf[:, rows]), rnd(vt))
-            ds = p * (dp - delta[:, rows].transpose(0, 2, 1)[..., None])
-            acc += np.einsum("bnqk,bkne->bnqe", rnd(ds), rnd(kt))
-        dq[:, rows] = (acc * scale).transpose(0, 2, 1, 3)
-    i = np.arange(64)
+            y, x, ok = geo.stream(j, i)
+            slot, held = slot_rows(y, x, ok)
+            tiles.append((slab_rows(kf, slot, held, copy),
+                          slab_rows(vf, slot, held, copy), attends[:, j]))
+        q_blocks.append((qy * w + qx, tiles))
+    k_blocks = []
     for tile in range(n_tiles):
         geo = NaKeys(tile, h, w, ks, reject)
         ky, kx = geo.own(i)
-        own = ky * w + kx
-        acc_k, acc_v = (np.zeros((b, heads, 64, e), dtype)
-                        for _ in range(2))
+        tiles = []
         for j in range(geo.tiles):
             y, x, ok = geo.stream(j, i)
-            slot = np.clip(y, 0, h - 1) * w + np.clip(x, 0, w - 1)
-            qt = slab_rows(qf, slot, ok, zero_fill)
-            gt = slab_rows(gf, slot, ok, zero_fill)
-            lt = slab_rows(lse_p, slot, ok, zero_fill).transpose(0, 2, 1)
-            dt = slab_rows(delta, slot, ok, zero_fill).transpose(0, 2, 1)
-            attends = geo.mask(j, i[None, :], geo.own_info(i[:, None]))
-            st = np.einsum("bkne,bqne->bnkq", rnd(kf[:, own]), rnd(qt)) * scale
-            pt = np.where(attends[None, None], np.exp(st - lt[:, :, None]),
-                          dtype(0))
-            dpt = np.einsum("bkne,bqne->bnkq", rnd(vf[:, own]),
-                            rnd(gt)) - dt[:, :, None]
-            acc_v += np.einsum("bnkq,bqne->bnke", rnd(pt), rnd(gt))
-            acc_k += np.einsum("bnkq,bqne->bnke", rnd(pt * dpt), rnd(qt))
-        dk[:, own] = (acc_k * scale).transpose(0, 2, 1, 3)
-        dv[:, own] = acc_v.transpose(0, 2, 1, 3)
+            slot, held = slot_rows(y, x, ok)
+            stat = lambda t: (t[:, slot]
+                              * ok[None, :, None]).transpose(0, 2, 1)
+            tiles.append((slab_rows(qf, slot, held, copy),
+                          slab_rows(gf, slot, held, copy), stat(lse_p),
+                          stat(delta),
+                          geo.mask(j, i[None, :], geo.own_info(i[:, None]))))
+        k_blocks.append((ky * w + kx, tiles))
+    grads = two_kernel_backward(qf, kf, vf, of, gf, lse_p, scale, q_blocks,
+                                k_blocks, rounding, dtype)
     shape = (b, h, w, heads, e)
-    return dq.reshape(shape), dk.reshape(shape), dv.reshape(shape)
+    return tuple(t.reshape(shape) for t in grads)
 
 
 @pytest.mark.parametrize("h,w", [(8, 8), (16, 24), (64, 64)])
@@ -530,10 +591,12 @@ def test_streamed_backward_matches_jax_vjp(h, w, ks, e, rounding):
 def test_slab_edge_rejection_guards_dk_dv():
     """Without its slab-edge rejection, NaKeys' mask lets slots past the
     map attend at the edge tiles: their clamped windows hold the tile's
-    keys, and their logit and lse are those of the slot's data. With the
-    copies' zero fill those slots hold q = dout = 0, so p = 1 there adds
-    nothing to dk and dv; where a slot carries data (the clamped position's,
-    as a copy that clamps its addresses instead of zero-filling would), the
+    keys, and their logit and lse are those of the slot's data. Where the
+    copy zero-fills those slots (the cp.async copies' zero fill of every
+    slot that holds no row, or the float32 backward's TMA boxes, which
+    zero-fill what lies past the map) they hold q = dout = 0, so p = 1
+    there adds nothing to dk and dv; where a slot carries data (the clamped
+    position's, as a copy that clamps its addresses instead would), the
     rejection is what keeps dk and dv right."""
     h, w, ks, e = 16, 24, 7, 32
     q, k, v, dout = backward_case(h, w, ks, e, 5)
@@ -549,16 +612,138 @@ def test_slab_edge_rejection_guards_dk_dv():
                          & ~kept.mask(j, i[None, :], info)).sum()
     assert spurious > 0
 
-    def error(reject, zero_fill):
+    def error(reject, copy):
         got = streamed_backward(q, k, v, out, lse, dout, ks, 0.25, reject,
-                                zero_fill)
+                                copy)
         return [np.abs(a - b_).max() / np.abs(b_).max()
                 for a, b_ in zip(got, want)]
 
-    for reject, zero_fill in ((True, True), (False, True), (True, False)):
-        assert max(error(reject, zero_fill)) <= F32_TOL
-    err_dq, err_dk, err_dv = error(False, False)
+    for reject, copy in ((True, "box"), (True, "zero"), (True, "clamp"),
+                         (False, "box"), (False, "zero")):
+        assert max(error(reject, copy)) <= F32_TOL, (reject, copy)
+    err_dq, err_dk, err_dv = error(False, "clamp")
     assert err_dq <= F32_TOL and err_dk > 1e-2 and err_dv > 1e-2
+
+
+# ---- K14 and K9: the dense geometry of csrc/wgmma.cuh's Seq ---------------
+
+def dense_backward(q, k, v, out, lse, dout, scale, rounding="none",
+                   dtype=np.float32):
+    """The float32 backward's two kernels over wg::Seq (K14-f32 on (b, s,
+    heads, e) maps, K9-f32 on the same rows packed): a block owns 64 rows
+    of the sequence (rows past s zero, never stored) and every 64-row tile
+    streams past it, its rows past s zero-filled by the box and rejected
+    by the mask (j 64 + col < s). ``two_kernel_backward`` with
+    ``rounding``; lse (b, heads, s). Returns dq, dk, dv (b, s, heads, e)."""
+    b, s, heads, e = q.shape
+    n = -(-s // 64)
+    pad = n * 64
+    qf, kf, vf, of, gf = (np.concatenate([np.asarray(t, dtype), np.zeros(
+        (b, pad - s, heads, e), dtype)], 1) for t in (q, k, v, out, dout))
+    lse_p = np.concatenate([np.asarray(lse, dtype).transpose(0, 2, 1),
+                            np.zeros((b, pad - s, heads), dtype)], 1)
+    if rounding == "bf16":
+        of, gf = rounded(of, rounding), rounded(gf, rounding)
+    delta = np.einsum("bpne,bpne->bpn", of, gf)
+    i = np.arange(64)
+    attends = [np.broadcast_to(64 * j + i < s, (64, 64)) for j in range(n)]
+    q_blocks = [(64 * t + i, [(kf[:, 64 * j + i], vf[:, 64 * j + i],
+                               attends[j]) for j in range(n)])
+                for t in range(n)]
+    k_blocks = [(64 * t + i, [(qf[:, 64 * j + i], gf[:, 64 * j + i],
+                               lse_p[:, 64 * j + i].transpose(0, 2, 1),
+                               delta[:, 64 * j + i].transpose(0, 2, 1),
+                               attends[j].T) for j in range(n)])
+                for t in range(n)]
+    grads = two_kernel_backward(qf, kf, vf, of, gf, lse_p, scale, q_blocks,
+                                k_blocks, rounding, dtype)
+    return tuple(t[:, :s] for t in grads)
+
+
+def dense_case(s, e, seed):
+    """q, k, v strided thirds of one (b, s, 3, heads, e) projection, as the
+    U-Net makes them (logits of about unit spread at scale 1 / 8), dout,
+    and the forward's out and lse (float64, rounded to float32)."""
+    rng = np.random.default_rng(seed)
+    b, heads = 2, 2
+    proj = (rng.standard_normal((b, s, 3, heads, e))
+            * np.sqrt(64 / e)).astype(np.float32)
+    q, k, v = proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
+    dout = rng.standard_normal((b, s, heads, e)).astype(np.float32)
+    logits = np.einsum("bqne,bkne->bnqk", q.astype(np.float64),
+                       k.astype(np.float64)) * 0.125
+    lse = np.log(np.exp(logits - logits.max(-1, keepdims=True)).sum(-1)) \
+        + logits.max(-1)
+    out = np.einsum("bnqk,bkne->bqne", np.exp(logits - lse[..., None]),
+                    v.astype(np.float64))
+    return q, k, v, dout, out.astype(np.float32), lse.astype(np.float32)
+
+
+def jax_dense_backward(q, k, v, dout):
+    """jax.vjp of the JAX package's flash_attention (on the CPU its XLA
+    path) at scale 1 / 8."""
+    _, vjp = jax.vjp(lambda *t: j_flash.flash_attention(*t, scale=0.125),
+                     *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(t) for t in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("e", [32, 64])
+@pytest.mark.parametrize("s", [49, 64, 256])
+def test_dense_backward_matches_jax_vjp(s, e, rounding):
+    """K14-f32's arithmetic (``dense_backward``) against jax.vjp of the
+    JAX package's flash_attention at the U-Net's lengths (7 x 7, 8 x 8, 16
+    x 16): unrounded within F32_TOL; with TF32 operands within TF32_TOL,
+    its error against the unrounded mirror in float64 at most TF32_SHARE of
+    the bf16 mirror's (relative L2), dq, dk and dv each; with bf16 operands
+    within BF16_TOL."""
+    q, k, v, dout, out, lse = dense_case(s, e, s + e)
+    got = dense_backward(q, k, v, out, lse, dout, 0.125, rounding)
+    want = jax_dense_backward(q, k, v, dout)
+    tol = {"none": F32_TOL, "tf32": TF32_TOL, "bf16": BF16_TOL}[rounding]
+    for name, err in zip(("dq", "dk", "dv"), rel_errors(got, want)):
+        assert err <= tol, (name, err)
+    if rounding == "tf32":
+        exact = dense_backward(q, k, v, out, lse, dout, 0.125,
+                               dtype=np.float64)
+        bf16 = dense_backward(q, k, v, out, lse, dout, 0.125, "bf16")
+        for name, a, c in zip(("dq", "dk", "dv"), l2_errors(got, exact),
+                              l2_errors(bf16, exact)):
+            assert a <= TF32_SHARE * c, (name, a, c)
+
+
+@pytest.mark.parametrize("geometry", ["dense", "neighborhood"])
+def test_backward_rounding_against_float64(geometry, record_property):
+    """The float32 backward's mirror with every product operand rounded to
+    TF32 as the kernels round it (cvt.rna), in float32, against the
+    unrounded mirror in float64: each of dq, dk and dv has at most
+    TF32_SHARE of the error of the same mirror with its operands rounded to
+    bf16 (relative L2), output by output (phases 25 (b) and 28 (a)'s check
+    on the card). The mirror with truncated operands (what the copy engine
+    lands, unrounded) is measured beside them and recorded, not held to
+    the bound. K14-f32 at 2 x 256 x 2 x 64; K12-f32 at 1 x 16 x 24 x 2 x
+    64, ks 7."""
+    if geometry == "dense":
+        q, k, v, dout, out, lse = dense_case(256, 64, 3)
+        run = lambda rounding, dtype=np.float32: dense_backward(
+            q, k, v, out, lse, dout, 0.125, rounding, dtype)
+    else:
+        q, k, v, dout = backward_case(16, 24, 7, 64, 4)
+        out, lse = streamed_forward(q, k, v, 7, 0.125)
+        run = lambda rounding, dtype=np.float32: streamed_backward(
+            q, k, v, out, lse, dout, 7, 0.125, rounding=rounding,
+            dtype=dtype)
+    exact = run("none", np.float64)
+    errs = {r: l2_errors(run(r), exact) for r in ("tf32", "bf16", "truncate")}
+    shares = [round(float(a / c), 4) for a, c in zip(errs["tf32"],
+                                                     errs["bf16"])]
+    truncated = [round(float(a / c), 4) for a, c in zip(errs["truncate"],
+                                                        errs["bf16"])]
+    record_property("tf32_over_bf16", shares)
+    record_property("truncated_over_bf16", truncated)
+    print(f"{geometry}: against float64 by output (dq, dk, dv), tf32 / bf16 "
+          f"{shares}, truncated / bf16 {truncated}")
+    assert max(shares) <= TF32_SHARE, shares
 
 
 # ---- K15: the cluster schedule of csrc/na_proj.cuh ------------------------
