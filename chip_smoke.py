@@ -206,18 +206,19 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    point in-process.
 26. float32 compute on the card for the ViT and the HDiT without
    neighborhood-attention levels (``transformers_float32_phase``): (a) the
-   float32 forms of K1, K4, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu;
-   the forwards on the TF32 mma.sync core csrc/gemm_tf32.cuh, the
-   backwards on the TF32 wgmma core csrc/gemm_tf32_wg.cuh), K5 and K3/K9
-   (csrc/attn_tf32.cuh)
+   float32 forms of K1, K4, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu,
+   all on the TF32 wgmma core csrc/gemm_tf32_wg.cuh; K4 in one launch at
+   d <= 512), K5 (csrc/gemm_tf32.cuh) and K3/K9 (csrc/attn_tf32.cuh)
    against their plain versions in float32 with TF32 off, within 5e-3 x
    max|plain|, at the shifted-window config's shapes (K1, K4 at batch 8 a
    call, K6, K10 at batch-8 step shapes, K3, K9 at 8 x 256 x 512), K5 at
-   the HDiT's 8 x 256 and the ViT's 64 x 768, f 2048, and K1, K4, K6, K10
-   at config_test_tiny's d 64 (head dim 32); (c) their times beside the
-   plain version's, the TF32 bound's and, for K3/K9, SDPA's on the float32
-   inputs, for K6/K10 their products alone as torch.matmul with TF32 on
-   (``products_ms``), their reruns bit-equal and their time split by
+   the HDiT's 8 x 256 and the ViT's 64 x 768, f 2048, K1, K4, K6, K10 at
+   config_test_tiny's d 64 (head dim 32), and K1, K4 at a ragged 49-token
+   image at d 256; (c) their times beside the plain version's, the TF32
+   bound's and, for K3/K9, SDPA's on the float32 inputs, for K1, K4, K6,
+   K10 their products alone as torch.matmul with TF32 on
+   (``products_ms``), K1's and K4's beside their mma.sync forms' times
+   at each level, their reruns bit-equal and their time split by
    kernel; (b) on the same inputs each float32 kernel's error against
    float64 at most 1/4 of its bf16 form's, output by output; (d) the
    shifted-window config and the ViT at DiT-B/2 (a call and a step at
@@ -623,14 +624,19 @@ def mapping_one_launch(dev, mw=256, d_ff=768, batch=SAMPLE_BATCH):
     ones = torch.ones(mw, device=dev)
     fused_mapping.fused_mapping(emb, ones, ones, blocks)
     torch.cuda.synchronize()
-    before = fused_mapping.launches
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fused_mapping.fused_mapping(emb, ones, ones, blocks)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a short profile now and then records no device activity: take the
+    # first of up to three that does
+    for _ in range(3):
+        before = fused_mapping.launches
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fused_mapping.fused_mapping(emb, ones, ones, blocks)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     if (len(names) != 3 or any("mapping_kernel" not in n for n in names)
             or fused_mapping.launches != before + 3):
         raise AssertionError(f"fused_mapping: three calls ran {names}")
@@ -1115,7 +1121,8 @@ def run_cases(cases, results, kernel_reps, plain_reps):
             "op_ms": 0.0, "byte_ms": 0.0, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r.setdefault("shapes", {})[c.label] = {"ms": ms, "library_ms": lib_ms,
-                                               "bound_ms": bound}
+                                               "bound_ms": bound,
+                                               "products_ms": prod_ms}
         r["ms"] += c.calls * ms
         r["plain_ms"] += c.calls * plain_ms
         r["bound_ms"] += c.calls * max(op_ms, byte_ms)
@@ -1810,9 +1817,10 @@ def main():
 # K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
 # K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh);
 # K8 (bf16 and float32 outputs); the float32 forms: K3's (csrc/attn_
-# tf32.cuh) and K9's (csrc/attn_tf32_bwd.cuh's TF32 wgmma kernels), K1's,
-# K4's and K5's (their kernels on csrc/gemm_tf32.cuh), K6's and K10's
-# (their first kernels and csrc/gemm_tf32_wg.cuh's), K2's and K7's (in
+# tf32.cuh) and K9's (csrc/attn_tf32_bwd.cuh's TF32 wgmma kernels), K1's
+# and K4's (on csrc/gemm_tf32_wg.cuh; K4's wide route and K5 on
+# csrc/gemm_tf32.cuh), K6's and K10's (their first kernels and
+# csrc/gemm_tf32_wg.cuh's), K2's and K7's (in
 # na2d), K11's and K12's (in na2d_heads; csrc/na_tf32.cuh, also at head
 # dim 128, the backwards on attn_tf32_bwd.cuh's bodies) and K15's
 # (csrc/na_proj_tf32.cuh)
@@ -1834,19 +1842,22 @@ REPORTED = {
     "geglu": ("ffn_fwd_kernel", "ffn_dup_kernel", "norm_vjp_kernel",
               "atb_kernel", "reduce_kernel", "reduce_few_kernel",
               "mapping_kernel"),
-    "fused_qkv_f32": ("qkv_f32_kernel", "qkv_f32_dr_kernel", "dxn_kernel",
+    "fused_qkv_f32": ("qkv_f32_fwd_kernel", "qkv_f32_dr_kernel", "dxn_kernel",
                       "dw_kernel", "round_weights_kernel", "reduce_kernel"),
-    "geglu_f32": ("ffn_f32_up_kernel", "ffn_f32_down_kernel",
-                  "add_parts_kernel", "ffn_f32_dup_kernel", "rms_rows_kernel",
-                  "dxn_kernel", "dw_kernel", "round_weights_kernel",
-                  "reduce_t_kernel", "reduce_kernel"),
+    "geglu_f32": ("ffn_f32_fwd_kernel", "ffn_f32_up_kernel",
+                  "ffn_f32_down_kernel", "add_parts_kernel",
+                  "ffn_f32_dup_kernel", "rms_rows_kernel", "dxn_kernel",
+                  "dw_kernel", "round_weights_kernel", "reduce_t_kernel",
+                  "reduce_kernel"),
 }
 
 # instantiations the report must list: K11 and K12 at head dim 128 (the
 # forward two blocks an SM, the dk/dv kernel two warpgroups a block), the
 # float32 forms of K11 and K12 at head dim 128 (two warpgroups a block),
 # the float32 attention backward's one-warpgroup kernels at head dims 32
-# and 64 (K14, K12), K15's at both head dims, K8's two outputs, and
+# and 64 (K14, K12), K15's at both head dims, K8's two outputs, K1-f32 at
+# both head dims, K4-f32's one launch at each width it takes (the x tile
+# resident at d 64, 128, 256; streamed, the column slabs paired, at 512),
 # K6-f32's first kernel at both head dims with one and two panels an item,
 # and the dxn kernel of the float32 backwards at both widths
 REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
@@ -1859,6 +1870,11 @@ REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
                       "na_proj_tf32_kernel<64>",
                       "na2d_overlap_add_kernel<false>",
                       "na2d_overlap_add_kernel<true>",
+                      "qkv_f32_fwd_kernel<32>", "qkv_f32_fwd_kernel<64>",
+                      "ffn_f32_fwd_kernel<64, true>",
+                      "ffn_f32_fwd_kernel<128, true>",
+                      "ffn_f32_fwd_kernel<256, true>",
+                      "ffn_f32_fwd_kernel<256, false>",
                       "qkv_f32_dr_kernel<32, 1>", "qkv_f32_dr_kernel<32, 2>",
                       "qkv_f32_dr_kernel<64, 1>", "qkv_f32_dr_kernel<64, 2>",
                       "dxn_kernel<64>", "dxn_kernel<128>")
@@ -4078,9 +4094,9 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
 
 # phase 26: float32 compute on the card (--mixed-precision no) for the ViT
 # and the HDiT without neighborhood-attention levels: the float32 forms of
-# K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu; the forwards on
-# the TF32 core csrc/gemm_tf32.cuh, the backwards on csrc/gemm_tf32_wg.cuh)
-# and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
+# K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu; K1, K4, K6,
+# K10 on the TF32 wgmma core csrc/gemm_tf32_wg.cuh, K5 and K4's wide route
+# on csrc/gemm_tf32.cuh) and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
 CIFAR10_TRANSFORMER = ROOT / "configs" / "config_cifar10_transformer.json"
 # the batch of phases 25 (d) and 26 (d)'s CPU references (the U-Net's call
 # and step, the shifted-window config's step, the ViT's call and step): the
@@ -4122,7 +4138,9 @@ def f32_specs(dev):
     counts no call, whose feed-forward blocks train with dropout, unfused),
     K5 at the HDiT's 8 x 256, f 768 (counted) and streamed in bf16 at the
     ViT's 64 x 768, f 2048, and K1, K4, K6, K10 at config_test_tiny's d 64
-    (2 heads of 32), uncounted."""
+    (2 heads of 32) and K1, K4 at a ragged 7 x 7 image (49 tokens, the
+    mnist HDiT's) at d 256, uncounted. K1's, K4's, K6's and K10's products
+    alone as torch.matmul with TF32 on beside them (``products``)."""
     from k_diffusion_tpu_torch.ops import rope
     from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_mapping,
                                                    fused_qkv, global_packed)
@@ -4136,7 +4154,9 @@ def f32_specs(dev):
     specs = []
     for h, d, d_ff, heads, n, n_ffn_bwd, attn in (
             (64, 128, 384, 2, 4, 4, False), (32, 256, 768, 4, 4, 4, False),
-            (16, 512, 1536, 8, 4, 0, True), (8, 64, 192, 2, 0, 0, False)):
+            (16, 512, 1536, 8, 4, 0, True), (8, 64, 192, 2, 0, 0, False),
+            (7, 256, 768, 4, 0, None, False)):
+        bwd = n_ffn_bwd is not None  # the ragged image: the forwards only
         t = b * h * h
         label = f"{b}x{h}x{h}x{d}" + (" e=32" if d // heads == 32 else "")
         pos = rope.make_axial_pos(h, h, device=dev)
@@ -4149,13 +4169,18 @@ def f32_specs(dev):
         specs.append(F32Spec(
             "fused_qkv_f32", label, n, lambda m=made: m[:4], (0, 1),
             lambda *a, f=qkv: fused_qkv.fused_qkv_prologue(*f(*a)),
-            lambda *a, f=qkv: fused_qkv.reference(*f(*a)), 2 * t * d * 3 * d))
-        specs.append(F32Spec(
-            "fused_qkv_bwd_f32", label, n, lambda m=made: m, (0, 1, 4, 5, 6),
-            lambda *a, f=qkv: fused_qkv.prologue_backward(*f(*a[:4]), *a[4:]),
-            lambda *a, f=qkv: fused_qkv.reference_backward(*f(*a[:4]), *a[4:]),
-            3 * 2 * t * d * 3 * d,
-            products=under_tf32(True, qkv_bwd_products(t, d, dev, g))))
+            lambda *a, f=qkv: fused_qkv.reference(*f(*a)), 2 * t * d * 3 * d,
+            products=under_tf32(True, qkv_fwd_products(t, d, dev, g))))
+        if bwd:
+            specs.append(F32Spec(
+                "fused_qkv_bwd_f32", label, n, lambda m=made: m,
+                (0, 1, 4, 5, 6),
+                lambda *a, f=qkv: fused_qkv.prologue_backward(*f(*a[:4]),
+                                                              *a[4:]),
+                lambda *a, f=qkv: fused_qkv.reference_backward(*f(*a[:4]),
+                                                               *a[4:]),
+                3 * 2 * t * d * 3 * d,
+                products=under_tf32(True, qkv_bwd_products(t, d, dev, g))))
         ffn = [rnd(b, h * h, d)(), rnd(b, d, std=0.1, shift=1.0)(),
                rnd(d, 2 * d_ff, std=d ** -0.5)(),
                rnd(d_ff, d, std=d_ff ** -0.5)(), rnd(b, h * h, d)()]
@@ -4163,12 +4188,16 @@ def f32_specs(dev):
         specs.append(F32Spec(
             "fused_ffn_f32", flabel, n, lambda m=ffn: m[:4], (0, 1),
             lambda *a: (fused_ffn.fused_geglu_ffn(*a),),
-            lambda *a: (fused_ffn.reference(*a),), 6 * t * d * d_ff))
-        specs.append(F32Spec(
-            "fused_ffn_bwd_f32", flabel, n_ffn_bwd, lambda m=ffn: m,
-            (0, 1, 4), lambda *a: fused_ffn.ffn_backward(*a),
-            lambda *a: fused_ffn.reference_backward(*a), 16 * t * d * d_ff,
-            products=under_tf32(True, ffn_bwd_products(t, d, d_ff, dev, g))))
+            lambda *a: (fused_ffn.reference(*a),), 6 * t * d * d_ff,
+            products=under_tf32(True, ffn_fwd_products(t, d, d_ff, dev, g))))
+        if bwd:
+            specs.append(F32Spec(
+                "fused_ffn_bwd_f32", flabel, n_ffn_bwd, lambda m=ffn: m,
+                (0, 1, 4), lambda *a: fused_ffn.ffn_backward(*a),
+                lambda *a: fused_ffn.reference_backward(*a),
+                16 * t * d * d_ff,
+                products=under_tf32(True, ffn_bwd_products(t, d, d_ff, dev,
+                                                           g))))
         if not attn:
             continue
         s = h * h
@@ -4220,6 +4249,27 @@ def f32_specs(dev):
     return specs
 
 
+def qkv_fwd_products(rows, d, dev, g):
+    """K1-f32's matrix product alone as a torch.matmul call on (rows, d)
+    operands: R = xn W (the yardstick ``products_ms``, used nowhere in the
+    port)."""
+    xn, w = (torch.randn(shape, generator=g).to(dev)
+             for shape in ((rows, d), (d, 3 * d)))
+    return lambda: xn @ w
+
+
+def ffn_fwd_products(rows, d, d_ff, dev, g):
+    """K4-f32's matrix products alone as torch.matmul calls: the up
+    projection xn W_up and the down projection h W_down (the yardstick
+    ``products_ms``)."""
+    xn, w_up, h, w_down = (torch.randn(shape, generator=g).to(dev) for shape in (
+        (rows, d), (d, 2 * d_ff), (rows, d_ff), (d_ff, d)))
+
+    def run():
+        return xn @ w_up, h @ w_down
+    return run
+
+
 def qkv_bwd_products(rows, d, dev, g):
     """K6-f32's matrix products alone as torch.matmul calls on (rows, d)
     operands: the recomputed projection R = xn W, dxn = dR W^T and dW =
@@ -4246,22 +4296,54 @@ def ffn_bwd_products(rows, d, d_ff, dev, g):
     return run
 
 
-# the float32 backwards redesigned on csrc/gemm_tf32_wg.cuh, held to
-# bit-equal reruns and split by kernel in phase 26
-F32_BACKWARDS = ("fused_qkv_bwd_f32", "fused_ffn_bwd_f32")
+# the float32 kernels redesigned on csrc/gemm_tf32_wg.cuh (K1, K4, K6,
+# K10), held to bit-equal reruns and split by kernel in phase 26
+F32_REDESIGNED = ("fused_qkv_f32", "fused_ffn_f32", "fused_qkv_bwd_f32",
+                  "fused_ffn_bwd_f32")
+# K1-f32's and K4-f32's mma.sync forms, as PERF.md records them (an NVIDIA
+# H100 80GB HBM3 at 700.00 W): ms on their main path (a flagship call at
+# batch 8) and ms a call by phase 26's shape label
+F32_FWD_BEFORE = {
+    "fused_qkv_f32": (0.6915, {"8x64x64x128": 0.0660, "8x32x32x256": 0.0556,
+                               "8x16x16x512": 0.0527, "8x8x8x64 e=32": 0.0069}),
+    "fused_ffn_f32": (1.759, {"8x4096x128 f=384": 0.1598,
+                              "8x1024x256 f=768": 0.1340,
+                              "8x256x512 f=1536": 0.1408,
+                              "8x64x64 f=192": 0.0176}),
+}
+
+
+def f32_fwd_compare(results):
+    """Phase 26 (a): K1-f32 and K4-f32 at each shape beside their bound,
+    their products as torch.matmul (TF32) and their mma.sync forms' times
+    (``F32_FWD_BEFORE``); their sums on the flagship call beside the
+    earlier rows."""
+    for name, (before, shapes) in F32_FWD_BEFORE.items():
+        r = results[name]
+        parts = []
+        for label, t in r["shapes"].items():
+            was = f", was {shapes[label]:.4f}" if label in shapes else ""
+            parts.append(f"{label} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, "
+                         f"products {t['products_ms']:.4f}{was})")
+        print(f"float32 forward {name}: " + "; ".join(parts) +
+              f"; on its main path {r['ms']:.4f} ms, "
+              f"{r['bound_ms'] / r['ms']:.1%} of its bound "
+              f"{r['bound_ms']:.4f}, products {r['products_ms']:.4f}, "
+              f"against the mma.sync design's {before:.4f} ms "
+              f"({before / r['ms']:.2f}x faster)", flush=True)
 
 
 def f32_rerun_and_split(specs):
-    """Phase 26 (c): K6-f32 and K10-f32 at each shape rerun on the same
-    inputs give bit-equal gradients (every row reduction is a fixed-order
-    sum of partials), and one call's device time split by kernel name
-    (torch.profiler over 5 calls)."""
+    """Phase 26 (c): K1-f32, K4-f32, K6-f32 and K10-f32 at each shape rerun
+    on the same inputs give bit-equal outputs (every row reduction is a
+    fixed-order sum of partials), and one call's device time split by
+    kernel name (torch.profiler over 5 calls)."""
     import re
 
     from torch.profiler import ProfilerActivity
 
     for s in specs:
-        if s.name not in F32_BACKWARDS:
+        if s.name not in F32_REDESIGNED:
             continue
         inputs = s.make()
         first, again = s.run(*inputs), s.run(*inputs)
@@ -4554,6 +4636,7 @@ def transformers_float32_phase(KT, dev, smi, results):
     specs = f32_specs(dev)
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 20, 3)
+        f32_fwd_compare(results)
         f32_bwd_compare(results, ("global_packed_bwd_f32",))
         f32_tf32_check(specs)
         f32_rerun_and_split(specs)
@@ -5598,6 +5681,18 @@ def profile(run, name, what, ops=()):
               f"(tf32_wg_dq_kernel, tf32_wg_dkv_kernel) {wg_ms:.3f} ms of the "
               f"{device_ms:.3f} ms a step ({wg_ms / device_ms:.1%})",
               flush=True)
+    # the float32 forwards of the prologue and the feed-forward block (csrc/
+    # fused_qkv_f32.cu, geglu_f32.cu) and the weight-rounding passes their
+    # wrappers and the backwards' make: their card time a call or step
+    fwd = {k: sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and k in e.key) / 3e3
+           for k in ("qkv_f32_fwd_kernel", "ffn_f32_fwd_kernel",
+                     "round_weights_kernel")}
+    if fwd["qkv_f32_fwd_kernel"] or fwd["ffn_f32_fwd_kernel"]:
+        print(f"{name} profile: the float32 forwards " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in fwd.items()) +
+            f" of the {device_ms:.3f} ms a step or call", flush=True)
     for e in events:
         if e.key in ops:
             print(f"{name} profile: {e.key}: {e.count // 3} calls a step or "

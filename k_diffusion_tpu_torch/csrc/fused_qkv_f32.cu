@@ -1,8 +1,8 @@
 // The fused attention prologue in float32: AdaRMSNorm -> x @ W_qkv ->
 // per-head cosine-sim scaling of q and k -> axial RoPE on q and k; packed
 // (b, h, w, d) f32 q, k, v. Forward (K1 in f32) and backward (K6 in f32),
-// the kernels of --mixed-precision no: the forward on gemm_tf32.cuh's
-// TF32 mma.sync core, the backward on gemm_tf32_wg.cuh's TF32 wgmma core.
+// the kernels of --mixed-precision no, both on gemm_tf32_wg.cuh's TF32
+// wgmma core.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/fused_qkv.py:_fused_qkv_kernel (the
 // forward of fused_qkv_prologue) and :_prologue_bwd_kernel (its backward)
@@ -12,30 +12,34 @@
 // with TF32 on; the norm, the cosine-sim scale, RoPE and their VJPs stay
 // in f32.
 //
-// What bounds the forward on the H100, the shifted-window config's eval
-// shapes at batch 8 (its levels are the flagship's): the product is 2
-// tokens d 3d = 3.2 GFLOP at every level (6.5 us at TF32's 494.7
-// TFLOP/s), while x in and q, k, v out are 67 MB at level 0 (d = 128, 20
-// us at 3.35 TB/s) and 19 MB at level 2 (d = 512, weights included, 5.7
-// us): levels 0 and 1 are bound by memory, level 2 by operations and
-// memory alike. The backward at batch-8 training shapes does 3x the
-// products against x, gq, gk, gv and dx (and, in this design, dR and xn
-// written once and read back).
+// What bounds the forward on the H100, the flagship's eval shapes at batch
+// 8: the product is 2 tokens d 3d = 3.2 GFLOP at every level (6.5 us at
+// TF32's 494.7 TFLOP/s), while x in and q, k, v out are 67 MB at level 0
+// (d = 128, 20 us at 3.35 TB/s) and 19 MB at level 2 (d = 512, weights
+// included, 5.7 us): levels 0 and 1 are bound by memory, level 2 by
+// operations and memory alike. The backward at batch-8 training shapes
+// does 3x the products against x, gq, gk, gv and dx (and, in this design,
+// dR and xn written once and read back).
 //
-// Forward design (qkv_f32_kernel): a block owns a 128-row tile that never
-// spans two images and one 64-column panel of the 3d projection columns (q,
-// k, then v); grid (images * tiles, 3d / 64). The product xn W = r (x
-// nscale) W runs with x nscale formed at each A fragment, whose squares
-// give the rows' norms r on the way (gemm_tf32.cuh's Normed), and r applied
-// in the epilogue, the panel's W tiles read MN-major. The epilogue
-// runs in registers: a head's sum of squares is the thread's own columns
-// plus two shuffles in its quad, and the RoPE partner column c ^ (E / 4) is
-// accumulator block n ^ (E / 32) of the same thread, so the rotation needs
-// no exchange; q and k get the cosine-sim scale sqrt(attn_scale) /
-// sqrt(ssq + eps) and the half-split RoPE (pair distance E / 4 on the first
-// E / 2 dims), v passes as it is; the angles theta = pos * freq are formed
-// there in f32 with sincosf, as K1's bf16 form does. f32 goes out with
-// 8-byte stores, a quad's 32 contiguous bytes.
+// Forward design (qkv_f32_fwd_kernel), after W^T is copied rounded to TF32
+// (tw::round_weights_kernel): a block stays on its SM and walks work
+// items, each one 128-row tile that never spans two images and a group of
+// three 64-column panels of the 3d projection columns (q, k, then v; 3d /
+// 64 is a multiple of 3), so that x crosses L2 d / 64 times a row tile,
+// where one panel an item read it 3d / 64 times. The product xn W = r (x
+// nscale) W streams x's K-major box and the group's 192 rows of W^T
+// through the TMA ring, x nscale formed and rounded at each A fragment,
+// whose squares give the rows' norms r on the way (tw::Normed), r applied
+// in the epilogue. The epilogue runs in registers per panel: a head's sum
+// of squares is the thread's own columns plus two shuffles in its quad,
+// and the RoPE partner column c ^ (E / 4) is accumulator block n ^ (E /
+// 32) of the same thread (wgmma's accumulator is mma.sync's C layout
+// repeated along N), so the rotation needs no exchange; q and k get the
+// cosine-sim scale sqrt(attn_scale) / sqrt(ssq + eps) and the half-split
+// RoPE (pair distance E / 4 on the first E / 2 dims), v passes as it is;
+// the angles theta = pos * freq are formed there in f32 with sincosf, as
+// K1's bf16 form does. Each warpgroup stages its 64 rows of the panel in
+// shared memory and stores them in whole 16-byte words.
 //
 // K6 in f32, three steps (the bf16 form's, fused_qkv.cu) on
 // gemm_tf32_wg.cuh's TF32 wgmma core, after W and W^T are copied rounded
@@ -55,7 +59,6 @@
 // The head dim E is a template parameter, 64 or 32 (config_test_tiny.json):
 // a panel then holds 64 / E heads, accumulator blocks [8 hs E / 64, 8 (hs +
 // 1) E / 64) holding head hs of the panel.
-#include "gemm_tf32.cuh"
 #include "gemm_tf32_wg.cuh"
 
 namespace kdt {
@@ -93,77 +96,161 @@ template <int E>
 __device__ __forceinline__ void rope_angle(const float* pos, const float* freqs, long token,
                                            int head, int n, int e, float& sn, float& cs) {
   constexpr int F = E / 8;
-  const int r = (8 * n + 2 * tg::lane_t() + e) % E;
+  const int r = (8 * n + 2 * tw::lane_t() + e) % E;
   sincosf(pos[2 * token + r / F] * freqs[head * F + r % F], &sn, &cs);
 }
 
-// K1 in f32. Grid (images * tiles, 3d / 64): block y owns panel y.
+// K1 in f32: a work item's panels, its stage and its staging tile (a
+// panel's 128 rows at row stride QKV_LD floats, so that a quad's 8-byte
+// writes fall in distinct banks).
+constexpr int QKV_NP = 3;                          // panels an item
+constexpr int QKV_B = QKV_NP * 64 * tw::BK * 4;    // their W^T rows, one box
+constexpr int QKV_STAGE = tw::K_TILE + QKV_B;      // 40 KB: x's box and theirs
+constexpr int QKV_LD = 64 + 8;
+constexpr size_t QKV_SMEM = tw::S * QKV_STAGE + tw::ROWS * QKV_LD * 4 + 1024;
+
+// The epilogue of one panel (sec: 0 q, 1 k, 2 v; pp its panel in the
+// section) on R (raw, r applied): q and k scaled and rotated in place.
 template <int E>
-__global__ void __launch_bounds__(tg::THREADS)
-qkv_f32_kernel(const float* __restrict__ x, const float* __restrict__ nscale, int scale_stride,
-               const float* __restrict__ w, const float* __restrict__ attn_scale,
-               const float* __restrict__ pos, const float* __restrict__ freqs,
-               float* __restrict__ q, float* __restrict__ k, float* __restrict__ v, int tokens,
-               int d, float eps, float cos_eps) {
+__device__ __forceinline__ void qkv_epilogue(float (&raw)[8][4], int sec, int pp,
+                                             const tw::RowTile& t,
+                                             const float* __restrict__ attn_scale,
+                                             const float* __restrict__ pos,
+                                             const float* __restrict__ freqs, float cos_eps) {
   constexpr int R = E / 4, HP = 64 / E;  // RoPE pair distance; heads a panel
-  extern __shared__ __align__(16) float smem[];
-  float* s_ns = smem;
-  float* ring = smem + d + tg::ROWS;
-  const tg::RowTile t = tg::row_tile(tokens);
-  const int p = blockIdx.y, kt = d / 64, sec = p / kt, pp = p % kt;
-  tg::load_scale(nscale + static_cast<long>(t.img) * scale_stride, d, s_ns);
-  float acc[1][8][4];
-  tg::zero(acc);
-  const int b0[1] = {64 * p};
-  tg::Normed norm{s_ns};
-  tg::mainloop<1>(acc, ring, x, d, t.row0, t.row0 + t.valid, w, 3L * d, b0, 0, d, norm);
-  float r[2];
-  tg::row_norms(norm, d, eps, r);
-  float(&raw)[8][4] = acc[0];
+  if (sec == 2) return;
+  float rho[HP][2], inv[HP][2];
+  cos_scale<E>(raw, attn_scale, pp * HP, cos_eps, rho, inv);
+  float y[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) raw[n][i] *= r[i / 2];
-  float* dst = (sec == 0 ? q : sec == 1 ? k : v) + 64 * pp + 2 * tg::lane_t();
-  if (sec < 2) {
-    float rho[HP][2], inv[HP][2];
-    cos_scale<E>(raw, attn_scale, pp * HP, cos_eps, rho, inv);
-    float y[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) y[n][i] = raw[n][i];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = tg::acc_row(h);
-      const long token = row < t.valid ? t.tile * static_cast<long>(tg::ROWS) + row : 0;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        if (8 * n % E >= R) continue;  // not the first of a rotated pair
-        const int pn = n ^ (R / 8);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float sn, cs;
-          rope_angle<E>(pos, freqs, token, pp * HP + 8 * n / E, n, e, sn, cs);
-          const float x1 = raw[n][2 * h + e], x2 = raw[pn][2 * h + e];
-          // y1 = x1 cos - x2 sin, y2 = x2 cos + x1 sin
-          y[n][2 * h + e] = x1 * cs - x2 * sn;
-          y[pn][2 * h + e] = x2 * cs + x1 * sn;
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) raw[n][i] = y[n][i] * rho[8 * n / E][i / 2];
-  }
+    for (int i = 0; i < 4; ++i) y[n][i] = raw[n][i];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (tg::acc_row(h) >= t.valid) continue;
-    float* out = dst + (t.row0 + tg::acc_row(h)) * d;
+    const int row = tw::acc_row(h);
+    const long token = row < t.valid ? t.tile * static_cast<long>(tw::ROWS) + row : 0;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(raw[n][2 * h], raw[n][2 * h + 1]);
+    for (int n = 0; n < 8; ++n) {
+      if (8 * n % E >= R) continue;  // not the first of a rotated pair
+      const int pn = n ^ (R / 8);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float sn, cs;
+        rope_angle<E>(pos, freqs, token, pp * HP + 8 * n / E, n, e, sn, cs);
+        const float x1 = raw[n][2 * h + e], x2 = raw[pn][2 * h + e];
+        // y1 = x1 cos - x2 sin, y2 = x2 cos + x1 sin
+        y[n][2 * h + e] = x1 * cs - x2 * sn;
+        y[pn][2 * h + e] = x2 * cs + x1 * sn;
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) raw[n][i] = y[n][i] * rho[8 * n / E][i / 2];
+}
+
+// K1 in f32 on gemm_tf32_wg.cuh's core (the file's note). map_x: x (rows,
+// d), boxes of 128 rows; map_wt: the rounded W^T (3d, d), boxes of 192
+// rows. An item is row tile item / groups and panels [3 g, 3 g + 3) of the
+// 3d columns, g = item % groups, groups = d / 64. nscale (images, d):
+// image i's row at nscale + i * scale_stride.
+template <int E>
+__global__ void __launch_bounds__(tw::THREADS, 1)
+qkv_f32_fwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_wt, const float* __restrict__ nscale,
+                   int scale_stride, const float* __restrict__ attn_scale,
+                   const float* __restrict__ pos, const float* __restrict__ freqs,
+                   float* __restrict__ q, float* __restrict__ k, float* __restrict__ v,
+                   int images, int tokens, int d, float eps, float cos_eps) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ tw::Ring ring;
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  float* s_out = reinterpret_cast<float*>(smem + tw::S * QKV_STAGE);  // (ROWS, QKV_LD)
+  float* s_ns = s_out + tw::ROWS * QKV_LD;
+  tw::ring_init(ring);
+  const int kt = d / 64, groups = kt, steps = d / tw::BK;
+  const tw::Items span = tw::my_items(images * tw::tiles(tokens) * groups);
+  if (tw::is_producer()) {
+    tw::producer_regs();
+    if (!tw::tma_thread()) return;
+    tw::Producer p{ring, smem, 0, QKV_STAGE};
+    for (int item = span.begin; item < span.end; ++item) {
+      const tw::RowTile t = tw::row_tile(tokens, item / groups);
+      const int c0 = 64 * QKV_NP * (item % groups);
+      for (int kk = 0; kk < steps; ++kk) {
+        uint64_t* bar;
+        unsigned char* st = p.next(QKV_STAGE, bar);
+        tw::tma(st, &map_x, tw::BK * kk, t.row0, bar);
+        tw::tma(st + tw::K_TILE, &map_wt, tw::BK * kk, c0, bar);
+      }
+    }
+    return;
+  }
+  tw::consumer_regs();
+  tw::Consumer c{ring, smem};
+  const int base = 64 * (threadIdx.x / 128), tid = threadIdx.x % 128;
+  int staged = -1;  // the image whose scale s_ns holds
+  for (int item = span.begin; item < span.end; ++item) {
+    const tw::RowTile t = tw::row_tile(tokens, item / groups);
+    const int grp = item % groups;
+    if (t.img != staged)
+      tw::stage_scale(nscale + static_cast<long>(t.img) * scale_stride, d, s_ns);
+    staged = t.img;
+    // R over the item's 192 columns: panels 0 and 1 in acc0 (N = 128), 2 in acc1
+    float acc0[64], acc1[32];
+    tw::Normed norm{s_ns};
+    tw::stepwise(
+        c, steps, QKV_STAGE,
+        [&](const unsigned char* stage, int kk, uint32_t(&a)[4][4]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) norm(stage, kk, j, a[j]);
+        },
+        [&](const unsigned char* stage, int kk, const uint32_t(&a)[4][4]) {
+          const uint64_t b0 = tw::desc(stage + tw::K_TILE);
+          const uint64_t b1 = tw::desc(stage + tw::K_TILE + 128 * tw::BK * 4);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            tw::mma<128>(acc0, a[j], b0 + 2 * j, kk > 0 || j > 0);
+            tw::mma<64>(acc1, a[j], b1 + 2 * j, kk > 0 || j > 0);
+          }
+          wg::fence_regs(acc0);
+          wg::fence_regs(acc1);
+        });
+    wg::fence_regs(acc0);  // read after the walk's last wait
+    wg::fence_regs(acc1);
+    float r[2];
+    norm.norms(d, eps, r);
+#pragma unroll
+    for (int np = 0; np < QKV_NP; ++np) {
+      const int p = QKV_NP * grp + np, sec = p / kt, pp = p % kt;
+      // R of the panel: raw[n][2 h + e] at row h, column 8 n + 2 t + e
+      float raw[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          raw[n][i] = (np < 2 ? acc0[(32 * np + 4 * n + i) & 63] : acc1[4 * n + i]) * r[i / 2];
+      qkv_epilogue<E>(raw, sec, pp, t, attn_scale, pos, freqs, cos_eps);
+      // the warpgroup's 64 rows staged, then stored in 16-byte words
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(s_out + tw::acc_row(h) * QKV_LD + 8 * n +
+                                     2 * tw::lane_t()) = make_float2(raw[n][2 * h],
+                                                                      raw[n][2 * h + 1]);
+      tw::warpgroup_sync();
+      float* dst = (sec == 0 ? q : sec == 1 ? k : v) + 64 * pp;
+      for (int i = tid; i < 64 * 16; i += 128) {
+        const int row = base + i / 16, c4 = 4 * (i % 16);
+        if (row < t.valid)
+          *reinterpret_cast<float4*>(dst + (t.row0 + row) * d + c4) =
+              *reinterpret_cast<const float4*>(s_out + row * QKV_LD + c4);
+      }
+      tw::warpgroup_sync();  // the staging tile is free again
+    }
   }
 }
 
@@ -351,16 +438,18 @@ qkv_f32_dr_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 template <int E>
-int launch_fwd(const float* x, const float* nscale, int scale_stride, const float* w,
-               const float* attn_scale, const float* pos, const float* freqs, float* q, float* k,
-               float* v, int images, int tokens, int d, float eps, float cos_eps,
-               cudaStream_t st) {
-  const size_t smem = tg::normed_smem<1>(d);
-  const cudaError_t attr = allow_smem(qkv_f32_kernel<E>, smem);
-  const int tiles = tg::tiles(tokens);
-  qkv_f32_kernel<E><<<dim3(images * tiles, 3 * d / 64), tg::THREADS, smem, st>>>(
-      x, nscale, scale_stride, w, attn_scale, pos, freqs, q, k, v, tokens, d, eps, cos_eps);
-  return launch_status(attr);
+cudaError_t launch_fwd(const CUtensorMap& map_x, const CUtensorMap& map_wt, const float* nscale,
+                       int scale_stride, const float* attn_scale, const float* pos,
+                       const float* freqs, float* q, float* k, float* v, int images,
+                       int tokens, int d, float eps, float cos_eps, cudaStream_t st) {
+  const size_t smem = QKV_SMEM + d * sizeof(float);
+  const cudaError_t err = allow_smem(qkv_f32_fwd_kernel<E>, smem);
+  if (err != cudaSuccess) return err;
+  const long items = static_cast<long>(images) * tw::tiles(tokens) * (d / 64);
+  qkv_f32_fwd_kernel<E><<<tw::grid(items), tw::THREADS, smem, st>>>(
+      map_x, map_wt, nscale, scale_stride, attn_scale, pos, freqs, q, k, v, images, tokens, d,
+      eps, cos_eps);
+  return cudaGetLastError();
 }
 
 template <int E, int NP>
@@ -423,28 +512,31 @@ using namespace kdt;
 // d) f32, image i's row at nscale + i * scale_stride (scale_stride >= d, a
 // multiple of 4: a column block of a condcache row, read in place); w (d,
 // 3d) f32; attn_scale (heads,) f32; pos (tokens, 2) f32; freqs (heads, e /
-// 8) f32; q, k, v (rows, d) f32. Needs d == e * heads with head dim e 32
-// or 64 and d % 64 == 0.
+// 8) f32; q, k, v (rows, d) f32. Scratch: wt (3d, d) f32, the rounded W^T.
+// Needs d == e * heads with head dim e 32 or 64 and d % 64 == 0.
 extern "C" int kdt_fused_qkv_f32(const void* x, const void* nscale, const void* w,
                                  const void* attn_scale, const void* pos, const void* freqs,
-                                 void* q, void* k, void* v, int images, int tokens, int d,
-                                 int n_heads, int scale_stride, float eps, float cos_eps,
+                                 void* q, void* k, void* v, void* wt, int images, int tokens,
+                                 int d, int n_heads, int scale_stride, float eps, float cos_eps,
                                  void* stream) {
-  if (d % 64 || n_heads < 1 || d % n_heads || scale_stride < d || scale_stride % 4)
+  if (d % 64 || n_heads < 1 || d % n_heads || scale_stride < d || scale_stride % 4 ||
+      (d / n_heads != 32 && d / n_heads != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
-  switch (d / n_heads) {
-    case 32:
-      return launch_fwd<32>(f(x), f(nscale), scale_stride, f(w), f(attn_scale), f(pos), f(freqs),
-                            o(q), o(k), o(v), images, tokens, d, eps, cos_eps, st);
-    case 64:
-      return launch_fwd<64>(f(x), f(nscale), scale_stride, f(w), f(attn_scale), f(pos), f(freqs),
-                            o(q), o(k), o(v), images, tokens, d, eps, cos_eps, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const long rows = static_cast<long>(images) * tokens;
+  cudaError_t err = tw::launch_round(f(w), d, 3 * d, nullptr, o(wt), st);
+  CUtensorMap map_x, map_wt;
+  if (err == cudaSuccess) err = tw::map_f32(&map_x, f(x), rows, d, d, tw::ROWS);
+  if (err == cudaSuccess) err = tw::map_f32(&map_wt, o(wt), 3 * d, d, d, 64 * QKV_NP);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = d / n_heads == 32
+            ? launch_fwd<32>(map_x, map_wt, f(nscale), scale_stride, f(attn_scale), f(pos),
+                             f(freqs), o(q), o(k), o(v), images, tokens, d, eps, cos_eps, st)
+            : launch_fwd<64>(map_x, map_wt, f(nscale), scale_stride, f(attn_scale), f(pos),
+                             f(freqs), o(q), o(k), o(v), images, tokens, d, eps, cos_eps, st);
+  return static_cast<int>(err);
 }
 
 // K6 in f32. x (rows, d) f32; nscale (images, d) f32; w (d, 3d) f32;

@@ -1,24 +1,22 @@
-// The TF32 GEMM core of the float32 forwards (--mixed-precision no): the
-// attention prologue K1 (fused_qkv_f32.cu), the feed-forward block K4 and
-// the mapping network K5 (geglu_f32.cu). What gemm.cuh is to their bf16
-// forms, on attn_tf32.cuh's scheme. Their backwards K6 and K10 run on
-// gemm_tf32_wg.cuh's wgmma core.
+// The TF32 mma.sync GEMM core of the float32 mapping network K5 and of
+// the float32 feed-forward block's wide route (geglu_f32.cu's
+// ffn_f32_up_kernel and ffn_f32_down_kernel: K4 at d past 512, h through
+// device memory). The float32 forwards K1 and K4 (d up to 512) and the
+// backwards K6 and K10 run on gemm_tf32_wg.cuh's TF32 wgmma core.
 //
-// Why not wgmma here: wgmma takes TF32 B operands K-major only, and these
-// products read their weights MN-major (C = A B: K1's and K4's W, read
-// along their rows). So every product here is a warp-level mma.sync
-// m16n8k8 (tf32 x tf32 -> f32; operands rounded by cvt.rna, 10 mantissa
-// bits), whose fragments are gathered from f32 tiles in shared memory one
-// 32-bit load each.
+// Why mma.sync here: wgmma takes TF32 B operands K-major only, and these
+// products read their weights MN-major (C = A B, W read along its rows) as
+// the model holds them, with no rounded transposed copy. So every product
+// here is a warp-level mma.sync m16n8k8 (tf32 x tf32 -> f32; operands
+// rounded by cvt.rna, 10 mantissa bits), whose fragments are gathered from
+// f32 tiles in shared memory one 32-bit load each.
 //
 // A block is 8 warps and owns a 128-row output tile and NT accumulator
 // sets of 64 columns; warp w owns rows [16 w, 16 w + 16) of every set
 // (acc[j][n]: the 16 x 8 block n, 32 registers a set). A thread thus holds
 // rows g and g + 8 (g = lane / 4) at columns 8 n + 2 t and 8 n + 2 t + 1
 // (t = lane % 4) of each set: a 64-column panel's every column of a row
-// lies in one quad of lanes, and columns c and c ^ 8 or c ^ 16 (a head's
-// RoPE partners at head dim 32 and 64) in one thread, so the prologue's
-// epilogues need no exchange. Why 128 rows: a step's tiles come from L2 or
+// lies in one quad of lanes. Why 128 rows: a step's tiles come from L2 or
 // device memory, and a 64 x 64 f32 output tile does 16 FLOP a byte of
 // them, where eight warps sharing each B tile do 21 (NT = 1) or 32 (NT =
 // 2).

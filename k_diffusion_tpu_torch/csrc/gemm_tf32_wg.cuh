@@ -1,7 +1,9 @@
-// The TF32 wgmma core of the float32 backwards (--mixed-precision no): the
-// attention prologue's K6 (fused_qkv_f32.cu) and the feed-forward block's
-// K10 (geglu_f32.cu). Their forwards (K1, K4) and K5 stay on
-// gemm_tf32.cuh's mma.sync core.
+// The TF32 wgmma core of the float32 prologue and feed-forward block
+// (--mixed-precision no): their forwards K1 (fused_qkv_f32.cu,
+// qkv_f32_fwd_kernel) and K4 (geglu_f32.cu, ffn_f32_fwd_kernel, one launch
+// at d = 64, 128, 256 and 512) and their backwards K6 and K10 (the first
+// kernels there, dxn_kernel and dw_kernel here). K5 and K4's wide route (d
+// past 512) stay on gemm_tf32.cuh's mma.sync core.
 //
 // What wgmma asks of a TF32 product, and how these kernels meet it:
 // - Both operands K-major. A B operand comes from shared memory and must
@@ -12,8 +14,10 @@
 //   from a K-major tile, and each intermediate a product reads as B is
 //   written once in that layout by the kernel that makes it: K10's dup
 //   and h, K6's dR go out transposed, (2 d_ff, rows), (d_ff, rows), (3d,
-//   rows); the weights read along their rows (x W_up, x W_qkv) come from
-//   a transposed copy made once per call (round_weights_kernel).
+//   rows); the weights read along their rows (x W_up, x W_qkv, h W_down)
+//   come from a transposed copy made once per call (round_weights_kernel;
+//   K4's W_down^T with each 8 of its depth in depth_pos order, so that the
+//   accumulator of h is the A fragment of the down product as it lies).
 // - A .tf32 operand is the f32 bit pattern with its low 13 bits ignored:
 //   a tile landed as it is would be truncated. Every product operand is
 //   rounded to nearest (cvt.rna) instead: A fragments in registers as they
@@ -34,16 +38,24 @@
 // 128-row output tile, and a producer whose one thread keeps the TMA copies
 // of S ring stages in flight (full barriers: a stage's bytes have landed;
 // empty barriers: each of the 8 consumer warps is done with it). The
-// producer gives its registers to the consumers (setmaxnreg). A block stays
+// producer gives its registers to the consumers (setmaxnreg), though
+// ptxas compiles every thread to the 168 registers that three warps a
+// scheduler leave (a kernel without the producer warpgroup, its ring fed
+// by a consumer thread, got 255 and ran slower on an H100). A block stays
 // on its SM and walks a contiguous range of work items (neighbours share a
 // row tile and an image's scale): the producer runs on into the next
-// item's steps while the consumers run an item's epilogue. An item is one
-// output tile and its depth, one or two products (K10's first kernel: the
-// up projection, then dh), each a run of 32-deep steps of 4 wgmma
-// m64nNk8 (N 64 or 128). A warpgroup waits for a step's products before it
-// reads the next step's fragments; the other warpgroup's products keep the
-// tensor cores busy meanwhile. (With one step's products left in flight,
-// wgmma_wait<1>, reruns on the card were not bit-equal, and no faster.)
+// item's steps while the consumers run an item's epilogue (K4's forward:
+// one item a block, its clusters' partials meeting at the end). An item is
+// one output tile and its depth, one or more products (K10's first kernel:
+// the up projection, then dh), each a run of 32-deep steps of 4 wgmma
+// m64nNk8 (N 64 to 192). Where a step's A fragments are made in registers
+// (stepwise), a warpgroup waits for a step's products before it makes the
+// next step's; the other warpgroup's products keep the tensor cores busy
+// meanwhile. (With one step's products left in flight, wgmma_wait<1>,
+// reruns on the card were not bit-equal, and no faster.) Where none are
+// made (chained: A in shared memory, or in registers already), the next
+// step's products are issued first, and a stage goes back only once its
+// own are done: reruns bit-equal.
 //
 // Accumulators. wgmma's m64nN f32 accumulator is mma.sync's m16n8 C
 // layout repeated along N: element 4 i + 2 h + e of a thread lies at row
@@ -55,7 +67,7 @@
 // (attn_scale)) are f32 partials summed in a fixed order, never atomics: a
 // rerun is bit-equal.
 //
-// What bounds them on the H100: bytes. At the flagship's level 0 (batch-8
+// What bounds the backwards on the H100: bytes. At the flagship's level 0 (batch-8
 // step shapes: 32768 rows, d 128, d_ff 384) K10 does 25.8 GFLOP, 52 us at
 // TF32's 494.7 TFLOP/s, while its f32 intermediates (dup and h written
 // once and read back, xn) and operands move about 530 MB through device
@@ -116,14 +128,16 @@ __device__ __forceinline__ int acc_row(int h) { return 16 * warp() + lane_g() + 
 
 // The ring's barriers: full[st], the stage's bytes have landed (the
 // producer's arrival and the copies' bytes); empty[st], the consumer warps
-// are done with it.
+// are done with it. A kernel's ring has `stages` of them (S, or up to
+// MAX_S where its stages are small).
+constexpr int MAX_S = 8;
 struct Ring {
-  uint64_t full[S], empty[S];
+  uint64_t full[MAX_S], empty[MAX_S];
 };
 
-__device__ __forceinline__ void ring_init(Ring& r) {
+__device__ __forceinline__ void ring_init(Ring& r, int stages = S) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < stages; ++s) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&r.full[s])),
                    "r"(1)
                    : "memory");
@@ -172,19 +186,23 @@ __device__ __forceinline__ void tma(void* dst, const CUtensorMap* map, int c0, l
 // The producer's walk over the ring: next() waits until the stage of its
 // next step is free, tells the stage's barrier to expect `bytes` and
 // returns the stage; the caller then starts the step's copies on `bar`.
+// Stages lie `stride` bytes apart (STAGE, or a kernel's own), `stages` of
+// them.
 struct Producer {
   Ring& r;
   unsigned char* ring;
   int step = 0;
+  int stride = STAGE;
+  int stages = S;
   __device__ unsigned char* next(uint32_t bytes, uint64_t*& bar) {
-    const int st = step % S;
-    if (step >= S) gemm::mbar_wait(&r.empty[st], (step / S - 1) & 1);
+    const int st = step % stages;
+    if (step >= stages) gemm::mbar_wait(&r.empty[st], (step / stages - 1) & 1);
     bar = &r.full[st];
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                  "r"(bytes)
                  : "memory");
     ++step;
-    return ring + st * STAGE;
+    return ring + st * stride;
   }
 };
 
@@ -195,9 +213,10 @@ struct Consumer {
   Ring& r;
   const unsigned char* ring;
   int step = 0;
+  int stages = S;
   __device__ int wait() {
-    const int st = step % S;
-    gemm::mbar_wait(&r.full[st], (step / S) & 1);
+    const int st = step % stages;
+    gemm::mbar_wait(&r.full[st], (step / stages) & 1);
     ++step;
     return st;
   }
@@ -303,6 +322,57 @@ __device__ __forceinline__ void product(float (&acc)[N / 2], Consumer& c, int st
     wg::fence_regs(acc);
     c.release(st);
   }
+}
+
+// The consumers' walk over `steps` ring steps of one product whose A
+// fragments are made in registers: step by step, prep(stage, k, a) makes
+// step k's fragments, issue(stage, k, a) issues its wgmma between a fence
+// and a commit; the step's products are waited for and its stage goes back
+// to the producer before the next step's. (Making step k + 1's fragments
+// while step k's products run, in a second set of registers, ran slower on
+// an H100.) Stages lie `stride` bytes apart. C: Consumer, or a kernel's
+// own walk with Consumer's wait(), release() and ring. The caller fences
+// its accumulators (wg::fence_regs) after the walk, before it reads them.
+template <class C, class Prep, class Issue>
+__device__ __forceinline__ void stepwise(C& c, int steps, int stride, Prep&& prep,
+                                         Issue&& issue) {
+  for (int k = 0; k < steps; ++k) {
+    const int st = c.wait();
+    const unsigned char* stage = c.ring + st * stride;
+    uint32_t a[4][4];
+    prep(stage, k, a);
+    wg::wgmma_fence();
+    issue(stage, k, a);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    c.release(st);
+  }
+}
+
+// The walk where no A fragment is to be made (SS products, or A already
+// in registers): issue(stage, k) for k < steps (STEPS where it is known
+// when compiling, the loop then unrolled), step k + 1's products issued
+// before step k's are waited for. A stage goes back to the producer once
+// its products are done; a product is issued after the one before it on
+// the same accumulator, so a rerun sums in the same order.
+template <int STEPS = 0, class C, class Issue>
+__device__ __forceinline__ void chained(C& c, int steps, int stride, Issue&& issue) {
+  const int n = STEPS ? STEPS : steps;
+  int prev = 0;
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    const int st = c.wait();
+    wg::wgmma_fence();
+    issue(c.ring + st * stride, k);
+    wg::wgmma_commit();
+    if (k > 0) {
+      wg::wgmma_wait<1>();
+      c.release(prev);
+    }
+    prev = st;
+  }
+  wg::wgmma_wait<0>();
+  c.release(prev);
 }
 
 template <int N>
@@ -562,18 +632,28 @@ __global__ void reduce_t_kernel(const float* __restrict__ in, float* __restrict_
   out[(i % n) * m + i / n] = s;
 }
 
-// dst (rows, cols) and, where dst_t is not null, dst_t (cols, rows): src
-// (rows, cols) rounded to TF32, a weight as the products read it. Grid
-// (ceil(cols / 32), ceil(rows / 32)), blocks of 32 x 8 threads.
+// The depth position, in a product whose A fragments are an accumulator
+// as it lies (K4's h), of depth r: the accumulator holds columns 2 t and 2
+// t + 1 of each 8 where the fragment holds depths t and t + 4.
+__host__ __device__ inline int depth_pos(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+}
+
+// Where not null, dst (rows, cols) and dst_t (cols, rows): src (rows,
+// cols) rounded to TF32, a weight as the products read it; with `perm`,
+// dst_t's columns (src's rows) in depth_pos order within each 8 (rows a
+// multiple of 8). Grid (ceil(cols / 32), ceil(rows / 32)), blocks of 32 x
+// 8 threads.
 __global__ void round_weights_kernel(const float* __restrict__ src, int rows, int cols,
-                                     float* __restrict__ dst, float* __restrict__ dst_t) {
+                                     float* __restrict__ dst, float* __restrict__ dst_t,
+                                     int perm) {
   __shared__ float tile[32][33];
   const int c0 = 32 * blockIdx.x, r0 = 32 * blockIdx.y;
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int r = r0 + i, c = c0 + threadIdx.x;
     if (r < rows && c < cols) {
       const float v = round_tf32(src[static_cast<long>(r) * cols + c]);
-      dst[static_cast<long>(r) * cols + c] = v;
+      if (dst != nullptr) dst[static_cast<long>(r) * cols + c] = v;
       tile[i][threadIdx.x] = v;
     }
   }
@@ -581,7 +661,8 @@ __global__ void round_weights_kernel(const float* __restrict__ src, int rows, in
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int c = c0 + i, r = r0 + threadIdx.x;
-    if (c < cols && r < rows) dst_t[static_cast<long>(c) * rows + r] = tile[threadIdx.x][i];
+    if (c < cols && r < rows)
+      dst_t[static_cast<long>(c) * rows + (perm ? depth_pos(r) : r)] = tile[threadIdx.x][i];
   }
 }
 
@@ -610,9 +691,9 @@ inline int grid(long items) {
 }
 
 inline cudaError_t launch_round(const float* src, int rows, int cols, float* dst, float* dst_t,
-                                cudaStream_t st) {
+                                cudaStream_t st, bool perm = false) {
   round_weights_kernel<<<dim3((cols + 31) / 32, (rows + 31) / 32), dim3(32, 8), 0, st>>>(
-      src, rows, cols, dst, dst_t);
+      src, rows, cols, dst, dst_t, perm ? 1 : 0);
   return cudaGetLastError();
 }
 

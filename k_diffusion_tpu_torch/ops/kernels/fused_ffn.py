@@ -15,12 +15,18 @@ is forward-only; the backward K10 takes a contiguous scale.
 
 bfloat16 operands go to those kernels, float32 operands (a model built
 with ``dtype=torch.float32``, ``--mixed-precision no``) to their float32
-forms in ``csrc/geglu_f32.cu`` (``kdt_ffn_fwd_f32``, two kernels on the
-TF32 ``mma.sync`` core ``csrc/gemm_tf32.cuh`` with the f32 h through device
-memory, and ``kdt_ffn_bwd_f32``, on the TF32 ``wgmma`` core
-``csrc/gemm_tf32_wg.cuh``): the same contract, products on the TF32 tensor
-cores with f32 accumulation, any d and d_ff multiples of 64. Each dtype's
-launches are counted apart.
+forms in ``csrc/geglu_f32.cu``: the same contract, products on the TF32
+tensor cores with f32 accumulation, any d and d_ff multiples of 64. The
+float32 forward is routed by width before any launch (``f32_route``): at
+d in ``ONE_LAUNCH_F32`` (64, 128, 256, 512: every shipped width but 768)
+``kdt_ffn_fwd_f32``, one launch of ``ffn_f32_fwd_kernel`` on the TF32
+``wgmma`` core ``csrc/gemm_tf32_wg.cuh`` with h in registers, after
+passes that copy the weights rounded to TF32 into scratch; at any other
+width ``kdt_ffn_fwd_f32_wide``, two kernels on the TF32 ``mma.sync`` core
+``csrc/gemm_tf32.cuh`` with the f32 h through device memory (scratch
+allocated on that route only). The backward ``kdt_ffn_bwd_f32`` runs on
+the ``wgmma`` core. Each dtype's launches are counted apart, one a
+wrapper call.
 """
 
 import ctypes
@@ -54,9 +60,18 @@ MAX_BWD_D = 576
 # dot_part, dns_part, dw_part, images, tokens, d, d_ff, groups, chunk_up,
 # chunk_down, eps, stream
 _BWD = [_P] * 16 + [ctypes.c_int] * 7 + [ctypes.c_float, _P]
-# the float32 forms: x, scale, w_up, w_down, out, h, images, tokens, d,
-# d_ff, scale_stride, eps, stream
-_F32_FWD = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+# the float32 forms: x, scale, w_up, w_down, out, w_upt, w_downt, images,
+# tokens, d, d_ff, groups, scale_stride, eps, stream, clusters (int *: the
+# occupancy query)
+_F32_FWD = [_P] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
+# the wide route: x, scale, w_up, w_down, out, h, images, tokens, d, d_ff,
+# scale_stride, eps, stream
+_F32_FWD_WIDE = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+# the widths the float32 forward takes in one launch, h in registers: a
+# block's output tiles in at most 128 registers a thread (at d = 512 two
+# blocks of a cluster own 256 columns each) and, at d <= 256, the resident
+# x tile in its shared memory
+ONE_LAUNCH_F32 = (64, 128, 256, 512)
 # x, scale, w_up, w_down, g, dx, dscale, dw_up, dw_down, w_upt, w_up_r,
 # w_down_r, ht, dupt, xn, r, dot_part, dns_part, dw_part, images, tokens,
 # tiles, d, d_ff, ld, chunk_up, chunk_down, eps, stream
@@ -146,6 +161,65 @@ def forward_split(images, tokens, d, d_ff, device):
     return warpgroups, out_tiles, groups
 
 
+@functools.lru_cache(maxsize=None)
+def _clusters_f32(index, d, d_ff, groups):
+    """How many float32 K4 clusters of ``groups`` blocks fit on CUDA
+    device ``index`` at once."""
+    lib = _build.load("geglu_f32", kdt_ffn_fwd_f32=_F32_FWD)
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        status = lib.kdt_ffn_fwd_f32(*[None] * 7, 1, 64, d, d_ff, groups, d,
+                                     0.0, None, ctypes.byref(clusters))
+    _build.check_launch(lib, status, "fused_ffn float32 occupancy")
+    return clusters.value
+
+
+def f32_units(d):
+    """The hidden units of a panel of the one-launch float32 K4
+    (``FfnPlan::NU`` in ``csrc/geglu_f32.cu``): 64, or 32 at d >= 256, where
+    a block's output tiles take 128 registers a thread."""
+    return 32 if d >= 256 else 64
+
+
+def f32_route(d):
+    """The float32 forward's route, chosen by width before any launch:
+    "one" (``kdt_ffn_fwd_f32``) at d in ``ONE_LAUNCH_F32``, else "wide"
+    (``kdt_ffn_fwd_f32_wide``)."""
+    return "one" if d in ONE_LAUNCH_F32 else "wide"
+
+
+def forward_split_f32(images, tokens, d, d_ff, device):
+    """The one-launch float32 K4's cluster size G: a block owns a 128-row
+    tile and NO = min(d, 256) output columns, the hidden panels (NU = 64
+    units, 32 at d >= 256) split over clusters of G blocks (at most 8), as
+    many as make the fewest rounds of resident clusters times the steps a
+    block takes (d / 32 up steps a panel and its down steps, about d / 32
+    + 4 for the x tile and the partials). At d = 512 a cluster holds both
+    column slabs of its row tile, 2 G blocks (G at most 4), each forming h
+    of half the panels."""
+    units = f32_units(d)
+    out_cols = min(d, 256)
+    pair = d > out_cols
+    panels, kt = d_ff // units, d // 32
+    down = units // 32 * (out_cols // min(out_cols, 128))
+    index = torch.cuda.current_device() if device.index is None else device.index
+    blocks = images * -(-tokens // _build.F32_ROWS) * (d // out_cols)
+    _, groups = _build.best_split(
+        blocks, min(4 if pair else 8, panels),
+        lambda g: _clusters_f32(index, d, d_ff, g) * (2 * g if pair else g),
+        lambda g: -(-panels // g) * (kt / (2 if pair else 1) + down) + kt + 4)
+    return groups
+
+
+def forward_f32_scratch(d, d_ff, rows):
+    """The float32 forward's scratch, name -> shape (float32), by route:
+    W_up^T and W_down^T rounded to TF32 on the one-launch route, h (rows,
+    d_ff) on the wide route."""
+    if f32_route(d) == "one":
+        return {"w_upt": (2 * d_ff, d), "w_downt": (d, d_ff)}
+    return {"h": (rows, d_ff)}
+
+
 def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
     """Launches K4 (its float32 form on float32 x) on CUDA tensors: returns
     x + FFN(norm(x)). ``scale`` is (b, d) with unit inner stride, its rows
@@ -160,12 +234,21 @@ def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
     out = torch.empty_like(x)
     global launches, launches_f32
     if x.dtype == torch.float32:
-        h = torch.empty((b * t, d_ff), device=x.device, dtype=x.dtype)
-        lib = _build.load("geglu_f32", kdt_ffn_fwd_f32=_F32_FWD)
-        _build.launch(
-            lib, "kdt_ffn_fwd_f32", "fused_ffn", x.device,
-            *map(_build.ptr, (x, scale, w_up, w_down, out, h)), b, t, d, d_ff,
-            scale_stride, eps, _build.stream_ptr(x.device))
+        scratch = [torch.empty(shape, device=x.device, dtype=torch.float32)
+                   for shape in forward_f32_scratch(d, d_ff, b * t).values()]
+        tensors = map(_build.ptr, (x, scale, w_up, w_down, out, *scratch))
+        if f32_route(d) == "one":
+            groups = forward_split_f32(b, t, d, d_ff, x.device)
+            lib = _build.load("geglu_f32", kdt_ffn_fwd_f32=_F32_FWD)
+            _build.launch(
+                lib, "kdt_ffn_fwd_f32", "fused_ffn", x.device, *tensors, b, t,
+                d, d_ff, groups, scale_stride, eps,
+                _build.stream_ptr(x.device), None)
+        else:
+            lib = _build.load("geglu_f32", kdt_ffn_fwd_f32_wide=_F32_FWD_WIDE)
+            _build.launch(
+                lib, "kdt_ffn_fwd_f32_wide", "fused_ffn", x.device, *tensors,
+                b, t, d, d_ff, scale_stride, eps, _build.stream_ptr(x.device))
         launches_f32 += 1
         return out
     warpgroups, out_tiles, groups = forward_split(b, t, d, d_ff, x.device)

@@ -14,11 +14,12 @@ is forward-only; the backward K6 takes a contiguous scale.
 
 bfloat16 operands go to those kernels, float32 operands (a model built
 with ``dtype=torch.float32``, ``--mixed-precision no``) to their float32
-forms in ``csrc/fused_qkv_f32.cu`` (``kdt_fused_qkv_f32`` on the TF32
-``mma.sync`` core ``csrc/gemm_tf32.cuh``, ``kdt_fused_qkv_bwd_f32`` on the
-TF32 ``wgmma`` core ``csrc/gemm_tf32_wg.cuh``): the same contract, products
-on the TF32 tensor cores with f32 accumulation, any d a multiple of 64.
-Each dtype's launches are counted apart.
+forms in ``csrc/fused_qkv_f32.cu`` (``kdt_fused_qkv_f32`` and
+``kdt_fused_qkv_bwd_f32``, both on the TF32 ``wgmma`` core
+``csrc/gemm_tf32_wg.cuh``, each after a pass that copies the weight
+rounded to TF32 into scratch the wrapper allocates): the same contract,
+products on the TF32 tensor cores with f32 accumulation, any d a multiple
+of 64. Each dtype's launches are counted apart, one a wrapper call.
 """
 
 import ctypes
@@ -52,8 +53,8 @@ _SIGNATURE = [_P] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [_P] * 2
 _BWD_SIGNATURE = [_P] * 20 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, _P]
 # the float32 forms: x, norm_scale, w_qkv, attn_scale, pos, freqs, q, k, v,
-# images, tokens, d, heads, scale_stride, eps, cos_eps, stream
-_F32_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [_P]
+# wt, images, tokens, d, heads, scale_stride, eps, cos_eps, stream
+_F32_SIGNATURE = [_P] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [_P]
 # x, norm_scale, w_qkv, attn_scale, pos, freqs, gq, gk, gv, dx, dns, dw,
 # das_sums, wt, w_r, drt, xn, r, dot_part, das_part, dns_part, dw_part,
 # images, tokens, tiles, d, heads, ld, chunk_rows, eps, cos_eps, stream
@@ -195,11 +196,13 @@ def prologue_forward(x, pos, norm_scale, w_qkv, attn_scale, n_heads,
     q, k, v = (torch.empty_like(x) for _ in range(3))
     global launches, launches_f32
     if x.dtype == torch.float32:
+        # scratch: W_qkv^T rounded to TF32, the B operand of the products
+        wt = torch.empty((3 * d, d), device=x.device, dtype=torch.float32)
         lib = _build.load("fused_qkv_f32", kdt_fused_qkv_f32=_F32_SIGNATURE)
         _build.launch(
             lib, "kdt_fused_qkv_f32", "fused_qkv", x.device,
             *map(_build.ptr, (x, norm_scale, w_qkv, attn_scale, pos, freqs,
-                              q, k, v)),
+                              q, k, v, wt)),
             b, h * w, d, n_heads, scale_stride, eps, cos_eps,
             _build.stream_ptr(x.device))
         launches_f32 += 1

@@ -566,6 +566,8 @@ def test_fused_qkv_float32(dev, no_tf32, b, h, w, d, heads):
                   "launches_f32")
     for a, want in zip(got, fused_qkv.reference(*args)):
         f32_close(a, want)
+    for a, b_ in zip(got, fused_qkv.prologue_forward(*args)):
+        assert torch.equal(a, b_)
     grads = counted(fused_qkv, lambda: fused_qkv.prologue_backward(
         *args, *cots), "bwd_launches_f32")
     for a, want in zip(grads, fused_qkv.reference_backward(*args, *cots)):
@@ -574,17 +576,24 @@ def test_fused_qkv_float32(dev, no_tf32, b, h, w, d, heads):
         assert torch.equal(a, b_)
 
 
-@pytest.mark.parametrize("b,t,d,d_ff", [(2, 49, 128, 384), (1, 72, 640, 1280)])
+@pytest.mark.parametrize("b,t,d,d_ff", [(2, 49, 128, 384), (1, 72, 640, 1280),
+                                        (3, 16, 64, 192), (2, 49, 256, 768),
+                                        (1, 100, 512, 1536)])
 def test_fused_ffn_float32(dev, no_tf32, b, t, d, d_ff):
-    """K4's and K10's float32 forms against the plain versions, a ragged
-    row tile, and at d = 640, wider than K10's bf16 form takes."""
+    """K4's and K10's float32 forms against the plain versions, ragged row
+    tiles, at d = 640, wider than K10's bf16 form takes (K4 on its wide
+    route), and at d = 64, 256 and 512 (K4 in one launch: the x tile
+    resident, or streamed with the column slabs paired); the forward and
+    the backward reruns bit-equal."""
     g = torch.Generator().manual_seed(26)
     args = (f32(g, dev, b, t, d), f32(g, dev, b, d, std=0.1, shift=1.0),
             f32(g, dev, d, 2 * d_ff, std=d ** -0.5),
             f32(g, dev, d_ff, d, std=d_ff ** -0.5))
     cot = f32(g, dev, b, t, d)
-    f32_close(counted(fused_ffn, lambda: fused_ffn.ffn_forward(*args),
-                      "launches_f32"), fused_ffn.reference(*args))
+    out = counted(fused_ffn, lambda: fused_ffn.ffn_forward(*args),
+                  "launches_f32")
+    f32_close(out, fused_ffn.reference(*args))
+    assert torch.equal(out, fused_ffn.ffn_forward(*args))
     grads = counted(fused_ffn, lambda: fused_ffn.ffn_backward(*args, cot),
                     "bwd_launches_f32")
     for a, want in zip(grads, fused_ffn.reference_backward(*args, cot)):

@@ -235,8 +235,9 @@ def norm_vjp(dxn, x, ns_rows, r, dot, res=None):
 def qkv_f32_mirror(x, pos, ns, w, attn_scale, heads, gq, gk, gv, rnd=plain):
     """K1-f32's forward and K6-f32's three steps on (rows, d) as the kernels
     compute them, ``rnd`` applied to every product operand where the
-    kernels round it to TF32: R = r (rnd(x nscale) rnd(W)), the cosine-sim
-    scale and RoPE in the epilogue; the RoPE and cosine-sim VJPs on the
+    kernels round it to TF32: R = r (rnd(x nscale) rnd(W)) (both kernels'
+    A fragments x nscale rounded as read, B the rounded copy of W^T), the
+    cosine-sim scale and RoPE in the epilogue; the RoPE and cosine-sim VJPs on the
     panel's columns, dot partials per 64-column panel summed in panel
     order, the RMS-norm VJP after dxn = rnd(dR) rnd(W)^T, dW_qkv = rnd(xn)^T
     rnd(dR) over the wrapper's row chunks, d(attn_scale) from the sums of g
@@ -316,14 +317,18 @@ def gelu_grad(g):
         -0.5 * g * g) / (2 * torch.pi) ** 0.5
 
 
-def ffn_f32_mirror(x, ns, w_up, w_down, g, rnd=plain):
-    """K4-f32 (the up kernel's h through device memory, then the down
-    kernel with the residual) and K10-f32's three steps, as the kernels
-    compute them, ``rnd`` applied to every product operand where the
-    kernels round it to TF32: the up product and dh = rnd(g) rnd(W_down)^T,
-    dot partials per 64-unit panel, dxn = rnd(dup) rnd(W_up)^T, dW_up =
-    rnd(xn)^T rnd(dup) and dW_down = (rnd(g)^T rnd(h))^T over the wrapper's
-    row chunks."""
+def ffn_f32_mirror(x, ns, w_up, w_down, g, rnd=plain, groups=1):
+    """K4-f32 and K10-f32's three steps, as the kernels compute them,
+    ``rnd`` applied to every product operand where the kernels round it to
+    TF32. K4-f32 by its route (``fused_ffn.f32_route``): in one launch, h
+    rounded once on chip and the hidden panels of ``f32_units`` units over
+    a cluster of ``groups`` ranks (panels r, r + groups, ... of rank r),
+    each rank's partial summed over its panels in order, the partials in
+    rank order, then x; on the wide route h through device memory and the
+    down kernel with the residual. K10-f32: the up product and dh =
+    rnd(g) rnd(W_down)^T, dot partials per 64-unit panel, dxn = rnd(dup)
+    rnd(W_up)^T, dW_up = rnd(xn)^T rnd(dup) and dW_down = (rnd(g)^T
+    rnd(h))^T over the wrapper's row chunks."""
     b, t, d = x.shape
     d_ff, rows = w_down.shape[0], b * t
     xf, gf = x.reshape(rows, d), g.reshape(rows, d)
@@ -333,7 +338,18 @@ def ffn_f32_mirror(x, ns, w_up, w_down, g, rnd=plain):
     up = r * (rnd(xf * ns_rows) @ up_r)
     a, gate = up[:, :d_ff], up[:, d_ff:]
     h = a * F.gelu(gate)
-    out = xf + rnd(h) @ down_r
+    if fused_ffn.f32_route(d) == "one":
+        units = fused_ffn.f32_units(d)
+        total = torch.zeros_like(xf)
+        for rank in range(groups):
+            part = torch.zeros_like(xf)
+            for p in range(rank, d_ff // units, groups):
+                cols = slice(p * units, (p + 1) * units)
+                part = part + rnd(h[:, cols]) @ down_r[cols]
+            total = total + part
+        out = total + xf
+    else:
+        out = xf + rnd(h) @ down_r
     dh = rnd(gf) @ down_r.T
     da, dgate = dh * F.gelu(gate), dh * a * gelu_grad(gate)
     prod = da * a + dgate * gate
@@ -358,6 +374,18 @@ def test_fused_ffn_f32_kernel_arithmetic_matches_jax(case):
     want, want_grads = jax_vjp(j_ffn.fused_geglu_ffn, inputs, cots)
     close(got, want, F32_TOL)
     close_all(grads, want_grads, F32_TOL)
+
+
+@pytest.mark.parametrize("case,groups", [("d128", 4), ("d512", 3),
+                                         ("tiny", 2)])
+def test_fused_ffn_f32_cluster_partials_match_jax(case, groups):
+    """K4-f32's one launch with its hidden panels over a cluster of
+    ``groups`` ranks, the partials summed in rank order, against the JAX
+    forward (the summation order is the kernel's, the sum the same)."""
+    inputs, cots = ffn_case(18, *FFN_CASES[case])
+    got, _ = ffn_f32_mirror(*map(torch.from_numpy, inputs),
+                            torch.from_numpy(cots[0]), groups=groups)
+    close(got, j_ffn.fused_geglu_ffn(*map(jnp.asarray, inputs)), F32_TOL)
 
 
 def tf32_round(t):
@@ -423,6 +451,14 @@ def test_float32_backward_rounding_against_float64(name, record_property):
         g = torch.from_numpy(cots[0]).double()
         want = fused_ffn.reference_backward(*wide, g)
         run = lambda rnd: ffn_f32_mirror(*wide, g, rnd=rnd)[1]
+    hold_rounding(name, run, want, record_property)
+
+
+def hold_rounding(name, run, want, record_property):
+    """``run(rnd)``'s outputs against ``want`` (float64), max abs error over
+    max|f64| output by output, with every product operand rounded to TF32
+    (cvt.rna), to bf16 and truncated: the TF32 errors at most TF32_SHARE x
+    the bf16 ones; the truncated ones recorded beside them."""
     errs = {}
     for label, rnd in (("tf32", tf32_round), ("bf16", bf16_round),
                        ("truncated", tf32_truncate)):
@@ -435,6 +471,31 @@ def test_float32_backward_rounding_against_float64(name, record_property):
     print(f"{name}: against float64 by output, tf32 / bf16 {shares}, "
           f"truncated / bf16 {truncated}")
     assert max(shares) <= TF32_SHARE, shares
+
+
+@pytest.mark.parametrize("name", list(ROUNDING_CASES))
+def test_float32_forward_rounding_against_float64(name, record_property):
+    """K1-f32's q, k, v and K4-f32's out (its one launch, the panels over a
+    cluster of 2) as their mirrors compute them in float64, every product
+    operand rounded as the kernels round it (x nscale and the weights'
+    copies, h once on chip), against the plain version in float64: each
+    output's error at most TF32_SHARE x the bf16-rounded mirror's (phase 26
+    (b)'s check on the card); the truncated variant's share recorded."""
+    if name == "fused_qkv":
+        inputs, cots, pos, heads = qkv_case(16, *ROUNDING_CASES[name])
+        wide = [torch.from_numpy(a).double() for a in inputs]
+        gs = [torch.from_numpy(c).double() for c in cots]
+        t_pos = torch.from_numpy(pos)
+        want = fused_qkv.reference(wide[0], t_pos, *wide[1:], heads)
+        run = lambda rnd: qkv_f32_mirror(wide[0], t_pos, *wide[1:], heads,
+                                         *gs, rnd=rnd)[0]
+    else:
+        inputs, cots = ffn_case(17, *ROUNDING_CASES[name])
+        wide = [torch.from_numpy(a).double() for a in inputs]
+        g = torch.from_numpy(cots[0]).double()
+        want = (fused_ffn.reference(*wide),)
+        run = lambda rnd: (ffn_f32_mirror(*wide, g, rnd=rnd, groups=2)[0],)
+    hold_rounding(f"{name} forward", run, want, record_property)
 
 
 def mapping_f32_mirror(emb, s_in, s_out, blocks):
@@ -490,6 +551,7 @@ def fake_library(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(fused_qkv, "forward_split", lambda *a: (1, 1))
     monkeypatch.setattr(fused_ffn, "forward_split", lambda *a: (1, 1, 1))
+    monkeypatch.setattr(fused_ffn, "forward_split_f32", lambda *a: 1)
     monkeypatch.setattr(fused_mapping, "cluster_size", lambda *a: 1)
     for module in (fused_qkv, fused_ffn, fused_mapping, global_packed):
         for attr in ("launches", "bwd_launches", "launches_f32",
@@ -759,11 +821,108 @@ def test_float32_forwards_read_a_strided_scale_row(fake_library):
     (qkv, args), (ffn, ffn_args) = fake_library
     assert (qkv, ffn) == ("kdt_fused_qkv_f32", "kdt_ffn_fwd_f32")
     assert args[1] == ffn_args[1] == scale.data_ptr()
-    assert args[13] == ffn_args[10] == 3 * 128 + 64
+    assert args[14] == ffn_args[12] == 3 * 128 + 64
     odd = t(2, 3 * 128 + 2)[:, :128]
     with pytest.raises(ValueError, match="16-byte aligned rows"):
         fused_ffn.ffn_forward(x.reshape(2, 16, 128), odd, t(128, 384),
                               t(192, 128))
+
+
+# (b, t, d, d_ff) of K4-f32's forward: ragged row tiles (49 tokens) and
+# every width it takes in one launch, then its wide route at
+# config_512_hdit's 768 and at 960, past the bf16 form's 896
+F32_FWD_FFN_CASES = [(2, 49, 64, 192), (1, 16, 128, 384), (2, 49, 256, 768),
+                     (1, 16, 512, 1536), (1, 4, 768, 2304), (1, 4, 960, 1920)]
+
+
+@pytest.mark.parametrize("case", F32_FWD_FFN_CASES)
+def test_float32_ffn_forward_routes_by_width(fake_library, monkeypatch,
+                                             case):
+    """K4-f32's forward is routed by width before any launch: one launch of
+    kdt_ffn_fwd_f32 at d = 64, 128, 256 and 512, told the rounded W_up^T (2
+    d_ff, d) and W_down^T (d, d_ff) float32 scratch, no h; past them
+    kdt_ffn_fwd_f32_wide, with h (rows, d_ff) float32 and no weight copy.
+    One launch counted either way (csrc/geglu_f32.cu's contracts)."""
+    seen = []
+
+    def ptr(t):
+        seen.append(t)
+        return ctypes.c_void_p(t.data_ptr())
+
+    monkeypatch.setattr(_build, "ptr", ptr)
+    rng = np.random.default_rng(19)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    b, tok, d, d_ff = case
+    out = fused_ffn.ffn_forward(t(b, tok, d), 1 + t(b, d), t(d, 2 * d_ff),
+                                t(d_ff, d))
+    (entry, args), = fake_library
+    rows = b * tok
+    if d in (64, 128, 256, 512):
+        assert entry == "kdt_ffn_fwd_f32"
+        scratch, want = seen[5:7], [(2 * d_ff, d), (d, d_ff)]
+        assert args[7:12] == [b, tok, d, d_ff, 1] and args[15] is None
+    else:
+        assert entry == "kdt_ffn_fwd_f32_wide"
+        scratch, want = seen[5:6], [(rows, d_ff)]
+        assert args[6:10] == [b, tok, d, d_ff]
+    assert len(seen) == 5 + len(want)
+    for tensor, shape in zip(scratch, want):
+        assert tensor.dtype == torch.float32 and tensor.is_contiguous()
+        assert tuple(tensor.shape) == shape
+    assert out.shape == (b, tok, d) and counts(fused_ffn)[:2] == (0, 1)
+
+
+@pytest.mark.parametrize("case", [(2, 7, 7, 128, 2), (3, 4, 4, 64, 2),
+                                  (1, 2, 2, 832, 13)])
+def test_float32_prologue_forward_scratch_is_what_the_entry_point_is_told(
+        fake_library, monkeypatch, case):
+    """K1-f32's forward gets the rounded W_qkv^T, (3d, d) float32, as
+    kdt_fused_qkv_f32 is told (csrc/fused_qkv_f32.cu), at head dims 64 and
+    32 and at d = 832, past the bf16 form's 768; one launch counted."""
+    seen = []
+
+    def ptr(t):
+        seen.append(t)
+        return ctypes.c_void_p(t.data_ptr())
+
+    monkeypatch.setattr(_build, "ptr", ptr)
+    rng = np.random.default_rng(20)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    b, h, w, d, heads = case
+    fused_qkv.prologue_forward(t(b, h, w, d), t_rope.make_axial_pos(h, w),
+                               1 + t(b, d), t(d, 3 * d),
+                               torch.full((heads,), 10.0), heads)
+    (entry, args), = fake_library
+    assert entry == "kdt_fused_qkv_f32" and len(seen) == 10
+    assert args[10:15] == [b, h * w, d, heads, d]
+    wt = seen[9]
+    assert wt.dtype == torch.float32 and wt.is_contiguous()
+    assert tuple(wt.shape) == (3 * d, d)
+    assert counts(fused_qkv)[:2] == (0, 1)
+
+
+@pytest.mark.parametrize("name,case", [
+    ("fused_ffn", (1, 16, 96, 192)), ("fused_ffn", (1, 16, 128, 96)),
+    ("fused_qkv", (1, 4, 4, 96, 3)), ("fused_qkv", (1, 4, 4, 128, 1)),
+    ("fused_qkv", (1, 4, 4, 128, 8))])
+def test_float32_forwards_refuse_before_any_launch(fake_library, name, case):
+    """K4-f32's forward refuses d or d_ff not a multiple of 64, K1-f32's a d
+    not a multiple of 64 and head dims other than 32 and 64 (128, 16), with
+    ValueError before anything launches."""
+    rng = np.random.default_rng(21)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    if name == "fused_ffn":
+        b, tok, d, d_ff = case
+        call = lambda: fused_ffn.ffn_forward(
+            t(b, tok, d), 1 + t(b, d), t(d, 2 * d_ff), t(d_ff, d))
+    else:
+        b, h, w, d, heads = case
+        call = lambda: fused_qkv.prologue_forward(
+            t(b, h, w, d), t_rope.make_axial_pos(h, w), 1 + t(b, d),
+            t(d, 3 * d), torch.full((heads,), 10.0), heads)
+    with pytest.raises(ValueError):
+        call()
+    assert not fake_library
 
 
 def test_cpu_float32_takes_the_plain_versions(fake_library):

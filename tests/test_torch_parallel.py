@@ -568,6 +568,8 @@ def launch_cases():
         "kdt_fused_qkv_bwd_f32": lambda: fused_qkv.prologue_backward(
             *qkv32, *(f32(1, 8, 8, 64) for _ in range(3))),
         "kdt_ffn_fwd_f32": lambda: fused_ffn.ffn_forward(*ffn32),
+        "kdt_ffn_fwd_f32_wide": lambda: fused_ffn.ffn_forward(
+            f32(1, 64, 192), f32(1, 192), f32(192, 512), f32(256, 192)),
         "kdt_ffn_bwd_f32": lambda: fused_ffn.ffn_backward(*ffn32,
                                                           f32(1, 64, 64)),
         "kdt_mapping_f32": lambda: fused_mapping.mapping_forward(
@@ -625,7 +627,7 @@ def test_kernel_launches_under_its_tensors_device(entry, monkeypatch):
     monkeypatch.setattr(_build, "stream_ptr", lambda device: None)
     monkeypatch.setattr(_build, "sm_count", lambda device: 132)
     cached = (fused_qkv._blocks_per_sm, fused_ffn._clusters,
-              fused_mapping.cluster_size)
+              fused_ffn._clusters_f32, fused_mapping.cluster_size)
     for fn in cached:
         fn.cache_clear()
     try:
