@@ -182,17 +182,19 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    through the pointer gives bit-equal model, EMA and optimizer state.
 25. float32 compute on the card (``float32_phase``, ``--mixed-precision
    no``, the U-Net family): (a) the float32 forms of K13 and K14
-   (csrc/attn_tf32.cuh's mma.sync forward, csrc/attn_tf32_bwd.cuh's TF32
+   (csrc/attn_tf32.cuh's TF32 wgmma forward, csrc/attn_tf32_bwd.cuh's TF32
    wgmma backward) against their plain versions in float32 with TF32 off,
    within 5e-3 x max|plain|, at the cifar10 U-Net's shapes at batch 64
    (its main path), config_mnist.json's 7 x 7 level and head dim 32; (c)
    their times beside the plain version's and SDPA's on the float32 inputs
-   (TF32 on), the bound from TF32's 494.7 TFLOP/s, the backward's at each
-   shape and on its path beside its earlier row (``f32_bwd_compare``, as
-   phases 26 (a), 27 (a) and 28 (a) do for K9, K7 and K12 in float32), and
-   K9-f32 = K14-f32 (dq, dk, dv) bit for bit on one packed input, a K14-f32
-   rerun bit-equal; (b) on the same inputs each float32 kernel's error
-   against float64 at most 1/4 of the bf16 kernel's; (d) the cifar10
+   (TF32 on), the bound from TF32's 494.7 TFLOP/s, the forward's and the
+   backward's at each shape and on its path beside their earlier rows
+   (``f32_attention_compare``, as phases 26 (a), 27 (a) and 28 (a)-(b) do
+   for K3, K9, K2, K7, K11, K12 and K15 in float32),
+   and K3-f32 = K13-f32 (out, lse) and K9-f32 = K14-f32 (dq, dk, dv) bit
+   for bit on one packed input, a K13-f32 and a K14-f32 rerun bit-equal;
+   (b) on the same inputs each float32 kernel's error against float64, its
+   lse's included, at most 1/4 of the bf16 kernel's; (d) the cifar10
    U-Net at batch 8 in float32 (TF32) and in bf16 on the card against
    float32 on the CPU, forward and gradient: the float32 errors at most
    1/4 of bf16's, launch counts in each dtype's kernels only; (e) 50-step
@@ -268,9 +270,10 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    config ships it: one head of 128 at 64 x 64, two at 32 x 32), whose NA
    levels take the plain prologue (``fused_qkv.takes``) and K11/K12 at
    head dim 128: (a) K11 and K12 at its NA levels (batch 8) in float32
-   (csrc/na_tf32.cuh; the backward two warpgroups a block that split its
-   products, csrc/attn_tf32_bwd.cuh) and bf16 (csrc/na_fwd.cuh,
-   csrc/na_bwd.cuh on csrc/wgmma.cuh's tiles of two column halves)
+   (csrc/na_tf32.cuh; forward and backward two warpgroups a block that
+   split their products, csrc/attn_tf32.cuh, attn_tf32_bwd.cuh) and bf16
+   (csrc/na_fwd.cuh, csrc/na_bwd.cuh on csrc/wgmma.cuh's tiles of two
+   column halves)
    against their plain versions (float32: TF32 off, 5e-3), timed beside
    them, the bound and masked SDPA, the bf16 forms' times at each shape
    printed against masked SDPA's and their sums against the float32
@@ -1817,24 +1820,25 @@ def main():
 # K1 and K4, K6's and K10's (their first kernels and csrc/gemm.cuh's),
 # K5's cluster kernel (f32 and bf16 weights) and K15's (csrc/na_proj.cuh);
 # K8 (bf16 and float32 outputs); the float32 forms: K3's (csrc/attn_
-# tf32.cuh) and K9's (csrc/attn_tf32_bwd.cuh's TF32 wgmma kernels), K1's
+# tf32.cuh's TF32 wgmma forward) and K9's (csrc/attn_tf32_bwd.cuh's TF32
+# wgmma kernels), K1's
 # and K4's (on csrc/gemm_tf32_wg.cuh; K4's wide route and K5 on
 # csrc/gemm_tf32.cuh), K6's and K10's (their first kernels and
 # csrc/gemm_tf32_wg.cuh's), K2's and K7's (in
 # na2d), K11's and K12's (in na2d_heads; csrc/na_tf32.cuh, also at head
-# dim 128, the backwards on attn_tf32_bwd.cuh's bodies) and K15's
-# (csrc/na_proj_tf32.cuh)
+# dim 128, the forward on attn_tf32.cuh's body, the backwards on
+# attn_tf32_bwd.cuh's) and K15's (csrc/na_proj_tf32.cuh)
 REPORTED = {
     "global_packed": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
-                      "tf32_fwd_kernel", "tf32_wg_dq_kernel",
+                      "tf32_wg_fwd_kernel", "tf32_wg_dq_kernel",
                       "tf32_wg_dkv_kernel"),
     "flash": ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkv_kernel",
-              "tf32_fwd_kernel", "tf32_wg_dq_kernel", "tf32_wg_dkv_kernel"),
+              "tf32_wg_fwd_kernel", "tf32_wg_dq_kernel", "tf32_wg_dkv_kernel"),
     "na2d": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
-             "na_tf32_fwd_kernel", "na_tf32_wg_dq_kernel",
+             "na_tf32_wg_fwd_kernel", "na_tf32_wg_dq_kernel",
              "na_tf32_wg_dkv_kernel", "na2d_overlap_add_kernel"),
     "na2d_heads": ("na_fwd_kernel", "na_dq_kernel", "na_dkv_kernel",
-                   "na_proj_kernel", "na_tf32_fwd_kernel",
+                   "na_proj_kernel", "na_tf32_wg_fwd_kernel",
                    "na_tf32_wg_dq_kernel", "na_tf32_wg_dkv_kernel",
                    "na_proj_tf32_kernel"),
     "fused_qkv": ("qkv_fwd_kernel", "qkv_dr_kernel", "norm_vjp_kernel",
@@ -1854,15 +1858,18 @@ REPORTED = {
 # instantiations the report must list: K11 and K12 at head dim 128 (the
 # forward two blocks an SM, the dk/dv kernel two warpgroups a block), the
 # float32 forms of K11 and K12 at head dim 128 (two warpgroups a block),
-# the float32 attention backward's one-warpgroup kernels at head dims 32
-# and 64 (K14, K12), K15's at both head dims, K8's two outputs, K1-f32 at
+# the float32 attention forward's and backward's one-warpgroup kernels at
+# head dims 32 and 64 (K13, K11; K14, K12), K15's at both head dims, K8's
+# two outputs, K1-f32 at
 # both head dims, K4-f32's one launch at each width it takes (the x tile
 # resident at d 64, 128, 256; streamed, the column slabs paired, at 512),
 # K6-f32's first kernel at both head dims with one and two panels an item,
 # and the dxn kernel of the float32 backwards at both widths
 REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
                       "na_dkv_kernel<128, true>",
-                      "na_tf32_fwd_kernel<128>", "na_tf32_wg_dq_kernel<128>",
+                      "na_tf32_wg_fwd_kernel<128>", "na_tf32_wg_dq_kernel<128>",
+                      "tf32_wg_fwd_kernel<32>", "tf32_wg_fwd_kernel<64>",
+                      "na_tf32_wg_fwd_kernel<32>", "na_tf32_wg_fwd_kernel<64>",
                       "na_tf32_wg_dkv_kernel<128>", "tf32_wg_dq_kernel<32>",
                       "tf32_wg_dkv_kernel<32>", "tf32_wg_dq_kernel<64>",
                       "tf32_wg_dkv_kernel<64>", "na_tf32_wg_dq_kernel<32>",
@@ -1888,10 +1895,12 @@ def compiler_report(build):
     K15's (csrc/na_proj.cuh) and K8's, and of the float32 forms
     (``REPORTED``; ``REPORTED_INSTANCES`` by template argument), from the
     compiler report kept beside each library; raises if one spills or is
-    missing."""
+    missing, or if ptxas serialised the wgmma products of a float32
+    attention kernel (advisory C7515), whose design keeps them
+    asynchronous."""
     import re
 
-    seen, missing = {}, []
+    seen, missing, serialised = {}, [], set()
     for lib, names in REPORTED.items():
         # template arguments, each an int (Li64E) or a bool (Lb0E)
         pattern = re.compile(r"Compiling entry function '\w*?(%s)"
@@ -1899,6 +1908,12 @@ def compiler_report(build):
         found, fn, spill = set(), None, None
         for line in build.library_path(lib).with_suffix(".log").read_text(
                 ).splitlines():
+            # ptxas's advisory that it waits for each wgmma of a function
+            m = re.search(r"\(C7515\).*function '\w*?(%s)" % "|".join(names),
+                          line)
+            if m:
+                serialised.add(m.group(1))
+                continue
             m = pattern.search(line)
             if m:
                 name, mangled = m.groups()
@@ -1922,6 +1937,13 @@ def compiler_report(build):
     print("compiler report: " + ", ".join(
         f"{fn} {regs} registers, {spill} bytes spilled"
         for fn, (regs, spill) in sorted(seen.items())), flush=True)
+    # the float32 attention kernels (csrc/attn_tf32.cuh, attn_tf32_bwd.cuh)
+    # keep their products asynchronous; others may carry the advisory
+    print(f"compiler report: wgmma serialised (C7515) in "
+          f"{sorted(serialised) or 'none'}", flush=True)
+    if any("tf32_wg" in fn or "na_proj_tf32" in fn for fn in serialised):
+        raise AssertionError(f"compiler report: the float32 attention "
+                             f"kernels' wgmma serialised: {serialised}")
 
 
 def default_build_check(KT, config, name):
@@ -3737,10 +3759,10 @@ def float32_cases(dev, shapes):
 
 def tf32_check(dev, shapes):
     """Phase 25 (b): on the same float32 inputs, each float32 kernel's and
-    each bf16 kernel's (on the inputs rounded to bf16) output, dq, dk and
-    dv against the plain version in float64, max abs error over max|f64|;
-    the float32 kernels' at most TF32_SHARE x the bf16 kernels'. Also the
-    lse of both against float64, printed."""
+    each bf16 kernel's (on the inputs rounded to bf16) output, lse, dq, dk
+    and dv against the plain version in float64, max abs error over
+    max|f64|; the float32 kernels' at most TF32_SHARE x the bf16
+    kernels'."""
     from k_diffusion_tpu_torch.ops.kernels import flash
 
     g = torch.Generator().manual_seed(SEED + 26)
@@ -3761,7 +3783,7 @@ def tf32_check(dev, shapes):
                             / w.abs().max()).item() for a, w in zip(got, want)]
         shares = {name: a / c for name, a, c in zip(
             ("out", "lse", "dq", "dk", "dv"), errs[torch.float32],
-            errs[torch.bfloat16]) if name != "lse"}
+            errs[torch.bfloat16])}
         label = f"{b}x{s}x{heads}x{e}"
         if not max(shares.values()) <= TF32_SHARE:
             raise AssertionError(f"tf32 check {label}: float32 kernels' "
@@ -3963,11 +3985,22 @@ def float32_refusals(KT, dev):
                              f"{kernels.launch_counts()}")
 
 
-# The float32 attention backward's rows in PERF.md from its earlier
-# mma.sync design (ms summed over each main path's calls, and by shape
-# where PERF.md has them), beside which its TF32 wgmma kernels
-# (csrc/attn_tf32_bwd.cuh) print their times.
-F32_BWD_BEFORE = {
+# The float32 attention kernels' rows in PERF.md from their earlier
+# mma.sync designs (ms summed over each main path's calls, and by shape
+# where PERF.md has them; an NVIDIA H100 80GB HBM3 at 700.00 W), beside
+# which their TF32 wgmma kernels print their times: the forwards
+# (csrc/attn_tf32.cuh; K15-f32 around its attention) and the backwards
+# (csrc/attn_tf32_bwd.cuh).
+F32_ATTENTION_BEFORE = {
+    "flash_f32": (0.6217, {}),
+    "global_packed_f32": (0.0736, {}),
+    "na2d_f32": (0.5192, {"8x64x64x128": 0.0872, "8x32x32x256": 0.0426,
+                          "8x128x128x128 (config_512_hdit)": 0.3247}),
+    "na2d_heads_f32": (0.5227, {}),
+    "na2d_heads_f32_e128": (0.5501, {"8x64x64x1x128": 0.0928,
+                                     "8x32x32x2x128": 0.0449}),
+    "na2d_proj_f32": (0.2001, {"8x64x64x128 e=64": 0.1039,
+                               "8x32x32x256 e=64": 0.0961}),
     "flash_bwd_f32": (2.520, {}),
     "global_packed_bwd_f32": (0.2506, {}),
     "na2d_bwd_f32": (1.5668, {"8x64x64x128": 0.2584, "8x32x32x256": 0.1333}),
@@ -3977,23 +4010,26 @@ F32_BWD_BEFORE = {
 }
 
 
-def f32_bwd_compare(results, names):
-    """Phases 25 (c), 26 (a), 27 (a) and 28 (a): the float32 attention
-    backward (csrc/attn_tf32_bwd.cuh) at each shape beside its bound, SDPA's
-    backward on float32 (TF32 on) and PERF.md's earlier time where it has
-    one, and its sum over the main path's calls beside the earlier row
-    (``F32_BWD_BEFORE``)."""
+def f32_attention_compare(results, names):
+    """Phases 25 (c), 26 (a), 27 (a) and 28 (a)-(b): the float32 attention
+    kernels at each shape beside their bound and share of it, SDPA (or its
+    backward) on float32 (TF32 on) where there is one and PERF.md's
+    earlier time where it has one, and their sum over the main path's
+    calls beside the earlier row (``F32_ATTENTION_BEFORE``)."""
     for name in names:
         r = results[name]
-        before, shapes = F32_BWD_BEFORE[name]
+        before, shapes = F32_ATTENTION_BEFORE[name]
+        what = "backward" if "bwd" in name else "forward"
         parts = []
         for label, t in r["shapes"].items():
-            lib = ("" if t["library_ms"] is None
-                   else f", SDPA backward {t['library_ms']:.4f}")
+            lib = ("" if t["library_ms"] is None else
+                   f", SDPA{' backward' if 'bwd' in name else ''} "
+                   f"{t['library_ms']:.4f}")
             was = f", was {shapes[label]:.4f}" if label in shapes else ""
             parts.append(f"{label} {t['ms']:.4f} ms (bound "
-                         f"{t['bound_ms']:.4f}{lib}{was})")
-        print(f"float32 attention backward {name}: " + "; ".join(parts) +
+                         f"{t['bound_ms']:.4f}, {t['bound_ms'] / t['ms']:.1%}"
+                         f"{lib}{was})")
+        print(f"float32 attention {what} {name}: " + "; ".join(parts) +
               f"; on its main path {r['ms']:.4f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of its bound "
               f"{r['bound_ms']:.4f}, against the mma.sync design's "
@@ -4001,16 +4037,18 @@ def f32_bwd_compare(results, names):
 
 
 def attention_f32_bit_check(dev):
-    """Phase 25 (c): K9-f32 and K14-f32 run the same backward kernels
-    (csrc/attn_tf32_bwd.cuh over wg::Seq): on one packed float32 input at
-    the flagship's global level (batch 8, 256 tokens, 8 heads of 64, scale
-    1) their dq, dk, dv from the same out and lse agree bit for bit; and a
-    rerun of K14-f32 on the U-Net's strided q, k, v (batch 64, 256 tokens,
-    4 heads of 64) is bit-equal (no atomics)."""
+    """Phase 25 (c): K3-f32 and K13-f32 run the same forward kernel
+    (csrc/attn_tf32.cuh over wg::Seq), K9-f32 and K14-f32 the same
+    backward kernels (csrc/attn_tf32_bwd.cuh): on one packed float32 input
+    at the flagship's global level (batch 8, 256 tokens, 8 heads of 64,
+    scale 1) their out and lse, and their dq, dk, dv from the same out and
+    lse, agree bit for bit; and a rerun of K13-f32 and of K14-f32 on the
+    U-Net's strided q, k, v (batch 64, 256 tokens, 4 heads of 64) is
+    bit-equal (no atomics)."""
     from k_diffusion_tpu_torch.ops.kernels import flash, global_packed
 
-    def same(what, got, want):
-        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+    def same(what, got, want, names=("dq", "dk", "dv")):
+        for name, a, b_ in zip(names, got, want):
             b_ = b_.reshape(a.shape)
             if not torch.equal(a, b_):
                 raise AssertionError(f"{what} {name} differ by "
@@ -4024,17 +4062,22 @@ def attention_f32_bit_check(dev):
     v, dout = torch.randn((2, b, s, heads * 64), generator=g).to(dev)
     out, lse = global_packed.packed_forward(q, k, v, heads, save_lse=True)
     split = [x.reshape(b, s, heads, 64) for x in (q, k, v, out, dout)]
+    same("K3-f32 and K13-f32", (out, lse),
+         flash.flash_forward(*split[:3], 1.0, save_lse=True), ("out", "lse"))
     same("K9-f32 and K14-f32",
          global_packed.packed_backward(q, k, v, out, lse, dout, heads),
          flash.flash_backward(*split[:4], lse, split[4], 1.0))
     q, k, v, dout = float32_inputs(g, dev, UNET_BATCH, 256, 4, 64)
     out, lse = flash.flash_forward(q, k, v, 0.125, save_lse=True)
+    same("K13-f32 and its rerun", (out, lse),
+         flash.flash_forward(q, k, v, 0.125, save_lse=True), ("out", "lse"))
     same("K14-f32 and its rerun",
          flash.flash_backward(q, k, v, out, lse, dout, 0.125),
          flash.flash_backward(q, k, v, out, lse, dout, 0.125))
-    print(f"float32 attention bit check: K9-f32 and K14-f32 bit-identical "
-          f"dq, dk, dv on one packed input [{b}x{s}x{heads * 64}]; a K14-f32 "
-          f"rerun bit-equal [{UNET_BATCH}x256x4x64]", flush=True)
+    print(f"float32 attention bit check: K3-f32 and K13-f32 bit-identical "
+          f"out, lse, K9-f32 and K14-f32 dq, dk, dv on one packed input "
+          f"[{b}x{s}x{heads * 64}]; a K13-f32 and a K14-f32 rerun bit-equal "
+          f"[{UNET_BATCH}x256x4x64]", flush=True)
 
 
 def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
@@ -4049,7 +4092,7 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
     shapes = float32_shapes(unet)
     with torch.no_grad():
         run_cases(float32_cases(dev, shapes), results, 20, 5)
-        f32_bwd_compare(results, ("flash_bwd_f32",))
+        f32_attention_compare(results, ("flash_f32", "flash_bwd_f32"))
         tf32_check(dev, shapes)
         attention_f32_bit_check(dev)
     CLOCK.part("phase 25 (a)-(c) kernels")
@@ -4119,16 +4162,15 @@ F32_KERNELS = {
 # bf16 form takes in bfloat16 (the weights stay the model's float32
 # params); ``run(*inputs)`` calls the wrapper and ``plain(*inputs)`` its
 # plain version, each returning a tuple; ``timed``, where given, the
-# wrapper call that is timed (the backward alone); ``skip`` outputs left
-# out of the TF32 check (a logsumexp, computed in f32 by both forms);
-# ``reads`` tensors the timed call reads besides the inputs (a backward's
-# out and lse), for the bound; ``products`` the kernel's matrix products
-# alone as torch.matmul calls with TF32 on (Case's)
+# wrapper call that is timed (the backward alone); ``reads`` tensors the
+# timed call reads besides the inputs (a backward's out and lse), for the
+# bound; ``products`` the kernel's matrix products alone as torch.matmul
+# calls with TF32 on (Case's). The TF32 check holds every output, a
+# forward's lse included, to TF32_SHARE of its bf16 form's error
 F32Spec = collections.namedtuple(
     "F32Spec",
-    "name label calls make act run plain flops timed library skip reads "
-    "products",
-    defaults=(None, None, (), (), None))
+    "name label calls make act run plain flops timed library reads products",
+    defaults=(None, None, (), None))
 
 
 def f32_specs(dev):
@@ -4213,8 +4255,7 @@ def f32_specs(dev):
             4 * b * s * s * d,
             timed=lambda m=gp, heads=heads: global_packed.packed_forward(
                 *m[:3], heads),
-            library=under_tf32(True, lambda m=gp: sdpa(*split(*m[:3]), 1.0)),
-            skip=(1,)))
+            library=under_tf32(True, lambda m=gp: sdpa(*split(*m[:3]), 1.0))))
         fwd = global_packed.packed_forward(*gp[:3], heads, save_lse=True)
         with tf32(True):
             library = sdpa_backward(*split(*gp), 1.0)
@@ -4413,9 +4454,8 @@ def f32_tf32_check(specs):
             got = s.run(*cast)
             errs[dtype] = [((a.double() - w).abs().max() / w.abs().max()).item()
                            for a, w in zip(got, want)]
-        shares = [a / c for i, (a, c) in enumerate(zip(errs[torch.float32],
-                                                       errs[torch.bfloat16]))
-                  if i not in s.skip]
+        shares = [a / c for a, c in zip(errs[torch.float32],
+                                         errs[torch.bfloat16])]
         label = f"{s.name} [{s.label}]"
         print(f"tf32 check {label}: against float64, max abs err over "
               f"max|f64| by output: float32 kernel "
@@ -4637,7 +4677,8 @@ def transformers_float32_phase(KT, dev, smi, results):
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 20, 3)
         f32_fwd_compare(results)
-        f32_bwd_compare(results, ("global_packed_bwd_f32",))
+        f32_attention_compare(results, ("global_packed_f32",
+                                        "global_packed_bwd_f32"))
         f32_tf32_check(specs)
         f32_rerun_and_split(specs)
     del specs
@@ -4770,7 +4811,7 @@ def na_f32_specs(dev):
             timed=lambda m=m, heads=heads: na2d.packed_forward(*m[:3], heads,
                                                                7),
             library=None if wide else under_tf32(
-                True, na_library(split[:3])), skip=(1,)))
+                True, na_library(split[:3]))))
         fwd = na2d.packed_forward(*m[:3], heads, 7, save_lse=True)
         specs.append(F32Spec(
             "na2d_bwd_f32", label, n, lambda m=m: m, (0, 1, 2, 3),
@@ -4792,7 +4833,7 @@ def na_f32_specs(dev):
             lambda q, k, v: (na2d.na2d_reference(q, k, v, 7),
                              na_lse_plain(q, k, 7)), flops,
             timed=lambda m=m: na2d.heads_forward(*m[:3], 7, save_lse=True),
-            library=under_tf32(True, na_library(m[:3])), skip=(1,)))
+            library=under_tf32(True, na_library(m[:3]))))
         fwd = na2d.heads_forward(*m[:3], 7, save_lse=True)
         specs.append(F32Spec(
             "na2d_heads_bwd_f32", label, n, lambda m=m: m, (0, 1, 2, 3),
@@ -4876,7 +4917,8 @@ def na_float32_phase(KT, config, dev, smi, results, cpu_ref, bf16_reports):
     specs = na_f32_specs(dev)
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 20, 2)
-        f32_bwd_compare(results, ("na2d_bwd_f32", "na2d_heads_bwd_f32"))
+        f32_attention_compare(results, ("na2d_f32", "na2d_heads_f32",
+                                        "na2d_bwd_f32", "na2d_heads_bwd_f32"))
         f32_tf32_check(specs)
     del specs
     torch.cuda.empty_cache()
@@ -5111,7 +5153,7 @@ def na128_specs(dev):
             lambda q, k, v: (na2d.na2d_reference(q, k, v, 7),
                              na_lse_plain(q, k, 7)), flops,
             timed=lambda m=m: na2d.heads_forward(*m[:3], 7),
-            library=under_tf32(True, na_library(m[:3])), skip=(1,)))
+            library=under_tf32(True, na_library(m[:3]))))
         fwd = na2d.heads_forward(*m[:3], 7, save_lse=True)
         specs.append(F32Spec(
             "na2d_heads_bwd_f32_e128", label, 4, lambda m=m: m, (0, 1, 2, 3),
@@ -5344,7 +5386,8 @@ def na128_phase(KT, dev, smi, results, bf16_reports, f32_reports):
         run_cases(f32_cases(specs), results, 20, 2)
         run_cases(cases, results, 20, 2)
         na128_compare(results)
-        f32_bwd_compare(results, ("na2d_heads_bwd_f32_e128",))
+        f32_attention_compare(results, ("na2d_heads_f32_e128",
+                                        "na2d_heads_bwd_f32_e128"))
         f32_tf32_check(specs)
         na128_rerun_check(specs)
     del specs, cases
@@ -5354,6 +5397,7 @@ def na128_phase(KT, dev, smi, results, bf16_reports, f32_reports):
     specs = proj_f32_specs(dev)
     with torch.no_grad():
         run_cases(f32_cases(specs), results, 50, 3)
+        f32_attention_compare(results, ("na2d_proj_f32",))
         f32_tf32_check(specs)
         proj_f32_identity_check(specs)
     proj_counts = proj_f32_path(specs)
@@ -5671,16 +5715,20 @@ def profile(run, name, what, ops=()):
                   f"step or call, {e.self_device_time_total / e.count:.1f} us "
                   f"each, {e.self_device_time_total / 3e3:.3f} ms a step or "
                   f"call", flush=True)
-    # the float32 attention backward (csrc/attn_tf32_bwd.cuh): its share of
-    # a float32 step's card time
-    wg_ms = sum(e.self_device_time_total for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "tf32_wg_d" in e.key) / 3e3
-    if wg_ms:
-        print(f"{name} profile: the float32 attention backward "
-              f"(tf32_wg_dq_kernel, tf32_wg_dkv_kernel) {wg_ms:.3f} ms of the "
-              f"{device_ms:.3f} ms a step ({wg_ms / device_ms:.1%})",
-              flush=True)
+    # the float32 attention forward and backward (csrc/attn_tf32.cuh,
+    # attn_tf32_bwd.cuh): their shares of a float32 call's or step's card
+    # time
+    for what, keys in (("forward (tf32_wg_fwd_kernel, na_tf32_wg_fwd_kernel)",
+                        ("tf32_wg_fwd",)),
+                       ("backward (tf32_wg_dq_kernel, tf32_wg_dkv_kernel)",
+                        ("tf32_wg_d",))):
+        wg_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in e.key for k in keys)) / 3e3
+        if wg_ms:
+            print(f"{name} profile: the float32 attention {what} "
+                  f"{wg_ms:.3f} ms of the {device_ms:.3f} ms a step or call "
+                  f"({wg_ms / device_ms:.1%})", flush=True)
     # the float32 forwards of the prologue and the feed-forward block (csrc/
     # fused_qkv_f32.cu, geglu_f32.cu) and the weight-rounding passes their
     # wrappers and the backwards' make: their card time a call or step

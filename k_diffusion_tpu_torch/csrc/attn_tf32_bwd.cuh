@@ -1,12 +1,13 @@
 // The backward of exact softmax attention in float32 (--mixed-precision
 // no) on the TF32 wgmma tensor cores: the dq kernel (which also forms delta
 // = rowsum(out * dout)) and the dk/dv kernel, as bodies over a geometry
-// policy (attn_tf32.cuh's Args, the policies of wgmma.cuh and na2d.cuh).
-// Over wg::Seq they are K14 in f32 (flash.cu) and K9 in f32
-// (global_packed.cu), the dense kernels below; over na2d.cuh's NaQueries
-// and NaKeys they are K7 in f32 (na2d.cu) and K12 in f32 (na2d_heads.cu,
-// head dims 32, 64 and 128), na_tf32.cuh's kernels. The forward stays on
-// attn_tf32.cuh's mma.sync bodies.
+// policy (the policies of wgmma.cuh and na2d.cuh) on attn_tf32.cuh's
+// shared pieces (Args, tiles, copies, products, stores). Over wg::Seq they
+// are K14 in f32 (flash.cu) and K9 in f32 (global_packed.cu), the dense
+// kernels below; over na2d.cuh's NaQueries and NaKeys they are K7 in f32
+// (na2d.cu) and K12 in f32 (na2d_heads.cu, head dims 32, 64 and 128),
+// na_tf32.cuh's kernels. The forward is attn_tf32.cuh's, on the same
+// operand roles.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/flash.py:_dq_kernel, :_dkv_kernel,
 // global_packed.py:_bwd_kernel, na2d.py:_na_packed_dqkv_kernel,
@@ -25,13 +26,10 @@
 // latency: the copies of its first tiles and the chain of products,
 // exponentials and barriers a tile.
 //
-// What wgmma asks, and the design's answer. Its .tf32 form takes B from
-// shared memory K-major only, and A from registers (the RS form) in either
-// layout. Of the five products two per kernel reduce over e, which the
-// tiles hold contiguously, and three reduce over a streamed tile's rows.
-// So every product is written with the streamed tile as its A operand,
-// read into registers and rounded as read, and the block's own tiles (or
-// p and ds, written by the threads that form them) as its K-major B:
+// Operand roles (attn_tf32.cuh says why): every product has the streamed
+// tile as its A operand, read into registers and rounded as read, and the
+// block's own tiles (or p and ds, written by the threads that form them)
+// as its K-major B:
 // - dq kernel, own queries Q and dO, streamed keys K and V:
 //   S^T = K Q^T and dP^T = V dO^T (reductions over e), dS^T = P^T (dP^T -
 //   delta), then dQ^T += K^T dS^T over the tile's keys, dS written to
@@ -40,28 +38,9 @@
 //   and dP = dO V^T, P and dS = P (dP - delta), then dV^T += dO^T P and
 //   dK^T += Q^T dS over the tile's queries, P^T and dS^T written to shared
 //   memory as the B operands.
-// The own tiles are rounded once in shared memory when they land; a
-// streamed tile lands as the copy leaves it and is only read through
-// registers, so no pass over it rounds it (a pass that rounds each
-// streamed tile once, for products reading A from shared memory, made
-// the e = 64 kernels slower). The accumulators come out transposed (e by
-// rows); they are staged in shared memory as the output tiles and stored
-// by the copy engine. A product over a tile's rows reads its A fragment
-// down the tile's columns; its depth runs over the rows in a permuted
-// order (depth t is row 2 t, depth t + 4 row 2 t + 1 of each 8), which its
-// B operand's writers follow (depth_pos), so that both the fragment reads
-// and the transposed writes fall in 32 banks.
-//
-// Copies. One thread starts every tile's copy by the Tensor Memory
-// Accelerator: 32-column boxes of a 5-D (e, head, x, y, image) view of
-// each tensor through its strides (Maps, encoded on the host each call),
-// which land in wgmma's 128-byte swizzle and zero-fill what lies past the
-// map; an mbarrier a stage counts the bytes. A box is the geometry's tile
-// of rows (own_box, stream_box): 64 sequence rows, an 8 x 8 neighborhood
-// tile, or a halo (slab) band of 4 rows of 16 slots, whose slots past the
-// halo (slab) but inside the map hold data the geometry's mask rejects.
-// Streamed tiles go through a ring of two stages. The dk/dv kernel reads
-// each streamed row's lse and delta into registers a tile ahead.
+// The tiles are copied by attn_tf32.cuh's TMA boxes through a ring of two
+// stages; the dk/dv kernel reads each streamed row's lse and delta into
+// registers a tile ahead.
 //
 // Blocks. At e = 32 and 64 a block is one warpgroup that runs every
 // product of a tile in turn (serial bodies), and two blocks share an SM,
@@ -82,13 +61,9 @@
 // with their upper 32 rows zero.
 #pragma once
 
-#include <cuda.h>
-
 #include <cstdint>
 
 #include "attn_tf32.cuh"
-#include "gemm.cuh"
-#include "wgmma_tf32.cuh"
 
 namespace kdt {
 namespace tf32 {
@@ -101,166 +76,8 @@ constexpr int BWD_THREADS = 128 * BWD_WGS<E>;
 // blocks an SM at head dim E (the launch bounds)
 template <int E>
 constexpr int BWD_BLOCKS = E == 128 ? 1 : 2;
-// stages of the streamed ring
-constexpr int RING = 2;
-// bytes of a (64, E) f32 tile, E / 32 panels of 8 KB
-template <int E>
-constexpr int TILE_BYTES = ROWS * E * 4;
-// bytes of a 64 x 64 f32 exchange tile (P^T, dS, dS^T)
-constexpr int X_BYTES = ROWS * ROWS * 4;
-// m64 blocks of an accumulator over e rows (e = 32 pads to one)
-template <int E>
-constexpr int MB = E == 128 ? 2 : 1;
-
-// Byte offset of element (r, c) of a (64, E) f32 tile: panel c / 32, row r
-// of 128 bytes, the 16-byte chunk XORed with r mod 8 (the copy engine's
-// 128-byte swizzle on a tile aligned to 1024 bytes).
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 5) * (ROWS * 128) + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) + ((c & 3) << 2);
-}
-
-// The depth position, in a product over a tile's rows, of the tile's row r:
-// rows 2 t and 2 t + 1 of each 8 are depths t and t + 4.
-__device__ __forceinline__ int depth_pos(int r) {
-  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
-}
-
-__device__ __forceinline__ float lds(const unsigned char* p) {
-  return *reinterpret_cast<const float*>(p);
-}
-
-// Generic-proxy accesses to shared memory ordered with the async proxy's
-// (wgmma's reads, the copy engine's writes); a barrier must follow before
-// another thread's wgmma or copy.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Named barriers between the two warpgroups of a split block: arrive
-// (producer) and sync (consumer, or all `n` threads).
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// ---- copies ----------------------------------------------------------------
-
-// The tensor maps of a backward launch: its own tiles' (dq kernel: Q, dO
-// and out; dk/dv kernel: K and V), its streamed tiles' (dq: K and V;
-// dk/dv: Q and dO) and its outputs' (dq; dk and dv).
-struct Maps {
-  CUtensorMap own[3], stream[2], out[2];
-};
-
-// The block's mbarriers (the own tiles', then each ring stage's),
-// initialised, in the 1024 bytes of alignment slack: before the tiles
-// where the slack there holds them, else after the tiles' `bytes`.
-__device__ __forceinline__ uint64_t* init_bars(unsigned char* raw, unsigned char* tiles,
-                                               int bytes) {
-  constexpr int N = 1 + RING;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(tiles - raw >= 8 * N ? raw : tiles + bytes);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) gemm::mbar_init(&bar[i]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  return bar;
-}
-
-// The arrival of the copying thread on `bar`, which then expects `bytes`.
-__device__ __forceinline__ void expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   wg::smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Starts the copy of the (64, E) tile of head `head` of image `img` whose
-// row 0 lies at map position `at` into the tile at dst: E / 32 boxes, one
-// a panel, their bytes counted on bar.
-template <int E>
-__device__ __forceinline__ void copy_tile(unsigned char* dst, const CUtensorMap* map, int head,
-                                          wg::Pos at, int img, uint64_t* bar) {
-#pragma unroll
-  for (int p = 0; p < E / 32; ++p)
-    asm volatile(
-        "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-        "{%2, %3, %4, %5, %6}], [%7];\n" ::"r"(wg::smem_u32(dst + p * ROWS * 128)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(32 * p), "r"(head), "r"(at.x), "r"(at.y),
-        "r"(img), "r"(wg::smem_u32(bar))
-        : "memory");
-}
-
-// Starts the copy of streamed tile j's two tiles (map.stream[0] and [1])
-// into the ring stage at dst, counted on bar; the copying thread calls it
-// once the block is done with the stage.
-template <int E, class G>
-__device__ __forceinline__ void copy_stage(unsigned char* dst, const Maps& m, const G& geo, int j,
-                                           int head, int img, uint64_t* bar) {
-  fence_async_smem();  // the block's plain reads of the stage come first
-  expect(bar, 2 * TILE_BYTES<E>);
-  copy_tile<E>(dst, &m.stream[0], head, geo.stream_box(j), img, bar);
-  copy_tile<E>(dst + TILE_BYTES<E>, &m.stream[1], head, geo.stream_box(j), img, bar);
-}
-
-// Rounds a landed (64, E) tile to TF32 in place (the order of its elements
-// does not matter), the block's THREADS threads taking part.
-template <int E, int THREADS>
-__device__ __forceinline__ void round_tile(unsigned char* tile) {
-  for (int i = threadIdx.x; i < ROWS * E / 4; i += THREADS) {
-    float4* p = reinterpret_cast<float4*>(tile + 16 * i);
-    const float4 v = *p;
-    *p = make_float4(tw::round_tf32(v.x), tw::round_tf32(v.y), tw::round_tf32(v.z),
-                     tw::round_tf32(v.w));
-  }
-}
 
 // ---- products ----------------------------------------------------------------
-
-// The rounded A fragment of k8 slice kk of a product over e whose A rows
-// are the tile's rows: A (m, k) = tile[m][k], m = 16 w + g (+ 8), k = 8 kk
-// + t (+ 4).
-__device__ __forceinline__ void frag_rows(uint32_t (&a)[4], const unsigned char* tile, int kk) {
-  const int lane = threadIdx.x & 31;
-  const int m = 16 * ((threadIdx.x / 32) & 3) + (lane >> 2), k = 8 * kk + (lane & 3);
-  a[0] = tw::to_tf32(lds(tile + swz(m, k)));
-  a[1] = tw::to_tf32(lds(tile + swz(m + 8, k)));
-  a[2] = tw::to_tf32(lds(tile + swz(m, k + 4)));
-  a[3] = tw::to_tf32(lds(tile + swz(m + 8, k + 4)));
-}
-
-// The rounded A fragment of k8 slice kk of a product over the tile's rows
-// whose A rows are the tile's columns m0 + 16 w + g (+ 8): A (m, k) =
-// tile[row][m], depths t and t + 4 rows 8 kk + 2 t and 8 kk + 2 t + 1
-// (depth_pos). Columns past E (e = 32's padding) are zero.
-template <int E>
-__device__ __forceinline__ void frag_cols(uint32_t (&a)[4], const unsigned char* tile, int m0,
-                                          int kk) {
-  const int lane = threadIdx.x & 31;
-  const int m = m0 + 16 * ((threadIdx.x / 32) & 3) + (lane >> 2), r = 8 * kk + 2 * (lane & 3);
-  if (E < 64 && m >= E) {
-    a[0] = a[1] = a[2] = a[3] = 0u;
-    return;
-  }
-  a[0] = tw::to_tf32(lds(tile + swz(r, m)));
-  a[1] = tw::to_tf32(lds(tile + swz(r, m + 8)));
-  a[2] = tw::to_tf32(lds(tile + swz(r + 1, m)));
-  a[3] = tw::to_tf32(lds(tile + swz(r + 1, m + 8)));
-}
-
-// Starts acc (64 x N) += A B over K / 8 k8 slices, A the fragments a, B the
-// K-major tile at `b` (panels of 32 depths 8 KB apart) from its row n0; not
-// committed.
-template <int N, int K>
-__device__ __forceinline__ void chain(float (&acc)[N / 2], const uint32_t (&a)[K / 8][4],
-                                      const unsigned char* b, int n0) {
-  const uint64_t d = tw::desc(b) + static_cast<uint64_t>(n0 * 128 / 16);
-#pragma unroll
-  for (int kk = 0; kk < K / 8; ++kk)
-    tw::mma<N>(acc, a[kk], d + (kk / 4) * (ROWS * 128 / 16) + (kk % 4) * 2, 1);
-}
 
 // acc (64 x 64) = X Y^T over E, X the streamed tile x (its rows the A rows,
 // read into registers), Y the own rounded tile y (B): started and committed
@@ -324,21 +141,6 @@ __device__ __forceinline__ void get_raw(float (&x)[32], const unsigned char* z) 
     x[4 * i + 2] = v.z;
     x[4 * i + 3] = v.w;
   }
-}
-
-// Writes a 64 x 64 accumulator x (rows r, columns c), rounded, as the
-// K-major B operand of a product over its rows: tile row c, depth
-// depth_pos(r); made visible to wgmma (a barrier must follow).
-__device__ __forceinline__ void put_t(const float (&x)[32], unsigned char* z) {
-  const int lane = threadIdx.x & 31, r0 = 16 * ((threadIdx.x / 32) & 3) + (lane >> 2);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + 8 * (e >> 1), c = 8 * i + 2 * (lane & 3) + (e & 1);
-      *reinterpret_cast<float*>(z + swz(c, depth_pos(r))) = tw::round_tf32(x[4 * i + e]);
-    }
-  fence_async_smem();
 }
 
 // ---- softmax pieces -------------------------------------------------------------
@@ -417,49 +219,6 @@ __device__ __forceinline__ void form_delta(const Args& a, const G& geo, long sta
     const wg::Pos p = geo.own(row);
     if (p.ok) a.delta[stat0 + geo.index(p)] = sum;
   }
-}
-
-// ---- stores ----------------------------------------------------------------------
-
-// Stages a warpgroup's e-by-rows accumulator of NB m64 blocks from e row m0
-// (64 own rows each), times mul, as the (64, E) output tile at s_o (row n,
-// column m, in the copy engine's swizzle); rows past E are dropped.
-template <int E, int NB>
-__device__ __forceinline__ void stage_tile(const float (&acc)[NB][32], int m0, float mul,
-                                           unsigned char* s_o) {
-  const int lane = threadIdx.x & 31, w = (threadIdx.x / 32) & 3;
-#pragma unroll
-  for (int mb = 0; mb < NB; ++mb)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + 64 * mb + 16 * w + (lane >> 2) + 8 * (e >> 1);
-        const int n = 8 * i + 2 * (lane & 3) + (e & 1);
-        if (m < E) *reinterpret_cast<float*>(s_o + swz(n, m)) = acc[mb][4 * i + e] * mul;
-      }
-}
-
-// Starts the copy of the staged (64, E) tile at s_o to the own rows of head
-// `head` of image `img` through `map` (rows past the map are not written);
-// the copying thread calls it once the block has staged the tile.
-template <int E>
-__device__ __forceinline__ void store_tile(const unsigned char* s_o, const CUtensorMap* map,
-                                           int head, wg::Pos at, int img) {
-#pragma unroll
-  for (int p = 0; p < E / 32; ++p)
-    asm volatile(
-        "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4, %5}], "
-        "[%6];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-        "r"(32 * p), "r"(head), "r"(at.x), "r"(at.y), "r"(img),
-        "r"(wg::smem_u32(s_o + p * ROWS * 128))
-        : "memory");
-}
-// Commits the copying thread's stores and waits until they have read
-// shared memory, so that the block may end.
-__device__ __forceinline__ void stores_done() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---- the dq kernel ----------------------------------------------------------------
@@ -592,7 +351,7 @@ __device__ __forceinline__ void wg_dq_body(const Args& a, const Maps& m, const G
     product_rows<E, 64>(acc_dq[0], s_k, m0, s_x, 0);
   }
   __syncthreads();  // every product is done with the ring
-  stage_tile<E, 1>(acc_dq, m0, a.scale, s_ring);
+  stage_tile<E, 1>(acc_dq, m0, [&](int, int) { return a.scale; }, s_ring);
   fence_async_smem();
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -732,10 +491,11 @@ __device__ __forceinline__ void wg_dkv_body(const Args& a, const Maps& m, const 
   unsigned char* s_dk = s_ring;
   unsigned char* s_dv = s_ring + T;
   if constexpr (SPLIT) {
-    stage_tile<E, MB<E>>(acc_d[0], 0, wgi == 0 ? a.scale : 1.f, wgi == 0 ? s_dk : s_dv);
+    const float mul = wgi == 0 ? a.scale : 1.f;
+    stage_tile<E, MB<E>>(acc_d[0], 0, [&](int, int) { return mul; }, wgi == 0 ? s_dk : s_dv);
   } else {
-    stage_tile<E, MB<E>>(acc_d[0], 0, a.scale, s_dk);
-    stage_tile<E, MB<E>>(acc_d[NACC - 1], 0, 1.f, s_dv);
+    stage_tile<E, MB<E>>(acc_d[0], 0, [&](int, int) { return a.scale; }, s_dk);
+    stage_tile<E, MB<E>>(acc_d[NACC - 1], 0, [](int, int) { return 1.f; }, s_dv);
   }
   fence_async_smem();
   __syncthreads();
@@ -747,31 +507,6 @@ __device__ __forceinline__ void wg_dkv_body(const Args& a, const Maps& m, const 
 }
 
 // ---- launches -------------------------------------------------------------------
-
-// The tensor map of the E-wide rows of heads of `base` read through strides
-// st, as a 5-D (e, head, x, y, image) view of a (b, h, w, heads, E) map (a
-// sequence: h = s, w = 1), for boxes of 32 e by one head by bx x by
-// positions.
-template <int E>
-cudaError_t rows_map(CUtensorMap* map, const float* base, const MapStrides& st, int b, int h,
-                     int w, int heads, int bx, int by) {
-  gemm::EncodeTiled encode;
-  const cudaError_t err = gemm::encode_tiled(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[5] = {E, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(w),
-                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
-  // a sequence's one column takes the row stride (a stride must not be 0)
-  const cuuint64_t strides[4] = {E * 4, static_cast<cuuint64_t>(w > 1 ? st.x : st.y) * 4,
-                                 static_cast<cuuint64_t>(st.y) * 4,
-                                 static_cast<cuuint64_t>(st.b) * 4};
-  const cuuint32_t box[5] = {32, 1, static_cast<cuuint32_t>(bx), static_cast<cuuint32_t>(by), 1};
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<float*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 // The maps of both kernels of a backward launch over (b, h, w, heads, E)
 // maps: own tiles in boxes of ox x oy positions, streamed ones in sx x sy.

@@ -26,9 +26,9 @@
 // configs/config_test_tiny.json).
 //
 // The float32 forms of both (--mixed-precision no): the forward is
-// attn_tf32.cuh's mma.sync kernel, the backward attn_tf32_bwd.cuh's TF32
-// wgmma kernels; the same contract on f32 operands, products on the TF32
-// tensor cores.
+// attn_tf32.cuh's TF32 wgmma kernel, the backward attn_tf32_bwd.cuh's two;
+// the same contract on f32 operands, products on the TF32 tensor cores,
+// tiles copied by TMA through maps encoded here each call.
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
 #include "attn_tf32.cuh"

@@ -21,9 +21,9 @@
 // multiple of 16 up to 512).
 //
 // Their float32 forms (--mixed-precision no) run attn_tf32.cuh's TF32
-// forward (mma.sync) and attn_tf32_bwd.cuh's two-kernel backward (TF32
-// wgmma), which K13 and K14 share in float32, on the same strided layout:
-// no kernel body of their own, as in bf16.
+// wgmma forward and attn_tf32_bwd.cuh's two-kernel backward, which K13 and
+// K14 share in float32, on the same strided layout: no kernel body of
+// their own, as in bf16.
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
 #include "attn_tf32.cuh"

@@ -71,12 +71,14 @@ constexpr int BANDS = ROWS / SLOTS;   // halo (slab) rows of a streamed tile
 // (row-major over the map's tiles) and the tiles of its halo. The halo is
 // he = 8 + ks - 1 rows and columns from the window start of the tile's
 // first query (TileGeometry); its keys stream past as tiles of 4 halo rows
-// of 16 key slots (slots past he or past the map zero-filled by the copy):
-// 4 tiles at ks = 7. A pair attends where the key lies in the query's
-// window; no slot past the halo or the map ever does. No row can count on
-// a key in every tile: at ks = 7 the window of row t of an interior tile
-// spans halo rows t to t + 6, so the first tile (halo rows 0-3) holds no
-// key of rows 4-7 and the last (halo rows 12-13) none of rows 0-5.
+// of 16 key slots (slots past he or past the map zero-filled by the bf16
+// kernels' copies; the float32 kernels' TMA boxes zero-fill only those past
+// the map): 4 tiles at ks = 7. A pair attends where the key lies in the
+// query's window; no slot past the halo or the map ever does. No row can
+// count on a key in every tile: at ks = 7 the window of row t of an
+// interior tile spans halo rows t to t + 6, so the first tile (halo rows
+// 0-3) holds no key of rows 4-7 and the last (halo rows 12-13) none of
+// rows 0-5.
 struct NaQueries {
   int y0, x0, hr0, hc0, r, he, h, w, ks, tiles, positions;
   __device__ NaQueries(int tile, int h_, int w_, int ks_) : h(h_), w(w_), ks(ks_) {

@@ -49,7 +49,7 @@
 // over NaQueries, then a wgmma product with w_out whose A operand, the
 // ranks' attention outputs, comes as register fragments over distributed
 // shared memory. Its float32 form is na_proj_tf32.cuh's: the same cluster
-// on attn_tf32.cuh's TF32 attention, the ranks' f32 outputs read as
+// on attn_tf32.cuh's TF32 wgmma attention, the ranks' f32 outputs read as
 // mma.sync A fragments over distributed shared memory.
 #include "na2d.cuh"
 #include "na_bwd.cuh"

@@ -3,11 +3,11 @@
 // with its logsumexp (K2 in f32 on channel-packed maps, na2d.cu; K11 in
 // f32 on per-head maps at head dims 32, 64 and 128, na2d_heads.cu) and the
 // two-kernel backward (K7 and K12 in f32). attn_tf32.cuh's forward body
-// (mma.sync) and attn_tf32_bwd.cuh's backward bodies (TF32 wgmma) run over
-// na2d.cuh's neighborhood geometry, as na_fwd.cuh and na_bwd.cuh run the
-// bf16 bodies. Each query attends to exactly ks x ks keys, its window start
-// clamp(i - (ks - 1) / 2, 0, n - ks) on each axis (NATTEN's contract),
-// ks <= 7.
+// and attn_tf32_bwd.cuh's backward bodies (TF32 wgmma, tiles copied by TMA)
+// run over na2d.cuh's neighborhood geometry, as na_fwd.cuh and na_bwd.cuh
+// run the bf16 bodies. Each query attends to exactly ks x ks keys, its
+// window start clamp(i - (ks - 1) / 2, 0, n - ks) on each axis (NATTEN's
+// contract), ks <= 7.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/na2d.py:_na_packed_fwd_kernel (K2)
 // and :_na_fwd_kernel (K11), :_na_packed_dqkv_kernel (K7) and
@@ -24,10 +24,10 @@
 // 67 MB, 20 us: bound by memory. The backward reads q, k, v, out, dout and
 // the lse and writes dq, dk, dv: 8 f32 maps, bound by memory too.
 //
-// Design: the forward's block is 4 warps (8 at E = 128), a backward
-// block one or two warpgroups (attn_tf32_bwd.cuh); its 64 own rows an 8 x
-// 8 tile of one head of one image; the grid is (tiles, heads, batch).
-// - na_tf32_fwd_kernel and na_tf32_wg_dq_kernel: the own rows are a query
+// Design: a block is one warpgroup (two at E = 128: attn_tf32.cuh's and
+// attn_tf32_bwd.cuh's split bodies); its 64 own rows an 8 x 8 tile of one
+// head of one image; the grid is (tiles, heads, batch).
+// - na_tf32_wg_fwd_kernel and na_tf32_wg_dq_kernel: the own rows are a query
 //   tile (NaQueries). The clamped union of its queries' windows, the halo,
 //   streams past as 64-row f32 tiles of K and V, 4 halo rows of 16 key
 //   slots each: 4 tiles at ks = 7, 2 at ks = 1.
@@ -37,22 +37,22 @@
 //   query slots a tile.
 // A pair attends where the key lies in the query's window, tested on the
 // logits' accumulator coordinates in registers before p becomes an
-// operand; slots past the halo, the slab or the map are zero-filled by the
-// forward's copies (the backward's TMA boxes zero-fill those past the map
-// and carry the data of the others) and rejected by the geometry, not by
-// their values (their lse and delta are 0). A row that has no key in a
+// operand; the TMA boxes zero-fill the slots past the map and carry the
+// data of those past the halo or the slab, which the geometry rejects, not
+// their values (their lse and delta are 0). A query that has no key in a
 // tile keeps its running max at -inf and adds nothing (the forward's
 // guard). The dq kernel forms delta = rowsum(out * dout); no atomics, so a
 // rerun is bit-equal, and K2 / K11 (K7 / K12) on the same maps are bit for
 // bit the same kernel.
 //
-// At E = 64 the forward holds 5 padded f32 tiles (85 KB), two blocks an
-// SM; at E = 128 165 KB (168,960 bytes), one block an SM, of two
-// warpgroups (attn_tf32.cuh's WG<128>). The backward's blocks are one
-// warpgroup, two an SM, at E = 32 and 64 (97.5 KB for dq, 113 KB for dk/dv
-// at 64) and two warpgroups, one an SM, at E = 128 (209.5 KB and 225 KB):
-// attn_tf32_bwd.cuh's sizes. Its copies are TMA boxes: an own tile is 8 x
-// 8 positions, a streamed tile 4 halo (slab) rows of 16 slots.
+// The forward's blocks are one warpgroup, two an SM, at E = 32 and 64
+// (Q, two stages each of K and V and the P^T tile: 97.5 KB at 64) and two
+// warpgroups, one an SM, at E = 128 (177.5 KB): attn_tf32.cuh's sizes. The
+// backward's are one warpgroup, two an SM, at E = 32 and 64 (97.5 KB for
+// dq, 113 KB for dk/dv at 64) and two warpgroups, one an SM, at E = 128
+// (209.5 KB and 225 KB): attn_tf32_bwd.cuh's sizes. The copies are TMA
+// boxes: an own tile is 8 x 8 positions, a streamed tile 4 halo (slab)
+// rows of 16 slots.
 //
 // The kernels are written over MapStrides and the head dim E (32, 64 or
 // 128), q, k and v each read through its own strides: K2 and K7 run them at
@@ -60,8 +60,7 @@
 // at 32, 64 and 128 on per-head maps (in the unfused prologue v is a
 // strided third of the qkv projection, its row stride 3 c). Each head's row
 // of E floats is contiguous and its strides are multiples of 4 elements,
-// so every 16-byte cp.async stays aligned and every stride of a TMA box's
-// map is a multiple of 16 bytes.
+// so every stride of a TMA box's map is a multiple of 16 bytes.
 #pragma once
 
 #include "attn_tf32.cuh"
@@ -72,9 +71,10 @@ namespace kdt {
 namespace na_tf32 {
 
 template <int E>
-__global__ void __launch_bounds__(tf32::BLOCK<E>)
-    na_tf32_fwd_kernel(const tf32::Args a, int h, int w, int ks) {
-  tf32::fwd_body<E>(a, NaQueries(blockIdx.x, h, w, ks));
+__global__ void __launch_bounds__(tf32::FWD_THREADS<E>, tf32::FWD_BLOCKS<E>)
+    na_tf32_wg_fwd_kernel(const tf32::Args a, const __grid_constant__ tf32::Maps m, int h, int w,
+                          int ks) {
+  tf32::wg_fwd_body<E>(a, m, NaQueries(blockIdx.x, h, w, ks));
 }
 
 template <int E>
@@ -97,10 +97,13 @@ __global__ void __launch_bounds__(tf32::BWD_THREADS<E>, tf32::BWD_BLOCKS<E>)
 // error code.
 template <int E>
 int launch_fwd(const tf32::Args& a, int b, int h, int w, int ks, cudaStream_t st) {
+  tf32::Maps m;
+  const cudaError_t err = tf32::fwd_maps<E>(a, b, h, w, TQ, TQ, SLOTS, BANDS, true, m);
+  if (err != cudaSuccess) return static_cast<int>(err);
   constexpr size_t smem = tf32::FWD_SMEM<E>;
-  const cudaError_t attr = allow_smem(na_tf32_fwd_kernel<E>, smem);
+  const cudaError_t attr = allow_smem(na_tf32_wg_fwd_kernel<E>, smem);
   const dim3 grid((h / TQ) * (w / TQ), a.n_heads, b);
-  na_tf32_fwd_kernel<E><<<grid, tf32::BLOCK<E>, smem, st>>>(a, h, w, ks);
+  na_tf32_wg_fwd_kernel<E><<<grid, tf32::FWD_THREADS<E>, smem, st>>>(a, m, h, w, ks);
   return launch_status(attr);
 }
 

@@ -1,6 +1,8 @@
 // The TF32 wgmma products shared by the float32 GEMM core of K1-f32,
-// K4-f32, K6-f32 and K10-f32 (gemm_tf32_wg.cuh) and the attention backward
-// of K14-f32, K9-f32, K7-f32 and K12-f32 (attn_tf32_bwd.cuh):
+// K4-f32, K6-f32 and K10-f32 (gemm_tf32_wg.cuh) and the float32 attention:
+// the forward of K13-f32, K3-f32, K2-f32, K11-f32 and K15-f32's attention
+// (attn_tf32.cuh) and the backward of K14-f32, K9-f32, K7-f32 and K12-f32
+// (attn_tf32_bwd.cuh):
 // - a .tf32 operand is the f32 bit pattern with its low 13 bits ignored,
 //   so every operand is rounded to nearest (cvt.rna) first: to_tf32 where
 //   an A fragment is read into registers, round_tf32 where a value is
