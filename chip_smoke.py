@@ -24,8 +24,9 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    float32 weights; uncounted, with bfloat16 weights and at batch 32);
    a profile showing that each K5 call runs one device kernel and nothing
    else, at the flagship's width and at the ViT's (d 768, d_ff 2048, batch
-   64, streamed); then K3's training forward, out and logsumexp, against
-   the plain versions;
+   64, streamed), in bf16 and in float32 (K5-f32, with its blocks' clock
+   counts: weight waits, cluster barriers); then K3's training forward,
+   out and logsumexp, against the plain versions;
 4. forward: the flagship HDiT (configs/config_oxford_flowers.json, seeded
    weights, zero-init tensors filled with noise) at batch 2 in bfloat16 on
    the card against the same weights in float32 on the CPU (plain versions);
@@ -208,20 +209,24 @@ Phases, each printing one line (the kernel phases one per kernel and shape):
    point in-process.
 26. float32 compute on the card for the ViT and the HDiT without
    neighborhood-attention levels (``transformers_float32_phase``): (a) the
-   float32 forms of K1, K4, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu,
-   all on the TF32 wgmma core csrc/gemm_tf32_wg.cuh; K4 in one launch at
-   d <= 512), K5 (csrc/gemm_tf32.cuh) and K3/K9 (csrc/attn_tf32.cuh)
+   float32 forms of K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu,
+   geglu_f32.cu, all on the TF32 wgmma core csrc/gemm_tf32_wg.cuh; K4 in
+   one launch at d <= 512, on its wide route at config_512_hdit's 768
+   level; K5 in one launch) and K3/K9 (csrc/attn_tf32.cuh)
    against their plain versions in float32 with TF32 off, within 5e-3 x
    max|plain|, at the shifted-window config's shapes (K1, K4 at batch 8 a
-   call, K6, K10 at batch-8 step shapes, K3, K9 at 8 x 256 x 512), K5 at
-   the HDiT's 8 x 256 and the ViT's 64 x 768, f 2048, K1, K4, K6, K10 at
+   call, K6, K10 at batch-8 step shapes, K3, K9 at 8 x 256 x 512), K4's
+   wide route at 8 x 256 x 768, f 2304, K5 at
+   the HDiT's 8 x 256 and the ViT's 64 x 768, f 2048 (one device kernel a
+   call in the profile, and its blocks' clock counts, in phase 3, among
+   the first profiler sessions), K1, K4, K6, K10 at
    config_test_tiny's d 64 (head dim 32), and K1, K4 at a ragged 49-token
    image at d 256; (c) their times beside the plain version's, the TF32
    bound's and, for K3/K9, SDPA's on the float32 inputs, for K1, K4, K6,
    K10 their products alone as torch.matmul with TF32 on
-   (``products_ms``), K1's and K4's beside their mma.sync forms' times
-   at each level, their reruns bit-equal and their time split by
-   kernel; (b) on the same inputs each float32 kernel's error against
+   (``products_ms``), K1's, K4's and K5's beside their mma.sync forms'
+   times at each shape, their reruns (and K5's) bit-equal and their time
+   split by kernel; (b) on the same inputs each float32 kernel's error against
    float64 at most 1/4 of its bf16 form's, output by output; (d) the
    shifted-window config and the ViT at DiT-B/2 (a call and a step at
    batch 8 each) in float32 and in bf16 on the card against float32 on
@@ -610,11 +615,13 @@ def kernel_cases(dev):
     return cases
 
 
-def mapping_one_launch(dev, mw=256, d_ff=768, batch=SAMPLE_BATCH):
+def mapping_one_launch(dev, mw=256, d_ff=768, batch=SAMPLE_BATCH,
+                       dtype=torch.bfloat16):
     """Each fused_mapping call with the model's float32 params (width mw,
-    d_ff, depth 2) runs one device kernel, K5's, and nothing else (no
-    stack, no cast): three calls, counted by torch.profiler and by the
-    wrapper's count."""
+    d_ff, depth 2) and compute dtype ``dtype`` runs one device kernel, K5's
+    (``mapping_kernel``, or ``mapping_f32_kernel`` in float32), and
+    nothing else (no stack, no cast, no weight copy): three calls, counted
+    by torch.profiler and by the wrapper's count."""
     from torch.profiler import ProfilerActivity
     from k_diffusion_tpu_torch.ops.kernels import fused_mapping
 
@@ -623,31 +630,76 @@ def mapping_one_launch(dev, mw=256, d_ff=768, batch=SAMPLE_BATCH):
                (torch.randn((mw, 2 * d_ff), generator=g) / mw ** 0.5).to(dev),
                (torch.randn((d_ff, mw), generator=g)
                 / d_ff ** 0.5).to(dev)) for _ in range(2)]
-    emb = torch.randn((batch, mw), generator=g).to(dev, torch.bfloat16)
+    emb = torch.randn((batch, mw), generator=g).to(dev, dtype)
     ones = torch.ones(mw, device=dev)
-    fused_mapping.fused_mapping(emb, ones, ones, blocks)
+    f32 = dtype == torch.float32
+    counter, kernel = (("launches_f32", "mapping_f32_kernel") if f32 else
+                       ("launches", "mapping_kernel"))
+    call = lambda: fused_mapping.fused_mapping(emb, ones, ones, blocks,
+                                               dtype=dtype)
+    call()
     torch.cuda.synchronize()
     # a short profile now and then records no device activity: take the
     # first of up to three that does
     for _ in range(3):
-        before = fused_mapping.launches
+        before = getattr(fused_mapping, counter)
         with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
-                fused_mapping.fused_mapping(emb, ones, ones, blocks)
+                call()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
-    if (len(names) != 3 or any("mapping_kernel" not in n for n in names)
-            or fused_mapping.launches != before + 3):
-        raise AssertionError(f"fused_mapping: three calls ran {names}")
-    ranks = fused_mapping.cluster_size(dev.index or 0, mw, d_ff, 2, True)
-    print(f"fused_mapping {batch}x{mw} f={d_ff}: three calls with float32 "
-          f"weights run three device kernels ({names[0][:60]}), three "
-          f"launches counted; clusters of {ranks} ranks, "
-          f"{fused_mapping.layout(mw, d_ff, 2, ranks, True)}", flush=True)
+    if (len(names) != 3 or any(kernel not in n for n in names)
+            or getattr(fused_mapping, counter) != before + 3):
+        raise AssertionError(f"fused_mapping ({dtype}): three calls ran "
+                             f"{names}")
+    index = dev.index or 0
+    if f32:
+        plan = fused_mapping.f32_plan(index, batch, mw, d_ff, 2)
+        rows, ranks = plan
+        shape = (f"strips of {rows} rows, clusters of {ranks} ranks, "
+                 f"{fused_mapping.f32_stages(mw, d_ff, rows, ranks)} ring "
+                 f"stages")
+    else:
+        ranks = fused_mapping.cluster_size(index, mw, d_ff, 2, True)
+        shape = (f"clusters of {ranks} ranks, "
+                 f"{fused_mapping.layout(mw, d_ff, 2, ranks, True)}")
+    print(f"fused_mapping {batch}x{mw} f={d_ff} ({dtype}): three calls with "
+          f"float32 weights run three device kernels ({names[0][:60]}), "
+          f"three launches counted; {shape}", flush=True)
+    if f32:
+        mapping_f32_arrival(fused_mapping, emb, ones, blocks, plan)
+
+
+def mapping_f32_arrival(fused_mapping, emb, ones, blocks, plan):
+    """K5-f32's blocks' clock counts (``kdt_mapping_f32``'s stamps, clock64
+    cycles of consumer thread 0, the median over the blocks of 5 calls):
+    from a block's start to its last weight stage's landing (no later than
+    the weights arrived), its waits for stages, its waits at the cluster
+    barriers, and its whole run; in us at the SM clock nvidia-smi reads
+    just after."""
+    rows, ranks = plan
+    strips = -(-emb.shape[0] // rows)
+    stamps = torch.zeros((5, strips * ranks, fused_mapping.F32_TIMES),
+                         dtype=torch.int64, device=emb.device)
+    for i in range(5):
+        fused_mapping._forward_f32(emb, ones, ones, blocks, 1e-6,
+                                   stamps=stamps[i])
+    torch.cuda.synchronize()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True).stdout.split()[0])
+    med = stamps.flatten(0, 1).float().median(0).values.tolist()
+    us = [c / mhz for c in med]
+    print(f"K5-f32 {emb.shape[0]}x{emb.shape[1]} f={blocks[0][2].shape[0]} "
+          f"arrival ({strips * ranks} blocks, SM clock {mhz:.0f} MHz): last "
+          f"weight stage landed at {us[0]:.2f} us, waited for stages "
+          f"{us[1]:.2f} us, at cluster barriers {us[2]:.2f} us, whole run "
+          f"{us[3]:.2f} us (median cycles {[int(c) for c in med]})",
+          flush=True)
 
 
 def backward_cases(dev):
@@ -1543,6 +1595,10 @@ def main():
         # among the first profiler sessions, where the short window's
         # device events are recorded
         mapping_one_launch(dev, 768, 2048, UNET_BATCH)
+        # K5-f32 (phase 26's kernel) at both shapes, here for the same
+        # reason, and its blocks' clock counts
+        mapping_one_launch(dev, dtype=torch.float32)
+        mapping_one_launch(dev, 768, 2048, UNET_BATCH, torch.float32)
         forward_lse_check(dev)
 
     lap("phases 1-3")
@@ -1748,6 +1804,8 @@ def main():
 
     # name -> (source, TPU kernel, launches on its main path: the sampling
     # run for a forward kernel, the timed training steps for a backward one,
+    # a config_512_hdit float32 call at 8 (phase 27 (g)) for K4-f32's wide
+    # route,
     # the unfused training steps for K11/K12, the op paths for K15 and K8,
     # phase 25's float32 runs for K13's and K14's float32 forms, phase 26's
     # shifted-window float32 runs for those of K1, K3-K6, K9 and K10, phase
@@ -1783,7 +1841,10 @@ def main():
         "na2d_bwd_f32": (*NA_F32_KERNELS["na2d_bwd_f32"], na_f32_train),
         "na2d_heads_f32": (*NA_F32_KERNELS["na2d_heads_f32"], na_f32_unfused),
         "na2d_heads_bwd_f32": (*NA_F32_KERNELS["na2d_heads_bwd_f32"],
-                               na_f32_unfused)} | {
+                               na_f32_unfused),
+        "fused_ffn_f32_wide": (
+            "geglu_f32.cu", "fused_ffn.py:42",
+            {"fused_ffn_f32_wide": WIDE_CALL_LAUNCHES.get(HDIT_512.stem, 0)})} | {
         name: (src, tpu, na128_counts[name], counter)
         for name, (src, tpu, counter) in NA128_KERNELS.items()}
     report = []
@@ -1822,9 +1883,9 @@ def main():
 # K8 (bf16 and float32 outputs); the float32 forms: K3's (csrc/attn_
 # tf32.cuh's TF32 wgmma forward) and K9's (csrc/attn_tf32_bwd.cuh's TF32
 # wgmma kernels), K1's
-# and K4's (on csrc/gemm_tf32_wg.cuh; K4's wide route and K5 on
-# csrc/gemm_tf32.cuh), K6's and K10's (their first kernels and
-# csrc/gemm_tf32_wg.cuh's), K2's and K7's (in
+# K4's and K5's (on csrc/gemm_tf32_wg.cuh: K4 in one launch and its wide
+# route's two kernels, K5 in one launch), K6's and K10's (their first
+# kernels and csrc/gemm_tf32_wg.cuh's), K2's and K7's (in
 # na2d), K11's and K12's (in na2d_heads; csrc/na_tf32.cuh, also at head
 # dim 128, the forward on attn_tf32.cuh's body, the backwards on
 # attn_tf32_bwd.cuh's) and K15's (csrc/na_proj_tf32.cuh)
@@ -1848,11 +1909,10 @@ REPORTED = {
               "mapping_kernel"),
     "fused_qkv_f32": ("qkv_f32_fwd_kernel", "qkv_f32_dr_kernel", "dxn_kernel",
                       "dw_kernel", "round_weights_kernel", "reduce_kernel"),
-    "geglu_f32": ("ffn_f32_fwd_kernel", "ffn_f32_up_kernel",
-                  "ffn_f32_down_kernel", "add_parts_kernel",
-                  "ffn_f32_dup_kernel", "rms_rows_kernel", "dxn_kernel",
-                  "dw_kernel", "round_weights_kernel", "reduce_t_kernel",
-                  "reduce_kernel"),
+    "geglu_f32": ("ffn_f32_fwd_kernel", "ffn_f32_wide_up_kernel",
+                  "ffn_f32_wide_down_kernel", "mapping_f32_kernel",
+                  "ffn_f32_dup_kernel", "dxn_kernel", "dw_kernel",
+                  "round_weights_kernel", "reduce_t_kernel", "reduce_kernel"),
 }
 
 # instantiations the report must list: K11 and K12 at head dim 128 (the
@@ -1863,8 +1923,9 @@ REPORTED = {
 # two outputs, K1-f32 at
 # both head dims, K4-f32's one launch at each width it takes (the x tile
 # resident at d 64, 128, 256; streamed, the column slabs paired, at 512),
-# K6-f32's first kernel at both head dims with one and two panels an item,
-# and the dxn kernel of the float32 backwards at both widths
+# its wide route's down kernel at both item widths, K5-f32 at each strip
+# width, K6-f32's first kernel at both head dims with one and two panels
+# an item, and the dxn kernel of the float32 backwards at both widths
 REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
                       "na_dkv_kernel<128, true>",
                       "na_tf32_wg_fwd_kernel<128>", "na_tf32_wg_dq_kernel<128>",
@@ -1882,9 +1943,19 @@ REPORTED_INSTANCES = ("na_fwd_kernel<128, true>", "na_dq_kernel<128, true>",
                       "ffn_f32_fwd_kernel<128, true>",
                       "ffn_f32_fwd_kernel<256, true>",
                       "ffn_f32_fwd_kernel<256, false>",
+                      "ffn_f32_wide_down_kernel<64>",
+                      "ffn_f32_wide_down_kernel<128>",
+                      "mapping_f32_kernel<8>", "mapping_f32_kernel<16>",
+                      "mapping_f32_kernel<32>", "mapping_f32_kernel<64>",
                       "qkv_f32_dr_kernel<32, 1>", "qkv_f32_dr_kernel<32, 2>",
                       "qkv_f32_dr_kernel<64, 1>", "qkv_f32_dr_kernel<64, 2>",
                       "dxn_kernel<64>", "dxn_kernel<128>")
+
+
+# K4-f32's wide route and K5-f32, held to asynchronous wgmma with the
+# float32 attention kernels
+ASYNC_F32 = ("ffn_f32_wide_up_kernel", "ffn_f32_wide_down_kernel",
+             "mapping_f32_kernel")
 
 
 def compiler_report(build):
@@ -1896,8 +1967,8 @@ def compiler_report(build):
     (``REPORTED``; ``REPORTED_INSTANCES`` by template argument), from the
     compiler report kept beside each library; raises if one spills or is
     missing, or if ptxas serialised the wgmma products of a float32
-    attention kernel (advisory C7515), whose design keeps them
-    asynchronous."""
+    attention kernel, of K4-f32's wide route or of K5-f32 (advisory
+    C7515), whose designs keep them asynchronous."""
     import re
 
     seen, missing, serialised = {}, [], set()
@@ -1937,13 +2008,16 @@ def compiler_report(build):
     print("compiler report: " + ", ".join(
         f"{fn} {regs} registers, {spill} bytes spilled"
         for fn, (regs, spill) in sorted(seen.items())), flush=True)
-    # the float32 attention kernels (csrc/attn_tf32.cuh, attn_tf32_bwd.cuh)
-    # keep their products asynchronous; others may carry the advisory
+    # the float32 attention kernels (csrc/attn_tf32.cuh, attn_tf32_bwd.cuh),
+    # K4-f32's wide route and K5-f32 keep their products asynchronous;
+    # others may carry the advisory
     print(f"compiler report: wgmma serialised (C7515) in "
           f"{sorted(serialised) or 'none'}", flush=True)
-    if any("tf32_wg" in fn or "na_proj_tf32" in fn for fn in serialised):
+    if any("tf32_wg" in fn or "na_proj_tf32" in fn or fn in ASYNC_F32
+           for fn in serialised):
         raise AssertionError(f"compiler report: the float32 attention "
-                             f"kernels' wgmma serialised: {serialised}")
+                             f"kernels', K4-f32's wide route's or K5-f32's "
+                             f"wgmma serialised: {serialised}")
 
 
 def default_build_check(KT, config, name):
@@ -4137,9 +4211,9 @@ def float32_phase(KT, unet, dev, smi, results, n_attn, unet_flops,
 
 # phase 26: float32 compute on the card (--mixed-precision no) for the ViT
 # and the HDiT without neighborhood-attention levels: the float32 forms of
-# K1, K4, K5, K6, K10 (csrc/fused_qkv_f32.cu, geglu_f32.cu; K1, K4, K6,
-# K10 on the TF32 wgmma core csrc/gemm_tf32_wg.cuh, K5 and K4's wide route
-# on csrc/gemm_tf32.cuh) and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
+# K1, K4 (in one launch and on its wide route), K5, K6, K10
+# (csrc/fused_qkv_f32.cu, geglu_f32.cu, all on the TF32 wgmma core
+# csrc/gemm_tf32_wg.cuh) and of K3/K9 (csrc/attn_tf32.cuh, K13's and K14's)
 CIFAR10_TRANSFORMER = ROOT / "configs" / "config_cifar10_transformer.json"
 # the batch of phases 25 (d) and 26 (d)'s CPU references (the U-Net's call
 # and step, the shifted-window config's step, the ViT's call and step): the
@@ -4178,8 +4252,10 @@ def f32_specs(dev):
     shapes (its levels are the flagship's: K1, K4 at batch 8 per call, K6,
     K10 at batch-8 step shapes, K3, K9 at 8 x 256 x 512; K10 at level 2
     counts no call, whose feed-forward blocks train with dropout, unfused),
-    K5 at the HDiT's 8 x 256, f 768 (counted) and streamed in bf16 at the
-    ViT's 64 x 768, f 2048, and K1, K4, K6, K10 at config_test_tiny's d 64
+    K4's wide route at config_512_hdit's 768 level (8 x 256 x 768, f 2304,
+    4 calls a call of that config: a row of its own, ``fused_ffn_f32_wide``),
+    K5 at the HDiT's 8 x 256, f 768 (counted) and at the ViT's 64 x 768, f
+    2048 (streamed in bf16), and K1, K4, K6, K10 at config_test_tiny's d 64
     (2 heads of 32) and K1, K4 at a ragged 7 x 7 image (49 tokens, the
     mnist HDiT's) at d 256, uncounted. K1's, K4's, K6's and K10's products
     alone as torch.matmul with TF32 on beside them (``products``)."""
@@ -4271,6 +4347,14 @@ def f32_specs(dev):
             timed=lambda m=gp, f=fwd, heads=heads: global_packed.packed_backward(
                 *m[:3], *f, m[3], heads),
             library=under_tf32(True, library)))
+    t, d, d_ff = b * 256, 768, 2304
+    wide = [rnd(b, 256, d)(), rnd(b, d, std=0.1, shift=1.0)(),
+            rnd(d, 2 * d_ff, std=d ** -0.5)(), rnd(d_ff, d, std=d_ff ** -0.5)()]
+    specs.append(F32Spec(
+        "fused_ffn_f32_wide", f"{b}x256x{d} f={d_ff}", 4, lambda m=wide: m,
+        (0, 1), lambda *a: (fused_ffn.fused_geglu_ffn(*a),),
+        lambda *a: (fused_ffn.reference(*a),), 6 * t * d * d_ff,
+        products=under_tf32(True, ffn_fwd_products(t, d, d_ff, dev, g))))
     for batch, mw, d_ff, calls in ((b, 256, 768, 1), (UNET_BATCH, 768, 2048, 0)):
         flat = [rnd(batch, mw)(), rnd(mw, std=0.1, shift=1.0)(),
                 rnd(mw, std=0.1, shift=1.0)()]
@@ -4337,14 +4421,20 @@ def ffn_bwd_products(rows, d, d_ff, dev, g):
     return run
 
 
-# the float32 kernels redesigned on csrc/gemm_tf32_wg.cuh (K1, K4, K6,
-# K10), held to bit-equal reruns and split by kernel in phase 26
-F32_REDESIGNED = ("fused_qkv_f32", "fused_ffn_f32", "fused_qkv_bwd_f32",
-                  "fused_ffn_bwd_f32")
-# K1-f32's and K4-f32's mma.sync forms, as PERF.md records them (an NVIDIA
-# H100 80GB HBM3 at 700.00 W): ms on their main path (a flagship call at
-# batch 8) and ms a call by phase 26's shape label
+# the float32 kernels redesigned on csrc/gemm_tf32_wg.cuh (K1, K4 and its
+# wide route, K5, K6, K10), held to bit-equal reruns and split by kernel in
+# phase 26
+F32_REDESIGNED = ("fused_qkv_f32", "fused_ffn_f32", "fused_ffn_f32_wide",
+                  "fused_mapping_f32", "fused_qkv_bwd_f32", "fused_ffn_bwd_f32")
+# K1-f32's, K4-f32's (and its wide route's) and K5-f32's mma.sync forms, as
+# PERF.md records them (an NVIDIA H100 80GB HBM3 at 700.00 W): ms on their
+# main path (a flagship call at batch 8; for the wide route a
+# config_512_hdit call's 4 launches at its 768 level) and ms a call by
+# phase 26's shape label
 F32_FWD_BEFORE = {
+    "fused_ffn_f32_wide": (4 * 0.322, {"8x256x768 f=2304": 0.322}),
+    "fused_mapping_f32": (0.0738, {"8x256 f=768": 0.0738,
+                                   "64x768 f=2048": 0.1541}),
     "fused_qkv_f32": (0.6915, {"8x64x64x128": 0.0660, "8x32x32x256": 0.0556,
                                "8x16x16x512": 0.0527, "8x8x8x64 e=32": 0.0069}),
     "fused_ffn_f32": (1.759, {"8x4096x128 f=384": 0.1598,
@@ -4355,21 +4445,25 @@ F32_FWD_BEFORE = {
 
 
 def f32_fwd_compare(results):
-    """Phase 26 (a): K1-f32 and K4-f32 at each shape beside their bound,
-    their products as torch.matmul (TF32) and their mma.sync forms' times
-    (``F32_FWD_BEFORE``); their sums on the flagship call beside the
+    """Phase 26 (a): K1-f32, K4-f32 (in one launch and on its wide route)
+    and K5-f32 at each shape beside their bound, their products as
+    torch.matmul (TF32; not K5's) and their mma.sync forms' times
+    (``F32_FWD_BEFORE``); their sums on their main paths beside the
     earlier rows."""
+    def products(t):
+        ms = t.get("products_ms")
+        return "" if ms is None else f", products {ms:.4f}"
     for name, (before, shapes) in F32_FWD_BEFORE.items():
         r = results[name]
         parts = []
         for label, t in r["shapes"].items():
             was = f", was {shapes[label]:.4f}" if label in shapes else ""
-            parts.append(f"{label} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, "
-                         f"products {t['products_ms']:.4f}{was})")
+            parts.append(f"{label} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}"
+                         f"{products(t)}{was})")
         print(f"float32 forward {name}: " + "; ".join(parts) +
               f"; on its main path {r['ms']:.4f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of its bound "
-              f"{r['bound_ms']:.4f}, products {r['products_ms']:.4f}, "
+              f"{r['bound_ms']:.4f}{products(r)}, "
               f"against the mma.sync design's {before:.4f} ms "
               f"({before / r['ms']:.2f}x faster)", flush=True)
 
@@ -4969,8 +5063,9 @@ def other_na_configs_f32(KT, dev, smi):
     """Phase 27 (g): config_512_hdit at full size in float32 against bf16
     (``f32_full_size``); config_512_hdit cut to 256 x 256 (unfused) and
     config_256_p8_wide (fused and unfused) against the CPU
-    (``f32_model_parity``); 3 + 20 float32 training steps of each as
-    shipped."""
+    (``f32_model_parity``); 3 float32 calls of config_512_hdit as shipped
+    at batch 8 under the profiler (``hdit512_calls_f32``); 3 + 20 float32
+    training steps of each as shipped."""
     from k_diffusion_tpu_torch.models import flops
 
     hdit_512 = no_dropout(KT.config.load_config(HDIT_512))
@@ -4988,6 +5083,7 @@ def other_na_configs_f32(KT, dev, smi):
                      F32_PARITY_BATCH, hdit_layout(KT, p8_wide, False),
                      hdit_layout(KT, p8_wide, True),
                      hdit_unfused_layout(p8_wide))
+    hdit512_calls_f32(KT, KT.config.load_config(HDIT_512), dev)
     for path, batch in ((HDIT_512, SAMPLE_BATCH), (P8_WIDE, TRAIN_BATCH)):
         shipped = KT.config.load_config(path)
         with tf32(True):
@@ -4995,6 +5091,60 @@ def other_na_configs_f32(KT, dev, smi):
                   as_f32(hdit_layout(KT, shipped, True)),
                   2 * flops.analytic_transformer_flops(shipped, 1),
                   f"{path.stem} training float32", dtype=torch.float32)
+
+
+# K4-f32's wide-route launches in the float32 calls of config_512_hdit at
+# batch 8 that phase 27 (g) times (``hdit512_calls_f32``): the wide
+# route's main path
+WIDE_CALL_LAUNCHES = {}
+
+
+def hdit512_calls_f32(KT, config, dev):
+    """Phase 27 (g): config_512_hdit as shipped, in float32 (TF32 on) on the
+    card, 3 denoiser calls at batch 8 under the profiler (card time by
+    kernel: K4-f32's wide route at its 768 level), the launch counts a
+    call its layout's in float32 and K4-f32's wide route's apart
+    (``WIDE_CALL_LAUNCHES``), the output finite."""
+    from k_diffusion_tpu_torch.ops import kernels
+    from k_diffusion_tpu_torch.ops.kernels import fused_ffn
+
+    g = torch.Generator().manual_seed(SEED + 34)
+    model = KT.config.make_model(config, dtype=torch.float32, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(
+                                     SEED + 34)).eval()
+    den = KT.config.make_denoiser_wrapper(config)(model)
+    x = torch.randn(input_shape(config, SAMPLE_BATCH), generator=g).to(dev)
+    sigma = torch.linspace(0.5, 8.0, SAMPLE_BATCH).to(dev)
+    out = []
+
+    def run(n):
+        for _ in range(n):
+            out.append(den(x, sigma))
+            del out[:-1]
+
+    with torch.no_grad(), tf32(True):
+        run(1)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        fused_ffn.wide_launches_f32 = 0
+        run(1)
+        torch.cuda.synchronize()
+        counts, wide = kernels.launch_counts(), fused_ffn.wide_launches_f32
+        expected = dict.fromkeys(kernels.COUNTERS, 0) | as_f32(
+            hdit_layout(KT, config, False))
+        if counts != expected or not wide:
+            raise AssertionError(f"config_512_hdit float32 call: launch "
+                                 f"counts {counts} != {expected}, wide "
+                                 f"route {wide}")
+        if not torch.isfinite(out[-1]).all():
+            raise AssertionError("config_512_hdit float32 call: not finite")
+        WIDE_CALL_LAUNCHES[HDIT_512.stem] = wide
+        print(f"config_512_hdit float32 call at {SAMPLE_BATCH}: finite, "
+              f"launches {as_f32(hdit_layout(KT, config, False))}, of them "
+              f"{wide} on K4-f32's wide route", flush=True)
+        profile(run, "config_512_hdit float32", "denoiser calls")
+    del model, den, out
+    torch.cuda.empty_cache()
 
 
 def f32_full_size(KT, config, dev, name, batch):

@@ -7,8 +7,8 @@
 //
 // The attention and GEMM kernels are built from wgmma.cuh's warpgroup
 // products (the float32 ones from wgmma_tf32.cuh's TF32 wgmma, but for
-// K15-f32's projection, K5-f32 and K4-f32's wide route on mma.sync TF32
-// fragments); the mapping network's kernel (geglu.cu)
+// K15-f32's projection on mma.sync TF32 fragments); the bf16 mapping
+// network's kernel (geglu.cu)
 // takes nvcuda::wmma 16x16x16 bf16 fragments with float32 accumulation
 // over strips of 16 rows. A fragment's pointer
 // must be 32-byte aligned and its leading dimension a multiple of 8

@@ -1,9 +1,9 @@
 // The GEGLU kernels in float32, the kernels of --mixed-precision no: the
 // HDiT feed-forward block, forward (K4 in f32) and backward (K10 in f32),
-// and the whole mapping network (K5 in f32). K4 at d = 64, 128, 256 and
-// 512 and K10 run on gemm_tf32_wg.cuh's TF32 wgmma core; K5, and K4 at
-// other widths (its wide route: 768, the widest shipped level, and any
-// width past 512), on gemm_tf32.cuh's TF32 mma.sync core.
+// and the whole mapping network (K5 in f32), all on gemm_tf32_wg.cuh's
+// TF32 wgmma core: K4 in one launch at d = 64, 128, 256 and 512 and on its
+// wide route at other widths (768, the widest shipped level, and any
+// width past 512), K5 in one launch.
 //
 // Replaces: k_diffusion_tpu/ops/pallas/fused_ffn.py:_ffn_kernel (the
 // forward of fused_geglu_ffn), :_ffn_bwd_kernel (its backward) and
@@ -21,6 +21,10 @@
 //   activation h (50 MB in f32 at level 0) never leaves the chip.
 // - FF backward at batch-8 training shapes: the recomputed up projection
 //   and four VJP products, 16 tokens d d_ff FLOP, 2.7x the forward's.
+// - FF block on the wide route (config_512_hdit's 768 level, 8 x 256
+//   tokens, d_ff 2304): 21.7 GFLOP, 44 us at TF32's rate, against 34 MB of
+//   x, out and weights: bound by the tensor cores; h (18.9 MB) goes through
+//   device memory once each way.
 // - Mapping network (batch 8, d 256, d_ff 768, 2 blocks): 4.7 MB of f32
 //   weights (1.4 us at 3.35 TB/s) on an (8, 256) activation: bound by
 //   latency, and by how many SMs share the weight reads.
@@ -62,11 +66,16 @@
 // partials in rank order (distributed shared memory), adds the residual
 // x in f32 and writes 16-byte words, the loads of 8 words a thread issued
 // together. No atomics: a rerun is bit-equal.
-// The wide route: ffn_f32_up_kernel, per 128-row tile and 64 hidden
-// units, a | gate = r (x nscale) W_up[value, gate columns] in two
-// accumulator sets, then h = a gelu(gate) in f32 into device memory;
-// ffn_f32_down_kernel, per 128-row tile and 64 output columns, out = res +
-// h W_down (A K-major, B MN-major).
+// The wide route, two kernels after the same weight copies (W_down^T's
+// depth in order): ffn_f32_wide_up_kernel, per 128-row tile and 64 hidden
+// units, a | gate = r ((x nscale) W_up) in one N = 128 product (x and the
+// W_up^T slabs by TMA, x's A fragments rounded as read) and h = a
+// gelu(gate) rounded to TF32 once into device memory, in 16-byte words;
+// ffn_f32_wide_down_kernel, per 128-row tile and 128 (or 64) output
+// columns, out = x + h W_down, both operands K-major TMA boxes (h the
+// shared-memory A of the SS form). One design takes every width multiple
+// of 64: a block's registers hold one output tile, and nothing grows
+// with d but the staged norm scale.
 // K10 in f32, three steps (the bf16 form's, geglu.cu) on gemm_tf32_wg.cuh's
 // TF32 wgmma core, after W_up, W_up^T and W_down are copied rounded to TF32
 // (tw::round_weights_kernel):
@@ -78,117 +87,57 @@
 //     VJP: dx (+ g, the residual) and the d(scale) partials;
 // (c) tw::dw_kernel: dW_up = xn^T dup and dW_down = (g^T h)^T as split-K
 //     f32 partials over row chunks, every partial summed in a fixed order.
-// K5 in f32 runs the network as the wide route's kernels on the (b, d)
-// activation, the batch one "image" whose scale is the block's own norm
-// scale (a row stride of 0): rms_rows_kernel (x = RMSNorm(emb, in_scale)),
-// per block ffn_f32_up_kernel and ffn_f32_down_kernel (x += GEGLU(RMSNorm(x,
-// ns) W_up) W_down, the down product's depth split in chunks of 256 hidden
-// units, whose partials add_parts_kernel sums with the residual),
-// rms_rows_kernel (the out norm); 2 + 3 n kernels. It takes any width, d
-// and d_ff multiples of 64: nothing is resident, where the bf16 form keeps
-// each layer's share in a thread block cluster's shared memory.
+// K5 in f32 (mapping_f32_kernel<N>), one launch on the bf16 form's plan
+// (geglu.cu's mapping_kernel): a thread block cluster of `ranks` blocks
+// (up to 16) a strip of N batch rows (N = 8, 16, 32 or 64: wgmma's N, the
+// batch rounded up to a multiple of 8, narrowed where a strip's xn and
+// partials would crowd out the ring); rank r owns the pairs of 32-unit
+// hidden panels [P r / ranks, P (r + 1) / ranks) of P = d_ff / 64 and, of
+// the strip's rows, n = r, r + ranks, ...: their f32 residual x and next
+// xn. The batch cannot fill wgmma's 64 rows, so the products are swapped
+// to make the weights the M side, read as the model holds them (no
+// transposed copy, no extra launch):
+// - up, per pair: (a | gate)^T = W_up^T xn^T. A is W_up's (32 depth x 32
+//   units) boxes as TMA lands them (MN-major), read through registers and
+//   rounded as read: warpgroup w takes the pair's panel w, its value box
+//   as rows g and its gate box as rows g + 8 of each warp's 16, so that a
+//   thread holds a and gate of one unit for the same batch rows; B is xn^T,
+//   the strip's xn rounded and K-major in shared memory (xs). The GEGLU
+//   runs in registers and h = a gelu(gate) is written rounded, K-major,
+//   into the panel's tile of hs.
+// - down, per 128 output features: out^T = W_down^T h^T over the rank's
+//   panels, A W_down's boxes (MN-major, rounded as read), B the h tiles;
+//   the f32 partial (N, d) goes into xs, whose xn the up products are done
+//   with.
+// Every weight box of the rank, every block of the network, goes through
+// one ring of up to 16 stages of 16 KB that the producer thread fills by
+// TMA from the top, as far as it holds them, and refills as stages free.
+// Then, among the consumers (the producer may be waiting on the next
+// block's stages): a cluster barrier (mbarriers at cluster scope); each
+// owner sums its rows' partials over the ranks in rank order (distributed
+// shared memory), adds x, and forms the next block's xn = RMSNorm(x, ns)
+// rounded (after the last block, the output RMSNorm(x, out_scale)); a
+// second barrier; each rank pulls the strip's xn from the owners into its
+// xs. No atomics: a rerun is bit-equal. Products as gemm_tf32_wg.cuh's
+// stepwise walk (making a step's A fragments while the step before's
+// products ran was 3-5% slower on an H100). The prologue, x =
+// RMSNorm(emb, in_scale) and the first xn, runs on the owners the same
+// way. Widths: d, d_ff multiples of 64, as long as a strip of 8 rows
+// leaves two ring stages (MapLayout: up to d 4 480 at d_ff 8 192).
 #include <cooperative_groups.h>
 
-#include "gemm_tf32.cuh"
 #include "gemm_tf32_wg.cuh"
 
 namespace kdt {
 namespace {
 
 constexpr float INV_SQRT_2PI = 0.3989422804014327f;
-// hidden units of a chunk of K5's split down product
-constexpr int MAP_CHUNK = 256;
 
 // gelu(g) and d gelu(g) / dg for the exact (erf) GELU, one erf for both
 __device__ __forceinline__ void gelu_erf_both(float g, float& gelu, float& grad) {
   const float cdf = 0.5f * (1.0f + erff(g * 0.70710678118654752440f));
   gelu = g * cdf;
   grad = cdf + g * INV_SQRT_2PI * __expf(-0.5f * g * g);
-}
-
-// h = a gelu(gate) for one row tile and 64 hidden units. Grid (images *
-// tiles, d_ff / 64). nscale (images, d): image i's row at nscale + i *
-// scale_stride (0: one scale for every row).
-__global__ void __launch_bounds__(tg::THREADS)
-ffn_f32_up_kernel(const float* __restrict__ x, const float* __restrict__ nscale, int scale_stride,
-                  const float* __restrict__ w_up, float* __restrict__ h, int tokens, int d,
-                  int d_ff, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_ns = smem;
-  const tg::RowTile t = tg::row_tile(tokens);
-  const int u0 = 64 * blockIdx.y;
-  tg::load_scale(nscale + static_cast<long>(t.img) * scale_stride, d, s_ns);
-  float acc[2][8][4];
-  tg::zero(acc);
-  const int b0[2] = {u0, d_ff + u0};
-  tg::Normed norm{s_ns};
-  tg::mainloop<2>(acc, smem + d + tg::ROWS, x, d, t.row0, t.row0 + t.valid, w_up, 2L * d_ff, b0,
-                  0, d, norm);
-  float rows_r[2];
-  tg::row_norms(norm, d, eps, rows_r);
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = tg::acc_row(hh);
-    if (row >= t.valid) continue;
-    float* out = h + (t.row0 + row) * d_ff + u0 + 2 * tg::lane_t();
-    const float r = rows_r[hh];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float a0 = acc[0][n][2 * hh] * r, a1 = acc[0][n][2 * hh + 1] * r;
-      const float g0 = acc[1][n][2 * hh] * r, g1 = acc[1][n][2 * hh + 1] * r;
-      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(a0 * gelu_erf(g0), a1 * gelu_erf(g1));
-    }
-  }
-}
-
-// out = res + a W for one 128-row tile of a (rows, k_dim) and 64 columns of
-// W (k_dim, n), rows = images * tokens. Grid (images * tiles, n / 64,
-// splits): with part not null, block z takes the depth [z k_chunk, (z + 1)
-// k_chunk) and writes its partial to part (splits, rows, n) instead, for
-// add_parts_kernel (the mapping network's few rows: a split of the depth
-// gives it more blocks than n / 64).
-__global__ void __launch_bounds__(tg::THREADS)
-ffn_f32_down_kernel(const float* __restrict__ a, const float* __restrict__ w,
-                    const float* __restrict__ res, float* __restrict__ out,
-                    float* __restrict__ part, int tokens, int k_dim, int n, int k_chunk) {
-  extern __shared__ __align__(16) float smem[];
-  const tg::RowTile t = tg::row_tile(tokens);
-  const int n0 = 64 * blockIdx.y;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = k_begin + k_chunk < k_dim ? k_begin + k_chunk : k_dim;
-  float acc[1][8][4];
-  tg::zero(acc);
-  const int b0[1] = {n0};
-  tg::mainloop<1>(acc, smem, a, k_dim, t.row0, t.row0 + t.valid, w, n, b0, k_begin, k_end,
-                  tg::Plain{});
-  const long rows = static_cast<long>(gridDim.x / tg::tiles(tokens)) * tokens;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = tg::acc_row(hh);
-    if (row >= t.valid) continue;
-    const long at = (t.row0 + row) * n + n0 + 2 * tg::lane_t();
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn) {
-      const float2 v = make_float2(acc[0][nn][2 * hh], acc[0][nn][2 * hh + 1]);
-      if (part != nullptr) {
-        *reinterpret_cast<float2*>(part + blockIdx.z * rows * n + at + 8 * nn) = v;
-      } else {
-        const float2 rv = *reinterpret_cast<const float2*>(res + at + 8 * nn);
-        *reinterpret_cast<float2*>(out + at + 8 * nn) = make_float2(rv.x + v.x, rv.y + v.y);
-      }
-    }
-  }
-}
-
-// out = res + the sum of the `splits` partials (splits, count), in split
-// order: no atomics, a rerun is bit-equal.
-__global__ void add_parts_kernel(const float* __restrict__ res, const float* __restrict__ part,
-                                 float* __restrict__ out, long count, int splits) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = res[i];
-  for (int z = 0; z < splits; ++z) s += part[z * count + i];
-  out[i] = s;
 }
 
 // K10's first kernel in f32, on gemm_tf32_wg.cuh's core. An item is one
@@ -641,52 +590,517 @@ ffn_f32_fwd_kernel(const __grid_constant__ CUtensorMap map_x,
   cluster.sync();  // no block leaves while another reads its partial
 }
 
-// out (rows, d) = x * (scale / rms(x)), a warp a row.
-__global__ void rms_rows_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                                float* __restrict__ out, int rows, int d, float eps) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float* xr = x + static_cast<long>(row) * d;
-  float ss = 0.f;
-  for (int c = lane; c < d; c += 32) ss += xr[c] * xr[c];
-  const float r = rsqrtf(warp_sum(ss) / d + eps);
-  for (int c = lane; c < d; c += 32) out[static_cast<long>(row) * d + c] = xr[c] * (scale[c] * r);
+// ---- K4 in f32, its wide route ----------------------------------------------------
+
+// The staged h tile's row stride, floats: a 16-byte row start and, for the
+// float2 stores of a warp (8 rows 68 floats apart by 4 column pairs), 32
+// banks.
+constexpr int H_LD = 64 + 4;
+
+// The wide route's first kernel: per 128-row tile and hidden panel of 64
+// units (an item; a block walks a contiguous share, so that neighbours
+// share a row tile), a | gate = r ((x nscale) W_up) over the panel's value
+// and gate columns in one N = 128 product (ffn_f32_dup_kernel's up
+// product: x's box and the rounded W_up^T's two slabs a ring stage, the A
+// fragments made in registers by tw::Normed), then h = a gelu(gate)
+// (exact erf) rounded to TF32 once, staged in shared memory and stored
+// into h (rows, d_ff) in 16-byte words. map_x: x (rows, d), boxes of 128
+// rows; map_upt: the rounded W_up^T (2 d_ff, d), boxes of 64 rows. nscale
+// (images, d): image i's row at nscale + i * scale_stride.
+__global__ void __launch_bounds__(tw::THREADS, 1)
+ffn_f32_wide_up_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_upt,
+                       const float* __restrict__ nscale, int scale_stride, float* __restrict__ h,
+                       int images, int tokens, int d, int d_ff, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ tw::Ring ring;
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  float* s_ns = reinterpret_cast<float*>(smem + tw::S * tw::STAGE);
+  float* s_h = s_ns + d;  // the item's h tile, (ROWS, H_LD)
+  tw::ring_init(ring);
+  const int panels = d_ff / 64, steps = d / tw::BK;
+  const tw::Items span = tw::my_items(images * tw::tiles(tokens) * panels);
+  if (tw::is_producer()) {
+    tw::producer_regs();
+    if (!tw::tma_thread()) return;
+    tw::Producer p{ring, smem};
+    for (int item = span.begin; item < span.end; ++item) {
+      const tw::RowTile t = tw::row_tile(tokens, item / panels);
+      const int u0 = 64 * (item % panels);
+      for (int k = 0; k < steps; ++k) {
+        uint64_t* bar;
+        unsigned char* st = p.next(tw::K_TILE + tw::B_BYTES, bar);
+        tw::tma(st, &map_x, tw::BK * k, t.row0, bar);
+        tw::tma(st + tw::A_BYTES, &map_upt, tw::BK * k, u0, bar);
+        tw::tma(st + tw::A_BYTES + tw::B_BYTES / 2, &map_upt, tw::BK * k, d_ff + u0, bar);
+      }
+    }
+    return;
+  }
+  tw::consumer_regs();
+  tw::Consumer c{ring, smem};
+  int staged = -1;  // the image whose scale s_ns holds
+  for (int item = span.begin; item < span.end; ++item) {
+    const tw::RowTile t = tw::row_tile(tokens, item / panels);
+    const int u0 = 64 * (item % panels);
+    if (t.img != staged) tw::stage_scale(nscale + static_cast<long>(t.img) * scale_stride, d, s_ns);
+    staged = t.img;
+    float up[64];
+    tw::zero(up);
+    tw::Normed norm{s_ns};
+    tw::product<128>(up, c, steps, norm);
+    float r[2];
+    norm.norms(d, eps, r);
+    // element i = 4 n + 2 hh + e: row hh, unit 8 n + 2 t + e (a; its gate
+    // 32 elements on)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float rr = r[i / 2 % 2];
+      *reinterpret_cast<float2*>(s_h + tw::acc_row(i / 2 % 2) * H_LD + 8 * (i / 4) +
+                                 2 * tw::lane_t()) =
+          make_float2(tw::round_tf32(up[i] * rr * gelu_erf(up[32 + i] * rr)),
+                      tw::round_tf32(up[i + 1] * rr * gelu_erf(up[33 + i] * rr)));
+    }
+    tw::consumers_sync();
+    for (int w = threadIdx.x; w < tw::ROWS * 16; w += 128 * tw::CONSUMERS) {
+      const int row = w / 16, c4 = 4 * (w % 16);
+      if (row < t.valid)
+        *reinterpret_cast<float4*>(h + (t.row0 + row) * d_ff + u0 + c4) =
+            *reinterpret_cast<const float4*>(s_h + row * H_LD + c4);
+    }
+    tw::consumers_sync();  // s_h is free again
+  }
 }
 
-cudaError_t launch_up(const float* x, const float* nscale, int scale_stride, const float* w_up,
-                      float* h, int images, int tokens, int d, int d_ff, float eps,
-                      cudaStream_t st) {
-  const size_t smem = tg::normed_smem<2>(d);
-  const cudaError_t err = allow_smem(ffn_f32_up_kernel, smem);
-  if (err != cudaSuccess) return err;
-  ffn_f32_up_kernel<<<dim3(images * tg::tiles(tokens), d_ff / 64), tg::THREADS, smem, st>>>(
-      x, nscale, scale_stride, w_up, h, tokens, d, d_ff, eps);
-  return cudaGetLastError();
+// The wide route's second kernel: out = x + h W_down per 128-row tile and
+// NB output columns (an item). Both operands lie K-major in the ring: the
+// h tile (a TMA box of 128 rows, already rounded) is the shared-memory A
+// operand of the SS form, each warpgroup 64 of its rows, and the rounded
+// W_down^T's NB rows are B. No fragment is made in registers, so the walk
+// is tw::chained (the next step's products issued before the last's are
+// waited for; a rerun sums in the same order). map_h: h (rows, d_ff),
+// boxes of 128 rows; map_downt: the rounded W_down^T (d, d_ff), boxes of
+// NB rows.
+template <int NB>
+__global__ void __launch_bounds__(tw::THREADS, 1)
+ffn_f32_wide_down_kernel(const __grid_constant__ CUtensorMap map_h,
+                         const __grid_constant__ CUtensorMap map_downt,
+                         const float* __restrict__ x, float* __restrict__ out, int images,
+                         int tokens, int d, int d_ff) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ tw::Ring ring;
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  tw::ring_init(ring);
+  const int n_tiles = (d + NB - 1) / NB, steps = d_ff / tw::BK;
+  const tw::Items span = tw::my_items(images * tw::tiles(tokens) * n_tiles);
+  if (tw::is_producer()) {
+    tw::producer_regs();
+    if (!tw::tma_thread()) return;
+    tw::Producer p{ring, smem};
+    for (int item = span.begin; item < span.end; ++item) {
+      const tw::RowTile t = tw::row_tile(tokens, item / n_tiles);
+      const int n0 = NB * (item % n_tiles);
+      for (int k = 0; k < steps; ++k) {
+        uint64_t* bar;
+        unsigned char* st = p.next(tw::K_TILE + NB * tw::BK * 4, bar);
+        tw::tma(st, &map_h, tw::BK * k, t.row0, bar);
+        tw::tma(st + tw::A_BYTES, &map_downt, tw::BK * k, n0, bar);
+      }
+    }
+    return;
+  }
+  tw::consumer_regs();
+  tw::Consumer c{ring, smem};
+  const int a_rows = 64 * 128 * (threadIdx.x / 128);  // the warpgroup's rows of the h box
+  for (int item = span.begin; item < span.end; ++item) {
+    const tw::RowTile t = tw::row_tile(tokens, item / n_tiles);
+    const int n0 = NB * (item % n_tiles);
+    float acc[NB / 2];
+    tw::zero(acc);
+    tw::chained(c, steps, tw::STAGE, [&](const unsigned char* stage, int k) {
+      const uint64_t a = tw::desc(stage + a_rows), b = tw::desc(stage + tw::A_BYTES);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tw::mma_ss<NB>(acc, a + 2 * i, b + 2 * i, k > 0 || i > 0);
+      wg::fence_regs(acc);
+    });
+    wg::fence_regs(acc);  // read after the walk's last wait
+#pragma unroll
+    for (int i = 0; i < NB / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * tw::lane_t();
+      if (col >= d) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (tw::acc_row(hh) >= t.valid) continue;
+        const long at = (t.row0 + tw::acc_row(hh)) * d + col;
+        const float2 xv = *reinterpret_cast<const float2*>(x + at);
+        *reinterpret_cast<float2*>(out + at) =
+            make_float2(xv.x + acc[4 * i + 2 * hh], xv.y + acc[4 * i + 2 * hh + 1]);
+      }
+    }
+  }
 }
 
-// out = res + a W; with part, the depth splits in chunks of k_chunk (a
-// multiple of 32), partials in part, summed by add_parts_kernel.
-cudaError_t launch_down(const float* a, const float* w, const float* res, float* out, int images,
-                        int tokens, int k_dim, int n, cudaStream_t st, float* part = nullptr,
-                        int k_chunk = 0) {
-  cudaError_t err = allow_smem(ffn_f32_down_kernel, tg::RING_BYTES<1>);
-  if (err != cudaSuccess) return err;
-  const int splits = part == nullptr ? 1 : (k_dim + k_chunk - 1) / k_chunk;
-  ffn_f32_down_kernel<<<dim3(images * tg::tiles(tokens), n / 64, splits), tg::THREADS,
-                        tg::RING_BYTES<1>, st>>>(a, w, res, out, part, tokens, k_dim, n,
-                                                 part == nullptr ? k_dim : k_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || part == nullptr) return err;
-  const long count = static_cast<long>(images) * tokens * n;
-  add_parts_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(res, part, out,
-                                                                              count, splits);
-  return cudaGetLastError();
+// ---- K5 in f32 -------------------------------------------------------------------------
+
+constexpr int MAP_MAX_DEPTH = 8;           // blocks of the network (fused_mapping.MAX_DEPTH)
+constexpr int MAP_MAX_S = 16;              // ring stages at most
+constexpr int MAP_STAGE = 4 * tw::BOX;     // a stage: four 32 x 32 weight boxes, 16 KB
+constexpr int MAP_BUDGET = 232448 - 1024;  // dynamic shared memory: 227 KB less the static
+constexpr int MAP_TIMES = 4;               // the stamps of a block (kdt_mapping_f32)
+
+__host__ __device__ inline int up_1k(int bytes) { return (bytes + 1023) & ~1023; }
+
+// The shared memory of a K5-f32 block, a strip of `rows` batch rows over
+// `ranks` ranks (fused_mapping.f32_stages mirrors it): after the ring of
+// `stages` stages, xs (the strip's xn as wgmma's K-major B, d / 32 tiles
+// of rows x 128 bytes; the f32 partial (rows, ld) in its place once the up
+// products are done), hs (h of each of the rank's panels of 32 units as
+// the down product's K-major B, rows x 128 bytes each) and own (the f32
+// residual x and the next xn of the rows the rank owns).
+struct MapLayout {
+  int ld, xs, hs, own, stages;
+  __host__ __device__ MapLayout(int d, int d_ff, int rows, int ranks) {
+    ld = d + 4;
+    xs = up_1k(rows * ld * 4);
+    hs = 2 * ((d_ff / 64 + ranks - 1) / ranks) * rows * 128;
+    own = up_1k(2 * ((rows + ranks - 1) / ranks) * d * 4);
+    const int n = (MAP_BUDGET - 1024 - xs - hs - own) / MAP_STAGE;
+    stages = n < MAP_MAX_S ? n : MAP_MAX_S;
+  }
+  size_t smem() const { return 1024 + static_cast<size_t>(stages) * MAP_STAGE + xs + hs + own; }
+};
+
+// The launch's arguments: each block's tensor maps of W_up (d, 2 d_ff) and
+// W_down (d_ff, d) as the model holds them, boxes of 32 x 32, and its norm
+// scale; stamps, where not null, gets MAP_TIMES clock64 counts a block.
+struct MapArgs {
+  CUtensorMap up[MAP_MAX_DEPTH], down[MAP_MAX_DEPTH];
+  const float* ns[MAP_MAX_DEPTH];
+  const float* emb;
+  const float* in_scale;
+  const float* out_scale;
+  float* out;
+  long long* stamps;
+  int b, d, d_ff, n;
+  float eps;
+};
+
+struct MapRing {
+  uint64_t full[MAP_MAX_S], empty[MAP_MAX_S];
+};
+
+// The consumers' walk over the ring (tw::stepwise's C); with `timing`
+// (thread 0, with stamps), the cycles it waits for stages and the time
+// its last wait returned.
+struct MapConsumer {
+  MapRing& r;
+  const unsigned char* ring;
+  int stages;
+  bool timing;
+  int step = 0;
+  long long waited = 0, landed = 0;
+  __device__ int wait() {
+    const int st = step % stages;
+    const long long t0 = timing ? clock64() : 0;
+    gemm::mbar_wait(&r.full[st], (step / stages) & 1);
+    if (timing) {
+      landed = clock64();
+      waited += landed - t0;
+    }
+    ++step;
+    return st;
+  }
+  __device__ void release(int st) {
+    if ((threadIdx.x & 31) == 0) gemm::mbar_arrive(&r.empty[st]);
+  }
+};
+
+// The sum of v over the consumer threads, the same in each, summed in
+// warp order.
+__device__ __forceinline__ float consumers_sum(float v, float* s_red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x / 32] = v;
+  tw::consumers_sync();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4 * tw::CONSUMERS; ++w) s += s_red[w];
+  tw::consumers_sync();  // s_red is free again
+  return s;
 }
 
-cudaError_t launch_rms_rows(const float* x, const float* scale, float* out, int rows, int d,
-                            float eps, cudaStream_t st) {
-  rms_rows_kernel<<<(rows + 7) / 8, 256, 0, st>>>(x, scale, out, rows, d, eps);
-  return cudaGetLastError();
+// A barrier of the cluster's consumers (the producers may have left, or be
+// waiting for ring stages): once a block's consumers are here, lane q of
+// its first warp arrives on barrier `phase % 2` of rank q (cluster scope,
+// releasing what the consumers wrote; one lane a rank, so that the remote
+// arrivals are in flight together: one thread's, one after another, took
+// about 5 us a barrier on an H100); every consumer then waits on its own.
+// Two barriers alternate, so that an early rank's next arrival never
+// counts towards a phase another rank has not left.
+__device__ __forceinline__ void map_cluster_bar(uint64_t* cbar, int& phase, int ranks) {
+  tw::consumers_sync();
+  uint64_t* bar = &cbar[phase & 1];
+  if (threadIdx.x < ranks) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote)
+                 : "r"(tw::smem_u32(bar)), "r"(static_cast<int>(threadIdx.x)));
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+                 : "memory");
+  }
+  cluster_wait(bar, (phase >> 1) & 1);
+  ++phase;
+}
+
+// The A fragment of k8 slice kk of an up stage, rounded: rows g of the
+// warpgroup's value box (box 2 w: its 32 units, the warp's 8 of them) and
+// rows g + 8 of its gate box (2 w + 1, the same units), so that a thread's
+// accumulator holds a and gate of one unit for the same batch rows.
+__device__ __forceinline__ void geglu_frag(const unsigned char* s, int kk, uint32_t (&a)[4]) {
+  const int m = 64 * (threadIdx.x / 128) + 8 * (tw::warp() % 4) + tw::lane_g();
+  const int k = 8 * kk + tw::lane_t();
+  a[0] = tw::to_tf32(tw::a_mnmajor(s, m, k));
+  a[1] = tw::to_tf32(tw::a_mnmajor(s, m + 32, k));
+  a[2] = tw::to_tf32(tw::a_mnmajor(s, m, k + 4));
+  a[3] = tw::to_tf32(tw::a_mnmajor(s, m + 32, k + 4));
+}
+
+// Element (row n, depth k) of a K-major tile of 128-byte rows in the
+// 128-byte swizzle (tw::a_kmajor's layout).
+__device__ __forceinline__ float* kmajor_at(unsigned char* tile, int n, int k) {
+  return reinterpret_cast<float*>(tile + n * 128 + ((((k >> 2) ^ n) & 7) << 4) + ((k & 3) << 2));
+}
+
+// K5 in f32 (the file's note): a cluster of `ranks` blocks a strip of N
+// batch rows (N = 8, 16, 32 or 64, wgmma's N), grid (strips * ranks).
+template <int N>
+__global__ void __launch_bounds__(tw::THREADS, 1)
+mapping_f32_kernel(const __grid_constant__ MapArgs a) {
+  namespace cg = cooperative_groups;
+  constexpr int CT = 128 * tw::CONSUMERS;  // consumer threads
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ MapRing bars;
+  __shared__ uint64_t cbar[2];
+  __shared__ float s_red[4 * tw::CONSUMERS];
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int d = a.d;
+  const MapLayout lay(d, a.d_ff, N, ranks);
+  unsigned char* ring = smem;
+  unsigned char* xs = ring + lay.stages * MAP_STAGE;
+  unsigned char* hs = xs + lay.xs;
+  const int own = (N + ranks - 1) / ranks;  // rows of the strip a rank owns
+  float* x_own = reinterpret_cast<float*>(hs + lay.hs);
+  float* xn_own = x_own + own * d;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < lay.stages; ++s) {
+      gemm::mbar_init(&bars.full[s]);
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tw::smem_u32(&bars.empty[s])),
+                   "r"(4 * tw::CONSUMERS)
+                   : "memory");
+    }
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tw::smem_u32(&cbar[i])),
+                   "r"(ranks)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every rank's barriers are set up
+  // this rank's pairs of 32-unit panels (64 hidden units each) [p0, p0 + pr)
+  const int pairs = a.d_ff / 64, p0 = pairs * rank / ranks;
+  const int pr = pairs * (rank + 1) / ranks - p0;
+  const int ksteps = d / tw::BK, mtiles = (d + 127) / 128;
+  if (tw::is_producer()) {
+    tw::producer_regs();
+    if (!tw::tma_thread()) return;
+    int step = 0;
+    auto next = [&](uint64_t*& bar) {
+      const int st = step % lay.stages;
+      if (step >= lay.stages) gemm::mbar_wait(&bars.empty[st], (step / lay.stages - 1) & 1);
+      bar = &bars.full[st];
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                       tw::smem_u32(bar)),
+                   "r"(MAP_STAGE)
+                   : "memory");
+      ++step;
+      return ring + st * MAP_STAGE;
+    };
+    for (int l = 0; l < a.n; ++l) {
+      // up: per pair and 32-deep step, the value and gate boxes of each
+      // warpgroup's 32 units (W_up's columns u and d_ff + u)
+      for (int j = 0; j < pr; ++j) {
+        const int u0 = 64 * (p0 + j);
+        for (int k = 0; k < ksteps; ++k) {
+          uint64_t* bar;
+          unsigned char* st = next(bar);
+          tw::tma(st, &a.up[l], u0, tw::BK * k, bar);
+          tw::tma(st + tw::BOX, &a.up[l], a.d_ff + u0, tw::BK * k, bar);
+          tw::tma(st + 2 * tw::BOX, &a.up[l], u0 + 32, tw::BK * k, bar);
+          tw::tma(st + 3 * tw::BOX, &a.up[l], a.d_ff + u0 + 32, tw::BK * k, bar);
+        }
+      }
+      // down: per 128 output features and panel of 32 units, W_down's rows
+      // of the panel, four boxes of 32 features (past d: zeros)
+      for (int m = 0; m < mtiles; ++m)
+        for (int kp = 0; kp < 2 * pr; ++kp) {
+          uint64_t* bar;
+          unsigned char* st = next(bar);
+#pragma unroll
+          for (int jb = 0; jb < 4; ++jb)
+            tw::tma(st + jb * tw::BOX, &a.down[l], 128 * m + 32 * jb, 64 * p0 + 32 * kp, bar);
+        }
+    }
+    return;
+  }
+  tw::consumer_regs();
+  const int tid = threadIdx.x, wgi = tid / 128, t4 = tw::lane_t();
+  const bool timing = a.stamps != nullptr && tid == 0;
+  const long long t_start = timing ? clock64() : 0;
+  long long t_bars = 0;
+  MapConsumer c{bars, ring, lay.stages, timing};
+  int phase = 0;
+  auto bar = [&]() {
+    const long long t0 = timing ? clock64() : 0;
+    map_cluster_bar(cbar, phase, ranks);
+    if (timing) t_bars += clock64() - t0;
+  };
+  const long strip0 = static_cast<long>(blockIdx.x / ranks) * N;
+  // the strip's xn into xs from the rows' owners (rank n % ranks, slot n /
+  // ranks), swizzled K-major
+  auto pull = [&]() {
+#pragma unroll 4
+    for (int w = tid; w < N * (d / 4); w += CT) {
+      const int n = w / (d / 4), k = 4 * (w % (d / 4));
+      const float* src = cluster.map_shared_rank(xn_own, n % ranks) + (n / ranks) * d + k;
+      *reinterpret_cast<float4*>(kmajor_at(xs + (k / 32) * N * 128, n, k % 32)) =
+          *reinterpret_cast<const float4*>(src);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // xs feeds wgmma
+    tw::consumers_sync();
+  };
+  // the owned rows: x = RMSNorm(emb, in_scale) and the first xn =
+  // RMSNorm(x, ns_0) rounded; rows past the batch stay zero
+  for (int i = 0; i < own; ++i) {
+    const int n = rank + ranks * i;
+    if (n >= N) break;
+    float *xo = x_own + i * d, *xno = xn_own + i * d;
+    const long row = strip0 + n;
+    if (row >= a.b) {
+      for (int f = tid; f < d; f += CT) xno[f] = 0.f;
+      continue;
+    }
+    const float* e = a.emb + row * d;
+    float ss = 0.f;
+    for (int f = tid; f < d; f += CT) ss += e[f] * e[f];
+    float rr = rsqrtf(consumers_sum(ss, s_red) / d + a.eps);
+    ss = 0.f;
+    for (int f = tid; f < d; f += CT) {
+      const float v = e[f] * (a.in_scale[f] * rr);
+      xo[f] = v;
+      ss += v * v;
+    }
+    rr = rsqrtf(consumers_sum(ss, s_red) / d + a.eps);
+    for (int f = tid; f < d; f += CT) xno[f] = tw::round_tf32(xo[f] * (a.ns[0][f] * rr));
+  }
+  bar();  // every owner's xn is in place
+  pull();
+  float* part = reinterpret_cast<float*>(xs);
+  for (int l = 0; l < a.n; ++l) {
+    // up: (a | gate)^T = W_up^T xn^T per pair, each warpgroup its 32 units;
+    // h = a gelu(gate) rounded into the panel's tile of hs (row n, unit u)
+    for (int j = 0; j < pr; ++j) {
+      float acc[N / 2];
+      tw::zero(acc);
+      tw::stepwise(
+          c, ksteps, MAP_STAGE,
+          [&](const unsigned char* stage, int, uint32_t(&f)[4][4]) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) geglu_frag(stage, kk, f[kk]);
+          },
+          [&](const unsigned char*, int k, const uint32_t(&f)[4][4]) {
+            const uint64_t b = tw::desc(xs + k * N * 128);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) tw::mma<N>(acc, f[kk], b + 2 * kk, k > 0 || kk > 0);
+            wg::fence_regs(acc);
+          });
+      wg::fence_regs(acc);
+      unsigned char* tile = hs + (2 * j + wgi) * N * 128;
+      const int u = 8 * (tw::warp() % 4) + tw::lane_g();
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *kmajor_at(tile, 8 * i + 2 * t4 + e, u) =
+              tw::round_tf32(acc[4 * i + e] * gelu_erf(acc[4 * i + 2 + e]));
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // hs feeds wgmma
+    tw::consumers_sync();  // every h tile is in place; xs is free
+    // down: out^T = W_down^T h^T over the rank's panels, 128 features a
+    // round (64 a warpgroup), the f32 partial into xs as (N, ld)
+    for (int m = 0; m < mtiles; ++m) {
+      float acc[N / 2];
+      tw::zero(acc);
+      tw::stepwise(
+          c, 2 * pr, MAP_STAGE,
+          [&](const unsigned char* stage, int k, uint32_t(&f)[4][4]) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) tw::RoundedMN{0}(stage, k, kk, f[kk]);
+          },
+          [&](const unsigned char*, int k, const uint32_t(&f)[4][4]) {
+            const uint64_t b = tw::desc(hs + k * N * 128);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) tw::mma<N>(acc, f[kk], b + 2 * kk, k > 0 || kk > 0);
+            wg::fence_regs(acc);
+          });
+      wg::fence_regs(acc);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int feat = 128 * m + tw::acc_row(hh);
+        if (feat >= d) continue;
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            part[(8 * i + 2 * t4 + e) * lay.ld + feat] = acc[4 * i + 2 * hh + e];
+      }
+    }
+    bar();  // every rank's partial is in place
+    // the owned rows: x += the ranks' partials, summed in rank order; then
+    // the next block's xn, or after the last block the output
+    const bool last = l + 1 == a.n;
+    for (int i = 0; i < own; ++i) {
+      const int n = rank + ranks * i;
+      if (n >= N) break;
+      const long row = strip0 + n;
+      if (row >= a.b) continue;
+      float *xo = x_own + i * d, *xno = xn_own + i * d;
+      float ss = 0.f;
+      for (int f = tid; f < d; f += CT) {
+        float s = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < ranks; ++q) s += cluster.map_shared_rank(part, q)[n * lay.ld + f];
+        const float v = xo[f] + s;
+        xo[f] = v;
+        ss += v * v;
+      }
+      const float rr = rsqrtf(consumers_sum(ss, s_red) / d + a.eps);
+      if (last) {
+        for (int f = tid; f < d; f += CT) a.out[row * d + f] = xo[f] * (a.out_scale[f] * rr);
+      } else {
+        for (int f = tid; f < d; f += CT) xno[f] = tw::round_tf32(xo[f] * (a.ns[l + 1][f] * rr));
+      }
+    }
+    bar();  // no rank reads a partial any more; the next xn rows are in place
+    if (!last) pull();
+  }
+  if (timing) {
+    long long* out = a.stamps + static_cast<long>(blockIdx.x) * MAP_TIMES;
+    out[0] = c.landed - t_start;
+    out[1] = c.waited;
+    out[2] = t_bars;
+    out[3] = clock64() - t_start;
+  }
 }
 
 // The launch of K4 in f32 with the hidden panels over clusters of `groups`
@@ -724,6 +1138,77 @@ cudaError_t launch_ffn_fwd(const float* x, const float* nscale, int scale_stride
   if (err != cudaSuccess) return err;
   return cudaLaunchKernelEx(&cfg, ffn_f32_fwd_kernel<NO, RES>, map_x, map_upt, map_downt, x,
                             nscale, scale_stride, out, tokens, d, d_ff, eps);
+}
+
+// K4-f32's wide route: the weight copies, then its two kernels.
+cudaError_t launch_ffn_wide(const float* x, const float* nscale, int scale_stride,
+                            const float* w_up, const float* w_down, float* out, float* upt,
+                            float* downt, float* h, int images, int tokens, int d, int d_ff,
+                            float eps, cudaStream_t st) {
+  const long rows = static_cast<long>(images) * tokens;
+  cudaError_t err = tw::launch_round(w_up, d, 2 * d_ff, nullptr, upt, st);
+  if (err == cudaSuccess) err = tw::launch_round(w_down, d_ff, d, nullptr, downt, st);
+  CUtensorMap map_x, map_upt, map_h, map_downt;
+  const int nb = d % 128 ? 64 : 128;  // output columns an item
+  if (err == cudaSuccess) err = tw::map_f32(&map_x, x, rows, d, d, tw::ROWS);
+  if (err == cudaSuccess) err = tw::map_f32(&map_upt, upt, 2 * d_ff, d, d, 64);
+  if (err == cudaSuccess) err = tw::map_f32(&map_h, h, rows, d_ff, d_ff, tw::ROWS);
+  if (err == cudaSuccess) err = tw::map_f32(&map_downt, downt, d, d_ff, d_ff, nb);
+  const size_t up_smem = tw::RING_SMEM + (d + tw::ROWS * H_LD) * sizeof(float);
+  if (err == cudaSuccess) err = allow_smem(ffn_f32_wide_up_kernel, up_smem);
+  if (err != cudaSuccess) return err;
+  const long tiles = static_cast<long>(images) * tw::tiles(tokens);
+  ffn_f32_wide_up_kernel<<<tw::grid(tiles * (d_ff / 64)), tw::THREADS, up_smem, st>>>(
+      map_x, map_upt, nscale, scale_stride, h, images, tokens, d, d_ff, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (nb == 128) {
+    err = allow_smem(ffn_f32_wide_down_kernel<128>, tw::RING_SMEM);
+    if (err != cudaSuccess) return err;
+    ffn_f32_wide_down_kernel<128><<<tw::grid(tiles * (d / 128)), tw::THREADS, tw::RING_SMEM, st>>>(
+        map_h, map_downt, x, out, images, tokens, d, d_ff);
+  } else {
+    err = allow_smem(ffn_f32_wide_down_kernel<64>, tw::RING_SMEM);
+    if (err != cudaSuccess) return err;
+    ffn_f32_wide_down_kernel<64><<<tw::grid(tiles * (d / 64)), tw::THREADS, tw::RING_SMEM, st>>>(
+        map_h, map_downt, x, out, images, tokens, d, d_ff);
+  }
+  return cudaGetLastError();
+}
+
+// The launch of K5 in f32, `strips` clusters of `ranks` blocks; with
+// `clusters`, it is not launched and the number of clusters that fit on
+// the device at once goes there instead (0 where the shared memory holds
+// fewer than two ring stages).
+template <int N>
+cudaError_t launch_mapping(const MapArgs& args, int strips, int ranks, cudaStream_t st,
+                           int* clusters) {
+  const MapLayout lay(args.d, args.d_ff, N, ranks);
+  if (lay.stages < 2) {
+    if (clusters == nullptr) return cudaErrorInvalidValue;
+    *clusters = 0;
+    return cudaSuccess;
+  }
+  cudaError_t err = allow_smem(mapping_f32_kernel<N>, lay.smem());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mapping_f32_kernel<N>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ranks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(strips * ranks);
+  cfg.blockDim = dim3(tw::THREADS);
+  cfg.dynamicSmemBytes = lay.smem();
+  cfg.stream = st;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(clusters, mapping_f32_kernel<N>, &cfg);
+  return cudaLaunchKernelEx(&cfg, mapping_f32_kernel<N>, args);
 }
 
 }  // namespace
@@ -773,23 +1258,21 @@ extern "C" int kdt_ffn_fwd_f32(const void* x, const void* nscale, const void* w_
 }
 
 // K4 in f32 on its wide route (any d and d_ff multiples of 64; the
-// wrapper takes it past d = 512): x, nscale, scale_stride, w_up, w_down
-// and out as kdt_ffn_fwd_f32's; h (rows, d_ff) f32 scratch.
+// wrapper takes it at d outside 64, 128, 256, 512): x, nscale,
+// scale_stride, w_up, w_down and out as kdt_ffn_fwd_f32's. Scratch f32:
+// w_upt (2 d_ff, d) and w_downt (d, d_ff), the rounded W_up^T and W_down^T
+// (its depth in order), and h (rows, d_ff).
 extern "C" int kdt_ffn_fwd_f32_wide(const void* x, const void* nscale, const void* w_up,
-                                    const void* w_down, void* out, void* h, int images,
-                                    int tokens, int d, int d_ff, int scale_stride, float eps,
-                                    void* stream) {
+                                    const void* w_down, void* out, void* w_upt, void* w_downt,
+                                    void* h, int images, int tokens, int d, int d_ff,
+                                    int scale_stride, float eps, void* stream) {
   if (d % 64 || d_ff % 64 || scale_stride < d || scale_stride % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  float* hf = static_cast<float*>(h);
-  cudaError_t err = launch_up(xf, static_cast<const float*>(nscale), scale_stride,
-                              static_cast<const float*>(w_up), hf, images, tokens, d, d_ff, eps,
-                              st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_down(hf, static_cast<const float*>(w_down), xf,
-                                      static_cast<float*>(out), images, tokens, d_ff, d, st));
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  return static_cast<int>(launch_ffn_wide(f(x), f(nscale), scale_stride, f(w_up), f(w_down),
+                                          o(out), o(w_upt), o(w_downt), o(h), images, tokens, d,
+                                          d_ff, eps, static_cast<cudaStream_t>(stream)));
 }
 
 // K10 in f32. x, g (rows, d) f32 with rows = images * tokens; nscale
@@ -847,36 +1330,54 @@ extern "C" int kdt_ffn_bwd_f32(const void* x, const void* nscale, const void* w_
   return static_cast<int>(err);
 }
 
-// K5 in f32. emb (b, d) f32; in_scale, out_scale (d,) f32; weights: 3 n
-// pointers, each block's norm scale (d,), W_up (d, 2 d_ff) and W_down
-// (d_ff, d), all f32; out (b, d) f32. Scratch f32: xa, xb (b, d), h (b,
-// d_ff) and part (ceil(d_ff / MAP_CHUNK), b, d), the down product's
-// partials over chunks of MAP_CHUNK hidden units. Needs d, d_ff % 64 == 0
-// and 1 <= n.
+// K5 in f32 in one launch. emb (b, d) f32; in_scale, out_scale (d,) f32;
+// weights: 3 n pointers, each block's norm scale (d,), W_up (d, 2 d_ff) and
+// W_down (d_ff, d), all f32, read as they lie; out (b, d) f32. A cluster of
+// `ranks` blocks (1 to 16, at most d_ff / 64) a strip of `rows` batch rows
+// (8, 16, 32 or 64); its shared memory (MapLayout) must hold two ring
+// stages. Where stamps is not null, (strips * ranks, MAP_TIMES) int64
+// clock64 counts a block: from its start to its last weight stage's
+// landing, waiting for stages, waiting at cluster barriers, to its end.
+// With `clusters` not null nothing is launched (the pointers may be null):
+// the number of such clusters that fit on the device at once, 0 where the
+// layout does not fit, is written there. Needs d, d_ff % 64 == 0 and 1 <=
+// n <= MAP_MAX_DEPTH.
 extern "C" int kdt_mapping_f32(const void* emb, const void* in_scale, const void* out_scale,
-                               const void* const* weights, void* out, void* xa, void* xb,
-                               void* h, void* part, int b, int d, int d_ff, int n_blocks,
-                               float eps, void* stream) {
-  if (d % 64 || d_ff % 64 || n_blocks < 1 || b < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float *x = static_cast<float*>(xa), *y = static_cast<float*>(xb), *hf = static_cast<float*>(h);
-  float* parts = static_cast<float*>(part);
-  cudaError_t err = launch_rms_rows(static_cast<const float*>(emb),
-                                    static_cast<const float*>(in_scale), x, b, d, eps, st);
-  for (int l = 0; l < n_blocks && err == cudaSuccess; ++l) {
-    const float* ns = static_cast<const float*>(weights[3 * l]);
-    const float* up = static_cast<const float*>(weights[3 * l + 1]);
-    const float* down = static_cast<const float*>(weights[3 * l + 2]);
-    err = launch_up(x, ns, 0, up, hf, 1, b, d, d_ff, eps, st);
+                               const void* const* weights, void* out, int b, int d, int d_ff,
+                               int n_blocks, int rows, int ranks, float eps, void* stream,
+                               void* stamps, int* clusters) {
+  if (d % 64 || d_ff % 64 || n_blocks < 1 || n_blocks > MAP_MAX_DEPTH || b < 1 || ranks < 1 ||
+      ranks > 16 || ranks > d_ff / 64 || (rows != 8 && rows != 16 && rows != 32 && rows != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MapArgs args = {};
+  args.emb = static_cast<const float*>(emb);
+  args.in_scale = static_cast<const float*>(in_scale);
+  args.out_scale = static_cast<const float*>(out_scale);
+  args.out = static_cast<float*>(out);
+  args.stamps = static_cast<long long*>(stamps);
+  args.b = b;
+  args.d = d;
+  args.d_ff = d_ff;
+  args.n = n_blocks;
+  args.eps = eps;
+  cudaError_t err = cudaSuccess;
+  for (int l = 0; clusters == nullptr && l < n_blocks && err == cudaSuccess; ++l) {
+    args.ns[l] = static_cast<const float*>(weights[3 * l]);
+    err = tw::map_f32(&args.up[l], static_cast<const float*>(weights[3 * l + 1]), d, 2 * d_ff,
+                      2 * d_ff, 32);
     if (err == cudaSuccess)
-      err = launch_down(hf, down, x, y, 1, b, d_ff, d, st, parts, MAP_CHUNK);
-    float* swap = x;
-    x = y;
-    y = swap;
+      err = tw::map_f32(&args.down[l], static_cast<const float*>(weights[3 * l + 2]), d_ff, d, d,
+                        32);
   }
-  if (err == cudaSuccess)
-    err = launch_rms_rows(x, static_cast<const float*>(out_scale), static_cast<float*>(out), b, d,
-                          eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int strips = (b + rows - 1) / rows;
+  switch (rows) {
+    case 8: err = launch_mapping<8>(args, strips, ranks, st, clusters); break;
+    case 16: err = launch_mapping<16>(args, strips, ranks, st, clusters); break;
+    case 32: err = launch_mapping<32>(args, strips, ranks, st, clusters); break;
+    default: err = launch_mapping<64>(args, strips, ranks, st, clusters); break;
+  }
   return static_cast<int>(err);
 }
 

@@ -1,9 +1,11 @@
-// The TF32 wgmma core of the float32 prologue and feed-forward block
-// (--mixed-precision no): their forwards K1 (fused_qkv_f32.cu,
-// qkv_f32_fwd_kernel) and K4 (geglu_f32.cu, ffn_f32_fwd_kernel, one launch
-// at d = 64, 128, 256 and 512) and their backwards K6 and K10 (the first
-// kernels there, dxn_kernel and dw_kernel here). K5 and K4's wide route (d
-// past 512) stay on gemm_tf32.cuh's mma.sync core.
+// The TF32 wgmma core of the float32 prologue, feed-forward block and
+// mapping network (--mixed-precision no): their forwards K1
+// (fused_qkv_f32.cu, qkv_f32_fwd_kernel), K4 (geglu_f32.cu,
+// ffn_f32_fwd_kernel, one launch at d = 64, 128, 256 and 512; at other
+// widths its wide route, ffn_f32_wide_up_kernel and
+// ffn_f32_wide_down_kernel) and K5 (geglu_f32.cu, mapping_f32_kernel, one
+// launch, the weights the M side of its products), and their backwards K6
+// and K10 (the first kernels there, dxn_kernel and dw_kernel here).
 //
 // What wgmma asks of a TF32 product, and how these kernels meet it:
 // - Both operands K-major. A B operand comes from shared memory and must
@@ -60,8 +62,8 @@
 // Accumulators. wgmma's m64nN f32 accumulator is mma.sync's m16n8 C
 // layout repeated along N: element 4 i + 2 h + e of a thread lies at row
 // 16 w + g + 8 h of the tile (w the consumer warp, 0-7; g = lane / 4) and
-// column 8 i + 2 t + e (t = lane % 4), as gemm_tf32.cuh's acc[j][i][2 h +
-// e]: the epilogues carry over.
+// column 8 i + 2 t + e (t = lane % 4), mma.sync m16n8's C layout repeated
+// along N.
 //
 // Row reductions (the weight gradients over row chunks, d(scale), d
 // (attn_scale)) are f32 partials summed in a fixed order, never atomics: a

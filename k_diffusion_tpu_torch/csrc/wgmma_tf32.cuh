@@ -1,5 +1,6 @@
 // The TF32 wgmma products shared by the float32 GEMM core of K1-f32,
-// K4-f32, K6-f32 and K10-f32 (gemm_tf32_wg.cuh) and the float32 attention:
+// K4-f32, K5-f32, K6-f32 and K10-f32 (gemm_tf32_wg.cuh; N from 8, K5-f32's
+// strip of batch rows, to 128) and the float32 attention:
 // the forward of K13-f32, K3-f32, K2-f32, K11-f32 and K15-f32's attention
 // (attn_tf32.cuh) and the backward of K14-f32, K9-f32, K7-f32 and K12-f32
 // (attn_tf32_bwd.cuh):
@@ -50,6 +51,45 @@ __device__ __forceinline__ uint64_t desc(const void* tile) {
 template <int N>
 __device__ __forceinline__ void mma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                     int acc);
+
+template <>
+__device__ __forceinline__ void mma<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                       int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                        int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                        int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void mma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,

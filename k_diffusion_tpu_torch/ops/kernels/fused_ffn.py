@@ -16,16 +16,15 @@ is forward-only; the backward K10 takes a contiguous scale.
 bfloat16 operands go to those kernels, float32 operands (a model built
 with ``dtype=torch.float32``, ``--mixed-precision no``) to their float32
 forms in ``csrc/geglu_f32.cu``: the same contract, products on the TF32
-tensor cores with f32 accumulation, any d and d_ff multiples of 64. The
-float32 forward is routed by width before any launch (``f32_route``): at
-d in ``ONE_LAUNCH_F32`` (64, 128, 256, 512: every shipped width but 768)
-``kdt_ffn_fwd_f32``, one launch of ``ffn_f32_fwd_kernel`` on the TF32
-``wgmma`` core ``csrc/gemm_tf32_wg.cuh`` with h in registers, after
-passes that copy the weights rounded to TF32 into scratch; at any other
-width ``kdt_ffn_fwd_f32_wide``, two kernels on the TF32 ``mma.sync`` core
-``csrc/gemm_tf32.cuh`` with the f32 h through device memory (scratch
-allocated on that route only). The backward ``kdt_ffn_bwd_f32`` runs on
-the ``wgmma`` core. Each dtype's launches are counted apart, one a
+tensor cores with f32 accumulation, any d and d_ff multiples of 64, all on
+the TF32 ``wgmma`` core ``csrc/gemm_tf32_wg.cuh`` after passes that copy
+the weights rounded to TF32 into scratch. The float32 forward is routed by
+width before any launch (``f32_route``): at d in ``ONE_LAUNCH_F32`` (64,
+128, 256, 512: every shipped width but 768) ``kdt_ffn_fwd_f32``, one
+launch of ``ffn_f32_fwd_kernel`` with h in registers; at any other width
+``kdt_ffn_fwd_f32_wide``, two kernels with h rounded to TF32 through
+device memory (its scratch allocated on that route only). The backward
+``kdt_ffn_bwd_f32``. Each dtype's launches are counted apart, one a
 wrapper call.
 """
 
@@ -41,6 +40,7 @@ from . import _build
 launches = 0      # forward wrapper calls that launched the kernels, bf16
 bwd_launches = 0  # backward wrapper calls that launched the kernels, bf16
 launches_f32 = 0      # forward wrapper calls on float32 operands
+wide_launches_f32 = 0  # of those, the ones on the wide route (f32_route)
 bwd_launches_f32 = 0  # backward wrapper calls on float32 operands
 
 DTYPES = (torch.bfloat16, torch.float32)  # x dtypes the kernels take
@@ -64,9 +64,9 @@ _BWD = [_P] * 16 + [ctypes.c_int] * 7 + [ctypes.c_float, _P]
 # tokens, d, d_ff, groups, scale_stride, eps, stream, clusters (int *: the
 # occupancy query)
 _F32_FWD = [_P] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
-# the wide route: x, scale, w_up, w_down, out, h, images, tokens, d, d_ff,
-# scale_stride, eps, stream
-_F32_FWD_WIDE = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
+# the wide route: x, scale, w_up, w_down, out, w_upt, w_downt, h, images,
+# tokens, d, d_ff, scale_stride, eps, stream
+_F32_FWD_WIDE = [_P] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
 # the widths the float32 forward takes in one launch, h in registers: a
 # block's output tiles in at most 128 registers a thread (at d = 512 two
 # blocks of a cluster own 256 columns each) and, at d <= 256, the resident
@@ -213,11 +213,12 @@ def forward_split_f32(images, tokens, d, d_ff, device):
 
 def forward_f32_scratch(d, d_ff, rows):
     """The float32 forward's scratch, name -> shape (float32), by route:
-    W_up^T and W_down^T rounded to TF32 on the one-launch route, h (rows,
-    d_ff) on the wide route."""
-    if f32_route(d) == "one":
-        return {"w_upt": (2 * d_ff, d), "w_downt": (d, d_ff)}
-    return {"h": (rows, d_ff)}
+    W_up^T and W_down^T rounded to TF32 on both, and h (rows, d_ff) on the
+    wide route."""
+    shapes = {"w_upt": (2 * d_ff, d), "w_downt": (d, d_ff)}
+    if f32_route(d) == "wide":
+        shapes["h"] = (rows, d_ff)
+    return shapes
 
 
 def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
@@ -249,6 +250,8 @@ def ffn_forward(x, scale, w_up, w_down, eps=1e-6):
             _build.launch(
                 lib, "kdt_ffn_fwd_f32_wide", "fused_ffn", x.device, *tensors,
                 b, t, d, d_ff, scale_stride, eps, _build.stream_ptr(x.device))
+            global wide_launches_f32
+            wide_launches_f32 += 1
         launches_f32 += 1
         return out
     warpgroups, out_tiles, groups = forward_split(b, t, d, d_ff, x.device)

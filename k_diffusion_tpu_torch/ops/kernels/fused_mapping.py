@@ -21,13 +21,18 @@ custom_vjp does (there is no Pallas backward). CPU tensors go to
 
 A float32 emb with the float32 compute dtype (a model built with
 ``dtype=torch.float32``, ``--mixed-precision no``) goes to the float32
-form in ``csrc/geglu_f32.cu`` (``kdt_mapping_f32``, on the TF32 core
-``csrc/gemm_tf32.cuh``): the network as 2 + 3 n kernels on f32 operands
-(the in norm, per block the GEGLU up product with its norm, the down
-product split over the hidden units and the sum of its partials with the
-residual, the out norm), products on the TF32 tensor cores with f32
-accumulation, any width (nothing resident, no cluster), the f32 weights
-read as they are. Its launches are counted apart, one a call.
+form in ``csrc/geglu_f32.cu`` (``kdt_mapping_f32``, ``mapping_f32_kernel``
+on the TF32 ``wgmma`` core ``csrc/gemm_tf32_wg.cuh``): one launch on the
+bf16 form's plan, a cluster of up to 16 ranks per strip of 8, 16, 32 or
+64 batch rows (``f32_plan``), each rank owning pairs of 32-unit hidden
+panels, the products swapped so that the model's f32 weights, read by TMA
+as they lie, are wgmma's 64-row side (the batch is N), the partials summed
+over the ranks in rank order in distributed shared memory. Products on the
+TF32 tensor cores with f32 accumulation, every operand rounded to TF32;
+norms, GELU and the residual stream in f32. It takes d and d_ff multiples
+of 64 as long as a strip of 8 rows and two weight stages fit a block
+(``f32_stages``; up to d 4 480 at d_ff 8 192), and raises by name past
+that before any launch. Its launches are counted apart, one a call.
 """
 
 import ctypes
@@ -55,11 +60,17 @@ _P = ctypes.c_void_p
 # occupancy query)
 _SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, _P, _P]
 # the float32 form: emb, in_scale, out_scale, weights (3 n pointers), out,
-# scratch xa, xb, h, part, batch, d, d_ff, n_blocks, eps, stream
-_F32_SIGNATURE = [_P] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, _P]
-# hidden units of a chunk of the float32 form's split down product
-# (csrc/geglu_f32.cu, MAP_CHUNK)
-F32_CHUNK = 256
+# batch, d, d_ff, n_blocks, strip rows, ranks, eps, stream, stamps (int64
+# clock counts a block, or None), clusters (int *: the occupancy query)
+_F32_SIGNATURE = [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] + [_P] * 3
+# the float32 form's strip widths (wgmma's N), hidden units of a rank's
+# pair of panels (its split's grain), ring stages (csrc/geglu_f32.cu:
+# MAP_STAGE bytes each, at most MAP_MAX_S) and the clock counts a block
+# writes with stamps (MAP_TIMES)
+F32_STRIPS = (8, 16, 32, 64)
+F32_PAIR = 64
+F32_STAGE, F32_MAX_STAGES = 16384, 16
+F32_TIMES = 4
 
 
 def reference(emb, in_scale, out_scale, blocks, eps=1e-6,
@@ -134,6 +145,72 @@ def cluster_size(index, d, d_ff, n, f32):
                      f"at d={d}, d_ff={d_ff}")
 
 
+def f32_rank_pairs(d_ff, ranks, rank):
+    """The pairs of 32-unit hidden panels [first, end), 64 units each, that
+    rank ``rank`` of a float32 cluster of ``ranks`` owns, as
+    ``mapping_f32_kernel`` splits them."""
+    pairs = d_ff // F32_PAIR
+    return pairs * rank // ranks, pairs * (rank + 1) // ranks
+
+
+def f32_stages(d, d_ff, rows, ranks):
+    """The ring stages of the float32 kernel's shared memory at a strip of
+    ``rows`` batch rows over ``ranks`` ranks, as ``MapLayout`` in
+    csrc/geglu_f32.cu sizes it: what is left beside the strip's xn (its f32
+    partial in the same place, rows of d + 4 floats), the rank's h tiles
+    and its owned rows' x and xn; fewer than 2 do not run."""
+    def up(n):
+        return -(-n // 1024) * 1024
+    xs = up(rows * (d + 4) * 4)
+    hs = 2 * -(-(d_ff // F32_PAIR) // ranks) * rows * 128
+    own = up(2 * -(-rows // ranks) * d * 4)
+    return min(F32_MAX_STAGES, (SMEM_MAX - 1024 - xs - hs - own) // F32_STAGE)
+
+
+def f32_check_width(d, d_ff):
+    """Raises ValueError, naming the limit, where no strip fits one block:
+    the narrowest strip (8 rows) at the most ranks leaves fewer than two
+    ring stages."""
+    ranks = min(CLUSTER_SIZES[0], d_ff // F32_PAIR)
+    if f32_stages(d, d_ff, F32_STRIPS[0], ranks) < 2:
+        raise ValueError(
+            f"fused_mapping float32 kernel: at d={d}, d_ff={d_ff} a strip of "
+            f"{F32_STRIPS[0]} batch rows and two weight stages do not fit "
+            f"one block's shared memory (the kernel takes up to d 4 480 at "
+            f"d_ff 8 192)")
+
+
+def _query_f32(index, d, d_ff, n, rows, ranks):
+    """How many float32 K5 clusters of ``ranks`` blocks at a strip of
+    ``rows`` rows fit on CUDA device ``index`` at once; 0 where the device
+    or the shared memory refuses the size."""
+    lib = _build.load("geglu_f32", kdt_mapping_f32=_F32_SIGNATURE)
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        status = lib.kdt_mapping_f32(None, None, None, None, None, rows, d,
+                                     d_ff, n, rows, ranks, 0.0, None, None,
+                                     ctypes.byref(clusters))
+    return clusters.value if status == 0 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(index, b, d, d_ff, n):
+    """The float32 kernel's (strip rows, ranks) on CUDA device ``index``:
+    the narrowest strip width that holds the batch (64 at most), narrowed
+    while its shared memory leaves fewer than two ring stages; the first of
+    ``CLUSTER_SIZES`` that does not exceed the pairs of panels and of which
+    the device can place a cluster. Raises ValueError where none fits."""
+    widest = next(r for r in F32_STRIPS if r >= min(b, F32_STRIPS[-1]))
+    for rows in reversed([r for r in F32_STRIPS if r <= widest]):
+        for ranks in CLUSTER_SIZES:
+            if (ranks <= d_ff // F32_PAIR
+                    and f32_stages(d, d_ff, rows, ranks) >= 2
+                    and _query_f32(index, d, d_ff, n, rows, ranks)):
+                return rows, ranks
+    raise ValueError(f"fused_mapping float32 kernel: no cluster of up to 16 "
+                     f"blocks fits at d={d}, d_ff={d_ff}")
+
+
 def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,
                     dtype=torch.bfloat16):
     """Launches K5 (its float32 form on a float32 emb and compute dtype) on
@@ -186,10 +263,14 @@ def mapping_forward(emb, in_scale, out_scale, blocks, eps=1e-6,
     return out
 
 
-def _forward_f32(emb, in_scale, out_scale, blocks, eps):
-    """K5's float32 form on a checked float32 emb: every weight float32."""
+def _forward_f32(emb, in_scale, out_scale, blocks, eps, stamps=None):
+    """K5's float32 form on a checked float32 emb: every weight float32.
+    ``stamps``, where given, is an int64 CUDA tensor of (strips * ranks,
+    F32_TIMES) that takes each block's clock counts (csrc/geglu_f32.cu,
+    kdt_mapping_f32)."""
     b, d = emb.shape
     d_ff = blocks[0][2].shape[0]
+    f32_check_width(d, d_ff)
     dev, f32 = emb.device, torch.float32
     _build.require(emb, "emb", dev, f32, (b, d))
     _build.require(in_scale, "in_scale", dev, f32, (d,))
@@ -200,17 +281,17 @@ def _forward_f32(emb, in_scale, out_scale, blocks, eps):
         _build.require(w_up, f"w_up {i}", dev, f32, (d, 2 * d_ff))
         _build.require(w_down, f"w_down {i}", dev, f32, (d_ff, d))
         weights += [ns, w_up, w_down]
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    rows, ranks = f32_plan(index, b, d, d_ff, len(blocks))
     out = torch.empty_like(emb)
-    xa, xb = torch.empty_like(emb), torch.empty_like(emb)
-    h = torch.empty((b, d_ff), device=dev, dtype=f32)
-    part = torch.empty((-(-d_ff // F32_CHUNK), b, d), device=dev, dtype=f32)
     lib = _build.load("geglu_f32", kdt_mapping_f32=_F32_SIGNATURE)
     _build.launch(
         lib, "kdt_mapping_f32", "fused_mapping", dev,
         *map(_build.ptr, (emb, in_scale, out_scale)),
         (_P * len(weights))(*(t.data_ptr() for t in weights)),
-        *map(_build.ptr, (out, xa, xb, h, part)), b, d, d_ff, len(blocks),
-        eps, _build.stream_ptr(dev))
+        _build.ptr(out), b, d, d_ff, len(blocks), rows, ranks, eps,
+        _build.stream_ptr(dev), None if stamps is None else _build.ptr(stamps),
+        None)
     global launches_f32
     launches_f32 += 1
     return out

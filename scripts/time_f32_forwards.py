@@ -1,7 +1,8 @@
 """Card time of the float32 forwards of the attention prologue (K1-f32,
-csrc/fused_qkv_f32.cu) and the feed-forward block (K4-f32,
-csrc/geglu_f32.cu) at the shapes their main paths give them, each held
-against its plain version with TF32 off and against a rerun of itself.
+csrc/fused_qkv_f32.cu), the feed-forward block (K4-f32, csrc/geglu_f32.cu,
+in one launch and on its wide route) and the mapping network (K5-f32, the
+same file) at the shapes their main paths give them, each held against its
+plain version with TF32 off and against a rerun of itself.
 
 Imports k_diffusion_tpu_torch from ``--root`` (by default this checkout),
 so that two trees can be timed in one run on one card: unpack the other
@@ -15,11 +16,13 @@ example
 Each shape's forward (one wrapper call, its weight-rounding passes
 included) is timed by CUDA events over 20 calls queued behind a sleep on
 the card, so that the events time the card and not the host's launch
-rate; the median of 5 trials. With ``--check`` each output is also held
-within 5e-3 x max|plain| of the plain version (TF32 off) and a rerun to
-bit-equality. Prints one JSON line: the root, the card's name and power
-limit, and ms per call by shape (and the worst error share with
-``--check``).
+rate; the median of 5 trials. ``--only K5`` (or K1, K4) times those
+kernels' shapes alone, ``--only hdit512`` a float32 denoiser call of
+config_512_hdit at batch 8 (TF32 on). With ``--check`` each kernel's
+output is also held within 5e-3 x max|plain| of the plain version (TF32
+off) and a rerun to bit-equality. Prints one JSON line: the root, the
+card's name and power limit, and ms per call by shape (and the worst error
+share with ``--check``).
 """
 
 import argparse
@@ -39,13 +42,21 @@ QKV_SHAPES = (("8x64x64x128", 8, 64, 64, 128, 2),
               ("8x8x8x64 e=32", 8, 8, 8, 64, 2),
               ("8x7x7x256", 8, 7, 7, 256, 4))
 # (label, b, tokens, d, d_ff): the same levels, config_mnist_transformer's
-# 49 tokens at d = 256 and config_512_hdit's 768 level (the wide route)
+# 49 tokens at d = 256, config_512_hdit's 768 level and a width of 960 (the
+# wide route)
 FFN_SHAPES = (("8x4096x128 f=384", 8, 4096, 128, 384),
               ("8x1024x256 f=768", 8, 1024, 256, 768),
               ("8x256x512 f=1536", 8, 256, 512, 1536),
               ("8x64x64 f=192", 8, 64, 64, 192),
               ("8x49x256 f=768", 8, 49, 256, 768),
-              ("8x256x768 f=2304", 8, 256, 768, 2304))
+              ("8x256x768 f=2304", 8, 256, 768, 2304),
+              ("8x256x960 f=1920", 8, 256, 960, 1920))
+# the batch of the config_512_hdit call (``--only hdit512``)
+CALL_BATCH = 8
+# (label, b, d, d_ff, blocks): the HDiT's mapping network at batch 8 and
+# the ViT's (DiT-B/2's width) at 64
+MAP_SHAPES = (("8x256 f=768", 8, 256, 768, 2),
+              ("64x768 f=2048", 64, 768, 2048, 2))
 
 
 def device_ms(fn, reps=20):
@@ -87,18 +98,46 @@ def check(label, run, plain):
     return worst
 
 
+def hdit512_call(dev, g):
+    """One denoiser call of configs/config_512_hdit.json (this checkout's)
+    built in float32 on the card from seeded weights at batch CALL_BATCH,
+    TF32 on: its 768-wide level runs K4-f32's wide route, its mapping
+    network K5-f32."""
+    import torch
+
+    import k_diffusion_tpu_torch as KT
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "configs", "config_512_hdit.json")
+    config = KT.config.load_config(path)
+    model = KT.config.make_model(config, dtype=torch.float32, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(0))
+    den = KT.config.make_denoiser_wrapper(config)(model.eval())
+    size = config["model"]["input_size"]
+    x = torch.randn((CALL_BATCH, *size, config["model"]["input_channels"]),
+                    generator=g).to(dev)
+    sigma = torch.linspace(0.5, 8.0, CALL_BATCH).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    return lambda: den(x, sigma)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--only", nargs="*", default=["K1", "K4", "K5"],
+                    help="what to time: K1, K4, K5 (their shapes), hdit512 "
+                         "(a config_512_hdit call)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
 
     from k_diffusion_tpu_torch.ops import rope
-    from k_diffusion_tpu_torch.ops.kernels import fused_ffn, fused_qkv
+    from k_diffusion_tpu_torch.ops.kernels import (fused_ffn, fused_mapping,
+                                                   fused_qkv)
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -110,26 +149,46 @@ def main():
 
     times, errors = {}, {}
     with torch.no_grad():
-        for label, b, h, w, d, heads in QKV_SHAPES:
-            x, ns = rnd(b, h, w, d), rnd(b, d, std=0.1, shift=1.0)
-            wq = rnd(d, 3 * d, std=d ** -0.5)
-            scale = (10 * (1 + 0.1 * torch.randn(heads, generator=g))).to(dev)
-            pos = rope.make_axial_pos(h, w, device=dev)
-            call = (x, pos, ns, wq, scale, heads)
-            run = lambda c=call: fused_qkv.prologue_forward(*c)
-            if args.check:
-                errors[f"K1-f32 {label}"] = check(
-                    label, run, lambda c=call: fused_qkv.reference(*c))
-            times[f"K1-f32 {label}"] = device_ms(run)
-        for label, b, t, d, d_ff in FFN_SHAPES:
-            call = (rnd(b, t, d), rnd(b, d, std=0.1, shift=1.0),
-                    rnd(d, 2 * d_ff, std=d ** -0.5),
-                    rnd(d_ff, d, std=d_ff ** -0.5))
-            run = lambda c=call: (fused_ffn.ffn_forward(*c),)
-            if args.check:
-                errors[f"K4-f32 {label}"] = check(
-                    label, run, lambda c=call: (fused_ffn.reference(*c),))
-            times[f"K4-f32 {label}"] = device_ms(run)
+        if "K1" in args.only:
+            for label, b, h, w, d, heads in QKV_SHAPES:
+                x, ns = rnd(b, h, w, d), rnd(b, d, std=0.1, shift=1.0)
+                wq = rnd(d, 3 * d, std=d ** -0.5)
+                scale = (10 * (1 + 0.1 * torch.randn(heads, generator=g))
+                         ).to(dev)
+                pos = rope.make_axial_pos(h, w, device=dev)
+                call = (x, pos, ns, wq, scale, heads)
+                run = lambda c=call: fused_qkv.prologue_forward(*c)
+                if args.check:
+                    errors[f"K1-f32 {label}"] = check(
+                        label, run, lambda c=call: fused_qkv.reference(*c))
+                times[f"K1-f32 {label}"] = device_ms(run)
+        if "K4" in args.only:
+            for label, b, t, d, d_ff in FFN_SHAPES:
+                call = (rnd(b, t, d), rnd(b, d, std=0.1, shift=1.0),
+                        rnd(d, 2 * d_ff, std=d ** -0.5),
+                        rnd(d_ff, d, std=d_ff ** -0.5))
+                run = lambda c=call: (fused_ffn.ffn_forward(*c),)
+                if args.check:
+                    errors[f"K4-f32 {label}"] = check(
+                        label, run, lambda c=call: (fused_ffn.reference(*c),))
+                times[f"K4-f32 {label}"] = device_ms(run)
+        if "K5" in args.only:
+            for label, b, d, d_ff, n in MAP_SHAPES:
+                blocks = [(rnd(d, std=0.1, shift=1.0),
+                           rnd(d, 2 * d_ff, std=d ** -0.5),
+                           rnd(d_ff, d, std=d_ff ** -0.5)) for _ in range(n)]
+                call = (rnd(b, d), rnd(d, std=0.1, shift=1.0),
+                        rnd(d, std=0.1, shift=1.0), blocks)
+                run = lambda c=call: (fused_mapping.mapping_forward(
+                    *c, dtype=torch.float32),)
+                if args.check:
+                    errors[f"K5-f32 {label}"] = check(
+                        label, run, lambda c=call: (fused_mapping.reference(
+                            *c, dtype=torch.float32),))
+                times[f"K5-f32 {label}"] = device_ms(run)
+        if "hdit512" in args.only:
+            times[f"config_512_hdit call at {CALL_BATCH}"] = device_ms(
+                hdit512_call(dev, g), reps=5)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

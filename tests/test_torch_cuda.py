@@ -578,13 +578,14 @@ def test_fused_qkv_float32(dev, no_tf32, b, h, w, d, heads):
 
 @pytest.mark.parametrize("b,t,d,d_ff", [(2, 49, 128, 384), (1, 72, 640, 1280),
                                         (3, 16, 64, 192), (2, 49, 256, 768),
-                                        (1, 100, 512, 1536)])
+                                        (1, 100, 512, 1536), (1, 16, 960, 1920),
+                                        (2, 49, 768, 2304)])
 def test_fused_ffn_float32(dev, no_tf32, b, t, d, d_ff):
     """K4's and K10's float32 forms against the plain versions, ragged row
-    tiles, at d = 640, wider than K10's bf16 form takes (K4 on its wide
-    route), and at d = 64, 256 and 512 (K4 in one launch: the x tile
-    resident, or streamed with the column slabs paired); the forward and
-    the backward reruns bit-equal."""
+    tiles, at d = 640, 768 and 960, wider than K10's bf16 form takes (K4 on
+    its wide route: 64- and 128-column items), and at d = 64, 256 and 512
+    (K4 in one launch: the x tile resident, or streamed with the column
+    slabs paired); the forward and the backward reruns bit-equal."""
     g = torch.Generator().manual_seed(26)
     args = (f32(g, dev, b, t, d), f32(g, dev, b, d, std=0.1, shift=1.0),
             f32(g, dev, d, 2 * d_ff, std=d ** -0.5),
@@ -603,11 +604,14 @@ def test_fused_ffn_float32(dev, no_tf32, b, t, d, d_ff):
 
 
 @pytest.mark.parametrize("b,d,d_ff,n", [(3, 256, 768, 2), (70, 768, 2048, 2),
-                                        (1, 64, 192, 1)])
+                                        (1, 64, 192, 1), (8, 256, 768, 2),
+                                        (20, 256, 768, 3), (130, 256, 768, 2),
+                                        (9, 1024, 4096, 8)])
 def test_fused_mapping_float32(dev, no_tf32, b, d, d_ff, n):
     """K5's float32 form against the plain version at the HDiT's and the
-    ViT's widths, a batch past one 64-row tile and one row; one counted
-    launch a call."""
+    ViT's widths (strips of 8, 32 and 64 rows, the last ragged), one row, a
+    batch past one strip of 64 and the deepest network at d 1024; one
+    counted launch a call, a rerun bit-equal."""
     g = torch.Generator().manual_seed(27)
     blocks = [(f32(g, dev, d, std=0.1, shift=1.0),
                f32(g, dev, d, 2 * d_ff, std=d ** -0.5),
@@ -617,6 +621,8 @@ def test_fused_mapping_float32(dev, no_tf32, b, d, d_ff, n):
     got = counted(fused_mapping, lambda: fused_mapping.mapping_forward(
         *args, dtype=torch.float32), "launches_f32")
     f32_close(got, fused_mapping.reference(*args, dtype=torch.float32))
+    assert torch.equal(got, fused_mapping.mapping_forward(
+        *args, dtype=torch.float32))
 
 
 @pytest.mark.parametrize("b,s,heads", [(2, 64, 2), (1, 256, 8), (3, 48, 1)])

@@ -5,8 +5,8 @@ K3/K9; tests/test_torch_float32_na.py has K2/K7 and K11/K12) against the JAX pac
 arithmetic of the float32 kernels (csrc/fused_qkv_f32.cu, geglu_f32.cu:
 the norm folded into the products, the per-panel epilogues, the RMS-norm
 VJP from per-panel dot partials, the split-K weight gradients, the mapping
-network as its up and down kernels) mirrored in torch against the JAX
-VJP; each wrapper's dispatch by dtype with the library stood in for; the
+network's hidden units over a cluster's ranks) mirrored in torch against
+the JAX VJP; each wrapper's dispatch by dtype with the library stood in for; the
 float32 residual stash of K3; and 2-step float32 trainer runs of a
 narrowed config_cifar10_transformer.json, of a small ViT and of a narrowed
 config_oxford_flowers.json (a neighborhood level kept) against JAX's
@@ -132,12 +132,15 @@ def blocks_of(flat):
 
 
 # (name, case): the shifted-window config's levels 0 and 2 and
-# config_test_tiny's head dim 32; the HDiT's mapping network (resident in
-# the bf16 kernel) and the ViT's at DiT-B/2's width (streamed there)
+# config_test_tiny's head dim 32; K4 also on its float32 wide route, at
+# config_512_hdit's 768 level and at 960; the HDiT's mapping network
+# (resident in the bf16 kernel) and the ViT's at DiT-B/2's width (streamed
+# there)
 QKV_CASES = {"d128": (1, 8, 8, 128, 64), "d512": (1, 4, 4, 512, 64),
              "tiny_e32": (2, 4, 4, 64, 32)}
 FFN_CASES = {"d128": (1, 64, 128, 384), "d512": (1, 16, 512, 1536),
-             "tiny": (2, 16, 64, 192)}
+             "tiny": (2, 16, 64, 192), "d768": (1, 16, 768, 2304),
+             "d960": (1, 8, 960, 1920)}
 MAPPING_CASES = {"hdit": (3, 256, 768), "vit": (2, 768, 2048)}
 
 
@@ -324,8 +327,8 @@ def ffn_f32_mirror(x, ns, w_up, w_down, g, rnd=plain, groups=1):
     rounded once on chip and the hidden panels of ``f32_units`` units over
     a cluster of ``groups`` ranks (panels r, r + groups, ... of rank r),
     each rank's partial summed over its panels in order, the partials in
-    rank order, then x; on the wide route h through device memory and the
-    down kernel with the residual. K10-f32: the up product and dh =
+    rank order, then x; on the wide route (its two kernels) h rounded once
+    into device memory and the down kernel with the residual. K10-f32: the up product and dh =
     rnd(g) rnd(W_down)^T, dot partials per 64-unit panel, dxn = rnd(dup)
     rnd(W_up)^T, dW_up = rnd(xn)^T rnd(dup) and dW_down = (rnd(g)^T
     rnd(h))^T over the wrapper's row chunks."""
@@ -498,24 +501,36 @@ def test_float32_forward_rounding_against_float64(name, record_property):
     hold_rounding(f"{name} forward", run, want, record_property)
 
 
-def mapping_f32_mirror(emb, s_in, s_out, blocks):
-    """K5-f32 as its 2 + 3 n kernels compute it: rms_rows_kernel, per block
-    ffn_f32_up_kernel (the block's scale for every row, r applied after
-    the product), ffn_f32_down_kernel's partials over chunks of 256 hidden
-    units and add_parts_kernel (the residual, then each partial in chunk
-    order), rms_rows_kernel."""
+def mapping_f32_mirror(emb, s_in, s_out, blocks, ranks=1, rnd=plain):
+    """K5-f32 as mapping_f32_kernel computes it, ``rnd`` applied where it
+    rounds to TF32: x = RMSNorm(emb, s_in); per block xn = rnd(RMSNorm(x,
+    ns)) (rounded where it lands in shared memory), a | gate = xn rnd(W_up)
+    (the weights rounded as read), h = rnd(a gelu(gate)) (rounded where it
+    lands), each rank's partial h rnd(W_down) over its pairs of 32-unit
+    panels (``f32_rank_pairs``), the partials summed in rank order, then
+    added to x; the out norm."""
     def rms_rows(x, s):
         return x * (s * torch.rsqrt(x.square().mean(-1, keepdim=True) + EPS))
 
     x = rms_rows(emb, s_in)
     for ns, w_up, w_down in blocks:
-        r = torch.rsqrt(x.square().mean(-1, keepdim=True) + EPS)
-        a, gate = (r * ((x * ns) @ w_up)).chunk(2, -1)
-        h = a * F.gelu(gate)
-        chunk = fused_mapping.F32_CHUNK
-        for c in range(0, h.shape[-1], chunk):
-            x = x + h[:, c:c + chunk] @ w_down[c:c + chunk]
+        d_ff = w_down.shape[0]
+        up = rnd(rms_rows(x, ns)) @ rnd(w_up)
+        h = rnd(up[:, :d_ff] * F.gelu(up[:, d_ff:]))
+        total = torch.zeros_like(x)
+        for rank in range(ranks):
+            first, end = fused_mapping.f32_rank_pairs(d_ff, ranks, rank)
+            units = slice(fused_mapping.F32_PAIR * first,
+                          fused_mapping.F32_PAIR * end)
+            total = total + h[:, units] @ rnd(w_down)[units]
+        x = x + total
     return rms_rows(x, s_out)
+
+
+def jax_mapping(flat):
+    return j_map.fused_mapping(*map(jnp.asarray, flat[:3]),
+                               blocks_of(list(map(jnp.asarray, flat))),
+                               dtype=jnp.float32)
 
 
 @pytest.mark.parametrize("case", list(MAPPING_CASES))
@@ -523,10 +538,39 @@ def test_fused_mapping_f32_kernel_arithmetic_matches_jax(case):
     flat, _ = mapping_case(7, *MAPPING_CASES[case])
     t = [torch.from_numpy(a) for a in flat]
     got = mapping_f32_mirror(t[0], t[1], t[2], blocks_of(t))
-    want = j_map.fused_mapping(*map(jnp.asarray, flat[:3]),
-                               blocks_of(list(map(jnp.asarray, flat))),
-                               dtype=jnp.float32)
-    close(got, want, F32_TOL)
+    close(got, jax_mapping(flat), F32_TOL)
+
+
+@pytest.mark.parametrize("case,ranks", [("hdit", 12), ("hdit", 5),
+                                        ("vit", 16), ("vit", 3)])
+def test_fused_mapping_f32_cluster_partials_match_jax(case, ranks):
+    """K5-f32's hidden units over a cluster of ``ranks`` ranks (pairs of
+    32-unit panels in ranges as even as they come), each rank's partial
+    summed in rank order, against the JAX forward (the summation order is
+    the kernel's, the sum the same)."""
+    flat, _ = mapping_case(22, *MAPPING_CASES[case], n=3)
+    t = [torch.from_numpy(a) for a in flat]
+    got = mapping_f32_mirror(t[0], t[1], t[2], blocks_of(t), ranks=ranks)
+    close(got, jax_mapping(flat), F32_TOL)
+    d_ff = MAPPING_CASES[case][2]
+    spans = [fused_mapping.f32_rank_pairs(d_ff, ranks, r) for r in range(ranks)]
+    assert spans[0][0] == 0 and spans[-1][1] == d_ff // fused_mapping.F32_PAIR
+    assert all(a[1] == b[0] and a[1] > a[0] for a, b in zip(spans, spans[1:]))
+
+
+def test_float32_mapping_rounding_against_float64(record_property):
+    """K5-f32's mirror in float64 at the HDiT's width over a cluster of 12,
+    every product operand rounded as the kernel rounds it (xn and h where
+    they land, the weights as read), against the plain version in float64:
+    its error at most TF32_SHARE x the bf16-rounded mirror's (phase 26
+    (b)'s check on the card); the truncated variant's share recorded."""
+    flat, _ = mapping_case(23, 8, 256, 768)
+    wide = [torch.from_numpy(a).double() for a in flat]
+    want = (fused_mapping.reference(*wide[:3], blocks_of(wide),
+                                    dtype=torch.float64),)
+    hold_rounding("fused_mapping", lambda rnd: (mapping_f32_mirror(
+        *wide[:3], blocks_of(wide), ranks=12, rnd=rnd),), want,
+        record_property)
 
 
 # ---- each wrapper's dispatch by dtype ------------------------------------------
@@ -553,6 +597,7 @@ def fake_library(monkeypatch):
     monkeypatch.setattr(fused_ffn, "forward_split", lambda *a: (1, 1, 1))
     monkeypatch.setattr(fused_ffn, "forward_split_f32", lambda *a: 1)
     monkeypatch.setattr(fused_mapping, "cluster_size", lambda *a: 1)
+    monkeypatch.setattr(fused_mapping, "f32_plan", lambda *a: (8, 1))
     for module in (fused_qkv, fused_ffn, fused_mapping, global_packed):
         for attr in ("launches", "bwd_launches", "launches_f32",
                      "bwd_launches_f32"):
@@ -841,8 +886,9 @@ def test_float32_ffn_forward_routes_by_width(fake_library, monkeypatch,
     """K4-f32's forward is routed by width before any launch: one launch of
     kdt_ffn_fwd_f32 at d = 64, 128, 256 and 512, told the rounded W_up^T (2
     d_ff, d) and W_down^T (d, d_ff) float32 scratch, no h; past them
-    kdt_ffn_fwd_f32_wide, with h (rows, d_ff) float32 and no weight copy.
-    One launch counted either way (csrc/geglu_f32.cu's contracts)."""
+    kdt_ffn_fwd_f32_wide, with the same weight copies and h (rows, d_ff)
+    float32. One launch counted either way (csrc/geglu_f32.cu's
+    contracts)."""
     seen = []
 
     def ptr(t):
@@ -863,13 +909,87 @@ def test_float32_ffn_forward_routes_by_width(fake_library, monkeypatch,
         assert args[7:12] == [b, tok, d, d_ff, 1] and args[15] is None
     else:
         assert entry == "kdt_ffn_fwd_f32_wide"
-        scratch, want = seen[5:6], [(rows, d_ff)]
-        assert args[6:10] == [b, tok, d, d_ff]
+        scratch, want = seen[5:8], [(2 * d_ff, d), (d, d_ff), (rows, d_ff)]
+        assert args[8:13] == [b, tok, d, d_ff, d]
     assert len(seen) == 5 + len(want)
     for tensor, shape in zip(scratch, want):
         assert tensor.dtype == torch.float32 and tensor.is_contiguous()
         assert tuple(tensor.shape) == shape
     assert out.shape == (b, tok, d) and counts(fused_ffn)[:2] == (0, 1)
+
+
+# K5-f32's plan, as the module defines it (the fake library stands in a
+# fixed one)
+FUSED_F32_PLAN = fused_mapping.f32_plan
+# (b, d, d_ff, n) of K5-f32 -> (strip rows, ranks) its plan takes on a
+# card that places every cluster: the flagship's at batch 8 (12 ranks of
+# one pair), the ViT's at 64 (a strip of 64 leaves no ring stage at d
+# 768: two strips of 32), a batch of 3 and one of 20, 130 rows at d 256 (3
+# strips of 64) and the widest width it takes at d_ff 8 192
+F32_MAPPING_PLANS = {(8, 256, 768, 2): (8, 12), (64, 768, 2048, 2): (32, 16),
+                     (3, 128, 192, 1): (8, 3), (20, 256, 768, 3): (32, 12),
+                     (130, 256, 768, 2): (64, 12),
+                     (2, 4480, 8192, 1): (8, 16)}
+
+
+@pytest.mark.parametrize("case", list(F32_MAPPING_PLANS))
+def test_float32_mapping_is_one_launch(fake_library, monkeypatch, case):
+    """K5-f32 is one launch of kdt_mapping_f32 (csrc/geglu_f32.cu's
+    contract): emb, the scales and out by pointer, the model's float32
+    weights by pointer as they lie (no copy, no scratch), the batch, the
+    widths and depth, the strip rows and ranks of its plan (``f32_plan``,
+    the narrowest strip that holds the batch, narrowed while its shared
+    memory leaves fewer than two ring stages, the most ranks up to the
+    pairs of panels), no stamps; one launch counted."""
+    seen = []
+
+    def ptr(t):
+        seen.append(t)
+        return ctypes.c_void_p(t.data_ptr())
+
+    monkeypatch.setattr(_build, "ptr", ptr)
+    monkeypatch.setattr(fused_mapping, "f32_plan", FUSED_F32_PLAN)
+    monkeypatch.setattr(fused_mapping, "_query_f32", lambda *a: 1)
+    FUSED_F32_PLAN.cache_clear()
+    b, d, d_ff, n = case
+    rng = np.random.default_rng(24)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    emb, ones = t(b, d), torch.ones(d)
+    if d_ff > 2048:  # the widest width: weights of no size, the plan alone
+        blocks = [(ones, torch.empty(d, 2 * d_ff), torch.empty(d_ff, d))]
+    else:
+        blocks = [(1 + t(d), t(d, 2 * d_ff), t(d_ff, d)) for _ in range(n)]
+    try:
+        out = fused_mapping.mapping_forward(emb, ones, ones, blocks,
+                                            dtype=torch.float32)
+    finally:
+        FUSED_F32_PLAN.cache_clear()
+    (entry, args), = fake_library
+    assert entry == "kdt_mapping_f32"
+    assert [id(x) for x in seen] == [id(x) for x in (emb, ones, ones, out)]
+    weights = [p for p in args[3]]
+    assert weights == [w.data_ptr() for blk in blocks for w in blk]
+    assert args[5:11] == [b, d, d_ff, n, *F32_MAPPING_PLANS[case]]
+    assert args[13:] == [None, None]
+    assert out.shape == (b, d) and out.dtype == torch.float32
+    assert counts(fused_mapping)[:2] == (0, 1)
+
+
+@pytest.mark.parametrize("d,d_ff", [(4544, 8192), (8192, 768), (2048, 65536)])
+def test_float32_mapping_refuses_past_its_width_before_any_launch(
+        fake_library, d, d_ff):
+    """Where a strip of 8 rows and two weight stages do not fit one
+    block's shared memory, K5-f32 raises ValueError by name before any
+    launch or occupancy query; d 4 480 at d_ff 8 192 and the ViT's and
+    the HDiT's widths fit."""
+    emb, ones = torch.zeros(1, d), torch.ones(d)
+    blocks = [(ones, torch.empty(d, 0), torch.empty(d_ff, 0))]
+    with pytest.raises(ValueError, match="fused_mapping float32 kernel"):
+        fused_mapping.mapping_forward(emb, ones, ones, blocks,
+                                      dtype=torch.float32)
+    assert not fake_library
+    for ok in ((4480, 8192), (2048, 8192), (768, 2048), (256, 768)):
+        fused_mapping.f32_check_width(*ok)
 
 
 @pytest.mark.parametrize("case", [(2, 7, 7, 128, 2), (3, 4, 4, 64, 2),

@@ -627,7 +627,8 @@ def test_kernel_launches_under_its_tensors_device(entry, monkeypatch):
     monkeypatch.setattr(_build, "stream_ptr", lambda device: None)
     monkeypatch.setattr(_build, "sm_count", lambda device: 132)
     cached = (fused_qkv._blocks_per_sm, fused_ffn._clusters,
-              fused_ffn._clusters_f32, fused_mapping.cluster_size)
+              fused_ffn._clusters_f32, fused_mapping.cluster_size,
+              fused_mapping.f32_plan)
     for fn in cached:
         fn.cache_clear()
     try:
